@@ -3,16 +3,30 @@
 
   python3 chip_smoke.py
 
-Phases, any failure exits nonzero:
-  0  the card: torch.cuda must see a GPU (no CPU run), name and power limit
+Phases, any failure exits nonzero (no phase falls back to the CPU or to a
+plain version):
+  0  the card: torch.cuda must see a GPU, name and power limit
   1  build the CUDA kernels in satnerf_tpu_torch/csrc/ with nvcc (sm_90a)
-  2  each kernel against its plain PyTorch version on the card, at 8 x 512,
-     64 samples, 8192 + 37 rays (a ragged edge), sat-nerf and s-nerf, fp32 and
-     bf16, with the compositing weights; max errors and times printed
+  2  the serving kernels (K2) against their plain PyTorch versions on the
+     card, at 8 x 512, 64 samples, 8192 + 37 rays (a ragged edge), sat-nerf
+     and s-nerf, fp32 and bf16, with the compositing weights; then every
+     kernel alone at its main-path shape: time, plain version's time, the
+     one library call that computes the same function, and the card's bound
+  2b the training kernels (K1) against their plain versions, at 8 x 512,
+     64 samples, 1024 and 1000 + 37 rays: sat-nerf with the beta gate at 1
+     and at 0 (with sigma noise and the weights output), s-nerf; fp32 and
+     bf16; loss parts, every gradient by name, t_grad, weights, and every
+     launch of the chain alone
   3  the serving path through its entry point: a 128 x 128 synthetic AOI,
      a seeded sat-nerf 8 x 512 checkpoint, create_pretty_dsm on the card
-     (finite DSM and MAE, every kernel launched), then render_image on
-     262,144 rays for a rays/s reading
+     (finite DSM and MAE, every serving kernel launched), then render_image
+     on 262,144 rays for a rays/s reading
+  4  the training path through its entry point: cli.train on that AOI at
+     8 x 512, 64 samples, batch 1024, bf16, across two epoch boundaries and
+     the beta switch-on, with validation and checkpoints; a second call
+     resumes from the checkpoint; create_pretty_dsm serves the trained
+     weights. Every kernel must have been launched, the loss must fall, the
+     resumed run must start at the saved step and the trained loss level
 
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Scratch files go to build/chip_smoke/.
@@ -32,9 +46,22 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
-KERNEL_SOURCE = "satnerf_tpu_torch/csrc/fused_render.cu"
-TPU_KERNEL = "satnerf_tpu/ops/pallas/fused_mlp.py:1035"
+TRAIN_KERNELS = ("siren_dense", "composite_loss_bwd", "siren_dense_dgrad",
+                 "siren_dense_wgrad")
+TPU_KERNEL = {"render": "satnerf_tpu/ops/pallas/fused_mlp.py:1035",
+              "train": "satnerf_tpu/ops/pallas/fused_mlp.py:1536"}
+KERNELS = {  # name -> (source in the repo, the TPU kernel it replaces)
+    "siren_dense": ("satnerf_tpu_torch/csrc/fused_render.cu", "render"),
+    "heads_composite": ("satnerf_tpu_torch/csrc/fused_render.cu", "render"),
+    "composite_loss_bwd": ("satnerf_tpu_torch/csrc/fused_train.cu", "train"),
+    "siren_dense_dgrad": ("satnerf_tpu_torch/csrc/fused_train.cu", "train"),
+    "siren_dense_wgrad": ("satnerf_tpu_torch/csrc/fused_train.cu", "train"),
+}
 LAYERS, FEAT, SAMPLES, TAU = 8, 512, 64, 4
+BATCH = 1024  # rays a training step draws (--batch_size default)
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
+# the yardsticks of the bound_ms column.
+PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 N_RAYS = 8192 + 37
 CHUNK = 65536  # rays a render_image chunk holds (--chunk default)
 DEPTH_RANGE = 1.0  # far - near of the phase 2 rays
@@ -50,6 +77,24 @@ DEPTH_RANGE = 1.0  # far - near of the phase 2 rays
 #   bf16 at most one bf16 rounding step, 2^-7 * |ref| + 1e-4.
 # heads_composite alone: identical operands, fp32 arithmetic, 1e-4.
 K2_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+# K1, each launch alone against its plain version on the same inputs: both
+#   round the same operands at the same points and sum in fp32, the kernels
+#   in another order and, across blocks, by atomicAdd in an order that
+#   changes from run to run. Over sums of up to 66,368 points that stays
+#   below 1e-3 of the tensor's largest entry. The cotangents that
+#   composite_loss_bwd writes are products of a value rounded to bf16; where
+#   the two sides land on either side of a rounding boundary the entry
+#   differs by one bf16 step, 2^-7 of itself.
+K1_STAGE_TOL = 1e-3
+# K1 as a whole against the plain version (autograd through the field
+#   module): fp32 differs by summation order only, 1e-3 of each gradient's
+#   largest entry. In bf16 the forward's activations differ by rounding-
+#   boundary steps that travel through the layers (see K2_TOL) and the
+#   backward adds its own; the gradients agree to 5e-2 of each tensor's
+#   largest entry, the loss parts to 2e-2 of their value.
+K1_GRAD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+K1_PART_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+K1_RAYS = (1024, 1000 + 37)
 
 
 def log(msg: str) -> None:
@@ -156,32 +201,197 @@ class StageCheck:
         return out, w
 
 
-def _time_kernels(packed: dict, dtype, dname: str, dev) -> dict:
-    """Kernel and plain ms of one trunk layer (the skip layer) and of the
-    compositor at the main path's shapes: one chunk of CHUNK rays x 64
-    samples, 4.19 M points."""
+def _rel_err(got, ref) -> float:
+    """max |got - ref| relative to the reference tensor's largest entry."""
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+class TrainCheck:
+    """Stands in for the four stage functions of the training chain
+    (ops/fused_mlp.TrainOps): launches each kernel, runs its plain version
+    on the same inputs and records the error against K1_STAGE_TOL."""
+
+    def __init__(self, dtype):
+        self.bf16 = str(dtype).endswith("bfloat16")
+        self.err = dict.fromkeys(("siren_dense", "composite_loss_bwd",
+                                  "siren_dense_dgrad", "siren_dense_wgrad"), 0.0)
+        self.bad = []
+
+    def _hold(self, kernel, what, got, ref, tol_rel_max, elementwise=False):
+        if ref is None:
+            return
+        got, ref = got.float(), ref.float()
+        diff = (got - ref).abs()
+        scale = ref.abs().max().clamp_min(1e-30)
+        self.err[kernel] = max(self.err[kernel], diff.max().item())
+        lim = tol_rel_max * scale
+        if elementwise and self.bf16:  # one bf16 rounding step of the entry
+            lim = lim + 2.0 ** -7 * ref.abs()
+        if bool((diff > lim).any()):
+            self.bad.append(f"{kernel} {what}: max err {diff.max().item():.3g} "
+                            f"(tensor max {scale.item():.3g})")
+
+    def dense(self, *args, **kw):
+        from satnerf_tpu_torch.ops import fused_mlp as FM
+
+        out = FM.siren_dense(*args, **kw)
+        ref = FM.siren_dense_reference(*args, **kw)
+        if not kw.get("save"):
+            out, ref = (out, None), (ref, None)
+        y, y_ref = out[0].float(), ref[0].float()
+        diff = (y - y_ref).abs()
+        tol = (2.0 ** -7 * y_ref.abs() + 1e-4 if self.bf16
+               else 1e-4 * y_ref.abs() + 1e-4)
+        self.err["siren_dense"] = max(self.err["siren_dense"], diff.max().item())
+        if bool((diff > tol).any()):
+            self.bad.append(f"siren_dense extra={kw.get('extra')} max err "
+                            f"{diff.max().item():.3g}")
+        if kw.get("save"):
+            w0 = kw.get("w0", 1.0)
+            e = (out[1] - ref[1]).abs().max().item()
+            if e > 1e-5 * w0 * w0 + 1e-4:
+                self.bad.append(f"siren_dense slope w0={w0} max err {e:.3g}")
+            return out
+        return out[0]
+
+    def composite(self, *args, **kw):
+        from satnerf_tpu_torch.ops import fused_mlp as FM
+
+        out = FM.composite_loss_bwd(*args, **kw)
+        ref = FM.composite_loss_bwd_reference(*args, **kw)
+        for k in ref:
+            self._hold("composite_loss_bwd", k, out[k], ref[k],
+                       K1_STAGE_TOL, elementwise=k.startswith("d_"))
+        return out
+
+    def dgrad(self, dy, slope, weight, out=None):
+        from satnerf_tpu_torch.ops import fused_mlp as FM
+
+        base = None if out is None else out.clone()
+        got = FM.siren_dense_dgrad(dy, slope, weight, out=out)
+        ref = FM.siren_dense_dgrad_reference(dy, slope, weight, out=base)
+        self._hold("siren_dense_dgrad", f"N={dy.shape[1]} K={weight.shape[0]}",
+                   got, ref, K1_STAGE_TOL)
+        return got
+
+    def wgrad(self, *args, **kw):
+        from satnerf_tpu_torch.ops import fused_mlp as FM
+
+        got = FM.siren_dense_wgrad(*args, **kw)
+        ref = FM.siren_dense_wgrad_reference(*args, **kw)
+        for name, a, b in zip(("dW", "db", "dC", "dE"), got, ref):
+            self._hold("siren_dense_wgrad", f"{name} extra={kw.get('extra')}",
+                       a, b, K1_STAGE_TOL)
+        return got
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _bound(nbytes: int, flops: float) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over the card's memory rate
+    and operations over its bf16 tensor-core peak."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _time_kernels(packed: dict, dev) -> dict:
+    """Each kernel alone in bf16 at the shape its main path gives it: the
+    serving kernels at one chunk of CHUNK rays x 64 samples (4.19 M points),
+    the training kernels at one batch of BATCH rays x 64 (65,536 points);
+    for the dense kernels the 512 x 512 skip layer. Returns name ->
+    {ms, plain_ms, library_ms, bound_ms, bound_by}. bound_ms counts every
+    input read once and every output written once, and 2*P*K*N operations
+    for the dense kernels; library_ms times the one PyTorch call that
+    computes the same function in the kernel's dtype, where there is one."""
     import torch
     from satnerf_tpu_torch.ops import fused_mlp as FM
 
+    dtype, fh = torch.bfloat16, FEAT // 2
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def rand(*shape, to=dtype):
+        return (torch.rand(*shape, generator=g, device=dev) * 2 - 1).to(to)
+
+    def entry(fn, plain, library, nbytes, flops):
+        bound_ms, by = _bound(nbytes, flops)
+        return {"ms": _cuda_ms(fn), "plain_ms": _cuda_ms(plain),
+                "library_ms": None if library is None else _cuda_ms(library),
+                "bound_ms": bound_ms, "bound_by": by}
+
+    w, bias, c = packed["B"][3], packed["bt"][4], packed["C"]
+    out = {}
+
+    # ---- serving shapes
     o, d, sun, t, z = _inputs(CHUNK, 3, dev)
     rays16 = FM.pack_rays(o, d, sun, t, TAU)
-    p, fh = CHUNK * SAMPLES, FEAT // 2
-    g = torch.Generator(device=dev).manual_seed(4)
-    h = (torch.rand(p, FEAT, generator=g, device=dev) * 2 - 1).to(dtype)
-    args = (h, packed["B"][3], packed["bt"][4], rays16, SAMPLES)
-    dkw = dict(extra="xyz", extra_weight=packed["C"], z=z)
-    times = {("siren_dense", dname): (
-        _cuda_ms(lambda: FM.siren_dense(*args, **dkw)),
-        _cuda_ms(lambda: FM.siren_dense_reference(*args, **dkw)))}
-    hs = [(torch.rand(p, fh, generator=g, device=dev) * 2 - 1).to(dtype)
-          for _ in range(3)]
-    skyh = torch.rand(CHUNK, fh, generator=g, device=dev).to(dtype)
+    p = CHUNK * SAMPLES
+    h = rand(p, FEAT)
+    args = (h, w, bias, rays16, SAMPLES)
+    dkw = dict(extra="xyz", extra_weight=c, z=z)
+    y_bytes = p * FEAT * 2
+    out["siren_dense"] = entry(
+        lambda: FM.siren_dense(*args, **dkw),
+        lambda: FM.siren_dense_reference(*args, **dkw),
+        lambda: torch.sin(torch.addmm(bias.to(dtype), h, w)),
+        _nbytes(h, w, bias, rays16, z, c) + y_bytes,
+        2.0 * p * FEAT * (FEAT + 3))
+    hs = [rand(p, fh) for _ in range(3)]
+    skyh = rand(CHUNK, fh).abs()
     hargs = (h, *hs, skyh, packed["wn"], packed["bn"], z)
     hkw = dict(rgb_padding=0.001, return_weights=True)
-    times[("heads_composite", dname)] = (
-        _cuda_ms(lambda: FM.heads_composite(*hargs, **hkw)),
-        _cuda_ms(lambda: FM.heads_composite_reference(*hargs, **hkw)))
-    return times
+    out["heads_composite"] = entry(
+        lambda: FM.heads_composite(*hargs, **hkw),
+        lambda: FM.heads_composite_reference(*hargs, **hkw), None,
+        _nbytes(*hargs) + CHUNK * 16 * 4 + CHUNK * SAMPLES * 4,
+        2.0 * p * (FEAT + 5 * fh))
+    del h, hs, skyh, args, hargs
+
+    # ---- training shapes
+    o, d, sun, t, z = _inputs(BATCH, 3, dev)
+    rays16 = FM.pack_rays(o, d, sun, t, TAU)
+    p = BATCH * SAMPLES
+    h = rand(p, FEAT)
+    args = (h, w, bias, rays16, SAMPLES)
+    dkw = dict(extra="xyz", extra_weight=c, z=z, save=True)
+    t_entry = entry(
+        lambda: FM.siren_dense(*args, **dkw),
+        lambda: FM.siren_dense_reference(*args, **dkw),
+        lambda: torch.sin(torch.addmm(bias.to(dtype), h, w)),
+        _nbytes(h, w, bias, rays16, z, c) + p * FEAT * (2 + 4),
+        2.0 * p * FEAT * (FEAT + 3))
+    out["siren_dense"].update({f"train_{k}": v for k, v in t_entry.items()})
+
+    dy, slope = rand(p, FEAT, to=torch.float32), rand(p, FEAT, to=torch.float32)
+    gb = (dy * slope).to(dtype)
+    out["siren_dense_dgrad"] = entry(
+        lambda: FM.siren_dense_dgrad(dy, slope, w),
+        lambda: FM.siren_dense_dgrad_reference(dy, slope, w),
+        lambda: gb @ w.t(),
+        _nbytes(dy, slope, w) + p * FEAT * 4, 2.0 * p * FEAT * FEAT)
+    wargs = (h, dy, slope, rays16, SAMPLES)
+    wkw = dict(extra="xyz", extra_weight=c, z=z)
+    out["siren_dense_wgrad"] = entry(
+        lambda: FM.siren_dense_wgrad(*wargs, **wkw),
+        lambda: FM.siren_dense_wgrad_reference(*wargs, **wkw),
+        lambda: h.t() @ gb,
+        _nbytes(h, dy, slope, rays16, z, c) + (FEAT * FEAT + FEAT + 3 * FEAT) * 4,
+        2.0 * p * FEAT * (FEAT + 3))
+    hs = [rand(p, fh) for _ in range(3)]
+    skyh = rand(BATCH, fh).abs()
+    noise = rand(BATCH, SAMPLES, to=torch.float32)
+    gt = rand(BATCH, 3, to=torch.float32).abs()
+    cargs = (h, *hs, skyh, packed["wn"], packed["bn"], z, noise, gt, 1.0)
+    out["composite_loss_bwd"] = entry(
+        lambda: FM.composite_loss_bwd(*cargs, return_weights=True),
+        lambda: FM.composite_loss_bwd_reference(*cargs, return_weights=True),
+        None,
+        _nbytes(*cargs[:-1]) + (p * (FEAT + 3 * fh) + BATCH * fh + 9 * FEAT
+                                + 9 + 3 + p) * 4,
+        4.0 * p * (FEAT + 5 * fh))
+    return out
 
 
 def phase2(results: dict):
@@ -194,7 +404,6 @@ def phase2(results: dict):
 
     dev = torch.device("cuda:0")
     failures = []
-    times = {}
     launches_before = dict(FM.LAUNCHES)
     for variant in ("sat-nerf", "s-nerf"):
         use_beta = variant == "sat-nerf"
@@ -236,8 +445,6 @@ def phase2(results: dict):
                     field, o, d, sun, t_in, z, **kw))
                 plain_ms = _cuda_ms(lambda: FM.fused_render_rays_reference(
                     field, o, d, sun, t_in, z, **kw))
-                if variant == "sat-nerf":
-                    times.update(_time_kernels(packed, dtype, dname, dev))
             log(f"phase 2: K2 {variant} {dname} R={N_RAYS} S={SAMPLES}: "
                 f"kernel {k2_ms:.2f} ms, plain {plain_ms:.2f} ms; max err "
                 + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
@@ -245,15 +452,115 @@ def phase2(results: dict):
                                               for k, e in chk.err.items()))
             results["k2"][(variant, dname)] = (k2_ms, plain_ms, errs)
             del out, ref
-    for (name, dname), (ms, pms) in times.items():
-        log(f"phase 2: {name} {dname} at a main-path chunk ({CHUNK} rays x "
-            f"{SAMPLES}): kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    # outside inference mode: the training kernels' plain versions use autograd
+    field = build_model("sat-nerf", LAYERS, FEAT, t_dim=TAU,
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+    times = _time_kernels(FM.pack_params(field, skip=4, use_beta=True,
+                                         dtype=torch.bfloat16), dev)
+    for name, e in times.items():
+        lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.3f} ms"
+        log(f"phase 2: {name} bf16 at its main-path shape: kernel "
+            f"{e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms, library call "
+            f"{lib}, bound {e['bound_ms']:.3f} ms ({e['bound_by']})")
+    e = times["siren_dense"]
+    log(f"phase 2: siren_dense bf16 with the saved slope at a training batch "
+        f"({BATCH} rays x {SAMPLES}): kernel {e['train_ms']:.3f} ms, plain "
+        f"{e['train_plain_ms']:.3f} ms, library call "
+        f"{e['train_library_ms']:.3f} ms, bound {e['train_bound_ms']:.3f} ms")
     results["times"] = times
-    grown = {k: FM.LAUNCHES[k] - launches_before[k] for k in FM.LAUNCHES}
+    grown = {k: FM.LAUNCHES[k] - launches_before[k]
+             for k in ("siren_dense", "heads_composite")}
     if not all(v > 0 for v in grown.values()):
         failures.append(f"launch counters did not grow: {grown}")
     if failures:
         raise SystemExit("phase 2 failed:\n  " + "\n  ".join(failures))
+
+
+def phase2b(results: dict):
+    """K1 against its plain version on the card."""
+    import torch
+
+    from satnerf_tpu_torch.models.nerf import build_model
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+
+    dev = torch.device("cuda:0")
+    failures = []
+    before = dict(FM.LAUNCHES)
+    # (variant, gate, rays, noise, weights)
+    cases = [("sat-nerf", 1.0, K1_RAYS[0], False, False),
+             ("sat-nerf", 0.0, K1_RAYS[1], True, True),
+             ("s-nerf", 0.0, K1_RAYS[1], False, False)]
+    for variant, wmix, n_rays, with_noise, with_weights in cases:
+        use_beta = variant == "sat-nerf"
+        field = build_model(variant, LAYERS, FEAT, t_dim=TAU,
+                            generator=torch.Generator().manual_seed(1)).to(dev)
+        o, d, sun, t, z = _inputs(n_rays, 5, dev)
+        g = torch.Generator().manual_seed(6)
+        gt = torch.rand(n_rays, 3, generator=g).to(dev)
+        noise = (torch.randn(n_rays, SAMPLES, generator=g).to(dev)
+                 if with_noise else None)
+        t_in = t if use_beta else None
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            kw = dict(layers=LAYERS, feat=FEAT, skip=4, use_beta=use_beta,
+                      tau=TAU, dtype=dtype, return_weights=with_weights)
+            args = (field, o, d, sun, t_in, z, noise, gt, wmix)
+            out = FM.fused_train_loss_grads(*args, **kw)
+            ref = FM.fused_train_loss_grads_reference(*args, **kw)
+            torch.cuda.synchronize()
+            tag = f"K1 {variant} gate {wmix:g} R={n_rays} {dname}"
+            part_err = {k: abs(out[0][k].item() - ref[0][k].item())
+                        / max(abs(ref[0][k].item()), 1e-6) for k in ref[0]}
+            grad_err = {k: _rel_err(out[1][k], ref[1][k]) for k in ref[1]}
+            if set(out[1]) != set(ref[1]):
+                failures.append(f"{tag}: gradient names differ")
+            extra_err = {}
+            if use_beta:
+                extra_err["t_grad"] = _rel_err(out[2], ref[2])
+            if with_weights:
+                extra_err["weights"] = (out[3] - ref[3]).abs().max().item()
+            for k, e in part_err.items():
+                if not e <= K1_PART_TOL[dname]:
+                    failures.append(f"{tag} part {k}: {e:.3g}")
+            for k, e in {**grad_err, **extra_err}.items():
+                lim = (K2_TOL[dname] if k == "weights" else K1_GRAD_TOL[dname])
+                if not e <= lim:
+                    failures.append(f"{tag} {k}: {e:.3g} > {lim}")
+            for k, v in out[1].items():
+                if not bool(torch.isfinite(v).all()):
+                    failures.append(f"{tag} {k}: not finite")
+            worst = max(grad_err, key=grad_err.get)
+
+            # every launch of the chain against its plain version
+            chk = TrainCheck(dtype)
+            rays16 = FM.pack_rays(o, d, sun, t_in, TAU)
+            packed = FM.pack_params(field, skip=4, use_beta=use_beta, dtype=dtype)
+            with torch.no_grad():
+                FM._train_staged(packed, rays16, z, noise, gt, wmix, skip=4,
+                                 use_beta=use_beta, rgb_padding=0.001,
+                                 beta_min=0.05, return_weights=with_weights,
+                                 ops=chk)
+            torch.cuda.synchronize()
+            failures += [f"{tag}: {b}" for b in chk.bad]
+            for k, e in chk.err.items():
+                key = (k, dname)
+                results["err"][key] = max(results["err"].get(key, 0.0), e)
+            ms = _cuda_ms(lambda: FM.fused_train_loss_grads(*args, **kw))
+            plain_ms = _cuda_ms(
+                lambda: FM.fused_train_loss_grads_reference(*args, **kw))
+            log(f"phase 2b: {tag}: kernels {ms:.2f} ms, plain {plain_ms:.2f} ms; "
+                f"parts " + ", ".join(f"{k} {e:.1e}" for k, e in part_err.items())
+                + f"; worst gradient {worst} {grad_err[worst]:.1e}"
+                + "".join(f", {k} {e:.1e}" for k, e in extra_err.items())
+                + "; per launch " + ", ".join(f"{k} {e:.1e}"
+                                              for k, e in chk.err.items()))
+            results["k1"][(variant, wmix, n_rays, dname)] = (ms, plain_ms)
+            del out, ref
+    grown = {k: FM.LAUNCHES[k] - before[k] for k in TRAIN_KERNELS}
+    if not all(v > 0 for v in grown.values()):
+        failures.append(f"launch counters did not grow: {grown}")
+    if failures:
+        raise SystemExit("phase 2b failed:\n  " + "\n  ".join(failures))
 
 
 def phase3(results: dict, card: str):
@@ -270,10 +577,9 @@ def phase3(results: dict, card: str):
     shutil.rmtree(WORK, ignore_errors=True)
     aoi = os.path.join(WORK, "aoi")
     t0 = time.perf_counter()
-    subprocess.run([sys.executable, os.path.join(REPO, "tools",
-                                                 "make_synthetic_aoi.py"),
-                    aoi, "--size", "128"], check=True, cwd=REPO, timeout=300,
-                   stdout=subprocess.DEVNULL)
+    from satnerf_tpu_torch.data.synthetic import make_synthetic_aoi
+
+    make_synthetic_aoi(aoi, size=128)
     log(f"phase 3: synthetic 128 x 128 AOI in {time.perf_counter() - t0:.1f} s")
 
     run_id, logs, ckpts = "smoke", os.path.join(WORK, "logs"), os.path.join(WORK, "ckpts")
@@ -294,7 +600,7 @@ def phase3(results: dict, card: str):
     t0 = time.perf_counter()
     mae = create_pretty_dsm(run_id, logs, out_dir, 1, device="cuda")
     dsm_s = time.perf_counter() - t0
-    launches = dict(FM.LAUNCHES)
+    launches = {k: FM.LAUNCHES[k] for k in ("siren_dense", "heads_composite")}
     dsm_path = glob.glob(os.path.join(out_dir, run_id, "*_dsm_epoch1.tif"))[0]
     dsm = read_geotiff(dsm_path).data[0]
     finite = float(np.isfinite(dsm).mean())
@@ -308,7 +614,7 @@ def phase3(results: dict, card: str):
         raise SystemExit(f"phase 3 failed: DSM only {finite:.3f} finite")
     if not all(v > 0 for v in launches.values()):
         raise SystemExit(f"phase 3 failed: a kernel was not launched: {launches}")
-    results["launches"] = launches
+    results["launches_serving"] = launches
 
     # a 512 x 512 view worth of rays, made like bench.py:91-97
     rng = np.random.RandomState(0)
@@ -318,7 +624,7 @@ def phase3(results: dict, card: str):
     rays[:, 6], rays[:, 7] = 0.0, 1.0
     ts = rng.randint(0, 30, n).astype(np.int32)
     res = system.render_image(params, rays, ts)  # warm up
-    reps, t0 = 2, time.perf_counter()
+    reps, t0 = 1, time.perf_counter()
     for _ in range(reps):
         res = system.render_image(params, rays, ts)
     dt = (time.perf_counter() - t0) / reps
@@ -359,27 +665,178 @@ def phase3(results: dict, card: str):
         raise SystemExit(f"phase 3 failed: render_image disagrees: {errs}")
 
 
+TRAIN_STEPS, RESUME_STEPS, LOG_EVERY = 120, 144, 8
+
+
+def _train_rows(logs: str, exp_name: str) -> list:
+    with open(os.path.join(logs, exp_name, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return [r for r in rows if "train/loss" in r]
+
+
+def phase4(results: dict, card: str):
+    """The trainer through its entry point, then resume, then serve."""
+    import torch
+
+    from satnerf_tpu_torch.cli import train as cli_train
+    from satnerf_tpu_torch.cli.create_dsm import create_pretty_dsm
+    from satnerf_tpu_torch.data.synthetic import make_synthetic_aoi
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+
+    aoi = os.path.join(WORK, "aoi")
+    if not os.path.isdir(os.path.join(aoi, "data")):
+        make_synthetic_aoi(aoi, size=128)
+    logs, ckpts = os.path.join(WORK, "train_logs"), os.path.join(WORK, "train_ckpts")
+    for d in (logs, ckpts):
+        shutil.rmtree(d, ignore_errors=True)
+
+    def argv(steps, name, extra=()):
+        return ["--root_dir", os.path.join(aoi, "data"),
+                "--gt_dir", os.path.join(aoi, "gt"), "--model", "sat-nerf",
+                "--exp_name", name, "--fc_layers", str(LAYERS),
+                "--fc_units", str(FEAT), "--n_samples", str(SAMPLES),
+                "--batch_size", str(BATCH), "--chunk", str(CHUNK),
+                "--max_train_steps", str(steps), "--first_beta_epoch", "1",
+                "--save_every_n_epochs", "1", "--num_sanity_val_steps", "1",
+                "--log_every_n_steps", str(LOG_EVERY), "--logs_dir", logs,
+                "--ckpts_dir", ckpts, *extra]
+
+    FM.reset_launches()
+    t0 = time.perf_counter()
+    first = cli_train.main(argv(TRAIN_STEPS, "smoke_train"))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(FM.LAUNCHES)
+    cfg, system, state = first["cfg"], first["system"], first["state"]
+    spe = system.spe
+    if system.device.type != "cuda" or system.compute_dtype != torch.bfloat16:
+        raise SystemExit(f"phase 4 failed: trained on {system.device} in "
+                         f"{system.compute_dtype}, not on the card in bf16")
+    if not TRAIN_STEPS > 2 * spe:
+        raise SystemExit(f"phase 4 failed: {TRAIN_STEPS} steps do not pass two "
+                         f"epoch boundaries of {spe} steps")
+    # every step goes through the K1 chain: 1 composite_loss_bwd, 13 dgrad
+    # and 15 wgrad launches a step (validation launches none of the three)
+    per_step = {"composite_loss_bwd": 1, "siren_dense_dgrad": 13,
+                "siren_dense_wgrad": 15}
+    for k, n in per_step.items():
+        if launches[k] != n * TRAIN_STEPS:
+            raise SystemExit(f"phase 4 failed: {k} launched {launches[k]} times "
+                             f"in {TRAIN_STEPS} steps, expected {n} a step")
+    if not all(v > 0 for v in launches.values()):
+        raise SystemExit(f"phase 4 failed: a kernel was not launched: {launches}")
+    results["launches"] = launches
+
+    rows = _train_rows(logs, cfg.exp_name)
+    gate_on = [r for r in rows if system.beta_gate(r["step"] - 1) == 1.0]
+    gate_off = [r for r in rows if system.beta_gate(r["step"] - 1) == 0.0]
+    if not gate_on or not gate_off:
+        raise SystemExit("phase 4 failed: the run did not cross the beta switch-on")
+    if not all(np.isfinite(r["train/loss"]) for r in rows):
+        raise SystemExit("phase 4 failed: a logged loss is not finite")
+    # the loss changes its definition at the switch-on (MSE, then the
+    # uncertainty loss), so it must fall within each stretch; the PSNR, which
+    # is of the MSE throughout, must rise over the whole run
+    falls = (gate_off[-1]["train/loss"] < gate_off[0]["train/loss"]
+             and gate_on[-1]["train/loss"] < gate_on[0]["train/loss"]
+             and rows[-1]["train/psnr"] > rows[0]["train/psnr"])
+    log(f"phase 4: cli.train {TRAIN_STEPS} steps ({spe} an epoch) in "
+        f"{train_s:.1f} s with validation; loss {gate_off[0]['train/loss']:.4f}"
+        f" -> {gate_off[-1]['train/loss']:.4f} (MSE, steps <= {gate_off[-1]['step']}), "
+        f"{gate_on[0]['train/loss']:.4f} -> {gate_on[-1]['train/loss']:.4f} "
+        f"(beta loss on); psnr {rows[0]['train/psnr']:.2f} -> "
+        f"{rows[-1]['train/psnr']:.2f}; launches {launches}")
+    if not falls:
+        raise SystemExit("phase 4 failed: the loss did not fall")
+    val = first["metrics"]
+    if set(val) != {"val/psnr", "val/ssim", "val/mae"} or not all(
+            np.isfinite(v) for v in val.values()):
+        raise SystemExit(f"phase 4 failed: validation metrics {val}")
+    log("phase 4: " + ", ".join(f"{k} {v:.4f}" for k, v in val.items()))
+    # steady-state rate: the log intervals after the first (which holds the
+    # first launches) and without validation (the loop restarts its clock
+    # after each)
+    rates = sorted(r["train/rays_per_sec"] for r in rows[1:])
+    rps = rates[len(rates) // 2]
+    results["train_rate"] = (rps / BATCH, rps)
+    log(f"phase 4: training rate (median of {len(rates)} log intervals of "
+        f"{LOG_EVERY} steps): {rps / BATCH:.2f} steps/s, {rps:.1f} rays/s, "
+        f"{1e3 * BATCH / rps:.2f} ms a step on {card}")
+
+    epoch = TRAIN_STEPS // spe
+    ckpt = os.path.join(ckpts, cfg.exp_name, f"epoch={epoch}.ckpt")
+    saved = torch.load(ckpt, weights_only=True)
+    if saved["global_step"] != TRAIN_STEPS or not saved["optimizer_states"]:
+        raise SystemExit(f"phase 4 failed: {ckpt} holds step "
+                         f"{saved.get('global_step')} / no optimizer state")
+    second = cli_train.main(argv(RESUME_STEPS, "smoke_resume",
+                                 ["--ckpt_path", ckpt]))
+    rows2 = _train_rows(logs, second["cfg"].exp_name)
+    # "at the trained level": within a quarter of the way from the loss the
+    # first run ended at back to the loss it had when the beta term came on
+    trained, untrained = rows[-1]["train/loss"], gate_on[0]["train/loss"]
+    adam_steps = {float(st["step"])
+                  for st in second["state"].optimizer.state.values()}
+    ok = (second["state"].step == RESUME_STEPS
+          and rows2[0]["step"] == TRAIN_STEPS + LOG_EVERY
+          and adam_steps == {float(RESUME_STEPS)}
+          and abs(rows2[0]["train/loss"] - trained) <= 0.25 * (untrained - trained))
+    log(f"phase 4: resumed from step {saved['global_step']} to "
+        f"{second['state'].step}; first logged loss {rows2[0]['train/loss']:.4f} "
+        f"psnr {rows2[0]['train/psnr']:.2f} (the first run ended at "
+        f"{rows[-1]['train/loss']:.4f}, {rows[-1]['train/psnr']:.2f})")
+    if not ok:
+        raise SystemExit("phase 4 failed: the resumed run did not continue the "
+                         "first (step count, Adam state or loss level)")
+
+    exp2 = second["cfg"].exp_name
+    out_dir = os.path.join(WORK, "train_out")
+    mae = create_pretty_dsm(exp2, logs, out_dir, RESUME_STEPS // spe,
+                            device="cuda")
+    if not (mae is not None and np.isfinite(mae)):
+        raise SystemExit(f"phase 4 failed: serving the trained checkpoint, MAE {mae}")
+    log(f"phase 4: create_pretty_dsm on the trained checkpoint: MAE {mae:.3f} m")
+
+
+def _loaded_foreign() -> list:
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                         "satnerf_tpu"))
+
+
 def main():
     name, card = phase0()
     secs = phase1()
     import torch
 
-    results = {"err": {}, "k2": {}}
-    phase2(results)
-    phase3(results, card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {"err": {}, "k2": {}, "k1": {}}
+    steps = (("2", lambda: phase2(results)), ("2b", lambda: phase2b(results)),
+             ("3", lambda: phase3(results, card)),
+             ("4", lambda: phase4(results, card)))
+    t_start = time.perf_counter()
+    for key, run in steps:
+        t0 = time.perf_counter()
+        run()
+        log(f"phase {key} took {time.perf_counter() - t0:.1f} s")
+    if _loaded_foreign():
+        raise SystemExit(f"the port loaded {_loaded_foreign()}")
     kernels = []
-    for kname in ("siren_dense", "heads_composite"):
-        ms, pms = results["times"][(kname, "bfloat16")]
+    for kname, (source, replaces) in KERNELS.items():
+        t = results["times"][kname]
         kernels.append({
-            "name": kname, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": TPU_KERNEL, "launches": results["launches"][kname],
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": TPU_KERNEL[replaces],
+            "launches": results["launches"][kname],
+            "launches_serving": results["launches_serving"].get(kname, 0),
             "max_abs_err": max(results["err"][(kname, "float32")],
                                results["err"][(kname, "bfloat16")]),
-            "ms": ms, "plain_ms": pms,
+            **t,
         })
-    if "jax" in sys.modules or "flax" in sys.modules:
-        raise SystemExit("the port loaded jax")
-    log(f"build {secs:.1f} s; card {card}")
+    log(f"build {secs:.1f} s, phases {time.perf_counter() - t_start:.1f} s; "
+        f"card {card}")
+    print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

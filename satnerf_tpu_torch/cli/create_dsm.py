@@ -26,9 +26,9 @@ def create_pretty_dsm(run_id: str, logs_dir: str, output_dir: str,
                       epoch_number: int, checkpoints_dir: str | None = None,
                       root_dir: str | None = None, img_dir: str | None = None,
                       gt_dir: str | None = None, device: str = "cuda"):
-    from satnerf_tpu.data.rays import sun_direction
-    from satnerf_tpu.data.satellite import SatelliteScene
-    from satnerf_tpu.utils.sort import (
+    from satnerf_tpu_torch.data.rays import sun_direction
+    from satnerf_tpu_torch.data.satellite import SatelliteScene
+    from satnerf_tpu_torch.utils.sort import (
         sort_by_increasing_solar_incidence_angle,
         sort_by_increasing_view_incidence_angle,
     )

@@ -24,9 +24,9 @@ def eval_aoi(run_id: str, logs_dir: str, output_dir: str, epoch_number: int,
              split: str = "val", checkpoints_dir: str | None = None,
              root_dir: str | None = None, img_dir: str | None = None,
              gt_dir: str | None = None, device: str = "cuda"):
-    from satnerf_tpu.data.satellite import SatelliteScene
-    from satnerf_tpu.ops.ssim import psnr as psnr_np
-    from satnerf_tpu.ops.ssim import ssim as ssim_np
+    from satnerf_tpu_torch.data.satellite import SatelliteScene
+    from satnerf_tpu_torch.ops.ssim import psnr as psnr_np
+    from satnerf_tpu_torch.ops.ssim import ssim as ssim_np
     from satnerf_tpu_torch.eval import (compute_mae_and_save_dsm_diff,
                                         find_best_embedding_for_val_image,
                                         predefined_val_ts,

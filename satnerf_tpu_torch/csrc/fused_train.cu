@@ -1,0 +1,873 @@
+// Training step for the SIREN variants (s-nerf, sat-nerf) on Hopper.
+//
+// Replaces the TPU kernel fused_train_loss_grads (satnerf_tpu/ops/pallas/
+// fused_mlp.py:1804, kernel body _make_train_loss_bwd_kernel :1536): rays,
+// depths, sigma noise and target colors in; the loss sums, every weight
+// gradient and the per-ray gradient of the transient embedding out. The TPU
+// kernel keeps all weights and their fp32 gradient accumulators in VMEM and
+// moves between rays and points with selection-matrix matmuls. Here the
+// forward is the serving chain of siren_dense launches (fused_render.cu),
+// which in training also write each sine layer's slope w0*cos(w0*pre) in
+// fp32, and the backward is three more kernels:
+//
+//   composite_loss_bwd   narrow heads, compositor, loss and their adjoints,
+//                        a warp per ray: loss sums, the narrow heads' weight
+//                        gradients, and the cotangents of h, r, s2, bh, skyh
+//   siren_dense_dgrad    dX (+)= (dY * slope) . W^T
+//   siren_dense_wgrad    dW += X^T . (dY * slope), db += sum (dY * slope),
+//                        dC += E^T . (dY * slope), and for beta_0 the per-ray
+//                        gradient of t, sum_s (dY * slope) . C^T
+//
+// Rounding follows the JAX kernel (_point_bwd_from_saves :406): a cotangent
+// G = dY * slope is formed in fp32, rounded to the compute type before both
+// of its products, bias gradients sum the unrounded G, and every weight
+// gradient accumulates in fp32. Cotangents between layers (dY, dX) are fp32.
+//
+// Sums across blocks use fp32 atomicAdd into buffers the wrapper zeroes, so
+// the order of addition, and with it the last bits, changes from run to run.
+
+#include "common.cuh"
+
+namespace {
+
+// G[p, n] = dY[p, n] * slope[p, n]; slope == nullptr for a linear layer.
+__device__ __forceinline__ float4 cotangent4(const float* __restrict__ dY,
+                                             const float* __restrict__ slope, size_t idx) {
+  float4 g = *reinterpret_cast<const float4*>(dY + idx);
+  if (slope != nullptr) {
+    const float4 c = *reinterpret_cast<const float4*>(slope + idx);
+    g.x *= c.x; g.y *= c.y; g.z *= c.z; g.w *= c.w;
+  }
+  return g;
+}
+
+__device__ __forceinline__ uint2 pack_bf16x4(float4 g) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(g.x, g.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(g.z, g.w);
+  uint2 r;
+  r.x = *reinterpret_cast<const unsigned int*>(&lo);
+  r.y = *reinterpret_cast<const unsigned int*>(&hi);
+  return r;
+}
+
+constexpr int SIMT_BK = 8, TM = 8, TN = 8;
+constexpr int T_LD = TC_BK + 8;  // padded row of a [128][32] bf16 tile
+constexpr int W_LD = BN + 8;     // padded row of a [32][128] bf16 tile
+
+// ---------------------------------------------------------- siren_dense_dgrad
+//
+// dX[p, k] (+)= sum_n round(G[p, n]) * W[k, n]   (fused_mlp.py:452-516, the
+// _dot_t_rhs products). W is the forward's (K, N) weight. Where two branches
+// meet (d_feats, d_h) the second launch accumulates onto the first's output.
+// The bf16 path uses WMMA fragments with the G tile formed from its two fp32
+// operands on the way into shared memory, the fp32 path a register-tiled
+// SIMT GEMM. The grid is one-dimensional with the column tile running
+// fastest: the blocks that share a row tile of G (8 bytes a value in device
+// memory, four times the forward's operand) run next to each other and find
+// it in L2.
+
+template <typename T>
+__global__ void __launch_bounds__(DENSE_THREADS)
+dgrad_simt(const float* __restrict__ dY, const float* __restrict__ slope,
+           const T* __restrict__ W, float* __restrict__ dX, int accumulate, int P, int N,
+           int K) {
+  __shared__ float As[SIMT_BK][BM];  // G tile, n-major
+  __shared__ float Bs[SIMT_BK][BN];  // W^T tile: Bs[n][k]
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int col_tiles = (K + BN - 1) / BN;
+  const int row0 = (blockIdx.x / col_tiles) * BM;  // points
+  const int col0 = (blockIdx.x % col_tiles) * BN;  // k
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  for (int n0 = 0; n0 < N; n0 += SIMT_BK) {
+    const int m = tid / 2, nb = (tid % 2) * 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int gn = n0 + nb + i;
+      const int q = row0 + m;
+      float g = 0.f;
+      if (q < P && gn < N) {
+        const size_t idx = (size_t)q * N + gn;
+        g = dY[idx];
+        if (slope != nullptr) g *= slope[idx];
+      }
+      As[nb + i][m] = round_to<T>(g);
+      const int gk = col0 + m;
+      Bs[nb + i][m] = (gk < K && gn < N) ? to_f32<T>(W[(size_t)gk * N + gn]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < SIMT_BK; ++kk) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int q = row0 + ty + 16 * i;
+    if (q >= P) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int k = col0 + tx + 16 * j;
+      if (k >= K) continue;
+      float* out = dX + (size_t)q * K + k;
+      *out = accumulate ? *out + acc[i][j] : acc[i][j];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(DENSE_THREADS)
+dgrad_wmma(const float* __restrict__ dY, const float* __restrict__ slope,
+           const __nv_bfloat16* __restrict__ W, float* __restrict__ dX, int accumulate,
+           int P, int N, int K) {
+  using namespace nvcuda;
+  __shared__ __align__(32) __nv_bfloat16 Gs[BM][T_LD];  // G tile [p][n]
+  __shared__ __align__(32) __nv_bfloat16 Ws[BN][T_LD];  // W tile [k][n]
+  __shared__ __align__(32) float Stage[DENSE_THREADS / 32][16 * 16];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 2, wn = warp % 2;
+  const int col_tiles = (K + BN - 1) / BN;
+  const int row0 = (blockIdx.x / col_tiles) * BM;
+  const int col0 = (blockIdx.x % col_tiles) * BN;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  // a thread moves four float4 of G (16 values) and two 16-byte vectors of W
+  float4 rg[4];
+  uint4 rw[2];
+  auto load_tiles = [&](int n0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int v = tid + DENSE_THREADS * i;
+      const int r = v / (TC_BK / 4), c = (v % (TC_BK / 4)) * 4;
+      rg[i] = (row0 + r < P && n0 + c < N)
+                  ? cotangent4(dY, slope, (size_t)(row0 + r) * N + n0 + c)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int v = tid + DENSE_THREADS * i;
+      const int r = v / (TC_BK / 8), c = (v % (TC_BK / 8)) * 8;
+      rw[i] = (col0 + r < K && n0 + c < N)
+                  ? *reinterpret_cast<const uint4*>(W + (size_t)(col0 + r) * N + n0 + c)
+                  : make_uint4(0, 0, 0, 0);
+    }
+  };
+
+  load_tiles(0);
+  for (int n0 = 0; n0 < N; n0 += TC_BK) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int v = tid + DENSE_THREADS * i;
+      *reinterpret_cast<uint2*>(&Gs[v / (TC_BK / 4)][(v % (TC_BK / 4)) * 4]) =
+          pack_bf16x4(rg[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int v = tid + DENSE_THREADS * i;
+      *reinterpret_cast<uint4*>(&Ws[v / (TC_BK / 8)][(v % (TC_BK / 8)) * 8]) = rw[i];
+    }
+    __syncthreads();
+    if (n0 + TC_BK < N) load_tiles(n0 + TC_BK);
+#pragma unroll
+    for (int kk = 0; kk < TC_BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
+      // W^T as a column-major B: element (n, k) sits at Ws[k][n]
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(fa[i], &Gs[wm * 32 + i * 16][kk], T_LD);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wmma::load_matrix_sync(fb[j], &Ws[wn * 64 + j * 16][kk], T_LD);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  float* stage = Stage[warp];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int q = row0 + wm * 32 + i * 16 + e / 16;
+        const int k = col0 + wn * 64 + j * 16 + e % 16;
+        if (q < P && k < K) {
+          float* out = dX + (size_t)q * K + k;
+          *out = accumulate ? *out + stage[e] : stage[e];
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// ---------------------------------------------------------- siren_dense_wgrad
+//
+// dW[k, n] += sum_p X[p, k] * round(G[p, n])   (the _dot_t_lhs products of
+// fused_mlp.py:450-519). The sum runs over all P points for only K*N
+// outputs, so the points are split across blockIdx.z (WGRAD_SPLIT points a
+// block) and the partial tiles meet in dW by fp32 atomicAdd.
+//
+// small_grads covers what is too narrow for a GEMM tile, one thread a
+// column over a chunk of SMALL_CHUNK points (short chunks: the walk is
+// serial and bound by load latency, so it wants many threads in flight): db[n] += sum_p G[p, n] (unrounded, as the
+// JAX kernel sums it), dC[j, n] += sum_p E[p, j] * round(G[p, n]) for the
+// layers with an E operand (E rebuilt from rays and z), and on request the
+// per-ray gradient of E itself, dE[r, j] += sum_s sum_n round(G[p, n]) *
+// C[j, n]: that is t_grad when the layer is beta_0 (fused_mlp.py:493,1633).
+
+constexpr int WGRAD_SPLIT = 2048;
+constexpr int SMALL_THREADS = 128;
+constexpr int SMALL_CHUNK = 64;
+
+template <typename T>
+__global__ void __launch_bounds__(DENSE_THREADS)
+wgrad_simt(const T* __restrict__ X, const float* __restrict__ dY,
+           const float* __restrict__ slope, float* __restrict__ dW, int P, int N, int K) {
+  __shared__ float As[SIMT_BK][BM];  // X^T tile: As[p][k]
+  __shared__ float Bs[SIMT_BK][BN];  // G tile: Bs[p][n]
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int row0 = blockIdx.x * BM;  // k
+  const int col0 = blockIdx.y * BN;  // n
+  const int p_begin = blockIdx.z * WGRAD_SPLIT;
+  const int p_end = min(P, p_begin + WGRAD_SPLIT);
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  for (int p0 = p_begin; p0 < p_end; p0 += SIMT_BK) {
+    const int pp = tid / 32, cb = (tid % 32) * 4;
+    const int q = p0 + pp;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int gk = row0 + cb + i;
+      As[pp][cb + i] = (q < p_end && gk < K) ? to_f32<T>(X[(size_t)q * K + gk]) : 0.f;
+      const int gn = col0 + cb + i;
+      float g = 0.f;
+      if (q < p_end && gn < N) {
+        const size_t idx = (size_t)q * N + gn;
+        g = dY[idx];
+        if (slope != nullptr) g *= slope[idx];
+      }
+      Bs[pp][cb + i] = round_to<T>(g);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < SIMT_BK; ++kk) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int k = row0 + ty + 16 * i;
+    if (k >= K) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = col0 + tx + 16 * j;
+      if (n < N) atomicAdd(dW + (size_t)k * N + n, acc[i][j]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(DENSE_THREADS)
+wgrad_wmma(const __nv_bfloat16* __restrict__ X, const float* __restrict__ dY,
+           const float* __restrict__ slope, float* __restrict__ dW, int P, int N, int K) {
+  using namespace nvcuda;
+  __shared__ __align__(32) __nv_bfloat16 Xs[TC_BK][W_LD];  // X tile [p][k]
+  __shared__ __align__(32) __nv_bfloat16 Gs[TC_BK][W_LD];  // G tile [p][n]
+  __shared__ __align__(32) float Stage[DENSE_THREADS / 32][16 * 16];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 2, wn = warp % 2;
+  const int row0 = blockIdx.x * BM;  // k
+  const int col0 = blockIdx.y * BN;  // n
+  const int p_begin = blockIdx.z * WGRAD_SPLIT;
+  const int p_end = min(P, p_begin + WGRAD_SPLIT);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  uint4 rx[2];
+  float4 rg[4];
+  auto load_tiles = [&](int p0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int v = tid + DENSE_THREADS * i;
+      const int r = v / (BM / 8), c = (v % (BM / 8)) * 8;
+      rx[i] = (p0 + r < p_end && row0 + c < K)
+                  ? *reinterpret_cast<const uint4*>(X + (size_t)(p0 + r) * K + row0 + c)
+                  : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int v = tid + DENSE_THREADS * i;
+      const int r = v / (BN / 4), c = (v % (BN / 4)) * 4;
+      rg[i] = (p0 + r < p_end && col0 + c < N)
+                  ? cotangent4(dY, slope, (size_t)(p0 + r) * N + col0 + c)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+
+  load_tiles(p_begin);
+  for (int p0 = p_begin; p0 < p_end; p0 += TC_BK) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int v = tid + DENSE_THREADS * i;
+      *reinterpret_cast<uint4*>(&Xs[v / (BM / 8)][(v % (BM / 8)) * 8]) = rx[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int v = tid + DENSE_THREADS * i;
+      *reinterpret_cast<uint2*>(&Gs[v / (BN / 4)][(v % (BN / 4)) * 4]) = pack_bf16x4(rg[i]);
+    }
+    __syncthreads();
+    if (p0 + TC_BK < p_end) load_tiles(p0 + TC_BK);
+#pragma unroll
+    for (int kk = 0; kk < TC_BK; kk += 16) {
+      // X^T as a column-major A: element (k, p) sits at Xs[p][k]
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(fa[i], &Xs[kk][wm * 32 + i * 16], W_LD);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wmma::load_matrix_sync(fb[j], &Gs[kk][wn * 64 + j * 16], W_LD);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  float* stage = Stage[warp];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int k = row0 + wm * 32 + i * 16 + e / 16;
+        const int n = col0 + wn * 64 + j * 16 + e % 16;
+        if (k < K && n < N) atomicAdd(dW + (size_t)k * N + n, stage[e]);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(SMALL_THREADS)
+small_grads(const float* __restrict__ dY, const float* __restrict__ slope, int P, int N,
+            const float* __restrict__ rays, const float* __restrict__ z, int S,
+            int extra_mode, int extra_off, int n_extra, const T* __restrict__ C,
+            float* __restrict__ db, float* __restrict__ dC, float* __restrict__ dE) {
+  const int n = blockIdx.y * SMALL_THREADS + threadIdx.x;
+  const bool col_ok = n < N;  // no early return: the warp sums below need every lane
+  const int lane = threadIdx.x % 32;
+  const int p_begin = blockIdx.x * SMALL_CHUNK;
+  const int p_end = min(P, p_begin + SMALL_CHUNK);
+
+  float c[MAX_EXTRA], dc_acc[MAX_EXTRA], de_acc[MAX_EXTRA];
+#pragma unroll
+  for (int j = 0; j < MAX_EXTRA; ++j) {
+    c[j] = (dE != nullptr && j < n_extra && col_ok) ? to_f32<T>(C[(size_t)j * N + n]) : 0.f;
+    dc_acc[j] = 0.f;
+    de_acc[j] = 0.f;
+  }
+  float db_acc = 0.f;
+
+  auto flush_ray = [&](int ray) {
+#pragma unroll
+    for (int j = 0; j < MAX_EXTRA; ++j) {
+      if (j < n_extra) {
+        const float v = warp_sum(de_acc[j]);
+        if (lane == 0) atomicAdd(dE + (size_t)ray * n_extra + j, v);
+        de_acc[j] = 0.f;
+      }
+    }
+  };
+
+  int cur_ray = p_begin / S;
+  for (int p = p_begin; p < p_end; ++p) {
+    const int ray = p / S;
+    if (dE != nullptr && ray != cur_ray) {
+      flush_ray(cur_ray);
+      cur_ray = ray;
+    }
+    float g = 0.f;
+    if (col_ok) {
+      const size_t idx = (size_t)p * N + n;
+      g = dY[idx];
+      if (slope != nullptr) g *= slope[idx];
+    }
+    db_acc += g;
+    const float gb = round_to<T>(g);
+#pragma unroll
+    for (int j = 0; j < MAX_EXTRA; ++j) {
+      if (j < n_extra) {
+        const float e = extra_value<T>(rays, z, S, extra_mode, extra_off, p, j);
+        dc_acc[j] = fmaf(e, gb, dc_acc[j]);
+        de_acc[j] = fmaf(gb, c[j], de_acc[j]);
+      }
+    }
+  }
+  if (dE != nullptr && p_begin < p_end) flush_ray(cur_ray);
+  if (col_ok) {
+    atomicAdd(db + n, db_acc);
+#pragma unroll
+    for (int j = 0; j < MAX_EXTRA; ++j)
+      if (j < n_extra) atomicAdd(dC + (size_t)j * N + n, dc_acc[j]);
+  }
+}
+
+// --------------------------------------------------------- composite_loss_bwd
+//
+// Replaces, of fused_mlp.py:1536: the narrow heads forward (_narrow_fwd
+// :296), the compositor with sigma noise (_composite_tile :980), the loss
+// sums and the per-ray loss cotangents (:1586-1611), the compositor adjoint
+// (_composite_bwd_tile :1202) and the narrow heads' backward (narrow_bwd
+// :432). One warp per ray, as heads_composite:
+//
+//   1. forward over the ray's S samples: the narrow heads as warp-reduced
+//      dot products, the compositor in fp32; per-sample values go to shared
+//      memory, the ray's rgb and beta integrals stay in registers
+//   2. the ray's loss terms (added to loss_sums) and the cotangents of its
+//      rgb (masked where the unclipped integral leaves [0, 1]) and beta
+//   3. backward over the samples from the last to the first, carrying the
+//      suffix sum of dw*w that the transparency adjoint needs: the narrow
+//      pre-activation cotangents, rounded to the compute type before both of
+//      their products, give the rows of dWn (kept in registers over the
+//      warp's samples) and, times the narrow weights, the cotangents of h
+//      (its sigma part), r, s2 and bh, written in fp32
+//   4. sky is per ray: its cotangent sums over the samples before sky_1;
+//      d_skyh comes out masked by relu
+//
+// loss_sums: [sum 0.5*sq/beta^2, sum log beta, sum sq] over the rays.
+// g_rgb = diff * (wmix/beta^2 + (1-wmix)*2) / (3R), g_beta = wmix *
+// (0.5/(R beta) - sq/(3R beta^3)), R the number of rays (every ray this
+// kernel sees is valid: the ragged edge is masked by the warp's early exit,
+// nothing is padded). Without the beta head (bh == nullptr) the loss is the
+// MSE and wmix is ignored.
+//
+// The transparency adjoint divides the suffix sum by (1 - alpha + 1e-10) and
+// multiplies by (1 - alpha): where alpha saturates (the last sample's delta
+// is 1e10) the quotient is large but finite and the product is exactly 0.
+//
+// Bound by device memory: h, r, s2, bh are read twice (forward, backward)
+// and four cotangent tensors are written in fp32.
+
+constexpr int CLB_WARPS = 4;
+constexpr int CLB_MAX_F = 512;            // widest trunk the register rows hold
+constexpr int CLB_F_REGS = CLB_MAX_F / 32;
+constexpr int CLB_H_REGS = CLB_F_REGS / 2;
+constexpr int CLB_SAMPLE_VALS = 10;       // sigma, delta, 1-alpha, T, w, rgb_s x3, sunv, beta
+
+template <typename T>
+__global__ void __launch_bounds__(CLB_WARPS * 32)
+composite_loss_bwd_kernel(const T* __restrict__ h, int F, const T* __restrict__ rf,
+                          const T* __restrict__ s2, const T* __restrict__ bh,
+                          const T* __restrict__ skyh, int Fh, const T* __restrict__ Wn,
+                          const float* __restrict__ bn, const float* __restrict__ z,
+                          const float* __restrict__ noise, const float* __restrict__ gt,
+                          int R, int S, float rgb_padding, float beta_min, float wmix,
+                          float* __restrict__ loss_sums, float* __restrict__ weights,
+                          float* __restrict__ d_h, float* __restrict__ d_r,
+                          float* __restrict__ d_s2, float* __restrict__ d_bh,
+                          float* __restrict__ d_skyh, float* __restrict__ dWn,
+                          float* __restrict__ dbn) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  const int ray = blockIdx.x * CLB_WARPS + warp;
+  if (ray >= R) return;  // the whole warp leaves together; no block barrier below
+  float* sv = smem + (size_t)warp * CLB_SAMPLE_VALS * S;
+  float* v_sigma = sv;          float* v_delta = sv + S;     float* v_oma = sv + 2 * S;
+  float* v_trans = sv + 3 * S;  float* v_w = sv + 4 * S;     float* v_c0 = sv + 5 * S;
+  float* v_c1 = sv + 6 * S;     float* v_c2 = sv + 7 * S;    float* v_sun = sv + 8 * S;
+  float* v_beta = sv + 9 * S;
+
+  const bool use_beta = bh != nullptr;
+  const T* w_sig = Wn;
+  const T* w_rgb = Wn + (size_t)1 * F;
+  const T* w_sun = Wn + (size_t)4 * F;
+  const T* w_sky = Wn + (size_t)5 * F;
+  const T* w_beta = Wn + (size_t)8 * F;
+  const float pad2 = 1.f + 2.f * rgb_padding;
+
+  // ---- sky, once a ray
+  float sky[3] = {0.f, 0.f, 0.f};
+  {
+    const T* x = skyh + (size_t)ray * Fh;
+    for (int k = lane; k < Fh; k += 32) {
+      const float v = to_f32<T>(x[k]);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) sky[c] = fmaf(v, to_f32<T>(w_sky[(size_t)c * F + k]), sky[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) sky[c] = sigmoidf(warp_sum(sky[c]) + bn[5 + c]);
+  }
+
+  // ---- 1. forward
+  const float* zr = z + (size_t)ray * S;
+  float trans = 1.f, beta_acc = 0.f, rgb_acc[3] = {0.f, 0.f, 0.f};
+  for (int s = 0; s < S; ++s) {
+    const size_t q = (size_t)ray * S + s;
+    float sig = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f, sn = 0.f, bt = 0.f;
+    const T* hq = h + q * F;
+    for (int k = lane; k < F; k += 32) sig = fmaf(to_f32<T>(hq[k]), to_f32<T>(w_sig[k]), sig);
+    const T* rq = rf + q * Fh;
+    const T* sq = s2 + q * Fh;
+    for (int k = lane; k < Fh; k += 32) {
+      const float v = to_f32<T>(rq[k]);
+      c0 = fmaf(v, to_f32<T>(w_rgb[k]), c0);
+      c1 = fmaf(v, to_f32<T>(w_rgb[(size_t)F + k]), c1);
+      c2 = fmaf(v, to_f32<T>(w_rgb[(size_t)2 * F + k]), c2);
+      sn = fmaf(to_f32<T>(sq[k]), to_f32<T>(w_sun[k]), sn);
+    }
+    if (use_beta) {
+      const T* bq = bh + q * Fh;
+      for (int k = lane; k < Fh; k += 32) bt = fmaf(to_f32<T>(bq[k]), to_f32<T>(w_beta[k]), bt);
+    }
+    const float sigma = softplusf(warp_sum(sig) + bn[0]);
+    const float cs[3] = {sigmoidf(warp_sum(c0) + bn[1]), sigmoidf(warp_sum(c1) + bn[2]),
+                         sigmoidf(warp_sum(c2) + bn[3])};
+    const float sunv = sigmoidf(warp_sum(sn) + bn[4]);
+    const float beta = use_beta ? softplusf(warp_sum(bt) + bn[8]) : 0.f;
+
+    const float zs = zr[s];
+    const float delta = s < S - 1 ? zr[s + 1] - zs : 1e10f;
+    const float sigma_n = sigma + (noise != nullptr ? noise[q] : 0.f);
+    const float oma = expf(-delta * fmaxf(sigma_n, 0.f));  // 1 - alpha
+    const float alpha = 1.f - oma;
+    const float w = alpha * trans;
+    if (lane == 0) {
+      v_sigma[s] = sigma; v_delta[s] = delta; v_oma[s] = oma; v_trans[s] = trans;
+      v_w[s] = w; v_c0[s] = cs[0]; v_c1[s] = cs[1]; v_c2[s] = cs[2];
+      v_sun[s] = sunv; v_beta[s] = beta;
+      if (weights != nullptr) weights[q] = w;
+    }
+    trans *= 1.f - alpha + 1e-10f;
+    beta_acc += w * beta;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      rgb_acc[c] += w * (cs[c] * pad2 - rgb_padding) * (sunv + (1.f - sunv) * sky[c]);
+  }
+  __syncwarp();
+
+  // ---- 2. loss and the ray's cotangents
+  const float inv3n = 1.f / (3.f * (float)R), invn = 1.f / (float)R;
+  float g_rgb[3], sq_err = 0.f, g_beta = 0.f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float diff = fminf(fmaxf(rgb_acc[c], 0.f), 1.f) - gt[(size_t)ray * 3 + c];
+    sq_err += diff * diff;
+    g_rgb[c] = diff;
+  }
+  float s_sat = 0.f, s_logb = 0.f;
+  float rgb_scale = 2.f * inv3n;
+  if (use_beta) {
+    const float beta_l = beta_acc + beta_min;
+    const float inv_b2 = 1.f / (beta_l * beta_l);
+    s_sat = 0.5f * sq_err * inv_b2;
+    s_logb = logf(beta_l);
+    rgb_scale = wmix * inv_b2 * inv3n + (1.f - wmix) * 2.f * inv3n;
+    g_beta = wmix * (0.5f * invn / beta_l - sq_err * inv_b2 / beta_l * inv3n);
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const bool inside = rgb_acc[c] >= 0.f && rgb_acc[c] <= 1.f;  // the clip's adjoint
+    g_rgb[c] = inside ? g_rgb[c] * rgb_scale : 0.f;
+  }
+  if (lane == 0) {
+    atomicAdd(loss_sums + 0, s_sat);
+    atomicAdd(loss_sums + 1, s_logb);
+    atomicAdd(loss_sums + 2, sq_err);
+  }
+
+  // ---- 3. backward over the samples
+  float a_sig[CLB_F_REGS];
+  float a_rgb[3][CLB_H_REGS], a_sun[CLB_H_REGS], a_beta[CLB_H_REGS];
+#pragma unroll
+  for (int i = 0; i < CLB_F_REGS; ++i) a_sig[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < CLB_H_REGS; ++i) {
+    a_rgb[0][i] = a_rgb[1][i] = a_rgb[2][i] = a_sun[i] = a_beta[i] = 0.f;
+  }
+  float b_acc[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float d_sky[3] = {0.f, 0.f, 0.f};
+  float suffix = 0.f;  // sum over later samples of dw * w
+
+  for (int s = S - 1; s >= 0; --s) {
+    const size_t q = (size_t)ray * S + s;
+    const float sigma = v_sigma[s], delta = v_delta[s], oma = v_oma[s];
+    const float tr = v_trans[s], w = v_w[s], sunv = v_sun[s], beta = v_beta[s];
+    const float cs[3] = {v_c0[s], v_c1[s], v_c2[s]};
+    float dw = beta * g_beta, d_sunv = 0.f, g_pre_rgb[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float rgb = cs[c] * pad2 - rgb_padding;
+      const float irr = sunv + (1.f - sunv) * sky[c];
+      const float d_irr = w * rgb * g_rgb[c];
+      dw += rgb * irr * g_rgb[c];
+      d_sunv += d_irr * (1.f - sky[c]);
+      d_sky[c] += d_irr * (1.f - sunv);
+      g_pre_rgb[c] = w * irr * g_rgb[c] * pad2 * cs[c] * (1.f - cs[c]);
+    }
+    // the factor the forward multiplied the transparency by, formed the same way
+    const float d_alpha = dw * tr - suffix / (1.f - (1.f - oma) + 1e-10f);
+    suffix += dw * w;
+    const float sigma_n = sigma + (noise != nullptr ? noise[q] : 0.f);
+    const float d_sn = sigma_n > 0.f ? d_alpha * oma * delta : 0.f;
+    const float g_pre_sig = d_sn * (1.f - expf(-sigma));  // softplus' = 1 - exp(-softplus)
+    const float g_pre_sun = d_sunv * sunv * (1.f - sunv);
+    const float g_pre_beta = use_beta ? w * g_beta * (1.f - expf(-beta)) : 0.f;
+
+    b_acc[0] += g_pre_sig;
+    b_acc[1] += g_pre_rgb[0]; b_acc[2] += g_pre_rgb[1]; b_acc[3] += g_pre_rgb[2];
+    b_acc[4] += g_pre_sun;
+    b_acc[8] += g_pre_beta;
+    const float gb_sig = round_to<T>(g_pre_sig), gb_sun = round_to<T>(g_pre_sun);
+    const float gb_beta = round_to<T>(g_pre_beta);
+    const float gb_rgb[3] = {round_to<T>(g_pre_rgb[0]), round_to<T>(g_pre_rgb[1]),
+                             round_to<T>(g_pre_rgb[2])};
+
+    const T* hq = h + q * F;
+    float* dhq = d_h + q * F;
+#pragma unroll
+    for (int i = 0; i < CLB_F_REGS; ++i) {
+      const int k = lane + 32 * i;
+      if (k < F) {
+        a_sig[i] = fmaf(gb_sig, to_f32<T>(hq[k]), a_sig[i]);
+        dhq[k] = gb_sig * to_f32<T>(w_sig[k]);
+      }
+    }
+    const T* rq = rf + q * Fh;
+    const T* sq = s2 + q * Fh;
+    const T* bq = use_beta ? bh + q * Fh : nullptr;
+#pragma unroll
+    for (int i = 0; i < CLB_H_REGS; ++i) {
+      const int k = lane + 32 * i;
+      if (k < Fh) {
+        const float rv = to_f32<T>(rq[k]);
+        float dr = 0.f;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          a_rgb[c][i] = fmaf(gb_rgb[c], rv, a_rgb[c][i]);
+          dr = fmaf(gb_rgb[c], to_f32<T>(w_rgb[(size_t)c * F + k]), dr);
+        }
+        d_r[q * Fh + k] = dr;
+        a_sun[i] = fmaf(gb_sun, to_f32<T>(sq[k]), a_sun[i]);
+        d_s2[q * Fh + k] = gb_sun * to_f32<T>(w_sun[k]);
+        if (use_beta) {
+          a_beta[i] = fmaf(gb_beta, to_f32<T>(bq[k]), a_beta[i]);
+          d_bh[q * Fh + k] = gb_beta * to_f32<T>(w_beta[k]);
+        }
+      }
+    }
+  }
+
+  // ---- 4. sky_1 and relu of sky_0, once a ray
+  float gb_sky[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float g = d_sky[c] * sky[c] * (1.f - sky[c]);
+    b_acc[5 + c] = g;
+    gb_sky[c] = round_to<T>(g);
+  }
+  {
+    const T* x = skyh + (size_t)ray * Fh;
+#pragma unroll
+    for (int i = 0; i < CLB_H_REGS; ++i) {
+      const int k = lane + 32 * i;
+      if (k < Fh) {
+        const float xv = to_f32<T>(x[k]);
+        float d = 0.f;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          d = fmaf(gb_sky[c], to_f32<T>(w_sky[(size_t)c * F + k]), d);
+          atomicAdd(dWn + (size_t)(5 + c) * F + k, gb_sky[c] * xv);
+        }
+        d_skyh[(size_t)ray * Fh + k] = xv > 0.f ? d : 0.f;
+      }
+    }
+  }
+
+  // ---- the ray's share of dWn and dbn
+#pragma unroll
+  for (int i = 0; i < CLB_F_REGS; ++i) {
+    const int k = lane + 32 * i;
+    if (k < F) atomicAdd(dWn + k, a_sig[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < CLB_H_REGS; ++i) {
+    const int k = lane + 32 * i;
+    if (k < Fh) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) atomicAdd(dWn + (size_t)(1 + c) * F + k, a_rgb[c][i]);
+      atomicAdd(dWn + (size_t)4 * F + k, a_sun[i]);
+      if (use_beta) atomicAdd(dWn + (size_t)8 * F + k, a_beta[i]);
+    }
+  }
+  if (lane < 9 && (lane != 8 || use_beta)) {
+    float v = 0.f;
+#pragma unroll
+    for (int j = 0; j < 9; ++j)
+      if (j == lane) v = b_acc[j];
+    atomicAdd(dbn + lane, v);
+  }
+}
+
+}  // namespace
+
+// ------------------------------------------------------------- C entry points
+// Each returns cudaGetLastError() after its launches; the wrapper raises if
+// it is not 0.
+
+extern "C" int satnerf_siren_dense_dgrad(int dtype, const void* dY, const void* slope,
+                                         const void* W, void* dX, int accumulate, int P,
+                                         int N, int K, void* stream) {
+  if (P == 0 || N == 0 || K == 0) return (int)cudaSuccess;
+  const long long tiles = (long long)((P + BM - 1) / BM) * ((K + BN - 1) / BN);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* dy = static_cast<const float*>(dY);
+  const float* sl = static_cast<const float*>(slope);
+  float* dx = static_cast<float*>(dX);
+  const bool aligned = (reinterpret_cast<uintptr_t>(dY) | reinterpret_cast<uintptr_t>(slope) |
+                        reinterpret_cast<uintptr_t>(W)) % 16 == 0;
+  if (dtype == 0) {
+    dgrad_simt<float><<<grid, DENSE_THREADS, 0, st>>>(dy, sl, static_cast<const float*>(W), dx,
+                                                      accumulate, P, N, K);
+  } else if (dtype == 1 && N % 8 == 0 && aligned) {
+    dgrad_wmma<<<grid, DENSE_THREADS, 0, st>>>(dy, sl, static_cast<const __nv_bfloat16*>(W),
+                                               dx, accumulate, P, N, K);
+  } else if (dtype == 1) {
+    dgrad_simt<__nv_bfloat16><<<grid, DENSE_THREADS, 0, st>>>(
+        dy, sl, static_cast<const __nv_bfloat16*>(W), dx, accumulate, P, N, K);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int satnerf_siren_dense_wgrad(int dtype, const void* X, int K, const void* dY,
+                                         const void* slope, const void* rays, const void* z,
+                                         int S, int extra_mode, int extra_off, int n_extra,
+                                         const void* C, void* dW, void* db, void* dC,
+                                         void* dE, int P, int N, void* stream) {
+  if (n_extra > MAX_EXTRA || n_extra < 0 || S < 1) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (P == 0 || N == 0) return (int)cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* dy = static_cast<const float*>(dY);
+  const float* sl = static_cast<const float*>(slope);
+  if (K > 0) {
+    const dim3 grid((K + BM - 1) / BM, (N + BN - 1) / BN, (P + WGRAD_SPLIT - 1) / WGRAD_SPLIT);
+    const bool aligned = (reinterpret_cast<uintptr_t>(dY) | reinterpret_cast<uintptr_t>(slope) |
+                          reinterpret_cast<uintptr_t>(X)) % 16 == 0;
+    float* dw = static_cast<float*>(dW);
+    if (dtype == 0) {
+      wgrad_simt<float><<<grid, DENSE_THREADS, 0, st>>>(static_cast<const float*>(X), dy, sl,
+                                                        dw, P, N, K);
+    } else if (K % 8 == 0 && N % 8 == 0 && aligned) {
+      wgrad_wmma<<<grid, DENSE_THREADS, 0, st>>>(static_cast<const __nv_bfloat16*>(X), dy, sl,
+                                                 dw, P, N, K);
+    } else {
+      wgrad_simt<__nv_bfloat16><<<grid, DENSE_THREADS, 0, st>>>(
+          static_cast<const __nv_bfloat16*>(X), dy, sl, dw, P, N, K);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 sgrid((P + SMALL_CHUNK - 1) / SMALL_CHUNK, (N + SMALL_THREADS - 1) / SMALL_THREADS);
+  if (dtype == 0) {
+    small_grads<float><<<sgrid, SMALL_THREADS, 0, st>>>(
+        dy, sl, P, N, static_cast<const float*>(rays), static_cast<const float*>(z), S,
+        extra_mode, extra_off, n_extra, static_cast<const float*>(C), static_cast<float*>(db),
+        static_cast<float*>(dC), static_cast<float*>(dE));
+  } else {
+    small_grads<__nv_bfloat16><<<sgrid, SMALL_THREADS, 0, st>>>(
+        dy, sl, P, N, static_cast<const float*>(rays), static_cast<const float*>(z), S,
+        extra_mode, extra_off, n_extra, static_cast<const __nv_bfloat16*>(C),
+        static_cast<float*>(db), static_cast<float*>(dC), static_cast<float*>(dE));
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int satnerf_composite_loss_bwd(int dtype, const void* h, int F, const void* rf,
+                                          const void* s2, const void* bh, const void* skyh,
+                                          int Fh, const void* Wn, const void* bn, const void* z,
+                                          const void* noise, const void* gt, int R, int S,
+                                          float rgb_padding, float beta_min, float wmix,
+                                          void* loss_sums, void* weights, void* d_h, void* d_r,
+                                          void* d_s2, void* d_bh, void* d_skyh, void* dWn,
+                                          void* dbn, void* stream) {
+  if (F > CLB_MAX_F || Fh > CLB_MAX_F / 2 || S < 1) return (int)cudaErrorInvalidValue;
+  if (R == 0) return (int)cudaSuccess;
+  const int grid = (R + CLB_WARPS - 1) / CLB_WARPS;
+  const size_t smem = (size_t)CLB_WARPS * CLB_SAMPLE_VALS * S * sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto o = [](void* p) { return static_cast<float*>(p); };
+  if (dtype == 0) {
+    composite_loss_bwd_kernel<float><<<grid, CLB_WARPS * 32, smem, st>>>(
+        f(h), F, f(rf), f(s2), f(bh), f(skyh), Fh, f(Wn), f(bn), f(z), f(noise), f(gt), R, S,
+        rgb_padding, beta_min, wmix, o(loss_sums), o(weights), o(d_h), o(d_r), o(d_s2), o(d_bh),
+        o(d_skyh), o(dWn), o(dbn));
+  } else if (dtype == 1) {
+    auto b = [](const void* p) { return static_cast<const __nv_bfloat16*>(p); };
+    composite_loss_bwd_kernel<__nv_bfloat16><<<grid, CLB_WARPS * 32, smem, st>>>(
+        b(h), F, b(rf), b(s2), b(bh), b(skyh), Fh, b(Wn), f(bn), f(z), f(noise), f(gt), R, S,
+        rgb_padding, beta_min, wmix, o(loss_sums), o(weights), o(d_h), o(d_r), o(d_s2), o(d_bh),
+        o(d_skyh), o(dWn), o(dbn));
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

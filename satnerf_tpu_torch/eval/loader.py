@@ -10,7 +10,7 @@ from __future__ import annotations
 import json
 import os
 
-from satnerf_tpu.config import Config
+from satnerf_tpu_torch.config import Config
 from satnerf_tpu_torch.train.checkpoints import checkpoint_path, load_checkpoint
 from satnerf_tpu_torch.train.system import NeRFSystem
 
@@ -29,7 +29,8 @@ def load_nerf(run_id: str, logs_dir: str, ckpts_dir: str, epoch_number: int,
     if not os.path.exists(ckpt):
         raise FileNotFoundError(f"Could not find checkpoint {ckpt}")
     system = NeRFSystem(cfg, device=device)
-    params = load_checkpoint(ckpt, system.init_params())
+    params = system.init_params()
+    load_checkpoint(ckpt, params)
     return system, params
 
 

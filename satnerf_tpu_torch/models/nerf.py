@@ -61,11 +61,48 @@ def positional_encoding(x: torch.Tensor, n_freqs: int) -> torch.Tensor:
     return enc.reshape(*x.shape[:-1], n_freqs * 2 * x.shape[-1])
 
 
+class _RoundedMatmul(torch.autograd.Function):
+    """x @ weight.T with both operands rounded to `dtype` and float32 sums.
+
+    The backward rounds where the fused training kernel rounds
+    (satnerf_tpu/ops/pallas/fused_mlp.py:509-516): the cotangent is cast to
+    `dtype` before both of its products, against the rounded weight and the
+    rounded input. Plain autograd would keep it in float32.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, dtype):
+        xb, wb = x.to(dtype).float(), weight.to(dtype).float()
+        ctx.save_for_backward(xb, wb)
+        ctx.dtype = dtype
+        return xb @ wb.t()
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        gb = g.to(ctx.dtype).float()
+        dx = gb @ wb if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = gb.reshape(-1, gb.shape[-1]).t() @ xb.reshape(-1, xb.shape[-1])
+        return dx, dw, None
+
+
+def rounded_matmul(x: torch.Tensor, weight: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """x (..., in) @ weight (out, in).T with operands rounded to `dtype`,
+    float32 sums, and a backward that rounds its cotangent to `dtype` too."""
+    if dtype == torch.float32:
+        return x.float() @ weight.float().t()
+    return _RoundedMatmul.apply(x, weight, dtype)
+
+
 def dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Linear with operands rounded to `dtype`, float32 sums and bias."""
+    """Linear with operands rounded to `dtype`, float32 sums and bias. The
+    bias gradient sums the unrounded cotangent, as the fused kernel does."""
     if dtype == torch.float32:
         return F.linear(x.float(), lin.weight, lin.bias)
-    return F.linear(x.to(dtype).float(), lin.weight.to(dtype).float(), lin.bias)
+    return rounded_matmul(x, lin.weight, dtype) + lin.bias
 
 
 class RadianceField(nn.Module):

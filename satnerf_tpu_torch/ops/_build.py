@@ -1,7 +1,8 @@
 """Build and bind the CUDA kernels in satnerf_tpu_torch/csrc/.
 
-nvcc compiles every csrc/*.cu into one shared library with a plain C
-interface, for sm_90a, into build/satnerf_tpu_torch/ at the repository root.
+nvcc compiles every csrc/*.cu to an object, one nvcc per source and all
+started together, and links them into one shared library with a plain C
+interface, for sm_90a, in build/satnerf_tpu_torch/ at the repository root.
 The file name carries a hash of the sources and flags, so an edit rebuilds
 and an unchanged tree reuses the library. It is loaded with ctypes; each C
 entry returns cudaGetLastError() after its launch.
@@ -25,18 +26,30 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "satnerf_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # dtype, X, K, W, bias, rays, z, S, extra_mode, extra_off, n_extra, C,
-    # w0, act, Y, P, N, stream
+    # w0, act, Y, save, P, N, stream
     "satnerf_siren_dense": [_I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P,
-                            _F, _I, _P, _I, _I, _P],
+                            _F, _I, _P, _P, _I, _I, _P],
     # dtype, h, F, r, s2, bh, skyh, Fh, Wn, bn, z, R, S, rgb_padding, out,
     # weights, stream
     "satnerf_heads_composite": [_I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                                 _I, _I, _F, _P, _P, _P],
+    # dtype, dY, slope, W, dX, accumulate, P, N, K, stream
+    "satnerf_siren_dense_dgrad": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dtype, X, K, dY, slope, rays, z, S, extra_mode, extra_off, n_extra, C,
+    # dW, db, dC, dE, P, N, stream
+    "satnerf_siren_dense_wgrad": [_I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _P, _P, _P, _P, _P, _I, _I, _P],
+    # dtype, h, F, r, s2, bh, skyh, Fh, Wn, bn, z, noise, gt, R, S,
+    # rgb_padding, beta_min, wmix, loss_sums, weights, d_h, d_r, d_s2, d_bh,
+    # d_skyh, dWn, dbn, stream
+    "satnerf_composite_loss_bwd": [_I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P,
+                                   _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P,
+                                   _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -70,14 +83,31 @@ def build() -> tuple[str, float]:
     if os.path.exists(path):
         return path, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    nvcc, tag = _nvcc(), f"{os.path.basename(path)}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
+    jobs = []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = os.path.join(BUILD_DIR, f"{tag}.{os.path.basename(src)}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    tmp = os.path.join(BUILD_DIR, f"{tag}.tmp")
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *[o for _, o, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    for _, obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
     return path, time.perf_counter() - t0
 

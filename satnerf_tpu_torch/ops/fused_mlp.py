@@ -1,27 +1,40 @@
-"""The serving render for the SIREN variants: fused_render_rays.
+"""The fused kernels of the SIREN variants: serving render and training step.
 
-Counterpart of satnerf_tpu/ops/pallas/fused_mlp.py:1066 (K2). Rays and
-per-ray depths go in, per-ray products come out: rgb, depth, sun, sky,
-albedo, opacity, beta (sat-nerf) and, on request, the (R, S) compositing
-weights.
+fused_render_rays — counterpart of satnerf_tpu/ops/pallas/fused_mlp.py:1066
+(K2). Rays and per-ray depths go in, per-ray products come out: rgb, depth,
+sun, sky, albedo, opacity, beta (sat-nerf) and, on request, the (R, S)
+compositing weights.
 
-On the card the render is a chain of two hand-written CUDA kernels
-(csrc/fused_render.cu), each behind a wrapper here with a plain PyTorch
-version beside it:
+fused_train_loss_grads — counterpart of fused_mlp.py:1804 (K1). Rays, depths,
+sigma noise and target colors go in; the loss parts, the gradient of every
+field parameter, the per-ray gradient of the transient embedding and, on
+request, the compositing weights come out.
 
-  siren_dense      one dense layer, act(w0 * (X.W + b + E.C)), with the small
-                   E operand (xyz, sun_dir or t) built from the rays in-kernel
-  heads_composite  the narrow heads and the alpha compositor, a warp per ray
+On the card both are chains of hand-written CUDA kernels (csrc/), each behind
+a wrapper here with a plain PyTorch version beside it:
 
-`_render_staged` chains them: the trunk with its skip, the wide heads, then
-heads_composite. A wrapper given a CUDA tensor launches its kernel or raises;
-given a CPU tensor it runs its plain version. There is no fallback from one
-to the other. Every launch adds one to LAUNCHES[name].
+  siren_dense         one dense layer, act(w0 * (X.W + b + E.C)), with the
+                      small E operand (xyz, sun_dir or t) built from the rays
+                      in-kernel; in training it also saves the sine's slope
+  heads_composite     the narrow heads and the alpha compositor, a warp per
+                      ray (serving)
+  composite_loss_bwd  narrow heads, compositor, loss and all their adjoints,
+                      a warp per ray (training)
+  siren_dense_dgrad   dX (+)= (dY * slope) . W^T
+  siren_dense_wgrad   dW, db, dC of one layer, and t_grad for beta_0
+
+`_render_staged` and `_train_staged` chain them. A wrapper given a CUDA
+tensor launches its kernel or raises; given a CPU tensor it runs its plain
+version. There is no fallback from one to the other. Every launch adds one
+to LAUNCHES[name].
 
 Weights follow the JAX kernel's precision split: matmul operands (weights,
 activations, the E operand) in the compute dtype, sums and biases in fp32,
 each activation stored in the compute dtype, as `_trunk_fwd` and
-`_narrow_fwd` round them (fused_mlp.py:278,287,302).
+`_narrow_fwd` round them (fused_mlp.py:278,287,302). The backward keeps what
+the JAX kernel keeps in fp32 — the slopes w0*cos(w0*pre), the cotangents
+between layers, the weight-gradient sums — and rounds each cotangent to the
+compute dtype before both of its products (fused_mlp.py:509-516).
 """
 
 from __future__ import annotations
@@ -31,13 +44,16 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from satnerf_tpu_torch.models.nerf import rounded_matmul
+from satnerf_tpu_torch.render.composite import composite, ray_weights
 from satnerf_tpu_torch.render.render import run_field
-from satnerf_tpu_torch.render.composite import ray_weights
+from satnerf_tpu_torch.train import losses as L
 
 OUT_COLS = 16  # rgb 0:3 | depth 3 | sun 4 | sky 5:8 | beta 8 | albedo 9:12 | opacity 12
 RAY_COLS = 16  # o 0:3 | d 3:6 | sun 6:9 | t 9:9+tau
 
-LAUNCHES = {"siren_dense": 0, "heads_composite": 0}
+LAUNCHES = {"siren_dense": 0, "heads_composite": 0, "composite_loss_bwd": 0,
+            "siren_dense_dgrad": 0, "siren_dense_wgrad": 0}
 
 _ACT = {"none": 0, "sin": 1, "relu": 2}
 _EXTRA = {None: (0, 0), "xyz": (1, 0), "sun": (2, 6), "t": (2, 9)}  # mode, column
@@ -63,6 +79,10 @@ def _check_cuda(dtype: torch.dtype, **tensors) -> None:
             raise ValueError(f"{name} is on {t.device}, the kernel needs CUDA")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _launch(name: str, *args) -> None:
@@ -91,14 +111,19 @@ def _extra_operand(rays16, samples: int, z, extra: str, n: int, dtype):
 
 def siren_dense_reference(x, weight, bias, rays16, samples: int, *,
                           extra: Optional[str] = None, extra_weight=None,
-                          z=None, w0: float = 1.0, act: str = "sin"):
+                          z=None, w0: float = 1.0, act: str = "sin",
+                          save: bool = False):
     """Plain version of siren_dense: act(w0 * (x.weight + bias + E.C)).
 
     x (P, K) or None for K = 0; weight (K, N); bias (N,) fp32; rays16 (R, 16)
     fp32 with P = R * samples; extra in {None, "xyz", "sun", "t"} selects E
     (xyz = o + d*z needs z (R, S)); extra_weight (n, N). Returns (P, N) in the
-    compute dtype (that of weight, else extra_weight).
+    compute dtype (that of weight, else extra_weight); with save (sine layers
+    only) also the slope w0 * cos(w0 * pre), (P, N) fp32, that the backward
+    multiplies the layer's cotangent by.
     """
+    if save and act != "sin":
+        raise ValueError("only a sine layer has a slope to save")
     dtype = (weight if weight is not None else extra_weight).dtype
     p = rays16.shape[0] * samples
     if x is not None:
@@ -110,16 +135,17 @@ def siren_dense_reference(x, weight, bias, rays16, samples: int, *,
                            dtype)
         pre = pre + e @ extra_weight.float()
     pre = w0 * pre
+    slope = w0 * torch.cos(pre) if save else None
     if act == "sin":
         pre = torch.sin(pre)
     elif act == "relu":
         pre = torch.relu(pre)
-    return pre.to(dtype)
+    return (pre.to(dtype), slope) if save else pre.to(dtype)
 
 
 def siren_dense(x, weight, bias, rays16, samples: int, *,
                 extra: Optional[str] = None, extra_weight=None, z=None,
-                w0: float = 1.0, act: str = "sin"):
+                w0: float = 1.0, act: str = "sin", save: bool = False):
     """One dense layer of the field; arguments as siren_dense_reference.
 
     CUDA tensors launch the siren_dense kernel; CPU tensors run the plain
@@ -128,7 +154,9 @@ def siren_dense(x, weight, bias, rays16, samples: int, *,
     if rays16.device.type == "cpu":
         return siren_dense_reference(x, weight, bias, rays16, samples,
                                      extra=extra, extra_weight=extra_weight,
-                                     z=z, w0=w0, act=act)
+                                     z=z, w0=w0, act=act, save=save)
+    if save and act != "sin":
+        raise ValueError("only a sine layer has a slope to save")
     dtype = (weight if weight is not None else extra_weight).dtype
     _check_cuda(dtype, x=x, weight=weight, bias=bias, rays16=rays16, z=z,
                 extra_weight=extra_weight)
@@ -155,26 +183,32 @@ def siren_dense(x, weight, bias, rays16, samples: int, *,
     if extra is not None and extra_weight.shape[1] != n:
         raise ValueError("extra_weight must be (n_extra, N)")
     y = torch.empty((p, n), dtype=dtype, device=rays16.device)
-    stream = torch.cuda.current_stream(rays16.device).cuda_stream
+    slope = (torch.empty((p, n), dtype=torch.float32, device=rays16.device)
+             if save else None)
     _launch("siren_dense", _DTYPE_CODE[dtype], _ptr(x), k, _ptr(weight),
             _ptr(bias), _ptr(rays16), _ptr(z), samples, mode, col, n_extra,
-            _ptr(extra_weight), float(w0), _ACT[act], _ptr(y), p, n, stream)
-    return y
+            _ptr(extra_weight), float(w0), _ACT[act], _ptr(y), _ptr(slope),
+            p, n, _stream(rays16))
+    return (y, slope) if save else y
 
 
 # ------------------------------------------------------------ heads_composite
 
 
-def _narrow_heads(h, r, s2, bh, skyh, wn, bn, rgb_padding: float):
-    """Per-sample sigma, albedo, sun_v, beta and per-ray sky (plain)."""
-    fh = r.shape[1]
-    w = wn.float()
-    sigma = F.softplus(h.float() @ w[0] + bn[0])
-    albedo = torch.sigmoid(r.float() @ w[1:4, :fh].T + bn[1:4])
+def _narrow_heads(h, r, s2, bh, skyh, wn, bn, rgb_padding: float, dtype=None):
+    """Per-sample sigma, albedo, sun_v, beta and per-ray sky (plain). The
+    operands are rounded to `dtype` (that of wn unless given)."""
+    fh, dt = r.shape[1], (wn.dtype if dtype is None else dtype)
+
+    def mm(x, rows):  # (P, K) @ (n, K).T -> (P, n)
+        return rounded_matmul(x, rows, dt)
+
+    sigma = F.softplus(mm(h, wn[0:1])[:, 0] + bn[0])
+    albedo = torch.sigmoid(mm(r, wn[1:4, :fh]) + bn[1:4])
     albedo = albedo * (1 + 2 * rgb_padding) - rgb_padding
-    sunv = torch.sigmoid(s2.float() @ w[4, :fh] + bn[4])
-    sky = torch.sigmoid(skyh.float() @ w[5:8, :fh].T + bn[5:8])
-    beta = (F.softplus(bh.float() @ w[8, :fh] + bn[8]) if bh is not None
+    sunv = torch.sigmoid(mm(s2, wn[4:5, :fh])[:, 0] + bn[4])
+    sky = torch.sigmoid(mm(skyh, wn[5:8, :fh]) + bn[5:8])
+    beta = (F.softplus(mm(bh, wn[8:9, :fh])[:, 0] + bn[8]) if bh is not None
             else torch.zeros_like(sunv))
     return sigma, albedo, sunv, sky, beta
 
@@ -239,10 +273,10 @@ def heads_composite(h, r, s2, bh, skyh, wn, bn, z, *,
     out = torch.empty((n_rays, OUT_COLS), dtype=torch.float32, device=z.device)
     weights = (torch.empty((n_rays, n_s), dtype=torch.float32, device=z.device)
                if return_weights else None)
-    stream = torch.cuda.current_stream(z.device).cuda_stream
     _launch("heads_composite", _DTYPE_CODE[dtype], _ptr(h), feat, _ptr(r),
             _ptr(s2), _ptr(bh), _ptr(skyh), fh, _ptr(wn), _ptr(bn), _ptr(z),
-            n_rays, n_s, float(rgb_padding), _ptr(out), _ptr(weights), stream)
+            n_rays, n_s, float(rgb_padding), _ptr(out), _ptr(weights),
+            _stream(z))
     return out, weights
 
 
@@ -406,9 +440,9 @@ def fused_render_rays(params, rays_o, rays_d, sun_dir, t_embed, z_vals, *,
     "weights" (R,S) when return_weights — the same dict as the JAX kernel.
 
     On CUDA tensors this launches the siren_dense / heads_composite chain
-    under torch.inference_mode(): it is forward-only, and its outputs carry
-    no grad_fn (the differentiable render is K4, not ported yet). On CPU
-    tensors it runs fused_render_rays_reference.
+    under torch.inference_mode(): its outputs carry no grad_fn (training
+    goes through fused_train_loss_grads; the differentiable render K4 is
+    not ported yet). On CPU tensors it runs fused_render_rays_reference.
     """
     if z_vals.device.type == "cpu":
         return fused_render_rays_reference(
@@ -434,3 +468,494 @@ def fused_render_rays(params, rays_o, rays_d, sun_dir, t_embed, z_vals, *,
                                       rgb_padding=rgb_padding,
                                       return_weights=return_weights)
     return _products(out, weights, use_beta)
+
+
+# ======================================================== the training step
+#
+# K1, fused_train_loss_grads: the forward chain with saved slopes, then
+# composite_loss_bwd, then a dgrad and a wgrad launch per dense layer.
+
+
+def _cotangent(dy, slope, dtype):
+    """(G, round(G)) for G = dy * slope in fp32 (slope None: a linear layer)."""
+    g = dy if slope is None else dy * slope
+    return g, g.to(dtype).float()
+
+
+# ---------------------------------------------------------- siren_dense_dgrad
+
+
+def siren_dense_dgrad_reference(dy, slope, weight, *, out=None):
+    """Plain version of siren_dense_dgrad: round(dy * slope) @ weight.T.
+
+    dy, slope (P, N) fp32 (slope None for a linear layer); weight (K, N) in
+    the compute dtype. Returns dX (P, K) fp32, added onto `out` when given.
+    """
+    _, gb = _cotangent(dy, slope, weight.dtype)
+    dx = gb @ weight.float().t()
+    return dx if out is None else out.add_(dx)
+
+
+def siren_dense_dgrad(dy, slope, weight, *, out=None):
+    """The input cotangent of one dense layer; arguments as
+    siren_dense_dgrad_reference. CUDA tensors launch the kernel."""
+    if dy.device.type == "cpu":
+        return siren_dense_dgrad_reference(dy, slope, weight, out=out)
+    dtype = weight.dtype
+    _check_cuda(dtype, dy=dy, slope=slope, weight=weight, out=out)
+    p, n = dy.shape
+    k = weight.shape[0]
+    if dy.dtype != torch.float32 or weight.shape != (k, n):
+        raise ValueError("dy must be (P, N) fp32 and weight (K, N)")
+    if slope is not None and (slope.shape != dy.shape
+                              or slope.dtype != torch.float32):
+        raise ValueError("slope must match dy, fp32")
+    if out is not None and (out.shape != (p, k) or out.dtype != torch.float32):
+        raise ValueError("out must be (P, K) fp32")
+    dx = out if out is not None else torch.empty(
+        (p, k), dtype=torch.float32, device=dy.device)
+    _launch("siren_dense_dgrad", _DTYPE_CODE[dtype], _ptr(dy), _ptr(slope),
+            _ptr(weight), _ptr(dx), int(out is not None), p, n, k, _stream(dy))
+    return dx
+
+
+# ---------------------------------------------------------- siren_dense_wgrad
+
+
+def siren_dense_wgrad_reference(x, dy, slope, rays16, samples: int, *,
+                                extra: Optional[str] = None, extra_weight=None,
+                                z=None, extra_grad: bool = False):
+    """Plain version of siren_dense_wgrad, the parameter gradients of
+    y = act(w0 * (x.W + b + E.C)) given its cotangent dy and saved slope.
+
+    x (P, K) in the compute dtype or None (K = 0); dy, slope (P, N) fp32;
+    rays16, samples, extra, extra_weight, z as siren_dense. Returns
+    (dW (K, N) or None, db (N,), dC (n, N) or None, dE (R, n) or None), all
+    fp32: dW = x.T @ round(G), db = sum G (unrounded), dC = E.T @ round(G),
+    and with extra_grad the per-ray gradient of the E operand itself,
+    dE = sum over the ray's samples of round(G) @ C.T.
+    """
+    dtype = (x if x is not None else extra_weight).dtype
+    g, gb = _cotangent(dy, slope, dtype)
+    dw = x.float().t() @ gb if x is not None else None
+    db = g.sum(0)
+    dc = de = None
+    if extra is not None:
+        n_e = extra_weight.shape[0]
+        e = _extra_operand(rays16, samples, z, extra, n_e, dtype)
+        dc = e.t() @ gb
+        if extra_grad:
+            de = (gb @ extra_weight.float().t()).reshape(-1, samples, n_e).sum(1)
+    return dw, db, dc, de
+
+
+def siren_dense_wgrad(x, dy, slope, rays16, samples: int, *,
+                      extra: Optional[str] = None, extra_weight=None, z=None,
+                      extra_grad: bool = False):
+    """The parameter gradients of one dense layer; arguments and returns as
+    siren_dense_wgrad_reference. CUDA tensors launch the kernel."""
+    if dy.device.type == "cpu":
+        return siren_dense_wgrad_reference(
+            x, dy, slope, rays16, samples, extra=extra,
+            extra_weight=extra_weight, z=z, extra_grad=extra_grad)
+    if x is None and extra is None:
+        raise ValueError("a layer without X and without E has no weights")
+    dtype = (x if x is not None else extra_weight).dtype
+    _check_cuda(dtype, x=x, dy=dy, slope=slope, rays16=rays16, z=z,
+                extra_weight=extra_weight)
+    p, n = dy.shape
+    k = 0 if x is None else x.shape[1]
+    if dy.dtype != torch.float32 or p != rays16.shape[0] * samples:
+        raise ValueError("dy must be (R * samples, N) fp32")
+    if slope is not None and (slope.shape != dy.shape
+                              or slope.dtype != torch.float32):
+        raise ValueError("slope must match dy, fp32")
+    if x is not None and (x.shape[0] != p or x.dtype != dtype):
+        raise ValueError(f"x must be ({p}, K) {dtype}")
+    if extra == "xyz" and (z is None or z.shape != (rays16.shape[0], samples)):
+        raise ValueError("extra='xyz' needs z (R, samples)")
+    if extra_grad and extra is None:
+        raise ValueError("extra_grad needs an E operand")
+    mode, col = _EXTRA[extra]
+    n_extra = 0 if extra is None else extra_weight.shape[0]
+    if extra is not None and (extra_weight.shape[1] != n
+                              or extra_weight.dtype != dtype):
+        raise ValueError(f"extra_weight must be (n_extra, N) {dtype}")
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=dy.device)
+
+    dw = zeros(k, n) if x is not None else None
+    db = zeros(n)
+    dc = zeros(n_extra, n) if extra is not None else None
+    de = zeros(rays16.shape[0], n_extra) if extra_grad else None
+    _launch("siren_dense_wgrad", _DTYPE_CODE[dtype], _ptr(x), k, _ptr(dy),
+            _ptr(slope), _ptr(rays16), _ptr(z), samples, mode, col, n_extra,
+            _ptr(extra_weight), _ptr(dw), _ptr(db), _ptr(dc), _ptr(de), p, n,
+            _stream(dy))
+    return dw, db, dc, de
+
+
+# --------------------------------------------------------- composite_loss_bwd
+
+
+def composite_loss_bwd_reference(h, r, s2, bh, skyh, wn, bn, z, noise, gt,
+                                 wmix: float, *, rgb_padding: float = 0.001,
+                                 beta_min: float = L.BETA_MIN,
+                                 return_weights: bool = False) -> dict:
+    """Plain version of composite_loss_bwd, by autograd.
+
+    h (P, F), r/s2/bh (P, Fh) (bh None without the beta head), skyh (R, Fh),
+    wn (9, F) in the compute dtype; bn (9,), z (R, S), noise (R, S) or None,
+    gt (R, 3) fp32; wmix the beta warm-up gate. The narrow heads, the
+    compositor and the losses of train/losses.py run forward; the mixed loss
+    wmix * (color_sat + logbeta) + (1 - wmix) * mse (the MSE alone without
+    the beta head) is differentiated. Returns fp32 tensors:
+      loss_sums (3,) [sum 0.5 sq / beta^2, sum log beta, sum sq] over rays
+      d_h (P, F) the sigma head's share of h's cotangent; d_r, d_s2, d_bh
+      (P, Fh); d_skyh (R, Fh), already through sky_0's relu
+      dwn (9, F), dbn (9,); weights (R, S) or None
+    """
+    n_rays, n_s = z.shape
+    use_beta = bh is not None
+    acts = [t.detach().float().requires_grad_(True)
+            for t in (h, r, s2, skyh) + ((bh,) if use_beta else ())]
+    hf, rf, sf, skyf = acts[:4]
+    bf = acts[4] if use_beta else None
+    wn_l = wn.detach().float().requires_grad_(True)
+    bn_l = bn.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        sigma, albedo, sunv, sky, beta = _narrow_heads(
+            hf, rf, sf, bf, skyf, wn_l, bn_l, rgb_padding, dtype=wn.dtype)
+        out = {"rgb": albedo.reshape(n_rays, n_s, 3),
+               "sigma": sigma.reshape(n_rays, n_s),
+               "sun_v": sunv.reshape(n_rays, n_s, 1),
+               "sky_rgb": sky[:, None, :].expand(n_rays, n_s, 3)}
+        if use_beta:
+            out["beta"] = beta.reshape(n_rays, n_s, 1)
+        res = {f"{k}_coarse": v for k, v in
+               composite(out, z, noise=noise, shadow=True).items()}
+        sq = ((res["rgb_coarse"] - gt) ** 2).sum(1)
+        mse, _ = L.snerf_loss(res, gt, 0.0)
+        if use_beta:
+            color, logbeta = L.uncertainty_aware_terms(res, gt, "coarse")
+            b = (res["weights_coarse"][..., None] * res["beta_coarse"]).sum(-2)
+            b = b[:, 0] + beta_min
+            sums = torch.stack([(0.5 * sq / b ** 2).sum(), torch.log(b).sum(),
+                                sq.sum()])
+            loss = wmix * (color + logbeta) + (1.0 - wmix) * mse
+        else:
+            zero = sq.new_zeros(())
+            sums = torch.stack([zero, zero, sq.sum()])
+            loss = mse
+        grads = torch.autograd.grad(loss, acts + [wn_l, bn_l],
+                                    allow_unused=True)
+    grads = [torch.zeros_like(a) if g is None else g
+             for g, a in zip(grads, acts + [wn_l, bn_l])]
+    res_out = {"loss_sums": sums.detach(), "d_h": grads[0], "d_r": grads[1],
+               "d_s2": grads[2], "d_skyh": grads[3] * (skyf.detach() > 0),
+               "d_bh": grads[4] if use_beta else None,
+               "dwn": grads[-2], "dbn": grads[-1],
+               "weights": (res["weights_coarse"].detach()
+                           if return_weights else None)}
+    return res_out
+
+
+def composite_loss_bwd(h, r, s2, bh, skyh, wn, bn, z, noise, gt, wmix: float,
+                       *, rgb_padding: float = 0.001,
+                       beta_min: float = L.BETA_MIN,
+                       return_weights: bool = False) -> dict:
+    """Narrow heads, compositor, loss and their adjoints; arguments and
+    returns as composite_loss_bwd_reference. CUDA tensors launch the kernel."""
+    if z.device.type == "cpu":
+        return composite_loss_bwd_reference(
+            h, r, s2, bh, skyh, wn, bn, z, noise, gt, wmix,
+            rgb_padding=rgb_padding, beta_min=beta_min,
+            return_weights=return_weights)
+    dtype = h.dtype
+    _check_cuda(dtype, h=h, r=r, s2=s2, bh=bh, skyh=skyh, wn=wn, bn=bn, z=z,
+                noise=noise, gt=gt)
+    n_rays, n_s = z.shape
+    p, feat = h.shape
+    fh = r.shape[1]
+    if p != n_rays * n_s or wn.shape != (9, feat) or skyh.shape != (n_rays, fh):
+        raise ValueError("composite_loss_bwd: inconsistent shapes")
+    for name, t, shape in (("z", z, (n_rays, n_s)), ("noise", noise, (n_rays, n_s)),
+                           ("gt", gt, (n_rays, 3)), ("bn", bn, (9,))):
+        if t is not None and (t.dtype != torch.float32 or t.shape != shape):
+            raise ValueError(f"{name} must be {shape} fp32")
+    for name, t in (("r", r), ("s2", s2), ("bh", bh)):
+        if t is not None and (t.shape != (p, fh) or t.dtype != dtype):
+            raise ValueError(f"{name} must be ({p}, {fh}) {dtype}")
+    for name, t in (("skyh", skyh), ("wn", wn)):
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}")
+    if feat > 512 or n_s > 256:
+        raise ValueError("composite_loss_bwd holds at most 512 features and "
+                         "256 samples a ray")
+    dev = z.device
+
+    def f32(*shape, zero=False):
+        make = torch.zeros if zero else torch.empty
+        return make(shape, dtype=torch.float32, device=dev)
+
+    res = {"loss_sums": f32(3, zero=True), "d_h": f32(p, feat),
+           "d_r": f32(p, fh), "d_s2": f32(p, fh),
+           "d_bh": f32(p, fh) if bh is not None else None,
+           "d_skyh": f32(n_rays, fh), "dwn": f32(9, feat, zero=True),
+           "dbn": f32(9, zero=True),
+           "weights": f32(n_rays, n_s) if return_weights else None}
+    _launch("composite_loss_bwd", _DTYPE_CODE[dtype], _ptr(h), feat, _ptr(r),
+            _ptr(s2), _ptr(bh), _ptr(skyh), fh, _ptr(wn), _ptr(bn), _ptr(z),
+            _ptr(noise), _ptr(gt), n_rays, n_s, float(rgb_padding),
+            float(beta_min), float(wmix), _ptr(res["loss_sums"]),
+            _ptr(res["weights"]), _ptr(res["d_h"]), _ptr(res["d_r"]),
+            _ptr(res["d_s2"]), _ptr(res["d_bh"]), _ptr(res["d_skyh"]),
+            _ptr(res["dwn"]), _ptr(res["dbn"]), _stream(z))
+    return res
+
+
+# ------------------------------------------------------------ the whole step
+
+
+class TrainOps:
+    """The four stage functions `_train_staged` chains. A check swaps in its
+    own to see each launch's inputs, as `_render_staged` allows."""
+
+    dense = staticmethod(siren_dense)
+    composite = staticmethod(composite_loss_bwd)
+    dgrad = staticmethod(siren_dense_dgrad)
+    wgrad = staticmethod(siren_dense_wgrad)
+
+
+def _train_staged(p: dict, rays16, z, noise, gt, wmix: float, *, skip: int,
+                  use_beta: bool, rgb_padding: float, beta_min: float,
+                  return_weights: bool, ops=TrainOps):
+    """The kernel chain of one training step. p: pack_params output.
+    Returns (loss_sums (3,), g, t_grad (R, tau) or None, weights or None)
+    with g the gradients in the layout of p (fp32)."""
+    n_s = z.shape[1]
+
+    def dense(x, w, bias, extra=None, ew=None, w0=1.0):
+        return ops.dense(x, w, bias, rays16, n_s, extra=extra, extra_weight=ew,
+                         z=z, w0=w0, act="sin", save=True)
+
+    # forward, each sine layer saving its slope
+    hs, slopes = [], []
+    h, c = dense(None, None, p["bt"][0], "xyz", p["A"], w0=30.0)
+    hs.append(h), slopes.append(c)
+    for l, w in enumerate(p["B"], start=1):
+        h, c = (dense(h, w, p["bt"][l], "xyz", p["C"]) if l == skip
+                else dense(h, w, p["bt"][l]))
+        hs.append(h), slopes.append(c)
+    feats = ops.dense(h, p["Wfeat"], p["bfeat"], rays16, n_s, act="none")
+    r, c_r = dense(feats, p["Wrgb0"], p["brgb0"])
+    s0, c_s0 = dense(feats, p["Wsun0h"], p["bsun0"], "sun", p["Wsun0d"])
+    s1, c_s1 = dense(s0, p["Wsun1"], p["bsun1"])
+    s2, c_s2 = dense(s1, p["Wsun2"], p["bsun2"])
+    bh = c_bh = None
+    if use_beta:
+        bh, c_bh = dense(feats, p["Wbeta0h"], p["bbeta0"], "t", p["Wbeta0t"])
+    skyh = ops.dense(None, None, p["bsky0"], rays16, 1, extra="sun",
+                     extra_weight=p["Wsky0"], act="relu")
+
+    out = ops.composite(h, r, s2, bh, skyh, p["wn"], p["bn"], z, noise, gt,
+                        wmix, rgb_padding=rgb_padding, beta_min=beta_min,
+                        return_weights=return_weights)
+    g = {"wn": out["dwn"], "bn": out["dbn"], "B": [None] * len(p["B"]),
+         "bt": [None] * len(p["bt"]), "C": None}
+
+    def wgrad(x, dy, slope, extra=None, ew=None, samples=n_s, extra_grad=False):
+        return ops.wgrad(x, dy, slope, rays16, samples, extra=extra,
+                         extra_weight=ew, z=z, extra_grad=extra_grad)
+
+    # heads, in the JAX kernel's order: rgb, sun, sky, beta
+    g["Wrgb0"], g["brgb0"], _, _ = wgrad(feats, out["d_r"], c_r)
+    d_feats = ops.dgrad(out["d_r"], c_r, p["Wrgb0"])
+    g["Wsun2"], g["bsun2"], _, _ = wgrad(s1, out["d_s2"], c_s2)
+    d_s1 = ops.dgrad(out["d_s2"], c_s2, p["Wsun2"])
+    g["Wsun1"], g["bsun1"], _, _ = wgrad(s0, d_s1, c_s1)
+    d_s0 = ops.dgrad(d_s1, c_s1, p["Wsun1"])
+    g["Wsun0h"], g["bsun0"], g["Wsun0d"], _ = wgrad(feats, d_s0, c_s0, "sun",
+                                                    p["Wsun0d"])
+    d_feats = ops.dgrad(d_s0, c_s0, p["Wsun0h"], out=d_feats)
+    _, g["bsky0"], g["Wsky0"], _ = wgrad(None, out["d_skyh"], None, "sun",
+                                         p["Wsky0"], samples=1)
+    t_grad = None
+    if use_beta:
+        g["Wbeta0h"], g["bbeta0"], g["Wbeta0t"], t_grad = wgrad(
+            feats, out["d_bh"], c_bh, "t", p["Wbeta0t"], extra_grad=True)
+        d_feats = ops.dgrad(out["d_bh"], c_bh, p["Wbeta0h"], out=d_feats)
+
+    # feats and sigma meet in the trunk output
+    g["Wfeat"], g["bfeat"], _, _ = wgrad(h, d_feats, None)
+    d_h = ops.dgrad(d_feats, None, p["Wfeat"], out=out["d_h"])
+
+    for l in range(len(p["B"]), 0, -1):
+        if l == skip:
+            g["B"][l - 1], g["bt"][l], g["C"], _ = wgrad(
+                hs[l - 1], d_h, slopes[l], "xyz", p["C"])
+        else:
+            g["B"][l - 1], g["bt"][l], _, _ = wgrad(hs[l - 1], d_h, slopes[l])
+        d_h = ops.dgrad(d_h, slopes[l], p["B"][l - 1])
+    _, g["bt"][0], g["A"], _ = wgrad(None, d_h, slopes[0], "xyz", p["A"])
+    return out["loss_sums"], g, t_grad, out["weights"]
+
+
+def unpack_grads(g: dict, field, *, skip: int, use_beta: bool) -> dict:
+    """Kernel-layout gradients -> {parameter name: gradient shaped like the
+    parameter}, keyed as field.named_parameters(). Undoes every split of
+    pack_params: the skip layer's xyz rows C and h rows, sun_v_net.0's h and
+    sun_dir rows, beta_from_xyz.0's h and t rows, the nine narrow rows of
+    wn / bn. Counterpart of fused_mlp.py:224."""
+    fh = field.feat // 2
+    out = {}
+
+    def put(name, kernel_w, bias):  # (in, out) -> Linear.weight (out, in)
+        out[f"{name}.weight"] = kernel_w.t().contiguous()
+        out[f"{name}.bias"] = bias
+
+    put("fc_net.0", g["A"], g["bt"][0])
+    for l in range(1, field.layers):
+        w = g["B"][l - 1]
+        if l == skip:
+            w = torch.cat([g["C"], w], dim=0)
+        put(f"fc_net.{2 * l}", w, g["bt"][l])
+    wn, bn = g["wn"], g["bn"]
+    out["sigma_from_xyz.0.weight"], out["sigma_from_xyz.0.bias"] = wn[0:1], bn[0:1]
+    put("feats_from_xyz", g["Wfeat"], g["bfeat"])
+    put("rgb_from_xyzdir.0", g["Wrgb0"], g["brgb0"])
+    out["rgb_from_xyzdir.2.weight"], out["rgb_from_xyzdir.2.bias"] = wn[1:4, :fh], bn[1:4]
+    put("sun_v_net.0", torch.cat([g["Wsun0h"], g["Wsun0d"]], dim=0), g["bsun0"])
+    put("sun_v_net.2", g["Wsun1"], g["bsun1"])
+    put("sun_v_net.4", g["Wsun2"], g["bsun2"])
+    out["sun_v_net.6.weight"], out["sun_v_net.6.bias"] = wn[4:5, :fh], bn[4:5]
+    put("sky_color.0", g["Wsky0"], g["bsky0"])
+    out["sky_color.2.weight"], out["sky_color.2.bias"] = wn[5:8, :fh], bn[5:8]
+    if use_beta:
+        put("beta_from_xyz.0", torch.cat([g["Wbeta0h"], g["Wbeta0t"]], dim=0),
+            g["bbeta0"])
+        out["beta_from_xyz.2.weight"], out["beta_from_xyz.2.bias"] = wn[8:9, :fh], bn[8:9]
+    return out
+
+
+def _loss_parts(sums, n_rays: int) -> dict:
+    """fused_mlp.py:1915-1919."""
+    return {"color_sat": sums[0] / (3.0 * n_rays),
+            "logbeta": (3.0 + sums[1] / n_rays) / 2.0,
+            "mse": sums[2] / (3.0 * n_rays)}
+
+
+def fused_train_loss_grads_reference(params, rays_o, rays_d, sun_dir, t_embed,
+                                     z_vals, noise, gt_rgb, use_beta_w, *,
+                                     layers: int = 8, feat: int = 512,
+                                     skip: int = 4, use_beta: bool = True,
+                                     rgb_padding: float = 0.001,
+                                     beta_min: float = L.BETA_MIN, tau: int = 4,
+                                     dtype=torch.bfloat16,
+                                     return_weights: bool = False):
+    """Plain version of fused_train_loss_grads: the field module on o + d*z,
+    render/composite.py, train/losses.py and torch.autograd.grad. The field's
+    matmuls round their operands, and in the backward their cotangents, to
+    `dtype` where the JAX kernel does (models/nerf.py rounded_matmul).
+    Used by the tests and by CPU systems."""
+    _check_field(params, layers, feat, skip, use_beta, tau, rgb_padding)
+    if beta_min != L.BETA_MIN:
+        raise ValueError("the plain version takes its beta_min from "
+                         "train/losses.py")
+    n_rays = z_vals.shape[0]
+    wmix = float(use_beta_w) if use_beta else 0.0
+    leaves = list(params.parameters())
+    t_leaf = None
+    if use_beta:
+        t_leaf = t_embed.detach().float().requires_grad_(True)
+    with torch.enable_grad():
+        res = run_field(params, rays_o.float(), rays_d.float(), None,
+                        sun_dir.float(), t_leaf, z_vals.float(), shadow=True,
+                        dtype=dtype, noise=noise)
+        res = {f"{k}_coarse": v for k, v in res.items()}
+        gt = gt_rgb.float()
+        mse, _ = L.snerf_loss(res, gt, 0.0)
+        sq = ((res["rgb_coarse"] - gt) ** 2).sum()
+        if use_beta:
+            color, logbeta = L.uncertainty_aware_terms(res, gt, "coarse")
+            parts = {"color_sat": color, "logbeta": logbeta, "mse": mse}
+            loss = wmix * (color + logbeta) + (1.0 - wmix) * mse
+        else:
+            parts = _loss_parts(torch.stack([sq.new_zeros(()),
+                                             sq.new_zeros(()), sq]), n_rays)
+            loss = mse
+        grads = torch.autograd.grad(
+            loss, leaves + ([t_leaf] if use_beta else []), allow_unused=True)
+    names = [n for n, _ in params.named_parameters()]
+    param_grads = {n: (torch.zeros_like(q) if g is None else g)
+                   for n, g, q in zip(names, grads, leaves)}
+    parts = {k: v.detach() for k, v in parts.items()}
+    t_grad = (grads[-1] if use_beta
+              else torch.zeros((n_rays, tau), device=z_vals.device))
+    if return_weights:
+        return parts, param_grads, t_grad, res["weights_coarse"].detach()
+    return parts, param_grads, t_grad
+
+
+def fused_train_loss_grads(params, rays_o, rays_d, sun_dir, t_embed, z_vals,
+                           noise, gt_rgb, use_beta_w, *, layers: int = 8,
+                           feat: int = 512, skip: int = 4,
+                           use_beta: bool = True, rgb_padding: float = 0.001,
+                           beta_min: float = L.BETA_MIN, tau: int = 4,
+                           dtype=torch.bfloat16, return_weights: bool = False):
+    """Training path: the primary pass' loss and gradients.
+
+    params: the s-nerf / sat-nerf RadianceField. rays_o, rays_d, sun_dir
+    (R, 3); t_embed (R, tau) (sat-nerf); z_vals (R, S); noise (R, S) sigma
+    noise or None; gt_rgb (R, 3); use_beta_w the beta warm-up gate in [0, 1]
+    (ignored without the beta head). Returns (parts, param_grads, t_grad):
+      parts        {"color_sat", "logbeta", "mse"} scalar loss components
+      param_grads  {parameter name: gradient} keyed as
+                   params.named_parameters(), of
+                   wmix * (color_sat + logbeta) + (1 - wmix) * mse
+                   (of mse without the beta head)
+      t_grad       (R, tau) per-ray gradient of t_embed, to be summed onto
+                   the embedding table by image id
+    and with return_weights a fourth, the (R, S) compositing weights.
+
+    On CUDA tensors this launches the kernel chain `_train_staged`; nothing
+    in it goes through autograd, and the weights are packed anew from
+    `params` on every call. On CPU tensors it runs
+    fused_train_loss_grads_reference.
+    """
+    kw = dict(layers=layers, feat=feat, skip=skip, use_beta=use_beta,
+              rgb_padding=rgb_padding, beta_min=beta_min, tau=tau, dtype=dtype,
+              return_weights=return_weights)
+    if z_vals.device.type == "cpu":
+        return fused_train_loss_grads_reference(
+            params, rays_o, rays_d, sun_dir, t_embed, z_vals, noise, gt_rgb,
+            use_beta_w, **kw)
+    if z_vals.device.type != "cuda":
+        raise ValueError(f"fused_train_loss_grads runs on cuda or cpu, not "
+                         f"{z_vals.device}")
+    _check_field(params, layers, feat, skip, use_beta, tau, rgb_padding)
+    if sun_dir is None or (use_beta and t_embed is None):
+        raise ValueError("the shadow variants need sun_dir (and t_embed for "
+                         "sat-nerf)")
+    if tau > RAY_COLS - 9:
+        raise ValueError(f"tau={tau} does not fit the 16-column ray layout")
+    n_rays = z_vals.shape[0]
+    with torch.no_grad():
+        rays16 = pack_rays(rays_o, rays_d, sun_dir,
+                           t_embed if use_beta else None, tau)
+        z = z_vals.float().contiguous()
+        nz = None if noise is None else noise.float().contiguous()
+        gt = gt_rgb.float().contiguous()
+        packed = pack_params(params, skip=skip, use_beta=use_beta, dtype=dtype)
+        sums, g, t_grad, weights = _train_staged(
+            packed, rays16, z, nz, gt, float(use_beta_w) if use_beta else 0.0,
+            skip=skip, use_beta=use_beta, rgb_padding=rgb_padding,
+            beta_min=beta_min, return_weights=return_weights)
+        parts = _loss_parts(sums, n_rays)
+        param_grads = unpack_grads(g, params, skip=skip, use_beta=use_beta)
+        if t_grad is None:
+            t_grad = torch.zeros((n_rays, tau), device=z.device)
+    if return_weights:
+        return parts, param_grads, t_grad, weights
+    return parts, param_grads, t_grad

@@ -33,11 +33,12 @@ class RenderConfig:
 
 def run_field(model, rays_o, march_d, rays_d, sun_d, t_embed, z_vals,
               shadow: bool = False,
-              dtype: Optional[torch.dtype] = None) -> dict:
+              dtype: Optional[torch.dtype] = None, noise=None) -> dict:
     """Evaluate the field at o + d*z along each ray and composite.
 
     rays_o/march_d (R,3), rays_d (R,3) view directions or None,
-    sun_d (R,3) or None, t_embed (R,tau) or None, z_vals (R,S).
+    sun_d (R,3) or None, t_embed (R,tau) or None, z_vals (R,S), noise
+    (R,S) training-time sigma noise or None.
     """
     xyz = rays_o[:, None, :] + march_d[:, None, :] * z_vals[:, :, None]
     n_rays, n_s, _ = xyz.shape
@@ -47,7 +48,7 @@ def run_field(model, rays_o, march_d, rays_d, sun_d, t_embed, z_vals,
 
     out = model(xyz, view_dir=per_sample(rays_d), sun_dir=per_sample(sun_d),
                 t_embed=per_sample(t_embed), dtype=dtype)
-    return composite(out, z_vals, shadow=shadow)
+    return composite(out, z_vals, noise=noise, shadow=shadow)
 
 
 def render_rays(models: dict, rays, t_embed, cfg: RenderConfig,

@@ -5,7 +5,9 @@ torch.save of {"state_dict": {nerf_coarse.*, [nerf_fine.*,] embedding_t.weight}}
 — the reference's PyTorch-Lightning payload, which
 satnerf_tpu.train.checkpoints.import_torch_checkpoint already reads. The
 params container of train/system.py is an nn.ModuleDict with exactly those
-keys, so its state_dict() is the payload.
+keys, so its state_dict() is the payload. A training checkpoint adds, under
+the PL names, "optimizer_states" ([Adam's state_dict]) and "global_step";
+one without them still loads for serving.
 
 Reading the JAX package's msgpack checkpoints needs flax and waits for a
 later port (ROADMAP).
@@ -61,15 +63,50 @@ def params_from_jax(params_np: dict, variant: str, layers: int = 8) -> dict:
     return sd
 
 
-def save_checkpoint(path: str, params: torch.nn.Module) -> None:
-    """Write params.state_dict() as a PL-style {"state_dict": ...} payload."""
+def adam_from_jax(optimizer: torch.optim.Adam, params: torch.nn.Module,
+                  mu: dict, nu: dict, count: int, variant: str,
+                  layers: int = 8) -> None:
+    """Fill `optimizer` (an Adam over params.parameters()) with an optax
+    adam state: `mu` and `nu` are parameter-shaped pytrees of numpy arrays
+    ({coarse[, fine][, t]}, as params_from_jax takes them), `count` the number
+    of updates taken. Moments go through the same bridge as the weights."""
+    moments = [params_from_jax(m, variant, layers) for m in (mu, nu)]
+    step = torch.tensor(float(count))
+    for name, p in params.named_parameters():
+        optimizer.state[p] = {
+            "step": step.clone(),
+            "exp_avg": moments[0][name].to(p.device, p.dtype),
+            "exp_avg_sq": moments[1][name].to(p.device, p.dtype),
+        }
+
+
+def save_checkpoint(path: str, params: torch.nn.Module,
+                    optimizer: torch.optim.Optimizer | None = None,
+                    step: int | None = None) -> None:
+    """Write params.state_dict() as a PL-style {"state_dict": ...} payload;
+    with an optimizer and a step, also "optimizer_states" and "global_step"
+    so training resumes from it."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     sd = {k: v.detach().float().cpu() for k, v in params.state_dict().items()}
-    torch.save({"state_dict": sd}, path)
+    payload = {"state_dict": sd}
+    if optimizer is not None:
+        opt = optimizer.state_dict()
+        opt["state"] = {k: {n: (v.detach().cpu() if torch.is_tensor(v) else v)
+                            for n, v in st.items()}
+                        for k, st in opt["state"].items()}
+        payload["optimizer_states"] = [opt]
+    if step is not None:
+        payload["global_step"] = int(step)
+    torch.save(payload, path)
 
 
-def load_checkpoint(path: str, params: torch.nn.Module) -> torch.nn.Module:
-    """Load a PL-style checkpoint into `params` (strict key match)."""
+def load_checkpoint(path: str, params: torch.nn.Module,
+                    optimizer: torch.optim.Optimizer | None = None) -> int:
+    """Load a PL-style checkpoint into `params` (strict key match) and, when
+    both are there, its optimizer state into `optimizer`. Returns the
+    checkpoint's global step (0 for one written without it)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     params.load_state_dict(ckpt.get("state_dict", ckpt))
-    return params
+    if optimizer is not None and ckpt.get("optimizer_states"):
+        optimizer.load_state_dict(ckpt["optimizer_states"][0])
+    return int(ckpt.get("global_step", 0))

@@ -8,7 +8,12 @@ no jax, so it runs on the machine with the card:
 Shapes cover both siren_dense mainloops (tensor-core bf16 for K, N
 multiples of 8; SIMT otherwise and for fp32), its K = 0 elementwise kernel
 (vector and scalar stores), ragged row and column tiles,
-every E operand, and heads_composite with and without the beta head.
+every E operand, and heads_composite with and without the beta head; for
+the training step, siren_dense's saved slope, both mainloops of
+siren_dense_dgrad and siren_dense_wgrad (with accumulation, the split over
+the points, every E operand and the per-ray gradient of t),
+composite_loss_bwd with and without the beta head, noise and a saturated
+ray, and fused_train_loss_grads as a whole against autograd.
 """
 
 import numpy as np
@@ -131,6 +136,185 @@ def test_fused_render_rays_fp32(dev, variant):
                                    atol=1e-4, err_msg=k)
 
 
+def _rel(got, ref):
+    return float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,n,extra,n_extra", [
+    (0, 512, "xyz", 3), (512, 512, "xyz", 3), (512, 256, "t", 4),
+    (40, 200, "sun", 3), (36, 100, None, 0)])
+def test_siren_dense_saves_the_slope(dev, dtype, k, n, extra, n_extra):
+    n_rays, samples = 37, 16
+    rays16, z = _rays16(n_rays, samples, dev)
+    g = torch.Generator().manual_seed(1)
+    p = n_rays * samples
+    x = (torch.rand(p, k, generator=g) * 2 - 1).to(dev, dtype) if k else None
+    w = (torch.randn(k, n, generator=g) * 0.1).to(dev, dtype) if k else None
+    b = torch.randn(n, generator=g).to(dev)
+    c = (torch.randn(n_extra, n, generator=g) * 0.3).to(dev, dtype) if extra else None
+    w0 = 30.0 if k == 0 else 1.0
+    kw = dict(extra=extra, extra_weight=c, z=z, w0=w0, act="sin", save=True)
+    y, slope = FM.siren_dense(x, w, b, rays16, samples, **kw)
+    y_ref, slope_ref = FM.siren_dense_reference(x, w, b, rays16, samples, **kw)
+    _close(y, y_ref, dtype == torch.bfloat16)
+    assert slope.dtype == torch.float32 and slope.shape == (p, n)
+    assert float((slope - slope_ref).abs().max()) <= 1e-5 * w0 * w0 + 1e-4
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,n,with_slope,accumulate", [
+    (512, 512, True, False), (512, 256, True, True), (512, 512, False, True),
+    (40, 200, True, False), (36, 100, True, True)])
+def test_siren_dense_dgrad(dev, dtype, k, n, with_slope, accumulate):
+    p = 37 * 16 + 5
+    g = torch.Generator().manual_seed(5)
+    dy = torch.randn(p, n, generator=g).to(dev)
+    slope = torch.randn(p, n, generator=g).to(dev) if with_slope else None
+    w = (torch.randn(k, n, generator=g) * 0.1).to(dev, dtype)
+    base = torch.randn(p, k, generator=g).to(dev) if accumulate else None
+    ref = FM.siren_dense_dgrad_reference(
+        dy, slope, w, out=None if base is None else base.clone())
+    before = FM.LAUNCHES["siren_dense_dgrad"]
+    got = FM.siren_dense_dgrad(dy, slope, w, out=base)
+    assert FM.LAUNCHES["siren_dense_dgrad"] == before + 1
+    assert got.shape == (p, k) and _rel(got, ref) <= 1e-4
+    if accumulate:
+        assert got.data_ptr() == base.data_ptr()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,n,extra,n_extra,samples,n_rays", [
+    (512, 512, "xyz", 3, 16, 37),    # the skip layer
+    (512, 256, "t", 4, 16, 300),     # beta_0: t_grad, more than one split
+    (512, 256, "sun", 3, 64, 37),    # sun_v_0
+    (0, 512, "xyz", 3, 16, 37),      # layer 0: dA and db only
+    (0, 256, "sun", 3, 1, 37),       # sky_0, once a ray, no slope
+    (40, 200, None, 0, 7, 37),       # SIMT shapes
+    (36, 100, "t", 4, 5, 37)])
+def test_siren_dense_wgrad(dev, dtype, k, n, extra, n_extra, samples, n_rays):
+    rays16, z = _rays16(n_rays, samples, dev)
+    g = torch.Generator().manual_seed(6)
+    p = n_rays * samples
+    x = (torch.rand(p, k, generator=g) * 2 - 1).to(dev, dtype) if k else None
+    dy = torch.randn(p, n, generator=g).to(dev)
+    slope = torch.randn(p, n, generator=g).to(dev) if samples > 1 else None
+    c = (torch.randn(n_extra, n, generator=g) * 0.3).to(dev, dtype) if extra else None
+    kw = dict(extra=extra, extra_weight=c, z=z, extra_grad=extra == "t")
+    got = FM.siren_dense_wgrad(x, dy, slope, rays16, samples, **kw)
+    ref = FM.siren_dense_wgrad_reference(x, dy, slope, rays16, samples, **kw)
+    for name, a, b in zip(("dW", "db", "dC", "dE"), got, ref):
+        assert (a is None) == (b is None), name
+        if b is not None:
+            assert a.shape == b.shape and a.dtype == torch.float32, name
+            assert _rel(a, b) <= 1e-4, (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("beta,wmix,with_noise", [
+    (True, 1.0, False), (True, 0.3, True), (True, 0.0, False),
+    (False, 0.0, True)])
+def test_composite_loss_bwd(dev, dtype, beta, wmix, with_noise):
+    """1e-4 of each tensor's largest entry; in bf16 a cotangent entry may
+    also differ by one bf16 step of itself (the two sides round a value that
+    differs in its last float32 bits)."""
+    n_rays, n_s, feat = 37, 16, 64
+    g = torch.Generator().manual_seed(7)
+    p, fh = n_rays * n_s, feat // 2
+
+    def t(*shape, scale=1.0):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * scale).to(dev, dtype)
+
+    h, r, s2 = t(p, feat), t(p, fh), t(p, fh)
+    bh = t(p, fh) if beta else None
+    skyh = torch.relu(t(n_rays, fh))
+    wn = t(9, feat, scale=0.5)
+    wn[0] *= 40  # some rays saturate early
+    bn = torch.randn(9, generator=g).to(dev)
+    _, z = _rays16(n_rays, n_s, dev)
+    gt = torch.rand(n_rays, 3, generator=g).to(dev)
+    noise = (torch.randn(n_rays, n_s, generator=g) * 2).to(dev) if with_noise else None
+    args = (h, r, s2, bh, skyh, wn, bn, z, noise, gt, wmix)
+    got = FM.composite_loss_bwd(*args, return_weights=True)
+    ref = FM.composite_loss_bwd_reference(*args, return_weights=True)
+    assert set(got) == set(ref)
+    for k, v in ref.items():
+        if v is None:
+            assert got[k] is None
+            continue
+        assert bool(torch.isfinite(got[k]).all()), k
+        lim = 1e-4 * v.abs().max()
+        if k.startswith("d_") and dtype == torch.bfloat16:
+            lim = lim + 2.0 ** -7 * v.abs()
+        assert bool(((got[k] - v).abs() <= lim).all()), (k, _rel(got[k], v))
+
+
+@pytest.mark.parametrize("variant,layers,wmix", [
+    ("sat-nerf", 8, 1.0), ("sat-nerf", 8, 0.0), ("s-nerf", 8, 0.0),
+    ("sat-nerf", 4, 1.0)])
+def test_fused_train_loss_grads_fp32(dev, variant, layers, wmix):
+    """The whole chain in fp32 at a narrow, non-tile width against autograd
+    through the field module: every gradient by name, 1e-3 of its largest
+    entry (summation order and atomics only)."""
+    use_beta = variant == "sat-nerf"
+    field = build_model(variant, layers, 96,
+                        generator=torch.Generator().manual_seed(3)).to(dev)
+    g = torch.Generator().manual_seed(4)
+    n_rays, n_s = 53, 24
+    o = (torch.rand(n_rays, 3, generator=g) - 0.5).to(dev)
+    d = torch.nn.functional.normalize(torch.randn(n_rays, 3, generator=g)).to(dev)
+    sun = torch.nn.functional.normalize(torch.randn(n_rays, 3, generator=g)).to(dev)
+    t = torch.randn(n_rays, 4, generator=g).to(dev)
+    z = torch.sort(torch.rand(n_rays, n_s, generator=g), 1).values.to(dev)
+    gt = torch.rand(n_rays, 3, generator=g).to(dev)
+    noise = (torch.randn(n_rays, n_s, generator=g) * 0.5).to(dev)
+    kw = dict(layers=layers, feat=96, use_beta=use_beta, dtype=torch.float32,
+              return_weights=True)
+    args = (field, o, d, sun, t if use_beta else None, z, noise, gt, wmix)
+    before = dict(FM.LAUNCHES)
+    parts, grads, t_grad, w = FM.fused_train_loss_grads(*args, **kw)
+    for name in ("siren_dense", "composite_loss_bwd", "siren_dense_dgrad",
+                 "siren_dense_wgrad"):
+        assert FM.LAUNCHES[name] > before[name], name
+    r_parts, r_grads, r_t, r_w = FM.fused_train_loss_grads_reference(*args, **kw)
+    for k in r_parts:
+        assert abs(float(parts[k]) - float(r_parts[k])) <= 1e-5, k
+    assert set(grads) == set(r_grads) == {n for n, _ in field.named_parameters()}
+    for name, ref in r_grads.items():
+        assert grads[name].shape == ref.shape, name
+        assert _rel(grads[name], ref) <= 1e-3, (name, _rel(grads[name], ref))
+    if use_beta:
+        assert _rel(t_grad, r_t) <= 1e-3
+    assert float((w - r_w).abs().max()) <= 1e-5
+    assert all(p.grad is None for p in field.parameters())
+
+
+def test_train_step_on_the_card_goes_through_the_kernels(dev):
+    from satnerf_tpu_torch.config import Config
+    from satnerf_tpu_torch.train.system import NeRFSystem
+
+    cfg = Config(model="sat-nerf", fc_layers=8, fc_units=64, n_samples=16,
+                 batch_size=128, first_beta_epoch=0, lr=1e-3)
+    system = NeRFSystem(cfg, dataset_len=1024)
+    assert system.device.type == "cuda"
+    state = system.init_state(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    rays = torch.rand(1024, 11, generator=g)
+    rays[:, 6], rays[:, 7] = 0.0, 1.0
+    data = {"rays": rays.to(dev), "rgbs": torch.rand(1024, 3, generator=g).to(dev),
+            "ts": torch.randint(0, 5, (1024,), generator=g).to(dev)}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    before = dict(FM.LAUNCHES)
+    w0 = state.params["nerf_coarse"].fc_net[0].weight.detach().clone()
+    losses = [float(system.train_step(state, data, gen)["loss"])
+              for _ in range(20)]
+    assert state.step == 20 and all(np.isfinite(losses))
+    assert losses[-1] < losses[0]
+    assert not torch.equal(w0, state.params["nerf_coarse"].fc_net[0].weight)
+    assert FM.LAUNCHES["composite_loss_bwd"] == before["composite_loss_bwd"] + 20
+
+
 def test_kernel_refuses_bad_inputs(dev):
     rays16, z = _rays16(4, 8, dev)
     w = torch.zeros(16, 32, device=dev)
@@ -140,3 +324,12 @@ def test_kernel_refuses_bad_inputs(dev):
         FM.siren_dense(x, w, b, rays16, 8)
     with pytest.raises(ValueError):  # not contiguous
         FM.siren_dense(torch.zeros(16, 32, device=dev).T, w, b, rays16, 8)
+    dy = torch.zeros(32, 32, device=dev)
+    with pytest.raises(ValueError):  # a relu layer has no slope to save
+        FM.siren_dense(None, None, b, rays16, 8, extra="sun",
+                       extra_weight=torch.zeros(3, 32, device=dev), act="relu",
+                       save=True)
+    with pytest.raises(ValueError):  # slope of another shape
+        FM.siren_dense_dgrad(dy, torch.zeros(32, 16, device=dev), w)
+    with pytest.raises(TypeError):  # an operand type the kernels do not take
+        FM.siren_dense_dgrad(dy, None, w.half())

@@ -1,5 +1,7 @@
-"""The port loads no jax or flax: import every module of the slice and run a
-tiny CPU render in a fresh interpreter, then look at sys.modules."""
+"""The port stands on its own files: in a fresh interpreter, import every
+module of the port, take two CPU train steps and a render, then look at
+sys.modules. No jax, jaxlib, flax or optax, and no module of the JAX package
+satnerf_tpu, may have been loaded."""
 
 import os
 import subprocess
@@ -8,42 +10,53 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
+import importlib
+import pkgutil
 import sys
 import numpy as np
 import torch
 torch.set_num_threads(1)
 
 import satnerf_tpu_torch
-import satnerf_tpu_torch.cli.create_dsm
-import satnerf_tpu_torch.cli.eval
-import satnerf_tpu_torch.eval
-import satnerf_tpu_torch.eval.loader
-import satnerf_tpu_torch.models.nerf
-import satnerf_tpu_torch.ops._build
-import satnerf_tpu_torch.ops.fused_mlp
-import satnerf_tpu_torch.render
-import satnerf_tpu_torch.train.checkpoints
-import satnerf_tpu_torch.train.system
-# the shared host modules the port imports from satnerf_tpu
-import satnerf_tpu.config, satnerf_tpu.data.satellite, satnerf_tpu.utils.sort
-import satnerf_tpu.ops.ssim, satnerf_tpu.ops.dsm_raster
-import satnerf_tpu.ops.dsm_registration, satnerf_tpu.native
-import satnerf_tpu.utils.flops, satnerf_tpu.eval.val_ts
-from satnerf_tpu.config import Config
+names = sorted(m.name for m in pkgutil.walk_packages(
+    satnerf_tpu_torch.__path__, "satnerf_tpu_torch."))
+for name in names:
+    importlib.import_module(name)
+print("IMPORTED", len(names))
+assert "satnerf_tpu_torch.cli.train" in names
+assert "satnerf_tpu_torch.data.synthetic" in names
+
+from satnerf_tpu_torch.config import Config
 from satnerf_tpu_torch.train.system import NeRFSystem
 
-for model in ("sat-nerf", "s-nerf", "nerf"):
-    cfg = Config(model=model, fc_layers=8, fc_units=16, n_samples=8, chunk=5)
-    system = NeRFSystem(cfg, device="cpu")
-    params = system.init_params(torch.Generator().manual_seed(0))
-    rays = np.random.RandomState(0).rand(7, 11).astype(np.float32)
-    rays[:, 6], rays[:, 7] = 0.0, 1.0
-    out = system.render_image(params, rays, np.zeros(7, np.int32))
+rng = np.random.RandomState(0)
+rays = rng.rand(64, 11).astype(np.float32)
+rays[:, 6], rays[:, 7] = 0.0, 1.0
+data = {"rays": torch.from_numpy(rays),
+        "rgbs": torch.from_numpy(rng.rand(64, 3).astype(np.float32)),
+        "ts": torch.from_numpy(rng.randint(0, 5, 64))}
+for model in ("sat-nerf", "s-nerf"):
+    cfg = Config(model=model, fc_layers=8, fc_units=16, n_samples=8, chunk=5,
+                 batch_size=16, device="cpu")
+    system = NeRFSystem(cfg, dataset_len=64)
+    state = system.init_state(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    for _ in range(2):
+        m = system.train_step(state, data, gen)
+    assert state.step == 2 and np.isfinite(float(m["loss"])), model
+    out = system.render_image(state.params, rays[:7], np.zeros(7, np.int32))
     assert out["rgb_coarse"].shape == (7, 3), model
     assert np.isfinite(out["depth_coarse"]).all(), model
 
+system = NeRFSystem(Config(model="nerf", fc_layers=8, fc_units=16, n_samples=8,
+                           chunk=5), device="cpu")
+out = system.render_image(system.init_params(torch.Generator().manual_seed(0)),
+                          rays[:7], None)
+assert np.isfinite(out["depth_coarse"]).all()
+
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                       "satnerf_tpu"))
 print("LOADED", loaded)
 assert not loaded, loaded
 """

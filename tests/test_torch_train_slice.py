@@ -1,0 +1,143 @@
+"""The training slice end to end on the CPU: `cli.train.main` on a tiny
+synthetic AOI (sat-nerf 4 x 32, 8 samples, batch 64, f32), then what a user
+does with the run: resume it, serve its checkpoint with the port, and read
+the checkpoint with the JAX package."""
+
+import glob
+import json
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from satnerf_tpu.config import Config as JaxConfig
+from satnerf_tpu.train.checkpoints import import_torch_checkpoint
+from satnerf_tpu.train.system import NeRFSystem as JaxSystem
+from satnerf_tpu_torch.cli import train as cli_train
+from satnerf_tpu_torch.data.satellite import SatelliteScene
+from satnerf_tpu_torch.data.synthetic import make_synthetic_aoi
+from satnerf_tpu_torch.eval.loader import load_nerf
+
+torch.set_num_threads(1)
+
+STEPS, RESUMED_STEPS = 24, 30
+
+
+def _argv(root, data_dir, gt_dir, steps, exp_name, extra=()):
+    return ["--root_dir", data_dir, "--gt_dir", gt_dir, "--model", "sat-nerf",
+            "--exp_name", exp_name, "--device", "cpu", "--batch_size", "64",
+            "--fc_units", "32", "--fc_layers", "4", "--n_samples", "8",
+            "--max_train_steps", str(steps), "--log_every_n_steps", "4",
+            "--save_every_n_epochs", "1", "--first_beta_epoch", "1",
+            "--lr", "1e-3", "--chunk", "512", "--num_sanity_val_steps", "1",
+            "--logs_dir", str(root / "logs"), "--ckpts_dir", str(root / "ckpts"),
+            *extra]
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    root = tmp_path_factory.mktemp("train_slice")
+    data_dir, gt_dir = make_synthetic_aoi(str(root / "aoi"), size=16)
+    out = cli_train.main(_argv(root, data_dir, gt_dir, STEPS, "first"))
+    return {"root": root, "data_dir": data_dir, "gt_dir": gt_dir, **out}
+
+
+def _logged(cfg):
+    with open(os.path.join(cfg.logs_dir, cfg.exp_name, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def test_train_writes_checkpoints_opts_and_metrics(trained):
+    cfg, system = trained["cfg"], trained["system"]
+    assert system.spe == 3 * 16 * 16 // 64 == 12
+    assert trained["state"].step == STEPS
+    run_ckpts = os.path.join(cfg.ckpts_dir, cfg.exp_name)
+    assert sorted(os.listdir(run_ckpts)) == ["epoch=1.ckpt", "epoch=2.ckpt"]
+    ckpt = torch.load(os.path.join(run_ckpts, "epoch=2.ckpt"),
+                      weights_only=True)
+    assert ckpt["global_step"] == STEPS
+    assert set(ckpt) == {"state_dict", "optimizer_states", "global_step"}
+    with open(os.path.join(cfg.logs_dir, cfg.exp_name, "opts.json")) as f:
+        opts = json.load(f)
+    assert opts["model"] == "sat-nerf" and opts["device"] == "cpu"
+    rows = _logged(cfg)
+    train_rows = [r for r in rows if "train/loss" in r]
+    assert [r["step"] for r in train_rows] == list(range(4, STEPS + 1, 4))
+    assert all(np.isfinite(r["train/loss"]) for r in train_rows)
+    # lr drops by 0.9 at the epoch boundary; the logged step s ran as step s-1
+    assert train_rows[0]["lr"] == pytest.approx(1e-3)
+    assert train_rows[-1]["lr"] == pytest.approx(1e-3 * 0.9)
+    m = trained["metrics"]
+    assert set(m) == {"val/psnr", "val/ssim", "val/mae"}
+    assert all(np.isfinite(v) for v in m.values())
+    products = os.path.join(cfg.logs_dir, cfg.exp_name, "val")
+    assert glob.glob(os.path.join(products, "dsm", "*.tif"))
+
+
+def test_resume_continues_the_step_count(trained, capsys):
+    cfg, root = trained["cfg"], trained["root"]
+    ckpt = os.path.join(cfg.ckpts_dir, cfg.exp_name, "epoch=2.ckpt")
+    out = cli_train.main(_argv(root, trained["data_dir"], trained["gt_dir"],
+                               RESUMED_STEPS, "second",
+                               ["--ckpt_path", ckpt]))
+    assert f"resumed from {ckpt} at step {STEPS}" in capsys.readouterr().out
+    assert out["state"].step == RESUMED_STEPS
+    rows = [r for r in _logged(out["cfg"]) if "train/loss" in r]
+    assert [r["step"] for r in rows] == [28]
+    # Adam's step count came back with its moments
+    steps = {float(s["step"]) for s in out["state"].optimizer.state.values()}
+    assert steps == {float(RESUMED_STEPS)}
+    # the first logged loss is at the trained level (beta loss on: ~1.3),
+    # not where a fresh model starts its warm-up
+    first_run = [r for r in _logged(cfg) if "train/loss" in r]
+    assert abs(rows[0]["train/loss"] - first_run[-1]["train/loss"]) < 0.3
+
+
+def test_port_serves_the_trained_checkpoint(trained):
+    from satnerf_tpu_torch.cli.create_dsm import create_pretty_dsm
+
+    cfg, root = trained["cfg"], trained["root"]
+    mae = create_pretty_dsm(cfg.exp_name, cfg.logs_dir, str(root / "out"), 2,
+                            device="cpu")
+    assert np.isfinite(mae)
+    assert glob.glob(os.path.join(root, "out", cfg.exp_name,
+                                  "*_dsm_epoch2.tif"))
+
+
+def test_jax_package_reads_the_trained_checkpoint(trained):
+    """import_torch_checkpoint + the JAX render on the port's weights agree
+    with the port's own render of them (1e-4, as the serving slice test)."""
+    cfg = trained["cfg"]
+    ckpt = os.path.join(cfg.ckpts_dir, cfg.exp_name, "epoch=2.ckpt")
+    jparams = import_torch_checkpoint(ckpt, "sat-nerf", layers=4)
+    jcfg = JaxConfig(model="sat-nerf", fc_layers=4, fc_units=32, n_samples=8,
+                     chunk=512, fused="off", precision="float32")
+    jsys = JaxSystem(jcfg, dataset_len=jcfg.batch_size)
+    jparams = jax.tree_util.tree_map(jax.numpy.asarray, jparams)
+
+    system, params = load_nerf(cfg.exp_name, cfg.logs_dir, cfg.ckpts_dir, 2,
+                               device="cpu")
+    sample = SatelliteScene(cfg.root_dir, None, split="val").load_image(1)
+    rays = sample["rays"]
+    ts = np.full(rays.shape[0], 2, np.int32)
+    ref = jsys.render_image(jparams, rays, ts)
+    out = system.render_image(params, rays, ts)
+    for k in ("rgb_coarse", "depth_coarse"):
+        np.testing.assert_allclose(out[k], ref[k], atol=1e-4, err_msg=k)
+    # the trained weights differ from a fresh model's
+    fresh = system.init_params(torch.Generator().manual_seed(0))
+    assert not torch.equal(fresh["nerf_coarse"].fc_net[0].weight,
+                           params["nerf_coarse"].fc_net[0].weight)
+
+
+def test_unported_training_options_raise(trained):
+    root = trained["root"]
+    for extra, word in ((["--sc_lambda", "0.05"], "K3"),
+                        (["--ds_lambda", "1.0"], "DS"),
+                        (["--grad_accum", "2"], "grad_accum"),
+                        (["--sampling", "shuffle"], "shuffle")):
+        with pytest.raises(NotImplementedError, match=word):
+            cli_train.main(_argv(root, trained["data_dir"], trained["gt_dir"],
+                                 4, "no", extra))

@@ -1,14 +1,20 @@
 #!/usr/bin/env python3
-"""Where the serving time goes on the GPU: the PyTorch port's render_image
-under torch.profiler.
+"""Where the time goes on the GPU: the PyTorch port's render_image, or with
+--train its train_step, under torch.profiler.
 
-Renders N rays (default 262,144, a 512 x 512 view, made like bench.py) with
-a seeded sat-nerf 8 x 512 field at 64 samples, bf16, chunk 65,536: one warm
-up, three timed calls (rays/s), then one profiled call. Prints the card, the
-wall time, the summed device kernel time, the idle share, and the kernels by
-device time.
+Serving: renders N rays (default 262,144, a 512 x 512 view, made like
+bench.py) with a seeded sat-nerf 8 x 512 field at 64 samples, bf16, chunk
+65,536: one warm up, three timed calls (rays/s), then one profiled call.
 
-  python3 tools/profile_render_torch.py [--rays N] [--chunk C]
+Training (--train): the same field, a device-resident dataset of N random
+rays, batch 1024: 20 warm-up steps, three timed runs of 50 steps (steps/s,
+rays/s), then 10 profiled steps.
+
+Prints the card, the wall time, the summed device kernel time, the idle
+share, and the kernels by device time.
+
+  python3 tools/profile_render_torch.py [--rays N] [--chunk C] [--train]
+      [--batch B]
 """
 
 import argparse
@@ -24,22 +30,70 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+def report(prof, wall_ms: float, card: str, what: str) -> None:
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total", 0)
+        if dev_us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            rows.append((dev_us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"{what}: profiled wall {wall_ms:.1f} ms, device kernel time "
+          f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.3f} on {card}")
+    for ms, count, key in rows[:18]:
+        print(f"{ms:10.2f} ms {count:5d}x  {key[:110]}")
+
+
+def profile_train(system, rays, ts, batch: int, card: str) -> None:
+    rng = np.random.RandomState(1)
+    dev = system.device
+    data = {"rays": torch.from_numpy(rays).to(dev),
+            "rgbs": torch.from_numpy(rng.rand(rays.shape[0], 3)
+                                     .astype(np.float32)).to(dev),
+            "ts": torch.from_numpy(ts.astype(np.int64)).to(dev)}
+    state = system.init_state(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for _ in range(20):
+        system.train_step(state, data, gen)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            system.train_step(state, data, gen)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 50
+        print(f"{1 / dt:.2f} steps/s, {batch / dt:.1f} rays/s, "
+              f"{1e3 * dt:.2f} ms a step (batch {batch}) on {card}")
+    steps = 10
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            system.train_step(state, data, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    report(prof, wall_ms, card, f"{steps} train steps")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--rays", type=int, default=1 << 18)
     ap.add_argument("--chunk", type=int, default=1 << 16)
+    ap.add_argument("--train", action="store_true",
+                    help="profile train_step in place of render_image")
+    ap.add_argument("--batch", type=int, default=1024)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_render_torch: needs an NVIDIA GPU")
-    from satnerf_tpu.config import Config
+    from satnerf_tpu_torch.config import Config
     from satnerf_tpu_torch.train.system import NeRFSystem
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     cfg = Config(model="sat-nerf", fc_layers=8, fc_units=512, n_samples=64,
-                 chunk=args.chunk)
-    system = NeRFSystem(cfg, "cuda")
+                 chunk=args.chunk, batch_size=args.batch, first_beta_epoch=0)
+    system = NeRFSystem(cfg, dataset_len=args.rays)
     params = system.init_params(torch.Generator().manual_seed(0))
     rng = np.random.RandomState(0)
     n = args.rays
@@ -47,6 +101,9 @@ def main():
     rays[:, 3:6] /= np.linalg.norm(rays[:, 3:6], axis=1, keepdims=True)
     rays[:, 6], rays[:, 7] = 0.0, 1.0
     ts = rng.randint(0, 30, n).astype(np.int32)
+    if args.train:
+        profile_train(system, rays, ts, args.batch, card)
+        return
 
     system.render_image(params, rays, ts)
     for _ in range(3):
@@ -62,17 +119,7 @@ def main():
         system.render_image(params, rays, ts)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "device_time_total", 0)
-        if dev_us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            rows.append((dev_us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    print(f"profiled wall {wall_ms:.1f} ms, device kernel time {busy:.1f} ms, "
-          f"idle share {1 - busy / wall_ms:.3f} on {card}")
-    for ms, count, key in rows[:15]:
-        print(f"{ms:10.2f} ms {count:5d}x  {key[:110]}")
+    report(prof, wall_ms, card, "render_image")
 
 
 if __name__ == "__main__":
