@@ -17,6 +17,14 @@ plain version):
      and at 0 (with sigma noise and the weights output), s-nerf; fp32 and
      bf16; loss parts, every gradient by name, t_grad, weights, and every
      launch of the chain alone
+  2c the solar-correction pass (K3) and the differentiable training render
+     (K4) against their plain versions, at 8 x 512, 64 samples, 1024 and
+     1000 + 37 rays, sat-nerf and s-nerf, fp32 and bf16, sigma noise on and
+     off: K3's two terms and every gradient by name; K4's products and, from
+     a random (R, 16) cotangent on all seven products, every gradient and
+     the t-gradient; and every launch of both chains alone, sc_loss_bwd,
+     heads_composite with noise and composite_bwd among them. Then the new
+     kernels alone at a training batch: time, plain time, bound
   3  the serving path through its entry point: a 128 x 128 synthetic AOI,
      a seeded sat-nerf 8 x 512 checkpoint, create_pretty_dsm on the card
      (finite DSM and MAE, every serving kernel launched), then render_image
@@ -27,6 +35,14 @@ plain version):
      resumes from the checkpoint; create_pretty_dsm serves the trained
      weights. Every kernel must have been launched, the loss must fall, the
      resumed run must start at the saved step and the trained loss level
+  5  the paper's full recipe through its entry point: a second AOI with
+     key points, cli.train with --sc_lambda 0.1 --ds_lambda 1000 at the same
+     sizes across an epoch boundary, the beta switch-on and the step where
+     the depth term drops out; sc_loss_bwd once a step, composite_bwd once
+     an active step and never after, heads_composite once a step beside
+     its serving launches, loss_depth logged and finite, the loss falling;
+     then short runs with --grad_accum 2 (and sigma noise) and with
+     --sampling shuffle
 
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Scratch files go to build/chip_smoke/.
@@ -48,14 +64,23 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 TRAIN_KERNELS = ("siren_dense", "composite_loss_bwd", "siren_dense_dgrad",
                  "siren_dense_wgrad")
+AUX_KERNELS = ("sc_loss_bwd", "composite_bwd")  # first launched by phase 5's path
 TPU_KERNEL = {"render": "satnerf_tpu/ops/pallas/fused_mlp.py:1035",
-              "train": "satnerf_tpu/ops/pallas/fused_mlp.py:1536"}
-KERNELS = {  # name -> (source in the repo, the TPU kernel it replaces)
+              "train": "satnerf_tpu/ops/pallas/fused_mlp.py:1536",
+              "sc": "satnerf_tpu/ops/pallas/fused_mlp.py:1638",
+              "train_render": "satnerf_tpu/ops/pallas/fused_mlp.py:1290",
+              "train_render_bwd": "satnerf_tpu/ops/pallas/fused_mlp.py:1312"}
+KERNELS = {  # name -> (source in the repo, the TPU kernels it replaces)
     "siren_dense": ("satnerf_tpu_torch/csrc/fused_render.cu", "render"),
-    "heads_composite": ("satnerf_tpu_torch/csrc/fused_render.cu", "render"),
+    # with sigma noise it is also the forward of the training render
+    "heads_composite": ("satnerf_tpu_torch/csrc/fused_render.cu", "render",
+                        "train_render"),
     "composite_loss_bwd": ("satnerf_tpu_torch/csrc/fused_train.cu", "train"),
     "siren_dense_dgrad": ("satnerf_tpu_torch/csrc/fused_train.cu", "train"),
     "siren_dense_wgrad": ("satnerf_tpu_torch/csrc/fused_train.cu", "train"),
+    "sc_loss_bwd": ("satnerf_tpu_torch/csrc/fused_aux.cu", "sc"),
+    "composite_bwd": ("satnerf_tpu_torch/csrc/fused_train.cu",
+                      "train_render_bwd"),
 }
 LAYERS, FEAT, SAMPLES, TAU = 8, 512, 64, 4
 BATCH = 1024  # rays a training step draws (--batch_size default)
@@ -95,6 +120,10 @@ K1_STAGE_TOL = 1e-3
 K1_GRAD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 K1_PART_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 K1_RAYS = (1024, 1000 + 37)
+# K3 and K4 are held as K1 is: each launch alone to K1_STAGE_TOL, the whole
+#   chain against autograd through the field module to K1_GRAD_TOL on every
+#   gradient (and exactly 0 where autograd has 0: the heads K3 leaves out),
+#   K3's two terms to K1_PART_TOL, K4's products to K2_TOL.
 
 
 def log(msg: str) -> None:
@@ -214,8 +243,8 @@ class TrainCheck:
 
     def __init__(self, dtype):
         self.bf16 = str(dtype).endswith("bfloat16")
-        self.err = dict.fromkeys(("siren_dense", "composite_loss_bwd",
-                                  "siren_dense_dgrad", "siren_dense_wgrad"), 0.0)
+        self.err = dict.fromkeys(TRAIN_KERNELS + AUX_KERNELS
+                                 + ("heads_composite",), 0.0)
         self.bad = []
 
     def _hold(self, kernel, what, got, ref, tol_rel_max, elementwise=False):
@@ -264,6 +293,34 @@ class TrainCheck:
             self._hold("composite_loss_bwd", k, out[k], ref[k],
                        K1_STAGE_TOL, elementwise=k.startswith("d_"))
         return out
+
+    def composite_given(self, *args, **kw):
+        from satnerf_tpu_torch.ops import fused_mlp as FM
+
+        out = FM.composite_bwd(*args, **kw)
+        ref = FM.composite_bwd_reference(*args, **kw)
+        for k in ref:
+            self._hold("composite_bwd", k, out[k], ref[k], K1_STAGE_TOL,
+                       elementwise=k.startswith("d_"))
+        return out
+
+    def sc(self, *args):
+        from satnerf_tpu_torch.ops import fused_mlp as FM
+
+        out = FM.sc_loss_bwd(*args)
+        ref = FM.sc_loss_bwd_reference(*args)
+        for k in ref:
+            self._hold("sc_loss_bwd", k, out[k], ref[k], K1_STAGE_TOL,
+                       elementwise=k.startswith("d_"))
+        return out
+
+    def heads(self, *args, **kw):
+        from satnerf_tpu_torch.ops import fused_mlp as FM
+
+        out, _ = FM.heads_composite(*args, **kw)
+        ref, _ = FM.heads_composite_reference(*args, **kw)
+        self._hold("heads_composite", "products", out, ref, 1e-4)
+        return out, None
 
     def dgrad(self, dy, slope, weight, out=None):
         from satnerf_tpu_torch.ops import fused_mlp as FM
@@ -391,6 +448,27 @@ def _time_kernels(packed: dict, dev) -> dict:
         _nbytes(*cargs[:-1]) + (p * (FEAT + 3 * fh) + BATCH * fh + 9 * FEAT
                                 + 9 + 3 + p) * 4,
         4.0 * p * (FEAT + 5 * fh))
+
+    # ---- the full recipe's kernels, at the same training batch
+    cot = rand(BATCH, 16, to=torch.float32)
+    gargs = (h, *hs, skyh, packed["wn"], packed["bn"], z, noise, cot)
+    out["composite_bwd"] = entry(
+        lambda: FM.composite_bwd(*gargs),
+        lambda: FM.composite_bwd_reference(*gargs), None,
+        _nbytes(*gargs) + (p * (FEAT + 3 * fh) + BATCH * fh + 9 * FEAT + 9) * 4,
+        4.0 * p * (FEAT + 5 * fh))
+    sargs = (h, hs[1], packed["wn"], packed["bn"], z, noise, 0.1 / 3)
+    out["sc_loss_bwd"] = entry(
+        lambda: FM.sc_loss_bwd(*sargs),
+        lambda: FM.sc_loss_bwd_reference(*sargs), None,
+        _nbytes(*sargs[:-1]) + (p * fh + 9 * FEAT + 9 + 2) * 4,
+        2.0 * p * (FEAT + 3 * fh))
+    hargs = (h, *hs, skyh, packed["wn"], packed["bn"], z)
+    t_entry = entry(
+        lambda: FM.heads_composite(*hargs, noise=noise),
+        lambda: FM.heads_composite_reference(*hargs, noise=noise), None,
+        _nbytes(*hargs, noise) + BATCH * 16 * 4, 2.0 * p * (FEAT + 5 * fh))
+    out["heads_composite"].update({f"train_{k}": v for k, v in t_entry.items()})
     return out
 
 
@@ -467,6 +545,10 @@ def phase2(results: dict):
         f"({BATCH} rays x {SAMPLES}): kernel {e['train_ms']:.3f} ms, plain "
         f"{e['train_plain_ms']:.3f} ms, library call "
         f"{e['train_library_ms']:.3f} ms, bound {e['train_bound_ms']:.3f} ms")
+    e = times["heads_composite"]
+    log(f"phase 2: heads_composite bf16 with sigma noise at a training batch: "
+        f"kernel {e['train_ms']:.3f} ms, plain {e['train_plain_ms']:.3f} ms, "
+        f"bound {e['train_bound_ms']:.3f} ms")
     results["times"] = times
     grown = {k: FM.LAUNCHES[k] - launches_before[k]
              for k in ("siren_dense", "heads_composite")}
@@ -552,8 +634,8 @@ def phase2b(results: dict):
                 f"parts " + ", ".join(f"{k} {e:.1e}" for k, e in part_err.items())
                 + f"; worst gradient {worst} {grad_err[worst]:.1e}"
                 + "".join(f", {k} {e:.1e}" for k, e in extra_err.items())
-                + "; per launch " + ", ".join(f"{k} {e:.1e}"
-                                              for k, e in chk.err.items()))
+                + "; per launch " + ", ".join(f"{k} {chk.err[k]:.1e}"
+                                              for k in TRAIN_KERNELS))
             results["k1"][(variant, wmix, n_rays, dname)] = (ms, plain_ms)
             del out, ref
     grown = {k: FM.LAUNCHES[k] - before[k] for k in TRAIN_KERNELS}
@@ -561,6 +643,144 @@ def phase2b(results: dict):
         failures.append(f"launch counters did not grow: {grown}")
     if failures:
         raise SystemExit("phase 2b failed:\n  " + "\n  ".join(failures))
+
+
+def _hold_grads(failures, tag, got: dict, ref: dict, tol: float) -> tuple:
+    """Every gradient by name within tol of its tensor's largest entry, and
+    exactly zero where the plain version's is. Returns (worst name, error)."""
+    import torch
+
+    if set(got) != set(ref):
+        failures.append(f"{tag}: gradient names differ")
+    errs = {}
+    for k, r in ref.items():
+        if not bool(torch.isfinite(got[k]).all()):
+            failures.append(f"{tag} {k}: not finite")
+        if float(r.abs().max()) == 0.0:
+            if float(got[k].abs().max()) != 0.0:
+                failures.append(f"{tag} {k}: not zero where autograd has zero")
+            continue
+        errs[k] = _rel_err(got[k], r)
+        if not errs[k] <= tol:
+            failures.append(f"{tag} {k}: {errs[k]:.3g} > {tol}")
+    worst = max(errs, key=errs.get)
+    return worst, errs[worst]
+
+
+def phase2c(results: dict):
+    """K3 and K4 against their plain versions on the card."""
+    import torch
+
+    from satnerf_tpu_torch.models.nerf import build_model
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+
+    dev = torch.device("cuda:0")
+    failures = []
+    before = dict(FM.LAUNCHES)
+    lam = 0.1
+    cases = [("sat-nerf", K1_RAYS[0], True), ("sat-nerf", K1_RAYS[1], False),
+             ("s-nerf", K1_RAYS[1], True)]
+    for variant, n_rays, with_noise in cases:
+        use_beta = variant == "sat-nerf"
+        field = build_model(variant, LAYERS, FEAT, t_dim=TAU,
+                            generator=torch.Generator().manual_seed(1)).to(dev)
+        o, d, sun, t, z = _inputs(n_rays, 7, dev)
+        g = torch.Generator().manual_seed(8)
+        noise = (torch.randn(n_rays, SAMPLES, generator=g).to(dev)
+                 if with_noise else None)
+        cot = torch.randn(n_rays, 16, generator=g).to(dev)
+        t_in = t if use_beta else None
+        names = [n for n, _ in field.named_parameters()]
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            kw = dict(layers=LAYERS, feat=FEAT, skip=4, use_beta=use_beta,
+                      tau=TAU, dtype=dtype)
+            tag = f"{variant} R={n_rays} noise {'on' if with_noise else 'off'} {dname}"
+            chk = TrainCheck(dtype)
+            packed = FM.pack_params(field, skip=4, use_beta=use_beta, dtype=dtype)
+
+            # ---- K3 whole, then every launch of its chain
+            sc_args = (field, o, sun, t_in, z, noise, lam)
+            parts, grads = FM.fused_sc_loss_grads(*sc_args, **kw)
+            r_parts, r_grads = FM.fused_sc_loss_grads_reference(*sc_args, **kw)
+            torch.cuda.synchronize()
+            part_err = {k: abs(parts[k].item() - r_parts[k].item())
+                        / max(abs(r_parts[k].item()), 1e-6) for k in r_parts}
+            for k, e in part_err.items():
+                if not e <= K1_PART_TOL[dname]:
+                    failures.append(f"K3 {tag} {k}: {e:.3g}")
+            worst3 = _hold_grads(failures, f"K3 {tag}", grads, r_grads,
+                                 K1_GRAD_TOL[dname])
+            with torch.no_grad():
+                FM._sc_staged(packed, FM.pack_rays(o, sun, sun, t_in, TAU), z,
+                              noise, lam / 3, skip=4, use_beta=use_beta, ops=chk)
+            k3_ms = _cuda_ms(lambda: FM.fused_sc_loss_grads(*sc_args, **kw))
+            k3_plain = _cuda_ms(
+                lambda: FM.fused_sc_loss_grads_reference(*sc_args, **kw))
+
+            # ---- K4: products, then the backward from a random cotangent
+            def k4(fn):
+                t_leaf = t.clone().requires_grad_(True) if use_beta else None
+                out = fn(field, o, d, sun, t_leaf, z, noise, **kw)
+                cols = {"rgb": slice(0, 3), "depth": 3, "sun": slice(4, 5),
+                        "sky": slice(5, 8), "beta": slice(8, 9),
+                        "albedo": slice(9, 12), "opacity": 12}
+                total = sum((out[k] * cot[:, cols[k]]).sum() for k in out)
+                leaves = list(field.parameters()) + ([t_leaf] if use_beta else [])
+                gr = torch.autograd.grad(total, leaves, allow_unused=True)
+                named = dict(zip(names + ["t_embed"], gr))
+                return {k: v.detach() for k, v in out.items()}, named
+
+            out, grads4 = k4(FM.fused_train_render_rays)
+            r_out, r_grads4 = k4(FM.fused_train_render_rays_reference)
+            torch.cuda.synchronize()
+            prod_err = {k: (out[k] - r_out[k]).abs().max().item() for k in r_out}
+            for k, e in prod_err.items():
+                lim = K2_TOL[dname] * (DEPTH_RANGE if k == "depth" else 1.0)
+                if not e <= lim:
+                    failures.append(f"K4 {tag} {k}: {e:.3g} > {lim}")
+            worst4 = _hold_grads(failures, f"K4 {tag}", grads4, r_grads4,
+                                 K1_GRAD_TOL[dname])
+            with torch.no_grad():
+                rays16 = FM.pack_rays(o, d, sun, t_in, TAU)
+                a = FM._chain_forward(packed, rays16, z, skip=4,
+                                      use_beta=use_beta, ops=chk)
+                nargs = (a["h"], a["r"], a["s2"], a["bh"], a["skyh"],
+                         packed["wn"], packed["bn"], z)
+                chk.heads(*nargs, noise=noise, rgb_padding=0.001)
+                c = chk.composite_given(*nargs, noise, cot, rgb_padding=0.001)
+                FM._chain_backward(packed, a, c, rays16, z, skip=4,
+                                   use_beta=use_beta, ops=chk)
+                del a, c, nargs
+            torch.cuda.synchronize()
+            failures += [f"{tag}: {b}" for b in chk.bad]
+            for k, e in chk.err.items():
+                key = (k, dname)
+                results["err"][key] = max(results["err"].get(key, 0.0), e)
+            k4_ms = _cuda_ms(lambda: k4(FM.fused_train_render_rays))
+            k4_plain = _cuda_ms(lambda: k4(FM.fused_train_render_rays_reference))
+            log(f"phase 2c: {tag}: K3 kernels {k3_ms:.2f} ms, plain "
+                f"{k3_plain:.2f} ms; terms "
+                + ", ".join(f"{k} {e:.1e}" for k, e in part_err.items())
+                + f"; worst gradient {worst3[0]} {worst3[1]:.1e}. K4 forward + "
+                f"backward kernels {k4_ms:.2f} ms, plain {k4_plain:.2f} ms; "
+                f"products max {max(prod_err.values()):.1e}; worst gradient "
+                f"{worst4[0]} {worst4[1]:.1e}; per launch "
+                + ", ".join(f"{k} {chk.err[k]:.1e}" for k in
+                            AUX_KERNELS + ("heads_composite",)))
+            results["k34"][(variant, n_rays, dname)] = (k3_ms, k3_plain, k4_ms,
+                                                        k4_plain)
+    grown = {k: FM.LAUNCHES[k] - before[k] for k in AUX_KERNELS}
+    if not all(v > 0 for v in grown.values()):
+        failures.append(f"launch counters did not grow: {grown}")
+    times = results["times"]
+    for name in AUX_KERNELS:
+        e = times[name]
+        log(f"phase 2c: {name} bf16 at a training batch ({BATCH} rays x "
+            f"{SAMPLES}): kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms, "
+            f"library call none, bound {e['bound_ms']:.3f} ms ({e['bound_by']})")
+    if failures:
+        raise SystemExit("phase 2c failed:\n  " + "\n  ".join(failures))
 
 
 def phase3(results: dict, card: str):
@@ -723,7 +943,7 @@ def phase4(results: dict, card: str):
         if launches[k] != n * TRAIN_STEPS:
             raise SystemExit(f"phase 4 failed: {k} launched {launches[k]} times "
                              f"in {TRAIN_STEPS} steps, expected {n} a step")
-    if not all(v > 0 for v in launches.values()):
+    if not all(launches[k] > 0 for k in TRAIN_KERNELS + ("heads_composite",)):
         raise SystemExit(f"phase 4 failed: a kernel was not launched: {launches}")
     results["launches"] = launches
 
@@ -798,6 +1018,149 @@ def phase4(results: dict, card: str):
     log(f"phase 4: create_pretty_dsm on the trained checkpoint: MAE {mae:.3f} m")
 
 
+FULL_STEPS, FULL_DROP, SHORT_STEPS = 96, 0.75, 8
+
+
+def phase5(results: dict, card: str):
+    """The full recipe through the trainer's entry point: solar correction
+    and depth supervision, then grad_accum and shuffle."""
+    import torch
+
+    from satnerf_tpu_torch.cli import train as cli_train
+    from satnerf_tpu_torch.data.synthetic import make_synthetic_aoi
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+
+    aoi = os.path.join(WORK, "aoi_kp")
+    t0 = time.perf_counter()
+    make_synthetic_aoi(aoi, size=128, with_keypoints=True, n_kp=3000)
+    log(f"phase 5: synthetic 128 x 128 AOI with 3000 tie points in "
+        f"{time.perf_counter() - t0:.1f} s")
+    logs, ckpts = os.path.join(WORK, "full_logs"), os.path.join(WORK, "full_ckpts")
+
+    def argv(steps, name, extra=()):
+        return ["--root_dir", os.path.join(aoi, "data"),
+                "--gt_dir", os.path.join(aoi, "gt"), "--model", "sat-nerf",
+                "--exp_name", name, "--fc_layers", str(LAYERS),
+                "--fc_units", str(FEAT), "--n_samples", str(SAMPLES),
+                "--batch_size", str(BATCH), "--chunk", str(CHUNK),
+                "--max_train_steps", str(steps), "--first_beta_epoch", "1",
+                "--save_every_n_epochs", "1", "--num_sanity_val_steps", "1",
+                "--log_every_n_steps", str(LOG_EVERY), "--logs_dir", logs,
+                "--ckpts_dir", ckpts, "--sc_lambda", "0.1", "--ds_lambda",
+                "1000", "--ds_drop", str(FULL_DROP), *extra]
+
+    def run(steps, name, extra=()):
+        FM.reset_launches()
+        t0 = time.perf_counter()
+        out = cli_train.main(argv(steps, name, extra))
+        torch.cuda.synchronize()
+        return out, dict(FM.LAUNCHES), time.perf_counter() - t0
+
+    def check_counts(what, launches, micro, active):
+        """micro micro-batches ran, `active` of them with the depth term on.
+        A micro-batch launches siren_dense 15 (K1) + 12 (K3) + 15 (K4) times
+        and a served chunk 15 times, so the serving chunks follow from
+        siren_dense's count, and heads_composite must have run once a
+        micro-batch (K4's forward) and once a served chunk."""
+        want = {"composite_loss_bwd": micro, "sc_loss_bwd": micro,
+                "composite_bwd": active,
+                "siren_dense_dgrad": 13 * micro + 11 * micro + 13 * active,
+                "siren_dense_wgrad": 15 * micro + 12 * micro + 15 * active}
+        for k, n in want.items():
+            if launches[k] != n:
+                raise SystemExit(f"phase 5 failed ({what}): {k} launched "
+                                 f"{launches[k]} times, expected {n}")
+        served, rest = divmod(launches["siren_dense"] - 42 * micro, 15)
+        if rest or served < 1 or launches["heads_composite"] != micro + served:
+            raise SystemExit(f"phase 5 failed ({what}): heads_composite "
+                             f"launched {launches['heads_composite']} times for "
+                             f"{micro} micro-batches and {served} served chunks "
+                             f"(siren_dense {launches['siren_dense']})")
+
+    full, launches, train_s = run(FULL_STEPS, "smoke_full")
+    cfg, system = full["cfg"], full["system"]
+    spe, drop = system.spe, system.ds_drop_step
+    if system.device.type != "cuda" or system.compute_dtype != torch.bfloat16:
+        raise SystemExit(f"phase 5 failed: trained on {system.device} in "
+                         f"{system.compute_dtype}, not on the card in bf16")
+    if not (spe < drop < FULL_STEPS and drop == round(FULL_DROP * FULL_STEPS)):
+        raise SystemExit(f"phase 5 failed: {FULL_STEPS} steps, {spe} an epoch, "
+                         f"depth term dropping at {drop}: the run must cross "
+                         f"an epoch boundary and then the drop")
+    active = drop - 1  # steps 0 .. drop - 2: step + 1 < ds_drop_step
+    check_counts("full recipe", launches, FULL_STEPS, active)
+    results["launches_full"] = launches
+
+    rows = _train_rows(logs, cfg.exp_name)
+    if not all("train/loss_depth" in r and np.isfinite(r["train/loss_depth"])
+               and np.isfinite(r["train/loss"]) for r in rows):
+        raise SystemExit("phase 5 failed: loss or loss_depth missing or not finite")
+    gate_off = [r for r in rows if system.beta_gate(r["step"] - 1) == 0.0]
+    gate_on = [r for r in rows if system.beta_gate(r["step"] - 1) == 1.0]
+    on_rows = [r for r in rows if r["step"] < drop]  # logged while active
+    if not gate_off or not gate_on:
+        raise SystemExit("phase 5 failed: the run did not cross the beta switch-on")
+    falls = (gate_off[-1]["train/loss"] < gate_off[0]["train/loss"]
+             and gate_on[-1]["train/loss"] < gate_on[0]["train/loss"]
+             and on_rows[-1]["train/loss_depth"] < on_rows[0]["train/loss_depth"]
+             and rows[-1]["train/psnr"] > rows[0]["train/psnr"])
+    log(f"phase 5: cli.train --sc_lambda 0.1 --ds_lambda 1000, {FULL_STEPS} "
+        f"steps ({spe} an epoch, depth term off from step {drop}) in "
+        f"{train_s:.1f} s with validation; loss {gate_off[0]['train/loss']:.4f}"
+        f" -> {gate_off[-1]['train/loss']:.4f} (MSE + SC), "
+        f"{gate_on[0]['train/loss']:.4f} -> {gate_on[-1]['train/loss']:.4f} "
+        f"(beta loss on); loss_depth {on_rows[0]['train/loss_depth']:.3f} -> "
+        f"{on_rows[-1]['train/loss_depth']:.3f} while supervised, "
+        f"{rows[-1]['train/loss_depth']:.3f} at the end; psnr "
+        f"{rows[0]['train/psnr']:.2f} -> {rows[-1]['train/psnr']:.2f}; "
+        f"launches {launches}")
+    if not falls:
+        raise SystemExit("phase 5 failed: a loss did not fall")
+    val = full["metrics"]
+    if not all(np.isfinite(v) for v in val.values()):
+        raise SystemExit(f"phase 5 failed: validation metrics {val}")
+    log("phase 5: " + ", ".join(f"{k} {v:.4f}" for k, v in val.items()))
+
+    def median_rate(sel):
+        rates = sorted(r["train/rays_per_sec"] for r in sel)
+        return rates[len(rates) // 2], len(rates)
+
+    # the full recipe's rate: log intervals with all three passes, without
+    # the first (it holds the first launches); then the rate once the depth
+    # pass renders forward only
+    rps, n = median_rate(on_rows[1:])
+    rps_after, n_after = median_rate([r for r in rows if r["step"] >= drop + LOG_EVERY])
+    results["full_rate"] = (rps / BATCH, rps)
+    log(f"phase 5: full-recipe rate (median of {n} log intervals of {LOG_EVERY} "
+        f"steps): {rps / BATCH:.2f} steps/s, {rps:.1f} rays/s, "
+        f"{1e3 * BATCH / rps:.2f} ms a step; after the depth term dropped "
+        f"(median of {n_after}): {1e3 * BATCH / rps_after:.2f} ms a step on {card}")
+
+    # --grad_accum 2: two micro-batches a step, half as many steps an epoch;
+    # with sigma noise (off by default), so that the entry point also drives
+    # the noise instantiations of the per-ray kernels
+    out, launches, _ = run(SHORT_STEPS, "smoke_accum",
+                           ["--grad_accum", "2", "--noise_std", "1.0"])
+    if out["system"].spe != spe // 2 or out["state"].step != SHORT_STEPS:
+        raise SystemExit("phase 5 failed: grad_accum 2 did not halve the epoch")
+    active = min(SHORT_STEPS, out["system"].ds_drop_step - 1)
+    check_counts("grad_accum 2", launches, 2 * SHORT_STEPS, 2 * active)
+    rows = _train_rows(logs, out["cfg"].exp_name)
+    if not (rows and np.isfinite(rows[-1]["train/loss"])):
+        raise SystemExit("phase 5 failed: grad_accum 2 logged no finite loss")
+    log(f"phase 5: --grad_accum 2 --noise_std 1.0, {SHORT_STEPS} steps: loss "
+        f"{rows[-1]['train/loss']:.4f}, launches {launches}")
+
+    out, launches, _ = run(SHORT_STEPS, "smoke_shuffle", ["--sampling", "shuffle"])
+    active = min(SHORT_STEPS, out["system"].ds_drop_step - 1)
+    check_counts("shuffle", launches, SHORT_STEPS, active)
+    rows = _train_rows(logs, out["cfg"].exp_name)
+    if not (rows and np.isfinite(rows[-1]["train/loss"])):
+        raise SystemExit("phase 5 failed: --sampling shuffle logged no finite loss")
+    log(f"phase 5: --sampling shuffle, {SHORT_STEPS} steps: loss "
+        f"{rows[-1]['train/loss']:.4f}, launches {launches}")
+
+
 def _loaded_foreign() -> list:
     return sorted(m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
@@ -811,10 +1174,12 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    results = {"err": {}, "k2": {}, "k1": {}}
+    results = {"err": {}, "k2": {}, "k1": {}, "k34": {}}
     steps = (("2", lambda: phase2(results)), ("2b", lambda: phase2b(results)),
+             ("2c", lambda: phase2c(results)),
              ("3", lambda: phase3(results, card)),
-             ("4", lambda: phase4(results, card)))
+             ("4", lambda: phase4(results, card)),
+             ("5", lambda: phase5(results, card)))
     t_start = time.perf_counter()
     for key, run in steps:
         t0 = time.perf_counter()
@@ -822,14 +1187,22 @@ def main():
         log(f"phase {key} took {time.perf_counter() - t0:.1f} s")
     if _loaded_foreign():
         raise SystemExit(f"the port loaded {_loaded_foreign()}")
+    # launches: on the main path of the slice that brought the kernel, each
+    # driven from counts of 0: cli.train's run of phase 4, and for the full
+    # recipe's two kernels cli.train's run of phase 5; the other paths'
+    # counts stand beside it
     kernels = []
-    for kname, (source, replaces) in KERNELS.items():
+    for kname, (source, replaces, *also) in KERNELS.items():
         t = results["times"][kname]
+        main_path = "launches_full" if kname in AUX_KERNELS else "launches"
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": TPU_KERNEL[replaces],
-            "launches": results["launches"][kname],
+            **({"replaces_also": [TPU_KERNEL[k] for k in also]} if also else {}),
+            "launches": results[main_path][kname],
             "launches_serving": results["launches_serving"].get(kname, 0),
+            "launches_training": results["launches"][kname],
+            "launches_full_recipe": results["launches_full"][kname],
             "max_abs_err": max(results["err"][(kname, "float32")],
                                results["err"][(kname, "bfloat16")]),
             **t,

@@ -83,7 +83,7 @@ class Config:
     # grad_accum batches of batch_size rays, averages their grads, and
     # applies ONE update — effective batch = batch_size * grad_accum with
     # the memory footprint of batch_size. Replacement sampling only; epochs
-    # count batch_size * grad_accum rays per step. (Not ported yet: > 1 raises.)
+    # count batch_size * grad_accum rays per step.
     eval_wire: str = "auto"  # kept for opts.json compatibility; products are
     # fetched as float32 here
     log_every_n_steps: int = 100

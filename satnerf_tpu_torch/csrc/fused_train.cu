@@ -13,6 +13,10 @@
 //   composite_loss_bwd   narrow heads, compositor, loss and their adjoints,
 //                        a warp per ray: loss sums, the narrow heads' weight
 //                        gradients, and the cotangents of h, r, s2, bh, skyh
+//   composite_bwd        the same walk with the loss stage replaced by a given
+//                        (R, 16) cotangent of the per-ray products: the
+//                        backward of the training render fused_train_render_rays
+//                        (fused_mlp.py:1312, _composite_bwd_tile :1202)
 //   siren_dense_dgrad    dX (+)= (dY * slope) . W^T
 //   siren_dense_wgrad    dW += X^T . (dY * slope), db += sum (dY * slope),
 //                        dC += E^T . (dY * slope), and for beta_0 the per-ray
@@ -500,6 +504,15 @@ small_grads(const float* __restrict__ dY, const float* __restrict__ slope, int P
 //
 // Bound by device memory: h, r, s2, bh are read twice (forward, backward)
 // and four cotangent tensors are written in fp32.
+//
+// GIVEN instantiations are composite_bwd: stage 2 reads the ray's cotangent
+// g (R, 16) in the layout of the products (rgb 0:3, depth 3, sun 4, sky 5:8,
+// beta 8, albedo 9:12, opacity 12) where the loss instantiations derive
+// theirs from gt, and stage 3 adds the terms of the five products the loss
+// does not touch: dw += g_depth * z + g_op + sunv * g_sun + rgb . g_alb +
+// sky . g_sky, d_sunv += w * g_sun, d_sky += w * g_sky, d_rgb += w * g_alb.
+// They write no loss sums and no weights. The loss instantiations compile to
+// the code they had before the template parameter.
 
 constexpr int CLB_WARPS = 4;
 constexpr int CLB_MAX_F = 512;            // widest trunk the register rows hold
@@ -507,14 +520,15 @@ constexpr int CLB_F_REGS = CLB_MAX_F / 32;
 constexpr int CLB_H_REGS = CLB_F_REGS / 2;
 constexpr int CLB_SAMPLE_VALS = 10;       // sigma, delta, 1-alpha, T, w, rgb_s x3, sunv, beta
 
-template <typename T>
+template <typename T, bool GIVEN>
 __global__ void __launch_bounds__(CLB_WARPS * 32)
 composite_loss_bwd_kernel(const T* __restrict__ h, int F, const T* __restrict__ rf,
                           const T* __restrict__ s2, const T* __restrict__ bh,
                           const T* __restrict__ skyh, int Fh, const T* __restrict__ Wn,
                           const float* __restrict__ bn, const float* __restrict__ z,
                           const float* __restrict__ noise, const float* __restrict__ gt,
-                          int R, int S, float rgb_padding, float beta_min, float wmix,
+                          const float* __restrict__ g_ray, int R, int S, float rgb_padding,
+                          float beta_min, float wmix,
                           float* __restrict__ loss_sums, float* __restrict__ weights,
                           float* __restrict__ d_h, float* __restrict__ d_r,
                           float* __restrict__ d_s2, float* __restrict__ d_bh,
@@ -588,7 +602,9 @@ composite_loss_bwd_kernel(const T* __restrict__ h, int F, const T* __restrict__ 
       v_sigma[s] = sigma; v_delta[s] = delta; v_oma[s] = oma; v_trans[s] = trans;
       v_w[s] = w; v_c0[s] = cs[0]; v_c1[s] = cs[1]; v_c2[s] = cs[2];
       v_sun[s] = sunv; v_beta[s] = beta;
-      if (weights != nullptr) weights[q] = w;
+      if constexpr (!GIVEN) {
+        if (weights != nullptr) weights[q] = w;
+      }
     }
     trans *= 1.f - alpha + 1e-10f;
     beta_acc += w * beta;
@@ -598,34 +614,52 @@ composite_loss_bwd_kernel(const T* __restrict__ h, int F, const T* __restrict__ 
   }
   __syncwarp();
 
-  // ---- 2. loss and the ray's cotangents
-  const float inv3n = 1.f / (3.f * (float)R), invn = 1.f / (float)R;
-  float g_rgb[3], sq_err = 0.f, g_beta = 0.f;
+  // ---- 2. the ray's cotangents: from the loss, or given
+  float g_rgb[3], g_beta = 0.f;
+  float g_alb[3] = {0.f, 0.f, 0.f}, g_sky[3] = {0.f, 0.f, 0.f};
+  float g_depth = 0.f, g_sun = 0.f, g_op = 0.f;
+  if constexpr (GIVEN) {
+    const float* gr = g_ray + (size_t)ray * OUT_COLS;
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float diff = fminf(fmaxf(rgb_acc[c], 0.f), 1.f) - gt[(size_t)ray * 3 + c];
-    sq_err += diff * diff;
-    g_rgb[c] = diff;
-  }
-  float s_sat = 0.f, s_logb = 0.f;
-  float rgb_scale = 2.f * inv3n;
-  if (use_beta) {
-    const float beta_l = beta_acc + beta_min;
-    const float inv_b2 = 1.f / (beta_l * beta_l);
-    s_sat = 0.5f * sq_err * inv_b2;
-    s_logb = logf(beta_l);
-    rgb_scale = wmix * inv_b2 * inv3n + (1.f - wmix) * 2.f * inv3n;
-    g_beta = wmix * (0.5f * invn / beta_l - sq_err * inv_b2 / beta_l * inv3n);
-  }
+    for (int c = 0; c < 3; ++c) {
+      const bool inside = rgb_acc[c] >= 0.f && rgb_acc[c] <= 1.f;  // the clip's adjoint
+      g_rgb[c] = inside ? gr[c] : 0.f;
+      g_sky[c] = gr[5 + c];
+      g_alb[c] = gr[9 + c];
+    }
+    g_depth = gr[3];
+    g_sun = gr[4];
+    g_beta = use_beta ? gr[8] : 0.f;
+    g_op = gr[12];
+  } else {
+    const float inv3n = 1.f / (3.f * (float)R), invn = 1.f / (float)R;
+    float sq_err = 0.f;
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const bool inside = rgb_acc[c] >= 0.f && rgb_acc[c] <= 1.f;  // the clip's adjoint
-    g_rgb[c] = inside ? g_rgb[c] * rgb_scale : 0.f;
-  }
-  if (lane == 0) {
-    atomicAdd(loss_sums + 0, s_sat);
-    atomicAdd(loss_sums + 1, s_logb);
-    atomicAdd(loss_sums + 2, sq_err);
+    for (int c = 0; c < 3; ++c) {
+      const float diff = fminf(fmaxf(rgb_acc[c], 0.f), 1.f) - gt[(size_t)ray * 3 + c];
+      sq_err += diff * diff;
+      g_rgb[c] = diff;
+    }
+    float s_sat = 0.f, s_logb = 0.f;
+    float rgb_scale = 2.f * inv3n;
+    if (use_beta) {
+      const float beta_l = beta_acc + beta_min;
+      const float inv_b2 = 1.f / (beta_l * beta_l);
+      s_sat = 0.5f * sq_err * inv_b2;
+      s_logb = logf(beta_l);
+      rgb_scale = wmix * inv_b2 * inv3n + (1.f - wmix) * 2.f * inv3n;
+      g_beta = wmix * (0.5f * invn / beta_l - sq_err * inv_b2 / beta_l * inv3n);
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const bool inside = rgb_acc[c] >= 0.f && rgb_acc[c] <= 1.f;  // the clip's adjoint
+      g_rgb[c] = inside ? g_rgb[c] * rgb_scale : 0.f;
+    }
+    if (lane == 0) {
+      atomicAdd(loss_sums + 0, s_sat);
+      atomicAdd(loss_sums + 1, s_logb);
+      atomicAdd(loss_sums + 2, sq_err);
+    }
   }
 
   // ---- 3. backward over the samples
@@ -647,6 +681,10 @@ composite_loss_bwd_kernel(const T* __restrict__ h, int F, const T* __restrict__ 
     const float tr = v_trans[s], w = v_w[s], sunv = v_sun[s], beta = v_beta[s];
     const float cs[3] = {v_c0[s], v_c1[s], v_c2[s]};
     float dw = beta * g_beta, d_sunv = 0.f, g_pre_rgb[3];
+    if constexpr (GIVEN) {
+      dw += g_depth * zr[s] + g_op + sunv * g_sun;
+      d_sunv = w * g_sun;
+    }
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       const float rgb = cs[c] * pad2 - rgb_padding;
@@ -655,16 +693,25 @@ composite_loss_bwd_kernel(const T* __restrict__ h, int F, const T* __restrict__ 
       dw += rgb * irr * g_rgb[c];
       d_sunv += d_irr * (1.f - sky[c]);
       d_sky[c] += d_irr * (1.f - sunv);
-      g_pre_rgb[c] = w * irr * g_rgb[c] * pad2 * cs[c] * (1.f - cs[c]);
+      if constexpr (GIVEN) {
+        dw += rgb * g_alb[c] + sky[c] * g_sky[c];
+        d_sky[c] += w * g_sky[c];
+        g_pre_rgb[c] = w * (irr * g_rgb[c] + g_alb[c]) * pad2 * cs[c] * (1.f - cs[c]);
+      } else {
+        g_pre_rgb[c] = w * irr * g_rgb[c] * pad2 * cs[c] * (1.f - cs[c]);
+      }
     }
     // the factor the forward multiplied the transparency by, formed the same way
     const float d_alpha = dw * tr - suffix / (1.f - (1.f - oma) + 1e-10f);
     suffix += dw * w;
     const float sigma_n = sigma + (noise != nullptr ? noise[q] : 0.f);
     const float d_sn = sigma_n > 0.f ? d_alpha * oma * delta : 0.f;
-    const float g_pre_sig = d_sn * (1.f - expf(-sigma));  // softplus' = 1 - exp(-softplus)
+    // softplus' = 1 - exp(-softplus), by expm1: at the last sample (delta 1e10)
+    // the only sigmas that leave 1 - alpha above 0 are below 1e-8, where
+    // 1.f - expf(-sigma) is 0
+    const float g_pre_sig = d_sn * -expm1f(-sigma);
     const float g_pre_sun = d_sunv * sunv * (1.f - sunv);
-    const float g_pre_beta = use_beta ? w * g_beta * (1.f - expf(-beta)) : 0.f;
+    const float g_pre_beta = use_beta ? w * g_beta * -expm1f(-beta) : 0.f;
 
     b_acc[0] += g_pre_sig;
     b_acc[1] += g_pre_rgb[0]; b_acc[2] += g_pre_rgb[1]; b_acc[3] += g_pre_rgb[2];
@@ -839,6 +886,38 @@ extern "C" int satnerf_siren_dense_wgrad(int dtype, const void* X, int K, const 
   return (int)cudaGetLastError();
 }
 
+// Launch composite_loss_bwd_kernel<T, GIVEN>: GIVEN when a cotangent g is passed.
+template <typename T>
+static int launch_composite(const void* h, int F, const void* rf, const void* s2,
+                            const void* bh, const void* skyh, int Fh, const void* Wn,
+                            const void* bn, const void* z, const void* noise, const void* gt,
+                            const void* g, int R, int S, float rgb_padding, float beta_min,
+                            float wmix, void* loss_sums, void* weights, void* d_h, void* d_r,
+                            void* d_s2, void* d_bh, void* d_skyh, void* dWn, void* dbn,
+                            void* stream) {
+  if (F > CLB_MAX_F || Fh > CLB_MAX_F / 2 || S < 1) return (int)cudaErrorInvalidValue;
+  if (R == 0) return (int)cudaSuccess;
+  const int grid = (R + CLB_WARPS - 1) / CLB_WARPS;
+  const size_t smem = (size_t)CLB_WARPS * CLB_SAMPLE_VALS * S * sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto t = [](const void* p) { return static_cast<const T*>(p); };
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto o = [](void* p) { return static_cast<float*>(p); };
+  if (g != nullptr) {
+    composite_loss_bwd_kernel<T, true><<<grid, CLB_WARPS * 32, smem, st>>>(
+        t(h), F, t(rf), t(s2), t(bh), t(skyh), Fh, t(Wn), f(bn), f(z), f(noise), nullptr, f(g),
+        R, S, rgb_padding, 0.f, 0.f, nullptr, nullptr, o(d_h), o(d_r), o(d_s2), o(d_bh),
+        o(d_skyh), o(dWn), o(dbn));
+  } else {
+    composite_loss_bwd_kernel<T, false><<<grid, CLB_WARPS * 32, smem, st>>>(
+        t(h), F, t(rf), t(s2), t(bh), t(skyh), Fh, t(Wn), f(bn), f(z), f(noise), f(gt), nullptr,
+        R, S, rgb_padding, beta_min, wmix, o(loss_sums), o(weights), o(d_h), o(d_r), o(d_s2),
+        o(d_bh), o(d_skyh), o(dWn), o(dbn));
+  }
+  return (int)cudaGetLastError();
+}
+
 extern "C" int satnerf_composite_loss_bwd(int dtype, const void* h, int F, const void* rf,
                                           const void* s2, const void* bh, const void* skyh,
                                           int Fh, const void* Wn, const void* bn, const void* z,
@@ -847,27 +926,34 @@ extern "C" int satnerf_composite_loss_bwd(int dtype, const void* h, int F, const
                                           void* loss_sums, void* weights, void* d_h, void* d_r,
                                           void* d_s2, void* d_bh, void* d_skyh, void* dWn,
                                           void* dbn, void* stream) {
-  if (F > CLB_MAX_F || Fh > CLB_MAX_F / 2 || S < 1) return (int)cudaErrorInvalidValue;
-  if (R == 0) return (int)cudaSuccess;
-  const int grid = (R + CLB_WARPS - 1) / CLB_WARPS;
-  const size_t smem = (size_t)CLB_WARPS * CLB_SAMPLE_VALS * S * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto o = [](void* p) { return static_cast<float*>(p); };
-  if (dtype == 0) {
-    composite_loss_bwd_kernel<float><<<grid, CLB_WARPS * 32, smem, st>>>(
-        f(h), F, f(rf), f(s2), f(bh), f(skyh), Fh, f(Wn), f(bn), f(z), f(noise), f(gt), R, S,
-        rgb_padding, beta_min, wmix, o(loss_sums), o(weights), o(d_h), o(d_r), o(d_s2), o(d_bh),
-        o(d_skyh), o(dWn), o(dbn));
-  } else if (dtype == 1) {
-    auto b = [](const void* p) { return static_cast<const __nv_bfloat16*>(p); };
-    composite_loss_bwd_kernel<__nv_bfloat16><<<grid, CLB_WARPS * 32, smem, st>>>(
-        b(h), F, b(rf), b(s2), b(bh), b(skyh), Fh, b(Wn), f(bn), f(z), f(noise), f(gt), R, S,
-        rgb_padding, beta_min, wmix, o(loss_sums), o(weights), o(d_h), o(d_r), o(d_s2), o(d_bh),
-        o(d_skyh), o(dWn), o(dbn));
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (gt == nullptr || loss_sums == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_composite<float>(h, F, rf, s2, bh, skyh, Fh, Wn, bn, z, noise, gt, nullptr, R,
+                                   S, rgb_padding, beta_min, wmix, loss_sums, weights, d_h, d_r,
+                                   d_s2, d_bh, d_skyh, dWn, dbn, stream);
+  if (dtype == 1)
+    return launch_composite<__nv_bfloat16>(h, F, rf, s2, bh, skyh, Fh, Wn, bn, z, noise, gt,
+                                           nullptr, R, S, rgb_padding, beta_min, wmix, loss_sums,
+                                           weights, d_h, d_r, d_s2, d_bh, d_skyh, dWn, dbn,
+                                           stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int satnerf_composite_bwd(int dtype, const void* h, int F, const void* rf,
+                                     const void* s2, const void* bh, const void* skyh, int Fh,
+                                     const void* Wn, const void* bn, const void* z,
+                                     const void* noise, const void* g, int R, int S,
+                                     float rgb_padding, void* d_h, void* d_r, void* d_s2,
+                                     void* d_bh, void* d_skyh, void* dWn, void* dbn,
+                                     void* stream) {
+  if (g == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_composite<float>(h, F, rf, s2, bh, skyh, Fh, Wn, bn, z, noise, nullptr, g, R,
+                                   S, rgb_padding, 0.f, 0.f, nullptr, nullptr, d_h, d_r, d_s2,
+                                   d_bh, d_skyh, dWn, dbn, stream);
+  if (dtype == 1)
+    return launch_composite<__nv_bfloat16>(h, F, rf, s2, bh, skyh, Fh, Wn, bn, z, noise, nullptr,
+                                           g, R, S, rgb_padding, 0.f, 0.f, nullptr, nullptr, d_h,
+                                           d_r, d_s2, d_bh, d_skyh, dWn, dbn, stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -8,12 +8,13 @@ images go the lidar-style ground truth rasters the DSM evaluation reads.
 
 Counterpart of the JAX package's recipe (tests/fixtures.py
 `build_synthetic_dataset` + tools/make_synthetic_aoi.py): the same seed gives
-the same cameras, images and rasters. The depth-supervision key points, the
-painted transients and the RPC mis-registration of that recipe wait for the
-slices that train on them.
+the same cameras, images, key points and rasters. The painted transients
+and the RPC mis-registration of that recipe wait for the slices that train
+on them.
 
   python -m satnerf_tpu_torch.data.synthetic OUT_DIR [--size 32] [--n_train 3]
-      [--n_test 2] [--terrain box|smooth] [--shading] [--seed 0]
+      [--n_test 2] [--terrain box|smooth] [--shading] [--keypoints N]
+      [--seed 0]
 
 writes OUT_DIR/data (json + tif + train.txt/test.txt) and OUT_DIR/gt
 (SYN_000_DSM.tif/.txt, SYN_000_CLS.tif).
@@ -27,6 +28,7 @@ import os
 
 import numpy as np
 
+from satnerf_tpu_torch.geo.ellipsoid import ecef_from_latlon
 from satnerf_tpu_torch.geo.geotiff import Affine, Profile, write_geotiff
 from satnerf_tpu_torch.geo.rpc import fit_rpc_from_projection
 from satnerf_tpu_torch.geo.utm import utm_from_latlon
@@ -164,6 +166,7 @@ def _surface_hits(rpc, hf, w: int, h: int):
 
 def build_synthetic_dataset(root: str, n_train: int = 3, n_test: int = 2,
                             w: int = 32, h: int = 32, seed: int = 0,
+                            with_keypoints: bool = False, n_kp: int = 40,
                             view_spread: float = 0.05, terrain: str = "box",
                             checker: int = 4, alt_bounds: str = "rpc",
                             relief: float = 1.0, shading: bool = False,
@@ -171,6 +174,12 @@ def build_synthetic_dataset(root: str, n_train: int = 3, n_test: int = 2,
                             sun_az_range: tuple = (90.0, 270.0)) -> str:
     """Write a reference-format dataset: per-image json + tif, train.txt and
     test.txt.
+
+    with_keypoints adds the depth-supervision data a bundle adjustment
+    leaves behind (reference create_satellite_dataset.py:125-136): pts3d.npy,
+    n_kp ECEF tie points on the true surface, and per image the "keypoints"
+    {2d_coordinates, pts3d_indices} of the tie points it sees, with 0.05 px
+    of reprojection noise.
 
     alt_bounds picks the per-image min_alt/max_alt (the rays' near/far):
     "rpc" is the full RPC fit range [ALT_MIN, ALT_MAX]; "terrain" is the
@@ -192,6 +201,13 @@ def build_synthetic_dataset(root: str, n_train: int = 3, n_test: int = 2,
     os.makedirs(root, exist_ok=True)
     rng = np.random.RandomState(seed)
     names = []
+
+    if with_keypoints:
+        tie_lons = rng.uniform(AOI_LON - 0.0015, AOI_LON + 0.0015, n_kp)
+        tie_lats = rng.uniform(AOI_LAT - 0.0015, AOI_LAT + 0.0015, n_kp)
+        tie_alts = hf(tie_lons, tie_lats)
+        np.save(os.path.join(root, "pts3d.npy"),
+                np.stack(ecef_from_latlon(tie_lats, tie_lons, tie_alts), -1))
 
     for i in range(n_train + n_test):
         dx = rng.uniform(-view_spread, view_spread)
@@ -235,6 +251,17 @@ def build_synthetic_dataset(root: str, n_train: int = 3, n_test: int = 2,
             "max_alt": max_alt,
             "rpc": rpc.to_dict(),
         }
+        if with_keypoints:
+            kp_cols, kp_rows = rpc.projection(tie_lons, tie_lats, tie_alts)
+            idx = np.nonzero((kp_cols >= 0) & (kp_cols <= w - 1)
+                             & (kp_rows >= 0) & (kp_rows <= h - 1))[0]
+            noise = rng.normal(0, 0.05, (idx.size, 2))
+            meta["keypoints"] = {
+                "2d_coordinates": np.stack(
+                    [kp_cols[idx] + noise[:, 0], kp_rows[idx] + noise[:, 1]],
+                    -1).tolist(),
+                "pts3d_indices": idx.tolist(),
+            }
         with open(os.path.join(root, name + ".json"), "w") as f:
             json.dump(meta, f)
         names.append(name + ".json")
@@ -304,13 +331,17 @@ def main(argv=None):
     ap.add_argument("--relief", type=float, default=1.0)
     ap.add_argument("--shading", action="store_true",
                     help="sun-lit images with a sun direction per image")
+    ap.add_argument("--keypoints", type=int, default=0, metavar="N",
+                    help="N tie points (pts3d.npy and per-image key points) "
+                         "for --ds_lambda training")
     ap.add_argument("--seed", type=int, default=0)
     a = ap.parse_args(argv)
     data_dir, gt_dir = make_synthetic_aoi(
         a.out_dir, size=a.size, terrain=a.terrain, relief=a.relief,
         n_train=a.n_train, n_test=a.n_test, seed=a.seed,
         view_spread=a.view_spread, checker=a.checker,
-        alt_bounds=a.alt_bounds, shading=a.shading)
+        alt_bounds=a.alt_bounds, shading=a.shading,
+        with_keypoints=a.keypoints > 0, n_kp=a.keypoints or 40)
     print(f"synthetic AOI ready: {data_dir} + {gt_dir}")
 
 

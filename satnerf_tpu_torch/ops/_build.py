@@ -34,10 +34,10 @@ SIGNATURES = {
     # w0, act, Y, save, P, N, stream
     "satnerf_siren_dense": [_I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P,
                             _F, _I, _P, _P, _I, _I, _P],
-    # dtype, h, F, r, s2, bh, skyh, Fh, Wn, bn, z, R, S, rgb_padding, out,
-    # weights, stream
+    # dtype, h, F, r, s2, bh, skyh, Fh, Wn, bn, z, noise, R, S, rgb_padding,
+    # out, weights, stream
     "satnerf_heads_composite": [_I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P,
-                                _I, _I, _F, _P, _P, _P],
+                                _P, _I, _I, _F, _P, _P, _P],
     # dtype, dY, slope, W, dX, accumulate, P, N, K, stream
     "satnerf_siren_dense_dgrad": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # dtype, X, K, dY, slope, rays, z, S, extra_mode, extra_off, n_extra, C,
@@ -50,6 +50,14 @@ SIGNATURES = {
     "satnerf_composite_loss_bwd": [_I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                                    _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P,
                                    _P, _P, _P, _P, _P, _P],
+    # dtype, h, F, r, s2, bh, skyh, Fh, Wn, bn, z, noise, g, R, S,
+    # rgb_padding, d_h, d_r, d_s2, d_bh, d_skyh, dWn, dbn, stream
+    "satnerf_composite_bwd": [_I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                              _P, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P],
+    # dtype, h, F, s2, Fh, Wn, bn, z, noise, R, S, scale, sums, d_s2, dWn,
+    # dbn, stream
+    "satnerf_sc_loss_bwd": [_I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _F,
+                            _P, _P, _P, _P, _P],
 }
 
 

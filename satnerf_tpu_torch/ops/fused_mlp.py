@@ -1,4 +1,5 @@
-"""The fused kernels of the SIREN variants: serving render and training step.
+"""The fused kernels of the SIREN variants: serving render, training step,
+solar-correction pass and differentiable training render.
 
 fused_render_rays — counterpart of satnerf_tpu/ops/pallas/fused_mlp.py:1066
 (K2). Rays and per-ray depths go in, per-ray products come out: rgb, depth,
@@ -10,20 +11,38 @@ sigma noise and target colors go in; the loss parts, the gradient of every
 field parameter, the per-ray gradient of the transient embedding and, on
 request, the compositing weights come out.
 
-On the card both are chains of hand-written CUDA kernels (csrc/), each behind
-a wrapper here with a plain PyTorch version beside it:
+fused_sc_loss_grads — counterpart of fused_mlp.py:1719 (K3). Ray origins, sun
+directions, depths and sigma noise go in; terms 2 and 3 of the S-NeRF
+solar-correction loss and their gradient come out. The field is marched along
+the sun direction; transparency and weights carry no gradient, so the
+gradient reaches the weights through the sun-visibility head only.
+
+fused_train_render_rays — counterpart of fused_mlp.py:1472 (K4). The serving
+render with sigma noise, differentiable with respect to the field's
+parameters and the transient embedding: a torch.autograd.Function whose
+forward and backward are both kernel chains. The depth-supervision pass
+renders its key-point rays through it.
+
+On the card all four are chains of hand-written CUDA kernels (csrc/), each
+behind a wrapper here with a plain PyTorch version beside it:
 
   siren_dense         one dense layer, act(w0 * (X.W + b + E.C)), with the
                       small E operand (xyz, sun_dir or t) built from the rays
                       in-kernel; in training it also saves the sine's slope
   heads_composite     the narrow heads and the alpha compositor, a warp per
-                      ray (serving)
+                      ray (serving; with sigma noise, K4's forward)
   composite_loss_bwd  narrow heads, compositor, loss and all their adjoints,
                       a warp per ray (training)
+  composite_bwd       the same walk from a given (R, 16) cotangent of the
+                      per-ray products (K4's backward)
+  sc_loss_bwd         sigma and sun_v heads, compositor forward, terms 2 and
+                      3 and the sun_v head's adjoint, a warp per ray (K3)
   siren_dense_dgrad   dX (+)= (dY * slope) . W^T
   siren_dense_wgrad   dW, db, dC of one layer, and t_grad for beta_0
 
-`_render_staged` and `_train_staged` chain them. A wrapper given a CUDA
+`_render_staged`, `_train_staged`, `_sc_staged` and the two halves of
+`_TrainRender` chain them; the training chains share one forward
+(`_chain_forward`) and one backward (`_chain_backward`). A wrapper given a CUDA
 tensor launches its kernel or raises; given a CPU tensor it runs its plain
 version. There is no fallback from one to the other. Every launch adds one
 to LAUNCHES[name].
@@ -53,7 +72,8 @@ OUT_COLS = 16  # rgb 0:3 | depth 3 | sun 4 | sky 5:8 | beta 8 | albedo 9:12 | op
 RAY_COLS = 16  # o 0:3 | d 3:6 | sun 6:9 | t 9:9+tau
 
 LAUNCHES = {"siren_dense": 0, "heads_composite": 0, "composite_loss_bwd": 0,
-            "siren_dense_dgrad": 0, "siren_dense_wgrad": 0}
+            "siren_dense_dgrad": 0, "siren_dense_wgrad": 0, "sc_loss_bwd": 0,
+            "composite_bwd": 0}
 
 _ACT = {"none": 0, "sin": 1, "relu": 2}
 _EXTRA = {None: (0, 0), "xyz": (1, 0), "sun": (2, 6), "t": (2, 9)}  # mode, column
@@ -213,7 +233,29 @@ def _narrow_heads(h, r, s2, bh, skyh, wn, bn, rgb_padding: float, dtype=None):
     return sigma, albedo, sunv, sky, beta
 
 
-def heads_composite_reference(h, r, s2, bh, skyh, wn, bn, z, *,
+def _heads_products(h, r, s2, bh, skyh, wn, bn, z, noise, rgb_padding, dtype):
+    """((R, 16) products, (R, S) weights) of the narrow heads and the
+    compositor (plain, differentiable)."""
+    n_rays, n_s = z.shape
+    sigma, albedo, sunv, sky, beta = _narrow_heads(h, r, s2, bh, skyh, wn, bn,
+                                                   rgb_padding, dtype=dtype)
+    _, _, w = ray_weights(sigma.reshape(n_rays, n_s), z, noise)
+    albedo = albedo.reshape(n_rays, n_s, 3)
+    sunv = sunv.reshape(n_rays, n_s, 1)
+    beta = beta.reshape(n_rays, n_s, 1)
+    sky = sky[:, None, :].expand(n_rays, n_s, 3)
+    irr = sunv + (1.0 - sunv) * sky
+    wc = w[..., None]
+    out = torch.cat([
+        torch.clamp((wc * albedo * irr).sum(1), 0.0, 1.0),
+        (w * z).sum(1, keepdim=True), (wc * sunv).sum(1), (wc * sky).sum(1),
+        (wc * beta).sum(1), (wc * albedo).sum(1), w.sum(1, keepdim=True),
+        torch.zeros((n_rays, OUT_COLS - 13), dtype=torch.float32,
+                    device=z.device)], dim=1)
+    return out, w
+
+
+def heads_composite_reference(h, r, s2, bh, skyh, wn, bn, z, *, noise=None,
                               rgb_padding: float = 0.001,
                               return_weights: bool = False):
     """Plain version of heads_composite.
@@ -221,30 +263,15 @@ def heads_composite_reference(h, r, s2, bh, skyh, wn, bn, z, *,
     h (P, F), r/s2/bh (P, Fh) (bh None without the beta head), skyh (R, Fh),
     all in the compute dtype; wn (9, F) narrow weights in the compute dtype
     (rows: sigma, rgb_1 x3, sun_v_out, sky_1 x3, beta_1); bn (9,) fp32;
-    z (R, S) fp32. Returns ((R, 16) products, (R, S) weights or None).
+    z (R, S) fp32; noise (R, S) fp32 added to sigma before the relu, or None.
+    Returns ((R, 16) products, (R, S) weights or None).
     """
-    n_rays, n_s = z.shape
-    sigma, albedo, sunv, sky, beta = _narrow_heads(h, r, s2, bh, skyh, wn, bn,
-                                                   rgb_padding)
-    _, _, w = ray_weights(sigma.reshape(n_rays, n_s), z)
-    albedo = albedo.reshape(n_rays, n_s, 3)
-    sunv = sunv.reshape(n_rays, n_s, 1)
-    beta = beta.reshape(n_rays, n_s, 1)
-    sky = sky[:, None, :].expand(n_rays, n_s, 3)
-    irr = sunv + (1.0 - sunv) * sky
-    wc = w[..., None]
-    out = torch.zeros((n_rays, OUT_COLS), dtype=torch.float32, device=z.device)
-    out[:, 0:3] = torch.clamp((wc * albedo * irr).sum(1), 0.0, 1.0)
-    out[:, 3] = (w * z).sum(1)
-    out[:, 4:5] = (wc * sunv).sum(1)
-    out[:, 5:8] = (wc * sky).sum(1)
-    out[:, 8:9] = (wc * beta).sum(1)
-    out[:, 9:12] = (wc * albedo).sum(1)
-    out[:, 12] = w.sum(1)
+    out, w = _heads_products(h, r, s2, bh, skyh, wn, bn, z, noise,
+                             rgb_padding, wn.dtype)
     return out, (w if return_weights else None)
 
 
-def heads_composite(h, r, s2, bh, skyh, wn, bn, z, *,
+def heads_composite(h, r, s2, bh, skyh, wn, bn, z, *, noise=None,
                     rgb_padding: float = 0.001, return_weights: bool = False):
     """Narrow heads + compositing; arguments as heads_composite_reference.
 
@@ -253,15 +280,19 @@ def heads_composite(h, r, s2, bh, skyh, wn, bn, z, *,
     """
     if z.device.type == "cpu":
         return heads_composite_reference(h, r, s2, bh, skyh, wn, bn, z,
-                                         rgb_padding=rgb_padding,
+                                         noise=noise, rgb_padding=rgb_padding,
                                          return_weights=return_weights)
     dtype = h.dtype
-    _check_cuda(dtype, h=h, r=r, s2=s2, bh=bh, skyh=skyh, wn=wn, bn=bn, z=z)
+    _check_cuda(dtype, h=h, r=r, s2=s2, bh=bh, skyh=skyh, wn=wn, bn=bn, z=z,
+                noise=noise)
     n_rays, n_s = z.shape
     p, feat = h.shape
     fh = r.shape[1]
     if z.dtype != torch.float32 or bn.dtype != torch.float32 or bn.numel() != 9:
         raise ValueError("z must be fp32 (R, S) and bn fp32 (9,)")
+    if noise is not None and (noise.dtype != torch.float32
+                              or noise.shape != z.shape):
+        raise ValueError("noise must be fp32 (R, S)")
     if p != n_rays * n_s or wn.shape != (9, feat) or skyh.shape != (n_rays, fh):
         raise ValueError("heads_composite: inconsistent shapes")
     for name, t in (("r", r), ("s2", s2), ("bh", bh)):
@@ -275,8 +306,8 @@ def heads_composite(h, r, s2, bh, skyh, wn, bn, z, *,
                if return_weights else None)
     _launch("heads_composite", _DTYPE_CODE[dtype], _ptr(h), feat, _ptr(r),
             _ptr(s2), _ptr(bh), _ptr(skyh), fh, _ptr(wn), _ptr(bn), _ptr(z),
-            n_rays, n_s, float(rgb_padding), _ptr(out), _ptr(weights),
-            _stream(z))
+            _ptr(noise), n_rays, n_s, float(rgb_padding), _ptr(out),
+            _ptr(weights), _stream(z))
     return out, weights
 
 
@@ -394,14 +425,16 @@ def fused_render_rays_reference(params, rays_o, rays_d, sun_dir, t_embed,
                                 skip: int = 4, use_beta: bool = True,
                                 rgb_padding: float = 0.001, tau: int = 4,
                                 dtype=torch.bfloat16,
-                                return_weights: bool = False) -> dict:
+                                return_weights: bool = False,
+                                noise=None) -> dict:
     """Plain version of fused_render_rays: the field module on o + d*z, then
-    render/composite.py, then the per-ray integrals sum_s w_s * q_s that
-    satnerf_tpu/train/system.py:294-300 describes."""
+    render/composite.py (with the sigma noise, when given), then the per-ray
+    integrals sum_s w_s * q_s that satnerf_tpu/train/system.py:294-300
+    describes. Differentiable where the caller lets autograd record."""
     _check_field(params, layers, feat, skip, use_beta, tau, rgb_padding)
     res = run_field(params, rays_o, rays_d, None, sun_dir,
                     t_embed if use_beta else None, z_vals, shadow=True,
-                    dtype=dtype)
+                    dtype=dtype, noise=noise)
     w = res["weights"]
 
     def integ(q):
@@ -426,6 +459,19 @@ def _check_field(field, layers, feat, skip, use_beta, tau, rgb_padding):
                          f"variant, rgb_padding) = {got} does not match {want}")
 
 
+def _check_card_call(name, field, z_vals, sun_dir, t_embed, layers, feat, skip,
+                     use_beta, tau, rgb_padding):
+    """What every kernel chain asks of its caller before it packs anything."""
+    if z_vals.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {z_vals.device}")
+    _check_field(field, layers, feat, skip, use_beta, tau, rgb_padding)
+    if sun_dir is None or (use_beta and t_embed is None):
+        raise ValueError("the shadow variants need sun_dir (and t_embed for "
+                         "sat-nerf)")
+    if tau > RAY_COLS - 9:
+        raise ValueError(f"tau={tau} does not fit the 16-column ray layout")
+
+
 def fused_render_rays(params, rays_o, rays_d, sun_dir, t_embed, z_vals, *,
                       layers: int = 8, feat: int = 512, skip: int = 4,
                       use_beta: bool = True, rgb_padding: float = 0.001,
@@ -441,23 +487,16 @@ def fused_render_rays(params, rays_o, rays_d, sun_dir, t_embed, z_vals, *,
 
     On CUDA tensors this launches the siren_dense / heads_composite chain
     under torch.inference_mode(): its outputs carry no grad_fn (training
-    goes through fused_train_loss_grads; the differentiable render K4 is
-    not ported yet). On CPU tensors it runs fused_render_rays_reference.
+    goes through fused_train_loss_grads and fused_train_render_rays). On CPU
+    tensors it runs fused_render_rays_reference.
     """
     if z_vals.device.type == "cpu":
         return fused_render_rays_reference(
             params, rays_o, rays_d, sun_dir, t_embed, z_vals, layers=layers,
             feat=feat, skip=skip, use_beta=use_beta, rgb_padding=rgb_padding,
             tau=tau, dtype=dtype, return_weights=return_weights)
-    if z_vals.device.type != "cuda":
-        raise ValueError(f"fused_render_rays runs on cuda or cpu, not "
-                         f"{z_vals.device}")
-    _check_field(params, layers, feat, skip, use_beta, tau, rgb_padding)
-    if sun_dir is None or (use_beta and t_embed is None):
-        raise ValueError("the shadow variants need sun_dir (and t_embed for "
-                         "sat-nerf)")
-    if tau > RAY_COLS - 9:
-        raise ValueError(f"tau={tau} does not fit the 16-column ray layout")
+    _check_card_call("fused_render_rays", params, z_vals, sun_dir, t_embed,
+                     layers, feat, skip, use_beta, tau, rgb_padding)
     with torch.inference_mode():
         rays16 = pack_rays(rays_o, rays_d, sun_dir,
                            t_embed if use_beta else None, tau)
@@ -599,6 +638,34 @@ def siren_dense_wgrad(x, dy, slope, rays16, samples: int, *,
 # --------------------------------------------------------- composite_loss_bwd
 
 
+def _narrow_adjoint(fn, h, r, s2, bh, skyh, wn, bn) -> tuple:
+    """Differentiate a scalar of the narrow heads' inputs by autograd.
+
+    fn(hf, rf, sf, bf, skyf, wn_l, bn_l) -> (scalar, aux) runs on fp32 leaves
+    of the activations and the narrow weights (matmul operands are rounded to
+    wn's dtype inside, models/nerf.py rounded_matmul). Returns ({d_h, d_r,
+    d_s2, d_bh, d_skyh (through sky_0's relu), dwn, dbn}, aux); r, bh and skyh
+    may be None, and a leaf the scalar does not reach gets zeros.
+    """
+    leaves = {k: v.detach().float().requires_grad_(True)
+              for k, v in (("h", h), ("r", r), ("s2", s2), ("bh", bh),
+                           ("skyh", skyh), ("wn", wn)) if v is not None}
+    leaves["bn"] = bn.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        scalar, aux = fn(leaves["h"], leaves.get("r"), leaves["s2"],
+                         leaves.get("bh"), leaves.get("skyh"), leaves["wn"],
+                         leaves["bn"])
+        grads = torch.autograd.grad(scalar, list(leaves.values()),
+                                    allow_unused=True)
+    g = {k: (torch.zeros_like(a) if d is None else d)
+         for (k, a), d in zip(leaves.items(), grads)}
+    cot = {f"d_{k}": g.get(k) for k in ("h", "r", "s2", "bh", "skyh")}
+    if skyh is not None:
+        cot["d_skyh"] = cot["d_skyh"] * (leaves["skyh"].detach() > 0)
+    cot["dwn"], cot["dbn"] = g["wn"], g["bn"]
+    return cot, aux
+
+
 def composite_loss_bwd_reference(h, r, s2, bh, skyh, wn, bn, z, noise, gt,
                                  wmix: float, *, rgb_padding: float = 0.001,
                                  beta_min: float = L.BETA_MIN,
@@ -618,13 +685,8 @@ def composite_loss_bwd_reference(h, r, s2, bh, skyh, wn, bn, z, noise, gt,
     """
     n_rays, n_s = z.shape
     use_beta = bh is not None
-    acts = [t.detach().float().requires_grad_(True)
-            for t in (h, r, s2, skyh) + ((bh,) if use_beta else ())]
-    hf, rf, sf, skyf = acts[:4]
-    bf = acts[4] if use_beta else None
-    wn_l = wn.detach().float().requires_grad_(True)
-    bn_l = bn.detach().clone().requires_grad_(True)
-    with torch.enable_grad():
+
+    def loss(hf, rf, sf, bf, skyf, wn_l, bn_l):
         sigma, albedo, sunv, sky, beta = _narrow_heads(
             hf, rf, sf, bf, skyf, wn_l, bn_l, rgb_padding, dtype=wn.dtype)
         out = {"rgb": albedo.reshape(n_rays, n_s, 3),
@@ -637,28 +699,61 @@ def composite_loss_bwd_reference(h, r, s2, bh, skyh, wn, bn, z, noise, gt,
                composite(out, z, noise=noise, shadow=True).items()}
         sq = ((res["rgb_coarse"] - gt) ** 2).sum(1)
         mse, _ = L.snerf_loss(res, gt, 0.0)
-        if use_beta:
-            color, logbeta = L.uncertainty_aware_terms(res, gt, "coarse")
-            b = (res["weights_coarse"][..., None] * res["beta_coarse"]).sum(-2)
-            b = b[:, 0] + beta_min
-            sums = torch.stack([(0.5 * sq / b ** 2).sum(), torch.log(b).sum(),
-                                sq.sum()])
-            loss = wmix * (color + logbeta) + (1.0 - wmix) * mse
-        else:
+        weights = res["weights_coarse"].detach()
+        if not use_beta:
             zero = sq.new_zeros(())
-            sums = torch.stack([zero, zero, sq.sum()])
-            loss = mse
-        grads = torch.autograd.grad(loss, acts + [wn_l, bn_l],
-                                    allow_unused=True)
-    grads = [torch.zeros_like(a) if g is None else g
-             for g, a in zip(grads, acts + [wn_l, bn_l])]
-    res_out = {"loss_sums": sums.detach(), "d_h": grads[0], "d_r": grads[1],
-               "d_s2": grads[2], "d_skyh": grads[3] * (skyf.detach() > 0),
-               "d_bh": grads[4] if use_beta else None,
-               "dwn": grads[-2], "dbn": grads[-1],
-               "weights": (res["weights_coarse"].detach()
-                           if return_weights else None)}
-    return res_out
+            return mse, (torch.stack([zero, zero, sq.sum()]).detach(), weights)
+        color, logbeta = L.uncertainty_aware_terms(res, gt, "coarse")
+        b = (res["weights_coarse"][..., None] * res["beta_coarse"]).sum(-2)
+        b = b[:, 0] + beta_min
+        sums = torch.stack([(0.5 * sq / b ** 2).sum(), torch.log(b).sum(),
+                            sq.sum()])
+        return (wmix * (color + logbeta) + (1.0 - wmix) * mse,
+                (sums.detach(), weights))
+
+    res, (sums, weights) = _narrow_adjoint(loss, h, r, s2, bh, skyh, wn, bn)
+    res["loss_sums"] = sums
+    res["weights"] = weights if return_weights else None
+    return res
+
+
+def _check_narrow(name, h, r, s2, bh, skyh, wn, bn, z, noise):
+    """Shapes and dtypes the per-ray kernels share; returns (R, S, P, F, Fh)."""
+    dtype = h.dtype
+    n_rays, n_s = z.shape
+    p, feat = h.shape
+    fh = s2.shape[1]
+    if p != n_rays * n_s or wn.shape != (9, feat) or (
+            skyh is not None and skyh.shape != (n_rays, fh)):
+        raise ValueError(f"{name}: inconsistent shapes")
+    for what, t, shape in (("z", z, (n_rays, n_s)),
+                           ("noise", noise, (n_rays, n_s)), ("bn", bn, (9,))):
+        if t is not None and (t.dtype != torch.float32 or t.shape != shape):
+            raise ValueError(f"{what} must be {shape} fp32")
+    for what, t in (("r", r), ("s2", s2), ("bh", bh)):
+        if t is not None and (t.shape != (p, fh) or t.dtype != dtype):
+            raise ValueError(f"{what} must be ({p}, {fh}) {dtype}")
+    for what, t in (("skyh", skyh), ("wn", wn)):
+        if t is not None and t.dtype != dtype:
+            raise ValueError(f"{what} must be {dtype}")
+    return n_rays, n_s, p, feat, fh
+
+
+def _adjoint_buffers(name, n_rays, n_s, p, feat, fh, use_beta, dev) -> dict:
+    """The fp32 outputs both instantiations of the compositor's adjoint
+    write: the cotangents of h, r, s2, bh, skyh, and dwn / dbn zero-filled
+    for the kernel's atomics."""
+    if feat > 512 or n_s > 256:
+        raise ValueError(f"{name} holds at most 512 features and 256 samples "
+                         f"a ray")
+
+    def f32(*shape, make=torch.empty):
+        return make(shape, dtype=torch.float32, device=dev)
+
+    return {"d_h": f32(p, feat), "d_r": f32(p, fh), "d_s2": f32(p, fh),
+            "d_bh": f32(p, fh) if use_beta else None,
+            "d_skyh": f32(n_rays, fh), "dwn": f32(9, feat, make=torch.zeros),
+            "dbn": f32(9, make=torch.zeros)}
 
 
 def composite_loss_bwd(h, r, s2, bh, skyh, wn, bn, z, noise, gt, wmix: float,
@@ -675,36 +770,15 @@ def composite_loss_bwd(h, r, s2, bh, skyh, wn, bn, z, noise, gt, wmix: float,
     dtype = h.dtype
     _check_cuda(dtype, h=h, r=r, s2=s2, bh=bh, skyh=skyh, wn=wn, bn=bn, z=z,
                 noise=noise, gt=gt)
-    n_rays, n_s = z.shape
-    p, feat = h.shape
-    fh = r.shape[1]
-    if p != n_rays * n_s or wn.shape != (9, feat) or skyh.shape != (n_rays, fh):
-        raise ValueError("composite_loss_bwd: inconsistent shapes")
-    for name, t, shape in (("z", z, (n_rays, n_s)), ("noise", noise, (n_rays, n_s)),
-                           ("gt", gt, (n_rays, 3)), ("bn", bn, (9,))):
-        if t is not None and (t.dtype != torch.float32 or t.shape != shape):
-            raise ValueError(f"{name} must be {shape} fp32")
-    for name, t in (("r", r), ("s2", s2), ("bh", bh)):
-        if t is not None and (t.shape != (p, fh) or t.dtype != dtype):
-            raise ValueError(f"{name} must be ({p}, {fh}) {dtype}")
-    for name, t in (("skyh", skyh), ("wn", wn)):
-        if t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype}")
-    if feat > 512 or n_s > 256:
-        raise ValueError("composite_loss_bwd holds at most 512 features and "
-                         "256 samples a ray")
-    dev = z.device
-
-    def f32(*shape, zero=False):
-        make = torch.zeros if zero else torch.empty
-        return make(shape, dtype=torch.float32, device=dev)
-
-    res = {"loss_sums": f32(3, zero=True), "d_h": f32(p, feat),
-           "d_r": f32(p, fh), "d_s2": f32(p, fh),
-           "d_bh": f32(p, fh) if bh is not None else None,
-           "d_skyh": f32(n_rays, fh), "dwn": f32(9, feat, zero=True),
-           "dbn": f32(9, zero=True),
-           "weights": f32(n_rays, n_s) if return_weights else None}
+    n_rays, n_s, p, feat, fh = _check_narrow("composite_loss_bwd", h, r, s2,
+                                             bh, skyh, wn, bn, z, noise)
+    if gt.dtype != torch.float32 or gt.shape != (n_rays, 3):
+        raise ValueError(f"gt must be ({n_rays}, 3) fp32")
+    res = _adjoint_buffers("composite_loss_bwd", n_rays, n_s, p, feat, fh,
+                           bh is not None, z.device)
+    res["loss_sums"] = torch.zeros(3, dtype=torch.float32, device=z.device)
+    res["weights"] = (torch.empty((n_rays, n_s), dtype=torch.float32,
+                                  device=z.device) if return_weights else None)
     _launch("composite_loss_bwd", _DTYPE_CODE[dtype], _ptr(h), feat, _ptr(r),
             _ptr(s2), _ptr(bh), _ptr(skyh), fh, _ptr(wn), _ptr(bn), _ptr(z),
             _ptr(noise), _ptr(gt), n_rays, n_s, float(rgb_padding),
@@ -715,82 +789,211 @@ def composite_loss_bwd(h, r, s2, bh, skyh, wn, bn, z, noise, gt, wmix: float,
     return res
 
 
-# ------------------------------------------------------------ the whole step
+# -------------------------------------------------------------- composite_bwd
+
+
+def composite_bwd_reference(h, r, s2, bh, skyh, wn, bn, z, noise, g, *,
+                            rgb_padding: float = 0.001) -> dict:
+    """Plain version of composite_bwd, by autograd: the vector-Jacobian
+    product of heads_composite_reference's (R, 16) products with the cotangent
+    g (R, 16) fp32, all seven products honoured (rgb through its clip, depth,
+    sun, sky, beta, albedo, opacity). Other arguments as
+    composite_loss_bwd_reference. Returns its d_h, d_r, d_s2, d_bh, d_skyh,
+    dwn, dbn."""
+    def contracted(hf, rf, sf, bf, skyf, wn_l, bn_l):
+        out, _ = _heads_products(hf, rf, sf, bf, skyf, wn_l, bn_l, z, noise,
+                                 rgb_padding, wn.dtype)
+        return (out * g).sum(), None
+
+    return _narrow_adjoint(contracted, h, r, s2, bh, skyh, wn, bn)[0]
+
+
+def composite_bwd(h, r, s2, bh, skyh, wn, bn, z, noise, g, *,
+                  rgb_padding: float = 0.001) -> dict:
+    """The adjoint of heads_composite from a given cotangent; arguments and
+    returns as composite_bwd_reference. CUDA tensors launch the kernel."""
+    if z.device.type == "cpu":
+        return composite_bwd_reference(h, r, s2, bh, skyh, wn, bn, z, noise,
+                                       g, rgb_padding=rgb_padding)
+    dtype = h.dtype
+    _check_cuda(dtype, h=h, r=r, s2=s2, bh=bh, skyh=skyh, wn=wn, bn=bn, z=z,
+                noise=noise, g=g)
+    n_rays, n_s, p, feat, fh = _check_narrow("composite_bwd", h, r, s2, bh,
+                                             skyh, wn, bn, z, noise)
+    if g.dtype != torch.float32 or g.shape != (n_rays, OUT_COLS):
+        raise ValueError(f"g must be ({n_rays}, {OUT_COLS}) fp32")
+    res = _adjoint_buffers("composite_bwd", n_rays, n_s, p, feat, fh,
+                           bh is not None, z.device)
+    _launch("composite_bwd", _DTYPE_CODE[dtype], _ptr(h), feat, _ptr(r),
+            _ptr(s2), _ptr(bh), _ptr(skyh), fh, _ptr(wn), _ptr(bn), _ptr(z),
+            _ptr(noise), _ptr(g), n_rays, n_s, float(rgb_padding),
+            _ptr(res["d_h"]), _ptr(res["d_r"]), _ptr(res["d_s2"]),
+            _ptr(res["d_bh"]), _ptr(res["d_skyh"]), _ptr(res["dwn"]),
+            _ptr(res["dbn"]), _stream(z))
+    return res
+
+
+# ---------------------------------------------------------------- sc_loss_bwd
+
+
+def sc_loss_bwd_reference(h, s2, wn, bn, z, noise, lam3: float) -> dict:
+    """Plain version of sc_loss_bwd, by autograd over the sigma and sun_v
+    heads, render/composite.py ray_weights and
+    train/losses.solar_correction_terms.
+
+    h (P, F) the trunk output and s2 (P, Fh) the sun_v hidden, both along
+    the SUN rays, and wn (9, F) in the compute dtype (rows 0 and 4 are read);
+    bn (9,), z (R, S), noise (R, S) or None fp32; lam3 = lambda_sc / 3.
+    Returns fp32 tensors:
+      sums (2,) [sum_r sum_s (T - sun_v)^2, sum_r (1 - sum_s w * sun_v)]
+      d_s2 (P, Fh) the cotangent of s2 of lam3 / R * (sums[0] + sums[1]),
+      already through the sun_v output's sigmoid
+      dwn (9, F), dbn (9,): zero outside row 4
+    Transparency and weights are detached, so nothing reaches h.
+    """
+    n_rays, n_s = z.shape
+    fh = s2.shape[1]
+
+    def terms(hf, rf, sf, bf, skyf, wn_l, bn_l):
+        dt = wn.dtype
+        sigma = F.softplus(rounded_matmul(hf, wn_l[0:1], dt)[:, 0] + bn_l[0])
+        sunv = torch.sigmoid(rounded_matmul(sf, wn_l[4:5, :fh], dt)[:, 0]
+                             + bn_l[4]).reshape(n_rays, n_s)
+        _, trans, w = ray_weights(sigma.reshape(n_rays, n_s), z, noise)
+        res = {"sun_sc_coarse": sunv[..., None],
+               "transparency_sc_coarse": trans, "weights_sc_coarse": w}
+        t2, t3 = L.solar_correction_terms(res, "coarse", 3.0 * lam3)
+        trans, w = trans.detach(), w.detach()
+        sums = torch.stack([((trans - sunv) ** 2).sum(),
+                            (1.0 - (w * sunv).sum(1)).sum()])
+        return t2 + t3, sums.detach()
+
+    cot, sums = _narrow_adjoint(terms, h, None, s2, None, None, wn, bn)
+    return {"sums": sums, "d_s2": cot["d_s2"], "dwn": cot["dwn"],
+            "dbn": cot["dbn"]}
+
+
+def sc_loss_bwd(h, s2, wn, bn, z, noise, lam3: float) -> dict:
+    """The solar-correction terms and the sun_v head's adjoint; arguments and
+    returns as sc_loss_bwd_reference. CUDA tensors launch the kernel."""
+    if z.device.type == "cpu":
+        return sc_loss_bwd_reference(h, s2, wn, bn, z, noise, lam3)
+    dtype = h.dtype
+    _check_cuda(dtype, h=h, s2=s2, wn=wn, bn=bn, z=z, noise=noise)
+    n_rays, n_s, p, feat, fh = _check_narrow("sc_loss_bwd", h, None, s2, None,
+                                             None, wn, bn, z, noise)
+    if fh > 256:
+        raise ValueError("sc_loss_bwd holds a sun_v hidden layer of at most "
+                         "256 features")
+    dev = z.device
+    res = {"sums": torch.zeros(2, dtype=torch.float32, device=dev),
+           "d_s2": torch.empty((p, fh), dtype=torch.float32, device=dev),
+           "dwn": torch.zeros((9, feat), dtype=torch.float32, device=dev),
+           "dbn": torch.zeros(9, dtype=torch.float32, device=dev)}
+    _launch("sc_loss_bwd", _DTYPE_CODE[dtype], _ptr(h), feat, _ptr(s2), fh,
+            _ptr(wn), _ptr(bn), _ptr(z), _ptr(noise), n_rays, n_s,
+            float(lam3) / n_rays, _ptr(res["sums"]), _ptr(res["d_s2"]),
+            _ptr(res["dwn"]), _ptr(res["dbn"]), _stream(z))
+    return res
+
+
+# ------------------------------------------------------------ the training chains
 
 
 class TrainOps:
-    """The four stage functions `_train_staged` chains. A check swaps in its
-    own to see each launch's inputs, as `_render_staged` allows."""
+    """The stage functions the training chains run. A check swaps in its own
+    to see each launch's inputs, as `_render_staged` allows."""
 
     dense = staticmethod(siren_dense)
     composite = staticmethod(composite_loss_bwd)
+    sc = staticmethod(sc_loss_bwd)
     dgrad = staticmethod(siren_dense_dgrad)
     wgrad = staticmethod(siren_dense_wgrad)
 
 
-def _train_staged(p: dict, rays16, z, noise, gt, wmix: float, *, skip: int,
-                  use_beta: bool, rgb_padding: float, beta_min: float,
-                  return_weights: bool, ops=TrainOps):
-    """The kernel chain of one training step. p: pack_params output.
-    Returns (loss_sums (3,), g, t_grad (R, tau) or None, weights or None)
-    with g the gradients in the layout of p (fp32)."""
+def _chain_forward(p: dict, rays16, z, *, skip: int, use_beta: bool,
+                   sun_only: bool = False, ops=TrainOps) -> dict:
+    """The field's dense layers with every sine layer's slope saved: the
+    forward half K1, K3 and K4 share. p: pack_params output. With sun_only
+    (K3) the rgb, beta and sky heads, which terms 2 and 3 do not read, are
+    left out. Returns the activations and slopes `_chain_backward` needs."""
     n_s = z.shape[1]
 
     def dense(x, w, bias, extra=None, ew=None, w0=1.0):
         return ops.dense(x, w, bias, rays16, n_s, extra=extra, extra_weight=ew,
                          z=z, w0=w0, act="sin", save=True)
 
-    # forward, each sine layer saving its slope
-    hs, slopes = [], []
+    a = {"hs": [], "slopes": []}
     h, c = dense(None, None, p["bt"][0], "xyz", p["A"], w0=30.0)
-    hs.append(h), slopes.append(c)
+    a["hs"].append(h), a["slopes"].append(c)
     for l, w in enumerate(p["B"], start=1):
         h, c = (dense(h, w, p["bt"][l], "xyz", p["C"]) if l == skip
                 else dense(h, w, p["bt"][l]))
-        hs.append(h), slopes.append(c)
-    feats = ops.dense(h, p["Wfeat"], p["bfeat"], rays16, n_s, act="none")
-    r, c_r = dense(feats, p["Wrgb0"], p["brgb0"])
-    s0, c_s0 = dense(feats, p["Wsun0h"], p["bsun0"], "sun", p["Wsun0d"])
-    s1, c_s1 = dense(s0, p["Wsun1"], p["bsun1"])
-    s2, c_s2 = dense(s1, p["Wsun2"], p["bsun2"])
-    bh = c_bh = None
+        a["hs"].append(h), a["slopes"].append(c)
+    a["h"] = h
+    feats = a["feats"] = ops.dense(h, p["Wfeat"], p["bfeat"], rays16, n_s,
+                                   act="none")
+    if not sun_only:
+        a["r"], a["c_r"] = dense(feats, p["Wrgb0"], p["brgb0"])
+    a["s0"], a["c_s0"] = dense(feats, p["Wsun0h"], p["bsun0"], "sun",
+                               p["Wsun0d"])
+    a["s1"], a["c_s1"] = dense(a["s0"], p["Wsun1"], p["bsun1"])
+    a["s2"], a["c_s2"] = dense(a["s1"], p["Wsun2"], p["bsun2"])
+    if sun_only:
+        return a
+    a["bh"] = a["c_bh"] = None
     if use_beta:
-        bh, c_bh = dense(feats, p["Wbeta0h"], p["bbeta0"], "t", p["Wbeta0t"])
-    skyh = ops.dense(None, None, p["bsky0"], rays16, 1, extra="sun",
-                     extra_weight=p["Wsky0"], act="relu")
+        a["bh"], a["c_bh"] = dense(feats, p["Wbeta0h"], p["bbeta0"], "t",
+                                   p["Wbeta0t"])
+    # sky_0 sees sun_dir only, so it runs once a ray (samples = 1)
+    a["skyh"] = ops.dense(None, None, p["bsky0"], rays16, 1, extra="sun",
+                          extra_weight=p["Wsky0"], act="relu")
+    return a
 
-    out = ops.composite(h, r, s2, bh, skyh, p["wn"], p["bn"], z, noise, gt,
-                        wmix, rgb_padding=rgb_padding, beta_min=beta_min,
-                        return_weights=return_weights)
-    g = {"wn": out["dwn"], "bn": out["dbn"], "B": [None] * len(p["B"]),
+
+def _chain_backward(p: dict, a: dict, cot: dict, rays16, z, *, skip: int,
+                    use_beta: bool, ops=TrainOps):
+    """A dgrad and a wgrad launch per dense layer: the backward half K1, K3
+    and K4 share. a: `_chain_forward`'s output; cot: the per-ray stage's
+    d_h, d_r, d_s2, d_bh, d_skyh, dwn, dbn, each fp32 and in its own buffers
+    (wgrad sums by atomics into zero-filled tensors it allocates itself, so
+    nothing accumulates across passes). A head whose cotangent is missing or
+    None (K3: all but sun_v) is skipped and gets no entry in g. Returns
+    (g in the layout of p, t_grad (R, tau) or None)."""
+    n_s = z.shape[1]
+    g = {"wn": cot["dwn"], "bn": cot["dbn"], "B": [None] * len(p["B"]),
          "bt": [None] * len(p["bt"]), "C": None}
+    feats, d_feats = a["feats"], None
 
     def wgrad(x, dy, slope, extra=None, ew=None, samples=n_s, extra_grad=False):
         return ops.wgrad(x, dy, slope, rays16, samples, extra=extra,
                          extra_weight=ew, z=z, extra_grad=extra_grad)
 
     # heads, in the JAX kernel's order: rgb, sun, sky, beta
-    g["Wrgb0"], g["brgb0"], _, _ = wgrad(feats, out["d_r"], c_r)
-    d_feats = ops.dgrad(out["d_r"], c_r, p["Wrgb0"])
-    g["Wsun2"], g["bsun2"], _, _ = wgrad(s1, out["d_s2"], c_s2)
-    d_s1 = ops.dgrad(out["d_s2"], c_s2, p["Wsun2"])
-    g["Wsun1"], g["bsun1"], _, _ = wgrad(s0, d_s1, c_s1)
-    d_s0 = ops.dgrad(d_s1, c_s1, p["Wsun1"])
-    g["Wsun0h"], g["bsun0"], g["Wsun0d"], _ = wgrad(feats, d_s0, c_s0, "sun",
-                                                    p["Wsun0d"])
-    d_feats = ops.dgrad(d_s0, c_s0, p["Wsun0h"], out=d_feats)
-    _, g["bsky0"], g["Wsky0"], _ = wgrad(None, out["d_skyh"], None, "sun",
-                                         p["Wsky0"], samples=1)
+    if cot.get("d_r") is not None:
+        g["Wrgb0"], g["brgb0"], _, _ = wgrad(feats, cot["d_r"], a["c_r"])
+        d_feats = ops.dgrad(cot["d_r"], a["c_r"], p["Wrgb0"])
+    g["Wsun2"], g["bsun2"], _, _ = wgrad(a["s1"], cot["d_s2"], a["c_s2"])
+    d_s1 = ops.dgrad(cot["d_s2"], a["c_s2"], p["Wsun2"])
+    g["Wsun1"], g["bsun1"], _, _ = wgrad(a["s0"], d_s1, a["c_s1"])
+    d_s0 = ops.dgrad(d_s1, a["c_s1"], p["Wsun1"])
+    g["Wsun0h"], g["bsun0"], g["Wsun0d"], _ = wgrad(feats, d_s0, a["c_s0"],
+                                                    "sun", p["Wsun0d"])
+    d_feats = ops.dgrad(d_s0, a["c_s0"], p["Wsun0h"], out=d_feats)
+    if cot.get("d_skyh") is not None:
+        _, g["bsky0"], g["Wsky0"], _ = wgrad(None, cot["d_skyh"], None, "sun",
+                                             p["Wsky0"], samples=1)
     t_grad = None
-    if use_beta:
+    if use_beta and cot.get("d_bh") is not None:
         g["Wbeta0h"], g["bbeta0"], g["Wbeta0t"], t_grad = wgrad(
-            feats, out["d_bh"], c_bh, "t", p["Wbeta0t"], extra_grad=True)
-        d_feats = ops.dgrad(out["d_bh"], c_bh, p["Wbeta0h"], out=d_feats)
+            feats, cot["d_bh"], a["c_bh"], "t", p["Wbeta0t"], extra_grad=True)
+        d_feats = ops.dgrad(cot["d_bh"], a["c_bh"], p["Wbeta0h"], out=d_feats)
 
     # feats and sigma meet in the trunk output
-    g["Wfeat"], g["bfeat"], _, _ = wgrad(h, d_feats, None)
-    d_h = ops.dgrad(d_feats, None, p["Wfeat"], out=out["d_h"])
+    g["Wfeat"], g["bfeat"], _, _ = wgrad(a["h"], d_feats, None)
+    d_h = ops.dgrad(d_feats, None, p["Wfeat"], out=cot.get("d_h"))
 
+    hs, slopes = a["hs"], a["slopes"]
     for l in range(len(p["B"]), 0, -1):
         if l == skip:
             g["B"][l - 1], g["bt"][l], g["C"], _ = wgrad(
@@ -799,7 +1002,43 @@ def _train_staged(p: dict, rays16, z, noise, gt, wmix: float, *, skip: int,
             g["B"][l - 1], g["bt"][l], _, _ = wgrad(hs[l - 1], d_h, slopes[l])
         d_h = ops.dgrad(d_h, slopes[l], p["B"][l - 1])
     _, g["bt"][0], g["A"], _ = wgrad(None, d_h, slopes[0], "xyz", p["A"])
+    return g, t_grad
+
+
+def _train_staged(p: dict, rays16, z, noise, gt, wmix: float, *, skip: int,
+                  use_beta: bool, rgb_padding: float, beta_min: float,
+                  return_weights: bool, ops=TrainOps):
+    """The kernel chain of one training step (K1): the forward with saved
+    slopes, composite_loss_bwd, the backward. p: pack_params output.
+    Returns (loss_sums (3,), g, t_grad (R, tau) or None, weights or None)
+    with g the gradients in the layout of p (fp32)."""
+    a = _chain_forward(p, rays16, z, skip=skip, use_beta=use_beta, ops=ops)
+    out = ops.composite(a["h"], a["r"], a["s2"], a["bh"], a["skyh"], p["wn"],
+                        p["bn"], z, noise, gt, wmix, rgb_padding=rgb_padding,
+                        beta_min=beta_min, return_weights=return_weights)
+    g, t_grad = _chain_backward(p, a, out, rays16, z, skip=skip,
+                                use_beta=use_beta, ops=ops)
     return out["loss_sums"], g, t_grad, out["weights"]
+
+
+def _sc_staged(p: dict, rays16, z, noise, lam3: float, *, skip: int,
+               use_beta: bool, ops=TrainOps):
+    """The kernel chain of the solar-correction pass (K3). rays16 holds the
+    sun direction in its direction columns too (the march direction is the
+    sun direction). Forward: trunk, feats, sun_v_0..2 (12 launches);
+    sc_loss_bwd; backward through sun_v_2..0, feats and the trunk (12 wgrad,
+    11 dgrad). The rgb, sky and beta heads do not enter terms 2 and 3: their
+    layers are left out of the chain and their gradients returned as zeros,
+    as are the narrow rows other than sun_v's. Returns (sums (2,), g)."""
+    a = _chain_forward(p, rays16, z, skip=skip, use_beta=use_beta,
+                       sun_only=True, ops=ops)
+    out = ops.sc(a["h"], a["s2"], p["wn"], p["bn"], z, noise, lam3)
+    g, _ = _chain_backward(p, a, out, rays16, z, skip=skip, use_beta=use_beta,
+                           ops=ops)
+    for k, w in p.items():  # the heads the chain left out
+        if k not in g:
+            g[k] = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+    return out["sums"], g
 
 
 def unpack_grads(g: dict, field, *, skip: int, use_beta: bool) -> dict:
@@ -931,15 +1170,8 @@ def fused_train_loss_grads(params, rays_o, rays_d, sun_dir, t_embed, z_vals,
         return fused_train_loss_grads_reference(
             params, rays_o, rays_d, sun_dir, t_embed, z_vals, noise, gt_rgb,
             use_beta_w, **kw)
-    if z_vals.device.type != "cuda":
-        raise ValueError(f"fused_train_loss_grads runs on cuda or cpu, not "
-                         f"{z_vals.device}")
-    _check_field(params, layers, feat, skip, use_beta, tau, rgb_padding)
-    if sun_dir is None or (use_beta and t_embed is None):
-        raise ValueError("the shadow variants need sun_dir (and t_embed for "
-                         "sat-nerf)")
-    if tau > RAY_COLS - 9:
-        raise ValueError(f"tau={tau} does not fit the 16-column ray layout")
+    _check_card_call("fused_train_loss_grads", params, z_vals, sun_dir,
+                     t_embed, layers, feat, skip, use_beta, tau, rgb_padding)
     n_rays = z_vals.shape[0]
     with torch.no_grad():
         rays16 = pack_rays(rays_o, rays_d, sun_dir,
@@ -959,3 +1191,168 @@ def fused_train_loss_grads(params, rays_o, rays_d, sun_dir, t_embed, z_vals,
     if return_weights:
         return parts, param_grads, t_grad, weights
     return parts, param_grads, t_grad
+
+
+# ================================================= the solar-correction pass
+#
+# K3, fused_sc_loss_grads: the forward chain along the sun rays (trunk, feats,
+# sun_v head), sc_loss_bwd, then the backward through the same layers.
+
+
+def fused_sc_loss_grads_reference(params, rays_o, sun_dir, t_embed, z_vals,
+                                  noise, lambda_sc: float, *, layers: int = 8,
+                                  feat: int = 512, skip: int = 4,
+                                  use_beta: bool = True,
+                                  rgb_padding: float = 0.001, tau: int = 4,
+                                  dtype=torch.bfloat16):
+    """Plain version of fused_sc_loss_grads: the field module on
+    o + sun_dir * z with sun_dir as its sun input too, render/composite.py,
+    train/losses.solar_correction_terms (which detaches transparency and
+    weights) and torch.autograd.grad."""
+    _check_field(params, layers, feat, skip, use_beta, tau, rgb_padding)
+    leaves = list(params.parameters())
+    sun = sun_dir.float()
+    with torch.enable_grad():
+        res = run_field(params, rays_o.float(), sun, None, sun,
+                        t_embed.detach().float() if use_beta else None,
+                        z_vals.float(), shadow=True, dtype=dtype, noise=noise)
+        t2, t3 = L.solar_correction_terms(
+            {"sun_sc_coarse": res["sun"],
+             "transparency_sc_coarse": res["transparency"],
+             "weights_sc_coarse": res["weights"]}, "coarse", lambda_sc)
+        grads = torch.autograd.grad(t2 + t3, leaves, allow_unused=True)
+    param_grads = {n: (torch.zeros_like(q) if g is None else g)
+                   for (n, q), g in zip(params.named_parameters(), grads)}
+    return {"term2": t2.detach(), "term3": t3.detach()}, param_grads
+
+
+def fused_sc_loss_grads(params, rays_o, sun_dir, t_embed, z_vals, noise,
+                        lambda_sc: float, *, layers: int = 8, feat: int = 512,
+                        skip: int = 4, use_beta: bool = True,
+                        rgb_padding: float = 0.001, tau: int = 4,
+                        dtype=torch.bfloat16):
+    """The secondary, sun-ray pass of the solar correction.
+
+    params: the s-nerf / sat-nerf RadianceField. rays_o, sun_dir (R, 3);
+    t_embed (R, tau) (sat-nerf; it gets no gradient: only the beta head reads
+    it, and beta has no solar-correction cotangent); z_vals (R, S), the
+    primary pass's depths; noise (R, S), this pass's own sigma noise, or
+    None. Returns (parts, param_grads): parts = {"term2", "term3"}, already
+    scaled by lambda_sc / 3 and averaged over the R rays, and the gradient of
+    term2 + term3 keyed as params.named_parameters(). Transparency and
+    weights carry no gradient (reference metrics.py:27-34), so every
+    parameter outside the trunk, feats_from_xyz and sun_v_net gets zeros.
+
+    On CUDA tensors this launches the kernel chain `_sc_staged`; on CPU
+    tensors it runs fused_sc_loss_grads_reference.
+    """
+    kw = dict(layers=layers, feat=feat, skip=skip, use_beta=use_beta,
+              rgb_padding=rgb_padding, tau=tau, dtype=dtype)
+    if z_vals.device.type == "cpu":
+        return fused_sc_loss_grads_reference(params, rays_o, sun_dir, t_embed,
+                                             z_vals, noise, lambda_sc, **kw)
+    _check_card_call("fused_sc_loss_grads", params, z_vals, sun_dir, t_embed,
+                     layers, feat, skip, use_beta, tau, rgb_padding)
+    n_rays = z_vals.shape[0]
+    lam3 = float(lambda_sc) / 3.0
+    with torch.no_grad():
+        rays16 = pack_rays(rays_o, sun_dir, sun_dir,
+                           t_embed if use_beta else None, tau)
+        z = z_vals.float().contiguous()
+        nz = None if noise is None else noise.float().contiguous()
+        packed = pack_params(params, skip=skip, use_beta=use_beta, dtype=dtype)
+        sums, g = _sc_staged(packed, rays16, z, nz, lam3, skip=skip,
+                             use_beta=use_beta)
+        parts = {"term2": lam3 * sums[0] / n_rays,
+                 "term3": lam3 * sums[1] / n_rays}
+        param_grads = unpack_grads(g, params, skip=skip, use_beta=use_beta)
+    return parts, param_grads
+
+
+# ================================================== the differentiable render
+#
+# K4, fused_train_render_rays: forward = the training chain's forward and
+# heads_composite with noise; backward = composite_bwd and the training
+# chain's backward.
+
+
+class _TrainRender(torch.autograd.Function):
+    """(t_embed, the field's parameters) -> (R, 16) products on the card.
+    The forward keeps the chain's activations and fp32 slopes on the node
+    (about 1.4 GB at 65,536 points of an 8 x 512 field); the backward frees
+    them when it has run, and so does dropping the graph."""
+
+    @staticmethod
+    def forward(ctx, field, cfg: dict, rays_o, rays_d, sun_dir, z, noise,
+                t_embed, *weights):
+        skip, use_beta = cfg["skip"], cfg["use_beta"]
+        rays16 = pack_rays(rays_o, rays_d, sun_dir, t_embed, cfg["tau"])
+        packed = pack_params(field, skip=skip, use_beta=use_beta,
+                             dtype=cfg["dtype"])
+        a = _chain_forward(packed, rays16, z, skip=skip, use_beta=use_beta)
+        out, _ = heads_composite(a["h"], a["r"], a["s2"], a["bh"], a["skyh"],
+                                 packed["wn"], packed["bn"], z, noise=noise,
+                                 rgb_padding=cfg["rgb_padding"])
+        ctx.field, ctx.cfg = field, cfg
+        ctx.chain = (packed, rays16, z, noise, a)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        packed, rays16, z, noise, a = ctx.chain
+        ctx.chain = None  # the slopes go as soon as the backward has read them
+        cfg = ctx.cfg
+        skip, use_beta = cfg["skip"], cfg["use_beta"]
+        cot = composite_bwd(a["h"], a["r"], a["s2"], a["bh"], a["skyh"],
+                            packed["wn"], packed["bn"], z, noise,
+                            g.float().contiguous(),
+                            rgb_padding=cfg["rgb_padding"])
+        gk, t_grad = _chain_backward(packed, a, cot, rays16, z, skip=skip,
+                                     use_beta=use_beta)
+        grads = unpack_grads(gk, ctx.field, skip=skip, use_beta=use_beta)
+        return (None,) * 7 + (t_grad,) + tuple(
+            grads[n] for n, _ in ctx.field.named_parameters())
+
+
+def fused_train_render_rays_reference(params, rays_o, rays_d, sun_dir, t_embed,
+                                      z_vals, noise=None, **kw) -> dict:
+    """Plain version of fused_train_render_rays: fused_render_rays_reference
+    with the sigma noise, left to plain autograd (the field's matmuls round
+    their cotangents where the kernels do, models/nerf.py rounded_matmul)."""
+    return fused_render_rays_reference(params, rays_o, rays_d, sun_dir,
+                                       t_embed, z_vals, noise=noise, **kw)
+
+
+def fused_train_render_rays(params, rays_o, rays_d, sun_dir, t_embed, z_vals,
+                            noise=None, *, layers: int = 8, feat: int = 512,
+                            skip: int = 4, use_beta: bool = True,
+                            rgb_padding: float = 0.001, tau: int = 4,
+                            dtype=torch.bfloat16) -> dict:
+    """Training path: the render of rays to per-ray products, differentiable.
+
+    Arguments as fused_render_rays, plus noise (R, S), the training sigma
+    noise, or None. Returns {"rgb" (R, 3), "depth" (R,), "sun" (R, 1), "sky"
+    (R, 3), "albedo" (R, 3), "opacity" (R,)} and "beta" (R, 1) for sat-nerf,
+    where beta is the weight-integrated per-ray uncertainty. Gradients flow
+    to the parameters of `params` and to t_embed; z_vals and noise get none.
+
+    On CUDA tensors forward and backward are kernel chains (`_TrainRender`);
+    on CPU tensors it runs fused_train_render_rays_reference.
+    """
+    kw = dict(layers=layers, feat=feat, skip=skip, use_beta=use_beta,
+              rgb_padding=rgb_padding, tau=tau, dtype=dtype)
+    if z_vals.device.type == "cpu":
+        return fused_train_render_rays_reference(params, rays_o, rays_d,
+                                                 sun_dir, t_embed, z_vals,
+                                                 noise, **kw)
+    _check_card_call("fused_train_render_rays", params, z_vals, sun_dir,
+                     t_embed, layers, feat, skip, use_beta, tau, rgb_padding)
+    cfg = dict(skip=skip, use_beta=use_beta, rgb_padding=rgb_padding, tau=tau,
+               dtype=dtype)
+    out = _TrainRender.apply(
+        params, cfg, rays_o.detach(), rays_d.detach(), sun_dir.detach(),
+        z_vals.detach().float().contiguous(),
+        None if noise is None else noise.detach().float().contiguous(),
+        t_embed if use_beta else None, *params.parameters())
+    return _products(out, None, use_beta)

@@ -1,9 +1,9 @@
 """The plain ray renderer (counterpart of satnerf_tpu/render/render.py).
 
-Only the coarse pass is ported: the solar-correction sun-ray pass and the
-hierarchical fine pass raise NotImplementedError until they are (ROADMAP
+The coarse pass and the solar-correction sun-ray pass are ported; the
+hierarchical fine pass raises NotImplementedError until it is (ROADMAP
 queue 1). This is the eager path: the CPU runs it, and it is the plain
-version the serving kernel (ops/fused_mlp.py) is held against.
+version the kernels (ops/fused_mlp.py) are held against.
 """
 
 from __future__ import annotations
@@ -53,21 +53,22 @@ def run_field(model, rays_o, march_d, rays_d, sun_d, t_embed, z_vals,
 
 def render_rays(models: dict, rays, t_embed, cfg: RenderConfig,
                 generator: Optional[torch.Generator] = None,
-                dtype: Optional[torch.dtype] = None) -> dict:
+                dtype: Optional[torch.dtype] = None, noise=None,
+                sc_noise=None) -> dict:
     """Render a batch of rays with the coarse model.
 
     models: {"coarse": RadianceField}. rays: (N, 11) [o(3), d(3), near, far,
     sun_dir(3)]; (N, 8) without the sun for nerf. t_embed: (N, tau) or None.
-    Returns the reference-shaped dict with keys suffixed _coarse. The
-    training-time sigma noise comes with the train step (ROADMAP).
+    noise, sc_noise: (N, S) training-time sigma noise of the primary pass
+    and of the solar-correction pass, or None. Returns the reference-shaped
+    dict with keys suffixed _coarse; with cfg.solar_correction the shadow
+    variants also march the field along the sun rays (reference
+    rendering.py:90-108) and return weights_sc, transparency_sc and sun_sc.
     """
     if cfg.n_importance > 0:
         raise NotImplementedError(
             "hierarchical sampling (n_importance > 0) is not ported yet "
             "(ROADMAP: hierarchical serve)")
-    if cfg.solar_correction:
-        raise NotImplementedError(
-            "the solar-correction pass is not ported yet (ROADMAP: K3)")
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     near, far = rays[:, 6:7], rays[:, 7:8]
     sun_d = rays[:, 8:11] if (cfg.shadow and rays.shape[1] >= 11) else None
@@ -76,5 +77,12 @@ def render_rays(models: dict, rays, t_embed, cfg: RenderConfig,
     use_dirs = cfg.variant == "nerf"
     result = run_field(models["coarse"], rays_o, rays_d,
                        rays_d if use_dirs else None, sun_d, t_embed, z_vals,
-                       shadow=cfg.shadow, dtype=dtype)
+                       shadow=cfg.shadow, dtype=dtype, noise=noise)
+    if cfg.shadow and cfg.solar_correction:
+        # the sun direction is both the march direction and the sun input
+        sc = run_field(models["coarse"], rays_o, sun_d, None, sun_d, t_embed,
+                       z_vals, shadow=True, dtype=dtype, noise=sc_noise)
+        result["weights_sc"] = sc["weights"]
+        result["transparency_sc"] = sc["transparency"]
+        result["sun_sc"] = sc["sun"]
     return {f"{k}_coarse": v for k, v in result.items()}

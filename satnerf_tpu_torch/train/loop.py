@@ -8,7 +8,10 @@ main.py:233-261). Behavior parity:
     the metrics (main.py:170-171, 202-203)
   * checkpoints at every `save_every_n_epochs`-th epoch, named epoch={n}.ckpt,
     and at the end; `--ckpt_path` resumes weights, Adam state and step
-  * per-step scalars: lr, train/loss, train/psnr
+  * per-step scalars: lr, train/loss, train/psnr, and train/loss_depth with
+    depth supervision
+  * `--sampling shuffle`: the epoch's permutation is drawn at every epoch
+    boundary and, from the step count, on resume
   * DSM MAE against lidar GT during validation when gt_dir is set
 
 The hot loop stays on the device: the dataset lives there and batches are
@@ -136,7 +139,9 @@ def fit(cfg: Config) -> dict:
         raise RuntimeError("cfg.device is 'cuda' but no CUDA device is visible "
                            "(pass --device cpu to train on the CPU)")
 
-    train_ds = load_dataset(cfg, split="train")[0]
+    train_sets = load_dataset(cfg, split="train")
+    train_ds = train_sets[0]
+    depth_ds = train_sets[1] if len(train_sets) > 1 else None
     val_ds = load_dataset(cfg, split="val")[0]
     system = NeRFSystem(cfg, device=device, dataset_len=len(train_ds))
     system._check_supported(train=True)
@@ -156,14 +161,22 @@ def fit(cfg: Config) -> dict:
     ids = getattr(train_ds, "all_ids", None)
     if ids is None:
         ids = np.zeros(len(train_ds), np.int64)
-    data = {
-        "rays": torch.from_numpy(np.ascontiguousarray(
-            train_ds.all_rays, dtype=np.float32)).to(device),
-        "rgbs": torch.from_numpy(np.ascontiguousarray(
-            train_ds.all_rgbs, dtype=np.float32)).to(device),
-        "ts": torch.from_numpy(np.asarray(ids, np.int64)).to(device),
-    }
+    def on_device(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+
+    data = {"rays": on_device(train_ds.all_rays, np.float32),
+            "rgbs": on_device(train_ds.all_rgbs, np.float32),
+            "ts": on_device(ids, np.int64)}
+    if depth_ds is not None:
+        data.update(d_rays=on_device(depth_ds.all_rays, np.float32),
+                    d_depths=on_device(depth_ds.all_depths, np.float32),
+                    d_ts=on_device(depth_ds.all_ids, np.int64))
     generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+    # --sampling shuffle: the color rays are read along a per-epoch
+    # permutation; the depth rays keep the draw with replacement
+    shuffle = cfg.sampling == "shuffle"
+    if shuffle:
+        data["perm"] = system.epoch_perm(len(train_ds), state.step // system.spe)
 
     # sanity validation (main.py:257)
     if cfg.num_sanity_val_steps > 0:
@@ -216,7 +229,9 @@ def fit(cfg: Config) -> dict:
             last_log, rays_done = now, 0
             logger.scalars(step_i + 1, {
                 "lr": m["lr"], "train/loss": m["loss"],
-                "train/psnr": m["psnr"], "train/rays_per_sec": rps})
+                "train/psnr": m["psnr"], "train/rays_per_sec": rps,
+                **({"train/loss_depth": m["loss_depth"]}
+                   if "loss_depth" in m else {})})
             print(f"step {step_i + 1}/{cfg.max_train_steps} "
                   f"loss {m['loss']:.5f} psnr {m['psnr']:.2f} "
                   f"rays/s {rps:,.0f}")
@@ -224,6 +239,8 @@ def fit(cfg: Config) -> dict:
         # epoch boundary: validate + checkpoint
         if (step_i + 1) % spe == 0:
             epoch = (step_i + 1) // spe
+            if shuffle:
+                data["perm"] = system.epoch_perm(len(train_ds), epoch)
             if epoch % cfg.val_every_n_epochs == 0:
                 final_metrics = validate(
                     system, state.params, val_ds, cfg, logger, step_i + 1,

@@ -13,7 +13,12 @@ the training step, siren_dense's saved slope, both mainloops of
 siren_dense_dgrad and siren_dense_wgrad (with accumulation, the split over
 the points, every E operand and the per-ray gradient of t),
 composite_loss_bwd with and without the beta head, noise and a saturated
-ray, and fused_train_loss_grads as a whole against autograd.
+ray, and fused_train_loss_grads as a whole against autograd; for the full
+recipe, heads_composite with sigma noise, composite_bwd from a random
+cotangent on all seven products (with clipped channels), sc_loss_bwd with a
+saturated ray, fused_sc_loss_grads and fused_train_render_rays (forward and
+backward) as a whole against autograd, and a train step with SC, DS,
+grad_accum and shuffle.
 """
 
 import numpy as np
@@ -108,6 +113,34 @@ def test_heads_composite(dev, dtype, beta, return_weights):
                                    atol=1e-5)
     else:
         assert w is None
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("beta", [True, False])
+def test_heads_composite_with_noise(dev, dtype, beta):
+    n_rays, n_s, feat = 37, 16, 64
+    g = torch.Generator().manual_seed(12)
+    p, fh = n_rays * n_s, feat // 2
+
+    def t(*shape, scale=1.0):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * scale).to(dev, dtype)
+
+    h, r, s2 = t(p, feat), t(p, fh), t(p, fh)
+    bh = t(p, fh) if beta else None
+    skyh = t(n_rays, fh).abs()
+    wn, bn = t(9, feat, scale=0.5), torch.randn(9, generator=g).to(dev)
+    _, z = _rays16(n_rays, n_s, dev)
+    noise = (torch.randn(n_rays, n_s, generator=g) * 2).to(dev)
+    args = (h, r, s2, bh, skyh, wn, bn, z)
+    kw = dict(noise=noise, rgb_padding=0.001, return_weights=True)
+    before = FM.LAUNCHES["heads_composite"]
+    out, w = FM.heads_composite(*args, **kw)
+    assert FM.LAUNCHES["heads_composite"] == before + 1
+    ref, ref_w = FM.heads_composite_reference(*args, **kw)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=1e-5)
+    np.testing.assert_allclose(w.cpu().numpy(), ref_w.cpu().numpy(), atol=1e-5)
+    plain, _ = FM.heads_composite(*args, rgb_padding=0.001)
+    assert float((plain - out).abs().max()) > 1e-3  # the noise is read
 
 
 @pytest.mark.parametrize("variant", ["sat-nerf", "s-nerf"])
@@ -250,6 +283,180 @@ def test_composite_loss_bwd(dev, dtype, beta, wmix, with_noise):
         assert bool(((got[k] - v).abs() <= lim).all()), (k, _rel(got[k], v))
 
 
+def _narrow_inputs(dev, dtype, beta, with_noise, seed, n_rays=37):
+    n_s, feat = 16, 64
+    g = torch.Generator().manual_seed(seed)
+    p, fh = n_rays * n_s, feat // 2
+
+    def t(*shape, scale=1.0):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * scale).to(dev, dtype)
+
+    h, r, s2 = t(p, feat), t(p, fh), t(p, fh)
+    bh = t(p, fh) if beta else None
+    skyh = torch.relu(t(n_rays, fh))
+    wn = t(9, feat, scale=0.5)
+    wn[0] *= 40  # some rays saturate early
+    bn = torch.randn(9, generator=g).to(dev)
+    _, z = _rays16(n_rays, n_s, dev)
+    noise = (torch.randn(n_rays, n_s, generator=g) * 2).to(dev) if with_noise else None
+    return g, (h, r, s2, bh, skyh, wn, bn, z, noise)
+
+
+def _hold_cotangents(got, ref, dtype):
+    """1e-4 of each tensor's largest entry; in bf16 a cotangent entry may
+    also differ by one bf16 step of itself."""
+    assert set(got) == set(ref)
+    for k, v in ref.items():
+        if v is None:
+            assert got[k] is None
+            continue
+        assert bool(torch.isfinite(got[k]).all()), k
+        lim = 1e-4 * v.abs().max()
+        if k.startswith("d_") and dtype == torch.bfloat16:
+            lim = lim + 2.0 ** -7 * v.abs()
+        assert bool(((got[k] - v).abs() <= lim).all()), (k, _rel(got[k], v))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("beta,with_noise,pad", [
+    (True, False, 0.001), (True, True, 0.3), (False, True, 0.001)])
+def test_composite_bwd(dev, dtype, beta, with_noise, pad):
+    """A random cotangent on all 16 columns; pad 0.3 widens the albedo range
+    so that some unclipped rgb integrals leave [0, 1] and are masked."""
+    g, args = _narrow_inputs(dev, dtype, beta, with_noise, 8)
+    cot = torch.randn(37, 16, generator=g).to(dev)
+    before = FM.LAUNCHES["composite_bwd"]
+    got = FM.composite_bwd(*args, cot, rgb_padding=pad)
+    assert FM.LAUNCHES["composite_bwd"] == before + 1
+    ref = FM.composite_bwd_reference(*args, cot, rgb_padding=pad)
+    _hold_cotangents(got, ref, dtype)
+
+
+@pytest.mark.parametrize("given", [False, True], ids=["loss", "given"])
+def test_composite_adjoint_at_a_faint_last_sample(dev, given):
+    """sigma = 1e-10 everywhere: the inner samples are transparent and the
+    last one, whose delta is 1e10, has alpha = 1 - exp(-1). Its sigma
+    cotangent is d_alpha * exp(-1) * 1e10 * softplus'(pre) with softplus' =
+    1e-10, which 1 - exp(-sigma) rounds to 0 in float32."""
+    _, args = _narrow_inputs(dev, torch.float32, True, False, 10)
+    h, r, s2, bh, skyh, wn, bn, z, noise = args
+    wn[0] = 0.0
+    bn[0] = -23.0
+    args = (h, r, s2, bh, skyh, wn, bn, z, None)
+    g = torch.Generator().manual_seed(11)
+    if given:
+        cot = torch.randn(37, 16, generator=g).to(dev)
+        got = FM.composite_bwd(*args, cot)
+        ref = FM.composite_bwd_reference(*args, cot)
+    else:
+        gt = torch.rand(37, 3, generator=g).to(dev)
+        got = FM.composite_loss_bwd(*args, gt, 1.0)
+        ref = FM.composite_loss_bwd_reference(*args, gt, 1.0)
+    assert float(ref["dbn"][0].abs()) > 1e-3  # the last samples do pull on sigma
+    _hold_cotangents(got, ref, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_noise,n_rays", [(False, 37), (True, 37), (True, 4)])
+def test_sc_loss_bwd(dev, dtype, with_noise, n_rays):
+    _, (h, _, s2, _, _, wn, bn, z, noise) = _narrow_inputs(
+        dev, dtype, False, with_noise, 9, n_rays)
+    before = FM.LAUNCHES["sc_loss_bwd"]
+    got = FM.sc_loss_bwd(h, s2, wn, bn, z, noise, 0.1 / 3)
+    assert FM.LAUNCHES["sc_loss_bwd"] == before + 1
+    ref = FM.sc_loss_bwd_reference(h, s2, wn, bn, z, noise, 0.1 / 3)
+    _hold_cotangents(got, ref, dtype)
+    rows = [0, 1, 2, 3, 5, 6, 7, 8]
+    assert float(got["dwn"][rows].abs().max()) == 0.0
+    assert float(got["dbn"][rows].abs().max()) == 0.0
+
+
+def _field_inputs(dev, variant, layers=8, feat=96, n_rays=53, n_s=24):
+    field = build_model(variant, layers, feat,
+                        generator=torch.Generator().manual_seed(3)).to(dev)
+    g = torch.Generator().manual_seed(4)
+    o = (torch.rand(n_rays, 3, generator=g) - 0.5).to(dev)
+    d = torch.nn.functional.normalize(torch.randn(n_rays, 3, generator=g)).to(dev)
+    sun = torch.nn.functional.normalize(torch.randn(n_rays, 3, generator=g)).to(dev)
+    t = torch.randn(n_rays, 4, generator=g).to(dev)
+    z = torch.sort(torch.rand(n_rays, n_s, generator=g), 1).values.to(dev)
+    noise = (torch.randn(n_rays, n_s, generator=g) * 0.5).to(dev)
+    return field, g, o, d, sun, t, z, noise
+
+
+@pytest.mark.parametrize("variant,with_noise", [
+    ("sat-nerf", True), ("sat-nerf", False), ("s-nerf", True)])
+def test_fused_sc_loss_grads_fp32(dev, variant, with_noise):
+    """The whole K3 chain in fp32 at a narrow, non-tile width against
+    autograd through the field module: 1e-3 of each gradient's largest entry
+    (summation order and atomics only), zeros where autograd has zeros."""
+    use_beta = variant == "sat-nerf"
+    field, _, o, _, sun, t, z, noise = _field_inputs(dev, variant)
+    kw = dict(layers=8, feat=96, use_beta=use_beta, dtype=torch.float32)
+    args = (field, o, sun, t if use_beta else None, z,
+            noise if with_noise else None, 0.1)
+    before = dict(FM.LAUNCHES)
+    parts, grads = FM.fused_sc_loss_grads(*args, **kw)
+    grown = {k: FM.LAUNCHES[k] - before[k] for k in before}
+    assert grown == {"siren_dense": 12, "sc_loss_bwd": 1, "siren_dense_dgrad": 11,
+                     "siren_dense_wgrad": 12, "heads_composite": 0,
+                     "composite_loss_bwd": 0, "composite_bwd": 0}
+    r_parts, r_grads = FM.fused_sc_loss_grads_reference(*args, **kw)
+    for k in r_parts:
+        assert abs(float(parts[k]) - float(r_parts[k])) <= 1e-5, k
+    assert set(grads) == set(r_grads) == {n for n, _ in field.named_parameters()}
+    for name, ref in r_grads.items():
+        assert grads[name].shape == ref.shape, name
+        if float(ref.abs().max()) == 0.0:
+            assert float(grads[name].abs().max()) == 0.0, name
+        else:
+            assert _rel(grads[name], ref) <= 1e-3, (name, _rel(grads[name], ref))
+    assert all(p.grad is None for p in field.parameters())
+
+
+@pytest.mark.parametrize("variant,with_noise", [
+    ("sat-nerf", True), ("sat-nerf", False), ("s-nerf", True)])
+def test_fused_train_render_rays_fp32(dev, variant, with_noise):
+    """K4 forward and backward in fp32 against plain autograd through the
+    field module, a random cotangent on every product: products 1e-4,
+    gradients 1e-3 of each tensor's largest entry."""
+    use_beta = variant == "sat-nerf"
+    field, g, o, d, sun, t, z, noise = _field_inputs(dev, variant)
+    kw = dict(layers=8, feat=96, use_beta=use_beta, dtype=torch.float32)
+    nz = noise if with_noise else None
+    cots = None
+
+    def run(fn):
+        nonlocal cots
+        t_leaf = t.clone().requires_grad_(True) if use_beta else None
+        out = fn(field, o, d, sun, t_leaf, z, nz, **kw)
+        if cots is None:
+            cots = {k: torch.randn(v.shape, generator=g).to(dev)
+                    for k, v in out.items()}
+        total = sum((out[k] * cots[k]).sum() for k in out)
+        leaves = list(field.parameters()) + ([t_leaf] if use_beta else [])
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        return out, grads
+
+    before = dict(FM.LAUNCHES)
+    out, grads = run(FM.fused_train_render_rays)
+    grown = {k: FM.LAUNCHES[k] - before[k] for k in before}
+    assert grown == {"siren_dense": 15 if use_beta else 14, "heads_composite": 1,
+                     "composite_bwd": 1, "siren_dense_dgrad": 13 if use_beta else 12,
+                     "siren_dense_wgrad": 15 if use_beta else 14,
+                     "composite_loss_bwd": 0, "sc_loss_bwd": 0}
+    r_out, r_grads = run(FM.fused_train_render_rays_reference)
+    assert set(out) == set(r_out)
+    for k in r_out:
+        np.testing.assert_allclose(out[k].detach().cpu().numpy(),
+                                   r_out[k].detach().cpu().numpy(), atol=1e-4,
+                                   err_msg=k)
+    names = [n for n, _ in field.named_parameters()] + (["t_embed"] if use_beta else [])
+    for name, got, ref in zip(names, grads, r_grads):
+        assert got is not None and got.shape == ref.shape, name
+        assert _rel(got, ref) <= 1e-3, (name, _rel(got, ref))
+
+
 @pytest.mark.parametrize("variant,layers,wmix", [
     ("sat-nerf", 8, 1.0), ("sat-nerf", 8, 0.0), ("s-nerf", 8, 0.0),
     ("sat-nerf", 4, 1.0)])
@@ -315,6 +522,48 @@ def test_train_step_on_the_card_goes_through_the_kernels(dev):
     assert FM.LAUNCHES["composite_loss_bwd"] == before["composite_loss_bwd"] + 20
 
 
+@pytest.mark.parametrize("options", [
+    dict(), dict(grad_accum=2), dict(sampling="shuffle")], ids=str)
+def test_full_recipe_step_on_the_card(dev, options):
+    """SC + DS on: every step launches sc_loss_bwd once a micro-batch,
+    heads_composite once a micro-batch and composite_bwd while the depth term
+    is active (steps whose 1-based count is below ds_drop_step)."""
+    from satnerf_tpu_torch.config import Config
+    from satnerf_tpu_torch.train.system import NeRFSystem
+
+    steps, accum = 12, options.get("grad_accum", 1)
+    cfg = Config(model="sat-nerf", fc_layers=8, fc_units=64, n_samples=16,
+                 batch_size=128, first_beta_epoch=1, lr=1e-3, sc_lambda=0.1,
+                 ds_lambda=10.0, ds_drop=0.5, max_train_steps=steps, **options)
+    system = NeRFSystem(cfg, dataset_len=1024)
+    assert system.ds_drop_step == 6
+    state = system.init_state(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    rays = torch.rand(1024, 11, generator=g)
+    rays[:, 6], rays[:, 7] = 0.0, 1.0
+    d_rays = rays[:200].clone()
+    data = {"rays": rays.to(dev), "rgbs": torch.rand(1024, 3, generator=g).to(dev),
+            "ts": torch.randint(0, 5, (1024,), generator=g).to(dev),
+            "d_rays": d_rays.to(dev),
+            "d_depths": torch.rand(200, 2, generator=g).to(dev),
+            "d_ts": torch.randint(0, 5, (200,), generator=g).to(dev)}
+    if cfg.sampling == "shuffle":
+        data["perm"] = system.epoch_perm(1024, 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    before = dict(FM.LAUNCHES)
+    emb0 = state.params["embedding_t"].weight.detach().clone()
+    ms = [system.train_step(state, data, gen) for _ in range(steps)]
+    assert state.step == steps
+    assert all(np.isfinite(float(m["loss"])) and np.isfinite(float(m["loss_depth"]))
+               for m in ms)
+    grown = {k: FM.LAUNCHES[k] - before[k] for k in before}
+    assert grown["sc_loss_bwd"] == steps * accum
+    assert grown["composite_loss_bwd"] == steps * accum
+    assert grown["heads_composite"] == steps * accum
+    assert grown["composite_bwd"] == 5 * accum  # steps 0..4: step + 1 < 6
+    assert not torch.equal(emb0, state.params["embedding_t"].weight)
+
+
 def test_kernel_refuses_bad_inputs(dev):
     rays16, z = _rays16(4, 8, dev)
     w = torch.zeros(16, 32, device=dev)
@@ -333,3 +582,15 @@ def test_kernel_refuses_bad_inputs(dev):
         FM.siren_dense_dgrad(dy, torch.zeros(32, 16, device=dev), w)
     with pytest.raises(TypeError):  # an operand type the kernels do not take
         FM.siren_dense_dgrad(dy, None, w.half())
+    z16 = torch.zeros(4, 8, device=dev)
+    h = torch.zeros(32, 64, device=dev)
+    half = torch.zeros(32, 32, device=dev)
+    wn, bn = torch.zeros(9, 64, device=dev), torch.zeros(9, device=dev)
+    with pytest.raises(ValueError):  # a cotangent of another shape
+        FM.composite_bwd(h, half, half, None, torch.zeros(4, 32, device=dev),
+                         wn, bn, z16, None, torch.zeros(4, 3, device=dev))
+    with pytest.raises(ValueError):  # noise of another shape
+        FM.sc_loss_bwd(h, half, wn, bn, z16, torch.zeros(4, 7, device=dev), 0.1)
+    with pytest.raises(ValueError):
+        FM.heads_composite(h, half, half, None, torch.zeros(4, 32, device=dev),
+                           wn, bn, z16, noise=torch.zeros(8, 4, device=dev))

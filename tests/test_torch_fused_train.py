@@ -341,10 +341,10 @@ def _manual_composite_loss_bwd(h, r, s2, bh, skyh, wn, bn, z, noise, gt, wmix,
     d_alpha = dw * trans - suffix / fac
     d_sn = torch.where(sigma_n > 0, d_alpha * oma * delta, torch.zeros(()))
     p = n_r * n_s
-    gs = (d_sn * (1 - torch.exp(-sigma))).reshape(p)
+    gs = (d_sn * -torch.expm1(-sigma)).reshape(p)
     gr = g_rgb.reshape(p, 3)
     gsu = (d_sunv * sunv * (1 - sunv)).reshape(p)
-    gb = (wt * g_beta[:, None] * (1 - torch.exp(-beta))).reshape(p)
+    gb = (wt * g_beta[:, None] * -torch.expm1(-beta)).reshape(p)
     gk = d_sky * sky * (1 - sky)
     dwn, dbn = torch.zeros(9, h.shape[1]), torch.zeros(9)
     dwn[0], dbn[0] = rnd(gs) @ hf, gs.sum()

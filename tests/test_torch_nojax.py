@@ -1,6 +1,7 @@
 """The port stands on its own files: in a fresh interpreter, import every
-module of the port, take two CPU train steps and a render, then look at
-sys.modules. No jax, jaxlib, flax or optax, and no module of the JAX package
+module of the port, take two CPU train steps and a render, then three steps
+of the full recipe (solar correction and depth supervision, with grad_accum
+and with shuffle), then look at sys.modules. No jax, jaxlib, flax or optax, and no module of the JAX package
 satnerf_tpu, may have been loaded."""
 
 import os
@@ -25,6 +26,7 @@ for name in names:
 print("IMPORTED", len(names))
 assert "satnerf_tpu_torch.cli.train" in names
 assert "satnerf_tpu_torch.data.synthetic" in names
+assert "satnerf_tpu_torch.data.satellite_depth" in names
 
 from satnerf_tpu_torch.config import Config
 from satnerf_tpu_torch.train.system import NeRFSystem
@@ -48,6 +50,24 @@ for model in ("sat-nerf", "s-nerf"):
     assert out["rgb_coarse"].shape == (7, 3), model
     assert np.isfinite(out["depth_coarse"]).all(), model
 
+# the full recipe: solar correction, depth supervision, two micro-batches
+depth = {"d_rays": data["rays"][:20],
+         "d_depths": torch.from_numpy(rng.rand(20, 2).astype(np.float32)),
+         "d_ts": data["ts"][:20]}
+for extra in (dict(grad_accum=2), dict(sampling="shuffle")):
+    cfg = Config(model="sat-nerf", fc_layers=8, fc_units=16, n_samples=8,
+                 batch_size=16, device="cpu", sc_lambda=0.1, ds_lambda=1000.0,
+                 noise_std=1.0, max_train_steps=8, **extra)
+    system = NeRFSystem(cfg, dataset_len=64)
+    state = system.init_state(torch.Generator().manual_seed(0))
+    full = {**data, **depth, "perm": system.epoch_perm(64, 0)}
+    gen = torch.Generator().manual_seed(1)
+    for _ in range(3):
+        m = system.train_step(state, full, gen)
+    assert state.step == 3 and np.isfinite(float(m["loss_total"])), extra
+    assert np.isfinite(float(m["loss_depth"])), extra
+print("FULL RECIPE OK")
+
 system = NeRFSystem(Config(model="nerf", fc_layers=8, fc_units=16, n_samples=8,
                            chunk=5), device="cpu")
 out = system.render_image(system.init_params(torch.Generator().manual_seed(0)),
@@ -69,3 +89,4 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout
+    assert "FULL RECIPE OK" in proc.stdout

@@ -2,7 +2,8 @@
 JAX package's recipe (tools/make_synthetic_aoi.py over tests/fixtures.py), at
 a small size: the same seed gives the same RPCs and metadata (1e-9
 relative: the same float64 numpy steps on both sides), the same uint8
-images, and the same GT rasters (1e-6 m)."""
+images, the same key points (pts3d.npy bit for bit, the per-image 2d
+coordinates to 1e-9 relative), and the same GT rasters (1e-6 m)."""
 
 import json
 import os
@@ -24,6 +25,13 @@ CASES = {
          "--n_train", "2", "--n_test", "1", "--alt_bounds", "terrain"],
         dict(size=12, terrain="smooth", shading=True, seed=3, n_train=2,
              n_test=1, alt_bounds="terrain")),
+    "keypoints": (["--size", "12", "--keypoints", "25", "--seed", "5"],
+                  dict(size=12, with_keypoints=True, n_kp=25, seed=5)),
+    "keypoints_shaded": (
+        ["--size", "10", "--keypoints", "12", "--shading", "--n_train", "2",
+         "--n_test", "1"],
+        dict(size=10, with_keypoints=True, n_kp=12, shading=True, n_train=2,
+             n_test=1)),
 }
 
 
@@ -65,6 +73,8 @@ def test_same_seed_same_files_as_the_jax_recipe(tmp_path, case):
             ia, ib = read_geotiff(a), read_geotiff(b)
             assert ia.data.dtype == ib.data.dtype == np.uint8
             assert np.array_equal(ia.data, ib.data), name
+        elif name == "pts3d.npy":
+            assert np.array_equal(np.load(a), np.load(b)), name
         elif name.endswith(".npy"):
             np.testing.assert_allclose(np.load(b), np.load(a), atol=1e-7)
         else:
@@ -79,6 +89,12 @@ def test_same_seed_same_files_as_the_jax_recipe(tmp_path, case):
     assert np.array_equal(
         read_geotiff(os.path.join(got, "gt", "SYN_000_CLS.tif")).data,
         read_geotiff(os.path.join(ref, "gt", "SYN_000_CLS.tif")).data)
+    has_kp = os.path.exists(os.path.join(got, "data", "pts3d.npy"))
+    assert has_kp == kw.get("with_keypoints", False)
+    if has_kp:
+        with open(os.path.join(got, "data", "SYN_000_000_RGB.json")) as f:
+            kp = json.load(f)["keypoints"]
+        assert len(kp["2d_coordinates"]) == len(kp["pts3d_indices"]) > 0
 
 
 def test_module_entry_point(tmp_path):
@@ -87,10 +103,12 @@ def test_module_entry_point(tmp_path):
     out = str(tmp_path / "aoi")
     proc = subprocess.run([sys.executable, "-m",
                            "satnerf_tpu_torch.data.synthetic", out, "--size",
-                           "8", "--n_train", "2", "--n_test", "1"], cwd=REPO,
+                           "8", "--n_train", "2", "--n_test", "1",
+                           "--keypoints", "9"], cwd=REPO,
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "synthetic AOI ready" in proc.stdout
     with open(os.path.join(out, "data", "train.txt")) as f:
         assert len(f.read().split()) == 2
     assert os.path.exists(os.path.join(out, "gt", "SYN_000_DSM.tif"))
+    assert np.load(os.path.join(out, "data", "pts3d.npy")).shape == (9, 3)

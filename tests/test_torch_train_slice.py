@@ -1,7 +1,8 @@
 """The training slice end to end on the CPU: `cli.train.main` on a tiny
 synthetic AOI (sat-nerf 4 x 32, 8 samples, batch 64, f32), then what a user
 does with the run: resume it, serve its checkpoint with the port, and read
-the checkpoint with the JAX package."""
+the checkpoint with the JAX package. Then the same with the full recipe
+(`--sc_lambda 0.1 --ds_lambda 1000`) on an AOI with key points."""
 
 import glob
 import json
@@ -134,10 +135,76 @@ def test_jax_package_reads_the_trained_checkpoint(trained):
 
 def test_unported_training_options_raise(trained):
     root = trained["root"]
-    for extra, word in ((["--sc_lambda", "0.05"], "K3"),
-                        (["--ds_lambda", "1.0"], "DS"),
-                        (["--grad_accum", "2"], "grad_accum"),
-                        (["--sampling", "shuffle"], "shuffle")):
+    for extra, word in ((["--n_importance", "8"], "hierarchical"),
+                        (["--model", "nerf"], "K7")):
         with pytest.raises(NotImplementedError, match=word):
             cli_train.main(_argv(root, trained["data_dir"], trained["gt_dir"],
                                  4, "no", extra))
+
+
+FULL = ["--sc_lambda", "0.1", "--ds_lambda", "1000", "--ds_drop", "0.5"]
+
+
+@pytest.fixture(scope="module")
+def trained_full(tmp_path_factory):
+    """The paper's full recipe: solar correction and depth supervision on, on
+    an AOI with key points; ds_drop 0.5 of 24 steps puts the drop at step 12."""
+    root = tmp_path_factory.mktemp("train_full")
+    data_dir, gt_dir = make_synthetic_aoi(str(root / "aoi"), size=16,
+                                          with_keypoints=True, n_kp=40)
+    out = cli_train.main(_argv(root, data_dir, gt_dir, STEPS, "full", FULL))
+    return {"root": root, "data_dir": data_dir, "gt_dir": gt_dir, **out}
+
+
+def test_full_recipe_trains_logs_the_depth_loss_and_checkpoints(trained_full):
+    cfg, system = trained_full["cfg"], trained_full["system"]
+    assert system.depth and system.render_cfg.solar_correction
+    assert system.ds_drop_step == 12 and trained_full["state"].step == STEPS
+    assert cfg.sc_lambda == 0.1 and cfg.ds_lambda == 1000.0
+    rows = [r for r in _logged(cfg) if "train/loss" in r]
+    assert [r["step"] for r in rows] == list(range(4, STEPS + 1, 4))
+    assert all(np.isfinite(r["train/loss"]) and np.isfinite(r["train/loss_depth"])
+               for r in rows)
+    # depth supervision pulls the depth loss down while it is on
+    assert rows[2]["train/loss_depth"] < rows[0]["train/loss_depth"]
+    run_ckpts = os.path.join(cfg.ckpts_dir, cfg.exp_name)
+    assert sorted(os.listdir(run_ckpts)) == ["epoch=1.ckpt", "epoch=2.ckpt"]
+    with open(os.path.join(cfg.logs_dir, cfg.exp_name, "opts.json")) as f:
+        opts = json.load(f)
+    assert opts["sc_lambda"] == 0.1 and opts["ds_lambda"] == 1000.0
+    assert all(np.isfinite(v) for v in trained_full["metrics"].values())
+
+
+def test_full_recipe_resumes_and_is_read_by_the_jax_loader(trained_full, capsys):
+    cfg, root = trained_full["cfg"], trained_full["root"]
+    ckpt = os.path.join(cfg.ckpts_dir, cfg.exp_name, "epoch=2.ckpt")
+    out = cli_train.main(_argv(root, trained_full["data_dir"],
+                               trained_full["gt_dir"], RESUMED_STEPS,
+                               "full_resumed", FULL + ["--ckpt_path", ckpt]))
+    assert f"resumed from {ckpt} at step {STEPS}" in capsys.readouterr().out
+    assert out["state"].step == RESUMED_STEPS
+    rows = [r for r in _logged(out["cfg"]) if "train/loss" in r]
+    assert [r["step"] for r in rows] == [28] and "train/loss_depth" in rows[0]
+    # ds_drop_step follows the new max_train_steps: 0.5 * 30 = 15 <= 24
+    assert out["system"].ds_drop_step == 15
+
+    jparams = import_torch_checkpoint(ckpt, "sat-nerf", layers=4)
+    jcfg = JaxConfig(model="sat-nerf", fc_layers=4, fc_units=32, n_samples=8,
+                     chunk=512, fused="off", precision="float32")
+    jsys = JaxSystem(jcfg, dataset_len=jcfg.batch_size)
+    jparams = jax.tree_util.tree_map(jax.numpy.asarray, jparams)
+    system, params = load_nerf(cfg.exp_name, cfg.logs_dir, cfg.ckpts_dir, 2,
+                               device="cpu")
+    sample = SatelliteScene(cfg.root_dir, None, split="val").load_image(1)
+    rays = sample["rays"]
+    ts = np.full(rays.shape[0], 1, np.int32)
+    ref = jsys.render_image(jparams, rays, ts)
+    got = system.render_image(params, rays, ts)
+    for k in ("rgb_coarse", "depth_coarse"):
+        np.testing.assert_allclose(got[k], ref[k], atol=1e-4, err_msg=k)
+
+
+def test_depth_supervision_without_key_points_fails_at_the_dataset(trained):
+    with pytest.raises(FileNotFoundError, match="pts3d.npy"):
+        cli_train.main(_argv(trained["root"], trained["data_dir"],
+                             trained["gt_dir"], 4, "no", ["--ds_lambda", "1"]))

@@ -10,6 +10,12 @@ injected: with 3 steps an epoch they cross the beta switch-on (the 1-based
 counter puts it at step 2), an epoch boundary with its learning-rate drop
 (step 3) and a second one (step 6).
 
+A second trajectory runs the full recipe, solar correction and depth
+supervision on (sc_lambda 0.1, ds_lambda 1000, a depth set of its own with
+injected draws): its six steps cross the step where the depth term drops out
+(ds_drop_step 5: active while step + 1 < 5) and the beta switch-on (epoch 2,
+at step 5 by the 1-based counter).
+
 Tolerances: losses 2e-5; parameters 2e-5 absolute after each step. Adam
 divides the gradient by its running magnitude, so a gradient entry near
 zero can move its parameter by up to lr (1e-3) either way on a sign flip;
@@ -63,17 +69,19 @@ def _make_jax_step(system):
     use_ts = system.use_ts
 
     @jax.jit
-    def value_and_grad(params, rays, rgbs, ts, key, step):
+    def value_and_grad(params, rays, rgbs, ts, key, step, depth):
         def loss_fn(p):
             return system._loss_and_metrics(p, rays, rgbs,
-                                            ts if use_ts else None, key, step)
+                                            ts if use_ts else None, key, step,
+                                            *depth)
 
         return jax.value_and_grad(loss_fn, has_aux=True)(params)
 
-    def step_fn(params, opt_state, step, data, idx, key):
+    def step_fn(params, opt_state, step, data, idx, key, depth=()):
         rays, rgbs, ts = (jnp.asarray(a[idx]) for a in data)
         (loss, metrics), grads = value_and_grad(
-            params, rays, rgbs, ts, key, jnp.asarray(step, jnp.int32))
+            params, rays, rgbs, ts, key, jnp.asarray(step, jnp.int32),
+            tuple(jnp.asarray(a) for a in depth))
         updates, opt_state = system.tx.update(grads, opt_state, params)
         return (optax.apply_updates(params, updates), opt_state, float(loss),
                 metrics)
@@ -147,6 +155,102 @@ def test_trajectory_matches_jax_step(eight_devices, variant):
         lrs, [1e-3 * 0.9 ** e for e in (0, 1, 1, 1, 2, 2)], rtol=1e-9)
 
 
+N_DEPTH = 40
+KW_FULL = {**KW, "first_beta_epoch": 2, "sc_lambda": 0.1, "ds_lambda": 1000.0,
+           "ds_drop": 5 / 30}
+
+
+def _depth_data(rays, seed=3):
+    """Key-point rays: a subset of the color rays with a target depth inside
+    [near, far] and a weight in (0, 1]."""
+    rng = np.random.RandomState(seed)
+    d_rays = rays[rng.randint(0, N_DATA, N_DEPTH)].copy()
+    d_depths = np.stack([rng.uniform(0.2, 0.8, N_DEPTH),
+                         rng.uniform(0.3, 1.0, N_DEPTH)], -1).astype(np.float32)
+    d_ts = rng.randint(0, 5, N_DEPTH).astype(np.int32)
+    return d_rays, d_depths, d_ts
+
+
+def _depth_draws(step, key, d_rays):
+    """The depth batch's indices from numpy; its depths as the JAX render of
+    the depth rays draws them (the first of a 6-way split of k_depth)."""
+    d_idx = np.random.RandomState(300 + step).randint(0, N_DEPTH, B)
+    _, k_depth = jax.random.split(key)
+    k_z = jax.random.split(k_depth, 6)[0]
+    b = jnp.asarray(d_rays[d_idx])
+    z = jax_zvals(k_z, b[:, 6:7], b[:, 7:8], KW["n_samples"], 1.0, False)
+    return d_idx, np.array(z)
+
+
+@pytest.mark.parametrize("variant", ["sat-nerf", "s-nerf"])
+def test_full_recipe_trajectory_matches_jax_step(eight_devices, variant):
+    data = _data()
+    depth = _depth_data(data[0])
+    sys_j = JaxSystem(JaxConfig(model=variant, fused="off", **KW_FULL),
+                      dataset_len=N_DATA, depth_dataset_len=N_DEPTH)
+    sys_t = NeRFSystem(Config(model=variant, **KW_FULL), device="cpu",
+                       dataset_len=N_DATA)
+    assert sys_j.ds_drop_step == sys_t.ds_drop_step == 5
+    assert sys_t.depth and sys_t.render_cfg.solar_correction
+    params = sys_j.init_params(jax.random.PRNGKey(0))
+    opt_state = sys_j.tx.init(params)
+    _jax_step = _make_jax_step(sys_j)
+
+    def jax_step(params, opt_state, step):
+        idx, key, z = _draws(step, data[0])
+        d_idx, d_z = _depth_draws(step, key, depth[0])
+        out = _jax_step(params, opt_state, step, data, idx, key,
+                        tuple(a[d_idx] for a in depth))
+        return out, (idx, z, d_idx, d_z)
+
+    step = 0
+    for _ in range(2):
+        (params, opt_state, _, _), _ = jax_step(params, opt_state, step)
+        step += 1
+
+    state = sys_t.init_state(torch.Generator().manual_seed(0))
+    state.params.load_state_dict(
+        params_from_jax(jax.device_get(params), variant, LAYERS))
+    adam = opt_state[0]
+    adam_from_jax(state.optimizer, state.params, jax.device_get(adam.mu),
+                  jax.device_get(adam.nu), int(adam.count), variant, LAYERS)
+    state.step = step
+    t_data = {"rays": torch.from_numpy(data[0]),
+              "rgbs": torch.from_numpy(data[1]),
+              "ts": torch.from_numpy(data[2]).long(),
+              "d_rays": torch.from_numpy(depth[0]),
+              "d_depths": torch.from_numpy(depth[1]),
+              "d_ts": torch.from_numpy(depth[2]).long()}
+
+    totals = []
+    for _ in range(6):
+        (params, opt_state, loss_j, m_j), (idx, z, d_idx, d_z) = jax_step(
+            params, opt_state, step)
+        m_t = sys_t.train_step(
+            state, t_data, idx=torch.from_numpy(idx), z_vals=torch.from_numpy(z),
+            d_idx=torch.from_numpy(d_idx), d_z_vals=torch.from_numpy(d_z))
+        step += 1
+        # "loss" is the loss with SC and before DS; "loss_total" has both
+        np.testing.assert_allclose(float(m_t["loss"]), float(m_j["loss"]),
+                                   atol=2e-5, err_msg=f"loss at {step - 1}")
+        np.testing.assert_allclose(float(m_t["loss_depth"]),
+                                   float(m_j["loss_depth"]), rtol=2e-5,
+                                   err_msg=f"loss_depth at {step - 1}")
+        np.testing.assert_allclose(float(m_t["loss_total"]), loss_j, rtol=2e-5,
+                                   atol=2e-5)
+        totals.append(float(m_t["loss_total"]) - float(m_t["loss"]))
+        want = params_from_jax(jax.device_get(params), variant, LAYERS)
+        got = state.params.state_dict()
+        for name, ref in want.items():
+            np.testing.assert_allclose(
+                got[name].numpy(), ref.numpy(), atol=2e-5,
+                err_msg=f"{name} after step {step - 1}")
+    # steps 2..7: the depth term is in the total at steps 2 and 3 only
+    assert all(t > 0 for t in totals[:2]) and totals[2:] == [0.0] * 4
+    if variant == "sat-nerf":
+        assert [sys_t.beta_gate(s) for s in range(2, 8)] == [0, 0, 0, 1, 1, 1]
+
+
 def test_adam_state_round_trips_through_a_checkpoint(tmp_path):
     from satnerf_tpu_torch.train.checkpoints import (load_checkpoint,
                                                      save_checkpoint)
@@ -200,13 +304,14 @@ def test_train_step_draws_and_options():
     assert system._noise_std(0) == 1.0 and abs(system._noise_std(2) - 0.81) < 1e-12
     assert NeRFSystem(Config(model="sat-nerf", **KW), "cpu")._noise_std(5) is None
 
-    for kw, word in ((dict(sc_lambda=0.05), "K3"), (dict(ds_lambda=1.0), "K4"),
-                     (dict(grad_accum=2), "grad_accum"),
-                     (dict(sampling="shuffle"), "shuffle"),
-                     (dict(n_importance=8), "hierarchical"),
+    for kw, word in ((dict(n_importance=8), "hierarchical"),
                      (dict(model="nerf"), "K7")):
         s = NeRFSystem(Config(**{**KW, **kw}), device="cpu", dataset_len=N_DATA)
         with pytest.raises(NotImplementedError, match=word):
             s._check_supported(train=True)
+    for kw in (dict(sc_lambda=0.05), dict(ds_lambda=1.0), dict(grad_accum=2),
+               dict(sampling="shuffle")):  # these train now
+        NeRFSystem(Config(**{**KW, **kw}), device="cpu",
+                   dataset_len=N_DATA)._check_supported(train=True)
     assert NeRFSystem(Config(device="cpu")).device.type == "cpu"
     assert NeRFSystem(Config()).device.type == "cuda"  # the card by default

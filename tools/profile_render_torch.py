@@ -8,13 +8,16 @@ bench.py) with a seeded sat-nerf 8 x 512 field at 64 samples, bf16, chunk
 
 Training (--train): the same field, a device-resident dataset of N random
 rays, batch 1024: 20 warm-up steps, three timed runs of 50 steps (steps/s,
-rays/s), then 10 profiled steps.
+rays/s), then 10 profiled steps. --sc_lambda and --ds_lambda turn on the
+solar-correction pass and the depth-supervision pass (a depth set of 4,096
+of the rays with random targets; the depth term stays active throughout),
+the full recipe's step.
 
 Prints the card, the wall time, the summed device kernel time, the idle
 share, and the kernels by device time.
 
   python3 tools/profile_render_torch.py [--rays N] [--chunk C] [--train]
-      [--batch B]
+      [--batch B] [--sc_lambda L] [--ds_lambda L]
 """
 
 import argparse
@@ -40,7 +43,7 @@ def report(prof, wall_ms: float, card: str, what: str) -> None:
     busy = sum(r[0] for r in rows)
     print(f"{what}: profiled wall {wall_ms:.1f} ms, device kernel time "
           f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.3f} on {card}")
-    for ms, count, key in rows[:18]:
+    for ms, count, key in rows[:22]:
         print(f"{ms:10.2f} ms {count:5d}x  {key[:110]}")
 
 
@@ -51,6 +54,11 @@ def profile_train(system, rays, ts, batch: int, card: str) -> None:
             "rgbs": torch.from_numpy(rng.rand(rays.shape[0], 3)
                                      .astype(np.float32)).to(dev),
             "ts": torch.from_numpy(ts.astype(np.int64)).to(dev)}
+    if system.depth:
+        data.update(d_rays=data["rays"][:4096].clone(),
+                    d_depths=torch.from_numpy(
+                        rng.rand(4096, 2).astype(np.float32)).to(dev),
+                    d_ts=data["ts"][:4096].clone())
     state = system.init_state(torch.Generator().manual_seed(0))
     gen = torch.Generator(device=dev).manual_seed(1)
     for _ in range(20):
@@ -82,6 +90,8 @@ def main():
     ap.add_argument("--train", action="store_true",
                     help="profile train_step in place of render_image")
     ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--sc_lambda", type=float, default=0.0)
+    ap.add_argument("--ds_lambda", type=float, default=0.0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_render_torch: needs an NVIDIA GPU")
@@ -92,7 +102,8 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     cfg = Config(model="sat-nerf", fc_layers=8, fc_units=512, n_samples=64,
-                 chunk=args.chunk, batch_size=args.batch, first_beta_epoch=0)
+                 chunk=args.chunk, batch_size=args.batch, first_beta_epoch=0,
+                 sc_lambda=args.sc_lambda, ds_lambda=args.ds_lambda, ds_drop=1.0)
     system = NeRFSystem(cfg, dataset_len=args.rays)
     params = system.init_params(torch.Generator().manual_seed(0))
     rng = np.random.RandomState(0)
