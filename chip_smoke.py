@@ -43,6 +43,29 @@ plain version):
      its serving launches, loss_depth logged and finite, the loss falling;
      then short runs with --grad_accum 2 (and sigma noise) and with
      --sampling shuffle
+  2d (run after 2c) the per-sample field: fused_field_apply_rays (K5) and
+     fused_field_apply (K6) against their plain versions at 8 x 512, sat-nerf
+     and s-nerf, fp32 and bf16, 1024 and 1000 + 37 rays, 64, 72 and 128
+     samples a ray (K6: 65,536 + 37 points): every output, and from a random
+     (P, 16) cotangent every gradient, the t-gradient and K6's xyz and sun
+     gradients; every launch of both chains alone, field_heads and
+     field_heads_bwd among them; K1, K2 and K3 once each at 72 and 128
+     samples, which the earlier phases never gave them; then the two new
+     kernels alone at 1,024 x 128 points: time, plain time, bound
+  6  hierarchical sampling through the entry points, on phase 5's AOI:
+     cli.train --n_importance 64 --sc_lambda 0.1 --ds_lambda 1000 at the same
+     sizes across an epoch boundary, the beta switch-on and the depth term's
+     drop, every kernel's launches checked against the step count (the
+     per-ray loss and solar-correction kernels twice a step, field_heads
+     twice a step, field_heads_bwd twice an active step, composite_bwd
+     never); validation through the two-launch serving dispatch; resume;
+     create_pretty_dsm on the trained checkpoint; render_image on 262,144
+     rays with its peak memory; then a short --fused on --n_importance 8 run
+     (K6 under the trainer and the server) and a short --fused off run that
+     must launch no kernel
+
+No earlier phase was cut when phases 2d and 6 came: the whole run stays
+well inside half its time limit.
 
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Scratch files go to build/chip_smoke/.
@@ -65,11 +88,16 @@ WORK = os.path.join(REPO, "build", "chip_smoke")
 TRAIN_KERNELS = ("siren_dense", "composite_loss_bwd", "siren_dense_dgrad",
                  "siren_dense_wgrad")
 AUX_KERNELS = ("sc_loss_bwd", "composite_bwd")  # first launched by phase 5's path
+FIELD_KERNELS = ("field_heads", "field_heads_bwd")  # and these by phase 6's
 TPU_KERNEL = {"render": "satnerf_tpu/ops/pallas/fused_mlp.py:1035",
               "train": "satnerf_tpu/ops/pallas/fused_mlp.py:1536",
               "sc": "satnerf_tpu/ops/pallas/fused_mlp.py:1638",
               "train_render": "satnerf_tpu/ops/pallas/fused_mlp.py:1290",
-              "train_render_bwd": "satnerf_tpu/ops/pallas/fused_mlp.py:1312"}
+              "train_render_bwd": "satnerf_tpu/ops/pallas/fused_mlp.py:1312",
+              "field_rays": "satnerf_tpu/ops/pallas/fused_mlp.py:635",
+              "field_rays_bwd": "satnerf_tpu/ops/pallas/fused_mlp.py:657",
+              "field_points": "satnerf_tpu/ops/pallas/fused_mlp.py:356",
+              "field_points_bwd": "satnerf_tpu/ops/pallas/fused_mlp.py:526"}
 KERNELS = {  # name -> (source in the repo, the TPU kernels it replaces)
     "siren_dense": ("satnerf_tpu_torch/csrc/fused_render.cu", "render"),
     # with sigma noise it is also the forward of the training render
@@ -81,6 +109,10 @@ KERNELS = {  # name -> (source in the repo, the TPU kernels it replaces)
     "sc_loss_bwd": ("satnerf_tpu_torch/csrc/fused_aux.cu", "sc"),
     "composite_bwd": ("satnerf_tpu_torch/csrc/fused_train.cu",
                       "train_render_bwd"),
+    "field_heads": ("satnerf_tpu_torch/csrc/fused_field.cu", "field_rays",
+                    "field_points"),
+    "field_heads_bwd": ("satnerf_tpu_torch/csrc/fused_field.cu",
+                        "field_rays_bwd", "field_points_bwd"),
 }
 LAYERS, FEAT, SAMPLES, TAU = 8, 512, 64, 4
 BATCH = 1024  # rays a training step draws (--batch_size default)
@@ -88,6 +120,7 @@ BATCH = 1024  # rays a training step draws (--batch_size default)
 # the yardsticks of the bound_ms column.
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 N_RAYS = 8192 + 37
+N_IMPORTANCE = 64  # phase 6: the fine pass marches SAMPLES + N_IMPORTANCE depths
 CHUNK = 65536  # rays a render_image chunk holds (--chunk default)
 DEPTH_RANGE = 1.0  # far - near of the phase 2 rays
 
@@ -120,6 +153,9 @@ K1_STAGE_TOL = 1e-3
 K1_GRAD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 K1_PART_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 K1_RAYS = (1024, 1000 + 37)
+# K5 and K6 are held as K4 is: each launch alone to K1_STAGE_TOL, the outputs
+#   to K2_TOL (of the tensor's largest entry where that is above 1: sigma and
+#   beta are not bounded by 1), every gradient to K1_GRAD_TOL.
 # K3 and K4 are held as K1 is: each launch alone to K1_STAGE_TOL, the whole
 #   chain against autograd through the field module to K1_GRAD_TOL on every
 #   gradient (and exactly 0 where autograd has 0: the heads K3 leaves out),
@@ -173,7 +209,7 @@ def _cuda_ms(fn, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _inputs(n_rays: int, seed: int, device):
+def _inputs(n_rays: int, seed: int, device, samples: int = SAMPLES):
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -186,7 +222,7 @@ def _inputs(n_rays: int, seed: int, device):
     near, far = torch.zeros(n_rays, 1), torch.ones(n_rays, 1)
     from satnerf_tpu_torch.render.sampling import stratified_zvals
 
-    z = stratified_zvals(g, near, far, SAMPLES, perturb=1.0)
+    z = stratified_zvals(g, near, far, samples, perturb=1.0)
     return [x.to(device) for x in (o, d, sun, t, z)]
 
 
@@ -243,11 +279,14 @@ class TrainCheck:
 
     def __init__(self, dtype):
         self.bf16 = str(dtype).endswith("bfloat16")
-        self.err = dict.fromkeys(TRAIN_KERNELS + AUX_KERNELS
+        self.err = dict.fromkeys(TRAIN_KERNELS + AUX_KERNELS + FIELD_KERNELS
                                  + ("heads_composite",), 0.0)
         self.bad = []
 
-    def _hold(self, kernel, what, got, ref, tol_rel_max, elementwise=False):
+    def _hold(self, kernel, what, got, ref, tol_rel_max, elementwise=False,
+              terms: int = 1):
+        """terms: how many products of a rounded cotangent the entry sums
+        (d_r sums three, one a color channel)."""
         if ref is None:
             return
         got, ref = got.float(), ref.float()
@@ -257,6 +296,10 @@ class TrainCheck:
         lim = tol_rel_max * scale
         if elementwise and self.bf16:  # one bf16 rounding step of the entry
             lim = lim + 2.0 ** -7 * ref.abs()
+            if terms > 1:
+                # or of one of its terms, which the entry may be smaller
+                # than: a step of the tensor's largest entry at most
+                lim = lim + 2.0 ** -8 * scale
         if bool((diff > lim).any()):
             self.bad.append(f"{kernel} {what}: max err {diff.max().item():.3g} "
                             f"(tensor max {scale.item():.3g})")
@@ -312,6 +355,25 @@ class TrainCheck:
         for k in ref:
             self._hold("sc_loss_bwd", k, out[k], ref[k], K1_STAGE_TOL,
                        elementwise=k.startswith("d_"))
+        return out
+
+    def field_heads(self, *args, **kw):
+        from satnerf_tpu_torch.ops import fused_mlp as FM
+
+        out = FM.field_heads(*args, **kw)
+        ref = FM.field_heads_reference(*args, **kw)
+        self._hold("field_heads", "outputs", out, ref, 1e-4)
+        return out
+
+    def field_heads_bwd(self, *args, **kw):
+        from satnerf_tpu_torch.ops import fused_mlp as FM
+
+        out = FM.field_heads_bwd(*args, **kw)
+        ref = FM.field_heads_bwd_reference(*args, **kw)
+        for k in ref:
+            self._hold("field_heads_bwd", k, out[k], ref[k], K1_STAGE_TOL,
+                       elementwise=k.startswith("d_"),
+                       terms=3 if k == "d_r" else 1)
         return out
 
     def heads(self, *args, **kw):
@@ -469,6 +531,28 @@ def _time_kernels(packed: dict, dev) -> dict:
         lambda: FM.heads_composite_reference(*hargs, noise=noise), None,
         _nbytes(*hargs, noise) + BATCH * 16 * 4, 2.0 * p * (FEAT + 5 * fh))
     out["heads_composite"].update({f"train_{k}": v for k, v in t_entry.items()})
+    del h, hs, skyh, cargs, gargs, sargs, hargs, wargs, args
+
+    # ---- the per-sample field's kernels, at the fine pass of a hierarchical
+    # depth batch: BATCH rays x (SAMPLES + N_IMPORTANCE) points
+    n_s = SAMPLES + N_IMPORTANCE
+    p = BATCH * n_s
+    h = rand(p, FEAT)
+    hs = [rand(p, fh) for _ in range(3)]
+    skyh = rand(BATCH, fh).abs()
+    cot = rand(p, 16, to=torch.float32)
+    fargs = (h, *hs, skyh, packed["wn"], packed["bn"], n_s)
+    out["field_heads"] = entry(
+        lambda: FM.field_heads(*fargs),
+        lambda: FM.field_heads_reference(*fargs), None,
+        _nbytes(*fargs[:-1]) + p * 16 * 4, 2.0 * p * (FEAT + 5 * fh))
+    # forward again, the rows of dWn, the cotangents of h, r, s2 and bh
+    out["field_heads_bwd"] = entry(
+        lambda: FM.field_heads_bwd(*fargs, cot),
+        lambda: FM.field_heads_bwd_reference(*fargs, cot), None,
+        _nbytes(*fargs[:-1], cot) + (p * (FEAT + 3 * fh) + BATCH * fh + 9 * FEAT
+                                     + 9) * 4,
+        6.0 * p * (FEAT + 5 * fh))
     return out
 
 
@@ -781,6 +865,241 @@ def phase2c(results: dict):
             f"library call none, bound {e['bound_ms']:.3f} ms ({e['bound_by']})")
     if failures:
         raise SystemExit("phase 2c failed:\n  " + "\n  ".join(failures))
+
+
+FIELD_COLS = {"rgb": slice(0, 3), "sigma": 3, "sun_v": slice(4, 5),
+              "sky_rgb": slice(5, 8), "beta": slice(8, 9)}
+# (variant, rays, samples a ray): both ray counts and all three sample counts
+# for sat-nerf, the ragged pair for s-nerf
+FIELD_CASES = (("sat-nerf", K1_RAYS[0], 64), ("sat-nerf", K1_RAYS[1], 72),
+               ("sat-nerf", K1_RAYS[0], 128), ("s-nerf", K1_RAYS[1], 128))
+K6_POINTS = 65536 + 37
+
+
+def _field_vjp(fn, field, inputs: dict, cot, names, kw):
+    """fn's per-sample outputs and, from the (P, 16) cotangent, the gradients
+    of the field's parameters and of every input in `inputs` that is a leaf."""
+    import torch
+
+    leaves = {k: v.clone().requires_grad_(True) for k, v in inputs.items()}
+    out = fn(field, leaves, **kw)
+    total = sum((v * cot[:, FIELD_COLS[k]].reshape(v.shape)).sum()
+                for k, v in out.items())
+    gr = torch.autograd.grad(total, list(field.parameters())
+                             + list(leaves.values()), allow_unused=True)
+    return ({k: v.detach() for k, v in out.items()},
+            dict(zip(names + [f"d_{k}" for k in leaves], gr)))
+
+
+def _off_the_kink(field, sun, cot, samples: int, dtype):
+    """The cotangent with its sky columns zeroed for the rays (of `samples`
+    points each) that have a sky_0 pre-activation within 1e-5 of 0. The
+    kernels and the plain version sum that pre-activation in another order
+    and may land on either side of relu's kink, where the gradient jumps;
+    among the 16.8 M hidden units of 65,573 points a few always do."""
+    lin = field.sky_color[0]
+    pre = (sun.to(dtype).float() @ lin.weight.detach().to(dtype).float().t()
+           + lin.bias.detach().float())
+    near = (pre.abs() < 1e-5).any(1).repeat_interleave(samples)
+    cot = cot.clone()
+    cot[near, 5:8] = 0.0
+    return cot
+
+
+def _hold_field(failures, tag, got, ref, dname) -> tuple:
+    """Outputs to K2_TOL, gradients to K1_GRAD_TOL; (worst output error,
+    (worst gradient, its error))."""
+    out, grads = got
+    r_out, r_grads = ref
+    worst_out = 0.0
+    if set(out) != set(r_out):
+        failures.append(f"{tag}: outputs differ: {sorted(out)}")
+    for k, r in r_out.items():
+        e = (out[k] - r).abs().max().item()
+        worst_out = max(worst_out, e)
+        lim = K2_TOL[dname] * max(1.0, r.abs().max().item())
+        if out[k].shape != r.shape or not e <= lim:
+            failures.append(f"{tag} {k}: {e:.3g} > {lim:.3g}")
+    return worst_out, _hold_grads(failures, tag, grads, r_grads,
+                                  K1_GRAD_TOL[dname])
+
+
+def phase2d(results: dict):
+    """K5 and K6 against their plain versions on the card; K1, K2 and K3 at
+    72 and 128 samples a ray."""
+    import torch
+
+    from satnerf_tpu_torch.models.nerf import build_model
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+
+    dev = torch.device("cuda:0")
+    failures = []
+    before = dict(FM.LAUNCHES)
+
+    def stage_errors(chk, tag, dname):
+        failures.extend(f"{tag}: {b}" for b in chk.bad)
+        for k, e in chk.err.items():
+            key = (k, dname)
+            results["err"][key] = max(results["err"].get(key, 0.0), e)
+
+    for variant, n_rays, n_s in FIELD_CASES:
+        use_beta = variant == "sat-nerf"
+        field = build_model(variant, LAYERS, FEAT, t_dim=TAU,
+                            generator=torch.Generator().manual_seed(1)).to(dev)
+        names = [n for n, _ in field.named_parameters()]
+        o, d, sun, t, z = _inputs(n_rays, 9, dev, n_s)
+        g = torch.Generator().manual_seed(10)
+        cot = torch.randn(n_rays * n_s, 16, generator=g).to(dev)
+        xyz = (torch.rand(K6_POINTS, 3, generator=g) - 0.5).to(dev)
+        sun_p = torch.nn.functional.normalize(
+            torch.randn(K6_POINTS, 3, generator=g)).to(dev)
+        t_p = torch.randn(K6_POINTS, TAU, generator=g).to(dev)
+        cot_p = torch.randn(K6_POINTS, 16, generator=g).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            kw = dict(layers=LAYERS, feat=FEAT, skip=4, use_beta=use_beta,
+                      tau=TAU, dtype=dtype)
+            tag = f"{variant} R={n_rays} S={n_s} {dname}"
+            chk = TrainCheck(dtype)
+            packed = FM.pack_params(field, skip=4, use_beta=use_beta, dtype=dtype)
+            cot5 = _off_the_kink(field, sun, cot, n_s, dtype)
+            cot6 = _off_the_kink(field, sun_p, cot_p, 1, dtype)
+
+            # ---- K5 whole, then every launch of its chain
+            def k5(fn):
+                return _field_vjp(
+                    lambda f, lv, **k: fn(f, o, d, sun, lv.get("t"), z, **k),
+                    field, {"t": t} if use_beta else {}, cot5, names, kw)
+
+            got5, ref5 = (k5(FM.fused_field_apply_rays),
+                          k5(FM.fused_field_apply_rays_reference))
+            torch.cuda.synchronize()
+            out5, worst5 = _hold_field(failures, f"K5 {tag}", got5, ref5, dname)
+            with torch.no_grad():
+                rays16 = FM.pack_rays(o, d, sun, t if use_beta else None, TAU)
+                a = FM._chain_forward(packed, rays16, z, skip=4,
+                                      use_beta=use_beta, ops=chk)
+                nargs = (a["h"], a["r"], a["s2"], a["bh"], a["skyh"],
+                         packed["wn"], packed["bn"], n_s)
+                chk.field_heads(*nargs)
+                c = chk.field_heads_bwd(*nargs, cot)
+                FM._chain_backward(packed, a, c, rays16, z, skip=4,
+                                   use_beta=use_beta, ops=chk)
+                del a, c, nargs
+            torch.cuda.synchronize()
+            k5_ms = _cuda_ms(lambda: k5(FM.fused_field_apply_rays))
+            k5_plain = _cuda_ms(lambda: k5(FM.fused_field_apply_rays_reference))
+            del got5, ref5
+
+            # ---- K6 on points that are their own rays, with the input gradients
+            def k6(fn):
+                ins = {"xyz": xyz, "sun": sun_p}
+                if use_beta:
+                    ins["t"] = t_p
+                return _field_vjp(
+                    lambda f, lv, **k: fn(f, lv["xyz"], lv["sun"], lv.get("t"),
+                                          **k),
+                    field, ins, cot6, names, kw)
+
+            got6, ref6 = k6(FM.fused_field_apply), k6(FM.fused_field_apply_reference)
+            torch.cuda.synchronize()
+            out6, worst6 = _hold_field(failures, f"K6 {tag}", got6, ref6, dname)
+            for k in ("d_xyz", "d_sun") + (("d_t",) if use_beta else ()):
+                if got6[1].get(k) is None:
+                    failures.append(f"K6 {tag}: no gradient for {k}")
+            with torch.no_grad():
+                zero3 = torch.zeros_like(xyz)
+                rays16 = FM.pack_rays(xyz, zero3, sun_p,
+                                      t_p if use_beta else None, TAU)
+                z1 = torch.zeros((K6_POINTS, 1), device=dev)
+                a = FM._chain_forward(packed, rays16, z1, skip=4,
+                                      use_beta=use_beta, ops=chk)
+                nargs = (a["h"], a["r"], a["s2"], a["bh"], a["skyh"],
+                         packed["wn"], packed["bn"], 1)
+                chk.field_heads(*nargs)
+                c = chk.field_heads_bwd(*nargs, cot_p)
+                FM._chain_backward(packed, a, c, rays16, z1, skip=4,
+                                   use_beta=use_beta, ops=chk, input_grads={})
+                del a, c, nargs
+            torch.cuda.synchronize()
+            stage_errors(chk, tag, dname)
+            k6_ms = _cuda_ms(lambda: k6(FM.fused_field_apply))
+            k6_plain = _cuda_ms(lambda: k6(FM.fused_field_apply_reference))
+            del got6, ref6
+            log(f"phase 2d: {tag}: K5 forward + backward kernels {k5_ms:.2f} ms, "
+                f"plain {k5_plain:.2f} ms; outputs max {out5:.1e}; worst gradient "
+                f"{worst5[0]} {worst5[1]:.1e}. K6 at {K6_POINTS} points kernels "
+                f"{k6_ms:.2f} ms, plain {k6_plain:.2f} ms; outputs max {out6:.1e}; "
+                f"worst gradient {worst6[0]} {worst6[1]:.1e}; per launch "
+                + ", ".join(f"{k} {chk.err[k]:.1e}" for k in FIELD_KERNELS))
+            results["k56"][(variant, n_rays, n_s, dname)] = (k5_ms, k5_plain,
+                                                             k6_ms, k6_plain)
+
+    # ---- K2, K1 and K3 off 64 samples a ray: sat-nerf, ragged rays
+    field = build_model("sat-nerf", LAYERS, FEAT, t_dim=TAU,
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+    for n_s, dtype in ((72, torch.float32), (128, torch.bfloat16),
+                       (72, torch.bfloat16)):
+        dname = str(dtype).split(".")[-1]
+        n_rays = K1_RAYS[1]
+        o, d, sun, t, z = _inputs(n_rays, 11, dev, n_s)
+        g = torch.Generator().manual_seed(12)
+        gt = torch.rand(n_rays, 3, generator=g).to(dev)
+        noise = torch.randn(n_rays, n_s, generator=g).to(dev)
+        kw = dict(layers=LAYERS, feat=FEAT, skip=4, use_beta=True, tau=TAU,
+                  dtype=dtype)
+        tag = f"S={n_s} R={n_rays} {dname}"
+        with torch.inference_mode():
+            out = FM.fused_render_rays(field, o, d, sun, t, z,
+                                       return_weights=True, **kw)
+            ref = FM.fused_render_rays_reference(field, o, d, sun, t, z,
+                                                 return_weights=True, **kw)
+        e2 = max((out[k] - ref[k]).abs().max().item() for k in ref)
+        if not e2 <= K2_TOL[dname]:
+            failures.append(f"K2 {tag}: {e2:.3g}")
+        args = (field, o, d, sun, t, z, noise, gt, 1.0)
+        out = FM.fused_train_loss_grads(*args, return_weights=True, **kw)
+        ref = FM.fused_train_loss_grads_reference(*args, return_weights=True,
+                                                  **kw)
+        for k in ref[0]:
+            e = abs(out[0][k].item() - ref[0][k].item()) / max(
+                abs(ref[0][k].item()), 1e-6)
+            if not e <= K1_PART_TOL[dname]:
+                failures.append(f"K1 {tag} part {k}: {e:.3g}")
+        worst1 = _hold_grads(failures, f"K1 {tag}", out[1], ref[1],
+                             K1_GRAD_TOL[dname])
+        e_w = (out[3] - ref[3]).abs().max().item()
+        if not (_rel_err(out[2], ref[2]) <= K1_GRAD_TOL[dname]
+                and e_w <= K2_TOL[dname]):
+            failures.append(f"K1 {tag}: t_grad or weights off ({e_w:.3g})")
+        sc_args = (field, o, sun, t, z, noise, 0.1)
+        parts, grads = FM.fused_sc_loss_grads(*sc_args, **kw)
+        r_parts, r_grads = FM.fused_sc_loss_grads_reference(*sc_args, **kw)
+        for k in r_parts:
+            e = abs(parts[k].item() - r_parts[k].item()) / max(
+                abs(r_parts[k].item()), 1e-6)
+            if not e <= K1_PART_TOL[dname]:
+                failures.append(f"K3 {tag} {k}: {e:.3g}")
+        worst3 = _hold_grads(failures, f"K3 {tag}", grads, r_grads,
+                             K1_GRAD_TOL[dname])
+        torch.cuda.synchronize()
+        log(f"phase 2d: {tag}: K2 products max {e2:.1e}; K1 worst gradient "
+            f"{worst1[0]} {worst1[1]:.1e}, weights {e_w:.1e}; K3 worst gradient "
+            f"{worst3[0]} {worst3[1]:.1e}")
+        del out, ref
+
+    grown = {k: FM.LAUNCHES[k] - before[k] for k in FIELD_KERNELS}
+    if not all(v > 0 for v in grown.values()):
+        failures.append(f"launch counters did not grow: {grown}")
+    times = results["times"]
+    for name in FIELD_KERNELS:
+        e = times[name]
+        log(f"phase 2d: {name} bf16 at the fine pass of a depth batch ({BATCH} "
+            f"rays x {SAMPLES + N_IMPORTANCE}): kernel {e['ms']:.3f} ms, plain "
+            f"{e['plain_ms']:.3f} ms, library call none, bound "
+            f"{e['bound_ms']:.3f} ms ({e['bound_by']})")
+    if failures:
+        raise SystemExit("phase 2d failed:\n  " + "\n  ".join(failures))
 
 
 def phase3(results: dict, card: str):
@@ -1161,6 +1480,256 @@ def phase5(results: dict, card: str):
         f"{rows[-1]['train/loss']:.4f}, launches {launches}")
 
 
+HIER_STEPS, HIER_RESUME, HIER_DROP = 72, 80, 0.75
+ON_IMPORTANCE = 8  # the --fused on run's resampled depths a ray
+
+
+def phase6(results: dict, card: str):
+    """Hierarchical sampling through the entry points: the two-launch
+    dispatch of the trainer and the server, the depth pass over K5, then
+    --fused on (K6) and --fused off."""
+    import torch
+
+    from satnerf_tpu_torch.cli import train as cli_train
+    from satnerf_tpu_torch.cli.create_dsm import create_pretty_dsm
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+
+    aoi = os.path.join(WORK, "aoi_kp")  # phase 5's, with its tie points
+    logs, ckpts = os.path.join(WORK, "hier_logs"), os.path.join(WORK, "hier_ckpts")
+
+    def argv(steps, name, n_imp, extra=()):
+        return ["--root_dir", os.path.join(aoi, "data"),
+                "--gt_dir", os.path.join(aoi, "gt"), "--model", "sat-nerf",
+                "--exp_name", name, "--fc_layers", str(LAYERS),
+                "--fc_units", str(FEAT), "--n_samples", str(SAMPLES),
+                "--n_importance", str(n_imp),
+                "--batch_size", str(BATCH), "--chunk", str(CHUNK),
+                "--max_train_steps", str(steps), "--first_beta_epoch", "1",
+                "--save_every_n_epochs", "1", "--num_sanity_val_steps", "1",
+                "--log_every_n_steps", str(LOG_EVERY), "--logs_dir", logs,
+                "--ckpts_dir", ckpts, "--sc_lambda", "0.1", "--ds_lambda",
+                "1000", "--ds_drop", str(HIER_DROP), *extra]
+
+    def run(steps, name, n_imp, extra=()):
+        FM.reset_launches()
+        t0 = time.perf_counter()
+        out = cli_train.main(argv(steps, name, n_imp, extra))
+        torch.cuda.synchronize()
+        return out, dict(FM.LAUNCHES), time.perf_counter() - t0
+
+    def fail(msg):
+        raise SystemExit(f"phase 6 failed: {msg}")
+
+    # ---- the main run: rays mode, 64 + 64 samples, SC and DS
+    hier, launches, train_s = run(HIER_STEPS, "smoke_hier", N_IMPORTANCE)
+    cfg, system = hier["cfg"], hier["system"]
+    spe, drop = system.spe, system.ds_drop_step
+    if (system.device.type != "cuda" or system.compute_dtype != torch.bfloat16
+            or system.fused_mode != "rays"):
+        fail(f"trained on {system.device} in {system.compute_dtype}, mode "
+             f"{system.fused_mode}: not on the card in bf16 through the per-ray "
+             f"kernels")
+    if not (spe < drop < HIER_STEPS and drop == round(HIER_DROP * HIER_STEPS)):
+        fail(f"{HIER_STEPS} steps, {spe} an epoch, depth term dropping at {drop}: "
+             f"the run must cross an epoch boundary and then the drop")
+    active = drop - 1  # steps 0 .. drop - 2: step + 1 < ds_drop_step
+    # a step: the loss chain (15 forward, 13 dgrad, 15 wgrad launches) and the
+    # solar-correction chain (12, 11, 12) once a model, and the depth render
+    # over the ray-mode field once a model (15 forward; 13 and 15 backward
+    # while the depth term is on). A served chunk: 15 forward launches a model.
+    n = HIER_STEPS
+    want = {"composite_loss_bwd": 2 * n, "sc_loss_bwd": 2 * n,
+            "field_heads": 2 * n, "field_heads_bwd": 2 * active,
+            "composite_bwd": 0,
+            "siren_dense_dgrad": (26 + 22) * n + 26 * active,
+            "siren_dense_wgrad": (30 + 24) * n + 30 * active}
+    for k, v in want.items():
+        if launches[k] != v:
+            fail(f"{k} launched {launches[k]} times in {n} steps "
+                 f"({active} with the depth term), expected {v}")
+    served, rest = divmod(launches["siren_dense"] - 84 * n, 30)
+    if rest or served < 1 or launches["heads_composite"] != 2 * served:
+        fail(f"heads_composite launched {launches['heads_composite']} times for "
+             f"{served} served chunks of two models (siren_dense "
+             f"{launches['siren_dense']})")
+    results["launches_hier"] = launches
+
+    rows = _train_rows(logs, cfg.exp_name)
+    if not all("train/loss_depth" in r and np.isfinite(r["train/loss_depth"])
+               and np.isfinite(r["train/loss"]) for r in rows):
+        fail("loss or loss_depth missing or not finite")
+    gate_off = [r for r in rows if system.beta_gate(r["step"] - 1) == 0.0]
+    gate_on = [r for r in rows if system.beta_gate(r["step"] - 1) == 1.0]
+    on_rows = [r for r in rows if r["step"] < drop]
+    if not gate_off or not gate_on:
+        fail("the run did not cross the beta switch-on")
+    falls = (gate_off[-1]["train/loss"] < gate_off[0]["train/loss"]
+             and gate_on[-1]["train/loss"] < gate_on[0]["train/loss"]
+             and on_rows[-1]["train/loss_depth"] < on_rows[0]["train/loss_depth"]
+             and rows[-1]["train/psnr"] > rows[0]["train/psnr"])
+    log(f"phase 6: cli.train --n_importance {N_IMPORTANCE} --sc_lambda 0.1 "
+        f"--ds_lambda 1000, {n} steps ({spe} an epoch, depth term off from step "
+        f"{drop}) in {train_s:.1f} s with validation; loss (coarse + fine) "
+        f"{gate_off[0]['train/loss']:.4f} -> {gate_off[-1]['train/loss']:.4f} "
+        f"(MSE + SC), {gate_on[0]['train/loss']:.4f} -> "
+        f"{gate_on[-1]['train/loss']:.4f} (beta loss on); loss_depth "
+        f"{on_rows[0]['train/loss_depth']:.3f} -> "
+        f"{on_rows[-1]['train/loss_depth']:.3f} while supervised; psnr (fine) "
+        f"{rows[0]['train/psnr']:.2f} -> {rows[-1]['train/psnr']:.2f}; "
+        f"launches {launches}")
+    if not falls:
+        fail("a loss did not fall")
+    val = hier["metrics"]
+    if set(val) != {"val/psnr", "val/ssim", "val/mae"} or not all(
+            np.isfinite(v) for v in val.values()):
+        fail(f"validation metrics {val}")
+    log("phase 6: " + ", ".join(f"{k} {v:.4f}" for k, v in val.items()))
+
+    def median_ms(sel):
+        rates = sorted(r["train/rays_per_sec"] for r in sel)
+        return 1e3 * BATCH / rates[len(rates) // 2], len(rates)
+
+    ms_on, n_on = median_ms(on_rows[1:])
+    ms_after, n_after = median_ms([r for r in rows if r["step"] >= drop + LOG_EVERY])
+    results["hier_rate"] = (1e3 / ms_on, 1e3 * BATCH / ms_on)
+    log(f"phase 6: hierarchical full-recipe rate (median of {n_on} log "
+        f"intervals of {LOG_EVERY} steps): {1e3 / ms_on:.2f} steps/s, "
+        f"{1e3 * BATCH / ms_on:.1f} rays/s, {ms_on:.2f} ms a step; after the "
+        f"depth term dropped (median of {n_after}): {ms_after:.2f} ms a step "
+        f"on {card}")
+
+    # ---- resume, then serve the trained checkpoint
+    epoch = HIER_STEPS // spe
+    ckpt = os.path.join(ckpts, cfg.exp_name, f"epoch={epoch}.ckpt")
+    saved = torch.load(ckpt, weights_only=True)
+    if saved["global_step"] != HIER_STEPS or not any(
+            k.startswith("nerf_fine.") for k in saved["state_dict"]):
+        fail(f"{ckpt} holds step {saved.get('global_step')} or no fine model")
+    second, _, _ = run(HIER_RESUME, "smoke_hier_resume", N_IMPORTANCE,
+                       ["--ckpt_path", ckpt])
+    rows2 = _train_rows(logs, second["cfg"].exp_name)
+    trained, untrained = rows[-1]["train/loss"], gate_on[0]["train/loss"]
+    adam_steps = {float(st["step"])
+                  for st in second["state"].optimizer.state.values()}
+    if not (second["state"].step == HIER_RESUME
+            and rows2[0]["step"] == HIER_STEPS + LOG_EVERY
+            and adam_steps == {float(HIER_RESUME)}
+            and abs(rows2[0]["train/loss"] - trained)
+            <= 0.25 * (untrained - trained)):
+        fail("the resumed run did not continue the first (step count, Adam "
+             "state or loss level)")
+    log(f"phase 6: resumed from step {saved['global_step']} to "
+        f"{second['state'].step}; first logged loss {rows2[0]['train/loss']:.4f} "
+        f"(the first run ended at {trained:.4f})")
+    mae = create_pretty_dsm(second["cfg"].exp_name, logs,
+                            os.path.join(WORK, "hier_out"), HIER_RESUME // spe,
+                            device="cuda")
+    if not (mae is not None and np.isfinite(mae)):
+        fail(f"serving the trained checkpoint, MAE {mae}")
+    log(f"phase 6: create_pretty_dsm on the trained checkpoint: MAE {mae:.3f} m")
+
+    # ---- render_image at n_importance 64: rays/s and the chunk's peak memory
+    rng = np.random.RandomState(0)
+    n_rays = 1 << 18
+    rays = rng.rand(n_rays, 11).astype(np.float32)
+    rays[:, 3:6] /= np.linalg.norm(rays[:, 3:6], axis=1, keepdims=True)
+    rays[:, 8:11] /= np.linalg.norm(rays[:, 8:11], axis=1, keepdims=True)
+    rays[:, 6], rays[:, 7] = 0.0, 1.0
+    ts = rng.randint(0, 30, n_rays).astype(np.int32)
+    params = second["state"].params
+    system.render_image(params, rays[:CHUNK], ts[:CHUNK])  # warm up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FM.reset_launches()
+    t0 = time.perf_counter()
+    res = system.render_image(params, rays, ts)
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for k, v in res.items():
+        if v.shape[0] != n_rays or not np.isfinite(v).all():
+            fail(f"render_image {k} {v.shape}")
+    chunks = n_rays // CHUNK
+    pieces = -(-(SAMPLES + N_IMPORTANCE) * CHUNK // (1 << 22))
+    if FM.LAUNCHES["heads_composite"] != chunks * (1 + pieces):
+        fail(f"render_image launched heads_composite "
+             f"{FM.LAUNCHES['heads_composite']} times for {chunks} chunks of one "
+             f"coarse pass and {pieces} fine pieces")
+    log(f"phase 6: render_image {n_rays} rays at --n_importance {N_IMPORTANCE} "
+        f"(chunk {CHUNK}, the fine pass in {pieces} pieces): {dt:.3f} s, "
+        f"{n_rays / dt:.1f} rays/s, peak device memory {peak:.2f} GiB on {card}")
+    # the fine products against the plain version on the last rays of a
+    # chunk, at the depths the kernels' own coarse weights resample (the plain
+    # version's coarse weights differ by bf16 rounding steps, and a resampled
+    # depth inside an empty stretch of the ray moves far on such a step)
+    from satnerf_tpu_torch.render.render import resample_zvals
+    from satnerf_tpu_torch.render.sampling import stratified_zvals
+
+    m = 2048
+    sl = slice(CHUNK - m, CHUNK)
+    kw = dict(layers=LAYERS, feat=FEAT, tau=TAU, dtype=system.compute_dtype)
+    with torch.inference_mode():
+        r = torch.from_numpy(rays[sl]).to("cuda")
+        t_e = params["embedding_t"](torch.from_numpy(ts[sl]).long().to("cuda"))
+        z = stratified_zvals(None, r[:, 6:7], r[:, 7:8], SAMPLES, perturb=0.0)
+        rargs = (r[:, 0:3], r[:, 3:6], r[:, 8:11], t_e)
+        coarse = FM.fused_render_rays(params["nerf_coarse"], *rargs, z,
+                                      return_weights=True, **kw)
+        c_ref = FM.fused_render_rays_reference(params["nerf_coarse"], *rargs, z,
+                                               return_weights=True, **kw)
+        z_all = resample_zvals(None, z, coarse["weights"], N_IMPORTANCE, det=True)
+        ref = FM.fused_render_rays_reference(params["nerf_fine"], *rargs, z_all,
+                                             **kw)
+    errs = {k: float(np.abs(res[f"{k}_fine"][sl].reshape(m, -1)
+                            - ref[k].float().cpu().numpy().reshape(m, -1)).max())
+            for k in ("rgb", "depth", "sun", "sky", "albedo", "beta", "opacity")}
+    errs["coarse weights"] = (coarse["weights"] - c_ref["weights"]).abs().max().item()
+    log(f"phase 6: render_image's fine products vs the plain version on rays "
+        f"[{CHUNK - m}, {CHUNK}): " + ", ".join(f"{k} {e:.2e}"
+                                                for k, e in errs.items()))
+    if not all(e <= K2_TOL["bfloat16"] for e in errs.values()):
+        fail(f"render_image's fine products disagree: {errs}")
+
+    # ---- --fused on: the plain renderer over the point-mode field kernel
+    steps = SHORT_STEPS
+    out, launches, on_s = run(steps, "smoke_fused_on", ON_IMPORTANCE,
+                              ["--fused", "on"])
+    if out["system"].fused_mode != "points" or out["state"].step != steps:
+        fail("--fused on did not run in points mode")
+    act = min(steps, out["system"].ds_drop_step - 1)
+    # a step, once a model: the color render, its sun-ray pass and the depth
+    # render, each with its backward (the depth render's while the term is on);
+    # a served chunk: one forward a model
+    served, rest = divmod(launches["field_heads"] - 6 * steps, 2)
+    want = {"field_heads_bwd": 4 * steps + 2 * act, "composite_loss_bwd": 0,
+            "sc_loss_bwd": 0, "composite_bwd": 0, "heads_composite": 0}
+    if rest or served < 1 or any(launches[k] != v for k, v in want.items()):
+        fail(f"--fused on launches {launches}, expected {want} and field_heads "
+             f"6 a step + 2 a served chunk")
+    results["launches_fused_on"] = launches
+    rows = _train_rows(logs, out["cfg"].exp_name)
+    if not (rows and np.isfinite(rows[-1]["train/loss"])
+            and all(np.isfinite(v) for v in out["metrics"].values())):
+        fail("--fused on logged no finite loss or validation")
+    log(f"phase 6: --fused on --n_importance {ON_IMPORTANCE}, {steps} steps in "
+        f"{on_s:.1f} s with validation: loss {rows[-1]['train/loss']:.4f}, "
+        f"{1e3 * BATCH / rows[-1]['train/rays_per_sec']:.1f} ms a step, val/mae "
+        f"{out['metrics']['val/mae']:.3f}, launches {launches}")
+
+    # ---- --fused off on the card: the caller's choice, no kernel at all
+    out, launches, off_s = run(steps, "smoke_fused_off", ON_IMPORTANCE,
+                               ["--fused", "off"])
+    if out["system"].fused_mode != "off" or any(launches.values()):
+        fail(f"--fused off launched kernels: {launches}")
+    rows = _train_rows(logs, out["cfg"].exp_name)
+    if not (rows and np.isfinite(rows[-1]["train/loss"])
+            and all(np.isfinite(v) for v in out["metrics"].values())):
+        fail("--fused off logged no finite loss or validation")
+    log(f"phase 6: --fused off --n_importance {ON_IMPORTANCE}, {steps} steps in "
+        f"{off_s:.1f} s with validation: loss {rows[-1]['train/loss']:.4f}, "
+        f"{1e3 * BATCH / rows[-1]['train/rays_per_sec']:.1f} ms a step, no "
+        f"kernel launched")
+
+
 def _loaded_foreign() -> list:
     return sorted(m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
@@ -1174,12 +1743,13 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    results = {"err": {}, "k2": {}, "k1": {}, "k34": {}}
+    results = {"err": {}, "k2": {}, "k1": {}, "k34": {}, "k56": {}}
     steps = (("2", lambda: phase2(results)), ("2b", lambda: phase2b(results)),
-             ("2c", lambda: phase2c(results)),
+             ("2c", lambda: phase2c(results)), ("2d", lambda: phase2d(results)),
              ("3", lambda: phase3(results, card)),
              ("4", lambda: phase4(results, card)),
-             ("5", lambda: phase5(results, card)))
+             ("5", lambda: phase5(results, card)),
+             ("6", lambda: phase6(results, card)))
     t_start = time.perf_counter()
     for key, run in steps:
         t0 = time.perf_counter()
@@ -1189,12 +1759,14 @@ def main():
         raise SystemExit(f"the port loaded {_loaded_foreign()}")
     # launches: on the main path of the slice that brought the kernel, each
     # driven from counts of 0: cli.train's run of phase 4, and for the full
-    # recipe's two kernels cli.train's run of phase 5; the other paths'
-    # counts stand beside it
+    # recipe's two kernels cli.train's run of phase 5, for the per-sample
+    # field's two the hierarchical run of phase 6; the other paths' counts
+    # stand beside it
     kernels = []
     for kname, (source, replaces, *also) in KERNELS.items():
         t = results["times"][kname]
-        main_path = "launches_full" if kname in AUX_KERNELS else "launches"
+        main_path = ("launches_full" if kname in AUX_KERNELS else
+                     "launches_hier" if kname in FIELD_KERNELS else "launches")
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": TPU_KERNEL[replaces],
@@ -1203,6 +1775,8 @@ def main():
             "launches_serving": results["launches_serving"].get(kname, 0),
             "launches_training": results["launches"][kname],
             "launches_full_recipe": results["launches_full"][kname],
+            "launches_hier": results["launches_hier"][kname],
+            "launches_fused_on": results["launches_fused_on"][kname],
             "max_abs_err": max(results["err"][(kname, "float32")],
                                results["err"][(kname, "bfloat16")]),
             **t,

@@ -72,9 +72,12 @@ class Config:
     precision: str = "auto"  # auto | float32 | bfloat16 (matmul inputs).
     # "auto" = bfloat16 on the card, float32 on the CPU (where tests pin
     # numerics against f32 oracles). Params/accumulation are f32 either way.
-    fused: str = "auto"  # kept for opts.json compatibility: on the card the
-    # SIREN variants always run the hand-written kernels, on the CPU their
-    # plain versions
+    fused: str = "auto"  # auto | rays | on | off — which path the SIREN
+    # variants take (train/system.py fused_mode). "rays": the per-ray kernel
+    # chains; "on": the plain renderer over the point-mode field kernel;
+    # "off": the plain renderer over the field modules, on whatever device
+    # was asked for. "auto" = "rays" on the card, "off" on the CPU. On CPU
+    # tensors every kernel wrapper runs its plain version.
     sampling: str = "replacement"  # replacement | shuffle — per-step ray draw
     # ("shuffle" = without-replacement per epoch, the reference DataLoader's
     #  semantics via a per-epoch on-device permutation; "replacement" is the
@@ -161,7 +164,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--precision", type=str, default=d.precision,
                    choices=["auto", "float32", "bfloat16"])
     p.add_argument("--fused", type=str, default=d.fused,
-                   choices=["auto", "on", "rays", "off"])
+                   choices=["auto", "on", "rays", "off"],
+                   help="rays: the per-ray CUDA kernel chains (auto on the "
+                        "card); on: the plain renderer over the point-mode "
+                        "field kernel; off: plain PyTorch all the way (auto "
+                        "on the CPU). An explicit off on the card is the "
+                        "caller's choice: no kernel is launched and nothing "
+                        "falls back to it on its own")
     p.add_argument("--sampling", type=str, default=d.sampling,
                    choices=["replacement", "shuffle"])
     p.add_argument("--grad_accum", type=int, default=d.grad_accum)

@@ -58,6 +58,13 @@ SIGNATURES = {
     # dbn, stream
     "satnerf_sc_loss_bwd": [_I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _F,
                             _P, _P, _P, _P, _P],
+    # dtype, h, F, r, s2, bh, skyh, Fh, Wn, bn, P, S, rgb_padding, out, stream
+    "satnerf_field_heads": [_I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _F,
+                            _P, _P],
+    # dtype, h, F, r, s2, bh, skyh, Fh, Wn, bn, g, P, S, rgb_padding, d_h, d_r,
+    # d_s2, d_bh, d_skyh, dWn, dbn, stream
+    "satnerf_field_heads_bwd": [_I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I,
+                                _I, _F, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 

@@ -1,5 +1,6 @@
 """The fused kernels of the SIREN variants: serving render, training step,
-solar-correction pass and differentiable training render.
+solar-correction pass, differentiable training render and the per-sample
+field in ray and in point mode.
 
 fused_render_rays — counterpart of satnerf_tpu/ops/pallas/fused_mlp.py:1066
 (K2). Rays and per-ray depths go in, per-ray products come out: rgb, depth,
@@ -23,7 +24,19 @@ parameters and the transient embedding: a torch.autograd.Function whose
 forward and backward are both kernel chains. The depth-supervision pass
 renders its key-point rays through it.
 
-On the card all four are chains of hand-written CUDA kernels (csrc/), each
+fused_field_apply_rays — counterpart of fused_mlp.py:1152 (K5). Rays and
+per-ray depths go in, the field's outputs at every sample come out (rgb,
+sigma, sun_v, sky_rgb, beta), uncomposited; a torch.autograd.Function whose
+backward takes a per-sample cotangent to the field's parameters and the
+transient embedding. The plain renderer (render/render.py) runs over it in
+the hierarchical depth-supervision pass.
+
+fused_field_apply — counterpart of fused_mlp.py:799 (K6). The same field on
+points already expanded, any leading shape; its backward also returns the
+cotangent of xyz, sun_dir and t_embed. `--fused on` runs the trainer and the
+server over it.
+
+On the card all six are chains of hand-written CUDA kernels (csrc/), each
 behind a wrapper here with a plain PyTorch version beside it:
 
   siren_dense         one dense layer, act(w0 * (X.W + b + E.C)), with the
@@ -38,11 +51,16 @@ behind a wrapper here with a plain PyTorch version beside it:
   sc_loss_bwd         sigma and sun_v heads, compositor forward, terms 2 and
                       3 and the sun_v head's adjoint, a warp per ray (K3)
   siren_dense_dgrad   dX (+)= (dY * slope) . W^T
-  siren_dense_wgrad   dW, db, dC of one layer, and t_grad for beta_0
+  siren_dense_wgrad   dW, db, dC of one layer, and on request the gradient
+                      of the E operand itself (t_grad for beta_0; xyz and
+                      sun_dir too in point mode)
+  field_heads         the narrow heads with their activations, per sample,
+                      no compositor (K5 / K6 forward)
+  field_heads_bwd     their backward from a (P, 16) cotangent (K5 / K6)
 
-`_render_staged`, `_train_staged`, `_sc_staged` and the two halves of
-`_TrainRender` chain them; the training chains share one forward
-(`_chain_forward`) and one backward (`_chain_backward`). A wrapper given a CUDA
+`_render_staged`, `_train_staged`, `_sc_staged`, `_field_staged` and the two
+halves of `_TrainRender` and of `_FieldApply` chain them; the training chains
+share one forward (`_chain_forward`) and one backward (`_chain_backward`). A wrapper given a CUDA
 tensor launches its kernel or raises; given a CPU tensor it runs its plain
 version. There is no fallback from one to the other. Every launch adds one
 to LAUNCHES[name].
@@ -69,11 +87,12 @@ from satnerf_tpu_torch.render.render import run_field
 from satnerf_tpu_torch.train import losses as L
 
 OUT_COLS = 16  # rgb 0:3 | depth 3 | sun 4 | sky 5:8 | beta 8 | albedo 9:12 | opacity 12
+FIELD_COLS = 16  # per sample: rgb 0:3 | sigma 3 | sun_v 4 | sky 5:8 | beta 8
 RAY_COLS = 16  # o 0:3 | d 3:6 | sun 6:9 | t 9:9+tau
 
 LAUNCHES = {"siren_dense": 0, "heads_composite": 0, "composite_loss_bwd": 0,
             "siren_dense_dgrad": 0, "siren_dense_wgrad": 0, "sc_loss_bwd": 0,
-            "composite_bwd": 0}
+            "composite_bwd": 0, "field_heads": 0, "field_heads_bwd": 0}
 
 _ACT = {"none": 0, "sin": 1, "relu": 2}
 _EXTRA = {None: (0, 0), "xyz": (1, 0), "sun": (2, 6), "t": (2, 9)}  # mode, column
@@ -740,10 +759,12 @@ def _check_narrow(name, h, r, s2, bh, skyh, wn, bn, z, noise):
 
 
 def _adjoint_buffers(name, n_rays, n_s, p, feat, fh, use_beta, dev) -> dict:
-    """The fp32 outputs both instantiations of the compositor's adjoint
-    write: the cotangents of h, r, s2, bh, skyh, and dwn / dbn zero-filled
-    for the kernel's atomics."""
-    if feat > 512 or n_s > 256:
+    """The fp32 outputs the narrow heads' adjoints write (both
+    instantiations of the compositor's, and field_heads_bwd): the cotangents
+    of h, r, s2, bh, skyh, and dwn / dbn zero-filled for the kernel's
+    atomics. n_s: the samples a ray's walk keeps in shared memory, None for
+    a kernel that walks no ray."""
+    if feat > 512 or (n_s is not None and n_s > 256):
         raise ValueError(f"{name} holds at most 512 features and 256 samples "
                          f"a ray")
 
@@ -952,15 +973,20 @@ def _chain_forward(p: dict, rays16, z, *, skip: int, use_beta: bool,
 
 
 def _chain_backward(p: dict, a: dict, cot: dict, rays16, z, *, skip: int,
-                    use_beta: bool, ops=TrainOps):
-    """A dgrad and a wgrad launch per dense layer: the backward half K1, K3
-    and K4 share. a: `_chain_forward`'s output; cot: the per-ray stage's
+                    use_beta: bool, ops=TrainOps,
+                    input_grads: Optional[dict] = None):
+    """A dgrad and a wgrad launch per dense layer: the backward half K1, K3,
+    K4, K5 and K6 share. a: `_chain_forward`'s output; cot: the per-ray stage's
     d_h, d_r, d_s2, d_bh, d_skyh, dwn, dbn, each fp32 and in its own buffers
     (wgrad sums by atomics into zero-filled tensors it allocates itself, so
     nothing accumulates across passes). A head whose cotangent is missing or
-    None (K3: all but sun_v) is skipped and gets no entry in g. Returns
+    None (K3: all but sun_v) is skipped and gets no entry in g. Given a
+    dict as input_grads (K6), every layer with an E operand is also asked for
+    the gradient of E, and the per-ray sums are left in it: "xyz" (R, 3) from
+    layer 0 and the skip layer, "sun" (R, 3) from sun_v_0 and sky_0. Returns
     (g in the layout of p, t_grad (R, tau) or None)."""
     n_s = z.shape[1]
+    want_in = input_grads is not None
     g = {"wn": cot["dwn"], "bn": cot["dbn"], "B": [None] * len(p["B"]),
          "bt": [None] * len(p["bt"]), "C": None}
     feats, d_feats = a["feats"], None
@@ -977,12 +1003,15 @@ def _chain_backward(p: dict, a: dict, cot: dict, rays16, z, *, skip: int,
     d_s1 = ops.dgrad(cot["d_s2"], a["c_s2"], p["Wsun2"])
     g["Wsun1"], g["bsun1"], _, _ = wgrad(a["s0"], d_s1, a["c_s1"])
     d_s0 = ops.dgrad(d_s1, a["c_s1"], p["Wsun1"])
-    g["Wsun0h"], g["bsun0"], g["Wsun0d"], _ = wgrad(feats, d_s0, a["c_s0"],
-                                                    "sun", p["Wsun0d"])
+    g["Wsun0h"], g["bsun0"], g["Wsun0d"], d_sun = wgrad(
+        feats, d_s0, a["c_s0"], "sun", p["Wsun0d"], extra_grad=want_in)
     d_feats = ops.dgrad(d_s0, a["c_s0"], p["Wsun0h"], out=d_feats)
     if cot.get("d_skyh") is not None:
-        _, g["bsky0"], g["Wsky0"], _ = wgrad(None, cot["d_skyh"], None, "sun",
-                                             p["Wsky0"], samples=1)
+        _, g["bsky0"], g["Wsky0"], d_sun_sky = wgrad(
+            None, cot["d_skyh"], None, "sun", p["Wsky0"], samples=1,
+            extra_grad=want_in)
+        if want_in:
+            d_sun = d_sun + d_sun_sky
     t_grad = None
     if use_beta and cot.get("d_bh") is not None:
         g["Wbeta0h"], g["bbeta0"], g["Wbeta0t"], t_grad = wgrad(
@@ -994,14 +1023,20 @@ def _chain_backward(p: dict, a: dict, cot: dict, rays16, z, *, skip: int,
     d_h = ops.dgrad(d_feats, None, p["Wfeat"], out=cot.get("d_h"))
 
     hs, slopes = a["hs"], a["slopes"]
+    d_xyz_skip = None
     for l in range(len(p["B"]), 0, -1):
         if l == skip:
-            g["B"][l - 1], g["bt"][l], g["C"], _ = wgrad(
-                hs[l - 1], d_h, slopes[l], "xyz", p["C"])
+            g["B"][l - 1], g["bt"][l], g["C"], d_xyz_skip = wgrad(
+                hs[l - 1], d_h, slopes[l], "xyz", p["C"], extra_grad=want_in)
         else:
             g["B"][l - 1], g["bt"][l], _, _ = wgrad(hs[l - 1], d_h, slopes[l])
         d_h = ops.dgrad(d_h, slopes[l], p["B"][l - 1])
-    _, g["bt"][0], g["A"], _ = wgrad(None, d_h, slopes[0], "xyz", p["A"])
+    _, g["bt"][0], g["A"], d_xyz = wgrad(None, d_h, slopes[0], "xyz", p["A"],
+                                         extra_grad=want_in)
+    if want_in:
+        input_grads["sun"] = d_sun
+        input_grads["xyz"] = (d_xyz if d_xyz_skip is None
+                              else d_xyz + d_xyz_skip)
     return g, t_grad
 
 
@@ -1356,3 +1391,286 @@ def fused_train_render_rays(params, rays_o, rays_d, sun_dir, t_embed, z_vals,
         None if noise is None else noise.detach().float().contiguous(),
         t_embed if use_beta else None, *params.parameters())
     return _products(out, None, use_beta)
+
+
+# ====================================================== the per-sample field
+#
+# K5, fused_field_apply_rays, and K6, fused_field_apply: forward = the dense
+# chain and field_heads; backward = field_heads_bwd and the training chain's
+# backward. K6 is K5 on points that are their own rays: samples = 1,
+# rays16 = [xyz | 0 | sun | t] and z = 0, so the E operand o + d*z is xyz.
+
+
+def field_heads_reference(h, r, s2, bh, skyh, wn, bn, samples: int, *,
+                          rgb_padding: float = 0.001, dtype=None):
+    """Plain version of field_heads (differentiable).
+
+    h (P, F), r/s2/bh (P, Fh) (bh None without the beta head), skyh (R, Fh)
+    with P = R * samples, wn (9, F) in the compute dtype (`dtype`, else
+    wn's); bn (9,) fp32. Returns (P, 16) fp32, per sample: rgb 0:3 (padded),
+    sigma 3 (softplus, before noise and relu), sun_v 4, sky 5:8 (the ray's),
+    beta 8 (0 without the beta head), zeros after.
+    """
+    sigma, rgb, sunv, sky, beta = _narrow_heads(h, r, s2, bh, skyh, wn, bn,
+                                                rgb_padding, dtype=dtype)
+    sky = sky.repeat_interleave(samples, dim=0)
+    pad = torch.zeros((h.shape[0], FIELD_COLS - 9), dtype=torch.float32,
+                      device=h.device)
+    return torch.cat([rgb, sigma[:, None], sunv[:, None], sky, beta[:, None],
+                      pad], dim=1)
+
+
+def _check_field_heads(name, h, r, s2, bh, skyh, wn, bn, samples: int):
+    """Shapes and dtypes field_heads and its backward share; (R, P, F, Fh)."""
+    dtype = h.dtype
+    p, feat = h.shape
+    fh = s2.shape[1]
+    if samples < 1 or p % samples or p >= 2 ** 31:
+        raise ValueError(f"{name}: {p} points are not rays of {samples} "
+                         f"samples (or exceed the kernel's int32 indexing)")
+    n_rays = p // samples
+    if feat > 512 or 2 * fh > 512:
+        raise ValueError(f"{name} holds at most 512 features")
+    if (wn.shape != (9, feat) or skyh.shape != (n_rays, fh)
+            or bn.shape != (9,) or bn.dtype != torch.float32):
+        raise ValueError(f"{name}: inconsistent shapes")
+    for what, t in (("r", r), ("s2", s2), ("bh", bh)):
+        if t is not None and (t.shape != (p, fh) or t.dtype != dtype):
+            raise ValueError(f"{what} must be ({p}, {fh}) {dtype}")
+    for what, t in (("skyh", skyh), ("wn", wn)):
+        if t.dtype != dtype:
+            raise ValueError(f"{what} must be {dtype}")
+    return n_rays, p, feat, fh
+
+
+def field_heads(h, r, s2, bh, skyh, wn, bn, samples: int, *,
+                rgb_padding: float = 0.001):
+    """The narrow heads per sample; arguments and return as
+    field_heads_reference. CUDA tensors launch the field_heads kernel; CPU
+    tensors run the plain version."""
+    if h.device.type == "cpu":
+        return field_heads_reference(h, r, s2, bh, skyh, wn, bn, samples,
+                                     rgb_padding=rgb_padding)
+    dtype = h.dtype
+    _check_cuda(dtype, h=h, r=r, s2=s2, bh=bh, skyh=skyh, wn=wn, bn=bn)
+    _, p, feat, fh = _check_field_heads("field_heads", h, r, s2, bh, skyh, wn,
+                                        bn, samples)
+    out = torch.empty((p, FIELD_COLS), dtype=torch.float32, device=h.device)
+    _launch("field_heads", _DTYPE_CODE[dtype], _ptr(h), feat, _ptr(r),
+            _ptr(s2), _ptr(bh), _ptr(skyh), fh, _ptr(wn), _ptr(bn), p, samples,
+            float(rgb_padding), _ptr(out), _stream(h))
+    return out
+
+
+def field_heads_bwd_reference(h, r, s2, bh, skyh, wn, bn, samples: int, g, *,
+                              rgb_padding: float = 0.001) -> dict:
+    """Plain version of field_heads_bwd, by autograd: the vector-Jacobian
+    product of field_heads_reference with the per-sample cotangent g (P, 16)
+    fp32. Returns fp32 tensors: d_h (P, F), the sigma head's share of h's
+    cotangent; d_r, d_s2, d_bh (P, Fh) (d_bh None without the beta head);
+    d_skyh (R, Fh), through sky_0's relu, from the ray's sky cotangent summed
+    over its samples; dwn (9, F), dbn (9,)."""
+    def contracted(hf, rf, sf, bf, skyf, wn_l, bn_l):
+        out = field_heads_reference(hf, rf, sf, bf, skyf, wn_l, bn_l, samples,
+                                    rgb_padding=rgb_padding, dtype=wn.dtype)
+        return (out * g).sum(), None
+
+    return _narrow_adjoint(contracted, h, r, s2, bh, skyh, wn, bn)[0]
+
+
+def field_heads_bwd(h, r, s2, bh, skyh, wn, bn, samples: int, g, *,
+                    rgb_padding: float = 0.001) -> dict:
+    """The narrow heads' backward from a per-sample cotangent; arguments and
+    returns as field_heads_bwd_reference. CUDA tensors launch the kernel."""
+    if h.device.type == "cpu":
+        return field_heads_bwd_reference(h, r, s2, bh, skyh, wn, bn, samples,
+                                         g, rgb_padding=rgb_padding)
+    dtype = h.dtype
+    _check_cuda(dtype, h=h, r=r, s2=s2, bh=bh, skyh=skyh, wn=wn, bn=bn, g=g)
+    n_rays, p, feat, fh = _check_field_heads("field_heads_bwd", h, r, s2, bh,
+                                             skyh, wn, bn, samples)
+    if g.dtype != torch.float32 or g.shape != (p, FIELD_COLS):
+        raise ValueError(f"g must be ({p}, {FIELD_COLS}) fp32")
+    res = _adjoint_buffers("field_heads_bwd", n_rays, None, p, feat, fh,
+                           bh is not None, h.device)
+    _launch("field_heads_bwd", _DTYPE_CODE[dtype], _ptr(h), feat, _ptr(r),
+            _ptr(s2), _ptr(bh), _ptr(skyh), fh, _ptr(wn), _ptr(bn), _ptr(g), p,
+            samples, float(rgb_padding), _ptr(res["d_h"]), _ptr(res["d_r"]),
+            _ptr(res["d_s2"]), _ptr(res["d_bh"]), _ptr(res["d_skyh"]),
+            _ptr(res["dwn"]), _ptr(res["dbn"]), _stream(h))
+    return res
+
+
+def _field_staged(p: dict, rays16, z, *, skip: int, use_beta: bool,
+                  rgb_padding: float, dense_fn=siren_dense,
+                  heads_fn=field_heads):
+    """The forward chain without saved slopes (no graph is recorded): the
+    serving chain's dense launches, then field_heads. Returns (P, 16)."""
+    def heads(h, r, s, bh, skyh, wn, bn, z_, *, rgb_padding, return_weights):
+        return heads_fn(h, r, s, bh, skyh, wn, bn, z_.shape[1],
+                        rgb_padding=rgb_padding)
+
+    return _render_staged(p, rays16, z, skip=skip, use_beta=use_beta,
+                          rgb_padding=rgb_padding, return_weights=False,
+                          dense_fn=dense_fn, heads_fn=heads)
+
+
+class _FieldApply(torch.autograd.Function):
+    """(rays or points, t_embed, the field's parameters) -> (P, 16) per-sample
+    outputs on the card. When a graph is recorded the forward keeps the
+    chain's activations and fp32 slopes on the node, as `_TrainRender` does
+    (about 1.4 GB for each 65,536 points of an 8 x 512 field), and the
+    backward frees them; under no_grad or inference_mode it saves nothing.
+    cfg["input_grads"] (K6) also returns the cotangents of rays_o (the
+    points) and sun_dir; the ray mode (K5) gives them none, and z never gets
+    one, as in the JAX kernels."""
+
+    @staticmethod
+    def forward(ctx, field, cfg: dict, rays_o, rays_d, sun_dir, z, t_embed,
+                *weights):
+        skip, use_beta = cfg["skip"], cfg["use_beta"]
+        rays16 = pack_rays(rays_o, rays_d, sun_dir, t_embed, cfg["tau"])
+        packed = pack_params(field, skip=skip, use_beta=use_beta,
+                             dtype=cfg["dtype"])
+        if not any(ctx.needs_input_grad):
+            return _field_staged(packed, rays16, z, skip=skip,
+                                 use_beta=use_beta,
+                                 rgb_padding=cfg["rgb_padding"])
+        a = _chain_forward(packed, rays16, z, skip=skip, use_beta=use_beta)
+        out = field_heads(a["h"], a["r"], a["s2"], a["bh"], a["skyh"],
+                          packed["wn"], packed["bn"], z.shape[1],
+                          rgb_padding=cfg["rgb_padding"])
+        ctx.field, ctx.cfg = field, cfg
+        ctx.chain = (packed, rays16, z, a)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        packed, rays16, z, a = ctx.chain
+        ctx.chain = None  # the slopes go as soon as the backward has read them
+        cfg = ctx.cfg
+        skip, use_beta = cfg["skip"], cfg["use_beta"]
+        cot = field_heads_bwd(a["h"], a["r"], a["s2"], a["bh"], a["skyh"],
+                              packed["wn"], packed["bn"], z.shape[1],
+                              g.float().contiguous(),
+                              rgb_padding=cfg["rgb_padding"])
+        d_in = {} if cfg["input_grads"] else None
+        gk, t_grad = _chain_backward(packed, a, cot, rays16, z, skip=skip,
+                                     use_beta=use_beta, input_grads=d_in)
+        grads = unpack_grads(gk, ctx.field, skip=skip, use_beta=use_beta)
+        d_xyz, d_sun = (d_in["xyz"], d_in["sun"]) if d_in else (None, None)
+        return (None, None, d_xyz, None, d_sun, None, t_grad) + tuple(
+            grads[n] for n, _ in ctx.field.named_parameters())
+
+
+def _field_dict(out, lead: tuple, use_beta: bool) -> dict:
+    """(P, 16) per-sample outputs -> the field module's dict."""
+    res = {"rgb": out[:, 0:3].reshape(*lead, 3),
+           "sigma": out[:, 3].reshape(*lead),
+           "sun_v": out[:, 4:5].reshape(*lead, 1),
+           "sky_rgb": out[:, 5:8].reshape(*lead, 3)}
+    if use_beta:
+        res["beta"] = out[:, 8:9].reshape(*lead, 1)
+    return res
+
+
+def fused_field_apply_rays_reference(params, rays_o, rays_d, sun_dir, t_embed,
+                                     z_vals, *, layers: int = 8,
+                                     feat: int = 512, skip: int = 4,
+                                     use_beta: bool = True,
+                                     rgb_padding: float = 0.001, tau: int = 4,
+                                     dtype=torch.bfloat16) -> dict:
+    """Plain version of fused_field_apply_rays: the field module on
+    o + d*z, left to plain autograd (its matmuls round operands and
+    cotangents where the kernels do, models/nerf.py rounded_matmul)."""
+    _check_field(params, layers, feat, skip, use_beta, tau, rgb_padding)
+    xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[:, :, None]
+    n_rays, n_s, _ = xyz.shape
+
+    def per_sample(v):
+        return v[:, None, :].expand(n_rays, n_s, v.shape[-1])
+
+    return params(xyz, sun_dir=per_sample(sun_dir),
+                  t_embed=per_sample(t_embed) if use_beta else None,
+                  dtype=dtype)
+
+
+def fused_field_apply_rays(params, rays_o, rays_d, sun_dir, t_embed, z_vals, *,
+                           layers: int = 8, feat: int = 512, skip: int = 4,
+                           use_beta: bool = True, rgb_padding: float = 0.001,
+                           tau: int = 4, dtype=torch.bfloat16) -> dict:
+    """The field at every sample of every ray, the expansion o + d*z inside
+    the kernels.
+
+    params: the s-nerf / sat-nerf RadianceField. rays_o, rays_d, sun_dir
+    (R, 3); t_embed (R, tau) (sat-nerf); z_vals (R, S). Returns {"rgb"
+    (R, S, 3), "sigma" (R, S), "sun_v" (R, S, 1), "sky_rgb" (R, S, 3)} and
+    "beta" (R, S, 1) for sat-nerf: what the field module returns, ready for
+    render/composite.py. Sigma is the softplus output, before noise and
+    relu. Gradients flow to the parameters of `params` and to t_embed;
+    rays_o, rays_d, sun_dir and z_vals get none.
+
+    On CUDA tensors forward and backward are kernel chains (`_FieldApply`);
+    on CPU tensors it runs fused_field_apply_rays_reference.
+    """
+    kw = dict(layers=layers, feat=feat, skip=skip, use_beta=use_beta,
+              rgb_padding=rgb_padding, tau=tau, dtype=dtype)
+    if z_vals.device.type == "cpu":
+        return fused_field_apply_rays_reference(params, rays_o, rays_d,
+                                                sun_dir, t_embed, z_vals, **kw)
+    _check_card_call("fused_field_apply_rays", params, z_vals, sun_dir,
+                     t_embed, layers, feat, skip, use_beta, tau, rgb_padding)
+    cfg = dict(skip=skip, use_beta=use_beta, rgb_padding=rgb_padding, tau=tau,
+               dtype=dtype, input_grads=False)
+    out = _FieldApply.apply(
+        params, cfg, rays_o.detach(), rays_d.detach(), sun_dir.detach(),
+        z_vals.detach().float().contiguous(), t_embed if use_beta else None,
+        *params.parameters())
+    return _field_dict(out, tuple(z_vals.shape), use_beta)
+
+
+def fused_field_apply_reference(params, xyz, sun_dir, t_embed=None, *,
+                                layers: int = 8, feat: int = 512,
+                                skip: int = 4, use_beta: bool = True,
+                                rgb_padding: float = 0.001, tau: int = 4,
+                                dtype=torch.bfloat16) -> dict:
+    """Plain version of fused_field_apply: the field module on the points,
+    left to plain autograd."""
+    _check_field(params, layers, feat, skip, use_beta, tau, rgb_padding)
+    return params(xyz, sun_dir=sun_dir,
+                  t_embed=t_embed if use_beta else None, dtype=dtype)
+
+
+def fused_field_apply(params, xyz, sun_dir, t_embed=None, *, layers: int = 8,
+                      feat: int = 512, skip: int = 4, use_beta: bool = True,
+                      rgb_padding: float = 0.001, tau: int = 4,
+                      dtype=torch.bfloat16) -> dict:
+    """The field on points, in place of the field module's forward.
+
+    params: the s-nerf / sat-nerf RadianceField. xyz, sun_dir (..., 3) and
+    t_embed (..., tau) (sat-nerf) with any leading shape. Returns the
+    module's dict: "rgb" (..., 3), "sigma" (...), "sun_v" (..., 1),
+    "sky_rgb" (..., 3) and "beta" (..., 1) for sat-nerf. Gradients flow to
+    the parameters and to xyz, sun_dir and t_embed.
+
+    On CUDA tensors forward and backward are kernel chains (`_FieldApply`
+    with every point its own ray); on CPU tensors it runs
+    fused_field_apply_reference.
+    """
+    kw = dict(layers=layers, feat=feat, skip=skip, use_beta=use_beta,
+              rgb_padding=rgb_padding, tau=tau, dtype=dtype)
+    if xyz.device.type == "cpu":
+        return fused_field_apply_reference(params, xyz, sun_dir, t_embed, **kw)
+    _check_card_call("fused_field_apply", params, xyz, sun_dir, t_embed,
+                     layers, feat, skip, use_beta, tau, rgb_padding)
+    lead = tuple(xyz.shape[:-1])
+    pts = xyz.reshape(-1, 3)
+    n = pts.shape[0]
+    cfg = dict(skip=skip, use_beta=use_beta, rgb_padding=rgb_padding, tau=tau,
+               dtype=dtype, input_grads=True)
+    out = _FieldApply.apply(
+        params, cfg, pts, torch.zeros_like(pts), sun_dir.reshape(n, 3),
+        torch.zeros((n, 1), dtype=torch.float32, device=xyz.device),
+        t_embed.reshape(n, tau) if use_beta else None, *params.parameters())
+    return _field_dict(out, lead, use_beta)

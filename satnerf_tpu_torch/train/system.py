@@ -5,34 +5,48 @@ Parameters live in an nn.ModuleDict keyed like the reference Lightning
 module — nerf_coarse, [nerf_fine,] embedding_t — so its state_dict() is the
 PL checkpoint payload (train/checkpoints.py).
 
-Serving is `_fused_product_render`: stratified depths, then
+`fused_mode` picks the path, resolved from `--fused` as the JAX system
+resolves it: "rays" (`--fused rays`, and `auto` on the card) runs the
+per-ray kernels below; "points" (`--fused on`) and "off" (`--fused off`, and
+`auto` on the CPU) run the plain renderer (render/render.py) under autograd,
+over the point-mode field kernel K6 or over the field modules.
+
+Serving in rays mode is `_fused_product_render`: stratified depths, then
 ops/fused_mlp.fused_render_rays, repacked in the reference-shaped results
 dict with the per-ray products pre-integrated (weights == 1 over a
-singleton sample axis), so eval/images.py reads it unchanged.
+singleton sample axis), so eval/images.py reads it unchanged. With
+n_importance > 0 it is a two-launch dispatch: the coarse render with its
+weights, `sample_pdf` over them, the sorted union of depths, the fine render.
 
 Training is `train_step`: draw a batch from the device-resident dataset
 (with replacement, or along the epoch's permutation with `--sampling
 shuffle`), `loss_and_grads`, Adam, the learning rate read from the schedule
 at the step counter before its increment; with `grad_accum` N, N
-micro-batches averaged into the one Adam step. `loss_and_grads` runs up to
-three passes whose gradients add (counterpart of `_fused_loss_and_grads`,
-satnerf_tpu/train/system.py:472-635):
+micro-batches averaged into the one Adam step. In rays mode
+`loss_and_grads` runs up to three passes whose gradients add (counterpart of
+`_fused_loss_and_grads`, satnerf_tpu/train/system.py:472-635):
 
   primary  stratified depths with jitter, optional sigma noise, the beta
            warm-up gate, ops/fused_mlp.fused_train_loss_grads, the embedding
-           gradient by index_add_ over the batch's image ids
-  SC       (sc_lambda > 0) fused_sc_loss_grads along the sun rays at the
-           primary pass's depths with its own noise; adds to nerf_coarse.*
+           gradient by index_add_ over the batch's image ids; with
+           n_importance > 0 the coarse launch also returns its weights, and
+           a second launch runs the fine model over the resampled depths
+  SC       (sc_lambda > 0) fused_sc_loss_grads along the sun rays, once a
+           model, at that model's depths with its own noise
   DS       (ds_lambda > 0) a batch of key-point rays drawn from the depth
-           set, rendered by fused_train_render_rays with its own depths and
-           noise; the depth loss is differentiated by autograd through that
-           function and adds to nerf_coarse.* and, at the depth batch's image
-           ids, to embedding_t.weight; it stops contributing at
-           ds_drop_step
+           set. Coarse only: rendered by fused_train_render_rays (K4).
+           Hierarchical: the plain renderer over the ray-mode field kernel
+           fused_field_apply_rays (K5) for both models. The depth loss is
+           differentiated by autograd through those functions; it stops
+           contributing at ds_drop_step
 
-On CUDA both paths are the hand-written kernel chains; on the CPU, their
-plain versions. The nerf variant renders through the plain render_rays on
-the CPU only and does not train yet.
+In points and off mode `loss_and_grads` is the JAX `_loss_and_metrics` under
+autograd: one `render_rays` of the batch (with the sun-ray passes when
+sc_lambda > 0), the variant's loss, the depth pass, one backward.
+
+On CUDA the kernels are the hand-written chains; on the CPU, their plain
+versions. The nerf variant renders through the plain render_rays on the CPU
+only and does not train yet.
 
 Not carried over from the JAX system: the f16 eval-wire compression, the
 threaded fetch pool, shard_map and the mesh (one device here).
@@ -40,9 +54,9 @@ threaded fetch pool, shard_map and the mesh (one device here).
 
 from __future__ import annotations
 
-from typing import Optional
-
+import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -50,14 +64,33 @@ from torch import nn
 
 from satnerf_tpu_torch.config import Config
 from satnerf_tpu_torch.models.nerf import TransientEmbedding, build_model
-from satnerf_tpu_torch.ops.fused_mlp import (fused_render_rays,
+from satnerf_tpu_torch.ops.fused_mlp import (fused_field_apply,
+                                             fused_field_apply_rays,
+                                             fused_render_rays,
                                              fused_sc_loss_grads,
                                              fused_train_loss_grads,
                                              fused_train_render_rays)
-from satnerf_tpu_torch.render.render import RenderConfig, render_rays
+from satnerf_tpu_torch.render.render import (RenderConfig, render_rays,
+                                             resample_zvals)
 from satnerf_tpu_torch.render.sampling import stratified_zvals
-from satnerf_tpu_torch.train.losses import BETA_MIN, depth_loss
+from satnerf_tpu_torch.train.losses import (BETA_MIN, depth_loss,
+                                            satnerf_loss, snerf_loss)
 from satnerf_tpu_torch.train.schedules import get_schedule
+
+# The most points one serving pass is given: a chunk of 65,536 rays x 64
+# samples. A pass of more samples a ray (the fine pass) is split along the
+# rays, so its activations (about 4 KB a point in bf16, 8 KB in fp32) stay
+# what a coarse chunk holds and no element offset passes 2^32.
+MAX_RENDER_POINTS = 1 << 22
+
+
+def _in_pieces(fn, n: int, step: int) -> dict:
+    """fn(i, j) -> dict of tensors over rows [i, j), for pieces of `step`
+    rows of n; the pieces concatenated."""
+    outs = [fn(i, min(n, i + step)) for i in range(0, n, step)]
+    if len(outs) == 1:
+        return outs[0]
+    return {k: torch.cat([o[k] for o in outs], 0) for k in outs[0]}
 
 
 def steps_per_epoch(dataset_len: int, batch_size: int) -> int:
@@ -110,6 +143,19 @@ class NeRFSystem:
         use_bf16 = cfg.precision == "bfloat16" or (
             cfg.precision == "auto" and self.device.type == "cuda")
         self.compute_dtype = torch.bfloat16 if use_bf16 else torch.float32
+        # "rays": the per-ray kernels; "points": the plain renderer over the
+        # point-mode field kernel; "off": the plain renderer over the field
+        # modules, on whatever device was asked for. The nerf variant has no
+        # kernel yet and always takes the plain path.
+        shadow = cfg.model in ("s-nerf", "sat-nerf")
+        if cfg.fused == "off" or not shadow:
+            self.fused_mode = "off"
+        elif cfg.fused == "on":
+            self.fused_mode = "points"
+        elif cfg.fused == "rays" or self.device.type == "cuda":
+            self.fused_mode = "rays"
+        else:
+            self.fused_mode = "off"
         self.eval_render_cfg = RenderConfig(
             variant=cfg.model, n_samples=cfg.n_samples,
             n_importance=cfg.n_importance, perturb=0.0, solar_correction=False)
@@ -117,6 +163,9 @@ class NeRFSystem:
             variant=cfg.model, n_samples=cfg.n_samples,
             n_importance=cfg.n_importance, perturb=1.0,
             solar_correction=cfg.sc_lambda > 0)
+        # the depth pass renders the key-point rays for their depths only
+        self.ds_render_cfg = dataclasses.replace(self.render_cfg,
+                                                 solar_correction=False)
 
     def init_params(self, generator: Optional[torch.Generator] = None
                     ) -> nn.ModuleDict:
@@ -150,10 +199,6 @@ class NeRFSystem:
 
     def _check_supported(self, train: bool = False) -> None:
         cfg = self.cfg
-        if cfg.n_importance > 0:
-            raise NotImplementedError(
-                "n_importance > 0 (hierarchical serve and train) is not "
-                "ported yet: ROADMAP queue 1, 'hierarchical serve'")
         if self.device.type == "cuda" and cfg.model == "nerf":
             raise NotImplementedError(
                 "the nerf variant has no CUDA kernel yet: ROADMAP queue 2, K8 "
@@ -172,44 +217,97 @@ class NeRFSystem:
             ts = torch.zeros(n, dtype=torch.long, device=self.device)
         return params["embedding_t"](ts.long())
 
+    def _field_kw(self) -> dict:
+        cfg = self.cfg
+        return dict(layers=cfg.fc_layers, feat=cfg.fc_units, skip=4,
+                    use_beta=self.use_ts, tau=cfg.t_embbeding_tau,
+                    dtype=self.compute_dtype)
+
+    def field_fns(self, params) -> dict:
+        """{"coarse"[, "fine"]: model} as render_rays takes them, for the
+        system's fused_mode: the ray-mode field kernel, the point-mode field
+        kernel, or the field modules."""
+        mode = self.fused_mode
+        kw = self._field_kw()
+
+        def fn(field):
+            if mode == "rays":
+                def apply_rays(rays_o, march_d, sun_d, t_embed, z_vals):
+                    return fused_field_apply_rays(field, rays_o, march_d,
+                                                  sun_d, t_embed, z_vals, **kw)
+
+                apply_rays.ray_mode = True
+                return apply_rays
+            if mode == "points":
+                return lambda xyz, view_dir, sun_dir, t_embed: \
+                    fused_field_apply(field, xyz, sun_dir, t_embed, **kw)
+            return field
+
+        models = {"coarse": fn(params["nerf_coarse"])}
+        if self.cfg.n_importance > 0:
+            models["fine"] = fn(params["nerf_fine"])
+        return models
+
     def render(self, params, rays, ts) -> dict:
         """Plain render_rays at eval settings (per-sample outputs)."""
         self._check_supported()
-        return render_rays({"coarse": params["nerf_coarse"]}, rays,
+        return render_rays(self.field_fns(params), rays,
                            self._embed_ts(params, ts, rays.shape[0]),
                            self.eval_render_cfg, dtype=self.compute_dtype)
 
     def _fused_product_render(self, params, rays, ts) -> dict:
-        cfg, rcfg = self.cfg, self.eval_render_cfg
+        rcfg = self.eval_render_cfg
         self._check_supported()
         n = rays.shape[0]
         t_embed = self._embed_ts(params, ts, n)
         z_vals = stratified_zvals(None, rays[:, 6:7], rays[:, 7:8],
                                   rcfg.n_samples, rcfg.perturb, rcfg.use_disp)
-        out = fused_render_rays(
-            params["nerf_coarse"], rays[:, 0:3], rays[:, 3:6], rays[:, 8:11],
-            t_embed, z_vals, layers=cfg.fc_layers, feat=cfg.fc_units, skip=4,
-            use_beta=self.use_ts, tau=cfg.t_embbeding_tau,
-            dtype=self.compute_dtype)
-        res = {
-            "rgb_coarse": out["rgb"],
-            "depth_coarse": out["depth"],
-            "opacity_coarse": out["opacity"],
-            "weights_coarse": torch.ones((n, 1), dtype=torch.float32,
-                                         device=rays.device),
-            "sun_coarse": out["sun"][:, None, :],
-            "albedo_coarse": out["albedo"][:, None, :],
-            "sky_coarse": out["sky"][:, None, :],
-        }
-        if "beta" in out:
-            res["beta_coarse"] = out["beta"][:, None, :]
+        kw = self._field_kw()
+
+        def run(field, z, want_weights):
+            return _in_pieces(
+                lambda i, j: fused_render_rays(
+                    field, rays[i:j, 0:3], rays[i:j, 3:6], rays[i:j, 8:11],
+                    None if t_embed is None else t_embed[i:j], z[i:j],
+                    return_weights=want_weights, **kw),
+                n, max(1, MAX_RENDER_POINTS // z.shape[1]))
+
+        def pack(out, suffix):
+            res = {
+                f"rgb_{suffix}": out["rgb"],
+                f"depth_{suffix}": out["depth"],
+                f"opacity_{suffix}": out["opacity"],
+                f"weights_{suffix}": torch.ones((n, 1), dtype=torch.float32,
+                                                device=rays.device),
+                f"sun_{suffix}": out["sun"][:, None, :],
+                f"albedo_{suffix}": out["albedo"][:, None, :],
+                f"sky_{suffix}": out["sky"][:, None, :],
+            }
+            if "beta" in out:
+                res[f"beta_{suffix}"] = out["beta"][:, None, :]
+            return res
+
+        n_imp = rcfg.n_importance
+        coarse = run(params["nerf_coarse"], z_vals, n_imp > 0)
+        res = pack(coarse, "coarse")
+        if n_imp > 0:
+            # the resampling over the coarse weights, then one more render
+            # with the fine model (rendering.py:118-156)
+            z_all = resample_zvals(None, z_vals, coarse["weights"], n_imp,
+                                   det=(rcfg.perturb == 0))
+            res.update(pack(run(params["nerf_fine"], z_all, False), "fine"))
         return res
 
     def render_chunk(self, params, rays, ts) -> dict:
         """Render one chunk of device tensors: rays (n, 11), ts (n,) or None."""
-        if self.cfg.model == "nerf":
-            return self.render(params, rays, ts)
-        return self._fused_product_render(params, rays, ts)
+        if self.fused_mode == "rays":
+            return self._fused_product_render(params, rays, ts)
+        rcfg = self.eval_render_cfg
+        return _in_pieces(
+            lambda i, j: self.render(params, rays[i:j],
+                                     None if ts is None else ts[i:j]),
+            rays.shape[0],
+            max(1, MAX_RENDER_POINTS // (rcfg.n_samples + rcfg.n_importance)))
 
     def render_image(self, params, rays: np.ndarray, ts) -> dict:
         """Render H*W rays in chunks of cfg.chunk and return numpy products
@@ -260,112 +358,244 @@ class NeRFSystem:
         return noise_std * torch.randn(shape, generator=generator,
                                        dtype=torch.float32, device=self.device)
 
+    def _draws(self, rays, generator, noise_std, sc: bool, z_vals=None,
+               noise=None, u=None, fine_noise=None, sc_noise=None,
+               sc_noise_fine=None) -> dict:
+        """The random numbers of one training render of `rays`, each as
+        injected or else drawn from `generator`, in this order: z_vals (B, S);
+        noise (B, S); with n_importance > 0, u (B, n_importance) and
+        fine_noise (B, S + n_importance); with `sc`, sc_noise (B, S) and,
+        with n_importance > 0, sc_noise_fine (B, S + n_importance). A noise
+        is drawn only with noise_std > 0 and is None otherwise."""
+        rcfg, n_imp = self.render_cfg, self.cfg.n_importance
+        if z_vals is None:
+            z_vals = stratified_zvals(generator, rays[:, 6:7], rays[:, 7:8],
+                                      rcfg.n_samples, rcfg.perturb,
+                                      rcfg.use_disp)
+        n, n_s = z_vals.shape
+        d = dict(z_vals=z_vals, u=None, fine_noise=None, sc_noise=None,
+                 sc_noise_fine=None)
+        d["noise"] = self._draw_noise(noise, noise_std, (n, n_s), generator)
+        if n_imp > 0:
+            d["u"] = u if u is not None else torch.rand(
+                (n, n_imp), generator=generator, dtype=torch.float32,
+                device=self.device)
+            d["fine_noise"] = self._draw_noise(fine_noise, noise_std,
+                                               (n, n_s + n_imp), generator)
+        if sc:
+            d["sc_noise"] = self._draw_noise(sc_noise, noise_std, (n, n_s),
+                                             generator)
+            if n_imp > 0:
+                d["sc_noise_fine"] = self._draw_noise(
+                    sc_noise_fine, noise_std, (n, n_s + n_imp), generator)
+        return d
+
     def loss_and_grads(self, params, rays, rgbs, ts, step: int,
                        generator: Optional[torch.Generator] = None,
                        z_vals=None, noise=None, *, sc_noise=None, depth=None,
-                       d_z_vals=None, d_noise=None):
-        """Loss, metrics and gradients of one batch (the n_importance == 0
-        branch of the JAX _fused_loss_and_grads).
+                       d_z_vals=None, d_noise=None, u=None, fine_noise=None,
+                       sc_noise_fine=None, d_u=None, d_fine_noise=None):
+        """Loss, metrics and gradients of one batch: the JAX
+        _fused_loss_and_grads in rays mode, value_and_grad of its
+        _loss_and_metrics in points and off mode.
 
         rays (B, 11), rgbs (B, 3), ts (B,) image ids, on the system's
         device; step the 0-based global step; depth = (d_rays (B, 11),
         d_targets (B, 2) [depth, weight], d_ts (B,)), the depth batch, when
-        ds_lambda > 0. z_vals (B, S), noise, sc_noise, d_z_vals, d_noise
-        (B, S) replace the draws from `generator` when given; an uninjected
-        call consumes the generator in that order, each noise only with
-        noise_std > 0, sc_noise only with sc_lambda > 0 and the last two
-        only with a depth batch. Returns (loss, metrics, grads) with grads
-        keyed like params.named_parameters(); metrics["loss"] is the loss
-        with the SC terms and before the depth term, as the JAX step logs it.
+        ds_lambda > 0. The keyword tensors replace the draws from
+        `generator`; an uninjected call consumes it in one order, whatever
+        the mode: for the color batch z_vals (B, S), noise (B, S), u
+        (B, n_importance), fine_noise (B, S + n_importance), sc_noise (B, S),
+        sc_noise_fine (B, S + n_importance); then for the depth batch
+        d_z_vals, d_noise, d_u, d_fine_noise. Each noise is drawn only with
+        noise_std > 0, u and the fine noises only with n_importance > 0, the
+        two sc noises only with sc_lambda > 0 and the last four only with a
+        depth batch. Returns (loss, metrics, grads) with grads keyed like
+        params.named_parameters(); metrics["loss"] is the loss with the SC
+        terms and before the depth term, as the JAX step logs it, and
+        metrics["psnr"] is of the fine model's MSE when there is one.
         """
-        cfg, rcfg = self.cfg, self.render_cfg
         self._check_supported(train=True)
-        field = params["nerf_coarse"]
-        kw = dict(layers=cfg.fc_layers, feat=cfg.fc_units, skip=4,
-                  use_beta=self.use_ts, tau=cfg.t_embbeding_tau,
-                  dtype=self.compute_dtype)
         noise_std = self._noise_std(step)
+        draws = self._draws(rays, generator, noise_std,
+                            self.render_cfg.solar_correction, z_vals, noise, u,
+                            fine_noise, sc_noise, sc_noise_fine)
+        d_draws = None
+        if self.depth and depth is not None:
+            d_draws = self._draws(depth[0], generator, noise_std, False,
+                                  d_z_vals, d_noise, d_u, d_fine_noise)
+        else:
+            depth = None
+        if self.fused_mode == "rays":
+            return self._rays_loss_and_grads(params, rays, rgbs, ts, step,
+                                             draws, depth, d_draws)
+        return self._autograd_loss_and_grads(params, rays, rgbs, ts, step,
+                                             draws, depth, d_draws)
 
-        def zvals(r):
-            return stratified_zvals(generator, r[:, 6:7], r[:, 7:8],
-                                    rcfg.n_samples, rcfg.perturb, rcfg.use_disp)
+    def _depth_render_loss(self, params, depth, d_draws):
+        """The depth loss of the key-point batch through the plain renderer
+        over the system's field functions, coarse and fine. It marches no
+        sun rays: the depth loss reads the depths only."""
+        d_rays, d_targets, d_ts = depth
+        res = render_rays(
+            self.field_fns(params), d_rays,
+            self._embed_ts(params, d_ts, d_rays.shape[0]), self.ds_render_cfg,
+            dtype=self.compute_dtype, noise=d_draws["noise"],
+            z_vals=d_draws["z_vals"], u=d_draws["u"],
+            fine_noise=d_draws["fine_noise"])
+        kp_w = 1.0 if self.cfg.ds_noweights else d_targets[:, 1]
+        return depth_loss(res, d_targets[:, 0], kp_w, self.cfg.ds_lambda)[0]
 
-        if z_vals is None:
-            z_vals = zvals(rays)
-        noise = self._draw_noise(noise, noise_std, z_vals.shape, generator)
+    def _rays_loss_and_grads(self, params, rays, rgbs, ts, step, draws, depth,
+                             d_draws):
+        cfg, n_imp = self.cfg, self.cfg.n_importance
+        kw = self._field_kw()
         with torch.no_grad():
             t_embed = self._embed_ts(params, ts, rays.shape[0])
         wmix = self.beta_gate(step)
-        parts, g_field, d_t = fused_train_loss_grads(
-            field, rays[:, 0:3], rays[:, 3:6], rays[:, 8:11], t_embed, z_vals,
-            noise, rgbs, wmix, beta_min=BETA_MIN, **kw)
-        if self.use_ts:
-            loss = (wmix * (parts["color_sat"] + parts["logbeta"])
-                    + (1.0 - wmix) * parts["mse"])
-        else:
-            loss = parts["mse"]
+        rays_o, rays_d, sun_d = rays[:, 0:3], rays[:, 3:6], rays[:, 8:11]
+
+        def mix(parts):
+            if self.use_ts:
+                return (wmix * (parts["color_sat"] + parts["logbeta"])
+                        + (1.0 - wmix) * parts["mse"])
+            return parts["mse"]
+
+        z_vals = draws["z_vals"]
+        out = fused_train_loss_grads(
+            params["nerf_coarse"], rays_o, rays_d, sun_d, t_embed, z_vals,
+            draws["noise"], rgbs, wmix, beta_min=BETA_MIN,
+            return_weights=n_imp > 0, **kw)
+        parts, g_field, d_t = out[:3]
+        loss = mix(parts)
         grads = {f"nerf_coarse.{k}": v for k, v in g_field.items()}
+        sc_passes = [("nerf_coarse", z_vals, draws["sc_noise"])]
+        if n_imp > 0:
+            # the two-launch dispatch: resample over the coarse weights, then
+            # the same kernel chain over the sorted union with the fine model
+            z_all = resample_zvals(None, z_vals, out[3], n_imp, det=False,
+                                   u=draws["u"])
+            parts, g_field, d_t_fine = fused_train_loss_grads(
+                params["nerf_fine"], rays_o, rays_d, sun_d, t_embed, z_all,
+                draws["fine_noise"], rgbs, wmix, beta_min=BETA_MIN, **kw)
+            loss = loss + mix(parts)
+            grads.update({f"nerf_fine.{k}": v for k, v in g_field.items()})
+            d_t = d_t + d_t_fine
+            sc_passes.append(("nerf_fine", z_all, draws["sc_noise_fine"]))
         table = params["embedding_t"].weight if self.use_ts else None
         if self.use_ts:
             grads["embedding_t.weight"] = torch.zeros_like(table).index_add_(
                 0, ts.long(), d_t.to(table.dtype))
 
-        if rcfg.solar_correction:
-            # the sun-ray pass: the primary pass's depths, its own noise
-            sc_noise = self._draw_noise(sc_noise, noise_std, z_vals.shape,
-                                        generator)
-            sc_parts, g_sc = fused_sc_loss_grads(
-                field, rays[:, 0:3], rays[:, 8:11], t_embed, z_vals, sc_noise,
-                cfg.sc_lambda, **kw)
-            loss = loss + sc_parts["term2"] + sc_parts["term3"]
-            for k, v in g_sc.items():
-                grads[f"nerf_coarse.{k}"] += v
+        if self.render_cfg.solar_correction:
+            # the sun-ray pass of each model: its depths, its own noise
+            for name, z_pass, sc_noise in sc_passes:
+                sc_parts, g_sc = fused_sc_loss_grads(
+                    params[name], rays_o, sun_d, t_embed, z_pass, sc_noise,
+                    cfg.sc_lambda, **kw)
+                loss = loss + sc_parts["term2"] + sc_parts["term3"]
+                for k, v in g_sc.items():
+                    grads[f"{name}.{k}"] += v
         metrics = {"loss": loss}  # with SC, before DS
 
-        if self.depth and depth is not None:
-            d_rays, d_targets, d_ts = depth
-            if d_z_vals is None:
-                d_z_vals = zvals(d_rays)
-            d_noise = self._draw_noise(d_noise, noise_std, d_z_vals.shape,
-                                       generator)
+        if depth is not None:
             # the reference compares its 1-based step counter (main.py:139)
             active = step + 1 < self.ds_drop_step
-            t_leaf = None
-            if self.use_ts:
-                t_leaf = self._embed_ts(params, d_ts, d_rays.shape[0]).detach()
-                t_leaf.requires_grad_(active)
             # once the term has dropped out only its value is logged: the
             # render runs without a graph and keeps no activations
-            with torch.set_grad_enabled(active):
-                out = fused_train_render_rays(
-                    field, d_rays[:, 0:3], d_rays[:, 3:6], d_rays[:, 8:11],
-                    t_leaf, d_z_vals, d_noise, **kw)
-                kp_w = 1.0 if cfg.ds_noweights else d_targets[:, 1]
-                ld, _ = depth_loss({"depth_coarse": out["depth"]},
-                                   d_targets[:, 0], kp_w, cfg.ds_lambda)
+            if n_imp > 0:
+                with torch.set_grad_enabled(active):
+                    ld = self._depth_render_loss(params, depth, d_draws)
+                if active:
+                    names, leaves = zip(*params.named_parameters())
+                    for name, g in zip(names, torch.autograd.grad(
+                            ld, leaves, allow_unused=True)):
+                        if g is not None:
+                            grads[name] += g
+            else:
+                ld = self._k4_depth_pass(params, depth, d_draws, active, grads)
             metrics["loss_depth"] = ld.detach()
             if active:
-                names = [f"nerf_coarse.{n}" for n, _ in field.named_parameters()]
-                leaves = list(field.parameters())
-                if self.use_ts:
-                    leaves.append(t_leaf)
-                d_grads = torch.autograd.grad(ld, leaves, allow_unused=True)
-                for name, g in zip(names, d_grads):
-                    if g is not None:
-                        grads[name] += g
-                if self.use_ts and d_grads[-1] is not None:
-                    grads["embedding_t.weight"].index_add_(
-                        0, d_ts.long(), d_grads[-1].to(table.dtype))
                 loss = loss + ld.detach()
 
         metrics["psnr"] = -10.0 * torch.log10(parts["mse"])
         metrics["loss_total"] = loss
         return loss, metrics, grads
 
+    def _k4_depth_pass(self, params, depth, d_draws, active: bool, grads):
+        """The coarse-only depth pass through fused_train_render_rays; adds
+        its gradients onto `grads` while active. Returns the depth loss."""
+        cfg, field = self.cfg, params["nerf_coarse"]
+        d_rays, d_targets, d_ts = depth
+        t_leaf = None
+        if self.use_ts:
+            t_leaf = self._embed_ts(params, d_ts, d_rays.shape[0]).detach()
+            t_leaf.requires_grad_(active)
+        with torch.set_grad_enabled(active):
+            out = fused_train_render_rays(
+                field, d_rays[:, 0:3], d_rays[:, 3:6], d_rays[:, 8:11],
+                t_leaf, d_draws["z_vals"], d_draws["noise"],
+                **self._field_kw())
+            kp_w = 1.0 if cfg.ds_noweights else d_targets[:, 1]
+            ld, _ = depth_loss({"depth_coarse": out["depth"]},
+                               d_targets[:, 0], kp_w, cfg.ds_lambda)
+        if active:
+            names = [f"nerf_coarse.{n}" for n, _ in field.named_parameters()]
+            leaves = list(field.parameters())
+            if self.use_ts:
+                leaves.append(t_leaf)
+            d_grads = torch.autograd.grad(ld, leaves, allow_unused=True)
+            for name, g in zip(names, d_grads):
+                if g is not None:
+                    grads[name] += g
+            if self.use_ts and d_grads[-1] is not None:
+                table = params["embedding_t"].weight
+                grads["embedding_t.weight"].index_add_(
+                    0, d_ts.long(), d_grads[-1].to(table.dtype))
+        return ld
+
+    def _autograd_loss_and_grads(self, params, rays, rgbs, ts, step, draws,
+                                 depth, d_draws):
+        """Points and off mode: the batch through the plain renderer, the
+        variant's loss with the beta gate and the SC terms, the depth pass,
+        and one backward over every parameter."""
+        cfg = self.cfg
+        with torch.enable_grad():
+            results = render_rays(
+                self.field_fns(params), rays,
+                self._embed_ts(params, ts, rays.shape[0]), self.render_cfg,
+                dtype=self.compute_dtype, noise=draws["noise"],
+                sc_noise=draws["sc_noise"], z_vals=draws["z_vals"],
+                u=draws["u"], fine_noise=draws["fine_noise"],
+                sc_noise_fine=draws["sc_noise_fine"])
+            if self.use_ts and self.beta_gate(step) == 1.0:
+                loss, _ = satnerf_loss(results, rgbs, cfg.sc_lambda)
+            else:
+                loss, _ = snerf_loss(results, rgbs, cfg.sc_lambda)
+            total = loss
+        metrics = {"loss": loss.detach()}
+        if depth is not None:
+            active = step + 1 < self.ds_drop_step
+            with torch.set_grad_enabled(active):
+                ld = self._depth_render_loss(params, depth, d_draws)
+                if active:
+                    total = total + ld
+            metrics["loss_depth"] = ld.detach()
+        names, leaves = zip(*params.named_parameters())
+        got = torch.autograd.grad(total, leaves, allow_unused=True)
+        grads = {n: (torch.zeros_like(p) if g is None else g)
+                 for n, p, g in zip(names, leaves, got)}
+        typ = "fine" if "rgb_fine" in results else "coarse"
+        mse = torch.mean((results[f"rgb_{typ}"].detach() - rgbs) ** 2)
+        metrics["psnr"] = -10.0 * torch.log10(mse)
+        metrics["loss_total"] = total.detach()
+        return metrics["loss_total"], metrics, grads
+
     def train_step(self, state: TrainState, data: dict,
                    generator: Optional[torch.Generator] = None, idx=None,
                    z_vals=None, noise=None, *, sc_noise=None, d_idx=None,
-                   d_z_vals=None, d_noise=None) -> dict:
+                   d_z_vals=None, d_noise=None, u=None, fine_noise=None,
+                   sc_noise_fine=None, d_u=None, d_fine_noise=None) -> dict:
         """One optimizer step on batches drawn from the device-resident
         `data` = {"rays" (N, 11), "rgbs" (N, 3), "ts" (N,)} plus, with
         ds_lambda > 0, {"d_rays" (M, 11), "d_depths" (M, 2), "d_ts" (M,)}
@@ -375,8 +605,9 @@ class NeRFSystem:
         the permutation at epoch_draw_positions; the depth batch always with
         replacement.
 
-        `idx` and `d_idx` (batch_size,), `z_vals`, `noise`, `sc_noise`,
-        `d_z_vals`, `d_noise` replace the draws from `generator`; with
+        `idx` and `d_idx` (batch_size,) and loss_and_grads' `z_vals`, `noise`,
+        `u`, `fine_noise`, `sc_noise`, `sc_noise_fine`, `d_z_vals`, `d_noise`,
+        `d_u`, `d_fine_noise` replace the draws from `generator`; with
         grad_accum N each is a sequence of N, one a micro-batch. An
         uninjected micro-batch consumes the generator in the order idx,
         d_idx, then loss_and_grads' order. With grad_accum N the losses,
@@ -387,7 +618,9 @@ class NeRFSystem:
         cfg = self.cfg
         accum = cfg.grad_accum
         injected = dict(idx=idx, z_vals=z_vals, noise=noise, sc_noise=sc_noise,
-                        d_idx=d_idx, d_z_vals=d_z_vals, d_noise=d_noise)
+                        d_idx=d_idx, d_z_vals=d_z_vals, d_noise=d_noise, u=u,
+                        fine_noise=fine_noise, sc_noise_fine=sc_noise_fine,
+                        d_u=d_u, d_fine_noise=d_fine_noise)
         if accum == 1:
             injected = {k: [v] for k, v in injected.items()}
         else:

@@ -18,7 +18,11 @@ recipe, heads_composite with sigma noise, composite_bwd from a random
 cotangent on all seven products (with clipped channels), sc_loss_bwd with a
 saturated ray, fused_sc_loss_grads and fused_train_render_rays (forward and
 backward) as a whole against autograd, and a train step with SC, DS,
-grad_accum and shuffle.
+grad_accum and shuffle; for the per-sample field, field_heads and
+field_heads_bwd at 1, 72 and 128 samples a ray with a ragged ray count and a
+faint sigma, fused_field_apply_rays and fused_field_apply (forward, backward
+and the input gradients) as a whole against autograd, and a hierarchical
+train step and render in each --fused mode.
 """
 
 import numpy as np
@@ -371,6 +375,12 @@ def test_sc_loss_bwd(dev, dtype, with_noise, n_rays):
     assert float(got["dbn"][rows].abs().max()) == 0.0
 
 
+def _grown(before: dict) -> dict:
+    """The kernels launched since `before` = dict(FM.LAUNCHES), with counts."""
+    return {k: FM.LAUNCHES[k] - before[k] for k in before
+            if FM.LAUNCHES[k] != before[k]}
+
+
 def _field_inputs(dev, variant, layers=8, feat=96, n_rays=53, n_s=24):
     field = build_model(variant, layers, feat,
                         generator=torch.Generator().manual_seed(3)).to(dev)
@@ -397,10 +407,8 @@ def test_fused_sc_loss_grads_fp32(dev, variant, with_noise):
             noise if with_noise else None, 0.1)
     before = dict(FM.LAUNCHES)
     parts, grads = FM.fused_sc_loss_grads(*args, **kw)
-    grown = {k: FM.LAUNCHES[k] - before[k] for k in before}
-    assert grown == {"siren_dense": 12, "sc_loss_bwd": 1, "siren_dense_dgrad": 11,
-                     "siren_dense_wgrad": 12, "heads_composite": 0,
-                     "composite_loss_bwd": 0, "composite_bwd": 0}
+    assert _grown(before) == {"siren_dense": 12, "sc_loss_bwd": 1,
+                              "siren_dense_dgrad": 11, "siren_dense_wgrad": 12}
     r_parts, r_grads = FM.fused_sc_loss_grads_reference(*args, **kw)
     for k in r_parts:
         assert abs(float(parts[k]) - float(r_parts[k])) <= 1e-5, k
@@ -440,11 +448,10 @@ def test_fused_train_render_rays_fp32(dev, variant, with_noise):
 
     before = dict(FM.LAUNCHES)
     out, grads = run(FM.fused_train_render_rays)
-    grown = {k: FM.LAUNCHES[k] - before[k] for k in before}
-    assert grown == {"siren_dense": 15 if use_beta else 14, "heads_composite": 1,
-                     "composite_bwd": 1, "siren_dense_dgrad": 13 if use_beta else 12,
-                     "siren_dense_wgrad": 15 if use_beta else 14,
-                     "composite_loss_bwd": 0, "sc_loss_bwd": 0}
+    assert _grown(before) == {
+        "siren_dense": 15 if use_beta else 14, "heads_composite": 1,
+        "composite_bwd": 1, "siren_dense_dgrad": 13 if use_beta else 12,
+        "siren_dense_wgrad": 15 if use_beta else 14}
     r_out, r_grads = run(FM.fused_train_render_rays_reference)
     assert set(out) == set(r_out)
     for k in r_out:
@@ -594,3 +601,226 @@ def test_kernel_refuses_bad_inputs(dev):
     with pytest.raises(ValueError):
         FM.heads_composite(h, half, half, None, torch.zeros(4, 32, device=dev),
                            wn, bn, z16, noise=torch.zeros(8, 4, device=dev))
+
+
+# --------------------------------------------------- the per-sample field
+
+
+def _heads_inputs(dev, dtype, beta, n_rays, n_s, seed, feat=64):
+    g = torch.Generator().manual_seed(seed)
+    p, fh = n_rays * n_s, feat // 2
+
+    def t(*shape, scale=1.0):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * scale).to(dev, dtype)
+
+    h, r, s2 = t(p, feat), t(p, fh), t(p, fh)
+    bh = t(p, fh) if beta else None
+    skyh = torch.relu(t(n_rays, fh))
+    wn, bn = t(9, feat, scale=0.5), torch.randn(9, generator=g).to(dev)
+    cot = torch.randn(p, 16, generator=g).to(dev)
+    return (h, r, s2, bh, skyh, wn, bn, n_s), cot
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("beta,n_rays,n_s,feat", [
+    (True, 37, 1, 64), (True, 37, 72, 64), (False, 37, 128, 64),
+    (True, 5, 128, 512), (True, 1037, 1, 100)])
+def test_field_heads(dev, dtype, beta, n_rays, n_s, feat):
+    """Every point count here leaves the last block and the last warp
+    ragged; feat 100 leaves the last lane's columns ragged too."""
+    args, _ = _heads_inputs(dev, dtype, beta, n_rays, n_s, 20, feat)
+    before = dict(FM.LAUNCHES)
+    out = FM.field_heads(*args)
+    assert _grown(before) == {"field_heads": 1}
+    ref = FM.field_heads_reference(*args)
+    assert out.shape == ref.shape == (n_rays * n_s, 16)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=1e-5)
+    assert float(out[:, 9:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("beta,n_rays,n_s,feat", [
+    (True, 37, 1, 64), (True, 37, 72, 64), (False, 37, 128, 64),
+    (True, 5, 128, 512), (True, 1037, 1, 100)])
+def test_field_heads_bwd(dev, dtype, beta, n_rays, n_s, feat):
+    args, cot = _heads_inputs(dev, dtype, beta, n_rays, n_s, 21, feat)
+    before = dict(FM.LAUNCHES)
+    got = FM.field_heads_bwd(*args, cot)
+    assert _grown(before) == {"field_heads_bwd": 1}
+    ref = FM.field_heads_bwd_reference(*args, cot)
+    _hold_cotangents(got, ref, dtype)
+
+
+def test_field_heads_bwd_at_a_faint_sigma(dev):
+    """A sigma of 1e-10: softplus' is 1e-10 too, which 1 - exp(-sigma)
+    rounds to 0 in float32 and -expm1(-sigma) keeps."""
+    (h, r, s2, bh, skyh, wn, bn, n_s), cot = _heads_inputs(
+        dev, torch.float32, True, 37, 16, 22)
+    wn[0] = 0.0
+    bn[0] = -23.0
+    cot[:, 3] = cot[:, 3].abs() + 1.0
+    args = (h, r, s2, bh, skyh, wn, bn, n_s)
+    got = FM.field_heads_bwd(*args, cot)
+    ref = FM.field_heads_bwd_reference(*args, cot)
+    assert float(ref["dbn"][0]) > 1e-9
+    assert abs(float(got["dbn"][0]) / float(ref["dbn"][0]) - 1.0) <= 1e-4
+    _hold_cotangents(got, ref, torch.float32)
+
+
+def _field_contract(out, cots):
+    return sum((out[k] * cots[k]).sum() for k in out)
+
+
+@pytest.mark.parametrize("variant,n_s", [("sat-nerf", 24), ("s-nerf", 24),
+                                         ("sat-nerf", 72)])
+def test_fused_field_apply_rays_fp32(dev, variant, n_s):
+    """K5 forward and backward in fp32 at a narrow, non-tile width against
+    plain autograd through the field module, a random cotangent on every
+    per-sample output: outputs 1e-4, gradients 1e-3 of each tensor's largest
+    entry."""
+    use_beta = variant == "sat-nerf"
+    field, g, o, d, sun, t, z, _ = _field_inputs(dev, variant, n_s=n_s)
+    kw = dict(layers=8, feat=96, use_beta=use_beta, dtype=torch.float32)
+    cots = None
+
+    def run(fn):
+        nonlocal cots
+        t_leaf = t.clone().requires_grad_(True) if use_beta else None
+        out = fn(field, o, d, sun, t_leaf, z, **kw)
+        if cots is None:
+            cots = {k: torch.randn(v.shape, generator=g).to(dev)
+                    for k, v in out.items()}
+        leaves = list(field.parameters()) + ([t_leaf] if use_beta else [])
+        return out, torch.autograd.grad(_field_contract(out, cots), leaves,
+                                        allow_unused=True)
+
+    before = dict(FM.LAUNCHES)
+    out, grads = run(FM.fused_field_apply_rays)
+    assert _grown(before) == {
+        "siren_dense": 15 if use_beta else 14, "field_heads": 1,
+        "field_heads_bwd": 1, "siren_dense_dgrad": 13 if use_beta else 12,
+        "siren_dense_wgrad": 15 if use_beta else 14}
+    r_out, r_grads = run(FM.fused_field_apply_rays_reference)
+    assert set(out) == set(r_out)
+    for k in r_out:
+        assert out[k].shape == r_out[k].shape, k
+        np.testing.assert_allclose(out[k].detach().cpu().numpy(),
+                                   r_out[k].detach().cpu().numpy(), atol=1e-4,
+                                   err_msg=k)
+    names = [n for n, _ in field.named_parameters()] + (["t_embed"] if use_beta else [])
+    for name, got, ref in zip(names, grads, r_grads):
+        assert got is not None and got.shape == ref.shape, name
+        assert _rel(got, ref) <= 1e-3, (name, _rel(got, ref))
+    # without a graph the forward saves nothing and launches the serving chain
+    before = dict(FM.LAUNCHES)
+    with torch.no_grad():
+        quiet = FM.fused_field_apply_rays(field, o, d, sun, t, z, **kw)
+    assert _grown(before) == {"siren_dense": 15 if use_beta else 14,
+                              "field_heads": 1}
+    for k in out:
+        assert quiet[k].grad_fn is None
+        assert float((quiet[k] - out[k].detach()).abs().max()) <= 1e-6, k
+
+
+@pytest.mark.parametrize("variant", ["sat-nerf", "s-nerf"])
+def test_fused_field_apply_fp32(dev, variant):
+    """K6 on points of leading shape (53, 7), every point with its own sun
+    direction and embedding: outputs 1e-4; parameter gradients and the
+    gradients of xyz, sun_dir and t_embed 1e-3 of each tensor's largest
+    entry."""
+    use_beta = variant == "sat-nerf"
+    field, g, *_ = _field_inputs(dev, variant)
+    lead = (53, 7)
+    xyz = (torch.rand(*lead, 3, generator=g) - 0.5).to(dev)
+    sun = torch.nn.functional.normalize(
+        torch.randn(*lead, 3, generator=g), dim=-1).to(dev)
+    t = torch.randn(*lead, 4, generator=g).to(dev)
+    kw = dict(layers=8, feat=96, use_beta=use_beta, dtype=torch.float32)
+    cots = None
+
+    def run(fn):
+        nonlocal cots
+        ins = [xyz.clone().requires_grad_(True), sun.clone().requires_grad_(True)]
+        if use_beta:
+            ins.append(t.clone().requires_grad_(True))
+        out = fn(field, *ins, **kw)
+        if cots is None:
+            cots = {k: torch.randn(v.shape, generator=g).to(dev)
+                    for k, v in out.items()}
+        return out, torch.autograd.grad(_field_contract(out, cots),
+                                        list(field.parameters()) + ins,
+                                        allow_unused=True)
+
+    before = dict(FM.LAUNCHES)
+    out, grads = run(FM.fused_field_apply)
+    assert _grown(before)["field_heads_bwd"] == 1
+    r_out, r_grads = run(FM.fused_field_apply_reference)
+    for k in r_out:
+        assert out[k].shape == r_out[k].shape, k
+        np.testing.assert_allclose(out[k].detach().cpu().numpy(),
+                                   r_out[k].detach().cpu().numpy(), atol=1e-4,
+                                   err_msg=k)
+    names = [n for n, _ in field.named_parameters()] + ["xyz", "sun_dir", "t_embed"]
+    for name, got, ref in zip(names, grads, r_grads):
+        assert got is not None and got.shape == ref.shape, name
+        assert _rel(got, ref) <= 1e-3, (name, _rel(got, ref))
+
+
+@pytest.mark.parametrize("fused,n_imp", [("rays", 8), ("on", 8), ("off", 8),
+                                         ("rays", 64)])
+def test_hierarchical_step_and_render_on_the_card(dev, fused, n_imp):
+    """A hierarchical full-recipe step and a render in each --fused mode:
+    rays goes through the per-ray kernels twice and K5 in the depth pass,
+    on through K6, off launches nothing."""
+    from satnerf_tpu_torch.config import Config
+    from satnerf_tpu_torch.train.system import NeRFSystem
+
+    n = 512
+    cfg = Config(model="sat-nerf", fc_layers=8, fc_units=64, n_samples=16,
+                 n_importance=n_imp, batch_size=128, max_train_steps=20,
+                 sc_lambda=0.1, ds_lambda=10.0, ds_drop=0.3, fused=fused,
+                 first_beta_epoch=1, chunk=256)
+    system = NeRFSystem(cfg, device=dev, dataset_len=n)
+    g = torch.Generator().manual_seed(6)
+    rays = torch.rand(n, 11, generator=g)
+    rays[:, 3:6] = torch.nn.functional.normalize(rays[:, 3:6], dim=1)
+    rays[:, 8:11] = torch.nn.functional.normalize(rays[:, 8:11], dim=1)
+    rays[:, 6], rays[:, 7] = 0.0, 1.0
+    data = {"rays": rays.to(dev), "rgbs": torch.rand(n, 3, generator=g).to(dev),
+            "ts": torch.randint(0, 5, (n,), generator=g).to(dev)}
+    data.update(d_rays=data["rays"][:64].clone(),
+                d_depths=torch.rand(64, 2, generator=g).to(dev),
+                d_ts=data["ts"][:64].clone())
+    state = system.init_state(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    steps = 8
+    before = dict(FM.LAUNCHES)
+    for _ in range(steps):
+        m = system.train_step(state, data, gen)
+        assert all(bool(torch.isfinite(torch.as_tensor(v)).all())
+                   for v in m.values())
+    grown = _grown(before)
+    active = 5  # steps 0..4: step + 1 < 6
+    if fused == "rays":
+        assert grown["composite_loss_bwd"] == 2 * steps
+        assert grown["sc_loss_bwd"] == 2 * steps
+        assert grown["field_heads"] == 2 * steps
+        assert grown["field_heads_bwd"] == 2 * active
+        assert "composite_bwd" not in grown and "heads_composite" not in grown
+    elif fused == "on":
+        # per model: the color render, its sun-ray pass and the depth render
+        assert grown["field_heads"] == 6 * steps
+        assert grown["field_heads_bwd"] == 4 * steps + 2 * active
+        assert "composite_loss_bwd" not in grown and "sc_loss_bwd" not in grown
+    else:
+        assert grown == {}
+    before = dict(FM.LAUNCHES)
+    out = system.render_image(state.params, rays.numpy(), data["ts"].cpu().numpy())
+    grown = _grown(before)
+    assert out["rgb_fine"].shape == (n, 3) and np.isfinite(out["depth_fine"]).all()
+    if fused == "rays":
+        assert grown["heads_composite"] == 4 and "field_heads" not in grown
+    elif fused == "on":
+        assert grown["field_heads"] == 4 and "field_heads_bwd" not in grown
+    else:
+        assert grown == {}

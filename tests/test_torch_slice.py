@@ -1,7 +1,11 @@
 """The serving slice end to end on the CPU: the port's NeRFSystem and
 create_pretty_dsm against the JAX package's, with the same weights on a
-32 x 32 synthetic AOI (8 x 32 sat-nerf, 16 samples, f32, JAX --fused off)."""
+32 x 32 synthetic AOI (8 x 32 sat-nerf, 16 samples, f32, JAX --fused off).
+The port's system renders in rays mode (the per-ray products); its entry
+points read `fused: off` from opts.json and render through the plain
+renderer."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -47,7 +51,7 @@ def run(tmp_path_factory):
     jparams = jsys.init_params(jax.random.PRNGKey(0))
     params_np = jax.tree_util.tree_map(np.asarray, jax.device_get(jparams))
 
-    system = NeRFSystem(cfg, device="cpu")
+    system = NeRFSystem(dataclasses.replace(cfg, fused="rays"), device="cpu")
     params = system.init_params()
     params.load_state_dict(params_from_jax(params_np, cfg.model, cfg.fc_layers))
     save_checkpoint(checkpoint_path(cfg.ckpts_dir, RUN, 1), params)
@@ -136,15 +140,91 @@ def test_precision_and_card_only_limits():
     assert (NeRFSystem(Config(precision="float32"), "cuda").compute_dtype
             == torch.float32)
     NeRFSystem(Config(model="nerf"), "cpu")._check_supported()
-    for cfg in (Config(model="nerf"), Config(n_importance=8)):
-        with pytest.raises(NotImplementedError):
-            NeRFSystem(cfg, "cuda")._check_supported()
+    NeRFSystem(Config(n_importance=8), "cuda")._check_supported()
+    with pytest.raises(NotImplementedError, match="K8"):
+        NeRFSystem(Config(model="nerf"), "cuda")._check_supported()
 
 
 def test_unported_paths_raise(run):
-    cfg = Config(**{**run["cfg"].__dict__, "n_importance": 8})
-    system = NeRFSystem(cfg, device="cpu")
+    """What is still to port raises, naming its kernel; the hierarchical
+    path, which used to, renders a fine model now."""
     rays = np.zeros((4, 11), np.float32)
     rays[:, 7] = 1.0
-    with pytest.raises(NotImplementedError):
-        system.render_image(system.init_params(), rays, None)
+    rays[:, 5] = rays[:, 10] = 1.0
+    with pytest.raises(NotImplementedError, match="K7"):
+        NeRFSystem(Config(**{**run["cfg"].__dict__, "model": "nerf"}),
+                   device="cpu")._check_supported(train=True)
+    for fused, n_w in (("rays", 1), ("off", 16 + 8)):
+        cfg = Config(**{**run["cfg"].__dict__, "n_importance": 8,
+                        "fused": fused})
+        system = NeRFSystem(cfg, device="cpu")
+        out = system.render_image(
+            system.init_params(torch.Generator().manual_seed(0)), rays, None)
+        assert out["rgb_fine"].shape == (4, 3)
+        assert out["weights_fine"].shape == (4, n_w)
+        assert np.isfinite(out["depth_fine"]).all()
+
+
+@pytest.fixture(scope="module")
+def run_hier(run, tmp_path_factory):
+    """The same AOI with a fine model: JAX params {coarse, fine, t} through
+    params_from_jax into a port .ckpt, 16 + 8 samples."""
+    root = tmp_path_factory.mktemp("slice_hier")
+    cfg = dataclasses.replace(run["cfg"], n_importance=8,
+                              logs_dir=str(root / "logs"),
+                              ckpts_dir=str(root / "ckpts"))
+    cfg.dump()
+    jsys = JaxSystem(cfg, dataset_len=cfg.batch_size)
+    jparams = jsys.init_params(jax.random.PRNGKey(1))
+    params_np = jax.tree_util.tree_map(np.asarray, jax.device_get(jparams))
+    assert set(params_np) == {"coarse", "fine", "t"}
+    system = NeRFSystem(dataclasses.replace(cfg, fused="rays"), device="cpu")
+    params = system.init_params()
+    params.load_state_dict(params_from_jax(params_np, cfg.model, cfg.fc_layers))
+    save_checkpoint(checkpoint_path(cfg.ckpts_dir, RUN, 1), params)
+    return {"cfg": cfg, "root": root, "jsys": jsys, "jparams": jparams,
+            "system": system, "params": params}
+
+
+def test_hierarchical_render_image_matches_jax(run_hier):
+    """The two-launch serving dispatch (coarse products with weights, the
+    deterministic resampling, the fine products) against the JAX plain
+    render of the same weights."""
+    cfg = run_hier["cfg"]
+    rays = SatelliteScene(cfg.root_dir, None, split="val").load_image(0)["rays"]
+    ts = np.full(rays.shape[0], 1, np.int32)
+    ref = run_hier["jsys"].render_image(run_hier["jparams"], rays, ts)
+    out = run_hier["system"].render_image(run_hier["params"], rays, ts)
+    n = rays.shape[0]
+    assert out["weights_fine"].shape == (n, 1)
+    w = ref["weights_fine"]
+    assert w.shape == (n, cfg.n_samples + cfg.n_importance)
+    for typ in ("coarse", "fine"):
+        for k in ("rgb", "depth"):
+            np.testing.assert_allclose(out[f"{k}_{typ}"], ref[f"{k}_{typ}"],
+                                       atol=ATOL, err_msg=f"{k}_{typ}")
+    for k in ("sun", "albedo", "sky", "beta"):
+        np.testing.assert_allclose(
+            out[f"{k}_fine"][:, 0], (w[..., None] * ref[f"{k}_fine"]).sum(-2),
+            atol=ATOL, err_msg=k)
+    np.testing.assert_allclose(out["opacity_fine"], w.sum(-1), atol=ATOL)
+
+
+def test_hierarchical_dsm_and_eval_match_jax(run_hier):
+    import create_dsm
+    import eval as jax_eval
+    from satnerf_tpu_torch.cli.create_dsm import create_pretty_dsm
+    from satnerf_tpu_torch.cli.eval import eval_aoi
+
+    cfg, root = run_hier["cfg"], run_hier["root"]
+    mae = create_pretty_dsm(RUN, cfg.logs_dir, str(root / "out_torch"), 1,
+                            device="cpu")
+    mae_jax = create_dsm.create_pretty_dsm(RUN, cfg.logs_dir,
+                                           str(root / "out_jax"), 1)
+    assert np.isfinite(mae) and abs(mae - mae_jax) <= 1e-2
+    got = eval_aoi(RUN, cfg.logs_dir, str(root / "eval_torch"), 1,
+                   device="cpu")
+    ref = jax_eval.eval_aoi(RUN, cfg.logs_dir, str(root / "eval_jax"), 1)
+    assert abs(got["psnr"] - ref["psnr"]) <= 1e-3
+    assert abs(got["ssim"] - ref["ssim"]) <= 1e-3
+    assert abs(got["mae"] - ref["mae"]) <= 1e-2

@@ -64,7 +64,7 @@ def test_grad_accum_2_is_the_mean_of_two_micro_batches(eight_devices, variant):
     data = _data()
     sys_j = JaxSystem(JaxConfig(model=variant, fused="off", grad_accum=2, **KW),
                       dataset_len=N_DATA)
-    sys_t = NeRFSystem(Config(model=variant, grad_accum=2, **KW), device="cpu",
+    sys_t = NeRFSystem(Config(model=variant, grad_accum=2, fused="rays", **KW), device="cpu",
                        dataset_len=N_DATA)
     assert sys_j.spe == sys_t.spe == N_DATA // (2 * B)
     params = sys_j.init_params(jax.random.PRNGKey(0))
@@ -89,7 +89,7 @@ def test_grad_accum_2_is_the_mean_of_two_micro_batches(eight_devices, variant):
     t_data = _t_data(data)
 
     # the port's micro-batches one by one
-    single = NeRFSystem(Config(model=variant, **KW), device="cpu",
+    single = NeRFSystem(Config(model=variant, fused="rays", **KW), device="cpu",
                         dataset_len=N_DATA)
     state1 = single.init_state(torch.Generator().manual_seed(0))
     state1.params.load_state_dict(start)

@@ -135,11 +135,9 @@ def test_jax_package_reads_the_trained_checkpoint(trained):
 
 def test_unported_training_options_raise(trained):
     root = trained["root"]
-    for extra, word in ((["--n_importance", "8"], "hierarchical"),
-                        (["--model", "nerf"], "K7")):
-        with pytest.raises(NotImplementedError, match=word):
-            cli_train.main(_argv(root, trained["data_dir"], trained["gt_dir"],
-                                 4, "no", extra))
+    with pytest.raises(NotImplementedError, match="K7"):
+        cli_train.main(_argv(root, trained["data_dir"], trained["gt_dir"],
+                             4, "no", ["--model", "nerf"]))
 
 
 FULL = ["--sc_lambda", "0.1", "--ds_lambda", "1000", "--ds_drop", "0.5"]
@@ -208,3 +206,110 @@ def test_depth_supervision_without_key_points_fails_at_the_dataset(trained):
     with pytest.raises(FileNotFoundError, match="pts3d.npy"):
         cli_train.main(_argv(trained["root"], trained["data_dir"],
                              trained["gt_dir"], 4, "no", ["--ds_lambda", "1"]))
+
+
+HIER = FULL + ["--n_importance", "4"]
+
+
+@pytest.fixture(scope="module")
+def trained_hier(trained_full):
+    """The full recipe with hierarchical sampling, on the AOI with key
+    points: a fine model, four resampled depths a ray. `--fused auto` is the
+    plain renderer on the CPU."""
+    root = trained_full["root"]
+    out = cli_train.main(_argv(root, trained_full["data_dir"],
+                               trained_full["gt_dir"], STEPS, "hier", HIER))
+    return {**trained_full, **out}
+
+
+def test_hierarchical_recipe_trains_a_fine_model(trained_hier):
+    cfg, system = trained_hier["cfg"], trained_hier["system"]
+    assert cfg.n_importance == 4 and system.fused_mode == "off"
+    assert system.depth and system.render_cfg.solar_correction
+    assert trained_hier["state"].step == STEPS
+    rows = [r for r in _logged(cfg) if "train/loss" in r]
+    assert [r["step"] for r in rows] == list(range(4, STEPS + 1, 4))
+    assert all(np.isfinite(r["train/loss"]) and np.isfinite(r["train/loss_depth"])
+               for r in rows)
+    ckpt = torch.load(os.path.join(cfg.ckpts_dir, cfg.exp_name, "epoch=2.ckpt"),
+                      weights_only=True)
+    names = set(ckpt["state_dict"])
+    coarse = {n for n in names if n.startswith("nerf_coarse.")}
+    fine = {n for n in names if n.startswith("nerf_fine.")}
+    assert fine and {n.replace("nerf_coarse.", "nerf_fine.") for n in coarse} == fine
+    # Adam keeps moments for the fine model too
+    assert len(ckpt["optimizer_states"][0]["state"]) == len(names)
+    # the fine model moved away from the coarse one it was seeded beside
+    sd = ckpt["state_dict"]
+    assert not torch.equal(sd["nerf_fine.fc_net.0.weight"],
+                           sd["nerf_coarse.fc_net.0.weight"])
+    assert all(np.isfinite(v) for v in trained_hier["metrics"].values())
+
+
+def test_hierarchical_run_resumes_and_serves(trained_hier, capsys):
+    from satnerf_tpu_torch.cli.create_dsm import create_pretty_dsm
+    from satnerf_tpu_torch.cli.eval import eval_aoi
+
+    cfg, root = trained_hier["cfg"], trained_hier["root"]
+    ckpt = os.path.join(cfg.ckpts_dir, cfg.exp_name, "epoch=2.ckpt")
+    out = cli_train.main(_argv(root, trained_hier["data_dir"],
+                               trained_hier["gt_dir"], RESUMED_STEPS,
+                               "hier_resumed", HIER + ["--ckpt_path", ckpt]))
+    assert f"resumed from {ckpt} at step {STEPS}" in capsys.readouterr().out
+    assert out["state"].step == RESUMED_STEPS
+    steps = {float(s["step"]) for s in out["state"].optimizer.state.values()}
+    assert steps == {float(RESUMED_STEPS)}
+    mae = create_pretty_dsm(cfg.exp_name, cfg.logs_dir, str(root / "out_hier"),
+                            2, device="cpu")
+    assert np.isfinite(mae)
+    assert glob.glob(os.path.join(root, "out_hier", cfg.exp_name,
+                                  "*_dsm_epoch2.tif"))
+    got = eval_aoi(cfg.exp_name, cfg.logs_dir, str(root / "eval_hier"), 2,
+                   device="cpu")
+    assert all(np.isfinite(v) for v in got.values())
+
+
+def test_jax_package_serves_the_hierarchical_checkpoint(trained_hier):
+    """The JAX package reads the port's run (opts.json and the torch .ckpt
+    through import_torch_checkpoint) and renders the same fine image (1e-4)
+    and the same DSM (altitude MAE within 1e-2 m)."""
+    import create_dsm
+    from satnerf_tpu_torch.cli.create_dsm import create_pretty_dsm
+
+    cfg, root = trained_hier["cfg"], trained_hier["root"]
+    ckpt = os.path.join(cfg.ckpts_dir, cfg.exp_name, "epoch=2.ckpt")
+    jparams = import_torch_checkpoint(ckpt, "sat-nerf", layers=4)
+    assert "fine" in jparams
+    jcfg = JaxConfig(model="sat-nerf", fc_layers=4, fc_units=32, n_samples=8,
+                     n_importance=4, chunk=512, fused="off",
+                     precision="float32")
+    jsys = JaxSystem(jcfg, dataset_len=jcfg.batch_size)
+    jparams = jax.tree_util.tree_map(jax.numpy.asarray, jparams)
+    system, params = load_nerf(cfg.exp_name, cfg.logs_dir, cfg.ckpts_dir, 2,
+                               device="cpu")
+    rays = SatelliteScene(cfg.root_dir, None, split="val").load_image(1)["rays"]
+    ts = np.full(rays.shape[0], 1, np.int32)
+    ref = jsys.render_image(jparams, rays, ts)
+    got = system.render_image(params, rays, ts)
+    for k in ("rgb_coarse", "depth_coarse", "rgb_fine", "depth_fine"):
+        np.testing.assert_allclose(got[k], ref[k], atol=1e-4, err_msg=k)
+    mae = create_pretty_dsm(cfg.exp_name, cfg.logs_dir, str(root / "dsm_t"), 2,
+                            device="cpu")
+    mae_jax = create_dsm.create_pretty_dsm(cfg.exp_name, cfg.logs_dir,
+                                           str(root / "dsm_j"), 2)
+    assert np.isfinite(mae) and abs(mae - mae_jax) <= 1e-2
+
+
+@pytest.mark.parametrize("fused", ["on", "rays"])
+def test_fused_on_and_rays_train_on_the_cpu(trained_full, fused):
+    """`--fused on` (the plain renderer over the point-mode field) and
+    `--fused rays` (the per-ray chains) with a fine model: on the CPU both
+    run their plain versions; neither raises any more."""
+    out = cli_train.main(_argv(
+        trained_full["root"], trained_full["data_dir"], trained_full["gt_dir"],
+        8, f"fused_{fused}", HIER + ["--fused", fused]))
+    assert out["system"].fused_mode == {"on": "points", "rays": "rays"}[fused]
+    assert out["state"].step == 8
+    rows = [r for r in _logged(out["cfg"]) if "train/loss" in r]
+    assert rows and all(np.isfinite(r["train/loss"]) for r in rows)
+    assert all(np.isfinite(v) for v in out["metrics"].values())

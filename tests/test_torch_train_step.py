@@ -1,8 +1,9 @@
 """The port's train_step against the JAX step, from the same weights, Adam
 state and draws, float32 on the CPU.
 
-JAX side: `_loss_and_metrics` of the XLA path (`--fused off`) under
-jax.value_and_grad, then `system.tx.update` and `optax.apply_updates`, the
+The port runs in rays mode (`fused="rays"`: the per-ray kernels' plain
+versions on the CPU). JAX side: `_loss_and_metrics` of the XLA path
+(`--fused off`) under jax.value_and_grad, then `system.tx.update` and `optax.apply_updates`, the
 body of `local_step`. Two JAX steps are taken first, so that the Adam state
 the port starts from (train/checkpoints.adam_from_jax) is not empty. Then
 six steps on both sides, with the batch indices and the stratified depths
@@ -94,9 +95,9 @@ def test_trajectory_matches_jax_step(eight_devices, variant):
     data = _data()
     sys_j = JaxSystem(JaxConfig(model=variant, fused="off", **KW),
                       dataset_len=N_DATA)
-    sys_t = NeRFSystem(Config(model=variant, **KW), device="cpu",
+    sys_t = NeRFSystem(Config(model=variant, fused="rays", **KW), device="cpu",
                        dataset_len=N_DATA)
-    assert sys_j.spe == sys_t.spe == 3
+    assert sys_j.spe == sys_t.spe == 3 and sys_t.fused_mode == "rays"
     params = sys_j.init_params(jax.random.PRNGKey(0))
     opt_state = sys_j.tx.init(params)
     _jax_step = _make_jax_step(sys_j)
@@ -188,8 +189,8 @@ def test_full_recipe_trajectory_matches_jax_step(eight_devices, variant):
     depth = _depth_data(data[0])
     sys_j = JaxSystem(JaxConfig(model=variant, fused="off", **KW_FULL),
                       dataset_len=N_DATA, depth_dataset_len=N_DEPTH)
-    sys_t = NeRFSystem(Config(model=variant, **KW_FULL), device="cpu",
-                       dataset_len=N_DATA)
+    sys_t = NeRFSystem(Config(model=variant, fused="rays", **KW_FULL),
+                       device="cpu", dataset_len=N_DATA)
     assert sys_j.ds_drop_step == sys_t.ds_drop_step == 5
     assert sys_t.depth and sys_t.render_cfg.solar_correction
     params = sys_j.init_params(jax.random.PRNGKey(0))
@@ -304,14 +305,22 @@ def test_train_step_draws_and_options():
     assert system._noise_std(0) == 1.0 and abs(system._noise_std(2) - 0.81) < 1e-12
     assert NeRFSystem(Config(model="sat-nerf", **KW), "cpu")._noise_std(5) is None
 
-    for kw, word in ((dict(n_importance=8), "hierarchical"),
-                     (dict(model="nerf"), "K7")):
-        s = NeRFSystem(Config(**{**KW, **kw}), device="cpu", dataset_len=N_DATA)
-        with pytest.raises(NotImplementedError, match=word):
-            s._check_supported(train=True)
+    s = NeRFSystem(Config(**{**KW, "model": "nerf"}), device="cpu",
+                   dataset_len=N_DATA)
+    with pytest.raises(NotImplementedError, match="K7"):
+        s._check_supported(train=True)
     for kw in (dict(sc_lambda=0.05), dict(ds_lambda=1.0), dict(grad_accum=2),
-               dict(sampling="shuffle")):  # these train now
+               dict(sampling="shuffle"), dict(n_importance=8),
+               dict(fused="on"), dict(fused="off")):  # these train now
         NeRFSystem(Config(**{**KW, **kw}), device="cpu",
                    dataset_len=N_DATA)._check_supported(train=True)
     assert NeRFSystem(Config(device="cpu")).device.type == "cpu"
     assert NeRFSystem(Config()).device.type == "cuda"  # the card by default
+    # --fused resolves as in the JAX system: auto is rays on the card, off on
+    # the CPU; on is the point-mode field kernel; nerf has no kernel yet
+    modes = {("auto", "cuda"): "rays", ("auto", "cpu"): "off",
+             ("rays", "cpu"): "rays", ("on", "cuda"): "points",
+             ("on", "cpu"): "points", ("off", "cuda"): "off"}
+    for (fused, dev), mode in modes.items():
+        assert NeRFSystem(Config(fused=fused), dev).fused_mode == mode
+    assert NeRFSystem(Config(model="nerf", fused="on"), "cpu").fused_mode == "off"

@@ -11,13 +11,18 @@ rays, batch 1024: 20 warm-up steps, three timed runs of 50 steps (steps/s,
 rays/s), then 10 profiled steps. --sc_lambda and --ds_lambda turn on the
 solar-correction pass and the depth-supervision pass (a depth set of 4,096
 of the rays with random targets; the depth term stays active throughout),
-the full recipe's step.
+the full recipe's step. --n_importance N adds the fine model (N resampled
+depths a ray: the two-launch dispatch in serving and training, the depth
+pass through the ray-mode field kernel) and prints the time of the
+resampling alone (sample_pdf, the sort and the merge) at the shape of the
+run; --fused on | off | rays picks the path as `cli.train --fused` does.
 
 Prints the card, the wall time, the summed device kernel time, the idle
-share, and the kernels by device time.
+share, the peak device memory, and the kernels by device time.
 
   python3 tools/profile_render_torch.py [--rays N] [--chunk C] [--train]
-      [--batch B] [--sc_lambda L] [--ds_lambda L]
+      [--batch B] [--sc_lambda L] [--ds_lambda L] [--n_importance N]
+      [--fused auto|rays|on|off]
 """
 
 import argparse
@@ -47,6 +52,35 @@ def report(prof, wall_ms: float, card: str, what: str) -> None:
         print(f"{ms:10.2f} ms {count:5d}x  {key[:110]}")
 
 
+def time_resampling(system, n_rays: int, det: bool, card: str) -> None:
+    """The resampling of one pass alone: sample_pdf over (n_rays, S - 2)
+    weights, the sort and the merge into (n_rays, S + n_importance)."""
+    from satnerf_tpu_torch.render.render import resample_zvals
+
+    cfg, dev = system.cfg, system.device
+    gen = torch.Generator(device=dev).manual_seed(2)
+    z = torch.sort(torch.rand((n_rays, cfg.n_samples), generator=gen,
+                              device=dev), 1)[0]
+    w = torch.rand((n_rays, cfg.n_samples), generator=gen, device=dev) ** 3
+    run = lambda: resample_zvals(gen, z, w, cfg.n_importance, det=det)  # noqa: E731
+    for _ in range(3):
+        run()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(20):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    print(f"resampling alone (sample_pdf + sort + merge, {n_rays} rays, "
+          f"{cfg.n_samples} + {cfg.n_importance} samples, det={det}): "
+          f"{start.elapsed_time(end) / 20:.3f} ms on {card}")
+
+
+def peak_memory(what: str, card: str) -> None:
+    print(f"{what}: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on {card}")
+
+
 def profile_train(system, rays, ts, batch: int, card: str) -> None:
     rng = np.random.RandomState(1)
     dev = system.device
@@ -72,6 +106,9 @@ def profile_train(system, rays, ts, batch: int, card: str) -> None:
         dt = (time.perf_counter() - t0) / 50
         print(f"{1 / dt:.2f} steps/s, {batch / dt:.1f} rays/s, "
               f"{1e3 * dt:.2f} ms a step (batch {batch}) on {card}")
+    peak_memory("train_step", card)
+    if system.cfg.n_importance > 0:
+        time_resampling(system, batch, False, card)
     steps = 10
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -92,6 +129,9 @@ def main():
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--sc_lambda", type=float, default=0.0)
     ap.add_argument("--ds_lambda", type=float, default=0.0)
+    ap.add_argument("--n_importance", type=int, default=0)
+    ap.add_argument("--fused", default="auto",
+                    choices=["auto", "rays", "on", "off"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_render_torch: needs an NVIDIA GPU")
@@ -103,13 +143,15 @@ def main():
                           text=True, check=True).stdout.strip()
     cfg = Config(model="sat-nerf", fc_layers=8, fc_units=512, n_samples=64,
                  chunk=args.chunk, batch_size=args.batch, first_beta_epoch=0,
-                 sc_lambda=args.sc_lambda, ds_lambda=args.ds_lambda, ds_drop=1.0)
+                 sc_lambda=args.sc_lambda, ds_lambda=args.ds_lambda, ds_drop=1.0,
+                 n_importance=args.n_importance, fused=args.fused)
     system = NeRFSystem(cfg, dataset_len=args.rays)
     params = system.init_params(torch.Generator().manual_seed(0))
     rng = np.random.RandomState(0)
     n = args.rays
     rays = rng.rand(n, 11).astype(np.float32)
     rays[:, 3:6] /= np.linalg.norm(rays[:, 3:6], axis=1, keepdims=True)
+    rays[:, 8:11] /= np.linalg.norm(rays[:, 8:11], axis=1, keepdims=True)
     rays[:, 6], rays[:, 7] = 0.0, 1.0
     ts = rng.randint(0, 30, n).astype(np.int32)
     if args.train:
@@ -123,6 +165,9 @@ def main():
         system.render_image(params, rays, ts)
         torch.cuda.synchronize()
         print(f"{n / (time.perf_counter() - t0):.1f} rays/s on {card}")
+    peak_memory("render_image", card)
+    if args.n_importance > 0:
+        time_resampling(system, min(n, args.chunk), True, card)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
