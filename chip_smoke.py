@@ -64,8 +64,26 @@ plain version):
      (K6 under the trainer and the server) and a short --fused off run that
      must launch no kernel
 
-No earlier phase was cut when phases 2d and 6 came: the whole run stays
-well inside half its time limit.
+  2e the classic NeRF variant's kernels: fused_nerf_train_loss_grads (K7),
+     fused_nerf_render_rays (K8) and fused_nerf_apply (K9) against their
+     plain versions at 8 x 256, fp32 and bf16, 1024 and 1000 + 37 rays, 64,
+     72 and 128 samples a ray (K9: 65,536 + 37 points, with and without a
+     view direction), sigma noise on and off, K8 with and without weights:
+     the loss, every gradient by name, the products, and every launch of the
+     three chains alone on the inputs the chain gave it (the relu masks come
+     from the same stored activations on both sides); then each new kernel
+     alone at its main-path shape: time, plain time, library call, bound
+  7  the nerf variant through the entry points: cli.train --model nerf
+     --fc_units 256 on phase 3's AOI at 64 samples, batch 1024, bf16, across
+     an epoch boundary with validation (K8) and checkpoints, every launch
+     count checked against the step count and no SIREN kernel launched;
+     resume; create_pretty_dsm on the trained checkpoint; render_image on
+     262,144 rays with its peak memory, held against the plain version; then
+     a short --n_importance 64 run (K9 under the trainer, K8 twice a served
+     chunk) and a short --ds_lambda 1000 run on phase 5's AOI
+
+No earlier phase was cut when phases 2d, 2e, 6 and 7 came: the whole run
+stays well inside half its time limit.
 
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Scratch files go to build/chip_smoke/.
@@ -114,7 +132,29 @@ KERNELS = {  # name -> (source in the repo, the TPU kernels it replaces)
     "field_heads_bwd": ("satnerf_tpu_torch/csrc/fused_field.cu",
                         "field_rays_bwd", "field_points_bwd"),
 }
+NERF_TRAIN_KERNELS = ("nerf_dense", "nerf_composite_loss_bwd",
+                      "nerf_dense_dgrad", "nerf_dense_wgrad")
+NERF_FIELD_KERNELS = ("nerf_field_heads", "nerf_field_heads_bwd")
+NERF_KERNELS = (NERF_TRAIN_KERNELS + ("nerf_heads_composite",)
+                + NERF_FIELD_KERNELS)
+_NERF_SRC = "satnerf_tpu_torch/csrc/fused_nerf.cu"
+TPU_KERNEL.update({
+    "nerf_train": "satnerf_tpu/ops/pallas/fused_nerf.py:594",
+    "nerf_render": "satnerf_tpu/ops/pallas/fused_nerf.py:442",
+    "nerf_points": "satnerf_tpu/ops/pallas/fused_nerf.py:180",
+    "nerf_points_bwd": "satnerf_tpu/ops/pallas/fused_nerf.py:257"})
+KERNELS.update({
+    # the dense layers of all three chains: first on the path as K7's forward
+    "nerf_dense": (_NERF_SRC, "nerf_train", "nerf_render", "nerf_points"),
+    "nerf_composite_loss_bwd": (_NERF_SRC, "nerf_train"),
+    "nerf_dense_dgrad": (_NERF_SRC, "nerf_train", "nerf_points_bwd"),
+    "nerf_dense_wgrad": (_NERF_SRC, "nerf_train", "nerf_points_bwd"),
+    "nerf_heads_composite": (_NERF_SRC, "nerf_render"),
+    "nerf_field_heads": (_NERF_SRC, "nerf_points"),
+    "nerf_field_heads_bwd": (_NERF_SRC, "nerf_points_bwd"),
+})
 LAYERS, FEAT, SAMPLES, TAU = 8, 512, 64, 4
+NERF_FEAT, NERF_FREQ = 256, (10, 4)  # run 1/7: --model nerf --fc_units 256
 BATCH = 1024  # rays a training step draws (--batch_size default)
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
 # the yardsticks of the bound_ms column.
@@ -402,6 +442,105 @@ class TrainCheck:
         for name, a, b in zip(("dW", "db", "dC", "dE"), got, ref):
             self._hold("siren_dense_wgrad", f"{name} extra={kw.get('extra')}",
                        a, b, K1_STAGE_TOL)
+        return got
+
+
+# The nerf variant (K7, K8, K9) is held as the SIREN chains are: each launch
+#   alone to K1_STAGE_TOL (the dense layer to one rounding step), the products
+#   to K2_TOL. Each launch sees the inputs the chain gave it, so the relu's
+#   mask comes from the same stored activation on both sides. The whole chains
+#   against autograd through the field module do not have that: the two
+#   forwards sum in another order, and of the 134 M relu units of a batch of
+#   65,536 points a few tens have a pre-activation within an ulp of 0 and land
+#   on either side of the kink. Each such unit moves one point's term of one
+#   column of a weight gradient, about 1 / sqrt(65,536) of that column's sum:
+#   the fp32 gradients are held to 1e-2 of each tensor's largest entry, the
+#   bf16 gradients to K1_GRAD_TOL's 5e-2, which rounding steps already need.
+NERF_GRAD_TOL = {"float32": 1e-2, "bfloat16": 5e-2}
+NERF_CASES = ((K1_RAYS[0], 64, True), (K1_RAYS[1], 72, False),
+              (K1_RAYS[1], 128, True))  # rays, samples a ray, sigma noise
+
+
+class NerfCheck(TrainCheck):
+    """Stands in for the stage functions of the nerf chains
+    (ops/fused_nerf.NerfOps): launches each kernel, runs its plain version on
+    the same inputs and records the error."""
+
+    def __init__(self, dtype):
+        self.bf16 = str(dtype).endswith("bfloat16")
+        self.err = dict.fromkeys(NERF_KERNELS, 0.0)
+        self.bad = []
+
+    def dense(self, *args, **kw):
+        from satnerf_tpu_torch.ops import fused_nerf as FN
+
+        y = FN.nerf_dense(*args, **kw)
+        ref = FN.nerf_dense_reference(*args, **kw).float()
+        diff = (y.float() - ref).abs()
+        tol = (2.0 ** -7 * ref.abs() + 1e-4 if self.bf16
+               else 1e-4 * ref.abs() + 1e-4)
+        self.err["nerf_dense"] = max(self.err["nerf_dense"], diff.max().item())
+        if bool((diff > tol).any()):
+            self.bad.append(f"nerf_dense enc={kw.get('enc')} act={kw.get('act')} "
+                            f"max err {diff.max().item():.3g}")
+        return y
+
+    def heads(self, *args, **kw):
+        from satnerf_tpu_torch.ops import fused_nerf as FN
+
+        out, w = FN.nerf_heads_composite(*args, **kw)
+        ref, ref_w = FN.nerf_heads_composite_reference(*args, **kw)
+        self._hold("nerf_heads_composite", "products", out, ref, 1e-4)
+        self._hold("nerf_heads_composite", "weights", w, ref_w, 1e-4)
+        return out, w
+
+    def _hold_adjoint(self, kernel, out, ref):
+        for k in ref:
+            self._hold(kernel, k, out[k], ref[k], K1_STAGE_TOL,
+                       elementwise=k.startswith("d_"),
+                       terms=3 if k == "d_r" else 1)
+        return out
+
+    def composite(self, *args, **kw):
+        from satnerf_tpu_torch.ops import fused_nerf as FN
+
+        return self._hold_adjoint(
+            "nerf_composite_loss_bwd", FN.nerf_composite_loss_bwd(*args, **kw),
+            FN.nerf_composite_loss_bwd_reference(*args, **kw))
+
+    def field_heads(self, *args, **kw):
+        from satnerf_tpu_torch.ops import fused_nerf as FN
+
+        out = FN.nerf_field_heads(*args, **kw)
+        self._hold("nerf_field_heads", "outputs", out,
+                   FN.nerf_field_heads_reference(*args, **kw), 1e-4)
+        return out
+
+    def field_heads_bwd(self, *args, **kw):
+        from satnerf_tpu_torch.ops import fused_nerf as FN
+
+        return self._hold_adjoint(
+            "nerf_field_heads_bwd", FN.nerf_field_heads_bwd(*args, **kw),
+            FN.nerf_field_heads_bwd_reference(*args, **kw))
+
+    def dgrad(self, dy, y, weight, out=None):
+        from satnerf_tpu_torch.ops import fused_nerf as FN
+
+        base = None if out is None else out.clone()
+        got = FN.nerf_dense_dgrad(dy, y, weight, out=out)
+        ref = FN.nerf_dense_dgrad_reference(dy, y, weight, out=base)
+        self._hold("nerf_dense_dgrad", f"N={dy.shape[1]} K={weight.shape[0]}",
+                   got, ref, K1_STAGE_TOL)
+        return got
+
+    def wgrad(self, *args, **kw):
+        from satnerf_tpu_torch.ops import fused_nerf as FN
+
+        got = FN.nerf_dense_wgrad(*args, **kw)
+        ref = FN.nerf_dense_wgrad_reference(*args, **kw)
+        for name, a, b in zip(("dW", "db", "dC"), got, ref):
+            self._hold("nerf_dense_wgrad", f"{name} enc={kw.get('enc')}", a, b,
+                       K1_STAGE_TOL)
         return got
 
 
@@ -1102,6 +1241,262 @@ def phase2d(results: dict):
         raise SystemExit("phase 2d failed:\n  " + "\n  ".join(failures))
 
 
+def _time_nerf_kernels(field, dev) -> dict:
+    """Each nerf kernel alone in bf16 at the shape its main path gives it, as
+    `_time_kernels` does: the serving kernels at one chunk of CHUNK rays x 64
+    samples, the training kernels at one batch of BATCH rays x 64, the
+    per-point kernels at the fine pass of a hierarchical batch (BATCH x 128
+    points); for the dense kernels the 256 x 256 skip layer with its 64-row
+    encoding operand."""
+    import torch
+    from satnerf_tpu_torch.ops import fused_nerf as FN
+
+    dtype, feat, fh = torch.bfloat16, NERF_FEAT, NERF_FEAT // 2
+    packed = FN.pack_params(field, skip=4, dtype=dtype)
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def rand(*shape, to=dtype):
+        return (torch.rand(*shape, generator=g, device=dev) * 2 - 1).to(to)
+
+    def entry(fn, plain, library, nbytes, flops):
+        bound_ms, by = _bound(nbytes, flops)
+        return {"ms": _cuda_ms(fn), "plain_ms": _cuda_ms(plain),
+                "library_ms": None if library is None else _cuda_ms(library),
+                "bound_ms": bound_ms, "bound_by": by}
+
+    w, bias, c = packed["B"][3], packed["bt"][4], packed["C"]
+    n_xyz, e_rows = NERF_FREQ[0], packed["C"].shape[0]
+    out = {}
+
+    # ---- serving shapes
+    o, d, _, _, z = _inputs(CHUNK, 3, dev)
+    rays8 = FN.pack_rays(o, d)
+    p = CHUNK * SAMPLES
+    h = rand(p, feat).abs()
+    args = (h, w, bias, rays8, SAMPLES)
+    dkw = dict(enc="xyz", enc_weight=c, z=z, n_freq=n_xyz)
+    out["nerf_dense"] = entry(
+        lambda: FN.nerf_dense(*args, **dkw),
+        lambda: FN.nerf_dense_reference(*args, **dkw),
+        lambda: torch.relu(torch.addmm(bias.to(dtype), h, w)),
+        _nbytes(h, w, bias, rays8, z, c) + p * feat * 2,
+        2.0 * p * feat * (feat + 6 * n_xyz))
+    r = rand(p, fh).abs()
+    hargs = (h, r, packed["wn"], packed["bn"], z)
+    out["nerf_heads_composite"] = entry(
+        lambda: FN.nerf_heads_composite(*hargs, return_weights=True),
+        lambda: FN.nerf_heads_composite_reference(*hargs, return_weights=True),
+        None, _nbytes(*hargs) + CHUNK * 8 * 4 + p * 4, 2.0 * p * (feat + 3 * fh))
+    del h, r, args, hargs
+
+    # ---- training shapes
+    o, d, _, _, z = _inputs(BATCH, 3, dev)
+    rays8 = FN.pack_rays(o, d)
+    p = BATCH * SAMPLES
+    h = rand(p, feat).abs()
+    args = (h, w, bias, rays8, SAMPLES)
+    t_entry = entry(
+        lambda: FN.nerf_dense(*args, **dkw | {"z": z}),
+        lambda: FN.nerf_dense_reference(*args, **dkw | {"z": z}),
+        lambda: torch.relu(torch.addmm(bias.to(dtype), h, w)),
+        _nbytes(h, w, bias, rays8, z, c) + p * feat * 2,
+        2.0 * p * feat * (feat + 6 * n_xyz))
+    out["nerf_dense"].update({f"train_{k}": v for k, v in t_entry.items()})
+    dy, y = rand(p, feat, to=torch.float32), rand(p, feat).clamp_min(0)
+    gb = (dy * (y > 0)).to(dtype)
+    out["nerf_dense_dgrad"] = entry(
+        lambda: FN.nerf_dense_dgrad(dy, y, w),
+        lambda: FN.nerf_dense_dgrad_reference(dy, y, w),
+        lambda: gb @ w.t(),
+        _nbytes(dy, y, w) + p * feat * 4, 2.0 * p * feat * feat)
+    wargs = (h, dy, y, rays8, SAMPLES)
+    wkw = dict(enc="xyz", z=z, n_freq=n_xyz, enc_rows=e_rows)
+    out["nerf_dense_wgrad"] = entry(
+        lambda: FN.nerf_dense_wgrad(*wargs, **wkw),
+        lambda: FN.nerf_dense_wgrad_reference(*wargs, **wkw),
+        lambda: h.t() @ gb,
+        _nbytes(h, dy, y, rays8, z) + (feat * feat + feat + e_rows * feat) * 4,
+        2.0 * p * feat * (feat + 6 * n_xyz))
+    r = rand(p, fh).abs()
+    noise = rand(BATCH, SAMPLES, to=torch.float32)
+    gt = rand(BATCH, 3, to=torch.float32).abs()
+    cargs = (h, r, packed["wn"], packed["bn"], z, noise, gt)
+    # forward and backward walk: h and r read, d_h and d_r written in fp32
+    out["nerf_composite_loss_bwd"] = entry(
+        lambda: FN.nerf_composite_loss_bwd(*cargs),
+        lambda: FN.nerf_composite_loss_bwd_reference(*cargs), None,
+        _nbytes(*cargs) + (p * (feat + fh) + 4 * feat + 4 + 1) * 4,
+        4.0 * p * (feat + 3 * fh))
+    del h, r, dy, y, gb, cargs, wargs, args
+
+    # ---- the per-point kernels: the fine pass of a hierarchical batch
+    p = BATCH * (SAMPLES + N_IMPORTANCE)
+    h, r = rand(p, feat).abs(), rand(p, fh).abs()
+    cot = rand(p, 8, to=torch.float32)
+    fargs = (h, r, packed["wn"], packed["bn"])
+    out["nerf_field_heads"] = entry(
+        lambda: FN.nerf_field_heads(*fargs),
+        lambda: FN.nerf_field_heads_reference(*fargs), None,
+        _nbytes(*fargs) + p * 8 * 4, 2.0 * p * (feat + 3 * fh))
+    out["nerf_field_heads_bwd"] = entry(
+        lambda: FN.nerf_field_heads_bwd(*fargs, cot),
+        lambda: FN.nerf_field_heads_bwd_reference(*fargs, cot), None,
+        _nbytes(*fargs, cot) + (p * (feat + fh) + 4 * feat + 4) * 4,
+        6.0 * p * (feat + 3 * fh))
+    return out
+
+
+def phase2e(results: dict):
+    """K7, K8 and K9 against their plain versions on the card."""
+    import torch
+
+    from satnerf_tpu_torch.models.nerf import build_model
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+    from satnerf_tpu_torch.ops import fused_nerf as FN
+
+    dev = torch.device("cuda:0")
+    failures = []
+    before = dict(FM.LAUNCHES)
+    field = build_model("nerf", LAYERS, NERF_FEAT,
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+    names = [n for n, _ in field.named_parameters()]
+    g = torch.Generator().manual_seed(14)
+    xyz = (torch.rand(K6_POINTS, 3, generator=g) - 0.5).to(dev)
+    dirs = torch.nn.functional.normalize(
+        torch.randn(K6_POINTS, 3, generator=g)).to(dev)
+    cot_p = torch.randn(K6_POINTS, 8, generator=g).to(dev)
+
+    def k9(fn, view_dir, cot, **kw):
+        out = fn(field, xyz, view_dir, **kw)
+        total = (out["rgb"] * cot[:, 0:3]).sum() + (out["sigma"] * cot[:, 3]).sum()
+        gr = torch.autograd.grad(total, list(field.parameters()),
+                                 allow_unused=True)
+        return {k: v.detach() for k, v in out.items()}, dict(zip(names, gr))
+
+    for case, (n_rays, n_s, with_noise) in enumerate(NERF_CASES):
+        o, d, _, _, z = _inputs(n_rays, 13, dev, n_s)
+        gt = torch.rand(n_rays, 3, generator=g).to(dev)
+        noise = (torch.randn(n_rays, n_s, generator=g).to(dev)
+                 if with_noise else None)
+        with_weights = case != 1
+        view_dir = dirs if case != 1 else None
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            kw = dict(layers=LAYERS, feat=NERF_FEAT, skip=4, dtype=dtype)
+            tag = (f"nerf R={n_rays} S={n_s} noise "
+                   f"{'on' if with_noise else 'off'} {dname}")
+            chk = NerfCheck(dtype)
+            packed = FN.pack_params(field, skip=4, dtype=dtype)
+            rays8 = FN.pack_rays(o, d)
+            skw = dict(skip=4, n_freq=NERF_FREQ, rgb_padding=0.001)
+
+            # ---- K8: products and weights, then every launch of its chain
+            with torch.inference_mode():
+                out = FN.fused_nerf_render_rays(
+                    field, o, d, z, return_weights=with_weights, **kw)
+                ref = FN.fused_nerf_render_rays_reference(
+                    field, o, d, z, return_weights=with_weights, **kw)
+                FN._render_staged(packed, rays8, z, return_weights=True,
+                                  ops=chk, **skw)
+                k8_ms = _cuda_ms(lambda: FN.fused_nerf_render_rays(
+                    field, o, d, z, return_weights=with_weights, **kw))
+                k8_plain = _cuda_ms(lambda: FN.fused_nerf_render_rays_reference(
+                    field, o, d, z, return_weights=with_weights, **kw))
+            torch.cuda.synchronize()
+            if set(out) != set(ref) or ("weights" in out) != with_weights:
+                failures.append(f"K8 {tag}: products {sorted(out)}")
+            prod_err = {k: (out[k] - ref[k]).abs().max().item() for k in ref}
+            for k, e in prod_err.items():
+                lim = K2_TOL[dname] * (DEPTH_RANGE if k == "depth" else 1.0)
+                if not e <= lim:
+                    failures.append(f"K8 {tag} {k}: {e:.3g} > {lim}")
+
+            # ---- K7: the loss and every gradient, then every launch
+            args = (field, o, d, z, noise, gt)
+            mse, grads = FN.fused_nerf_train_loss_grads(*args, **kw)
+            r_mse, r_grads = FN.fused_nerf_train_loss_grads_reference(*args, **kw)
+            torch.cuda.synchronize()
+            e_mse = abs(mse.item() - r_mse.item()) / max(abs(r_mse.item()), 1e-6)
+            if not e_mse <= K1_PART_TOL[dname]:
+                failures.append(f"K7 {tag} mse: {e_mse:.3g}")
+            worst7 = _hold_grads(failures, f"K7 {tag}", grads, r_grads,
+                                 NERF_GRAD_TOL[dname])
+            with torch.no_grad():
+                FN._train_staged(packed, rays8, z, noise, gt, ops=chk, **skw)
+            k7_ms = _cuda_ms(lambda: FN.fused_nerf_train_loss_grads(*args, **kw))
+            k7_plain = _cuda_ms(
+                lambda: FN.fused_nerf_train_loss_grads_reference(*args, **kw))
+
+            # ---- K9 on points: outputs, every gradient, every launch
+            got9 = k9(FN.fused_nerf_apply, view_dir, cot_p, **kw)
+            ref9 = k9(FN.fused_nerf_apply_reference, view_dir, cot_p, **kw)
+            torch.cuda.synchronize()
+            out9 = 0.0
+            for k, r in ref9[0].items():
+                e = (got9[0][k] - r).abs().max().item()
+                out9 = max(out9, e)
+                lim = K2_TOL[dname] * max(1.0, r.abs().max().item())
+                if got9[0][k].shape != r.shape or not e <= lim:
+                    failures.append(f"K9 {tag} {k}: {e:.3g} > {lim:.3g}")
+            worst9 = _hold_grads(failures, f"K9 {tag}", got9[1], ref9[1],
+                                 NERF_GRAD_TOL[dname])
+            with torch.no_grad():
+                rays_p = FN.pack_rays(xyz, dirs if view_dir is not None
+                                      else torch.zeros_like(xyz))
+                z1 = torch.zeros((K6_POINTS, 1), device=dev)
+                a = FN._chain_forward(packed, rays_p, z1, skip=4,
+                                      n_freq=NERF_FREQ, keep=True, ops=chk)
+                nargs = (a["hs"][-1], a["r"], packed["wn"], packed["bn"])
+                chk.field_heads(*nargs)
+                c = chk.field_heads_bwd(*nargs, cot_p)
+                FN._chain_backward(packed, a, c, rays_p, z1, skip=4,
+                                   n_freq=NERF_FREQ, ops=chk)
+                del a, c, nargs
+                # under no_grad the wrapper keeps nothing and has no grad_fn
+                if FN.fused_nerf_apply(field, xyz, view_dir, **kw)[
+                        "rgb"].grad_fn is not None:
+                    failures.append(f"K9 {tag}: a graph under no_grad")
+            torch.cuda.synchronize()
+            k9_ms = _cuda_ms(lambda: k9(FN.fused_nerf_apply, view_dir, cot_p, **kw))
+            k9_plain = _cuda_ms(lambda: k9(FN.fused_nerf_apply_reference,
+                                           view_dir, cot_p, **kw))
+            failures += [f"{tag}: {b}" for b in chk.bad]
+            for k, e in chk.err.items():
+                key = (k, dname)
+                results["err"][key] = max(results["err"].get(key, 0.0), e)
+            log(f"phase 2e: {tag}: K8 kernels {k8_ms:.2f} ms, plain "
+                f"{k8_plain:.2f} ms, products max {max(prod_err.values()):.1e}. "
+                f"K7 kernels {k7_ms:.2f} ms, plain {k7_plain:.2f} ms, mse "
+                f"{e_mse:.1e}, worst gradient {worst7[0]} {worst7[1]:.1e}. K9 at "
+                f"{K6_POINTS} points (view_dir "
+                f"{'given' if view_dir is not None else 'None'}) forward + "
+                f"backward kernels {k9_ms:.2f} ms, plain {k9_plain:.2f} ms, "
+                f"outputs max {out9:.1e}, worst gradient {worst9[0]} "
+                f"{worst9[1]:.1e}; per launch "
+                + ", ".join(f"{k} {e:.1e}" for k, e in chk.err.items()))
+            results["k789"][(n_rays, n_s, dname)] = (
+                k7_ms, k7_plain, k8_ms, k8_plain, k9_ms, k9_plain)
+            del out, ref, got9, ref9
+
+    grown = {k: FM.LAUNCHES[k] - before[k] for k in NERF_KERNELS}
+    if not all(v > 0 for v in grown.values()):
+        failures.append(f"launch counters did not grow: {grown}")
+    times = _time_nerf_kernels(field, dev)
+    for name, e in times.items():
+        lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.3f} ms"
+        log(f"phase 2e: {name} bf16 at its main-path shape: kernel "
+            f"{e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms, library call "
+            f"{lib}, bound {e['bound_ms']:.3f} ms ({e['bound_by']})")
+    e = times["nerf_dense"]
+    log(f"phase 2e: nerf_dense bf16 at a training batch ({BATCH} rays x "
+        f"{SAMPLES}): kernel {e['train_ms']:.3f} ms, plain "
+        f"{e['train_plain_ms']:.3f} ms, library call "
+        f"{e['train_library_ms']:.3f} ms, bound {e['train_bound_ms']:.3f} ms")
+    results.setdefault("times", {}).update(times)
+    if failures:
+        raise SystemExit("phase 2e failed:\n  " + "\n  ".join(failures))
+
+
 def phase3(results: dict, card: str):
     import torch
 
@@ -1614,8 +2009,10 @@ def phase6(results: dict, card: str):
     if not (second["state"].step == HIER_RESUME
             and rows2[0]["step"] == HIER_STEPS + LOG_EVERY
             and adam_steps == {float(HIER_RESUME)}
-            and abs(rows2[0]["train/loss"] - trained)
-            <= 0.25 * (untrained - trained)):
+            # the loss is still falling when the first run ends: the resumed
+            # run goes on from the trained level, not from a fresh model's
+            and rows2[0]["train/loss"]
+            <= trained + 0.25 * (untrained - trained)):
         fail("the resumed run did not continue the first (step count, Adam "
              "state or loss level)")
     log(f"phase 6: resumed from step {saved['global_step']} to "
@@ -1730,6 +2127,236 @@ def phase6(results: dict, card: str):
         f"kernel launched")
 
 
+NERF_STEPS, NERF_RESUME = 72, 80
+
+
+def phase7(results: dict, card: str):
+    """The classic NeRF variant through the entry points: K7 under the
+    trainer, K8 under validation and the server, K9 under the hierarchical and
+    the depth-supervised trainer."""
+    import torch
+
+    from satnerf_tpu_torch.cli import train as cli_train
+    from satnerf_tpu_torch.cli.create_dsm import create_pretty_dsm
+    from satnerf_tpu_torch.data.synthetic import make_synthetic_aoi
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+    from satnerf_tpu_torch.ops import fused_nerf as FN
+
+    aoi, aoi_kp = os.path.join(WORK, "aoi"), os.path.join(WORK, "aoi_kp")
+    if not os.path.isdir(os.path.join(aoi, "data")):
+        make_synthetic_aoi(aoi, size=128)
+    if not os.path.isdir(os.path.join(aoi_kp, "data")):
+        make_synthetic_aoi(aoi_kp, size=128, with_keypoints=True, n_kp=3000)
+    logs, ckpts = os.path.join(WORK, "nerf_logs"), os.path.join(WORK, "nerf_ckpts")
+    for d in (logs, ckpts):
+        shutil.rmtree(d, ignore_errors=True)
+    siren = TRAIN_KERNELS + AUX_KERNELS + FIELD_KERNELS + ("heads_composite",)
+
+    def argv(root, steps, name, extra=()):
+        return ["--root_dir", os.path.join(root, "data"),
+                "--gt_dir", os.path.join(root, "gt"), "--model", "nerf",
+                "--exp_name", name, "--fc_layers", str(LAYERS),
+                "--fc_units", str(NERF_FEAT), "--n_samples", str(SAMPLES),
+                "--batch_size", str(BATCH), "--chunk", str(CHUNK),
+                "--max_train_steps", str(steps), "--save_every_n_epochs", "1",
+                "--num_sanity_val_steps", "1", "--log_every_n_steps",
+                str(LOG_EVERY), "--logs_dir", logs, "--ckpts_dir", ckpts, *extra]
+
+    def run(root, steps, name, extra=()):
+        FM.reset_launches()
+        t0 = time.perf_counter()
+        out = cli_train.main(argv(root, steps, name, extra))
+        torch.cuda.synchronize()
+        return out, dict(FM.LAUNCHES), time.perf_counter() - t0
+
+    def fail(msg):
+        raise SystemExit(f"phase 7 failed: {msg}")
+
+    def hold(what, launches, want):
+        for k, v in want.items():
+            if launches[k] != v:
+                fail(f"{what}: {k} launched {launches[k]} times, expected {v}")
+        if any(launches[k] for k in siren):
+            fail(f"{what}: a SIREN kernel was launched: {launches}")
+
+    # ---- the main run: K7 a step, K8 under validation
+    first, launches, train_s = run(aoi, NERF_STEPS, "smoke_nerf")
+    cfg, system = first["cfg"], first["system"]
+    spe, n = system.spe, NERF_STEPS
+    if (system.device.type != "cuda" or system.compute_dtype != torch.bfloat16
+            or system.fused_mode != "points"):
+        fail(f"trained on {system.device} in {system.compute_dtype}, mode "
+             f"{system.fused_mode}: not on the card in bf16 through the kernels")
+    if not spe < n:
+        fail(f"{n} steps do not pass an epoch boundary of {spe} steps")
+    # a step: 10 dense forward, the per-ray loss kernel, 9 dgrad, 10 wgrad; a
+    # served chunk: 10 dense forward and the per-ray compositor
+    served, rest = divmod(launches["nerf_dense"] - 10 * n, 10)
+    if rest or served < 1:
+        fail(f"nerf_dense launched {launches['nerf_dense']} times in {n} steps")
+    hold("cli.train --model nerf", launches,
+         {"nerf_composite_loss_bwd": n, "nerf_dense_dgrad": 9 * n,
+          "nerf_dense_wgrad": 10 * n, "nerf_heads_composite": served,
+          "nerf_field_heads": 0, "nerf_field_heads_bwd": 0})
+    results["launches_nerf"] = launches
+    rows = _train_rows(logs, cfg.exp_name)
+    if not all(np.isfinite(r["train/loss"]) for r in rows):
+        fail("a logged loss is not finite")
+    falls = (rows[-1]["train/loss"] < rows[0]["train/loss"]
+             and rows[-1]["train/psnr"] > rows[0]["train/psnr"])
+    log(f"phase 7: cli.train --model nerf --fc_units {NERF_FEAT}, {n} steps "
+        f"({spe} an epoch) in {train_s:.1f} s with validation; loss (MSE) "
+        f"{rows[0]['train/loss']:.4f} -> {rows[-1]['train/loss']:.4f}, psnr "
+        f"{rows[0]['train/psnr']:.2f} -> {rows[-1]['train/psnr']:.2f}; "
+        f"launches { {k: launches[k] for k in NERF_KERNELS} }")
+    if not falls:
+        fail("the loss did not fall")
+    val = first["metrics"]
+    if set(val) != {"val/psnr", "val/ssim", "val/mae"} or not all(
+            np.isfinite(v) for v in val.values()):
+        fail(f"validation metrics {val}")
+    log("phase 7: " + ", ".join(f"{k} {v:.4f}" for k, v in val.items()))
+    rates = sorted(r["train/rays_per_sec"] for r in rows[1:])
+    rps = rates[len(rates) // 2]
+    results["nerf_rate"] = (rps / BATCH, rps)
+    log(f"phase 7: nerf training rate (median of {len(rates)} log intervals of "
+        f"{LOG_EVERY} steps): {rps / BATCH:.2f} steps/s, {rps:.1f} rays/s, "
+        f"{1e3 * BATCH / rps:.2f} ms a step on {card}")
+
+    # ---- resume, then serve the trained checkpoint
+    epoch = n // spe
+    ckpt = os.path.join(ckpts, cfg.exp_name, f"epoch={epoch}.ckpt")
+    saved = torch.load(ckpt, weights_only=True)
+    if saved["global_step"] != n or not saved["optimizer_states"]:
+        fail(f"{ckpt} holds step {saved.get('global_step')} / no optimizer state")
+    second, _, _ = run(aoi, NERF_RESUME, "smoke_nerf_resume", ["--ckpt_path", ckpt])
+    rows2 = _train_rows(logs, second["cfg"].exp_name)
+    trained, untrained = rows[-1]["train/loss"], rows[0]["train/loss"]
+    adam_steps = {float(st["step"])
+                  for st in second["state"].optimizer.state.values()}
+    if not (second["state"].step == NERF_RESUME
+            and rows2[0]["step"] == n + LOG_EVERY
+            and adam_steps == {float(NERF_RESUME)}
+            # the loss is still falling when the first run ends: the resumed
+            # run goes on from the trained level, not from a fresh model's
+            and rows2[0]["train/loss"]
+            <= trained + 0.25 * (untrained - trained)):
+        fail("the resumed run did not continue the first (step count, Adam "
+             "state or loss level)")
+    log(f"phase 7: resumed from step {saved['global_step']} to "
+        f"{second['state'].step}; first logged loss {rows2[0]['train/loss']:.4f} "
+        f"(the first run ended at {trained:.4f})")
+    mae = create_pretty_dsm(second["cfg"].exp_name, logs,
+                            os.path.join(WORK, "nerf_out"), NERF_RESUME // spe,
+                            device="cuda")
+    if not (mae is not None and np.isfinite(mae)):
+        fail(f"serving the trained checkpoint, MAE {mae}")
+    log(f"phase 7: create_pretty_dsm on the trained checkpoint: MAE {mae:.3f} m")
+
+    # ---- render_image: rays/s, peak memory, and against the plain version
+    rng = np.random.RandomState(0)
+    n_rays = 1 << 18
+    rays = rng.rand(n_rays, 11).astype(np.float32)
+    rays[:, 3:6] /= np.linalg.norm(rays[:, 3:6], axis=1, keepdims=True)
+    rays[:, 6], rays[:, 7] = 0.0, 1.0
+    params = second["state"].params
+    system.render_image(params, rays[:CHUNK], None)  # warm up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FM.reset_launches()
+    t0 = time.perf_counter()
+    res = system.render_image(params, rays, None)
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if set(res) != {"rgb_coarse", "depth_coarse", "opacity_coarse",
+                    "weights_coarse"}:
+        fail(f"render_image keys {sorted(res)}")
+    for k, v in res.items():
+        if v.shape[0] != n_rays or not np.isfinite(v).all():
+            fail(f"render_image {k} {v.shape}")
+    if FM.LAUNCHES["nerf_heads_composite"] != n_rays // CHUNK:
+        fail(f"render_image launched nerf_heads_composite "
+             f"{FM.LAUNCHES['nerf_heads_composite']} times")
+    results["nerf_serve_rate"] = n_rays / dt
+    log(f"phase 7: render_image {n_rays} rays (chunk {CHUNK}, bf16): {dt:.3f} s, "
+        f"{n_rays / dt:.1f} rays/s, peak device memory {peak:.2f} GiB on {card}")
+    from satnerf_tpu_torch.render.sampling import stratified_zvals
+
+    m = 4096
+    errs = dict.fromkeys(("rgb", "depth", "opacity"), 0.0)
+    for lo in (0, CHUNK - m):
+        sl = slice(lo, lo + m)
+        with torch.inference_mode():
+            r = torch.from_numpy(rays[sl]).to("cuda")
+            z = stratified_zvals(None, r[:, 6:7], r[:, 7:8], SAMPLES, perturb=0.0)
+            ref = FN.fused_nerf_render_rays_reference(
+                params["nerf_coarse"], r[:, 0:3], r[:, 3:6], z, layers=LAYERS,
+                feat=NERF_FEAT, dtype=system.compute_dtype)
+        for k in errs:
+            e = np.abs(res[f"{k}_coarse"][sl].reshape(m, -1)
+                       - ref[k].float().cpu().numpy().reshape(m, -1)).max()
+            errs[k] = max(errs[k], float(e))
+    log(f"phase 7: render_image vs plain version on rays [0, {m}) and "
+        f"[{CHUNK - m}, {CHUNK}): " + ", ".join(f"{k} {e:.2e}"
+                                                for k, e in errs.items()))
+    if not all(e <= K2_TOL["bfloat16"] for e in errs.values()):
+        fail(f"render_image disagrees: {errs}")
+
+    # ---- --n_importance 64: the plain renderer over K9, K8 twice a chunk
+    steps = SHORT_STEPS
+    out, launches, hier_s = run(aoi, steps, "smoke_nerf_hier",
+                                ["--n_importance", str(N_IMPORTANCE)])
+    if out["system"].fused_mode != "points" or out["state"].step != steps:
+        fail("--n_importance did not run in points mode")
+    # a step, once a model: K9 forward (10 dense, the per-point heads) and
+    # backward (the heads' backward, 9 dgrad, 10 wgrad); a served chunk: K8
+    # once a model
+    served, rest = divmod(launches["nerf_heads_composite"], 2)
+    if rest or served < 1:
+        fail(f"nerf_heads_composite launched "
+             f"{launches['nerf_heads_composite']} times for two models")
+    hold("--n_importance", launches,
+         {"nerf_field_heads": 2 * steps, "nerf_field_heads_bwd": 2 * steps,
+          "nerf_dense": 20 * steps + 20 * served,
+          "nerf_dense_dgrad": 18 * steps, "nerf_dense_wgrad": 20 * steps,
+          "nerf_composite_loss_bwd": 0})
+    results["launches_nerf_hier"] = launches
+    rows = _train_rows(logs, out["cfg"].exp_name)
+    if not (rows and np.isfinite(rows[-1]["train/loss"])
+            and all(np.isfinite(v) for v in out["metrics"].values())):
+        fail("--n_importance logged no finite loss or validation")
+    log(f"phase 7: --n_importance {N_IMPORTANCE}, {steps} steps in {hier_s:.1f} "
+        f"s with validation: loss (coarse + fine) {rows[-1]['train/loss']:.4f}, "
+        f"{1e3 * BATCH / rows[-1]['train/rays_per_sec']:.1f} ms a step, val/mae "
+        f"{out['metrics']['val/mae']:.3f}, launches "
+        f"{ {k: launches[k] for k in NERF_KERNELS} }")
+
+    # ---- --ds_lambda 1000: color and depth renders over K9
+    out, launches, ds_s = run(aoi_kp, steps, "smoke_nerf_ds",
+                              ["--ds_lambda", "1000", "--ds_drop", "0.75",
+                               "--sc_lambda", "0.1"])
+    act = min(steps, out["system"].ds_drop_step - 1)
+    if not 0 < act < steps:
+        fail(f"the depth term must drop inside the {steps} steps, not at {act}")
+    served = launches["nerf_heads_composite"]
+    hold("--ds_lambda", launches,
+         {"nerf_field_heads": 2 * steps, "nerf_field_heads_bwd": steps + act,
+          "nerf_dense": 20 * steps + 10 * served,
+          "nerf_dense_dgrad": 9 * (steps + act),
+          "nerf_dense_wgrad": 10 * (steps + act),
+          "nerf_composite_loss_bwd": 0})
+    rows = _train_rows(logs, out["cfg"].exp_name)
+    if not (rows and all("train/loss_depth" in r
+                         and np.isfinite(r["train/loss_depth"])
+                         and np.isfinite(r["train/loss"]) for r in rows)):
+        fail("--ds_lambda logged no finite loss or loss_depth")
+    log(f"phase 7: --ds_lambda 1000 --sc_lambda 0.1 (which the variant "
+        f"ignores), {steps} steps ({act} with the depth term) in {ds_s:.1f} s: "
+        f"loss {rows[-1]['train/loss']:.4f}, loss_depth "
+        f"{rows[-1]['train/loss_depth']:.3f}, launches "
+        f"{ {k: launches[k] for k in NERF_KERNELS} }")
+
+
 def _loaded_foreign() -> list:
     return sorted(m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
@@ -1737,36 +2364,53 @@ def _loaded_foreign() -> list:
 
 
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases to run after 0 and 1 (e.g. "
+                         "2e,7) while working on one; prints no result lines")
+    only = [k for k in ap.parse_args().only.split(",") if k]
     name, card = phase0()
     secs = phase1()
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    results = {"err": {}, "k2": {}, "k1": {}, "k34": {}, "k56": {}}
+    results = {"err": {}, "k2": {}, "k1": {}, "k34": {}, "k56": {}, "k789": {}}
     steps = (("2", lambda: phase2(results)), ("2b", lambda: phase2b(results)),
              ("2c", lambda: phase2c(results)), ("2d", lambda: phase2d(results)),
+             ("2e", lambda: phase2e(results)),
              ("3", lambda: phase3(results, card)),
              ("4", lambda: phase4(results, card)),
              ("5", lambda: phase5(results, card)),
-             ("6", lambda: phase6(results, card)))
+             ("6", lambda: phase6(results, card)),
+             ("7", lambda: phase7(results, card)))
     t_start = time.perf_counter()
     for key, run in steps:
+        if only and key not in only:
+            continue
         t0 = time.perf_counter()
         run()
         log(f"phase {key} took {time.perf_counter() - t0:.1f} s")
     if _loaded_foreign():
         raise SystemExit(f"the port loaded {_loaded_foreign()}")
+    if only:
+        log(f"ran phases {only} only: no result lines")
+        return
     # launches: on the main path of the slice that brought the kernel, each
     # driven from counts of 0: cli.train's run of phase 4, and for the full
     # recipe's two kernels cli.train's run of phase 5, for the per-sample
-    # field's two the hierarchical run of phase 6; the other paths' counts
-    # stand beside it
+    # field's two the hierarchical run of phase 6, for the nerf variant's the
+    # --model nerf run of phase 7 (its per-point two: the --n_importance run);
+    # the other paths' counts stand beside it
     kernels = []
     for kname, (source, replaces, *also) in KERNELS.items():
         t = results["times"][kname]
         main_path = ("launches_full" if kname in AUX_KERNELS else
-                     "launches_hier" if kname in FIELD_KERNELS else "launches")
+                     "launches_hier" if kname in FIELD_KERNELS else
+                     "launches_nerf_hier" if kname in NERF_FIELD_KERNELS else
+                     "launches_nerf" if kname in NERF_KERNELS else "launches")
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": TPU_KERNEL[replaces],
@@ -1777,6 +2421,8 @@ def main():
             "launches_full_recipe": results["launches_full"][kname],
             "launches_hier": results["launches_hier"][kname],
             "launches_fused_on": results["launches_fused_on"][kname],
+            "launches_nerf": results["launches_nerf"][kname],
+            "launches_nerf_hier": results["launches_nerf_hier"][kname],
             "max_abs_err": max(results["err"][(kname, "float32")],
                                results["err"][(kname, "bfloat16")]),
             **t,

@@ -1,3 +1,4 @@
+from satnerf_tpu_torch.data.blender import BlenderScene
 from satnerf_tpu_torch.data.satellite import SatelliteScene
 from satnerf_tpu_torch.data.satellite_depth import SatelliteDepthScene
 from satnerf_tpu_torch.data.scene import SceneFrame
@@ -5,12 +6,11 @@ from satnerf_tpu_torch.data.scene import SceneFrame
 
 def load_dataset(cfg, split: str):
     """Dataset factory mirroring datasets/__init__.py:5-25: returns a list
-    [color_dataset, (depth_dataset if ds_lambda > 0 and train)]. The blender
-    dataset is not ported yet (ROADMAP: the nerf variant)."""
+    [color_dataset, (depth_dataset if ds_lambda > 0 and train)]."""
+    if cfg.data == "blender":
+        return [BlenderScene(root_dir=cfg.root_dir, split=split)]
     if cfg.data != "sat":
-        raise NotImplementedError(
-            "the blender dataset is not ported yet: ROADMAP queue 1, 'the "
-            "nerf variant'")
+        raise ValueError(f"data {cfg.data!r} is not valid")
     kw = dict(root_dir=cfg.root_dir, img_dir=cfg.img_dir, split=split,
               img_downscale=cfg.img_downscale, cache_dir=cfg.cache_dir)
     outputs = [SatelliteScene(verbose=True, **kw)]
@@ -19,5 +19,5 @@ def load_dataset(cfg, split: str):
     return outputs
 
 
-__all__ = ["SatelliteScene", "SatelliteDepthScene", "SceneFrame",
-           "load_dataset"]
+__all__ = ["BlenderScene", "SatelliteScene", "SatelliteDepthScene",
+           "SceneFrame", "load_dataset"]

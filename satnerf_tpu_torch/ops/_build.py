@@ -65,6 +65,29 @@ SIGNATURES = {
     # d_s2, d_bh, d_skyh, dWn, dbn, stream
     "satnerf_field_heads_bwd": [_I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I,
                                 _I, _F, _P, _P, _P, _P, _P, _P, _P, _P],
+    # dtype, X, K, W, bias, rays8, z, S, enc_mode, n_freq, e_rows, C, act, Y,
+    # P, N, stream
+    "satnerf_nerf_dense": [_I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I,
+                           _P, _I, _I, _P],
+    # dtype, dY, Ymask, W, dX, accumulate, P, N, K, stream
+    "satnerf_nerf_dense_dgrad": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dtype, X, K, dY, Ymask, rays8, z, S, enc_mode, n_freq, e_rows, dW, db,
+    # dC, P, N, stream
+    "satnerf_nerf_dense_wgrad": [_I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _P, _P, _P, _I, _I, _P],
+    # dtype, h, F, r, Fh, Wn, bn, z, noise, R, S, rgb_padding, out, weights,
+    # stream
+    "satnerf_nerf_heads_composite": [_I, _P, _I, _P, _I, _P, _P, _P, _P, _I,
+                                     _I, _F, _P, _P, _P],
+    # dtype, h, F, r, Fh, Wn, bn, z, noise, gt, R, S, rgb_padding, loss_sum,
+    # d_h, d_r, dWn, dbn, stream
+    "satnerf_nerf_composite_loss_bwd": [_I, _P, _I, _P, _I, _P, _P, _P, _P, _P,
+                                        _I, _I, _F, _P, _P, _P, _P, _P, _P],
+    # dtype, h, F, r, Fh, Wn, bn, P, rgb_padding, out, stream
+    "satnerf_nerf_field_heads": [_I, _P, _I, _P, _I, _P, _P, _I, _F, _P, _P],
+    # dtype, h, F, r, Fh, Wn, bn, g, P, rgb_padding, d_h, d_r, dWn, dbn, stream
+    "satnerf_nerf_field_heads_bwd": [_I, _P, _I, _P, _I, _P, _P, _P, _I, _F,
+                                     _P, _P, _P, _P, _P],
 }
 
 

@@ -90,9 +90,13 @@ OUT_COLS = 16  # rgb 0:3 | depth 3 | sun 4 | sky 5:8 | beta 8 | albedo 9:12 | op
 FIELD_COLS = 16  # per sample: rgb 0:3 | sigma 3 | sun_v 4 | sky 5:8 | beta 8
 RAY_COLS = 16  # o 0:3 | d 3:6 | sun 6:9 | t 9:9+tau
 
+# one count a kernel wrapper, those of the nerf variant (ops/fused_nerf.py) too
 LAUNCHES = {"siren_dense": 0, "heads_composite": 0, "composite_loss_bwd": 0,
             "siren_dense_dgrad": 0, "siren_dense_wgrad": 0, "sc_loss_bwd": 0,
-            "composite_bwd": 0, "field_heads": 0, "field_heads_bwd": 0}
+            "composite_bwd": 0, "field_heads": 0, "field_heads_bwd": 0,
+            "nerf_dense": 0, "nerf_dense_dgrad": 0, "nerf_dense_wgrad": 0,
+            "nerf_heads_composite": 0, "nerf_composite_loss_bwd": 0,
+            "nerf_field_heads": 0, "nerf_field_heads_bwd": 0}
 
 _ACT = {"none": 0, "sin": 1, "relu": 2}
 _EXTRA = {None: (0, 0), "xyz": (1, 0), "sun": (2, 6), "t": (2, 9)}  # mode, column

@@ -144,7 +144,6 @@ def fit(cfg: Config) -> dict:
     depth_ds = train_sets[1] if len(train_sets) > 1 else None
     val_ds = load_dataset(cfg, split="val")[0]
     system = NeRFSystem(cfg, device=device, dataset_len=len(train_ds))
-    system._check_supported(train=True)
     logger = RunLogger(cfg.logs_dir, cfg.exp_name)
     # opts.json is half the checkpoint contract (opt.py:85-87): guarantee it
     # whether the run came through the CLI or through fit() directly

@@ -9,7 +9,12 @@ PL checkpoint payload (train/checkpoints.py).
 resolves it: "rays" (`--fused rays`, and `auto` on the card) runs the
 per-ray kernels below; "points" (`--fused on`) and "off" (`--fused off`, and
 `auto` on the CPU) run the plain renderer (render/render.py) under autograd,
-over the point-mode field kernel K6 or over the field modules.
+over the point-mode field kernel K6 or over the field modules. The nerf
+variant has no rays mode: `--fused rays` and `auto` on the card resolve to
+"points", where it serves through fused_nerf_render_rays (K8), takes its
+plain step through fused_nerf_train_loss_grads (K7) and, with n_importance
+> 0 or depth supervision, trains through the plain renderer over
+fused_nerf_apply (K9).
 
 Serving in rays mode is `_fused_product_render`: stratified depths, then
 ops/fused_mlp.fused_render_rays, repacked in the reference-shaped results
@@ -45,8 +50,7 @@ autograd: one `render_rays` of the batch (with the sun-ray passes when
 sc_lambda > 0), the variant's loss, the depth pass, one backward.
 
 On CUDA the kernels are the hand-written chains; on the CPU, their plain
-versions. The nerf variant renders through the plain render_rays on the CPU
-only and does not train yet.
+versions.
 
 Not carried over from the JAX system: the f16 eval-wire compression, the
 threaded fetch pool, shard_map and the mesh (one device here).
@@ -64,6 +68,9 @@ from torch import nn
 
 from satnerf_tpu_torch.config import Config
 from satnerf_tpu_torch.models.nerf import TransientEmbedding, build_model
+from satnerf_tpu_torch.ops.fused_nerf import (fused_nerf_apply,
+                                              fused_nerf_render_rays,
+                                              fused_nerf_train_loss_grads)
 from satnerf_tpu_torch.ops.fused_mlp import (fused_field_apply,
                                              fused_field_apply_rays,
                                              fused_render_rays,
@@ -73,7 +80,7 @@ from satnerf_tpu_torch.ops.fused_mlp import (fused_field_apply,
 from satnerf_tpu_torch.render.render import (RenderConfig, render_rays,
                                              resample_zvals)
 from satnerf_tpu_torch.render.sampling import stratified_zvals
-from satnerf_tpu_torch.train.losses import (BETA_MIN, depth_loss,
+from satnerf_tpu_torch.train.losses import (BETA_MIN, depth_loss, nerf_loss,
                                             satnerf_loss, snerf_loss)
 from satnerf_tpu_torch.train.schedules import get_schedule
 
@@ -145,15 +152,15 @@ class NeRFSystem:
         self.compute_dtype = torch.bfloat16 if use_bf16 else torch.float32
         # "rays": the per-ray kernels; "points": the plain renderer over the
         # point-mode field kernel; "off": the plain renderer over the field
-        # modules, on whatever device was asked for. The nerf variant has no
-        # kernel yet and always takes the plain path.
-        shadow = cfg.model in ("s-nerf", "sat-nerf")
-        if cfg.fused == "off" or not shadow:
+        # modules, on whatever device was asked for. The nerf variant's
+        # kernels all run in "points" mode.
+        self.is_nerf = cfg.model == "nerf"
+        if cfg.fused == "off":
             self.fused_mode = "off"
         elif cfg.fused == "on":
             self.fused_mode = "points"
         elif cfg.fused == "rays" or self.device.type == "cuda":
-            self.fused_mode = "rays"
+            self.fused_mode = "points" if self.is_nerf else "rays"
         else:
             self.fused_mode = "off"
         self.eval_render_cfg = RenderConfig(
@@ -197,17 +204,6 @@ class NeRFSystem:
 
     # ----------------------------------------------------------------- render
 
-    def _check_supported(self, train: bool = False) -> None:
-        cfg = self.cfg
-        if self.device.type == "cuda" and cfg.model == "nerf":
-            raise NotImplementedError(
-                "the nerf variant has no CUDA kernel yet: ROADMAP queue 2, K8 "
-                "fused_nerf_render_rays")
-        if train and cfg.model == "nerf":
-            raise NotImplementedError(
-                "training the nerf variant: ROADMAP queue 2, K7 "
-                "fused_nerf_train_loss_grads is not ported yet")
-
     def _embed_ts(self, params, ts, n: int):
         """(n, tau) transient embedding for sat-nerf (index 0 when ts is
         None, as the JAX eval render pads it), else None."""
@@ -219,9 +215,17 @@ class NeRFSystem:
 
     def _field_kw(self) -> dict:
         cfg = self.cfg
-        return dict(layers=cfg.fc_layers, feat=cfg.fc_units, skip=4,
-                    use_beta=self.use_ts, tau=cfg.t_embbeding_tau,
-                    dtype=self.compute_dtype)
+        kw = dict(layers=cfg.fc_layers, feat=cfg.fc_units, skip=4,
+                  dtype=self.compute_dtype)
+        if not self.is_nerf:
+            kw.update(use_beta=self.use_ts, tau=cfg.t_embbeding_tau)
+        return kw
+
+    @staticmethod
+    def _sun_dir(rays):
+        """The sun direction columns, where the rays have them (blender rays
+        are (N, 8): origin, direction, near, far)."""
+        return rays[:, 8:11] if rays.shape[1] >= 11 else None
 
     def field_fns(self, params) -> dict:
         """{"coarse"[, "fine"]: model} as render_rays takes them, for the
@@ -238,6 +242,9 @@ class NeRFSystem:
 
                 apply_rays.ray_mode = True
                 return apply_rays
+            if mode == "points" and self.is_nerf:
+                return lambda xyz, view_dir, sun_dir, t_embed: \
+                    fused_nerf_apply(field, xyz, view_dir, **kw)
             if mode == "points":
                 return lambda xyz, view_dir, sun_dir, t_embed: \
                     fused_field_apply(field, xyz, sun_dir, t_embed, **kw)
@@ -250,26 +257,32 @@ class NeRFSystem:
 
     def render(self, params, rays, ts) -> dict:
         """Plain render_rays at eval settings (per-sample outputs)."""
-        self._check_supported()
         return render_rays(self.field_fns(params), rays,
                            self._embed_ts(params, ts, rays.shape[0]),
                            self.eval_render_cfg, dtype=self.compute_dtype)
 
     def _fused_product_render(self, params, rays, ts) -> dict:
         rcfg = self.eval_render_cfg
-        self._check_supported()
         n = rays.shape[0]
         t_embed = self._embed_ts(params, ts, n)
         z_vals = stratified_zvals(None, rays[:, 6:7], rays[:, 7:8],
                                   rcfg.n_samples, rcfg.perturb, rcfg.use_disp)
         kw = self._field_kw()
+        sun_d = self._sun_dir(rays)
+
+        def piece(field, z, want_weights, i, j):
+            if self.is_nerf:
+                return fused_nerf_render_rays(
+                    field, rays[i:j, 0:3], rays[i:j, 3:6], z[i:j],
+                    return_weights=want_weights, **kw)
+            return fused_render_rays(
+                field, rays[i:j, 0:3], rays[i:j, 3:6], sun_d[i:j],
+                None if t_embed is None else t_embed[i:j], z[i:j],
+                return_weights=want_weights, **kw)
 
         def run(field, z, want_weights):
             return _in_pieces(
-                lambda i, j: fused_render_rays(
-                    field, rays[i:j, 0:3], rays[i:j, 3:6], rays[i:j, 8:11],
-                    None if t_embed is None else t_embed[i:j], z[i:j],
-                    return_weights=want_weights, **kw),
+                lambda i, j: piece(field, z, want_weights, i, j),
                 n, max(1, MAX_RENDER_POINTS // z.shape[1]))
 
         def pack(out, suffix):
@@ -279,10 +292,13 @@ class NeRFSystem:
                 f"opacity_{suffix}": out["opacity"],
                 f"weights_{suffix}": torch.ones((n, 1), dtype=torch.float32,
                                                 device=rays.device),
-                f"sun_{suffix}": out["sun"][:, None, :],
-                f"albedo_{suffix}": out["albedo"][:, None, :],
-                f"sky_{suffix}": out["sky"][:, None, :],
             }
+            if not self.is_nerf:
+                res.update({
+                    f"sun_{suffix}": out["sun"][:, None, :],
+                    f"albedo_{suffix}": out["albedo"][:, None, :],
+                    f"sky_{suffix}": out["sky"][:, None, :],
+                })
             if "beta" in out:
                 res[f"beta_{suffix}"] = out["beta"][:, None, :]
             return res
@@ -299,8 +315,12 @@ class NeRFSystem:
         return res
 
     def render_chunk(self, params, rays, ts) -> dict:
-        """Render one chunk of device tensors: rays (n, 11), ts (n,) or None."""
-        if self.fused_mode == "rays":
+        """Render one chunk of device tensors: rays (n, 11), or (n, 8)
+        without the sun direction (blender), ts (n,) or None. The per-ray
+        kernels serve whenever a fused mode is on for the nerf variant, and in
+        rays mode for the others."""
+        if self.fused_mode == "rays" or (self.is_nerf
+                                         and self.fused_mode != "off"):
             return self._fused_product_render(params, rays, ts)
         rcfg = self.eval_render_cfg
         return _in_pieces(
@@ -415,7 +435,6 @@ class NeRFSystem:
         terms and before the depth term, as the JAX step logs it, and
         metrics["psnr"] is of the fine model's MSE when there is one.
         """
-        self._check_supported(train=True)
         noise_std = self._noise_std(step)
         draws = self._draws(rays, generator, noise_std,
                             self.render_cfg.solar_correction, z_vals, noise, u,
@@ -429,6 +448,9 @@ class NeRFSystem:
         if self.fused_mode == "rays":
             return self._rays_loss_and_grads(params, rays, rgbs, ts, step,
                                              draws, depth, d_draws)
+        if (self.is_nerf and self.fused_mode == "points"
+                and self.cfg.n_importance == 0 and not self.depth):
+            return self._nerf_loss_and_grads(params, rays, rgbs, draws)
         return self._autograd_loss_and_grads(params, rays, rgbs, ts, step,
                                              draws, depth, d_draws)
 
@@ -453,7 +475,7 @@ class NeRFSystem:
         with torch.no_grad():
             t_embed = self._embed_ts(params, ts, rays.shape[0])
         wmix = self.beta_gate(step)
-        rays_o, rays_d, sun_d = rays[:, 0:3], rays[:, 3:6], rays[:, 8:11]
+        rays_o, rays_d, sun_d = rays[:, 0:3], rays[:, 3:6], self._sun_dir(rays)
 
         def mix(parts):
             if self.use_ts:
@@ -522,6 +544,18 @@ class NeRFSystem:
         metrics["loss_total"] = loss
         return loss, metrics, grads
 
+    def _nerf_loss_and_grads(self, params, rays, rgbs, draws):
+        """The nerf variant's primary pass through fused_nerf_train_loss_grads
+        (K7): plain MSE, no embedding, no solar correction (the variant has no
+        sun head). Counterpart of satnerf_tpu/train/system.py:502-514."""
+        mse, g_field = fused_nerf_train_loss_grads(
+            params["nerf_coarse"], rays[:, 0:3], rays[:, 3:6],
+            draws["z_vals"], draws["noise"], rgbs, **self._field_kw())
+        grads = {f"nerf_coarse.{k}": v for k, v in g_field.items()}
+        metrics = {"loss": mse, "psnr": -10.0 * torch.log10(mse),
+                   "loss_total": mse}
+        return mse, metrics, grads
+
     def _k4_depth_pass(self, params, depth, d_draws, active: bool, grads):
         """The coarse-only depth pass through fused_train_render_rays; adds
         its gradients onto `grads` while active. Returns the depth loss."""
@@ -533,7 +567,7 @@ class NeRFSystem:
             t_leaf.requires_grad_(active)
         with torch.set_grad_enabled(active):
             out = fused_train_render_rays(
-                field, d_rays[:, 0:3], d_rays[:, 3:6], d_rays[:, 8:11],
+                field, d_rays[:, 0:3], d_rays[:, 3:6], self._sun_dir(d_rays),
                 t_leaf, d_draws["z_vals"], d_draws["noise"],
                 **self._field_kw())
             kp_w = 1.0 if cfg.ds_noweights else d_targets[:, 1]
@@ -568,7 +602,9 @@ class NeRFSystem:
                 sc_noise=draws["sc_noise"], z_vals=draws["z_vals"],
                 u=draws["u"], fine_noise=draws["fine_noise"],
                 sc_noise_fine=draws["sc_noise_fine"])
-            if self.use_ts and self.beta_gate(step) == 1.0:
+            if self.is_nerf:
+                loss, _ = nerf_loss(results, rgbs)
+            elif self.use_ts and self.beta_gate(step) == 1.0:
                 loss, _ = satnerf_loss(results, rgbs, cfg.sc_lambda)
             else:
                 loss, _ = snerf_loss(results, rgbs, cfg.sc_lambda)

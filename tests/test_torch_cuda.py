@@ -22,7 +22,15 @@ grad_accum and shuffle; for the per-sample field, field_heads and
 field_heads_bwd at 1, 72 and 128 samples a ray with a ragged ray count and a
 faint sigma, fused_field_apply_rays and fused_field_apply (forward, backward
 and the input gradients) as a whole against autograd, and a hierarchical
-train step and render in each --fused mode.
+train step and render in each --fused mode; for the classic NeRF variant,
+nerf_dense with both encodings, with and without X, on both mainloops,
+nerf_dense_dgrad and nerf_dense_wgrad masked on the stored activation (with
+accumulation, more than one split, the encoding's gradient), a relu unit
+exactly at the kink, nerf_heads_composite and nerf_composite_loss_bwd with
+noise, weights, a saturated ray and a faint last sample, nerf_field_heads and
+its backward, fused_nerf_train_loss_grads, fused_nerf_render_rays and
+fused_nerf_apply as wholes against autograd, and nerf train steps and renders
+through the system.
 """
 
 import numpy as np
@@ -31,6 +39,7 @@ import torch
 
 from satnerf_tpu_torch.models.nerf import build_model
 from satnerf_tpu_torch.ops import fused_mlp as FM
+from satnerf_tpu_torch.ops import fused_nerf as FN
 
 pytestmark = pytest.mark.cuda
 
@@ -822,5 +831,401 @@ def test_hierarchical_step_and_render_on_the_card(dev, fused, n_imp):
         assert grown["heads_composite"] == 4 and "field_heads" not in grown
     elif fused == "on":
         assert grown["field_heads"] == 4 and "field_heads_bwd" not in grown
+    else:
+        assert grown == {}
+
+
+# ------------------------------------------------- the classic NeRF variant
+
+
+def _rays8(n_rays, n_s, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    o = torch.rand(n_rays, 3, generator=g) - 0.5
+    d = torch.nn.functional.normalize(torch.randn(n_rays, 3, generator=g))
+    z = torch.sort(torch.rand(n_rays, n_s, generator=g), dim=1).values
+    return FN.pack_rays(o, d).to(dev), z.to(dev)
+
+
+def _enc_weight(n_freq, n, g, dev, dtype):
+    c = torch.randn(FN._enc_rows(n_freq), n, generator=g) * 0.3
+    c[6 * n_freq:] = 0
+    return c.to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,n,enc,n_freq,samples,act", [
+    (0, 256, "xyz", 10, 16, "relu"),     # trunk layer 0: no X
+    (256, 256, None, 0, 16, "relu"),     # trunk layer
+    (256, 256, "xyz", 10, 16, "relu"),   # skip layer
+    (256, 256, None, 0, 16, "none"),     # feats
+    (256, 128, "dir", 4, 16, "relu"),    # rgb_0
+    (256, 128, "dir", 4, 1, "relu"),     # rgb_0 on points that are their own rays
+    (40, 200, "xyz", 10, 7, "relu"),     # ragged column tile, short K
+    (36, 100, "dir", 4, 5, "relu"),      # K and N not multiples of 8: SIMT
+    (0, 100, "xyz", 3, 5, "relu"),       # 18 encoding columns in 32 rows
+])
+def test_nerf_dense(dev, dtype, k, n, enc, n_freq, samples, act):
+    n_rays = 37
+    rays8, z = _rays8(n_rays, samples, dev)
+    g = torch.Generator().manual_seed(1)
+    p = n_rays * samples
+    x = (torch.rand(p, k, generator=g) * 2 - 1).to(dev, dtype) if k else None
+    w = (torch.randn(k, n, generator=g) * 0.1).to(dev, dtype) if k else None
+    b = torch.randn(n, generator=g).to(dev)
+    c = _enc_weight(n_freq, n, g, dev, dtype) if enc else None
+    kw = dict(enc=enc, enc_weight=c, z=z, n_freq=n_freq, act=act)
+    before = FM.LAUNCHES["nerf_dense"]
+    got = FN.nerf_dense(x, w, b, rays8, samples, **kw)
+    assert FM.LAUNCHES["nerf_dense"] == before + 1
+    ref = FN.nerf_dense_reference(x, w, b, rays8, samples, **kw)
+    assert got.dtype == dtype and got.shape == (p, n)
+    if act == "relu":
+        assert float(got.float().min()) >= 0
+    _close(got, ref, dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,n,masked,accumulate", [
+    (256, 256, True, False), (256, 128, True, True), (256, 256, False, True),
+    (40, 200, True, False), (36, 100, True, True)])
+def test_nerf_dense_dgrad(dev, dtype, k, n, masked, accumulate):
+    p = 37 * 16 + 5
+    g = torch.Generator().manual_seed(5)
+    dy = torch.randn(p, n, generator=g).to(dev)
+    y = torch.relu(torch.randn(p, n, generator=g)).to(dev, dtype) if masked else None
+    w = (torch.randn(k, n, generator=g) * 0.1).to(dev, dtype)
+    base = torch.randn(p, k, generator=g).to(dev) if accumulate else None
+    ref = FN.nerf_dense_dgrad_reference(
+        dy, y, w, out=None if base is None else base.clone())
+    before = FM.LAUNCHES["nerf_dense_dgrad"]
+    got = FN.nerf_dense_dgrad(dy, y, w, out=base)
+    assert FM.LAUNCHES["nerf_dense_dgrad"] == before + 1
+    assert got.shape == (p, k) and _rel(got, ref) <= 1e-4
+    if accumulate:
+        assert got.data_ptr() == base.data_ptr()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,n,enc,n_freq,samples,n_rays,masked", [
+    (256, 256, "xyz", 10, 16, 37, True),    # the skip layer: dW, db, dC
+    (256, 128, "dir", 4, 16, 300, True),    # rgb_0: several splits of both kinds
+    (0, 256, "xyz", 10, 16, 37, True),      # layer 0: dA and db only
+    (256, 256, None, 0, 16, 37, False),     # feats: linear, no mask
+    (256, 128, "dir", 4, 1, 700, True),     # points that are their own rays
+    (40, 200, None, 0, 7, 37, True),        # SIMT shapes
+    (36, 100, "xyz", 3, 5, 37, True)])
+def test_nerf_dense_wgrad(dev, dtype, k, n, enc, n_freq, samples, n_rays, masked):
+    rays8, z = _rays8(n_rays, samples, dev)
+    g = torch.Generator().manual_seed(6)
+    p = n_rays * samples
+    x = (torch.rand(p, k, generator=g) * 2 - 1).to(dev, dtype) if k else None
+    dy = torch.randn(p, n, generator=g).to(dev)
+    y = torch.relu(torch.randn(p, n, generator=g)).to(dev, dtype) if masked else None
+    kw = dict(enc=enc, z=z, n_freq=n_freq,
+              enc_rows=FN._enc_rows(n_freq) if enc else 0, dtype=dtype)
+    before = FM.LAUNCHES["nerf_dense_wgrad"]
+    got = FN.nerf_dense_wgrad(x, dy, y, rays8, samples, **kw)
+    assert FM.LAUNCHES["nerf_dense_wgrad"] == before + 1
+    ref = FN.nerf_dense_wgrad_reference(x, dy, y, rays8, samples, **kw)
+    for name, a, b in zip(("dW", "db", "dC"), got, ref):
+        assert (a is None) == (b is None), name
+        if b is not None:
+            assert a.shape == b.shape and a.dtype == torch.float32, name
+            assert _rel(a, b) <= 1e-4, (name, _rel(a, b))
+    if enc:  # the padded rows of the encoding's gradient stay 0
+        assert float(got[2][6 * n_freq:].abs().max()) == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_nerf_relu_kink(dev, dtype):
+    """Units exactly at the kink: a bias of 0, no X and a zero encoding
+    weight give a pre-activation of exactly 0 on one column and exactly its
+    bias on the others. The forward stores 0 there, and the backward, which
+    masks on the stored activation (y > 0), passes no cotangent: kernel and
+    plain version agree entry by entry, whatever the sign of an ulp."""
+    n_rays, samples, n = 37, 4, 64
+    rays8, z = _rays8(n_rays, samples, dev)
+    g = torch.Generator().manual_seed(8)
+    c = torch.zeros(64, n).to(dev, dtype)
+    b = torch.rand(n, generator=g).to(dev) - 0.5
+    b[0] = 0.0
+    kw = dict(enc="xyz", enc_weight=c, z=z, n_freq=10)
+    y = FN.nerf_dense(None, None, b, rays8, samples, **kw)
+    ref = FN.nerf_dense_reference(None, None, b, rays8, samples, **kw)
+    assert torch.equal(y.float(), ref.float())
+    assert float(y[:, 0].abs().max()) == 0
+    p = n_rays * samples
+    dy = torch.randn(p, n, generator=g).to(dev)
+    w = (torch.randn(32, n, generator=g) * 0.1).to(dev, dtype)
+    dx = FN.nerf_dense_dgrad(dy, y, w)
+    dead = (b <= 0)
+    want = FN.nerf_dense_dgrad_reference(dy * (~dead), None, w)
+    assert _rel(dx, want) <= 1e-4
+    _, db, dc = FN.nerf_dense_wgrad(None, dy, y, rays8, samples, enc="xyz",
+                                    z=z, n_freq=10, enc_rows=64, dtype=dtype)
+    assert float(db[dead].abs().max()) == 0 and float(dc[:, dead].abs().max()) == 0
+    assert float(db[~dead].abs().min()) > 0
+
+
+def _nerf_narrow(dev, dtype, with_noise, seed, n_rays=37, n_s=16, feat=64):
+    g = torch.Generator().manual_seed(seed)
+    p, fh = n_rays * n_s, feat // 2
+
+    def t(*shape, scale=1.0):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * scale).to(dev, dtype)
+
+    h, r = t(p, feat), torch.relu(t(p, fh))
+    wn = t(4, feat, scale=0.5)
+    wn[0] *= 40  # some rays saturate early
+    wn[1:, fh:] = 0
+    bn = torch.randn(4, generator=g).to(dev)
+    _, z = _rays8(n_rays, n_s, dev)
+    noise = (torch.randn(n_rays, n_s, generator=g) * 2).to(dev) if with_noise else None
+    return g, (h, r, wn, bn, z, noise)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_noise,return_weights,n_rays,n_s,feat", [
+    (False, True, 37, 16, 64), (True, False, 37, 16, 64),
+    (True, True, 5, 72, 256), (False, False, 3, 128, 40)])
+def test_nerf_heads_composite(dev, dtype, with_noise, return_weights, n_rays,
+                              n_s, feat):
+    _, (h, r, wn, bn, z, noise) = _nerf_narrow(dev, dtype, with_noise, 2,
+                                               n_rays, n_s, feat)
+    kw = dict(noise=noise, return_weights=return_weights)
+    before = FM.LAUNCHES["nerf_heads_composite"]
+    out, w = FN.nerf_heads_composite(h, r, wn, bn, z, **kw)
+    assert FM.LAUNCHES["nerf_heads_composite"] == before + 1
+    ref, ref_w = FN.nerf_heads_composite_reference(h, r, wn, bn, z, **kw)
+    assert out.shape == (n_rays, 8) and float(out[:, 5:].abs().max()) == 0
+    assert float((out - ref).abs().max()) <= 1e-4
+    assert (w is None) == (not return_weights)
+    if return_weights:
+        assert float((w - ref_w).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_noise,n_rays,n_s,feat", [
+    (False, 37, 16, 64), (True, 37, 16, 64), (True, 5, 72, 256),
+    (True, 3, 128, 40)])
+def test_nerf_composite_loss_bwd(dev, dtype, with_noise, n_rays, n_s, feat):
+    g, (h, r, wn, bn, z, noise) = _nerf_narrow(dev, dtype, with_noise, 7,
+                                               n_rays, n_s, feat)
+    gt = torch.rand(n_rays, 3, generator=g).to(dev)
+    before = FM.LAUNCHES["nerf_composite_loss_bwd"]
+    got = FN.nerf_composite_loss_bwd(h, r, wn, bn, z, noise, gt)
+    assert FM.LAUNCHES["nerf_composite_loss_bwd"] == before + 1
+    ref = FN.nerf_composite_loss_bwd_reference(h, r, wn, bn, z, noise, gt)
+    assert got["d_h"].shape == (n_rays * n_s, feat)
+    _hold_cotangents(got, ref, dtype)
+
+
+def test_nerf_composite_adjoint_at_a_faint_last_sample(dev):
+    """sigma = 1e-10 everywhere: the inner samples are transparent and the
+    last one, whose delta is 1e10, has alpha = 1 - exp(-1). Its sigma
+    cotangent is d_alpha * exp(-1) * 1e10 * softplus'(pre) with softplus' =
+    1e-10, which 1 - exp(-sigma) rounds to 0 in float32."""
+    g, (h, r, wn, bn, z, _) = _nerf_narrow(dev, torch.float32, False, 10)
+    wn[0] = 0.0
+    bn[0] = -23.0
+    gt = torch.rand(37, 3, generator=g).to(dev)
+    got = FN.nerf_composite_loss_bwd(h, r, wn, bn, z, None, gt)
+    ref = FN.nerf_composite_loss_bwd_reference(h, r, wn, bn, z, None, gt)
+    assert float(ref["dbn"][0].abs()) > 1e-4  # the last samples do pull on sigma
+    _hold_cotangents(got, ref, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_points,feat", [(37 * 16, 64), (1037, 256), (130, 40)])
+def test_nerf_field_heads_and_backward(dev, dtype, n_points, feat):
+    g, (h, r, wn, bn, _, _) = _nerf_narrow(dev, dtype, False, 12, n_points, 1,
+                                           feat)
+    before = dict(FM.LAUNCHES)
+    out = FN.nerf_field_heads(h, r, wn, bn)
+    ref = FN.nerf_field_heads_reference(h, r, wn, bn)
+    assert out.shape == (n_points, 8) and float(out[:, 4:].abs().max()) == 0
+    assert _rel(out, ref) <= 1e-4
+    cot = torch.randn(n_points, 8, generator=g).to(dev)
+    got = FN.nerf_field_heads_bwd(h, r, wn, bn, cot)
+    assert _grown(before) == {"nerf_field_heads": 1, "nerf_field_heads_bwd": 1}
+    _hold_cotangents(got, FN.nerf_field_heads_bwd_reference(h, r, wn, bn, cot),
+                     dtype)
+
+
+def test_nerf_field_heads_bwd_at_a_faint_sigma(dev):
+    g, (h, r, wn, bn, _, _) = _nerf_narrow(dev, torch.float32, False, 13, 200, 1)
+    wn[0] = 0.0
+    bn[0] = -23.0  # sigma = 1e-10 at every point
+    cot = torch.randn(200, 8, generator=g).to(dev)
+    got = FN.nerf_field_heads_bwd(h, r, wn, bn, cot)
+    ref = FN.nerf_field_heads_bwd_reference(h, r, wn, bn, cot)
+    assert float(ref["dbn"][0].abs()) > 0
+    _hold_cotangents(got, ref, torch.float32)
+
+
+def _nerf_field_inputs(dev, layers=8, feat=96, n_rays=53, n_s=24):
+    field = build_model("nerf", layers, feat,
+                        generator=torch.Generator().manual_seed(3)).to(dev)
+    g = torch.Generator().manual_seed(4)
+    o = (torch.rand(n_rays, 3, generator=g) - 0.5).to(dev)
+    d = torch.nn.functional.normalize(torch.randn(n_rays, 3, generator=g)).to(dev)
+    z = torch.sort(torch.rand(n_rays, n_s, generator=g), 1).values.to(dev)
+    noise = (torch.randn(n_rays, n_s, generator=g) * 0.5).to(dev)
+    gt = torch.rand(n_rays, 3, generator=g).to(dev)
+    return field, g, o, d, z, noise, gt
+
+
+# The chains against autograd through the field module, fp32: the two
+# forwards sum in another order, so a relu unit within an ulp of 0 may land on
+# either side of the kink; at these sizes (53 x 24 points, 96 wide) that moves
+# a gradient by less than 1e-3 of its tensor's largest entry.
+@pytest.mark.parametrize("with_noise,n_s", [(True, 24), (False, 24), (True, 72)])
+def test_fused_nerf_train_loss_grads_fp32(dev, with_noise, n_s):
+    field, _, o, d, z, noise, gt = _nerf_field_inputs(dev, n_s=n_s)
+    kw = dict(layers=8, feat=96, dtype=torch.float32)
+    noise = noise if with_noise else None
+    before = dict(FM.LAUNCHES)
+    mse, grads = FN.fused_nerf_train_loss_grads(field, o, d, z, noise, gt, **kw)
+    assert _grown(before) == {"nerf_dense": 10, "nerf_composite_loss_bwd": 1,
+                              "nerf_dense_dgrad": 9, "nerf_dense_wgrad": 10}
+    r_mse, r_grads = FN.fused_nerf_train_loss_grads_reference(
+        field, o, d, z, noise, gt, **kw)
+    assert abs(float(mse) - float(r_mse)) <= 1e-5
+    assert set(grads) == set(r_grads)
+    for name, ref in r_grads.items():
+        assert grads[name].shape == ref.shape, name
+        assert _rel(grads[name], ref) <= 1e-3, (name, _rel(grads[name], ref))
+
+
+@pytest.mark.parametrize("return_weights", [True, False])
+def test_fused_nerf_render_rays_fp32(dev, return_weights):
+    field, _, o, d, z, _, _ = _nerf_field_inputs(dev)
+    kw = dict(layers=8, feat=96, dtype=torch.float32,
+              return_weights=return_weights)
+    before = dict(FM.LAUNCHES)
+    out = FN.fused_nerf_render_rays(field, o, d, z, **kw)
+    assert _grown(before) == {"nerf_dense": 10, "nerf_heads_composite": 1}
+    with torch.no_grad():
+        ref = FN.fused_nerf_render_rays_reference(field, o, d, z, **kw)
+    assert set(out) == set(ref) and ("weights" in out) == return_weights
+    for k, v in ref.items():
+        assert out[k].shape == v.shape and out[k].grad_fn is None, k
+        assert float((out[k] - v).abs().max()) <= 1e-4, k
+
+
+@pytest.mark.parametrize("with_dir", [True, False])
+def test_fused_nerf_apply_fp32(dev, with_dir):
+    field, g, o, d, z, _, _ = _nerf_field_inputs(dev)
+    xyz = (o[:, None, :] + d[:, None, :] * z[:, :, None])  # (53, 24, 3)
+    vd = d[:, None, :].expand_as(xyz).contiguous() if with_dir else None
+    cot = torch.randn(53, 24, 4, generator=g).to(dev)
+    kw = dict(layers=8, feat=96, dtype=torch.float32)
+
+    def run(fn):
+        out = fn(field, xyz, vd, **kw)
+        total = ((out["rgb"] * cot[..., 0:3]).sum()
+                 + (out["sigma"] * cot[..., 3]).sum())
+        grads = torch.autograd.grad(total, list(field.parameters()),
+                                    allow_unused=True)
+        return out, dict(zip([n for n, _ in field.named_parameters()], grads))
+
+    before = dict(FM.LAUNCHES)
+    out, grads = run(FN.fused_nerf_apply)
+    assert _grown(before) == {"nerf_dense": 10, "nerf_field_heads": 1,
+                              "nerf_field_heads_bwd": 1, "nerf_dense_dgrad": 9,
+                              "nerf_dense_wgrad": 10}
+    ref, r_grads = run(FN.fused_nerf_apply_reference)
+    assert out["rgb"].shape == (53, 24, 3) and out["sigma"].shape == (53, 24)
+    for k, v in ref.items():
+        assert _rel(out[k], v) <= 1e-4, k
+    for name, r in r_grads.items():
+        assert grads[name] is not None and _rel(grads[name], r) <= 1e-3, name
+    with torch.no_grad():
+        quiet = FN.fused_nerf_apply(field, xyz, vd, **kw)
+    assert quiet["rgb"].grad_fn is None
+
+
+def test_nerf_kernels_refuse_bad_inputs(dev):
+    rays8, z = _rays8(8, 4, dev)
+    b = torch.zeros(16, device=dev)
+    x = torch.zeros(32, 8, device=dev)
+    w = torch.zeros(8, 16, device=dev)
+    with pytest.raises(ValueError):  # neither X nor an encoding
+        FN.nerf_dense(None, None, b, rays8, 4)
+    with pytest.raises(ValueError):  # the encoding of the position needs z
+        FN.nerf_dense(x, w, b, rays8, 4, enc="xyz",
+                      enc_weight=torch.zeros(64, 16, device=dev), n_freq=10)
+    with pytest.raises(ValueError):  # too few rows for the frequencies
+        FN.nerf_dense(x, w, b, rays8, 4, enc="dir",
+                      enc_weight=torch.zeros(16, 16, device=dev), n_freq=4)
+    with pytest.raises(ValueError):  # a CPU operand among CUDA ones
+        FN.nerf_dense(x.cpu(), w, b, rays8, 4)
+    with pytest.raises(ValueError):  # the mask in another type than the weights
+        FN.nerf_dense_dgrad(torch.zeros(32, 16, device=dev),
+                            torch.zeros(32, 16, device=dev, dtype=torch.bfloat16),
+                            w)
+    with pytest.raises(ValueError):  # a field that is not the nerf variant
+        FN.fused_nerf_render_rays(build_model("s-nerf", 8, 64).to(dev),
+                                  rays8[:, 0:3], rays8[:, 3:6], z, feat=64)
+
+
+@pytest.mark.parametrize("options,kernels", [
+    (dict(), {"nerf_composite_loss_bwd": 1, "nerf_dense": 10}),
+    (dict(n_importance=8), {"nerf_field_heads": 2, "nerf_field_heads_bwd": 2,
+                            "nerf_dense": 20}),
+    (dict(ds_lambda=10.0, sc_lambda=0.1),
+     {"nerf_field_heads": 2, "nerf_field_heads_bwd": 2, "nerf_dense": 20}),
+    (dict(fused="off"), {})], ids=str)
+def test_nerf_step_and_render_on_the_card(dev, options, kernels):
+    """The nerf variant through the system: the plain step through K7, the
+    hierarchical and the depth-supervised step through K9 under the plain
+    renderer (sc_lambda changes nothing: no sun head), serving through K8
+    once a model, and no SIREN kernel; --fused off launches nothing."""
+    from satnerf_tpu_torch.config import Config
+    from satnerf_tpu_torch.train.system import NeRFSystem
+
+    n = 512
+    cfg = Config(**{**dict(model="nerf", fc_layers=8, fc_units=64, n_samples=16,
+                           batch_size=128, max_train_steps=20, ds_drop=1.0,
+                           chunk=256, lr=1e-3), **options})
+    system = NeRFSystem(cfg, device=dev, dataset_len=n)
+    assert system.fused_mode == ("off" if options.get("fused") else "points")
+    g = torch.Generator().manual_seed(6)
+    rays = torch.rand(n, 11, generator=g)
+    rays[:, 3:6] = torch.nn.functional.normalize(rays[:, 3:6], dim=1)
+    rays[:, 6], rays[:, 7] = 0.0, 1.0
+    data = {"rays": rays.to(dev), "rgbs": torch.rand(n, 3, generator=g).to(dev),
+            "ts": torch.zeros(n, dtype=torch.long, device=dev)}
+    if cfg.ds_lambda > 0:
+        data.update(d_rays=data["rays"][:64].clone(),
+                    d_depths=torch.rand(64, 2, generator=g).to(dev),
+                    d_ts=data["ts"][:64].clone())
+    state = system.init_state(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    steps = 6
+    before = dict(FM.LAUNCHES)
+    losses = [float(system.train_step(state, data, gen)["loss"])
+              for _ in range(steps)]
+    assert all(np.isfinite(losses)) and state.step == steps
+    grown = _grown(before)
+    assert not any(k in grown for k in (
+        "siren_dense", "composite_loss_bwd", "sc_loss_bwd", "heads_composite",
+        "field_heads", "composite_bwd"))
+    for k, per_step in kernels.items():
+        assert grown.get(k) == per_step * steps, (k, grown)
+    if not kernels:
+        assert grown == {}
+    before = dict(FM.LAUNCHES)
+    # blender rays carry no sun direction: (n, 8)
+    out = system.render_image(state.params, rays[:, :8].numpy(), None)
+    grown = _grown(before)
+    models = 2 if cfg.n_importance else 1
+    typ = "fine" if cfg.n_importance else "coarse"
+    assert out[f"rgb_{typ}"].shape == (n, 3)
+    assert np.isfinite(out[f"depth_{typ}"]).all()
+    assert not any(k.startswith(("sun_", "albedo_", "sky_", "beta_")) for k in out)
+    if kernels:
+        assert grown == {"nerf_dense": 10 * models * 2,
+                         "nerf_heads_composite": models * 2}
     else:
         assert grown == {}

@@ -1,7 +1,8 @@
 """The port stands on its own files: in a fresh interpreter, import every
 module of the port, take two CPU train steps and a render, then three steps
 of the full recipe (solar correction and depth supervision, with grad_accum
-and with shuffle), then look at sys.modules. No jax, jaxlib, flax or optax, and no module of the JAX package
+and with shuffle) and the classic NeRF variant's three kinds of step, then
+look at sys.modules. No jax, jaxlib, flax or optax, and no module of the JAX package
 satnerf_tpu, may have been loaded."""
 
 import os
@@ -27,6 +28,8 @@ print("IMPORTED", len(names))
 assert "satnerf_tpu_torch.cli.train" in names
 assert "satnerf_tpu_torch.data.synthetic" in names
 assert "satnerf_tpu_torch.data.satellite_depth" in names
+assert "satnerf_tpu_torch.data.blender" in names
+assert "satnerf_tpu_torch.ops.fused_nerf" in names
 
 from satnerf_tpu_torch.config import Config
 from satnerf_tpu_torch.train.system import NeRFSystem
@@ -68,11 +71,25 @@ for extra in (dict(grad_accum=2), dict(sampling="shuffle")):
     assert np.isfinite(float(m["loss_depth"])), extra
 print("FULL RECIPE OK")
 
-system = NeRFSystem(Config(model="nerf", fc_layers=8, fc_units=16, n_samples=8,
-                           chunk=5), device="cpu")
-out = system.render_image(system.init_params(torch.Generator().manual_seed(0)),
-                          rays[:7], None)
-assert np.isfinite(out["depth_coarse"]).all()
+# the classic NeRF variant: the plain step, the hierarchical step and the
+# depth-supervised step with a fused mode on, a render, and (N, 8) rays
+for extra in (dict(), dict(n_importance=4), dict(ds_lambda=1000.0)):
+    cfg = Config(model="nerf", fc_layers=8, fc_units=16, n_samples=8, chunk=5,
+                 batch_size=16, device="cpu", fused="on", max_train_steps=8,
+                 **extra)
+    system = NeRFSystem(cfg, dataset_len=64)
+    assert system.fused_mode == "points"
+    state = system.init_state(torch.Generator().manual_seed(0))
+    nerf_data = {**data, **depth, "rays": data["rays"][:, :8].contiguous(),
+                 "d_rays": depth["d_rays"][:, :8].contiguous()}
+    gen = torch.Generator().manual_seed(1)
+    for _ in range(2):
+        m = system.train_step(state, nerf_data, gen)
+    assert state.step == 2 and np.isfinite(float(m["loss_total"])), extra
+    out = system.render_image(state.params, rays[:7, :8], None)
+    typ = "fine" if "n_importance" in extra else "coarse"
+    assert np.isfinite(out[f"depth_{typ}"]).all(), extra
+print("NERF OK")
 
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
@@ -90,3 +107,4 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout
     assert "FULL RECIPE OK" in proc.stdout
+    assert "NERF OK" in proc.stdout

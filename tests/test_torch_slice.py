@@ -130,30 +130,37 @@ def test_create_dsm_cli_entry_point(run):
 
 
 def test_precision_and_card_only_limits():
-    """--precision auto: bf16 operands for the card, f32 on the CPU; the
-    variants without a CUDA kernel raise on the card instead of running a
-    plain path there (nothing is allocated on a device here)."""
+    """--precision auto: bf16 operands for the card, f32 on the CPU; every
+    variant has its kernels, so no configuration is refused for the card
+    (nothing is allocated on a device here)."""
     assert NeRFSystem(Config(), "cpu").compute_dtype == torch.float32
     assert NeRFSystem(Config(), "cuda").compute_dtype == torch.bfloat16
     assert (NeRFSystem(Config(precision="bfloat16"), "cpu").compute_dtype
             == torch.bfloat16)
     assert (NeRFSystem(Config(precision="float32"), "cuda").compute_dtype
             == torch.float32)
-    NeRFSystem(Config(model="nerf"), "cpu")._check_supported()
-    NeRFSystem(Config(n_importance=8), "cuda")._check_supported()
-    with pytest.raises(NotImplementedError, match="K8"):
-        NeRFSystem(Config(model="nerf"), "cuda")._check_supported()
+    assert NeRFSystem(Config(model="nerf"), "cpu").fused_mode == "off"
+    assert NeRFSystem(Config(n_importance=8), "cuda").fused_mode == "rays"
+    on_card = NeRFSystem(Config(model="nerf"), "cuda")
+    assert on_card.fused_mode == "points" and on_card.is_nerf
+    assert on_card.compute_dtype == torch.bfloat16
+    assert not hasattr(on_card, "_check_supported")
 
 
 def test_unported_paths_raise(run):
-    """What is still to port raises, naming its kernel; the hierarchical
-    path, which used to, renders a fine model now."""
+    """Nothing is left that raises for want of a kernel: the nerf variant,
+    which used to, takes a training step, and the hierarchical path renders
+    a fine model."""
     rays = np.zeros((4, 11), np.float32)
     rays[:, 7] = 1.0
     rays[:, 5] = rays[:, 10] = 1.0
-    with pytest.raises(NotImplementedError, match="K7"):
-        NeRFSystem(Config(**{**run["cfg"].__dict__, "model": "nerf"}),
-                   device="cpu")._check_supported(train=True)
+    nerf = NeRFSystem(Config(**{**run["cfg"].__dict__, "model": "nerf",
+                                "fused": "on", "batch_size": 4}), device="cpu")
+    state = nerf.init_state(torch.Generator().manual_seed(0))
+    data = {"rays": torch.from_numpy(rays), "rgbs": torch.rand(4, 3),
+            "ts": torch.zeros(4, dtype=torch.long)}
+    m = nerf.train_step(state, data, torch.Generator().manual_seed(1))
+    assert state.step == 1 and np.isfinite(float(m["loss"]))
     for fused, n_w in (("rays", 1), ("off", 16 + 8)):
         cfg = Config(**{**run["cfg"].__dict__, "n_importance": 8,
                         "fused": fused})

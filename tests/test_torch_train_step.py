@@ -305,22 +305,32 @@ def test_train_step_draws_and_options():
     assert system._noise_std(0) == 1.0 and abs(system._noise_std(2) - 0.81) < 1e-12
     assert NeRFSystem(Config(model="sat-nerf", **KW), "cpu")._noise_std(5) is None
 
-    s = NeRFSystem(Config(**{**KW, "model": "nerf"}), device="cpu",
-                   dataset_len=N_DATA)
-    with pytest.raises(NotImplementedError, match="K7"):
-        s._check_supported(train=True)
+    # the nerf variant trains: its plain step with a fused mode on is K7's
+    # plain version here, and it has no refusal left
+    s = NeRFSystem(Config(**{**KW, "model": "nerf", "fused": "on"}),
+                   device="cpu", dataset_len=N_DATA)
+    state = s.init_state(torch.Generator().manual_seed(0))
+    m = s.train_step(state, t_data, torch.Generator().manual_seed(1))
+    assert state.step == 1 and np.isfinite(float(m["loss"]))
+    assert set(m) == {"loss", "psnr", "loss_total", "lr"}
+    assert not hasattr(s, "_check_supported")
     for kw in (dict(sc_lambda=0.05), dict(ds_lambda=1.0), dict(grad_accum=2),
                dict(sampling="shuffle"), dict(n_importance=8),
-               dict(fused="on"), dict(fused="off")):  # these train now
-        NeRFSystem(Config(**{**KW, **kw}), device="cpu",
-                   dataset_len=N_DATA)._check_supported(train=True)
+               dict(fused="on"), dict(fused="off")):  # every option constructs
+        NeRFSystem(Config(**{**KW, **kw}), device="cpu", dataset_len=N_DATA)
     assert NeRFSystem(Config(device="cpu")).device.type == "cpu"
     assert NeRFSystem(Config()).device.type == "cuda"  # the card by default
     # --fused resolves as in the JAX system: auto is rays on the card, off on
-    # the CPU; on is the point-mode field kernel; nerf has no kernel yet
+    # the CPU; on is the point-mode field kernel; nerf has no rays mode: rays
+    # and auto on the card resolve to points for it
     modes = {("auto", "cuda"): "rays", ("auto", "cpu"): "off",
              ("rays", "cpu"): "rays", ("on", "cuda"): "points",
              ("on", "cpu"): "points", ("off", "cuda"): "off"}
     for (fused, dev), mode in modes.items():
         assert NeRFSystem(Config(fused=fused), dev).fused_mode == mode
-    assert NeRFSystem(Config(model="nerf", fused="on"), "cpu").fused_mode == "off"
+    nerf_modes = {("auto", "cuda"): "points", ("auto", "cpu"): "off",
+                  ("rays", "cpu"): "points", ("rays", "cuda"): "points",
+                  ("on", "cpu"): "points", ("off", "cuda"): "off"}
+    for (fused, dev), mode in nerf_modes.items():
+        assert NeRFSystem(Config(model="nerf", fused=fused),
+                          dev).fused_mode == mode

@@ -16,13 +16,16 @@ depths a ray: the two-launch dispatch in serving and training, the depth
 pass through the ray-mode field kernel) and prints the time of the
 resampling alone (sample_pdf, the sort and the merge) at the shape of the
 run; --fused on | off | rays picks the path as `cli.train --fused` does.
+--model nerf profiles the classic NeRF variant at 8 x 256: its per-ray kernels in serving and in the plain step, the
+plain renderer over its per-point field kernel with --n_importance or
+--ds_lambda.
 
 Prints the card, the wall time, the summed device kernel time, the idle
 share, the peak device memory, and the kernels by device time.
 
   python3 tools/profile_render_torch.py [--rays N] [--chunk C] [--train]
       [--batch B] [--sc_lambda L] [--ds_lambda L] [--n_importance N]
-      [--fused auto|rays|on|off]
+      [--fused auto|rays|on|off] [--model sat-nerf|s-nerf|nerf]
 """
 
 import argparse
@@ -132,6 +135,8 @@ def main():
     ap.add_argument("--n_importance", type=int, default=0)
     ap.add_argument("--fused", default="auto",
                     choices=["auto", "rays", "on", "off"])
+    ap.add_argument("--model", default="sat-nerf",
+                    choices=["sat-nerf", "s-nerf", "nerf"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_render_torch: needs an NVIDIA GPU")
@@ -141,7 +146,8 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    cfg = Config(model="sat-nerf", fc_layers=8, fc_units=512, n_samples=64,
+    units = 256 if args.model == "nerf" else 512  # the widths run_all.sh trains
+    cfg = Config(model=args.model, fc_layers=8, fc_units=units, n_samples=64,
                  chunk=args.chunk, batch_size=args.batch, first_beta_epoch=0,
                  sc_lambda=args.sc_lambda, ds_lambda=args.ds_lambda, ds_drop=1.0,
                  n_importance=args.n_importance, fused=args.fused)
