@@ -9,9 +9,12 @@ plain version):
   1  build the CUDA kernels in satnerf_tpu_torch/csrc/ with nvcc (sm_90a)
   2  the serving kernels (K2) against their plain PyTorch versions on the
      card, at 8 x 512, 64 samples, 8192 + 37 rays (a ragged edge), sat-nerf
-     and s-nerf, fp32 and bf16, with the compositing weights; then every
+     and s-nerf, fp32 and bf16, with the compositing weights; every bf16
+     launch of siren_dense on its wgmma mainloop also against the same launch
+     on the wmma mainloop (one rounding step; here and in 2b-2d); then every
      kernel alone at its main-path shape: time, plain version's time, the
-     one library call that computes the same function, and the card's bound
+     one library call that computes the same function, and the card's bound,
+     and for siren_dense and siren_dense_dgrad both mainloops' times
   2b the training kernels (K1) against their plain versions, at 8 x 512,
      64 samples, 1024 and 1000 + 37 rays: sat-nerf with the beta gate at 1
      and at 0 (with sigma noise and the weights output), s-nerf; fp32 and
@@ -33,8 +36,9 @@ plain version):
      8 x 512, 64 samples, batch 1024, bf16, across two epoch boundaries and
      the beta switch-on, with validation and checkpoints; a second call
      resumes from the checkpoint; create_pretty_dsm serves the trained
-     weights. Every kernel must have been launched, the loss must fall, the
-     resumed run must start at the saved step and the trained loss level
+     weights. Every kernel must have been launched, every siren_dense (K > 0)
+     and siren_dense_dgrad launch on the wgmma mainloop, the loss must fall,
+     the resumed run must start at the saved step and the trained loss level
   5  the paper's full recipe through its entry point: a second AOI with
      key points, cli.train with --sc_lambda 0.1 --ds_lambda 1000 at the same
      sizes across an epoch boundary, the beta switch-on and the step where
@@ -273,13 +277,15 @@ class StageCheck:
 
     def __init__(self, dtype):
         self.bf16 = str(dtype).endswith("bfloat16")
-        self.err = {"siren_dense": 0.0, "heads_composite": 0.0}
+        self.err = {"siren_dense": 0.0, "heads_composite": 0.0,
+                    "siren_dense_vs_wmma": 0.0}
         self.bad = []
 
     def dense(self, *args, **kw):
         from satnerf_tpu_torch.ops.fused_mlp import (siren_dense,
                                                      siren_dense_reference)
 
+        took = _took_wgmma("siren_dense")
         y = siren_dense(*args, **kw)
         ref = siren_dense_reference(*args, **kw).float()
         diff = (y.float() - ref).abs()
@@ -289,6 +295,14 @@ class StageCheck:
         if bool((diff > tol).any()):
             self.bad.append(f"siren_dense extra={kw.get('extra')} "
                             f"max err {diff.max().item():.3g}")
+        if took():  # the same launch on the wmma mainloop: one rounding step
+            other = siren_dense(*args, mainloop="wmma", **kw).float()
+            d = (y.float() - other).abs()
+            self.err["siren_dense_vs_wmma"] = max(self.err["siren_dense_vs_wmma"],
+                                                  d.max().item())
+            if bool((d > 2.0 ** -7 * other.abs() + 1e-4).any()):
+                self.bad.append(f"siren_dense extra={kw.get('extra')} wgmma vs "
+                                f"wmma max err {d.max().item():.3g}")
         return y
 
     def heads(self, *args, **kw):
@@ -306,6 +320,20 @@ class StageCheck:
         return out, w
 
 
+# the two kernels with a wgmma mainloop: each such launch is also held
+# against the same launch on the wmma mainloop
+VS_WMMA = ("siren_dense_vs_wmma", "siren_dense_dgrad_vs_wmma")
+
+
+def _took_wgmma(name: str):
+    """A function that tells whether the launches of `name` made between this
+    call and its own call went through the wgmma mainloop."""
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+
+    before = FM.MAINLOOP_LAUNCHES.get((name, "wgmma"), 0)
+    return lambda: FM.MAINLOOP_LAUNCHES.get((name, "wgmma"), 0) > before
+
+
 def _rel_err(got, ref) -> float:
     """max |got - ref| relative to the reference tensor's largest entry."""
     return ((got.float() - ref.float()).abs().max()
@@ -320,7 +348,7 @@ class TrainCheck:
     def __init__(self, dtype):
         self.bf16 = str(dtype).endswith("bfloat16")
         self.err = dict.fromkeys(TRAIN_KERNELS + AUX_KERNELS + FIELD_KERNELS
-                                 + ("heads_composite",), 0.0)
+                                 + ("heads_composite",) + VS_WMMA, 0.0)
         self.bad = []
 
     def _hold(self, kernel, what, got, ref, tol_rel_max, elementwise=False,
@@ -347,8 +375,12 @@ class TrainCheck:
     def dense(self, *args, **kw):
         from satnerf_tpu_torch.ops import fused_mlp as FM
 
+        took = _took_wgmma("siren_dense")
         out = FM.siren_dense(*args, **kw)
         ref = FM.siren_dense_reference(*args, **kw)
+        if took():  # the same launch on the wmma mainloop
+            self._vs_wmma_dense(out, FM.siren_dense(*args, mainloop="wmma", **kw),
+                                kw)
         if not kw.get("save"):
             out, ref = (out, None), (ref, None)
         y, y_ref = out[0].float(), ref[0].float()
@@ -427,12 +459,35 @@ class TrainCheck:
     def dgrad(self, dy, slope, weight, out=None):
         from satnerf_tpu_torch.ops import fused_mlp as FM
 
-        base = None if out is None else out.clone()
+        base = None if out is None else out.clone()  # the reference adds onto it
+        base_wmma = None if out is None else out.clone()
+        took = _took_wgmma("siren_dense_dgrad")
         got = FM.siren_dense_dgrad(dy, slope, weight, out=out)
         ref = FM.siren_dense_dgrad_reference(dy, slope, weight, out=base)
-        self._hold("siren_dense_dgrad", f"N={dy.shape[1]} K={weight.shape[0]}",
-                   got, ref, K1_STAGE_TOL)
+        what = f"N={dy.shape[1]} K={weight.shape[0]}"
+        self._hold("siren_dense_dgrad", what, got, ref, K1_STAGE_TOL)
+        if took():  # the same launch on the wmma mainloop
+            other = FM.siren_dense_dgrad(dy, slope, weight, out=base_wmma,
+                                         mainloop="wmma")
+            self._hold("siren_dense_dgrad_vs_wmma", what, got, other, K1_STAGE_TOL)
         return got
+
+    def _vs_wmma_dense(self, out, other, kw):
+        """siren_dense's rule (wgmma) against its wmma mainloop: Y within one
+        rounding step, the slope as against the plain version."""
+        if not kw.get("save"):
+            out, other = (out, None), (other, None)
+        d = (out[0].float() - other[0].float()).abs()
+        self.err["siren_dense_vs_wmma"] = max(self.err["siren_dense_vs_wmma"],
+                                              d.max().item())
+        if bool((d > 2.0 ** -7 * other[0].float().abs() + 1e-4).any()):
+            self.bad.append(f"siren_dense extra={kw.get('extra')} wgmma vs wmma "
+                            f"max err {d.max().item():.3g}")
+        if kw.get("save"):
+            w0 = kw.get("w0", 1.0)
+            e = (out[1] - other[1]).abs().max().item()
+            if e > 1e-5 * w0 * w0 + 1e-4:
+                self.bad.append(f"siren_dense slope wgmma vs wmma max err {e:.3g}")
 
     def wgrad(self, *args, **kw):
         from satnerf_tpu_torch.ops import fused_mlp as FM
@@ -560,7 +615,8 @@ def _time_kernels(packed: dict, dev) -> dict:
     serving kernels at one chunk of CHUNK rays x 64 samples (4.19 M points),
     the training kernels at one batch of BATCH rays x 64 (65,536 points);
     for the dense kernels the 512 x 512 skip layer. Returns name ->
-    {ms, plain_ms, library_ms, bound_ms, bound_by}. bound_ms counts every
+    {ms, plain_ms, library_ms, bound_ms, bound_by}, and for siren_dense and
+    siren_dense_dgrad also mainloop (the rule's), wgmma_ms and wmma_ms. bound_ms counts every
     input read once and every output written once, and 2*P*K*N operations
     for the dense kernels; library_ms times the one PyTorch call that
     computes the same function in the kernel's dtype, where there is one."""
@@ -579,6 +635,20 @@ def _time_kernels(packed: dict, dev) -> dict:
                 "library_ms": None if library is None else _cuda_ms(library),
                 "bound_ms": bound_ms, "bound_by": by}
 
+    def mainloops(name, fn, e):
+        """e, with the mainloop the rule took (fn(None)) and both tensor-core
+        mainloops timed on the same inputs in turns: wmma, wgmma, wgmma,
+        wmma."""
+        before = dict(FM.MAINLOOP_LAUNCHES)
+        fn(None)
+        e["mainloop"] = next(k[1] for k, v in FM.MAINLOOP_LAUNCHES.items()
+                             if k[0] == name and v > before.get(k, 0))
+        ms = {m: [] for m in FM.MAINLOOPS}
+        for m in ("wmma", "wgmma", "wgmma", "wmma"):
+            ms[m].append(_cuda_ms(lambda: fn(m)))
+        e.update({f"{m}_ms": sum(v) / len(v) for m, v in ms.items()})
+        return e
+
     w, bias, c = packed["B"][3], packed["bt"][4], packed["C"]
     out = {}
 
@@ -590,12 +660,13 @@ def _time_kernels(packed: dict, dev) -> dict:
     args = (h, w, bias, rays16, SAMPLES)
     dkw = dict(extra="xyz", extra_weight=c, z=z)
     y_bytes = p * FEAT * 2
-    out["siren_dense"] = entry(
+    out["siren_dense"] = mainloops("siren_dense", lambda m: FM.siren_dense(
+        *args, mainloop=m, **dkw), entry(
         lambda: FM.siren_dense(*args, **dkw),
         lambda: FM.siren_dense_reference(*args, **dkw),
         lambda: torch.sin(torch.addmm(bias.to(dtype), h, w)),
         _nbytes(h, w, bias, rays16, z, c) + y_bytes,
-        2.0 * p * FEAT * (FEAT + 3))
+        2.0 * p * FEAT * (FEAT + 3)))
     hs = [rand(p, fh) for _ in range(3)]
     skyh = rand(CHUNK, fh).abs()
     hargs = (h, *hs, skyh, packed["wn"], packed["bn"], z)
@@ -614,21 +685,24 @@ def _time_kernels(packed: dict, dev) -> dict:
     h = rand(p, FEAT)
     args = (h, w, bias, rays16, SAMPLES)
     dkw = dict(extra="xyz", extra_weight=c, z=z, save=True)
-    t_entry = entry(
+    t_entry = mainloops("siren_dense", lambda m: FM.siren_dense(
+        *args, mainloop=m, **dkw), entry(
         lambda: FM.siren_dense(*args, **dkw),
         lambda: FM.siren_dense_reference(*args, **dkw),
         lambda: torch.sin(torch.addmm(bias.to(dtype), h, w)),
         _nbytes(h, w, bias, rays16, z, c) + p * FEAT * (2 + 4),
-        2.0 * p * FEAT * (FEAT + 3))
+        2.0 * p * FEAT * (FEAT + 3)))
     out["siren_dense"].update({f"train_{k}": v for k, v in t_entry.items()})
 
     dy, slope = rand(p, FEAT, to=torch.float32), rand(p, FEAT, to=torch.float32)
     gb = (dy * slope).to(dtype)
-    out["siren_dense_dgrad"] = entry(
-        lambda: FM.siren_dense_dgrad(dy, slope, w),
-        lambda: FM.siren_dense_dgrad_reference(dy, slope, w),
-        lambda: gb @ w.t(),
-        _nbytes(dy, slope, w) + p * FEAT * 4, 2.0 * p * FEAT * FEAT)
+    out["siren_dense_dgrad"] = mainloops(
+        "siren_dense_dgrad",
+        lambda m: FM.siren_dense_dgrad(dy, slope, w, mainloop=m), entry(
+            lambda: FM.siren_dense_dgrad(dy, slope, w),
+            lambda: FM.siren_dense_dgrad_reference(dy, slope, w),
+            lambda: gb @ w.t(),
+            _nbytes(dy, slope, w) + p * FEAT * 4, 2.0 * p * FEAT * FEAT))
     wargs = (h, dy, slope, rays16, SAMPLES)
     wkw = dict(extra="xyz", extra_weight=c, z=z)
     out["siren_dense_wgrad"] = entry(
@@ -758,14 +832,21 @@ def phase2(results: dict):
                         generator=torch.Generator().manual_seed(1)).to(dev)
     times = _time_kernels(FM.pack_params(field, skip=4, use_beta=True,
                                          dtype=torch.bfloat16), dev)
+    def loops(e, pre=""):
+        if "mainloop" not in e:
+            return ""
+        return (f" ({e[pre + 'mainloop']}; wgmma {e[pre + 'wgmma_ms']:.3f} ms, "
+                f"wmma {e[pre + 'wmma_ms']:.3f} ms)")
+
     for name, e in times.items():
         lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.3f} ms"
         log(f"phase 2: {name} bf16 at its main-path shape: kernel "
-            f"{e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms, library call "
-            f"{lib}, bound {e['bound_ms']:.3f} ms ({e['bound_by']})")
+            f"{e['ms']:.3f} ms{loops(e)}, plain {e['plain_ms']:.3f} ms, library "
+            f"call {lib}, bound {e['bound_ms']:.3f} ms ({e['bound_by']})")
     e = times["siren_dense"]
     log(f"phase 2: siren_dense bf16 with the saved slope at a training batch "
-        f"({BATCH} rays x {SAMPLES}): kernel {e['train_ms']:.3f} ms, plain "
+        f"({BATCH} rays x {SAMPLES}): kernel {e['train_ms']:.3f} ms"
+        f"{loops(e, 'train_')}, plain "
         f"{e['train_plain_ms']:.3f} ms, library call "
         f"{e['train_library_ms']:.3f} ms, bound {e['train_bound_ms']:.3f} ms")
     e = times["heads_composite"]
@@ -1264,6 +1345,20 @@ def _time_nerf_kernels(field, dev) -> dict:
                 "library_ms": None if library is None else _cuda_ms(library),
                 "bound_ms": bound_ms, "bound_by": by}
 
+    def mainloops(name, fn, e):
+        """e, with the mainloop the rule took (fn(None)) and both tensor-core
+        mainloops timed on the same inputs in turns: wmma, wgmma, wgmma,
+        wmma."""
+        before = dict(FM.MAINLOOP_LAUNCHES)
+        fn(None)
+        e["mainloop"] = next(k[1] for k, v in FM.MAINLOOP_LAUNCHES.items()
+                             if k[0] == name and v > before.get(k, 0))
+        ms = {m: [] for m in FM.MAINLOOPS}
+        for m in ("wmma", "wgmma", "wgmma", "wmma"):
+            ms[m].append(_cuda_ms(lambda: fn(m)))
+        e.update({f"{m}_ms": sum(v) / len(v) for m, v in ms.items()})
+        return e
+
     w, bias, c = packed["B"][3], packed["bt"][4], packed["C"]
     n_xyz, e_rows = NERF_FREQ[0], packed["C"].shape[0]
     out = {}
@@ -1660,6 +1755,18 @@ def phase4(results: dict, card: str):
     if not all(launches[k] > 0 for k in TRAIN_KERNELS + ("heads_composite",)):
         raise SystemExit(f"phase 4 failed: a kernel was not launched: {launches}")
     results["launches"] = launches
+    # every bf16 launch with K > 0 of the two kernels with a wgmma mainloop
+    # went through it (the rest of siren_dense's: K = 0, layer 0 and sky_0)
+    loops = {k: dict(n for n in FM.MAINLOOP_LAUNCHES.items() if n[0][0] == k)
+             for k in ("siren_dense", "siren_dense_dgrad")}
+    for k, by in loops.items():
+        wg, k0 = by.get((k, "wgmma"), 0), by.get((k, "k0"), 0)
+        if wg == 0 or wg + k0 != launches[k]:
+            raise SystemExit(f"phase 4 failed: {k} launched {launches[k]} times, "
+                             f"by mainloop {by}: not every one with K > 0 on wgmma")
+    results["mainloop_launches"] = {k: {m: n for (_, m), n in by.items()}
+                                    for k, by in loops.items()}
+    log(f"phase 4: launches by mainloop {results['mainloop_launches']}")
 
     rows = _train_rows(logs, cfg.exp_name)
     gate_on = [r for r in rows if system.beta_gate(r["step"] - 1) == 1.0]
@@ -2425,6 +2532,10 @@ def main():
             "launches_nerf_hier": results["launches_nerf_hier"][kname],
             "max_abs_err": max(results["err"][(kname, "float32")],
                                results["err"][(kname, "bfloat16")]),
+            **({"launches_by_mainloop": results["mainloop_launches"][kname],
+                "max_abs_err_vs_wmma": results["err"][(f"{kname}_vs_wmma",
+                                                       "bfloat16")]}
+               if kname in results["mainloop_launches"] else {}),
             **t,
         })
     log(f"build {secs:.1f} s, phases {time.perf_counter() - t_start:.1f} s; "

@@ -68,7 +68,7 @@ class Config:
     # --- additions of this framework (absent in the reference) ---
     seed: int = 0
     device: str = "cuda"  # cuda | cpu — where the entry points run
-    n_devices: int = 0  # kept for opts.json compatibility; one device here
+    n_devices: int = 0  # 0 or 1: one device (fit refuses more until ROADMAP M7)
     precision: str = "auto"  # auto | float32 | bfloat16 (matmul inputs).
     # "auto" = bfloat16 on the card, float32 on the CPU (where tests pin
     # numerics against f32 oracles). Params/accumulation are f32 either way.

@@ -31,6 +31,7 @@
 // the order of addition, and with it the last bits, changes from run to run.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -61,14 +62,36 @@ constexpr int W_LD = BN + 8;     // padded row of a [32][128] bf16 tile
 // ---------------------------------------------------------- siren_dense_dgrad
 //
 // dX[p, k] (+)= sum_n round(G[p, n]) * W[k, n]   (fused_mlp.py:452-516, the
-// _dot_t_rhs products). W is the forward's (K, N) weight. Where two branches
-// meet (d_feats, d_h) the second launch accumulates onto the first's output.
-// The bf16 path uses WMMA fragments with the G tile formed from its two fp32
-// operands on the way into shared memory, the fp32 path a register-tiled
-// SIMT GEMM. The grid is one-dimensional with the column tile running
-// fastest: the blocks that share a row tile of G (8 bytes a value in device
-// memory, four times the forward's operand) run next to each other and find
-// it in L2.
+// _dot_t_rhs products). W is the forward's (K, N) weight: contiguous along
+// N, the reduction, so it is the ordinary K-major B operand. Where two
+// branches meet (d_feats, d_h) the second launch accumulates onto the first's
+// output, without atomics: the result is the same from run to run.
+//
+// What bounds it: G comes as two fp32 tensors, 8 bytes of operand a value,
+// and dX leaves in fp32: at 512 x 512 and 65,536 points 0.120 ms of bytes
+// against 0.035 ms of products, so it is bound by device memory. Three
+// mainloops, one rule (satnerf_siren_dense_dgrad below; ops/fused_mlp.py
+// dense_mainloop mirrors it):
+//  * wgmma (bf16, N and K multiples of 64, dY, slope, W and dX 16-byte
+//    aligned: every main-path launch). dgrad_wgmma is persistent, one block
+//    an SM walking 128 x 256 tiles of dX. A producer warp keeps four 32-deep
+//    stages in flight, TMA loads of the fp32 dY and slope tiles (128 x 32,
+//    128-byte swizzle) and of W (256 x 32 bf16, 64-byte swizzle), 48 KB a
+//    stage, so the card's memory stays busy while the consumers convert,
+//    multiply and write. Two consumer warpgroups own 64 rows each: a thread
+//    reads its A-fragment elements of dY and slope from shared memory, forms
+//    G in fp32, rounds it to bf16 and packs it into the registers of a
+//    register-A (RS) m64n256k16 wgmma. The epilogue writes dX from the
+//    accumulators as 16-byte vectors (an exchange between neighbouring
+//    lanes), adding onto out where asked; the column tiles of a row tile are
+//    neighbours in the walk, so G's second read comes from L2.
+//  * wmma (bf16, N a multiple of 8, dY, slope and W 16-byte aligned; or
+//    asked for): WMMA fragments with the G tile formed from its two fp32
+//    operands on the way into shared memory, 128 x 128 x 32 tiles.
+//  * simt (fp32, and bf16 of other shapes): a register-tiled SIMT GEMM.
+// The grids of the last two are one-dimensional with the column tile running
+// fastest: the blocks that share a row tile of G run next to each other and
+// find it in L2.
 
 template <typename T>
 __global__ void __launch_bounds__(DENSE_THREADS)
@@ -227,6 +250,140 @@ dgrad_wmma(const float* __restrict__ dY, const float* __restrict__ slope,
         }
       }
       __syncwarp();
+    }
+  }
+}
+
+// The wgmma mainloop of siren_dense_dgrad (Hopper).
+constexpr int DG_BM = 128, DG_BN = 256, DG_BK = 32, DG_STAGES = 4;
+constexpr int DG_WG_THREADS = 128;
+constexpr int DG_THREADS = 2 * DG_WG_THREADS + 32;  // two consumer warpgroups, a producer warp
+constexpr int DG_G_BYTES = DG_BM * DG_BK * 4;       // a dY or slope tile, fp32
+constexpr int DG_W_BYTES = DG_BN * DG_BK * 2;       // a W tile, bf16
+
+struct DgradSmem {
+  float dy[DG_STAGES][DG_BM * DG_BK];  // each 1024-byte aligned
+  float slope[DG_STAGES][DG_BM * DG_BK];
+  __nv_bfloat16 w[DG_STAGES][DG_BN * DG_BK];
+  uint64_t full[DG_STAGES], empty[DG_STAGES];
+};
+constexpr int DG_SMEM = (int)sizeof(DgradSmem) + 1024;
+
+// Byte offset of element (r, c) of a 32-float row of a 128-byte-swizzled
+// tile: its 16-byte chunk c / 4 lands at chunk (c / 4) ^ (r % 8) of the row.
+__device__ __forceinline__ int swizzled_f32(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + (c & 3) * 4;
+}
+
+__global__ void __launch_bounds__(DG_THREADS, 1)
+dgrad_wgmma(const __grid_constant__ CUtensorMap map_dy, const __grid_constant__ CUtensorMap map_sl,
+            const __grid_constant__ CUtensorMap map_w, int has_slope, float* __restrict__ dX,
+            int accumulate, int P, int N, int K) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  DgradSmem& sm = *reinterpret_cast<DgradSmem*>(align1024(smem_raw));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int col_tiles = (K + DG_BN - 1) / DG_BN;
+  const int tiles = ((P + DG_BM - 1) / DG_BM) * col_tiles;
+  const int n_blocks = (N + DG_BK - 1) / DG_BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DG_STAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 2 * DG_WG_THREADS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer: one lane issues every load
+    if (lane == 0) {
+      const uint32_t bytes = DG_G_BYTES * (has_slope ? 2 : 1) + DG_W_BYTES;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int row0 = (tile / col_tiles) * DG_BM, col0 = (tile % col_tiles) * DG_BN;
+        for (int nb = 0; nb < n_blocks; ++nb) {
+          mbar_wait(&sm.empty[stage], phase ^ 1);
+          mbar_arrive_expect_tx(&sm.full[stage], bytes);
+          tma_load_2d(sm.dy[stage], &map_dy, &sm.full[stage], nb * DG_BK, row0);
+          if (has_slope) tma_load_2d(sm.slope[stage], &map_sl, &sm.full[stage], nb * DG_BK, row0);
+          tma_load_2d(sm.w[stage], &map_w, &sm.full[stage], nb * DG_BK, col0);
+          if (++stage == DG_STAGES) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of each tile
+  const int wg = warp / 4, wl = warp % 4;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = wg * 64 + wl * 16 + g;  // this thread's rows of the tile: r0, r0 + 8
+  int stage = 0;
+  uint32_t phase = 0;
+  float acc[128];
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int row0 = (tile / col_tiles) * DG_BM, col0 = (tile % col_tiles) * DG_BN;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+
+    for (int nb = 0; nb < n_blocks; ++nb) {
+      mbar_wait(&sm.full[stage], phase);
+      const uint8_t* dy = reinterpret_cast<const uint8_t*>(sm.dy[stage]);
+      const uint8_t* sl = reinterpret_cast<const uint8_t*>(sm.slope[stage]);
+      // A fragments of both 16-deep steps: register i of step s holds row
+      // r0 + 8 (i % 2), columns 16 s + 8 (i / 2) + 2t and + 1, as bf16 of G
+      uint32_t a[2][4];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int off = swizzled_f32(r0 + 8 * (i & 1), 16 * s + 8 * (i >> 1) + 2 * t);
+          float2 v = *reinterpret_cast<const float2*>(dy + off);
+          if (has_slope) {
+            const float2 c = *reinterpret_cast<const float2*>(sl + off);
+            v.x *= c.x;
+            v.y *= c.y;
+          }
+          const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
+          a[s][i] = *reinterpret_cast<const uint32_t*>(&h);
+        }
+      }
+      const uint8_t* w = reinterpret_cast<const uint8_t*>(sm.w[stage]);
+      wgmma_fence();
+      wgmma_m64n256k16_rs(acc, a[0], smem_desc(w, 16, 512, SWIZZLE_64B));
+      wgmma_m64n256k16_rs(acc, a[1], smem_desc(w + 32, 16, 512, SWIZZLE_64B));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(a[0]);
+      fence_regs(a[1]);
+      mbar_arrive(&sm.empty[stage]);
+      if (++stage == DG_STAGES) { stage = 0; phase ^= 1; }
+    }
+
+    // epilogue: rows q0, q0 + 8; columns 8j + 2t, + 1 of each 8-column block j
+    const int q0 = row0 + r0, q1 = q0 + 8;
+#pragma unroll
+    for (int j = 0; j < DG_BN / 8; j += 2) {  // blocks j, j + 1 into one float4 a lane
+      const float4 f0 = pair_exchange(make_float2(acc[4 * j], acc[4 * j + 1]),
+                                      make_float2(acc[4 * j + 4], acc[4 * j + 5]), t);
+      const float4 f1 = pair_exchange(make_float2(acc[4 * j + 2], acc[4 * j + 3]),
+                                      make_float2(acc[4 * j + 6], acc[4 * j + 7]), t);
+      const int k = col0 + 8 * (j + (t & 1)) + 2 * (t & ~1);
+      if (k >= K) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = h ? q1 : q0;
+        if (q >= P) continue;
+        float4 v = h ? f1 : f0;
+        float4* out = reinterpret_cast<float4*>(dX + (size_t)q * K + k);
+        if (accumulate) {
+          const float4 o = *out;
+          v.x += o.x; v.y += o.y; v.z += o.z; v.w += o.w;
+        }
+        *out = v;
+      }
     }
   }
 }
@@ -814,9 +971,50 @@ composite_loss_bwd_kernel(const T* __restrict__ h, int F, const T* __restrict__ 
 // Each returns cudaGetLastError() after its launches; the wrapper raises if
 // it is not 0.
 
+static int launch_dgrad_wgmma(cudaStream_t st, const float* dY, const float* slope,
+                              const __nv_bfloat16* W, float* dX, int accumulate, int P, int N,
+                              int K) {
+  static const int resident = hopper::resident_blocks(dgrad_wgmma, DG_THREADS, DG_SMEM);
+  if (resident == 0) return (int)cudaErrorInvalidConfiguration;
+  CUtensorMap map_dy, map_sl, map_w;
+  int err = hopper::tensor_map_2d(&map_dy, dY, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, P, N, DG_BM,
+                                  DG_BK, CU_TENSOR_MAP_SWIZZLE_128B);
+  // without a slope (a linear layer) its map stands on dY and is never read
+  if (err == 0)
+    err = hopper::tensor_map_2d(&map_sl, slope != nullptr ? slope : dY,
+                                CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, P, N, DG_BM, DG_BK,
+                                CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = hopper::tensor_map_2d(&map_w, W, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K, N, DG_BN,
+                                DG_BK, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err != 0) return err;
+  const long long tiles = (long long)((P + DG_BM - 1) / DG_BM) * ((K + DG_BN - 1) / DG_BN);
+  const int grid = (int)(tiles < resident ? tiles : resident);
+  dgrad_wgmma<<<grid, DG_THREADS, DG_SMEM, st>>>(map_dy, map_sl, map_w, slope != nullptr, dX,
+                                                 accumulate, P, N, K);
+  return (int)cudaGetLastError();
+}
+
+// The mainloop rule of a bf16 launch (mainloop = MAINLOOP_RULE);
+// ops/fused_mlp.py dense_mainloop is the same rule in Python:
+//   wgmma  N and K multiples of 64; dY, slope, W and dX 16-byte aligned
+//   wmma   N a multiple of 8; dY, slope and W 16-byte aligned
+//   simt   any other shape (and fp32 always)
+// MAINLOOP_WMMA / MAINLOOP_WGMMA ask for one; a launch it cannot take is
+// refused with cudaErrorInvalidValue, never sent to another mainloop.
 extern "C" int satnerf_siren_dense_dgrad(int dtype, const void* dY, const void* slope,
                                          const void* W, void* dX, int accumulate, int P,
-                                         int N, int K, void* stream) {
+                                         int N, int K, int mainloop, void* stream) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (mainloop < MAINLOOP_RULE || mainloop > MAINLOOP_WGMMA) return (int)cudaErrorInvalidValue;
+  const bool in_ok = hopper::aligned16(dY) && (slope == nullptr || hopper::aligned16(slope)) &&
+                     hopper::aligned16(W);
+  const bool tc_ok = dtype == 1 && N % 8 == 0 && in_ok;
+  const bool wg_ok = dtype == 1 && N % 64 == 0 && K % 64 == 0 && in_ok && hopper::aligned16(dX);
+  if ((mainloop == MAINLOOP_WMMA && !tc_ok) || (mainloop == MAINLOOP_WGMMA && !wg_ok))
+    return (int)cudaErrorInvalidValue;
+  if (mainloop == MAINLOOP_RULE)
+    mainloop = wg_ok ? MAINLOOP_WGMMA : tc_ok ? MAINLOOP_WMMA : MAINLOOP_RULE;
   if (P == 0 || N == 0 || K == 0) return (int)cudaSuccess;
   const long long tiles = (long long)((P + BM - 1) / BM) * ((K + BN - 1) / BN);
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -825,19 +1023,18 @@ extern "C" int satnerf_siren_dense_dgrad(int dtype, const void* dY, const void* 
   const float* dy = static_cast<const float*>(dY);
   const float* sl = static_cast<const float*>(slope);
   float* dx = static_cast<float*>(dX);
-  const bool aligned = (reinterpret_cast<uintptr_t>(dY) | reinterpret_cast<uintptr_t>(slope) |
-                        reinterpret_cast<uintptr_t>(W)) % 16 == 0;
   if (dtype == 0) {
     dgrad_simt<float><<<grid, DENSE_THREADS, 0, st>>>(dy, sl, static_cast<const float*>(W), dx,
                                                       accumulate, P, N, K);
-  } else if (dtype == 1 && N % 8 == 0 && aligned) {
+  } else if (mainloop == MAINLOOP_WGMMA) {
+    return launch_dgrad_wgmma(st, dy, sl, static_cast<const __nv_bfloat16*>(W), dx, accumulate,
+                              P, N, K);
+  } else if (mainloop == MAINLOOP_WMMA) {
     dgrad_wmma<<<grid, DENSE_THREADS, 0, st>>>(dy, sl, static_cast<const __nv_bfloat16*>(W),
                                                dx, accumulate, P, N, K);
-  } else if (dtype == 1) {
+  } else {
     dgrad_simt<__nv_bfloat16><<<grid, DENSE_THREADS, 0, st>>>(
         dy, sl, static_cast<const __nv_bfloat16*>(W), dx, accumulate, P, N, K);
-  } else {
-    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

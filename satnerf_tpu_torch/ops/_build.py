@@ -31,15 +31,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # dtype, X, K, W, bias, rays, z, S, extra_mode, extra_off, n_extra, C,
-    # w0, act, Y, save, P, N, stream
+    # w0, act, Y, save, P, N, mainloop, stream
     "satnerf_siren_dense": [_I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P,
-                            _F, _I, _P, _P, _I, _I, _P],
+                            _F, _I, _P, _P, _I, _I, _I, _P],
     # dtype, h, F, r, s2, bh, skyh, Fh, Wn, bn, z, noise, R, S, rgb_padding,
     # out, weights, stream
     "satnerf_heads_composite": [_I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                                 _P, _I, _I, _F, _P, _P, _P],
-    # dtype, dY, slope, W, dX, accumulate, P, N, K, stream
-    "satnerf_siren_dense_dgrad": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dtype, dY, slope, W, dX, accumulate, P, N, K, mainloop, stream
+    "satnerf_siren_dense_dgrad": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dtype, X, K, dY, slope, rays, z, S, extra_mode, extra_off, n_extra, C,
     # dW, db, dC, dE, P, N, stream
     "satnerf_siren_dense_wgrad": [_I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,

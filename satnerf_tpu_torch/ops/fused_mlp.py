@@ -65,6 +65,15 @@ tensor launches its kernel or raises; given a CPU tensor it runs its plain
 version. There is no fallback from one to the other. Every launch adds one
 to LAUNCHES[name].
 
+siren_dense and siren_dense_dgrad each have more than one mainloop on the
+card: wgmma (Hopper: TMA-fed shared-memory stages, warpgroup products),
+wmma (warp-level tensor-core fragments), simt (fp32 FMAs), and for
+siren_dense with K = 0 the elementwise k0 kernel. `dense_mainloop` is the
+rule that picks one, the same rule as their C entries; `mainloop="wmma"` or
+`"wgmma"` asks for one by hand (tests, chip_smoke.py) and raises where it
+cannot run. Every launch of the two also adds one to
+MAINLOOP_LAUNCHES[(name, mainloop)].
+
 Weights follow the JAX kernel's precision split: matmul operands (weights,
 activations, the E operand) in the compute dtype, sums and biases in fp32,
 each activation stored in the compute dtype, as `_trunk_fwd` and
@@ -103,9 +112,72 @@ _EXTRA = {None: (0, 0), "xyz": (1, 0), "sun": (2, 6), "t": (2, 9)}  # mode, colu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# (kernel, mainloop) -> launches, for siren_dense and siren_dense_dgrad
+MAINLOOP_LAUNCHES: dict = {}
+MAINLOOPS = ("wmma", "wgmma")  # what `mainloop=` may ask for; None: the rule
+_MAINLOOP_CODE = {"wmma": 1, "wgmma": 2}  # csrc/common.cuh MAINLOOP_*; 0: rule
+DENSE_WGMMA_MAX_K = 512  # csrc/fused_render.cu FWD_MAX_K
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    MAINLOOP_LAUNCHES.clear()
+
+
+def _check_mainloop(mainloop) -> None:
+    if mainloop is not None and mainloop not in MAINLOOPS:
+        raise ValueError(f"mainloop must be None, 'wmma' or 'wgmma', got "
+                         f"{mainloop!r}")
+
+
+def dense_mainloop(kernel: str, dtype: torch.dtype, k: int, n: int, *,
+                   inputs_aligned: bool = True, outputs_aligned: bool = True,
+                   mainloop: Optional[str] = None) -> str:
+    """The mainloop a launch of siren_dense or siren_dense_dgrad takes on the
+    card: the rule of their C entries (csrc/fused_render.cu,
+    csrc/fused_train.cu), which the wrappers call to build what they pass.
+
+    siren_dense: k = K (0 for layer 0 and sky_0), n = N; the inputs are X and
+    W, the outputs Y and the saved slope. siren_dense_dgrad: k = K (dX's
+    columns), n = N (the reduction); the inputs are dY, slope and W, the
+    output dX. `*_aligned`: every such pointer is a multiple of 16 bytes.
+
+      k0     siren_dense with K = 0
+      simt   fp32, and bf16 of shapes no tensor-core mainloop takes
+      wgmma  bf16, K and N multiples of 64, inputs and outputs aligned;
+             siren_dense keeps a 128-column slice of W in shared memory:
+             K <= 512
+      wmma   bf16, N (siren_dense: and K) a multiple of 8, inputs aligned
+
+    mainloop "wmma" / "wgmma" asks for that one and raises ValueError where
+    it cannot run; there is no other fallback.
+    """
+    _check_mainloop(mainloop)
+    if kernel not in ("siren_dense", "siren_dense_dgrad"):
+        raise ValueError(f"{kernel} has one mainloop")
+    bf16 = dtype == torch.bfloat16
+    if kernel == "siren_dense" and k == 0:
+        rule, takes = "k0", ()
+    else:
+        mma_shape = n % 8 == 0 and (kernel == "siren_dense_dgrad" or k % 8 == 0)
+        takes = tuple(name for name, ok in (
+            ("wgmma", bf16 and k % 64 == 0 and n % 64 == 0 and inputs_aligned
+             and outputs_aligned
+             and (kernel == "siren_dense_dgrad" or k <= DENSE_WGMMA_MAX_K)),
+            ("wmma", bf16 and mma_shape and inputs_aligned)) if ok)
+        rule = takes[0] if takes else "simt"
+    if mainloop is None:
+        return rule
+    if mainloop not in takes:
+        raise ValueError(f"{kernel}: mainloop {mainloop!r} does not take "
+                         f"{dtype} K={k} N={n} (aligned inputs "
+                         f"{inputs_aligned}, outputs {outputs_aligned})")
+    return mainloop
+
+
+def _aligned(*tensors) -> bool:
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -128,12 +200,15 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch(name: str, *args) -> None:
+def _launch(name: str, *args, mainloop: Optional[str] = None) -> None:
     from satnerf_tpu_torch.ops._build import load_library
 
     fn = getattr(load_library(), f"satnerf_{name}")
     err = fn(*args)
     LAUNCHES[name] += 1
+    if mainloop is not None:
+        key = (name, mainloop)
+        MAINLOOP_LAUNCHES[key] = MAINLOOP_LAUNCHES.get(key, 0) + 1
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
@@ -188,12 +263,15 @@ def siren_dense_reference(x, weight, bias, rays16, samples: int, *,
 
 def siren_dense(x, weight, bias, rays16, samples: int, *,
                 extra: Optional[str] = None, extra_weight=None, z=None,
-                w0: float = 1.0, act: str = "sin", save: bool = False):
+                w0: float = 1.0, act: str = "sin", save: bool = False,
+                mainloop: Optional[str] = None):
     """One dense layer of the field; arguments as siren_dense_reference.
 
-    CUDA tensors launch the siren_dense kernel; CPU tensors run the plain
-    version.
+    CUDA tensors launch the siren_dense kernel, on the mainloop
+    `dense_mainloop` gives (None: the rule; "wmma" / "wgmma" by hand); CPU
+    tensors run the plain version.
     """
+    _check_mainloop(mainloop)
     if rays16.device.type == "cpu":
         return siren_dense_reference(x, weight, bias, rays16, samples,
                                      extra=extra, extra_weight=extra_weight,
@@ -228,10 +306,13 @@ def siren_dense(x, weight, bias, rays16, samples: int, *,
     y = torch.empty((p, n), dtype=dtype, device=rays16.device)
     slope = (torch.empty((p, n), dtype=torch.float32, device=rays16.device)
              if save else None)
+    loop = dense_mainloop("siren_dense", dtype, k, n,
+                          inputs_aligned=_aligned(x, weight),
+                          outputs_aligned=_aligned(y, slope), mainloop=mainloop)
     _launch("siren_dense", _DTYPE_CODE[dtype], _ptr(x), k, _ptr(weight),
             _ptr(bias), _ptr(rays16), _ptr(z), samples, mode, col, n_extra,
             _ptr(extra_weight), float(w0), _ACT[act], _ptr(y), _ptr(slope),
-            p, n, _stream(rays16))
+            p, n, _MAINLOOP_CODE.get(loop, 0), _stream(rays16), mainloop=loop)
     return (y, slope) if save else y
 
 
@@ -558,9 +639,13 @@ def siren_dense_dgrad_reference(dy, slope, weight, *, out=None):
     return dx if out is None else out.add_(dx)
 
 
-def siren_dense_dgrad(dy, slope, weight, *, out=None):
+def siren_dense_dgrad(dy, slope, weight, *, out=None,
+                      mainloop: Optional[str] = None):
     """The input cotangent of one dense layer; arguments as
-    siren_dense_dgrad_reference. CUDA tensors launch the kernel."""
+    siren_dense_dgrad_reference. CUDA tensors launch the kernel on the
+    mainloop `dense_mainloop` gives (None: the rule; "wmma" / "wgmma" by
+    hand)."""
+    _check_mainloop(mainloop)
     if dy.device.type == "cpu":
         return siren_dense_dgrad_reference(dy, slope, weight, out=out)
     dtype = weight.dtype
@@ -576,8 +661,12 @@ def siren_dense_dgrad(dy, slope, weight, *, out=None):
         raise ValueError("out must be (P, K) fp32")
     dx = out if out is not None else torch.empty(
         (p, k), dtype=torch.float32, device=dy.device)
+    loop = dense_mainloop("siren_dense_dgrad", dtype, k, n,
+                          inputs_aligned=_aligned(dy, slope, weight),
+                          outputs_aligned=_aligned(dx), mainloop=mainloop)
     _launch("siren_dense_dgrad", _DTYPE_CODE[dtype], _ptr(dy), _ptr(slope),
-            _ptr(weight), _ptr(dx), int(out is not None), p, n, k, _stream(dy))
+            _ptr(weight), _ptr(dx), int(out is not None), p, n, k,
+            _MAINLOOP_CODE.get(loop, 0), _stream(dy), mainloop=loop)
     return dx
 
 

@@ -9,8 +9,10 @@ keys, so its state_dict() is the payload. A training checkpoint adds, under
 the PL names, "optimizer_states" ([Adam's state_dict]) and "global_step";
 one without them still loads for serving.
 
-Reading the JAX package's msgpack checkpoints needs flax and waits for a
-later port (ROADMAP).
+The JAX package writes msgpack checkpoints under the same names. Reading
+them needs a msgpack decoder the port does not have yet (ROADMAP M5):
+`load_checkpoint` tells the two formats apart by their first bytes, as
+satnerf_tpu/eval/loader.py does, and refuses a msgpack file by name.
 """
 
 from __future__ import annotations
@@ -104,7 +106,15 @@ def load_checkpoint(path: str, params: torch.nn.Module,
                     optimizer: torch.optim.Optimizer | None = None) -> int:
     """Load a PL-style checkpoint into `params` (strict key match) and, when
     both are there, its optimizer state into `optimizer`. Returns the
-    checkpoint's global step (0 for one written without it)."""
+    checkpoint's global step (0 for one written without it).
+
+    A torch checkpoint is a zip archive and starts with b"PK"; anything else
+    is taken for a msgpack checkpoint of the JAX package and refused."""
+    with open(path, "rb") as f:
+        magic = f.read(2)
+    if magic != b"PK":
+        raise ValueError(f"{path}: msgpack checkpoint of the JAX package: not "
+                         f"readable here (ROADMAP M5)")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     params.load_state_dict(ckpt.get("state_dict", ckpt))
     if optimizer is not None and ckpt.get("optimizer_states"):

@@ -138,6 +138,9 @@ def fit(cfg: Config) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("cfg.device is 'cuda' but no CUDA device is visible "
                            "(pass --device cpu to train on the CPU)")
+    if cfg.n_devices > 1:
+        raise ValueError(f"--n_devices {cfg.n_devices}: this port trains on one "
+                         f"device; training across devices is ROADMAP item M7")
 
     train_sets = load_dataset(cfg, split="train")
     train_ds = train_sets[0]

@@ -1,5 +1,5 @@
-"""Analytic FLOP model of the radiance fields — the basis of the MFU
-numbers reported by bench.py and the speed-of-light analysis in BASELINE.md.
+"""Analytic FLOP model of the radiance fields — the basis of MFU figures and
+of a speed-of-light rate on the card this port runs on.
 
 Counts useful (unpadded) multiply-accumulates of the field MLP per sample
 point, mirroring the layer dims of models/nerf.py (reference models/nerf.py
@@ -9,8 +9,12 @@ O(R*S) elementwise and negligible next to the O(R*S*F^2) field.
 
 from __future__ import annotations
 
-# v5e peak dense throughput (bf16 MXU), FLOP/s. VMEM/HBM figures and this
-# number are probed/derived locally — see CLAUDE.md and BASELINE.md.
+# Published peaks of one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data
+# sheet), FLOP/s: dense bf16 on the tensor cores, and fp32 on the CUDA cores
+# (the port's fp32 kernels are SIMT FMAs, no TF32). The defaults below.
+H100_PEAK_BF16 = 989e12
+H100_PEAK_F32 = 67e12
+# The TPU v5e's dense peaks, kept for importers of the JAX package's names.
 V5E_PEAK_BF16 = 197e12
 V5E_PEAK_F32 = V5E_PEAK_BF16 / 4  # MXU f32 passes at 1/4 rate
 
@@ -76,7 +80,8 @@ def flops_per_ray(model: str = "sat-nerf", layers: int = 8, feat: int = 512,
 def speed_of_light_rays_per_sec(model: str = "sat-nerf", layers: int = 8,
                                 feat: int = 512, n_samples: int = 64,
                                 tau: int = 4, *, mode: str = "train",
-                                peak: float = V5E_PEAK_BF16) -> float:
-    """Compute-bound ceiling (rays/s/chip) at the chip's dense peak."""
+                                peak: float = H100_PEAK_BF16) -> float:
+    """Compute-bound ceiling (rays/s on one card) at its dense peak, by
+    default the H100's bf16 rate."""
     return peak / flops_per_ray(model, layers, feat, n_samples, tau,
                                 mode=mode)

@@ -30,7 +30,12 @@ exactly at the kink, nerf_heads_composite and nerf_composite_loss_bwd with
 noise, weights, a saturated ray and a faint last sample, nerf_field_heads and
 its backward, fused_nerf_train_loss_grads, fused_nerf_render_rays and
 fused_nerf_apply as wholes against autograd, and nerf train steps and renders
-through the system.
+through the system; for the Hopper mainloops of siren_dense and
+siren_dense_dgrad, `mainloop="wgmma"` against the plain version and against
+`mainloop="wmma"` on the same inputs at every (K, N) of the main path, every
+E operand, with and without the saved slope, accumulation and a slope, at
+65,536, 1,037 x 72 and 1,024 x 128 points, and operands whose pointers are
+not 16-byte aligned, which the rule keeps off the wgmma path.
 """
 
 import numpy as np
@@ -1229,3 +1234,171 @@ def test_nerf_step_and_render_on_the_card(dev, options, kernels):
                          "nerf_heads_composite": models * 2}
     else:
         assert grown == {}
+
+
+# ------------------------------------------------ the wgmma mainloops
+
+# (K, N, E operand, its width, activation): every siren_dense launch with
+# K > 0 on the main path
+MAIN_DENSE = [(512, 512, None, 0, "sin"),    # trunk layer
+              (512, 512, "xyz", 3, "sin"),   # skip layer
+              (512, 512, None, 0, "none"),   # feats
+              (512, 256, None, 0, "sin"),    # rgb_0
+              (512, 256, "sun", 3, "sin"),   # sun_v_0
+              (512, 256, "t", 4, "sin"),     # beta_0
+              (256, 256, None, 0, "sin")]    # sun_v_1, sun_v_2
+# (rays, samples): a training batch, a ragged one, a hierarchical fine pass
+MAIN_POINTS = [(1024, 64), (1037, 72), (1024, 128)]
+
+
+def _dense_operands(dev, k, n, extra, n_extra, n_rays, samples, seed=7):
+    rays16, z = _rays16(n_rays, samples, dev, seed=seed)
+    g = torch.Generator().manual_seed(seed)
+    p = n_rays * samples
+    x = (torch.rand(p, k, generator=g) * 2 - 1).to(dev, torch.bfloat16)
+    w = (torch.randn(k, n, generator=g) / k ** 0.5).to(dev, torch.bfloat16)
+    b = torch.randn(n, generator=g).to(dev)
+    c = ((torch.randn(n_extra, n, generator=g) * 0.3).to(dev, torch.bfloat16)
+         if extra else None)
+    return (x, w, b, rays16, samples), dict(extra=extra, extra_weight=c, z=z)
+
+
+def _count(name, mainloop):
+    return FM.MAINLOOP_LAUNCHES.get((name, mainloop), 0)
+
+
+@pytest.mark.parametrize("k,n,extra,n_extra,act,save", [
+    (*shape, save) for shape in MAIN_DENSE for save in (False, True)
+    if not (save and shape[-1] != "sin")])  # only a sine layer saves a slope
+@pytest.mark.parametrize("n_rays,samples", MAIN_POINTS)
+def test_siren_dense_wgmma(dev, k, n, extra, n_extra, act, save, n_rays,
+                           samples):
+    args, kw = _dense_operands(dev, k, n, extra, n_extra, n_rays, samples)
+    kw.update(act=act, save=save)
+    assert FM.dense_mainloop("siren_dense", torch.bfloat16, k, n) == "wgmma"
+    before = {m: _count("siren_dense", m) for m in ("wgmma", "wmma")}
+    got = FM.siren_dense(*args, mainloop="wgmma", **kw)
+    wmma = FM.siren_dense(*args, mainloop="wmma", **kw)
+    rule = FM.siren_dense(*args, **kw)
+    assert _count("siren_dense", "wgmma") == before["wgmma"] + 2
+    assert _count("siren_dense", "wmma") == before["wmma"] + 1
+    ref = FM.siren_dense_reference(*args, **kw)
+    if not save:
+        got, wmma, rule, ref = [(t, None) for t in (got, wmma, rule, ref)]
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == ref[0].shape
+    _close(got[0], ref[0], True)
+    _close(got[0], wmma[0], True)
+    assert torch.equal(got[0], rule[0])  # the rule took the same mainloop
+    if save:
+        assert float((got[1] - ref[1]).abs().max()) <= 1e-5 + 1e-4
+        assert float((got[1] - wmma[1]).abs().max()) <= 1e-5 + 1e-4
+
+
+# (N, K, slope, accumulate): every siren_dense_dgrad launch of the main path
+MAIN_DGRAD = [(256, 512, True, False),    # rgb_0
+              (256, 512, True, True),     # sun_v_0, beta_0 onto d_feats
+              (256, 256, True, False),    # sun_v_2, sun_v_1
+              (512, 512, False, False),   # feats, no slope
+              (512, 512, False, True),    # feats onto d_h
+              (512, 512, True, False)]    # trunk layers
+
+
+@pytest.mark.parametrize("n,k,with_slope,accumulate", MAIN_DGRAD)
+@pytest.mark.parametrize("n_rays,samples", MAIN_POINTS)
+def test_siren_dense_dgrad_wgmma(dev, n, k, with_slope, accumulate, n_rays,
+                                 samples):
+    p = n_rays * samples
+    g = torch.Generator().manual_seed(9)
+    dy = torch.randn(p, n, generator=g).to(dev)
+    slope = torch.randn(p, n, generator=g).to(dev) if with_slope else None
+    w = (torch.randn(k, n, generator=g) * 0.1).to(dev, torch.bfloat16)
+    base = torch.randn(p, k, generator=g).to(dev) if accumulate else None
+    assert FM.dense_mainloop("siren_dense_dgrad", torch.bfloat16, k, n) == "wgmma"
+
+    def run(mainloop):
+        out = None if base is None else base.clone()
+        got = FM.siren_dense_dgrad(dy, slope, w, out=out, mainloop=mainloop)
+        if out is not None:
+            assert got.data_ptr() == out.data_ptr()
+        return got
+
+    before = _count("siren_dense_dgrad", "wgmma")
+    got, wmma, rule = run("wgmma"), run("wmma"), run(None)
+    assert _count("siren_dense_dgrad", "wgmma") == before + 2
+    ref = FM.siren_dense_dgrad_reference(
+        dy, slope, w, out=None if base is None else base.clone())
+    assert got.shape == (p, k) and _rel(got, ref) <= 1e-4
+    assert _rel(got, wmma) <= 1e-4
+    assert torch.equal(got, rule)
+
+
+@pytest.mark.parametrize("save", [False, True])
+def test_wgmma_sine_is_sinf_bit_for_bit(dev, save):
+    """The wgmma epilogue writes sinf and sincosf out (csrc/fused_render.cu
+    sinf_fast, sincosf_fast) and calls the library only past |x| = 105615;
+    the wmma epilogue calls the library. With products of small integers,
+    which sum exactly in any order, both mainloops see the same
+    pre-activations, so Y and the slope agree bit for bit, over arguments
+    of up to 2e5 (groups of columns on both sides of that limit)."""
+    n_rays, samples, k, n = 64, 16, 64, 512
+    rays16, z = _rays16(n_rays, samples, dev)
+    g = torch.Generator().manual_seed(11)
+    p = n_rays * samples
+    x = torch.randint(-4, 5, (p, k), generator=g).to(dev, torch.bfloat16)
+    w = torch.randint(-4, 5, (k, n), generator=g).to(dev, torch.bfloat16)
+    b = torch.cat([(torch.rand(384, generator=g) * 2 - 1) * 1e5,
+                   (torch.rand(128, generator=g) * 2 - 1) * 2e5]).to(dev)
+    args = (x, w, b, rays16, samples)
+    got = FM.siren_dense(*args, save=save, mainloop="wgmma")
+    ref = FM.siren_dense(*args, save=save, mainloop="wmma")
+    if not save:
+        got, ref = (got,), (ref,)
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)
+
+
+def _odd(t):
+    """The same values in a contiguous view 2 elements into its storage:
+    its pointer is not a multiple of 16 bytes."""
+    store = torch.empty(t.numel() + 2, dtype=t.dtype, device=t.device)
+    view = store[2:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+def test_unaligned_weight_stays_off_the_wgmma_path(dev):
+    args, kw = _dense_operands(dev, 512, 256, "sun", 3, 37, 16)
+    x, w, *rest = args
+    w_odd = _odd(w)
+    before = _count("siren_dense", "simt")
+    got = FM.siren_dense(x, w_odd, *rest, **kw)
+    assert _count("siren_dense", "simt") == before + 1
+    _close(got, FM.siren_dense_reference(x, w, *rest, **kw), True)
+    with pytest.raises(ValueError):
+        FM.siren_dense(x, w_odd, *rest, mainloop="wgmma", **kw)
+    g = torch.Generator().manual_seed(3)
+    dy = torch.randn(x.shape[0], 256, generator=g).to(dev)
+    wd = (torch.randn(512, 256, generator=g) * 0.1).to(dev, torch.bfloat16)
+    before = _count("siren_dense_dgrad", "simt")
+    got = FM.siren_dense_dgrad(dy, None, _odd(wd))
+    assert _count("siren_dense_dgrad", "simt") == before + 1
+    assert _rel(got, FM.siren_dense_dgrad_reference(dy, None, wd)) <= 1e-4
+
+
+def test_unaligned_out_stays_off_the_wgmma_path(dev):
+    g = torch.Generator().manual_seed(4)
+    p, n, k = 37 * 16, 256, 512
+    dy, slope = (torch.randn(p, n, generator=g).to(dev) for _ in range(2))
+    w = (torch.randn(k, n, generator=g) * 0.1).to(dev, torch.bfloat16)
+    base = torch.randn(p, k, generator=g).to(dev)
+    out = _odd(base)
+    assert FM.dense_mainloop("siren_dense_dgrad", torch.bfloat16, k, n,
+                             outputs_aligned=False) == "wmma"
+    before = _count("siren_dense_dgrad", "wmma")
+    got = FM.siren_dense_dgrad(dy, slope, w, out=out)
+    assert _count("siren_dense_dgrad", "wmma") == before + 1
+    ref = FM.siren_dense_dgrad_reference(dy, slope, w, out=base.clone())
+    assert got.data_ptr() == out.data_ptr() and _rel(got, ref) <= 1e-4
+    with pytest.raises(ValueError):
+        FM.siren_dense_dgrad(dy, slope, w, out=_odd(base), mainloop="wgmma")

@@ -147,6 +147,76 @@ def test_unported_training_options_raise(trained):
                              4, "no", ["--data", "lidar"]))
 
 
+def test_more_than_one_device_is_refused(trained):
+    """--n_devices > 1 is refused by name until multi-GPU training lands
+    (ROADMAP M7); 1 trains as 0 does."""
+    root = trained["root"]
+    with pytest.raises(ValueError, match="M7"):
+        cli_train.main(_argv(root, trained["data_dir"], trained["gt_dir"], 4,
+                             "two", ["--n_devices", "2"]))
+    out = cli_train.main(_argv(root, trained["data_dir"], trained["gt_dir"], 1,
+                               "one", ["--n_devices", "1"]))
+    assert out["state"].step == 1
+
+
+@pytest.fixture(scope="module")
+def jax_checkpoint_run(trained):
+    """A run directory whose epoch=1.ckpt the JAX package wrote (msgpack,
+    satnerf_tpu.train.checkpoints.save_checkpoint), beside the port's
+    opts.json of the trained run, at the same toy size."""
+    from satnerf_tpu.train.checkpoints import save_checkpoint
+
+    cfg = trained["cfg"]
+    run = "jax_written"
+    os.makedirs(os.path.join(cfg.logs_dir, run))
+    with open(os.path.join(cfg.logs_dir, cfg.exp_name, "opts.json")) as f:
+        opts = json.load(f)
+    opts["exp_name"] = run
+    with open(os.path.join(cfg.logs_dir, run, "opts.json"), "w") as f:
+        json.dump(opts, f)
+    jcfg = JaxConfig(model="sat-nerf", fc_layers=4, fc_units=32, n_samples=8,
+                     chunk=512, fused="off", precision="float32")
+    state = JaxSystem(jcfg, dataset_len=jcfg.batch_size).init_state(
+        jax.random.PRNGKey(0))
+    ckpt = os.path.join(cfg.ckpts_dir, run, "epoch=1.ckpt")
+    save_checkpoint(ckpt, state)
+    with open(ckpt, "rb") as f:
+        assert f.read(2) != b"PK"  # not a torch zip archive
+    return run, ckpt
+
+
+MSGPACK = "msgpack checkpoint of the JAX package: not readable here \\(ROADMAP M5\\)"
+
+
+@pytest.mark.parametrize("reader", ["load_checkpoint", "load_nerf",
+                                    "create_dsm", "eval", "resume"])
+def test_jax_checkpoint_is_refused_by_name(trained, jax_checkpoint_run,
+                                           reader):
+    """A msgpack checkpoint of the JAX package is refused with a message that
+    names it, by every reader of checkpoints: the loader under cli.eval and
+    cli.create_dsm, both entry points, and --ckpt_path of cli.train."""
+    from satnerf_tpu_torch.cli.create_dsm import create_pretty_dsm
+    from satnerf_tpu_torch.cli.eval import eval_aoi
+    from satnerf_tpu_torch.train.checkpoints import load_checkpoint
+
+    cfg, root = trained["cfg"], trained["root"]
+    run, ckpt = jax_checkpoint_run
+    with pytest.raises(ValueError, match=MSGPACK):
+        if reader == "load_checkpoint":
+            load_checkpoint(ckpt, trained["state"].params)
+        elif reader == "load_nerf":
+            load_nerf(run, cfg.logs_dir, cfg.ckpts_dir, 1, device="cpu")
+        elif reader == "create_dsm":
+            create_pretty_dsm(run, cfg.logs_dir, str(root / "out_jax"), 1,
+                              device="cpu")
+        elif reader == "eval":
+            eval_aoi(run, cfg.logs_dir, str(root / "eval_jax"), 1,
+                     device="cpu")
+        else:
+            cli_train.main(_argv(root, trained["data_dir"], trained["gt_dir"],
+                                 4, "from_jax", ["--ckpt_path", ckpt]))
+
+
 FULL = ["--sc_lambda", "0.1", "--ds_lambda", "1000", "--ds_drop", "0.5"]
 
 

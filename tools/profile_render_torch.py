@@ -23,9 +23,16 @@ plain renderer over its per-point field kernel with --n_importance or
 Prints the card, the wall time, the summed device kernel time, the idle
 share, the peak device memory, and the kernels by device time.
 
+--ablate times siren_dense's wgmma kernel (csrc/fused_render.cu) with each
+of its parts dropped in turn (built with SATNERF_ABLATE 1-3: no products, no
+epilogue, no sine) beside itself and the library call sin(addmm), at the
+serving skip layer (4.19 M points) and at a training batch with the saved
+slope (65,536 points): what holds the kernel back, where no hardware
+profiler runs.
+
   python3 tools/profile_render_torch.py [--rays N] [--chunk C] [--train]
       [--batch B] [--sc_lambda L] [--ds_lambda L] [--n_importance N]
-      [--fused auto|rays|on|off] [--model sat-nerf|s-nerf|nerf]
+      [--fused auto|rays|on|off] [--model sat-nerf|s-nerf|nerf] [--ablate]
 """
 
 import argparse
@@ -123,6 +130,80 @@ def profile_train(system, rays, ts, batch: int, card: str) -> None:
     report(prof, wall_ms, card, f"{steps} train steps")
 
 
+ABLATE = {0: "the kernel as built", 1: "no products (the epilogue alone)",
+          2: "no epilogue (products, loads, barriers)",
+          3: "no sine (the rest of the epilogue stays)"}
+
+
+def _event_ms(fn, reps: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def ablate(card: str) -> None:
+    """siren_dense's wgmma kernel with each part dropped, in turns."""
+    import ctypes
+
+    from satnerf_tpu_torch.ops import _build as B
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+
+    out_dir = os.path.join(B.BUILD_DIR, "ablate")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(B.CSRC_DIR, "fused_render.cu")
+    jobs = {}
+    for k in ABLATE:
+        lib = os.path.join(out_dir, f"fused_render_ablate{k}.so")
+        cmd = [B._nvcc(), *B.NVCC_FLAGS, f"-DSATNERF_ABLATE={k}", "-shared",
+               "-o", lib, src]
+        jobs[k] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for k, (lib, proc) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            sys.exit(f"nvcc failed for SATNERF_ABLATE={k}:\n{out}")
+        fn = ctypes.CDLL(lib).satnerf_siren_dense
+        fn.argtypes = B.SIGNATURES["satnerf_siren_dense"]
+        fn.restype = ctypes.c_int
+        fns[k] = fn
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(0)
+    mode, col = FM._EXTRA["xyz"]
+    for n_rays, save in ((1 << 16, False), (1024, True)):
+        p, feat, n_s = n_rays * 64, 512, 64
+        rays16 = torch.rand(n_rays, 16, device=dev, generator=g) - 0.5
+        z = torch.sort(torch.rand(n_rays, n_s, device=dev, generator=g), 1).values
+        x = (torch.rand(p, feat, device=dev, generator=g) * 2 - 1).to(bf16)
+        w = (torch.randn(feat, feat, device=dev, generator=g) / feat ** 0.5).to(bf16)
+        b = torch.randn(feat, device=dev, generator=g)
+        c = (torch.randn(3, feat, device=dev, generator=g) * 0.3).to(bf16)
+        y = torch.empty(p, feat, device=dev, dtype=bf16)
+        slope = torch.empty(p, feat, device=dev) if save else None
+        args = (1, x.data_ptr(), feat, w.data_ptr(), b.data_ptr(),
+                rays16.data_ptr(), z.data_ptr(), n_s, mode, col, 3, c.data_ptr(),
+                1.0, FM._ACT["sin"], y.data_ptr(),
+                None if slope is None else slope.data_ptr(), p, feat,
+                FM._MAINLOOP_CODE["wgmma"], torch.cuda.current_stream().cuda_stream)
+        ms = {k: [] for k in ABLATE}
+        for k in list(ABLATE) + list(reversed(ABLATE)):
+            if fns[k](*args) != 0:
+                sys.exit(f"launch failed for SATNERF_ABLATE={k}")
+            ms[k].append(_event_ms(lambda: fns[k](*args)))
+        lib_ms = _event_ms(lambda: torch.sin(torch.addmm(b.to(bf16), x, w)))
+        print(f"siren_dense wgmma, 512 x 512 skip layer, {p} points, slope "
+              f"{save}, on {card}: library sin(addmm) {lib_ms:.3f} ms")
+        for k, what in ABLATE.items():
+            print(f"  {what:45s} {ms[k][0]:.3f} / {ms[k][1]:.3f} ms")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--rays", type=int, default=1 << 18)
@@ -137,6 +218,9 @@ def main():
                     choices=["auto", "rays", "on", "off"])
     ap.add_argument("--model", default="sat-nerf",
                     choices=["sat-nerf", "s-nerf", "nerf"])
+    ap.add_argument("--ablate", action="store_true",
+                    help="time siren_dense's wgmma kernel with each part "
+                         "dropped in turn")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_render_torch: needs an NVIDIA GPU")
@@ -146,6 +230,9 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
+    if args.ablate:
+        ablate(card)
+        return
     units = 256 if args.model == "nerf" else 512  # the widths run_all.sh trains
     cfg = Config(model=args.model, fc_layers=8, fc_units=units, n_samples=64,
                  chunk=args.chunk, batch_size=args.batch, first_beta_epoch=0,
