@@ -11,10 +11,15 @@ plain version):
      card, at 8 x 512, 64 samples, 8192 + 37 rays (a ragged edge), sat-nerf
      and s-nerf, fp32 and bf16, with the compositing weights; every bf16
      launch of siren_dense on its wgmma mainloop also against the same launch
-     on the wmma mainloop (one rounding step; here and in 2b-2d); then every
-     kernel alone at its main-path shape: time, plain version's time, the
-     one library call that computes the same function, and the card's bound,
-     and for siren_dense and siren_dense_dgrad both mainloops' times
+     on the wmma mainloop (one rounding step; here and in 2b-2d, where every
+     bf16 launch of siren_dense_dgrad and siren_dense_wgrad on wgmma is held
+     against the same launch on wmma too); then every kernel alone at its
+     main-path shape: time, plain version's time, the one library call that
+     computes the same function, and the card's bound, and for siren_dense,
+     siren_dense_dgrad and siren_dense_wgrad both mainloops' times (the
+     wgrad's GEMM with its bias sum: on wgmma in its epilogue, on wmma by
+     small_grads); small_grads alone at layer 0's launch and summing db of a
+     layer with a bias alone, beside torch.einsum
   2b the training kernels (K1) against their plain versions, at 8 x 512,
      64 samples, 1024 and 1000 + 37 rays: sat-nerf with the beta gate at 1
      and at 0 (with sigma noise and the weights output), s-nerf; fp32 and
@@ -36,9 +41,13 @@ plain version):
      8 x 512, 64 samples, batch 1024, bf16, across two epoch boundaries and
      the beta switch-on, with validation and checkpoints; a second call
      resumes from the checkpoint; create_pretty_dsm serves the trained
-     weights. Every kernel must have been launched, every siren_dense (K > 0)
-     and siren_dense_dgrad launch on the wgmma mainloop, the loss must fall,
-     the resumed run must start at the saved step and the trained loss level
+     weights. Every kernel must have been launched, every siren_dense,
+     siren_dense_dgrad and siren_dense_wgrad launch with K > 0 on the wgmma
+     mainloop and small_grads 5 times a step (the layers with an E operand or
+     without X), the loss must fall, the resumed run must start at the saved
+     step and the trained loss level. Its rate is read from the log
+     intervals that hold no validation (the loop's clock runs through
+     validation, as the JAX loop's does; so in phases 5-7)
   5  the paper's full recipe through its entry point: a second AOI with
      key points, cli.train with --sc_lambda 0.1 --ds_lambda 1000 at the same
      sizes across an epoch boundary, the beta switch-on and the step where
@@ -108,7 +117,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 TRAIN_KERNELS = ("siren_dense", "composite_loss_bwd", "siren_dense_dgrad",
-                 "siren_dense_wgrad")
+                 "siren_dense_wgrad", "small_grads")
 AUX_KERNELS = ("sc_loss_bwd", "composite_bwd")  # first launched by phase 5's path
 FIELD_KERNELS = ("field_heads", "field_heads_bwd")  # and these by phase 6's
 TPU_KERNEL = {"render": "satnerf_tpu/ops/pallas/fused_mlp.py:1035",
@@ -128,6 +137,8 @@ KERNELS = {  # name -> (source in the repo, the TPU kernels it replaces)
     "composite_loss_bwd": ("satnerf_tpu_torch/csrc/fused_train.cu", "train"),
     "siren_dense_dgrad": ("satnerf_tpu_torch/csrc/fused_train.cu", "train"),
     "siren_dense_wgrad": ("satnerf_tpu_torch/csrc/fused_train.cu", "train"),
+    # launched by siren_dense_wgrad's wrapper: db, dC, dE where it has work
+    "small_grads": ("satnerf_tpu_torch/csrc/fused_train.cu", "train"),
     "sc_loss_bwd": ("satnerf_tpu_torch/csrc/fused_aux.cu", "sc"),
     "composite_bwd": ("satnerf_tpu_torch/csrc/fused_train.cu",
                       "train_render_bwd"),
@@ -285,7 +296,7 @@ class StageCheck:
         from satnerf_tpu_torch.ops.fused_mlp import (siren_dense,
                                                      siren_dense_reference)
 
-        took = _took_wgmma("siren_dense")
+        took = _took("siren_dense")
         y = siren_dense(*args, **kw)
         ref = siren_dense_reference(*args, **kw).float()
         diff = (y.float() - ref).abs()
@@ -295,7 +306,7 @@ class StageCheck:
         if bool((diff > tol).any()):
             self.bad.append(f"siren_dense extra={kw.get('extra')} "
                             f"max err {diff.max().item():.3g}")
-        if took():  # the same launch on the wmma mainloop: one rounding step
+        if took() == "wgmma":  # the same launch on wmma: one rounding step
             other = siren_dense(*args, mainloop="wmma", **kw).float()
             d = (y.float() - other).abs()
             self.err["siren_dense_vs_wmma"] = max(self.err["siren_dense_vs_wmma"],
@@ -320,18 +331,20 @@ class StageCheck:
         return out, w
 
 
-# the two kernels with a wgmma mainloop: each such launch is also held
+# the three kernels with a wgmma mainloop: each such launch is also held
 # against the same launch on the wmma mainloop
-VS_WMMA = ("siren_dense_vs_wmma", "siren_dense_dgrad_vs_wmma")
+VS_WMMA = ("siren_dense_vs_wmma", "siren_dense_dgrad_vs_wmma",
+           "siren_dense_wgrad_vs_wmma")
 
 
-def _took_wgmma(name: str):
-    """A function that tells whether the launches of `name` made between this
-    call and its own call went through the wgmma mainloop."""
+def _took(name: str):
+    """A function that names the mainloop the one launch of `name` made
+    between this call and its own call took."""
     from satnerf_tpu_torch.ops import fused_mlp as FM
 
-    before = FM.MAINLOOP_LAUNCHES.get((name, "wgmma"), 0)
-    return lambda: FM.MAINLOOP_LAUNCHES.get((name, "wgmma"), 0) > before
+    before = dict(FM.MAINLOOP_LAUNCHES)
+    return lambda: next(k[1] for k, v in FM.MAINLOOP_LAUNCHES.items()
+                        if k[0] == name and v > before.get(k, 0))
 
 
 def _rel_err(got, ref) -> float:
@@ -375,10 +388,10 @@ class TrainCheck:
     def dense(self, *args, **kw):
         from satnerf_tpu_torch.ops import fused_mlp as FM
 
-        took = _took_wgmma("siren_dense")
+        took = _took("siren_dense")
         out = FM.siren_dense(*args, **kw)
         ref = FM.siren_dense_reference(*args, **kw)
-        if took():  # the same launch on the wmma mainloop
+        if took() == "wgmma":  # the same launch on the wmma mainloop
             self._vs_wmma_dense(out, FM.siren_dense(*args, mainloop="wmma", **kw),
                                 kw)
         if not kw.get("save"):
@@ -461,12 +474,12 @@ class TrainCheck:
 
         base = None if out is None else out.clone()  # the reference adds onto it
         base_wmma = None if out is None else out.clone()
-        took = _took_wgmma("siren_dense_dgrad")
+        took = _took("siren_dense_dgrad")
         got = FM.siren_dense_dgrad(dy, slope, weight, out=out)
         ref = FM.siren_dense_dgrad_reference(dy, slope, weight, out=base)
         what = f"N={dy.shape[1]} K={weight.shape[0]}"
         self._hold("siren_dense_dgrad", what, got, ref, K1_STAGE_TOL)
-        if took():  # the same launch on the wmma mainloop
+        if took() == "wgmma":  # the same launch on the wmma mainloop
             other = FM.siren_dense_dgrad(dy, slope, weight, out=base_wmma,
                                          mainloop="wmma")
             self._hold("siren_dense_dgrad_vs_wmma", what, got, other, K1_STAGE_TOL)
@@ -492,11 +505,23 @@ class TrainCheck:
     def wgrad(self, *args, **kw):
         from satnerf_tpu_torch.ops import fused_mlp as FM
 
+        loop = _took("siren_dense_wgrad")
         got = FM.siren_dense_wgrad(*args, **kw)
+        loop = loop()
         ref = FM.siren_dense_wgrad_reference(*args, **kw)
+        what = f"extra={kw.get('extra')} on {loop}"
+        # what small_grads formed: dC and dE, and db where the GEMM did not
+        small = FM.small_grads_mode(loop, kw.get("extra"))
+        by_small = {"dC", "dE"} | ({"db"} if small == "db" else set())
         for name, a, b in zip(("dW", "db", "dC", "dE"), got, ref):
-            self._hold("siren_dense_wgrad", f"{name} extra={kw.get('extra')}",
-                       a, b, K1_STAGE_TOL)
+            self._hold("siren_dense_wgrad", f"{name} {what}", a, b, K1_STAGE_TOL)
+            if small != "none" and name in by_small:
+                self._hold("small_grads", f"{name} {what}", a, b, K1_STAGE_TOL)
+        if loop == "wgmma":  # the same launch on the wmma mainloop
+            other = FM.siren_dense_wgrad(*args, mainloop="wmma", **kw)
+            for name, a, b in zip(("dW", "db", "dC", "dE"), got, other):
+                self._hold("siren_dense_wgrad_vs_wmma", f"{name} {what}", a, b,
+                           K1_STAGE_TOL)
         return got
 
 
@@ -614,9 +639,11 @@ def _time_kernels(packed: dict, dev) -> dict:
     """Each kernel alone in bf16 at the shape its main path gives it: the
     serving kernels at one chunk of CHUNK rays x 64 samples (4.19 M points),
     the training kernels at one batch of BATCH rays x 64 (65,536 points);
-    for the dense kernels the 512 x 512 skip layer. Returns name ->
+    for the dense kernels the 512 x 512 skip layer (the wgrad: a 512 x 512
+    trunk layer, and small_grads alone at layer 0's launch). Returns name ->
     {ms, plain_ms, library_ms, bound_ms, bound_by}, and for siren_dense and
-    siren_dense_dgrad also mainloop (the rule's), wgmma_ms and wmma_ms. bound_ms counts every
+    siren_dense_dgrad and siren_dense_wgrad also mainloop (the rule's),
+    wgmma_ms and wmma_ms. bound_ms counts every
     input read once and every output written once, and 2*P*K*N operations
     for the dense kernels; library_ms times the one PyTorch call that
     computes the same function in the kernel's dtype, where there is one."""
@@ -703,14 +730,38 @@ def _time_kernels(packed: dict, dev) -> dict:
             lambda: FM.siren_dense_dgrad_reference(dy, slope, w),
             lambda: gb @ w.t(),
             _nbytes(dy, slope, w) + p * FEAT * 4, 2.0 * p * FEAT * FEAT))
+    # the wgrad's GEMM with its bias sum, a trunk layer (no E operand): on
+    # wgmma db comes from its epilogue, on wmma from small_grads
     wargs = (h, dy, slope, rays16, SAMPLES)
-    wkw = dict(extra="xyz", extra_weight=c, z=z)
-    out["siren_dense_wgrad"] = entry(
-        lambda: FM.siren_dense_wgrad(*wargs, **wkw),
-        lambda: FM.siren_dense_wgrad_reference(*wargs, **wkw),
-        lambda: h.t() @ gb,
-        _nbytes(h, dy, slope, rays16, z, c) + (FEAT * FEAT + FEAT + 3 * FEAT) * 4,
-        2.0 * p * FEAT * (FEAT + 3))
+    out["siren_dense_wgrad"] = mainloops(
+        "siren_dense_wgrad",
+        lambda m: FM.siren_dense_wgrad(*wargs, mainloop=m), entry(
+            lambda: FM.siren_dense_wgrad(*wargs),
+            lambda: FM.siren_dense_wgrad_reference(*wargs),
+            lambda: h.t() @ gb,
+            _nbytes(h, dy, slope) + (FEAT * FEAT + FEAT) * 4,
+            2.0 * p * FEAT * FEAT))
+    got = {m: FM.siren_dense_wgrad(*wargs, mainloop=m) for m in FM.MAINLOOPS}
+    ref = FM.siren_dense_wgrad_reference(*wargs)
+    out["siren_dense_wgrad"]["dw_rel_err"] = {
+        "wgmma_vs_plain": _rel_err(got["wgmma"][0], ref[0]),
+        "wgmma_vs_wmma": _rel_err(got["wgmma"][0], got["wmma"][0]),
+        "db_wgmma_vs_plain": _rel_err(got["wgmma"][1], ref[1])}
+    # small_grads alone: layer 0's launch (no X: db, and dC of xyz), the
+    # biggest of its five a main-path step; and a layer with a bias alone
+    # (db), the work the wgmma GEMM took over, beside the one library call
+    zargs, zkw = (None, dy, slope, rays16, SAMPLES), dict(extra="xyz",
+                                                         extra_weight=c, z=z)
+    out["small_grads"] = entry(
+        lambda: FM.siren_dense_wgrad(*zargs, **zkw),
+        lambda: FM.siren_dense_wgrad_reference(*zargs, **zkw), None,
+        _nbytes(dy, slope, rays16, z, c) + 4 * FEAT * 4, 2.0 * p * FEAT * 4)
+    db_only = entry(
+        lambda: FM.siren_dense_wgrad(*zargs),
+        lambda: FM.siren_dense_wgrad_reference(*zargs),
+        lambda: torch.einsum("pn,pn->n", dy, slope),
+        _nbytes(dy, slope) + FEAT * 4, 2.0 * p * FEAT)
+    out["small_grads"].update({f"db_only_{k}": v for k, v in db_only.items()})
     hs = [rand(p, fh) for _ in range(3)]
     skyh = rand(BATCH, fh).abs()
     noise = rand(BATCH, SAMPLES, to=torch.float32)
@@ -744,7 +795,7 @@ def _time_kernels(packed: dict, dev) -> dict:
         lambda: FM.heads_composite_reference(*hargs, noise=noise), None,
         _nbytes(*hargs, noise) + BATCH * 16 * 4, 2.0 * p * (FEAT + 5 * fh))
     out["heads_composite"].update({f"train_{k}": v for k, v in t_entry.items()})
-    del h, hs, skyh, cargs, gargs, sargs, hargs, wargs, args
+    del h, hs, skyh, cargs, gargs, sargs, hargs, wargs, zargs, args, got
 
     # ---- the per-sample field's kernels, at the fine pass of a hierarchical
     # depth batch: BATCH rays x (SAMPLES + N_IMPORTANCE) points
@@ -849,6 +900,17 @@ def phase2(results: dict):
         f"{loops(e, 'train_')}, plain "
         f"{e['train_plain_ms']:.3f} ms, library call "
         f"{e['train_library_ms']:.3f} ms, bound {e['train_bound_ms']:.3f} ms")
+    e = times["siren_dense_wgrad"]["dw_rel_err"]
+    log(f"phase 2: siren_dense_wgrad 512 x 512: dW wgmma vs plain "
+        f"{e['wgmma_vs_plain']:.2e}, vs wmma {e['wgmma_vs_wmma']:.2e}, db vs "
+        f"plain {e['db_wgmma_vs_plain']:.2e} (of the largest entry)")
+    if not max(e.values()) <= K1_STAGE_TOL:
+        failures.append(f"siren_dense_wgrad at its main-path shape: {e}")
+    e = times["small_grads"]
+    log(f"phase 2: small_grads alone summing db (a {FEAT}-column layer with a "
+        f"bias alone, {BATCH * SAMPLES} points): kernel {e['db_only_ms']:.3f} "
+        f"ms, plain {e['db_only_plain_ms']:.3f} ms, library einsum "
+        f"{e['db_only_library_ms']:.3f} ms, bound {e['db_only_bound_ms']:.3f} ms")
     e = times["heads_composite"]
     log(f"phase 2: heads_composite bf16 with sigma noise at a training batch: "
         f"kernel {e['train_ms']:.3f} ms, plain {e['train_plain_ms']:.3f} ms, "
@@ -1703,6 +1765,17 @@ def _train_rows(logs: str, exp_name: str) -> list:
     return [r for r in rows if "train/loss" in r]
 
 
+def _steady(rows: list, spe: int) -> list:
+    """The log rows whose interval holds no validation. The loop validates
+    after the step that ends an epoch, once that step is logged, and its
+    rays/s clock runs on through it (as the JAX loop's does): the row at step
+    s covers the time from the log at s - LOG_EVERY, so it holds a validation
+    when an epoch ends at a step in [s - LOG_EVERY, s). (The sanity
+    validation runs before the clock starts.)"""
+    return [r for r in rows if not any(
+        c > 0 and c % spe == 0 for c in range(r["step"] - LOG_EVERY, r["step"]))]
+
+
 def phase4(results: dict, card: str):
     """The trainer through its entry point, then resume, then serve."""
     import torch
@@ -1745,9 +1818,11 @@ def phase4(results: dict, card: str):
         raise SystemExit(f"phase 4 failed: {TRAIN_STEPS} steps do not pass two "
                          f"epoch boundaries of {spe} steps")
     # every step goes through the K1 chain: 1 composite_loss_bwd, 13 dgrad
-    # and 15 wgrad launches a step (validation launches none of the three)
+    # and 15 wgrad launches a step, 5 of them with small_grads (sun_v_0,
+    # beta_0 and the skip layer for dC / dE; layer 0 and sky_0, without X,
+    # for db and dC); validation launches none of these
     per_step = {"composite_loss_bwd": 1, "siren_dense_dgrad": 13,
-                "siren_dense_wgrad": 15}
+                "siren_dense_wgrad": 15, "small_grads": 5}
     for k, n in per_step.items():
         if launches[k] != n * TRAIN_STEPS:
             raise SystemExit(f"phase 4 failed: {k} launched {launches[k]} times "
@@ -1755,10 +1830,11 @@ def phase4(results: dict, card: str):
     if not all(launches[k] > 0 for k in TRAIN_KERNELS + ("heads_composite",)):
         raise SystemExit(f"phase 4 failed: a kernel was not launched: {launches}")
     results["launches"] = launches
-    # every bf16 launch with K > 0 of the two kernels with a wgmma mainloop
-    # went through it (the rest of siren_dense's: K = 0, layer 0 and sky_0)
+    # every bf16 launch with K > 0 of the three kernels with a wgmma mainloop
+    # went through it (the rest of siren_dense's and the wgrad's: K = 0,
+    # layer 0 and sky_0)
     loops = {k: dict(n for n in FM.MAINLOOP_LAUNCHES.items() if n[0][0] == k)
-             for k in ("siren_dense", "siren_dense_dgrad")}
+             for k in ("siren_dense", "siren_dense_dgrad", "siren_dense_wgrad")}
     for k, by in loops.items():
         wg, k0 = by.get((k, "wgmma"), 0), by.get((k, "k0"), 0)
         if wg == 0 or wg + k0 != launches[k]:
@@ -1795,9 +1871,9 @@ def phase4(results: dict, card: str):
         raise SystemExit(f"phase 4 failed: validation metrics {val}")
     log("phase 4: " + ", ".join(f"{k} {v:.4f}" for k, v in val.items()))
     # steady-state rate: the log intervals after the first (which holds the
-    # first launches) and without validation (the loop restarts its clock
-    # after each)
-    rates = sorted(r["train/rays_per_sec"] for r in rows[1:])
+    # first launches) and without validation (the loop's clock runs on
+    # through it)
+    rates = sorted(r["train/rays_per_sec"] for r in _steady(rows[1:], spe))
     rps = rates[len(rates) // 2]
     results["train_rate"] = (rps / BATCH, rps)
     log(f"phase 4: training rate (median of {len(rates)} log intervals of "
@@ -1886,7 +1962,9 @@ def phase5(results: dict, card: str):
         want = {"composite_loss_bwd": micro, "sc_loss_bwd": micro,
                 "composite_bwd": active,
                 "siren_dense_dgrad": 13 * micro + 11 * micro + 13 * active,
-                "siren_dense_wgrad": 15 * micro + 12 * micro + 15 * active}
+                "siren_dense_wgrad": 15 * micro + 12 * micro + 15 * active,
+                # K1 and K4: 5 of their 15; K3: sun_v_0, the skip layer, layer 0
+                "small_grads": 5 * micro + 3 * micro + 5 * active}
         for k, n in want.items():
             if launches[k] != n:
                 raise SystemExit(f"phase 5 failed ({what}): {k} launched "
@@ -1943,7 +2021,7 @@ def phase5(results: dict, card: str):
     log("phase 5: " + ", ".join(f"{k} {v:.4f}" for k, v in val.items()))
 
     def median_rate(sel):
-        rates = sorted(r["train/rays_per_sec"] for r in sel)
+        rates = sorted(r["train/rays_per_sec"] for r in _steady(sel, spe))
         return rates[len(rates) // 2], len(rates)
 
     # the full recipe's rate: log intervals with all three passes, without
@@ -2044,7 +2122,8 @@ def phase6(results: dict, card: str):
             "field_heads": 2 * n, "field_heads_bwd": 2 * active,
             "composite_bwd": 0,
             "siren_dense_dgrad": (26 + 22) * n + 26 * active,
-            "siren_dense_wgrad": (30 + 24) * n + 30 * active}
+            "siren_dense_wgrad": (30 + 24) * n + 30 * active,
+            "small_grads": (10 + 6) * n + 10 * active}
     for k, v in want.items():
         if launches[k] != v:
             fail(f"{k} launched {launches[k]} times in {n} steps "
@@ -2088,7 +2167,7 @@ def phase6(results: dict, card: str):
     log("phase 6: " + ", ".join(f"{k} {v:.4f}" for k, v in val.items()))
 
     def median_ms(sel):
-        rates = sorted(r["train/rays_per_sec"] for r in sel)
+        rates = sorted(r["train/rays_per_sec"] for r in _steady(sel, spe))
         return 1e3 * BATCH / rates[len(rates) // 2], len(rates)
 
     ms_on, n_on = median_ms(on_rows[1:])
@@ -2323,7 +2402,7 @@ def phase7(results: dict, card: str):
             np.isfinite(v) for v in val.values()):
         fail(f"validation metrics {val}")
     log("phase 7: " + ", ".join(f"{k} {v:.4f}" for k, v in val.items()))
-    rates = sorted(r["train/rays_per_sec"] for r in rows[1:])
+    rates = sorted(r["train/rays_per_sec"] for r in _steady(rows[1:], spe))
     rps = rates[len(rates) // 2]
     results["nerf_rate"] = (rps / BATCH, rps)
     log(f"phase 7: nerf training rate (median of {len(rates)} log intervals of "

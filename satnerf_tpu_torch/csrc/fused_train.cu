@@ -392,16 +392,27 @@ dgrad_wgmma(const __grid_constant__ CUtensorMap map_dy, const __grid_constant__ 
 //
 // dW[k, n] += sum_p X[p, k] * round(G[p, n])   (the _dot_t_lhs products of
 // fused_mlp.py:450-519). The sum runs over all P points for only K*N
-// outputs, so the points are split across blockIdx.z (WGRAD_SPLIT points a
-// block) and the partial tiles meet in dW by fp32 atomicAdd.
+// outputs, so the points are split across blocks and the partial tiles meet
+// in dW by fp32 atomicAdd. Three mainloops, one rule
+// (satnerf_siren_dense_wgrad below; ops/fused_mlp.py dense_mainloop mirrors
+// it):
+//  * wgmma (bf16, K and N multiples of 64, X, dY and slope 16-byte aligned:
+//    every main-path launch with K > 0). wgrad_wgmma below; it also sums db.
+//  * wmma (bf16, K and N multiples of 8, the same pointers aligned): WMMA
+//    fragments, G formed from its two fp32 operands on the way into shared
+//    memory, 128 x 128 tiles of dW, WGRAD_SPLIT points a block (blockIdx.z).
+//  * simt (fp32, and bf16 of other shapes): a register-tiled SIMT GEMM.
 //
 // small_grads covers what is too narrow for a GEMM tile, one thread a
 // column over a chunk of SMALL_CHUNK points (short chunks: the walk is
-// serial and bound by load latency, so it wants many threads in flight): db[n] += sum_p G[p, n] (unrounded, as the
-// JAX kernel sums it), dC[j, n] += sum_p E[p, j] * round(G[p, n]) for the
-// layers with an E operand (E rebuilt from rays and z), and on request the
-// per-ray gradient of E itself, dE[r, j] += sum_s sum_n round(G[p, n]) *
-// C[j, n]: that is t_grad when the layer is beta_0 (fused_mlp.py:493,1633).
+// serial and bound by load latency, so it wants many threads in flight):
+// db[n] += sum_p G[p, n] (unrounded, as the JAX kernel sums it) where the
+// GEMM did not (wmma, simt, K = 0), dC[j, n] += sum_p E[p, j] * round(G[p, n])
+// for the layers with an E operand (E rebuilt from rays and z), and on
+// request the per-ray gradient of E itself, dE[r, j] += sum_s sum_n
+// round(G[p, n]) * C[j, n]: that is t_grad when the layer is beta_0
+// (fused_mlp.py:493,1633). It is launched only where it has work: the
+// wrapper says which (SMALL_*), and the C entry refuses any other answer.
 
 constexpr int WGRAD_SPLIT = 2048;
 constexpr int SMALL_THREADS = 128;
@@ -561,7 +572,167 @@ wgrad_wmma(const __nv_bfloat16* __restrict__ X, const float* __restrict__ dY,
   }
 }
 
-template <typename T>
+// The wgmma mainloop of siren_dense_wgrad (Hopper). A block owns a 128 x 256
+// tile of dW^T (128 columns n of G, 256 columns k of X) and one range of
+// `split` points; dW^T[n][k] = sum_p G^T[n][p] X[p][k] is a register-A (RS)
+// m64n256k16 wgmma with an N-major B:
+//  * a producer warp keeps four 32-point stages in flight by TMA: the fp32
+//    dY and slope tiles (4 boxes of 32 points x 32 columns, 128-byte
+//    swizzle) and the bf16 X tile (4 boxes of 32 points x 64 columns,
+//    128-byte swizzle), 48 KB a stage;
+//  * two consumer warpgroups own 64 columns n each. A thread's A fragment
+//    pairs two neighbouring points at one column n, so it reads dY and the
+//    slope by scalar loads down a column of the swizzled tile (a warp's 32
+//    loads fall in 32 banks: the swizzle spreads its 4 rows' 8 columns
+//    over distinct 16-byte chunks), forms G in fp32, adds it to its two
+//    columns' bias sums, rounds it to bf16 and packs it;
+//  * the epilogue adds the tile into dW with fp32 atomics (8 neighbouring
+//    n a row of dW for each instruction's lanes), and the blocks of the
+//    first k tile add the bias sums, reduced over the quad, into db: each
+//    column once a point range.
+// Blocks are numbered split-major, so the tiles sharing a point range run
+// side by side and X and G come from L2 on their second read.
+// What bounds it: G's two fp32 tensors, read once from device memory; at
+// 512 x 512 and 65,536 points 335 MB, 0.101 ms, against 0.035 ms of
+// products. L2 carries G once a k tile and X once an n tile.
+constexpr int WGR_N = 128;  // columns n of a block's tile: two warpgroups' m64
+constexpr int WGR_K = 256;  // columns k: the wgmma's n256
+constexpr int WGR_P = 32;   // points a stage
+constexpr int WGR_STAGES = 4;
+constexpr int WGR_THREADS = 2 * DG_WG_THREADS + 32;
+constexpr int WGR_G_BOX = WGR_P * 32 * 4;  // 32 points x 32 columns, fp32: 4 KB
+constexpr int WGR_X_BOX = WGR_P * 64 * 2;  // 32 points x 64 columns, bf16: 4 KB
+
+struct WgradSmem {
+  float dy[WGR_STAGES][WGR_P * WGR_N];  // four boxes a stage, each 1024-byte aligned
+  float slope[WGR_STAGES][WGR_P * WGR_N];
+  __nv_bfloat16 x[WGR_STAGES][WGR_P * WGR_K];
+  uint64_t full[WGR_STAGES], empty[WGR_STAGES];
+};
+constexpr int WGR_SMEM = (int)sizeof(WgradSmem) + 1024;
+
+__global__ void __launch_bounds__(WGR_THREADS, 1)
+wgrad_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_dy,
+            const __grid_constant__ CUtensorMap map_sl, int has_slope, float* __restrict__ dW,
+            float* __restrict__ db, int P, int N, int K, int split) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  WgradSmem& sm = *reinterpret_cast<WgradSmem*>(align1024(smem_raw));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k_tiles = (K + WGR_K - 1) / WGR_K;
+  const int tiles = ((N + WGR_N - 1) / WGR_N) * k_tiles;
+  const int tile = blockIdx.x % tiles;
+  const int n0 = (tile / k_tiles) * WGR_N, k0 = (tile % k_tiles) * WGR_K;
+  const int p_begin = (blockIdx.x / tiles) * split;
+  const int steps = (min(P, p_begin + split) - p_begin + WGR_P - 1) / WGR_P;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WGR_STAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 2 * DG_WG_THREADS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer: one lane issues every load
+    if (lane == 0) {
+      // N and K are multiples of 64, so a box lies inside or outside whole;
+      // those outside are not loaded (their rows and columns are not stored)
+      const int n_boxes = min(WGR_N, N - n0) / 32, k_boxes = min(WGR_K, K - k0) / 64;
+      const uint32_t bytes = n_boxes * WGR_G_BOX * (has_slope ? 2 : 1) + k_boxes * WGR_X_BOX;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = 0; i < steps; ++i) {
+        const int p0 = p_begin + i * WGR_P;
+        mbar_wait(&sm.empty[stage], phase ^ 1);
+        mbar_arrive_expect_tx(&sm.full[stage], bytes);
+        for (int b = 0; b < n_boxes; ++b) {
+          tma_load_2d(sm.dy[stage] + b * WGR_P * 32, &map_dy, &sm.full[stage], n0 + 32 * b, p0);
+          if (has_slope)
+            tma_load_2d(sm.slope[stage] + b * WGR_P * 32, &map_sl, &sm.full[stage], n0 + 32 * b,
+                        p0);
+        }
+        for (int b = 0; b < k_boxes; ++b)
+          tma_load_2d(sm.x[stage] + b * WGR_P * 64, &map_x, &sm.full[stage], k0 + 64 * b, p0);
+        if (++stage == WGR_STAGES) { stage = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+
+  // consumers: this thread's columns of the tile are nl and nl + 8, both in
+  // box nl / 32 of a stage's dY and slope tiles
+  const int wg = warp / 4, wl = warp % 4;
+  const int g = lane / 4, t = lane % 4;
+  const int nl = wg * 64 + wl * 16 + g;
+  const int box = (nl / 32) * WGR_G_BOX, c0 = nl % 32;
+  float acc[128];  // written by wgmma only: the first product starts the sum
+  float db0 = 0.f, db1 = 0.f;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int i = 0; i < steps; ++i) {
+    mbar_wait(&sm.full[stage], phase);
+    const uint8_t* dy = reinterpret_cast<const uint8_t*>(sm.dy[stage]) + box;
+    const uint8_t* sl = reinterpret_cast<const uint8_t*>(sm.slope[stage]) + box;
+    // A fragments of both 16-point steps: register r of step s holds column
+    // nl + 8 (r % 2), points 16 s + 8 (r / 2) + 2t and + 1, as bf16 of G
+    uint32_t a[2][4];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int c = c0 + 8 * (r & 1), q = 16 * s + 8 * (r >> 1) + 2 * t;
+        const int o0 = swizzled_f32(q, c), o1 = swizzled_f32(q + 1, c);
+        float v0 = *reinterpret_cast<const float*>(dy + o0);
+        float v1 = *reinterpret_cast<const float*>(dy + o1);
+        if (has_slope) {
+          v0 *= *reinterpret_cast<const float*>(sl + o0);
+          v1 *= *reinterpret_cast<const float*>(sl + o1);
+        }
+        if (r & 1) db1 += v0 + v1;
+        else db0 += v0 + v1;
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+        a[s][r] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+    }
+    const uint8_t* x = reinterpret_cast<const uint8_t*>(sm.x[stage]);
+    wgmma_fence();
+    wgmma_m64n256k16_rs_tb(acc, a[0], smem_desc(x, WGR_X_BOX, 1024, SWIZZLE_128B), i > 0);
+    wgmma_m64n256k16_rs_tb(acc, a[1], smem_desc(x + 16 * 128, WGR_X_BOX, 1024, SWIZZLE_128B));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(a[0]);
+    fence_regs(a[1]);
+    mbar_arrive(&sm.empty[stage]);
+    if (++stage == WGR_STAGES) { stage = 0; phase ^= 1; }
+  }
+
+  // epilogue: acc[4j + i] is dW^T at column n0 + nl + 8 (i / 2), row
+  // k0 + 8j + 2t + i % 2 of dW
+#pragma unroll
+  for (int j = 0; j < WGR_K / 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = n0 + nl + 8 * (i >> 1), k = k0 + 8 * j + 2 * t + (i & 1);
+      if (n < N && k < K) atomicAdd(dW + (size_t)k * N + n, acc[4 * j + i]);
+    }
+  }
+  if (k0 == 0) {
+    db0 += __shfl_xor_sync(0xffffffffu, db0, 1);
+    db0 += __shfl_xor_sync(0xffffffffu, db0, 2);
+    db1 += __shfl_xor_sync(0xffffffffu, db1, 1);
+    db1 += __shfl_xor_sync(0xffffffffu, db1, 2);
+    if (t == 0 && n0 + nl < N) {
+      atomicAdd(db + n0 + nl, db0);
+      atomicAdd(db + n0 + nl + 8, db1);
+    }
+  }
+}
+
+// DB: db is summed here (the GEMM did not sum it); otherwise db is left out
+// and only dC / dE are formed.
+template <typename T, bool DB>
 __global__ void __launch_bounds__(SMALL_THREADS)
 small_grads(const float* __restrict__ dY, const float* __restrict__ slope, int P, int N,
             const float* __restrict__ rays, const float* __restrict__ z, int S,
@@ -606,7 +777,7 @@ small_grads(const float* __restrict__ dY, const float* __restrict__ slope, int P
       g = dY[idx];
       if (slope != nullptr) g *= slope[idx];
     }
-    db_acc += g;
+    if (DB) db_acc += g;
     const float gb = round_to<T>(g);
 #pragma unroll
     for (int j = 0; j < MAX_EXTRA; ++j) {
@@ -619,7 +790,7 @@ small_grads(const float* __restrict__ dY, const float* __restrict__ slope, int P
   }
   if (dE != nullptr && p_begin < p_end) flush_ray(cur_ray);
   if (col_ok) {
-    atomicAdd(db + n, db_acc);
+    if (DB) atomicAdd(db + n, db_acc);
 #pragma unroll
     for (int j = 0; j < MAX_EXTRA; ++j)
       if (j < n_extra) atomicAdd(dC + (size_t)j * N + n, dc_acc[j]);
@@ -1039,26 +1210,81 @@ extern "C" int satnerf_siren_dense_dgrad(int dtype, const void* dY, const void* 
   return (int)cudaGetLastError();
 }
 
+static int launch_wgrad_wgmma(cudaStream_t st, const __nv_bfloat16* X, const float* dY,
+                              const float* slope, float* dW, float* db, int P, int N, int K,
+                              int split) {
+  static const int resident = hopper::resident_blocks(wgrad_wgmma, WGR_THREADS, WGR_SMEM);
+  if (resident == 0) return (int)cudaErrorInvalidConfiguration;
+  CUtensorMap map_x, map_dy, map_sl;
+  int err = hopper::tensor_map_2d(&map_x, X, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, P, K, WGR_P, 64,
+                                  CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = hopper::tensor_map_2d(&map_dy, dY, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, P, N, WGR_P, 32,
+                                CU_TENSOR_MAP_SWIZZLE_128B);
+  // without a slope (a linear layer) its map stands on dY and is never read
+  if (err == 0)
+    err = hopper::tensor_map_2d(&map_sl, slope != nullptr ? slope : dY,
+                                CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, P, N, WGR_P, 32,
+                                CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
+  const long long blocks = (long long)((N + WGR_N - 1) / WGR_N) * ((K + WGR_K - 1) / WGR_K) *
+                           ((P + split - 1) / split);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  wgrad_wgmma<<<(int)blocks, WGR_THREADS, WGR_SMEM, st>>>(map_x, map_dy, map_sl,
+                                                          slope != nullptr, dW, db, P, N, K, split);
+  return (int)cudaGetLastError();
+}
+
+// The mainloop rule of a launch with K > 0 (mainloop = MAINLOOP_RULE);
+// ops/fused_mlp.py dense_mainloop is the same rule in Python:
+//   wgmma  bf16, K and N multiples of 64; X, dY and slope 16-byte aligned
+//   wmma   bf16, K and N multiples of 8; the same pointers aligned
+//   simt   any other shape (and fp32 always)
+// MAINLOOP_WMMA / MAINLOOP_WGMMA ask for one; a launch it cannot take is
+// refused with cudaErrorInvalidValue, never sent to another mainloop.
+// split: points a block of the wgmma mainloop, a positive multiple of WGR_P
+// (the wrapper's rule, ops/fused_mlp.py wgrad_split). small: whether
+// small_grads runs and sums db, which must be SMALL_NONE on wgmma without an
+// E operand, SMALL_NO_DB on wgmma with one, SMALL_DB otherwise (K = 0 too).
+enum { SMALL_NONE = 0, SMALL_NO_DB = 1, SMALL_DB = 2 };
+
 extern "C" int satnerf_siren_dense_wgrad(int dtype, const void* X, int K, const void* dY,
                                          const void* slope, const void* rays, const void* z,
                                          int S, int extra_mode, int extra_off, int n_extra,
                                          const void* C, void* dW, void* db, void* dC,
-                                         void* dE, int P, int N, void* stream) {
+                                         void* dE, int P, int N, int mainloop, int split,
+                                         int small, void* stream) {
   if (n_extra > MAX_EXTRA || n_extra < 0 || S < 1) return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (mainloop < MAINLOOP_RULE || mainloop > MAINLOOP_WGMMA) return (int)cudaErrorInvalidValue;
+  if (dE != nullptr && n_extra == 0) return (int)cudaErrorInvalidValue;
+  const bool in_ok = hopper::aligned16(X) && hopper::aligned16(dY) &&
+                     (slope == nullptr || hopper::aligned16(slope));
+  const bool tc_ok = dtype == 1 && K > 0 && K % 8 == 0 && N % 8 == 0 && in_ok;
+  const bool wg_ok = dtype == 1 && K > 0 && K % 64 == 0 && N % 64 == 0 && in_ok;
+  if ((mainloop == MAINLOOP_WMMA && !tc_ok) || (mainloop == MAINLOOP_WGMMA && !wg_ok))
+    return (int)cudaErrorInvalidValue;
+  if (mainloop == MAINLOOP_RULE)
+    mainloop = wg_ok ? MAINLOOP_WGMMA : tc_ok ? MAINLOOP_WMMA : MAINLOOP_RULE;
+  const bool db_in_gemm = mainloop == MAINLOOP_WGMMA;
+  if (small != (db_in_gemm ? (n_extra > 0 ? SMALL_NO_DB : SMALL_NONE) : SMALL_DB))
+    return (int)cudaErrorInvalidValue;
+  if (db_in_gemm && (split <= 0 || split % WGR_P != 0)) return (int)cudaErrorInvalidValue;
   if (P == 0 || N == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* dy = static_cast<const float*>(dY);
   const float* sl = static_cast<const float*>(slope);
   if (K > 0) {
     const dim3 grid((K + BM - 1) / BM, (N + BN - 1) / BN, (P + WGRAD_SPLIT - 1) / WGRAD_SPLIT);
-    const bool aligned = (reinterpret_cast<uintptr_t>(dY) | reinterpret_cast<uintptr_t>(slope) |
-                          reinterpret_cast<uintptr_t>(X)) % 16 == 0;
     float* dw = static_cast<float*>(dW);
     if (dtype == 0) {
       wgrad_simt<float><<<grid, DENSE_THREADS, 0, st>>>(static_cast<const float*>(X), dy, sl,
                                                         dw, P, N, K);
-    } else if (K % 8 == 0 && N % 8 == 0 && aligned) {
+    } else if (mainloop == MAINLOOP_WGMMA) {
+      const int err = launch_wgrad_wgmma(st, static_cast<const __nv_bfloat16*>(X), dy, sl, dw,
+                                         static_cast<float*>(db), P, N, K, split);
+      if (err != 0) return err;
+    } else if (mainloop == MAINLOOP_WMMA) {
       wgrad_wmma<<<grid, DENSE_THREADS, 0, st>>>(static_cast<const __nv_bfloat16*>(X), dy, sl,
                                                  dw, P, N, K);
     } else {
@@ -1068,17 +1294,22 @@ extern "C" int satnerf_siren_dense_wgrad(int dtype, const void* X, int K, const 
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
+  if (small == SMALL_NONE) return (int)cudaSuccess;
   const dim3 sgrid((P + SMALL_CHUNK - 1) / SMALL_CHUNK, (N + SMALL_THREADS - 1) / SMALL_THREADS);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto o = [](void* p) { return static_cast<float*>(p); };
   if (dtype == 0) {
-    small_grads<float><<<sgrid, SMALL_THREADS, 0, st>>>(
-        dy, sl, P, N, static_cast<const float*>(rays), static_cast<const float*>(z), S,
-        extra_mode, extra_off, n_extra, static_cast<const float*>(C), static_cast<float*>(db),
-        static_cast<float*>(dC), static_cast<float*>(dE));
+    small_grads<float, true><<<sgrid, SMALL_THREADS, 0, st>>>(
+        dy, sl, P, N, f(rays), f(z), S, extra_mode, extra_off, n_extra, f(C), o(db), o(dC), o(dE));
   } else {
-    small_grads<__nv_bfloat16><<<sgrid, SMALL_THREADS, 0, st>>>(
-        dy, sl, P, N, static_cast<const float*>(rays), static_cast<const float*>(z), S,
-        extra_mode, extra_off, n_extra, static_cast<const __nv_bfloat16*>(C),
-        static_cast<float*>(db), static_cast<float*>(dC), static_cast<float*>(dE));
+    const auto* c = static_cast<const __nv_bfloat16*>(C);
+    if (small == SMALL_DB)
+      small_grads<__nv_bfloat16, true><<<sgrid, SMALL_THREADS, 0, st>>>(
+          dy, sl, P, N, f(rays), f(z), S, extra_mode, extra_off, n_extra, c, o(db), o(dC), o(dE));
+    else
+      small_grads<__nv_bfloat16, false><<<sgrid, SMALL_THREADS, 0, st>>>(
+          dy, sl, P, N, f(rays), f(z), S, extra_mode, extra_off, n_extra, c, nullptr, o(dC),
+          o(dE));
   }
   return (int)cudaGetLastError();
 }

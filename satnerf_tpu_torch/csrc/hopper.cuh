@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the wgmma mainloops: siren_dense
-// (fused_render.cu) and siren_dense_dgrad (fused_train.cu).
+// (fused_render.cu), siren_dense_dgrad and siren_dense_wgrad
+// (fused_train.cu).
 //
 //  * TMA tensor maps, encoded on the host by cuTensorMapEncodeTiled, which
 //    is looked up at run time (cudaGetDriverEntryPoint), so the library links
@@ -7,8 +8,7 @@
 //  * a ring of shared-memory stages, each with a "full" mbarrier (the
 //    producer's TMA loads land; transaction bytes) and an "empty" one (every
 //    consumer thread is done reading it);
-//  * wgmma descriptors and the two wgmma shapes the kernels use, as inline
-//    PTX;
+//  * wgmma descriptors and the wgmma shapes the kernels use, as inline PTX;
 //  * the store helpers that turn the accumulator's layout (a thread holds two
 //    neighbouring columns of an 8-column block, for two rows) into 16-byte
 //    stores by exchanging values inside a quad of lanes.
@@ -230,10 +230,12 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss_tb(float* d, uint64_t desc_a
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// D (64 x 256) (+)= A (64 x 16, registers) . B (16 x 256, K-major, shared
-// memory): scale-a 1, scale-b 1, B not transposed; scale_d as above
-__device__ __forceinline__ void wgmma_m64n256k16_rs(float* d, const uint32_t* a, uint64_t desc_b,
-                                                    int scale_d = 1) {
+// D (64 x 256) (+)= A (64 x 16, registers) . B (16 x 256, shared memory):
+// scale-a 1, scale-b 1; B K-major (TRANS_B 0) or N-major (TRANS_B 1, the
+// layout of siren_dense's W); scale_d as above
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n256k16_rs_impl(float* d, const uint32_t* a,
+                                                         uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -255,7 +257,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float* d, const uint32_t* a,
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -273,7 +275,19 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float* d, const uint32_t* a,
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// B K-major: dgrad's W (256 rows of dX's columns, 32 of the reduction a stage)
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float* d, const uint32_t* a, uint64_t desc_b,
+                                                    int scale_d = 1) {
+  wgmma_m64n256k16_rs_impl<0>(d, a, desc_b, scale_d);
+}
+
+// B N-major ("transposed"): the wgrad's X tile, points by columns of X
+__device__ __forceinline__ void wgmma_m64n256k16_rs_tb(float* d, const uint32_t* a,
+                                                       uint64_t desc_b, int scale_d = 1) {
+  wgmma_m64n256k16_rs_impl<1>(d, a, desc_b, scale_d);
 }
 
 

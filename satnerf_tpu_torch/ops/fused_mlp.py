@@ -53,7 +53,8 @@ behind a wrapper here with a plain PyTorch version beside it:
   siren_dense_dgrad   dX (+)= (dY * slope) . W^T
   siren_dense_wgrad   dW, db, dC of one layer, and on request the gradient
                       of the E operand itself (t_grad for beta_0; xyz and
-                      sun_dir too in point mode)
+                      sun_dir too in point mode): a GEMM for dW and, where
+                      it has work, small_grads for db, dC and dE
   field_heads         the narrow heads with their activations, per sample,
                       no compositor (K5 / K6 forward)
   field_heads_bwd     their backward from a (P, 16) cotangent (K5 / K6)
@@ -65,14 +66,18 @@ tensor launches its kernel or raises; given a CPU tensor it runs its plain
 version. There is no fallback from one to the other. Every launch adds one
 to LAUNCHES[name].
 
-siren_dense and siren_dense_dgrad each have more than one mainloop on the
-card: wgmma (Hopper: TMA-fed shared-memory stages, warpgroup products),
-wmma (warp-level tensor-core fragments), simt (fp32 FMAs), and for
-siren_dense with K = 0 the elementwise k0 kernel. `dense_mainloop` is the
-rule that picks one, the same rule as their C entries; `mainloop="wmma"` or
-`"wgmma"` asks for one by hand (tests, chip_smoke.py) and raises where it
-cannot run. Every launch of the two also adds one to
-MAINLOOP_LAUNCHES[(name, mainloop)].
+siren_dense, siren_dense_dgrad and siren_dense_wgrad each have more than
+one mainloop on the card: wgmma (Hopper: TMA-fed shared-memory stages,
+warpgroup products), wmma (warp-level tensor-core fragments), simt (fp32
+FMAs), and for siren_dense and the wgrad with K = 0 no GEMM ("k0": the
+elementwise kernel, small_grads alone). `dense_mainloop` is the rule that
+picks one, the same rule as their C entries; `mainloop="wmma"` or `"wgmma"`
+asks for one by hand (tests, chip_smoke.py) and raises where it cannot run.
+Every launch of the three also adds one to
+MAINLOOP_LAUNCHES[(name, mainloop)]. The wgrad's wgmma mainloop sums the
+bias gradient in its epilogue, so its small_grads launch is left out where
+the layer has no E operand (`small_grads_mode`); each small_grads launch
+adds one to LAUNCHES["small_grads"].
 
 Weights follow the JAX kernel's precision split: matmul operands (weights,
 activations, the E operand) in the compute dtype, sums and biases in fp32,
@@ -85,6 +90,7 @@ compute dtype before both of its products (fused_mlp.py:509-516).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -105,14 +111,17 @@ LAUNCHES = {"siren_dense": 0, "heads_composite": 0, "composite_loss_bwd": 0,
             "composite_bwd": 0, "field_heads": 0, "field_heads_bwd": 0,
             "nerf_dense": 0, "nerf_dense_dgrad": 0, "nerf_dense_wgrad": 0,
             "nerf_heads_composite": 0, "nerf_composite_loss_bwd": 0,
-            "nerf_field_heads": 0, "nerf_field_heads_bwd": 0}
+            "nerf_field_heads": 0, "nerf_field_heads_bwd": 0,
+            # launched by siren_dense_wgrad's wrapper where it has work
+            "small_grads": 0}
 
 _ACT = {"none": 0, "sin": 1, "relu": 2}
 _EXTRA = {None: (0, 0), "xyz": (1, 0), "sun": (2, 6), "t": (2, 9)}  # mode, column
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-# (kernel, mainloop) -> launches, for siren_dense and siren_dense_dgrad
+# (kernel, mainloop) -> launches, for siren_dense, siren_dense_dgrad and
+# siren_dense_wgrad
 MAINLOOP_LAUNCHES: dict = {}
 MAINLOOPS = ("wmma", "wgmma")  # what `mainloop=` may ask for; None: the rule
 _MAINLOOP_CODE = {"wmma": 1, "wgmma": 2}  # csrc/common.cuh MAINLOOP_*; 0: rule
@@ -134,37 +143,42 @@ def _check_mainloop(mainloop) -> None:
 def dense_mainloop(kernel: str, dtype: torch.dtype, k: int, n: int, *,
                    inputs_aligned: bool = True, outputs_aligned: bool = True,
                    mainloop: Optional[str] = None) -> str:
-    """The mainloop a launch of siren_dense or siren_dense_dgrad takes on the
-    card: the rule of their C entries (csrc/fused_render.cu,
-    csrc/fused_train.cu), which the wrappers call to build what they pass.
+    """The mainloop a launch of siren_dense, siren_dense_dgrad or
+    siren_dense_wgrad takes on the card: the rule of their C entries
+    (csrc/fused_render.cu, csrc/fused_train.cu), which the wrappers call to
+    build what they pass.
 
     siren_dense: k = K (0 for layer 0 and sky_0), n = N; the inputs are X and
     W, the outputs Y and the saved slope. siren_dense_dgrad: k = K (dX's
     columns), n = N (the reduction); the inputs are dY, slope and W, the
-    output dX. `*_aligned`: every such pointer is a multiple of 16 bytes.
+    output dX. siren_dense_wgrad: k = K (0 for layer 0 and sky_0), n = N; the
+    inputs are X, dY and slope, the outputs (dW, db; allocated by the
+    wrapper) are always aligned. `*_aligned`: every such pointer is a
+    multiple of 16 bytes.
 
-      k0     siren_dense with K = 0
+      k0     siren_dense and siren_dense_wgrad with K = 0 (no GEMM)
       simt   fp32, and bf16 of shapes no tensor-core mainloop takes
       wgmma  bf16, K and N multiples of 64, inputs and outputs aligned;
              siren_dense keeps a 128-column slice of W in shared memory:
              K <= 512
-      wmma   bf16, N (siren_dense: and K) a multiple of 8, inputs aligned
+      wmma   bf16, N (siren_dense and the wgrad: and K) a multiple of 8,
+             inputs aligned
 
     mainloop "wmma" / "wgmma" asks for that one and raises ValueError where
     it cannot run; there is no other fallback.
     """
     _check_mainloop(mainloop)
-    if kernel not in ("siren_dense", "siren_dense_dgrad"):
+    if kernel not in ("siren_dense", "siren_dense_dgrad", "siren_dense_wgrad"):
         raise ValueError(f"{kernel} has one mainloop")
     bf16 = dtype == torch.bfloat16
-    if kernel == "siren_dense" and k == 0:
+    if kernel != "siren_dense_dgrad" and k == 0:
         rule, takes = "k0", ()
     else:
         mma_shape = n % 8 == 0 and (kernel == "siren_dense_dgrad" or k % 8 == 0)
         takes = tuple(name for name, ok in (
             ("wgmma", bf16 and k % 64 == 0 and n % 64 == 0 and inputs_aligned
              and outputs_aligned
-             and (kernel == "siren_dense_dgrad" or k <= DENSE_WGMMA_MAX_K)),
+             and (kernel != "siren_dense" or k <= DENSE_WGMMA_MAX_K)),
             ("wmma", bf16 and mma_shape and inputs_aligned)) if ok)
         rule = takes[0] if takes else "simt"
     if mainloop is None:
@@ -673,20 +687,27 @@ def siren_dense_dgrad(dy, slope, weight, *, out=None,
 # ---------------------------------------------------------- siren_dense_wgrad
 
 
+def _wgrad_dtype(x, extra_weight, dy) -> torch.dtype:
+    """The compute dtype of a wgrad: X's, else C's; a layer with only a
+    bias has no product to round and sums db in fp32 (dy's dtype)."""
+    return next(t for t in (x, extra_weight, dy) if t is not None).dtype
+
+
 def siren_dense_wgrad_reference(x, dy, slope, rays16, samples: int, *,
                                 extra: Optional[str] = None, extra_weight=None,
                                 z=None, extra_grad: bool = False):
     """Plain version of siren_dense_wgrad, the parameter gradients of
     y = act(w0 * (x.W + b + E.C)) given its cotangent dy and saved slope.
 
-    x (P, K) in the compute dtype or None (K = 0); dy, slope (P, N) fp32;
-    rays16, samples, extra, extra_weight, z as siren_dense. Returns
+    x (P, K) in the compute dtype or None (K = 0; with neither x nor E the
+    layer has a bias alone); dy, slope (P, N) fp32; rays16, samples, extra,
+    extra_weight, z as siren_dense. Returns
     (dW (K, N) or None, db (N,), dC (n, N) or None, dE (R, n) or None), all
     fp32: dW = x.T @ round(G), db = sum G (unrounded), dC = E.T @ round(G),
     and with extra_grad the per-ray gradient of the E operand itself,
     dE = sum over the ray's samples of round(G) @ C.T.
     """
-    dtype = (x if x is not None else extra_weight).dtype
+    dtype = _wgrad_dtype(x, extra_weight, dy)
     g, gb = _cotangent(dy, slope, dtype)
     dw = x.float().t() @ gb if x is not None else None
     db = g.sum(0)
@@ -700,18 +721,63 @@ def siren_dense_wgrad_reference(x, dy, slope, rays16, samples: int, *,
     return dw, db, dc, de
 
 
+# csrc/fused_train.cu SMALL_*: whether small_grads runs, and sums db
+_SMALL_CODE = {"none": 0, "no_db": 1, "db": 2}
+WGRAD_TILE = (128, 256)  # csrc/fused_train.cu WGR_N, WGR_K: a block's tile of dW^T
+WGRAD_STAGE_POINTS = 32  # WGR_P: a split is a multiple of it
+
+
+def small_grads_mode(mainloop: str, extra: Optional[str]) -> str:
+    """Whether a siren_dense_wgrad launch whose GEMM took `mainloop` (as
+    dense_mainloop answers) also launches small_grads, and for what:
+
+      none   wgmma without an E operand: the GEMM's epilogue sums db
+      no_db  wgmma with an E operand: small_grads forms dC (and dE) only
+      db     wmma, simt or k0 (no GEMM): small_grads sums db, and dC / dE
+             where there is an E operand
+
+    The C entry refuses any other answer, so LAUNCHES["small_grads"], which
+    the wrapper counts from this, is what ran."""
+    if mainloop == "wgmma":
+        return "none" if extra is None else "no_db"
+    return "db"
+
+
+def wgrad_split(p: int, k: int, n: int, sms: int) -> int:
+    """Points a block of the wgmma wgrad sums over: the points of a layer cut
+    into as many ranges as one block an SM leaves room for beside the
+    layer's WGRAD_TILE tiles of dW^T (one wave; every range a multiple of
+    WGRAD_STAGE_POINTS). At 65,536 points: 4,096 a block for 512 x 512 (8
+    tiles, 128 blocks), 2,016 for 512 x 256 (4 tiles, 132 blocks), 1,024
+    for 256 x 256 (2 tiles, 128 blocks)."""
+    tiles = -(-n // WGRAD_TILE[0]) * -(-k // WGRAD_TILE[1])
+    per = -(-p // max(1, sms // tiles))
+    step = WGRAD_STAGE_POINTS
+    return max(step, -(-per // step) * step)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def siren_dense_wgrad(x, dy, slope, rays16, samples: int, *,
                       extra: Optional[str] = None, extra_weight=None, z=None,
-                      extra_grad: bool = False):
+                      extra_grad: bool = False, mainloop: Optional[str] = None,
+                      split: Optional[int] = None):
     """The parameter gradients of one dense layer; arguments and returns as
-    siren_dense_wgrad_reference. CUDA tensors launch the kernel."""
+    siren_dense_wgrad_reference. CUDA tensors launch the GEMM on the
+    mainloop `dense_mainloop` gives (None: the rule; "wmma" / "wgmma" by
+    hand) and small_grads where `small_grads_mode` says; CPU tensors run the
+    plain version. split: points a block of the wgmma mainloop (None:
+    `wgrad_split`; a positive multiple of WGRAD_STAGE_POINTS), for
+    measuring."""
+    _check_mainloop(mainloop)
     if dy.device.type == "cpu":
         return siren_dense_wgrad_reference(
             x, dy, slope, rays16, samples, extra=extra,
             extra_weight=extra_weight, z=z, extra_grad=extra_grad)
-    if x is None and extra is None:
-        raise ValueError("a layer without X and without E has no weights")
-    dtype = (x if x is not None else extra_weight).dtype
+    dtype = _wgrad_dtype(x, extra_weight, dy)
     _check_cuda(dtype, x=x, dy=dy, slope=slope, rays16=rays16, z=z,
                 extra_weight=extra_weight)
     p, n = dy.shape
@@ -732,6 +798,17 @@ def siren_dense_wgrad(x, dy, slope, rays16, samples: int, *,
     if extra is not None and (extra_weight.shape[1] != n
                               or extra_weight.dtype != dtype):
         raise ValueError(f"extra_weight must be (n_extra, N) {dtype}")
+    loop = dense_mainloop("siren_dense_wgrad", dtype, k, n,
+                          inputs_aligned=_aligned(x, dy, slope),
+                          mainloop=mainloop)
+    small = small_grads_mode(loop, extra)
+    if loop != "wgmma":
+        split = 0
+    elif split is None:
+        split = wgrad_split(p, k, n, _sm_count(dy.device.index or 0))
+    elif split <= 0 or split % WGRAD_STAGE_POINTS:
+        raise ValueError(f"split must be a positive multiple of "
+                         f"{WGRAD_STAGE_POINTS}, got {split}")
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=dy.device)
@@ -743,7 +820,10 @@ def siren_dense_wgrad(x, dy, slope, rays16, samples: int, *,
     _launch("siren_dense_wgrad", _DTYPE_CODE[dtype], _ptr(x), k, _ptr(dy),
             _ptr(slope), _ptr(rays16), _ptr(z), samples, mode, col, n_extra,
             _ptr(extra_weight), _ptr(dw), _ptr(db), _ptr(dc), _ptr(de), p, n,
-            _stream(dy))
+            _MAINLOOP_CODE.get(loop, 0), split, _SMALL_CODE[small],
+            _stream(dy), mainloop=loop)
+    if small != "none":
+        LAUNCHES["small_grads"] += 1
     return dw, db, dc, de
 
 

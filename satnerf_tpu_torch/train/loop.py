@@ -247,8 +247,6 @@ def fit(cfg: Config) -> dict:
                 final_metrics = validate(
                     system, state.params, val_ds, cfg, logger, step_i + 1,
                     epoch, save_images=epoch % cfg.save_every_n_epochs == 0)
-                last_log = time.time()  # validation is not training time
-                rays_done = 0
             if epoch % cfg.save_every_n_epochs == 0:
                 p = checkpoint_path(cfg.ckpts_dir, cfg.exp_name, epoch)
                 print(f"saved {_save(p, state)}")

@@ -30,11 +30,14 @@ exactly at the kink, nerf_heads_composite and nerf_composite_loss_bwd with
 noise, weights, a saturated ray and a faint last sample, nerf_field_heads and
 its backward, fused_nerf_train_loss_grads, fused_nerf_render_rays and
 fused_nerf_apply as wholes against autograd, and nerf train steps and renders
-through the system; for the Hopper mainloops of siren_dense and
-siren_dense_dgrad, `mainloop="wgmma"` against the plain version and against
-`mainloop="wmma"` on the same inputs at every (K, N) of the main path, every
-E operand, with and without the saved slope, accumulation and a slope, at
-65,536, 1,037 x 72 and 1,024 x 128 points, and operands whose pointers are
+through the system; for the Hopper mainloops of siren_dense,
+siren_dense_dgrad and siren_dense_wgrad, `mainloop="wgmma"` against the plain
+version and against `mainloop="wmma"` on the same inputs at every (K, N) of
+the main path, every E operand (the wgrad's with its input gradient), with
+and without the saved slope, accumulation and a slope, at 65,536, 1,037 x 72
+and 1,024 x 128 points (the wgrad also at fewer points than one block's
+range and at shapes that fill part of its tile), the wgrad's launches of
+small_grads, and operands whose pointers are
 not 16-byte aligned, which the rule keeps off the wgmma path.
 """
 
@@ -421,8 +424,10 @@ def test_fused_sc_loss_grads_fp32(dev, variant, with_noise):
             noise if with_noise else None, 0.1)
     before = dict(FM.LAUNCHES)
     parts, grads = FM.fused_sc_loss_grads(*args, **kw)
+    # fp32: every wgrad GEMM is SIMT, so small_grads sums db each time
     assert _grown(before) == {"siren_dense": 12, "sc_loss_bwd": 1,
-                              "siren_dense_dgrad": 11, "siren_dense_wgrad": 12}
+                              "siren_dense_dgrad": 11, "siren_dense_wgrad": 12,
+                              "small_grads": 12}
     r_parts, r_grads = FM.fused_sc_loss_grads_reference(*args, **kw)
     for k in r_parts:
         assert abs(float(parts[k]) - float(r_parts[k])) <= 1e-5, k
@@ -465,7 +470,8 @@ def test_fused_train_render_rays_fp32(dev, variant, with_noise):
     assert _grown(before) == {
         "siren_dense": 15 if use_beta else 14, "heads_composite": 1,
         "composite_bwd": 1, "siren_dense_dgrad": 13 if use_beta else 12,
-        "siren_dense_wgrad": 15 if use_beta else 14}
+        "siren_dense_wgrad": 15 if use_beta else 14,
+        "small_grads": 15 if use_beta else 14}
     r_out, r_grads = run(FM.fused_train_render_rays_reference)
     assert set(out) == set(r_out)
     for k in r_out:
@@ -713,7 +719,8 @@ def test_fused_field_apply_rays_fp32(dev, variant, n_s):
     assert _grown(before) == {
         "siren_dense": 15 if use_beta else 14, "field_heads": 1,
         "field_heads_bwd": 1, "siren_dense_dgrad": 13 if use_beta else 12,
-        "siren_dense_wgrad": 15 if use_beta else 14}
+        "siren_dense_wgrad": 15 if use_beta else 14,
+        "small_grads": 15 if use_beta else 14}
     r_out, r_grads = run(FM.fused_field_apply_rays_reference)
     assert set(out) == set(r_out)
     for k in r_out:
@@ -1402,3 +1409,120 @@ def test_unaligned_out_stays_off_the_wgmma_path(dev):
     assert got.data_ptr() == out.data_ptr() and _rel(got, ref) <= 1e-4
     with pytest.raises(ValueError):
         FM.siren_dense_dgrad(dy, slope, w, out=_odd(base), mainloop="wgmma")
+
+
+# (K, N, E operand, its width): every siren_dense_wgrad launch with K > 0 on
+# the main path; each with and without a slope
+MAIN_WGRAD = [(512, 512, None, 0),    # trunk layers, feats (no slope)
+              (512, 512, "xyz", 3),   # skip layer
+              (512, 256, None, 0),    # rgb_0
+              (512, 256, "sun", 3),   # sun_v_0
+              (512, 256, "t", 4),     # beta_0
+              (256, 256, None, 0)]    # sun_v_1, sun_v_2
+
+
+def _wgrad_operands(dev, k, n, extra, n_extra, with_slope, n_rays, samples,
+                    seed=12):
+    rays16, z = _rays16(n_rays, samples, dev, seed=seed)
+    g = torch.Generator().manual_seed(seed)
+    p = n_rays * samples
+    x = (torch.rand(p, k, generator=g) * 2 - 1).to(dev, torch.bfloat16)
+    dy = torch.randn(p, n, generator=g).to(dev)
+    slope = torch.randn(p, n, generator=g).to(dev) if with_slope else None
+    c = ((torch.randn(n_extra, n, generator=g) * 0.3).to(dev, torch.bfloat16)
+         if extra else None)
+    return (x, dy, slope, rays16, samples), dict(
+        extra=extra, extra_weight=c, z=z, extra_grad=extra is not None)
+
+
+def _hold_wgrad(got, ref):
+    """dW within 1e-3 of its largest entry (the same rounded operands summed
+    in another order, across blocks by atomics); db, dC and dE as
+    test_siren_dense_wgrad holds them, 1e-4."""
+    for name, a, b in zip(("dW", "db", "dC", "dE"), got, ref):
+        assert (a is None) == (b is None), name
+        if b is not None:
+            assert a.shape == b.shape and a.dtype == torch.float32, name
+            tol = 1e-3 if name == "dW" else 1e-4
+            assert _rel(a, b) <= tol, (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("k,n,extra,n_extra", MAIN_WGRAD)
+@pytest.mark.parametrize("with_slope", [True, False])
+@pytest.mark.parametrize("n_rays,samples", MAIN_POINTS + [(3, 16)])
+def test_siren_dense_wgrad_wgmma(dev, k, n, extra, n_extra, with_slope, n_rays,
+                                 samples):
+    """The wgmma wgrad (db summed in its epilogue, small_grads only for an E
+    operand) against the plain version and against the same launch on
+    wmma (GEMM + small_grads with db); 3 x 16 points are fewer than one
+    block's range."""
+    args, kw = _wgrad_operands(dev, k, n, extra, n_extra, with_slope, n_rays,
+                               samples)
+    assert FM.dense_mainloop("siren_dense_wgrad", torch.bfloat16, k, n) == "wgmma"
+    before = {m: _count("siren_dense_wgrad", m) for m in ("wgmma", "wmma")}
+    small = FM.LAUNCHES["small_grads"]
+    got = FM.siren_dense_wgrad(*args, mainloop="wgmma", **kw)
+    wmma = FM.siren_dense_wgrad(*args, mainloop="wmma", **kw)
+    rule = FM.siren_dense_wgrad(*args, **kw)
+    assert _count("siren_dense_wgrad", "wgmma") == before["wgmma"] + 2
+    assert _count("siren_dense_wgrad", "wmma") == before["wmma"] + 1
+    assert FM.LAUNCHES["small_grads"] == small + 1 + 2 * (extra is not None)
+    ref = FM.siren_dense_wgrad_reference(*args, **kw)
+    _hold_wgrad(got, ref)
+    _hold_wgrad(got, wmma)
+    _hold_wgrad(rule, ref)
+
+
+@pytest.mark.parametrize("k,n", [(320, 192), (64, 64), (768, 320)])
+def test_siren_dense_wgrad_wgmma_partial_tiles(dev, k, n):
+    """K and N multiples of 64 but not of the 256 x 128 tile: the boxes past
+    the matrix are not loaded, and the rows and columns they would feed are
+    not stored (a half-empty warpgroup, a k tile with one box of four)."""
+    args, kw = _wgrad_operands(dev, k, n, "xyz", 3, True, 37, 16)
+    assert FM.dense_mainloop("siren_dense_wgrad", torch.bfloat16, k, n) == "wgmma"
+    got = FM.siren_dense_wgrad(*args, mainloop="wgmma", **kw)
+    _hold_wgrad(got, FM.siren_dense_wgrad_reference(*args, **kw))
+    _hold_wgrad(got, FM.siren_dense_wgrad(*args, mainloop="wmma", **kw))
+
+
+def test_wgrad_split_does_not_change_the_sums(dev):
+    """The points cut into 1, 5 and 128 ranges give the same gradients."""
+    args, kw = _wgrad_operands(dev, 512, 512, "xyz", 3, True, 256, 64)
+    ref = FM.siren_dense_wgrad_reference(*args, **kw)
+    for split in (256 * 64, 3296, 128):
+        _hold_wgrad(FM.siren_dense_wgrad(*args, mainloop="wgmma", split=split,
+                                         **kw), ref)
+    with pytest.raises(ValueError):
+        FM.siren_dense_wgrad(*args, mainloop="wgmma", split=100, **kw)
+
+
+def test_bias_only_wgrad_is_small_grads_alone(dev):
+    """A layer with neither X nor E: small_grads sums db, nothing else runs."""
+    g = torch.Generator().manual_seed(13)
+    rays16, _ = _rays16(1024, 64, dev)
+    dy, slope = (torch.randn(1024 * 64, 512, generator=g).to(dev)
+                 for _ in range(2))
+    before = dict(FM.LAUNCHES)
+    got = FM.siren_dense_wgrad(None, dy, slope, rays16, 64)
+    assert _grown(before) == {"siren_dense_wgrad": 1, "small_grads": 1}
+    ref = FM.siren_dense_wgrad_reference(None, dy, slope, rays16, 64)
+    assert got[0] is None and got[2] is None and got[3] is None
+    assert _rel(got[1], ref[1]) <= 1e-4
+    assert _rel(got[1], torch.einsum("pn,pn->n", dy, slope)) <= 1e-4
+
+
+@pytest.mark.parametrize("operand", ["x", "dy", "slope"])
+def test_unaligned_wgrad_input_stays_off_the_wgmma_path(dev, operand):
+    args, kw = _wgrad_operands(dev, 512, 256, "sun", 3, True, 37, 16)
+    odd = dict(zip(("x", "dy", "slope"), args[:3]))
+    odd[operand] = _odd(odd[operand])
+    moved = (odd["x"], odd["dy"], odd["slope"], *args[3:])
+    assert FM.dense_mainloop("siren_dense_wgrad", torch.bfloat16, 512, 256,
+                             inputs_aligned=False) == "simt"
+    before = _count("siren_dense_wgrad", "simt")
+    got = FM.siren_dense_wgrad(*moved, **kw)
+    assert _count("siren_dense_wgrad", "simt") == before + 1
+    _hold_wgrad(got, FM.siren_dense_wgrad_reference(*args, **kw))
+    for loop in ("wgmma", "wmma"):
+        with pytest.raises(ValueError):
+            FM.siren_dense_wgrad(*moved, mainloop=loop, **kw)

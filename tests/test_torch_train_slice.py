@@ -159,6 +159,37 @@ def test_more_than_one_device_is_refused(trained):
     assert out["state"].step == 1
 
 
+def test_rays_per_sec_counts_validation_as_the_jax_loop_does(trained,
+                                                             monkeypatch):
+    """One clock across the epoch boundary, as satnerf_tpu/train/loop.py
+    keeps it: the log interval that holds the epoch's validation (here made
+    to take `pause` seconds) counts that time, rays / (now - last log). The
+    sanity validation before the first step is not in any interval."""
+    import time
+
+    from satnerf_tpu_torch.train import loop
+
+    pause, every, spe = 1.0, 4, trained["system"].spe
+
+    def slow_validate(*args, **kwargs):
+        time.sleep(pause)
+        return {}
+
+    monkeypatch.setattr(loop, "validate", slow_validate)
+    root = trained["root"]
+    out = cli_train.main(_argv(root, trained["data_dir"], trained["gt_dir"],
+                               spe + every, "clock"))
+    rows = [r for r in _logged(out["cfg"]) if "train/rays_per_sec" in r]
+    assert [r["step"] for r in rows] == list(range(every, spe + every + 1, every))
+    rays = every * 64  # the interval's steps times the batch
+    after = rows[-1]  # steps spe + 1 .. spe + every, after the validation
+    assert after["train/rays_per_sec"] <= rays / pause
+    # the intervals before the boundary hold no validation: each is faster
+    # than the one that does
+    assert all(r["train/rays_per_sec"] > after["train/rays_per_sec"]
+               for r in rows[:-1])
+
+
 @pytest.fixture(scope="module")
 def jax_checkpoint_run(trained):
     """A run directory whose epoch=1.ckpt the JAX package wrote (msgpack,

@@ -30,9 +30,22 @@ serving skip layer (4.19 M points) and at a training batch with the saved
 slope (65,536 points): what holds the kernel back, where no hardware
 profiler runs.
 
+--wgrad times siren_dense_wgrad at the main path's shapes (65,536 points,
+512 x 512 with and without the slope, 512 x 256, 256 x 256) on its wmma
+mainloop (GEMM + small_grads summing db) and on its wgmma mainloop (db in the
+epilogue) at the rule's split of the points (ops/fused_mlp.py wgrad_split)
+and at other splits, in turns, beside the library call X^T @ round(G), the
+bytes bound, and small_grads alone summing db (a layer with a bias alone)
+beside torch.einsum("pn,pn->n", dY, slope).
+
+In the breakdown, the wgrad's kernels are wgrad_wgmma (the main path's),
+wgrad_wmma / wgrad_simt (other shapes, fp32) and small_grads (db where the
+GEMM did not sum it, dC and dE of the layers with an E operand).
+
   python3 tools/profile_render_torch.py [--rays N] [--chunk C] [--train]
       [--batch B] [--sc_lambda L] [--ds_lambda L] [--n_importance N]
       [--fused auto|rays|on|off] [--model sat-nerf|s-nerf|nerf] [--ablate]
+      [--wgrad]
 """
 
 import argparse
@@ -204,6 +217,51 @@ def ablate(card: str) -> None:
             print(f"  {what:45s} {ms[k][0]:.3f} / {ms[k][1]:.3f} ms")
 
 
+def wgrad(card: str) -> None:
+    """siren_dense_wgrad at the main path's shapes on both mainloops and
+    at several splits of the points, in turns (a, b, ..., ..., b, a)."""
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(0)
+    n_rays, n_s = 1024, 64
+    p = n_rays * n_s
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rays16 = torch.rand(n_rays, 16, device=dev, generator=g) - 0.5
+    for k, n, with_slope in ((512, 512, True), (512, 512, False),
+                             (512, 256, True), (256, 256, True)):
+        x = (torch.rand(p, k, device=dev, generator=g) * 2 - 1).to(bf16)
+        dy = torch.randn(p, n, device=dev, generator=g)
+        slope = torch.randn(p, n, device=dev, generator=g) if with_slope else None
+        gb = (dy if slope is None else dy * slope).to(bf16)
+        args = (x, dy, slope, rays16, n_s)
+        rule = FM.wgrad_split(p, k, n, sms)
+        runs = {"wmma": lambda: FM.siren_dense_wgrad(*args, mainloop="wmma")}
+        for split in sorted({rule, 1024, 2048, 4096, 8192, 16384}):
+            runs[f"wgmma split {split}" + (" (rule)" if split == rule else "")] = (
+                lambda s=split: FM.siren_dense_wgrad(*args, mainloop="wgmma",
+                                                     split=s))
+        ms = {key: [] for key in runs}
+        for key in list(runs) + list(reversed(runs)):
+            ms[key].append(_event_ms(runs[key]))
+        lib_ms = _event_ms(lambda: x.t() @ gb)
+        nbytes = x.numel() * 2 + dy.numel() * 4 * (2 if with_slope else 1) + (k + 1) * n * 4
+        print(f"siren_dense_wgrad {k} x {n}, {p} points, slope {with_slope}, on "
+              f"{card}: library X^T @ G {lib_ms:.3f} ms, bound "
+              f"{1e3 * nbytes / 3.35e12:.3f} ms (bytes)")
+        for key, v in ms.items():
+            print(f"  {key:32s} {v[0]:.3f} / {v[1]:.3f} ms")
+        if k == 512 and n == 512 and with_slope:  # small_grads alone, db only
+            db_ms = [_event_ms(lambda: FM.siren_dense_wgrad(None, dy, slope,
+                                                            rays16, n_s))
+                     for _ in range(2)]
+            ein = _event_ms(lambda: torch.einsum("pn,pn->n", dy, slope))
+            print(f"small_grads alone (db of a {n}-column layer, {p} points): "
+                  f"{db_ms[0]:.3f} / {db_ms[1]:.3f} ms, einsum {ein:.3f} ms, "
+                  f"bound {1e3 * (2 * dy.numel() * 4 + n * 4) / 3.35e12:.3f} ms "
+                  f"on {card}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--rays", type=int, default=1 << 18)
@@ -221,6 +279,8 @@ def main():
     ap.add_argument("--ablate", action="store_true",
                     help="time siren_dense's wgmma kernel with each part "
                          "dropped in turn")
+    ap.add_argument("--wgrad", action="store_true",
+                    help="time siren_dense_wgrad's mainloops and splits")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_render_torch: needs an NVIDIA GPU")
@@ -232,6 +292,9 @@ def main():
                           text=True, check=True).stdout.strip()
     if args.ablate:
         ablate(card)
+        return
+    if args.wgrad:
+        wgrad(card)
         return
     units = 256 if args.model == "nerf" else 512  # the widths run_all.sh trains
     cfg = Config(model=args.model, fc_layers=8, fc_units=units, n_samples=64,
