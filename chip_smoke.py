@@ -84,12 +84,19 @@ plain version):
      view direction), sigma noise on and off, K8 with and without weights:
      the loss, every gradient by name, the products, and every launch of the
      three chains alone on the inputs the chain gave it (the relu masks come
-     from the same stored activations on both sides); then each new kernel
-     alone at its main-path shape: time, plain time, library call, bound
+     from the same stored activations on both sides), every bf16 launch of
+     nerf_dense_dgrad and nerf_dense_wgrad on wgmma also against the same
+     launch on wmma (and nerf_bias_grad, the wmma wgrad's db, against the
+     plain db); then each kernel alone at its main-path shape: time, plain
+     time, library call, bound, and for the dgrad and the wgrad both
+     mainloops' times and the wgrad's second library reading [h | enc].t() @
+     G (dW and dC in one call)
   7  the nerf variant through the entry points: cli.train --model nerf
      --fc_units 256 on phase 3's AOI at 64 samples, batch 1024, bf16, across
      an epoch boundary with validation (K8) and checkpoints, every launch
-     count checked against the step count and no SIREN kernel launched;
+     count checked against the step count, every dgrad and wgrad launch on
+     wgmma, nerf_bias_grad never launched and no SIREN kernel launched (so
+     in the two runs below);
      resume; create_pretty_dsm on the trained checkpoint; render_image on
      262,144 rays with its peak memory, held against the plain version; then
      a short --n_importance 64 run (K9 under the trainer, K8 twice a served
@@ -129,14 +136,16 @@ TPU_KERNEL = {"render": "satnerf_tpu/ops/pallas/fused_mlp.py:1035",
               "field_rays_bwd": "satnerf_tpu/ops/pallas/fused_mlp.py:657",
               "field_points": "satnerf_tpu/ops/pallas/fused_mlp.py:356",
               "field_points_bwd": "satnerf_tpu/ops/pallas/fused_mlp.py:526"}
+_BWD_SRC = "satnerf_tpu_torch/csrc/dense_bwd_wgmma.cuh"  # the wgmma dgrad and wgrad
 KERNELS = {  # name -> (source in the repo, the TPU kernels it replaces)
     "siren_dense": ("satnerf_tpu_torch/csrc/fused_render.cu", "render"),
     # with sigma noise it is also the forward of the training render
     "heads_composite": ("satnerf_tpu_torch/csrc/fused_render.cu", "render",
                         "train_render"),
     "composite_loss_bwd": ("satnerf_tpu_torch/csrc/fused_train.cu", "train"),
-    "siren_dense_dgrad": ("satnerf_tpu_torch/csrc/fused_train.cu", "train"),
-    "siren_dense_wgrad": ("satnerf_tpu_torch/csrc/fused_train.cu", "train"),
+    # their wgmma kernels: the body shared with the nerf variant's backward
+    "siren_dense_dgrad": (_BWD_SRC, "train"),
+    "siren_dense_wgrad": (_BWD_SRC, "train"),
     # launched by siren_dense_wgrad's wrapper: db, dC, dE where it has work
     "small_grads": ("satnerf_tpu_torch/csrc/fused_train.cu", "train"),
     "sc_loss_bwd": ("satnerf_tpu_torch/csrc/fused_aux.cu", "sc"),
@@ -162,8 +171,8 @@ KERNELS.update({
     # the dense layers of all three chains: first on the path as K7's forward
     "nerf_dense": (_NERF_SRC, "nerf_train", "nerf_render", "nerf_points"),
     "nerf_composite_loss_bwd": (_NERF_SRC, "nerf_train"),
-    "nerf_dense_dgrad": (_NERF_SRC, "nerf_train", "nerf_points_bwd"),
-    "nerf_dense_wgrad": (_NERF_SRC, "nerf_train", "nerf_points_bwd"),
+    "nerf_dense_dgrad": (_BWD_SRC, "nerf_train", "nerf_points_bwd"),
+    "nerf_dense_wgrad": (_BWD_SRC, "nerf_train", "nerf_points_bwd"),
     "nerf_heads_composite": (_NERF_SRC, "nerf_render"),
     "nerf_field_heads": (_NERF_SRC, "nerf_points"),
     "nerf_field_heads_bwd": (_NERF_SRC, "nerf_points_bwd"),
@@ -541,6 +550,12 @@ NERF_CASES = ((K1_RAYS[0], 64, True), (K1_RAYS[1], 72, False),
               (K1_RAYS[1], 128, True))  # rays, samples a ray, sigma noise
 
 
+# the nerf variant's two kernels with a wgmma mainloop: each such launch is
+# also held against the same launch on wmma (whose wgrad sums db by
+# nerf_bias_grad, held against the plain version's db where it ran)
+NERF_VS_WMMA = ("nerf_dense_dgrad_vs_wmma", "nerf_dense_wgrad_vs_wmma")
+
+
 class NerfCheck(TrainCheck):
     """Stands in for the stage functions of the nerf chains
     (ops/fused_nerf.NerfOps): launches each kernel, runs its plain version on
@@ -548,7 +563,8 @@ class NerfCheck(TrainCheck):
 
     def __init__(self, dtype):
         self.bf16 = str(dtype).endswith("bfloat16")
-        self.err = dict.fromkeys(NERF_KERNELS, 0.0)
+        self.err = dict.fromkeys(NERF_KERNELS + NERF_VS_WMMA
+                                 + ("nerf_bias_grad",), 0.0)
         self.bad = []
 
     def dense(self, *args, **kw):
@@ -607,20 +623,37 @@ class NerfCheck(TrainCheck):
         from satnerf_tpu_torch.ops import fused_nerf as FN
 
         base = None if out is None else out.clone()
+        base_wmma = None if out is None else out.clone()
+        took = _took("nerf_dense_dgrad")
         got = FN.nerf_dense_dgrad(dy, y, weight, out=out)
         ref = FN.nerf_dense_dgrad_reference(dy, y, weight, out=base)
-        self._hold("nerf_dense_dgrad", f"N={dy.shape[1]} K={weight.shape[0]}",
-                   got, ref, K1_STAGE_TOL)
+        what = f"N={dy.shape[1]} K={weight.shape[0]}"
+        self._hold("nerf_dense_dgrad", what, got, ref, K1_STAGE_TOL)
+        if took() == "wgmma":  # the same launch on the wmma mainloop
+            other = FN.nerf_dense_dgrad(dy, y, weight, out=base_wmma,
+                                        mainloop="wmma")
+            self._hold("nerf_dense_dgrad_vs_wmma", what, got, other, K1_STAGE_TOL)
         return got
 
     def wgrad(self, *args, **kw):
         from satnerf_tpu_torch.ops import fused_nerf as FN
 
+        loop = _took("nerf_dense_wgrad")
         got = FN.nerf_dense_wgrad(*args, **kw)
+        loop = loop()
         ref = FN.nerf_dense_wgrad_reference(*args, **kw)
+        what = f"enc={kw.get('enc')} on {loop}"
         for name, a, b in zip(("dW", "db", "dC"), got, ref):
-            self._hold("nerf_dense_wgrad", f"{name} enc={kw.get('enc')}", a, b,
+            self._hold("nerf_dense_wgrad", f"{name} {what}", a, b, K1_STAGE_TOL)
+        if FN.nerf_bias_grad_runs(loop):  # db came from nerf_bias_grad
+            self._hold("nerf_bias_grad", f"db {what}", got[1], ref[1], K1_STAGE_TOL)
+        if loop == "wgmma":  # the same launch on the wmma mainloop
+            other = FN.nerf_dense_wgrad(*args, mainloop="wmma", **kw)
+            self._hold("nerf_bias_grad", f"db {what}", other[1], ref[1],
                        K1_STAGE_TOL)
+            for name, a, b in zip(("dW", "db", "dC"), got, other):
+                self._hold("nerf_dense_wgrad_vs_wmma", f"{name} {what}", a, b,
+                           K1_STAGE_TOL)
         return got
 
 
@@ -1390,8 +1423,13 @@ def _time_nerf_kernels(field, dev) -> dict:
     samples, the training kernels at one batch of BATCH rays x 64, the
     per-point kernels at the fine pass of a hierarchical batch (BATCH x 128
     points); for the dense kernels the 256 x 256 skip layer with its 64-row
-    encoding operand."""
+    encoding operand (the dgrad: a 256 x 256 trunk layer), and for the dgrad
+    and the wgrad both mainloops' times (the wgrad on wmma: its two GEMM
+    launches and nerf_bias_grad). The wgrad has two library readings:
+    library_ms times h.t() @ G (dW alone), library_xe_ms xe.t() @ G with
+    xe = [h | enc] built beforehand (dW and dC in one call)."""
     import torch
+    from satnerf_tpu_torch.ops import fused_mlp as FM
     from satnerf_tpu_torch.ops import fused_nerf as FN
 
     dtype, feat, fh = torch.bfloat16, NERF_FEAT, NERF_FEAT // 2
@@ -1461,19 +1499,32 @@ def _time_nerf_kernels(field, dev) -> dict:
     out["nerf_dense"].update({f"train_{k}": v for k, v in t_entry.items()})
     dy, y = rand(p, feat, to=torch.float32), rand(p, feat).clamp_min(0)
     gb = (dy * (y > 0)).to(dtype)
-    out["nerf_dense_dgrad"] = entry(
-        lambda: FN.nerf_dense_dgrad(dy, y, w),
-        lambda: FN.nerf_dense_dgrad_reference(dy, y, w),
-        lambda: gb @ w.t(),
-        _nbytes(dy, y, w) + p * feat * 4, 2.0 * p * feat * feat)
+    out["nerf_dense_dgrad"] = mainloops(
+        "nerf_dense_dgrad",
+        lambda m: FN.nerf_dense_dgrad(dy, y, w, mainloop=m), entry(
+            lambda: FN.nerf_dense_dgrad(dy, y, w),
+            lambda: FN.nerf_dense_dgrad_reference(dy, y, w),
+            lambda: gb @ w.t(),
+            _nbytes(dy, y, w) + p * feat * 4, 2.0 * p * feat * feat))
     wargs = (h, dy, y, rays8, SAMPLES)
     wkw = dict(enc="xyz", z=z, n_freq=n_xyz, enc_rows=e_rows)
-    out["nerf_dense_wgrad"] = entry(
-        lambda: FN.nerf_dense_wgrad(*wargs, **wkw),
-        lambda: FN.nerf_dense_wgrad_reference(*wargs, **wkw),
-        lambda: h.t() @ gb,
-        _nbytes(h, dy, y, rays8, z) + (feat * feat + feat + e_rows * feat) * 4,
-        2.0 * p * feat * (feat + 6 * n_xyz))
+    out["nerf_dense_wgrad"] = mainloops(
+        "nerf_dense_wgrad",
+        lambda m: FN.nerf_dense_wgrad(*wargs, mainloop=m, **wkw), entry(
+            lambda: FN.nerf_dense_wgrad(*wargs, **wkw),
+            lambda: FN.nerf_dense_wgrad_reference(*wargs, **wkw),
+            lambda: h.t() @ gb,
+            _nbytes(h, dy, y, rays8, z) + (feat * feat + feat + e_rows * feat) * 4,
+            2.0 * p * feat * (feat + 6 * n_xyz)))
+    xe = torch.cat([h, FN._encoding(rays8, SAMPLES, z, "xyz", n_xyz, e_rows,
+                                    dtype).to(dtype)], dim=1)
+    out["nerf_dense_wgrad"]["library_xe_ms"] = _cuda_ms(lambda: xe.t() @ gb)
+    got = {m: FN.nerf_dense_wgrad(*wargs, mainloop=m, **wkw) for m in FM.MAINLOOPS}
+    ref = FN.nerf_dense_wgrad_reference(*wargs, **wkw)
+    out["nerf_dense_wgrad"]["rel_err"] = {
+        f"{name}_wgmma_vs_{other}": _rel_err(got["wgmma"][i], b[i])
+        for other, b in (("plain", ref), ("wmma", got["wmma"]))
+        for i, name in enumerate(("dw", "db", "dc"))}
     r = rand(p, fh).abs()
     noise = rand(BATCH, SAMPLES, to=torch.float32)
     gt = rand(BATCH, 3, to=torch.float32).abs()
@@ -1484,7 +1535,7 @@ def _time_nerf_kernels(field, dev) -> dict:
         lambda: FN.nerf_composite_loss_bwd_reference(*cargs), None,
         _nbytes(*cargs) + (p * (feat + fh) + 4 * feat + 4 + 1) * 4,
         4.0 * p * (feat + 3 * fh))
-    del h, r, dy, y, gb, cargs, wargs, args
+    del h, r, dy, y, gb, cargs, wargs, args, xe, got
 
     # ---- the per-point kernels: the fine pass of a hierarchical batch
     p = BATCH * (SAMPLES + N_IMPORTANCE)
@@ -1641,9 +1692,19 @@ def phase2e(results: dict):
     times = _time_nerf_kernels(field, dev)
     for name, e in times.items():
         lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.3f} ms"
+        if "library_xe_ms" in e:
+            lib += f", [h | enc].t() @ G {e['library_xe_ms']:.3f} ms"
+        loops = (f" ({e['mainloop']}; wgmma {e['wgmma_ms']:.3f} ms, wmma "
+                 f"{e['wmma_ms']:.3f} ms)" if "mainloop" in e else "")
         log(f"phase 2e: {name} bf16 at its main-path shape: kernel "
-            f"{e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms, library call "
-            f"{lib}, bound {e['bound_ms']:.3f} ms ({e['bound_by']})")
+            f"{e['ms']:.3f} ms{loops}, plain {e['plain_ms']:.3f} ms, library "
+            f"call {lib}, bound {e['bound_ms']:.3f} ms ({e['bound_by']})")
+    log("phase 2e: nerf_dense_wgrad skip layer, of each tensor's largest "
+        "entry: " + ", ".join(f"{k} {v:.2e}" for k, v in
+                              times["nerf_dense_wgrad"]["rel_err"].items()))
+    e = times["nerf_dense_wgrad"]["rel_err"]
+    if not max(e.values()) <= K1_STAGE_TOL:
+        failures.append(f"nerf_dense_wgrad at its main-path shape: {e}")
     e = times["nerf_dense"]
     log(f"phase 2e: nerf_dense bf16 at a training batch ({BATCH} rays x "
         f"{SAMPLES}): kernel {e['train_ms']:.3f} ms, plain "
@@ -2359,11 +2420,21 @@ def phase7(results: dict, card: str):
         raise SystemExit(f"phase 7 failed: {msg}")
 
     def hold(what, launches, want):
-        for k, v in want.items():
+        """The launch counts of a run; every bf16 dgrad and wgrad launch on
+        the mainloop the rule gives the 8 x 256 chain (wgmma), so
+        nerf_bias_grad never runs."""
+        for k, v in {**want, "nerf_bias_grad": 0}.items():
             if launches[k] != v:
                 fail(f"{what}: {k} launched {launches[k]} times, expected {v}")
         if any(launches[k] for k in siren):
             fail(f"{what}: a SIREN kernel was launched: {launches}")
+        by = {k: {m: n for (kk, m), n in FM.MAINLOOP_LAUNCHES.items() if kk == k}
+              for k in ("nerf_dense_dgrad", "nerf_dense_wgrad")}
+        for k, loops in by.items():
+            if loops != {"wgmma": launches[k]}:
+                fail(f"{what}: {k} launched {launches[k]} times, by mainloop "
+                     f"{loops}: not every one on wgmma")
+        return by
 
     # ---- the main run: K7 a step, K8 under validation
     first, launches, train_s = run(aoi, NERF_STEPS, "smoke_nerf")
@@ -2380,11 +2451,14 @@ def phase7(results: dict, card: str):
     served, rest = divmod(launches["nerf_dense"] - 10 * n, 10)
     if rest or served < 1:
         fail(f"nerf_dense launched {launches['nerf_dense']} times in {n} steps")
-    hold("cli.train --model nerf", launches,
-         {"nerf_composite_loss_bwd": n, "nerf_dense_dgrad": 9 * n,
-          "nerf_dense_wgrad": 10 * n, "nerf_heads_composite": served,
-          "nerf_field_heads": 0, "nerf_field_heads_bwd": 0})
+    by_loop = hold("cli.train --model nerf", launches,
+                   {"nerf_composite_loss_bwd": n, "nerf_dense_dgrad": 9 * n,
+                    "nerf_dense_wgrad": 10 * n, "nerf_heads_composite": served,
+                    "nerf_field_heads": 0, "nerf_field_heads_bwd": 0})
     results["launches_nerf"] = launches
+    results.setdefault("mainloop_launches", {}).update(by_loop)
+    log(f"phase 7: launches by mainloop {by_loop}, nerf_bias_grad "
+        f"{launches['nerf_bias_grad']}")
     rows = _train_rows(logs, cfg.exp_name)
     if not all(np.isfinite(r["train/loss"]) for r in rows):
         fail("a logged loss is not finite")

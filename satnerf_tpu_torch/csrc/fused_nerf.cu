@@ -45,6 +45,14 @@
 //                         out (P, 8) [rgb | sigma] (fused_nerf.py:188-190).
 //   nerf_field_heads_bwd  their backward from a (P, 8) cotangent.
 //
+// The two backward kernels each have three mainloops and one rule, as the
+// SIREN variants' (fused_train.cu): wgmma, the Hopper mainloops of
+// dense_bwd_wgmma.cuh with the relu's mask read from a TMA-loaded bf16 tile
+// of Y (the dgrad: four 40 KB stages; the wgrad: dW, dC against the
+// encoding computed into shared memory, and db in its epilogue, one launch);
+// wmma, warp-level tensor-core fragments with dC by a second launch and db
+// by nerf_bias_grad; simt (fp32, other shapes).
+//
 // Operands are fp32 or bf16 (dtype 0 / 1), sums fp32. Rounding follows the
 // TPU kernels: the encoding, every activation and every cotangent are rounded
 // to the compute type before a product; bias gradients sum the unrounded
@@ -52,11 +60,14 @@
 // fused_nerf.py:236, is 0 in fp32 below 1e-8, where a ray's last sample (delta
 // 1e10) still has weight.
 //
-// What bounds them: the dense kernels at K = N = 256 do 512 operations an
-// output for 2 bytes written, above the card's ridge: the tensor cores bound
-// them (bf16: WMMA m16n16k16 fragments, 128 x 128 x 32 tiles; fp32: a SIMT
+// What bounds them: the forward at K = N = 256 does 512 operations an output
+// for 2 bytes written, above the card's ridge: the tensor cores bound it
+// (bf16: WMMA m16n16k16 fragments, 128 x 128 x 32 tiles; fp32: a SIMT
 // register-tiled GEMM that stays exact). Layer 0 has no X: its 64-deep product
 // over a computed tile writes (P, N) and is bound by the stores and by sinf.
+// The backward reads dY in fp32 and Y in bf16 (6 bytes a value) for 256 or
+// 512 operations: device memory bounds it (0.050 ms for the dgrad, 0.040 for
+// the skip layer's wgrad at 65,536 points).
 // The per-ray and per-point kernels read h (F values) and r (Fh) a sample for
 // a few operations a byte: device memory bounds them.
 //
@@ -65,6 +76,7 @@
 // here; the wrappers pad nothing.
 
 #include "common.cuh"
+#include "dense_bwd_wgmma.cuh"
 
 namespace {
 
@@ -334,9 +346,10 @@ nerf_dense_wmma(const bf16* __restrict__ X, int K, const bf16* __restrict__ W,
 // dX[p, k] (+)= sum_n round(G[p, n]) * W[k, n], the _dot_t_rhs products of
 // fused_nerf.py _point_bwd_from_saves :195. W is the forward's (K, N) weight.
 // Where two branches meet (d_h: the sigma head's share and the feats layer's)
-// the launch accumulates onto what is there. One-dimensional grid, the column
-// tile running fastest, so the blocks that share a row tile of dY find it in
-// L2.
+// the launch accumulates onto what is there. The wgmma mainloop is
+// dgrad_wgmma<G_RELU> (dense_bwd_wgmma.cuh); the two below have a
+// one-dimensional grid, the column tile running fastest, so the blocks that
+// share a row tile of dY find it in L2.
 
 template <typename T>
 __global__ void __launch_bounds__(DENSE_THREADS)
@@ -481,11 +494,13 @@ nerf_dgrad_wmma(const float* __restrict__ dY, const bf16* __restrict__ Ymask,
 // ----------------------------------------------------------- nerf_dense_wgrad
 //
 // dW[k, n] += sum_p X[p, k] * round(G[p, n]), the _dot_t_lhs products of
-// fused_nerf.py:220-253. The sum runs over all P points for K*N outputs, so
-// the points are split across blockIdx.z (`split` a block, a multiple of
-// TC_BK) and the partial tiles meet in dW by fp32 atomicAdd. The ENC
-// instantiations take the left operand from the positional encoding, computed
-// again from rays8 and z: that is dC (dA at layer 0, dC at the skip layer,
+// fused_nerf.py:220-253. The wgmma mainloop (wgrad_wgmma<G_RELU, ...> of
+// dense_bwd_wgmma.cuh) forms dW, dC and db in one launch. The two below are
+// the wmma and simt mainloops. The sum runs over all P points for K*N
+// outputs, so the points are split across blockIdx.z (`split` a block, a
+// multiple of TC_BK) and the partial tiles meet in dW by fp32 atomicAdd. The
+// ENC instantiations take the left operand from the positional encoding,
+// computed again from rays8 and z: that is dC (dA at layer 0, dC at the skip layer,
 // dWrgb0d at rgb_0). Its output has one row tile only (64 or 32 rows), so it
 // takes a finer split to fill the card, and sinf / cosf set its time.
 // nerf_bias_grad sums the unrounded G over a chunk of points, one thread a
@@ -664,6 +679,22 @@ nerf_bias_grad(const float* __restrict__ dY, const T* __restrict__ Ymask, int P,
   for (int p = p_begin; p < p_end; ++p) s += masked<T>(dY, Ymask, (size_t)p * N + n);
   atomicAdd(db + n, s);
 }
+
+// The wgmma wgrad's encoding operand (dense_bwd_wgmma.cuh wgrad_wgmma): the
+// position point q's encoding is computed from, o + d*z (ENC_XYZ) or d
+// (ENC_DIR), as enc_value takes it; 0 past the last point. The kernel turns
+// it into the tile of sines and cosines.
+struct PosEncoding {
+  const float* rays;
+  const float* z;
+  int S, enc_mode, n_freq, P;
+
+  __device__ __forceinline__ float coord(int q, int c) const {
+    if (q >= P) return 0.f;
+    const float* ray = rays + (size_t)(q / S) * NERF_RAY_COLS;
+    return enc_mode == ENC_XYZ ? __fadd_rn(ray[c], __fmul_rn(ray[3 + c], z[q])) : ray[3 + c];
+  }
+};
 
 // ------------------------------------------------------- nerf_heads_composite
 //
@@ -1142,6 +1173,25 @@ int launch_nerf_wgrad(const void* X, int K, const void* dY, const void* Ymask, c
   return (int)cudaGetLastError();
 }
 
+// The wgmma wgrad: dW (K > 0), dC against the encoding (e_rows 32 or 64)
+// and db in one launch.
+int launch_nerf_wgrad_wgmma(const void* X, int K, const void* dY, const void* Ymask,
+                            const void* rays, const void* z, int S, int enc_mode, int n_freq,
+                            int e_rows, void* dW, void* db, void* dC, int P, int N, int split,
+                            cudaStream_t st) {
+  const bf16* x = as<bf16>(X);
+  const float* dy = as<float>(dY);
+  float *dw = out_f32(dW), *dbias = out_f32(db), *dc = out_f32(dC);
+  if (enc_mode == ENC_NONE)
+    return launch_wgrad_wgmma<G_RELU, 0>(st, x, dy, Ymask, dw, dbias, nullptr, NoEncoding{}, P,
+                                         N, K, split);
+  const PosEncoding enc{as<float>(rays), as<float>(z), S, enc_mode, n_freq, P};
+  return e_rows == 64 ? launch_wgrad_wgmma<G_RELU, 64>(st, x, dy, Ymask, dw, dbias, dc, enc, P, N,
+                                                       K, split)
+                      : launch_wgrad_wgmma<G_RELU, 32>(st, x, dy, Ymask, dw, dbias, dc, enc, P, N,
+                                                       K, split);
+}
+
 bool aligned16(const void* a, const void* b = nullptr, const void* c = nullptr,
                const void* d = nullptr) {
   return (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
@@ -1186,9 +1236,25 @@ extern "C" int satnerf_nerf_dense(int dtype, const void* X, int K, const void* W
   return (int)cudaGetLastError();
 }
 
+// The mainloop rule of a launch of nerf_dense_dgrad (mainloop =
+// MAINLOOP_RULE); ops/fused_mlp.py dense_mainloop is the same rule in Python:
+//   wgmma  bf16, N and K multiples of 64; dY, Ymask, W and dX 16-byte aligned
+//   wmma   bf16, N a multiple of 8; dY, Ymask and W 16-byte aligned
+//   simt   any other shape (and fp32 always)
+// MAINLOOP_WMMA / MAINLOOP_WGMMA ask for one; a launch it cannot take is
+// refused with cudaErrorInvalidValue, never sent to another mainloop.
 extern "C" int satnerf_nerf_dense_dgrad(int dtype, const void* dY, const void* Ymask,
                                         const void* W, void* dX, int accumulate, int P, int N,
-                                        int K, void* stream) {
+                                        int K, int mainloop, void* stream) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (mainloop < MAINLOOP_RULE || mainloop > MAINLOOP_WGMMA) return (int)cudaErrorInvalidValue;
+  const bool in_ok = aligned16(dY, Ymask, W);
+  const bool tc_ok = dtype == 1 && N % 8 == 0 && in_ok;
+  const bool wg_ok = dtype == 1 && N % 64 == 0 && K % 64 == 0 && in_ok && aligned16(dX);
+  if ((mainloop == MAINLOOP_WMMA && !tc_ok) || (mainloop == MAINLOOP_WGMMA && !wg_ok))
+    return (int)cudaErrorInvalidValue;
+  if (mainloop == MAINLOOP_RULE)
+    mainloop = wg_ok ? MAINLOOP_WGMMA : tc_ok ? MAINLOOP_WMMA : MAINLOOP_RULE;
   if (P == 0 || N == 0 || K == 0) return (int)cudaSuccess;
   const long long tiles = (long long)((P + BM - 1) / BM) * ((K + BN - 1) / BN);
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -1199,33 +1265,62 @@ extern "C" int satnerf_nerf_dense_dgrad(int dtype, const void* dY, const void* Y
   if (dtype == 0) {
     nerf_dgrad_simt<float><<<grid, DENSE_THREADS, 0, st>>>(dy, as<float>(Ymask), as<float>(W),
                                                            dx, accumulate, P, N, K);
-  } else if (dtype == 1 && N % 8 == 0 && aligned16(dY, Ymask, W)) {
+  } else if (mainloop == MAINLOOP_WGMMA) {
+    return launch_dgrad_wgmma<G_RELU>(st, dy, Ymask, as<bf16>(W), dx, accumulate, P, N, K);
+  } else if (mainloop == MAINLOOP_WMMA) {
     nerf_dgrad_wmma<<<grid, DENSE_THREADS, 0, st>>>(dy, as<bf16>(Ymask), as<bf16>(W), dx,
                                                     accumulate, P, N, K);
-  } else if (dtype == 1) {
+  } else {
     nerf_dgrad_simt<bf16><<<grid, DENSE_THREADS, 0, st>>>(dy, as<bf16>(Ymask), as<bf16>(W), dx,
                                                           accumulate, P, N, K);
-  } else {
-    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
+// The mainloop rule of a launch of nerf_dense_wgrad (mainloop =
+// MAINLOOP_RULE); ops/fused_mlp.py dense_mainloop is the same rule in Python:
+//   wgmma  bf16, K and N multiples of 64 (K = 0 too: layer 0, the encoding
+//          alone); with an encoding, e_rows 32 or 64; X, dY and Ymask 16-byte
+//          aligned
+//   wmma   bf16, K and N multiples of 8; the same pointers aligned
+//   simt   any other shape (and fp32 always)
+// MAINLOOP_WMMA / MAINLOOP_WGMMA ask for one; a launch it cannot take is
+// refused with cudaErrorInvalidValue, never sent to another mainloop.
+// split: points a block of the wgmma mainloop, a positive multiple of WGR_P
+// (the wrapper's rule, ops/fused_mlp.py wgrad_split). bias: whether
+// nerf_bias_grad runs and sums db, which must be 0 on wgmma (its epilogue
+// sums db) and 1 otherwise (ops/fused_nerf.py nerf_bias_grad_runs).
 extern "C" int satnerf_nerf_dense_wgrad(int dtype, const void* X, int K, const void* dY,
                                         const void* Ymask, const void* rays, const void* z,
                                         int S, int enc_mode, int n_freq, int e_rows, void* dW,
-                                        void* db, void* dC, int P, int N, void* stream) {
+                                        void* db, void* dC, int P, int N, int mainloop,
+                                        int split, int bias, void* stream) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (S < 1 || (enc_mode != ENC_NONE && (n_freq < 1 || n_freq > 16 || e_rows < 6 * n_freq)))
+    return (int)cudaErrorInvalidValue;
+  if (K == 0 && enc_mode == ENC_NONE) return (int)cudaErrorInvalidValue;
+  if (mainloop < MAINLOOP_RULE || mainloop > MAINLOOP_WGMMA) return (int)cudaErrorInvalidValue;
+  const bool in_ok = aligned16(dY, Ymask, X);
+  const bool tc_ok = dtype == 1 && K % 8 == 0 && N % 8 == 0 && in_ok;
+  const bool enc_ok = enc_mode == ENC_NONE || e_rows == 32 || e_rows == 64;
+  const bool wg_ok = dtype == 1 && K % 64 == 0 && N % 64 == 0 && enc_ok && in_ok;
+  if ((mainloop == MAINLOOP_WMMA && !tc_ok) || (mainloop == MAINLOOP_WGMMA && !wg_ok))
+    return (int)cudaErrorInvalidValue;
+  if (mainloop == MAINLOOP_RULE)
+    mainloop = wg_ok ? MAINLOOP_WGMMA : tc_ok ? MAINLOOP_WMMA : MAINLOOP_RULE;
+  if (bias != (mainloop == MAINLOOP_WGMMA ? 0 : 1)) return (int)cudaErrorInvalidValue;
+  if (mainloop == MAINLOOP_WGMMA && (split <= 0 || split % WGR_P != 0))
     return (int)cudaErrorInvalidValue;
   if (P == 0 || N == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_nerf_wgrad<float>(X, K, dY, Ymask, rays, z, S, enc_mode, n_freq, e_rows, dW,
                                     db, dC, P, N, false, st);
-  const bool tc = K % 8 == 0 && N % 8 == 0 && aligned16(dY, Ymask, X);
+  if (mainloop == MAINLOOP_WGMMA)
+    return launch_nerf_wgrad_wgmma(X, K, dY, Ymask, rays, z, S, enc_mode, n_freq, e_rows, dW, db,
+                                   dC, P, N, split, st);
   return launch_nerf_wgrad<bf16>(X, K, dY, Ymask, rays, z, S, enc_mode, n_freq, e_rows, dW, db,
-                                 dC, P, N, tc, st);
+                                 dC, P, N, mainloop == MAINLOOP_WMMA, st);
 }
 
 extern "C" int satnerf_nerf_heads_composite(int dtype, const void* h, int F, const void* rf,

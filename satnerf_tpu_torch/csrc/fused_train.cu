@@ -31,6 +31,7 @@
 // the order of addition, and with it the last bits, changes from run to run.
 
 #include "common.cuh"
+#include "dense_bwd_wgmma.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -73,18 +74,19 @@ constexpr int W_LD = BN + 8;     // padded row of a [32][128] bf16 tile
 // mainloops, one rule (satnerf_siren_dense_dgrad below; ops/fused_mlp.py
 // dense_mainloop mirrors it):
 //  * wgmma (bf16, N and K multiples of 64, dY, slope, W and dX 16-byte
-//    aligned: every main-path launch). dgrad_wgmma is persistent, one block
-//    an SM walking 128 x 256 tiles of dX. A producer warp keeps four 32-deep
-//    stages in flight, TMA loads of the fp32 dY and slope tiles (128 x 32,
-//    128-byte swizzle) and of W (256 x 32 bf16, 64-byte swizzle), 48 KB a
-//    stage, so the card's memory stays busy while the consumers convert,
-//    multiply and write. Two consumer warpgroups own 64 rows each: a thread
-//    reads its A-fragment elements of dY and slope from shared memory, forms
-//    G in fp32, rounds it to bf16 and packs it into the registers of a
-//    register-A (RS) m64n256k16 wgmma. The epilogue writes dX from the
-//    accumulators as 16-byte vectors (an exchange between neighbouring
-//    lanes), adding onto out where asked; the column tiles of a row tile are
-//    neighbours in the walk, so G's second read comes from L2.
+//    aligned: every main-path launch). dgrad_wgmma<G_SLOPE>
+//    (dense_bwd_wgmma.cuh, shared with the nerf variant's dgrad) is
+//    persistent, one block an SM walking 128 x 256 tiles of dX. A producer
+//    warp keeps four 32-deep stages in flight, TMA loads of the fp32 dY and
+//    slope tiles (128 x 32, 128-byte swizzle) and of W (256 x 32 bf16,
+//    64-byte swizzle), 48 KB a stage, so the card's memory stays busy while
+//    the consumers convert, multiply and write. Two consumer warpgroups own
+//    64 rows each: a thread reads its A-fragment elements of dY and slope
+//    from shared memory, forms G in fp32, rounds it to bf16 and packs it into
+//    the registers of a register-A (RS) m64n256k16 wgmma. The epilogue writes
+//    dX from the accumulators as 16-byte vectors (an exchange between
+//    neighbouring lanes), adding onto out where asked; the column tiles of a
+//    row tile are neighbours in the walk, so G's second read comes from L2.
 //  * wmma (bf16, N a multiple of 8, dY, slope and W 16-byte aligned; or
 //    asked for): WMMA fragments with the G tile formed from its two fp32
 //    operands on the way into shared memory, 128 x 128 x 32 tiles.
@@ -254,140 +256,6 @@ dgrad_wmma(const float* __restrict__ dY, const float* __restrict__ slope,
   }
 }
 
-// The wgmma mainloop of siren_dense_dgrad (Hopper).
-constexpr int DG_BM = 128, DG_BN = 256, DG_BK = 32, DG_STAGES = 4;
-constexpr int DG_WG_THREADS = 128;
-constexpr int DG_THREADS = 2 * DG_WG_THREADS + 32;  // two consumer warpgroups, a producer warp
-constexpr int DG_G_BYTES = DG_BM * DG_BK * 4;       // a dY or slope tile, fp32
-constexpr int DG_W_BYTES = DG_BN * DG_BK * 2;       // a W tile, bf16
-
-struct DgradSmem {
-  float dy[DG_STAGES][DG_BM * DG_BK];  // each 1024-byte aligned
-  float slope[DG_STAGES][DG_BM * DG_BK];
-  __nv_bfloat16 w[DG_STAGES][DG_BN * DG_BK];
-  uint64_t full[DG_STAGES], empty[DG_STAGES];
-};
-constexpr int DG_SMEM = (int)sizeof(DgradSmem) + 1024;
-
-// Byte offset of element (r, c) of a 32-float row of a 128-byte-swizzled
-// tile: its 16-byte chunk c / 4 lands at chunk (c / 4) ^ (r % 8) of the row.
-__device__ __forceinline__ int swizzled_f32(int r, int c) {
-  return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + (c & 3) * 4;
-}
-
-__global__ void __launch_bounds__(DG_THREADS, 1)
-dgrad_wgmma(const __grid_constant__ CUtensorMap map_dy, const __grid_constant__ CUtensorMap map_sl,
-            const __grid_constant__ CUtensorMap map_w, int has_slope, float* __restrict__ dX,
-            int accumulate, int P, int N, int K) {
-  using namespace hopper;
-  extern __shared__ uint8_t smem_raw[];
-  DgradSmem& sm = *reinterpret_cast<DgradSmem*>(align1024(smem_raw));
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int col_tiles = (K + DG_BN - 1) / DG_BN;
-  const int tiles = ((P + DG_BM - 1) / DG_BM) * col_tiles;
-  const int n_blocks = (N + DG_BK - 1) / DG_BK;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < DG_STAGES; ++s) {
-      mbar_init(&sm.full[s], 1);
-      mbar_init(&sm.empty[s], 2 * DG_WG_THREADS);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (warp == 8) {  // producer: one lane issues every load
-    if (lane == 0) {
-      const uint32_t bytes = DG_G_BYTES * (has_slope ? 2 : 1) + DG_W_BYTES;
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int row0 = (tile / col_tiles) * DG_BM, col0 = (tile % col_tiles) * DG_BN;
-        for (int nb = 0; nb < n_blocks; ++nb) {
-          mbar_wait(&sm.empty[stage], phase ^ 1);
-          mbar_arrive_expect_tx(&sm.full[stage], bytes);
-          tma_load_2d(sm.dy[stage], &map_dy, &sm.full[stage], nb * DG_BK, row0);
-          if (has_slope) tma_load_2d(sm.slope[stage], &map_sl, &sm.full[stage], nb * DG_BK, row0);
-          tma_load_2d(sm.w[stage], &map_w, &sm.full[stage], nb * DG_BK, col0);
-          if (++stage == DG_STAGES) { stage = 0; phase ^= 1; }
-        }
-      }
-    }
-    return;
-  }
-
-  // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of each tile
-  const int wg = warp / 4, wl = warp % 4;
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = wg * 64 + wl * 16 + g;  // this thread's rows of the tile: r0, r0 + 8
-  int stage = 0;
-  uint32_t phase = 0;
-  float acc[128];
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int row0 = (tile / col_tiles) * DG_BM, col0 = (tile % col_tiles) * DG_BN;
-#pragma unroll
-    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-
-    for (int nb = 0; nb < n_blocks; ++nb) {
-      mbar_wait(&sm.full[stage], phase);
-      const uint8_t* dy = reinterpret_cast<const uint8_t*>(sm.dy[stage]);
-      const uint8_t* sl = reinterpret_cast<const uint8_t*>(sm.slope[stage]);
-      // A fragments of both 16-deep steps: register i of step s holds row
-      // r0 + 8 (i % 2), columns 16 s + 8 (i / 2) + 2t and + 1, as bf16 of G
-      uint32_t a[2][4];
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int off = swizzled_f32(r0 + 8 * (i & 1), 16 * s + 8 * (i >> 1) + 2 * t);
-          float2 v = *reinterpret_cast<const float2*>(dy + off);
-          if (has_slope) {
-            const float2 c = *reinterpret_cast<const float2*>(sl + off);
-            v.x *= c.x;
-            v.y *= c.y;
-          }
-          const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
-          a[s][i] = *reinterpret_cast<const uint32_t*>(&h);
-        }
-      }
-      const uint8_t* w = reinterpret_cast<const uint8_t*>(sm.w[stage]);
-      wgmma_fence();
-      wgmma_m64n256k16_rs(acc, a[0], smem_desc(w, 16, 512, SWIZZLE_64B));
-      wgmma_m64n256k16_rs(acc, a[1], smem_desc(w + 32, 16, 512, SWIZZLE_64B));
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
-      fence_regs(a[0]);
-      fence_regs(a[1]);
-      mbar_arrive(&sm.empty[stage]);
-      if (++stage == DG_STAGES) { stage = 0; phase ^= 1; }
-    }
-
-    // epilogue: rows q0, q0 + 8; columns 8j + 2t, + 1 of each 8-column block j
-    const int q0 = row0 + r0, q1 = q0 + 8;
-#pragma unroll
-    for (int j = 0; j < DG_BN / 8; j += 2) {  // blocks j, j + 1 into one float4 a lane
-      const float4 f0 = pair_exchange(make_float2(acc[4 * j], acc[4 * j + 1]),
-                                      make_float2(acc[4 * j + 4], acc[4 * j + 5]), t);
-      const float4 f1 = pair_exchange(make_float2(acc[4 * j + 2], acc[4 * j + 3]),
-                                      make_float2(acc[4 * j + 6], acc[4 * j + 7]), t);
-      const int k = col0 + 8 * (j + (t & 1)) + 2 * (t & ~1);
-      if (k >= K) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int q = h ? q1 : q0;
-        if (q >= P) continue;
-        float4 v = h ? f1 : f0;
-        float4* out = reinterpret_cast<float4*>(dX + (size_t)q * K + k);
-        if (accumulate) {
-          const float4 o = *out;
-          v.x += o.x; v.y += o.y; v.z += o.z; v.w += o.w;
-        }
-        *out = v;
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------- siren_dense_wgrad
 //
 // dW[k, n] += sum_p X[p, k] * round(G[p, n])   (the _dot_t_lhs products of
@@ -397,7 +265,19 @@ dgrad_wgmma(const __grid_constant__ CUtensorMap map_dy, const __grid_constant__ 
 // (satnerf_siren_dense_wgrad below; ops/fused_mlp.py dense_mainloop mirrors
 // it):
 //  * wgmma (bf16, K and N multiples of 64, X, dY and slope 16-byte aligned:
-//    every main-path launch with K > 0). wgrad_wgmma below; it also sums db.
+//    every main-path launch with K > 0). wgrad_wgmma<G_SLOPE, 0>
+//    (dense_bwd_wgmma.cuh, shared with the nerf variant's wgrad); it also
+//    sums db. A block owns a 128 x 256 tile of dW^T (128 columns n of G, 256
+//    columns k of X) and one range of `split` points; a producer warp keeps
+//    four 32-point stages of dY, slope (32 x 32 fp32 boxes) and X (32 x 64
+//    bf16 boxes) in flight, 48 KB a stage; the consumers form G^T in
+//    registers down the columns of the swizzled tiles, sum db from the same
+//    unrounded values, and run an RS m64n256k16 wgmma with an N-major B; the
+//    epilogue adds the tile into dW with fp32 atomics. Blocks are numbered
+//    split-major, so the tiles sharing a point range run side by side and X
+//    and G come from L2 on their second read. What bounds it: G's two fp32
+//    tensors, read once from device memory; at 512 x 512 and 65,536 points
+//    335 MB, 0.101 ms, against 0.035 ms of products.
 //  * wmma (bf16, K and N multiples of 8, the same pointers aligned): WMMA
 //    fragments, G formed from its two fp32 operands on the way into shared
 //    memory, 128 x 128 tiles of dW, WGRAD_SPLIT points a block (blockIdx.z).
@@ -568,164 +448,6 @@ wgrad_wmma(const __nv_bfloat16* __restrict__ X, const float* __restrict__ dY,
         if (k < K && n < N) atomicAdd(dW + (size_t)k * N + n, stage[e]);
       }
       __syncwarp();
-    }
-  }
-}
-
-// The wgmma mainloop of siren_dense_wgrad (Hopper). A block owns a 128 x 256
-// tile of dW^T (128 columns n of G, 256 columns k of X) and one range of
-// `split` points; dW^T[n][k] = sum_p G^T[n][p] X[p][k] is a register-A (RS)
-// m64n256k16 wgmma with an N-major B:
-//  * a producer warp keeps four 32-point stages in flight by TMA: the fp32
-//    dY and slope tiles (4 boxes of 32 points x 32 columns, 128-byte
-//    swizzle) and the bf16 X tile (4 boxes of 32 points x 64 columns,
-//    128-byte swizzle), 48 KB a stage;
-//  * two consumer warpgroups own 64 columns n each. A thread's A fragment
-//    pairs two neighbouring points at one column n, so it reads dY and the
-//    slope by scalar loads down a column of the swizzled tile (a warp's 32
-//    loads fall in 32 banks: the swizzle spreads its 4 rows' 8 columns
-//    over distinct 16-byte chunks), forms G in fp32, adds it to its two
-//    columns' bias sums, rounds it to bf16 and packs it;
-//  * the epilogue adds the tile into dW with fp32 atomics (8 neighbouring
-//    n a row of dW for each instruction's lanes), and the blocks of the
-//    first k tile add the bias sums, reduced over the quad, into db: each
-//    column once a point range.
-// Blocks are numbered split-major, so the tiles sharing a point range run
-// side by side and X and G come from L2 on their second read.
-// What bounds it: G's two fp32 tensors, read once from device memory; at
-// 512 x 512 and 65,536 points 335 MB, 0.101 ms, against 0.035 ms of
-// products. L2 carries G once a k tile and X once an n tile.
-constexpr int WGR_N = 128;  // columns n of a block's tile: two warpgroups' m64
-constexpr int WGR_K = 256;  // columns k: the wgmma's n256
-constexpr int WGR_P = 32;   // points a stage
-constexpr int WGR_STAGES = 4;
-constexpr int WGR_THREADS = 2 * DG_WG_THREADS + 32;
-constexpr int WGR_G_BOX = WGR_P * 32 * 4;  // 32 points x 32 columns, fp32: 4 KB
-constexpr int WGR_X_BOX = WGR_P * 64 * 2;  // 32 points x 64 columns, bf16: 4 KB
-
-struct WgradSmem {
-  float dy[WGR_STAGES][WGR_P * WGR_N];  // four boxes a stage, each 1024-byte aligned
-  float slope[WGR_STAGES][WGR_P * WGR_N];
-  __nv_bfloat16 x[WGR_STAGES][WGR_P * WGR_K];
-  uint64_t full[WGR_STAGES], empty[WGR_STAGES];
-};
-constexpr int WGR_SMEM = (int)sizeof(WgradSmem) + 1024;
-
-__global__ void __launch_bounds__(WGR_THREADS, 1)
-wgrad_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_dy,
-            const __grid_constant__ CUtensorMap map_sl, int has_slope, float* __restrict__ dW,
-            float* __restrict__ db, int P, int N, int K, int split) {
-  using namespace hopper;
-  extern __shared__ uint8_t smem_raw[];
-  WgradSmem& sm = *reinterpret_cast<WgradSmem*>(align1024(smem_raw));
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int k_tiles = (K + WGR_K - 1) / WGR_K;
-  const int tiles = ((N + WGR_N - 1) / WGR_N) * k_tiles;
-  const int tile = blockIdx.x % tiles;
-  const int n0 = (tile / k_tiles) * WGR_N, k0 = (tile % k_tiles) * WGR_K;
-  const int p_begin = (blockIdx.x / tiles) * split;
-  const int steps = (min(P, p_begin + split) - p_begin + WGR_P - 1) / WGR_P;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < WGR_STAGES; ++s) {
-      mbar_init(&sm.full[s], 1);
-      mbar_init(&sm.empty[s], 2 * DG_WG_THREADS);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (warp == 8) {  // producer: one lane issues every load
-    if (lane == 0) {
-      // N and K are multiples of 64, so a box lies inside or outside whole;
-      // those outside are not loaded (their rows and columns are not stored)
-      const int n_boxes = min(WGR_N, N - n0) / 32, k_boxes = min(WGR_K, K - k0) / 64;
-      const uint32_t bytes = n_boxes * WGR_G_BOX * (has_slope ? 2 : 1) + k_boxes * WGR_X_BOX;
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int i = 0; i < steps; ++i) {
-        const int p0 = p_begin + i * WGR_P;
-        mbar_wait(&sm.empty[stage], phase ^ 1);
-        mbar_arrive_expect_tx(&sm.full[stage], bytes);
-        for (int b = 0; b < n_boxes; ++b) {
-          tma_load_2d(sm.dy[stage] + b * WGR_P * 32, &map_dy, &sm.full[stage], n0 + 32 * b, p0);
-          if (has_slope)
-            tma_load_2d(sm.slope[stage] + b * WGR_P * 32, &map_sl, &sm.full[stage], n0 + 32 * b,
-                        p0);
-        }
-        for (int b = 0; b < k_boxes; ++b)
-          tma_load_2d(sm.x[stage] + b * WGR_P * 64, &map_x, &sm.full[stage], k0 + 64 * b, p0);
-        if (++stage == WGR_STAGES) { stage = 0; phase ^= 1; }
-      }
-    }
-    return;
-  }
-
-  // consumers: this thread's columns of the tile are nl and nl + 8, both in
-  // box nl / 32 of a stage's dY and slope tiles
-  const int wg = warp / 4, wl = warp % 4;
-  const int g = lane / 4, t = lane % 4;
-  const int nl = wg * 64 + wl * 16 + g;
-  const int box = (nl / 32) * WGR_G_BOX, c0 = nl % 32;
-  float acc[128];  // written by wgmma only: the first product starts the sum
-  float db0 = 0.f, db1 = 0.f;
-  int stage = 0;
-  uint32_t phase = 0;
-  for (int i = 0; i < steps; ++i) {
-    mbar_wait(&sm.full[stage], phase);
-    const uint8_t* dy = reinterpret_cast<const uint8_t*>(sm.dy[stage]) + box;
-    const uint8_t* sl = reinterpret_cast<const uint8_t*>(sm.slope[stage]) + box;
-    // A fragments of both 16-point steps: register r of step s holds column
-    // nl + 8 (r % 2), points 16 s + 8 (r / 2) + 2t and + 1, as bf16 of G
-    uint32_t a[2][4];
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int c = c0 + 8 * (r & 1), q = 16 * s + 8 * (r >> 1) + 2 * t;
-        const int o0 = swizzled_f32(q, c), o1 = swizzled_f32(q + 1, c);
-        float v0 = *reinterpret_cast<const float*>(dy + o0);
-        float v1 = *reinterpret_cast<const float*>(dy + o1);
-        if (has_slope) {
-          v0 *= *reinterpret_cast<const float*>(sl + o0);
-          v1 *= *reinterpret_cast<const float*>(sl + o1);
-        }
-        if (r & 1) db1 += v0 + v1;
-        else db0 += v0 + v1;
-        const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-        a[s][r] = *reinterpret_cast<const uint32_t*>(&h);
-      }
-    }
-    const uint8_t* x = reinterpret_cast<const uint8_t*>(sm.x[stage]);
-    wgmma_fence();
-    wgmma_m64n256k16_rs_tb(acc, a[0], smem_desc(x, WGR_X_BOX, 1024, SWIZZLE_128B), i > 0);
-    wgmma_m64n256k16_rs_tb(acc, a[1], smem_desc(x + 16 * 128, WGR_X_BOX, 1024, SWIZZLE_128B));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-    fence_regs(a[0]);
-    fence_regs(a[1]);
-    mbar_arrive(&sm.empty[stage]);
-    if (++stage == WGR_STAGES) { stage = 0; phase ^= 1; }
-  }
-
-  // epilogue: acc[4j + i] is dW^T at column n0 + nl + 8 (i / 2), row
-  // k0 + 8j + 2t + i % 2 of dW
-#pragma unroll
-  for (int j = 0; j < WGR_K / 8; ++j) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int n = n0 + nl + 8 * (i >> 1), k = k0 + 8 * j + 2 * t + (i & 1);
-      if (n < N && k < K) atomicAdd(dW + (size_t)k * N + n, acc[4 * j + i]);
-    }
-  }
-  if (k0 == 0) {
-    db0 += __shfl_xor_sync(0xffffffffu, db0, 1);
-    db0 += __shfl_xor_sync(0xffffffffu, db0, 2);
-    db1 += __shfl_xor_sync(0xffffffffu, db1, 1);
-    db1 += __shfl_xor_sync(0xffffffffu, db1, 2);
-    if (t == 0 && n0 + nl < N) {
-      atomicAdd(db + n0 + nl, db0);
-      atomicAdd(db + n0 + nl + 8, db1);
     }
   }
 }
@@ -1142,30 +864,6 @@ composite_loss_bwd_kernel(const T* __restrict__ h, int F, const T* __restrict__ 
 // Each returns cudaGetLastError() after its launches; the wrapper raises if
 // it is not 0.
 
-static int launch_dgrad_wgmma(cudaStream_t st, const float* dY, const float* slope,
-                              const __nv_bfloat16* W, float* dX, int accumulate, int P, int N,
-                              int K) {
-  static const int resident = hopper::resident_blocks(dgrad_wgmma, DG_THREADS, DG_SMEM);
-  if (resident == 0) return (int)cudaErrorInvalidConfiguration;
-  CUtensorMap map_dy, map_sl, map_w;
-  int err = hopper::tensor_map_2d(&map_dy, dY, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, P, N, DG_BM,
-                                  DG_BK, CU_TENSOR_MAP_SWIZZLE_128B);
-  // without a slope (a linear layer) its map stands on dY and is never read
-  if (err == 0)
-    err = hopper::tensor_map_2d(&map_sl, slope != nullptr ? slope : dY,
-                                CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, P, N, DG_BM, DG_BK,
-                                CU_TENSOR_MAP_SWIZZLE_128B);
-  if (err == 0)
-    err = hopper::tensor_map_2d(&map_w, W, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K, N, DG_BN,
-                                DG_BK, CU_TENSOR_MAP_SWIZZLE_64B);
-  if (err != 0) return err;
-  const long long tiles = (long long)((P + DG_BM - 1) / DG_BM) * ((K + DG_BN - 1) / DG_BN);
-  const int grid = (int)(tiles < resident ? tiles : resident);
-  dgrad_wgmma<<<grid, DG_THREADS, DG_SMEM, st>>>(map_dy, map_sl, map_w, slope != nullptr, dX,
-                                                 accumulate, P, N, K);
-  return (int)cudaGetLastError();
-}
-
 // The mainloop rule of a bf16 launch (mainloop = MAINLOOP_RULE);
 // ops/fused_mlp.py dense_mainloop is the same rule in Python:
 //   wgmma  N and K multiples of 64; dY, slope, W and dX 16-byte aligned
@@ -1198,8 +896,8 @@ extern "C" int satnerf_siren_dense_dgrad(int dtype, const void* dY, const void* 
     dgrad_simt<float><<<grid, DENSE_THREADS, 0, st>>>(dy, sl, static_cast<const float*>(W), dx,
                                                       accumulate, P, N, K);
   } else if (mainloop == MAINLOOP_WGMMA) {
-    return launch_dgrad_wgmma(st, dy, sl, static_cast<const __nv_bfloat16*>(W), dx, accumulate,
-                              P, N, K);
+    return launch_dgrad_wgmma<G_SLOPE>(st, dy, sl, static_cast<const __nv_bfloat16*>(W), dx,
+                                       accumulate, P, N, K);
   } else if (mainloop == MAINLOOP_WMMA) {
     dgrad_wmma<<<grid, DENSE_THREADS, 0, st>>>(dy, sl, static_cast<const __nv_bfloat16*>(W),
                                                dx, accumulate, P, N, K);
@@ -1207,31 +905,6 @@ extern "C" int satnerf_siren_dense_dgrad(int dtype, const void* dY, const void* 
     dgrad_simt<__nv_bfloat16><<<grid, DENSE_THREADS, 0, st>>>(
         dy, sl, static_cast<const __nv_bfloat16*>(W), dx, accumulate, P, N, K);
   }
-  return (int)cudaGetLastError();
-}
-
-static int launch_wgrad_wgmma(cudaStream_t st, const __nv_bfloat16* X, const float* dY,
-                              const float* slope, float* dW, float* db, int P, int N, int K,
-                              int split) {
-  static const int resident = hopper::resident_blocks(wgrad_wgmma, WGR_THREADS, WGR_SMEM);
-  if (resident == 0) return (int)cudaErrorInvalidConfiguration;
-  CUtensorMap map_x, map_dy, map_sl;
-  int err = hopper::tensor_map_2d(&map_x, X, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, P, K, WGR_P, 64,
-                                  CU_TENSOR_MAP_SWIZZLE_128B);
-  if (err == 0)
-    err = hopper::tensor_map_2d(&map_dy, dY, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, P, N, WGR_P, 32,
-                                CU_TENSOR_MAP_SWIZZLE_128B);
-  // without a slope (a linear layer) its map stands on dY and is never read
-  if (err == 0)
-    err = hopper::tensor_map_2d(&map_sl, slope != nullptr ? slope : dY,
-                                CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, P, N, WGR_P, 32,
-                                CU_TENSOR_MAP_SWIZZLE_128B);
-  if (err != 0) return err;
-  const long long blocks = (long long)((N + WGR_N - 1) / WGR_N) * ((K + WGR_K - 1) / WGR_K) *
-                           ((P + split - 1) / split);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  wgrad_wgmma<<<(int)blocks, WGR_THREADS, WGR_SMEM, st>>>(map_x, map_dy, map_sl,
-                                                          slope != nullptr, dW, db, P, N, K, split);
   return (int)cudaGetLastError();
 }
 
@@ -1281,8 +954,9 @@ extern "C" int satnerf_siren_dense_wgrad(int dtype, const void* X, int K, const 
       wgrad_simt<float><<<grid, DENSE_THREADS, 0, st>>>(static_cast<const float*>(X), dy, sl,
                                                         dw, P, N, K);
     } else if (mainloop == MAINLOOP_WGMMA) {
-      const int err = launch_wgrad_wgmma(st, static_cast<const __nv_bfloat16*>(X), dy, sl, dw,
-                                         static_cast<float*>(db), P, N, K, split);
+      const int err = launch_wgrad_wgmma<G_SLOPE, 0>(
+          st, static_cast<const __nv_bfloat16*>(X), dy, sl, dw, static_cast<float*>(db), nullptr,
+          NoEncoding{}, P, N, K, split);
       if (err != 0) return err;
     } else if (mainloop == MAINLOOP_WMMA) {
       wgrad_wmma<<<grid, DENSE_THREADS, 0, st>>>(static_cast<const __nv_bfloat16*>(X), dy, sl,

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the wgmma mainloops: siren_dense
-// (fused_render.cu), siren_dense_dgrad and siren_dense_wgrad
-// (fused_train.cu).
+// (fused_render.cu) and the backward's dgrad and wgrad (dense_bwd_wgmma.cuh,
+// instantiated by fused_train.cu and fused_nerf.cu).
 //
 //  * TMA tensor maps, encoded on the host by cuTensorMapEncodeTiled, which
 //    is looked up at run time (cudaGetDriverEntryPoint), so the library links
@@ -288,6 +288,53 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float* d, const uint32_t* a,
 __device__ __forceinline__ void wgmma_m64n256k16_rs_tb(float* d, const uint32_t* a,
                                                        uint64_t desc_b, int scale_d = 1) {
   wgmma_m64n256k16_rs_impl<1>(d, a, desc_b, scale_d);
+}
+
+// D (64 x 64) (+)= A (64 x 16, registers) . B (16 x 64, shared memory,
+// N-major): the nerf wgrad's 64-column encoding tile (dC of the position)
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float* d, const uint32_t* a,
+                                                      uint64_t desc_b, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 32) (+)= A (64 x 16, registers) . B (16 x 32, shared memory,
+// N-major): the 32-column encoding tile (dC of the view direction)
+__device__ __forceinline__ void wgmma_m64n32k16_rs_tb(float* d, const uint32_t* a,
+                                                      uint64_t desc_b, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// Makes this thread's ordinary writes to shared memory visible to the async
+// proxy (the wgmma that reads a tile the threads computed): each writer runs
+// it after its stores and before the barrier the readers wait on.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 

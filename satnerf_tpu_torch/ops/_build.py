@@ -69,12 +69,12 @@ SIGNATURES = {
     # P, N, stream
     "satnerf_nerf_dense": [_I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I,
                            _P, _I, _I, _P],
-    # dtype, dY, Ymask, W, dX, accumulate, P, N, K, stream
-    "satnerf_nerf_dense_dgrad": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dtype, dY, Ymask, W, dX, accumulate, P, N, K, mainloop, stream
+    "satnerf_nerf_dense_dgrad": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dtype, X, K, dY, Ymask, rays8, z, S, enc_mode, n_freq, e_rows, dW, db,
-    # dC, P, N, stream
+    # dC, P, N, mainloop, split, bias, stream
     "satnerf_nerf_dense_wgrad": [_I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _P, _P, _P, _I, _I, _P],
+                                 _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dtype, h, F, r, Fh, Wn, bn, z, noise, R, S, rgb_padding, out, weights,
     # stream
     "satnerf_nerf_heads_composite": [_I, _P, _I, _P, _I, _P, _P, _P, _P, _I,

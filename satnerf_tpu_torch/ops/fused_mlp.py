@@ -66,14 +66,15 @@ tensor launches its kernel or raises; given a CPU tensor it runs its plain
 version. There is no fallback from one to the other. Every launch adds one
 to LAUNCHES[name].
 
-siren_dense, siren_dense_dgrad and siren_dense_wgrad each have more than
-one mainloop on the card: wgmma (Hopper: TMA-fed shared-memory stages,
-warpgroup products), wmma (warp-level tensor-core fragments), simt (fp32
-FMAs), and for siren_dense and the wgrad with K = 0 no GEMM ("k0": the
-elementwise kernel, small_grads alone). `dense_mainloop` is the rule that
-picks one, the same rule as their C entries; `mainloop="wmma"` or `"wgmma"`
-asks for one by hand (tests, chip_smoke.py) and raises where it cannot run.
-Every launch of the three also adds one to
+siren_dense, siren_dense_dgrad and siren_dense_wgrad (and the nerf
+variant's nerf_dense_dgrad and nerf_dense_wgrad, ops/fused_nerf.py) each
+have more than one mainloop on the card: wgmma (Hopper: TMA-fed
+shared-memory stages, warpgroup products), wmma (warp-level tensor-core
+fragments), simt (fp32 FMAs), and for siren_dense and the wgrad with K = 0
+no GEMM ("k0": the elementwise kernel, small_grads alone). `dense_mainloop`
+is the rule that picks one, the same rule as their C entries;
+`mainloop="wmma"` or `"wgmma"` asks for one by hand (tests, chip_smoke.py)
+and raises where it cannot run. Every launch of the five also adds one to
 MAINLOOP_LAUNCHES[(name, mainloop)]. The wgrad's wgmma mainloop sums the
 bias gradient in its epilogue, so its small_grads launch is left out where
 the layer has no E operand (`small_grads_mode`); each small_grads launch
@@ -113,17 +114,21 @@ LAUNCHES = {"siren_dense": 0, "heads_composite": 0, "composite_loss_bwd": 0,
             "nerf_heads_composite": 0, "nerf_composite_loss_bwd": 0,
             "nerf_field_heads": 0, "nerf_field_heads_bwd": 0,
             # launched by siren_dense_wgrad's wrapper where it has work
-            "small_grads": 0}
+            "small_grads": 0,
+            # launched by nerf_dense_wgrad's wrapper where its GEMM does not
+            # sum db (every mainloop but wgmma)
+            "nerf_bias_grad": 0}
 
 _ACT = {"none": 0, "sin": 1, "relu": 2}
 _EXTRA = {None: (0, 0), "xyz": (1, 0), "sun": (2, 6), "t": (2, 9)}  # mode, column
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-# (kernel, mainloop) -> launches, for siren_dense, siren_dense_dgrad and
-# siren_dense_wgrad
+# (kernel, mainloop) -> launches, for the kernels of MAINLOOP_KERNELS
 MAINLOOP_LAUNCHES: dict = {}
 MAINLOOPS = ("wmma", "wgmma")  # what `mainloop=` may ask for; None: the rule
+MAINLOOP_KERNELS = ("siren_dense", "siren_dense_dgrad", "siren_dense_wgrad",
+                    "nerf_dense_dgrad", "nerf_dense_wgrad")
 _MAINLOOP_CODE = {"wmma": 1, "wgmma": 2}  # csrc/common.cuh MAINLOOP_*; 0: rule
 DENSE_WGMMA_MAX_K = 512  # csrc/fused_render.cu FWD_MAX_K
 
@@ -142,42 +147,47 @@ def _check_mainloop(mainloop) -> None:
 
 def dense_mainloop(kernel: str, dtype: torch.dtype, k: int, n: int, *,
                    inputs_aligned: bool = True, outputs_aligned: bool = True,
-                   mainloop: Optional[str] = None) -> str:
-    """The mainloop a launch of siren_dense, siren_dense_dgrad or
-    siren_dense_wgrad takes on the card: the rule of their C entries
-    (csrc/fused_render.cu, csrc/fused_train.cu), which the wrappers call to
+                   e_rows: int = 0, mainloop: Optional[str] = None) -> str:
+    """The mainloop a launch of siren_dense, siren_dense_dgrad,
+    siren_dense_wgrad, nerf_dense_dgrad or nerf_dense_wgrad takes on the
+    card: the rule of their C entries (csrc/fused_render.cu,
+    csrc/fused_train.cu, csrc/fused_nerf.cu), which the wrappers call to
     build what they pass.
 
     siren_dense: k = K (0 for layer 0 and sky_0), n = N; the inputs are X and
-    W, the outputs Y and the saved slope. siren_dense_dgrad: k = K (dX's
-    columns), n = N (the reduction); the inputs are dY, slope and W, the
-    output dX. siren_dense_wgrad: k = K (0 for layer 0 and sky_0), n = N; the
-    inputs are X, dY and slope, the outputs (dW, db; allocated by the
-    wrapper) are always aligned. `*_aligned`: every such pointer is a
+    W, the outputs Y and the saved slope. The dgrads: k = K (dX's columns),
+    n = N (the reduction); the inputs are dY, the slope or the relu's mask Y,
+    and W, the output dX. The wgrads: k = K (0 for layer 0, and sky_0), n =
+    N; the inputs are X, dY and the slope or mask, the outputs (allocated by
+    the wrapper) are always aligned; nerf_dense_wgrad's e_rows = the rows of
+    its encoding weight (0: none). `*_aligned`: every such pointer is a
     multiple of 16 bytes.
 
       k0     siren_dense and siren_dense_wgrad with K = 0 (no GEMM)
       simt   fp32, and bf16 of shapes no tensor-core mainloop takes
       wgmma  bf16, K and N multiples of 64, inputs and outputs aligned;
              siren_dense keeps a 128-column slice of W in shared memory:
-             K <= 512
-      wmma   bf16, N (siren_dense and the wgrad: and K) a multiple of 8,
+             K <= 512; nerf_dense_wgrad's encoding is one wgmma tile of its
+             own: e_rows 0, 32 or 64 (K = 0, layer 0: the encoding alone)
+      wmma   bf16, N (siren_dense and the wgrads: and K) a multiple of 8,
              inputs aligned
 
     mainloop "wmma" / "wgmma" asks for that one and raises ValueError where
     it cannot run; there is no other fallback.
     """
     _check_mainloop(mainloop)
-    if kernel not in ("siren_dense", "siren_dense_dgrad", "siren_dense_wgrad"):
+    if kernel not in MAINLOOP_KERNELS:
         raise ValueError(f"{kernel} has one mainloop")
     bf16 = dtype == torch.bfloat16
-    if kernel != "siren_dense_dgrad" and k == 0:
+    dgrad = kernel.endswith("_dgrad")
+    if kernel in ("siren_dense", "siren_dense_wgrad") and k == 0:
         rule, takes = "k0", ()
     else:
-        mma_shape = n % 8 == 0 and (kernel == "siren_dense_dgrad" or k % 8 == 0)
+        mma_shape = n % 8 == 0 and (dgrad or k % 8 == 0)
+        enc_ok = e_rows in (0, 32, 64)
         takes = tuple(name for name, ok in (
             ("wgmma", bf16 and k % 64 == 0 and n % 64 == 0 and inputs_aligned
-             and outputs_aligned
+             and outputs_aligned and enc_ok
              and (kernel != "siren_dense" or k <= DENSE_WGMMA_MAX_K)),
             ("wmma", bf16 and mma_shape and inputs_aligned)) if ok)
         rule = takes[0] if takes else "simt"
@@ -185,7 +195,7 @@ def dense_mainloop(kernel: str, dtype: torch.dtype, k: int, n: int, *,
         return rule
     if mainloop not in takes:
         raise ValueError(f"{kernel}: mainloop {mainloop!r} does not take "
-                         f"{dtype} K={k} N={n} (aligned inputs "
+                         f"{dtype} K={k} N={n} e_rows={e_rows} (aligned inputs "
                          f"{inputs_aligned}, outputs {outputs_aligned})")
     return mainloop
 
@@ -743,14 +753,18 @@ def small_grads_mode(mainloop: str, extra: Optional[str]) -> str:
     return "db"
 
 
-def wgrad_split(p: int, k: int, n: int, sms: int) -> int:
-    """Points a block of the wgmma wgrad sums over: the points of a layer cut
-    into as many ranges as one block an SM leaves room for beside the
-    layer's WGRAD_TILE tiles of dW^T (one wave; every range a multiple of
-    WGRAD_STAGE_POINTS). At 65,536 points: 4,096 a block for 512 x 512 (8
-    tiles, 128 blocks), 2,016 for 512 x 256 (4 tiles, 132 blocks), 1,024
-    for 256 x 256 (2 tiles, 128 blocks)."""
-    tiles = -(-n // WGRAD_TILE[0]) * -(-k // WGRAD_TILE[1])
+def wgrad_split(p: int, k: int, n: int, sms: int, e_rows: int = 0) -> int:
+    """Points a block of the wgmma wgrad (siren_dense_wgrad and
+    nerf_dense_wgrad) sums over: the points of a layer cut into as many
+    ranges as one block an SM leaves room for beside the layer's tiles (one
+    wave; every range a multiple of WGRAD_STAGE_POINTS). A tile is
+    WGRAD_TILE of dW^T, or 128 columns of dC^T against the encoding (e_rows
+    > 0: one more k tile). At 65,536 points: 4,096 a block for 512 x 512 (8
+    tiles, 128 blocks), 2,016 for 512 x 256 (4 tiles, 132 blocks), 1,024 for
+    256 x 256 (2 tiles, 128 blocks), and for the nerf variant's encoding
+    layers 2,016 (the skip layer, 256 x 256 and 64 rows: 4 tiles), 1,024
+    (rgb_0, 256 x 128 and 32 rows; layer 0, the 64 rows alone: 2 tiles)."""
+    tiles = -(-n // WGRAD_TILE[0]) * max(1, -(-k // WGRAD_TILE[1]) + (e_rows > 0))
     per = -(-p // max(1, sms // tiles))
     step = WGRAD_STAGE_POINTS
     return max(step, -(-per // step) * step)

@@ -38,6 +38,13 @@ A wrapper given a CUDA tensor launches its kernel or raises; given a CPU
 tensor it runs its plain version. There is no fallback from one to the other.
 Every launch adds one to ops/fused_mlp.LAUNCHES[name].
 
+nerf_dense_dgrad and nerf_dense_wgrad have the mainloops of the SIREN
+backward (wgmma, wmma, simt; ops/fused_mlp.dense_mainloop is their rule,
+`mainloop=` asks for one by hand and each launch is counted in
+MAINLOOP_LAUNCHES). On wgmma the wgrad forms dW, dC and db in one launch;
+on the others nerf_bias_grad sums db beside it (`nerf_bias_grad_runs`),
+counted in LAUNCHES["nerf_bias_grad"].
+
 Precision follows the JAX kernel: matmul operands (weights, activations, the
 encoding) in the compute dtype, sums and biases in fp32, each activation
 stored in the compute dtype. The backward masks on the stored
@@ -56,8 +63,10 @@ import torch
 import torch.nn.functional as F
 
 from satnerf_tpu_torch.models.nerf import positional_encoding, rounded_matmul
-from satnerf_tpu_torch.ops.fused_mlp import (_DTYPE_CODE, _check_cuda, _launch,
-                                             _ptr, _stream)
+from satnerf_tpu_torch.ops.fused_mlp import (
+    _DTYPE_CODE, _MAINLOOP_CODE, LAUNCHES, WGRAD_STAGE_POINTS, _aligned,
+    _check_cuda, _check_mainloop, _launch, _ptr, _sm_count, _stream,
+    dense_mainloop, wgrad_split)
 from satnerf_tpu_torch.render.composite import ray_weights
 from satnerf_tpu_torch.render.render import run_field
 
@@ -185,9 +194,13 @@ def nerf_dense_dgrad_reference(dy, y, weight, *, out=None):
     return dx if out is None else out.add_(dx)
 
 
-def nerf_dense_dgrad(dy, y, weight, *, out=None):
+def nerf_dense_dgrad(dy, y, weight, *, out=None,
+                     mainloop: Optional[str] = None):
     """The input cotangent of one dense layer; arguments as
-    nerf_dense_dgrad_reference. CUDA tensors launch the kernel."""
+    nerf_dense_dgrad_reference. CUDA tensors launch the kernel on the
+    mainloop `dense_mainloop` gives (None: the rule; "wmma" / "wgmma" by
+    hand)."""
+    _check_mainloop(mainloop)
     if dy.device.type == "cpu":
         return nerf_dense_dgrad_reference(dy, y, weight, out=out)
     dtype = weight.dtype
@@ -202,8 +215,12 @@ def nerf_dense_dgrad(dy, y, weight, *, out=None):
         raise ValueError("out must be (P, K) fp32")
     dx = out if out is not None else torch.empty(
         (p, k), dtype=torch.float32, device=dy.device)
+    loop = dense_mainloop("nerf_dense_dgrad", dtype, k, n,
+                          inputs_aligned=_aligned(dy, y, weight),
+                          outputs_aligned=_aligned(dx), mainloop=mainloop)
     _launch("nerf_dense_dgrad", _DTYPE_CODE[dtype], _ptr(dy), _ptr(y),
-            _ptr(weight), _ptr(dx), int(out is not None), p, n, k, _stream(dy))
+            _ptr(weight), _ptr(dx), int(out is not None), p, n, k,
+            _MAINLOOP_CODE.get(loop, 0), _stream(dy), mainloop=loop)
     return dx
 
 
@@ -232,11 +249,27 @@ def nerf_dense_wgrad_reference(x, dy, y, rays8, samples: int, *,
     return dw, g.sum(0), dc
 
 
+def nerf_bias_grad_runs(mainloop: str) -> bool:
+    """Whether a nerf_dense_wgrad launch whose GEMM took `mainloop` (as
+    dense_mainloop answers) also launches nerf_bias_grad to sum db: on every
+    mainloop but wgmma, whose epilogue sums it. The C entry refuses any other
+    answer, so LAUNCHES["nerf_bias_grad"], which the wrapper counts from
+    this, is what ran."""
+    return mainloop != "wgmma"
+
+
 def nerf_dense_wgrad(x, dy, y, rays8, samples: int, *,
                      enc: Optional[str] = None, z=None, n_freq: int = 0,
-                     enc_rows: int = 0, dtype=None):
+                     enc_rows: int = 0, dtype=None,
+                     mainloop: Optional[str] = None,
+                     split: Optional[int] = None):
     """The parameter gradients of one dense layer; arguments and returns as
-    nerf_dense_wgrad_reference. CUDA tensors launch the kernel."""
+    nerf_dense_wgrad_reference. CUDA tensors launch the kernel on the
+    mainloop `dense_mainloop` gives (None: the rule; "wmma" / "wgmma" by
+    hand) and nerf_bias_grad where `nerf_bias_grad_runs` says. split: points
+    a block of the wgmma mainloop (None: ops/fused_mlp.wgrad_split; a
+    positive multiple of WGRAD_STAGE_POINTS), for measuring."""
+    _check_mainloop(mainloop)
     if dy.device.type == "cpu":
         return nerf_dense_wgrad_reference(x, dy, y, rays8, samples, enc=enc,
                                           z=z, n_freq=n_freq,
@@ -257,6 +290,17 @@ def nerf_dense_wgrad(x, dy, y, rays8, samples: int, *,
     if x is not None and (x.shape[0] != p or x.dtype != dtype):
         raise ValueError(f"x must be ({p}, K) {dtype}")
     _check_enc_call(rays8, samples, enc, enc_rows, z, n_freq)
+    e_rows = enc_rows if enc is not None else 0
+    loop = dense_mainloop("nerf_dense_wgrad", dtype, k, n, e_rows=e_rows,
+                          inputs_aligned=_aligned(x, dy, y), mainloop=mainloop)
+    bias = nerf_bias_grad_runs(loop)
+    if loop != "wgmma":
+        split = 0
+    elif split is None:
+        split = wgrad_split(p, k, n, _sm_count(dy.device.index or 0), e_rows)
+    elif split <= 0 or split % WGRAD_STAGE_POINTS:
+        raise ValueError(f"split must be a positive multiple of "
+                         f"{WGRAD_STAGE_POINTS}, got {split}")
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=dy.device)
@@ -265,9 +309,11 @@ def nerf_dense_wgrad(x, dy, y, rays8, samples: int, *,
     db = zeros(n)
     dc = zeros(enc_rows, n) if enc is not None else None
     _launch("nerf_dense_wgrad", _DTYPE_CODE[dtype], _ptr(x), k, _ptr(dy),
-            _ptr(y), _ptr(rays8), _ptr(z), samples, _ENC[enc], n_freq,
-            enc_rows if enc is not None else 0, _ptr(dw), _ptr(db), _ptr(dc),
-            p, n, _stream(dy))
+            _ptr(y), _ptr(rays8), _ptr(z), samples, _ENC[enc], n_freq, e_rows,
+            _ptr(dw), _ptr(db), _ptr(dc), p, n, _MAINLOOP_CODE.get(loop, 0),
+            split, int(bias), _stream(dy), mainloop=loop)
+    if bias:
+        LAUNCHES["nerf_bias_grad"] += 1
     return dw, db, dc
 
 

@@ -38,7 +38,13 @@ and without the saved slope, accumulation and a slope, at 65,536, 1,037 x 72
 and 1,024 x 128 points (the wgrad also at fewer points than one block's
 range and at shapes that fill part of its tile), the wgrad's launches of
 small_grads, and operands whose pointers are
-not 16-byte aligned, which the rule keeps off the wgmma path.
+not 16-byte aligned, which the rule keeps off the wgmma path; and for the
+nerf variant's nerf_dense_dgrad and nerf_dense_wgrad on the same mainloops,
+every bf16 launch of its 8 x 256 chain (the dgrad masked and linear, with
+accumulation; the wgrad with both encodings, and layer 0's encoding alone)
+at 65,536 points and at 65,573 points that are their own rays, against the
+plain version and the same launch on wmma, nerf_bias_grad launched only
+beside a wmma wgrad, and the launches a forced wgmma cannot take.
 """
 
 import numpy as np
@@ -1098,8 +1104,10 @@ def test_fused_nerf_train_loss_grads_fp32(dev, with_noise, n_s):
     noise = noise if with_noise else None
     before = dict(FM.LAUNCHES)
     mse, grads = FN.fused_nerf_train_loss_grads(field, o, d, z, noise, gt, **kw)
+    # fp32: every wgrad's db by nerf_bias_grad
     assert _grown(before) == {"nerf_dense": 10, "nerf_composite_loss_bwd": 1,
-                              "nerf_dense_dgrad": 9, "nerf_dense_wgrad": 10}
+                              "nerf_dense_dgrad": 9, "nerf_dense_wgrad": 10,
+                              "nerf_bias_grad": 10}
     r_mse, r_grads = FN.fused_nerf_train_loss_grads_reference(
         field, o, d, z, noise, gt, **kw)
     assert abs(float(mse) - float(r_mse)) <= 1e-5
@@ -1145,7 +1153,7 @@ def test_fused_nerf_apply_fp32(dev, with_dir):
     out, grads = run(FN.fused_nerf_apply)
     assert _grown(before) == {"nerf_dense": 10, "nerf_field_heads": 1,
                               "nerf_field_heads_bwd": 1, "nerf_dense_dgrad": 9,
-                              "nerf_dense_wgrad": 10}
+                              "nerf_dense_wgrad": 10, "nerf_bias_grad": 10}
     ref, r_grads = run(FN.fused_nerf_apply_reference)
     assert out["rgb"].shape == (53, 24, 3) and out["sigma"].shape == (53, 24)
     for k, v in ref.items():
@@ -1526,3 +1534,152 @@ def test_unaligned_wgrad_input_stays_off_the_wgmma_path(dev, operand):
     for loop in ("wgmma", "wmma"):
         with pytest.raises(ValueError):
             FM.siren_dense_wgrad(*moved, mainloop=loop, **kw)
+
+
+# ------------------------------------ the nerf variant's wgmma mainloops
+
+# (rays, samples): a training batch, and 65,573 points that are their own
+# rays (K9's backward), a ragged edge of 37 past 512 row tiles
+NERF_POINTS = [(1024, 64), (65536 + 37, 1)]
+# (N, K, masked, accumulate): every nerf_dense_dgrad launch of the 8 x 256
+# chain
+NERF_DGRAD = [(128, 256, True, False),   # rgb_0 -> d_feats, mask r
+              (256, 256, False, True),   # feats -> d_h, linear, onto d_h
+              (256, 256, True, False)]   # trunk layers, mask h_l
+
+
+@pytest.mark.parametrize("n,k,masked,accumulate", NERF_DGRAD)
+@pytest.mark.parametrize("n_rays,samples", NERF_POINTS)
+def test_nerf_dense_dgrad_wgmma(dev, n, k, masked, accumulate, n_rays, samples):
+    p = n_rays * samples
+    g = torch.Generator().manual_seed(15)
+    dy = torch.randn(p, n, generator=g).to(dev)
+    y = (torch.relu(torch.randn(p, n, generator=g)).to(dev, torch.bfloat16)
+         if masked else None)
+    w = (torch.randn(k, n, generator=g) * 0.1).to(dev, torch.bfloat16)
+    base = torch.randn(p, k, generator=g).to(dev) if accumulate else None
+    assert FM.dense_mainloop("nerf_dense_dgrad", torch.bfloat16, k, n) == "wgmma"
+
+    def run(mainloop):
+        out = None if base is None else base.clone()
+        got = FN.nerf_dense_dgrad(dy, y, w, out=out, mainloop=mainloop)
+        if out is not None:
+            assert got.data_ptr() == out.data_ptr()
+        return got
+
+    before = {m: _count("nerf_dense_dgrad", m) for m in ("wgmma", "wmma")}
+    got, wmma, rule = run("wgmma"), run("wmma"), run(None)
+    assert _count("nerf_dense_dgrad", "wgmma") == before["wgmma"] + 2
+    assert _count("nerf_dense_dgrad", "wmma") == before["wmma"] + 1
+    ref = FN.nerf_dense_dgrad_reference(
+        dy, y, w, out=None if base is None else base.clone())
+    assert got.shape == (p, k) and _rel(got, ref) <= 1e-3
+    assert _rel(got, wmma) <= 1e-3
+    assert torch.equal(got, rule)  # no atomics: the same bits every run
+
+
+# (K, N, encoding, n_freq, masked): every nerf_dense_wgrad launch of the
+# 8 x 256 chain
+NERF_WGRAD = [(256, 128, "dir", 4, True),    # rgb_0: dW, dC (32 rows), db
+              (256, 256, None, 0, False),    # feats: linear
+              (256, 256, None, 0, True),     # trunk layers
+              (256, 256, "xyz", 10, True),   # the skip layer: dW, dC (64 rows)
+              (0, 256, "xyz", 10, True)]     # layer 0: dC and db alone
+
+
+def _nerf_wgrad_operands(dev, k, n, enc, n_freq, masked, n_rays, samples,
+                         seed=16):
+    rays8, z = _rays8(n_rays, samples, dev, seed=seed)
+    g = torch.Generator().manual_seed(seed)
+    p = n_rays * samples
+    x = (torch.rand(p, k, generator=g)).to(dev, torch.bfloat16) if k else None
+    dy = torch.randn(p, n, generator=g).to(dev)
+    y = (torch.relu(torch.randn(p, n, generator=g)).to(dev, torch.bfloat16)
+         if masked else None)
+    kw = dict(enc=enc, z=z, n_freq=n_freq,
+              enc_rows=FN._enc_rows(n_freq) if enc else 0, dtype=torch.bfloat16)
+    return (x, dy, y, rays8, samples), kw
+
+
+def _hold_nerf_wgrad(got, ref):
+    """dW, db and dC within 1e-3 of each tensor's largest entry: the same
+    rounded operands summed in another order, across blocks by atomics."""
+    for name, a, b in zip(("dW", "db", "dC"), got, ref):
+        assert (a is None) == (b is None), name
+        if b is not None:
+            assert a.shape == b.shape and a.dtype == torch.float32, name
+            assert _rel(a, b) <= 1e-3, (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("k,n,enc,n_freq,masked", NERF_WGRAD + [
+    (512, 192, "xyz", 10, True)])  # two X tiles and a partial column tile
+@pytest.mark.parametrize("n_rays,samples", NERF_POINTS + [(3, 16)])
+def test_nerf_dense_wgrad_wgmma(dev, k, n, enc, n_freq, masked, n_rays, samples):
+    """One launch on wgmma (dW, dC and db) against the plain version and the
+    same call on wmma (its GEMMs, then nerf_bias_grad for db); 3 x 16 points
+    are fewer than one block's range."""
+    args, kw = _nerf_wgrad_operands(dev, k, n, enc, n_freq, masked, n_rays,
+                                    samples)
+    assert FM.dense_mainloop("nerf_dense_wgrad", torch.bfloat16, k, n,
+                             e_rows=kw["enc_rows"]) == "wgmma"
+    before = dict(FM.LAUNCHES)
+    got = FN.nerf_dense_wgrad(*args, mainloop="wgmma", **kw)
+    assert _grown(before) == {"nerf_dense_wgrad": 1}
+    before = dict(FM.LAUNCHES)
+    wmma = FN.nerf_dense_wgrad(*args, mainloop="wmma", **kw)
+    assert _grown(before) == {"nerf_dense_wgrad": 1, "nerf_bias_grad": 1}
+    rule = FN.nerf_dense_wgrad(*args, **kw)
+    ref = FN.nerf_dense_wgrad_reference(*args, **kw)
+    _hold_nerf_wgrad(got, ref)
+    _hold_nerf_wgrad(got, wmma)
+    _hold_nerf_wgrad(rule, ref)
+    if enc:  # the padded rows of the encoding's gradient stay 0
+        assert float(got[2][6 * n_freq:].abs().max()) == 0
+
+
+def test_nerf_wgrad_split_does_not_change_the_sums(dev):
+    """The points cut into 1, 5 and 128 ranges give the same gradients."""
+    args, kw = _nerf_wgrad_operands(dev, 256, 256, "xyz", 10, True, 256, 64)
+    ref = FN.nerf_dense_wgrad_reference(*args, **kw)
+    for split in (256 * 64, 3296, 128):
+        _hold_nerf_wgrad(FN.nerf_dense_wgrad(*args, mainloop="wgmma",
+                                             split=split, **kw), ref)
+    with pytest.raises(ValueError):
+        FN.nerf_dense_wgrad(*args, mainloop="wgmma", split=100, **kw)
+
+
+def test_a_forced_nerf_wgmma_that_cannot_run_raises(dev):
+    """Widths that are not multiples of 64, an encoding wider than the wgmma
+    tile and operands whose pointers are not 16-byte aligned: the rule keeps
+    them off wgmma, and asking for it raises."""
+    g = torch.Generator().manual_seed(17)
+    p = 37 * 16
+    dy = torch.randn(p, 96, generator=g).to(dev)
+    w = (torch.randn(96, 96, generator=g) * 0.1).to(dev, torch.bfloat16)
+    with pytest.raises(ValueError):
+        FN.nerf_dense_dgrad(dy, None, w, mainloop="wgmma")
+    dy = torch.randn(p, 256, generator=g).to(dev)
+    w = (torch.randn(256, 256, generator=g) * 0.1).to(dev, torch.bfloat16)
+    base = torch.randn(p, 256, generator=g).to(dev)
+    with pytest.raises(ValueError):  # an unaligned dX
+        FN.nerf_dense_dgrad(dy, None, w, out=_odd(base), mainloop="wgmma")
+    with pytest.raises(ValueError):  # an unaligned dY
+        FN.nerf_dense_dgrad(_odd(dy), None, w, mainloop="wgmma")
+    before = _count("nerf_dense_dgrad", "wmma")
+    got = FN.nerf_dense_dgrad(dy, None, w, out=_odd(base))  # the rule: wmma
+    assert _count("nerf_dense_dgrad", "wmma") == before + 1
+    assert _rel(got, FN.nerf_dense_dgrad_reference(dy, None, w, out=base.clone())) <= 1e-3
+    for k, n, enc, n_freq, rows in ((96, 96, "xyz", 10, 64), (256, 256, "xyz", 16, 96)):
+        args, kw = _nerf_wgrad_operands(dev, k, n, enc, n_freq, True, 37, 16)
+        kw["enc_rows"] = rows
+        with pytest.raises(ValueError):
+            FN.nerf_dense_wgrad(*args, mainloop="wgmma", **kw)
+        before = dict(FM.LAUNCHES)
+        got = FN.nerf_dense_wgrad(*args, **kw)  # the rule: wmma and the bias kernel
+        assert _grown(before) == {"nerf_dense_wgrad": 1, "nerf_bias_grad": 1}
+        _hold_nerf_wgrad(got, FN.nerf_dense_wgrad_reference(*args, **kw))
+    args, kw = _nerf_wgrad_operands(dev, 256, 256, "xyz", 10, True, 37, 16)
+    x, dy, y, *rest = args
+    for moved in ((_odd(x), dy, y), (x, _odd(dy), y), (x, dy, _odd(y))):
+        with pytest.raises(ValueError):
+            FN.nerf_dense_wgrad(*moved, *rest, mainloop="wgmma", **kw)

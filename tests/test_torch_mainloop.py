@@ -1,6 +1,7 @@
-"""Which mainloop siren_dense, siren_dense_dgrad and siren_dense_wgrad take
-on the card, when the wgrad launches small_grads, and the `mainloop=`
-keyword on the CPU.
+"""Which mainloop siren_dense, siren_dense_dgrad and siren_dense_wgrad (and
+the nerf variant's nerf_dense_dgrad and nerf_dense_wgrad) take on the card,
+when the SIREN wgrad launches small_grads and the nerf wgrad nerf_bias_grad,
+and the `mainloop=` keyword on the CPU.
 
 `dense_mainloop` is the rule of the three kernels' C entries
 (csrc/fused_render.cu, csrc/fused_train.cu) in Python; the wrappers call it
@@ -14,6 +15,12 @@ and whether it sums db: on the main path 5 of a step's 15 wgrad launches ask
 for it. On the CPU the wrappers run their plain versions whatever mainloop
 is asked for, and refuse a name they do not know. The card's side of the
 same rule is held in tests/test_torch_cuda.py.
+
+The nerf variant at 8 x 256 (skip 4, n_freq (10, 4): encoding weights of 64
+and 32 rows) gives its 9 dgrad and 10 wgrad launches a step bf16 shapes that
+all take wgmma, the encoding-only wgrad of layer 0 (K = 0) too, so
+nerf_bias_grad, which sums db beside every other mainloop, runs for none of
+them.
 """
 
 import numpy as np
@@ -83,6 +90,40 @@ RULE = [
     ("siren_dense_wgrad", BF16, 0, 512, False, True, "k0"),
 ]
 
+# (kernel, dtype, K, N, e_rows, inputs aligned, outputs aligned, mainloop)
+NERF_RULE = [
+    # the nerf variant's main path, 8 x 256: nerf_dense_dgrad (K <- N) ...
+    ("nerf_dense_dgrad", BF16, 256, 128, 0, True, True, "wgmma"),  # rgb_0
+    ("nerf_dense_dgrad", BF16, 256, 256, 0, True, True, "wgmma"),  # feats, trunk
+    # ... and nerf_dense_wgrad (K = X's columns, N = dW's, the encoding's rows)
+    ("nerf_dense_wgrad", BF16, 256, 128, 32, True, True, "wgmma"),  # rgb_0, dir
+    ("nerf_dense_wgrad", BF16, 256, 256, 0, True, True, "wgmma"),   # feats, trunk
+    ("nerf_dense_wgrad", BF16, 256, 256, 64, True, True, "wgmma"),  # skip, xyz
+    ("nerf_dense_wgrad", BF16, 0, 256, 64, True, True, "wgmma"),    # layer 0
+    # fp32 stays exact on SIMT FMAs
+    ("nerf_dense_dgrad", F32, 256, 256, 0, True, True, "simt"),
+    ("nerf_dense_wgrad", F32, 256, 256, 64, True, True, "simt"),
+    ("nerf_dense_wgrad", F32, 0, 256, 64, True, True, "simt"),
+    # widths that are not multiples of 64: the tests' 96 and 64 / 32
+    ("nerf_dense_dgrad", BF16, 96, 96, 0, True, True, "wmma"),
+    ("nerf_dense_wgrad", BF16, 96, 48, 32, True, True, "wmma"),
+    ("nerf_dense_wgrad", BF16, 64, 32, 32, True, True, "wmma"),
+    ("nerf_dense_dgrad", BF16, 64, 32, 0, True, True, "wmma"),
+    # an encoding the wgmma tile does not hold (n_freq 16: 96 rows); beside
+    # more than one 256-column tile of X it is a tile of its own all the same
+    ("nerf_dense_wgrad", BF16, 256, 256, 96, True, True, "wmma"),
+    ("nerf_dense_wgrad", BF16, 512, 256, 64, True, True, "wgmma"),
+    ("nerf_dense_wgrad", BF16, 512, 256, 0, True, True, "wgmma"),
+    # pointers: an unaligned input leaves both tensor-core mainloops; an
+    # unaligned dX only wgmma
+    ("nerf_dense_dgrad", BF16, 256, 256, 0, False, True, "simt"),
+    ("nerf_dense_dgrad", BF16, 256, 256, 0, True, False, "wmma"),
+    ("nerf_dense_wgrad", BF16, 256, 256, 64, False, True, "simt"),
+    # shapes no tensor-core mainloop takes
+    ("nerf_dense_dgrad", BF16, 36, 100, 0, True, True, "simt"),
+    ("nerf_dense_wgrad", BF16, 36, 100, 32, True, True, "simt"),
+]
+
 
 @pytest.mark.parametrize("kernel,dtype,k,n,ins,outs,want", RULE)
 def test_rule(kernel, dtype, k, n, ins, outs, want):
@@ -117,6 +158,37 @@ def test_a_mainloop_that_cannot_run_is_refused(kernel, dtype, k, n, ins, outs,
                                                mainloop):
     with pytest.raises(ValueError):
         FM.dense_mainloop(kernel, dtype, k, n, inputs_aligned=ins,
+                          outputs_aligned=outs, mainloop=mainloop)
+
+
+@pytest.mark.parametrize("kernel,dtype,k,n,e_rows,ins,outs,want", NERF_RULE)
+def test_nerf_rule(kernel, dtype, k, n, e_rows, ins, outs, want):
+    got = FM.dense_mainloop(kernel, dtype, k, n, e_rows=e_rows,
+                            inputs_aligned=ins, outputs_aligned=outs)
+    assert got == want
+    if want in FM.MAINLOOPS:
+        assert FM.dense_mainloop(kernel, dtype, k, n, e_rows=e_rows,
+                                 inputs_aligned=ins, outputs_aligned=outs,
+                                 mainloop=want) == want
+
+
+@pytest.mark.parametrize("kernel,dtype,k,n,e_rows,ins,outs,mainloop", [
+    ("nerf_dense_dgrad", BF16, 96, 96, 0, True, True, "wgmma"),
+    ("nerf_dense_dgrad", BF16, 256, 256, 0, True, False, "wgmma"),
+    ("nerf_dense_dgrad", BF16, 256, 256, 0, False, True, "wmma"),
+    ("nerf_dense_dgrad", F32, 256, 256, 0, True, True, "wgmma"),
+    ("nerf_dense_dgrad", F32, 256, 256, 0, True, True, "wmma"),
+    ("nerf_dense_wgrad", BF16, 256, 256, 96, True, True, "wgmma"),
+    ("nerf_dense_wgrad", BF16, 256, 256, 40, True, True, "wgmma"),
+    ("nerf_dense_wgrad", BF16, 256, 256, 64, False, True, "wgmma"),
+    ("nerf_dense_wgrad", BF16, 256, 256, 64, False, True, "wmma"),
+    ("nerf_dense_wgrad", BF16, 36, 100, 32, True, True, "wmma"),
+    ("nerf_dense_wgrad", F32, 0, 256, 64, True, True, "wgmma"),
+])
+def test_a_nerf_mainloop_that_cannot_run_is_refused(kernel, dtype, k, n, e_rows,
+                                                    ins, outs, mainloop):
+    with pytest.raises(ValueError):
+        FM.dense_mainloop(kernel, dtype, k, n, e_rows=e_rows, inputs_aligned=ins,
                           outputs_aligned=outs, mainloop=mainloop)
 
 
@@ -186,17 +258,25 @@ def test_small_grads_mode(mainloop, extra, want):
     assert FM.small_grads_mode(mainloop, extra) == want
 
 
-@pytest.mark.parametrize("p,k,n,want", [
-    (65536, 512, 512, 4096),  # 8 tiles, 16 ranges: 128 blocks on 132 SMs
-    (65536, 512, 256, 2016),  # 4 tiles, 33 ranges
-    (65536, 256, 256, 1024),  # 2 tiles, 64 ranges
-    (1037 * 72, 512, 512, 4672),
-    (48, 512, 512, 32),       # fewer points than one range: one stage
-    (65536, 4096, 4096, 65536)])  # more tiles than SMs: one range
-def test_wgrad_split(p, k, n, want):
-    split = FM.wgrad_split(p, k, n, 132)
+@pytest.mark.parametrize("p,k,n,e_rows,want", [
+    (65536, 512, 512, 0, 4096),  # 8 tiles, 16 ranges: 128 blocks on 132 SMs
+    (65536, 512, 256, 0, 2016),  # 4 tiles, 33 ranges
+    (65536, 256, 256, 0, 1024),  # 2 tiles, 64 ranges
+    (1037 * 72, 512, 512, 0, 4672),
+    (48, 512, 512, 0, 32),       # fewer points than one range: one stage
+    (65536, 4096, 4096, 0, 65536),  # more tiles than SMs: one range
+    # the nerf variant at 8 x 256: the encoding is a k tile of its own
+    # beside X's (the skip layer: 4 tiles; rgb_0: 2), or alone (layer 0,
+    # K = 0: 2); the ragged batch of 1,037 rays x 72
+    (65536, 256, 256, 64, 2016),
+    (65536, 256, 128, 32, 1024),
+    (65536, 0, 256, 64, 1024),
+    (1037 * 72, 256, 256, 0, 1152),
+    (1037 * 72, 256, 256, 64, 2272)])
+def test_wgrad_split(p, k, n, e_rows, want):
+    split = FM.wgrad_split(p, k, n, 132, e_rows)
     assert split == want and split % FM.WGRAD_STAGE_POINTS == 0
-    tiles = -(-n // 128) * -(-k // 256)
+    tiles = -(-n // 128) * max(1, -(-k // 256) + (e_rows > 0))
     assert tiles * -(-p // split) <= max(132, tiles)
 
 
@@ -307,3 +387,144 @@ def test_bias_only_layer_has_db_alone():
     dw, db, dc, de = FM.siren_dense_wgrad(None, dy, slope, rays16, samples)
     assert dw is None and dc is None and de is None
     assert torch.allclose(db, (dy * slope).sum(0))
+
+
+# ------------------------------------ nerf_dense_dgrad and nerf_dense_wgrad
+
+
+def _nerf_inputs(k, n, enc, seed=4):
+    """A nerf layer's backward operands on the CPU: dy, the stored relu
+    output y, the weight and the rays of 5 rays x 4 samples."""
+    from satnerf_tpu_torch.ops import fused_nerf as FN
+
+    rng = np.random.default_rng(seed)
+    n_rays, samples = 5, 4
+    p = n_rays * samples
+    o = torch.from_numpy(rng.uniform(-0.5, 0.5, (n_rays, 3))).float()
+    d = torch.from_numpy(rng.normal(0, 1, (n_rays, 3))).float()
+    z = torch.from_numpy(np.sort(rng.uniform(0, 1, (n_rays, samples)), 1)).float()
+    rays8 = FN.pack_rays(o, d / d.norm(dim=1, keepdim=True))
+    x = torch.from_numpy(rng.uniform(0, 1, (p, k))).float() if k else None
+    dy = torch.from_numpy(rng.normal(0, 1, (p, n))).float()
+    y = torch.relu(torch.from_numpy(rng.normal(0, 1, (p, n))).float())
+    w = torch.from_numpy(rng.normal(0, 0.1, (max(k, 1), n))).float()
+    n_freq = {"xyz": 10, "dir": 4, None: 0}[enc]
+    kw = dict(enc=enc, z=z, n_freq=n_freq,
+              enc_rows=FN._enc_rows(n_freq) if enc else 0, dtype=F32)
+    return x, dy, y, w, rays8, samples, kw
+
+
+@pytest.mark.parametrize("mainloop", ["wgmma", "wmma", None])
+@pytest.mark.parametrize("k,n,enc", [(64, 64, "xyz"), (64, 32, "dir"),
+                                     (36, 20, None), (0, 64, "xyz")])
+def test_cpu_nerf_runs_the_plain_version_whatever_mainloop(mainloop, k, n, enc):
+    from satnerf_tpu_torch.ops import fused_nerf as FN
+
+    x, dy, y, w, rays8, samples, kw = _nerf_inputs(k, n, enc)
+    launches, by_loop = dict(FM.LAUNCHES), dict(FM.MAINLOOP_LAUNCHES)
+    got = FN.nerf_dense_wgrad(x, dy, y, rays8, samples, mainloop=mainloop, **kw)
+    ref = FN.nerf_dense_wgrad_reference(x, dy, y, rays8, samples, **kw)
+    for a, b in zip(got, ref):
+        assert (a is None and b is None) or torch.equal(a, b)
+    if k:
+        out = torch.from_numpy(np.random.default_rng(5).normal(0, 1, (20, k))).float()
+        dx = FN.nerf_dense_dgrad(dy, y, w, out=out.clone(), mainloop=mainloop)
+        assert torch.equal(dx, FN.nerf_dense_dgrad_reference(dy, y, w,
+                                                             out=out.clone()))
+    # nothing was launched, so nothing was counted (nerf_bias_grad neither)
+    assert FM.LAUNCHES == launches and FM.MAINLOOP_LAUNCHES == by_loop
+
+
+def test_cpu_nerf_refuses_an_unknown_mainloop():
+    from satnerf_tpu_torch.ops import fused_nerf as FN
+
+    x, dy, y, w, rays8, samples, kw = _nerf_inputs(64, 64, "xyz")
+    with pytest.raises(ValueError):
+        FN.nerf_dense_wgrad(x, dy, y, rays8, samples, mainloop="tma", **kw)
+    with pytest.raises(ValueError):
+        FN.nerf_dense_dgrad(dy, y, w, mainloop="WGMMA")
+
+
+@pytest.mark.parametrize("enc", [None, "xyz", "dir"])
+@pytest.mark.parametrize("mainloop,runs", [("wgmma", False), ("wmma", True),
+                                           ("simt", True)])
+def test_nerf_bias_grad_runs(mainloop, runs, enc):
+    """db is summed once a launch: by the wgmma epilogue, else by
+    nerf_bias_grad, whether or not the layer has an encoding (its dC is
+    part of the GEMM launch on every mainloop)."""
+    from satnerf_tpu_torch.ops import fused_nerf as FN
+
+    assert FN.nerf_bias_grad_runs(mainloop) is runs
+
+
+def _recorded_nerf_chain(dtype):
+    """Every nerf_dense_dgrad and nerf_dense_wgrad call of _chain_backward at
+    the nerf variant's widths (8 x 256, skip 4, n_freq (10, 4)) on a few CPU
+    rays: (kernel, K, N, e_rows, the mainloop the card would take). The
+    plain versions run; nothing is launched."""
+    from satnerf_tpu_torch.models.nerf import build_model
+    from satnerf_tpu_torch.ops import fused_nerf as FN
+
+    plan = []
+
+    class Recorder(FN.NerfOps):
+        @staticmethod
+        def dgrad(dy, y, weight, out=None):
+            dx = FN.nerf_dense_dgrad(dy, y, weight, out=out)
+            plan.append(("dgrad", weight.shape[0], dy.shape[1], 0, FM.dense_mainloop(
+                "nerf_dense_dgrad", weight.dtype, weight.shape[0], dy.shape[1],
+                inputs_aligned=FM._aligned(dy, y, weight),
+                outputs_aligned=FM._aligned(dx))))
+            return dx
+
+        @staticmethod
+        def wgrad(x, dy, y, rays8, samples, **kw):
+            k = 0 if x is None else x.shape[1]
+            e_rows = kw["enc_rows"] if kw.get("enc") else 0
+            plan.append(("wgrad", k, dy.shape[1], e_rows, FM.dense_mainloop(
+                "nerf_dense_wgrad", kw["dtype"], k, dy.shape[1], e_rows=e_rows,
+                inputs_aligned=FM._aligned(x, dy, y))))
+            return FN.nerf_dense_wgrad(x, dy, y, rays8, samples, **kw)
+
+    field = build_model("nerf", 8, 256, generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    n_rays, n_s = 2, 4
+    o = torch.from_numpy(rng.normal(0, 0.3, (n_rays, 3))).float()
+    d = torch.from_numpy(rng.normal(0, 1, (n_rays, 3))).float()
+    z = torch.from_numpy(np.sort(rng.uniform(0, 1, (n_rays, n_s)), 1)).float()
+    gt = torch.from_numpy(rng.uniform(0, 1, (n_rays, 3))).float()
+    packed = FN.pack_params(field, skip=4, dtype=dtype)
+    with torch.no_grad():
+        FN._train_staged(packed, FN.pack_rays(o, d), z, None, gt, skip=4,
+                         n_freq=(10, 4), rgb_padding=0.001, ops=Recorder)
+    return plan
+
+
+def test_nerf_chain_backward_takes_wgmma_and_no_bias_kernel():
+    """bf16 at 8 x 256: the 9 dgrad and 10 wgrad calls of a step all take
+    wgmma (the encoding-only wgrad of layer 0 too), so nerf_bias_grad runs
+    for none of the 10 wgrad calls."""
+    plan = _recorded_nerf_chain(torch.bfloat16)
+    assert [c[0] for c in plan].count("dgrad") == 9
+    assert [c[0] for c in plan].count("wgrad") == 10
+    assert all(loop == "wgmma" for *_, loop in plan)
+    from satnerf_tpu_torch.ops import fused_nerf as FN
+
+    assert not any(FN.nerf_bias_grad_runs(loop) for kind, *_, loop in plan
+                   if kind == "wgrad")
+    wgrads = [(k, n, e) for kind, k, n, e, _ in plan if kind == "wgrad"]
+    # rgb_0 with the direction's 32 rows first, layer 0's 64 rows last
+    assert wgrads[0] == (256, 128, 32) and wgrads[-1] == (0, 256, 64)
+    assert wgrads.count((256, 256, 64)) == 1  # the skip layer
+    assert wgrads.count((256, 256, 0)) == 7   # feats and six trunk layers
+    dgrads = [(k, n) for kind, k, n, *_ in plan if kind == "dgrad"]
+    assert dgrads == [(256, 128)] + [(256, 256)] * 8
+
+
+def test_nerf_chain_backward_in_fp32_sums_db_by_the_bias_kernel():
+    plan = _recorded_nerf_chain(torch.float32)
+    assert len(plan) == 19 and all(loop == "simt" for *_, loop in plan)
+    from satnerf_tpu_torch.ops import fused_nerf as FN
+
+    assert all(FN.nerf_bias_grad_runs(loop) for kind, *_, loop in plan
+               if kind == "wgrad")

@@ -21,7 +21,9 @@ plain renderer over its per-point field kernel with --n_importance or
 --ds_lambda.
 
 Prints the card, the wall time, the summed device kernel time, the idle
-share, the peak device memory, and the kernels by device time.
+share, the peak device memory, and the kernels by device time (user
+annotations such as the optimizer's step are left out: their device time is
+a span on the timeline, gaps included).
 
 --ablate times siren_dense's wgmma kernel (csrc/fused_render.cu) with each
 of its parts dropped in turn (built with SATNERF_ABLATE 1-3: no products, no
@@ -38,9 +40,24 @@ and at other splits, in turns, beside the library call X^T @ round(G), the
 bytes bound, and small_grads alone summing db (a layer with a bias alone)
 beside torch.einsum("pn,pn->n", dY, slope).
 
+--model nerf --wgrad times the nerf variant's nerf_dense_dgrad and
+nerf_dense_wgrad alone at the 8 x 256 chain's shapes (65,536 points: the
+dgrad of rgb_0, feats and a trunk layer; the wgrad of the skip layer, a
+trunk layer, rgb_0 and layer 0) on the wmma mainloop (the wgrad: its GEMMs
+and nerf_bias_grad) and on wgmma, the wgrad at the rule's split and at
+others, in turns (CUDA events; then each run's device time alone, by
+torch.profiler, without the gaps the host leaves between short launches),
+beside the library calls (G @ W^T; X^T @ G and [X | enc]^T @ G) and the
+bytes bound; the dgrad's wgmma ring at 3 and 5
+stages beside the rule's 4 (builds of csrc/fused_nerf.cu with
+SATNERF_RELU_DG_STAGES); then profiles the nerf step as --train --model nerf
+does.
+
 In the breakdown, the wgrad's kernels are wgrad_wgmma (the main path's),
 wgrad_wmma / wgrad_simt (other shapes, fp32) and small_grads (db where the
-GEMM did not sum it, dC and dE of the layers with an E operand).
+GEMM did not sum it, dC and dE of the layers with an E operand); the nerf
+variant's are dgrad_wgmma<1> and wgrad_wgmma<1, ...> (the relu mask), or
+nerf_dgrad_wmma, nerf_wgrad_wmma and nerf_bias_grad.
 
   python3 tools/profile_render_torch.py [--rays N] [--chunk C] [--train]
       [--batch B] [--sc_lambda L] [--ds_lambda L] [--n_importance N]
@@ -61,12 +78,20 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+def _on_device(e) -> bool:
+    """A kernel, copy or fill on the card: not a user annotation such as
+    Optimizer.step#Adam.step, whose device time is its region's span on the
+    timeline (gaps included), not work."""
+    return (getattr(e, "device_time_total", 0) > 0
+            and str(getattr(e, "device_type", "")).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False))
+
+
 def report(prof, wall_ms: float, card: str, what: str) -> None:
     rows = []
     for e in prof.key_averages():
-        dev_us = getattr(e, "device_time_total", 0)
-        if dev_us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            rows.append((dev_us / 1e3, e.count, e.key))
+        if _on_device(e):
+            rows.append((e.device_time_total / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     print(f"{what}: profiled wall {wall_ms:.1f} ms, device kernel time "
@@ -159,6 +184,20 @@ def _event_ms(fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, reps: int = 5) -> float:
+    """The device time of fn's kernels a call, by torch.profiler: what the
+    card spends, where _event_ms also counts the gaps the host leaves
+    between short launches."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages() if _on_device(e))
+    return us / 1e3 / reps
 
 
 def ablate(card: str) -> None:
@@ -262,6 +301,108 @@ def wgrad(card: str) -> None:
                   f"on {card}")
 
 
+def nerf_wgrad(card: str) -> None:
+    """The nerf backward's two kernels at the 8 x 256 chain's shapes on both
+    mainloops, the wgrad at several splits, in turns (a, b, ..., ..., b,
+    a); the dgrad's wgmma ring at 3, 4 and 5 stages."""
+    import ctypes
+
+    from satnerf_tpu_torch.ops import _build as B
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+    from satnerf_tpu_torch.ops import fused_nerf as FN
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(0)
+    n_rays, n_s = 1024, 64
+    p = n_rays * n_s
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    o = torch.rand(n_rays, 3, device=dev, generator=g) - 0.5
+    d = torch.nn.functional.normalize(torch.randn(n_rays, 3, device=dev, generator=g))
+    rays8 = FN.pack_rays(o, d)
+    z = torch.sort(torch.rand(n_rays, n_s, device=dev, generator=g), 1).values
+
+    def both(fn):
+        return f"{_event_ms(fn):.3f} ms (device {_device_ms(fn):.3f})"
+
+    def in_turns(runs):
+        """Event times in turns, then each run's device time (kernels only)."""
+        ms = {key: [] for key in runs}
+        for key in list(runs) + list(reversed(runs)):
+            ms[key].append(_event_ms(runs[key]))
+        for key, v in ms.items():
+            print(f"  {key:40s} {v[0]:.3f} / {v[1]:.3f} ms, device "
+                  f"{_device_ms(runs[key]):.3f} ms")
+
+    # the wgmma dgrad with rings of 3 and 5 stages, from builds of its source
+    # beside the rule's 4
+    jobs = {}
+    for stages in (3, 5):
+        lib = os.path.join(B.BUILD_DIR, "stages", f"fused_nerf_stages{stages}.so")
+        os.makedirs(os.path.dirname(lib), exist_ok=True)
+        cmd = [B._nvcc(), *B.NVCC_FLAGS, f"-DSATNERF_RELU_DG_STAGES={stages}", "-shared",
+               "-o", lib, os.path.join(B.CSRC_DIR, "fused_nerf.cu")]
+        jobs[stages] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True))
+    dgrads = {}
+    for stages, (lib, proc) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            sys.exit(f"nvcc failed for SATNERF_RELU_DG_STAGES={stages}:\n{out}")
+        fn = ctypes.CDLL(lib).satnerf_nerf_dense_dgrad
+        fn.argtypes = B.SIGNATURES["satnerf_nerf_dense_dgrad"]
+        fn.restype = ctypes.c_int
+        dgrads[stages] = fn
+
+    for n, k, masked, what in ((128, 256, True, "rgb_0"), (256, 256, True, "trunk"),
+                               (256, 256, False, "feats")):
+        dy = torch.randn(p, n, device=dev, generator=g)
+        y = torch.relu(torch.randn(p, n, device=dev, generator=g)).to(bf16) if masked else None
+        w = (torch.randn(k, n, device=dev, generator=g) * 0.1).to(bf16)
+        dx = torch.empty(p, k, device=dev)
+        gb = (dy if y is None else dy * (y > 0)).to(bf16)
+        args = (1, dy.data_ptr(), None if y is None else y.data_ptr(), w.data_ptr(),
+                dx.data_ptr(), 0, p, n, k, FM._MAINLOOP_CODE["wgmma"],
+                torch.cuda.current_stream().cuda_stream)
+        if any(fn(*args) != 0 for fn in dgrads.values()):
+            sys.exit("a dgrad of another ring depth failed to launch")
+        nbytes = dy.numel() * 4 + (0 if y is None else y.numel() * 2) + w.numel() * 2 + p * k * 4
+        print(f"nerf_dense_dgrad {what} {n} -> {k}, {p} points, on {card}: library "
+              f"G @ W^T {both(lambda: gb @ w.t())}, bound "
+              f"{1e3 * nbytes / 3.35e12:.3f} ms (bytes)")
+        in_turns({"wmma": lambda: FN.nerf_dense_dgrad(dy, y, w, mainloop="wmma"),
+                  "wgmma, 4 stages (rule)": lambda: FN.nerf_dense_dgrad(dy, y, w),
+                  **{f"wgmma, {st} stages": (lambda fn=fn: fn(*args))
+                     for st, fn in dgrads.items()}})
+
+    for k, n, enc, what in ((256, 256, "xyz", "skip"), (256, 256, None, "trunk"),
+                            (256, 128, "dir", "rgb_0"), (0, 256, "xyz", "layer 0")):
+        n_freq = {"xyz": 10, "dir": 4, None: 0}[enc]
+        rows = FN._enc_rows(n_freq) if enc else 0
+        x = torch.rand(p, k, device=dev, generator=g).to(bf16) if k else None
+        dy = torch.randn(p, n, device=dev, generator=g)
+        y = torch.relu(torch.randn(p, n, device=dev, generator=g)).to(bf16)
+        gb = (dy * (y > 0)).to(bf16)
+        args = (x, dy, y, rays8, n_s)
+        kw = dict(enc=enc, z=z, n_freq=n_freq, enc_rows=rows, dtype=bf16)
+        rule = FM.wgrad_split(p, k, n, sms, rows)
+        runs = {"wmma + nerf_bias_grad": lambda: FN.nerf_dense_wgrad(
+            *args, mainloop="wmma", **kw)}
+        for split in sorted({rule, 512, 1024, 2048, 4096}):
+            runs[f"wgmma split {split}" + (" (rule)" if split == rule else "")] = (
+                lambda s=split: FN.nerf_dense_wgrad(*args, mainloop="wgmma", split=s, **kw))
+        lib = [] if x is None else [f"X^T @ G {both(lambda: x.t() @ gb)}"]
+        if enc:
+            enc_op = FN._encoding(rays8, n_s, z, enc, n_freq, rows, bf16).to(bf16)
+            xe = enc_op if x is None else torch.cat([x, enc_op], dim=1)
+            lib.append(f"[X | enc]^T @ G {both(lambda: xe.t() @ gb)}")
+        nbytes = ((0 if x is None else x.numel() * 2) + dy.numel() * 4 + y.numel() * 2
+                  + (k + 1 + rows) * n * 4)
+        print(f"nerf_dense_wgrad {what} K={k} N={n} e_rows={rows}, {p} points, on "
+              f"{card}: library {', '.join(lib)}, bound "
+              f"{1e3 * nbytes / 3.35e12:.3f} ms (bytes)")
+        in_turns(runs)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--rays", type=int, default=1 << 18)
@@ -280,7 +421,9 @@ def main():
                     help="time siren_dense's wgmma kernel with each part "
                          "dropped in turn")
     ap.add_argument("--wgrad", action="store_true",
-                    help="time siren_dense_wgrad's mainloops and splits")
+                    help="time siren_dense_wgrad's mainloops and splits (with "
+                         "--model nerf: nerf_dense_dgrad's and "
+                         "nerf_dense_wgrad's, then profile the nerf step)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_render_torch: needs an NVIDIA GPU")
@@ -293,9 +436,12 @@ def main():
     if args.ablate:
         ablate(card)
         return
-    if args.wgrad:
+    if args.wgrad and args.model != "nerf":
         wgrad(card)
         return
+    if args.wgrad:  # the two kernels alone, then the nerf step they run in
+        nerf_wgrad(card)
+        args.train = True
     units = 256 if args.model == "nerf" else 512  # the widths run_all.sh trains
     cfg = Config(model=args.model, fc_layers=8, fc_units=units, n_samples=64,
                  chunk=args.chunk, batch_size=args.batch, first_beta_epoch=0,
