@@ -24,7 +24,9 @@ plain version):
      64 samples, 1024 and 1000 + 37 rays: sat-nerf with the beta gate at 1
      and at 0 (with sigma noise and the weights output), s-nerf; fp32 and
      bf16; loss parts, every gradient by name, t_grad, weights, and every
-     launch of the chain alone
+     launch of the chain alone; every launch of composite_loss_bwd (a block
+     a ray) also against the same launch on the warp-a-ray body it replaced
+     (so in 2c for composite_bwd), and both bodies timed in phase 2
   2c the solar-correction pass (K3) and the differentiable training render
      (K4) against their plain versions, at 8 x 512, 64 samples, 1024 and
      1000 + 37 rays, sat-nerf and s-nerf, fp32 and bf16, sigma noise on and
@@ -43,8 +45,9 @@ plain version):
      resumes from the checkpoint; create_pretty_dsm serves the trained
      weights. Every kernel must have been launched, every siren_dense,
      siren_dense_dgrad and siren_dense_wgrad launch with K > 0 on the wgmma
-     mainloop and small_grads 5 times a step (the layers with an E operand or
-     without X), the loss must fall, the resumed run must start at the saved
+     mainloop, small_grads 5 times a step (the layers with an E operand or
+     without X) and every composite_loss_bwd launch a block a ray (phase 5:
+     composite_bwd's too), the loss must fall, the resumed run must start at the saved
      step and the trained loss level. Its rate is read from the log
      intervals that hold no validation (the loop's clock runs through
      validation, as the JAX loop's does; so in phases 5-7)
@@ -90,13 +93,16 @@ plain version):
      plain db); then each kernel alone at its main-path shape: time, plain
      time, library call, bound, and for the dgrad and the wgrad both
      mainloops' times and the wgrad's second library reading [h | enc].t() @
-     G (dW and dC in one call)
+     G (dW and dC in one call); every bf16 launch of nerf_dense on wgmma
+     also against the same launch on wmma (one rounding step), and each of
+     the chain's five layer shapes at a serving chunk (65,536 x 64 points)
+     on the rule's mainloop (wgmma) against wmma and the plain version
   7  the nerf variant through the entry points: cli.train --model nerf
      --fc_units 256 on phase 3's AOI at 64 samples, batch 1024, bf16, across
      an epoch boundary with validation (K8) and checkpoints, every launch
-     count checked against the step count, every dgrad and wgrad launch on
-     wgmma, nerf_bias_grad never launched and no SIREN kernel launched (so
-     in the two runs below);
+     count checked against the step count, every nerf_dense, dgrad and wgrad
+     launch on wgmma, nerf_bias_grad never launched and no SIREN kernel
+     launched (so in the two runs below);
      resume; create_pretty_dsm on the trained checkpoint; render_image on
      262,144 rays with its peak memory, held against the plain version; then
      a short --n_importance 64 run (K9 under the trainer, K8 twice a served
@@ -344,6 +350,14 @@ class StageCheck:
 # against the same launch on the wmma mainloop
 VS_WMMA = ("siren_dense_vs_wmma", "siren_dense_dgrad_vs_wmma",
            "siren_dense_wgrad_vs_wmma")
+# the two kernels with two bodies: each launch (on the default body, a block a
+# ray) is also held against the same launch on the warp a ray it replaced
+# (loss sums, every cotangent, dWn and dbn within 1e-3 of the tensor's largest
+# entry; a cotangent entry may also differ by one bf16 step of itself or, d_r
+# and d_skyh, of one of their three terms: the two bodies sum in another order
+# and may round a cotangent to either side of a bf16 boundary)
+VS_WARP = ("composite_loss_bwd_vs_warp", "composite_bwd_vs_warp")
+COMPOSITE_KERNELS = ("composite_loss_bwd", "composite_bwd")
 
 
 def _took(name: str):
@@ -354,6 +368,20 @@ def _took(name: str):
     before = dict(FM.MAINLOOP_LAUNCHES)
     return lambda: next(k[1] for k, v in FM.MAINLOOP_LAUNCHES.items()
                         if k[0] == name and v > before.get(k, 0))
+
+
+def _on_block(what: str, launches: dict, kernels=COMPOSITE_KERNELS) -> dict:
+    """The launches of a run of composite_loss_bwd / composite_bwd by body:
+    every one on the default body, a block a ray, or the run fails."""
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+
+    by = {k: {b: n for (kk, b), n in FM.BODY_LAUNCHES.items() if kk == k}
+          for k in kernels}
+    for k, bodies in by.items():
+        if launches[k] and bodies != {"block": launches[k]}:
+            raise SystemExit(f"{what} failed: {k} launched {launches[k]} times, "
+                             f"by body {bodies}: not every one a block a ray")
+    return by
 
 
 def _rel_err(got, ref) -> float:
@@ -370,7 +398,7 @@ class TrainCheck:
     def __init__(self, dtype):
         self.bf16 = str(dtype).endswith("bfloat16")
         self.err = dict.fromkeys(TRAIN_KERNELS + AUX_KERNELS + FIELD_KERNELS
-                                 + ("heads_composite",) + VS_WMMA, 0.0)
+                                 + ("heads_composite",) + VS_WMMA + VS_WARP, 0.0)
         self.bad = []
 
     def _hold(self, kernel, what, got, ref, tol_rel_max, elementwise=False,
@@ -421,6 +449,14 @@ class TrainCheck:
             return out
         return out[0]
 
+    def _vs_warp(self, kernel, out, fn, args, kw):
+        """The launch on the warp-a-ray body, the same inputs (VS_WARP)."""
+        other = fn(*args, body="warp", **kw)
+        for k, v in other.items():
+            self._hold(f"{kernel}_vs_warp", k, out[k], v, K1_STAGE_TOL,
+                       elementwise=k.startswith("d_"),
+                       terms=3 if k in ("d_r", "d_skyh") else 1)
+
     def composite(self, *args, **kw):
         from satnerf_tpu_torch.ops import fused_mlp as FM
 
@@ -429,6 +465,7 @@ class TrainCheck:
         for k in ref:
             self._hold("composite_loss_bwd", k, out[k], ref[k],
                        K1_STAGE_TOL, elementwise=k.startswith("d_"))
+        self._vs_warp("composite_loss_bwd", out, FM.composite_loss_bwd, args, kw)
         return out
 
     def composite_given(self, *args, **kw):
@@ -439,6 +476,7 @@ class TrainCheck:
         for k in ref:
             self._hold("composite_bwd", k, out[k], ref[k], K1_STAGE_TOL,
                        elementwise=k.startswith("d_"))
+        self._vs_warp("composite_bwd", out, FM.composite_bwd, args, kw)
         return out
 
     def sc(self, *args):
@@ -550,10 +588,12 @@ NERF_CASES = ((K1_RAYS[0], 64, True), (K1_RAYS[1], 72, False),
               (K1_RAYS[1], 128, True))  # rays, samples a ray, sigma noise
 
 
-# the nerf variant's two kernels with a wgmma mainloop: each such launch is
-# also held against the same launch on wmma (whose wgrad sums db by
-# nerf_bias_grad, held against the plain version's db where it ran)
-NERF_VS_WMMA = ("nerf_dense_dgrad_vs_wmma", "nerf_dense_wgrad_vs_wmma")
+# the nerf variant's three kernels with a wgmma mainloop: each such launch is
+# also held against the same launch on wmma (nerf_dense's Y to one bf16
+# rounding step; the wmma wgrad sums db by nerf_bias_grad, held against the
+# plain version's db where it ran)
+NERF_VS_WMMA = ("nerf_dense_vs_wmma", "nerf_dense_dgrad_vs_wmma",
+                "nerf_dense_wgrad_vs_wmma")
 
 
 class NerfCheck(TrainCheck):
@@ -570,15 +610,23 @@ class NerfCheck(TrainCheck):
     def dense(self, *args, **kw):
         from satnerf_tpu_torch.ops import fused_nerf as FN
 
+        took = _took("nerf_dense")
         y = FN.nerf_dense(*args, **kw)
         ref = FN.nerf_dense_reference(*args, **kw).float()
         diff = (y.float() - ref).abs()
         tol = (2.0 ** -7 * ref.abs() + 1e-4 if self.bf16
                else 1e-4 * ref.abs() + 1e-4)
         self.err["nerf_dense"] = max(self.err["nerf_dense"], diff.max().item())
+        what = f"nerf_dense enc={kw.get('enc')} act={kw.get('act')}"
         if bool((diff > tol).any()):
-            self.bad.append(f"nerf_dense enc={kw.get('enc')} act={kw.get('act')} "
-                            f"max err {diff.max().item():.3g}")
+            self.bad.append(f"{what} max err {diff.max().item():.3g}")
+        if took() == "wgmma":  # the same launch on wmma: one rounding step
+            other = FN.nerf_dense(*args, mainloop="wmma", **kw).float()
+            d = (y.float() - other).abs()
+            self.err["nerf_dense_vs_wmma"] = max(self.err["nerf_dense_vs_wmma"],
+                                                 d.max().item())
+            if bool((d > 2.0 ** -7 * other.abs() + 1e-4).any()):
+                self.bad.append(f"{what} wgmma vs wmma max err {d.max().item():.3g}")
         return y
 
     def heads(self, *args, **kw):
@@ -679,7 +727,9 @@ def _time_kernels(packed: dict, dev) -> dict:
     wgmma_ms and wmma_ms. bound_ms counts every
     input read once and every output written once, and 2*P*K*N operations
     for the dense kernels; library_ms times the one PyTorch call that
-    computes the same function in the kernel's dtype, where there is one."""
+    computes the same function in the kernel's dtype, where there is one.
+    composite_loss_bwd and composite_bwd also get block_ms and warp_ms, both
+    bodies on the same inputs."""
     import torch
     from satnerf_tpu_torch.ops import fused_mlp as FM
 
@@ -707,6 +757,15 @@ def _time_kernels(packed: dict, dev) -> dict:
         for m in ("wmma", "wgmma", "wgmma", "wmma"):
             ms[m].append(_cuda_ms(lambda: fn(m)))
         e.update({f"{m}_ms": sum(v) / len(v) for m, v in ms.items()})
+        return e
+
+    def bodies(fn, e):
+        """e, with both bodies of a composite kernel timed on the same inputs
+        in turns: warp, block, block, warp."""
+        ms = {b: [] for b in FM.COMPOSITE_BODIES}
+        for b in ("warp", "block", "block", "warp"):
+            ms[b].append(_cuda_ms(lambda: fn(b)))
+        e.update({f"{b}_ms": sum(v) / len(v) for b, v in ms.items()})
         return e
 
     w, bias, c = packed["B"][3], packed["bt"][4], packed["C"]
@@ -800,22 +859,25 @@ def _time_kernels(packed: dict, dev) -> dict:
     noise = rand(BATCH, SAMPLES, to=torch.float32)
     gt = rand(BATCH, 3, to=torch.float32).abs()
     cargs = (h, *hs, skyh, packed["wn"], packed["bn"], z, noise, gt, 1.0)
-    out["composite_loss_bwd"] = entry(
-        lambda: FM.composite_loss_bwd(*cargs, return_weights=True),
-        lambda: FM.composite_loss_bwd_reference(*cargs, return_weights=True),
-        None,
-        _nbytes(*cargs[:-1]) + (p * (FEAT + 3 * fh) + BATCH * fh + 9 * FEAT
-                                + 9 + 3 + p) * 4,
-        4.0 * p * (FEAT + 5 * fh))
+    out["composite_loss_bwd"] = bodies(
+        lambda b: FM.composite_loss_bwd(*cargs, return_weights=True, body=b),
+        entry(
+            lambda: FM.composite_loss_bwd(*cargs, return_weights=True),
+            lambda: FM.composite_loss_bwd_reference(*cargs, return_weights=True),
+            None,
+            _nbytes(*cargs[:-1]) + (p * (FEAT + 3 * fh) + BATCH * fh + 9 * FEAT
+                                    + 9 + 3 + p) * 4,
+            4.0 * p * (FEAT + 5 * fh)))
 
     # ---- the full recipe's kernels, at the same training batch
     cot = rand(BATCH, 16, to=torch.float32)
     gargs = (h, *hs, skyh, packed["wn"], packed["bn"], z, noise, cot)
-    out["composite_bwd"] = entry(
-        lambda: FM.composite_bwd(*gargs),
-        lambda: FM.composite_bwd_reference(*gargs), None,
-        _nbytes(*gargs) + (p * (FEAT + 3 * fh) + BATCH * fh + 9 * FEAT + 9) * 4,
-        4.0 * p * (FEAT + 5 * fh))
+    out["composite_bwd"] = bodies(
+        lambda b: FM.composite_bwd(*gargs, body=b), entry(
+            lambda: FM.composite_bwd(*gargs),
+            lambda: FM.composite_bwd_reference(*gargs), None,
+            _nbytes(*gargs) + (p * (FEAT + 3 * fh) + BATCH * fh + 9 * FEAT + 9) * 4,
+            4.0 * p * (FEAT + 5 * fh)))
     sargs = (h, hs[1], packed["wn"], packed["bn"], z, noise, 0.1 / 3)
     out["sc_loss_bwd"] = entry(
         lambda: FM.sc_loss_bwd(*sargs),
@@ -917,6 +979,8 @@ def phase2(results: dict):
     times = _time_kernels(FM.pack_params(field, skip=4, use_beta=True,
                                          dtype=torch.bfloat16), dev)
     def loops(e, pre=""):
+        if "block_ms" in e:
+            return f" (block {e['block_ms']:.3f} ms, warp {e['warp_ms']:.3f} ms)"
         if "mainloop" not in e:
             return ""
         return (f" ({e[pre + 'mainloop']}; wgmma {e[pre + 'wgmma_ms']:.3f} ms, "
@@ -1175,9 +1239,12 @@ def phase2c(results: dict):
     times = results["times"]
     for name in AUX_KERNELS:
         e = times[name]
+        both = (f" (block {e['block_ms']:.3f} ms, warp {e['warp_ms']:.3f} ms)"
+                if "block_ms" in e else "")
         log(f"phase 2c: {name} bf16 at a training batch ({BATCH} rays x "
-            f"{SAMPLES}): kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms, "
-            f"library call none, bound {e['bound_ms']:.3f} ms ({e['bound_by']})")
+            f"{SAMPLES}): kernel {e['ms']:.3f} ms{both}, plain "
+            f"{e['plain_ms']:.3f} ms, library call none, bound "
+            f"{e['bound_ms']:.3f} ms ({e['bound_by']})")
     if failures:
         raise SystemExit("phase 2c failed:\n  " + "\n  ".join(failures))
 
@@ -1427,7 +1494,10 @@ def _time_nerf_kernels(field, dev) -> dict:
     and the wgrad both mainloops' times (the wgrad on wmma: its two GEMM
     launches and nerf_bias_grad). The wgrad has two library readings:
     library_ms times h.t() @ G (dW alone), library_xe_ms xe.t() @ G with
-    xe = [h | enc] built beforehand (dW and dC in one call)."""
+    xe = [h | enc] built beforehand (dW and dC in one call). nerf_dense's
+    chunk_err holds each of the chain's five layer shapes at the serving
+    chunk: the rule's mainloop, its launch against wmma and the plain
+    version."""
     import torch
     from satnerf_tpu_torch.ops import fused_mlp as FM
     from satnerf_tpu_torch.ops import fused_nerf as FN
@@ -1470,12 +1540,38 @@ def _time_nerf_kernels(field, dev) -> dict:
     h = rand(p, feat).abs()
     args = (h, w, bias, rays8, SAMPLES)
     dkw = dict(enc="xyz", enc_weight=c, z=z, n_freq=n_xyz)
-    out["nerf_dense"] = entry(
+    out["nerf_dense"] = mainloops("nerf_dense", lambda m: FN.nerf_dense(
+        *args, mainloop=m, **dkw), entry(
         lambda: FN.nerf_dense(*args, **dkw),
         lambda: FN.nerf_dense_reference(*args, **dkw),
         lambda: torch.relu(torch.addmm(bias.to(dtype), h, w)),
         _nbytes(h, w, bias, rays8, z, c) + p * feat * 2,
-        2.0 * p * feat * (feat + 6 * n_xyz))
+        2.0 * p * feat * (feat + 6 * n_xyz)))
+    # every layer shape of the chain at a serving chunk: the rule's launch
+    # (wgmma) against wmma (one rounding step) and the plain version
+    layers = {"layer 0": (None, None, packed["bt"][0], "xyz", packed["A"], n_xyz, "relu"),
+              "trunk": (h, w, bias, None, None, 0, "relu"),
+              "skip": (h, w, bias, "xyz", c, n_xyz, "relu"),
+              "feats": (h, packed["Wfeat"], packed["bfeat"], None, None, 0, "none"),
+              "rgb_0": (h, packed["Wrgb0h"], packed["brgb0"], "dir", packed["Wrgb0d"],
+                        NERF_FREQ[1], "relu")}
+    chunk_err = {}
+    for what, (x, wt, b, enc, ew, nf, act) in layers.items():
+        lkw = dict(enc=enc, enc_weight=ew, z=z, n_freq=nf, act=act)
+        took = _took("nerf_dense")
+        y = FN.nerf_dense(x, wt, b, rays8, SAMPLES, **lkw).float()
+        loop = took()
+        other = FN.nerf_dense(x, wt, b, rays8, SAMPLES, mainloop="wmma", **lkw).float()
+        ref = FN.nerf_dense_reference(x, wt, b, rays8, SAMPLES, **lkw).float()
+        chunk_err[what] = {"mainloop": loop, "vs_wmma": (y - other).abs().max().item(),
+                           "vs_plain": (y - ref).abs().max().item(),
+                           "ok": loop == "wgmma"
+                           and bool(((y - other).abs() <= 2.0 ** -7 * other.abs()
+                                     + 1e-4).all())
+                           and bool(((y - ref).abs() <= 2.0 ** -7 * ref.abs()
+                                     + 1e-4).all())}
+        del y, other, ref
+    out["nerf_dense"]["chunk_err"] = chunk_err
     r = rand(p, fh).abs()
     hargs = (h, r, packed["wn"], packed["bn"], z)
     out["nerf_heads_composite"] = entry(
@@ -1490,12 +1586,13 @@ def _time_nerf_kernels(field, dev) -> dict:
     p = BATCH * SAMPLES
     h = rand(p, feat).abs()
     args = (h, w, bias, rays8, SAMPLES)
-    t_entry = entry(
+    t_entry = mainloops("nerf_dense", lambda m: FN.nerf_dense(
+        *args, mainloop=m, **dkw | {"z": z}), entry(
         lambda: FN.nerf_dense(*args, **dkw | {"z": z}),
         lambda: FN.nerf_dense_reference(*args, **dkw | {"z": z}),
         lambda: torch.relu(torch.addmm(bias.to(dtype), h, w)),
         _nbytes(h, w, bias, rays8, z, c) + p * feat * 2,
-        2.0 * p * feat * (feat + 6 * n_xyz))
+        2.0 * p * feat * (feat + 6 * n_xyz)))
     out["nerf_dense"].update({f"train_{k}": v for k, v in t_entry.items()})
     dy, y = rand(p, feat, to=torch.float32), rand(p, feat).clamp_min(0)
     gb = (dy * (y > 0)).to(dtype)
@@ -1707,9 +1804,16 @@ def phase2e(results: dict):
         failures.append(f"nerf_dense_wgrad at its main-path shape: {e}")
     e = times["nerf_dense"]
     log(f"phase 2e: nerf_dense bf16 at a training batch ({BATCH} rays x "
-        f"{SAMPLES}): kernel {e['train_ms']:.3f} ms, plain "
-        f"{e['train_plain_ms']:.3f} ms, library call "
+        f"{SAMPLES}): kernel {e['train_ms']:.3f} ms ({e['train_mainloop']}; "
+        f"wgmma {e['train_wgmma_ms']:.3f} ms, wmma {e['train_wmma_ms']:.3f} ms), "
+        f"plain {e['train_plain_ms']:.3f} ms, library call "
         f"{e['train_library_ms']:.3f} ms, bound {e['train_bound_ms']:.3f} ms")
+    for what, ce in e["chunk_err"].items():
+        log(f"phase 2e: nerf_dense {what} at a serving chunk ({CHUNK} rays x "
+            f"{SAMPLES}) on {ce['mainloop']}: vs wmma {ce['vs_wmma']:.2e}, vs "
+            f"plain {ce['vs_plain']:.2e}")
+        if not ce["ok"]:
+            failures.append(f"nerf_dense {what} at a serving chunk: {ce}")
     results.setdefault("times", {}).update(times)
     if failures:
         raise SystemExit("phase 2e failed:\n  " + "\n  ".join(failures))
@@ -1904,6 +2008,8 @@ def phase4(results: dict, card: str):
     results["mainloop_launches"] = {k: {m: n for (_, m), n in by.items()}
                                     for k, by in loops.items()}
     log(f"phase 4: launches by mainloop {results['mainloop_launches']}")
+    results["body_launches"] = _on_block("phase 4", launches, ("composite_loss_bwd",))
+    log(f"phase 4: launches by body {results['body_launches']}")
 
     rows = _train_rows(logs, cfg.exp_name)
     gate_on = [r for r in rows if system.beta_gate(r["step"] - 1) == 1.0]
@@ -2050,6 +2156,9 @@ def phase5(results: dict, card: str):
     active = drop - 1  # steps 0 .. drop - 2: step + 1 < ds_drop_step
     check_counts("full recipe", launches, FULL_STEPS, active)
     results["launches_full"] = launches
+    by_body = _on_block("phase 5", launches)
+    results["body_launches"]["composite_bwd"] = by_body["composite_bwd"]
+    log(f"phase 5: launches by body {by_body}")
 
     rows = _train_rows(logs, cfg.exp_name)
     if not all("train/loss_depth" in r and np.isfinite(r["train/loss_depth"])
@@ -2420,8 +2529,8 @@ def phase7(results: dict, card: str):
         raise SystemExit(f"phase 7 failed: {msg}")
 
     def hold(what, launches, want):
-        """The launch counts of a run; every bf16 dgrad and wgrad launch on
-        the mainloop the rule gives the 8 x 256 chain (wgmma), so
+        """The launch counts of a run; every bf16 forward, dgrad and wgrad
+        launch on the mainloop the rule gives the 8 x 256 chain (wgmma), so
         nerf_bias_grad never runs."""
         for k, v in {**want, "nerf_bias_grad": 0}.items():
             if launches[k] != v:
@@ -2429,7 +2538,7 @@ def phase7(results: dict, card: str):
         if any(launches[k] for k in siren):
             fail(f"{what}: a SIREN kernel was launched: {launches}")
         by = {k: {m: n for (kk, m), n in FM.MAINLOOP_LAUNCHES.items() if kk == k}
-              for k in ("nerf_dense_dgrad", "nerf_dense_wgrad")}
+              for k in ("nerf_dense", "nerf_dense_dgrad", "nerf_dense_wgrad")}
         for k, loops in by.items():
             if loops != {"wgmma": launches[k]}:
                 fail(f"{what}: {k} launched {launches[k]} times, by mainloop "
@@ -2689,6 +2798,10 @@ def main():
                 "max_abs_err_vs_wmma": results["err"][(f"{kname}_vs_wmma",
                                                        "bfloat16")]}
                if kname in results["mainloop_launches"] else {}),
+            **({"launches_by_body": results["body_launches"][kname],
+                "max_abs_err_vs_warp": max(results["err"][(f"{kname}_vs_warp", dn)]
+                                           for dn in ("float32", "bfloat16"))}
+               if kname in results["body_launches"] else {}),
             **t,
         })
     log(f"build {secs:.1f} s, phases {time.perf_counter() - t_start:.1f} s; "

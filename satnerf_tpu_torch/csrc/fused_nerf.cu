@@ -21,8 +21,8 @@
 //                         stretch of the product's depth whose A tile is
 //                         computed from rays8 and z into shared memory: the
 //                         encoded points never exist in device memory. sinf and
-//                         cosf, not the fast intrinsics: the argument reaches
-//                         512 |x|.
+//                         cosf (on wgmma libdevice's sincosf written out), not
+//                         the fast intrinsics: the argument reaches 512 |x|.
 //   nerf_dense_dgrad      dX (+)= round(dY * [Y > 0]) . W^T. The relu's mask is
 //                         read from the layer's stored output in the compute
 //                         type (fused_nerf.py:222,243,252); no slope tensor is
@@ -45,8 +45,11 @@
 //                         out (P, 8) [rgb | sigma] (fused_nerf.py:188-190).
 //   nerf_field_heads_bwd  their backward from a (P, 8) cotangent.
 //
-// The two backward kernels each have three mainloops and one rule, as the
-// SIREN variants' (fused_train.cu): wgmma, the Hopper mainloops of
+// The dense kernels each have three mainloops and one rule, as the SIREN
+// variants' (fused_render.cu, fused_train.cu). nerf_dense: wgmma
+// (nerf_dense_wgmma below, siren_dense_wgmma's persistent TMA-fed layout with
+// the encoding a k tile computed into shared memory), wmma, simt. The two
+// backward kernels: wgmma, the Hopper mainloops of
 // dense_bwd_wgmma.cuh with the relu's mask read from a TMA-loaded bf16 tile
 // of Y (the dgrad: four 40 KB stages; the wgrad: dW, dC against the
 // encoding computed into shared memory, and db in its epilogue, one launch);
@@ -60,11 +63,17 @@
 // fused_nerf.py:236, is 0 in fp32 below 1e-8, where a ray's last sample (delta
 // 1e10) still has weight.
 //
-// What bounds them: the forward at K = N = 256 does 512 operations an output
-// for 2 bytes written, above the card's ridge: the tensor cores bound it
-// (bf16: WMMA m16n16k16 fragments, 128 x 128 x 32 tiles; fp32: a SIMT
-// register-tiled GEMM that stays exact). Layer 0 has no X: its 64-deep product
-// over a computed tile writes (P, N) and is bound by the stores and by sinf.
+// What bounds them: the forward at K = N = 256 does K N / (K + N) = 128
+// operations a byte of X read and Y written, below the card's ridge (about
+// 295): device memory bounds it (1.29 ms for the skip layer at a 4.19
+// M-point serving chunk, PERF.md), then the encoding's sines. Its three
+// mainloops have one rule (satnerf_nerf_dense): wgmma (nerf_dense_wgmma, a
+// Hopper mainloop fed by TMA, the encoding a k tile computed into shared
+// memory), wmma (WMMA m16n16k16 fragments, 128 x 128 x 32 tiles, the
+// encoding computed element by element by every column tile), simt (fp32 and
+// other shapes: a register-tiled GEMM that stays exact). Layer 0 has no X:
+// its 64-deep product over the encoding writes (P, N), bound by the stores
+// and the sines.
 // The backward reads dY in fp32 and Y in bf16 (6 bytes a value) for 256 or
 // 512 operations: device memory bounds it (0.050 ms for the dgrad, 0.040 for
 // the skip layer's wgrad at 65,536 points).
@@ -696,6 +705,384 @@ struct PosEncoding {
   }
 };
 
+// ----------------------------------------------------- nerf_dense on wgmma
+//
+// siren_dense_wgmma's persistent layout (fused_render.cu) with the positional
+// encoding as one more k tile that is computed, not loaded. A block keeps a
+// 128-column slice of W (K x 128 bf16, 64 KB at K = 256) and of C (the
+// encoding's e_rows x 128) in shared memory for its whole life; a producer
+// warp streams 64 x 64 X stages through a ring by TMA, and three consumer
+// warpgroups take the block's 64-row tiles in turn. Before its turn a
+// warpgroup writes its tile's encoding (64 points x 64 columns, bf16) into
+// shared memory in the layout of an X stage, from positions it loaded while
+// its previous tile ran, so the sines overlap the other warpgroups'
+// products. Its mainloop is the X stages' m64n128k16 products, then the
+// encoding's (four k16 steps for 64 rows, two for 32) against C; the
+// epilogue adds the bias, takes the relu and stores Y as 16-byte vectors: it
+// is far lighter than siren_dense's sine, so the products, the loads and
+// the sines set the pace. ENC_DIR encodes the ray's direction, the same for
+// all of the ray's samples: the sines of each ray a tile touches are
+// computed once into a row buffer and copied to the ray's rows. At K = 0
+// (layer 0) the encoding is the whole product: no X stage, no turns.
+//
+// Each point's 6 n_freq sines are computed once a column slice, twice at
+// N = 256. A 256-column slice, each point's sines computed once (W at 128 KB,
+// 128 accumulators a thread, two consumer warpgroups), ran the 4.19 M-point
+// skip layer in 2.40-2.43 ms against 2.28-2.29 on an H100 (PERF.md section 6):
+// two warpgroups hide less of the epilogue and the encoding than three.
+
+// SATNERF_NERF_ABLATE is 0 unless tools/profile_render_torch.py --model nerf
+// --ablate builds this file with it, to time the kernel's parts alone: 1
+// drops the encoding's sines (the tile stays zero: products, loads and the
+// epilogue alone), 2 the products, the X and W loads and the epilogue (the
+// encoding alone: the positions' loads, the sines, the tiles' barriers).
+#ifndef SATNERF_NERF_ABLATE
+#define SATNERF_NERF_ABLATE 0
+#endif
+
+constexpr int NDW_BM = 64;           // rows of a warpgroup's tile
+constexpr int NDW_BN = 128;          // the block's slice of W's and C's columns
+constexpr int NDW_BK = 64;           // depth of an X stage, a W chunk, the encoding tile
+constexpr int NDW_MAX_K = 512;       // the W slice must fit shared memory
+constexpr int NDW_MAX_STAGES = 8;
+constexpr int NDW_WG = 128;
+constexpr int NDW_NC = 3;                           // consumer warpgroups
+constexpr int NDW_THREADS = NDW_NC * NDW_WG + 32;   // and a producer warp
+constexpr int NDW_TILE = NDW_BM * NDW_BK * 2;       // 8 KB: an X stage, an encoding tile
+constexpr int NDW_W_BOX = NDW_BK * 64 * 2;          // 64 rows of W x 64 columns
+constexpr int NDW_W_CHUNK = NDW_BN / 64 * NDW_W_BOX;  // 64 rows of W x the slice
+
+// The fixed part of the shared memory; the W slice (K / 64 chunks) and the
+// ring of X stages follow it, as many stages as fit (at most 8).
+struct NdwSmem {
+  __nv_bfloat16 c[NDW_BK * NDW_BN];               // C's slice, two 64-column boxes
+  __nv_bfloat16 enc[NDW_NC][NDW_BM * NDW_BK];     // each warpgroup's encoding tile
+  __nv_bfloat16 rows[NDW_NC][NDW_BM * NDW_BK];    // ENC_DIR: a ray's values a row
+  float bias[NDW_BN];
+  uint64_t full[NDW_MAX_STAGES], empty[NDW_MAX_STAGES], w_full;
+  uint64_t turn[NDW_NC];  // warpgroup w may start its next mainloop
+};
+constexpr int NDW_FIXED = ((int)sizeof(NdwSmem) + 1023) / 1024 * 1024;
+
+// Columns [32 H + 16 Q, 32 H + 16 Q + 16) of the positional encoding of one
+// position x (fused_nerf.py _posenc: per frequency k the block
+// [sin(2^k x) (3), cos(2^k x) (3)], zero from column 6 n_freq on), rounded to
+// bf16, into two 16-byte chunks of row p of dst (128-byte rows, with the
+// 128-byte swizzle of an X stage, or plain). The columns' places are known at
+// compile time, so the values stay in registers and the stores are 16 bytes
+// wide. libdevice's sincosf written out (common.cuh sincosf_fast) where every
+// argument lies below TRIG_FAST_LIMIT, the library's call otherwise: the
+// argument reaches 512 |x|.
+template <int H, int Q>
+__device__ __forceinline__ void ndw_enc_chunks(uint8_t* dst, int p, bool swizzle,
+                                               const float (&x)[3], int n_freq) {
+  constexpr int J0 = 32 * H + 16 * Q;
+  // the frequencies these columns hold; 64 columns hold at most 10
+  constexpr int K0 = J0 / 6, K1 = (J0 + 15) / 6 < 9 ? (J0 + 15) / 6 : 9;
+  constexpr int NK = K1 - K0 + 1;
+  float arg[NK][3], sn[NK + 1][3], cs[NK + 1][3];
+  bool fast = true;
+#pragma unroll
+  for (int i = 0; i < NK; ++i)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      // exact: a power of two; 0 past n_freq (those columns are zero)
+      arg[i][c] = K0 + i < n_freq ? x[c] * (float)(1 << (K0 + i)) : 0.f;
+      fast = fast && !(fabsf(arg[i][c]) >= TRIG_FAST_LIMIT);
+    }
+  if (__builtin_expect(fast, 1)) {
+#pragma unroll
+    for (int i = 0; i < NK; ++i)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) sincosf_fast(arg[i][c], sn[i][c], cs[i][c]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < NK; ++i)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) sincosf(arg[i][c], &sn[i][c], &cs[i][c]);
+  }
+  uint32_t w[8];
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    float v[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = J0 + 2 * m + e, k = j / 6, r = j % 6;
+      v[e] = k > K1 || k >= n_freq ? 0.f : r < 3 ? sn[k - K0][r] : cs[k - K0][r - 3];
+    }
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[0], v[1]);
+    w[m] = *reinterpret_cast<const uint32_t*>(&b);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int ch = 4 * H + 2 * Q + h;
+    *reinterpret_cast<uint4*>(dst + p * 128 + ((swizzle ? ch ^ (p & 7) : ch) << 4)) =
+        make_uint4(w[4 * h], w[4 * h + 1], w[4 * h + 2], w[4 * h + 3]);
+  }
+}
+
+// Half H of row p's encoding (32 columns), in two passes of 16 columns.
+template <int H>
+__device__ __forceinline__ void ndw_enc_half(uint8_t* dst, int p, bool swizzle,
+                                             const float (&x)[3], int n_freq) {
+  ndw_enc_chunks<H, 0>(dst, p, swizzle, x, n_freq);
+  ndw_enc_chunks<H, 1>(dst, p, swizzle, x, n_freq);
+}
+
+// e_rows: C's rows, 0 (no encoding), 32 or 64; `enc` gives the positions
+// (PosEncoding::coord for ENC_XYZ, the rays' directions for ENC_DIR) and P.
+__global__ void __launch_bounds__(NDW_THREADS, 1)
+nerf_dense_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
+                 const __grid_constant__ CUtensorMap map_c, int K, int e_rows,
+                 const float* __restrict__ bias, const PosEncoding enc, int act,
+                 __nv_bfloat16* __restrict__ Y, int N, int stages) {
+  using namespace hopper;
+  constexpr int NC = NDW_NC, W_CHUNK = NDW_W_CHUNK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  NdwSmem& sm = *reinterpret_cast<NdwSmem*>(base);
+  uint8_t* w_smem = base + NDW_FIXED;
+  const int k_blocks = SATNERF_NERF_ABLATE == 2 ? 0 : K / NDW_BK;
+  uint8_t* x_smem = w_smem + k_blocks * W_CHUNK;
+  const int P = enc.P, S = enc.S;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // block b keeps column slice b % col_tiles and walks the row tiles
+  // b / col_tiles, + row_step, ...: tile o of the block is its o-th of those
+  const int col_tiles = (N + NDW_BN - 1) / NDW_BN;
+  const int row_tiles = (P + NDW_BM - 1) / NDW_BM;
+  const int col0 = (blockIdx.x % col_tiles) * NDW_BN;
+  const int first_row = blockIdx.x / col_tiles, row_step = gridDim.x / col_tiles;
+  const int n_tiles = (row_tiles - first_row + row_step - 1) / row_step;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], NDW_WG);
+    }
+    mbar_init(&sm.w_full, 1);
+    for (int w = 0; w < NC; ++w) mbar_init(&sm.turn[w], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == NC * 4) {  // producer: one lane issues every load
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&sm.w_full, k_blocks * W_CHUNK + e_rows * NDW_BN * 2);
+      for (int kb = 0; kb < k_blocks; ++kb)
+        for (int b = 0; b < NDW_BN / 64; ++b)
+          tma_load_2d(w_smem + kb * W_CHUNK + b * NDW_W_BOX, &map_w, &sm.w_full, col0 + 64 * b,
+                      kb * NDW_BK);
+      if (e_rows > 0)  // C's rows in the first e_rows of each 64-row box
+        for (int b = 0; b < NDW_BN / 64; ++b)
+          tma_load_2d(reinterpret_cast<uint8_t*>(sm.c) + b * NDW_W_BOX, &map_c, &sm.w_full,
+                      col0 + 64 * b, 0);
+      // X position p = o k_blocks + kb (the block's tile o, depth block kb)
+      // goes to stage p % stages
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int o = 0; o < n_tiles && k_blocks > 0; ++o) {
+        const int row0 = (first_row + o * row_step) * NDW_BM;
+        for (int kb = 0; kb < k_blocks; ++kb) {
+          mbar_wait(&sm.empty[stage], phase ^ 1);
+          mbar_arrive_expect_tx(&sm.full[stage], NDW_TILE);
+          tma_load_2d(x_smem + stage * NDW_TILE, &map_x, &sm.full[stage], kb * NDW_BK, row0);
+          if (++stage == stages) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg takes the block's tiles wg, wg + NC, ...
+  const int wg = warp / 4, wl = warp % 4, ltid = threadIdx.x % NDW_WG;
+  const int g = lane / 4, t = lane % 4;
+  const bool dir = enc.enc_mode == ENC_DIR;
+  const bool sines = e_rows > 0 && SATNERF_NERF_ABLATE != 1;
+  uint8_t* et = reinterpret_cast<uint8_t*>(sm.enc[wg]);
+  uint8_t* rb = reinterpret_cast<uint8_t*>(sm.rows[wg]);
+  for (int i = threadIdx.x; i < NDW_BN; i += NC * NDW_WG)
+    sm.bias[i] = col0 + i < N ? bias[col0 + i] : 0.f;
+  // ENC_XYZ writes the tile's columns [0, e_rows), ENC_DIR the row buffer's:
+  // the rest stays zero
+  for (int i = ltid; i < NDW_TILE / 16; i += NDW_WG) {
+    reinterpret_cast<uint4*>(et)[i] = make_uint4(0, 0, 0, 0);
+    reinterpret_cast<uint4*>(rb)[i] = make_uint4(0, 0, 0, 0);
+  }
+  fence_proxy_async();  // the zeros are read by wgmma
+  bar_sync(1, NC * NDW_WG);  // bias and the zeroed tiles in place
+  mbar_wait(&sm.w_full, 0);
+
+  // A thread fills half `hh` of the encoding's row `pr`: ENC_XYZ row pr of the
+  // tile from point row0 + pr's o + d z; ENC_DIR row pr of the row buffer
+  // from the direction of the tile's pr-th ray. It loads that position
+  // while its previous tile runs (x_next).
+  const int pr = ltid % NDW_BM, hh = ltid / NDW_BM;
+  const bool fills = hh == 0 || 6 * enc.n_freq > 32;  // half 1 holds columns 32 ..
+  float x_next[3] = {0.f, 0.f, 0.f};
+  auto fetch = [&](int o) {
+    const int row0 = (first_row + o * row_step) * NDW_BM;
+    const int r = row0 / S + pr, r_last = (min(row0 + NDW_BM, P) - 1) / S;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      x_next[c] = !dir ? enc.coord(row0 + pr, c)
+                       : (r <= r_last ? enc.rays[(size_t)r * NERF_RAY_COLS + 3 + c] : 0.f);
+  };
+  if (sines && wg < n_tiles) fetch(wg);
+  // The mainloops run in the block's tile order, one warpgroup after the
+  // other: tile o's starts once every stage of tile o - 1 has come (the
+  // parity of a stage's full barrier only tells its fill from the one two
+  // rounds of the ring before). acc is never written but by wgmma: the first
+  // product of a tile ignores acc's old value (scale-d 0).
+  float acc[64];
+  for (int o = wg, mine = 0; o < n_tiles; o += NC, ++mine) {
+    const int row0 = (first_row + o * row_step) * NDW_BM;
+    if (sines) {  // this tile's encoding, before the turn
+      // every warp of the warpgroup is past its wait on the products that
+      // read the tiles last
+      bar_sync(2 + wg, NDW_WG);
+      const float x[3] = {x_next[0], x_next[1], x_next[2]};
+      if (o + NC < n_tiles) fetch(o + NC);  // in flight meanwhile
+      const int r0 = row0 / S, nr = (min(row0 + NDW_BM, P) - 1) / S - r0 + 1;
+      if (fills && (!dir || pr < nr)) {
+        uint8_t* dst = dir ? rb : et;
+        if (hh == 0) ndw_enc_half<0>(dst, pr, !dir, x, enc.n_freq);
+        else ndw_enc_half<1>(dst, pr, !dir, x, enc.n_freq);
+      }
+      if (dir) {  // each row of the tile takes its ray's values
+        bar_sync(2 + wg, NDW_WG);
+        for (int i = ltid; i < NDW_BM * 8; i += NDW_WG) {  // 16-byte chunks of the rows
+          const int q = i / 8, ch = i % 8;
+          const int ray = min(row0 + q, P - 1) / S - r0;
+          *reinterpret_cast<uint4*>(et + q * 128 + (((ch ^ q) & 7) << 4)) =
+              reinterpret_cast<const uint4*>(rb + ray * 128)[ch];
+        }
+      }
+      fence_proxy_async();  // the tile is read by wgmma
+      bar_sync(2 + wg, NDW_WG);
+    }
+    if (k_blocks > 0 && o > 0) mbar_wait(&sm.turn[wg], (wg == 0 ? mine - 1 : mine) & 1);
+    // a stage's products stay in flight while the next stage's are issued:
+    // stage kb - 1 is released once wgmma_wait<1> has seen it done
+    for (int kb = 0; kb < k_blocks; ++kb) {
+      const int pos = o * k_blocks + kb;  // the producer's order
+      const int stage = pos % stages;
+      mbar_wait(&sm.full[stage], (pos / stages) & 1);
+      if (kb == k_blocks - 1 && ltid == 0)
+        mbar_arrive(&sm.turn[(wg + 1) % NC]);  // every stage of this tile has come
+      const uint8_t* a = x_smem + stage * NDW_TILE;
+      const uint8_t* b = w_smem + kb * W_CHUNK;
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < NDW_BK / 16; ++s)  // 16 of depth: 32 bytes of an X row, 16 W rows
+        if (SATNERF_NERF_ABLATE != 2)
+          wgmma_m64n128k16_ss_tb(acc, smem_desc(a + 32 * s, 16, 1024, SWIZZLE_128B),
+                                 smem_desc(b + 2048 * s, NDW_W_BOX, 1024, SWIZZLE_128B),
+                                 kb + s > 0);
+      wgmma_commit();
+      if (kb > 0) {  // no instruction may touch acc until the last wait
+        wgmma_wait<1>();
+        mbar_arrive(&sm.empty[(pos - 1) % stages]);
+      }
+    }
+    if (e_rows > 0) {  // the encoding's k tile against C
+      const uint8_t* c = reinterpret_cast<const uint8_t*>(sm.c);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < NDW_BK / 16; ++s)
+        if (SATNERF_NERF_ABLATE != 2 && 16 * s < e_rows)
+          wgmma_m64n128k16_ss_tb(acc, smem_desc(et + 32 * s, 16, 1024, SWIZZLE_128B),
+                                 smem_desc(c + 2048 * s, NDW_W_BOX, 1024, SWIZZLE_128B),
+                                 k_blocks + s > 0);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (k_blocks > 0) mbar_arrive(&sm.empty[(o * k_blocks + k_blocks - 1) % stages]);
+    if (SATNERF_NERF_ABLATE == 2) continue;
+
+    // epilogue: rows q0 and q0 + 8, columns 8j + 2t, 8j + 2t + 1 of each block j
+    const int q0 = row0 + wl * 16 + g, q1 = q0 + 8;
+#pragma unroll 1
+    for (int jb = 0; jb < NDW_BN / 32; ++jb) {  // four 8-column blocks at a time
+      float a16[16];
+      switch (jb) {
+        case 0: take16<0>(a16, acc); break;
+        case 1: take16<1>(a16, acc); break;
+        case 2: take16<2>(a16, acc); break;
+        default: take16<3>(a16, acc); break;
+      }
+      uint32_t y0[4], y1[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int nl = 8 * (jb * 4 + jj) + 2 * t;
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          v[i] = a16[4 * jj + i] + sm.bias[nl + (i & 1)];
+          if (act == ACT_RELU) v[i] = fmaxf(v[i], 0.f);
+        }
+        const __nv_bfloat162 r0 = __floats2bfloat162_rn(v[0], v[1]);
+        const __nv_bfloat162 r1 = __floats2bfloat162_rn(v[2], v[3]);
+        y0[jj] = *reinterpret_cast<const uint32_t*>(&r0);
+        y1[jj] = *reinterpret_cast<const uint32_t*>(&r1);
+      }
+      quad_transpose(y0, t);
+      quad_transpose(y1, t);
+      const int n = col0 + 8 * (jb * 4 + t);  // lane t now holds block jb * 4 + t
+      if (n < N) {
+        if (q0 < P)
+          *reinterpret_cast<uint4*>(Y + (size_t)q0 * N + n) = make_uint4(y0[0], y0[1], y0[2], y0[3]);
+        if (q1 < P)
+          *reinterpret_cast<uint4*>(Y + (size_t)q1 * N + n) = make_uint4(y1[0], y1[1], y1[2], y1[3]);
+      }
+    }
+  }
+}
+
+// X (P, K) bf16 (nullptr at K = 0), W (K, N), C (e_rows, N) bf16 (nullptr
+// without an encoding), Y (P, N) bf16; K a multiple of 64 up to
+// NDW_MAX_K, N a multiple of 64, e_rows 0, 32 or 64, every pointer
+// 16-byte aligned.
+int launch_nerf_dense_wgmma(cudaStream_t st, const bf16* X, int K, const bf16* W,
+                            const float* bias, const PosEncoding& enc, int e_rows, const bf16* C,
+                            int act, bf16* Y, int N) {
+  static const int max_smem = [] {
+    int dev = 0, v = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+      return 0;
+    return v;
+  }();
+  static const int resident = hopper::resident_blocks(nerf_dense_wgmma, NDW_THREADS, max_smem);
+  if (resident == 0) return (int)cudaErrorInvalidConfiguration;
+  if (K > NDW_MAX_K) return (int)cudaErrorInvalidValue;
+  const int fixed = 1024 + NDW_FIXED + (K / NDW_BK) * NDW_W_CHUNK;
+  const int fit = (max_smem - fixed) / NDW_TILE;
+  const int stages = fit < NDW_MAX_STAGES ? fit : NDW_MAX_STAGES;
+  if (stages < (K > 0 ? 2 : 1)) return (int)cudaErrorInvalidConfiguration;
+  CUtensorMap map_x{}, map_w{}, map_c{};
+  const int P = enc.P;
+  int err = 0;
+  if (K > 0) {
+    err = hopper::tensor_map_2d(&map_x, X, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, P, K, NDW_BM,
+                                NDW_BK, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err == 0)
+      err = hopper::tensor_map_2d(&map_w, W, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K, N, NDW_BK,
+                                  64, CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (err == 0 && e_rows > 0)
+    err = hopper::tensor_map_2d(&map_c, C, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, e_rows, N, e_rows,
+                                64, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
+  // a whole number of blocks for each column slice, no more than row tiles
+  const int col_tiles = (N + NDW_BN - 1) / NDW_BN, row_tiles = (P + NDW_BM - 1) / NDW_BM;
+  int per_slice = resident / col_tiles;
+  if (per_slice > row_tiles) per_slice = row_tiles;
+  if (per_slice < 1) per_slice = 1;
+  nerf_dense_wgmma<<<per_slice * col_tiles, NDW_THREADS, fixed + stages * NDW_TILE, st>>>(
+      map_x, map_w, map_c, K, e_rows, bias, enc, act, Y, N, stages);
+  return (int)cudaGetLastError();
+}
+
 // ------------------------------------------------------- nerf_heads_composite
 //
 // Replaces the narrow heads of fused_nerf.py _forward :162-173 and the
@@ -1204,15 +1591,35 @@ bool aligned16(const void* a, const void* b = nullptr, const void* c = nullptr,
 // Each returns cudaGetLastError() after its launches; the wrapper raises if it
 // is not 0. P = R * S points, ray-major; S = 1 makes every point its own ray.
 
+// The mainloop rule of a launch of nerf_dense (mainloop = MAINLOOP_RULE);
+// ops/fused_mlp.py dense_mainloop is the same rule in Python:
+//   wgmma  bf16, K a multiple of 64 up to NDW_MAX_K (0 too: layer 0, the
+//          encoding alone), N a multiple of 64, an encoding of 0, 32 or 64
+//          rows; X, W, C and Y 16-byte aligned
+//   wmma   bf16, K and N multiples of 8, e_rows a multiple of 32; X, W and C
+//          16-byte aligned
+//   simt   any other shape (and fp32 always)
+// MAINLOOP_WMMA / MAINLOOP_WGMMA ask for one; a launch it cannot take is
+// refused with cudaErrorInvalidValue, never sent to another mainloop.
 extern "C" int satnerf_nerf_dense(int dtype, const void* X, int K, const void* W,
                                   const void* bias, const void* rays, const void* z, int S,
                                   int enc_mode, int n_freq, int e_rows, const void* C, int act,
-                                  void* Y, int P, int N, void* stream) {
+                                  void* Y, int P, int N, int mainloop, void* stream) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (S < 1 || (act != ACT_NONE && act != ACT_RELU)) return (int)cudaErrorInvalidValue;
   if (enc_mode != ENC_NONE && (n_freq < 1 || n_freq > 16 || e_rows < 6 * n_freq))
     return (int)cudaErrorInvalidValue;
   if (K == 0 && enc_mode == ENC_NONE) return (int)cudaErrorInvalidValue;
+  if (mainloop < MAINLOOP_RULE || mainloop > MAINLOOP_WGMMA) return (int)cudaErrorInvalidValue;
+  const int rows = enc_mode == ENC_NONE ? 0 : e_rows;
+  const bool tc_ok = dtype == 1 && K % 8 == 0 && N % 8 == 0 && aligned16(X, W, C) &&
+                     rows % TC_BK == 0;
+  const bool wg_ok = dtype == 1 && K % 64 == 0 && K <= NDW_MAX_K && N % 64 == 0 &&
+                     (rows == 0 || rows == 32 || rows == 64) && aligned16(X, W, C, Y);
+  if ((mainloop == MAINLOOP_WMMA && !tc_ok) || (mainloop == MAINLOOP_WGMMA && !wg_ok))
+    return (int)cudaErrorInvalidValue;
+  if (mainloop == MAINLOOP_RULE)
+    mainloop = wg_ok ? MAINLOOP_WGMMA : tc_ok ? MAINLOOP_WMMA : MAINLOOP_RULE;
   if (P == 0 || N == 0) return (int)cudaSuccess;
   const dim3 grid((P + BM - 1) / BM, (N + BN - 1) / BN);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1223,8 +1630,11 @@ extern "C" int satnerf_nerf_dense(int dtype, const void* X, int K, const void* W
     nerf_dense_simt<float><<<grid, DENSE_THREADS, 0, st>>>(
         as<float>(X), K, as<float>(W), b, r, zz, S, enc_mode, n_freq, e_rows, as<float>(C), act,
         static_cast<float*>(Y), P, N);
-  } else if (K % 8 == 0 && N % 8 == 0 && aligned16(X, W, C) &&
-             (enc_mode == ENC_NONE || e_rows % TC_BK == 0)) {
+  } else if (mainloop == MAINLOOP_WGMMA) {
+    const PosEncoding enc{r, zz, S, enc_mode, n_freq, P};
+    return launch_nerf_dense_wgmma(st, as<bf16>(X), K, as<bf16>(W), b, enc, rows,
+                                        as<bf16>(C), act, static_cast<bf16*>(Y), N);
+  } else if (mainloop == MAINLOOP_WMMA) {
     nerf_dense_wmma<<<grid, DENSE_THREADS, 0, st>>>(
         as<bf16>(X), K, as<bf16>(W), b, r, zz, S, enc_mode, n_freq, e_rows, as<bf16>(C), act,
         static_cast<bf16*>(Y), P, N);

@@ -11,7 +11,8 @@
 // fp32, and the backward is three more kernels:
 //
 //   composite_loss_bwd   narrow heads, compositor, loss and their adjoints,
-//                        a warp per ray: loss sums, the narrow heads' weight
+//                        a block per ray (or, asked for, the earlier walk of
+//                        a warp per ray): loss sums, the narrow heads' weight
 //                        gradients, and the cotangents of h, r, s2, bh, skyh
 //   composite_bwd        the same walk with the loss stage replaced by a given
 //                        (R, 16) cotangent of the per-ray products: the
@@ -858,6 +859,509 @@ composite_loss_bwd_kernel(const T* __restrict__ h, int F, const T* __restrict__ 
   }
 }
 
+// --------------------------------------- composite_loss_bwd, a block a ray
+//
+// The contract of composite_loss_bwd_kernel above (the "warp" body, kept for
+// comparison), laid out so that a ray's samples run side by side: one block
+// of CLB2_THREADS a ray (the "block" body).
+//   1. the narrow heads of every sample: warps take samples; a lane reads 16
+//      bytes of h, r, s2 and bh at a time (coalesced rows), every chunk of a
+//      sample before the products, against the narrow weights, staged once a
+//      block in shared memory as floats, and the six dot products are
+//      reduced within the warp into shared memory
+//   2. a thread a sample: alpha; the transmittance as an exclusive block scan
+//      of the product of (1 - alpha + 1e-10) (warp scans, then the warps'
+//      totals); the rgb and beta integrals as block sums. A saturated sample
+//      (the last one's delta is 1e10) stays as in the walk: its factor is
+//      1e-10, and 4. divides the suffix sum by it (large, finite) and
+//      multiplies the quotient by 1 - alpha (exactly 0)
+//   3. every thread: the ray's loss terms and cotangents (or the given ones)
+//      from the block sums; thread 0 adds the loss sums
+//   4. a thread a sample: the compositor adjoint, its suffix sum of dw * w a
+//      reverse exclusive block scan; the narrow pre-activation cotangents,
+//      rounded to the compute type into shared memory; dbn's and d_sky's
+//      block sums
+//   5. the outer products by columns: an item is 16 bytes' worth of columns
+//      of h, r, s2 or bh (8 bf16, 4 fp32) and one of eight ranges of the
+//      ray's samples; a thread walks its items' rows, four (r: two) in
+//      flight at a time, writing d_h = gb_sig w_sig (d_r = sum_c gb_c w_c,
+//      d_s2, d_bh) as 16-byte fp32 stores and summing its columns of dWn in
+//      registers; the items' sums meet in shared memory (a block-level
+//      reduction), then one atomicAdd a column a ray
+//   6. sky_1 and the relu of sky_0, once a ray, as in the walk.
+// Bound by device memory, as the walk: h, r, s2 and bh are read twice (the
+// second time mostly from L2) and four cotangents written in fp32 (PERF.md:
+// 0.151 ms at 1,024 rays x 64 samples); the walk's serial chain of warp
+// reductions kept it far from that. The sums run in another order than the
+// walk's (scans, block sums), so the last bits differ. S is at most
+// CLB2_THREADS (a thread a sample in 2 and 4), the most the wrappers take
+// (ops/fused_mlp.py _adjoint_buffers).
+// vec: F and Fh multiples of 16 bytes' worth and the row tensors 16-byte
+// aligned (else element loads and stores).
+
+// SATNERF_CLB_ABLATE is 0 unless tools/profile_render_torch.py --composite
+// builds this file with it, to time the block body's parts alone: 1 drops the
+// outer products (5.), 2 the heads' loads (1., dot products of nothing), 3
+// both (the per-sample arithmetic, the scans and the block's barriers).
+#ifndef SATNERF_CLB_ABLATE
+#define SATNERF_CLB_ABLATE 0
+#endif
+
+constexpr int CLB2_THREADS = 256;
+constexpr int CLB2_WARPS = CLB2_THREADS / 32;
+constexpr int CLB2_SUMS = 9;  // block sums after the adjoint: dbn 0:5 and 8, d_sky 3
+constexpr int CLB2_RANGES = 8;  // the outer products cut each column's samples in 8
+
+template <typename T> struct Vec16 { static constexpr int N = 16 / sizeof(T); };
+
+// Values [k, k + N) of a row of n, zero past n; vec: one 16-byte load.
+template <typename T>
+__device__ __forceinline__ void row_chunk(const T* __restrict__ row, int k, int n, bool vec,
+                                          float (&x)[Vec16<T>::N]) {
+  constexpr int N = Vec16<T>::N;
+  if (vec) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(row + k);
+    const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = to_f32<T>(v[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = k + i < n ? to_f32<T>(row[k + i]) : 0.f;
+  }
+}
+
+// out[k, k + N) = v, fp32, columns past n left alone; vec: 16-byte stores.
+template <int N>
+__device__ __forceinline__ void store_chunk(float* __restrict__ row, int k, int n, bool vec,
+                                            const float (&v)[N]) {
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4)
+      *reinterpret_cast<float4*>(row + k + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (k + i < n) row[k + i] = v[i];
+  }
+}
+
+// The sums over the block of each v[i]; every thread gets the same totals.
+// scratch: CLB2_WARPS * M floats.
+template <int M>
+__device__ __forceinline__ void block_sums(float (&v)[M], float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    v[i] = warp_sum(v[i]);
+    if (lane == 0) scratch[warp * M + i] = v[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    v[i] = 0.f;
+    for (int w = 0; w < CLB2_WARPS; ++w) v[i] += scratch[w * M + i];
+  }
+  __syncthreads();
+}
+
+// The product of f over the threads before this one (1 for thread 0).
+__device__ __forceinline__ float block_exclusive_product(float f, float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  float inc = f;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc *= u;
+  }
+  if (lane == 31) scratch[warp] = inc;
+  __syncthreads();
+  float pre = 1.f;
+  for (int w = 0; w < warp; ++w) pre *= scratch[w];
+  float exc = __shfl_up_sync(0xffffffffu, inc, 1);
+  if (lane == 0) exc = 1.f;
+  __syncthreads();
+  return pre * exc;
+}
+
+// The sum of v over the threads after this one (0 for the last).
+__device__ __forceinline__ float block_exclusive_suffix_sum(float v, float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  float inc = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_down_sync(0xffffffffu, inc, o);
+    if (lane + o < 32) inc += u;
+  }
+  if (lane == 0) scratch[warp] = inc;
+  __syncthreads();
+  float post = 0.f;
+  for (int w = CLB2_WARPS - 1; w > warp; --w) post += scratch[w];
+  float exc = __shfl_down_sync(0xffffffffu, inc, 1);
+  if (lane == 31) exc = 0.f;
+  __syncthreads();
+  return post + exc;
+}
+
+// The shared memory of a block, in floats: the narrow weights (rows padded
+// to Fp = F and Fhp = Fh rounded up to 8), the six per-sample head values and
+// the six rounded cotangents (S each), the block sums' and scans' scratch,
+// sky, and the column sums of dWn's rows 0 .. 4 and 8.
+__host__ __device__ constexpr int clb2_smem_floats(int F, int Fh, int S) {
+  return (F + 7) / 8 * 8 + 8 * ((Fh + 7) / 8 * 8) + 12 * S + CLB2_WARPS * CLB2_SUMS + 4 + F +
+         5 * Fh;
+}
+
+// Registers for 2 blocks an SM (at most 128 a thread, no spills): builds for
+// 1 (174 registers) and 3 (80, with spills) ran slower, 0.613 and 0.425
+// against 0.384 ms at 1,024 rays x 64 on an H100 (PERF.md section 6).
+template <typename T, bool GIVEN>
+__global__ void __launch_bounds__(CLB2_THREADS, 2)
+composite_loss_bwd_block(const T* __restrict__ h, int F, const T* __restrict__ rf,
+                         const T* __restrict__ s2, const T* __restrict__ bh,
+                         const T* __restrict__ skyh, int Fh, const T* __restrict__ Wn,
+                         const float* __restrict__ bn, const float* __restrict__ z,
+                         const float* __restrict__ noise, const float* __restrict__ gt,
+                         const float* __restrict__ g_ray, int R, int S, float rgb_padding,
+                         float beta_min, float wmix, int vec,
+                         float* __restrict__ loss_sums, float* __restrict__ weights,
+                         float* __restrict__ d_h, float* __restrict__ d_r,
+                         float* __restrict__ d_s2, float* __restrict__ d_bh,
+                         float* __restrict__ d_skyh, float* __restrict__ dWn,
+                         float* __restrict__ dbn) {
+  constexpr int V = Vec16<T>::N;
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid / 32;
+  const int ray = blockIdx.x;
+  const int Fp = (F + 7) / 8 * 8, Fhp = (Fh + 7) / 8 * 8;
+  float* w_sig = smem;                 // Fp
+  float* w_rgb = w_sig + Fp;           // 3 x Fhp
+  float* w_sun = w_rgb + 3 * Fhp;      // Fhp
+  float* w_sky = w_sun + Fhp;          // 3 x Fhp
+  float* w_beta = w_sky + 3 * Fhp;     // Fhp
+  float* v_sig = w_beta + Fhp;         // the heads a sample: sigma, albedo x3, sun_v, beta
+  float* v_c = v_sig + S;              // 3 x S
+  float* v_sun = v_c + 3 * S;
+  float* v_beta = v_sun + S;
+  float* cot_sig = v_beta + S;         // the rounded cotangents a sample
+  float* cot_rgb = cot_sig + S;        // 3 x S
+  float* cot_sun = cot_rgb + 3 * S;
+  float* cot_beta = cot_sun + S;
+  float* scratch = cot_beta + S;       // CLB2_WARPS x CLB2_SUMS
+  float* sky = scratch + CLB2_WARPS * CLB2_SUMS;  // 3, and a float of padding
+  float* red = sky + 4;                // dWn rows 0 .. 4 and 8: F + 5 Fh
+  const bool use_beta = bh != nullptr;
+  const float pad2 = 1.f + 2.f * rgb_padding;
+
+  // ---- the narrow weights as floats, zero past F / Fh
+  for (int i = tid; i < Fp; i += CLB2_THREADS) w_sig[i] = i < F ? to_f32<T>(Wn[i]) : 0.f;
+  for (int i = tid; i < 8 * Fhp; i += CLB2_THREADS) {
+    const int row = 1 + i / Fhp, k = i % Fhp;  // Wn rows 1 .. 8 in the order above
+    w_rgb[i] = k < Fh && (row != 8 || use_beta) ? to_f32<T>(Wn[(size_t)row * F + k]) : 0.f;
+  }
+  for (int i = tid; i < F + 5 * Fh; i += CLB2_THREADS) red[i] = 0.f;
+  __syncthreads();
+
+  // ---- 1. the heads: warps take samples; warp 0 also sky, once a ray
+  if (warp == 0) {
+    const T* x = skyh + (size_t)ray * Fh;
+    float sk[3] = {0.f, 0.f, 0.f};
+    for (int k = lane; k < Fh; k += 32) {
+      const float v = to_f32<T>(x[k]);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) sk[c] = fmaf(v, w_sky[c * Fhp + k], sk[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float v = sigmoidf(warp_sum(sk[c]) + bn[5 + c]);
+      if (lane == 0) sky[c] = v;
+    }
+  }
+  // a lane holds at most CF 16-byte chunks of a sample's h and CH each of its
+  // r, s2 and bh, all loaded before the products
+  constexpr int CF = CLB_MAX_F / (32 * V), CH = CF / 2;
+  for (int s = warp; s < S; s += CLB2_WARPS) {
+    const size_t q = (size_t)ray * S + s;
+    float part[6] = {};  // sigma, albedo x3, sun_v, beta
+    if (!(SATNERF_CLB_ABLATE & 2)) {
+#pragma unroll
+      for (int ci = 0; ci < CF; ++ci) {
+        const int k = (lane + 32 * ci) * V;
+        if (k < F) {
+          float x[V];
+          row_chunk<T>(h + q * F, k, F, vec, x);
+#pragma unroll
+          for (int i = 0; i < V; ++i) part[0] = fmaf(x[i], w_sig[k + i], part[0]);
+        }
+      }
+#pragma unroll
+      for (int ci = 0; ci < CH; ++ci) {
+        const int k = (lane + 32 * ci) * V;
+        if (k < Fh) {
+          float x[V], y[V], b[V];
+          row_chunk<T>(rf + q * Fh, k, Fh, vec, x);
+          row_chunk<T>(s2 + q * Fh, k, Fh, vec, y);
+          if (use_beta) row_chunk<T>(bh + q * Fh, k, Fh, vec, b);
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            part[1] = fmaf(x[i], w_rgb[k + i], part[1]);
+            part[2] = fmaf(x[i], w_rgb[Fhp + k + i], part[2]);
+            part[3] = fmaf(x[i], w_rgb[2 * Fhp + k + i], part[3]);
+            part[4] = fmaf(y[i], w_sun[k + i], part[4]);
+            if (use_beta) part[5] = fmaf(b[i], w_beta[k + i], part[5]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < 6; ++v) part[v] = warp_sum(part[v]);
+    if (lane == 0) {
+      v_sig[s] = softplusf(part[0] + bn[0]);
+      v_c[s] = sigmoidf(part[1] + bn[1]);
+      v_c[S + s] = sigmoidf(part[2] + bn[2]);
+      v_c[2 * S + s] = sigmoidf(part[3] + bn[3]);
+      v_sun[s] = sigmoidf(part[4] + bn[4]);
+      v_beta[s] = use_beta ? softplusf(part[5] + bn[8]) : 0.f;
+    }
+  }
+  __syncthreads();
+
+  // ---- 2. a thread a sample: alpha, the transmittance, the integrals
+  const bool mine = tid < S;
+  const int s = mine ? tid : 0;
+  const size_t q = (size_t)ray * S + s;
+  const float* zr = z + (size_t)ray * S;
+  const float sigma = v_sig[s], sunv = v_sun[s], beta = v_beta[s];
+  const float cs[3] = {v_c[s], v_c[S + s], v_c[2 * S + s]};
+  const float sk[3] = {sky[0], sky[1], sky[2]};
+  const float delta = s < S - 1 ? zr[s + 1] - zr[s] : 1e10f;
+  const float sigma_n = sigma + (noise != nullptr ? noise[q] : 0.f);
+  const float oma = expf(-delta * fmaxf(sigma_n, 0.f));  // 1 - alpha
+  const float alpha = 1.f - oma;
+  const float fac = mine ? 1.f - alpha + 1e-10f : 1.f;  // the walk's transparency factor
+  const float tr = block_exclusive_product(fac, scratch);
+  const float w = mine ? alpha * tr : 0.f;
+  if constexpr (!GIVEN) {
+    if (mine && weights != nullptr) weights[q] = w;
+  }
+  float acc4[4];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    acc4[c] = w * (cs[c] * pad2 - rgb_padding) * (sunv + (1.f - sunv) * sk[c]);
+  acc4[3] = w * beta;
+  block_sums<4>(acc4, scratch);
+  const float rgb_acc[3] = {acc4[0], acc4[1], acc4[2]}, beta_acc = acc4[3];
+
+  // ---- 3. the ray's cotangents: from the loss, or given
+  float g_rgb_ray[3], g_beta_ray = 0.f;
+  float g_alb[3] = {0.f, 0.f, 0.f}, g_sky[3] = {0.f, 0.f, 0.f};
+  float g_depth = 0.f, g_sun = 0.f, g_op = 0.f;
+  if constexpr (GIVEN) {
+    const float* gr = g_ray + (size_t)ray * OUT_COLS;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const bool inside = rgb_acc[c] >= 0.f && rgb_acc[c] <= 1.f;  // the clip's adjoint
+      g_rgb_ray[c] = inside ? gr[c] : 0.f;
+      g_sky[c] = gr[5 + c];
+      g_alb[c] = gr[9 + c];
+    }
+    g_depth = gr[3];
+    g_sun = gr[4];
+    g_beta_ray = use_beta ? gr[8] : 0.f;
+    g_op = gr[12];
+  } else {
+    const float inv3n = 1.f / (3.f * (float)R), invn = 1.f / (float)R;
+    float sq_err = 0.f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float diff = fminf(fmaxf(rgb_acc[c], 0.f), 1.f) - gt[(size_t)ray * 3 + c];
+      sq_err += diff * diff;
+      g_rgb_ray[c] = diff;
+    }
+    float s_sat = 0.f, s_logb = 0.f;
+    float rgb_scale = 2.f * inv3n;
+    if (use_beta) {
+      const float beta_l = beta_acc + beta_min;
+      const float inv_b2 = 1.f / (beta_l * beta_l);
+      s_sat = 0.5f * sq_err * inv_b2;
+      s_logb = logf(beta_l);
+      rgb_scale = wmix * inv_b2 * inv3n + (1.f - wmix) * 2.f * inv3n;
+      g_beta_ray = wmix * (0.5f * invn / beta_l - sq_err * inv_b2 / beta_l * inv3n);
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const bool inside = rgb_acc[c] >= 0.f && rgb_acc[c] <= 1.f;  // the clip's adjoint
+      g_rgb_ray[c] = inside ? g_rgb_ray[c] * rgb_scale : 0.f;
+    }
+    if (tid == 0) {
+      atomicAdd(loss_sums + 0, s_sat);
+      atomicAdd(loss_sums + 1, s_logb);
+      atomicAdd(loss_sums + 2, sq_err);
+    }
+  }
+
+  // ---- 4. a thread a sample: the compositor adjoint
+  float dw = beta * g_beta_ray, d_sunv = 0.f, g_pre_rgb[3], d_sky[3];
+  if constexpr (GIVEN) {
+    dw += g_depth * zr[s] + g_op + sunv * g_sun;
+    d_sunv = w * g_sun;
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float rgb = cs[c] * pad2 - rgb_padding;
+    const float irr = sunv + (1.f - sunv) * sk[c];
+    const float d_irr = w * rgb * g_rgb_ray[c];
+    dw += rgb * irr * g_rgb_ray[c];
+    d_sunv += d_irr * (1.f - sk[c]);
+    d_sky[c] = d_irr * (1.f - sunv);
+    if constexpr (GIVEN) {
+      dw += rgb * g_alb[c] + sk[c] * g_sky[c];
+      d_sky[c] += w * g_sky[c];
+      g_pre_rgb[c] = w * (irr * g_rgb_ray[c] + g_alb[c]) * pad2 * cs[c] * (1.f - cs[c]);
+    } else {
+      g_pre_rgb[c] = w * irr * g_rgb_ray[c] * pad2 * cs[c] * (1.f - cs[c]);
+    }
+  }
+  const float suffix = block_exclusive_suffix_sum(mine ? dw * w : 0.f, scratch);
+  // the factor the forward multiplied the transparency by, formed the same way
+  const float d_alpha = dw * tr - suffix / (1.f - (1.f - oma) + 1e-10f);
+  const float d_sn = sigma_n > 0.f ? d_alpha * oma * delta : 0.f;
+  // softplus' = 1 - exp(-softplus), by expm1 (see the walk above)
+  float b[CLB2_SUMS];
+  b[0] = d_sn * -expm1f(-sigma);
+  b[1] = g_pre_rgb[0];
+  b[2] = g_pre_rgb[1];
+  b[3] = g_pre_rgb[2];
+  b[4] = d_sunv * sunv * (1.f - sunv);
+  b[5] = use_beta ? w * g_beta_ray * -expm1f(-beta) : 0.f;
+  b[6] = d_sky[0];
+  b[7] = d_sky[1];
+  b[8] = d_sky[2];
+  if (!mine) {
+#pragma unroll
+    for (int i = 0; i < CLB2_SUMS; ++i) b[i] = 0.f;
+  } else {
+    cot_sig[s] = round_to<T>(b[0]);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) cot_rgb[c * S + s] = round_to<T>(b[1 + c]);
+    cot_sun[s] = round_to<T>(b[4]);
+    cot_beta[s] = round_to<T>(b[5]);
+  }
+  block_sums<CLB2_SUMS>(b, scratch);  // also makes the rounded cotangents visible
+
+  // ---- 5. the outer products by columns: an item is a unit of columns and
+  // one of CLB2_RANGES ranges of the samples, so that every thread has work;
+  // the items' column sums meet in shared memory, then one atomicAdd a column
+  constexpr int U1 = 4, U3 = 2;  // rows in flight: one head, and r's three
+  const int nh = (F + V - 1) / V, nr = (Fh + V - 1) / V;
+  const int units = (SATNERF_CLB_ABLATE & 1) ? 0 : nh + nr * (use_beta ? 3 : 2);
+  const int per = (S + CLB2_RANGES - 1) / CLB2_RANGES;
+  for (int it = tid; it < units * CLB2_RANGES; it += CLB2_THREADS) {
+    const int u = it % units, j_begin = (it / units) * per;
+    const int j_end = j_begin + per < S ? j_begin + per : S;
+    if (u >= nh && u < nh + nr) {  // r: d_r = sum_c gb_c w_rgb_c, dWn rows 1 .. 3
+      const int k = (u - nh) * V;
+      float a[3][V] = {};
+      for (int j0 = j_begin; j0 < j_end; j0 += U3) {
+        float x[U3][V];
+#pragma unroll
+        for (int uu = 0; uu < U3; ++uu)
+          if (j0 + uu < j_end)
+            row_chunk<T>(rf + ((size_t)ray * S + j0 + uu) * Fh, k, Fh, vec, x[uu]);
+#pragma unroll
+        for (int uu = 0; uu < U3; ++uu) {
+          const int j = j0 + uu;
+          if (j >= j_end) break;
+          const float gb[3] = {cot_rgb[j], cot_rgb[S + j], cot_rgb[2 * S + j]};
+          float d[V];
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            d[i] = 0.f;
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+              a[c][i] = fmaf(gb[c], x[uu][i], a[c][i]);
+              d[i] = fmaf(gb[c], w_rgb[c * Fhp + k + i], d[i]);
+            }
+          }
+          store_chunk<V>(d_r + ((size_t)ray * S + j) * Fh, k, Fh, vec, d);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          if (k + i < Fh && j_begin < j_end) atomicAdd(red + F + c * Fh + k + i, a[c][i]);
+    } else {  // one head: h (sigma, dWn row 0), s2 (sun_v, row 4), bh (beta, row 8)
+      const int head = u < nh ? 0 : u < nh + 2 * nr ? 1 : 2;
+      const int k = (head == 0 ? u : u - nh - head * nr) * V;
+      const int n = head == 0 ? F : Fh;
+      const T* src = head == 0 ? h : head == 1 ? s2 : bh;
+      float* dst = head == 0 ? d_h : head == 1 ? d_s2 : d_bh;
+      const float* gcol = head == 0 ? cot_sig : head == 1 ? cot_sun : cot_beta;
+      const float* wrow = head == 0 ? w_sig : head == 1 ? w_sun : w_beta;
+      float a[V] = {}, wv[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) wv[i] = wrow[k + i];
+      for (int j0 = j_begin; j0 < j_end; j0 += U1) {
+        float x[U1][V];
+#pragma unroll
+        for (int uu = 0; uu < U1; ++uu)
+          if (j0 + uu < j_end)
+            row_chunk<T>(src + ((size_t)ray * S + j0 + uu) * n, k, n, vec, x[uu]);
+#pragma unroll
+        for (int uu = 0; uu < U1; ++uu) {
+          const int j = j0 + uu;
+          if (j >= j_end) break;
+          const float gb = gcol[j];
+          float d[V];
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            a[i] = fmaf(gb, x[uu][i], a[i]);
+            d[i] = gb * wv[i];
+          }
+          store_chunk<V>(dst + ((size_t)ray * S + j) * n, k, n, vec, d);
+        }
+      }
+      float* rrow = red + (head == 0 ? 0 : F + (head == 1 ? 3 : 4) * Fh);
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        if (k + i < n && j_begin < j_end) atomicAdd(rrow + k + i, a[i]);
+    }
+  }
+  __syncthreads();
+  // the block's column sums: dWn rows 0 .. 4 and 8, one atomicAdd a column
+  for (int i = tid; i < F + (use_beta ? 5 : 4) * Fh; i += CLB2_THREADS) {
+    const int row = i < F ? 0 : 1 + (i - F) / Fh, col = i < F ? i : (i - F) % Fh;
+    atomicAdd(dWn + (size_t)(row == 5 ? 8 : row) * F + col, red[i]);
+  }
+
+  // ---- 6. sky_1 and relu of sky_0, once a ray
+  float gb_sky[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) gb_sky[c] = round_to<T>(b[6 + c] * sk[c] * (1.f - sk[c]));
+  for (int k = tid; k < Fh; k += CLB2_THREADS) {
+    const float xv = to_f32<T>(skyh[(size_t)ray * Fh + k]);
+    float d = 0.f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      d = fmaf(gb_sky[c], w_sky[c * Fhp + k], d);
+      atomicAdd(dWn + (size_t)(5 + c) * F + k, gb_sky[c] * xv);
+    }
+    d_skyh[(size_t)ray * Fh + k] = xv > 0.f ? d : 0.f;
+  }
+  // dbn: rows 0 .. 4 and 8 from the sums above, 5 .. 7 sky's
+  if (tid < 9 && (tid != 8 || use_beta)) {
+    float v = 0.f;
+#pragma unroll
+    for (int j = 0; j < 5; ++j)
+      if (j == tid) v = b[j];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      if (5 + c == tid) v = b[6 + c] * sk[c] * (1.f - sk[c]);
+    if (tid == 8) v = b[5];
+    atomicAdd(dbn + tid, v);
+  }
+}
+
 }  // namespace
 
 // ------------------------------------------------------------- C entry points
@@ -988,24 +1492,54 @@ extern "C" int satnerf_siren_dense_wgrad(int dtype, const void* X, int K, const 
   return (int)cudaGetLastError();
 }
 
-// Launch composite_loss_bwd_kernel<T, GIVEN>: GIVEN when a cotangent g is passed.
+// The bodies of composite_loss_bwd and composite_bwd (the wrappers' `body=`):
+// a block a ray (composite_loss_bwd_block) or a warp a ray
+// (composite_loss_bwd_kernel, kept for comparison). Either is run as asked;
+// one that cannot take the launch is refused, never swapped for the other.
+enum { BODY_BLOCK = 0, BODY_WARP = 1 };
+
+// Launch composite_loss_bwd_{block,kernel}<T, GIVEN>: GIVEN when a cotangent g
+// is passed.
 template <typename T>
 static int launch_composite(const void* h, int F, const void* rf, const void* s2,
                             const void* bh, const void* skyh, int Fh, const void* Wn,
                             const void* bn, const void* z, const void* noise, const void* gt,
                             const void* g, int R, int S, float rgb_padding, float beta_min,
                             float wmix, void* loss_sums, void* weights, void* d_h, void* d_r,
-                            void* d_s2, void* d_bh, void* d_skyh, void* dWn, void* dbn,
+                            void* d_s2, void* d_bh, void* d_skyh, void* dWn, void* dbn, int body,
                             void* stream) {
   if (F > CLB_MAX_F || Fh > CLB_MAX_F / 2 || S < 1) return (int)cudaErrorInvalidValue;
+  if (body != BODY_BLOCK && body != BODY_WARP) return (int)cudaErrorInvalidValue;
+  if (body == BODY_BLOCK && S > CLB2_THREADS) return (int)cudaErrorInvalidValue;
   if (R == 0) return (int)cudaSuccess;
-  const int grid = (R + CLB_WARPS - 1) / CLB_WARPS;
-  const size_t smem = (size_t)CLB_WARPS * CLB_SAMPLE_VALS * S * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto t = [](const void* p) { return static_cast<const T*>(p); };
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto o = [](void* p) { return static_cast<float*>(p); };
+  if (body == BODY_BLOCK) {
+    const size_t smem = (size_t)clb2_smem_floats(F, Fh, S) * sizeof(float);
+    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+    const int v = Vec16<T>::N;
+    const bool vec = F % v == 0 && Fh % v == 0 && hopper::aligned16(h) &&
+                     hopper::aligned16(rf) && hopper::aligned16(s2) &&
+                     (bh == nullptr || hopper::aligned16(bh)) && hopper::aligned16(d_h) &&
+                     hopper::aligned16(d_r) && hopper::aligned16(d_s2) &&
+                     (d_bh == nullptr || hopper::aligned16(d_bh));
+    if (g != nullptr)
+      composite_loss_bwd_block<T, true><<<R, CLB2_THREADS, smem, st>>>(
+          t(h), F, t(rf), t(s2), t(bh), t(skyh), Fh, t(Wn), f(bn), f(z), f(noise), nullptr, f(g),
+          R, S, rgb_padding, 0.f, 0.f, vec, nullptr, nullptr, o(d_h), o(d_r), o(d_s2), o(d_bh),
+          o(d_skyh), o(dWn), o(dbn));
+    else
+      composite_loss_bwd_block<T, false><<<R, CLB2_THREADS, smem, st>>>(
+          t(h), F, t(rf), t(s2), t(bh), t(skyh), Fh, t(Wn), f(bn), f(z), f(noise), f(gt), nullptr,
+          R, S, rgb_padding, beta_min, wmix, vec, o(loss_sums), o(weights), o(d_h), o(d_r),
+          o(d_s2), o(d_bh), o(d_skyh), o(dWn), o(dbn));
+    return (int)cudaGetLastError();
+  }
+  const int grid = (R + CLB_WARPS - 1) / CLB_WARPS;
+  const size_t smem = (size_t)CLB_WARPS * CLB_SAMPLE_VALS * S * sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   if (g != nullptr) {
     composite_loss_bwd_kernel<T, true><<<grid, CLB_WARPS * 32, smem, st>>>(
         t(h), F, t(rf), t(s2), t(bh), t(skyh), Fh, t(Wn), f(bn), f(z), f(noise), nullptr, f(g),
@@ -1020,6 +1554,7 @@ static int launch_composite(const void* h, int F, const void* rf, const void* s2
   return (int)cudaGetLastError();
 }
 
+// body: BODY_BLOCK or BODY_WARP, as the wrapper's `body=` asks.
 extern "C" int satnerf_composite_loss_bwd(int dtype, const void* h, int F, const void* rf,
                                           const void* s2, const void* bh, const void* skyh,
                                           int Fh, const void* Wn, const void* bn, const void* z,
@@ -1027,16 +1562,16 @@ extern "C" int satnerf_composite_loss_bwd(int dtype, const void* h, int F, const
                                           float rgb_padding, float beta_min, float wmix,
                                           void* loss_sums, void* weights, void* d_h, void* d_r,
                                           void* d_s2, void* d_bh, void* d_skyh, void* dWn,
-                                          void* dbn, void* stream) {
+                                          void* dbn, int body, void* stream) {
   if (gt == nullptr || loss_sums == nullptr) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_composite<float>(h, F, rf, s2, bh, skyh, Fh, Wn, bn, z, noise, gt, nullptr, R,
                                    S, rgb_padding, beta_min, wmix, loss_sums, weights, d_h, d_r,
-                                   d_s2, d_bh, d_skyh, dWn, dbn, stream);
+                                   d_s2, d_bh, d_skyh, dWn, dbn, body, stream);
   if (dtype == 1)
     return launch_composite<__nv_bfloat16>(h, F, rf, s2, bh, skyh, Fh, Wn, bn, z, noise, gt,
                                            nullptr, R, S, rgb_padding, beta_min, wmix, loss_sums,
-                                           weights, d_h, d_r, d_s2, d_bh, d_skyh, dWn, dbn,
+                                           weights, d_h, d_r, d_s2, d_bh, d_skyh, dWn, dbn, body,
                                            stream);
   return (int)cudaErrorInvalidValue;
 }
@@ -1046,16 +1581,16 @@ extern "C" int satnerf_composite_bwd(int dtype, const void* h, int F, const void
                                      const void* Wn, const void* bn, const void* z,
                                      const void* noise, const void* g, int R, int S,
                                      float rgb_padding, void* d_h, void* d_r, void* d_s2,
-                                     void* d_bh, void* d_skyh, void* dWn, void* dbn,
+                                     void* d_bh, void* d_skyh, void* dWn, void* dbn, int body,
                                      void* stream) {
   if (g == nullptr) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_composite<float>(h, F, rf, s2, bh, skyh, Fh, Wn, bn, z, noise, nullptr, g, R,
                                    S, rgb_padding, 0.f, 0.f, nullptr, nullptr, d_h, d_r, d_s2,
-                                   d_bh, d_skyh, dWn, dbn, stream);
+                                   d_bh, d_skyh, dWn, dbn, body, stream);
   if (dtype == 1)
     return launch_composite<__nv_bfloat16>(h, F, rf, s2, bh, skyh, Fh, Wn, bn, z, noise, nullptr,
                                            g, R, S, rgb_padding, 0.f, 0.f, nullptr, nullptr, d_h,
-                                           d_r, d_s2, d_bh, d_skyh, dWn, dbn, stream);
+                                           d_r, d_s2, d_bh, d_skyh, dWn, dbn, body, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -342,6 +342,15 @@ __device__ __forceinline__ void fence_proxy_async() {
 // w of its warpgroup: element 4j + i of its registers sits at row
 // 16w + lane / 4 + 8 * (i / 2), column 8j + 2 * (lane % 4) + i % 2.
 
+// acc[16 B .. 16 B + 15] with indices the compiler knows: a switch over B
+// keeps acc in registers where acc[16 * b + i] would put it in local memory
+// (the epilogues of siren_dense_wgmma and nerf_dense_wgmma).
+template <int B>
+__device__ __forceinline__ void take16(float (&a)[16], const float (&acc)[64]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) a[i] = acc[16 * B + i];
+}
+
 // The four lanes of a quad each hold one 32-bit word of each of four
 // 8-column blocks (columns 2t, 2t + 1 of block b in w[b], t = lane % 4).
 // Afterwards lane t holds block t whole: w[c] = columns 2c, 2c + 1 of block t,

@@ -46,14 +46,15 @@ SIGNATURES = {
                                   _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dtype, h, F, r, s2, bh, skyh, Fh, Wn, bn, z, noise, gt, R, S,
     # rgb_padding, beta_min, wmix, loss_sums, weights, d_h, d_r, d_s2, d_bh,
-    # d_skyh, dWn, dbn, stream
+    # d_skyh, dWn, dbn, body, stream
     "satnerf_composite_loss_bwd": [_I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                                    _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P,
-                                   _P, _P, _P, _P, _P, _P],
+                                   _P, _P, _P, _P, _P, _I, _P],
     # dtype, h, F, r, s2, bh, skyh, Fh, Wn, bn, z, noise, g, R, S,
-    # rgb_padding, d_h, d_r, d_s2, d_bh, d_skyh, dWn, dbn, stream
+    # rgb_padding, d_h, d_r, d_s2, d_bh, d_skyh, dWn, dbn, body, stream
     "satnerf_composite_bwd": [_I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                              _P, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P],
+                              _P, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _P],
     # dtype, h, F, s2, Fh, Wn, bn, z, noise, R, S, scale, sums, d_s2, dWn,
     # dbn, stream
     "satnerf_sc_loss_bwd": [_I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _F,
@@ -66,9 +67,9 @@ SIGNATURES = {
     "satnerf_field_heads_bwd": [_I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I,
                                 _I, _F, _P, _P, _P, _P, _P, _P, _P, _P],
     # dtype, X, K, W, bias, rays8, z, S, enc_mode, n_freq, e_rows, C, act, Y,
-    # P, N, stream
+    # P, N, mainloop, stream
     "satnerf_nerf_dense": [_I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I,
-                           _P, _I, _I, _P],
+                           _P, _I, _I, _I, _P],
     # dtype, dY, Ymask, W, dX, accumulate, P, N, K, mainloop, stream
     "satnerf_nerf_dense_dgrad": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dtype, X, K, dY, Ymask, rays8, z, S, enc_mode, n_freq, e_rows, dW, db,

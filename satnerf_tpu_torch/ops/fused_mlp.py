@@ -45,9 +45,11 @@ behind a wrapper here with a plain PyTorch version beside it:
   heads_composite     the narrow heads and the alpha compositor, a warp per
                       ray (serving; with sigma noise, K4's forward)
   composite_loss_bwd  narrow heads, compositor, loss and all their adjoints,
-                      a warp per ray (training)
-  composite_bwd       the same walk from a given (R, 16) cotangent of the
-                      per-ray products (K4's backward)
+                      a block per ray: the samples side by side, the
+                      transmittance and its adjoint as block scans (training;
+                      `body="warp"` runs the earlier walk of a warp a ray)
+  composite_bwd       the same from a given (R, 16) cotangent of the per-ray
+                      products (K4's backward)
   sc_loss_bwd         sigma and sun_v heads, compositor forward, terms 2 and
                       3 and the sun_v head's adjoint, a warp per ray (K3)
   siren_dense_dgrad   dX (+)= (dY * slope) . W^T
@@ -128,15 +130,23 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAINLOOP_LAUNCHES: dict = {}
 MAINLOOPS = ("wmma", "wgmma")  # what `mainloop=` may ask for; None: the rule
 MAINLOOP_KERNELS = ("siren_dense", "siren_dense_dgrad", "siren_dense_wgrad",
-                    "nerf_dense_dgrad", "nerf_dense_wgrad")
+                    "nerf_dense", "nerf_dense_dgrad", "nerf_dense_wgrad")
 _MAINLOOP_CODE = {"wmma": 1, "wgmma": 2}  # csrc/common.cuh MAINLOOP_*; 0: rule
-DENSE_WGMMA_MAX_K = 512  # csrc/fused_render.cu FWD_MAX_K
+DENSE_WGMMA_MAX_K = 512  # csrc/fused_render.cu FWD_MAX_K, fused_nerf.cu NDW_MAX_K
+
+# The two bodies of composite_loss_bwd and composite_bwd (`body=`): a block
+# a ray, the default, or the earlier walk of a warp a ray, kept to compare;
+# (kernel, body) -> launches
+COMPOSITE_BODIES = ("block", "warp")
+_BODY_CODE = {"block": 0, "warp": 1}  # csrc/fused_train.cu BODY_*
+BODY_LAUNCHES: dict = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     MAINLOOP_LAUNCHES.clear()
+    BODY_LAUNCHES.clear()
 
 
 def _check_mainloop(mainloop) -> None:
@@ -149,28 +159,31 @@ def dense_mainloop(kernel: str, dtype: torch.dtype, k: int, n: int, *,
                    inputs_aligned: bool = True, outputs_aligned: bool = True,
                    e_rows: int = 0, mainloop: Optional[str] = None) -> str:
     """The mainloop a launch of siren_dense, siren_dense_dgrad,
-    siren_dense_wgrad, nerf_dense_dgrad or nerf_dense_wgrad takes on the
-    card: the rule of their C entries (csrc/fused_render.cu,
+    siren_dense_wgrad, nerf_dense, nerf_dense_dgrad or nerf_dense_wgrad takes
+    on the card: the rule of their C entries (csrc/fused_render.cu,
     csrc/fused_train.cu, csrc/fused_nerf.cu), which the wrappers call to
     build what they pass.
 
-    siren_dense: k = K (0 for layer 0 and sky_0), n = N; the inputs are X and
-    W, the outputs Y and the saved slope. The dgrads: k = K (dX's columns),
-    n = N (the reduction); the inputs are dY, the slope or the relu's mask Y,
-    and W, the output dX. The wgrads: k = K (0 for layer 0, and sky_0), n =
-    N; the inputs are X, dY and the slope or mask, the outputs (allocated by
-    the wrapper) are always aligned; nerf_dense_wgrad's e_rows = the rows of
-    its encoding weight (0: none). `*_aligned`: every such pointer is a
-    multiple of 16 bytes.
+    siren_dense and nerf_dense: k = K (0 for layer 0 and sky_0), n = N; the
+    inputs are X and W (nerf_dense: and the encoding's weight C), the outputs
+    Y and the saved slope. The dgrads: k = K (dX's columns), n = N (the
+    reduction); the inputs are dY, the slope or the relu's mask Y, and W, the
+    output dX. The wgrads: k = K (0 for layer 0, and sky_0), n = N; the
+    inputs are X, dY and the slope or mask, the outputs (allocated by the
+    wrapper) are always aligned. e_rows (nerf_dense and nerf_dense_wgrad) =
+    the rows of the encoding weight (0: none). `*_aligned`: every such
+    pointer is a multiple of 16 bytes.
 
       k0     siren_dense and siren_dense_wgrad with K = 0 (no GEMM)
       simt   fp32, and bf16 of shapes no tensor-core mainloop takes
       wgmma  bf16, K and N multiples of 64, inputs and outputs aligned;
-             siren_dense keeps a 128-column slice of W in shared memory:
-             K <= 512; nerf_dense_wgrad's encoding is one wgmma tile of its
-             own: e_rows 0, 32 or 64 (K = 0, layer 0: the encoding alone)
-      wmma   bf16, N (siren_dense and the wgrads: and K) a multiple of 8,
-             inputs aligned
+             siren_dense and nerf_dense keep a 128-column slice of W in
+             shared memory: K <= 512; the nerf kernels' encoding is one wgmma
+             tile of its own: e_rows 0, 32 or 64 (K = 0, layer 0: the
+             encoding alone)
+      wmma   bf16, N (siren_dense, nerf_dense and the wgrads: and K) a
+             multiple of 8, inputs aligned; nerf_dense's e_rows a multiple
+             of 32
 
     mainloop "wmma" / "wgmma" asks for that one and raises ValueError where
     it cannot run; there is no other fallback.
@@ -183,12 +196,14 @@ def dense_mainloop(kernel: str, dtype: torch.dtype, k: int, n: int, *,
     if kernel in ("siren_dense", "siren_dense_wgrad") and k == 0:
         rule, takes = "k0", ()
     else:
-        mma_shape = n % 8 == 0 and (dgrad or k % 8 == 0)
+        mma_shape = (n % 8 == 0 and (dgrad or k % 8 == 0)
+                     and (kernel != "nerf_dense" or e_rows % 32 == 0))
         enc_ok = e_rows in (0, 32, 64)
+        forward = kernel in ("siren_dense", "nerf_dense")
         takes = tuple(name for name, ok in (
             ("wgmma", bf16 and k % 64 == 0 and n % 64 == 0 and inputs_aligned
              and outputs_aligned and enc_ok
-             and (kernel != "siren_dense" or k <= DENSE_WGMMA_MAX_K)),
+             and (not forward or k <= DENSE_WGMMA_MAX_K)),
             ("wmma", bf16 and mma_shape and inputs_aligned)) if ok)
         rule = takes[0] if takes else "simt"
     if mainloop is None:
@@ -224,15 +239,16 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch(name: str, *args, mainloop: Optional[str] = None) -> None:
+def _launch(name: str, *args, mainloop: Optional[str] = None,
+            body: Optional[str] = None) -> None:
     from satnerf_tpu_torch.ops._build import load_library
 
     fn = getattr(load_library(), f"satnerf_{name}")
     err = fn(*args)
     LAUNCHES[name] += 1
-    if mainloop is not None:
-        key = (name, mainloop)
-        MAINLOOP_LAUNCHES[key] = MAINLOOP_LAUNCHES.get(key, 0) + 1
+    for counts, variant in ((MAINLOOP_LAUNCHES, mainloop), (BODY_LAUNCHES, body)):
+        if variant is not None:
+            counts[(name, variant)] = counts.get((name, variant), 0) + 1
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
@@ -964,12 +980,22 @@ def _adjoint_buffers(name, n_rays, n_s, p, feat, fh, use_beta, dev) -> dict:
             "dbn": f32(9, make=torch.zeros)}
 
 
+def _check_body(body: str) -> None:
+    if body not in COMPOSITE_BODIES:
+        raise ValueError(f"body must be one of {COMPOSITE_BODIES}, got {body!r}")
+
+
 def composite_loss_bwd(h, r, s2, bh, skyh, wn, bn, z, noise, gt, wmix: float,
                        *, rgb_padding: float = 0.001,
                        beta_min: float = L.BETA_MIN,
-                       return_weights: bool = False) -> dict:
+                       return_weights: bool = False,
+                       body: str = "block") -> dict:
     """Narrow heads, compositor, loss and their adjoints; arguments and
-    returns as composite_loss_bwd_reference. CUDA tensors launch the kernel."""
+    returns as composite_loss_bwd_reference. CUDA tensors launch the kernel
+    with the body asked for: "block" (a block a ray) or "warp" (the walk of
+    a warp a ray, to compare), counted in BODY_LAUNCHES; either takes at
+    most 256 samples a ray."""
+    _check_body(body)
     if z.device.type == "cpu":
         return composite_loss_bwd_reference(
             h, r, s2, bh, skyh, wn, bn, z, noise, gt, wmix,
@@ -993,7 +1019,8 @@ def composite_loss_bwd(h, r, s2, bh, skyh, wn, bn, z, noise, gt, wmix: float,
             float(beta_min), float(wmix), _ptr(res["loss_sums"]),
             _ptr(res["weights"]), _ptr(res["d_h"]), _ptr(res["d_r"]),
             _ptr(res["d_s2"]), _ptr(res["d_bh"]), _ptr(res["d_skyh"]),
-            _ptr(res["dwn"]), _ptr(res["dbn"]), _stream(z))
+            _ptr(res["dwn"]), _ptr(res["dbn"]), _BODY_CODE[body], _stream(z),
+            body=body)
     return res
 
 
@@ -1017,9 +1044,11 @@ def composite_bwd_reference(h, r, s2, bh, skyh, wn, bn, z, noise, g, *,
 
 
 def composite_bwd(h, r, s2, bh, skyh, wn, bn, z, noise, g, *,
-                  rgb_padding: float = 0.001) -> dict:
+                  rgb_padding: float = 0.001, body: str = "block") -> dict:
     """The adjoint of heads_composite from a given cotangent; arguments and
-    returns as composite_bwd_reference. CUDA tensors launch the kernel."""
+    returns as composite_bwd_reference. CUDA tensors launch the kernel with
+    the body asked for, as composite_loss_bwd."""
+    _check_body(body)
     if z.device.type == "cpu":
         return composite_bwd_reference(h, r, s2, bh, skyh, wn, bn, z, noise,
                                        g, rgb_padding=rgb_padding)
@@ -1037,7 +1066,7 @@ def composite_bwd(h, r, s2, bh, skyh, wn, bn, z, noise, g, *,
             _ptr(noise), _ptr(g), n_rays, n_s, float(rgb_padding),
             _ptr(res["d_h"]), _ptr(res["d_r"]), _ptr(res["d_s2"]),
             _ptr(res["d_bh"]), _ptr(res["d_skyh"]), _ptr(res["dwn"]),
-            _ptr(res["dbn"]), _stream(z))
+            _ptr(res["dbn"]), _BODY_CODE[body], _stream(z), body=body)
     return res
 
 

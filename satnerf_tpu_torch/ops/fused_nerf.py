@@ -38,10 +38,11 @@ A wrapper given a CUDA tensor launches its kernel or raises; given a CPU
 tensor it runs its plain version. There is no fallback from one to the other.
 Every launch adds one to ops/fused_mlp.LAUNCHES[name].
 
-nerf_dense_dgrad and nerf_dense_wgrad have the mainloops of the SIREN
-backward (wgmma, wmma, simt; ops/fused_mlp.dense_mainloop is their rule,
-`mainloop=` asks for one by hand and each launch is counted in
-MAINLOOP_LAUNCHES). On wgmma the wgrad forms dW, dC and db in one launch;
+nerf_dense has the mainloops of siren_dense (wgmma: the encoding a k tile
+computed into shared memory; wmma; simt), nerf_dense_dgrad and
+nerf_dense_wgrad those of the SIREN backward (wgmma, wmma, simt);
+ops/fused_mlp.dense_mainloop is their rule, `mainloop=` asks for one by hand
+and each launch is counted in MAINLOOP_LAUNCHES. On wgmma the wgrad forms dW, dC and db in one launch;
 on the others nerf_bias_grad sums db beside it (`nerf_bias_grad_runs`),
 counted in LAUNCHES["nerf_bias_grad"].
 
@@ -137,10 +138,13 @@ def _check_enc_call(rays8, samples, enc, enc_rows: int, z, n_freq: int):
 
 def nerf_dense(x, weight, bias, rays8, samples: int, *,
                enc: Optional[str] = None, enc_weight=None, z=None,
-               n_freq: int = 0, act: str = "relu"):
+               n_freq: int = 0, act: str = "relu",
+               mainloop: Optional[str] = None):
     """One dense layer of the nerf field; arguments as nerf_dense_reference.
-    CUDA tensors launch the nerf_dense kernel; CPU tensors run the plain
-    version."""
+    CUDA tensors launch the nerf_dense kernel on the mainloop
+    `dense_mainloop` gives (None: the rule; "wmma" / "wgmma" by hand); CPU
+    tensors run the plain version."""
+    _check_mainloop(mainloop)
     if rays8.device.type == "cpu":
         return nerf_dense_reference(x, weight, bias, rays8, samples, enc=enc,
                                     enc_weight=enc_weight, z=z, n_freq=n_freq,
@@ -166,10 +170,14 @@ def nerf_dense(x, weight, bias, rays8, samples: int, *,
         raise ValueError(f"x {tuple(x.shape)} / weight {tuple(weight.shape)} "
                          f"do not fit P={p}, N={n}")
     y = torch.empty((p, n), dtype=dtype, device=rays8.device)
+    e_rows = 0 if enc is None else enc_weight.shape[0]
+    loop = dense_mainloop("nerf_dense", dtype, k, n, e_rows=e_rows,
+                          inputs_aligned=_aligned(x, weight, enc_weight),
+                          outputs_aligned=_aligned(y), mainloop=mainloop)
     _launch("nerf_dense", _DTYPE_CODE[dtype], _ptr(x), k, _ptr(weight),
             _ptr(bias), _ptr(rays8), _ptr(z), samples, _ENC[enc], n_freq,
-            0 if enc is None else enc_weight.shape[0], _ptr(enc_weight),
-            _ACT[act], _ptr(y), p, n, _stream(rays8))
+            e_rows, _ptr(enc_weight), _ACT[act], _ptr(y), p, n,
+            _MAINLOOP_CODE.get(loop, 0), _stream(rays8), mainloop=loop)
     return y
 
 

@@ -44,7 +44,14 @@ every bf16 launch of its 8 x 256 chain (the dgrad masked and linear, with
 accumulation; the wgrad with both encodings, and layer 0's encoding alone)
 at 65,536 points and at 65,573 points that are their own rays, against the
 plain version and the same launch on wmma, nerf_bias_grad launched only
-beside a wmma wgrad, and the launches a forced wgmma cannot take.
+beside a wmma wgrad, and the launches a forced wgmma cannot take; for
+nerf_dense on the wgmma mainloop every launch of the 8 x 256 chain (and K
+= 512, an encoding of 32 rows, partial column slices) at 65,536 points, at
+65,573 points that are their own rays and at small ragged counts against the
+plain version and wmma, and the launches a forced wgmma cannot take; and the
+two bodies of composite_loss_bwd and composite_bwd (a block a ray, a warp a
+ray) against each other and the plain version at up to 256 samples a ray,
+and 288 samples refused on either.
 """
 
 import numpy as np
@@ -1683,3 +1690,162 @@ def test_a_forced_nerf_wgmma_that_cannot_run_raises(dev):
     for moved in ((_odd(x), dy, y), (x, _odd(dy), y), (x, dy, _odd(y))):
         with pytest.raises(ValueError):
             FN.nerf_dense_wgrad(*moved, *rest, mainloop="wgmma", **kw)
+
+
+# (K, N, encoding, n_freq, act): every nerf_dense launch of the 8 x 256 chain
+NERF_DENSE = [(0, 256, "xyz", 10, "relu"),     # layer 0: the encoding alone
+              (256, 256, None, 0, "relu"),     # trunk layers
+              (256, 256, "xyz", 10, "relu"),   # the skip layer
+              (256, 256, None, 0, "none"),     # feats
+              (256, 128, "dir", 4, "relu")]    # rgb_0
+
+
+@pytest.mark.parametrize("k,n,enc,n_freq,act", NERF_DENSE + [
+    (512, 192, "dir", 10, "relu"),   # K at the W slice's limit, a partial slice
+    (128, 64, "xyz", 5, "relu")])    # an encoding of 32 rows, half a slice
+@pytest.mark.parametrize("n_rays,samples", NERF_POINTS + [(37, 16), (3, 72)])
+def test_nerf_dense_wgmma(dev, k, n, enc, n_freq, act, n_rays, samples):
+    """nerf_dense on wgmma against the plain version and the same launch on
+    wmma: one bf16 rounding step of each entry (the two mainloops compute the
+    same rounded encoding and sum in fp32 in another order)."""
+    rays8, z = _rays8(n_rays, samples, dev, seed=18)
+    g = torch.Generator().manual_seed(18)
+    p = n_rays * samples
+    x = torch.rand(p, k, generator=g).to(dev, torch.bfloat16) if k else None
+    w = (torch.randn(k, n, generator=g) * 0.1).to(dev, torch.bfloat16) if k else None
+    b = torch.randn(n, generator=g).to(dev) * 0.1
+    c = _enc_weight(n_freq, n, g, dev, torch.bfloat16) if enc else None
+    kw = dict(enc=enc, enc_weight=c, z=z, n_freq=n_freq, act=act)
+    rows = 0 if c is None else c.shape[0]
+    assert FM.dense_mainloop("nerf_dense", torch.bfloat16, k, n, e_rows=rows) == "wgmma"
+    before = {m: _count("nerf_dense", m) for m in ("wgmma", "wmma")}
+    got = FN.nerf_dense(x, w, b, rays8, samples, mainloop="wgmma", **kw)
+    rule = FN.nerf_dense(x, w, b, rays8, samples, **kw)
+    wmma = FN.nerf_dense(x, w, b, rays8, samples, mainloop="wmma", **kw)
+    assert _count("nerf_dense", "wgmma") == before["wgmma"] + 2
+    assert _count("nerf_dense", "wmma") == before["wmma"] + 1
+    ref = FN.nerf_dense_reference(x, w, b, rays8, samples, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == (p, n)
+    for other in (ref, wmma):
+        d = (got.float() - other.float()).abs()
+        assert bool((d <= 2.0 ** -7 * other.float().abs() + 1e-4).all()), d.max()
+    assert torch.equal(got, rule)  # no atomics: the same bits every run
+
+
+def test_a_forced_nerf_dense_wgmma_that_cannot_run_raises(dev):
+    """fp32, widths that are not multiples of 64, K past the W slice, an
+    encoding of 96 rows, operands whose pointers are not 16-byte aligned:
+    the rule keeps them off wgmma, and asking for it raises."""
+    rays8, z = _rays8(37, 16, dev, seed=19)
+    g = torch.Generator().manual_seed(19)
+    p = 37 * 16
+
+    def operands(k, n, n_freq, rows, dtype=torch.bfloat16):
+        x = torch.rand(p, k, generator=g).to(dev, dtype)
+        w = (torch.randn(k, n, generator=g) * 0.1).to(dev, dtype)
+        c = torch.randn(rows, n, generator=g) * 0.3
+        c[6 * n_freq:] = 0
+        return x, w, torch.randn(n, generator=g).to(dev), c.to(dev, dtype)
+
+    for k, n, n_freq, rows, dtype in ((256, 256, 10, 64, torch.float32),
+                                      (96, 96, 10, 64, torch.bfloat16),
+                                      (576, 256, 10, 64, torch.bfloat16),
+                                      (256, 256, 16, 96, torch.bfloat16)):
+        x, w, b, c = operands(k, n, n_freq, rows, dtype)
+        kw = dict(enc="xyz", enc_weight=c, z=z, n_freq=n_freq)
+        with pytest.raises(ValueError):
+            FN.nerf_dense(x, w, b, rays8, 16, mainloop="wgmma", **kw)
+        got = FN.nerf_dense(x, w, b, rays8, 16, **kw)  # the rule: not wgmma
+        _close(got, FN.nerf_dense_reference(x, w, b, rays8, 16, **kw),
+               dtype == torch.bfloat16)
+    x, w, b, c = operands(256, 256, 10, 64)
+    kw = dict(enc="xyz", z=z, n_freq=10)
+    for moved in ((_odd(x), w, c), (x, _odd(w), c), (x, w, _odd(c))):
+        with pytest.raises(ValueError):
+            FN.nerf_dense(moved[0], moved[1], b, rays8, 16, enc_weight=moved[2],
+                          mainloop="wgmma", **kw)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("beta,with_noise,n_rays,n_s,feat", [
+    (True, True, 1024, 64, 512), (True, False, 53, 128, 512),
+    (False, True, 11, 256, 512), (True, True, 9, 5, 36)])
+def test_composite_bodies_agree(dev, dtype, beta, with_noise, n_rays, n_s, feat):
+    """composite_loss_bwd and composite_bwd a block a ray (the default)
+    against the warp a ray and the plain version: 1e-4 of each tensor's
+    largest entry, a cotangent entry in bf16 also one step of itself or, for
+    d_r and d_skyh, which sum three products of rounded cotangents, of one of
+    its terms (the bodies sum in other orders and may round a cotangent to
+    either side of a bf16 boundary); 256 samples fill the block, F = 36 takes
+    element loads."""
+    g = torch.Generator().manual_seed(20)
+    p, fh = n_rays * n_s, feat // 2
+
+    def t(*shape, scale=1.0):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * scale).to(dev, dtype)
+
+    h, r, s2 = t(p, feat), t(p, fh), t(p, fh)
+    bh = t(p, fh) if beta else None
+    skyh = torch.relu(t(n_rays, fh))
+    wn = t(9, feat, scale=0.5)
+    wn[0] *= 40
+    bn = torch.randn(9, generator=g).to(dev)
+    _, z = _rays16(n_rays, n_s, dev)
+    noise = (torch.randn(n_rays, n_s, generator=g) * 2).to(dev) if with_noise else None
+    gt = torch.rand(n_rays, 3, generator=g).to(dev)
+    cot = torch.randn(n_rays, 16, generator=g).to(dev)
+    args = (h, r, s2, bh, skyh, wn, bn, z, noise)
+    before = dict(FM.BODY_LAUNCHES)
+    runs = {b: (FM.composite_loss_bwd(*args, gt, 0.3, return_weights=True, body=b),
+                FM.composite_bwd(*args, cot, body=b)) for b in FM.COMPOSITE_BODIES}
+    default = (FM.composite_loss_bwd(*args, gt, 0.3, return_weights=True),
+               FM.composite_bwd(*args, cot))
+    assert {k: v - before.get(k, 0) for k, v in FM.BODY_LAUNCHES.items()} == {
+        ("composite_loss_bwd", "block"): 2, ("composite_loss_bwd", "warp"): 1,
+        ("composite_bwd", "block"): 2, ("composite_bwd", "warp"): 1}
+    refs = (FM.composite_loss_bwd_reference(*args, gt, 0.3, return_weights=True),
+            FM.composite_bwd_reference(*args, cot))
+    for got, warp, dflt, ref in zip(runs["block"], runs["warp"], default, refs):
+        for other in (ref, warp):
+            assert set(got) == set(other)
+            for k, v in other.items():
+                if v is None:
+                    assert got[k] is None
+                    continue
+                assert bool(torch.isfinite(got[k]).all()), k
+                lim = 1e-4 * v.abs().max()
+                if k.startswith("d_") and dtype == torch.bfloat16:
+                    lim = lim + 2.0 ** -7 * v.abs() + (
+                        2.0 ** -8 * v.abs().max() if k in ("d_r", "d_skyh") else 0)
+                assert bool(((got[k] - v).abs() <= lim).all()), (k, _rel(got[k], v))
+        for k, v in got.items():  # the default is the block body
+            assert (v is None and dflt[k] is None) or _rel(dflt[k], v) <= 1e-4, k
+    with pytest.raises(ValueError):
+        FM.composite_bwd(*args, cot, body="lane")
+
+
+@pytest.mark.parametrize("body", ["block", "warp"])
+def test_composite_refuses_more_than_256_samples(dev, body):
+    """A ray of 288 samples (a hierarchical fine pass past 256) is refused
+    by both wrappers on either body, before any launch, as the wrappers
+    refused it before the block body came: no body takes it in part."""
+    n_rays, n_s, feat = 5, 288, 512
+    g = torch.Generator().manual_seed(21)
+    p, fh = n_rays * n_s, feat // 2
+
+    def t(*shape):
+        return (torch.rand(*shape, generator=g) * 2 - 1).to(dev, torch.bfloat16)
+
+    h, r, s2, bh = t(p, feat), t(p, fh), t(p, fh), t(p, fh)
+    skyh = torch.relu(t(n_rays, fh))
+    wn, bn = t(9, feat), torch.randn(9, generator=g).to(dev)
+    _, z = _rays16(n_rays, n_s, dev)
+    gt = torch.rand(n_rays, 3, generator=g).to(dev)
+    cot = torch.randn(n_rays, 16, generator=g).to(dev)
+    args = (h, r, s2, bh, skyh, wn, bn, z, None)
+    launches, bodies = dict(FM.LAUNCHES), dict(FM.BODY_LAUNCHES)
+    with pytest.raises(ValueError, match="256 samples"):
+        FM.composite_loss_bwd(*args, gt, 0.3, body=body)
+    with pytest.raises(ValueError, match="256 samples"):
+        FM.composite_bwd(*args, cot, body=body)
+    assert FM.LAUNCHES == launches and FM.BODY_LAUNCHES == bodies

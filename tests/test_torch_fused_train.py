@@ -403,6 +403,235 @@ def test_composite_adjoint_formulas_match_autograd(dtype, use_beta, wmix,
         assert float((got[k] - v).abs().max() / scale) <= 1e-5, k
 
 
+def _scan32(x, op, identity, reverse):
+    """The block scans of composite_loss_bwd_block over (R, 256) values, in
+    the kernel's order: a Hillis-Steele scan within each warp of 32 (toward
+    the later lanes, or with `reverse` toward the earlier), then each warp's
+    total, then the totals of the warps before (after) it, taken one by one
+    in warp order; exclusive. Returns (R, 256)."""
+    n_r = x.shape[0]
+    inc = x.reshape(n_r, 8, 32).clone()
+    lane = torch.arange(32)
+    for o in (1, 2, 4, 8, 16):
+        if reverse:
+            u = torch.cat([inc[..., o:], torch.full_like(inc[..., :o], identity)], -1)
+            inc = torch.where(lane + o < 32, op(inc, u), inc)
+        else:
+            u = torch.cat([torch.full_like(inc[..., :o], identity), inc[..., :-o]], -1)
+            inc = torch.where(lane >= o, op(inc, u), inc)
+    tot = inc[..., 31] if not reverse else inc[..., 0]
+    if reverse:
+        exc = torch.cat([inc[..., 1:], torch.full_like(inc[..., :1], identity)], -1)
+    else:
+        exc = torch.cat([torch.full_like(inc[..., :1], identity), inc[..., :-1]], -1)
+    out = torch.empty_like(exc)
+    for w in range(8):
+        acc = torch.full((n_r,), identity)
+        for v in (range(7, w, -1) if reverse else range(w)):
+            acc = op(acc, tot[:, v])
+        out[:, w] = op(acc[:, None], exc[:, w])
+    return out.reshape(n_r, 256)
+
+
+def _block_composite_bwd(h, r, s2, bh, skyh, wn, bn, z, noise, gt=None,
+                         wmix=1.0, g=None, pad=0.001, beta_min=0.05):
+    """The order of csrc/fused_train.cu composite_loss_bwd_block, step by
+    step (the "block" body; the loss instantiation, or with g the given
+    one, composite_bwd): 1. the narrow heads of every sample; 2. a thread a
+    sample, the transmittance as an exclusive product scan (_scan32) of
+    (1 - alpha + 1e-10), 1 on the threads past the last sample; 3. the ray's
+    cotangents from its sums; 4. the suffix sum of dw * w as a reverse
+    exclusive scan, the pre-activation cotangents rounded to the compute
+    type; 5. dWn as the sum of each ray's column sums (the block's one
+    atomicAdd a column) and the cotangents by columns; 6. sky. Sums over
+    samples are taken whole here (the kernel's block sums are warp
+    reductions in another order)."""
+    dt = wn.dtype
+
+    def rnd(x):
+        return x.to(dt).float()
+
+    n_r, n_s = z.shape
+    fh, use_beta, given = r.shape[1], bh is not None, g is not None
+    w = wn.float()
+    hf, rf, sf, skf = h.float(), r.float(), s2.float(), skyh.float()
+    # 1. the heads
+    sigma = F_t.softplus(hf @ w[0] + bn[0]).reshape(n_r, n_s)
+    cs = torch.sigmoid(rf @ w[1:4, :fh].T + bn[1:4]).reshape(n_r, n_s, 3)
+    sunv = torch.sigmoid(sf @ w[4, :fh] + bn[4]).reshape(n_r, n_s)
+    sky = torch.sigmoid(skf @ w[5:8, :fh].T + bn[5:8])
+    beta = (F_t.softplus(bh.float() @ w[8, :fh] + bn[8]).reshape(n_r, n_s)
+            if use_beta else torch.zeros(n_r, n_s))
+    # 2. a thread a sample: 256 threads, those past the last sample idle
+    pad2 = 1 + 2 * pad
+    delta = torch.cat([z[:, 1:] - z[:, :-1], torch.full((n_r, 1), 1e10)], 1)
+    sigma_n = sigma + (noise if noise is not None else 0)
+    oma = torch.exp(-delta * torch.relu(sigma_n))
+    alpha = 1 - oma
+    fac = torch.ones(n_r, 256)
+    fac[:, :n_s] = 1 - alpha + 1e-10
+    trans = _scan32(fac, torch.mul, 1.0, reverse=False)[:, :n_s]
+    wt = alpha * trans
+    rgb = cs * pad2 - pad
+    irr = sunv[..., None] + (1 - sunv[..., None]) * sky[:, None, :]
+    rgb_acc = (wt[..., None] * rgb * irr).sum(1)
+    beta_acc = (wt * beta).sum(1)
+    # 3. the ray's cotangents
+    inside = ((rgb_acc >= 0) & (rgb_acc <= 1)).float()
+    out = {}
+    if given:
+        g_rgb = (g[:, 0:3] * inside)[:, None, :]
+        g_beta = g[:, 8] if use_beta else torch.zeros(n_r)
+    else:
+        diff = rgb_acc.clamp(0, 1) - gt
+        sq = (diff ** 2).sum(1)
+        inv3n, invn = 1 / (3 * n_r), 1 / n_r
+        if use_beta:
+            bl = beta_acc + beta_min
+            ib2 = 1 / bl ** 2
+            out["loss_sums"] = torch.stack([(0.5 * sq * ib2).sum(),
+                                            torch.log(bl).sum(), sq.sum()])
+            scale = wmix * ib2 * inv3n + (1 - wmix) * 2 * inv3n
+            g_beta = wmix * (0.5 * invn / bl - sq * ib2 / bl * inv3n)
+        else:
+            out["loss_sums"] = torch.stack([torch.zeros(()), torch.zeros(()),
+                                            sq.sum()])
+            scale, g_beta = torch.full((n_r,), 2 * inv3n), torch.zeros(n_r)
+        g_rgb = (diff * scale[:, None] * inside)[:, None, :]
+        out["weights"] = wt
+    # 4. a thread a sample: the compositor adjoint
+    d_irr = wt[..., None] * rgb * g_rgb
+    dw = (rgb * irr * g_rgb).sum(-1) + beta * g_beta[:, None]
+    d_sunv = (d_irr * (1 - sky[:, None, :])).sum(-1)
+    d_sky = (d_irr * (1 - sunv[..., None])).sum(1)
+    g_pre = irr * g_rgb
+    if given:
+        dw = dw + g[:, None, 3] * z + g[:, None, 12] + sunv * g[:, None, 4]
+        dw = dw + (rgb * g[:, None, 9:12] + sky[:, None, :] * g[:, None, 5:8]).sum(-1)
+        d_sunv = d_sunv + wt * g[:, None, 4]
+        d_sky = d_sky + (wt[..., None] * g[:, None, 5:8]).sum(1)
+        g_pre = g_pre + g[:, None, 9:12]
+    g_rgb_s = wt[..., None] * g_pre * pad2 * cs * (1 - cs)
+    dww = torch.zeros(n_r, 256)
+    dww[:, :n_s] = dw * wt
+    suffix = _scan32(dww, torch.add, 0.0, reverse=True)[:, :n_s]
+    d_alpha = dw * trans - suffix / (1 - (1 - oma) + 1e-10)
+    d_sn = torch.where(sigma_n > 0, d_alpha * oma * delta, torch.zeros(()))
+    gs = d_sn * -torch.expm1(-sigma)
+    gsu = d_sunv * sunv * (1 - sunv)
+    gb = wt * g_beta[:, None] * -torch.expm1(-beta)
+    # 5. by columns: each ray's column sums, then their sum over the rays
+    p = n_r * n_s
+    dwn, dbn = torch.zeros(9, h.shape[1]), torch.zeros(9)
+    per_ray = lambda c, x: torch.einsum("rs,rsk->rk", rnd(c),  # noqa: E731
+                                        x.reshape(n_r, n_s, -1)).sum(0)
+    dwn[0], dbn[0] = per_ray(gs, hf), gs.sum()
+    for c in range(3):
+        dwn[1 + c, :fh] = per_ray(g_rgb_s[..., c], rf)
+    dbn[1:4] = g_rgb_s.sum((0, 1))
+    dwn[4, :fh], dbn[4] = per_ray(gsu, sf), gsu.sum()
+    out.update({"d_h": rnd(gs).reshape(p, 1) * w[0][None, :],
+                "d_r": rnd(g_rgb_s).reshape(p, 3) @ w[1:4, :fh],
+                "d_s2": rnd(gsu).reshape(p, 1) * w[4, :fh][None, :],
+                "d_bh": None})
+    if use_beta:
+        dwn[8, :fh], dbn[8] = per_ray(gb, bh.float()), gb.sum()
+        out["d_bh"] = rnd(gb).reshape(p, 1) * w[8, :fh][None, :]
+    # 6. sky, once a ray
+    gk = d_sky * sky * (1 - sky)
+    dwn[5:8, :fh], dbn[5:8] = rnd(gk).T @ skf, gk.sum(0)
+    out["d_skyh"] = (rnd(gk) @ w[5:8, :fh]) * (skf > 0)
+    out["dwn"], out["dbn"] = dwn, dbn
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("use_beta,wmix,with_noise,given,faint", [
+    (True, 1.0, False, False, False), (True, 0.3, True, False, False),
+    (False, 0.0, True, False, False), (True, 1.0, False, False, True),
+    (True, 0.0, True, True, False), (False, 0.0, False, True, False),
+    (True, 0.0, False, True, True)],
+    ids=["beta", "beta_gate_noise", "mse_noise", "beta_faint",
+         "given_beta_noise", "given_mse", "given_faint"])
+def test_block_composite_order_matches_autograd(dtype, use_beta, wmix,
+                                                 with_noise, given, faint):
+    """The block body's order against composite_loss_bwd_reference (the loss)
+    and composite_bwd_reference (a given (R, 16) cotangent), 70 samples a ray
+    so that the scans cross three warps. Rays whose opacity saturates early
+    (sigma row scaled by 40), samples whose sigma + noise is negative, and
+    with `faint` sigma = 1e-10 everywhere: only the last sample (delta 1e10)
+    has weight, its factor is 1e-10 and the suffix sum divided by it stays
+    finite. 1e-5 of each tensor's largest entry: float32 arithmetic in
+    another order."""
+    g = torch.Generator().manual_seed(2)
+    n_r, n_s, feat = 5, 70, 32
+    p, fh = n_r * n_s, feat // 2
+
+    def mk(*shape):
+        return (torch.rand(*shape, generator=g) * 2 - 1).to(dtype)
+
+    h, r, s2 = mk(p, feat), mk(p, fh), mk(p, fh)
+    bh = mk(p, fh) if use_beta else None
+    skyh = torch.relu(mk(n_r, fh))
+    wn = mk(9, feat) * 0.8
+    wn[0] *= 40
+    bn = torch.randn(9, generator=g) * 0.3
+    if faint:
+        wn[0], bn[0] = 0.0, -23.0
+    z = torch.sort(torch.rand(n_r, n_s, generator=g) * 3, 1)[0]
+    noise = torch.randn(n_r, n_s, generator=g) * 2 if with_noise else None
+    args = (h, r, s2, bh, skyh, wn, bn, z, noise)
+    if given:
+        cot = torch.randn(n_r, 16, generator=g)
+        ref = FM.composite_bwd_reference(*args, cot)
+        got = _block_composite_bwd(*args, g=cot)
+    else:
+        gt = torch.rand(n_r, 3, generator=g)
+        ref = FM.composite_loss_bwd_reference(*args, gt, wmix,
+                                              return_weights=True)
+        got = _block_composite_bwd(*args, gt=gt, wmix=wmix)
+        assert (ref["weights"].sum(1) > 0.999).any() or faint
+    if faint:
+        assert float(ref["dbn"][0].abs()) > 1e-3  # the last samples pull on sigma
+    assert set(got) == set(ref)
+    for k, v in ref.items():
+        if v is None:
+            assert got[k] is None
+            continue
+        assert torch.isfinite(got[k]).all(), k
+        scale = v.abs().max().clamp_min(1e-20)
+        assert float((got[k] - v).abs().max() / scale) <= 1e-5, k
+
+
+@pytest.mark.parametrize("body", list(FM.COMPOSITE_BODIES))
+def test_cpu_composite_runs_the_plain_version_whatever_body(body):
+    """On the CPU both wrappers run their plain versions whatever `body=`
+    asks, and count nothing; a body they do not know is refused."""
+    g = torch.Generator().manual_seed(3)
+    n_r, n_s, feat = 3, 6, 16
+    p, fh = n_r * n_s, feat // 2
+    args = (torch.rand(p, feat, generator=g), torch.rand(p, fh, generator=g),
+            torch.rand(p, fh, generator=g), torch.rand(p, fh, generator=g),
+            torch.rand(n_r, fh, generator=g), torch.randn(9, feat, generator=g),
+            torch.randn(9, generator=g),
+            torch.sort(torch.rand(n_r, n_s, generator=g), 1)[0], None)
+    gt, cot = torch.rand(n_r, 3, generator=g), torch.randn(n_r, 16, generator=g)
+    launches, bodies = dict(FM.LAUNCHES), dict(FM.BODY_LAUNCHES)
+    got = FM.composite_loss_bwd(*args, gt, 1.0, body=body)
+    ref = FM.composite_loss_bwd_reference(*args, gt, 1.0)
+    got_b = FM.composite_bwd(*args, cot, body=body)
+    ref_b = FM.composite_bwd_reference(*args, cot)
+    for a, b in ((got, ref), (got_b, ref_b)):
+        for k, v in b.items():
+            assert (v is None and a[k] is None) or torch.equal(a[k], v), k
+    assert FM.LAUNCHES == launches and FM.BODY_LAUNCHES == bodies
+    with pytest.raises(ValueError):
+        FM.composite_loss_bwd(*args, gt, 1.0, body="lane")
+    with pytest.raises(ValueError):
+        FM.composite_bwd(*args, cot, body="BLOCK")
+
+
 def test_wrappers_raise_instead_of_falling_back():
     """A wrapper picks its plain version only because its tensor is on the
     CPU; what it cannot run raises."""

@@ -1,7 +1,7 @@
 """Which mainloop siren_dense, siren_dense_dgrad and siren_dense_wgrad (and
-the nerf variant's nerf_dense_dgrad and nerf_dense_wgrad) take on the card,
-when the SIREN wgrad launches small_grads and the nerf wgrad nerf_bias_grad,
-and the `mainloop=` keyword on the CPU.
+the nerf variant's nerf_dense, nerf_dense_dgrad and nerf_dense_wgrad) take on
+the card, when the SIREN wgrad launches small_grads and the nerf wgrad
+nerf_bias_grad, and the `mainloop=` keyword on the CPU.
 
 `dense_mainloop` is the rule of the three kernels' C entries
 (csrc/fused_render.cu, csrc/fused_train.cu) in Python; the wrappers call it
@@ -17,10 +17,10 @@ is asked for, and refuse a name they do not know. The card's side of the
 same rule is held in tests/test_torch_cuda.py.
 
 The nerf variant at 8 x 256 (skip 4, n_freq (10, 4): encoding weights of 64
-and 32 rows) gives its 9 dgrad and 10 wgrad launches a step bf16 shapes that
-all take wgmma, the encoding-only wgrad of layer 0 (K = 0) too, so
-nerf_bias_grad, which sums db beside every other mainloop, runs for none of
-them.
+and 32 rows) gives its 10 forward, 9 dgrad and 10 wgrad launches a step bf16
+shapes that all take wgmma (layer 0's encoding-only forward and wgrad, K = 0,
+too), so nerf_bias_grad, which sums db beside every other mainloop, runs for
+none of them.
 """
 
 import numpy as np
@@ -92,6 +92,27 @@ RULE = [
 
 # (kernel, dtype, K, N, e_rows, inputs aligned, outputs aligned, mainloop)
 NERF_RULE = [
+    # the nerf variant's main path, 8 x 256: nerf_dense (K -> N, the
+    # encoding's rows; feats is a trunk layer's shape without the relu)
+    ("nerf_dense", BF16, 0, 256, 64, True, True, "wgmma"),     # layer 0, xyz
+    ("nerf_dense", BF16, 256, 256, 0, True, True, "wgmma"),    # trunk, feats
+    ("nerf_dense", BF16, 256, 256, 64, True, True, "wgmma"),   # skip, xyz
+    ("nerf_dense", BF16, 256, 128, 32, True, True, "wgmma"),   # rgb_0, dir
+    ("nerf_dense", BF16, 512, 256, 64, True, True, "wgmma"),   # --fc_units 512
+    ("nerf_dense", F32, 256, 256, 64, True, True, "simt"),
+    ("nerf_dense", F32, 0, 256, 64, True, True, "simt"),
+    # an unaligned input leaves both tensor-core mainloops, an unaligned Y
+    # only wgmma (its 16-byte stores)
+    ("nerf_dense", BF16, 256, 256, 64, False, True, "simt"),
+    ("nerf_dense", BF16, 256, 256, 64, True, False, "wmma"),
+    # shapes the wgmma mainloop does not take: K past the W slice's 512, K
+    # or N not multiples of 64, an encoding of 96 rows; e_rows not a
+    # multiple of 32 leaves wmma too
+    ("nerf_dense", BF16, 576, 256, 0, True, True, "wmma"),
+    ("nerf_dense", BF16, 40, 200, 64, True, True, "wmma"),
+    ("nerf_dense", BF16, 256, 256, 96, True, True, "wmma"),
+    ("nerf_dense", BF16, 0, 100, 32, True, True, "simt"),
+    ("nerf_dense", BF16, 256, 256, 40, True, True, "simt"),
     # the nerf variant's main path, 8 x 256: nerf_dense_dgrad (K <- N) ...
     ("nerf_dense_dgrad", BF16, 256, 128, 0, True, True, "wgmma"),  # rgb_0
     ("nerf_dense_dgrad", BF16, 256, 256, 0, True, True, "wgmma"),  # feats, trunk
@@ -173,6 +194,14 @@ def test_nerf_rule(kernel, dtype, k, n, e_rows, ins, outs, want):
 
 
 @pytest.mark.parametrize("kernel,dtype,k,n,e_rows,ins,outs,mainloop", [
+    ("nerf_dense", BF16, 256, 256, 96, True, True, "wgmma"),
+    ("nerf_dense", BF16, 256, 256, 64, True, False, "wgmma"),
+    ("nerf_dense", BF16, 256, 256, 64, False, True, "wmma"),
+    ("nerf_dense", BF16, 576, 256, 0, True, True, "wgmma"),
+    ("nerf_dense", BF16, 40, 200, 64, True, True, "wgmma"),
+    ("nerf_dense", BF16, 256, 256, 40, True, True, "wmma"),
+    ("nerf_dense", F32, 256, 256, 64, True, True, "wgmma"),
+    ("nerf_dense", F32, 0, 256, 64, True, True, "wmma"),
     ("nerf_dense_dgrad", BF16, 96, 96, 0, True, True, "wgmma"),
     ("nerf_dense_dgrad", BF16, 256, 256, 0, True, False, "wgmma"),
     ("nerf_dense_dgrad", BF16, 256, 256, 0, False, True, "wmma"),
@@ -422,6 +451,12 @@ def test_cpu_nerf_runs_the_plain_version_whatever_mainloop(mainloop, k, n, enc):
 
     x, dy, y, w, rays8, samples, kw = _nerf_inputs(k, n, enc)
     launches, by_loop = dict(FM.LAUNCHES), dict(FM.MAINLOOP_LAUNCHES)
+    c = (torch.from_numpy(np.random.default_rng(6).normal(
+        0, 0.3, (kw["enc_rows"], n))).float() if enc else None)
+    fkw = dict(enc=enc, enc_weight=c, z=kw["z"], n_freq=kw["n_freq"])
+    fwd = (x, w if k else None, dy[0], rays8, samples)  # dy's first row: a bias
+    got = FN.nerf_dense(*fwd, mainloop=mainloop, **fkw)
+    assert torch.equal(got, FN.nerf_dense_reference(*fwd, **fkw))
     got = FN.nerf_dense_wgrad(x, dy, y, rays8, samples, mainloop=mainloop, **kw)
     ref = FN.nerf_dense_wgrad_reference(x, dy, y, rays8, samples, **kw)
     for a, b in zip(got, ref):
@@ -439,6 +474,8 @@ def test_cpu_nerf_refuses_an_unknown_mainloop():
     from satnerf_tpu_torch.ops import fused_nerf as FN
 
     x, dy, y, w, rays8, samples, kw = _nerf_inputs(64, 64, "xyz")
+    with pytest.raises(ValueError):
+        FN.nerf_dense(x, w, dy[0], rays8, samples, mainloop="tma")
     with pytest.raises(ValueError):
         FN.nerf_dense_wgrad(x, dy, y, rays8, samples, mainloop="tma", **kw)
     with pytest.raises(ValueError):
@@ -498,6 +535,46 @@ def _recorded_nerf_chain(dtype):
         FN._train_staged(packed, FN.pack_rays(o, d), z, None, gt, skip=4,
                          n_freq=(10, 4), rgb_padding=0.001, ops=Recorder)
     return plan
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "wgmma"),
+                                        (torch.float32, "simt")])
+def test_nerf_chain_forward_takes_wgmma(dtype, want):
+    """The ten nerf_dense calls of the 8 x 256 forward: layer 0 on the
+    position's encoding alone, six trunk layers, the skip layer with it,
+    feats, rgb_0 with the direction's; all on wgmma in bf16, on SIMT in
+    fp32. The plain versions run; nothing is launched."""
+    from satnerf_tpu_torch.models.nerf import build_model
+    from satnerf_tpu_torch.ops import fused_nerf as FN
+
+    plan = []
+
+    class Recorder(FN.NerfOps):
+        @staticmethod
+        def dense(x, weight, bias, rays8, samples, **kw):
+            y = FN.nerf_dense(x, weight, bias, rays8, samples, **kw)
+            ew = kw.get("enc_weight")
+            k, e_rows = (0 if x is None else x.shape[1],
+                         0 if ew is None else ew.shape[0])
+            plan.append((k, bias.shape[0], e_rows, FM.dense_mainloop(
+                "nerf_dense", y.dtype, k, bias.shape[0], e_rows=e_rows,
+                inputs_aligned=FM._aligned(x, weight, ew),
+                outputs_aligned=FM._aligned(y))))
+            return y
+
+    field = build_model("nerf", 8, 256, generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(4)
+    o = torch.from_numpy(rng.normal(0, 0.3, (2, 3))).float()
+    d = torch.from_numpy(rng.normal(0, 1, (2, 3))).float()
+    z = torch.from_numpy(np.sort(rng.uniform(0, 1, (2, 4)), 1)).float()
+    with torch.no_grad():
+        FN._chain_forward(FN.pack_params(field, skip=4, dtype=dtype),
+                          FN.pack_rays(o, d), z, skip=4, n_freq=(10, 4),
+                          keep=False, ops=Recorder)
+    assert [c[:3] for c in plan] == ([(0, 256, 64)] + [(256, 256, 0)] * 3
+                                     + [(256, 256, 64)] + [(256, 256, 0)] * 4
+                                     + [(256, 128, 32)])
+    assert all(c[3] == want for c in plan)
 
 
 def test_nerf_chain_backward_takes_wgmma_and_no_bias_kernel():

@@ -40,6 +40,22 @@ and at other splits, in turns, beside the library call X^T @ round(G), the
 bytes bound, and small_grads alone summing db (a layer with a bias alone)
 beside torch.einsum("pn,pn->n", dY, slope).
 
+--model nerf --ablate times nerf_dense's wgmma kernel (csrc/fused_nerf.cu)
+built with SATNERF_NERF_ABLATE 1 (the products, loads and epilogue alone:
+no sines) and 2 (the encoding alone: the positions' loads and the sines, no
+X, no products, no stores), beside itself, its wmma mainloop and the library call relu(addmm), at the skip layer (256 x 256
+with the 64-row encoding) at a serving chunk (4.19 M points) and a training
+batch (65,536 points), and layer 0 (the encoding alone, K = 0): whether the
+sines or the mainloop hold it back.
+
+--composite times composite_loss_bwd and composite_bwd at a training batch
+(1,024 rays x 64 and x 128 samples, 8 x 512, bf16) on both bodies, a block
+a ray (the default) and the warp a ray that it replaced, the block body's
+parts alone (builds of csrc/fused_train.cu with SATNERF_CLB_ABLATE 1-3: no
+outer products, no loads of the heads, neither), in turns (CUDA
+events, then device time), beside the bytes bound; then profiles the
+training step as --train does.
+
 --model nerf --wgrad times the nerf variant's nerf_dense_dgrad and
 nerf_dense_wgrad alone at the 8 x 256 chain's shapes (65,536 points: the
 dgrad of rgb_0, feats and a trunk layer; the wgrad of the skip layer, a
@@ -62,7 +78,10 @@ nerf_dgrad_wmma, nerf_wgrad_wmma and nerf_bias_grad.
   python3 tools/profile_render_torch.py [--rays N] [--chunk C] [--train]
       [--batch B] [--sc_lambda L] [--ds_lambda L] [--n_importance N]
       [--fused auto|rays|on|off] [--model sat-nerf|s-nerf|nerf] [--ablate]
-      [--wgrad]
+      [--wgrad] [--composite]
+
+With --model nerf the serving profile also sums nerf_dense's device time by
+mainloop.
 """
 
 import argparse
@@ -256,6 +275,181 @@ def ablate(card: str) -> None:
             print(f"  {what:45s} {ms[k][0]:.3f} / {ms[k][1]:.3f} ms")
 
 
+NERF_ABLATE = {"SATNERF_NERF_ABLATE=0": "the kernel as built",
+               "SATNERF_NERF_ABLATE=1": "no sines (products, loads, epilogue)",
+               "SATNERF_NERF_ABLATE=2": "the encoding's sines alone"}
+
+
+def nerf_ablate(card: str) -> None:
+    """nerf_dense's wgmma kernel with its parts dropped, in turns."""
+    import ctypes
+
+    from satnerf_tpu_torch.ops import _build as B
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+    from satnerf_tpu_torch.ops import fused_nerf as FN
+
+    out_dir = os.path.join(B.BUILD_DIR, "ablate")
+    os.makedirs(out_dir, exist_ok=True)
+    jobs = {}
+    for k in NERF_ABLATE:
+        lib = os.path.join(out_dir, f"fused_nerf_{k.replace('=', '')}.so")
+        cmd = [B._nvcc(), *B.NVCC_FLAGS, f"-D{k}", "-shared",
+               "-o", lib, os.path.join(B.CSRC_DIR, "fused_nerf.cu")]
+        jobs[k] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for k, (lib, proc) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            sys.exit(f"nvcc failed for {k}:\n{out}")
+        fn = ctypes.CDLL(lib).satnerf_nerf_dense
+        fn.argtypes = B.SIGNATURES["satnerf_nerf_dense"]
+        fn.restype = ctypes.c_int
+        fns[k] = fn
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(0)
+    feat, n_s = 256, 64
+    for n_rays, k in ((1 << 16, feat), (1024, feat), (1 << 16, 0)):
+        p = n_rays * n_s
+        o = torch.rand(n_rays, 3, device=dev, generator=g) - 0.5
+        d = torch.nn.functional.normalize(torch.randn(n_rays, 3, device=dev, generator=g))
+        rays8 = FN.pack_rays(o, d)
+        z = torch.sort(torch.rand(n_rays, n_s, device=dev, generator=g), 1).values
+        x = torch.rand(p, k, device=dev, generator=g).to(bf16) if k else None
+        w = (torch.randn(k, feat, device=dev, generator=g) / feat ** 0.5).to(bf16) if k else None
+        b = torch.randn(feat, device=dev, generator=g) * 0.1
+        c = torch.randn(64, feat, device=dev, generator=g) * 0.3
+        c[60:] = 0
+        c = c.to(bf16)
+        y = torch.empty(p, feat, device=dev, dtype=bf16)
+        args = (1, None if x is None else x.data_ptr(), k,
+                None if w is None else w.data_ptr(), b.data_ptr(), rays8.data_ptr(),
+                z.data_ptr(), n_s, FN._ENC["xyz"], 10, 64, c.data_ptr(), FN._ACT["relu"],
+                y.data_ptr(), p, feat, FM._MAINLOOP_CODE["wgmma"],
+                torch.cuda.current_stream().cuda_stream)
+        kw = dict(enc="xyz", enc_weight=c, z=z, n_freq=10)
+        runs = {f"wgmma, {what}": (lambda fn=fns[a]: fn(*args))
+                for a, what in NERF_ABLATE.items()}
+        runs["wmma"] = lambda: FN.nerf_dense(x, w, b, rays8, n_s, mainloop="wmma", **kw)
+        if x is not None:
+            runs["library relu(addmm), no encoding"] = (
+                lambda: torch.relu(torch.addmm(b.to(bf16), x, w)))
+        if any(fn(*args) != 0 for fn in fns.values()):
+            sys.exit("an ablated nerf_dense failed to launch")
+        ms = {key: [] for key in runs}
+        for key in list(runs) + list(reversed(runs)):
+            ms[key].append(_event_ms(runs[key]))
+        nbytes = (0 if x is None else x.numel() * 2) + y.numel() * 2
+        flops = 2.0 * p * feat * (k + 64)
+        print(f"nerf_dense K={k} N={feat} with the 64-row encoding, {p} points, on "
+              f"{card}: bound {1e3 * max(nbytes / 3.35e12, flops / 989e12):.3f} ms")
+        for key, v in ms.items():
+            print(f"  {key:45s} {v[0]:.3f} / {v[1]:.3f} ms")
+
+
+# builds of csrc/fused_train.cu beside the library: the block body's parts
+# alone, and the body with the registers of 1 and 3 blocks an SM (the rule: 2)
+CLB_BUILDS = {"SATNERF_CLB_ABLATE=1": "block, no outer products",
+              "SATNERF_CLB_ABLATE=2": "block, no heads' loads",
+              "SATNERF_CLB_ABLATE=3": "block, neither (arithmetic, scans, barriers)"}
+
+
+def _clb_builds() -> dict:
+    """satnerf_composite_loss_bwd from the CLB_BUILDS of csrc/fused_train.cu,
+    built side by side."""
+    import ctypes
+
+    from satnerf_tpu_torch.ops import _build as B
+
+    out_dir = os.path.join(B.BUILD_DIR, "ablate")
+    os.makedirs(out_dir, exist_ok=True)
+    jobs = {}
+    for k in CLB_BUILDS:
+        lib = os.path.join(out_dir, f"fused_train_{k.replace('=', '')}.so")
+        cmd = [B._nvcc(), *B.NVCC_FLAGS, f"-D{k}", "-shared",
+               "-o", lib, os.path.join(B.CSRC_DIR, "fused_train.cu")]
+        jobs[k] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for k, (lib, proc) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            sys.exit(f"nvcc failed for {k}:\n{out}")
+        fn = ctypes.CDLL(lib).satnerf_composite_loss_bwd
+        fn.argtypes = B.SIGNATURES["satnerf_composite_loss_bwd"]
+        fn.restype = ctypes.c_int
+        fns[k] = fn
+    return fns
+
+
+def composite(card: str) -> None:
+    """composite_loss_bwd and composite_bwd on both bodies, in turns; the
+    block body's parts alone (composite_loss_bwd)."""
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+
+    ablated = _clb_builds()
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(0)
+    n_rays, feat = 1024, 512
+    fh = feat // 2
+    for n_s in (64, 128):
+        p = n_rays * n_s
+
+        def rand(*shape, to=bf16):
+            return (torch.rand(*shape, device=dev, generator=g) * 2 - 1).to(to)
+
+        h, r, s2, bh = rand(p, feat), rand(p, fh), rand(p, fh), rand(p, fh)
+        skyh = rand(n_rays, fh).abs()
+        wn, bn = rand(9, feat) * 0.1, rand(9, to=torch.float32)
+        z = torch.sort(torch.rand(n_rays, n_s, device=dev, generator=g), 1).values
+        noise = rand(n_rays, n_s, to=torch.float32)
+        gt, cot = rand(n_rays, 3, to=torch.float32).abs(), rand(n_rays, 16, to=torch.float32)
+        args = (h, r, s2, bh, skyh, wn, bn, z, noise)
+        nbytes = sum(t.numel() * t.element_size() for t in (*args, gt)) + (
+            p * (feat + 3 * fh) + n_rays * fh + 9 * feat + 9) * 4
+        for name, fn in (("composite_loss_bwd", lambda body: FM.composite_loss_bwd(
+                *args, gt, 1.0, return_weights=True, body=body)),
+                         ("composite_bwd", lambda body: FM.composite_bwd(
+                             *args, cot, body=body))):
+            print(f"{name} {n_rays} rays x {n_s}, 8 x {feat}, bf16, on {card}: bound "
+                  f"{1e3 * nbytes / 3.35e12:.3f} ms (bytes)")
+            runs = {body: (lambda b=body: fn(b)) for body in FM.COMPOSITE_BODIES}
+            if name == "composite_loss_bwd":  # the wrapper's launch, ablated
+                res = FM.composite_loss_bwd(*args, gt, 1.0, return_weights=True)
+                ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+                cargs = (1, *(ptr(t) for t in (h,)), feat, ptr(r), ptr(s2), ptr(bh),
+                         ptr(skyh), fh, ptr(wn), ptr(bn), ptr(z), ptr(noise), ptr(gt),
+                         n_rays, n_s, 0.001, 0.05, 1.0, ptr(res["loss_sums"]),
+                         ptr(res["weights"]), ptr(res["d_h"]), ptr(res["d_r"]),
+                         ptr(res["d_s2"]), ptr(res["d_bh"]), ptr(res["d_skyh"]),
+                         ptr(res["dwn"]), ptr(res["dbn"]), FM._BODY_CODE["block"],
+                         torch.cuda.current_stream().cuda_stream)
+                for k, what in CLB_BUILDS.items():
+                    runs[what] = lambda f=ablated[k]: f(*cargs)
+            ms = {key: [] for key in runs}
+            for key in list(runs) + list(reversed(runs)):
+                ms[key].append(_event_ms(runs[key]))
+            for key, v in ms.items():
+                print(f"  {key:45s} {v[0]:.3f} / {v[1]:.3f} ms, device "
+                      f"{_device_ms(runs[key]):.3f} ms")
+
+
+def by_mainloop(prof, kernel: str, card: str) -> None:
+    """A kernel's device time in a profile, summed by mainloop (the kernels'
+    names carry it: <kernel>_wgmma, _wmma, _simt), beside its launches."""
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+
+    ms = {}
+    for e in prof.key_averages():
+        if _on_device(e) and kernel in e.key:
+            loop = next((m for m in ("wgmma", "wmma", "simt")
+                         if f"{kernel}_{m}" in e.key), "other")
+            ms[loop] = ms.get(loop, 0.0) + e.device_time_total / 1e3
+    launches = {m: n for (k, m), n in FM.MAINLOOP_LAUNCHES.items() if k == kernel}
+    print(f"{kernel} device time by mainloop {ms} ms, launches {launches} on {card}")
+
+
 def wgrad(card: str) -> None:
     """siren_dense_wgrad at the main path's shapes on both mainloops and
     at several splits of the points, in turns (a, b, ..., ..., b, a)."""
@@ -420,6 +614,9 @@ def main():
     ap.add_argument("--ablate", action="store_true",
                     help="time siren_dense's wgmma kernel with each part "
                          "dropped in turn")
+    ap.add_argument("--composite", action="store_true",
+                    help="time composite_loss_bwd and composite_bwd on both "
+                         "bodies, then profile the training step")
     ap.add_argument("--wgrad", action="store_true",
                     help="time siren_dense_wgrad's mainloops and splits (with "
                          "--model nerf: nerf_dense_dgrad's and "
@@ -434,8 +631,11 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     if args.ablate:
-        ablate(card)
+        (nerf_ablate if args.model == "nerf" else ablate)(card)
         return
+    if args.composite:
+        composite(card)
+        args.train = True
     if args.wgrad and args.model != "nerf":
         wgrad(card)
         return
@@ -471,6 +671,9 @@ def main():
     if args.n_importance > 0:
         time_resampling(system, min(n, args.chunk), True, card)
 
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+
+    FM.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -478,6 +681,8 @@ def main():
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     report(prof, wall_ms, card, "render_image")
+    if args.model == "nerf":
+        by_mainloop(prof, "nerf_dense", card)
 
 
 if __name__ == "__main__":
