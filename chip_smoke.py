@@ -18,15 +18,29 @@ plain version):
      computes the same function, and the card's bound, and for siren_dense,
      siren_dense_dgrad and siren_dense_wgrad both mainloops' times (the
      wgrad's GEMM with its bias sum: on wgmma in its epilogue, on wmma by
-     small_grads); small_grads alone at layer 0's launch and summing db of a
-     layer with a bias alone, beside torch.einsum
+     narrow_grads); siren_dense's K = 0 kernel at layer 0 (with the slope)
+     and sky_0 beside the first one it replaced (k0_v1), bit-equal; the
+     skip layer's wgrad with dC folded into its epilogue beside the same
+     launch with the column walk, dW and db bit-equal at one point range;
+     narrow_grads and the walk small_grads alone at layer 0's launch (the
+     library call torch.einsum over [E | 1] beside them) and summing db of a
+     layer with a bias alone, beside torch.einsum, and the chain's joined
+     launch (sky_0's job and beta_0's t_grad) against its plain version;
+     every K = 0 launch of siren_dense in phases 2-2d is also held against
+     k0_v1 to the bit, every siren_dense_wgrad launch in 2b-2d against the
+     same launch with the column walk (db, dC, dE within 1e-4), and the
+     chains' joined narrow_grads launch in 2b-2d, as the main path runs it,
+     each job against its plain version and the same job launched alone
   2b the training kernels (K1) against their plain versions, at 8 x 512,
      64 samples, 1024 and 1000 + 37 rays: sat-nerf with the beta gate at 1
      and at 0 (with sigma noise and the weights output), s-nerf; fp32 and
      bf16; loss parts, every gradient by name, t_grad, weights, and every
      launch of the chain alone; every launch of composite_loss_bwd (a block
      a ray) also against the same launch on the warp-a-ray body it replaced
-     (so in 2c for composite_bwd), and both bodies timed in phase 2
+     (so in 2c for composite_bwd), and both bodies timed in phase 2; then
+     every launch of the chain again past 256 samples a ray, at 1024 x 320
+     (phase 6's long run) and 256 x 640 (shared memory opted into past
+     48 KB on both bodies), fp32 and bf16 (so in 2c for K4's chain)
   2c the solar-correction pass (K3) and the differentiable training render
      (K4) against their plain versions, at 8 x 512, 64 samples, 1024 and
      1000 + 37 rays, sat-nerf and s-nerf, fp32 and bf16, sigma noise on and
@@ -45,8 +59,10 @@ plain version):
      resumes from the checkpoint; create_pretty_dsm serves the trained
      weights. Every kernel must have been launched, every siren_dense,
      siren_dense_dgrad and siren_dense_wgrad launch with K > 0 on the wgmma
-     mainloop, small_grads 5 times a step (the layers with an E operand or
-     without X) and every composite_loss_bwd launch a block a ray (phase 5:
+     mainloop, 13 wgrad launches and 2 narrow_grads launches a step (layer
+     0; sky_0 joined with beta_0's t_grad), the column walk never, every
+     K = 0 siren_dense launch on its new kernel, and every
+     composite_loss_bwd launch a block a ray (phase 5:
      composite_bwd's too), the loss must fall, the resumed run must start at the saved
      step and the trained loss level. Its rate is read from the log
      intervals that hold no validation (the loop's clock runs through
@@ -76,9 +92,11 @@ plain version):
      twice a step, field_heads_bwd twice an active step, composite_bwd
      never); validation through the two-launch serving dispatch; resume;
      create_pretty_dsm on the trained checkpoint; render_image on 262,144
-     rays with its peak memory; then a short --fused on --n_importance 8 run
-     (K6 under the trainer and the server) and a short --fused off run that
-     must launch no kernel
+     rays with its peak memory; a short --n_importance 256 run (a fine pass
+     of 320 samples, past one chunk of the block body; the loss finite and
+     falling); then a short --fused on --n_importance 8 run (K6 under the
+     trainer and the server) and a short --fused off run that must launch no
+     kernel
 
   2e the classic NeRF variant's kernels: fused_nerf_train_loss_grads (K7),
      fused_nerf_render_rays (K8) and fused_nerf_apply (K9) against their
@@ -93,7 +111,9 @@ plain version):
      plain db); then each kernel alone at its main-path shape: time, plain
      time, library call, bound, and for the dgrad and the wgrad both
      mainloops' times and the wgrad's second library reading [h | enc].t() @
-     G (dW and dC in one call); every bf16 launch of nerf_dense on wgmma
+     G (dW and dC in one call); every launch of K7's chain also at 1024 x 320
+     and 256 x 512 samples (nerf_composite_loss_bwd's walk at 40 KB, and at
+     64 KB, opted in); every bf16 launch of nerf_dense on wgmma
      also against the same launch on wmma (one rounding step), and each of
      the chain's five layer shapes at a serving chunk (65,536 x 64 points)
      on the rule's mainloop (wgmma) against wmma and the plain version
@@ -106,7 +126,10 @@ plain version):
      resume; create_pretty_dsm on the trained checkpoint; render_image on
      262,144 rays with its peak memory, held against the plain version; then
      a short --n_importance 64 run (K9 under the trainer, K8 twice a served
-     chunk) and a short --ds_lambda 1000 run on phase 5's AOI
+     chunk), a short --ds_lambda 1000 run on phase 5's AOI and short
+     --n_samples 320 and 512 runs (K7's walk keeps 40 KB and 64 KB of
+     shared memory, the second opted in past 48 KB; the loss finite and
+     falling)
 
 No earlier phase was cut when phases 2d, 2e, 6 and 7 came: the whole run
 stays well inside half its time limit.
@@ -130,7 +153,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 TRAIN_KERNELS = ("siren_dense", "composite_loss_bwd", "siren_dense_dgrad",
-                 "siren_dense_wgrad", "small_grads")
+                 "siren_dense_wgrad", "narrow_grads")
 AUX_KERNELS = ("sc_loss_bwd", "composite_bwd")  # first launched by phase 5's path
 FIELD_KERNELS = ("field_heads", "field_heads_bwd")  # and these by phase 6's
 TPU_KERNEL = {"render": "satnerf_tpu/ops/pallas/fused_mlp.py:1035",
@@ -145,6 +168,9 @@ TPU_KERNEL = {"render": "satnerf_tpu/ops/pallas/fused_mlp.py:1035",
 _BWD_SRC = "satnerf_tpu_torch/csrc/dense_bwd_wgmma.cuh"  # the wgmma dgrad and wgrad
 KERNELS = {  # name -> (source in the repo, the TPU kernels it replaces)
     "siren_dense": ("satnerf_tpu_torch/csrc/fused_render.cu", "render"),
+    # its K = 0 kernel (layer 0, sky_0: the first layer of _trunk_fwd), counted
+    # by MAINLOOP_LAUNCHES[("siren_dense", "k0")]
+    "siren_dense_k0": ("satnerf_tpu_torch/csrc/fused_render.cu", "render", "train"),
     # with sigma noise it is also the forward of the training render
     "heads_composite": ("satnerf_tpu_torch/csrc/fused_render.cu", "render",
                         "train_render"),
@@ -152,7 +178,11 @@ KERNELS = {  # name -> (source in the repo, the TPU kernels it replaces)
     # their wgmma kernels: the body shared with the nerf variant's backward
     "siren_dense_dgrad": (_BWD_SRC, "train"),
     "siren_dense_wgrad": (_BWD_SRC, "train"),
-    # launched by siren_dense_wgrad's wrapper: db, dC, dE where it has work
+    # the narrow gradients db, dC, dE where the wgrad's GEMM does not form them
+    # (layer 0, sky_0, t_grad; beside a wmma or simt GEMM), several layers a
+    # launch; the column walk small_grads it replaced, kept to compare, is off
+    # the path
+    "narrow_grads": ("satnerf_tpu_torch/csrc/fused_train.cu", "train"),
     "small_grads": ("satnerf_tpu_torch/csrc/fused_train.cu", "train"),
     "sc_loss_bwd": ("satnerf_tpu_torch/csrc/fused_aux.cu", "sc"),
     "composite_bwd": ("satnerf_tpu_torch/csrc/fused_train.cu",
@@ -191,6 +221,17 @@ BATCH = 1024  # rays a training step draws (--batch_size default)
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 N_RAYS = 8192 + 37
 N_IMPORTANCE = 64  # phase 6: the fine pass marches SAMPLES + N_IMPORTANCE depths
+# phase 6's run past 256 samples a ray (a fine pass of 320) and phase 7's;
+# phase 7's run at a length whose walk needs the opt-in past 48 KB of shared
+# memory (4 warps x 8 values x 512 samples x 4 B = 64 KB)
+LONG_IMPORTANCE, NERF_LONG_SAMPLES, LONG_STEPS = 256, 320, 24
+NERF_OPTIN_SAMPLES = 512
+# (rays, samples a ray) at which phases 2b, 2c (SIREN) and 2e (nerf) hold
+# every launch of their chains past 256 samples: the long runs' training
+# batch, and a length whose shared memory needs the opt-in past 48 KB (the
+# block body at 640 samples 51 KB, the warp body 102 KB), at fewer rays
+LONG_CASES = ((BATCH, SAMPLES + LONG_IMPORTANCE), (256, 640))
+NERF_LONG_CASES = ((BATCH, NERF_LONG_SAMPLES), (256, NERF_OPTIN_SAMPLES))
 CHUNK = 65536  # rays a render_image chunk holds (--chunk default)
 DEPTH_RANGE = 1.0  # far - near of the phase 2 rays
 
@@ -304,7 +345,8 @@ class StageCheck:
     def __init__(self, dtype):
         self.bf16 = str(dtype).endswith("bfloat16")
         self.err = {"siren_dense": 0.0, "heads_composite": 0.0,
-                    "siren_dense_vs_wmma": 0.0}
+                    "siren_dense_vs_wmma": 0.0, "siren_dense_k0": 0.0,
+                    "siren_dense_k0_vs_v1": 0.0}
         self.bad = []
 
     def dense(self, *args, **kw):
@@ -317,11 +359,15 @@ class StageCheck:
         diff = (y.float() - ref).abs()
         tol = (2.0 ** -7 * ref.abs() + 1e-4 if self.bf16
                else 1e-4 * ref.abs() + 1e-4)
-        self.err["siren_dense"] = max(self.err["siren_dense"], diff.max().item())
+        loop = took()
+        for k in ("siren_dense",) + (("siren_dense_k0",) if loop == "k0" else ()):
+            self.err[k] = max(self.err[k], diff.max().item())
         if bool((diff > tol).any()):
             self.bad.append(f"siren_dense extra={kw.get('extra')} "
                             f"max err {diff.max().item():.3g}")
-        if took() == "wgmma":  # the same launch on wmma: one rounding step
+        if loop == "k0":
+            _k0_vs_v1(self, (y,), (siren_dense(*args, mainloop="k0_v1", **kw),), kw)
+        if loop == "wgmma":  # the same launch on wmma: one rounding step
             other = siren_dense(*args, mainloop="wmma", **kw).float()
             d = (y.float() - other).abs()
             self.err["siren_dense_vs_wmma"] = max(self.err["siren_dense_vs_wmma"],
@@ -346,6 +392,22 @@ class StageCheck:
         return out, w
 
 
+def _k0_vs_v1(chk, outs, olds, kw) -> None:
+    """siren_dense's K = 0 kernel against the first one (k0_v1) on the same
+    inputs: Y (and the slope) equal to the bit."""
+    d = max((a.float() - b.float()).abs().max().item() for a, b in zip(outs, olds))
+    chk.err["siren_dense_k0_vs_v1"] = max(chk.err["siren_dense_k0_vs_v1"], d)
+    if not all(torch_equal(a, b) for a, b in zip(outs, olds)):
+        chk.bad.append(f"siren_dense k0 extra={kw.get('extra')} differs from "
+                       f"k0_v1 by {d:.3g}: not the same bits")
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a, b))
+
+
 # the three kernels with a wgmma mainloop: each such launch is also held
 # against the same launch on the wmma mainloop
 VS_WMMA = ("siren_dense_vs_wmma", "siren_dense_dgrad_vs_wmma",
@@ -357,7 +419,30 @@ VS_WMMA = ("siren_dense_vs_wmma", "siren_dense_dgrad_vs_wmma",
 # and d_skyh, of one of their three terms: the two bodies sum in another order
 # and may round a cotangent to either side of a bf16 boundary)
 VS_WARP = ("composite_loss_bwd_vs_warp", "composite_bwd_vs_warp")
+# the two kernels redesigned beside the ones they replaced: each launch is also
+# held against the same launch on the old kernel (siren_dense's K = 0 kernel
+# against k0_v1 to the bit; the narrow gradients against the column walk
+# small_grads, db, dC and dE within 1e-4 of the tensor's largest entry, dW
+# within K1_STAGE_TOL: the wgrad's fp32 atomics across point ranges add in
+# an order that changes from run to run), and the old kernels against the
+# plain version
+NEW_VS_OLD = ("siren_dense_k0", "siren_dense_k0_vs_v1", "narrow_grads_vs_walk",
+              "small_grads")
+NARROW_VS_WALK_TOL = 1e-4
+# the chain's joined narrow_grads launch (several layers' jobs in one grid):
+# each job also against the same job launched alone, db, dC and dE within
+# NARROW_VS_WALK_TOL (the atomics add in another order)
+JOINED_VS_ALONE = "narrow_grads_joined_vs_alone"
 COMPOSITE_KERNELS = ("composite_loss_bwd", "composite_bwd")
+
+
+def _counts() -> dict:
+    """FM.LAUNCHES, with the K = 0 kernel of siren_dense counted apart
+    ("siren_dense_k0": its launches on the "k0" mainloop)."""
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+
+    return {**FM.LAUNCHES,
+            "siren_dense_k0": FM.MAINLOOP_LAUNCHES.get(("siren_dense", "k0"), 0)}
 
 
 def _took(name: str):
@@ -398,8 +483,10 @@ class TrainCheck:
     def __init__(self, dtype):
         self.bf16 = str(dtype).endswith("bfloat16")
         self.err = dict.fromkeys(TRAIN_KERNELS + AUX_KERNELS + FIELD_KERNELS
-                                 + ("heads_composite",) + VS_WMMA + VS_WARP, 0.0)
+                                 + ("heads_composite",) + VS_WMMA + VS_WARP
+                                 + NEW_VS_OLD + (JOINED_VS_ALONE,), 0.0)
         self.bad = []
+        self._held = []  # checks of wgrad launches whose narrow job was deferred
 
     def _hold(self, kernel, what, got, ref, tol_rel_max, elementwise=False,
               terms: int = 1):
@@ -428,16 +515,22 @@ class TrainCheck:
         took = _took("siren_dense")
         out = FM.siren_dense(*args, **kw)
         ref = FM.siren_dense_reference(*args, **kw)
-        if took() == "wgmma":  # the same launch on the wmma mainloop
+        loop = took()
+        if loop == "wgmma":  # the same launch on the wmma mainloop
             self._vs_wmma_dense(out, FM.siren_dense(*args, mainloop="wmma", **kw),
                                 kw)
+        if loop == "k0":  # the same launch on the first K = 0 kernel
+            old = FM.siren_dense(*args, mainloop="k0_v1", **kw)
+            _k0_vs_v1(self, out if kw.get("save") else (out,),
+                      old if kw.get("save") else (old,), kw)
         if not kw.get("save"):
             out, ref = (out, None), (ref, None)
         y, y_ref = out[0].float(), ref[0].float()
         diff = (y - y_ref).abs()
         tol = (2.0 ** -7 * y_ref.abs() + 1e-4 if self.bf16
                else 1e-4 * y_ref.abs() + 1e-4)
-        self.err["siren_dense"] = max(self.err["siren_dense"], diff.max().item())
+        for k in ("siren_dense",) + (("siren_dense_k0",) if loop == "k0" else ()):
+            self.err[k] = max(self.err[k], diff.max().item())
         if bool((diff > tol).any()):
             self.bad.append(f"siren_dense extra={kw.get('extra')} max err "
                             f"{diff.max().item():.3g}")
@@ -549,27 +642,91 @@ class TrainCheck:
             if e > 1e-5 * w0 * w0 + 1e-4:
                 self.bad.append(f"siren_dense slope wgmma vs wmma max err {e:.3g}")
 
-    def wgrad(self, *args, **kw):
+    def wgrad(self, *args, defer=None, **kw):
         from satnerf_tpu_torch.ops import fused_mlp as FM
 
         loop = _took("siren_dense_wgrad")
-        got = FM.siren_dense_wgrad(*args, **kw)
-        loop = loop()
+        narrow, queued = FM.LAUNCHES["narrow_grads"], len(defer or ())
+        got = FM.siren_dense_wgrad(*args, defer=defer, **kw)
+        loop = loop() if args[0] is not None else "k0"
+        # its narrow_grads job: launched here, or appended to the chain's list
+        # (defer) for the joined launch, which self.narrow holds
+        asked = (FM.LAUNCHES["narrow_grads"] > narrow if defer is None
+                 else len(defer) > queued)
         ref = FM.siren_dense_wgrad_reference(*args, **kw)
-        what = f"extra={kw.get('extra')} on {loop}"
-        # what small_grads formed: dC and dE, and db where the GEMM did not
-        small = FM.small_grads_mode(loop, kw.get("extra"))
-        by_small = {"dC", "dE"} | ({"db"} if small == "db" else set())
-        for name, a, b in zip(("dW", "db", "dC", "dE"), got, ref):
-            self._hold("siren_dense_wgrad", f"{name} {what}", a, b, K1_STAGE_TOL)
-            if small != "none" and name in by_small:
-                self._hold("small_grads", f"{name} {what}", a, b, K1_STAGE_TOL)
-        if loop == "wgmma":  # the same launch on the wmma mainloop
-            other = FM.siren_dense_wgrad(*args, mainloop="wmma", **kw)
-            for name, a, b in zip(("dW", "db", "dC", "dE"), got, other):
-                self._hold("siren_dense_wgrad_vs_wmma", f"{name} {what}", a, b,
+        extra, ew = kw.get("extra"), kw.get("extra_weight")
+        what = f"extra={extra} on {loop}"
+        # what narrow_grads formed: db where the GEMM did not sum it, dC where
+        # the GEMM did not fold it, dE where asked for
+        mode = FM.small_grads_mode(loop, extra, "rays",
+                                   0 if ew is None else ew.shape[0])
+        by_narrow = (({"db"} if mode == "db" else set())
+                     | ({"dC"} if mode in ("db", "dc") else set())
+                     | ({"dE"} if kw.get("extra_grad") else set()))
+        if asked != bool(by_narrow):
+            self.bad.append(f"siren_dense_wgrad {what}: narrow_grads job "
+                            f"{asked}, asked for {sorted(by_narrow)}")
+        # the column walk it replaced and the wmma mainloop, on the same
+        # inputs, now; held once got is filled (after the joined launch where
+        # the job was deferred)
+        walked = FM.siren_dense_wgrad(*args, narrow="walk", **kw)
+        other = (FM.siren_dense_wgrad(*args, mainloop="wmma", **kw)
+                 if loop == "wgmma" else None)
+
+        def hold():
+            for name, a, b in zip(("dW", "db", "dC", "dE"), got, ref):
+                self._hold("siren_dense_wgrad", f"{name} {what}", a, b,
                            K1_STAGE_TOL)
+                if name in by_narrow:
+                    self._hold("narrow_grads", f"{name} {what}", a, b,
+                               K1_STAGE_TOL)
+            for name, a, b, r in zip(("dW", "db", "dC", "dE"), got, walked, ref):
+                self._hold("narrow_grads_vs_walk", f"{name} {what}", a, b,
+                           K1_STAGE_TOL if name == "dW" else NARROW_VS_WALK_TOL)
+                if name != "dW":
+                    self._hold("small_grads", f"{name} {what}", b, r, K1_STAGE_TOL)
+            if other is not None:  # the same launch on the wmma mainloop
+                for name, a, b in zip(("dW", "db", "dC", "dE"), got, other):
+                    self._hold("siren_dense_wgrad_vs_wmma", f"{name} {what}", a,
+                               b, K1_STAGE_TOL)
+
+        if defer is not None and asked:
+            self._held.append(hold)
+        else:
+            hold()
         return got
+
+    def narrow(self, jobs):
+        """The chain's joined narrow_grads launch of the jobs its wgrad
+        launches deferred (sky_0's db and dC, beta_0's t_grad; sun_v_0's dE
+        in K6), as the main path runs it; then each job against its plain
+        version and against the same job launched alone (JOINED_VS_ALONE),
+        and the deferred wgrad launches' own checks."""
+        from satnerf_tpu_torch.ops import fused_mlp as FM
+
+        alone = [FM.NarrowJob(j.dy, j.slope, j.rays16, j.samples, extra=j.extra,
+                              extra_weight=j.extra_weight, z=j.z, dtype=j.dtype,
+                              db=j.db is not None, dc=j.dc is not None,
+                              de=j.de is not None) for j in jobs]
+        before = FM.LAUNCHES["narrow_grads"]
+        FM.narrow_grads(jobs)
+        if FM.LAUNCHES["narrow_grads"] - before != 1:
+            self.bad.append(f"narrow_grads: {len(jobs)} jobs were not one launch")
+        for job, one in zip(jobs, alone):
+            FM.narrow_grads([one])
+            what = f"extra={job.extra}, joined with {len(jobs) - 1} more"
+            for name, a, b, r in zip(("db", "dC", "dE"),
+                                     (job.db, job.dc, job.de),
+                                     (one.db, one.dc, one.de),
+                                     FM.narrow_grads_reference(job)):
+                if a is not None:
+                    self._hold("narrow_grads", f"{name} {what}", a, r,
+                               K1_STAGE_TOL)
+                    self._hold(JOINED_VS_ALONE, f"{name} {what}", a, b,
+                               NARROW_VS_WALK_TOL)
+        held, self._held = self._held, []
+        for hold in held:
+            hold()
 
 
 # The nerf variant (K7, K8, K9) is held as the SIREN chains are: each launch
@@ -813,6 +970,34 @@ def _time_kernels(packed: dict, dev) -> dict:
         2.0 * p * FEAT * (FEAT + 3)))
     out["siren_dense"].update({f"train_{k}": v for k, v in t_entry.items()})
 
+    # siren_dense's K = 0 kernel: layer 0 with the saved slope (E = xyz, w0
+    # 30; Y bf16 and the slope fp32 written, 201 MB) beside the first K = 0
+    # kernel (k0_v1), in turns; and sky_0 (once a ray, relu, no slope). No
+    # one PyTorch call computes sin(30 (b + E C)) and its slope.
+    k0kw = dict(extra="xyz", extra_weight=packed["A"], z=z, w0=30.0, save=True)
+    k0args = (None, None, packed["bt"][0], rays16, SAMPLES)
+    k0 = entry(lambda: FM.siren_dense(*k0args, **k0kw),
+               lambda: FM.siren_dense_reference(*k0args, **k0kw), None,
+               _nbytes(packed["bt"][0], rays16, z, packed["A"]) + p * FEAT * (2 + 4),
+               2.0 * p * FEAT * 3)
+    ms = {"k0": [], "k0_v1": []}
+    for m in ("k0_v1", "k0", "k0", "k0_v1"):
+        ms[m].append(_cuda_ms(lambda: FM.siren_dense(*k0args, mainloop=m, **k0kw)))
+    k0.update({f"{m}_ms": sum(v) / len(v) for m, v in ms.items()})
+    new, old = (FM.siren_dense(*k0args, mainloop=m, **k0kw) for m in ("k0", "k0_v1"))
+    k0["bit_equal_to_v1"] = all(bool(torch.equal(a, b)) for a, b in zip(new, old))
+    skykw = dict(extra="sun", extra_weight=packed["Wsky0"], act="relu")
+    skyargs = (None, None, packed["bsky0"], rays16, 1)
+    sky = entry(lambda: FM.siren_dense(*skyargs, **skykw),
+                lambda: FM.siren_dense_reference(*skyargs, **skykw), None,
+                _nbytes(packed["bsky0"], rays16, packed["Wsky0"]) + BATCH * fh * 2,
+                2.0 * BATCH * fh * 3)
+    sky["k0_v1_ms"] = _cuda_ms(lambda: FM.siren_dense(*skyargs, mainloop="k0_v1",
+                                                      **skykw))
+    k0.update({f"sky0_{k}": v for k, v in sky.items()})
+    out["siren_dense_k0"] = k0
+    del new, old
+
     dy, slope = rand(p, FEAT, to=torch.float32), rand(p, FEAT, to=torch.float32)
     gb = (dy * slope).to(dtype)
     out["siren_dense_dgrad"] = mainloops(
@@ -839,21 +1024,83 @@ def _time_kernels(packed: dict, dev) -> dict:
         "wgmma_vs_plain": _rel_err(got["wgmma"][0], ref[0]),
         "wgmma_vs_wmma": _rel_err(got["wgmma"][0], got["wmma"][0]),
         "db_wgmma_vs_plain": _rel_err(got["wgmma"][1], ref[1])}
-    # small_grads alone: layer 0's launch (no X: db, and dC of xyz), the
-    # biggest of its five a main-path step; and a layer with a bias alone
-    # (db), the work the wgmma GEMM took over, beside the one library call
+    # the skip layer's wgrad with its E operand (xyz): dC folded into the
+    # wgmma epilogue, against the same launch with the column walk for dC
+    # (GEMM + small_grads), in turns; and dW, db of the two to the bit where
+    # the atomics' order is fixed (every point in one block's range)
+    sargs, skw = (h, dy, slope, rays16, SAMPLES), dict(extra="xyz",
+                                                       extra_weight=c, z=z)
+    ms = {"rays": [], "walk": []}
+    for m in ("walk", "rays", "rays", "walk"):
+        ms[m].append(_cuda_ms(lambda: FM.siren_dense_wgrad(*sargs, narrow=m, **skw)))
+    out["siren_dense_wgrad"].update({"fold_ms": sum(ms["rays"]) / 2,
+                                     "unfolded_ms": sum(ms["walk"]) / 2})
+    n1 = FM.FOLD_SPLIT // SAMPLES
+    one = (h[:n1 * SAMPLES], dy[:n1 * SAMPLES], slope[:n1 * SAMPLES],
+           rays16[:n1], SAMPLES)
+    okw = dict(extra="xyz", extra_weight=c, z=z[:n1], split=FM.FOLD_SPLIT)
+    a, b = (FM.siren_dense_wgrad(*one, narrow=m, **okw) for m in ("rays", "walk"))
+    out["siren_dense_wgrad"]["fold_bits"] = {
+        "dw_equal": bool(torch.equal(a[0], b[0])),
+        "db_equal": bool(torch.equal(a[1], b[1])),
+        "dc_rel_err": _rel_err(a[2], b[2])}
+    del a, b, one
+    # the narrow gradients alone: layer 0's launch (no X: db, and dC of xyz),
+    # the bigger of the two a main-path step, beside the column walk it
+    # replaced (small_grads) and the one library call over [E | 1] from G;
+    # the chain's joined launch of sky_0's job (db, dC of sun_dir, 1,024
+    # rays) and beta_0's t_grad (dE, 512 x 256 with the slope); and a layer
+    # with a bias alone (db), the work the wgmma GEMM took over
     zargs, zkw = (None, dy, slope, rays16, SAMPLES), dict(extra="xyz",
                                                          extra_weight=c, z=z)
-    out["small_grads"] = entry(
+    e1 = torch.cat([FM._extra_operand(rays16, SAMPLES, z, "xyz", 3, dtype),
+                    torch.ones(p, 1, device=dev)], 1)
+    g32 = dy * slope
+    zbytes = _nbytes(dy, slope, rays16, z, c) + 4 * FEAT * 4
+    out["narrow_grads"] = entry(
         lambda: FM.siren_dense_wgrad(*zargs, **zkw),
-        lambda: FM.siren_dense_wgrad_reference(*zargs, **zkw), None,
-        _nbytes(dy, slope, rays16, z, c) + 4 * FEAT * 4, 2.0 * p * FEAT * 4)
-    db_only = entry(
-        lambda: FM.siren_dense_wgrad(*zargs),
-        lambda: FM.siren_dense_wgrad_reference(*zargs),
-        lambda: torch.einsum("pn,pn->n", dy, slope),
-        _nbytes(dy, slope) + FEAT * 4, 2.0 * p * FEAT)
-    out["small_grads"].update({f"db_only_{k}": v for k, v in db_only.items()})
+        lambda: FM.siren_dense_wgrad_reference(*zargs, **zkw),
+        lambda: torch.einsum("pj,pn->jn", e1, g32), zbytes, 2.0 * p * FEAT * 4)
+    out["small_grads"] = entry(
+        lambda: FM.siren_dense_wgrad(*zargs, narrow="walk", **zkw),
+        lambda: FM.siren_dense_wgrad_reference(*zargs, **zkw),
+        lambda: torch.einsum("pj,pn->jn", e1, g32), zbytes, 2.0 * p * FEAT * 4)
+    del e1, g32
+    bdy, bsl = rand(p, fh, to=torch.float32), rand(p, fh, to=torch.float32)
+    sky_dy = rand(BATCH, fh, to=torch.float32).relu()
+
+    def jobs():
+        return [FM.NarrowJob(sky_dy, None, rays16, 1, extra="sun",
+                             extra_weight=packed["Wsky0"], dtype=dtype, db=True,
+                             dc=True, de=False),
+                FM.NarrowJob(bdy, bsl, rays16, SAMPLES, extra="t",
+                             extra_weight=packed["Wbeta0t"], dtype=dtype,
+                             db=False, dc=False, de=True)]
+
+    jbytes = _nbytes(sky_dy, bdy, bsl, rays16, packed["Wsky0"],
+                     packed["Wbeta0t"]) + (4 * fh + BATCH * TAU) * 4
+    j = entry(lambda: FM.narrow_grads(jobs()),
+              lambda: [FM.narrow_grads_reference(jb) for jb in jobs()], None,
+              jbytes, 2.0 * (BATCH * fh * 4 + p * fh * TAU))
+    out["narrow_grads"].update({f"joined_{k}": v for k, v in j.items()
+                                if k in ("ms", "plain_ms", "bound_ms")})
+    # the joined launch's outputs against the plain version, of each
+    # tensor's largest entry
+    held = jobs()
+    FM.narrow_grads(held)
+    out["narrow_grads"]["joined_rel_err"] = max(
+        _rel_err(a, r) for jb in held
+        for a, r in zip((jb.db, jb.dc, jb.de), FM.narrow_grads_reference(jb))
+        if a is not None)
+    del held
+    del bdy, bsl, sky_dy
+    for name, body in (("narrow_grads", "rays"), ("small_grads", "walk")):
+        db_only = entry(
+            lambda: FM.siren_dense_wgrad(*zargs, narrow=body),
+            lambda: FM.siren_dense_wgrad_reference(*zargs),
+            lambda: torch.einsum("pn,pn->n", dy, slope),
+            _nbytes(dy, slope) + FEAT * 4, 2.0 * p * FEAT)
+        out[name].update({f"db_only_{k}": v for k, v in db_only.items()})
     hs = [rand(p, fh) for _ in range(3)]
     skyh = rand(BATCH, fh).abs()
     noise = rand(BATCH, SAMPLES, to=torch.float32)
@@ -1003,11 +1250,39 @@ def phase2(results: dict):
         f"plain {e['db_wgmma_vs_plain']:.2e} (of the largest entry)")
     if not max(e.values()) <= K1_STAGE_TOL:
         failures.append(f"siren_dense_wgrad at its main-path shape: {e}")
-    e = times["small_grads"]
-    log(f"phase 2: small_grads alone summing db (a {FEAT}-column layer with a "
-        f"bias alone, {BATCH * SAMPLES} points): kernel {e['db_only_ms']:.3f} "
-        f"ms, plain {e['db_only_plain_ms']:.3f} ms, library einsum "
-        f"{e['db_only_library_ms']:.3f} ms, bound {e['db_only_bound_ms']:.3f} ms")
+    e = times["siren_dense_k0"]
+    log(f"phase 2: siren_dense_k0, layer 0 with the saved slope ({BATCH} rays x "
+        f"{SAMPLES}, {FEAT} columns): {e['k0_ms']:.3f} ms (k0_v1, the first "
+        f"K = 0 kernel, {e['k0_v1_ms']:.3f} ms), bit-equal "
+        f"{e['bit_equal_to_v1']}, plain {e['plain_ms']:.3f} ms, bound "
+        f"{e['bound_ms']:.3f} ms; sky_0 ({BATCH} rays, relu): "
+        f"{e['sky0_ms']:.3f} ms (k0_v1 {e['sky0_k0_v1_ms']:.3f} ms), bound "
+        f"{e['sky0_bound_ms']:.3f} ms")
+    if not e["bit_equal_to_v1"]:
+        failures.append("siren_dense_k0 differs from k0_v1 at layer 0")
+    e = times["siren_dense_wgrad"]
+    log(f"phase 2: siren_dense_wgrad, the skip layer with dC of xyz folded "
+        f"into the wgmma epilogue {e['fold_ms']:.3f} ms, with the column walk "
+        f"for dC (GEMM + small_grads) {e['unfolded_ms']:.3f} ms; at one "
+        f"range of {FM.FOLD_SPLIT} points: {e['fold_bits']}")
+    if not (e["fold_bits"]["dw_equal"] and e["fold_bits"]["db_equal"]
+            and e["fold_bits"]["dc_rel_err"] <= NARROW_VS_WALK_TOL):
+        failures.append(f"the fold changed dW / db: {e['fold_bits']}")
+    for name in ("narrow_grads", "small_grads"):
+        e = times[name]
+        log(f"phase 2: {name} alone summing db (a {FEAT}-column layer with a "
+            f"bias alone, {BATCH * SAMPLES} points): kernel "
+            f"{e['db_only_ms']:.3f} ms, plain {e['db_only_plain_ms']:.3f} ms, "
+            f"library einsum {e['db_only_library_ms']:.3f} ms, bound "
+            f"{e['db_only_bound_ms']:.3f} ms")
+    e = times["narrow_grads"]
+    log(f"phase 2: narrow_grads, the heads' joined launch (sky_0's db and dC, "
+        f"beta_0's t_grad): {e['joined_ms']:.3f} ms, plain "
+        f"{e['joined_plain_ms']:.3f} ms, bound {e['joined_bound_ms']:.3f} ms; "
+        f"db, dC, dE vs plain {e['joined_rel_err']:.2e} (of the largest entry)")
+    if not e["joined_rel_err"] <= K1_STAGE_TOL:
+        failures.append(f"narrow_grads' joined launch vs plain: "
+                        f"{e['joined_rel_err']:.3g}")
     e = times["heads_composite"]
     log(f"phase 2: heads_composite bf16 with sigma noise at a training batch: "
         f"kernel {e['train_ms']:.3f} ms, plain {e['train_plain_ms']:.3f} ms, "
@@ -1101,11 +1376,58 @@ def phase2b(results: dict):
                                               for k in TRAIN_KERNELS))
             results["k1"][(variant, wmix, n_rays, dname)] = (ms, plain_ms)
             del out, ref
+    # past 256 samples a ray (the block body takes ceil(S / 256) samples a
+    # thread): every launch of the chain alone, composite_loss_bwd also
+    # against the warp body
+    for n_rays, n_s in LONG_CASES:
+        field, rays16, z, noise, gt, _ = _long_inputs(n_rays, n_s, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            tag = f"K1 sat-nerf R={n_rays} S={n_s} {dname}"
+            chk = TrainCheck(dtype)
+            packed = FM.pack_params(field, skip=4, use_beta=True, dtype=dtype)
+            with torch.no_grad():
+                FM._train_staged(packed, rays16, z, noise, gt, 1.0, skip=4,
+                                 use_beta=True, rgb_padding=0.001,
+                                 beta_min=0.05, return_weights=True, ops=chk)
+            torch.cuda.synchronize()
+            _record(results, failures, tag, chk)
+            log(f"phase 2b: {tag}: per launch " + ", ".join(
+                f"{k} {chk.err[k]:.1e}" for k in TRAIN_KERNELS
+                + ("composite_loss_bwd_vs_warp", JOINED_VS_ALONE)))
+            del packed
+        del field, rays16, z, noise, gt
     grown = {k: FM.LAUNCHES[k] - before[k] for k in TRAIN_KERNELS}
     if not all(v > 0 for v in grown.values()):
         failures.append(f"launch counters did not grow: {grown}")
     if failures:
         raise SystemExit("phase 2b failed:\n  " + "\n  ".join(failures))
+
+
+def _long_inputs(n_rays: int, n_s: int, dev):
+    """A seeded sat-nerf 8 x 512 field and a batch of n_rays x n_s samples
+    (LONG_CASES): (field, rays16, z, sigma noise, gt, a (R, 16) cotangent)."""
+    import torch
+
+    from satnerf_tpu_torch.models.nerf import build_model
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+
+    field = build_model("sat-nerf", LAYERS, FEAT, t_dim=TAU,
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+    o, d, sun, t, z = _inputs(n_rays, 15, dev, n_s)
+    g = torch.Generator().manual_seed(16)
+    gt = torch.rand(n_rays, 3, generator=g).to(dev)
+    noise = torch.randn(n_rays, n_s, generator=g).to(dev)
+    cot = torch.randn(n_rays, 16, generator=g).to(dev)
+    return field, FM.pack_rays(o, d, sun, t, TAU), z, noise, gt, cot
+
+
+def _record(results, failures, tag, chk) -> None:
+    """A check's failures into failures, its errors into results["err"]."""
+    failures += [f"{tag}: {b}" for b in chk.bad]
+    dname = "bfloat16" if chk.bf16 else "float32"
+    for k, e in chk.err.items():
+        results["err"][(k, dname)] = max(results["err"].get((k, dname), 0.0), e)
 
 
 def _hold_grads(failures, tag, got: dict, ref: dict, tol: float) -> tuple:
@@ -1233,6 +1555,33 @@ def phase2c(results: dict):
                             AUX_KERNELS + ("heads_composite",)))
             results["k34"][(variant, n_rays, dname)] = (k3_ms, k3_plain, k4_ms,
                                                         k4_plain)
+    # past 256 samples a ray: K4's chain, every launch alone, composite_bwd
+    # also against the warp body
+    for n_rays, n_s in LONG_CASES:
+        field, rays16, z, noise, _, cot = _long_inputs(n_rays, n_s, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            tag = f"K4 sat-nerf R={n_rays} S={n_s} {dname}"
+            chk = TrainCheck(dtype)
+            packed = FM.pack_params(field, skip=4, use_beta=True, dtype=dtype)
+            with torch.no_grad():
+                a = FM._chain_forward(packed, rays16, z, skip=4, use_beta=True,
+                                      ops=chk)
+                nargs = (a["h"], a["r"], a["s2"], a["bh"], a["skyh"],
+                         packed["wn"], packed["bn"], z)
+                chk.heads(*nargs, noise=noise, rgb_padding=0.001)
+                c = chk.composite_given(*nargs, noise, cot, rgb_padding=0.001)
+                FM._chain_backward(packed, a, c, rays16, z, skip=4,
+                                   use_beta=True, ops=chk)
+                del a, c, nargs
+            torch.cuda.synchronize()
+            _record(results, failures, tag, chk)
+            log(f"phase 2c: {tag}: per launch " + ", ".join(
+                f"{k} {chk.err[k]:.1e}" for k in
+                ("composite_bwd", "composite_bwd_vs_warp", "heads_composite")
+                + TRAIN_KERNELS[2:] + (JOINED_VS_ALONE,)))
+            del packed
+        del field, rays16, z, noise, cot
     grown = {k: FM.LAUNCHES[k] - before[k] for k in AUX_KERNELS}
     if not all(v > 0 for v in grown.values()):
         failures.append(f"launch counters did not grow: {grown}")
@@ -1783,6 +2132,27 @@ def phase2e(results: dict):
                 k7_ms, k7_plain, k8_ms, k8_plain, k9_ms, k9_plain)
             del out, ref, got9, ref9
 
+    # past 256 samples a ray: every launch of K7's chain alone,
+    # nerf_composite_loss_bwd at the long run's length and at one whose walk
+    # needs the opt-in past 48 KB
+    for n_rays, n_s in NERF_LONG_CASES:
+        o, d, _, _, z = _inputs(n_rays, 17, dev, n_s)
+        gt = torch.rand(n_rays, 3, generator=g).to(dev)
+        noise = torch.randn(n_rays, n_s, generator=g).to(dev)
+        rays8 = FN.pack_rays(o, d)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            tag = f"K7 nerf R={n_rays} S={n_s} {dname}"
+            chk = NerfCheck(dtype)
+            packed = FN.pack_params(field, skip=4, dtype=dtype)
+            with torch.no_grad():
+                FN._train_staged(packed, rays8, z, noise, gt, skip=4,
+                                 n_freq=NERF_FREQ, rgb_padding=0.001, ops=chk)
+            torch.cuda.synchronize()
+            _record(results, failures, tag, chk)
+            log(f"phase 2e: {tag}: per launch " + ", ".join(
+                f"{k} {e:.1e}" for k, e in chk.err.items()))
+            del packed
     grown = {k: FM.LAUNCHES[k] - before[k] for k in NERF_KERNELS}
     if not all(v > 0 for v in grown.values()):
         failures.append(f"launch counters did not grow: {grown}")
@@ -1856,7 +2226,8 @@ def phase3(results: dict, card: str):
     t0 = time.perf_counter()
     mae = create_pretty_dsm(run_id, logs, out_dir, 1, device="cuda")
     dsm_s = time.perf_counter() - t0
-    launches = {k: FM.LAUNCHES[k] for k in ("siren_dense", "heads_composite")}
+    launches = {k: _counts()[k] for k in ("siren_dense", "siren_dense_k0",
+                                          "heads_composite")}
     dsm_path = glob.glob(os.path.join(out_dir, run_id, "*_dsm_epoch1.tif"))[0]
     dsm = read_geotiff(dsm_path).data[0]
     finite = float(np.isfinite(dsm).mean())
@@ -1973,7 +2344,7 @@ def phase4(results: dict, card: str):
     first = cli_train.main(argv(TRAIN_STEPS, "smoke_train"))
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = dict(FM.LAUNCHES)
+    launches = _counts()
     cfg, system, state = first["cfg"], first["system"], first["state"]
     spe = system.spe
     if system.device.type != "cuda" or system.compute_dtype != torch.bfloat16:
@@ -1983,21 +2354,23 @@ def phase4(results: dict, card: str):
         raise SystemExit(f"phase 4 failed: {TRAIN_STEPS} steps do not pass two "
                          f"epoch boundaries of {spe} steps")
     # every step goes through the K1 chain: 1 composite_loss_bwd, 13 dgrad
-    # and 15 wgrad launches a step, 5 of them with small_grads (sun_v_0,
-    # beta_0 and the skip layer for dC / dE; layer 0 and sky_0, without X,
-    # for db and dC); validation launches none of these
+    # and 13 wgrad launches a step (dC of sun_v_0, beta_0 and the skip layer
+    # folded into their wgmma epilogues), 2 narrow_grads launches (layer 0's
+    # db and dC; sky_0's db and dC joined with beta_0's t_grad) and no column
+    # walk; validation launches none of these
     per_step = {"composite_loss_bwd": 1, "siren_dense_dgrad": 13,
-                "siren_dense_wgrad": 15, "small_grads": 5}
+                "siren_dense_wgrad": 13, "narrow_grads": 2, "small_grads": 0}
     for k, n in per_step.items():
         if launches[k] != n * TRAIN_STEPS:
             raise SystemExit(f"phase 4 failed: {k} launched {launches[k]} times "
                              f"in {TRAIN_STEPS} steps, expected {n} a step")
-    if not all(launches[k] > 0 for k in TRAIN_KERNELS + ("heads_composite",)):
+    if not all(launches[k] > 0 for k in TRAIN_KERNELS + ("heads_composite",
+                                                         "siren_dense_k0")):
         raise SystemExit(f"phase 4 failed: a kernel was not launched: {launches}")
     results["launches"] = launches
     # every bf16 launch with K > 0 of the three kernels with a wgmma mainloop
-    # went through it (the rest of siren_dense's and the wgrad's: K = 0,
-    # layer 0 and sky_0)
+    # went through it (the rest of siren_dense's: K = 0, layer 0 and sky_0,
+    # on the K = 0 kernel, none on k0_v1; the wgrad has no launch at K = 0)
     loops = {k: dict(n for n in FM.MAINLOOP_LAUNCHES.items() if n[0][0] == k)
              for k in ("siren_dense", "siren_dense_dgrad", "siren_dense_wgrad")}
     for k, by in loops.items():
@@ -2118,7 +2491,7 @@ def phase5(results: dict, card: str):
         t0 = time.perf_counter()
         out = cli_train.main(argv(steps, name, extra))
         torch.cuda.synchronize()
-        return out, dict(FM.LAUNCHES), time.perf_counter() - t0
+        return out, _counts(), time.perf_counter() - t0
 
     def check_counts(what, launches, micro, active):
         """micro micro-batches ran, `active` of them with the depth term on.
@@ -2129,9 +2502,12 @@ def phase5(results: dict, card: str):
         want = {"composite_loss_bwd": micro, "sc_loss_bwd": micro,
                 "composite_bwd": active,
                 "siren_dense_dgrad": 13 * micro + 11 * micro + 13 * active,
-                "siren_dense_wgrad": 15 * micro + 12 * micro + 15 * active,
-                # K1 and K4: 5 of their 15; K3: sun_v_0, the skip layer, layer 0
-                "small_grads": 5 * micro + 3 * micro + 5 * active}
+                # the layers with X: K1 and K4 13 of their 15, K3 11 of 12
+                "siren_dense_wgrad": 13 * micro + 11 * micro + 13 * active,
+                # K1 and K4: layer 0, and sky_0 joined with beta_0's t_grad;
+                # K3: layer 0 (sun_v_0 and the skip layer fold dC)
+                "narrow_grads": 2 * micro + 1 * micro + 2 * active,
+                "small_grads": 0}
         for k, n in want.items():
             if launches[k] != n:
                 raise SystemExit(f"phase 5 failed ({what}): {k} launched "
@@ -2265,7 +2641,7 @@ def phase6(results: dict, card: str):
         t0 = time.perf_counter()
         out = cli_train.main(argv(steps, name, n_imp, extra))
         torch.cuda.synchronize()
-        return out, dict(FM.LAUNCHES), time.perf_counter() - t0
+        return out, _counts(), time.perf_counter() - t0
 
     def fail(msg):
         raise SystemExit(f"phase 6 failed: {msg}")
@@ -2283,17 +2659,18 @@ def phase6(results: dict, card: str):
         fail(f"{HIER_STEPS} steps, {spe} an epoch, depth term dropping at {drop}: "
              f"the run must cross an epoch boundary and then the drop")
     active = drop - 1  # steps 0 .. drop - 2: step + 1 < ds_drop_step
-    # a step: the loss chain (15 forward, 13 dgrad, 15 wgrad launches) and the
-    # solar-correction chain (12, 11, 12) once a model, and the depth render
-    # over the ray-mode field once a model (15 forward; 13 and 15 backward
-    # while the depth term is on). A served chunk: 15 forward launches a model.
+    # a step: the loss chain (15 forward, 13 dgrad, 13 wgrad, 2 narrow_grads
+    # launches) and the solar-correction chain (12, 11, 11, 1) once a model,
+    # and the depth render over the ray-mode field once a model (15 forward;
+    # 13, 13 and 2 backward while the depth term is on). A served chunk: 15
+    # forward launches a model.
     n = HIER_STEPS
     want = {"composite_loss_bwd": 2 * n, "sc_loss_bwd": 2 * n,
             "field_heads": 2 * n, "field_heads_bwd": 2 * active,
             "composite_bwd": 0,
             "siren_dense_dgrad": (26 + 22) * n + 26 * active,
-            "siren_dense_wgrad": (30 + 24) * n + 30 * active,
-            "small_grads": (10 + 6) * n + 10 * active}
+            "siren_dense_wgrad": (26 + 22) * n + 26 * active,
+            "narrow_grads": (4 + 2) * n + 4 * active, "small_grads": 0}
     for k, v in want.items():
         if launches[k] != v:
             fail(f"{k} launched {launches[k]} times in {n} steps "
@@ -2442,6 +2819,33 @@ def phase6(results: dict, card: str):
     if not all(e <= K2_TOL["bfloat16"] for e in errs.values()):
         fail(f"render_image's fine products disagree: {errs}")
 
+    # ---- past 256 samples a ray: --n_importance 256 over 64, a fine pass of
+    # 320 through the per-ray kernels (two samples a thread of the block
+    # body), the main path's loss alone (no SC, no DS)
+    out, launches, long_s = run(LONG_STEPS, "smoke_long", LONG_IMPORTANCE,
+                                ["--sc_lambda", "0", "--ds_lambda", "0"])
+    if out["system"].fused_mode != "rays" or out["state"].step != LONG_STEPS:
+        fail("--n_importance 256 did not train through the per-ray kernels")
+    want = {"composite_loss_bwd": 2 * LONG_STEPS, "sc_loss_bwd": 0,
+            "composite_bwd": 0, "siren_dense_wgrad": 26 * LONG_STEPS,
+            "narrow_grads": 4 * LONG_STEPS, "small_grads": 0}
+    if any(launches[k] != v for k, v in want.items()):
+        fail(f"--n_importance 256 launches {launches}, expected {want}")
+    _on_block("phase 6 (--n_importance 256)", launches, ("composite_loss_bwd",))
+    rows = _train_rows(logs, out["cfg"].exp_name)
+    if not (len(rows) >= 2 and all(np.isfinite(r["train/loss"]) for r in rows)
+            and rows[-1]["train/loss"] < rows[0]["train/loss"]
+            and all(np.isfinite(v) for v in out["metrics"].values())):
+        fail(f"--n_importance 256: the loss is not finite and falling: "
+             f"{[r['train/loss'] for r in rows]}")
+    log(f"phase 6: --n_importance {LONG_IMPORTANCE} (a fine pass of "
+        f"{SAMPLES + LONG_IMPORTANCE} samples), {LONG_STEPS} steps in "
+        f"{long_s:.1f} s with validation: loss {rows[0]['train/loss']:.4f} -> "
+        f"{rows[-1]['train/loss']:.4f}, val/mae {out['metrics']['val/mae']:.3f}, "
+        f"composite_loss_bwd {launches['composite_loss_bwd']} launches a block "
+        f"a ray")
+    results["launches_long"] = launches
+
     # ---- --fused on: the plain renderer over the point-mode field kernel
     steps = SHORT_STEPS
     out, launches, on_s = run(steps, "smoke_fused_on", ON_IMPORTANCE,
@@ -2523,7 +2927,7 @@ def phase7(results: dict, card: str):
         t0 = time.perf_counter()
         out = cli_train.main(argv(root, steps, name, extra))
         torch.cuda.synchronize()
-        return out, dict(FM.LAUNCHES), time.perf_counter() - t0
+        return out, _counts(), time.perf_counter() - t0
 
     def fail(msg):
         raise SystemExit(f"phase 7 failed: {msg}")
@@ -2725,6 +3129,32 @@ def phase7(results: dict, card: str):
         f"{rows[-1]['train/loss_depth']:.3f}, launches "
         f"{ {k: launches[k] for k in NERF_KERNELS} }")
 
+    # ---- past 256 samples a ray through K7: --n_samples 320, whose walk
+    # keeps 40 KB of a block's rays in shared memory, and --n_samples 512,
+    # 64 KB (opted in past 48 KB); as many steps as the first run: the
+    # variant's loss falls slowly
+    for n_s in (NERF_LONG_SAMPLES, NERF_OPTIN_SAMPLES):
+        out, launches, long_s = run(aoi, NERF_STEPS, f"smoke_nerf_long{n_s}",
+                                    ["--n_samples", str(n_s)])
+        if (out["system"].fused_mode != "points"
+                or out["state"].step != NERF_STEPS):
+            fail(f"--n_samples {n_s} did not train through the kernels")
+        hold(f"--n_samples {n_s}", launches,
+             {"nerf_composite_loss_bwd": NERF_STEPS,
+              "nerf_dense_dgrad": 9 * NERF_STEPS,
+              "nerf_dense_wgrad": 10 * NERF_STEPS,
+              "nerf_field_heads": 0, "nerf_field_heads_bwd": 0})
+        rows = _train_rows(logs, out["cfg"].exp_name)
+        if not (len(rows) >= 2
+                and all(np.isfinite(r["train/loss"]) for r in rows)
+                and rows[-1]["train/loss"] < rows[0]["train/loss"]):
+            fail(f"--n_samples {n_s}: the loss is not finite and falling: "
+                 f"{[r['train/loss'] for r in rows]}")
+        log(f"phase 7: --n_samples {n_s}, {NERF_STEPS} steps in {long_s:.1f} s "
+            f"with validation: loss {rows[0]['train/loss']:.4f} -> "
+            f"{rows[-1]['train/loss']:.4f}, launches "
+            f"{ {k: launches[k] for k in NERF_KERNELS} }")
+
 
 def _loaded_foreign() -> list:
     return sorted(m for m in sys.modules
@@ -2776,6 +3206,7 @@ def main():
     kernels = []
     for kname, (source, replaces, *also) in KERNELS.items():
         t = results["times"][kname]
+        vs_old = {"siren_dense_k0": "v1", "narrow_grads": "walk"}.get(kname)
         main_path = ("launches_full" if kname in AUX_KERNELS else
                      "launches_hier" if kname in FIELD_KERNELS else
                      "launches_nerf_hier" if kname in NERF_FIELD_KERNELS else
@@ -2802,6 +3233,14 @@ def main():
                 "max_abs_err_vs_warp": max(results["err"][(f"{kname}_vs_warp", dn)]
                                            for dn in ("float32", "bfloat16"))}
                if kname in results["body_launches"] else {}),
+            # the two redesigned beside the kernels they replaced
+            **({f"max_abs_err_vs_{vs_old}": max(
+                results["err"][(f"{kname}_vs_{vs_old}", dn)]
+                for dn in ("float32", "bfloat16"))} if vs_old else {}),
+            **({"max_abs_err_joined_vs_alone": max(
+                results["err"][(JOINED_VS_ALONE, dn)]
+                for dn in ("float32", "bfloat16"))}
+               if kname == "narrow_grads" else {}),
             **t,
         })
     log(f"build {secs:.1f} s, phases {time.perf_counter() - t_start:.1f} s; "

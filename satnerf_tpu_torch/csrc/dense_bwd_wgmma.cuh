@@ -41,7 +41,18 @@
 //   buffered, from positions loaded two stages ahead, the next tile while
 //   this stage's products run) and issue an m64nEk16 wgmma. Partial tiles
 //   meet in dW and dC by fp32 atomics; the blocks of the first k tile add
-//   the bias sums.
+//   the bias sums. The SIREN layers with a small E operand (xyz, sun_dir or
+//   t, at most FOLD_MAX columns, built from the rays) fold its gradient in
+//   (NX > 0): dC[j][n] = sum_p E[p][j] round(G[p][n]). The consumers of
+//   every block form E of the block's points (at most FOLD_SPLIT, rounded
+//   to bf16) into shared memory once, before the stages, while the
+//   producer's first loads fly; each consumer thread, which holds round(G)
+//   of two columns at eight points of a stage in its A fragments, adds
+//   E^T round(G) by FMAs before the stage's products, for the E columns
+//   its k tile takes (j % k_tiles == kt: the blocks of a point range share
+//   the work and keep in step, so G's second read stays in L2); its sums
+//   meet across the quad's lanes, then fp32 atomics. So G is read once for
+//   dW, db and dC.
 //
 // What bounds them: G arrives as fp32 (8 or 6 bytes of operand a value
 // with the mask) and dX leaves in fp32; at the main paths' widths the bytes
@@ -313,15 +324,32 @@ template <int E> struct EncTiles {
 };
 template <> struct EncTiles<0> {};
 
-template <int GM, int E>
+// The fold of a small E operand: where to build it from (common.cuh
+// extra_value), and E of a block's points (NX = 0: none).
+constexpr int FOLD_MAX = 4;
+constexpr int FOLD_SPLIT = 4096;  // the most points a folding block holds E of
+struct FoldExtra {
+  const float* rays;
+  const float* z;
+  int S, mode, off, n;
+};
+template <int NX> struct alignas(16) FoldTiles {
+  __nv_bfloat16 es[FOLD_SPLIT][NX];  // E of the block's points, bf16 as rounded
+};
+template <> struct FoldTiles<0> {};
+
+template <int GM, int E, int NX = 0>
 struct WgradSmem {
   float dy[WGR_STAGES][WGR_P * WGR_N];  // four boxes a stage, each 1024-byte aligned
   typename GMask<GM>::T mask[WGR_STAGES][WGR_P * WGR_N];
   __nv_bfloat16 x[WGR_STAGES][WGR_P * WGR_K];
   EncTiles<E> e;
+  FoldTiles<NX> f;
   uint64_t full[WGR_STAGES], empty[WGR_STAGES];
 };
-template <int GM, int E> constexpr int wgrad_smem() { return (int)sizeof(WgradSmem<GM, E>) + 1024; }
+template <int GM, int E, int NX = 0> constexpr int wgrad_smem() {
+  return (int)sizeof(WgradSmem<GM, E, NX>) + 1024;
+}
 
 // Byte offset of element (p, j) of an encoding tile: E = 64, 128-byte rows
 // with the 128-byte swizzle (the X tile's layout); E = 32, 64-byte rows with
@@ -403,17 +431,19 @@ __device__ __forceinline__ void wgrad_fragments(uint32_t (&a)[2][4], const uint8
 // tile past X's (all of them at K = 0); `enc.coord(q, c)` gives coordinate c
 // of the position point q is encoded from (0 past the last point), and
 // enc.n_freq its frequencies. The blocks of the first k tile (the encoding's
-// at K = 0) add the bias sums.
-template <int GM, int E, typename Enc>
+// at K = 0) add the bias sums. NX > 0 (with K > 0 and E = 0): the fold of
+// fx's fx.n <= NX columns into dC (n_extra, N).
+template <int GM, int E, typename Enc, int NX = 0>
 __global__ void __launch_bounds__(WGR_THREADS, 1)
 wgrad_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_dy,
             const __grid_constant__ CUtensorMap map_mask, int has_mask, float* __restrict__ dW,
             float* __restrict__ db, float* __restrict__ dC, const Enc enc, int P, int N, int K,
-            int split) {
+            int split, const FoldExtra fx) {
   using namespace hopper;
+  static_assert(NX == 0 || (E == 0 && NX == 4), "a fold holds 4 columns a point");
   constexpr int MASK_BOX = WGR_P * 32 * (int)sizeof(typename GMask<GM>::T);
   extern __shared__ uint8_t smem_raw[];
-  WgradSmem<GM, E>& sm = *reinterpret_cast<WgradSmem<GM, E>*>(align1024(smem_raw));
+  WgradSmem<GM, E, NX>& sm = *reinterpret_cast<WgradSmem<GM, E, NX>*>(align1024(smem_raw));
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int x_tiles = (K + WGR_K - 1) / WGR_K;
   const int k_tiles = x_tiles + (E > 0 ? 1 : 0);
@@ -539,6 +569,28 @@ wgrad_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ C
     }
   }
 
+  // the fold's sums: dC^T at columns nl (0) and nl + 8 (1), E column j.
+  // Every block of a point range forms E and takes the E columns j with
+  // j % k_tiles == kt: the blocks that share G's tiles through L2 keep in
+  // step (the fold in the first k tile's blocks alone let the others run
+  // ahead, and G's second read came from device memory).
+  float dcx[2][NX > 0 ? NX : 1];
+  if constexpr (NX > 0) {
+#pragma unroll
+    for (int j = 0; j < NX; ++j) dcx[0][j] = dcx[1][j] = 0.f;
+    // E of the block's points, a point a thread at a time; 0 past P
+    for (int q = threadIdx.x; q < steps * WGR_P; q += WGR_CONSUMERS) {
+      __nv_bfloat16 v[NX];
+#pragma unroll
+      for (int j = 0; j < NX; ++j)
+        v[j] = __float2bfloat16_rn(
+            j < fx.n && p_begin + q < P
+                ? extra_value<__nv_bfloat16>(fx.rays, fx.z, fx.S, fx.mode, fx.off, p_begin + q, j)
+                : 0.f);
+      *reinterpret_cast<uint2*>(&sm.f.es[q][0]) = *reinterpret_cast<const uint2*>(v);
+    }
+    bar_sync(1, WGR_CONSUMERS);
+  }
   if (!enc_block) {  // dW^T = G^T . X
     float acc[128];  // written by wgmma only: the first product starts the sum
     for (int i = 0; i < steps; ++i) {
@@ -547,6 +599,32 @@ wgrad_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ C
       wgrad_fragments<GM>(a, reinterpret_cast<const uint8_t*>(sm.dy[stage]) + box,
                           reinterpret_cast<const uint8_t*>(sm.mask[stage]) + mbox, c0, t,
                           has_mask, db0, db1);
+      if constexpr (NX > 0) {  // dC^T += round(G)^T E: register r of step s
+        // holds column nl + 8 (r % 2) at points 16 s + 8 (r / 2) + 2t and + 1
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int q = i * WGR_P + 16 * s + 8 * h + 2 * t;  // in the block's range
+            // E rows of points q and q + 1: four bf16 each
+            const uint2 u = *reinterpret_cast<const uint2*>(&sm.f.es[q][0]);
+            const uint2 v = *reinterpret_cast<const uint2*>(&sm.f.es[q + 1][0]);
+            const float e0[4] = {__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                                 __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u)};
+            const float e1[4] = {__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                                 __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u)};
+#pragma unroll
+            for (int cc = 0; cc < 2; ++cc) {
+              // a bf16 pair: the low half is point q's, the high half q + 1's
+              const uint32_t gp = a[s][2 * h + cc];
+              const float g0 = __uint_as_float(gp << 16), g1 = __uint_as_float(gp & 0xffff0000u);
+#pragma unroll
+              for (int j = 0; j < NX; ++j)
+                if (j % k_tiles == kt) dcx[cc][j] = fmaf(e1[j], g1, fmaf(e0[j], g0, dcx[cc][j]));
+            }
+          }
+        }
+      }
       const uint8_t* x = reinterpret_cast<const uint8_t*>(sm.x[stage]);
       wgmma_fence();
       wgmma_m64n256k16_rs_tb(acc, a[0], smem_desc(x, WGR_X_BOX, 1024, SWIZZLE_128B), i > 0);
@@ -579,19 +657,35 @@ wgrad_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ C
       atomicAdd(db + n0 + nl + 8, db1);
     }
   }
+  if constexpr (NX > 0) {  // the fold's sums, as the bias sums: across the quad, then atomics
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+#pragma unroll
+      for (int j = 0; j < NX; ++j) {
+        float v = dcx[cc][j];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (t == 0 && j < fx.n && j % k_tiles == kt && n0 + nl < N)
+          atomicAdd(dC + (size_t)j * N + n0 + nl + 8 * cc, v);
+      }
+    }
+  }
 }
 
 // X (P, K) bf16 (nullptr at K = 0), dY (P, N) fp32, mask (P, N) of GM's type
 // or nullptr; dW (K, N), db (N,), dC (E, N) fp32, zeroed; N and K multiples of
-// 64 (K = 0 only with an encoding); split a positive multiple of WGR_P.
-template <int GM, int E, typename Enc>
+// 64 (K = 0 only with an encoding); split a positive multiple of WGR_P. NX >
+// 0: fx's E operand folded into dC (fx.n, N), fx.n <= NX.
+template <int GM, int E, typename Enc, int NX = 0>
 int launch_wgrad_wgmma(cudaStream_t st, const __nv_bfloat16* X, const float* dY, const void* mask,
                        float* dW, float* db, float* dC, const Enc& enc, int P, int N, int K,
-                       int split) {
-  static const int resident = hopper::resident_blocks(wgrad_wgmma<GM, E, Enc>, WGR_THREADS,
-                                                      wgrad_smem<GM, E>());
+                       int split, const FoldExtra& fx = FoldExtra{}) {
+  static const int resident = hopper::resident_blocks(wgrad_wgmma<GM, E, Enc, NX>, WGR_THREADS,
+                                                      wgrad_smem<GM, E, NX>());
   if (resident == 0) return (int)cudaErrorInvalidConfiguration;
   if (K == 0 && E == 0) return (int)cudaErrorInvalidValue;
+  if (NX > 0 && (K == 0 || fx.n < 1 || fx.n > NX || fx.S < 1 || split > FOLD_SPLIT))
+    return (int)cudaErrorInvalidValue;
   CUtensorMap map_x, map_dy, map_mask;
   // without X (K = 0) its map stands on dY, 64 bf16 columns a row, and is never read
   int err = K > 0 ? hopper::tensor_map_2d(&map_x, X, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, P, K,
@@ -606,8 +700,8 @@ int launch_wgrad_wgmma(cudaStream_t st, const __nv_bfloat16* X, const float* dY,
   const long long k_tiles = (K + WGR_K - 1) / WGR_K + (E > 0 ? 1 : 0);
   const long long blocks = (long long)((N + WGR_N - 1) / WGR_N) * k_tiles * ((P + split - 1) / split);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  wgrad_wgmma<GM, E, Enc><<<(int)blocks, WGR_THREADS, wgrad_smem<GM, E>(), st>>>(
-      map_x, map_dy, map_mask, mask != nullptr, dW, db, dC, enc, P, N, K, split);
+  wgrad_wgmma<GM, E, Enc, NX><<<(int)blocks, WGR_THREADS, wgrad_smem<GM, E, NX>(), st>>>(
+      map_x, map_dy, map_mask, mask != nullptr, dW, db, dC, enc, P, N, K, split, fx);
   return (int)cudaGetLastError();
 }
 

@@ -1167,7 +1167,10 @@ nerf_heads_composite_kernel(const T* __restrict__ h, int F, const T* __restrict_
 //      compute type before both of their products, give the rows of dWn (in
 //      registers over the ray) and d_h (the sigma head's share), d_r in fp32
 // The quotient is large but finite where alpha saturates (the last sample's
-// delta is 1e10), and its product with 1 - alpha is then exactly 0.
+// delta is 1e10), and its product with 1 - alpha is then exactly 0. Each
+// warp keeps NCL_SAMPLE_VALS floats a sample of its ray in shared memory:
+// past 384 samples the kernel opts into more than 48 KB, and the C entry
+// refuses S past the 227 KB a block may hold (1,816 samples).
 
 constexpr int NCL_WARPS = 4;
 constexpr int NCL_MAX_F = 512;  // widest trunk the register rows hold
@@ -1760,8 +1763,16 @@ extern "C" int satnerf_nerf_composite_loss_bwd(int dtype, const void* h, int F, 
     return (int)cudaErrorInvalidValue;
   if (R == 0) return (int)cudaSuccess;
   const int grid = (R + NCL_WARPS - 1) / NCL_WARPS;
-  const size_t smem = (size_t)NCL_WARPS * NCL_SAMPLE_VALS * S * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  // S past what shared memory holds is refused (ops/fused_nerf.py
+  // nerf_composite_max_samples mirrors the rule); above 48 KB the kernel opts in
+  const long long smem = (long long)NCL_WARPS * NCL_SAMPLE_VALS * S * sizeof(float);
+  static int allowed[2] = {0, 0};
+  if (smem > hopper::SMEM_OPTIN_BYTES) return (int)cudaErrorInvalidValue;
+  const int err = dtype == 0 ? hopper::allow_smem(nerf_composite_loss_bwd_kernel<float>,
+                                                  (int)smem, &allowed[0])
+                             : hopper::allow_smem(nerf_composite_loss_bwd_kernel<bf16>,
+                                                  (int)smem, &allowed[1]);
+  if (err != 0) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     nerf_composite_loss_bwd_kernel<float><<<grid, NCL_WARPS * 32, smem, st>>>(

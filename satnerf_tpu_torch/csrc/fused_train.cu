@@ -20,8 +20,11 @@
 //                        (fused_mlp.py:1312, _composite_bwd_tile :1202)
 //   siren_dense_dgrad    dX (+)= (dY * slope) . W^T
 //   siren_dense_wgrad    dW += X^T . (dY * slope), db += sum (dY * slope),
-//                        dC += E^T . (dY * slope), and for beta_0 the per-ray
-//                        gradient of t, sum_s (dY * slope) . C^T
+//                        dC += E^T . (dY * slope) (on wgmma in the GEMM's
+//                        epilogue; elsewhere narrow_grads)
+//   narrow_grads         db, dC where no GEMM formed them, and the per-ray
+//                        gradient of E, sum_s (dY * slope) . C^T (for beta_0
+//                        t_grad), of one or more layers a launch
 //
 // Rounding follows the JAX kernel (_point_bwd_from_saves :406): a cotangent
 // G = dY * slope is formed in fp32, rounded to the compute type before both
@@ -30,6 +33,8 @@
 //
 // Sums across blocks use fp32 atomicAdd into buffers the wrapper zeroes, so
 // the order of addition, and with it the last bits, changes from run to run.
+
+#include <algorithm>
 
 #include "common.cuh"
 #include "dense_bwd_wgmma.cuh"
@@ -284,16 +289,23 @@ dgrad_wmma(const float* __restrict__ dY, const float* __restrict__ slope,
 //    memory, 128 x 128 tiles of dW, WGRAD_SPLIT points a block (blockIdx.z).
 //  * simt (fp32, and bf16 of other shapes): a register-tiled SIMT GEMM.
 //
-// small_grads covers what is too narrow for a GEMM tile, one thread a
-// column over a chunk of SMALL_CHUNK points (short chunks: the walk is
-// serial and bound by load latency, so it wants many threads in flight):
-// db[n] += sum_p G[p, n] (unrounded, as the JAX kernel sums it) where the
-// GEMM did not (wmma, simt, K = 0), dC[j, n] += sum_p E[p, j] * round(G[p, n])
-// for the layers with an E operand (E rebuilt from rays and z), and on
-// request the per-ray gradient of E itself, dE[r, j] += sum_s sum_n
-// round(G[p, n]) * C[j, n]: that is t_grad when the layer is beta_0
-// (fused_mlp.py:493,1633). It is launched only where it has work: the
-// wrapper says which (SMALL_*), and the C entry refuses any other answer.
+// The narrow gradients are what is too narrow for a GEMM tile: db[n] +=
+// sum_p G[p, n] (unrounded, as the JAX kernel sums it) where the GEMM did
+// not (wmma, simt, K = 0), dC[j, n] += sum_p E[p, j] * round(G[p, n]) for
+// the layers with an E operand, and on request the per-ray gradient of E
+// itself, dE[r, j] = sum_s sum_n round(G[p, n]) * C[j, n]: that is t_grad
+// when the layer is beta_0 (fused_mlp.py:493,1633). Two bodies (the
+// wrapper's `narrow=`):
+//  * narrow_grads ("rays", the rule): its own launch, by the wrapper,
+//    of one or more layers' jobs (the chain joins sky_0's with beta_0's dE);
+//    on wgmma the wgrad's epilogue forms dC itself (the fold,
+//    dense_bwd_wgmma.cuh), so it runs where there is no GEMM (layer 0,
+//    sky_0), for dE, and beside wmma / simt. See below.
+//  * small_grads ("walk", kept to compare), launched by the wgrad's C entry
+//    after the GEMM: one thread a column over a chunk of SMALL_CHUNK points,
+//    E rebuilt by every column's thread, one atomic a column a chunk. The
+//    wrapper says whether it runs (SMALL_*), and the C entry refuses any
+//    other answer.
 
 constexpr int WGRAD_SPLIT = 2048;
 constexpr int SMALL_THREADS = 128;
@@ -518,6 +530,197 @@ small_grads(const float* __restrict__ dY, const float* __restrict__ slope, int P
     for (int j = 0; j < MAX_EXTRA; ++j)
       if (j < n_extra) atomicAdd(dC + (size_t)j * N + n, dc_acc[j]);
   }
+}
+
+// --------------------------------------------------------------- narrow_grads
+//
+// A block owns a range of whole rays of one job and all of its N <= 512
+// columns: 4 columns a thread (16-byte loads of dY and the slope), the
+// threads of a row NR = 32, 64 or 128 (N up to 128, 256, 512) and 256 / NR
+// rows side by side, four rows in flight a thread. E of a tile of 256 points
+// is formed once, a point a thread, into shared memory. db and dC add up in
+// registers over the whole range and meet in shared memory: one atomicAdd a
+// column a block. dE: a thread's share of each point, sum_n round(G) C[j, n]
+// over its 4 columns, adds up over the points of its current ray; when the
+// ray changes the warp sums it and adds it into the ray's row in shared
+// memory, and the block stores its rays' rows of dE, no atomics (it owns
+// them). Bound by device memory: G's two fp32 tensors are read once (layer 0
+// at 65,536 x 512: 268 MB, 0.080 ms at 3.35 TB/s); the grid is about one
+// wave of resident blocks, NARROW_MIN_POINTS points a block at least.
+// vec: N a multiple of 4, dY and the slope 16-byte aligned (else element
+// loads).
+struct NarrowJob {
+  const float* dY;     // (P, N) fp32
+  const float* slope;  // (P, N) fp32, or nullptr: a linear layer
+  const float* rays;   // rays16 (R, 16)
+  const float* z;      // (R, S), read for EXTRA_XYZ
+  const void* C;       // (n_extra, N) in the compute dtype, read for dE
+  float* db;           // (N,), nullptr: not asked
+  float* dC;           // (n_extra, N), nullptr: not asked
+  float* dE;           // (R, n_extra), nullptr: not asked
+  int P, N, S, extra_mode, extra_off, n_extra;
+  int rays_per_block, block0;  // a block's rays; the job's first block
+};
+constexpr int NARROW_MAX_JOBS = 4;
+struct NarrowJobs {
+  NarrowJob job[NARROW_MAX_JOBS];
+  int n;
+};
+constexpr int NARROW_THREADS = 256;
+constexpr int NARROW_TILE = 256;        // points whose E is formed at once
+constexpr int NARROW_MAX_N = 512;
+constexpr int NARROW_DE_FLOATS = 2048;  // a block's rows of dE
+constexpr int NARROW_MIN_POINTS = 64;
+constexpr int NARROW_UNROLL = 4;
+
+// NE: the E columns the registers hold (every job's n_extra at most NE).
+template <typename T, int NE>
+__global__ void __launch_bounds__(NARROW_THREADS)
+narrow_grads(const __grid_constant__ NarrowJobs jobs) {
+  constexpr int NA = NE > 0 ? NE : 1;
+  __shared__ float es[NARROW_TILE][NA];
+  __shared__ float red[(1 + NA) * NARROW_MAX_N];  // db, then dC's rows
+  __shared__ float de_s[NARROW_DE_FLOATS];
+  int ji = 0;
+  while (ji + 1 < jobs.n && (int)blockIdx.x >= jobs.job[ji + 1].block0) ++ji;
+  const NarrowJob& jb = jobs.job[ji];
+  const int N = jb.N, S = jb.S, ne = jb.n_extra;
+  const int R = jb.P / S;
+  const int r_begin = ((int)blockIdx.x - jb.block0) * jb.rays_per_block;
+  const int r_end = min(R, r_begin + jb.rays_per_block);
+  const int p_begin = r_begin * S, p_end = r_end * S;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int NR = N <= 128 ? 32 : N <= 256 ? 64 : 128;  // threads a row
+  const int rows = NARROW_THREADS / NR;
+  const int slot = tid / NR, n = (tid % NR) * 4;
+  const bool col_ok = n < N;
+  const bool vec = N % 4 == 0 && ((reinterpret_cast<uintptr_t>(jb.dY) |
+                                   reinterpret_cast<uintptr_t>(jb.slope)) % 16 == 0);
+  const bool want_db = jb.db != nullptr, want_dc = jb.dC != nullptr, want_de = jb.dE != nullptr;
+
+  for (int i = tid; i < (1 + ne) * N; i += NARROW_THREADS) red[i] = 0.f;
+  for (int i = tid; i < (r_end - r_begin) * ne; i += NARROW_THREADS) de_s[i] = 0.f;
+  float c[NA][4];  // dE's weight at this thread's columns
+#pragma unroll
+  for (int j = 0; j < NE; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      c[j][i] = want_de && j < ne && n + i < N
+                    ? to_f32<T>(static_cast<const T*>(jb.C)[(size_t)j * N + n + i])
+                    : 0.f;
+  float db_acc[4] = {0.f, 0.f, 0.f, 0.f}, dc_acc[NA][4], de_acc[NA];
+#pragma unroll
+  for (int j = 0; j < NE; ++j) {
+    de_acc[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dc_acc[j][i] = 0.f;
+  }
+  int cur_ray = r_begin;
+  // the warp's share of dE of its current ray into shared memory
+  auto flush = [&]() {
+#pragma unroll
+    for (int j = 0; j < NE; ++j) {
+      if (j < ne) {
+        const float v = warp_sum(de_acc[j]);
+        if (lane == 0) atomicAdd(&de_s[(cur_ray - r_begin) * ne + j], v);
+        de_acc[j] = 0.f;
+      }
+    }
+  };
+
+  for (int t0 = p_begin; t0 < p_end; t0 += NARROW_TILE) {
+    const int t_end = min(p_end, t0 + NARROW_TILE);
+    __syncthreads();  // the last tile's E is read; red and de_s are zeroed
+    if (want_dc && t0 + tid < t_end) {
+      for (int j = 0; j < ne; ++j)
+        es[tid][j] = extra_value<T>(jb.rays, jb.z, S, jb.extra_mode, jb.extra_off, t0 + tid, j);
+    }
+    __syncthreads();
+    for (int p0 = t0 + slot; p0 < t_end; p0 += rows * NARROW_UNROLL) {
+      float4 dy[NARROW_UNROLL], sl[NARROW_UNROLL];
+#pragma unroll
+      for (int u = 0; u < NARROW_UNROLL; ++u) {
+        const int p = p0 + u * rows;
+        dy[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        sl[u] = make_float4(1.f, 1.f, 1.f, 1.f);
+        if (p < t_end && col_ok) {
+          const size_t idx = (size_t)p * N + n;
+          if (vec) {
+            dy[u] = *reinterpret_cast<const float4*>(jb.dY + idx);
+            if (jb.slope != nullptr) sl[u] = *reinterpret_cast<const float4*>(jb.slope + idx);
+          } else {
+            float d[4] = {0.f, 0.f, 0.f, 0.f}, l[4] = {1.f, 1.f, 1.f, 1.f};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              if (n + i < N) {
+                d[i] = jb.dY[idx + i];
+                if (jb.slope != nullptr) l[i] = jb.slope[idx + i];
+              }
+            }
+            dy[u] = make_float4(d[0], d[1], d[2], d[3]);
+            sl[u] = make_float4(l[0], l[1], l[2], l[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < NARROW_UNROLL; ++u) {
+        const int p = p0 + u * rows;
+        if (p >= t_end) break;  // the same for every lane of the warp
+        const float g[4] = {dy[u].x * sl[u].x, dy[u].y * sl[u].y, dy[u].z * sl[u].z,
+                            dy[u].w * sl[u].w};
+        float gb[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          db_acc[i] += g[i];
+          gb[i] = round_to<T>(g[i]);
+        }
+        if (want_dc) {
+#pragma unroll
+          for (int j = 0; j < NE; ++j) {
+            if (j < ne) {
+              const float e = es[p - t0][j];
+#pragma unroll
+              for (int i = 0; i < 4; ++i) dc_acc[j][i] = fmaf(e, gb[i], dc_acc[j][i]);
+            }
+          }
+        }
+        if (want_de) {
+          const int ray = p / S;
+          if (ray != cur_ray) {
+            flush();
+            cur_ray = ray;
+          }
+#pragma unroll
+          for (int j = 0; j < NE; ++j) {
+            if (j < ne) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) de_acc[j] = fmaf(gb[i], c[j][i], de_acc[j]);
+            }
+          }
+        }
+      }
+    }
+  }
+  if (want_de) flush();
+
+  // db and dC: the rows' sums meet in shared memory, then one atomic a column
+  if (col_ok) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (n + i >= N) break;
+      if (want_db) atomicAdd(&red[n + i], db_acc[i]);
+#pragma unroll
+      for (int j = 0; j < NE; ++j)
+        if (want_dc && j < ne) atomicAdd(&red[(1 + j) * N + n + i], dc_acc[j][i]);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < N; i += NARROW_THREADS)
+    if (want_db) atomicAdd(jb.db + i, red[i]);
+  for (int i = tid; i < ne * N; i += NARROW_THREADS)
+    if (want_dc) atomicAdd(jb.dC + i, red[N + i]);
+  for (int i = tid; i < (r_end - r_begin) * ne; i += NARROW_THREADS)
+    if (want_de) jb.dE[(size_t)r_begin * ne + i] = de_s[i];
 }
 
 // --------------------------------------------------------- composite_loss_bwd
@@ -893,9 +1096,16 @@ composite_loss_bwd_kernel(const T* __restrict__ h, int F, const T* __restrict__ 
 // second time mostly from L2) and four cotangents written in fp32 (PERF.md:
 // 0.151 ms at 1,024 rays x 64 samples); the walk's serial chain of warp
 // reductions kept it far from that. The sums run in another order than the
-// walk's (scans, block sums), so the last bits differ. S is at most
-// CLB2_THREADS (a thread a sample in 2 and 4), the most the wrappers take
-// (ops/fused_mlp.py _adjoint_buffers).
+// walk's (scans, block sums), so the last bits differ. Any S whose shared
+// memory fits the 227 KB a block may opt into: 2. and 4. take the samples
+// in chunks of CLB2_THREADS, a sample a thread each (the ceil(S / 256)
+// samples a thread), the scans carrying the product and the sum of the
+// chunks before (after) them, the sums adding up over the chunks; above one
+// chunk the transmittance of each sample is kept in shared memory from 2. to
+// 4. At S <= CLB2_THREADS (one chunk) the launch runs the instantiation
+// with MULTI false, the code it ran before chunks were added: its outputs
+// are the same to the bit (ops/fused_mlp.py composite_max_samples gives the
+// largest S).
 // vec: F and Fh multiples of 16 bytes' worth and the row tensors 16-byte
 // aligned (else element loads and stores).
 
@@ -964,8 +1174,10 @@ __device__ __forceinline__ void block_sums(float (&v)[M], float* scratch) {
   __syncthreads();
 }
 
-// The product of f over the threads before this one (1 for thread 0).
-__device__ __forceinline__ float block_exclusive_product(float f, float* scratch) {
+// The product of f over the threads before this one (1 for thread 0); with
+// total, the product over every thread too.
+__device__ __forceinline__ float block_exclusive_product(float f, float* scratch,
+                                                         float* total = nullptr) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
   float inc = f;
 #pragma unroll
@@ -979,12 +1191,19 @@ __device__ __forceinline__ float block_exclusive_product(float f, float* scratch
   for (int w = 0; w < warp; ++w) pre *= scratch[w];
   float exc = __shfl_up_sync(0xffffffffu, inc, 1);
   if (lane == 0) exc = 1.f;
+  if (total != nullptr) {
+    float all = 1.f;
+    for (int w = 0; w < CLB2_WARPS; ++w) all *= scratch[w];
+    *total = all;
+  }
   __syncthreads();
   return pre * exc;
 }
 
-// The sum of v over the threads after this one (0 for the last).
-__device__ __forceinline__ float block_exclusive_suffix_sum(float v, float* scratch) {
+// The sum of v over the threads after this one (0 for the last); with
+// total, the sum over every thread too.
+__device__ __forceinline__ float block_exclusive_suffix_sum(float v, float* scratch,
+                                                            float* total = nullptr) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
   float inc = v;
 #pragma unroll
@@ -998,6 +1217,11 @@ __device__ __forceinline__ float block_exclusive_suffix_sum(float v, float* scra
   for (int w = CLB2_WARPS - 1; w > warp; --w) post += scratch[w];
   float exc = __shfl_down_sync(0xffffffffu, inc, 1);
   if (lane == 31) exc = 0.f;
+  if (total != nullptr) {
+    float all = 0.f;
+    for (int w = CLB2_WARPS - 1; w >= 0; --w) all += scratch[w];
+    *total = all;
+  }
   __syncthreads();
   return post + exc;
 }
@@ -1005,16 +1229,18 @@ __device__ __forceinline__ float block_exclusive_suffix_sum(float v, float* scra
 // The shared memory of a block, in floats: the narrow weights (rows padded
 // to Fp = F and Fhp = Fh rounded up to 8), the six per-sample head values and
 // the six rounded cotangents (S each), the block sums' and scans' scratch,
-// sky, and the column sums of dWn's rows 0 .. 4 and 8.
+// sky, the column sums of dWn's rows 0 .. 4 and 8, and above one chunk of
+// samples the transmittance of each (S). ops/fused_mlp.py
+// composite_max_samples mirrors it.
 __host__ __device__ constexpr int clb2_smem_floats(int F, int Fh, int S) {
   return (F + 7) / 8 * 8 + 8 * ((Fh + 7) / 8 * 8) + 12 * S + CLB2_WARPS * CLB2_SUMS + 4 + F +
-         5 * Fh;
+         5 * Fh + (S > CLB2_THREADS ? S : 0);
 }
 
 // Registers for 2 blocks an SM (at most 128 a thread, no spills): builds for
 // 1 (174 registers) and 3 (80, with spills) ran slower, 0.613 and 0.425
 // against 0.384 ms at 1,024 rays x 64 on an H100 (PERF.md section 6).
-template <typename T, bool GIVEN>
+template <typename T, bool GIVEN, bool MULTI>
 __global__ void __launch_bounds__(CLB2_THREADS, 2)
 composite_loss_bwd_block(const T* __restrict__ h, int F, const T* __restrict__ rf,
                          const T* __restrict__ s2, const T* __restrict__ bh,
@@ -1049,7 +1275,9 @@ composite_loss_bwd_block(const T* __restrict__ h, int F, const T* __restrict__ r
   float* scratch = cot_beta + S;       // CLB2_WARPS x CLB2_SUMS
   float* sky = scratch + CLB2_WARPS * CLB2_SUMS;  // 3, and a float of padding
   float* red = sky + 4;                // dWn rows 0 .. 4 and 8: F + 5 Fh
+  float* v_tr = red + F + 5 * Fh;      // above one chunk: the transmittance a sample
   const bool use_beta = bh != nullptr;
+  const int chunks = MULTI ? (S + CLB2_THREADS - 1) / CLB2_THREADS : 1;
   const float pad2 = 1.f + 2.f * rgb_padding;
 
   // ---- the narrow weights as floats, zero past F / Fh
@@ -1125,29 +1353,47 @@ composite_loss_bwd_block(const T* __restrict__ h, int F, const T* __restrict__ r
   }
   __syncthreads();
 
-  // ---- 2. a thread a sample: alpha, the transmittance, the integrals
-  const bool mine = tid < S;
-  const int s = mine ? tid : 0;
-  const size_t q = (size_t)ray * S + s;
+  // ---- 2. a thread a sample of each chunk: alpha, the transmittance, the
+  // integrals. The last chunk's values stay in registers for 4.
   const float* zr = z + (size_t)ray * S;
-  const float sigma = v_sig[s], sunv = v_sun[s], beta = v_beta[s];
-  const float cs[3] = {v_c[s], v_c[S + s], v_c[2 * S + s]};
   const float sk[3] = {sky[0], sky[1], sky[2]};
-  const float delta = s < S - 1 ? zr[s + 1] - zr[s] : 1e10f;
-  const float sigma_n = sigma + (noise != nullptr ? noise[q] : 0.f);
-  const float oma = expf(-delta * fmaxf(sigma_n, 0.f));  // 1 - alpha
-  const float alpha = 1.f - oma;
-  const float fac = mine ? 1.f - alpha + 1e-10f : 1.f;  // the walk's transparency factor
-  const float tr = block_exclusive_product(fac, scratch);
-  const float w = mine ? alpha * tr : 0.f;
-  if constexpr (!GIVEN) {
-    if (mine && weights != nullptr) weights[q] = w;
-  }
+  bool mine;
+  int s;
+  size_t q;
+  float sigma, sunv, beta, cs[3], delta, sigma_n, oma, alpha, tr, w;
   float acc4[4];
+  float carry = 1.f;  // the product of the earlier chunks' factors
+  for (int c = 0; c < chunks; ++c) {
+    mine = c * CLB2_THREADS + tid < S;
+    s = mine ? c * CLB2_THREADS + tid : 0;
+    q = (size_t)ray * S + s;
+    sigma = v_sig[s];
+    sunv = v_sun[s];
+    beta = v_beta[s];
+    cs[0] = v_c[s]; cs[1] = v_c[S + s]; cs[2] = v_c[2 * S + s];
+    delta = s < S - 1 ? zr[s + 1] - zr[s] : 1e10f;
+    sigma_n = sigma + (noise != nullptr ? noise[q] : 0.f);
+    oma = expf(-delta * fmaxf(sigma_n, 0.f));  // 1 - alpha
+    alpha = 1.f - oma;
+    const float fac = mine ? 1.f - alpha + 1e-10f : 1.f;  // the walk's transparency factor
+    float total;
+    tr = block_exclusive_product(fac, scratch, chunks > 1 ? &total : nullptr);
+    if (c > 0) tr = carry * tr;
+    if (chunks > 1) {
+      carry = carry * total;
+      if (mine) v_tr[s] = tr;
+    }
+    w = mine ? alpha * tr : 0.f;
+    if constexpr (!GIVEN) {
+      if (mine && weights != nullptr) weights[q] = w;
+    }
 #pragma unroll
-  for (int c = 0; c < 3; ++c)
-    acc4[c] = w * (cs[c] * pad2 - rgb_padding) * (sunv + (1.f - sunv) * sk[c]);
-  acc4[3] = w * beta;
+    for (int k = 0; k < 3; ++k) {
+      const float a = w * (cs[k] * pad2 - rgb_padding) * (sunv + (1.f - sunv) * sk[k]);
+      acc4[k] = c > 0 ? acc4[k] + a : a;
+    }
+    acc4[3] = c > 0 ? acc4[3] + w * beta : w * beta;
+  }
   block_sums<4>(acc4, scratch);
   const float rgb_acc[3] = {acc4[0], acc4[1], acc4[2]}, beta_acc = acc4[3];
 
@@ -1199,52 +1445,78 @@ composite_loss_bwd_block(const T* __restrict__ h, int F, const T* __restrict__ r
     }
   }
 
-  // ---- 4. a thread a sample: the compositor adjoint
-  float dw = beta * g_beta_ray, d_sunv = 0.f, g_pre_rgb[3], d_sky[3];
-  if constexpr (GIVEN) {
-    dw += g_depth * zr[s] + g_op + sunv * g_sun;
-    d_sunv = w * g_sun;
-  }
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float rgb = cs[c] * pad2 - rgb_padding;
-    const float irr = sunv + (1.f - sunv) * sk[c];
-    const float d_irr = w * rgb * g_rgb_ray[c];
-    dw += rgb * irr * g_rgb_ray[c];
-    d_sunv += d_irr * (1.f - sk[c]);
-    d_sky[c] = d_irr * (1.f - sunv);
-    if constexpr (GIVEN) {
-      dw += rgb * g_alb[c] + sk[c] * g_sky[c];
-      d_sky[c] += w * g_sky[c];
-      g_pre_rgb[c] = w * (irr * g_rgb_ray[c] + g_alb[c]) * pad2 * cs[c] * (1.f - cs[c]);
-    } else {
-      g_pre_rgb[c] = w * irr * g_rgb_ray[c] * pad2 * cs[c] * (1.f - cs[c]);
-    }
-  }
-  const float suffix = block_exclusive_suffix_sum(mine ? dw * w : 0.f, scratch);
-  // the factor the forward multiplied the transparency by, formed the same way
-  const float d_alpha = dw * tr - suffix / (1.f - (1.f - oma) + 1e-10f);
-  const float d_sn = sigma_n > 0.f ? d_alpha * oma * delta : 0.f;
-  // softplus' = 1 - exp(-softplus), by expm1 (see the walk above)
+  // ---- 4. a thread a sample of each chunk, the last chunk first: the
+  // compositor adjoint
   float b[CLB2_SUMS];
-  b[0] = d_sn * -expm1f(-sigma);
-  b[1] = g_pre_rgb[0];
-  b[2] = g_pre_rgb[1];
-  b[3] = g_pre_rgb[2];
-  b[4] = d_sunv * sunv * (1.f - sunv);
-  b[5] = use_beta ? w * g_beta_ray * -expm1f(-beta) : 0.f;
-  b[6] = d_sky[0];
-  b[7] = d_sky[1];
-  b[8] = d_sky[2];
-  if (!mine) {
+  float carry_s = 0.f;  // the sum of dw * w over the later chunks
+  for (int c = chunks - 1; c >= 0; --c) {
+    if (chunks > 1) {  // this chunk's values, as 2. formed them
+      mine = c * CLB2_THREADS + tid < S;
+      s = mine ? c * CLB2_THREADS + tid : 0;
+      q = (size_t)ray * S + s;
+      sigma = v_sig[s];
+      sunv = v_sun[s];
+      beta = v_beta[s];
+      cs[0] = v_c[s]; cs[1] = v_c[S + s]; cs[2] = v_c[2 * S + s];
+      delta = s < S - 1 ? zr[s + 1] - zr[s] : 1e10f;
+      sigma_n = sigma + (noise != nullptr ? noise[q] : 0.f);
+      oma = expf(-delta * fmaxf(sigma_n, 0.f));
+      alpha = 1.f - oma;
+      tr = mine ? v_tr[s] : 0.f;
+      w = mine ? alpha * tr : 0.f;
+    }
+    float dw = beta * g_beta_ray, d_sunv = 0.f, g_pre_rgb[3], d_sky[3];
+    if constexpr (GIVEN) {
+      dw += g_depth * zr[s] + g_op + sunv * g_sun;
+      d_sunv = w * g_sun;
+    }
 #pragma unroll
-    for (int i = 0; i < CLB2_SUMS; ++i) b[i] = 0.f;
-  } else {
-    cot_sig[s] = round_to<T>(b[0]);
+    for (int k = 0; k < 3; ++k) {
+      const float rgb = cs[k] * pad2 - rgb_padding;
+      const float irr = sunv + (1.f - sunv) * sk[k];
+      const float d_irr = w * rgb * g_rgb_ray[k];
+      dw += rgb * irr * g_rgb_ray[k];
+      d_sunv += d_irr * (1.f - sk[k]);
+      d_sky[k] = d_irr * (1.f - sunv);
+      if constexpr (GIVEN) {
+        dw += rgb * g_alb[k] + sk[k] * g_sky[k];
+        d_sky[k] += w * g_sky[k];
+        g_pre_rgb[k] = w * (irr * g_rgb_ray[k] + g_alb[k]) * pad2 * cs[k] * (1.f - cs[k]);
+      } else {
+        g_pre_rgb[k] = w * irr * g_rgb_ray[k] * pad2 * cs[k] * (1.f - cs[k]);
+      }
+    }
+    float total;
+    float suffix = block_exclusive_suffix_sum(mine ? dw * w : 0.f, scratch,
+                                              chunks > 1 ? &total : nullptr);
+    if (c < chunks - 1) suffix = suffix + carry_s;
+    if (chunks > 1) carry_s = carry_s + total;
+    // the factor the forward multiplied the transparency by, formed the same way
+    const float d_alpha = dw * tr - suffix / (1.f - (1.f - oma) + 1e-10f);
+    const float d_sn = sigma_n > 0.f ? d_alpha * oma * delta : 0.f;
+    // softplus' = 1 - exp(-softplus), by expm1 (see the walk above)
+    float bc[CLB2_SUMS];
+    bc[0] = d_sn * -expm1f(-sigma);
+    bc[1] = g_pre_rgb[0];
+    bc[2] = g_pre_rgb[1];
+    bc[3] = g_pre_rgb[2];
+    bc[4] = d_sunv * sunv * (1.f - sunv);
+    bc[5] = use_beta ? w * g_beta_ray * -expm1f(-beta) : 0.f;
+    bc[6] = d_sky[0];
+    bc[7] = d_sky[1];
+    bc[8] = d_sky[2];
+    if (!mine) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) cot_rgb[c * S + s] = round_to<T>(b[1 + c]);
-    cot_sun[s] = round_to<T>(b[4]);
-    cot_beta[s] = round_to<T>(b[5]);
+      for (int i = 0; i < CLB2_SUMS; ++i) bc[i] = 0.f;
+    } else {
+      cot_sig[s] = round_to<T>(bc[0]);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) cot_rgb[k * S + s] = round_to<T>(bc[1 + k]);
+      cot_sun[s] = round_to<T>(bc[4]);
+      cot_beta[s] = round_to<T>(bc[5]);
+    }
+#pragma unroll
+    for (int i = 0; i < CLB2_SUMS; ++i) b[i] = c < chunks - 1 ? b[i] + bc[i] : bc[i];
   }
   block_sums<CLB2_SUMS>(b, scratch);  // also makes the rounded cotangents visible
 
@@ -1420,9 +1692,15 @@ extern "C" int satnerf_siren_dense_dgrad(int dtype, const void* dY, const void* 
 // MAINLOOP_WMMA / MAINLOOP_WGMMA ask for one; a launch it cannot take is
 // refused with cudaErrorInvalidValue, never sent to another mainloop.
 // split: points a block of the wgmma mainloop, a positive multiple of WGR_P
-// (the wrapper's rule, ops/fused_mlp.py wgrad_split). small: whether
-// small_grads runs and sums db, which must be SMALL_NONE on wgmma without an
-// E operand, SMALL_NO_DB on wgmma with one, SMALL_DB otherwise (K = 0 too).
+// (the wrapper's rule, ops/fused_mlp.py wgrad_split). small: whether the
+// column walk small_grads runs after the GEMM (narrow="walk"), and sums db:
+// SMALL_NO_DB on wgmma with an E operand, SMALL_DB on wmma, simt and K = 0;
+// SMALL_NONE where it does not run (wgmma without E, or narrow="rays", whose
+// narrow_grads the wrapper launches itself). fold: dC of the E operand
+// formed by the wgmma mainloop's blocks of k tile 0 (narrow="rays" on wgmma
+// with an E operand), then small must be SMALL_NONE. The wrapper's rule is
+// ops/fused_mlp.py small_grads_mode; the C entry refuses what it does not
+// allow.
 enum { SMALL_NONE = 0, SMALL_NO_DB = 1, SMALL_DB = 2 };
 
 extern "C" int satnerf_siren_dense_wgrad(int dtype, const void* X, int K, const void* dY,
@@ -1430,7 +1708,7 @@ extern "C" int satnerf_siren_dense_wgrad(int dtype, const void* X, int K, const 
                                          int S, int extra_mode, int extra_off, int n_extra,
                                          const void* C, void* dW, void* db, void* dC,
                                          void* dE, int P, int N, int mainloop, int split,
-                                         int small, void* stream) {
+                                         int small, int fold, void* stream) {
   if (n_extra > MAX_EXTRA || n_extra < 0 || S < 1) return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (mainloop < MAINLOOP_RULE || mainloop > MAINLOOP_WGMMA) return (int)cudaErrorInvalidValue;
@@ -1444,7 +1722,9 @@ extern "C" int satnerf_siren_dense_wgrad(int dtype, const void* X, int K, const 
   if (mainloop == MAINLOOP_RULE)
     mainloop = wg_ok ? MAINLOOP_WGMMA : tc_ok ? MAINLOOP_WMMA : MAINLOOP_RULE;
   const bool db_in_gemm = mainloop == MAINLOOP_WGMMA;
-  if (small != (db_in_gemm ? (n_extra > 0 ? SMALL_NO_DB : SMALL_NONE) : SMALL_DB))
+  const int walk = db_in_gemm ? (n_extra > 0 ? SMALL_NO_DB : SMALL_NONE) : SMALL_DB;
+  if (small != SMALL_NONE && small != walk) return (int)cudaErrorInvalidValue;
+  if (fold && (!db_in_gemm || n_extra == 0 || small != SMALL_NONE))
     return (int)cudaErrorInvalidValue;
   if (db_in_gemm && (split <= 0 || split % WGR_P != 0)) return (int)cudaErrorInvalidValue;
   if (P == 0 || N == 0) return (int)cudaSuccess;
@@ -1458,9 +1738,15 @@ extern "C" int satnerf_siren_dense_wgrad(int dtype, const void* X, int K, const 
       wgrad_simt<float><<<grid, DENSE_THREADS, 0, st>>>(static_cast<const float*>(X), dy, sl,
                                                         dw, P, N, K);
     } else if (mainloop == MAINLOOP_WGMMA) {
-      const int err = launch_wgrad_wgmma<G_SLOPE, 0>(
-          st, static_cast<const __nv_bfloat16*>(X), dy, sl, dw, static_cast<float*>(db), nullptr,
-          NoEncoding{}, P, N, K, split);
+      const int err =
+          fold ? launch_wgrad_wgmma<G_SLOPE, 0, NoEncoding, FOLD_MAX>(
+                     st, static_cast<const __nv_bfloat16*>(X), dy, sl, dw, static_cast<float*>(db),
+                     static_cast<float*>(dC), NoEncoding{}, P, N, K, split,
+                     FoldExtra{static_cast<const float*>(rays), static_cast<const float*>(z), S,
+                               extra_mode, extra_off, n_extra})
+               : launch_wgrad_wgmma<G_SLOPE, 0>(st, static_cast<const __nv_bfloat16*>(X), dy, sl,
+                                                dw, static_cast<float*>(db), nullptr,
+                                                NoEncoding{}, P, N, K, split);
       if (err != 0) return err;
     } else if (mainloop == MAINLOOP_WMMA) {
       wgrad_wmma<<<grid, DENSE_THREADS, 0, st>>>(static_cast<const __nv_bfloat16*>(X), dy, sl,
@@ -1492,6 +1778,75 @@ extern "C" int satnerf_siren_dense_wgrad(int dtype, const void* X, int K, const 
   return (int)cudaGetLastError();
 }
 
+// The narrow gradients of n_jobs layers in one launch of narrow_grads (the
+// "rays" body): jobs holds NARROW_JOB_WORDS int64 a job, in the order of
+// ops/fused_mlp.py narrow_grads: dY, slope, rays, z, C, db, dC, dE (pointers,
+// 0 for none), P, N, S, extra_mode, extra_off, n_extra. A job's blocks own
+// rays_per_block rays each: the rays cut into about as many ranges as there
+// are resident blocks, at least NARROW_MIN_POINTS points a block, at most
+// NARROW_DE_FLOATS values of dE a block.
+constexpr int NARROW_JOB_WORDS = 14;
+
+template <typename T, int NE>
+static int launch_narrow(NarrowJobs& js, cudaStream_t st) {
+  static const int resident = hopper::resident_blocks(narrow_grads<T, NE>, NARROW_THREADS, 0);
+  if (resident == 0) return (int)cudaErrorInvalidConfiguration;
+  int blocks = 0;
+  for (int i = 0; i < js.n; ++i) {
+    NarrowJob& j = js.job[i];
+    const int R = j.P / j.S;
+    int per = std::max((R + resident - 1) / resident, (NARROW_MIN_POINTS + j.S - 1) / j.S);
+    if (j.n_extra > 0) per = std::min(per, NARROW_DE_FLOATS / j.n_extra);
+    j.rays_per_block = std::max(per, 1);
+    j.block0 = blocks;
+    blocks += (R + j.rays_per_block - 1) / j.rays_per_block;
+  }
+  if (blocks == 0) return (int)cudaSuccess;
+  narrow_grads<T, NE><<<blocks, NARROW_THREADS, 0, st>>>(js);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int satnerf_narrow_grads(int dtype, int n_jobs, const long long* jobs, void* stream) {
+  if ((dtype != 0 && dtype != 1) || n_jobs < 1 || n_jobs > NARROW_MAX_JOBS)
+    return (int)cudaErrorInvalidValue;
+  NarrowJobs js{};
+  js.n = n_jobs;
+  int ne_max = 0;
+  for (int i = 0; i < n_jobs; ++i) {
+    const long long* w = jobs + (size_t)i * NARROW_JOB_WORDS;
+    NarrowJob& j = js.job[i];
+    j.dY = reinterpret_cast<const float*>(w[0]);
+    j.slope = reinterpret_cast<const float*>(w[1]);
+    j.rays = reinterpret_cast<const float*>(w[2]);
+    j.z = reinterpret_cast<const float*>(w[3]);
+    j.C = reinterpret_cast<const void*>(w[4]);
+    j.db = reinterpret_cast<float*>(w[5]);
+    j.dC = reinterpret_cast<float*>(w[6]);
+    j.dE = reinterpret_cast<float*>(w[7]);
+    j.P = (int)w[8];
+    j.N = (int)w[9];
+    j.S = (int)w[10];
+    j.extra_mode = (int)w[11];
+    j.extra_off = (int)w[12];
+    j.n_extra = (int)w[13];
+    if (j.dY == nullptr || j.N < 1 || j.N > NARROW_MAX_N || j.S < 1 || j.P < 0 ||
+        j.P % j.S != 0 || j.n_extra < 0 || j.n_extra > MAX_EXTRA ||
+        ((j.dC != nullptr || j.dE != nullptr) && j.n_extra == 0) ||
+        (j.dE != nullptr && j.C == nullptr))
+      return (int)cudaErrorInvalidValue;
+    ne_max = std::max(ne_max, j.n_extra);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  if (dtype == 0)
+    return ne_max == 0  ? launch_narrow<float, 0>(js, st)
+           : ne_max <= 4 ? launch_narrow<float, 4>(js, st)
+                         : launch_narrow<float, MAX_EXTRA>(js, st);
+  return ne_max == 0  ? launch_narrow<bf16, 0>(js, st)
+         : ne_max <= 4 ? launch_narrow<bf16, 4>(js, st)
+                       : launch_narrow<bf16, MAX_EXTRA>(js, st);
+}
+
 // The bodies of composite_loss_bwd and composite_bwd (the wrappers' `body=`):
 // a block a ray (composite_loss_bwd_block) or a warp a ray
 // (composite_loss_bwd_kernel, kept for comparison). Either is run as asked;
@@ -1510,36 +1865,53 @@ static int launch_composite(const void* h, int F, const void* rf, const void* s2
                             void* stream) {
   if (F > CLB_MAX_F || Fh > CLB_MAX_F / 2 || S < 1) return (int)cudaErrorInvalidValue;
   if (body != BODY_BLOCK && body != BODY_WARP) return (int)cudaErrorInvalidValue;
-  if (body == BODY_BLOCK && S > CLB2_THREADS) return (int)cudaErrorInvalidValue;
   if (R == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto t = [](const void* p) { return static_cast<const T*>(p); };
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto o = [](void* p) { return static_cast<float*>(p); };
   if (body == BODY_BLOCK) {
-    const size_t smem = (size_t)clb2_smem_floats(F, Fh, S) * sizeof(float);
-    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+    // S past what shared memory holds is refused (cudaErrorInvalidValue)
+    const long long smem = (long long)clb2_smem_floats(F, Fh, S) * sizeof(float);
+    static int allowed[2] = {0, 0};  // what each instantiation has opted into
+    if (smem > hopper::SMEM_OPTIN_BYTES) return (int)cudaErrorInvalidValue;
+    const int err =
+        g != nullptr ? hopper::allow_smem(composite_loss_bwd_block<T, true, true>, (int)smem,
+                                          &allowed[1])
+                     : hopper::allow_smem(composite_loss_bwd_block<T, false, true>, (int)smem,
+                                          &allowed[0]);
+    if (err != 0) return err;
+    const bool multi = S > CLB2_THREADS;  // only MULTI launches pass 48 KB
     const int v = Vec16<T>::N;
     const bool vec = F % v == 0 && Fh % v == 0 && hopper::aligned16(h) &&
                      hopper::aligned16(rf) && hopper::aligned16(s2) &&
                      (bh == nullptr || hopper::aligned16(bh)) && hopper::aligned16(d_h) &&
                      hopper::aligned16(d_r) && hopper::aligned16(d_s2) &&
                      (d_bh == nullptr || hopper::aligned16(d_bh));
+    auto given = multi ? composite_loss_bwd_block<T, true, true>
+                       : composite_loss_bwd_block<T, true, false>;
+    auto loss = multi ? composite_loss_bwd_block<T, false, true>
+                      : composite_loss_bwd_block<T, false, false>;
     if (g != nullptr)
-      composite_loss_bwd_block<T, true><<<R, CLB2_THREADS, smem, st>>>(
+      given<<<R, CLB2_THREADS, smem, st>>>(
           t(h), F, t(rf), t(s2), t(bh), t(skyh), Fh, t(Wn), f(bn), f(z), f(noise), nullptr, f(g),
           R, S, rgb_padding, 0.f, 0.f, vec, nullptr, nullptr, o(d_h), o(d_r), o(d_s2), o(d_bh),
           o(d_skyh), o(dWn), o(dbn));
     else
-      composite_loss_bwd_block<T, false><<<R, CLB2_THREADS, smem, st>>>(
+      loss<<<R, CLB2_THREADS, smem, st>>>(
           t(h), F, t(rf), t(s2), t(bh), t(skyh), Fh, t(Wn), f(bn), f(z), f(noise), f(gt), nullptr,
           R, S, rgb_padding, beta_min, wmix, vec, o(loss_sums), o(weights), o(d_h), o(d_r),
           o(d_s2), o(d_bh), o(d_skyh), o(dWn), o(dbn));
     return (int)cudaGetLastError();
   }
   const int grid = (R + CLB_WARPS - 1) / CLB_WARPS;
-  const size_t smem = (size_t)CLB_WARPS * CLB_SAMPLE_VALS * S * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const long long smem = (long long)CLB_WARPS * CLB_SAMPLE_VALS * S * sizeof(float);
+  static int allowed[2] = {0, 0};
+  if (smem > hopper::SMEM_OPTIN_BYTES) return (int)cudaErrorInvalidValue;
+  const int err =
+      g != nullptr ? hopper::allow_smem(composite_loss_bwd_kernel<T, true>, (int)smem, &allowed[1])
+                   : hopper::allow_smem(composite_loss_bwd_kernel<T, false>, (int)smem, &allowed[0]);
+  if (err != 0) return err;
   if (g != nullptr) {
     composite_loss_bwd_kernel<T, true><<<grid, CLB_WARPS * 32, smem, st>>>(
         t(h), F, t(rf), t(s2), t(bh), t(skyh), Fh, t(Wn), f(bn), f(z), f(noise), nullptr, f(g),

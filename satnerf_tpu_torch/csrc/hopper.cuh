@@ -77,6 +77,25 @@ inline int resident_blocks(Kernel kernel, int threads, int smem) {
   return sms * per_sm;
 }
 
+// The most dynamic shared memory a block may opt into on this card (H100:
+// 227 KB, 232,448 bytes); a launch asking for more is refused.
+constexpr int SMEM_OPTIN_BYTES = 232448;
+
+// Let `kernel` take `smem` bytes of dynamic shared memory: above 48 KB a
+// kernel has to opt in. Returns a cudaError_t value, 0 on success; the
+// largest amount set so far is kept in `*allowed` (the caller's static), so
+// a launch needing no more calls nothing.
+template <typename Kernel>
+inline int allow_smem(Kernel kernel, int smem, int* allowed) {
+  if (smem > SMEM_OPTIN_BYTES) return (int)cudaErrorInvalidValue;
+  if (smem <= 48 * 1024 || smem <= *allowed) return 0;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  *allowed = smem;
+  return 0;
+}
+
 // ---------------------------------------------------------------- device side
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

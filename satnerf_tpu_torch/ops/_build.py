@@ -41,9 +41,12 @@ SIGNATURES = {
     # dtype, dY, slope, W, dX, accumulate, P, N, K, mainloop, stream
     "satnerf_siren_dense_dgrad": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dtype, X, K, dY, slope, rays, z, S, extra_mode, extra_off, n_extra, C,
-    # dW, db, dC, dE, P, N, mainloop, split, small, stream
+    # dW, db, dC, dE, P, N, mainloop, split, small, fold, stream
     "satnerf_siren_dense_wgrad": [_I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                                  _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _P],
+    # dtype, n_jobs, jobs (NARROW_JOB_WORDS int64 a job), stream
+    "satnerf_narrow_grads": [_I, _I, _P, _P],
     # dtype, h, F, r, s2, bh, skyh, Fh, Wn, bn, z, noise, gt, R, S,
     # rgb_padding, beta_min, wmix, loss_sums, weights, d_h, d_r, d_s2, d_bh,
     # d_skyh, dWn, dbn, body, stream

@@ -55,8 +55,12 @@ behind a wrapper here with a plain PyTorch version beside it:
   siren_dense_dgrad   dX (+)= (dY * slope) . W^T
   siren_dense_wgrad   dW, db, dC of one layer, and on request the gradient
                       of the E operand itself (t_grad for beta_0; xyz and
-                      sun_dir too in point mode): a GEMM for dW and, where
-                      it has work, small_grads for db, dC and dE
+                      sun_dir too in point mode): a GEMM for dW (on wgmma
+                      with db and dC in its epilogue) and, where it has
+                      work, narrow_grads for db, dC and dE
+  narrow_grads        the narrow gradients of one or more layers in one
+                      launch, a block a range of whole rays (the chains join
+                      sky_0's with beta_0's t_grad)
   field_heads         the narrow heads with their activations, per sample,
                       no compositor (K5 / K6 forward)
   field_heads_bwd     their backward from a (P, 16) cotangent (K5 / K6)
@@ -73,14 +77,18 @@ variant's nerf_dense_dgrad and nerf_dense_wgrad, ops/fused_nerf.py) each
 have more than one mainloop on the card: wgmma (Hopper: TMA-fed
 shared-memory stages, warpgroup products), wmma (warp-level tensor-core
 fragments), simt (fp32 FMAs), and for siren_dense and the wgrad with K = 0
-no GEMM ("k0": the elementwise kernel, small_grads alone). `dense_mainloop`
+no GEMM ("k0": the elementwise kernel, narrow_grads alone). `dense_mainloop`
 is the rule that picks one, the same rule as their C entries;
 `mainloop="wmma"` or `"wgmma"` asks for one by hand (tests, chip_smoke.py)
 and raises where it cannot run. Every launch of the five also adds one to
 MAINLOOP_LAUNCHES[(name, mainloop)]. The wgrad's wgmma mainloop sums the
-bias gradient in its epilogue, so its small_grads launch is left out where
-the layer has no E operand (`small_grads_mode`); each small_grads launch
-adds one to LAUNCHES["small_grads"].
+bias gradient and the E operand's dC in its epilogue, so narrow_grads runs
+only where there is no GEMM, for dE, and beside wmma / simt
+(`small_grads_mode`); each launch adds one to LAUNCHES["narrow_grads"].
+`narrow="walk"` on the wgrad runs the column walk small_grads it replaced,
+launched by the wgrad's C entry and counted in LAUNCHES["small_grads"].
+At K = 0 siren_dense runs its elementwise kernel ("k0"), or the first one
+it replaced with `mainloop="k0_v1"`, counted in MAINLOOP_LAUNCHES.
 
 Weights follow the JAX kernel's precision split: matmul operands (weights,
 activations, the E operand) in the compute dtype, sums and biases in fp32,
@@ -93,6 +101,7 @@ compute dtype before both of its products (fused_mlp.py:509-516).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional
 
@@ -115,8 +124,10 @@ LAUNCHES = {"siren_dense": 0, "heads_composite": 0, "composite_loss_bwd": 0,
             "nerf_dense": 0, "nerf_dense_dgrad": 0, "nerf_dense_wgrad": 0,
             "nerf_heads_composite": 0, "nerf_composite_loss_bwd": 0,
             "nerf_field_heads": 0, "nerf_field_heads_bwd": 0,
-            # launched by siren_dense_wgrad's wrapper where it has work
-            "small_grads": 0,
+            # the narrow gradients (db, dC, dE): narrow_grads, launched by
+            # siren_dense_wgrad's wrapper or a chain's joined launch, and the
+            # column walk small_grads, by the wgrad's C entry on request
+            "narrow_grads": 0, "small_grads": 0,
             # launched by nerf_dense_wgrad's wrapper where its GEMM does not
             # sum db (every mainloop but wgmma)
             "nerf_bias_grad": 0}
@@ -128,10 +139,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # (kernel, mainloop) -> launches, for the kernels of MAINLOOP_KERNELS
 MAINLOOP_LAUNCHES: dict = {}
-MAINLOOPS = ("wmma", "wgmma")  # what `mainloop=` may ask for; None: the rule
+MAINLOOPS = ("wmma", "wgmma")  # the tensor-core mainloops `mainloop=` may ask for
+# and at K = 0 (siren_dense): "k0" (the rule) or its first elementwise
+# kernel, "k0_v1", kept to compare; None: the rule
+K0_MAINLOOPS = ("k0", "k0_v1")
 MAINLOOP_KERNELS = ("siren_dense", "siren_dense_dgrad", "siren_dense_wgrad",
                     "nerf_dense", "nerf_dense_dgrad", "nerf_dense_wgrad")
-_MAINLOOP_CODE = {"wmma": 1, "wgmma": 2}  # csrc/common.cuh MAINLOOP_*; 0: rule
+# csrc/common.cuh MAINLOOP_*; 0: the rule
+_MAINLOOP_CODE = {"wmma": 1, "wgmma": 2, "k0": 0, "k0_v1": 3}
 DENSE_WGMMA_MAX_K = 512  # csrc/fused_render.cu FWD_MAX_K, fused_nerf.cu NDW_MAX_K
 
 # The two bodies of composite_loss_bwd and composite_bwd (`body=`): a block
@@ -150,9 +165,9 @@ def reset_launches() -> None:
 
 
 def _check_mainloop(mainloop) -> None:
-    if mainloop is not None and mainloop not in MAINLOOPS:
-        raise ValueError(f"mainloop must be None, 'wmma' or 'wgmma', got "
-                         f"{mainloop!r}")
+    if mainloop is not None and mainloop not in MAINLOOPS + K0_MAINLOOPS:
+        raise ValueError(f"mainloop must be None or one of "
+                         f"{MAINLOOPS + K0_MAINLOOPS}, got {mainloop!r}")
 
 
 def dense_mainloop(kernel: str, dtype: torch.dtype, k: int, n: int, *,
@@ -174,7 +189,9 @@ def dense_mainloop(kernel: str, dtype: torch.dtype, k: int, n: int, *,
     the rows of the encoding weight (0: none). `*_aligned`: every such
     pointer is a multiple of 16 bytes.
 
-      k0     siren_dense and siren_dense_wgrad with K = 0 (no GEMM)
+      k0     siren_dense and siren_dense_wgrad with K = 0 (no GEMM);
+             siren_dense also takes "k0_v1" there, its first elementwise
+             kernel, by hand
       simt   fp32, and bf16 of shapes no tensor-core mainloop takes
       wgmma  bf16, K and N multiples of 64, inputs and outputs aligned;
              siren_dense and nerf_dense keep a 128-column slice of W in
@@ -194,7 +211,8 @@ def dense_mainloop(kernel: str, dtype: torch.dtype, k: int, n: int, *,
     bf16 = dtype == torch.bfloat16
     dgrad = kernel.endswith("_dgrad")
     if kernel in ("siren_dense", "siren_dense_wgrad") and k == 0:
-        rule, takes = "k0", ()
+        rule = "k0"
+        takes = ("k0", "k0_v1") if kernel == "siren_dense" else ("k0",)
     else:
         mma_shape = (n % 8 == 0 and (dgrad or k % 8 == 0)
                      and (kernel != "nerf_dense" or e_rows % 32 == 0))
@@ -747,26 +765,56 @@ def siren_dense_wgrad_reference(x, dy, slope, rays16, samples: int, *,
     return dw, db, dc, de
 
 
-# csrc/fused_train.cu SMALL_*: whether small_grads runs, and sums db
+# csrc/fused_train.cu SMALL_*: whether the walk small_grads runs, and sums db
 _SMALL_CODE = {"none": 0, "no_db": 1, "db": 2}
 WGRAD_TILE = (128, 256)  # csrc/fused_train.cu WGR_N, WGR_K: a block's tile of dW^T
 WGRAD_STAGE_POINTS = 32  # WGR_P: a split is a multiple of it
+# csrc/dense_bwd_wgmma.cuh: the widest E the wgmma wgrad folds, and the most
+# points a folding block holds E of (its split is cut to it)
+FOLD_MAX, FOLD_SPLIT = 4, 4096
+# The two bodies of the narrow gradients (`narrow=` on siren_dense_wgrad):
+# narrow_grads, the default, or the column walk small_grads, kept to compare
+NARROW_BODIES = ("rays", "walk")
+NARROW_MAX_JOBS = 4  # csrc/fused_train.cu: the layers a narrow_grads launch takes
+NARROW_MAX_N = 512
 
 
-def small_grads_mode(mainloop: str, extra: Optional[str]) -> str:
-    """Whether a siren_dense_wgrad launch whose GEMM took `mainloop` (as
-    dense_mainloop answers) also launches small_grads, and for what:
+def small_grads_mode(mainloop: str, extra: Optional[str], narrow: str = "rays",
+                     n_extra: int = 3) -> str:
+    """Who forms the narrow gradients (db, dC) of a siren_dense_wgrad launch
+    whose GEMM took `mainloop` (as dense_mainloop answers), with an E
+    operand of n_extra columns (extra None: none), on the narrow body asked
+    for.
 
+    narrow="rays" (the rule):
       none   wgmma without an E operand: the GEMM's epilogue sums db
-      no_db  wgmma with an E operand: small_grads forms dC (and dE) only
-      db     wmma, simt or k0 (no GEMM): small_grads sums db, and dC / dE
-             where there is an E operand
+      fold   wgmma with an E operand of at most FOLD_MAX columns: the
+             epilogue also forms dC (the fold)
+      dc     wgmma with a wider E operand: narrow_grads forms dC
+      db     wmma, simt or k0 (no GEMM): narrow_grads sums db, and dC where
+             there is an E operand
+    narrow="walk" (small_grads, launched by the wgrad's C entry after the
+    GEMM, as before narrow_grads):
+      none   wgmma without an E operand
+      no_db  wgmma with an E operand: small_grads forms dC only
+      db     wmma, simt or k0: small_grads sums db, and dC
 
-    The C entry refuses any other answer, so LAUNCHES["small_grads"], which
-    the wrapper counts from this, is what ran."""
-    if mainloop == "wgmma":
-        return "none" if extra is None else "no_db"
-    return "db"
+    dE, where it is asked for, is a narrow_grads job of its own ("rays") or
+    small_grads' work too ("walk"; then "none" cannot give it). The C entry
+    refuses what this does not allow."""
+    _check_narrow_body(narrow)
+    if mainloop != "wgmma":
+        return "db"
+    if extra is None:
+        return "none"
+    if narrow == "walk":
+        return "no_db"
+    return "fold" if n_extra <= FOLD_MAX else "dc"
+
+
+def _check_narrow_body(narrow: str) -> None:
+    if narrow not in NARROW_BODIES:
+        raise ValueError(f"narrow must be one of {NARROW_BODIES}, got {narrow!r}")
 
 
 def wgrad_split(p: int, k: int, n: int, sms: int, e_rows: int = 0) -> int:
@@ -791,18 +839,110 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+class NarrowJob:
+    """One layer's narrow gradients for narrow_grads: its cotangent dy and
+    slope (P, N) fp32 (slope None: a linear layer), the rays and samples,
+    its E operand (extra, extra_weight (n_extra, N), z as siren_dense), the
+    compute dtype, and which of db, dC, dE are asked for. Its outputs
+    (zero-filled, fp32) are allocated with it: db (N,), dc (n_extra, N), de
+    (R, n_extra), None where not asked."""
+
+    def __init__(self, dy, slope, rays16, samples: int, *, extra=None,
+                 extra_weight=None, z=None, dtype, db: bool, dc: bool,
+                 de: bool):
+        self.dy, self.slope, self.rays16, self.samples = dy, slope, rays16, samples
+        self.extra, self.extra_weight, self.z, self.dtype = extra, extra_weight, z, dtype
+        n = dy.shape[1]
+        n_e = 0 if extra is None else extra_weight.shape[0]
+        if (dc or de) and extra is None:
+            raise ValueError("dC and dE need an E operand")
+
+        def zeros(want, *shape):
+            return (torch.zeros(shape, dtype=torch.float32, device=dy.device)
+                    if want else None)
+
+        self.db = zeros(db, n)
+        self.dc = zeros(dc, n_e, n)
+        self.de = zeros(de, rays16.shape[0], n_e)
+
+
+def narrow_grads_reference(job: NarrowJob) -> tuple:
+    """Plain version of narrow_grads for one job: (db, dc, de) as
+    siren_dense_wgrad_reference forms them, None where not asked."""
+    g, gb = _cotangent(job.dy, job.slope, job.dtype)
+    db = g.sum(0) if job.db is not None else None
+    dc = de = None
+    if job.dc is not None or job.de is not None:
+        n_e = job.extra_weight.shape[0]
+        if job.dc is not None:
+            e = _extra_operand(job.rays16, job.samples, job.z, job.extra, n_e,
+                               job.dtype)
+            dc = e.t() @ gb
+        if job.de is not None:
+            de = (gb @ job.extra_weight.float().t()).reshape(
+                -1, job.samples, n_e).sum(1)
+    return db, dc, de
+
+
+def narrow_grads(jobs: list) -> None:
+    """Launch narrow_grads on CUDA jobs (NarrowJob), at most NARROW_MAX_JOBS
+    layers a launch, all of one compute dtype: each job's db, dc and de are
+    filled in place (the kernel's atomics add into their zeros). Every
+    launch adds one to LAUNCHES["narrow_grads"]. CPU jobs are filled by the
+    plain version."""
+    for at in range(0, len(jobs), NARROW_MAX_JOBS):
+        group = jobs[at:at + NARROW_MAX_JOBS]
+        if group[0].dy.device.type == "cpu":
+            for job in group:
+                for out, v in zip((job.db, job.dc, job.de),
+                                  narrow_grads_reference(job)):
+                    if out is not None:
+                        out.copy_(v)
+            continue
+        dtype = group[0].dtype
+        words = []
+        for job in group:
+            _check_cuda(job.dtype, dy=job.dy, slope=job.slope,
+                        rays16=job.rays16, z=job.z,
+                        extra_weight=job.extra_weight)
+            p, n = job.dy.shape
+            if job.dtype != dtype:
+                raise ValueError("the jobs of a narrow_grads launch share a dtype")
+            if n > NARROW_MAX_N:
+                raise ValueError(f"narrow_grads takes at most {NARROW_MAX_N} "
+                                 f"columns, got {n}")
+            mode, col = _EXTRA[job.extra]
+            n_e = 0 if job.extra is None else job.extra_weight.shape[0]
+            words += [_ptr(job.dy) or 0, _ptr(job.slope) or 0,
+                      _ptr(job.rays16) or 0, _ptr(job.z) or 0,
+                      _ptr(job.extra_weight) or 0, _ptr(job.db) or 0,
+                      _ptr(job.dc) or 0, _ptr(job.de) or 0,
+                      p, n, job.samples, mode, col, n_e]
+        buf = (ctypes.c_longlong * len(words))(*words)
+        _launch("narrow_grads", _DTYPE_CODE[dtype], len(group),
+                ctypes.addressof(buf), _stream(group[0].dy))
+
+
 def siren_dense_wgrad(x, dy, slope, rays16, samples: int, *,
                       extra: Optional[str] = None, extra_weight=None, z=None,
                       extra_grad: bool = False, mainloop: Optional[str] = None,
-                      split: Optional[int] = None):
+                      split: Optional[int] = None, narrow: str = "rays",
+                      defer: Optional[list] = None):
     """The parameter gradients of one dense layer; arguments and returns as
-    siren_dense_wgrad_reference. CUDA tensors launch the GEMM on the
+    siren_dense_wgrad_reference. CUDA tensors launch the GEMM (K > 0) on the
     mainloop `dense_mainloop` gives (None: the rule; "wmma" / "wgmma" by
-    hand) and small_grads where `small_grads_mode` says; CPU tensors run the
-    plain version. split: points a block of the wgmma mainloop (None:
-    `wgrad_split`; a positive multiple of WGRAD_STAGE_POINTS), for
-    measuring."""
+    hand), with dC folded into its epilogue where `small_grads_mode` says,
+    and the narrow gradients left over on the body asked for: narrow="rays"
+    a narrow_grads job, launched here or, given a list as `defer`, appended
+    to it for the caller's one launch of several layers (narrow_grads; the
+    returned db, dC, dE are filled then); narrow="walk" small_grads after
+    the GEMM, by the C entry. CPU tensors run the plain version. split:
+    points a block of the wgmma mainloop (None: `wgrad_split`, at most
+    FOLD_SPLIT where dC is folded; a positive multiple of
+    WGRAD_STAGE_POINTS), for measuring: past FOLD_SPLIT narrow_grads forms
+    dC in place of the fold."""
     _check_mainloop(mainloop)
+    _check_narrow_body(narrow)
     if dy.device.type == "cpu":
         return siren_dense_wgrad_reference(
             x, dy, slope, rays16, samples, extra=extra,
@@ -831,29 +971,50 @@ def siren_dense_wgrad(x, dy, slope, rays16, samples: int, *,
     loop = dense_mainloop("siren_dense_wgrad", dtype, k, n,
                           inputs_aligned=_aligned(x, dy, slope),
                           mainloop=mainloop)
-    small = small_grads_mode(loop, extra)
+    plan = small_grads_mode(loop, extra, narrow, n_extra)
     if loop != "wgmma":
         split = 0
     elif split is None:
         split = wgrad_split(p, k, n, _sm_count(dy.device.index or 0))
+        if plan == "fold":
+            split = min(split, FOLD_SPLIT)
     elif split <= 0 or split % WGRAD_STAGE_POINTS:
         raise ValueError(f"split must be a positive multiple of "
                          f"{WGRAD_STAGE_POINTS}, got {split}")
+    elif plan == "fold" and split > FOLD_SPLIT:
+        plan = "dc"  # a folding block holds E of FOLD_SPLIT points at most
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=dy.device)
 
+    walk = narrow == "walk"
     dw = zeros(k, n) if x is not None else None
-    db = zeros(n)
-    dc = zeros(n_extra, n) if extra is not None else None
-    de = zeros(rays16.shape[0], n_extra) if extra_grad else None
-    _launch("siren_dense_wgrad", _DTYPE_CODE[dtype], _ptr(x), k, _ptr(dy),
-            _ptr(slope), _ptr(rays16), _ptr(z), samples, mode, col, n_extra,
-            _ptr(extra_weight), _ptr(dw), _ptr(db), _ptr(dc), _ptr(de), p, n,
-            _MAINLOOP_CODE.get(loop, 0), split, _SMALL_CODE[small],
-            _stream(dy), mainloop=loop)
-    if small != "none":
-        LAUNCHES["small_grads"] += 1
+    job = None
+    if not walk and (plan in ("db", "dc") or extra_grad):
+        job = NarrowJob(dy, slope, rays16, samples, extra=extra,
+                        extra_weight=extra_weight, z=z, dtype=dtype,
+                        db=plan == "db", dc=plan in ("db", "dc") and extra is not None,
+                        de=extra_grad)
+    db = job.db if job is not None and job.db is not None else zeros(n)
+    dc = (job.dc if job is not None and job.dc is not None
+          else zeros(n_extra, n) if extra is not None else None)
+    de = (job.de if job is not None else
+          zeros(rays16.shape[0], n_extra) if extra_grad else None)
+    if k > 0 or walk:  # with narrow="rays" a layer without X has no GEMM to launch
+        _launch("siren_dense_wgrad", _DTYPE_CODE[dtype], _ptr(x), k, _ptr(dy),
+                _ptr(slope), _ptr(rays16), _ptr(z), samples, mode, col, n_extra,
+                _ptr(extra_weight), _ptr(dw), _ptr(db), _ptr(dc),
+                _ptr(de) if walk else None, p, n,
+                _MAINLOOP_CODE.get(loop, 0), split,
+                _SMALL_CODE[plan if walk else "none"], int(plan == "fold"),
+                _stream(dy), mainloop=loop)
+        if walk and plan != "none":
+            LAUNCHES["small_grads"] += 1
+    if job is not None:
+        if defer is not None:
+            defer.append(job)
+        else:
+            narrow_grads([job])
     return dw, db, dc, de
 
 
@@ -961,15 +1122,61 @@ def _check_narrow(name, h, r, s2, bh, skyh, wn, bn, z, noise):
     return n_rays, n_s, p, feat, fh
 
 
-def _adjoint_buffers(name, n_rays, n_s, p, feat, fh, use_beta, dev) -> dict:
+# csrc/hopper.cuh SMEM_OPTIN_BYTES: the most shared memory a block may opt
+# into on the H100 (227 KB); csrc/fused_train.cu CLB2_*, CLB_*: the block
+# body's threads, warps and block sums, the warp body's warps and values a
+# sample
+SMEM_OPTIN_BYTES = 232448
+_CLB2_THREADS, _CLB2_WARPS, _CLB2_SUMS = 256, 8, 9
+_CLB_WARPS, _CLB_SAMPLE_VALS = 4, 10
+
+
+def _composite_smem_bytes(feat: int, fh: int, n_s: int, body: str) -> int:
+    """The dynamic shared memory a launch of composite_loss_bwd /
+    composite_bwd asks for: csrc/fused_train.cu clb2_smem_floats (the block
+    body) and the warp body's CLB_WARPS * CLB_SAMPLE_VALS * S floats."""
+    if body == "warp":
+        return 4 * _CLB_WARPS * _CLB_SAMPLE_VALS * n_s
+    pad8 = lambda v: -(-v // 8) * 8  # noqa: E731
+    floats = (pad8(feat) + 8 * pad8(fh) + 12 * n_s + _CLB2_WARPS * _CLB2_SUMS
+              + 4 + feat + 5 * fh + (n_s if n_s > _CLB2_THREADS else 0))
+    return 4 * floats
+
+
+def composite_max_samples(feat: int, fh: int, body: str = "block") -> int:
+    """The most samples a ray composite_loss_bwd and composite_bwd take on
+    the card with the body asked for, at a trunk of `feat` features and
+    heads of `fh`: the largest S whose shared memory (the per-sample values
+    of the ray, and the block body's narrow weights and sums) fits the 227
+    KB a block may opt into. The C entry refuses past it by the same rule.
+    The main path's 8 x 512 field: 4,129 (block), 1,452 (warp)."""
+    _check_body(body)
+    lo, hi = 0, SMEM_OPTIN_BYTES  # the bytes grow with S: bisect
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if _composite_smem_bytes(feat, fh, mid, body) <= SMEM_OPTIN_BYTES:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def _check_samples(name: str, feat: int, fh: int, n_s: int, body: str) -> None:
+    limit = composite_max_samples(feat, fh, body)
+    if n_s > limit:
+        raise ValueError(
+            f"{name}: {n_s} samples a ray do not fit the {SMEM_OPTIN_BYTES} "
+            f"bytes (227 KB) of shared memory a block may hold; the {body} "
+            f"body takes at most {limit} at F={feat}, Fh={fh}")
+
+
+def _adjoint_buffers(name, n_rays, p, feat, fh, use_beta, dev) -> dict:
     """The fp32 outputs the narrow heads' adjoints write (both
     instantiations of the compositor's, and field_heads_bwd): the cotangents
     of h, r, s2, bh, skyh, and dwn / dbn zero-filled for the kernel's
-    atomics. n_s: the samples a ray's walk keeps in shared memory, None for
-    a kernel that walks no ray."""
-    if feat > 512 or (n_s is not None and n_s > 256):
-        raise ValueError(f"{name} holds at most 512 features and 256 samples "
-                         f"a ray")
+    atomics."""
+    if feat > 512:
+        raise ValueError(f"{name} holds at most 512 features")
 
     def f32(*shape, make=torch.empty):
         return make(shape, dtype=torch.float32, device=dev)
@@ -993,8 +1200,8 @@ def composite_loss_bwd(h, r, s2, bh, skyh, wn, bn, z, noise, gt, wmix: float,
     """Narrow heads, compositor, loss and their adjoints; arguments and
     returns as composite_loss_bwd_reference. CUDA tensors launch the kernel
     with the body asked for: "block" (a block a ray) or "warp" (the walk of
-    a warp a ray, to compare), counted in BODY_LAUNCHES; either takes at
-    most 256 samples a ray."""
+    a warp a ray, to compare), counted in BODY_LAUNCHES; either takes as
+    many samples a ray as its shared memory holds (composite_max_samples)."""
     _check_body(body)
     if z.device.type == "cpu":
         return composite_loss_bwd_reference(
@@ -1008,7 +1215,8 @@ def composite_loss_bwd(h, r, s2, bh, skyh, wn, bn, z, noise, gt, wmix: float,
                                              bh, skyh, wn, bn, z, noise)
     if gt.dtype != torch.float32 or gt.shape != (n_rays, 3):
         raise ValueError(f"gt must be ({n_rays}, 3) fp32")
-    res = _adjoint_buffers("composite_loss_bwd", n_rays, n_s, p, feat, fh,
+    _check_samples("composite_loss_bwd", feat, fh, n_s, body)
+    res = _adjoint_buffers("composite_loss_bwd", n_rays, p, feat, fh,
                            bh is not None, z.device)
     res["loss_sums"] = torch.zeros(3, dtype=torch.float32, device=z.device)
     res["weights"] = (torch.empty((n_rays, n_s), dtype=torch.float32,
@@ -1059,7 +1267,8 @@ def composite_bwd(h, r, s2, bh, skyh, wn, bn, z, noise, g, *,
                                              skyh, wn, bn, z, noise)
     if g.dtype != torch.float32 or g.shape != (n_rays, OUT_COLS):
         raise ValueError(f"g must be ({n_rays}, {OUT_COLS}) fp32")
-    res = _adjoint_buffers("composite_bwd", n_rays, n_s, p, feat, fh,
+    _check_samples("composite_bwd", feat, fh, n_s, body)
+    res = _adjoint_buffers("composite_bwd", n_rays, p, feat, fh,
                            bh is not None, z.device)
     _launch("composite_bwd", _DTYPE_CODE[dtype], _ptr(h), feat, _ptr(r),
             _ptr(s2), _ptr(bh), _ptr(skyh), fh, _ptr(wn), _ptr(bn), _ptr(z),
@@ -1146,6 +1355,7 @@ class TrainOps:
     sc = staticmethod(sc_loss_bwd)
     dgrad = staticmethod(siren_dense_dgrad)
     wgrad = staticmethod(siren_dense_wgrad)
+    narrow = staticmethod(narrow_grads)
 
 
 def _chain_forward(p: dict, rays16, z, *, skip: int, use_beta: bool,
@@ -1199,17 +1409,22 @@ def _chain_backward(p: dict, a: dict, cot: dict, rays16, z, *, skip: int,
     None (K3: all but sun_v) is skipped and gets no entry in g. Given a
     dict as input_grads (K6), every layer with an E operand is also asked for
     the gradient of E, and the per-ray sums are left in it: "xyz" (R, 3) from
-    layer 0 and the skip layer, "sun" (R, 3) from sun_v_0 and sky_0. Returns
-    (g in the layout of p, t_grad (R, tau) or None)."""
+    layer 0 and the skip layer, "sun" (R, 3) from sun_v_0 and sky_0. The
+    narrow gradients the heads leave to narrow_grads (sun_v_0's, sky_0's,
+    beta_0's t_grad) go in one launch after beta_0. Returns (g in the layout
+    of p, t_grad (R, tau) or None)."""
     n_s = z.shape[1]
     want_in = input_grads is not None
     g = {"wn": cot["dwn"], "bn": cot["dbn"], "B": [None] * len(p["B"]),
          "bt": [None] * len(p["bt"]), "C": None}
     feats, d_feats = a["feats"], None
+    heads_narrow = []  # the heads' narrow_grads jobs, launched together
 
-    def wgrad(x, dy, slope, extra=None, ew=None, samples=n_s, extra_grad=False):
+    def wgrad(x, dy, slope, extra=None, ew=None, samples=n_s, extra_grad=False,
+              defer=None):
         return ops.wgrad(x, dy, slope, rays16, samples, extra=extra,
-                         extra_weight=ew, z=z, extra_grad=extra_grad)
+                         extra_weight=ew, z=z, extra_grad=extra_grad,
+                         defer=defer)
 
     # heads, in the JAX kernel's order: rgb, sun, sky, beta
     if cot.get("d_r") is not None:
@@ -1220,19 +1435,24 @@ def _chain_backward(p: dict, a: dict, cot: dict, rays16, z, *, skip: int,
     g["Wsun1"], g["bsun1"], _, _ = wgrad(a["s0"], d_s1, a["c_s1"])
     d_s0 = ops.dgrad(d_s1, a["c_s1"], p["Wsun1"])
     g["Wsun0h"], g["bsun0"], g["Wsun0d"], d_sun = wgrad(
-        feats, d_s0, a["c_s0"], "sun", p["Wsun0d"], extra_grad=want_in)
+        feats, d_s0, a["c_s0"], "sun", p["Wsun0d"], extra_grad=want_in,
+        defer=heads_narrow)
     d_feats = ops.dgrad(d_s0, a["c_s0"], p["Wsun0h"], out=d_feats)
+    d_sun_sky = None
     if cot.get("d_skyh") is not None:
         _, g["bsky0"], g["Wsky0"], d_sun_sky = wgrad(
             None, cot["d_skyh"], None, "sun", p["Wsky0"], samples=1,
-            extra_grad=want_in)
-        if want_in:
-            d_sun = d_sun + d_sun_sky
+            extra_grad=want_in, defer=heads_narrow)
     t_grad = None
     if use_beta and cot.get("d_bh") is not None:
         g["Wbeta0h"], g["bbeta0"], g["Wbeta0t"], t_grad = wgrad(
-            feats, cot["d_bh"], a["c_bh"], "t", p["Wbeta0t"], extra_grad=True)
+            feats, cot["d_bh"], a["c_bh"], "t", p["Wbeta0t"], extra_grad=True,
+            defer=heads_narrow)
         d_feats = ops.dgrad(cot["d_bh"], a["c_bh"], p["Wbeta0h"], out=d_feats)
+    if heads_narrow:
+        ops.narrow(heads_narrow)
+    if want_in and d_sun_sky is not None:
+        d_sun = d_sun + d_sun_sky
 
     # feats and sigma meet in the trunk output
     g["Wfeat"], g["bfeat"], _, _ = wgrad(a["h"], d_feats, None)
@@ -1707,7 +1927,7 @@ def field_heads_bwd(h, r, s2, bh, skyh, wn, bn, samples: int, g, *,
                                              skyh, wn, bn, samples)
     if g.dtype != torch.float32 or g.shape != (p, FIELD_COLS):
         raise ValueError(f"g must be ({p}, {FIELD_COLS}) fp32")
-    res = _adjoint_buffers("field_heads_bwd", n_rays, None, p, feat, fh,
+    res = _adjoint_buffers("field_heads_bwd", n_rays, p, feat, fh,
                            bh is not None, h.device)
     _launch("field_heads_bwd", _DTYPE_CODE[dtype], _ptr(h), feat, _ptr(r),
             _ptr(s2), _ptr(bh), _ptr(skyh), fh, _ptr(wn), _ptr(bn), _ptr(g), p,

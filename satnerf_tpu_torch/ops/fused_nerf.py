@@ -65,8 +65,8 @@ import torch.nn.functional as F
 
 from satnerf_tpu_torch.models.nerf import positional_encoding, rounded_matmul
 from satnerf_tpu_torch.ops.fused_mlp import (
-    _DTYPE_CODE, _MAINLOOP_CODE, LAUNCHES, WGRAD_STAGE_POINTS, _aligned,
-    _check_cuda, _check_mainloop, _launch, _ptr, _sm_count, _stream,
+    _DTYPE_CODE, _MAINLOOP_CODE, LAUNCHES, SMEM_OPTIN_BYTES,
+    WGRAD_STAGE_POINTS, _aligned, _check_cuda, _check_mainloop, _launch, _ptr, _sm_count, _stream,
     dense_mainloop, wgrad_split)
 from satnerf_tpu_torch.render.composite import ray_weights
 from satnerf_tpu_torch.render.render import run_field
@@ -458,6 +458,19 @@ def _adjoint_buffers(p, feat, fh, dev) -> dict:
             "dbn": f32(4, make=torch.zeros)}
 
 
+# csrc/fused_nerf.cu NCL_WARPS, NCL_SAMPLE_VALS: the walk's warps a block and
+# the values it keeps a sample in shared memory
+_NCL_WARPS, _NCL_SAMPLE_VALS = 4, 8
+
+
+def nerf_composite_max_samples() -> int:
+    """The most samples a ray nerf_composite_loss_bwd takes on the card: its
+    warps keep NCL_SAMPLE_VALS floats a sample of their rays in shared
+    memory, which holds at most 227 KB a block (1,816 samples); the C entry
+    refuses past it by the same rule."""
+    return SMEM_OPTIN_BYTES // (4 * _NCL_WARPS * _NCL_SAMPLE_VALS)
+
+
 def nerf_composite_loss_bwd(h, r, wn, bn, z, noise, gt, *,
                             rgb_padding: float = 0.001) -> dict:
     """Narrow heads, compositor, MSE and their adjoints; arguments and returns
@@ -470,9 +483,12 @@ def nerf_composite_loss_bwd(h, r, wn, bn, z, noise, gt, *,
     n_rays, n_s = z.shape
     feat, fh = _check_narrow("nerf_composite_loss_bwd", h, r, wn, bn,
                              n_rays * n_s)
-    if n_s > 256:
-        raise ValueError("nerf_composite_loss_bwd holds at most 256 samples a "
-                         "ray")
+    limit = nerf_composite_max_samples()
+    if n_s > limit:
+        raise ValueError(
+            f"nerf_composite_loss_bwd: {n_s} samples a ray do not fit the "
+            f"{SMEM_OPTIN_BYTES} bytes (227 KB) of shared memory a block "
+            f"may hold; it takes at most {limit}")
     for what, t, shape in (("z", z, z.shape), ("noise", noise, z.shape),
                            ("gt", gt, (n_rays, 3))):
         if t is not None and (t.dtype != torch.float32 or t.shape != shape):

@@ -36,8 +36,11 @@ version and against `mainloop="wmma"` on the same inputs at every (K, N) of
 the main path, every E operand (the wgrad's with its input gradient), with
 and without the saved slope, accumulation and a slope, at 65,536, 1,037 x 72
 and 1,024 x 128 points (the wgrad also at fewer points than one block's
-range and at shapes that fill part of its tile), the wgrad's launches of
-small_grads, and operands whose pointers are
+range and at shapes that fill part of its tile), the wgrad's narrow
+gradients (dC folded into the wgmma epilogue, narrow_grads for the layers
+without X, for dE and beside wmma, one launch of several layers' jobs)
+against the plain version and the column walk small_grads it replaced, and
+operands whose pointers are
 not 16-byte aligned, which the rule keeps off the wgmma path; and for the
 nerf variant's nerf_dense_dgrad and nerf_dense_wgrad on the same mainloops,
 every bf16 launch of its 8 x 256 chain (the dgrad masked and linear, with
@@ -50,8 +53,11 @@ nerf_dense on the wgmma mainloop every launch of the 8 x 256 chain (and K
 65,573 points that are their own rays and at small ragged counts against the
 plain version and wmma, and the launches a forced wgmma cannot take; and the
 two bodies of composite_loss_bwd and composite_bwd (a block a ray, a warp a
-ray) against each other and the plain version at up to 256 samples a ray,
-and 288 samples refused on either.
+ray) against each other and the plain version at up to the largest number
+of samples a ray their shared memory holds (288, 320, 1,452; the block body
+alone at 4,129), nerf_composite_loss_bwd likewise (1,816), and one sample
+more refused on either with the limit named; and siren_dense's K = 0 kernel
+(layer 0, sky_0) equal to the bit to the first one it replaced.
 """
 
 import numpy as np
@@ -437,10 +443,11 @@ def test_fused_sc_loss_grads_fp32(dev, variant, with_noise):
             noise if with_noise else None, 0.1)
     before = dict(FM.LAUNCHES)
     parts, grads = FM.fused_sc_loss_grads(*args, **kw)
-    # fp32: every wgrad GEMM is SIMT, so small_grads sums db each time
+    # fp32: every wgrad GEMM is SIMT (11 of them: layer 0 has none), so
+    # narrow_grads sums db of each layer, sun_v_0's job in a launch of its own
     assert _grown(before) == {"siren_dense": 12, "sc_loss_bwd": 1,
-                              "siren_dense_dgrad": 11, "siren_dense_wgrad": 12,
-                              "small_grads": 12}
+                              "siren_dense_dgrad": 11, "siren_dense_wgrad": 11,
+                              "narrow_grads": 12}
     r_parts, r_grads = FM.fused_sc_loss_grads_reference(*args, **kw)
     for k in r_parts:
         assert abs(float(parts[k]) - float(r_parts[k])) <= 1e-5, k
@@ -483,8 +490,7 @@ def test_fused_train_render_rays_fp32(dev, variant, with_noise):
     assert _grown(before) == {
         "siren_dense": 15 if use_beta else 14, "heads_composite": 1,
         "composite_bwd": 1, "siren_dense_dgrad": 13 if use_beta else 12,
-        "siren_dense_wgrad": 15 if use_beta else 14,
-        "small_grads": 15 if use_beta else 14}
+        "siren_dense_wgrad": 13 if use_beta else 12, "narrow_grads": 13}
     r_out, r_grads = run(FM.fused_train_render_rays_reference)
     assert set(out) == set(r_out)
     for k in r_out:
@@ -732,8 +738,7 @@ def test_fused_field_apply_rays_fp32(dev, variant, n_s):
     assert _grown(before) == {
         "siren_dense": 15 if use_beta else 14, "field_heads": 1,
         "field_heads_bwd": 1, "siren_dense_dgrad": 13 if use_beta else 12,
-        "siren_dense_wgrad": 15 if use_beta else 14,
-        "small_grads": 15 if use_beta else 14}
+        "siren_dense_wgrad": 13 if use_beta else 12, "narrow_grads": 13}
     r_out, r_grads = run(FM.fused_field_apply_rays_reference)
     assert set(out) == set(r_out)
     for k in r_out:
@@ -1043,6 +1048,36 @@ def test_nerf_composite_loss_bwd(dev, dtype, with_noise, n_rays, n_s, feat):
     ref = FN.nerf_composite_loss_bwd_reference(h, r, wn, bn, z, noise, gt)
     assert got["d_h"].shape == (n_rays * n_s, feat)
     _hold_cotangents(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_noise,n_rays,n_s", [
+    (True, 5, 288), (False, 5, 320), (True, 2, FN.nerf_composite_max_samples())])
+def test_nerf_composite_loss_bwd_past_256_samples(dev, dtype, with_noise, n_rays,
+                                                  n_s):
+    """Rays past 256 samples (past 384 the walk's shared memory passes 48 KB
+    and the kernel opts in), up to the most it holds, against the plain
+    version: 1e-4 of each tensor's largest entry, in bf16 a cotangent entry
+    also one step of itself or, for d_r, which sums three products of
+    rounded cotangents, of one of its terms (over more samples more entries
+    have a term on the other side of a rounding boundary), as the SIREN
+    composite kernels are held; in bf16 dWn and dbn, sums over every sample
+    of such rounded products, within 5e-4 (at 1,816 samples dWn has read
+    1.7e-4; the fp32 case, without rounded cotangents, holds 1e-4)."""
+    g, (h, r, wn, bn, z, noise) = _nerf_narrow(dev, dtype, with_noise, 7,
+                                               n_rays, n_s, 256)
+    gt = torch.rand(n_rays, 3, generator=g).to(dev)
+    got = FN.nerf_composite_loss_bwd(h, r, wn, bn, z, noise, gt)
+    ref = FN.nerf_composite_loss_bwd_reference(h, r, wn, bn, z, noise, gt)
+    for k, v in ref.items():
+        assert bool(torch.isfinite(got[k]).all()), k
+        lim = 1e-4 * v.abs().max()
+        if k.startswith("d_") and dtype == torch.bfloat16:
+            lim = lim + 2.0 ** -7 * v.abs() + (2.0 ** -8 * v.abs().max()
+                                               if k == "d_r" else 0)
+        elif k in ("dwn", "dbn") and dtype == torch.bfloat16:
+            lim = 5e-4 * v.abs().max()
+        assert bool(((got[k] - v).abs() <= lim).all()), (k, _rel(got[k], v))
 
 
 def test_nerf_composite_adjoint_at_a_faint_last_sample(dev):
@@ -1467,25 +1502,30 @@ def _hold_wgrad(got, ref):
 @pytest.mark.parametrize("n_rays,samples", MAIN_POINTS + [(3, 16)])
 def test_siren_dense_wgrad_wgmma(dev, k, n, extra, n_extra, with_slope, n_rays,
                                  samples):
-    """The wgmma wgrad (db summed in its epilogue, small_grads only for an E
-    operand) against the plain version and against the same launch on
-    wmma (GEMM + small_grads with db); 3 x 16 points are fewer than one
-    block's range."""
+    """The wgmma wgrad (db summed in its epilogue, dC of an E operand folded
+    into it, narrow_grads only for dE) against the plain version, against
+    the same launch on wmma (GEMM + narrow_grads with db, dC and dE) and
+    against the column walk small_grads it replaced (narrow="walk"); 3 x 16
+    points are fewer than one block's range."""
     args, kw = _wgrad_operands(dev, k, n, extra, n_extra, with_slope, n_rays,
                                samples)
     assert FM.dense_mainloop("siren_dense_wgrad", torch.bfloat16, k, n) == "wgmma"
     before = {m: _count("siren_dense_wgrad", m) for m in ("wgmma", "wmma")}
-    small = FM.LAUNCHES["small_grads"]
+    narrow, walk = FM.LAUNCHES["narrow_grads"], FM.LAUNCHES["small_grads"]
     got = FM.siren_dense_wgrad(*args, mainloop="wgmma", **kw)
     wmma = FM.siren_dense_wgrad(*args, mainloop="wmma", **kw)
     rule = FM.siren_dense_wgrad(*args, **kw)
     assert _count("siren_dense_wgrad", "wgmma") == before["wgmma"] + 2
     assert _count("siren_dense_wgrad", "wmma") == before["wmma"] + 1
-    assert FM.LAUNCHES["small_grads"] == small + 1 + 2 * (extra is not None)
+    assert FM.LAUNCHES["narrow_grads"] == narrow + 1 + 2 * (extra is not None)
+    assert FM.LAUNCHES["small_grads"] == walk
+    walked = FM.siren_dense_wgrad(*args, mainloop="wgmma", narrow="walk", **kw)
+    assert FM.LAUNCHES["small_grads"] == walk + (extra is not None)
     ref = FM.siren_dense_wgrad_reference(*args, **kw)
     _hold_wgrad(got, ref)
     _hold_wgrad(got, wmma)
     _hold_wgrad(rule, ref)
+    _hold_wgrad(got, walked)
 
 
 @pytest.mark.parametrize("k,n", [(320, 192), (64, 64), (768, 320)])
@@ -1512,14 +1552,20 @@ def test_wgrad_split_does_not_change_the_sums(dev):
 
 
 def test_bias_only_wgrad_is_small_grads_alone(dev):
-    """A layer with neither X nor E: small_grads sums db, nothing else runs."""
+    """A layer with neither X nor E: narrow_grads sums db, nothing else runs
+    (no GEMM: the wgrad's C entry is not called); the column walk, asked
+    for, is the C entry's small_grads alone."""
     g = torch.Generator().manual_seed(13)
     rays16, _ = _rays16(1024, 64, dev)
     dy, slope = (torch.randn(1024 * 64, 512, generator=g).to(dev)
                  for _ in range(2))
     before = dict(FM.LAUNCHES)
-    got = FM.siren_dense_wgrad(None, dy, slope, rays16, 64)
+    walked = FM.siren_dense_wgrad(None, dy, slope, rays16, 64, narrow="walk")
     assert _grown(before) == {"siren_dense_wgrad": 1, "small_grads": 1}
+    before = dict(FM.LAUNCHES)
+    got = FM.siren_dense_wgrad(None, dy, slope, rays16, 64)
+    assert _grown(before) == {"narrow_grads": 1}
+    assert _rel(got[1], walked[1]) <= 1e-4
     ref = FM.siren_dense_wgrad_reference(None, dy, slope, rays16, 64)
     assert got[0] is None and got[2] is None and got[3] is None
     assert _rel(got[1], ref[1]) <= 1e-4
@@ -1769,7 +1815,11 @@ def test_a_forced_nerf_dense_wgmma_that_cannot_run_raises(dev):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("beta,with_noise,n_rays,n_s,feat", [
     (True, True, 1024, 64, 512), (True, False, 53, 128, 512),
-    (False, True, 11, 256, 512), (True, True, 9, 5, 36)])
+    (False, True, 11, 256, 512), (True, True, 9, 5, 36),
+    # past one chunk of 256 a thread takes two samples: a 320-sample fine
+    # pass, 288, and the most the warp body holds (the block body holds more)
+    (True, True, 7, 288, 512), (True, False, 5, 320, 512),
+    (True, True, 3, 1452, 512)])
 def test_composite_bodies_agree(dev, dtype, beta, with_noise, n_rays, n_s, feat):
     """composite_loss_bwd and composite_bwd a block a ray (the default)
     against the warp a ray and the plain version: 1e-4 of each tensor's
@@ -1825,27 +1875,183 @@ def test_composite_bodies_agree(dev, dtype, beta, with_noise, n_rays, n_s, feat)
 
 
 @pytest.mark.parametrize("body", ["block", "warp"])
-def test_composite_refuses_more_than_256_samples(dev, body):
-    """A ray of 288 samples (a hierarchical fine pass past 256) is refused
-    by both wrappers on either body, before any launch, as the wrappers
-    refused it before the block body came: no body takes it in part."""
-    n_rays, n_s, feat = 5, 288, 512
+def test_composite_refuses_past_its_sample_limit(dev, body):
+    """One sample a ray past what the body's shared memory holds (4,130 on
+    the block body, 1,453 on the warp a ray at F = 512) is refused by both
+    wrappers, before any launch, with the 227 KB limit and the largest S
+    named; the largest S itself runs (the block body: here, against the
+    plain version; the warp body: in test_composite_bodies_agree)."""
+    feat, fh = 512, 256
+    n_s = FM.composite_max_samples(feat, fh, body)
     g = torch.Generator().manual_seed(21)
-    p, fh = n_rays * n_s, feat // 2
 
-    def t(*shape):
-        return (torch.rand(*shape, generator=g) * 2 - 1).to(dev, torch.bfloat16)
+    def operands(n_rays, n_s):
+        p = n_rays * n_s
 
-    h, r, s2, bh = t(p, feat), t(p, fh), t(p, fh), t(p, fh)
-    skyh = torch.relu(t(n_rays, fh))
-    wn, bn = t(9, feat), torch.randn(9, generator=g).to(dev)
-    _, z = _rays16(n_rays, n_s, dev)
-    gt = torch.rand(n_rays, 3, generator=g).to(dev)
-    cot = torch.randn(n_rays, 16, generator=g).to(dev)
-    args = (h, r, s2, bh, skyh, wn, bn, z, None)
+        def t(*shape):
+            return (torch.rand(*shape, generator=g) * 2 - 1).to(dev, torch.bfloat16)
+
+        h, r, s2, bh = t(p, feat), t(p, fh), t(p, fh), t(p, fh)
+        skyh = torch.relu(t(n_rays, fh))
+        wn, bn = t(9, feat) * 0.1, torch.randn(9, generator=g).to(dev)
+        _, z = _rays16(n_rays, n_s, dev)
+        return (h, r, s2, bh, skyh, wn, bn, z, None)
+
+    args = operands(2, n_s + 1)
+    gt = torch.rand(2, 3, generator=g).to(dev)
+    cot = torch.randn(2, 16, generator=g).to(dev)
     launches, bodies = dict(FM.LAUNCHES), dict(FM.BODY_LAUNCHES)
-    with pytest.raises(ValueError, match="256 samples"):
-        FM.composite_loss_bwd(*args, gt, 0.3, body=body)
-    with pytest.raises(ValueError, match="256 samples"):
-        FM.composite_bwd(*args, cot, body=body)
+    for call in (lambda: FM.composite_loss_bwd(*args, gt, 0.3, body=body),
+                 lambda: FM.composite_bwd(*args, cot, body=body)):
+        with pytest.raises(ValueError, match=rf"227 KB.*at most {n_s} at F=512"):
+            call()
     assert FM.LAUNCHES == launches and FM.BODY_LAUNCHES == bodies
+    if body == "block":
+        args = operands(2, n_s)
+        got = (FM.composite_loss_bwd(*args, gt, 0.3, body=body),
+               FM.composite_bwd(*args, cot, body=body))
+        refs = (FM.composite_loss_bwd_reference(*args, gt, 0.3),
+                FM.composite_bwd_reference(*args, cot))
+        for a, b in zip(got, refs):
+            for k, v in b.items():
+                if v is not None:
+                    lim = 1e-4 * v.abs().max()
+                    if k.startswith("d_"):
+                        lim = lim + 2.0 ** -7 * v.abs() + (
+                            2.0 ** -8 * v.abs().max() if k in ("d_r", "d_skyh") else 0)
+                    assert bool(((a[k] - v).abs() <= lim).all()), (k, _rel(a[k], v))
+
+
+def test_nerf_composite_refuses_past_its_sample_limit(dev):
+    g, (h, r, wn, bn, z, _) = _nerf_narrow(dev, torch.bfloat16, False, 7, 2,
+                                           FN.nerf_composite_max_samples() + 1, 256)
+    gt = torch.rand(2, 3, generator=g).to(dev)
+    before = dict(FM.LAUNCHES)
+    with pytest.raises(ValueError, match="227 KB.*at most 1816"):
+        FN.nerf_composite_loss_bwd(h, r, wn, bn, z, None, gt)
+    assert FM.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_rays,samples,n,extra,act,w0,save", [
+    (1024, 64, 512, "xyz", "sin", 30.0, True),   # layer 0 in training
+    (1024, 64, 512, "xyz", "sin", 30.0, False),  # layer 0 serving
+    (1037, 72, 512, "xyz", "sin", 30.0, True),   # ragged
+    (1024, 1, 256, "sun", "relu", 1.0, False),   # sky_0
+    (37, 3, 200, "t", "sin", 1.0, True),         # a partial column group
+    (5, 3, 36, "xyz", "none", 2.0, False),       # element stores
+    (3, 700, 1100, "sun", "sin", 30.0, True)])   # three column ranges
+def test_siren_dense_k0_equals_its_first_kernel(dev, dtype, n_rays, samples, n,
+                                                extra, act, w0, save):
+    """The K = 0 kernel (a warp a point, the lanes' neighbouring vectors, one
+    sincos for the sine and the slope) against the first one, k0_v1: Y and
+    the slope equal to the bit; both against the plain version."""
+    rays16, z = _rays16(n_rays, samples, dev, seed=14)
+    g = torch.Generator().manual_seed(15)
+    n_extra = 4 if extra == "t" else 3
+    c = (torch.randn(n_extra, n, generator=g) * 0.5).to(dev, dtype)
+    b = torch.randn(n, generator=g).to(dev)
+    kw = dict(extra=extra, extra_weight=c, z=z, w0=w0, act=act, save=save)
+    before = {m: _count("siren_dense", m) for m in ("k0", "k0_v1")}
+    new = FM.siren_dense(None, None, b, rays16, samples, **kw)
+    old = FM.siren_dense(None, None, b, rays16, samples, mainloop="k0_v1", **kw)
+    assert _count("siren_dense", "k0") == before["k0"] + 1
+    assert _count("siren_dense", "k0_v1") == before["k0_v1"] + 1
+    for a, o in zip(new if save else (new,), old if save else (old,)):
+        assert torch.equal(a, o)
+    ref = FM.siren_dense_reference(None, None, b, rays16, samples, **kw)
+    y, y_ref = (new[0], ref[0]) if save else (new, ref)
+    assert _rel(y.float(), y_ref.float()) <= (1e-2 if dtype == torch.bfloat16 else 1e-4)
+    if save:
+        assert _rel(new[1], ref[1]) <= 1e-4
+
+
+@pytest.mark.parametrize("n_rays,samples", MAIN_POINTS)
+@pytest.mark.parametrize("n,extra,slope_on,samples_of_ray", [
+    (512, "xyz", True, None),   # layer 0
+    (256, "sun", False, 1)])    # sky_0, once a ray
+@pytest.mark.parametrize("extra_grad", [False, True])
+def test_narrow_grads_of_the_layers_without_x(dev, n_rays, samples, n, extra,
+                                              slope_on, samples_of_ray,
+                                              extra_grad):
+    """Layer 0 and sky_0 (K = 0): narrow_grads (db, dC, and dE on request)
+    against the plain version and the column walk, 1e-4; one launch, no
+    GEMM."""
+    s = samples_of_ray or samples
+    rays16, z = _rays16(n_rays, samples, dev, seed=16)
+    g = torch.Generator().manual_seed(17)
+    p = n_rays * s
+    dy = torch.randn(p, n, generator=g).to(dev)
+    slope = torch.randn(p, n, generator=g).to(dev) * 30 if slope_on else None
+    c = (torch.randn(3, n, generator=g) * 0.3).to(dev, torch.bfloat16)
+    kw = dict(extra=extra, extra_weight=c, z=z[:, :s] if extra == "xyz" else None,
+              extra_grad=extra_grad)
+    before = dict(FM.LAUNCHES)
+    got = FM.siren_dense_wgrad(None, dy, slope, rays16, s, **kw)
+    assert _grown(before) == {"narrow_grads": 1}
+    walked = FM.siren_dense_wgrad(None, dy, slope, rays16, s, narrow="walk", **kw)
+    ref = FM.siren_dense_wgrad_reference(None, dy, slope, rays16, s, **kw)
+    _hold_wgrad(got, ref)
+    _hold_wgrad(got, walked)
+
+
+def test_narrow_grads_joins_layers_in_one_launch(dev):
+    """The chain's joined launch: sky_0's job (db, dC) and beta_0's t_grad
+    (dE) at the main path's shapes, and a third layer's, in one launch of
+    narrow_grads, each equal within 1e-4 to its plain version and to the
+    same job launched alone."""
+    g = torch.Generator().manual_seed(18)
+    rays16, z = _rays16(1024, 64, dev, seed=18)
+    p = 1024 * 64
+
+    def jobs():
+        return [
+            FM.NarrowJob(sky_dy, None, rays16, 1, extra="sun", extra_weight=c3,
+                         dtype=torch.bfloat16, db=True, dc=True, de=False),
+            FM.NarrowJob(b_dy, b_slope, rays16, 64, extra="t", extra_weight=c4,
+                         z=z, dtype=torch.bfloat16, db=False, dc=False, de=True),
+            FM.NarrowJob(l_dy, l_slope, rays16, 64, extra="xyz", extra_weight=c3x,
+                         z=z, dtype=torch.bfloat16, db=True, dc=True, de=True)]
+
+    sky_dy = torch.relu(torch.randn(1024, 256, generator=g)).to(dev)
+    b_dy, b_slope = (torch.randn(p, 256, generator=g).to(dev) for _ in range(2))
+    l_dy, l_slope = (torch.randn(p, 512, generator=g).to(dev) for _ in range(2))
+    c3 = (torch.randn(3, 256, generator=g) * 0.3).to(dev, torch.bfloat16)
+    c4 = (torch.randn(4, 256, generator=g) * 0.3).to(dev, torch.bfloat16)
+    c3x = (torch.randn(3, 512, generator=g) * 0.3).to(dev, torch.bfloat16)
+    together = jobs()
+    before = FM.LAUNCHES["narrow_grads"]
+    FM.narrow_grads(together)
+    assert FM.LAUNCHES["narrow_grads"] == before + 1
+    alone = jobs()
+    for job in alone:
+        FM.narrow_grads([job])
+    assert FM.LAUNCHES["narrow_grads"] == before + 4
+    for a, b in zip(together, alone):
+        ref = FM.narrow_grads_reference(a)
+        for x, y, r in zip((a.db, a.dc, a.de), (b.db, b.dc, b.de), ref):
+            assert (x is None) == (r is None)
+            if r is not None:
+                assert _rel(x, r) <= 1e-4 and _rel(x, y) <= 1e-4
+
+
+@pytest.mark.parametrize("k,n,extra,n_extra", [
+    (k, n, extra, n_extra) for k, n, extra, n_extra in MAIN_WGRAD if extra])
+def test_folded_dw_equals_the_unfolded_to_the_bit(dev, k, n, extra, n_extra):
+    """The fold adds FMAs beside the wgmma mainloop and leaves its products
+    alone: with every point in one block's range (no atomics across ranges),
+    dW and db equal the launch without the fold (narrow="walk") to the bit;
+    dC agrees with the walk's within 1e-4. A split past the points a folding
+    block holds (FOLD_SPLIT) leaves dC to narrow_grads."""
+    args, kw = _wgrad_operands(dev, k, n, extra, n_extra, True, 64, 64)
+    kw["extra_grad"] = False
+    got = FM.siren_dense_wgrad(*args, split=64 * 64, **kw)
+    walked = FM.siren_dense_wgrad(*args, split=64 * 64, narrow="walk", **kw)
+    assert torch.equal(got[0], walked[0]) and torch.equal(got[1], walked[1])
+    assert _rel(got[2], walked[2]) <= 1e-4
+    args, kw = _wgrad_operands(dev, k, n, extra, n_extra, True, 80, 64)
+    kw["extra_grad"] = False
+    narrow = FM.LAUNCHES["narrow_grads"]
+    wide = FM.siren_dense_wgrad(*args, split=80 * 64, **kw)
+    assert FM.LAUNCHES["narrow_grads"] == narrow + 1
+    _hold_wgrad(wide, FM.siren_dense_wgrad_reference(*args, **kw))

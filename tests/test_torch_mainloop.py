@@ -280,11 +280,27 @@ def test_reset_clears_the_mainloop_counts():
 
 
 @pytest.mark.parametrize("mainloop,extra,want", [
-    ("wgmma", None, "none"), ("wgmma", "xyz", "no_db"), ("wgmma", "t", "no_db"),
+    ("wgmma", None, "none"), ("wgmma", "xyz", "fold"), ("wgmma", "t", "fold"),
     ("wmma", None, "db"), ("wmma", "sun", "db"), ("simt", None, "db"),
     ("k0", "xyz", "db"), ("k0", None, "db")])
 def test_small_grads_mode(mainloop, extra, want):
+    """narrow="rays", the rule: the wgmma wgrad sums db, and folds dC of an
+    E operand of at most FOLD_MAX columns; narrow_grads takes the rest."""
     assert FM.small_grads_mode(mainloop, extra) == want
+
+
+@pytest.mark.parametrize("mainloop,extra,narrow,n_extra,want", [
+    # the column walk small_grads, kept to compare: as before narrow_grads
+    ("wgmma", None, "walk", 0, "none"), ("wgmma", "xyz", "walk", 3, "no_db"),
+    ("wgmma", "t", "walk", 4, "no_db"), ("wmma", "sun", "walk", 3, "db"),
+    ("k0", "xyz", "walk", 3, "db"), ("simt", None, "walk", 0, "db"),
+    # an E operand wider than the fold takes: narrow_grads forms dC
+    ("wgmma", "t", "rays", 5, "dc"), ("wgmma", "t", "rays", 4, "fold"),
+    ("wmma", "t", "rays", 5, "db")])
+def test_small_grads_mode_by_body(mainloop, extra, narrow, n_extra, want):
+    assert FM.small_grads_mode(mainloop, extra, narrow, n_extra) == want
+    with pytest.raises(ValueError):
+        FM.small_grads_mode(mainloop, extra, "lanes", n_extra)
 
 
 @pytest.mark.parametrize("p,k,n,e_rows,want", [
@@ -320,7 +336,8 @@ def _recorded_chain(dtype, sc: bool):
     class Recorder(FM.TrainOps):
         @staticmethod
         def wgrad(x, dy, slope, rays16, samples, **kw):
-            calls.append((x, dy, slope, kw.get("extra"), kw.get("extra_weight")))
+            calls.append((x, dy, slope, kw.get("extra"), kw.get("extra_weight"),
+                          kw.get("extra_grad", False), kw.get("defer") is not None))
             return FM.siren_dense_wgrad(x, dy, slope, rays16, samples, **kw)
 
     field = build_model("sat-nerf", 8, 512, t_dim=4,
@@ -343,39 +360,67 @@ def _recorded_chain(dtype, sc: bool):
                              use_beta=True, rgb_padding=0.001, beta_min=0.05,
                              return_weights=False, ops=Recorder)
     plan = []
-    for x, dy, slope, extra, c in calls:
+    for x, dy, slope, extra, c, extra_grad, deferred in calls:
         k = 0 if x is None else x.shape[1]
         loop = FM.dense_mainloop("siren_dense_wgrad",
                                  FM._wgrad_dtype(x, c, dy), k, dy.shape[1],
                                  inputs_aligned=FM._aligned(x, dy, slope))
-        plan.append((k, dy.shape[1], extra, loop, FM.small_grads_mode(loop, extra)))
+        n_extra = 0 if c is None else c.shape[0]
+        plan.append((k, dy.shape[1], extra, loop,
+                     FM.small_grads_mode(loop, extra, "rays", n_extra),
+                     extra_grad, deferred))
     return plan
 
 
-@pytest.mark.parametrize("chain,calls,asking", [("train", 15, 5), ("sc", 12, 3)])
+def _narrow_launches(plan) -> tuple:
+    """(narrow_grads launches on the card, jobs in the joined launch): a job
+    a wgrad call that has narrow work, each launched alone unless deferred
+    into the chain's one joined launch (at most NARROW_MAX_JOBS a launch; on
+    the CPU the plain version runs at once and nothing is deferred)."""
+    jobs = [(mode in ("db", "dc") or extra_grad, deferred)
+            for *_, mode, extra_grad, deferred in plan]
+    alone = sum(1 for has, deferred in jobs if has and not deferred)
+    together = sum(1 for has, deferred in jobs if has and deferred)
+    return alone + -(-together // FM.NARROW_MAX_JOBS), together
+
+
+@pytest.mark.parametrize("chain,calls,asking", [("train", 15, 2), ("sc", 12, 1)])
 def test_small_grads_launches_of_the_main_path(chain, calls, asking):
     """bf16 at 8 x 512: every wgrad call with K > 0 takes wgmma, which sums db
-    itself; small_grads runs for the layers with an E operand (sun_v_0,
-    beta_0, the skip layer: dC, and dE on request, without db) and the two
-    without X (layer 0, sky_0: db and dC). K1 (and K4, K5, whose backward is
-    the same chain): 5 of 15; K3: 3 of 12."""
+    itself and folds dC of the E operand (sun_v_0, beta_0, the skip layer);
+    narrow_grads runs for the two layers without X (layer 0: db and dC of
+    xyz; sky_0: db and dC of sun_dir) and for beta_0's t_grad (dE), sky_0's
+    job and beta_0's in one launch. K1 (and K4, K5, whose backward is the
+    same chain): 2 narrow launches for 15 wgrad calls, 13 of which launch a
+    GEMM; K3: 1 for 12."""
     plan = _recorded_chain(torch.bfloat16, sc=chain == "sc")
     assert len(plan) == calls
-    assert all(loop == ("wgmma" if k else "k0") for k, _, _, loop, _ in plan)
-    ask = [(k, n, extra, mode) for k, n, extra, _, mode in plan if mode != "none"]
-    assert len(ask) == asking
-    # db is summed once: never by small_grads where the GEMM took wgmma
-    assert all(mode == ("db" if k == 0 else "no_db") for k, _, _, mode in ask)
-    assert all(extra is not None for _, _, extra, _ in ask)
-    want = {(512, 256, "sun"), (0, 512, "xyz"), (512, 512, "xyz")}
+    assert all(loop == ("wgmma" if k else "k0") for k, _, _, loop, *_ in plan)
+    launches, joined = _narrow_launches(plan)
+    assert launches == asking
+    # db is summed once: by the GEMM's epilogue, or narrow_grads where there
+    # is no GEMM; dC of every E operand folded where there is one
+    assert all(mode == ("db" if k == 0 else "fold" if extra else "none")
+               for k, _, extra, _, mode, *_ in plan)
+    folded = {(k, n, extra) for k, n, extra, _, mode, *_ in plan if mode == "fold"}
+    want = {(512, 256, "sun"), (512, 512, "xyz")}
     if chain == "train":
-        want |= {(0, 256, "sun"), (512, 256, "t")}
-    assert {(k, n, extra) for k, n, extra, _ in ask} == want
+        want.add((512, 256, "t"))
+        assert joined == 2  # sky_0's job and beta_0's t_grad
+    else:
+        assert joined == 0
+    assert folded == want
+    assert [(k, extra) for k, _, extra, *_, eg, _ in plan if eg] == (
+        [(512, "t")] if chain == "train" else [])
 
 
 def test_small_grads_sums_db_of_every_fp32_launch():
+    """fp32: every wgrad with K > 0 is SIMT, so narrow_grads sums db of each
+    of the 15 layers: 13 launches, the heads' sun_v_0, sky_0 and beta_0 in
+    one."""
     plan = _recorded_chain(torch.float32, sc=False)
-    assert [mode for *_, mode in plan] == ["db"] * 15
+    assert [mode for _, _, _, _, mode, *_ in plan] == ["db"] * 15
+    assert _narrow_launches(plan) == (13, 3)
 
 
 def _wgrad_inputs(k, n, seed=3):

@@ -34,10 +34,10 @@ profiler runs.
 
 --wgrad times siren_dense_wgrad at the main path's shapes (65,536 points,
 512 x 512 with and without the slope, 512 x 256, 256 x 256) on its wmma
-mainloop (GEMM + small_grads summing db) and on its wgmma mainloop (db in the
+mainloop (GEMM + narrow_grads summing db) and on its wgmma mainloop (db in the
 epilogue) at the rule's split of the points (ops/fused_mlp.py wgrad_split)
 and at other splits, in turns, beside the library call X^T @ round(G), the
-bytes bound, and small_grads alone summing db (a layer with a bias alone)
+bytes bound, and narrow_grads alone summing db (a layer with a bias alone)
 beside torch.einsum("pn,pn->n", dY, slope).
 
 --model nerf --ablate times nerf_dense's wgmma kernel (csrc/fused_nerf.cu)
@@ -70,8 +70,8 @@ SATNERF_RELU_DG_STAGES); then profiles the nerf step as --train --model nerf
 does.
 
 In the breakdown, the wgrad's kernels are wgrad_wgmma (the main path's),
-wgrad_wmma / wgrad_simt (other shapes, fp32) and small_grads (db where the
-GEMM did not sum it, dC and dE of the layers with an E operand); the nerf
+wgrad_wmma / wgrad_simt (other shapes, fp32) and narrow_grads (db where
+the GEMM did not sum it, dC of the layers without X, dE); the nerf
 variant's are dgrad_wgmma<1> and wgrad_wgmma<1, ...> (the relu mask), or
 nerf_dgrad_wmma, nerf_wgrad_wmma and nerf_bias_grad.
 
@@ -484,12 +484,12 @@ def wgrad(card: str) -> None:
               f"{1e3 * nbytes / 3.35e12:.3f} ms (bytes)")
         for key, v in ms.items():
             print(f"  {key:32s} {v[0]:.3f} / {v[1]:.3f} ms")
-        if k == 512 and n == 512 and with_slope:  # small_grads alone, db only
+        if k == 512 and n == 512 and with_slope:  # narrow_grads alone, db only
             db_ms = [_event_ms(lambda: FM.siren_dense_wgrad(None, dy, slope,
                                                             rays16, n_s))
                      for _ in range(2)]
             ein = _event_ms(lambda: torch.einsum("pn,pn->n", dy, slope))
-            print(f"small_grads alone (db of a {n}-column layer, {p} points): "
+            print(f"narrow_grads alone (db of a {n}-column layer, {p} points): "
                   f"{db_ms[0]:.3f} / {db_ms[1]:.3f} ms, einsum {ein:.3f} ms, "
                   f"bound {1e3 * (2 * dy.numel() * 4 + n * 4) / 3.35e12:.3f} ms "
                   f"on {card}")
