@@ -26,6 +26,10 @@ plain version):
      library call torch.einsum over [E | 1] beside them) and summing db of a
      layer with a bias alone, beside torch.einsum, and the chain's joined
      launch (sky_0's job and beta_0's t_grad) against its plain version;
+     sc_loss_bwd (a block a ray) at 1024 x 64 and x 128 samples and
+     field_heads (the streaming kernel) at 1024 x 128 and on 131,072
+     points that are their own rays, each beside the time PERF.md gives
+     the body it replaced;
      every K = 0 launch of siren_dense in phases 2-2d is also held against
      k0_v1 to the bit, every siren_dense_wgrad launch in 2b-2d against the
      same launch with the column walk (db, dC, dE within 1e-4), and the
@@ -47,7 +51,9 @@ plain version):
      off: K3's two terms and every gradient by name; K4's products and, from
      a random (R, 16) cotangent on all seven products, every gradient and
      the t-gradient; and every launch of both chains alone, sc_loss_bwd,
-     heads_composite with noise and composite_bwd among them. Then the new
+     heads_composite with noise and composite_bwd among them; every launch
+     of K3's chain again at 1024 x 320 and 256 x 640 (sc_loss_bwd's scan
+     carried over two and three chunks of 256 samples). Then the new
      kernels alone at a training batch: time, plain time, bound
   3  the serving path through its entry point: a 128 x 128 synthetic AOI,
      a seeded sat-nerf 8 x 512 checkpoint, create_pretty_dsm on the card
@@ -221,6 +227,22 @@ BATCH = 1024  # rays a training step draws (--batch_size default)
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 N_RAYS = 8192 + 37
 N_IMPORTANCE = 64  # phase 6: the fine pass marches SAMPLES + N_IMPORTANCE depths
+# The kernels redesigned last, and the shapes phase 2 times them at, each
+# with the time by CUDA events of the body it replaced, as PERF.md section 6
+# gives it (tools/outputs_torch.py time on the parent tree; NVIDIA H100 80GB
+# HBM3, 700 W).
+REDESIGNED = {
+    "sc_loss_bwd": {
+        "": (f"{BATCH} rays x {SAMPLES}",
+             "the warp walk it replaced: 0.220 ms, PERF.md"),
+        "s128_": (f"{BATCH} rays x {SAMPLES + N_IMPORTANCE}",
+                  "the warp walk: 0.409 ms, PERF.md")},
+    "field_heads": {
+        "": (f"{BATCH} rays x {SAMPLES + N_IMPORTANCE}",
+             "the warp-a-point body it replaced: 0.373 ms, PERF.md"),
+        "k6_": (f"{BATCH * (SAMPLES + N_IMPORTANCE)} points, each its own ray",
+                "the warp-a-point body: 0.484 ms, PERF.md")},
+}
 # phase 6's run past 256 samples a ray (a fine pass of 320) and phase 7's;
 # phase 7's run at a length whose walk needs the opt-in past 48 KB of shared
 # memory (4 warps x 8 values x 512 samples x 4 B = 64 KB)
@@ -1152,6 +1174,22 @@ def _time_kernels(packed: dict, dev) -> dict:
         lambda: FM.field_heads(*fargs),
         lambda: FM.field_heads_reference(*fargs), None,
         _nbytes(*fargs[:-1]) + p * 16 * 4, 2.0 * p * (FEAT + 5 * fh))
+    # sc_loss_bwd at the fine model's shape of the hierarchical recipe
+    z128 = torch.sort(torch.rand(BATCH, n_s, generator=g, device=dev), 1).values
+    sargs = (h, hs[1], packed["wn"], packed["bn"], z128,
+             rand(BATCH, n_s, to=torch.float32), 0.1 / 3)
+    s128 = entry(lambda: FM.sc_loss_bwd(*sargs),
+                 lambda: FM.sc_loss_bwd_reference(*sargs), None,
+                 _nbytes(*sargs[:-1]) + (p * fh + 9 * FEAT + 9 + 2) * 4,
+                 2.0 * p * (FEAT + 3 * fh))
+    out["sc_loss_bwd"].update({f"s128_{k}": v for k, v in s128.items()})
+    # field_heads on points that are their own rays (K6, --fused on): as
+    # many points, sky once a point
+    kargs = (h, *hs, rand(p, fh).abs(), packed["wn"], packed["bn"], 1)
+    k6 = entry(lambda: FM.field_heads(*kargs),
+               lambda: FM.field_heads_reference(*kargs), None,
+               _nbytes(*kargs[:-1]) + p * 16 * 4, 2.0 * p * (FEAT + 8 * fh))
+    out["field_heads"].update({f"k6_{k}": v for k, v in k6.items()})
     # forward again, the rows of dWn, the cotangents of h, r, s2 and bh
     out["field_heads_bwd"] = entry(
         lambda: FM.field_heads_bwd(*fargs, cot),
@@ -1283,6 +1321,12 @@ def phase2(results: dict):
     if not e["joined_rel_err"] <= K1_STAGE_TOL:
         failures.append(f"narrow_grads' joined launch vs plain: "
                         f"{e['joined_rel_err']:.3g}")
+    for name, shapes in REDESIGNED.items():
+        e = times[name]
+        for pre, (shape, old) in shapes.items():
+            log(f"phase 2: {name} bf16 at {shape}: kernel {e[pre + 'ms']:.3f} ms "
+                f"[{old}], plain {e[pre + 'plain_ms']:.3f} ms, bound "
+                f"{e[pre + 'bound_ms']:.3f} ms ({e[pre + 'bound_by']})")
     e = times["heads_composite"]
     log(f"phase 2: heads_composite bf16 with sigma noise at a training batch: "
         f"kernel {e['train_ms']:.3f} ms, plain {e['train_plain_ms']:.3f} ms, "
@@ -1555,15 +1599,28 @@ def phase2c(results: dict):
                             AUX_KERNELS + ("heads_composite",)))
             results["k34"][(variant, n_rays, dname)] = (k3_ms, k3_plain, k4_ms,
                                                         k4_plain)
-    # past 256 samples a ray: K4's chain, every launch alone, composite_bwd
-    # also against the warp body
+    # past 256 samples a ray: K3's and K4's chains, every launch alone (the
+    # scan of sc_loss_bwd carried over chunks), composite_bwd also against
+    # the warp body
     for n_rays, n_s in LONG_CASES:
         field, rays16, z, noise, _, cot = _long_inputs(n_rays, n_s, dev)
+        sun_rays = rays16.clone()
+        sun_rays[:, 3:6] = rays16[:, 6:9]  # K3 marches along the sun direction
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
-            tag = f"K4 sat-nerf R={n_rays} S={n_s} {dname}"
+            tag = f"K3 sat-nerf R={n_rays} S={n_s} {dname}"
             chk = TrainCheck(dtype)
             packed = FM.pack_params(field, skip=4, use_beta=True, dtype=dtype)
+            with torch.no_grad():
+                FM._sc_staged(packed, sun_rays, z, noise, lam / 3, skip=4,
+                              use_beta=True, ops=chk)
+            torch.cuda.synchronize()
+            _record(results, failures, tag, chk)
+            log(f"phase 2c: {tag}: per launch " + ", ".join(
+                f"{k} {chk.err[k]:.1e}" for k in
+                ("sc_loss_bwd",) + TRAIN_KERNELS[2:] + (JOINED_VS_ALONE,)))
+            tag = f"K4 sat-nerf R={n_rays} S={n_s} {dname}"
+            chk = TrainCheck(dtype)
             with torch.no_grad():
                 a = FM._chain_forward(packed, rays16, z, skip=4, use_beta=True,
                                       ops=chk)
@@ -1581,7 +1638,7 @@ def phase2c(results: dict):
                 ("composite_bwd", "composite_bwd_vs_warp", "heads_composite")
                 + TRAIN_KERNELS[2:] + (JOINED_VS_ALONE,)))
             del packed
-        del field, rays16, z, noise, cot
+        del field, rays16, sun_rays, z, noise, cot
     grown = {k: FM.LAUNCHES[k] - before[k] for k in AUX_KERNELS}
     if not all(v > 0 for v in grown.values()):
         failures.append(f"launch counters did not grow: {grown}")
@@ -1589,7 +1646,7 @@ def phase2c(results: dict):
     for name in AUX_KERNELS:
         e = times[name]
         both = (f" (block {e['block_ms']:.3f} ms, warp {e['warp_ms']:.3f} ms)"
-                if "block_ms" in e else "")
+                if "block_ms" in e else f" [{REDESIGNED[name][''][1]}]")
         log(f"phase 2c: {name} bf16 at a training batch ({BATCH} rays x "
             f"{SAMPLES}): kernel {e['ms']:.3f} ms{both}, plain "
             f"{e['plain_ms']:.3f} ms, library call none, bound "
@@ -1825,8 +1882,9 @@ def phase2d(results: dict):
     times = results["times"]
     for name in FIELD_KERNELS:
         e = times[name]
+        old = f" [{REDESIGNED[name][''][1]}]" if name in REDESIGNED else ""
         log(f"phase 2d: {name} bf16 at the fine pass of a depth batch ({BATCH} "
-            f"rays x {SAMPLES + N_IMPORTANCE}): kernel {e['ms']:.3f} ms, plain "
+            f"rays x {SAMPLES + N_IMPORTANCE}): kernel {e['ms']:.3f} ms{old}, plain "
             f"{e['plain_ms']:.3f} ms, library call none, bound "
             f"{e['bound_ms']:.3f} ms ({e['bound_by']})")
     if failures:

@@ -29,22 +29,27 @@
 //                    the sum over its samples, taken before sky_1's backward
 //                    and before rounding; d_skyh comes out masked by relu.
 //
-// The points are independent (no compositor, no walk along the ray), so a
-// warp takes one point at a time as warp-reduced dot products and a block of
-// eight warps walks 128 points. Each lane keeps its columns of the narrow
-// weights and of the dWn rows in registers over its points; the block's dWn
-// and dbn meet in shared memory and leave as one fp32 atomicAdd per entry
-// and block into buffers the wrapper zeroes, so the order of addition, and
-// with it the last bits, changes from run to run.
+// The points are independent (no compositor, no walk along the ray).
+// field_heads streams them, a warp a point with 16-byte loads and the
+// weights in shared memory (its note below). The backward takes one point a warp at a
+// time as warp-reduced dot products, a block of eight warps walking 128
+// points; each lane keeps its columns of the narrow weights and of the dWn
+// rows in registers over its points; the block's dWn and dbn meet in shared
+// memory and leave as one fp32 atomicAdd per entry and block into buffers
+// the wrapper zeroes, so the order of addition, and with it the last bits,
+// changes from run to run.
 //
 // softplus' is formed as -expm1f(-softplus): where sigma is below 1e-8,
 // 1.f - expf(-sigma) is 0 and the sample would lose its gradient.
 //
 // Bound by device memory: per point the forward reads h (F values) and three
-// (Fh) activations and writes 64 bytes; the backward reads the same and
-// writes F + 3 Fh floats of cotangents.
+// (Fh) activations and writes 64 bytes (2.6 KB a point at 8 x 512 in bf16:
+// 0.103 ms for 1,024 rays x 128 points at 3.35 TB/s; the warp-a-point body
+// it replaced, 156 registers a thread and one block an SM, took 0.418, PERF.md);
+// the backward reads the same and writes F + 3 Fh floats of cotangents.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -87,65 +92,170 @@ __device__ __forceinline__ void sky_forward(const T* __restrict__ x, int Fh, int
 }
 
 // ---------------------------------------------------------------- field_heads
+//
+// A streaming kernel: the points are independent and the work a point is
+// small (3,584 flops at F = 512) beside its bytes (h, r, s2, bh: 2.5 KB in
+// bf16, 64 B written), so it is bound by how many bytes are in flight. A
+// block of FH_THREADS takes FH_BLOCK_POINTS neighbouring points, a warp
+// FH_POINTS of them one after another: its lanes read 16 bytes at a time of
+// each of the point's rows (a whole row per load instruction where it is 512
+// bytes, neighbouring lanes on neighbouring addresses), all five loads of a
+// lane issued before any product and kept as raw 16-byte chunks, 20
+// registers; the six dot products are then reduced by shuffles. The nine
+// narrow weight rows sit in shared memory in the compute type (F + 8 Fh
+// values, 5 KB at F = 512 in bf16), loaded once a block and read as one
+// 16-byte chunk a lane, lanes on neighbouring chunks: no weight stays in
+// registers, and at 64 registers a thread four blocks (32 warps, 80 KB of
+// rows in flight) fit an SM. A warp a point rather than a smaller group of
+// lanes, or a tile staged by cp.async: a point's rows are already whole
+// 16-byte chunks a lane, and a smaller group would hold twice the chunks a
+// lane, past the 64 registers. Before the points the block's warps form sky
+// for each ray its points belong to, once a ray (every point with S = 1,
+// K6), into shared memory. Lane l < 16 writes column l of the point's 16:
+// its 64 bytes in one coalesced store.
+constexpr int FH_THREADS = 256;
+constexpr int FH_WARPS = FH_THREADS / 32;
+constexpr int FH_POINTS = 16;                          // points a warp takes, one at a time
+constexpr int FH_BLOCK_POINTS = FH_WARPS * FH_POINTS;  // 128
+// a lane's 16-byte chunks of h and of each Fh row in one pass: the 8 x 512
+// field's rows in one pass in bf16, in two in fp32
+constexpr int FH_CF = FLD_MAX_F / (32 * 8), FH_CH = FH_CF / 2;
 
+// The dynamic shared memory of a block, in bytes: the weight rows in the
+// compute type (each padded to a multiple of 8 values), then sky of each ray
+// of the block's points and the nine biases as floats.
+__host__ __device__ constexpr int fh_smem_bytes(int F, int Fh, int elem_bytes) {
+  return ((F + 7) / 8 * 8 + 8 * ((Fh + 7) / 8 * 8)) * elem_bytes +
+         (3 * FH_BLOCK_POINTS + 12) * 4;
+}
+
+// acc + the dot product of a raw chunk with its weights, a chunk of the
+// compute type in shared memory
 template <typename T>
-__global__ void __launch_bounds__(FLD_WARPS * 32)
-field_heads_kernel(const T* __restrict__ h, int F, const T* __restrict__ rf,
+__device__ __forceinline__ float chunk_dot(const uint4& raw, const T* w, float acc) {
+  constexpr int V = Vec16<T>::N;
+  float x[V], wv[V];
+  chunk_values<T>(raw, x);
+  chunk_values<T>(*reinterpret_cast<const uint4*>(w), wv);
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc = fmaf(x[i], wv[i], acc);
+  return acc;
+}
+
+// Registers for 4 blocks an SM (at most 64 a thread).
+template <typename T>
+__global__ void __launch_bounds__(FH_THREADS, 4)
+field_heads_stream(const T* __restrict__ h, int F, const T* __restrict__ rf,
                    const T* __restrict__ s2, const T* __restrict__ bh,
                    const T* __restrict__ skyh, int Fh, const T* __restrict__ Wn,
-                   const float* __restrict__ bn, int P, int S, float rgb_padding,
+                   const float* __restrict__ bn, int P, int S, float rgb_padding, int vec,
                    float* __restrict__ out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  constexpr int V = Vec16<T>::N;
+  extern __shared__ __align__(16) unsigned char fh_smem[];
+  const int Fp = (F + 7) / 8 * 8, Fhp = (Fh + 7) / 8 * 8;
+  T* ws = reinterpret_cast<T*>(fh_smem);  // sigma (Fp) | rgb x3, sun_v, sky x3, beta (Fhp each)
+  T* wh = ws + Fp;
+  float* sky_s = reinterpret_cast<float*>(ws + Fp + 8 * Fhp);  // 3 a ray
+  float* bs = sky_s + 3 * FH_BLOCK_POINTS;                      // 9 biases
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid / 32;
   const bool use_beta = bh != nullptr;
-  float w_sig[FLD_F_REGS], w_rgb[3][FLD_H_REGS], w_sun[FLD_H_REGS], w_sky[3][FLD_H_REGS],
-      w_beta[FLD_H_REGS];
-  load_row<T>(Wn, F, lane, w_sig);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    load_row<T>(Wn + (size_t)(1 + c) * F, Fh, lane, w_rgb[c]);
-    load_row<T>(Wn + (size_t)(5 + c) * F, Fh, lane, w_sky[c]);
-  }
-  load_row<T>(Wn + (size_t)4 * F, Fh, lane, w_sun);
-  load_row<T>(Wn + (size_t)8 * F, Fh, lane, w_beta);
-  const float pad2 = 1.f + 2.f * rgb_padding;
+  const long long qb = (long long)blockIdx.x * FH_BLOCK_POINTS;
+  const long long q_end = qb + FH_BLOCK_POINTS < P ? qb + FH_BLOCK_POINTS : P;
+  const long long r0 = qb / S;
+  const int n_rays = (int)((q_end - 1) / S - r0 + 1);
 
-  const long long q0 = ((long long)blockIdx.x * FLD_WARPS + warp) * FLD_PTS;
-  long long cur_ray = -1;
-  float sky[3] = {0.f, 0.f, 0.f};
-  for (int i = 0; i < FLD_PTS; ++i) {
-    const long long q = q0 + i;
-    if (q >= P) break;  // the whole warp leaves together
-    const long long ray = q / S;
-    if (ray != cur_ray) {  // sky_0 saw the sun direction only: once a ray
-      float xv[FLD_H_REGS];
-      sky_forward<T>(skyh + (size_t)ray * Fh, Fh, lane, w_sky, bn, xv, sky);
-      cur_ray = ray;
-    }
-    float hv[FLD_F_REGS], rv[FLD_H_REGS], sv[FLD_H_REGS];
-    load_row<T>(h + (size_t)q * F, F, lane, hv);
-    load_row<T>(rf + (size_t)q * Fh, Fh, lane, rv);
-    load_row<T>(s2 + (size_t)q * Fh, Fh, lane, sv);
-    const float sigma = softplusf(dot_row(hv, w_sig) + bn[0]);
-    float rgb[3];
+  for (int i = tid; i < Fp; i += FH_THREADS) ws[i] = i < F ? Wn[i] : from_f32<T>(0.f);
+  for (int i = tid; i < 8 * Fhp; i += FH_THREADS) {
+    const int row = 1 + i / Fhp, k = i % Fhp;
+    wh[i] = k < Fh && (row != 8 || use_beta) ? Wn[(size_t)row * F + k] : from_f32<T>(0.f);
+  }
+  if (tid < 9) bs[tid] = bn[tid];
+  __syncthreads();
+
+  // ---- sky, once a ray of the block's points: a warp a ray
+  for (int i = warp; i < n_rays; i += FH_WARPS) {
+    const T* x = skyh + (size_t)(r0 + i) * Fh;
+    float part[3] = {0.f, 0.f, 0.f};
+    for (int kb = 0; kb < Fh; kb += 32 * V * FH_CH) {
+      uint4 xr[FH_CH];
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      rgb[c] = sigmoidf(dot_row(rv, w_rgb[c]) + bn[1 + c]) * pad2 - rgb_padding;
-    const float sunv = sigmoidf(dot_row(sv, w_sun) + bn[4]);
-    float beta = 0.f;
-    if (use_beta) {
-      float bv[FLD_H_REGS];
-      load_row<T>(bh + (size_t)q * Fh, Fh, lane, bv);
-      beta = softplusf(dot_row(bv, w_beta) + bn[8]);
+      for (int ci = 0; ci < FH_CH; ++ci) {
+        const int k = kb + (lane + 32 * ci) * V;
+        if (k < Fh) xr[ci] = row_chunk_raw<T>(x, k, Fh, vec);
+      }
+#pragma unroll
+      for (int ci = 0; ci < FH_CH; ++ci) {
+        const int k = kb + (lane + 32 * ci) * V;
+        if (k >= Fh) continue;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) part[c] = chunk_dot<T>(xr[ci], wh + (4 + c) * Fhp + k, part[c]);
+      }
     }
-    if (lane < FLD_COLS) {
-      float v = 0.f;
-      if (lane < 3) v = lane == 0 ? rgb[0] : (lane == 1 ? rgb[1] : rgb[2]);
-      else if (lane == 3) v = sigma;
-      else if (lane == 4) v = sunv;
-      else if (lane < 8) v = lane == 5 ? sky[0] : (lane == 6 ? sky[1] : sky[2]);
-      else if (lane == 8) v = beta;
-      out[(size_t)q * FLD_COLS + lane] = v;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) part[c] = warp_sum(part[c]);
+    if (lane < 3) {
+      const float v = lane == 0 ? part[0] : (lane == 1 ? part[1] : part[2]);
+      sky_s[3 * i + lane] = sigmoidf(v + bs[5 + lane]);
     }
+  }
+  __syncthreads();
+
+  // ---- the points: a warp a point, FH_POINTS in turn
+  const float pad2 = 1.f + 2.f * rgb_padding;
+  const int passes = max((F + 32 * V * FH_CF - 1) / (32 * V * FH_CF),
+                         (Fh + 32 * V * FH_CH - 1) / (32 * V * FH_CH));
+  for (int it = 0; it < FH_POINTS; ++it) {
+    const long long q = qb + warp + (long long)FH_WARPS * it;
+    if (q >= P) break;  // the whole warp leaves together
+    float part[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // sigma, rgb x3, sun_v, beta
+    for (int pass = 0; pass < passes; ++pass) {
+      uint4 xh[FH_CF], xr[FH_CH], xs[FH_CH], xb[FH_CH];  // raw until the products
+#pragma unroll
+      for (int ci = 0; ci < FH_CF; ++ci) {
+        const int k = (pass * 32 * FH_CF + lane + 32 * ci) * V;
+        if (k < F) xh[ci] = row_chunk_raw<T>(h + (size_t)q * F, k, F, vec);
+      }
+#pragma unroll
+      for (int ci = 0; ci < FH_CH; ++ci) {
+        const int k = (pass * 32 * FH_CH + lane + 32 * ci) * V;
+        if (k < Fh) {
+          xr[ci] = row_chunk_raw<T>(rf + (size_t)q * Fh, k, Fh, vec);
+          xs[ci] = row_chunk_raw<T>(s2 + (size_t)q * Fh, k, Fh, vec);
+          if (use_beta) xb[ci] = row_chunk_raw<T>(bh + (size_t)q * Fh, k, Fh, vec);
+        }
+      }
+#pragma unroll
+      for (int ci = 0; ci < FH_CF; ++ci) {
+        const int k = (pass * 32 * FH_CF + lane + 32 * ci) * V;
+        if (k < F) part[0] = chunk_dot<T>(xh[ci], ws + k, part[0]);
+      }
+#pragma unroll
+      for (int ci = 0; ci < FH_CH; ++ci) {
+        const int k = (pass * 32 * FH_CH + lane + 32 * ci) * V;
+        if (k >= Fh) continue;
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          part[1 + c] = chunk_dot<T>(xr[ci], wh + c * Fhp + k, part[1 + c]);
+        part[4] = chunk_dot<T>(xs[ci], wh + 3 * Fhp + k, part[4]);
+        if (use_beta) part[5] = chunk_dot<T>(xb[ci], wh + 7 * Fhp + k, part[5]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 6; ++i) part[i] = warp_sum(part[i]);
+    float v = 0.f;  // column `lane` of the point's 16
+    if (lane < 3) {
+      const float pre = lane == 0 ? part[1] : (lane == 1 ? part[2] : part[3]);
+      v = sigmoidf(pre + bs[1 + lane]) * pad2 - rgb_padding;
+    } else if (lane == 3) {
+      v = softplusf(part[0] + bs[0]);
+    } else if (lane == 4) {
+      v = sigmoidf(part[4] + bs[4]);
+    } else if (lane < 8) {
+      v = sky_s[3 * (int)(q / S - r0) + lane - 5];
+    } else if (lane == 8 && use_beta) {
+      v = softplusf(part[5] + bs[8]);
+    }
+    if (lane < FLD_COLS) out[(size_t)q * FLD_COLS + lane] = v;
   }
 }
 
@@ -378,11 +488,14 @@ int launch_field_heads(const void* h, int F, const void* rf, const void* s2, con
                        const void* skyh, int Fh, const void* Wn, const void* bn, int P, int S,
                        float rgb_padding, void* out, cudaStream_t st) {
   auto t = [](const void* p) { return static_cast<const T*>(p); };
-  const int per_block = FLD_WARPS * FLD_PTS;
-  const int grid = (int)(((long long)P + per_block - 1) / per_block);
-  field_heads_kernel<T><<<grid, FLD_WARPS * 32, 0, st>>>(
+  constexpr int V = Vec16<T>::N;
+  const bool vec = F % V == 0 && Fh % V == 0 && hopper::aligned16(h) && hopper::aligned16(rf) &&
+                   hopper::aligned16(s2) && (bh == nullptr || hopper::aligned16(bh)) &&
+                   hopper::aligned16(skyh);
+  const int grid = (int)(((long long)P + FH_BLOCK_POINTS - 1) / FH_BLOCK_POINTS);
+  field_heads_stream<T><<<grid, FH_THREADS, fh_smem_bytes(F, Fh, sizeof(T)), st>>>(
       t(h), F, t(rf), t(s2), t(bh), t(skyh), Fh, t(Wn), static_cast<const float*>(bn), P, S,
-      rgb_padding, static_cast<float*>(out));
+      rgb_padding, vec, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 

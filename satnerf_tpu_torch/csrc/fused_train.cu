@@ -1117,114 +1117,10 @@ composite_loss_bwd_kernel(const T* __restrict__ h, int F, const T* __restrict__ 
 #define SATNERF_CLB_ABLATE 0
 #endif
 
-constexpr int CLB2_THREADS = 256;
-constexpr int CLB2_WARPS = CLB2_THREADS / 32;
+constexpr int CLB2_THREADS = SCAN_THREADS;  // common.cuh: the block scans' width
+constexpr int CLB2_WARPS = SCAN_WARPS;
 constexpr int CLB2_SUMS = 9;  // block sums after the adjoint: dbn 0:5 and 8, d_sky 3
 constexpr int CLB2_RANGES = 8;  // the outer products cut each column's samples in 8
-
-template <typename T> struct Vec16 { static constexpr int N = 16 / sizeof(T); };
-
-// Values [k, k + N) of a row of n, zero past n; vec: one 16-byte load.
-template <typename T>
-__device__ __forceinline__ void row_chunk(const T* __restrict__ row, int k, int n, bool vec,
-                                          float (&x)[Vec16<T>::N]) {
-  constexpr int N = Vec16<T>::N;
-  if (vec) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(row + k);
-    const T* v = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < N; ++i) x[i] = to_f32<T>(v[i]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) x[i] = k + i < n ? to_f32<T>(row[k + i]) : 0.f;
-  }
-}
-
-// out[k, k + N) = v, fp32, columns past n left alone; vec: 16-byte stores.
-template <int N>
-__device__ __forceinline__ void store_chunk(float* __restrict__ row, int k, int n, bool vec,
-                                            const float (&v)[N]) {
-  if (vec) {
-#pragma unroll
-    for (int i = 0; i < N; i += 4)
-      *reinterpret_cast<float4*>(row + k + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-      if (k + i < n) row[k + i] = v[i];
-  }
-}
-
-// The sums over the block of each v[i]; every thread gets the same totals.
-// scratch: CLB2_WARPS * M floats.
-template <int M>
-__device__ __forceinline__ void block_sums(float (&v)[M], float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    v[i] = warp_sum(v[i]);
-    if (lane == 0) scratch[warp * M + i] = v[i];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    v[i] = 0.f;
-    for (int w = 0; w < CLB2_WARPS; ++w) v[i] += scratch[w * M + i];
-  }
-  __syncthreads();
-}
-
-// The product of f over the threads before this one (1 for thread 0); with
-// total, the product over every thread too.
-__device__ __forceinline__ float block_exclusive_product(float f, float* scratch,
-                                                         float* total = nullptr) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
-  float inc = f;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float u = __shfl_up_sync(0xffffffffu, inc, o);
-    if (lane >= o) inc *= u;
-  }
-  if (lane == 31) scratch[warp] = inc;
-  __syncthreads();
-  float pre = 1.f;
-  for (int w = 0; w < warp; ++w) pre *= scratch[w];
-  float exc = __shfl_up_sync(0xffffffffu, inc, 1);
-  if (lane == 0) exc = 1.f;
-  if (total != nullptr) {
-    float all = 1.f;
-    for (int w = 0; w < CLB2_WARPS; ++w) all *= scratch[w];
-    *total = all;
-  }
-  __syncthreads();
-  return pre * exc;
-}
-
-// The sum of v over the threads after this one (0 for the last); with
-// total, the sum over every thread too.
-__device__ __forceinline__ float block_exclusive_suffix_sum(float v, float* scratch,
-                                                            float* total = nullptr) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
-  float inc = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float u = __shfl_down_sync(0xffffffffu, inc, o);
-    if (lane + o < 32) inc += u;
-  }
-  if (lane == 0) scratch[warp] = inc;
-  __syncthreads();
-  float post = 0.f;
-  for (int w = CLB2_WARPS - 1; w > warp; --w) post += scratch[w];
-  float exc = __shfl_down_sync(0xffffffffu, inc, 1);
-  if (lane == 31) exc = 0.f;
-  if (total != nullptr) {
-    float all = 0.f;
-    for (int w = CLB2_WARPS - 1; w >= 0; --w) all += scratch[w];
-    *total = all;
-  }
-  __syncthreads();
-  return post + exc;
-}
 
 // The shared memory of a block, in floats: the narrow weights (rows padded
 // to Fp = F and Fhp = Fh rounded up to 8), the six per-sample head values and

@@ -1151,23 +1151,34 @@ def composite_max_samples(feat: int, fh: int, body: str = "block") -> int:
     KB a block may opt into. The C entry refuses past it by the same rule.
     The main path's 8 x 512 field: 4,129 (block), 1,452 (warp)."""
     _check_body(body)
-    lo, hi = 0, SMEM_OPTIN_BYTES  # the bytes grow with S: bisect
+    return _largest_fitting(lambda n_s: _composite_smem_bytes(feat, fh, n_s, body))
+
+
+def _largest_fitting(nbytes) -> int:
+    """The largest S with nbytes(S) within SMEM_OPTIN_BYTES; nbytes grows
+    with S."""
+    lo, hi = 0, SMEM_OPTIN_BYTES
     while lo < hi:
         mid = (lo + hi + 1) // 2
-        if _composite_smem_bytes(feat, fh, mid, body) <= SMEM_OPTIN_BYTES:
+        if nbytes(mid) <= SMEM_OPTIN_BYTES:
             lo = mid
         else:
             hi = mid - 1
     return lo
 
 
-def _check_samples(name: str, feat: int, fh: int, n_s: int, body: str) -> None:
-    limit = composite_max_samples(feat, fh, body)
+def _refuse_samples(name: str, n_s: int, limit: int, who: str, feat: int,
+                    fh: int) -> None:
     if n_s > limit:
         raise ValueError(
             f"{name}: {n_s} samples a ray do not fit the {SMEM_OPTIN_BYTES} "
-            f"bytes (227 KB) of shared memory a block may hold; the {body} "
-            f"body takes at most {limit} at F={feat}, Fh={fh}")
+            f"bytes (227 KB) of shared memory a block may hold; {who} takes "
+            f"at most {limit} at F={feat}, Fh={fh}")
+
+
+def _check_samples(name: str, feat: int, fh: int, n_s: int, body: str) -> None:
+    _refuse_samples(name, n_s, composite_max_samples(feat, fh, body),
+                    f"the {body} body", feat, fh)
 
 
 def _adjoint_buffers(name, n_rays, p, feat, fh, use_beta, dev) -> dict:
@@ -1319,18 +1330,50 @@ def sc_loss_bwd_reference(h, s2, wn, bn, z, noise, lam3: float) -> dict:
             "dbn": cot["dbn"]}
 
 
+# csrc/fused_aux.cu: the block sums of sc_loss_bwd (term 2, w sun_v, dbn[4])
+_SC_SUMS = 3
+
+
+def _sc_smem_bytes(feat: int, fh: int, n_s: int) -> int:
+    """The dynamic shared memory a launch of sc_loss_bwd asks for:
+    csrc/fused_aux.cu sc_smem_floats (the block sums' scratch in doubles;
+    w_sigma, w_sun and each of the 8 warps' column sums of dWn row 4, rows
+    padded to a multiple of 8; sigma, sun_v and the rounded cotangent a
+    sample)."""
+    pad8 = lambda v: -(-v // 8) * 8  # noqa: E731
+    return 4 * (2 * _CLB2_WARPS * _SC_SUMS + pad8(feat)
+                + (1 + _CLB2_WARPS) * pad8(fh) + 3 * n_s)
+
+
+@functools.lru_cache(maxsize=None)
+def sc_max_samples(feat: int, fh: int) -> int:
+    """The most samples a ray sc_loss_bwd takes on the card at a trunk of
+    `feat` features and a sun_v hidden layer of `fh`: the largest S whose
+    shared memory (three floats a sample, the two weight rows and the warps'
+    sums of dWn row 4) fits the 227 KB a block may opt into. The C entry refuses past it by the same
+    rule. The main path's 8 x 512 field: 18,416."""
+    return _largest_fitting(lambda n_s: _sc_smem_bytes(feat, fh, n_s))
+
+
+def _check_sc_samples(feat: int, fh: int, n_s: int) -> None:
+    _refuse_samples("sc_loss_bwd", n_s, sc_max_samples(feat, fh), "the kernel",
+                    feat, fh)
+
+
 def sc_loss_bwd(h, s2, wn, bn, z, noise, lam3: float) -> dict:
     """The solar-correction terms and the sun_v head's adjoint; arguments and
-    returns as sc_loss_bwd_reference. CUDA tensors launch the kernel."""
+    returns as sc_loss_bwd_reference. CUDA tensors launch the kernel; more
+    samples a ray than sc_max_samples are refused (ValueError)."""
     if z.device.type == "cpu":
         return sc_loss_bwd_reference(h, s2, wn, bn, z, noise, lam3)
     dtype = h.dtype
     _check_cuda(dtype, h=h, s2=s2, wn=wn, bn=bn, z=z, noise=noise)
     n_rays, n_s, p, feat, fh = _check_narrow("sc_loss_bwd", h, None, s2, None,
                                              None, wn, bn, z, noise)
-    if fh > 256:
-        raise ValueError("sc_loss_bwd holds a sun_v hidden layer of at most "
-                         "256 features")
+    if fh > feat:
+        raise ValueError(f"sc_loss_bwd: the sun_v hidden layer ({fh}) is "
+                         f"wider than the trunk ({feat})")
+    _check_sc_samples(feat, fh, n_s)
     dev = z.device
     res = {"sums": torch.zeros(2, dtype=torch.float32, device=dev),
            "d_s2": torch.empty((p, fh), dtype=torch.float32, device=dev),

@@ -16,11 +16,14 @@ composite_loss_bwd with and without the beta head, noise and a saturated
 ray, and fused_train_loss_grads as a whole against autograd; for the full
 recipe, heads_composite with sigma noise, composite_bwd from a random
 cotangent on all seven products (with clipped channels), sc_loss_bwd with a
-saturated ray, fused_sc_loss_grads and fused_train_render_rays (forward and
+saturated ray and, a block a ray, at 64, 128, 320 and the most samples its
+shared memory holds (one more refused), 1 to 1,024 rays, Fh 48, 96 and
+256, fused_sc_loss_grads and fused_train_render_rays (forward and
 backward) as a whole against autograd, and a train step with SC, DS,
 grad_accum and shuffle; for the per-sample field, field_heads and
 field_heads_bwd at 1, 72 and 128 samples a ray with a ragged ray count and a
-faint sigma, fused_field_apply_rays and fused_field_apply (forward, backward
+faint sigma, the streaming field_heads at F 96, 256 and 512 with and
+without the beta head, fused_field_apply_rays and fused_field_apply (forward, backward
 and the input gradients) as a whole against autograd, and a hierarchical
 train step and render in each --fused mode; for the classic NeRF variant,
 nerf_dense with both encodings, with and without X, on both mainloops,
@@ -411,6 +414,87 @@ def test_sc_loss_bwd(dev, dtype, with_noise, n_rays):
     assert float(got["dbn"][rows].abs().max()) == 0.0
 
 
+def _sc_inputs(dev, dtype, n_rays, n_s, fh, with_noise, seed, span=1.0):
+    """A trunk of 2 fh features; sigma of order 1, so that the transmittance
+    still moves past one chunk of 256 samples (z spans [0, span]), except ray
+    0 of several, whose h is scaled to saturate within a few samples."""
+    feat = 2 * fh
+    g = torch.Generator().manual_seed(seed)
+    p = n_rays * n_s
+
+    def t(*shape, scale=1.0):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * scale).to(dev, dtype)
+
+    h, s2 = t(p, feat), t(p, fh)
+    if n_rays > 1:
+        h[:n_s] *= 30
+    wn = t(9, feat, scale=0.5)
+    wn[0] = t(feat, scale=3.0 / feat ** 0.5)
+    bn = torch.randn(9, generator=g).to(dev)
+    _, z = _rays16(n_rays, n_s, dev, seed)
+    noise = (torch.randn(n_rays, n_s, generator=g) * 0.5).to(dev) if with_noise else None
+    return h, s2, wn, bn, z * span, noise
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_noise", [False, True], ids=["plain", "noise"])
+@pytest.mark.parametrize("n_s,n_rays,fh", [
+    (64, 1024, 256), (128, 1024, 256), (128, 1000, 96), (64, 1, 96),
+    # past one chunk of 256 samples: the product carried from chunk to chunk
+    (320, 1024, 48), (320, 1000, 256), (320, 1, 256),
+    # the most samples shared memory holds (sc_max_samples)
+    (None, 1, 256), (None, 1, 48)])
+def test_sc_loss_bwd_block(dev, dtype, with_noise, n_s, n_rays, fh):
+    """sc_loss_bwd, a block a ray, against its plain version: 1e-4 of each
+    tensor's largest entry, in bf16 a d_s2 entry also one step of itself
+    (the scan multiplies T in another order than the plain cumprod and may
+    round a cotangent to the other side of a bf16 boundary). In bf16, dWn
+    row 4 sums those rounded cotangents times s2: over a ray of thousands of
+    samples the flips the d_s2 check allows add up past 1e-4 of the row, so
+    the row is held to 1e-4 of its largest entry against the sum of the
+    kernel's own rounded cotangents (d_s2 / w_sun, exact: a product of two
+    bf16 values) times s2, in float64. At the most samples a ray the depths
+    keep the 320-sample cases' spacing (z spans [0, S / 320]): over [0, 1]
+    the 18,000 factors 1 - alpha lie within 1e-4 of 1, where fp32's
+    1 - exp(-x) keeps three digits, and two fp32 evaluations of the plain
+    version (on the card, on the CPU) differ past 1e-4 in dbn[4]
+    (tools/outputs_torch.py faint; PERF.md section 7). Fh 48 and 96 are not
+    multiples of 32 lanes' chunks."""
+    span = 1.0
+    if n_s is None:
+        n_s = FM.sc_max_samples(2 * fh, fh)
+        span = n_s / 320
+    h, s2, wn, bn, z, noise = _sc_inputs(dev, dtype, n_rays, n_s, fh, with_noise, 30, span)
+    before = dict(FM.LAUNCHES)
+    got = FM.sc_loss_bwd(h, s2, wn, bn, z, noise, 0.1 / 3)
+    assert _grown(before) == {"sc_loss_bwd": 1}
+    ref = FM.sc_loss_bwd_reference(h, s2, wn, bn, z, noise, 0.1 / 3)
+    if dtype == torch.bfloat16:
+        col = int(wn[4, :fh].float().abs().argmax())
+        gb = got["d_s2"][:, col].double() / wn[4, col].double()
+        own = gb @ s2.double()
+        err = (got["dwn"][4, :fh].double() - own).abs().max()
+        assert float(err) <= 1e-4 * float(ref["dwn"][4].abs().max()), float(err)
+        ref = dict(ref, dwn=got["dwn"])
+    _hold_cotangents(got, ref, dtype)
+    rows = [0, 1, 2, 3, 5, 6, 7, 8]
+    assert float(got["dwn"][rows].abs().max()) == 0.0
+    assert float(got["dwn"][4, fh:].abs().max()) == 0.0
+    assert float(got["dbn"][rows].abs().max()) == 0.0
+
+
+def test_sc_loss_bwd_refuses_past_its_sample_limit(dev):
+    """One sample a ray past what shared memory holds (18,417 at F = 512) is
+    refused before any launch, with the 227 KB limit and the largest S
+    named."""
+    n_s = FM.sc_max_samples(512, 256)
+    h, s2, wn, bn, z, _ = _sc_inputs(dev, torch.bfloat16, 1, n_s + 1, 256, False, 31)
+    before = dict(FM.LAUNCHES)
+    with pytest.raises(ValueError, match=rf"227 KB.*at most {n_s} at F=512, Fh=256"):
+        FM.sc_loss_bwd(h, s2, wn, bn, z, None, 0.1 / 3)
+    assert FM.LAUNCHES == before
+
+
 def _grown(before: dict) -> dict:
     """The kernels launched since `before` = dict(FM.LAUNCHES), with counts."""
     return {k: FM.LAUNCHES[k] - before[k] for k in before
@@ -688,6 +772,43 @@ def test_field_heads_bwd(dev, dtype, beta, n_rays, n_s, feat):
     assert _grown(before) == {"field_heads_bwd": 1}
     ref = FM.field_heads_bwd_reference(*args, cot)
     _hold_cotangents(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("beta,n_rays,n_s,feat", [
+    (True, 1037, 1, 512), (False, 1037, 1, 96), (True, 131, 1, 256),
+    (True, 1000, 64, 256), (False, 1000, 64, 512), (True, 3, 64, 96),
+    (True, 1024, 128, 512), (False, 37, 128, 96)])
+def test_field_heads_stream(dev, dtype, beta, n_rays, n_s, feat):
+    """The streaming field_heads against its plain version at the widths of
+    the presets (F 96, 256, 512), S = 1 (every point its own ray, K6), 64
+    and 128, with and without the beta head: 1e-5 (the same products summed
+    in another order). Every point count but 1,024 x 128 leaves the last
+    block of 128 points ragged; 1,000 x 64 puts a ray across blocks."""
+    args, _ = _heads_inputs(dev, dtype, beta, n_rays, n_s, 23, feat)
+    before = dict(FM.LAUNCHES)
+    out = FM.field_heads(*args)
+    assert _grown(before) == {"field_heads": 1}
+    ref = FM.field_heads_reference(*args)
+    assert out.shape == ref.shape == (n_rays * n_s, 16)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=1e-5)
+    assert float(out[:, 9:].abs().max()) == 0.0
+    if not beta:
+        assert float(out[:, 8].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_field_heads_at_a_faint_sigma(dev, dtype):
+    """A sigma of 1e-10 (softplus of -23) comes out as the plain version's to
+    1e-4 of itself: no cancellation in the kernel's softplus."""
+    (h, r, s2, bh, skyh, wn, bn, n_s), _ = _heads_inputs(dev, dtype, True, 37, 16, 24)
+    wn[0] = 0.0
+    bn[0] = -23.0
+    args = (h, r, s2, bh, skyh, wn, bn, n_s)
+    out, ref = FM.field_heads(*args), FM.field_heads_reference(*args)
+    assert 0.0 < float(ref[:, 3].min()) < 1e-9
+    assert float(((out[:, 3] - ref[:, 3]).abs() / ref[:, 3]).max()) <= 1e-4
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=1e-5)
 
 
 def test_field_heads_bwd_at_a_faint_sigma(dev):

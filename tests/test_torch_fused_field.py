@@ -43,11 +43,15 @@ COLS = {"rgb": slice(0, 3), "sigma": 3, "sun_v": slice(4, 5),
 
 # variant, rays, samples; with_kernel: which of K5 / K6 also runs the Pallas
 # oracle (the plain entry point only; interpret mode is slow).
-# 11 x 5 = 55 points: no multiple of any tile.
+# 11 x 5 = 55 points: no multiple of any tile. One sample a ray makes every
+# point its own ray in K5 too (sky once a point, as in K6); 7 rays of 6
+# samples leave the card kernel's blocks of 128 points ragged.
 CASES = {
     "satnerf": ("sat-nerf", 16, 8, ("k5", "k6")),
     "snerf": ("s-nerf", 16, 8, ("k5", "k6")),
     "ragged": ("sat-nerf", 11, 5, ("k6",)),
+    "one_sample": ("sat-nerf", 8, 1, ("k5",)),
+    "ragged_rays": ("s-nerf", 7, 6, ()),
 }
 
 

@@ -19,6 +19,9 @@ ray that saturates early. The kernel itself is checked on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -49,28 +52,28 @@ CASES = {
 }
 
 
-def _jax_params(variant, seed=0):
-    m = jax_build_model(variant, LAYERS, F)
+def _jax_params(variant, seed=0, feat=F):
+    m = jax_build_model(variant, LAYERS, feat)
     params = m.init(jax.random.PRNGKey(seed), jnp.zeros((2, 3)),
                     sun_dir=jnp.zeros((2, 3)),
                     t_embed=jnp.zeros((2, TAU)))["params"]
     return m, jax.device_get(params)
 
 
-def _inputs(n_rays, with_noise, seed=21):
+def _inputs(n_rays, with_noise, seed=21, n_s=S):
     rng = np.random.RandomState(seed)
     o = rng.randn(n_rays, 3).astype(np.float32) * 0.2
     sun = rng.randn(n_rays, 3).astype(np.float32)
     sun /= np.linalg.norm(sun, axis=1, keepdims=True)
     t = rng.randn(n_rays, TAU).astype(np.float32)
-    z = np.sort(rng.rand(n_rays, S).astype(np.float32) * 3, -1)
-    noise = (rng.randn(n_rays, S).astype(np.float32) * 0.5
+    z = np.sort(rng.rand(n_rays, n_s).astype(np.float32) * 3, -1)
+    noise = (rng.randn(n_rays, n_s).astype(np.float32) * 0.5
              if with_noise else None)
     return o, sun, t, z, noise
 
 
-def _port_field(variant, params):
-    field = build_model(variant, LAYERS, F, t_dim=TAU)
+def _port_field(variant, params, feat=F):
+    field = build_model(variant, LAYERS, feat, t_dim=TAU)
     sd = params_from_jax({"coarse": params}, variant, LAYERS)
     field.load_state_dict({k[len("nerf_coarse."):]: v for k, v in sd.items()})
     return field
@@ -106,25 +109,25 @@ def _xla_oracle(m, params, inp, variant):
     return {"term2": float(t2), "term3": float(t3)}, jax.device_get(g)
 
 
-def _kernel_oracle(params, inp, variant):
+def _kernel_oracle(params, inp, variant, feat=F):
     o, sun, t, z, noise = (None if a is None else jnp.asarray(a) for a in inp)
     use_beta = variant == "sat-nerf"
     with pltpu.force_tpu_interpret_mode():
         parts, g = FMJ.fused_sc_loss_grads(
             params, o, sun, t if use_beta else None, z, noise, LAM,
-            layers=LAYERS, feat=F, use_beta=use_beta, tau=TAU,
+            layers=LAYERS, feat=feat, use_beta=use_beta, tau=TAU,
             dtype=jnp.float32)
     return {k: float(v) for k, v in parts.items()}, jax.device_get(g)
 
 
-def _port(field, inp, variant, staged, dtype=torch.float32):
+def _port(field, inp, variant, staged, dtype=torch.float32, feat=F):
     o, sun, t, z, noise = (None if a is None else torch.from_numpy(a)
                            for a in inp)
     use_beta = variant == "sat-nerf"
     if not staged:
         return FM.fused_sc_loss_grads(
             field, o, sun, t if use_beta else None, z, noise, LAM,
-            layers=LAYERS, feat=F, use_beta=use_beta, tau=TAU, dtype=dtype)
+            layers=LAYERS, feat=feat, use_beta=use_beta, tau=TAU, dtype=dtype)
     rays16 = FM.pack_rays(o, sun, sun, t if use_beta else None, TAU)
     packed = FM.pack_params(field, skip=4, use_beta=use_beta, dtype=dtype)
     sums, g = FM._sc_staged(packed, rays16, z, noise, LAM / 3.0, skip=4,
@@ -216,7 +219,7 @@ def test_staged_bf16_matches_plain_bf16(variant):
 
 
 def _manual_sc_loss_bwd(h, s2, wn, bn, z, noise, lam3):
-    """The formulas of csrc/fused_aux.cu sc_loss_bwd_kernel, step by step."""
+    """The formulas of csrc/fused_aux.cu sc_loss_bwd_block, step by step."""
     dt = wn.dtype
 
     def rnd(x):
@@ -272,6 +275,85 @@ def test_sc_adjoint_formulas_match_autograd(dtype, with_noise):
         assert torch.isfinite(got[k]).all(), k
         scale = v.abs().max().clamp_min(1e-20)
         assert float((got[k] - v).abs().max() / scale) <= 1e-5, k
+
+
+# (rays, samples a ray, features, with the Pallas oracle): past one chunk of
+# the card kernel's block (256 samples a ray), and a width whose sun_v hidden
+# layer (Fh = 24) is no multiple of 32 lanes or of a 16-byte chunk (8 bf16)
+EDGE_CASES = {"S320": (4, 320, 32, False), "F48": (8, 8, 48, True)}
+
+
+@pytest.mark.parametrize("staged", [False, True], ids=["plain", "staged"])
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_k3_matches_jax_at_the_kernels_edges(case, staged):
+    """As test_k3_matches_jax, with sigma noise, at the shapes where the card
+    kernel changes its path: 320 samples a ray (two chunks of its scan) and
+    FEAT 48."""
+    n_rays, n_s, feat, with_kernel = EDGE_CASES[case]
+    m, params = _jax_params("sat-nerf", feat=feat)
+    inp = _inputs(n_rays, True, n_s=n_s)
+    port = _port(_port_field("sat-nerf", params, feat), inp, "sat-nerf", staged,
+                 feat=feat)
+    _hold(port, _xla_oracle(m, params, inp, "sat-nerf"), "sat-nerf", RTOL_XLA,
+          "vs XLA path")
+    if with_kernel and not staged:
+        _hold(port, _kernel_oracle(params, inp, "sat-nerf", feat), "sat-nerf",
+              RTOL_KERNEL, "vs Pallas kernel")
+
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "satnerf_tpu_torch", "csrc")
+
+
+def _c_sc_smem_floats():
+    """csrc/fused_aux.cu sc_smem_floats as a Python function, read from the
+    source: its return expression with C's integer division as //, and the
+    constants it names from csrc/common.cuh and csrc/fused_aux.cu."""
+    with open(os.path.join(CSRC, "fused_aux.cu")) as f:
+        aux = f.read()
+    with open(os.path.join(CSRC, "common.cuh")) as f:
+        common = f.read()
+    expr = re.search(r"constexpr int sc_smem_floats\(int F, int Fh, int S\) \{\s*"
+                     r"return (.*?);\s*\}", aux, re.S).group(1)
+    assert re.search(r"block_scratch_floats\(int M\) \{ return SCAN_WARPS \* M; \}",
+                     common)
+    assert "constexpr int SCAN_WARPS = SCAN_THREADS / 32;" in common
+    assert "constexpr int SC_WARPS = SCAN_WARPS;" in aux
+    warps = int(re.search(r"constexpr int SCAN_THREADS = (\d+);", common).group(1)) // 32
+    consts = {"SCAN_WARPS": warps, "SC_WARPS": warps,
+              "SC_SUMS": int(re.search(r"constexpr int SC_SUMS = (\d+);", aux).group(1))}
+    expr = " ".join(expr.split()).replace("/", "//").replace(
+        "block_scratch_floats(SC_SUMS)", "SCAN_WARPS * SC_SUMS")
+    return lambda feat, fh, n_s: eval(expr, dict(consts, F=feat, Fh=fh, S=n_s))
+
+
+@pytest.mark.parametrize("feat,fh,want", [
+    (512, 256, 18416),  # the main path's 8 x 512 field
+    (256, 128, 18885),  # --fc_units 256
+    (96, 48, 19178),    # the capability presets' width
+    (48, 24, 19266)])
+def test_sc_sample_limit_is_the_c_formula(feat, fh, want):
+    """sc_max_samples: the largest S whose shared memory, by the C entry's
+    own formula read from the source, fits the 227 KB a block may hold; S
+    fits, S + 1 does not, and the Python mirror gives the same bytes at every
+    S (three floats a sample)."""
+    floats = _c_sc_smem_floats()
+    limit = FM.sc_max_samples(feat, fh)
+    assert limit == want
+    assert 4 * floats(feat, fh, limit) <= FM.SMEM_OPTIN_BYTES
+    assert 4 * floats(feat, fh, limit + 1) > FM.SMEM_OPTIN_BYTES
+    for n_s in (1, 64, 256, 257, 320, limit):
+        assert FM._sc_smem_bytes(feat, fh, n_s) == 4 * floats(feat, fh, n_s)
+    assert FM._sc_smem_bytes(feat, fh, 65) - FM._sc_smem_bytes(feat, fh, 64) == 12
+
+
+def test_sc_refusal_names_the_limit():
+    """Past the limit the wrapper raises before any launch, naming the 227
+    KB and the largest S."""
+    limit = FM.sc_max_samples(512, 256)
+    FM._check_sc_samples(512, 256, limit)
+    with pytest.raises(ValueError, match=rf"227 KB.*at most {limit} at F=512, Fh=256"):
+        FM._check_sc_samples(512, 256, limit + 1)
 
 
 def test_wrappers_raise_instead_of_falling_back():

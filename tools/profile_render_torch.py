@@ -69,6 +69,16 @@ stages beside the rule's 4 (builds of csrc/fused_nerf.cu with
 SATNERF_RELU_DG_STAGES); then profiles the nerf step as --train --model nerf
 does.
 
+--heads times sc_loss_bwd at 1,024 rays x 64 and x 128 samples and 256 x
+640 (8 x 512, bf16) beside builds of csrc/fused_aux.cu with its parts
+dropped (SATNERF_SC_ABLATE 1-3: no d_s2 / dWn pass, no loads of h and s2,
+neither) and with other samples a warp in flight and blocks an SM
+(SATNERF_SC_IN_FLIGHT, SATNERF_SC_MIN_BLOCKS), in turns (CUDA events, then
+device time), and field_heads at 1,024 x 128 and on 131,072 points that
+are their own rays, each beside its bytes bound; then profiles the training
+step as --train does (with --sc_lambda, --ds_lambda and --n_importance, the
+steps that run them).
+
 In the breakdown, the wgrad's kernels are wgrad_wgmma (the main path's),
 wgrad_wmma / wgrad_simt (other shapes, fp32) and narrow_grads (db where
 the GEMM did not sum it, dC of the layers without X, dE); the nerf
@@ -78,7 +88,7 @@ nerf_dgrad_wmma, nerf_wgrad_wmma and nerf_bias_grad.
   python3 tools/profile_render_torch.py [--rays N] [--chunk C] [--train]
       [--batch B] [--sc_lambda L] [--ds_lambda L] [--n_importance N]
       [--fused auto|rays|on|off] [--model sat-nerf|s-nerf|nerf] [--ablate]
-      [--wgrad] [--composite]
+      [--wgrad] [--composite] [--heads]
 
 With --model nerf the serving profile also sums nerf_dense's device time by
 mainloop.
@@ -435,6 +445,99 @@ def composite(card: str) -> None:
                       f"{_device_ms(runs[key]):.3f} ms")
 
 
+# builds of csrc/fused_aux.cu beside the library: sc_loss_bwd's parts alone,
+# and other samples in flight a warp in A, blocks an SM and rows in flight
+# in C (the library's: 4, 2 and 4)
+SC_BUILDS = {"-DSATNERF_SC_ABLATE=1": "no C (d_s2, dWn row 4)",
+             "-DSATNERF_SC_ABLATE=2": "no loads in A",
+             "-DSATNERF_SC_ABLATE=3": "neither (weights, scan, sums, barriers)",
+             "-DSATNERF_SC_IN_FLIGHT=1 -DSATNERF_SC_MIN_BLOCKS=4":
+                 "1 sample a warp in flight, 4 blocks an SM",
+             "-DSATNERF_SC_IN_FLIGHT=4 -DSATNERF_SC_MIN_BLOCKS=3":
+                 "4 samples a warp in flight, 3 blocks an SM",
+             "-DSATNERF_SC_IN_FLIGHT=8": "8 samples a warp in flight",
+             "-DSATNERF_SC_ROWS=2": "2 rows a warp in flight in C",
+             "-DSATNERF_SC_ROWS=8": "8 rows a warp in flight in C"}
+
+
+def _sc_builds() -> dict:
+    """satnerf_sc_loss_bwd from the SC_BUILDS of csrc/fused_aux.cu, built
+    side by side."""
+    import ctypes
+
+    from satnerf_tpu_torch.ops import _build as B
+
+    out_dir = os.path.join(B.BUILD_DIR, "ablate")
+    os.makedirs(out_dir, exist_ok=True)
+    jobs = {}
+    for i, k in enumerate(SC_BUILDS):
+        lib = os.path.join(out_dir, f"fused_aux_{i}.so")
+        cmd = [B._nvcc(), *B.NVCC_FLAGS, *k.split(), "-shared", "-o", lib,
+               os.path.join(B.CSRC_DIR, "fused_aux.cu")]
+        jobs[k] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for k, (lib, proc) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            sys.exit(f"nvcc failed for {k}:\n{out}")
+        fn = ctypes.CDLL(lib).satnerf_sc_loss_bwd
+        fn.argtypes = B.SIGNATURES["satnerf_sc_loss_bwd"]
+        fn.restype = ctypes.c_int
+        fns[k] = fn
+    return fns
+
+
+def heads(card: str) -> None:
+    """sc_loss_bwd (1,024 rays x 64 and x 128, 256 x 640) beside its
+    SC_BUILDS, in turns; field_heads at 1,024 x 128 and on 131,072 points
+    that are their own rays; each beside its bytes bound."""
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+
+    variants = _sc_builds()
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(0)
+    feat, fh = 512, 256
+
+    def rand(*shape, to=bf16):
+        return (torch.rand(*shape, device=dev, generator=g) * 2 - 1).to(to)
+
+    wn, bn = rand(9, feat) * 0.1, rand(9, to=torch.float32)
+    for n_rays, n_s in ((1024, 64), (1024, 128), (256, 640)):
+        p = n_rays * n_s
+        h, s2 = rand(p, feat), rand(p, fh)
+        z = torch.sort(torch.rand(n_rays, n_s, device=dev, generator=g), 1).values
+        noise = rand(n_rays, n_s, to=torch.float32)
+        args = (h, s2, wn, bn, z, noise, 0.1 / 3)
+        nbytes = sum(t.numel() * t.element_size() for t in args[:-1]) + (
+            p * fh + 9 * feat + 9 + 2) * 4
+        print(f"sc_loss_bwd {n_rays} rays x {n_s}, 8 x {feat}, bf16, on {card}: "
+              f"bound {1e3 * nbytes / 3.35e12:.3f} ms (bytes)")
+        res = FM.sc_loss_bwd(*args)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        cargs = (1, ptr(h), feat, ptr(s2), fh, ptr(wn), ptr(bn), ptr(z), ptr(noise),
+                 n_rays, n_s, 0.1 / 3 / n_rays, ptr(res["sums"]), ptr(res["d_s2"]),
+                 ptr(res["dwn"]), ptr(res["dbn"]), torch.cuda.current_stream().cuda_stream)
+        runs = {"the library's build": lambda: FM.sc_loss_bwd(*args)}
+        for k, what in SC_BUILDS.items():
+            runs[what] = lambda f=variants[k]: f(*cargs)
+        ms = {key: [] for key in runs}
+        for key in list(runs) + list(reversed(runs)):
+            ms[key].append(_event_ms(runs[key]))
+        for key, v in ms.items():
+            print(f"  {key:45s} {v[0]:.3f} / {v[1]:.3f} ms, device "
+                  f"{_device_ms(runs[key]):.3f} ms")
+    for n_rays, n_s in ((1024, 128), (131072, 1)):
+        p = n_rays * n_s
+        fargs = (rand(p, feat), rand(p, fh), rand(p, fh), rand(p, fh),
+                 rand(n_rays, fh).abs(), rand(9, feat) * 0.5, bn, n_s)
+        nbytes = sum(t.numel() * t.element_size() for t in fargs[:-1]) + p * 16 * 4
+        fn = lambda: FM.field_heads(*fargs)  # noqa: E731
+        print(f"field_heads {n_rays} rays x {n_s}, 8 x {feat}, bf16, on {card}: "
+              f"{_event_ms(fn):.3f} ms, device {_device_ms(fn):.3f} ms, bound "
+              f"{1e3 * nbytes / 3.35e12:.3f} ms (bytes)")
+
+
 def by_mainloop(prof, kernel: str, card: str) -> None:
     """A kernel's device time in a profile, summed by mainloop (the kernels'
     names carry it: <kernel>_wgmma, _wmma, _simt), beside its launches."""
@@ -617,6 +720,10 @@ def main():
     ap.add_argument("--composite", action="store_true",
                     help="time composite_loss_bwd and composite_bwd on both "
                          "bodies, then profile the training step")
+    ap.add_argument("--heads", action="store_true",
+                    help="time sc_loss_bwd with its parts dropped and other "
+                         "samples in flight, and field_heads, then profile "
+                         "the training step")
     ap.add_argument("--wgrad", action="store_true",
                     help="time siren_dense_wgrad's mainloops and splits (with "
                          "--model nerf: nerf_dense_dgrad's and "
@@ -635,6 +742,9 @@ def main():
         return
     if args.composite:
         composite(card)
+        args.train = True
+    if args.heads:
+        heads(card)
         args.train = True
     if args.wgrad and args.model != "nerf":
         wgrad(card)
