@@ -26,10 +26,14 @@ plain version):
      library call torch.einsum over [E | 1] beside them) and summing db of a
      layer with a bias alone, beside torch.einsum, and the chain's joined
      launch (sky_0's job and beta_0's t_grad) against its plain version;
-     sc_loss_bwd (a block a ray) at 1024 x 64 and x 128 samples and
-     field_heads (the streaming kernel) at 1024 x 128 and on 131,072
-     points that are their own rays, each beside the time PERF.md gives
-     the body it replaced;
+     sc_loss_bwd (a block a ray) at 1024 x 64 and x 128 samples,
+     field_heads (the streaming kernel) and field_heads_bwd (streaming, the
+     sky head folded in) at 1024 x 128 and on 131,072 points that are their
+     own rays, and heads_composite (a block scan) at a serving chunk and,
+     with sigma noise, at a training batch, each beside the time PERF.md
+     gives the body it replaced; one heads_composite launch at 256 x 640
+     with weights (its scan carried over three chunks) against its plain
+     version (1e-4);
      every K = 0 launch of siren_dense in phases 2-2d is also held against
      k0_v1 to the bit, every siren_dense_wgrad launch in 2b-2d against the
      same launch with the column walk (db, dC, dE within 1e-4), and the
@@ -226,11 +230,12 @@ BATCH = 1024  # rays a training step draws (--batch_size default)
 # the yardsticks of the bound_ms column.
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 N_RAYS = 8192 + 37
+CHUNK = 65536  # rays a render_image chunk holds (--chunk default)
 N_IMPORTANCE = 64  # phase 6: the fine pass marches SAMPLES + N_IMPORTANCE depths
-# The kernels redesigned last, and the shapes phase 2 times them at, each
-# with the time by CUDA events of the body it replaced, as PERF.md section 6
-# gives it (tools/outputs_torch.py time on the parent tree; NVIDIA H100 80GB
-# HBM3, 700 W).
+# The kernels redesigned in the last two slices, and the shapes phase 2
+# times them at, each with the time by CUDA events of the body it replaced,
+# as PERF.md section 6 gives it (tools/outputs_torch.py time on the parent
+# tree; NVIDIA H100 80GB HBM3, 700 W).
 REDESIGNED = {
     "sc_loss_bwd": {
         "": (f"{BATCH} rays x {SAMPLES}",
@@ -242,6 +247,16 @@ REDESIGNED = {
              "the warp-a-point body it replaced: 0.373 ms, PERF.md"),
         "k6_": (f"{BATCH * (SAMPLES + N_IMPORTANCE)} points, each its own ray",
                 "the warp-a-point body: 0.484 ms, PERF.md")},
+    "heads_composite": {
+        "": (f"{CHUNK} rays x {SAMPLES} with weights",
+             "the warp-a-ray walk it replaced: 5.95 ms, PERF.md"),
+        "train_": (f"{BATCH} rays x {SAMPLES} with sigma noise",
+                   "the warp-a-ray walk: 0.354 ms, PERF.md")},
+    "field_heads_bwd": {
+        "": (f"{BATCH} rays x {SAMPLES + N_IMPORTANCE}",
+             "the warp-a-point body and field_sky_bwd it replaced: 0.614 ms, PERF.md"),
+        "k6_": (f"{BATCH * (SAMPLES + N_IMPORTANCE)} points, each its own ray",
+                "the two kernels: 0.808 ms, PERF.md")},
 }
 # phase 6's run past 256 samples a ray (a fine pass of 320) and phase 7's;
 # phase 7's run at a length whose walk needs the opt-in past 48 KB of shared
@@ -254,7 +269,6 @@ NERF_OPTIN_SAMPLES = 512
 # block body at 640 samples 51 KB, the warp body 102 KB), at fewer rays
 LONG_CASES = ((BATCH, SAMPLES + LONG_IMPORTANCE), (256, 640))
 NERF_LONG_CASES = ((BATCH, NERF_LONG_SAMPLES), (256, NERF_OPTIN_SAMPLES))
-CHUNK = 65536  # rays a render_image chunk holds (--chunk default)
 DEPTH_RANGE = 1.0  # far - near of the phase 2 rays
 
 # Tolerances (kernel vs plain version, same inputs, same operand dtype).
@@ -1197,6 +1211,13 @@ def _time_kernels(packed: dict, dev) -> dict:
         _nbytes(*fargs[:-1], cot) + (p * (FEAT + 3 * fh) + BATCH * fh + 9 * FEAT
                                      + 9) * 4,
         6.0 * p * (FEAT + 5 * fh))
+    # and on the points that are their own rays: the sky head's too, once a
+    # point (its row read, d_skyh written)
+    k6 = entry(lambda: FM.field_heads_bwd(*kargs, cot),
+               lambda: FM.field_heads_bwd_reference(*kargs, cot), None,
+               _nbytes(*kargs[:-1], cot) + (p * (FEAT + 4 * fh) + 9 * FEAT + 9) * 4,
+               6.0 * p * (FEAT + 8 * fh))
+    out["field_heads_bwd"].update({f"k6_{k}": v for k, v in k6.items()})
     return out
 
 
@@ -1261,8 +1282,27 @@ def phase2(results: dict):
     # outside inference mode: the training kernels' plain versions use autograd
     field = build_model("sat-nerf", LAYERS, FEAT, t_dim=TAU,
                         generator=torch.Generator().manual_seed(1)).to(dev)
-    times = _time_kernels(FM.pack_params(field, skip=4, use_beta=True,
-                                         dtype=torch.bfloat16), dev)
+    packed = FM.pack_params(field, skip=4, use_beta=True, dtype=torch.bfloat16)
+    times = _time_kernels(packed, dev)
+    # one heads_composite launch past two chunks of its block scan (T and the
+    # integrals carried over chunks), with weights, against its plain version
+    chk = StageCheck(torch.bfloat16)
+    n_rays, n_s = LONG_CASES[1]
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def rand(*shape):
+        return (torch.rand(*shape, generator=g, device=dev) * 2 - 1).to(torch.bfloat16)
+
+    p = n_rays * n_s
+    z = torch.sort(torch.rand(n_rays, n_s, generator=g, device=dev), 1).values
+    with torch.inference_mode():
+        chk.heads(rand(p, FEAT), rand(p, FEAT // 2), rand(p, FEAT // 2),
+                  rand(p, FEAT // 2), rand(n_rays, FEAT // 2).relu(), packed["wn"],
+                  packed["bn"], z, rgb_padding=0.001, return_weights=True)
+    torch.cuda.synchronize()
+    failures += [f"heads_composite bf16 at {n_rays} x {n_s}: {b}" for b in chk.bad]
+    log(f"phase 2: heads_composite bf16 at {n_rays} rays x {n_s} with weights: "
+        f"products and weights vs plain {chk.err['heads_composite']:.2e} (1e-4)")
     def loops(e, pre=""):
         if "block_ms" in e:
             return f" (block {e['block_ms']:.3f} ms, warp {e['warp_ms']:.3f} ms)"
@@ -1327,10 +1367,6 @@ def phase2(results: dict):
             log(f"phase 2: {name} bf16 at {shape}: kernel {e[pre + 'ms']:.3f} ms "
                 f"[{old}], plain {e[pre + 'plain_ms']:.3f} ms, bound "
                 f"{e[pre + 'bound_ms']:.3f} ms ({e[pre + 'bound_by']})")
-    e = times["heads_composite"]
-    log(f"phase 2: heads_composite bf16 with sigma noise at a training batch: "
-        f"kernel {e['train_ms']:.3f} ms, plain {e['train_plain_ms']:.3f} ms, "
-        f"bound {e['train_bound_ms']:.3f} ms")
     results["times"] = times
     grown = {k: FM.LAUNCHES[k] - launches_before[k]
              for k in ("siren_dense", "heads_composite")}

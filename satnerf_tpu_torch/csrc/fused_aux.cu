@@ -108,31 +108,6 @@ __host__ __device__ constexpr int sc_smem_floats(int F, int Fh, int S) {
          (1 + SC_WARPS) * ((Fh + 7) / 8 * 8) + 3 * S;
 }
 
-// 4 values of the compute type, raw: 8 bytes of bf16, 16 of fp32
-template <typename T> struct Raw4 { using type = uint4; };
-template <> struct Raw4<__nv_bfloat16> { using type = uint2; };
-
-// The raw values [k, k + 4) of a row of n, zero past n; vec: one load.
-template <typename T>
-__device__ __forceinline__ typename Raw4<T>::type row4_raw(const T* __restrict__ row, int k,
-                                                           int n, bool vec) {
-  using R = typename Raw4<T>::type;
-  if (vec) return *reinterpret_cast<const R*>(row + k);
-  R raw{};
-  T* v = reinterpret_cast<T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (k + i < n) v[i] = row[k + i];
-  return raw;
-}
-
-template <typename T>
-__device__ __forceinline__ void values4(const typename Raw4<T>::type& raw, float (&x)[4]) {
-  const T* v = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) x[i] = to_f32<T>(v[i]);
-}
-
 // v[0, N) = p[0, N), fp32 in shared memory, 16-byte aligned: N / 4 vector reads.
 template <int N>
 __device__ __forceinline__ void smem_floats(const float* p, float (&v)[N]) {

@@ -438,7 +438,10 @@ def heads_composite(h, r, s2, bh, skyh, wn, bn, z, *, noise=None,
     """Narrow heads + compositing; arguments as heads_composite_reference.
 
     CUDA tensors launch the heads_composite kernel; CPU tensors run the
-    plain version.
+    plain version. Any number of samples a ray and any width (Fh at most
+    F): where the narrow rows do not fit the shared memory a block may hold
+    (F past 22,577 in bf16, 11,281 in fp32, at Fh = F / 2) the kernel reads
+    them from global memory.
     """
     if z.device.type == "cpu":
         return heads_composite_reference(h, r, s2, bh, skyh, wn, bn, z,
@@ -455,7 +458,8 @@ def heads_composite(h, r, s2, bh, skyh, wn, bn, z, *, noise=None,
     if noise is not None and (noise.dtype != torch.float32
                               or noise.shape != z.shape):
         raise ValueError("noise must be fp32 (R, S)")
-    if p != n_rays * n_s or wn.shape != (9, feat) or skyh.shape != (n_rays, fh):
+    if (p != n_rays * n_s or wn.shape != (9, feat) or skyh.shape != (n_rays, fh)
+            or fh > feat):
         raise ValueError("heads_composite: inconsistent shapes")
     for name, t in (("r", r), ("s2", s2), ("bh", bh)):
         if t is not None and (t.shape != (p, fh) or t.dtype != dtype):

@@ -22,7 +22,8 @@ def ray_weights(sigmas, z_vals, noise=None):
     sigmas, z_vals: (N_rays, S). noise: optional (N_rays, S) sigma noise.
     """
     deltas = z_vals[:, 1:] - z_vals[:, :-1]
-    deltas = torch.cat([deltas, torch.full_like(deltas[:, :1], 1e10)], dim=-1)
+    # the last interval is 1e10 (of z's shape: one sample a ray has one)
+    deltas = torch.cat([deltas, torch.full_like(z_vals[:, :1], 1e10)], dim=-1)
     if noise is not None:
         sigmas = sigmas + noise
     alphas = 1.0 - torch.exp(-deltas * torch.relu(sigmas))

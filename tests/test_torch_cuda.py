@@ -8,7 +8,10 @@ no jax, so it runs on the machine with the card:
 Shapes cover both siren_dense mainloops (tensor-core bf16 for K, N
 multiples of 8; SIMT otherwise and for fp32), its K = 0 elementwise kernel
 (vector and scalar stores), ragged row and column tiles,
-every E operand, and heads_composite with and without the beta head; for
+every E operand, and heads_composite with and without the beta head (its
+block scan at 1 to 4,096 samples a ray, 1 to 1,024 rays, F 96 to 512 and
+Fh 44, noise and weights on and off, a faint sigma, and widths past its
+shared memory refused); for
 the training step, siren_dense's saved slope, both mainloops of
 siren_dense_dgrad and siren_dense_wgrad (with accumulation, the split over
 the points, every E operand and the per-ray gradient of t),
@@ -22,8 +25,8 @@ shared memory holds (one more refused), 1 to 1,024 rays, Fh 48, 96 and
 backward) as a whole against autograd, and a train step with SC, DS,
 grad_accum and shuffle; for the per-sample field, field_heads and
 field_heads_bwd at 1, 72 and 128 samples a ray with a ragged ray count and a
-faint sigma, the streaming field_heads at F 96, 256 and 512 with and
-without the beta head, fused_field_apply_rays and fused_field_apply (forward, backward
+faint sigma, the streaming field_heads and field_heads_bwd at F 96, 256 and
+512 with and without the beta head (the backward up to 131,072 points), fused_field_apply_rays and fused_field_apply (forward, backward
 and the input gradients) as a whole against autograd, and a hierarchical
 train step and render in each --fused mode; for the classic NeRF variant,
 nerf_dense with both encodings, with and without X, on both mainloops,
@@ -186,6 +189,102 @@ def test_heads_composite_with_noise(dev, dtype, beta):
     assert float((plain - out).abs().max()) > 1e-3  # the noise is read
 
 
+def _composite_inputs(dev, dtype, beta, n_rays, n_s, feat, fh, seed, span=1.0,
+                      with_noise=False):
+    """heads_composite's operands: sigma of order 1 (w0 scaled by 3 /
+    sqrt(F)), depths over [0, span], noise of order 2 when asked for."""
+    g = torch.Generator().manual_seed(seed)
+    p = n_rays * n_s
+
+    def t(*shape, scale=1.0):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * scale).to(dev, dtype)
+
+    h, r, s2 = t(p, feat), t(p, fh), t(p, fh)
+    bh = t(p, fh) if beta else None
+    skyh = t(n_rays, fh).relu()
+    wn = t(9, feat, scale=0.5)
+    wn[0] = t(feat, scale=3.0 / feat ** 0.5)
+    bn = torch.randn(9, generator=g).to(dev)
+    z = torch.sort(torch.rand(n_rays, n_s, generator=g), 1).values * span
+    noise = (torch.randn(n_rays, n_s, generator=g) * 2).to(dev) if with_noise else None
+    return (h, r, s2, bh, skyh, wn, bn, z.to(dev)), noise
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_rays,n_s,feat,fh,beta,with_noise,weights", [
+    (1, 1, 96, 48, True, False, True), (37, 64, 256, 128, False, True, True),
+    (1000, 128, 512, 256, True, True, False), (1024, 64, 512, 256, True, True, True),
+    (37, 320, 96, 44, True, False, True), (37, 640, 256, 128, False, True, True),
+    (1, 4096, 512, 256, True, False, True), (1024, 1, 512, 256, False, False, False)])
+def test_heads_composite_block_scan(dev, dtype, n_rays, n_s, feat, fh, beta,
+                                    with_noise, weights):
+    """The block scan against its plain version at 1 to 4,096 samples a ray
+    (past one chunk of 256 at 320, 640 and 4,096: T and the integrals
+    carried over chunks), 1 to 1,024 rays (fewer than the persistent grid
+    and more), F 96, 256 and 512 (Fh 44: rows of a length that is not a
+    multiple of 8, read without 16-byte loads), the beta head, the noise and
+    the weights each on and off: 1e-5, as test_heads_composite. At 4,096
+    samples the depths span [0, 4096 / 320], the spacing of 320 samples over
+    [0, 1]: over [0, 1] each factor 1 - alpha lies within 3e-4 of 1, and
+    the plain version's fp32 cumprod (a scan on the card) drops the product
+    of each two such terms, a drift of T that grows with S (PERF.md section
+    7); the kernel's T is a product in double."""
+    span = n_s / 320 if n_s > 640 else 1.0
+    args, noise = _composite_inputs(dev, dtype, beta, n_rays, n_s, feat, fh, 25,
+                                    span, with_noise)
+    kw = dict(noise=noise, rgb_padding=0.001, return_weights=weights)
+    before = dict(FM.LAUNCHES)
+    out, w = FM.heads_composite(*args, **kw)
+    assert _grown(before) == {"heads_composite": 1}
+    ref, ref_w = FM.heads_composite_reference(*args, **kw)
+    assert out.shape == (n_rays, 16) and float(out[:, 13:].abs().max()) == 0.0
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=1e-5)
+    if weights:
+        np.testing.assert_allclose(w.cpu().numpy(), ref_w.cpu().numpy(), atol=1e-5)
+    else:
+        assert w is None
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_heads_composite_at_a_faint_sigma(dev, dtype):
+    """A sigma of 1e-10 (softplus of -23) on every sample: every alpha but
+    the last rounds to 0 in fp32, and the last, over the 1e10 that stands
+    for the last interval, is 1 - exp(-1.03): an opacity near 0.64 that a
+    softplus formed as log(1 + exp(x)) would lose. The products are the
+    plain version's to 1e-5."""
+    args, _ = _composite_inputs(dev, dtype, True, 37, 300, 96, 48, 26)
+    args[5][0] = 0.0
+    args[6][0] = -23.0
+    out, w = FM.heads_composite(*args, return_weights=True)
+    ref, ref_w = FM.heads_composite_reference(*args, return_weights=True)
+    assert float(ref[:, 12].min()) > 0.5
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=1e-5)
+    np.testing.assert_allclose(w.cpu().numpy(), ref_w.cpu().numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,feat,beta,with_noise", [
+    (torch.float32, 11281, True, True), (torch.float32, 11282, True, False),
+    (torch.float32, 12288, False, True), (torch.bfloat16, 22578, True, True),
+    (torch.bfloat16, 24576, True, False)])
+def test_heads_composite_at_widths_past_shared_memory(dev, dtype, feat, beta,
+                                                      with_noise):
+    """Widths on either side of the shared memory a block may hold (Fh = F
+    // 2): F = 11,281 in fp32 keeps the narrow rows in shared memory, 11,282
+    in fp32 and 22,578 in bf16 read them from Wn in global memory a value at
+    a time (Fh not a multiple of 16 bytes' values), 12,288 in fp32 and
+    24,576 in bf16 with 16-byte loads: one launch each, against the plain
+    version to 1e-5, as test_heads_composite."""
+    args, noise = _composite_inputs(dev, dtype, beta, 3, 37, feat, feat // 2, 27,
+                                    with_noise=with_noise)
+    kw = dict(noise=noise, rgb_padding=0.001, return_weights=True)
+    before = dict(FM.LAUNCHES)
+    out, w = FM.heads_composite(*args, **kw)
+    assert _grown(before) == {"heads_composite": 1}
+    ref, ref_w = FM.heads_composite_reference(*args, **kw)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=1e-5)
+    np.testing.assert_allclose(w.cpu().numpy(), ref_w.cpu().numpy(), atol=1e-5)
+
+
 @pytest.mark.parametrize("variant", ["sat-nerf", "s-nerf"])
 def test_fused_render_rays_fp32(dev, variant):
     """The whole chain in fp32 at a narrow, non-tile width against the
@@ -345,9 +444,12 @@ def _narrow_inputs(dev, dtype, beta, with_noise, seed, n_rays=37):
     return g, (h, r, s2, bh, skyh, wn, bn, z, noise)
 
 
-def _hold_cotangents(got, ref, dtype):
+def _hold_cotangents(got, ref, dtype, summed=()):
     """1e-4 of each tensor's largest entry; in bf16 a cotangent entry may
-    also differ by one bf16 step of itself."""
+    also differ by one bf16 step of itself, and an entry of `summed` (a sum
+    of products of several rounded cotangents) by one step of one of its
+    terms, which may be larger than the entry: 2^-8 of the tensor's largest
+    entry."""
     assert set(got) == set(ref)
     for k, v in ref.items():
         if v is None:
@@ -357,6 +459,8 @@ def _hold_cotangents(got, ref, dtype):
         lim = 1e-4 * v.abs().max()
         if k.startswith("d_") and dtype == torch.bfloat16:
             lim = lim + 2.0 ** -7 * v.abs()
+            if k in summed:
+                lim = lim + 2.0 ** -8 * v.abs().max()
         assert bool(((got[k] - v).abs() <= lim).all()), (k, _rel(got[k], v))
 
 
@@ -772,6 +876,42 @@ def test_field_heads_bwd(dev, dtype, beta, n_rays, n_s, feat):
     assert _grown(before) == {"field_heads_bwd": 1}
     ref = FM.field_heads_bwd_reference(*args, cot)
     _hold_cotangents(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("beta,n_rays,n_s,feat", [
+    (True, 37, 1, 96), (False, 1037, 1, 512), (True, 131, 1, 256),
+    (True, 37, 64, 256), (False, 1000, 64, 512), (True, 3, 64, 96),
+    (True, 1024, 128, 512), (False, 37, 128, 96), (True, 131072, 1, 512)])
+def test_field_heads_bwd_stream(dev, dtype, beta, n_rays, n_s, feat):
+    """The streaming field_heads_bwd (the sky head folded in) against its
+    plain version at the widths of the presets (F 96, 256, 512), S = 1
+    (every point its own ray, K6), 64 and 128, with and without the beta
+    head, point counts that leave the persistent grid's last round of warps
+    ragged, and 131,072 points (1,024 x 128 and K6's), where every block
+    walks many points: _hold_cotangents, with d_r and d_skyh (each a sum
+    over the three color channels of a rounded cotangent times a weight)
+    held as sums of terms. Read on the card (H100 80GB HBM3): at F = 512 in
+    bf16 d_r came out 3.4e-4 of its largest entry off the plain version,
+    past one step of the entry: where a color channel's cotangent rounds to
+    the other bf16 neighbour (the two forwards sum r . w in another order),
+    d_r moves by one step of that term, larger than the entry where the
+    terms cancel. d_skyh held to one step of the entry failed at 131,072
+    points of one sample each (seed 28, F = 512, bf16, beta on): 1.2e-3 of
+    its largest entry off, past the 1e-4 of the largest entry the check
+    allows beside a step of the entry, within the step of a term (2^-8 of
+    the largest entry, 3.9e-3): there 393,216 sky cotangents of random rows
+    are rounded, each a chance to round to the other neighbour
+    (chip_smoke.py's K6 launch, 65,573 points of the field's own rows, holds
+    d_skyh to a step of the entry and passed in the same call)."""
+    args, cot = _heads_inputs(dev, dtype, beta, n_rays, n_s, 28, feat)
+    before = dict(FM.LAUNCHES)
+    got = FM.field_heads_bwd(*args, cot)
+    assert _grown(before) == {"field_heads_bwd": 1}
+    ref = FM.field_heads_bwd_reference(*args, cot)
+    _hold_cotangents(got, ref, dtype, summed=("d_r", "d_skyh"))
+    if not beta:
+        assert float(got["dwn"][8].abs().max()) == 0.0 and float(got["dbn"][8]) == 0.0
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -55,23 +55,23 @@ CASES = {
 }
 
 
-def _jax_params(variant, seed=0):
-    m = jax_build_model(variant, LAYERS, F)
-    params = m.init(jax.random.PRNGKey(seed), jnp.zeros((2, 3)),
+def _jax_params(variant, seed=0, layers=LAYERS, feat=F, jit=False):
+    m = jax_build_model(variant, layers, feat)
+    params = (jax.jit(m.init) if jit else m.init)(jax.random.PRNGKey(seed), jnp.zeros((2, 3)),
                     sun_dir=jnp.zeros((2, 3)),
                     t_embed=jnp.zeros((2, TAU)))["params"]
     return m, jax.device_get(params)
 
 
-def _port_field(variant, params):
-    field = build_model(variant, LAYERS, F, t_dim=TAU)
-    sd = params_from_jax({"coarse": params}, variant, LAYERS)
+def _port_field(variant, params, layers=LAYERS, feat=F):
+    field = build_model(variant, layers, feat, t_dim=TAU)
+    sd = params_from_jax({"coarse": params}, variant, layers)
     field.load_state_dict({k[len("nerf_coarse."):]: v for k, v in sd.items()})
     return field
 
 
-def _named(jax_grads, variant):
-    sd = params_from_jax({"coarse": jax_grads}, variant, LAYERS)
+def _named(jax_grads, variant, layers=LAYERS):
+    sd = params_from_jax({"coarse": jax_grads}, variant, layers)
     return {k[len("nerf_coarse."):]: v.numpy() for k, v in sd.items()}
 
 
@@ -117,7 +117,8 @@ def _contract(out, cot, use_beta):
 # ---------------------------------------------------------------- K5 oracles
 
 
-def _k5_oracle(m, params, inp, variant, kernel):
+def _k5_oracle(m, params, inp, variant, kernel, layers=LAYERS, feat=F,
+               jit=False):
     o, d, sun, t, z, cot = (jnp.asarray(a) for a in inp)
     use_beta = variant == "sat-nerf"
     r, s = z.shape
@@ -125,8 +126,8 @@ def _k5_oracle(m, params, inp, variant, kernel):
     def field(p, t_e):
         if kernel:
             return FMJ.fused_field_apply_rays(
-                p, o, d, sun, t_e if use_beta else None, z, layers=LAYERS,
-                feat=F, use_beta=use_beta, tau=TAU, dtype=jnp.float32)
+                p, o, d, sun, t_e if use_beta else None, z, layers=layers,
+                feat=feat, use_beta=use_beta, tau=TAU, dtype=jnp.float32)
         xyz = o[:, None, :] + d[:, None, :] * z[:, :, None]
         sd = jnp.broadcast_to(sun[:, None, :], xyz.shape)
         tb = (jnp.broadcast_to(t_e[:, None, :], (r, s, TAU))
@@ -134,9 +135,10 @@ def _k5_oracle(m, params, inp, variant, kernel):
         return m.apply({"params": p}, xyz, sun_dir=sd, t_embed=tb)
 
     def run():
-        out = field(params, t)
-        g, g_t = jax.grad(lambda p, t_e: _contract(field(p, t_e), cot, use_beta),
-                          argnums=(0, 1))(params, t)
+        grad = jax.grad(lambda p, t_e: _contract(field(p, t_e), cot, use_beta),
+                        argnums=(0, 1))
+        out = (jax.jit(field) if jit else field)(params, t)
+        g, g_t = (jax.jit(grad) if jit else grad)(params, t)
         return ({k: np.asarray(v) for k, v in out.items()}, jax.device_get(g),
                 {"t": np.asarray(g_t)} if use_beta else {})
 
@@ -146,7 +148,8 @@ def _k5_oracle(m, params, inp, variant, kernel):
     return run()
 
 
-def _k5_port(field, inp, variant, staged, dtype=torch.float32):
+def _k5_port(field, inp, variant, staged, dtype=torch.float32, layers=LAYERS,
+             feat=F):
     o, d, sun, t, z, cot = (torch.from_numpy(a) for a in inp)
     use_beta = variant == "sat-nerf"
     t_leaf = t.clone().requires_grad_(True) if use_beta else None
@@ -158,7 +161,7 @@ def _k5_port(field, inp, variant, staged, dtype=torch.float32):
             tuple(z.shape), use_beta)
     else:
         out = FM.fused_field_apply_rays(
-            field, o, d, sun, t_leaf, z, layers=LAYERS, feat=F,
+            field, o, d, sun, t_leaf, z, layers=layers, feat=feat,
             use_beta=use_beta, tau=TAU, dtype=dtype)
     leaves = list(field.parameters()) + ([t_leaf] if use_beta else [])
     grads = torch.autograd.grad(_contract(out, cot, use_beta), leaves,
@@ -233,7 +236,7 @@ def _k6_port(field, inp, variant, staged, dtype=torch.float32):
             dict(zip(ins, grads[n_par:])))
 
 
-def _hold(port, oracle, variant, atol, rtol, tag):
+def _hold(port, oracle, variant, atol, rtol, tag, layers=LAYERS):
     out, grads, in_grads = port
     o_out, o_grads, o_in = oracle
     assert set(out) == set(o_out), tag
@@ -241,7 +244,7 @@ def _hold(port, oracle, variant, atol, rtol, tag):
         assert tuple(out[k].shape) == v.shape, (tag, k)
         np.testing.assert_allclose(out[k].numpy(), v, atol=atol,
                                    err_msg=f"{tag} {k}")
-    want = _named(o_grads, variant)
+    want = _named(o_grads, variant, layers)
     assert set(grads) == set(want), tag
     for name, ref in want.items():
         got = grads[name].detach().numpy()
@@ -269,6 +272,28 @@ def test_k5_matches_jax(case, staged):
     if "k5" in with_kernel and not staged:
         _hold(port, _k5_oracle(m, params, inp, variant, True), variant, 2e-4,
               1e-3, "vs Pallas kernel")
+
+
+_NARROW = []  # (params, inputs, flax oracle) of the FEAT 40 case
+
+
+@pytest.mark.parametrize("staged", [False, True], ids=["plain", "staged"])
+def test_k5_with_narrow_heads_matches_jax(staged):
+    """FEAT 40, two layers: heads of Fh = 20 features, not a multiple of 8
+    (the card's kernels read such rows without 16-byte loads), on 6 rays of
+    5 samples: K5's outputs and every gradient against the flax field (its
+    init and its VJP compiled whole, to keep the test short), as
+    test_k5_matches_jax holds them."""
+    layers, feat = 2, 40
+    if not _NARROW:  # shared by the plain and the staged case
+        m, params = _jax_params("sat-nerf", layers=layers, feat=feat, jit=True)
+        inp = _ray_inputs(6, 5)
+        _NARROW.extend([params, inp, _k5_oracle(m, params, inp, "sat-nerf", False,
+                                                layers, feat, jit=True)])
+    params, inp, oracle = _NARROW
+    port = _k5_port(_port_field("sat-nerf", params, layers, feat), inp,
+                    "sat-nerf", staged, layers=layers, feat=feat)
+    _hold(port, oracle, "sat-nerf", 2e-5, 1e-4, "vs flax", layers)
 
 
 @pytest.mark.parametrize("staged", [False, True], ids=["plain", "staged"])
@@ -341,8 +366,8 @@ def test_no_graph_saves_nothing_and_backward_frees_the_chain():
 
 
 def _manual_field_heads_bwd(h, r, s2, bh, skyh, wn, bn, samples, g, pad=0.001):
-    """The formulas of csrc/fused_field.cu field_heads_bwd_kernel and
-    field_sky_bwd_kernel, step by step."""
+    """The formulas of csrc/fused_field.cu field_heads_bwd_stream (with the
+    sky head of a ray's first sample), step by step."""
     dt = wn.dtype
 
     def rnd(x):

@@ -43,7 +43,7 @@ def _params(variant, seed=0):
     return m, jax.device_get(params)
 
 
-def _rays(n_rays, seed=7):
+def _rays(n_rays, seed=7, n_s=S):
     rng = np.random.RandomState(seed)
     o = rng.randn(n_rays, 3).astype(np.float32) * 0.2
     d = rng.randn(n_rays, 3).astype(np.float32)
@@ -51,13 +51,13 @@ def _rays(n_rays, seed=7):
     sun = rng.randn(n_rays, 3).astype(np.float32)
     sun /= np.linalg.norm(sun, axis=1, keepdims=True)
     t = rng.randn(n_rays, TAU).astype(np.float32)
-    z = np.sort(rng.rand(n_rays, S).astype(np.float32) * 3, -1)
+    z = np.sort(rng.rand(n_rays, n_s).astype(np.float32) * 3, -1)
     return o, d, sun, t, z
 
 
-def _port_field(variant, params):
-    field = build_model(variant, L, F, t_dim=TAU)
-    sd = params_from_jax({"coarse": params}, variant, L)
+def _port_field(variant, params, layers=L, feat=F):
+    field = build_model(variant, layers, feat, t_dim=TAU)
+    sd = params_from_jax({"coarse": params}, variant, layers)
     field.load_state_dict({k[len("nerf_coarse."):]: v for k, v in sd.items()})
     return field
 
@@ -79,27 +79,34 @@ def _oracles(variant, n_rays):
                 jnp.asarray(t) if use_beta else None, jnp.asarray(z),
                 layers=L, feat=F, use_beta=use_beta, tau=TAU,
                 dtype=jnp.float32, return_weights=True)
-        xyz = o[:, None, :] + d[:, None, :] * z[:, :, None]
-        sun_s = np.broadcast_to(sun[:, None, :], (n_rays, S, 3))
-        t_s = np.broadcast_to(t[:, None, :], (n_rays, S, TAU))
-        field = m.apply({"params": params}, xyz, sun_dir=sun_s,
-                        t_embed=t_s if use_beta else None)
-        comp = jax_composite(field, jnp.asarray(z), shadow=True)
-        w = np.asarray(comp["weights"])
-
-        def integ(q):
-            return (w[..., None] * np.asarray(q)).sum(-2)
-
-        flax = {"rgb": comp["rgb"], "depth": comp["depth"],
-                "sun": integ(comp["sun"]), "sky": integ(comp["sky"]),
-                "albedo": integ(comp["albedo"]), "opacity": w.sum(-1),
-                "weights": w}
-        if use_beta:
-            flax["beta"] = integ(comp["beta"])
         _ORACLES[key] = (params, (o, d, sun, t, z),
                          {k: np.asarray(v) for k, v in kern.items()},
-                         {k: np.asarray(v) for k, v in flax.items()})
+                         _flax_products(m.apply, params, o, d, sun, t, z,
+                                        use_beta))
     return _ORACLES[key]
+
+
+def _flax_products(apply, params, o, d, sun, t, z, use_beta):
+    """The flax field + render/composite.py, with the per-ray integrals."""
+    n_rays, n_s = z.shape
+    xyz = o[:, None, :] + d[:, None, :] * z[:, :, None]
+    sun_s = np.broadcast_to(sun[:, None, :], (n_rays, n_s, 3))
+    t_s = np.broadcast_to(t[:, None, :], (n_rays, n_s, TAU))
+    field = apply({"params": params}, xyz, sun_dir=sun_s,
+                  t_embed=t_s if use_beta else None)
+    comp = jax_composite(field, jnp.asarray(z), shadow=True)
+    w = np.asarray(comp["weights"])
+
+    def integ(q):
+        return (w[..., None] * np.asarray(q)).sum(-2)
+
+    flax = {"rgb": comp["rgb"], "depth": comp["depth"],
+            "sun": integ(comp["sun"]), "sky": integ(comp["sky"]),
+            "albedo": integ(comp["albedo"]), "opacity": w.sum(-1),
+            "weights": w}
+    if use_beta:
+        flax["beta"] = integ(comp["beta"])
+    return {k: np.asarray(v) for k, v in flax.items()}
 
 
 def _check(out, oracle, atol, return_weights, use_beta):
@@ -148,6 +155,43 @@ def test_kernel_staging_matches_jax(variant, n_rays):
     _check(res, kern, ATOL_KERNEL, True, use_beta)
     _check(res, flax, ATOL_FLAX, True, use_beta)
     assert float(out[:, 13:].abs().max()) == 0.0  # unused layout columns
+
+
+@pytest.mark.parametrize("feat,n_s", [(32, 320), (40, 16)], ids=["S320", "F40"])
+@pytest.mark.parametrize("staged", [False, True], ids=["plain", "staged"])
+def test_long_rays_and_narrow_heads_match_jax(staged, feat, n_s):
+    """K2 at 320 samples a ray (past one chunk of 256 of the card's block
+    scan: T and the integrals carried over chunks) and at FEAT 40 (heads of
+    Fh = 20, not a multiple of 8), 2 layers, 8 rays: the plain path and the
+    staged chain against the flax field + composite (its init and apply
+    compiled whole, to keep the test short), at ATOL_FLAX."""
+    layers, n_rays = 2, 8
+    key = ("narrow", feat, n_s)
+    if key not in _ORACLES:  # shared by the plain and the staged case
+        m = jax_build_model("sat-nerf", layers, feat)
+        params = jax.device_get(jax.jit(m.init)(
+            jax.random.PRNGKey(0), jnp.zeros((2, 3)), sun_dir=jnp.zeros((2, 3)),
+            t_embed=jnp.zeros((2, TAU)))["params"])
+        rays = _rays(n_rays, n_s=n_s)
+        _ORACLES[key] = (params, rays, _flax_products(jax.jit(m.apply), params,
+                                                      *rays, True))
+    params, (o, d, sun, t, z), flax = _ORACLES[key]
+    field = _port_field("sat-nerf", params, layers, feat)
+    ins = [torch.from_numpy(a) for a in (o, d, sun, t, z)]
+    with torch.inference_mode():
+        if staged:
+            rays16 = FM.pack_rays(*ins[:4], TAU)
+            packed = FM.pack_params(field, skip=4, use_beta=True,
+                                    dtype=torch.float32)
+            out, w = FM._render_staged(packed, rays16, ins[4], skip=4,
+                                       use_beta=True, rgb_padding=0.001,
+                                       return_weights=True)
+            out = FM._products(out, w, True)
+        else:
+            out = FM.fused_render_rays(field, *ins, layers=layers, feat=feat,
+                                       tau=TAU, dtype=torch.float32,
+                                       return_weights=True)
+    _check(out, flax, ATOL_FLAX, True, True)
 
 
 def test_bf16_staging_matches_bf16_plain_version():

@@ -59,7 +59,7 @@ def _jax_params(variant, seed=0):
     return m, jax.device_get(params)
 
 
-def _inputs(n_rays, with_noise, seed=31):
+def _inputs(n_rays, with_noise, seed=31, n_s=S):
     rng = np.random.RandomState(seed)
     o = rng.randn(n_rays, 3).astype(np.float32) * 0.2
     d = rng.randn(n_rays, 3).astype(np.float32)
@@ -67,8 +67,8 @@ def _inputs(n_rays, with_noise, seed=31):
     sun = rng.randn(n_rays, 3).astype(np.float32)
     sun /= np.linalg.norm(sun, axis=1, keepdims=True)
     t = rng.randn(n_rays, TAU).astype(np.float32)
-    z = np.sort(rng.rand(n_rays, S).astype(np.float32) * 3, -1)
-    noise = (rng.randn(n_rays, S).astype(np.float32) * 0.5
+    z = np.sort(rng.rand(n_rays, n_s).astype(np.float32) * 3, -1)
+    noise = (rng.randn(n_rays, n_s).astype(np.float32) * 0.5
              if with_noise else None)
     cot = rng.randn(n_rays, 16).astype(np.float32)
     return o, d, sun, t, z, noise, cot
@@ -97,7 +97,7 @@ def _contract(out, cot, use_beta):
     return total
 
 
-def _xla_oracle(m, params, inp, variant):
+def _xla_oracle(m, params, inp, variant, jit=False):
     o, d, sun, t, z, noise, cot = (None if a is None else jnp.asarray(a)
                                    for a in inp)
     use_beta = variant == "sat-nerf"
@@ -117,9 +117,10 @@ def _xla_oracle(m, params, inp, variant):
             prod[k] = jnp.sum(w[..., None] * res[k], axis=-2)
         return prod
 
-    out = products(params, t)
-    g, g_t = jax.grad(lambda p, t_e: _contract(products(p, t_e), cot, use_beta),
-                      argnums=(0, 1))(params, t)
+    grad = jax.grad(lambda p, t_e: _contract(products(p, t_e), cot, use_beta),
+                    argnums=(0, 1))
+    out = (jax.jit(products) if jit else products)(params, t)
+    g, g_t = (jax.jit(grad) if jit else grad)(params, t)
     return ({k: np.asarray(v) for k, v in out.items()}, jax.device_get(g),
             np.asarray(g_t))
 
@@ -201,6 +202,26 @@ def test_k4_matches_jax(case, staged):
     if with_kernel and not staged:
         _hold(port, _kernel_oracle(params, inp, variant), variant, 2e-4, 1e-3,
               "vs Pallas kernel")
+
+
+_LONG = []  # (params, inputs, XLA oracle) of the 320-sample case
+
+
+@pytest.mark.parametrize("staged", [False, True], ids=["plain", "staged"])
+def test_k4_past_one_chunk_matches_jax(staged):
+    """K4 with sigma noise at 320 samples a ray, past one chunk of 256 of
+    the card's block scan (heads_composite carries T and the integrals over
+    chunks), 4 rays: products and every gradient against the XLA path (its
+    forward and VJP compiled whole, to keep the test short), as
+    test_k4_matches_jax holds them."""
+    if not _LONG:  # shared by the plain and the staged case
+        m, params = _jax_params("sat-nerf")
+        inp = _inputs(4, True, n_s=320)
+        _LONG.extend([params, inp, _xla_oracle(m, params, inp, "sat-nerf",
+                                               jit=True)])
+    params, inp, oracle = _LONG
+    port = _port(_port_field("sat-nerf", params), inp, "sat-nerf", staged)
+    _hold(port, oracle, "sat-nerf", 2e-5, 1e-4, "vs XLA path")
 
 
 @pytest.mark.parametrize("variant", ["sat-nerf", "s-nerf"])

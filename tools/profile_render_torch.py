@@ -74,9 +74,11 @@ does.
 dropped (SATNERF_SC_ABLATE 1-3: no d_s2 / dWn pass, no loads of h and s2,
 neither) and with other samples a warp in flight and blocks an SM
 (SATNERF_SC_IN_FLIGHT, SATNERF_SC_MIN_BLOCKS), in turns (CUDA events, then
-device time), and field_heads at 1,024 x 128 and on 131,072 points that
-are their own rays, each beside its bytes bound; then profiles the training
-step as --train does (with --sc_lambda, --ds_lambda and --n_importance, the
+device time); field_heads and field_heads_bwd at 1,024 x 128 and on
+131,072 points that are their own rays; and heads_composite at a serving
+chunk (65,536 x 64 with weights) and at the depth pass's batch (1,024 x 64
+with noise); each beside its bytes bound; then profiles the training step
+as --train does (with --sc_lambda, --ds_lambda and --n_importance, the
 steps that run them).
 
 In the breakdown, the wgrad's kernels are wgrad_wgmma (the main path's),
@@ -536,6 +538,29 @@ def heads(card: str) -> None:
         print(f"field_heads {n_rays} rays x {n_s}, 8 x {feat}, bf16, on {card}: "
               f"{_event_ms(fn):.3f} ms, device {_device_ms(fn):.3f} ms, bound "
               f"{1e3 * nbytes / 3.35e12:.3f} ms (bytes)")
+        # the backward: the rows and g read, d_h, d_r, d_s2, d_bh, d_skyh written
+        cot = rand(p, 16, to=torch.float32)
+        nbytes = (sum(t.numel() * t.element_size() for t in fargs[:-1]) + p * 16 * 4
+                  + (p * (feat + 3 * fh) + n_rays * fh + 9 * feat + 9) * 4)
+        fn = lambda: FM.field_heads_bwd(*fargs, cot)  # noqa: E731
+        print(f"field_heads_bwd {n_rays} rays x {n_s}, 8 x {feat}, bf16, on {card}: "
+              f"{_event_ms(fn):.3f} ms, device {_device_ms(fn):.3f} ms, bound "
+              f"{1e3 * nbytes / 3.35e12:.3f} ms (bytes)")
+    # heads_composite at the serving chunk (weights asked for) and at the
+    # depth pass's batch (noise)
+    for n_rays, n_s, noise in ((65536, 64, False), (1024, 64, True)):
+        p = n_rays * n_s
+        hargs = (rand(p, feat), rand(p, fh), rand(p, fh), rand(p, fh),
+                 rand(n_rays, fh).abs(), wn, bn,
+                 torch.sort(torch.rand(n_rays, n_s, device=dev, generator=g), 1).values)
+        nz = rand(n_rays, n_s, to=torch.float32) if noise else None
+        nbytes = (sum(t.numel() * t.element_size() for t in hargs + (nz,) if t is not None)
+                  + n_rays * 16 * 4 + (0 if noise else p * 4))
+        fn = lambda: FM.heads_composite(  # noqa: E731
+            *hargs, noise=nz, return_weights=not noise)
+        print(f"heads_composite {n_rays} rays x {n_s}, 8 x {feat}, bf16, noise "
+              f"{noise}, on {card}: {_event_ms(fn):.3f} ms, device {_device_ms(fn):.3f} "
+              f"ms, bound {1e3 * nbytes / 3.35e12:.3f} ms (bytes)")
 
 
 def by_mainloop(prof, kernel: str, card: str) -> None:
