@@ -121,9 +121,11 @@ plain version):
      plain db); then each kernel alone at its main-path shape: time, plain
      time, library call, bound, and for the dgrad and the wgrad both
      mainloops' times and the wgrad's second library reading [h | enc].t() @
-     G (dW and dC in one call); every launch of K7's chain also at 1024 x 320
-     and 256 x 512 samples (nerf_composite_loss_bwd's walk at 40 KB, and at
-     64 KB, opted in); every bf16 launch of nerf_dense on wgmma
+     G (dW and dC in one call), and the two per-ray kernels (block scans)
+     held against their plain versions at those shapes and, timed and held,
+     at 256 x 640 with sigma noise; every launch of K7's chain also at 1024
+     x 320 and 256 x 512 samples (nerf_composite_loss_bwd's block over two
+     chunks of 256, T kept a sample); every bf16 launch of nerf_dense on wgmma
      also against the same launch on wmma (one rounding step), and each of
      the chain's five layer shapes at a serving chunk (65,536 x 64 points)
      on the rule's mainloop (wgmma) against wmma and the plain version
@@ -137,9 +139,8 @@ plain version):
      262,144 rays with its peak memory, held against the plain version; then
      a short --n_importance 64 run (K9 under the trainer, K8 twice a served
      chunk), a short --ds_lambda 1000 run on phase 5's AOI and short
-     --n_samples 320 and 512 runs (K7's walk keeps 40 KB and 64 KB of
-     shared memory, the second opted in past 48 KB; the loss finite and
-     falling)
+     --n_samples 320 and 512 runs (K7's block over two chunks; the loss
+     finite and falling)
 
 No earlier phase was cut when phases 2d, 2e, 6 and 7 came: the whole run
 stays well inside half its time limit.
@@ -259,16 +260,19 @@ REDESIGNED = {
                 "the two kernels: 0.808 ms, PERF.md")},
 }
 # phase 6's run past 256 samples a ray (a fine pass of 320) and phase 7's;
-# phase 7's run at a length whose walk needs the opt-in past 48 KB of shared
-# memory (4 warps x 8 values x 512 samples x 4 B = 64 KB)
+# phase 7's run at 512 samples (two chunks of nerf_composite_loss_bwd's block)
 LONG_IMPORTANCE, NERF_LONG_SAMPLES, LONG_STEPS = 256, 320, 24
-NERF_OPTIN_SAMPLES = 512
+NERF_LONGER_SAMPLES = 512
+# (rays, samples a ray) at which phase 2e times and holds the nerf variant's
+# two per-ray kernels past two chunks of their block scans
+NERF_SCAN_CASE = (256, 640)
 # (rays, samples a ray) at which phases 2b, 2c (SIREN) and 2e (nerf) hold
 # every launch of their chains past 256 samples: the long runs' training
 # batch, and a length whose shared memory needs the opt-in past 48 KB (the
-# block body at 640 samples 51 KB, the warp body 102 KB), at fewer rays
+# block body at 640 samples 51 KB, the warp body 102 KB; the nerf block at
+# 512 samples 39 KB), at fewer rays
 LONG_CASES = ((BATCH, SAMPLES + LONG_IMPORTANCE), (256, 640))
-NERF_LONG_CASES = ((BATCH, NERF_LONG_SAMPLES), (256, NERF_OPTIN_SAMPLES))
+NERF_LONG_CASES = ((BATCH, NERF_LONG_SAMPLES), (256, NERF_LONGER_SAMPLES))
 DEPTH_RANGE = 1.0  # far - near of the phase 2 rays
 
 # Tolerances (kernel vs plain version, same inputs, same operand dtype).
@@ -1927,7 +1931,7 @@ def phase2d(results: dict):
         raise SystemExit("phase 2d failed:\n  " + "\n  ".join(failures))
 
 
-def _time_nerf_kernels(field, dev) -> dict:
+def _time_nerf_kernels(field, dev, failures: list) -> dict:
     """Each nerf kernel alone in bf16 at the shape its main path gives it, as
     `_time_kernels` does: the serving kernels at one chunk of CHUNK rays x 64
     samples, the training kernels at one batch of BATCH rays x 64, the
@@ -1940,7 +1944,10 @@ def _time_nerf_kernels(field, dev) -> dict:
     xe = [h | enc] built beforehand (dW and dC in one call). nerf_dense's
     chunk_err holds each of the chain's five layer shapes at the serving
     chunk: the rule's mainloop, its launch against wmma and the plain
-    version."""
+    version. The two per-ray kernels are also held against their plain
+    versions at their timed shapes, and timed and held at NERF_SCAN_CASE
+    (long_*: their block scans carried over three chunks); what fails goes
+    to `failures`."""
     import torch
     from satnerf_tpu_torch.ops import fused_mlp as FM
     from satnerf_tpu_torch.ops import fused_nerf as FN
@@ -2021,6 +2028,8 @@ def _time_nerf_kernels(field, dev) -> dict:
         lambda: FN.nerf_heads_composite(*hargs, return_weights=True),
         lambda: FN.nerf_heads_composite_reference(*hargs, return_weights=True),
         None, _nbytes(*hargs) + CHUNK * 8 * 4 + p * 4, 2.0 * p * (feat + 3 * fh))
+    chk = NerfCheck(dtype)  # the timed launches held against the plain versions
+    chk.heads(*hargs, return_weights=True)
     del h, r, args, hargs
 
     # ---- training shapes
@@ -2075,7 +2084,36 @@ def _time_nerf_kernels(field, dev) -> dict:
         lambda: FN.nerf_composite_loss_bwd_reference(*cargs), None,
         _nbytes(*cargs) + (p * (feat + fh) + 4 * feat + 4 + 1) * 4,
         4.0 * p * (feat + 3 * fh))
+    chk.composite(*cargs)
     del h, r, dy, y, gb, cargs, wargs, args, xe, got
+
+    # ---- the two per-ray kernels past two chunks of their block scans, at
+    # fewer rays: timed (long_*) and held against the plain versions
+    n_r, n_s = NERF_SCAN_CASE
+    _, _, _, _, z = _inputs(n_r, 5, dev, n_s)
+    p = n_r * n_s
+    h, r = rand(p, feat).abs(), rand(p, fh).abs()
+    noise = rand(n_r, n_s, to=torch.float32)
+    gt = rand(n_r, 3, to=torch.float32).abs()
+    hargs = (h, r, packed["wn"], packed["bn"], z)
+    cargs = hargs + (noise, gt)
+    hkw = dict(noise=noise, return_weights=True)
+    for name, e in (("nerf_heads_composite", entry(
+            lambda: FN.nerf_heads_composite(*hargs, **hkw),
+            lambda: FN.nerf_heads_composite_reference(*hargs, **hkw), None,
+            _nbytes(*hargs, noise) + n_r * 8 * 4 + p * 4, 2.0 * p * (feat + 3 * fh))),
+                    ("nerf_composite_loss_bwd", entry(
+            lambda: FN.nerf_composite_loss_bwd(*cargs),
+            lambda: FN.nerf_composite_loss_bwd_reference(*cargs), None,
+            _nbytes(*cargs) + (p * (feat + fh) + 4 * feat + 4 + 1) * 4,
+            4.0 * p * (feat + 3 * fh)))):
+        out[name].update({f"long_{k}": v for k, v in e.items()})
+    chk.heads(*hargs, **hkw)
+    chk.composite(*cargs)
+    for name in ("nerf_heads_composite", "nerf_composite_loss_bwd"):
+        out[name]["held_err"] = chk.err[name]
+    failures += [f"{b} (timed launches)" for b in chk.bad]
+    del h, r, noise, gt, hargs, cargs
 
     # ---- the per-point kernels: the fine pass of a hierarchical batch
     p = BATCH * (SAMPLES + N_IMPORTANCE)
@@ -2250,7 +2288,7 @@ def phase2e(results: dict):
     grown = {k: FM.LAUNCHES[k] - before[k] for k in NERF_KERNELS}
     if not all(v > 0 for v in grown.values()):
         failures.append(f"launch counters did not grow: {grown}")
-    times = _time_nerf_kernels(field, dev)
+    times = _time_nerf_kernels(field, dev, failures)
     for name, e in times.items():
         lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.3f} ms"
         if "library_xe_ms" in e:
@@ -2260,6 +2298,12 @@ def phase2e(results: dict):
         log(f"phase 2e: {name} bf16 at its main-path shape: kernel "
             f"{e['ms']:.3f} ms{loops}, plain {e['plain_ms']:.3f} ms, library "
             f"call {lib}, bound {e['bound_ms']:.3f} ms ({e['bound_by']})")
+        if "long_ms" in e:
+            log(f"phase 2e: {name} bf16 at {NERF_SCAN_CASE[0]} rays x "
+                f"{NERF_SCAN_CASE[1]} with sigma noise: kernel {e['long_ms']:.3f} ms, "
+                f"plain {e['long_plain_ms']:.3f} ms, bound {e['long_bound_ms']:.3f} ms "
+                f"({e['long_bound_by']}); both shapes vs plain max err "
+                f"{e['held_err']:.2e}")
     log("phase 2e: nerf_dense_wgrad skip layer, of each tensor's largest "
         "entry: " + ", ".join(f"{k} {v:.2e}" for k, v in
                               times["nerf_dense_wgrad"]["rel_err"].items()))
@@ -3223,11 +3267,10 @@ def phase7(results: dict, card: str):
         f"{rows[-1]['train/loss_depth']:.3f}, launches "
         f"{ {k: launches[k] for k in NERF_KERNELS} }")
 
-    # ---- past 256 samples a ray through K7: --n_samples 320, whose walk
-    # keeps 40 KB of a block's rays in shared memory, and --n_samples 512,
-    # 64 KB (opted in past 48 KB); as many steps as the first run: the
-    # variant's loss falls slowly
-    for n_s in (NERF_LONG_SAMPLES, NERF_OPTIN_SAMPLES):
+    # ---- past 256 samples a ray through K7: --n_samples 320 and 512, two
+    # chunks of nerf_composite_loss_bwd's block; as many steps as the first
+    # run: the variant's loss falls slowly
+    for n_s in (NERF_LONG_SAMPLES, NERF_LONGER_SAMPLES):
         out, launches, long_s = run(aoi, NERF_STEPS, f"smoke_nerf_long{n_s}",
                                     ["--n_samples", str(n_s)])
         if (out["system"].fused_mode != "points"

@@ -31,16 +31,19 @@
 //   nerf_dense_wgrad      dW = X^T . round(G), dC = enc^T . round(G) with the
 //                         encoding tile computed again, db = sum G, where
 //                         G = dY * [Y > 0] (Y absent: a linear layer).
-//   nerf_heads_composite  a warp per ray: sigma head (softplus), rgb_1
-//                         (sigmoid, padded), the compositor of
-//                         _composite_tile_nerf :402 in order along the ray: no
-//                         irradiance, no clip; out (R, 8) [rgb | depth |
-//                         opacity] and on request the (R, S) weights.
-//   nerf_composite_loss_bwd  the same walk, the squared error against gt, its
+//   nerf_heads_composite  a block scan (nerf_heads_scan): sigma head
+//                         (softplus), rgb_1 (sigmoid, padded), a warp a
+//                         sample, then the compositor of _composite_tile_nerf
+//                         :402 a thread a sample, T a product scan segmented
+//                         by ray over chunks of 256 samples: no irradiance,
+//                         no clip; out (R, 8) [rgb | depth | opacity] and on
+//                         request the (R, S) weights.
+//   nerf_composite_loss_bwd  a block a ray (nerf_composite_loss_bwd_block):
+//                         the same forward, the squared error against gt, its
 //                         adjoint g_rgb = 2 (rgb - gt) / (3 R), the compositor
-//                         adjoint of _composite_bwd_tile_nerf :545 and the two
-//                         narrow heads' backward: d_h (the sigma head's share),
-//                         d_r, dWn, dbn.
+//                         adjoint of _composite_bwd_tile_nerf :545 as a
+//                         suffix scan and the two narrow heads' backward: d_h
+//                         (the sigma head's share), d_r, dWn, dbn.
 //   nerf_field_heads      the two narrow heads per point, no compositor:
 //                         out (P, 8) [rgb | sigma] (fused_nerf.py:188-190).
 //   nerf_field_heads_bwd  their backward from a (P, 8) cotangent.
@@ -84,8 +87,11 @@
 // last bits change from run to run. Rays and points past the end are masked
 // here; the wrappers pad nothing.
 
+#include <algorithm>
+
 #include "common.cuh"
 #include "dense_bwd_wgmma.cuh"
+#include "heads.cuh"
 
 namespace {
 
@@ -1086,69 +1092,208 @@ int launch_nerf_dense_wgmma(cudaStream_t st, const bf16* X, int K, const bf16* W
 // ------------------------------------------------------- nerf_heads_composite
 //
 // Replaces the narrow heads of fused_nerf.py _forward :162-173 and the
-// compositor _composite_tile_nerf :402. One warp per ray: for each of the
-// ray's S samples the sigma head (from h) and rgb_1 (from r) as warp-reduced
-// dot products, then all lanes advance the compositor in fp32 along S in
-// order. The TPU kernel's log-space cumprod on the MXU is not carried over:
-// the product is taken directly, as render/composite.py does. Wn packs the
-// narrow weights as (4, F) rows in the compute type: 0 sigma (length F), 1:4
-// rgb_1 (length Fh); bn their 4 biases in fp32. NOISE (a template parameter:
-// the serving instantiation carries no trace of it) adds a per-sample noise
-// to sigma before the relu.
+// compositor _composite_tile_nerf :402: sigma = softplus(h . w0 + b0), rgb =
+// sigmoid(r . w1:4 + b1:4) padded, alpha = 1 - exp(-delta relu(sigma [+
+// noise])), T = cumprod_excl(1 - alpha + 1e-10), w = alpha T, and the ray's
+// integrals sum_s w_s [rgb_s | z_s | 1]: no irradiance, no clip. out (R, 8)
+// [rgb | depth | opacity | 0 0 0] and on request the (R, S) weights. The
+// TPU kernel's log-space cumprod on the MXU is not carried over. NOISE (a
+// template parameter: the serving instantiation carries no trace of it) adds
+// a per-sample noise to sigma before the relu (the wrapper's `noise=`; the
+// main path serves without it). Wn packs the narrow weights as (4, F) rows in
+// the compute type (0 sigma over F, 1:4 rgb_1 over the first Fh); bn their 4
+// biases.
+//
+// heads_composite_scan's design (fused_render.cu) for the nerf layout, with
+// chunks that cross rays. The heads of the samples are independent; only T
+// carries from one sample of a ray to the next, and T is a prefix product. A
+// block of NH_THREADS takes a range of whole rays (block b of G: rays [R b /
+// G, R (b + 1) / G), a persistent grid) and walks their samples, ray after
+// ray, in chunks of NH_THREADS consecutive samples: a chunk may hold the end
+// of one ray, whole rays and the start of another.
+//  A. the chunk's heads, a warp NH_IN_FLIGHT samples at a time, by
+//     heads.cuh's nerf_point_heads (16-byte loads of h and r kept raw until
+//     the products, the four rows in shared memory read as 16-byte chunks
+//     and unpacked once for the samples in flight, the four dot products
+//     reduced by one shuffle tree); the four pre-activations of each sample
+//     into shared memory.
+//  B. a thread a sample: the activations (a thread each, where in A a
+//     warp would take them a sample at a time); alpha (the noise added
+//     here, coalesced); T as an exclusive product of the fp32 factors 1 -
+//     alpha + 1e-10 in double, segmented by ray (a warp scan, then the
+//     earlier warps' last values
+//     where the ray began before the warp), the product of a ray's earlier
+//     chunks carried and the whole rounded once (a tree of fp32 products of
+//     factors near 1 drops the second-order term of each, common.cuh); w,
+//     written as a contiguous row when asked for; the five integrals as
+//     segmented sums the same way, written by each ray's last sample.
+// A chunk costs three barriers whatever it holds: at the serving chunk's 64
+// samples a ray, a block a ray at a time (heads_composite_scan's walk) left
+// three quarters of B's threads idle and took five barriers a ray.
+// Shared memory does not grow with S: any S runs. The body this replaced
+// gave a warp a ray and walked its samples in order: four serial warp
+// reductions a sample of rows read 2 bytes a lane, the weights read again
+// from device memory for every sample.
+//
+// What bounds it: device memory. It reads h (F values) and r (Fh) a sample,
+// 768 bytes at F = 256 in bf16, and z (and the noise), and writes 32 bytes a
+// ray (and the weights, 4 bytes a sample): at the serving chunk (65,536 rays
+// x 64) 3.26 GB, 0.972 ms at 3.35 TB/s.
+constexpr int NH_THREADS = SCAN_THREADS;
+constexpr int NH_WARPS = SCAN_WARPS;
+// the samples a warp's heads load at once (A.): 1 ran slower, 3 spilled at
+// 64 registers (PERF.md section 6; tools/outputs_torch.py variants)
+constexpr int NH_IN_FLIGHT = 2;
+constexpr int NH_SUMS = 5;  // rgb x 3, depth, opacity: the output's columns 0:5
 
-constexpr int NH_WARPS = 4;
+// The dynamic shared memory of a block, in bytes: the rows and biases
+// (heads.cuh); each warp's last product (double) and sums; the four
+// pre-activations of each sample of a chunk; the carried product (double)
+// and sums (8 slots).
+__host__ __device__ constexpr int nh_smem_bytes(int F, int Fh, int elem_bytes) {
+  return nerf_rows_smem_bytes(F, Fh, elem_bytes) + 8 * (NH_WARPS + 1) +
+         4 * (NH_WARPS * NH_SUMS + 4 * NH_THREADS + 8);
+}
 
-template <typename T, bool NOISE>
-__global__ void __launch_bounds__(NH_WARPS * 32)
-nerf_heads_composite_kernel(const T* __restrict__ h, int F, const T* __restrict__ rf, int Fh,
-                            const T* __restrict__ Wn, const float* __restrict__ bn,
-                            const float* __restrict__ z, const float* __restrict__ noise,
-                            int R, int S, float rgb_padding, float* __restrict__ out,
-                            float* __restrict__ weights) {
-  const int lane = threadIdx.x & 31;
-  const int ray = blockIdx.x * NH_WARPS + threadIdx.x / 32;
-  if (ray >= R) return;  // the whole warp leaves together
-  const T* w_sig = Wn;
-  const T* w_rgb = Wn + (size_t)F;
-  const float pad2 = 1.f + 2.f * rgb_padding;
-  const float* zr = z + (size_t)ray * S;
-
-  float trans = 1.f, depth = 0.f, opacity = 0.f, rgb_acc[3] = {0.f, 0.f, 0.f};
-  for (int s = 0; s < S; ++s) {
-    const size_t q = (size_t)ray * S + s;
-    float sig = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f;
-    const T* hq = h + q * F;
-    for (int k = lane; k < F; k += 32) sig = fmaf(to_f32<T>(hq[k]), to_f32<T>(w_sig[k]), sig);
-    const T* rq = rf + q * Fh;
-    for (int k = lane; k < Fh; k += 32) {
-      const float v = to_f32<T>(rq[k]);
-      c0 = fmaf(v, to_f32<T>(w_rgb[k]), c0);
-      c1 = fmaf(v, to_f32<T>(w_rgb[(size_t)F + k]), c1);
-      c2 = fmaf(v, to_f32<T>(w_rgb[(size_t)2 * F + k]), c2);
-    }
-    const float sigma = softplusf(warp_sum(sig) + bn[0]);
-    const float rgb[3] = {sigmoidf(warp_sum(c0) + bn[1]) * pad2 - rgb_padding,
-                          sigmoidf(warp_sum(c1) + bn[2]) * pad2 - rgb_padding,
-                          sigmoidf(warp_sum(c2) + bn[3]) * pad2 - rgb_padding};
-    const float zs = zr[s];
-    const float delta = s < S - 1 ? zr[s + 1] - zs : 1e10f;
-    float sigma_n = sigma;
-    if constexpr (NOISE) sigma_n += noise[q];
-    const float alpha = 1.f - expf(-delta * fmaxf(sigma_n, 0.f));
-    const float w = alpha * trans;
-    trans *= 1.f - alpha + 1e-10f;
-    depth += w * zs;
-    opacity += w;
+// The inclusive scans of a warp, segmented by ray: lane L's sample is the
+// j-th of its ray, and a partner o lanes up is of the same ray where j >= o
+// (Hillis-Steele), so each lane gets the product (the sums) over its ray's
+// samples from the warp's first lane on.
+__device__ __forceinline__ double warp_segmented_product(double v, int j, int lane) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) rgb_acc[c] += w * rgb[c];
-    if (weights != nullptr && lane == 0) weights[q] = w;
+  for (int o = 1; o < 32; o <<= 1) {
+    const double u = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o && j >= o) v *= u;
   }
-  if (lane < NERF_COLS) {
-    float v = 0.f;
-    if (lane < 3) v = lane == 0 ? rgb_acc[0] : (lane == 1 ? rgb_acc[1] : rgb_acc[2]);
-    else if (lane == 3) v = depth;
-    else if (lane == 4) v = opacity;
-    out[(size_t)ray * NERF_COLS + lane] = v;
+  return v;
+}
+
+template <int M>
+__device__ __forceinline__ void warp_segmented_sums(float (&v)[M], int j, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    float u[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) u[i] = __shfl_up_sync(0xffffffffu, v[i], o);
+    if (lane >= o && j >= o) {
+#pragma unroll
+      for (int i = 0; i < M; ++i) v[i] += u[i];
+    }
+  }
+}
+
+// Registers for 4 blocks an SM (at most 64 a thread), as heads_composite_scan.
+template <typename T, bool NOISE>
+__global__ void __launch_bounds__(NH_THREADS, 4)
+nerf_heads_scan(const T* __restrict__ h, int F, const T* __restrict__ rf, int Fh,
+                const T* __restrict__ Wn, const float* __restrict__ bn,
+                const float* __restrict__ z, const float* __restrict__ noise, int R, int S,
+                float rgb_padding, int vec, float* __restrict__ out,
+                float* __restrict__ weights) {
+  extern __shared__ __align__(16) unsigned char nh_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid / 32;
+  const HeadRows<T, true> w = load_nerf_rows<T>(Wn, bn, F, Fh, nh_smem);
+  double* tail_p = reinterpret_cast<double*>(nh_smem + nerf_rows_smem_bytes(F, Fh, sizeof(T)));
+  float* tail_s = reinterpret_cast<float*>(tail_p + NH_WARPS);  // NH_WARPS x NH_SUMS
+  float* v_pre = tail_s + NH_WARPS * NH_SUMS;  // 4 x NH_THREADS: sigma's, then rgb's
+  double* carry_p = reinterpret_cast<double*>(v_pre + 4 * NH_THREADS);  // 8-byte aligned
+  float* carry_s = reinterpret_cast<float*>(carry_p + 1);          // NH_SUMS
+  const float pad2 = 1.f + 2.f * rgb_padding;
+  const int passes = nerf_head_passes<T>(F, Fh);
+  const int head = lane >> 3;  // the head whose pre-activation the lane gets
+  const int r_begin = (int)((long long)R * blockIdx.x / gridDim.x);
+  const int r_end = (int)((long long)R * (blockIdx.x + 1) / gridDim.x);
+  const size_t q_end = (size_t)r_end * S;
+  __syncthreads();
+
+  int ray0 = r_begin, j0 = 0;  // the chunk's first sample is sample j0 of ray ray0
+  for (size_t cq = (size_t)r_begin * S; cq < q_end; cq += NH_THREADS) {
+    const int n = q_end - cq < (size_t)NH_THREADS ? (int)(q_end - cq) : NH_THREADS;
+
+    // ---- A. the heads of the chunk's samples: a warp takes samples s0,
+    // s0 + NH_WARPS, ..., NH_IN_FLIGHT of them at once
+    for (int s0 = warp; s0 < n; s0 += NH_WARPS * NH_IN_FLIGHT) {
+      const int live = (n - s0 + NH_WARPS - 1) / NH_WARPS;
+      float pre[NH_IN_FLIGHT];  // sigma, rgb x 3 by the lane's head
+      nerf_point_heads<T, NH_IN_FLIGHT>(h, F, rf, Fh, cq + s0, NH_WARPS, live, vec, passes, w,
+                                        lane, pre);
+      if ((lane & 7) == 0) {
+#pragma unroll
+        for (int u = 0; u < NH_IN_FLIGHT; ++u)
+          if (u < live) v_pre[head * NH_THREADS + s0 + u * NH_WARPS] = pre[u];
+      }
+    }
+    __syncthreads();
+
+    // ---- B. a thread a sample: alpha; T and the integrals as scans
+    // segmented by ray. Past n a thread is a ray of its own (j = 0).
+    const bool mine = tid < n;
+    const int rr = (j0 + tid) / S;  // rays after the chunk's first
+    const int j = mine ? j0 + tid - rr * S : 0;
+    const int first = tid - j;  // its ray's first sample in the chunk; < 0: in an earlier one
+    const size_t q = cq + tid;
+    float alpha = 0.f, zs = 0.f;
+    if (mine) {
+      zs = z[q];
+      const float delta = j < S - 1 ? z[q + 1] - zs : 1e10f;
+      float sigma_n = softplusf(v_pre[tid] + w.bs[0]);
+      if constexpr (NOISE) sigma_n += noise[q];
+      alpha = 1.f - expf(-delta * fmaxf(sigma_n, 0.f));
+    }
+    const double f = mine ? (double)(1.f - alpha + 1e-10f) : 1.0;
+    const double inc = warp_segmented_product(f, j, lane);
+    const double up = __shfl_up_sync(0xffffffffu, inc, 1);
+    double tr = lane > 0 && j > 0 ? up : 1.0;
+    if (lane == 31) tail_p[warp] = inc;
+    double c_p = 1.0;  // what the ray carries from the earlier chunks
+    float c_s[NH_SUMS] = {0.f, 0.f, 0.f, 0.f, 0.f};
+    if (first < 0) {
+      c_p = *carry_p;
+#pragma unroll
+      for (int i = 0; i < NH_SUMS; ++i) c_s[i] = carry_s[i];
+    }
+    __syncthreads();
+    const int w_first = max(first, 0) / 32;  // the warp its ray begins in, in this chunk
+    for (int w2 = w_first; w2 < warp; ++w2) tr *= tail_p[w2];
+    tr *= c_p;
+    const float wt = alpha * (float)tr;
+    float v[NH_SUMS] = {0.f, 0.f, 0.f, 0.f, 0.f};
+    if (mine) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float pre = v_pre[(1 + c) * NH_THREADS + tid];
+        v[c] = wt * (sigmoidf(pre + w.bs[1 + c]) * pad2 - rgb_padding);
+      }
+      v[3] = wt * zs;
+      v[4] = wt;
+      if (weights != nullptr) weights[q] = wt;
+    }
+    warp_segmented_sums<NH_SUMS>(v, j, lane);
+    if (lane == 31) {
+#pragma unroll
+      for (int i = 0; i < NH_SUMS; ++i) tail_s[warp * NH_SUMS + i] = v[i];
+    }
+    __syncthreads();
+    for (int w2 = w_first; w2 < warp; ++w2) {
+#pragma unroll
+      for (int i = 0; i < NH_SUMS; ++i) v[i] += tail_s[w2 * NH_SUMS + i];
+    }
+#pragma unroll
+    for (int i = 0; i < NH_SUMS; ++i) v[i] += c_s[i];
+    // a ray's last sample writes its integrals; the chunk's last sample, of
+    // a ray that goes on, what the ray carries to the next chunk
+    if (mine && j == S - 1) {
+      float4* o = reinterpret_cast<float4*>(out + (size_t)(ray0 + rr) * NERF_COLS);
+      o[0] = make_float4(v[0], v[1], v[2], v[3]);
+      o[1] = make_float4(v[4], 0.f, 0.f, 0.f);
+    } else if (tid == n - 1) {
+      *carry_p = tr * f;
+#pragma unroll
+      for (int i = 0; i < NH_SUMS; ++i) carry_s[i] = v[i];
+    }
+    const int next = j0 + NH_THREADS;
+    ray0 += next / S;
+    j0 = next % S;
   }
 }
 
@@ -1157,175 +1302,297 @@ nerf_heads_composite_kernel(const T* __restrict__ h, int F, const T* __restrict_
 // Replaces, of fused_nerf.py:594: the narrow heads forward, the compositor
 // with sigma noise, the squared error and its adjoint (:626-644), the
 // compositor adjoint _composite_bwd_tile_nerf :545 and the head part of
-// _point_bwd_from_saves :216-239. One warp per ray:
-//   1. forward over the ray's S samples; per-sample values go to shared memory
-//   2. sq = |rgb - gt|^2 added to loss_sum; g_rgb = 2 (rgb - gt) / (3 R), R
-//      the number of rays (none is padded)
-//   3. backward from the last sample to the first, carrying the suffix sum of
-//      dw * w: d_alpha = dw * T - suffix / (1 - alpha + 1e-10), masked where
-//      sigma + noise <= 0; the two pre-activation cotangents, rounded to the
-//      compute type before both of their products, give the rows of dWn (in
-//      registers over the ray) and d_h (the sigma head's share), d_r in fp32
-// The quotient is large but finite where alpha saturates (the last sample's
-// delta is 1e10), and its product with 1 - alpha is then exactly 0. Each
-// warp keeps NCL_SAMPLE_VALS floats a sample of its ray in shared memory:
-// past 384 samples the kernel opts into more than 48 KB, and the C entry
-// refuses S past the 227 KB a block may hold (1,816 samples).
+// _point_bwd_from_saves :216-239. composite_loss_bwd_block's design
+// (fused_train.cu) for the nerf layout: a block of NCL_THREADS a ray, on a
+// persistent grid (at most R blocks, each walking rays b, b + gridDim.x, ...):
+//   1. the heads of every sample, a warp NCL_IN_FLIGHT samples at a time,
+//      as nerf_heads_scan's A (the four rows staged once a block): the four
+//      pre-activations of each sample into shared memory
+//   2. a thread a sample of each chunk of NCL_THREADS: the activations,
+//      alpha, T as a block
+//      exclusive product in double carried from chunk to chunk (kept a
+//      sample in shared memory above one chunk), w, and the rgb integrals as
+//      block sums
+//   3. every thread: sq = |rgb - gt|^2 and g_rgb = 2 (rgb - gt) / (3 R), R
+//      the number of rays (none is padded); thread 0 adds sq to the loss
+//   4. a thread a sample of each chunk, the last chunk first: d_alpha = dw T
+//      - suffix / (1 - alpha + 1e-10), the suffix sum of dw w over the later
+//      samples an exclusive block scan carried from the later chunks, masked
+//      where sigma + noise <= 0; the four pre-activation cotangents rounded
+//      to the compute type into shared memory (they feed both products);
+//      dbn's block sums of the unrounded ones
+//   5. the outer products by rows: a warp a sample, a lane 4 columns of each
+//      128 (a store instruction writes 512 contiguous bytes), rows in flight
+//      NCL_ROWS_IN_FLIGHT at a time: d_h = gb_sig w_sig (F, fp32), d_r =
+//      sum_c gb_c w_c (Fh, fp32); dWn's columns summed in each lane's
+//      registers, then a row a warp in shared memory, summed over the
+//      block's rays; one atomicAdd a column a block at the end.
+// A saturated sample (the last one's delta is 1e10) stays as in the walk:
+// its factor is 1e-10, and 4. divides the suffix sum by it (large, finite)
+// and multiplies the quotient by 1 - alpha (exactly 0). softplus' is
+// -expm1f(-sigma) (see the top of this file).
+//
+// The body it replaced gave a warp a ray (1,024 warps at a training batch,
+// eight an SM) and walked the samples twice in order, four serial warp
+// reductions a sample, with 40 accumulator registers a lane and 640 atomics
+// a ray. Bound by device memory: h and r read (the second time mostly from
+// L2), d_h and d_r written in fp32: 151 MB at 1,024 rays x 64 in bf16,
+// 0.045 ms at 3.35 TB/s. The sums run in another order than the walk's
+// (scans, block sums), so the last bits differ. Any S whose shared memory
+// fits the 227 KB a block may opt into (ncl_smem_bytes; ops/fused_nerf.py
+// nerf_composite_max_samples mirrors it); vec: F and Fh multiples of 16
+// bytes' worth and the row tensors 16-byte aligned (else element loads and
+// stores).
+constexpr int NCL_THREADS = SCAN_THREADS;
+constexpr int NCL_WARPS = SCAN_WARPS;
+// Measured choices (PERF.md section 6; tools/outputs_torch.py variants): the
+// samples a warp's heads load at once in 1. (1 and 3 ran slower); 2 blocks
+// an SM, so 128 registers a thread (at 3 and 4 blocks it spilled and ran
+// slower); a persistent grid (a block a ray, a grid of R, ran as fast; the
+// persistent grid adds dWn's columns once a block, not once a ray).
+constexpr int NCL_IN_FLIGHT = 2;
+constexpr int NCL_MIN_BLOCKS = 2;
+constexpr bool NCL_PERSISTENT = true;
+constexpr int NCL_SUMS = 4;            // dbn
+constexpr int NCL_ROWS_IN_FLIGHT = 4;  // 5.: the rows a warp loads before their products
+constexpr int NCL_COL_GROUPS = 2;      // 5.: the groups of 128 columns of h a lane takes at once
 
-constexpr int NCL_WARPS = 4;
-constexpr int NCL_MAX_F = 512;  // widest trunk the register rows hold
-constexpr int NCL_F_REGS = NCL_MAX_F / 32;
-constexpr int NCL_H_REGS = NCL_F_REGS / 2;
-constexpr int NCL_SAMPLE_VALS = 8;  // sigma, delta, 1-alpha, T, w, rgb_s x3
+// The dynamic shared memory of a block, in bytes: the rows and biases
+// (heads.cuh); the block sums' and scans' scratch (8-byte aligned); each
+// warp's columns of dWn (the four rows, padded as the weights); the four
+// pre-activations and the four rounded cotangents of each sample (S each);
+// above one chunk, T of each sample.
+__host__ __device__ constexpr long long ncl_smem_bytes(int F, int Fh, int S, int elem_bytes) {
+  return nerf_rows_smem_bytes(F, Fh, elem_bytes) +
+         4LL * (block_scratch_floats(NCL_SUMS) +
+                NCL_WARPS * (heads_pad8(F) + 3 * heads_pad8(Fh)) + 8LL * S +
+                (S > NCL_THREADS ? S : 0));
+}
+
+// Step 5 for one head: the rows x (n values a sample) of samples [0, S) from
+// q0, their NC rounded cotangents (cot + j * S), the NC weight rows in shared
+// memory (wrow + j * wld); writes dst = sum_j cot_j w_j in fp32 and adds the
+// warp's sums sum_s cot_j x_s to its rows of dWn's columns (red + j * wld).
+template <typename T, int NC, int G>
+__device__ __forceinline__ void ncl_outer(const T* __restrict__ x, int n,
+                                          const float* cot, int S, const T* wrow, int wld,
+                                          float* __restrict__ dst, float* red, size_t q0,
+                                          int vec, int lane, int warp) {
+  constexpr int U = NCL_ROWS_IN_FLIGHT;
+  using R4 = typename Raw4<T>::type;
+  for (int kb = 0; kb < n; kb += 128 * G) {
+    float a[NC][G][4] = {}, wv[NC][G][4] = {};
+#pragma unroll
+    for (int m = 0; m < G; ++m) {
+      const int k = kb + 128 * m + 4 * lane;
+      if (k < n) {
+#pragma unroll
+        for (int j = 0; j < NC; ++j) smem4<T>(wrow + j * wld + k, wv[j][m]);
+      }
+    }
+    for (int s0 = warp * U; s0 < S; s0 += NCL_WARPS * U) {
+      R4 xr[U][G];  // raw until the products
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int m = 0; m < G; ++m) {
+          const int k = kb + 128 * m + 4 * lane;
+          if (k < n && s0 + u < S) xr[u][m] = row4_raw<T>(x + (q0 + s0 + u) * n, k, n, vec);
+        }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (s0 + u >= S) break;
+        float g[NC];
+#pragma unroll
+        for (int j = 0; j < NC; ++j) g[j] = cot[j * S + s0 + u];
+#pragma unroll
+        for (int m = 0; m < G; ++m) {
+          const int k = kb + 128 * m + 4 * lane;
+          if (k >= n) continue;
+          float xv[4], d[4];
+          values4<T>(xr[u][m], xv);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            d[i] = 0.f;
+#pragma unroll
+            for (int j = 0; j < NC; ++j) {
+              a[j][m][i] = fmaf(g[j], xv[i], a[j][m][i]);
+              d[i] = fmaf(g[j], wv[j][m][i], d[i]);
+            }
+          }
+          store_chunk<4>(dst + (q0 + s0 + u) * n, k, n, vec, d);
+        }
+      }
+    }
+    // the warp's column sums (its rows are padded to a multiple of 8: a
+    // 16-byte store a lane, zero past n)
+#pragma unroll
+    for (int m = 0; m < G; ++m) {
+      const int k = kb + 128 * m + 4 * lane;
+      if (k >= n) continue;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        float4* r = reinterpret_cast<float4*>(red + j * wld + k);
+        const float4 o = *r;
+        *r = make_float4(o.x + a[j][m][0], o.y + a[j][m][1], o.z + a[j][m][2], o.w + a[j][m][3]);
+      }
+    }
+  }
+}
 
 template <typename T>
-__global__ void __launch_bounds__(NCL_WARPS * 32)
-nerf_composite_loss_bwd_kernel(const T* __restrict__ h, int F, const T* __restrict__ rf,
-                               int Fh, const T* __restrict__ Wn, const float* __restrict__ bn,
-                               const float* __restrict__ z, const float* __restrict__ noise,
-                               const float* __restrict__ gt, int R, int S, float rgb_padding,
-                               float* __restrict__ loss_sum, float* __restrict__ d_h,
-                               float* __restrict__ d_r, float* __restrict__ dWn,
-                               float* __restrict__ dbn) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
-  const int ray = blockIdx.x * NCL_WARPS + warp;
-  if (ray >= R) return;  // the whole warp leaves together; no block barrier below
-  float* sv = smem + (size_t)warp * NCL_SAMPLE_VALS * S;
-  float* v_sigma = sv;          float* v_delta = sv + S;     float* v_oma = sv + 2 * S;
-  float* v_trans = sv + 3 * S;  float* v_w = sv + 4 * S;     float* v_c0 = sv + 5 * S;
-  float* v_c1 = sv + 6 * S;     float* v_c2 = sv + 7 * S;
-
-  const T* w_sig = Wn;
-  const T* w_rgb = Wn + (size_t)F;
+__global__ void __launch_bounds__(NCL_THREADS, NCL_MIN_BLOCKS)
+nerf_composite_loss_bwd_block(const T* __restrict__ h, int F, const T* __restrict__ rf, int Fh,
+                              const T* __restrict__ Wn, const float* __restrict__ bn,
+                              const float* __restrict__ z, const float* __restrict__ noise,
+                              const float* __restrict__ gt, int R, int S, float rgb_padding,
+                              int vec, float* __restrict__ loss_sum, float* __restrict__ d_h,
+                              float* __restrict__ d_r, float* __restrict__ dWn,
+                              float* __restrict__ dbn) {
+  extern __shared__ __align__(16) unsigned char ncl_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid / 32;
+  const int Fp = heads_pad8(F), Fhp = heads_pad8(Fh), ld = Fp + 3 * Fhp;
+  const HeadRows<T, true> w = load_nerf_rows<T>(Wn, bn, F, Fh, ncl_smem);
+  float* scratch = reinterpret_cast<float*>(ncl_smem + nerf_rows_smem_bytes(F, Fh, sizeof(T)));
+  float* red = scratch + block_scratch_floats(NCL_SUMS);  // NCL_WARPS x ld
+  float* v_pre = red + NCL_WARPS * ld;  // 4 x S: the pre-activations, sigma's then rgb's
+  float* cot_sig = v_pre + 4 * S;       // S: the rounded cotangents
+  float* cot_rgb = cot_sig + S;         // 3 x S
+  float* v_tr = cot_rgb + 3 * S;        // S, above one chunk
+  const int chunks = (S + NCL_THREADS - 1) / NCL_THREADS;
   const float pad2 = 1.f + 2.f * rgb_padding;
-  const float* zr = z + (size_t)ray * S;
-
-  // ---- 1. forward
-  float trans = 1.f, rgb_acc[3] = {0.f, 0.f, 0.f};
-  for (int s = 0; s < S; ++s) {
-    const size_t q = (size_t)ray * S + s;
-    float sig = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f;
-    const T* hq = h + q * F;
-    for (int k = lane; k < F; k += 32) sig = fmaf(to_f32<T>(hq[k]), to_f32<T>(w_sig[k]), sig);
-    const T* rq = rf + q * Fh;
-    for (int k = lane; k < Fh; k += 32) {
-      const float v = to_f32<T>(rq[k]);
-      c0 = fmaf(v, to_f32<T>(w_rgb[k]), c0);
-      c1 = fmaf(v, to_f32<T>(w_rgb[(size_t)F + k]), c1);
-      c2 = fmaf(v, to_f32<T>(w_rgb[(size_t)2 * F + k]), c2);
-    }
-    const float sigma = softplusf(warp_sum(sig) + bn[0]);
-    const float cs[3] = {sigmoidf(warp_sum(c0) + bn[1]), sigmoidf(warp_sum(c1) + bn[2]),
-                         sigmoidf(warp_sum(c2) + bn[3])};
-    const float zs = zr[s];
-    const float delta = s < S - 1 ? zr[s + 1] - zs : 1e10f;
-    const float sigma_n = sigma + (noise != nullptr ? noise[q] : 0.f);
-    const float oma = expf(-delta * fmaxf(sigma_n, 0.f));  // 1 - alpha
-    const float alpha = 1.f - oma;
-    const float w = alpha * trans;
-    if (lane == 0) {
-      v_sigma[s] = sigma; v_delta[s] = delta; v_oma[s] = oma; v_trans[s] = trans;
-      v_w[s] = w; v_c0[s] = cs[0]; v_c1[s] = cs[1]; v_c2[s] = cs[2];
-    }
-    trans *= 1.f - alpha + 1e-10f;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) rgb_acc[c] += w * (cs[c] * pad2 - rgb_padding);
-  }
-  __syncwarp();
-
-  // ---- 2. the loss and the ray's cotangent
-  float g_rgb[3], sq_err = 0.f;
+  const int passes = nerf_head_passes<T>(F, Fh);
+  const int head = lane >> 3;  // the head whose pre-activation the lane gets
   const float scale = 2.f / (3.f * (float)R);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float diff = rgb_acc[c] - gt[(size_t)ray * 3 + c];
-    sq_err += diff * diff;
-    g_rgb[c] = diff * scale;
-  }
-  if (lane == 0) atomicAdd(loss_sum, sq_err);
+  for (int i = tid; i < NCL_WARPS * ld; i += NCL_THREADS) red[i] = 0.f;
+  float sq_block = 0.f, b_block = 0.f;  // thread 0: the loss; thread i < 4: dbn[i]
+  __syncthreads();
 
-  // ---- 3. backward over the samples
-  float a_sig[NCL_F_REGS], a_rgb[3][NCL_H_REGS];
-#pragma unroll
-  for (int i = 0; i < NCL_F_REGS; ++i) a_sig[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < NCL_H_REGS; ++i) a_rgb[0][i] = a_rgb[1][i] = a_rgb[2][i] = 0.f;
-  float b_acc[4] = {0.f, 0.f, 0.f, 0.f};
-  float suffix = 0.f;  // sum over later samples of dw * w
+  for (int ray = blockIdx.x; ray < R; ray += gridDim.x) {
+    const size_t q0 = (size_t)ray * S;
+    const float* zr = z + q0;
+    const float* nz = noise != nullptr ? noise + q0 : nullptr;
 
-  for (int s = S - 1; s >= 0; --s) {
-    const size_t q = (size_t)ray * S + s;
-    const float sigma = v_sigma[s], delta = v_delta[s], oma = v_oma[s];
-    const float tr = v_trans[s], w = v_w[s];
-    const float cs[3] = {v_c0[s], v_c1[s], v_c2[s]};
-    float dw = 0.f, g_pre_rgb[3];
+    // ---- 1. the heads of every sample: a warp takes samples s0, s0 +
+    // NCL_WARPS, ..., NCL_IN_FLIGHT of them at once
+    for (int s0 = warp; s0 < S; s0 += NCL_WARPS * NCL_IN_FLIGHT) {
+      const int live = (S - s0 + NCL_WARPS - 1) / NCL_WARPS;
+      float pre[NCL_IN_FLIGHT];  // sigma, rgb x 3 by the lane's head
+      nerf_point_heads<T, NCL_IN_FLIGHT>(h, F, rf, Fh, q0 + s0, NCL_WARPS, live, vec, passes, w,
+                                         lane, pre);
+      if ((lane & 7) == 0) {
+#pragma unroll
+        for (int u = 0; u < NCL_IN_FLIGHT; ++u)
+          if (u < live) v_pre[head * S + s0 + u * NCL_WARPS] = pre[u];
+      }
+    }
+    __syncthreads();
+
+    // ---- 2. a thread a sample of each chunk: alpha, T, w, the integrals.
+    // The last chunk's values stay in registers for 4.
+    bool mine = false;
+    int s = 0;
+    float sigma = 0.f, cs[3] = {0.f, 0.f, 0.f}, delta = 0.f, sigma_n = 0.f, oma = 1.f;
+    float tr = 0.f, wt = 0.f;
+    float acc[3] = {0.f, 0.f, 0.f};
+    double carry = 1.0;  // the product of the earlier chunks' factors
+    auto sample = [&](int c) {  // chunk c's values of this thread's sample, T aside
+      s = c * NCL_THREADS + tid;
+      mine = s < S;
+      sigma = delta = sigma_n = 0.f;
+      cs[0] = cs[1] = cs[2] = 0.f;
+      oma = 1.f;
+      if (mine) {
+        sigma = softplusf(v_pre[s] + w.bs[0]);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) cs[k] = sigmoidf(v_pre[(1 + k) * S + s] + w.bs[1 + k]);
+        delta = s < S - 1 ? zr[s + 1] - zr[s] : 1e10f;
+        sigma_n = sigma + (nz != nullptr ? nz[s] : 0.f);
+        oma = expf(-delta * fmaxf(sigma_n, 0.f));  // 1 - alpha
+      }
+    };
+    for (int c = 0; c < chunks; ++c) {
+      sample(c);
+      const float alpha = 1.f - oma;
+      double all;
+      const double prod = block_exclusive_product<double>(
+          mine ? (double)(1.f - alpha + 1e-10f) : 1.0, reinterpret_cast<double*>(scratch), &all);
+      tr = (float)(carry * prod);
+      carry *= all;
+      wt = alpha * tr;  // 0 past S
+      if (mine && chunks > 1) v_tr[s] = tr;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) acc[k] += wt * (cs[k] * pad2 - rgb_padding);
+    }
+    block_sums<3, float>(acc, scratch);
+
+    // ---- 3. the loss and the ray's cotangent
+    float g_rgb[3], sq = 0.f;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      dw += (cs[c] * pad2 - rgb_padding) * g_rgb[c];
-      g_pre_rgb[c] = w * g_rgb[c] * pad2 * cs[c] * (1.f - cs[c]);
+      const float diff = acc[c] - gt[(size_t)ray * 3 + c];
+      sq += diff * diff;
+      g_rgb[c] = diff * scale;
     }
-    // the factor the forward multiplied the transparency by, formed the same way
-    const float d_alpha = dw * tr - suffix / (1.f - (1.f - oma) + 1e-10f);
-    suffix += dw * w;
-    const float sigma_n = sigma + (noise != nullptr ? noise[q] : 0.f);
-    const float d_sn = sigma_n > 0.f ? d_alpha * oma * delta : 0.f;
-    const float g_pre_sig = d_sn * -expm1f(-sigma);
+    sq_block += sq;
 
-    b_acc[0] += g_pre_sig;
-    b_acc[1] += g_pre_rgb[0]; b_acc[2] += g_pre_rgb[1]; b_acc[3] += g_pre_rgb[2];
-    const float gb_sig = round_to<T>(g_pre_sig);
-    const float gb_rgb[3] = {round_to<T>(g_pre_rgb[0]), round_to<T>(g_pre_rgb[1]),
-                             round_to<T>(g_pre_rgb[2])};
-
-    const T* hq = h + q * F;
-    float* dhq = d_h + q * F;
-#pragma unroll
-    for (int i = 0; i < NCL_F_REGS; ++i) {
-      const int k = lane + 32 * i;
-      if (k < F) {
-        a_sig[i] = fmaf(gb_sig, to_f32<T>(hq[k]), a_sig[i]);
-        dhq[k] = gb_sig * to_f32<T>(w_sig[k]);
+    // ---- 4. a thread a sample of each chunk, the last chunk first: the
+    // compositor adjoint and the narrow pre-activation cotangents
+    float b[NCL_SUMS];
+    float carry_s = 0.f;  // the sum of dw * w over the later chunks
+    for (int c = chunks - 1; c >= 0; --c) {
+      if (c < chunks - 1) {  // this chunk's values, as 2. formed them
+        sample(c);
+        tr = v_tr[s];  // every sample of an earlier chunk is below S
+        wt = (1.f - oma) * tr;
       }
-    }
-    const T* rq = rf + q * Fh;
+      float dw = 0.f, g_pre_rgb[3];
 #pragma unroll
-    for (int i = 0; i < NCL_H_REGS; ++i) {
-      const int k = lane + 32 * i;
-      if (k < Fh) {
-        const float rv = to_f32<T>(rq[k]);
-        float dr = 0.f;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          a_rgb[c][i] = fmaf(gb_rgb[c], rv, a_rgb[c][i]);
-          dr = fmaf(gb_rgb[c], to_f32<T>(w_rgb[(size_t)c * F + k]), dr);
-        }
-        d_r[q * Fh + k] = dr;
+      for (int k = 0; k < 3; ++k) {
+        dw += (cs[k] * pad2 - rgb_padding) * g_rgb[k];
+        g_pre_rgb[k] = wt * g_rgb[k] * pad2 * cs[k] * (1.f - cs[k]);
       }
+      float total;
+      const float suffix =
+          block_exclusive_suffix_sum(mine ? dw * wt : 0.f, scratch, &total) + carry_s;
+      carry_s += total;
+      // the factor the forward multiplied the transparency by, formed the same way
+      const float d_alpha = dw * tr - suffix / (1.f - (1.f - oma) + 1e-10f);
+      const float d_sn = sigma_n > 0.f ? d_alpha * oma * delta : 0.f;
+      float bc[NCL_SUMS] = {d_sn * -expm1f(-sigma), g_pre_rgb[0], g_pre_rgb[1], g_pre_rgb[2]};
+      if (!mine) {
+#pragma unroll
+        for (int i = 0; i < NCL_SUMS; ++i) bc[i] = 0.f;
+      } else {
+        cot_sig[s] = round_to<T>(bc[0]);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) cot_rgb[k * S + s] = round_to<T>(bc[1 + k]);
+      }
+#pragma unroll
+      for (int i = 0; i < NCL_SUMS; ++i) b[i] = c < chunks - 1 ? b[i] + bc[i] : bc[i];
     }
+    block_sums<NCL_SUMS, float>(b, scratch);  // also makes the cotangents visible
+#pragma unroll
+    for (int i = 0; i < NCL_SUMS; ++i)
+      if (tid == i) b_block += b[i];
+
+    // ---- 5. the outer products by rows: d_h and dWn row 0, d_r and rows 1:4
+    float* red_w = red + warp * ld;
+    ncl_outer<T, 1, NCL_COL_GROUPS>(h, F, cot_sig, S, w.ws, 0, d_h, red_w, q0, vec, lane, warp);
+    ncl_outer<T, 3, 1>(rf, Fh, cot_rgb, S, w.wh, Fhp, d_r, red_w + Fp, q0, vec, lane, warp);
   }
 
-  // ---- the ray's share of dWn and dbn
-#pragma unroll
-  for (int i = 0; i < NCL_F_REGS; ++i) {
-    const int k = lane + 32 * i;
-    if (k < F) atomicAdd(dWn + k, a_sig[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < NCL_H_REGS; ++i) {
-    const int k = lane + 32 * i;
-    if (k < Fh) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) atomicAdd(dWn + (size_t)(1 + c) * F + k, a_rgb[c][i]);
-    }
-  }
-  if (lane < 4) {
+  // the block's sums: one atomicAdd a column of dWn, an entry of dbn, the loss
+  __syncthreads();
+  for (int i = tid; i < F + 3 * Fh; i += NCL_THREADS) {
+    const int row = i < F ? 0 : 1 + (i - F) / Fh, col = i < F ? i : (i - F) % Fh;
+    const int off = row == 0 ? col : Fp + (row - 1) * Fhp + col;
     float v = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (j == lane) v = b_acc[j];
-    atomicAdd(dbn + lane, v);
+    for (int wp = 0; wp < NCL_WARPS; ++wp) v += red[wp * ld + off];
+    atomicAdd(dWn + (size_t)row * F + col, v);
   }
+  if (tid < NCL_SUMS) atomicAdd(dbn + tid, b_block);
+  if (tid == 0) atomicAdd(loss_sum, sq_block);
 }
 
 // ------------------------------------------- nerf_field_heads and its backward
@@ -1500,29 +1767,14 @@ nerf_field_heads_bwd_kernel(const T* __restrict__ h, int F, const T* __restrict_
   if (threadIdx.x < 4) atomicAdd(dbn + threadIdx.x, red_b[threadIdx.x]);
 }
 
+// The widths the per-ray and per-point kernels take (the per-point kernels'
+// register rows hold NF_MAX_F); ops/fused_nerf.py _check_narrow.
 bool narrow_shapes_ok(int F, int Fh) {
-  return F >= 1 && F <= NCL_MAX_F && Fh >= 1 && Fh <= NCL_MAX_F / 2 && Fh <= F;
+  return F >= 1 && F <= NF_MAX_F && Fh >= 1 && Fh <= NF_MAX_F / 2 && Fh <= F;
 }
 
 template <typename T> const T* as(const void* p) { return static_cast<const T*>(p); }
 float* out_f32(void* p) { return static_cast<float*>(p); }
-
-template <typename T>
-int launch_nerf_heads(const void* h, int F, const void* rf, int Fh, const void* Wn,
-                      const void* bn, const void* z, const void* noise, int R, int S,
-                      float rgb_padding, void* out, void* weights, cudaStream_t st) {
-  const int grid = (R + NH_WARPS - 1) / NH_WARPS;
-  if (noise != nullptr) {
-    nerf_heads_composite_kernel<T, true><<<grid, NH_WARPS * 32, 0, st>>>(
-        as<T>(h), F, as<T>(rf), Fh, as<T>(Wn), as<float>(bn), as<float>(z), as<float>(noise), R,
-        S, rgb_padding, out_f32(out), out_f32(weights));
-  } else {
-    nerf_heads_composite_kernel<T, false><<<grid, NH_WARPS * 32, 0, st>>>(
-        as<T>(h), F, as<T>(rf), Fh, as<T>(Wn), as<float>(bn), as<float>(z), nullptr, R, S,
-        rgb_padding, out_f32(out), out_f32(weights));
-  }
-  return (int)cudaGetLastError();
-}
 
 template <typename T>
 int launch_nerf_wgrad(const void* X, int K, const void* dY, const void* Ymask, const void* rays,
@@ -1586,6 +1838,55 @@ bool aligned16(const void* a, const void* b = nullptr, const void* c = nullptr,
                const void* d = nullptr) {
   return (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
           reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(d)) % 16 == 0;
+}
+
+// nerf_heads_scan on its persistent grid; out must be 16-byte aligned.
+template <typename T, bool NOISE>
+int launch_nerf_heads(const void* h, int F, const void* rf, int Fh, const void* Wn,
+                      const void* bn, const void* z, const void* noise, int R, int S,
+                      float rgb_padding, void* out, void* weights, cudaStream_t st) {
+  const int smem = nh_smem_bytes(F, Fh, sizeof(T));
+  static int resident = 0, resident_smem = -1;  // the persistent grid, for this smem
+  if (smem != resident_smem) {
+    resident = hopper::resident_blocks(nerf_heads_scan<T, NOISE>, NH_THREADS, smem);
+    resident_smem = smem;
+  }
+  if (resident == 0) return (int)cudaErrorInvalidConfiguration;
+  constexpr int V = Vec16<T>::N;
+  const int vec = F % V == 0 && Fh % V == 0 && aligned16(h, rf);
+  // no more blocks than rays, nor than chunks of samples
+  const long long chunks = ((long long)R * S + NH_THREADS - 1) / NH_THREADS;
+  const int grid = (int)std::min<long long>(std::min(R, resident), chunks);
+  nerf_heads_scan<T, NOISE><<<grid, NH_THREADS, smem, st>>>(
+      as<T>(h), F, as<T>(rf), Fh, as<T>(Wn), as<float>(bn), as<float>(z), as<float>(noise), R,
+      S, rgb_padding, vec, out_f32(out), out_f32(weights));
+  return (int)cudaGetLastError();
+}
+
+// nerf_composite_loss_bwd_block on its persistent grid; S whose shared
+// memory passes the 227 KB a block may hold is refused.
+template <typename T>
+int launch_nerf_composite(const void* h, int F, const void* rf, int Fh, const void* Wn,
+                          const void* bn, const void* z, const void* noise, const void* gt,
+                          int R, int S, float rgb_padding, void* loss_sum, void* d_h, void* d_r,
+                          void* dWn, void* dbn, cudaStream_t st) {
+  const long long bytes = ncl_smem_bytes(F, Fh, S, sizeof(T));
+  if (bytes > hopper::SMEM_OPTIN_BYTES) return (int)cudaErrorInvalidValue;
+  const int smem = (int)bytes;
+  static int resident = 0, resident_smem = -1;  // the persistent grid, for this smem
+  if (smem != resident_smem) {
+    resident = hopper::resident_blocks(nerf_composite_loss_bwd_block<T>, NCL_THREADS, smem);
+    resident_smem = smem;
+  }
+  if (resident == 0) return (int)cudaErrorInvalidConfiguration;
+  constexpr int V = Vec16<T>::N;
+  const int vec = F % V == 0 && Fh % V == 0 && aligned16(h, rf, d_h, d_r);
+  const int grid = NCL_PERSISTENT ? std::min(R, resident) : R;
+  nerf_composite_loss_bwd_block<T><<<grid, NCL_THREADS, smem, st>>>(
+      as<T>(h), F, as<T>(rf), Fh, as<T>(Wn), as<float>(bn), as<float>(z), as<float>(noise),
+      as<float>(gt), R, S, rgb_padding, vec, out_f32(loss_sum), out_f32(d_h), out_f32(d_r),
+      out_f32(dWn), out_f32(dbn));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1742,17 +2043,17 @@ extern "C" int satnerf_nerf_heads_composite(int dtype, const void* h, int F, con
                                             float rgb_padding, void* out, void* weights,
                                             void* stream) {
   if (!narrow_shapes_ok(F, Fh) || S < 1) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (R == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_nerf_heads<float>(h, F, rf, Fh, Wn, bn, z, noise, R, S, rgb_padding, out,
-                                    weights, st);
-  if (dtype == 1)
-    return launch_nerf_heads<bf16>(h, F, rf, Fh, Wn, bn, z, noise, R, S, rgb_padding, out,
-                                   weights, st);
-  return (int)cudaErrorInvalidValue;
+  const bool nz = noise != nullptr;
+  auto launch = dtype == 0 ? (nz ? launch_nerf_heads<float, true> : launch_nerf_heads<float, false>)
+                           : (nz ? launch_nerf_heads<bf16, true> : launch_nerf_heads<bf16, false>);
+  return launch(h, F, rf, Fh, Wn, bn, z, noise, R, S, rgb_padding, out, weights, st);
 }
 
+// S past what shared memory holds is refused (ncl_smem_bytes;
+// ops/fused_nerf.py nerf_composite_max_samples mirrors the rule).
 extern "C" int satnerf_nerf_composite_loss_bwd(int dtype, const void* h, int F, const void* rf,
                                                int Fh, const void* Wn, const void* bn,
                                                const void* z, const void* noise, const void* gt,
@@ -1761,33 +2062,12 @@ extern "C" int satnerf_nerf_composite_loss_bwd(int dtype, const void* h, int F, 
                                                void* stream) {
   if (!narrow_shapes_ok(F, Fh) || S < 1 || gt == nullptr || loss_sum == nullptr)
     return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (R == 0) return (int)cudaSuccess;
-  const int grid = (R + NCL_WARPS - 1) / NCL_WARPS;
-  // S past what shared memory holds is refused (ops/fused_nerf.py
-  // nerf_composite_max_samples mirrors the rule); above 48 KB the kernel opts in
-  const long long smem = (long long)NCL_WARPS * NCL_SAMPLE_VALS * S * sizeof(float);
-  static int allowed[2] = {0, 0};
-  if (smem > hopper::SMEM_OPTIN_BYTES) return (int)cudaErrorInvalidValue;
-  const int err = dtype == 0 ? hopper::allow_smem(nerf_composite_loss_bwd_kernel<float>,
-                                                  (int)smem, &allowed[0])
-                             : hopper::allow_smem(nerf_composite_loss_bwd_kernel<bf16>,
-                                                  (int)smem, &allowed[1]);
-  if (err != 0) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    nerf_composite_loss_bwd_kernel<float><<<grid, NCL_WARPS * 32, smem, st>>>(
-        as<float>(h), F, as<float>(rf), Fh, as<float>(Wn), as<float>(bn), as<float>(z),
-        as<float>(noise), as<float>(gt), R, S, rgb_padding, out_f32(loss_sum), out_f32(d_h),
-        out_f32(d_r), out_f32(dWn), out_f32(dbn));
-  } else if (dtype == 1) {
-    nerf_composite_loss_bwd_kernel<bf16><<<grid, NCL_WARPS * 32, smem, st>>>(
-        as<bf16>(h), F, as<bf16>(rf), Fh, as<bf16>(Wn), as<float>(bn), as<float>(z),
-        as<float>(noise), as<float>(gt), R, S, rgb_padding, out_f32(loss_sum), out_f32(d_h),
-        out_f32(d_r), out_f32(dWn), out_f32(dbn));
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  auto launch = dtype == 0 ? launch_nerf_composite<float> : launch_nerf_composite<bf16>;
+  return launch(h, F, rf, Fh, Wn, bn, z, noise, gt, R, S, rgb_padding, loss_sum, d_h, d_r, dWn,
+                dbn, st);
 }
 
 extern "C" int satnerf_nerf_field_heads(int dtype, const void* h, int F, const void* rf, int Fh,

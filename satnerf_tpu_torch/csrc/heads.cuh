@@ -1,7 +1,9 @@
 // The narrow heads of one point, shared by the kernels that compute them:
-// field_heads and field_heads_bwd (fused_field.cu) and heads_composite
-// (fused_render.cu). From the point's rows h (F), r, s2 and bh (Fh each) and
-// the nine narrow weight rows, the pre-activations of sigma (h . w0), rgb x 3
+// field_heads and field_heads_bwd (fused_field.cu), heads_composite
+// (fused_render.cu), and for the nerf variant's two heads (the end of this
+// file) nerf_heads_composite and nerf_composite_loss_bwd (fused_nerf.cu).
+// From the point's rows h (F), r, s2 and bh (Fh each) and the nine narrow
+// weight rows, the pre-activations of sigma (h . w0), rgb x 3
 // (r . w1:4), sun_v (s2 . w4) and beta (bh . w8); and of a ray, from its
 // sky_0 row skyh (Fh), those of sky x 3 (skyh . w5:8).
 //
@@ -233,6 +235,114 @@ __device__ __forceinline__ void ray_sky(const T* __restrict__ x, int Fh, int vec
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c) part[c] = warp_sum(part[c]);
+}
+
+// ---- the classic NeRF variant's two heads (fused_nerf.cu): Wn (4, F), row
+// 0 sigma (F values), rows 1:4 rgb_1 (the first Fh values of each), bn (4,).
+// In shared memory as HeadRows<T, true>: the sigma row (F padded to a
+// multiple of 8 values), the three rgb rows (Fh padded so, ld apart), in the
+// compute type, then the four biases as floats.
+
+// Bytes of shared memory the nerf rows and biases take (a multiple of 16).
+__host__ __device__ constexpr int nerf_rows_smem_bytes(int F, int Fh, int elem_bytes) {
+  return (heads_pad8(F) + 3 * heads_pad8(Fh)) * elem_bytes + 4 * 4;
+}
+
+// Copies Wn's four rows and bn into `smem` by the block's threads; the
+// caller synchronizes before reading them.
+template <typename T>
+__device__ __forceinline__ HeadRows<T, true> load_nerf_rows(const T* __restrict__ Wn,
+                                                            const float* __restrict__ bn,
+                                                            int F, int Fh, unsigned char* smem) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int Fp = heads_pad8(F), Fhp = heads_pad8(Fh);
+  T* ws = reinterpret_cast<T*>(smem);
+  T* wh = ws + Fp;
+  float* bs = reinterpret_cast<float*>(wh + 3 * Fhp);
+  for (int i = tid; i < Fp; i += nt) ws[i] = i < F ? Wn[i] : from_f32<T>(0.f);
+  for (int i = tid; i < 3 * Fhp; i += nt) {
+    const int row = 1 + i / Fhp, k = i % Fhp;
+    wh[i] = k < Fh ? Wn[(size_t)row * F + k] : from_f32<T>(0.f);
+  }
+  if (tid < 4) bs[tid] = bn[tid];
+  return HeadRows<T, true>{ws, wh, bs, Fhp, 1};
+}
+
+// The sums over the warp of v[0:4], one shuffle tree for the four: lane L
+// gets the sum of v[L / 8] (6 shuffles where four warp_sums take 20).
+__device__ __forceinline__ float warp_sum4(const float (&v)[4], int lane) {
+  const bool hi16 = lane & 16, hi8 = lane & 8;
+  const float a0 = (hi16 ? v[2] : v[0]) + __shfl_xor_sync(0xffffffffu, hi16 ? v[0] : v[2], 16);
+  const float a1 = (hi16 ? v[3] : v[1]) + __shfl_xor_sync(0xffffffffu, hi16 ? v[1] : v[3], 16);
+  float a = (hi8 ? a1 : a0) + __shfl_xor_sync(0xffffffffu, hi8 ? a0 : a1, 8);
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+  return a;
+}
+
+// How many passes nerf_point_heads takes: a pass covers 32 16-byte chunks
+// of h and of r (256 features of each in bf16, 128 in fp32).
+template <typename T>
+__device__ __forceinline__ int nerf_head_passes(int F, int Fh) {
+  constexpr int V = Vec16<T>::N;
+  return (max(F, Fh) + 32 * V - 1) / (32 * V);
+}
+
+// The pre-activations of sigma (h . w0) and rgb x 3 (r . w1:4) of the U
+// points q0, q0 + stride, ... (those from `live` on skipped), summed over
+// the warp: lane L holds pre[u] = point u's pre-activation L / 8 (warp_sum4).
+// A lane takes one 16-byte chunk of h and one of r a pass, the U points'
+// loads all issued before any product and kept raw until then, against the
+// weight rows read as 16-byte chunks and unpacked once for the U points;
+// passes: nerf_head_passes<T>(F, Fh).
+template <typename T, int U>
+__device__ __forceinline__ void nerf_point_heads(const T* __restrict__ h, int F,
+                                                 const T* __restrict__ rf, int Fh, size_t q0,
+                                                 int stride, int live, int vec, int passes,
+                                                 HeadRows<T, true> w, int lane,
+                                                 float (&pre)[U]) {
+  constexpr int V = Vec16<T>::N;
+  float part[U][4];
+#pragma unroll
+  for (int u = 0; u < U; ++u) part[u][0] = part[u][1] = part[u][2] = part[u][3] = 0.f;
+  for (int pass = 0; pass < passes; ++pass) {
+    const int k = (pass * 32 + lane) * V;
+    uint4 xh[U], xr[U];  // raw until the products
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (u >= live) break;
+      const size_t q = q0 + (size_t)u * stride;
+      if (k < F) xh[u] = row_chunk_raw<T>(h + q * F, k, F, vec);
+      if (k < Fh) xr[u] = row_chunk_raw<T>(rf + q * Fh, k, Fh, vec);
+    }
+    if (k < F) {
+      float ws[V], x[V];
+      chunk_values<T>(weight_chunk(w, w.ws, k, F), ws);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (u >= live) break;
+        chunk_values<T>(xh[u], x);
+#pragma unroll
+        for (int i = 0; i < V; ++i) part[u][0] = fmaf(x[i], ws[i], part[u][0]);
+      }
+    }
+    if (k < Fh) {
+      float wc[3][V], x[V];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) chunk_values<T>(weight_chunk(w, w.wh + c * w.ld, k, Fh), wc[c]);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (u >= live) break;
+        chunk_values<T>(xr[u], x);
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+#pragma unroll
+          for (int i = 0; i < V; ++i) part[u][1 + c] = fmaf(x[i], wc[c][i], part[u][1 + c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) pre[u] = warp_sum4(part[u], lane);
 }
 
 }  // namespace

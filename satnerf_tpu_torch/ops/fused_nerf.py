@@ -28,9 +28,11 @@ beside it:
                            read from the layer's stored output
   nerf_dense_wgrad         dW, db and dC (against the encoding, computed again)
   nerf_heads_composite     sigma head, rgb_1 and the alpha compositor without
-                           irradiance and without clip, a warp per ray
-  nerf_composite_loss_bwd  the same walk, the squared error, its adjoint, the
-                           compositor adjoint and the narrow heads' backward
+                           irradiance and without clip, a block scan over
+                           chunks of 256 samples that cross rays
+  nerf_composite_loss_bwd  the same forward, the squared error, its adjoint,
+                           the compositor adjoint and the narrow heads'
+                           backward, a block a ray
   nerf_field_heads         the narrow heads per point, no compositor
   nerf_field_heads_bwd     their backward from a (P, 8) cotangent
 
@@ -66,8 +68,8 @@ import torch.nn.functional as F
 from satnerf_tpu_torch.models.nerf import positional_encoding, rounded_matmul
 from satnerf_tpu_torch.ops.fused_mlp import (
     _DTYPE_CODE, _MAINLOOP_CODE, LAUNCHES, SMEM_OPTIN_BYTES,
-    WGRAD_STAGE_POINTS, _aligned, _check_cuda, _check_mainloop, _launch, _ptr, _sm_count, _stream,
-    dense_mainloop, wgrad_split)
+    WGRAD_STAGE_POINTS, _aligned, _check_cuda, _check_mainloop, _largest_fitting,
+    _launch, _ptr, _sm_count, _stream, dense_mainloop, wgrad_split)
 from satnerf_tpu_torch.render.composite import ray_weights
 from satnerf_tpu_torch.render.render import run_field
 
@@ -458,17 +460,34 @@ def _adjoint_buffers(p, feat, fh, dev) -> dict:
             "dbn": f32(4, make=torch.zeros)}
 
 
-# csrc/fused_nerf.cu NCL_WARPS, NCL_SAMPLE_VALS: the walk's warps a block and
-# the values it keeps a sample in shared memory
-_NCL_WARPS, _NCL_SAMPLE_VALS = 4, 8
+# csrc/fused_nerf.cu ncl_smem_bytes: the block's threads and warps, and the
+# block sums' values
+_NCL_THREADS, _NCL_WARPS, _NCL_SUMS = 256, 8, 4
 
 
-def nerf_composite_max_samples() -> int:
-    """The most samples a ray nerf_composite_loss_bwd takes on the card: its
-    warps keep NCL_SAMPLE_VALS floats a sample of their rays in shared
-    memory, which holds at most 227 KB a block (1,816 samples); the C entry
-    refuses past it by the same rule."""
-    return SMEM_OPTIN_BYTES // (4 * _NCL_WARPS * _NCL_SAMPLE_VALS)
+def _ncl_smem_bytes(feat: int, fh: int, n_s: int, elem_bytes: int) -> int:
+    """The dynamic shared memory a launch of nerf_composite_loss_bwd asks
+    for (csrc/fused_nerf.cu ncl_smem_bytes): the four weight rows in the
+    compute type and their biases, the scans' scratch, each warp's columns
+    of dWn, eight values a sample, and above one chunk of 256 samples the
+    transmittance of each."""
+    pad8 = lambda v: -(-v // 8) * 8  # noqa: E731
+    rows = (pad8(feat) + 3 * pad8(fh)) * elem_bytes + 16
+    floats = (_NCL_WARPS * _NCL_SUMS + _NCL_WARPS * (pad8(feat) + 3 * pad8(fh))
+              + 8 * n_s + (n_s if n_s > _NCL_THREADS else 0))
+    return rows + 4 * floats
+
+
+def nerf_composite_max_samples(feat: int = 512, fh: int = 256,
+                               dtype=torch.float32) -> int:
+    """The most samples a ray nerf_composite_loss_bwd takes on the card at a
+    trunk of `feat` features, heads of `fh` and operands of `dtype`: the
+    largest S whose shared memory fits the 227 KB a block may hold. The
+    defaults are the widest the kernel takes, so that limit holds at every
+    width (5,172 samples); the nerf 8 x 256 field in bf16 takes 5,848. The
+    C entry refuses past it by the same rule."""
+    elem = torch.finfo(dtype).bits // 8
+    return _largest_fitting(lambda n_s: _ncl_smem_bytes(feat, fh, n_s, elem))
 
 
 def nerf_composite_loss_bwd(h, r, wn, bn, z, noise, gt, *,
@@ -483,12 +502,12 @@ def nerf_composite_loss_bwd(h, r, wn, bn, z, noise, gt, *,
     n_rays, n_s = z.shape
     feat, fh = _check_narrow("nerf_composite_loss_bwd", h, r, wn, bn,
                              n_rays * n_s)
-    limit = nerf_composite_max_samples()
+    limit = nerf_composite_max_samples(feat, fh, dtype)
     if n_s > limit:
         raise ValueError(
             f"nerf_composite_loss_bwd: {n_s} samples a ray do not fit the "
             f"{SMEM_OPTIN_BYTES} bytes (227 KB) of shared memory a block "
-            f"may hold; it takes at most {limit}")
+            f"may hold; it takes at most {limit} at F={feat}, Fh={fh}")
     for what, t, shape in (("z", z, z.shape), ("noise", noise, z.shape),
                            ("gt", gt, (n_rays, 3))):
         if t is not None and (t.dtype != torch.float32 or t.shape != shape):

@@ -32,8 +32,10 @@ train step and render in each --fused mode; for the classic NeRF variant,
 nerf_dense with both encodings, with and without X, on both mainloops,
 nerf_dense_dgrad and nerf_dense_wgrad masked on the stored activation (with
 accumulation, more than one split, the encoding's gradient), a relu unit
-exactly at the kink, nerf_heads_composite and nerf_composite_loss_bwd with
-noise, weights, a saturated ray and a faint last sample, nerf_field_heads and
+exactly at the kink, nerf_heads_composite and nerf_composite_loss_bwd (block
+scans) with noise, weights, a saturated ray and a faint last sample, past one
+and two chunks of 256 samples, with more rays than the persistent grid and
+(nerf_heads_composite) at a 65,536-ray serving chunk, nerf_field_heads and
 its backward, fused_nerf_train_loss_grads, fused_nerf_render_rays and
 fused_nerf_apply as wholes against autograd, and nerf train steps and renders
 through the system; for the Hopper mainloops of siren_dense,
@@ -61,7 +63,8 @@ plain version and wmma, and the launches a forced wgmma cannot take; and the
 two bodies of composite_loss_bwd and composite_bwd (a block a ray, a warp a
 ray) against each other and the plain version at up to the largest number
 of samples a ray their shared memory holds (288, 320, 1,452; the block body
-alone at 4,129), nerf_composite_loss_bwd likewise (1,816), and one sample
+alone at 4,129), nerf_composite_loss_bwd (a block a ray) at up to 5,172,
+the most its shared memory holds at any width, and one sample
 more refused on either with the limit named; and siren_dense's K = 0 kernel
 (layer 0, sky_0) equal to the bit to the first one it replaced.
 """
@@ -1278,7 +1281,14 @@ def _nerf_narrow(dev, dtype, with_noise, seed, n_rays=37, n_s=16, feat=64):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("with_noise,return_weights,n_rays,n_s,feat", [
     (False, True, 37, 16, 64), (True, False, 37, 16, 64),
-    (True, True, 5, 72, 256), (False, False, 3, 128, 40)])
+    (True, True, 5, 72, 256), (False, False, 3, 128, 40),
+    # past one chunk of the block scan (T and the integrals carried)
+    (False, True, 3, 257, 64), (True, True, 3, 257, 64),
+    (False, True, 2, 640, 256), (True, False, 2, 640, 40),
+    # more rays than the persistent grid holds, not a multiple of it
+    (True, True, 1037, 16, 64),
+    # the serving chunk at the nerf field's width
+    (False, True, 65536, 64, 256)])
 def test_nerf_heads_composite(dev, dtype, with_noise, return_weights, n_rays,
                               n_s, feat):
     _, (h, r, wn, bn, z, noise) = _nerf_narrow(dev, dtype, with_noise, 2,
@@ -1298,7 +1308,9 @@ def test_nerf_heads_composite(dev, dtype, with_noise, return_weights, n_rays,
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("with_noise,n_rays,n_s,feat", [
     (False, 37, 16, 64), (True, 37, 16, 64), (True, 5, 72, 256),
-    (True, 3, 128, 40)])
+    (True, 3, 128, 40),
+    # one whole chunk of the block, one sample past it, past two chunks
+    (True, 3, 256, 64), (False, 3, 257, 64), (True, 2, 640, 256)])
 def test_nerf_composite_loss_bwd(dev, dtype, with_noise, n_rays, n_s, feat):
     g, (h, r, wn, bn, z, noise) = _nerf_narrow(dev, dtype, with_noise, 7,
                                                n_rays, n_s, feat)
@@ -1316,15 +1328,17 @@ def test_nerf_composite_loss_bwd(dev, dtype, with_noise, n_rays, n_s, feat):
     (True, 5, 288), (False, 5, 320), (True, 2, FN.nerf_composite_max_samples())])
 def test_nerf_composite_loss_bwd_past_256_samples(dev, dtype, with_noise, n_rays,
                                                   n_s):
-    """Rays past 256 samples (past 384 the walk's shared memory passes 48 KB
-    and the kernel opts in), up to the most it holds, against the plain
-    version: 1e-4 of each tensor's largest entry, in bf16 a cotangent entry
-    also one step of itself or, for d_r, which sums three products of
+    """Rays past 256 samples (past one chunk of the block: T kept a sample
+    in shared memory, the scans carried from chunk to chunk), up to the most
+    it holds at any width, against the plain version: 1e-4 of each tensor's
+    largest entry, in bf16 a cotangent entry also one step of itself or, for
+    d_r, which sums three products of
     rounded cotangents, of one of its terms (over more samples more entries
     have a term on the other side of a rounding boundary), as the SIREN
     composite kernels are held; in bf16 dWn and dbn, sums over every sample
-    of such rounded products, within 5e-4 (at 1,816 samples dWn has read
-    1.7e-4; the fp32 case, without rounded cotangents, holds 1e-4)."""
+    of such rounded products, within 5e-4 (the warp walk this body replaced
+    read 1.7e-4 at 1,816 samples; the fp32 case, without rounded cotangents,
+    holds 1e-4)."""
     g, (h, r, wn, bn, z, noise) = _nerf_narrow(dev, dtype, with_noise, 7,
                                                n_rays, n_s, 256)
     gt = torch.rand(n_rays, 3, generator=g).to(dev)
@@ -2184,11 +2198,12 @@ def test_composite_refuses_past_its_sample_limit(dev, body):
 
 
 def test_nerf_composite_refuses_past_its_sample_limit(dev):
+    limit = FN.nerf_composite_max_samples(256, 128, torch.bfloat16)
     g, (h, r, wn, bn, z, _) = _nerf_narrow(dev, torch.bfloat16, False, 7, 2,
-                                           FN.nerf_composite_max_samples() + 1, 256)
+                                           limit + 1, 256)
     gt = torch.rand(2, 3, generator=g).to(dev)
     before = dict(FM.LAUNCHES)
-    with pytest.raises(ValueError, match="227 KB.*at most 1816"):
+    with pytest.raises(ValueError, match=f"227 KB.*at most {limit} at F=256, Fh=128"):
         FN.nerf_composite_loss_bwd(h, r, wn, bn, z, None, gt)
     assert FM.LAUNCHES == before
 

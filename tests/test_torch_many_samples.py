@@ -16,6 +16,9 @@ gradients 1e-4 of each tensor's largest entry, then one train_step's
 parameters 2e-5.
 """
 
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +35,9 @@ from satnerf_tpu_torch.train.system import NeRFSystem
 from tests.test_torch_render_hier import jax_render_draws
 
 torch.set_num_threads(1)
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "satnerf_tpu_torch", "csrc")
 
 B, N_DATA, LAYERS, S, N_IMP = 6, 24, 4, 16, 304
 KW = dict(batch_size=B, fc_units=32, fc_layers=LAYERS, n_samples=S,
@@ -154,8 +160,71 @@ def test_composite_refusal_names_the_limit(name, body):
 
 
 def test_nerf_composite_sample_limit():
-    """NCL_WARPS x NCL_SAMPLE_VALS floats a sample of shared memory: 1,816
-    samples a ray, whatever the widths (a 512-sample nerf ray fits)."""
+    """The block body's shared memory (csrc/fused_nerf.cu ncl_smem_bytes):
+    eight floats a sample, nine past one chunk of 256, beside the rows and
+    each warp's columns of dWn. With no widths given the limit is that of
+    the widest operands the kernel takes (F = 512, Fh = 256, fp32): 5,172
+    samples a ray, which every width holds; not below the 1,816 of the warp
+    walk it replaced."""
     limit = FN.nerf_composite_max_samples()
-    assert limit == 1816 and 16 * 8 * limit <= FM.SMEM_OPTIN_BYTES
-    assert 16 * 8 * (limit + 1) > FM.SMEM_OPTIN_BYTES
+    assert limit == 5172 and limit >= 1816
+    assert FN._ncl_smem_bytes(512, 256, limit, 4) <= FM.SMEM_OPTIN_BYTES
+    assert FN._ncl_smem_bytes(512, 256, limit + 1, 4) > FM.SMEM_OPTIN_BYTES
+    for feat, fh in ((256, 128), (40, 20), (512, 256)):
+        for dtype in (torch.float32, torch.bfloat16):
+            assert FN.nerf_composite_max_samples(feat, fh, dtype) >= limit
+    assert (FN._ncl_smem_bytes(256, 128, 257, 2)
+            - FN._ncl_smem_bytes(256, 128, 256, 2)) == 4 * 8 + 4 * 257
+
+
+def _c_ncl_smem_bytes():
+    """csrc/fused_nerf.cu ncl_smem_bytes as a Python function, read from the
+    source with the helpers and constants it names (csrc/heads.cuh,
+    csrc/common.cuh): C's integer division as //, its conditional as
+    Python's."""
+    def read(name):
+        with open(os.path.join(CSRC, name)) as f:
+            return f.read()
+
+    nerf, heads, common = read("fused_nerf.cu"), read("heads.cuh"), read("common.cuh")
+
+    def body(src, signature):
+        expr = re.search(re.escape(signature) + r"\s*\{\s*return (.*?);\s*\}", src, re.S)
+        return re.sub(r"(\d+)LL\b", r"\1", " ".join(expr.group(1).split())).replace("/", "//")
+
+    ncl = re.sub(r"\((\w+) > (\w+) \? (\w+) : 0\)", r"(\3 if \1 > \2 else 0)", body(
+        nerf, "constexpr long long ncl_smem_bytes(int F, int Fh, int S, int elem_bytes)"))
+    rows = body(heads, "constexpr int nerf_rows_smem_bytes(int F, int Fh, int elem_bytes)")
+    pad8 = body(heads, "constexpr int heads_pad8(int n)")
+    scratch = body(common, "constexpr int block_scratch_floats(int M)")
+    assert "constexpr int SCAN_WARPS = SCAN_THREADS / 32;" in common
+    assert "constexpr int NCL_THREADS = SCAN_THREADS;" in nerf
+    assert "constexpr int NCL_WARPS = SCAN_WARPS;" in nerf
+    threads = int(re.search(r"constexpr int SCAN_THREADS = (\d+);", common).group(1))
+    env = {"SCAN_WARPS": threads // 32, "NCL_THREADS": threads, "NCL_WARPS": threads // 32,
+           "NCL_SUMS": int(re.search(r"constexpr int NCL_SUMS = (\d+);", nerf).group(1))}
+    env["heads_pad8"] = lambda n: eval(pad8, {"n": n})
+    env["block_scratch_floats"] = lambda m: eval(scratch, dict(env, M=m))
+    env["nerf_rows_smem_bytes"] = lambda f, fh, e: eval(
+        rows, dict(env, F=f, Fh=fh, elem_bytes=e))
+    return lambda feat, fh, n_s, elem: eval(ncl, dict(env, F=feat, Fh=fh, S=n_s,
+                                                      elem_bytes=elem))
+
+
+@pytest.mark.parametrize("feat,fh,dtype,want", [
+    (512, 256, torch.float32, 5172),   # the widest operands: every width's floor
+    (512, 256, torch.bfloat16, 5244),
+    (256, 128, torch.bfloat16, 5848),  # the nerf 8 x 256 field
+    (40, 20, torch.float32, 6340)])
+def test_nerf_composite_sample_limit_is_the_c_formula(feat, fh, dtype, want):
+    """nerf_composite_max_samples: the largest S whose shared memory, by the
+    C entry's own formula read from the source, fits the 227 KB a block may
+    hold; S fits, S + 1 does not, and the Python mirror gives the same bytes
+    at every S."""
+    nbytes, elem = _c_ncl_smem_bytes(), torch.finfo(dtype).bits // 8
+    limit = FN.nerf_composite_max_samples(feat, fh, dtype)
+    assert limit == want
+    assert nbytes(feat, fh, limit, elem) <= FM.SMEM_OPTIN_BYTES
+    assert nbytes(feat, fh, limit + 1, elem) > FM.SMEM_OPTIN_BYTES
+    for n_s in (1, 64, 256, 257, 640, limit):
+        assert FN._ncl_smem_bytes(feat, fh, n_s, elem) == nbytes(feat, fh, n_s, elem)
