@@ -266,6 +266,12 @@ NERF_LONGER_SAMPLES = 512
 # (rays, samples a ray) at which phase 2e times and holds the nerf variant's
 # two per-ray kernels past two chunks of their block scans
 NERF_SCAN_CASE = (256, 640)
+# (points, F) at which phase 2e holds the per-point kernels against their
+# plain versions in both dtypes: the fine and the coarse pass of a
+# hierarchical batch at the nerf field's width, and the widest width the
+# kernels take (Fh = F / 2)
+NERF_POINT_CASES = ((BATCH * (SAMPLES + N_IMPORTANCE), NERF_FEAT),
+                    (BATCH * SAMPLES, NERF_FEAT), (BATCH * 16, 512))
 # (rays, samples a ray) at which phases 2b, 2c (SIREN) and 2e (nerf) hold
 # every launch of their chains past 256 samples: the long runs' training
 # batch, and a length whose shared memory needs the opt-in past 48 KB (the
@@ -2115,7 +2121,9 @@ def _time_nerf_kernels(field, dev, failures: list) -> dict:
     failures += [f"{b} (timed launches)" for b in chk.bad]
     del h, r, noise, gt, hargs, cargs
 
-    # ---- the per-point kernels: the fine pass of a hierarchical batch
+    # ---- the per-point kernels: the fine pass of a hierarchical batch,
+    # timed; then held against their plain versions there, at the coarse
+    # pass (65,536 points) and at the widest width, in both dtypes
     p = BATCH * (SAMPLES + N_IMPORTANCE)
     h, r = rand(p, feat).abs(), rand(p, fh).abs()
     cot = rand(p, 8, to=torch.float32)
@@ -2129,6 +2137,21 @@ def _time_nerf_kernels(field, dev, failures: list) -> dict:
         lambda: FN.nerf_field_heads_bwd_reference(*fargs, cot), None,
         _nbytes(*fargs, cot) + (p * (feat + fh) + 4 * feat + 4) * 4,
         6.0 * p * (feat + 3 * fh))
+    del h, r, cot, fargs
+    for pdtype in (torch.bfloat16, torch.float32):
+        pchk = NerfCheck(pdtype)
+        for n_p, width in NERF_POINT_CASES:
+            wn = rand(4, width, to=pdtype) * (3.0 / width ** 0.5)
+            wn[1:, width // 2:] = 0
+            fargs = (rand(n_p, width, to=pdtype).abs(),
+                     rand(n_p, width // 2, to=pdtype).abs(), wn,
+                     rand(4, to=torch.float32))
+            pchk.field_heads(*fargs)
+            pchk.field_heads_bwd(*fargs, rand(n_p, 8, to=torch.float32))
+            del fargs, wn
+        failures += [f"{b} ({pdtype}, NERF_POINT_CASES)" for b in pchk.bad]
+        for name in NERF_FIELD_KERNELS:
+            out[name][f"held_err_{str(pdtype).split('.')[-1]}"] = pchk.err[name]
     return out
 
 
@@ -2304,6 +2327,9 @@ def phase2e(results: dict):
                 f"plain {e['long_plain_ms']:.3f} ms, bound {e['long_bound_ms']:.3f} ms "
                 f"({e['long_bound_by']}); both shapes vs plain max err "
                 f"{e['held_err']:.2e}")
+        if "held_err_bfloat16" in e:
+            log(f"phase 2e: {name} vs plain at (points, F) {NERF_POINT_CASES}: max "
+                f"err bf16 {e['held_err_bfloat16']:.2e}, fp32 {e['held_err_float32']:.2e}")
     log("phase 2e: nerf_dense_wgrad skip layer, of each tensor's largest "
         "entry: " + ", ".join(f"{k} {v:.2e}" for k, v in
                               times["nerf_dense_wgrad"]["rel_err"].items()))

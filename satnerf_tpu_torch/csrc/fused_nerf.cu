@@ -44,9 +44,12 @@
 //                         adjoint of _composite_bwd_tile_nerf :545 as a
 //                         suffix scan and the two narrow heads' backward: d_h
 //                         (the sigma head's share), d_r, dWn, dbn.
-//   nerf_field_heads      the two narrow heads per point, no compositor:
-//                         out (P, 8) [rgb | sigma] (fused_nerf.py:188-190).
-//   nerf_field_heads_bwd  their backward from a (P, 8) cotangent.
+//   nerf_field_heads      the two narrow heads per point, no compositor, a
+//                         streaming kernel (nerf_field_heads_stream): out
+//                         (P, 8) [rgb | sigma] (fused_nerf.py:188-190).
+//   nerf_field_heads_bwd  their backward from a (P, 8) cotangent, streaming
+//                         on a persistent grid (nerf_field_heads_bwd_stream):
+//                         d_h, d_r, dWn, dbn.
 //
 // The dense kernels each have three mainloops and one rule, as the SIREN
 // variants' (fused_render.cu, fused_train.cu). nerf_dense: wgmma
@@ -1597,180 +1600,315 @@ nerf_composite_loss_bwd_block(const T* __restrict__ h, int F, const T* __restric
 
 // ------------------------------------------- nerf_field_heads and its backward
 //
-// Replaces the narrow heads of fused_nerf.py _make_fwd_kernel :180 and the
-// head part of _make_bwd_kernel :257 (_point_bwd_from_saves :216-239). The
-// points are independent, so a warp takes one point at a time as warp-reduced
-// dot products and a block of eight warps walks 128 points, each lane keeping
-// its columns of the narrow weights and of the dWn rows in registers. The
-// block's dWn and dbn meet in shared memory and leave as one atomicAdd per
-// entry and block.
+// The two narrow heads a point, no compositor: fused_nerf.py _make_fwd_kernel
+// :180 (the heads of _forward :162-173 and the (P, 8) output :188-190) and
+// the head part of _make_bwd_kernel :257 (_point_bwd_from_saves :216-239).
+// The points are independent, and a point's work is small (2 F + 6 Fh
+// flops forward) beside its bytes, so both kernels stream the points and are
+// bound by device memory. Both stage the four rows and biases in shared
+// memory (heads.cuh load_nerf_rows) and compute a warp's U points' heads
+// with heads.cuh's nerf_point_heads or its pieces: the U points' 16-byte
+// chunks of h and r all loaded before any product and kept raw, the weight
+// chunks unpacked once for the U points, the four dot products reduced in
+// one shuffle tree. The bodies they replaced took a point at a time a warp,
+// read h and r two bytes a lane, kept the rows as 40 floats a lane and
+// reduced the four heads in four warp sums (20 shuffles).
 
-constexpr int NF_WARPS = 8;
-constexpr int NF_PTS = 16;  // points a warp walks
-constexpr int NF_MAX_F = 512;
-constexpr int NF_F_REGS = NF_MAX_F / 32;
-constexpr int NF_H_REGS = NF_F_REGS / 2;
+constexpr int NF_MAX_F = 512;  // narrow_shapes_ok: F <= 512, Fh <= 256
+constexpr int NF_MAX_FH = NF_MAX_F / 2;
 
-// The lane's columns lane, lane + 32, ... of a row of n values; 0 past n.
-template <typename T, int N>
-__device__ __forceinline__ void load_row(const T* __restrict__ x, int n, int lane,
-                                         float (&v)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int k = lane + 32 * i;
-    v[i] = k < n ? to_f32<T>(x[k]) : 0.f;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ float dot_row(const float (&a)[N], const float (&b)[N]) {
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < N; ++i) s = fmaf(a[i], b[i], s);
-  return warp_sum(s);
-}
+// ---- nerf_field_heads: out[q] = [rgb 0:3 | sigma 3 | 0 4:8] of point q.
+// A streaming kernel: a block of NFH_THREADS takes NFH_BLOCK_POINTS
+// neighbouring points, its warps NFH_IN_FLIGHT (U) neighbouring points at a
+// time (the block's warps on neighbouring groups), NFH_WARP_POINTS a warp
+// in turn. Lane L of a group takes column L % 8 of point L / 8: it fetches
+// its head's pre-activation from a lane that holds it (one shuffle a
+// point), applies the one activation its column needs (the sigmoid padded
+// by rgb_padding, softplus, or none), and the group's U points leave in one
+// coalesced store of 32 U contiguous bytes. At most 64 registers a thread,
+// so 4 blocks (32 warps) an SM.
+//
+// Bound by device memory: h (F values) and r (Fh) read, 32 bytes written a
+// point: 800 bytes at 8 x 256 in bf16, 105 MB at 131,072 points, 0.031 ms
+// at 3.35 TB/s; it takes 0.044 on an H100 (PERF.md section 6; the body it
+// replaced 0.233).
+constexpr int NFH_THREADS = 256;
+constexpr int NFH_WARPS = NFH_THREADS / 32;
+// Measured choices (PERF.md section 6; tools/outputs_torch.py variants): the
+// points a warp's heads load at once (1 ran slower, 4 spilled at 64
+// registers and ran slower); 32 points a warp ran as fast as 16.
+constexpr int NFH_IN_FLIGHT = 2;
+constexpr int NFH_MIN_BLOCKS = 4;
+constexpr int NFH_WARP_POINTS = 16;
+constexpr int NFH_BLOCK_POINTS = NFH_WARPS * NFH_WARP_POINTS;
 
 template <typename T>
-__global__ void __launch_bounds__(NF_WARPS * 32)
-nerf_field_heads_kernel(const T* __restrict__ h, int F, const T* __restrict__ rf, int Fh,
+__global__ void __launch_bounds__(NFH_THREADS, NFH_MIN_BLOCKS)
+nerf_field_heads_stream(const T* __restrict__ h, int F, const T* __restrict__ rf, int Fh,
                         const T* __restrict__ Wn, const float* __restrict__ bn, int P,
-                        float rgb_padding, float* __restrict__ out) {
+                        float rgb_padding, int vec, float* __restrict__ out) {
+  constexpr int U = NFH_IN_FLIGHT;
+  static_assert(U >= 1 && U <= 32 / NERF_COLS && NFH_WARP_POINTS % U == 0,
+                "a warp's group of points fills at most 32 lanes of columns");
+  extern __shared__ __align__(16) unsigned char nfh_smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
-  float w_sig[NF_F_REGS], w_rgb[3][NF_H_REGS];
-  load_row<T>(Wn, F, lane, w_sig);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) load_row<T>(Wn + (size_t)(1 + c) * F, Fh, lane, w_rgb[c]);
+  const HeadRows<T, true> w = load_nerf_rows<T>(Wn, bn, F, Fh, nfh_smem);
+  __syncthreads();
   const float pad2 = 1.f + 2.f * rgb_padding;
-
-  const long long q0 = ((long long)blockIdx.x * NF_WARPS + warp) * NF_PTS;
-  for (int i = 0; i < NF_PTS; ++i) {
-    const long long q = q0 + i;
-    if (q >= P) break;  // the whole warp leaves together
-    float hv[NF_F_REGS], rv[NF_H_REGS];
-    load_row<T>(h + (size_t)q * F, F, lane, hv);
-    load_row<T>(rf + (size_t)q * Fh, Fh, lane, rv);
-    const float sigma = softplusf(dot_row(hv, w_sig) + bn[0]);
-    float rgb[3];
+  const int passes = nerf_head_passes<T>(F, Fh);
+  const int col = lane % NERF_COLS, mine = lane / NERF_COLS;  // column, point of the group
+  const int src = (col < 3 ? 1 + col : 0) * 8;  // a lane that holds the column's head
+  const long long qb = (long long)blockIdx.x * NFH_BLOCK_POINTS;
+  for (int it = 0; it < NFH_WARP_POINTS / U; ++it) {
+    const long long q0 = qb + (long long)(it * NFH_WARPS + warp) * U;
+    if (q0 >= P) break;  // the whole warp leaves together
+    const int live = P - q0 < U ? (int)(P - q0) : U;
+    float pre[U];
+    nerf_point_heads<T, U>(h, F, rf, Fh, (size_t)q0, 1, live, vec, passes, w, lane, pre);
+    float v = 0.f;
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      rgb[c] = sigmoidf(dot_row(rv, w_rgb[c]) + bn[1 + c]) * pad2 - rgb_padding;
-    if (lane < NERF_COLS) {
-      float v = 0.f;
-      if (lane < 3) v = lane == 0 ? rgb[0] : (lane == 1 ? rgb[1] : rgb[2]);
-      else if (lane == 3) v = sigma;
-      out[(size_t)q * NERF_COLS + lane] = v;
+    for (int u = 0; u < U; ++u) {
+      const float x = __shfl_sync(0xffffffffu, pre[u], src);
+      if (u == mine) v = x;
     }
+    if (col < 3) v = sigmoidf(v + w.bs[1 + col]) * pad2 - rgb_padding;
+    else v = col == 3 ? softplusf(v + w.bs[0]) : 0.f;
+    if (lane < NERF_COLS * live) out[(size_t)q0 * NERF_COLS + lane] = v;
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NF_WARPS * 32)
-nerf_field_heads_bwd_kernel(const T* __restrict__ h, int F, const T* __restrict__ rf, int Fh,
+// ---- nerf_field_heads_bwd: from g (P, 8) fp32, the four pre-activation
+// cotangents of each point, rgb g_c (1 + 2 pad) cs (1 - cs) and sigma g_3
+// softplus'(pre) = g_3 (-expm1f(-sigma)) (1 - expf(-sigma) is 0 below 1e-8),
+// each rounded to the compute type before both of its products: d_h =
+// gb_sig w_sig (F) and d_r = sum_c gb_c w_c (Fh) in fp32, and dWn (4, F)
+// summed over all points; dbn (4,) sums the unrounded cotangents.
+//
+// A persistent grid (hopper::resident_blocks) of blocks of NFB_THREADS;
+// warp i of block b takes the U = NFB_IN_FLIGHT points from (b NFB_WARPS +
+// i) U, then the U from every gridDim.x NFB_WARPS U points after:
+//  * the heads again, from the U points' chunks of h and r (NP passes, a
+//    template parameter: all of a point's chunks in flight at once);
+//  * lane L forms the cotangent of head L / 8 of each point (g read once,
+//    32 U contiguous bytes, and shuffled), then every lane fetches the four
+//    rounded ones of each point (4 U shuffles);
+//  * dWn's columns over the lane's chunks, NP (V + 3 V) fp32 sums in
+//    registers kept over all of the warp's points (NFB_KEEP_ROWS: from the
+//    chunks the heads loaded, still in registers; else read again, from L1);
+//  * d_h and d_r need the weights only: a lane takes 4 columns of each 128,
+//    read from the rows in shared memory once for the U points, and writes
+//    them as one 16-byte store, so a store instruction of the warp covers
+//    512 contiguous bytes.
+// At the end each warp writes its sums to its row of shared memory, and a
+// thread a column adds the block's rows and makes one fp32 atomicAdd into
+// dWn and dbn (which the wrapper zeroes): F + 3 Fh + 4 atomics a block, 264
+// blocks at 2 an SM, where the body it replaced made as many for each 128
+// points (after 640 shared atomics a warp on the same addresses). The
+// atomics add in an order that changes from run to run.
+//
+// Bound by device memory: h, r and g read, d_h and d_r written in fp32:
+// 2,336 bytes a point at 8 x 256 in bf16, 306 MB at 131,072 points, 0.091
+// ms at 3.35 TB/s; it takes 0.122 on an H100 (PERF.md section 6; the body
+// it replaced 0.443).
+constexpr int NFB_THREADS = 256;
+constexpr int NFB_WARPS = NFB_THREADS / 32;
+// Measured choices (PERF.md section 6; tools/outputs_torch.py variants): the
+// points a warp takes at once (1 ran slower, 4 spilled and ran slower); 2
+// blocks an SM, so 128 registers a thread (at 3, 80 registers, it spilled
+// and ran 53 % slower); dWn's products from the heads' chunks kept in
+// registers (read again from L1 they ran 6 % slower).
+constexpr int NFB_IN_FLIGHT = 2;
+constexpr int NFB_MIN_BLOCKS = 2;
+constexpr bool NFB_KEEP_ROWS = true;
+
+// Floats of a warp's row of sums: dWn's rows laid out as the weights are in
+// shared memory (heads.cuh), then dbn (8 slots: rows stay 32 bytes apart).
+__host__ __device__ constexpr int nfb_row_floats(int F, int Fh) {
+  return heads_pad8(F) + 3 * heads_pad8(Fh) + 8;
+}
+
+// The dynamic shared memory of a block, in bytes: the rows and biases
+// (heads.cuh), then each warp's row of sums.
+__host__ __device__ constexpr int nfb_smem_bytes(int F, int Fh, int elem_bytes) {
+  return nerf_rows_smem_bytes(F, Fh, elem_bytes) + 4 * NFB_WARPS * nfb_row_floats(F, Fh);
+}
+
+template <typename T, int NP>
+__global__ void __launch_bounds__(NFB_THREADS, NFB_MIN_BLOCKS)
+nerf_field_heads_bwd_stream(const T* __restrict__ h, int F, const T* __restrict__ rf, int Fh,
                             const T* __restrict__ Wn, const float* __restrict__ bn,
-                            const float* __restrict__ g, int P, float rgb_padding,
+                            const float* __restrict__ g, int P, float rgb_padding, int vec,
                             float* __restrict__ d_h, float* __restrict__ d_r,
                             float* __restrict__ dWn, float* __restrict__ dbn) {
-  // the block's share of dWn: sigma (F) | rgb x3 (Fh each)
-  __shared__ float red[NF_MAX_F + 3 * (NF_MAX_F / 2)];
-  __shared__ float red_b[4];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
-  const int n_red = F + 3 * Fh;
-  for (int i = threadIdx.x; i < n_red; i += NF_WARPS * 32) red[i] = 0.f;
-  if (threadIdx.x < 4) red_b[threadIdx.x] = 0.f;
+  constexpr int V = Vec16<T>::N, U = NFB_IN_FLIGHT;
+  // the passes of r (Fh <= NF_MAX_FH and Fh <= F)
+  constexpr int NPR = NP < NF_MAX_FH / (32 * V) ? NP : NF_MAX_FH / (32 * V);
+  static_assert(U >= 1 && U <= 32 / NERF_COLS, "a group's cotangents fill at most a warp");
+  extern __shared__ __align__(16) unsigned char nfb_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid / 32;
+  const HeadRows<T, true> w = load_nerf_rows<T>(Wn, bn, F, Fh, nfb_smem);
+  const int Fp = heads_pad8(F), Fhp = heads_pad8(Fh), ld = nfb_row_floats(F, Fh);
+  float* red = reinterpret_cast<float*>(nfb_smem + nerf_rows_smem_bytes(F, Fh, sizeof(T)));
   __syncthreads();
 
-  float w_sig[NF_F_REGS], w_rgb[3][NF_H_REGS];
-  load_row<T>(Wn, F, lane, w_sig);
+  float a_sig[NP][V], a_rgb[NPR][3][V];  // dWn rows 0 and 1:4 at the lane's chunks
 #pragma unroll
-  for (int c = 0; c < 3; ++c) load_row<T>(Wn + (size_t)(1 + c) * F, Fh, lane, w_rgb[c]);
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < V; ++i) a_sig[p][i] = 0.f;
+#pragma unroll
+  for (int p = 0; p < NPR; ++p)
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int i = 0; i < V; ++i) a_rgb[p][c][i] = 0.f;
+  float b_sum = 0.f;  // dbn[head]: the unrounded cotangents
   const float pad2 = 1.f + 2.f * rgb_padding;
+  const int head = lane >> 3;                  // the head whose pre-activation the lane gets
+  const int g_col = head == 0 ? 3 : head - 1;  // that head's column of g
+  const long long stride = (long long)gridDim.x * NFB_WARPS * U;
 
-  float a_sig[NF_F_REGS], a_rgb[3][NF_H_REGS];
-#pragma unroll
-  for (int i = 0; i < NF_F_REGS; ++i) a_sig[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < NF_H_REGS; ++i) a_rgb[0][i] = a_rgb[1][i] = a_rgb[2][i] = 0.f;
-  float b_sig = 0.f, b_rgb[3] = {0.f, 0.f, 0.f};
+  for (long long q0 = ((long long)blockIdx.x * NFB_WARPS + warp) * U; q0 < P; q0 += stride) {
+    const int live = P - q0 < U ? (int)(P - q0) : U;
+    const float g_lane = lane < NERF_COLS * live ? g[(size_t)q0 * NERF_COLS + lane] : 0.f;
 
-  const long long q0 = ((long long)blockIdx.x * NF_WARPS + warp) * NF_PTS;
-  for (int i = 0; i < NF_PTS; ++i) {
-    const long long q = q0 + i;
-    if (q >= P) break;  // the whole warp leaves the loop together
-    float hv[NF_F_REGS], rv[NF_H_REGS];
-    load_row<T>(h + (size_t)q * F, F, lane, hv);
-    load_row<T>(rf + (size_t)q * Fh, Fh, lane, rv);
-    const float sigma = softplusf(dot_row(hv, w_sig) + bn[0]);
-    const float* gq = g + (size_t)q * NERF_COLS;
-    float gb_rgb[3];
+    // the heads again, every chunk of the U points in flight at once
+    uint4 xh[NP][U], xr[NPR][U];  // raw until the products
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float cs = sigmoidf(dot_row(rv, w_rgb[c]) + bn[1 + c]);
-      const float g_pre = gq[c] * pad2 * cs * (1.f - cs);
-      b_rgb[c] += g_pre;
-      gb_rgb[c] = round_to<T>(g_pre);
+    for (int p = 0; p < NP; ++p)
+      nerf_chunk_loads<T, U>(h, F, (size_t)q0, 1, live, vec, (p * 32 + lane) * V, xh[p]);
+#pragma unroll
+    for (int p = 0; p < NPR; ++p)
+      nerf_chunk_loads<T, U>(rf, Fh, (size_t)q0, 1, live, vec, (p * 32 + lane) * V, xr[p]);
+    float part[U][4];
+#pragma unroll
+    for (int u = 0; u < U; ++u) part[u][0] = part[u][1] = part[u][2] = part[u][3] = 0.f;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      nerf_sigma_dots<T, U>(w, F, (p * 32 + lane) * V, live, xh[p], part);
+#pragma unroll
+    for (int p = 0; p < NPR; ++p)
+      nerf_rgb_dots<T, U>(w, Fh, (p * 32 + lane) * V, live, xr[p], part);
+
+    // the lane's head's cotangent of each point, then all four to every lane
+    float gs[U][4];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float pre = warp_sum4(part[u], lane);
+      const float gq = __shfl_sync(0xffffffffu, g_lane, u * NERF_COLS + g_col);
+      float gp;
+      if (head == 0) {
+        gp = gq * -expm1f(-softplusf(pre + w.bs[0]));
+      } else {
+        const float cs = sigmoidf(pre + w.bs[head]);
+        gp = gq * pad2 * cs * (1.f - cs);
+      }
+      if (u < live) b_sum += gp;
+      const float gb = round_to<T>(gp);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) gs[u][j] = __shfl_sync(0xffffffffu, gb, 8 * j);
     }
-    const float g_pre_sig = gq[3] * -expm1f(-sigma);
-    b_sig += g_pre_sig;
-    const float gb_sig = round_to<T>(g_pre_sig);
 
-    float* dhq = d_h + (size_t)q * F;
+    // dWn over the lane's chunks
 #pragma unroll
-    for (int j = 0; j < NF_F_REGS; ++j) {
-      const int k = lane + 32 * j;
-      if (k < F) {
-        a_sig[j] = fmaf(gb_sig, hv[j], a_sig[j]);
-        dhq[k] = gb_sig * w_sig[j];
+    for (int p = 0; p < NP; ++p) {
+      const int k = (p * 32 + lane) * V;
+      if (k >= F) continue;
+      if constexpr (!NFB_KEEP_ROWS)
+        nerf_chunk_loads<T, U>(h, F, (size_t)q0, 1, live, vec, k, xh[p]);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (u >= live) break;
+        float x[V];
+        chunk_values<T>(xh[p][u], x);
+#pragma unroll
+        for (int i = 0; i < V; ++i) a_sig[p][i] = fmaf(gs[u][0], x[i], a_sig[p][i]);
       }
     }
-    const size_t qh = (size_t)q * Fh;
 #pragma unroll
-    for (int j = 0; j < NF_H_REGS; ++j) {
-      const int k = lane + 32 * j;
-      if (k < Fh) {
-        float dr = 0.f;
+    for (int p = 0; p < NPR; ++p) {
+      const int k = (p * 32 + lane) * V;
+      if (k >= Fh) continue;
+      if constexpr (!NFB_KEEP_ROWS)
+        nerf_chunk_loads<T, U>(rf, Fh, (size_t)q0, 1, live, vec, k, xr[p]);
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          a_rgb[c][j] = fmaf(gb_rgb[c], rv[j], a_rgb[c][j]);
-          dr = fmaf(gb_rgb[c], w_rgb[c][j], dr);
-        }
-        d_r[qh + k] = dr;
+      for (int u = 0; u < U; ++u) {
+        if (u >= live) break;
+        float x[V];
+        chunk_values<T>(xr[p][u], x);
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+#pragma unroll
+          for (int i = 0; i < V; ++i) a_rgb[p][c][i] = fmaf(gs[u][1 + c], x[i], a_rgb[p][c][i]);
+      }
+    }
+
+    // the cotangents of h and r: 4 columns of each 128 a lane
+    for (int k = 4 * lane; k < F; k += 128) {
+      float wv[4];
+      smem4<T>(w.ws + k, wv);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (u >= live) break;
+        float d[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) d[i] = gs[u][0] * wv[i];
+        store_chunk<4>(d_h + (size_t)(q0 + u) * F, k, F, vec, d);
+      }
+    }
+    for (int k = 4 * lane; k < Fh; k += 128) {
+      float wc[3][4];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) smem4<T>(w.wh + c * Fhp + k, wc[c]);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (u >= live) break;
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) d[i] = fmaf(gs[u][1 + c], wc[c][i], d[i]);
+        store_chunk<4>(d_r + (size_t)(q0 + u) * Fh, k, Fh, vec, d);
       }
     }
   }
 
-  // the warps' sums meet in shared memory, then one atomic per entry and block
+  // the warps' sums meet in shared memory, a row a warp (the NP passes write
+  // every column below F and Fh), then a thread a column adds the block's
+  // rows and makes one atomicAdd
+  float* mine = red + warp * ld;
 #pragma unroll
-  for (int j = 0; j < NF_F_REGS; ++j) {
-    const int k = lane + 32 * j;
-    if (k < F) atomicAdd(&red[k], a_sig[j]);
+  for (int p = 0; p < NP; ++p) {
+    const int k = (p * 32 + lane) * V;
+    if (k >= F) continue;
+#pragma unroll
+    for (int i = 0; i < V; ++i) mine[k + i] = a_sig[p][i];
   }
 #pragma unroll
-  for (int j = 0; j < NF_H_REGS; ++j) {
-    const int k = lane + 32 * j;
-    if (k < Fh) {
+  for (int p = 0; p < NPR; ++p) {
+    const int k = (p * 32 + lane) * V;
+    if (k >= Fh) continue;
 #pragma unroll
-      for (int c = 0; c < 3; ++c) atomicAdd(&red[F + c * Fh + k], a_rgb[c][j]);
-    }
-  }
-  if (lane == 0) {
-    atomicAdd(&red_b[0], b_sig);
+    for (int c = 0; c < 3; ++c)
 #pragma unroll
-    for (int c = 0; c < 3; ++c) atomicAdd(&red_b[1 + c], b_rgb[c]);
+      for (int i = 0; i < V; ++i) mine[Fp + c * Fhp + k + i] = a_rgb[p][c][i];
   }
+  if (lane % 8 == 0) mine[Fp + 3 * Fhp + head] = b_sum;
   __syncthreads();
-  for (int i = threadIdx.x; i < n_red; i += NF_WARPS * 32) {
-    // red index -> (row of dWn, column)
-    const int row = i < F ? 0 : 1 + (i - F) / Fh;
-    const int k = i < F ? i : (i - F) % Fh;
-    atomicAdd(dWn + (size_t)row * F + k, red[i]);
+  for (int i = tid; i < F + 3 * Fh + 4; i += NFB_THREADS) {
+    const int row = i < F ? 0 : i < F + 3 * Fh ? 1 + (i - F) / Fh : 4;
+    const int col = row == 0 ? i : row < 4 ? (i - F) % Fh : i - F - 3 * Fh;
+    const int off = row == 0 ? col : Fp + (row - 1) * Fhp + col;  // row 4: dbn's slots
+    float v = 0.f;
+    for (int wp = 0; wp < NFB_WARPS; ++wp) v += red[wp * ld + off];
+    atomicAdd(row < 4 ? dWn + (size_t)row * F + col : dbn + col, v);
   }
-  if (threadIdx.x < 4) atomicAdd(dbn + threadIdx.x, red_b[threadIdx.x]);
 }
 
-// The widths the per-ray and per-point kernels take (the per-point kernels'
-// register rows hold NF_MAX_F); ops/fused_nerf.py _check_narrow.
+// The widths the per-ray and per-point kernels take; ops/fused_nerf.py
+// _check_narrow.
 bool narrow_shapes_ok(int F, int Fh) {
-  return F >= 1 && F <= NF_MAX_F && Fh >= 1 && Fh <= NF_MAX_F / 2 && Fh <= F;
+  return F >= 1 && F <= NF_MAX_F && Fh >= 1 && Fh <= NF_MAX_FH && Fh <= F;
 }
 
 template <typename T> const T* as(const void* p) { return static_cast<const T*>(p); }
@@ -1887,6 +2025,54 @@ int launch_nerf_composite(const void* h, int F, const void* rf, int Fh, const vo
       as<float>(gt), R, S, rgb_padding, vec, out_f32(loss_sum), out_f32(d_h), out_f32(d_r),
       out_f32(dWn), out_f32(dbn));
   return (int)cudaGetLastError();
+}
+
+// nerf_field_heads_stream over blocks of NFH_BLOCK_POINTS points.
+template <typename T>
+int launch_nerf_field_heads(const void* h, int F, const void* rf, int Fh, const void* Wn,
+                            const void* bn, int P, float rgb_padding, void* out,
+                            cudaStream_t st) {
+  constexpr int V = Vec16<T>::N;
+  const int vec = F % V == 0 && Fh % V == 0 && aligned16(h, rf);
+  const int grid = (int)(((long long)P + NFH_BLOCK_POINTS - 1) / NFH_BLOCK_POINTS);
+  nerf_field_heads_stream<T><<<grid, NFH_THREADS, nerf_rows_smem_bytes(F, Fh, sizeof(T)), st>>>(
+      as<T>(h), F, as<T>(rf), Fh, as<T>(Wn), as<float>(bn), P, rgb_padding, vec, out_f32(out));
+  return (int)cudaGetLastError();
+}
+
+// nerf_field_heads_bwd_stream<T, NP> on its persistent grid.
+template <typename T, int NP>
+int launch_nerf_field_heads_bwd(const void* h, int F, const void* rf, int Fh, const void* Wn,
+                                const void* bn, const void* g, int P, float rgb_padding,
+                                void* d_h, void* d_r, void* dWn, void* dbn, cudaStream_t st) {
+  const int smem = nfb_smem_bytes(F, Fh, sizeof(T));
+  static int resident = 0, resident_smem = -1;  // the persistent grid, for this smem
+  if (smem != resident_smem) {
+    resident = hopper::resident_blocks(nerf_field_heads_bwd_stream<T, NP>, NFB_THREADS, smem);
+    resident_smem = smem;
+  }
+  if (resident == 0) return (int)cudaErrorInvalidConfiguration;
+  constexpr int V = Vec16<T>::N;
+  const int vec = F % V == 0 && Fh % V == 0 && aligned16(h, rf, d_h, d_r);
+  const long long groups = ((long long)P + NFB_IN_FLIGHT - 1) / NFB_IN_FLIGHT;
+  const int grid = (int)std::min<long long>(resident, (groups + NFB_WARPS - 1) / NFB_WARPS);
+  nerf_field_heads_bwd_stream<T, NP><<<grid, NFB_THREADS, smem, st>>>(
+      as<T>(h), F, as<T>(rf), Fh, as<T>(Wn), as<float>(bn), as<float>(g), P, rgb_padding, vec,
+      out_f32(d_h), out_f32(d_r), out_f32(dWn), out_f32(dbn));
+  return (int)cudaGetLastError();
+}
+
+// The instantiation whose NP passes cover F: 1, 2 or 4 (3 rounds up; its
+// fourth pass's chunks lie past F).
+template <typename T>
+int launch_nerf_field_heads_bwd_np(const void* h, int F, const void* rf, int Fh, const void* Wn,
+                                   const void* bn, const void* g, int P, float rgb_padding,
+                                   void* d_h, void* d_r, void* dWn, void* dbn, cudaStream_t st) {
+  constexpr int PASS_F = 32 * Vec16<T>::N;  // the features of h a pass covers
+  auto launch = F <= PASS_F ? launch_nerf_field_heads_bwd<T, 1>
+                : F <= 2 * PASS_F ? launch_nerf_field_heads_bwd<T, 2>
+                                  : launch_nerf_field_heads_bwd<T, NF_MAX_F / PASS_F>;
+  return launch(h, F, rf, Fh, Wn, bn, g, P, rgb_padding, d_h, d_r, dWn, dbn, st);
 }
 
 }  // namespace
@@ -2074,22 +2260,11 @@ extern "C" int satnerf_nerf_field_heads(int dtype, const void* h, int F, const v
                                         const void* Wn, const void* bn, int P,
                                         float rgb_padding, void* out, void* stream) {
   if (!narrow_shapes_ok(F, Fh) || P < 0) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (P == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int per_block = NF_WARPS * NF_PTS;
-  const int grid = (int)(((long long)P + per_block - 1) / per_block);
-  if (dtype == 0) {
-    nerf_field_heads_kernel<float><<<grid, NF_WARPS * 32, 0, st>>>(
-        as<float>(h), F, as<float>(rf), Fh, as<float>(Wn), as<float>(bn), P, rgb_padding,
-        out_f32(out));
-  } else if (dtype == 1) {
-    nerf_field_heads_kernel<bf16><<<grid, NF_WARPS * 32, 0, st>>>(
-        as<bf16>(h), F, as<bf16>(rf), Fh, as<bf16>(Wn), as<float>(bn), P, rgb_padding,
-        out_f32(out));
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  auto launch = dtype == 0 ? launch_nerf_field_heads<float> : launch_nerf_field_heads<bf16>;
+  return launch(h, F, rf, Fh, Wn, bn, P, rgb_padding, out, st);
 }
 
 extern "C" int satnerf_nerf_field_heads_bwd(int dtype, const void* h, int F, const void* rf,
@@ -2097,20 +2272,10 @@ extern "C" int satnerf_nerf_field_heads_bwd(int dtype, const void* h, int F, con
                                             const void* g, int P, float rgb_padding, void* d_h,
                                             void* d_r, void* dWn, void* dbn, void* stream) {
   if (!narrow_shapes_ok(F, Fh) || P < 0 || g == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (P == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int per_block = NF_WARPS * NF_PTS;
-  const int grid = (int)(((long long)P + per_block - 1) / per_block);
-  if (dtype == 0) {
-    nerf_field_heads_bwd_kernel<float><<<grid, NF_WARPS * 32, 0, st>>>(
-        as<float>(h), F, as<float>(rf), Fh, as<float>(Wn), as<float>(bn), as<float>(g), P,
-        rgb_padding, out_f32(d_h), out_f32(d_r), out_f32(dWn), out_f32(dbn));
-  } else if (dtype == 1) {
-    nerf_field_heads_bwd_kernel<bf16><<<grid, NF_WARPS * 32, 0, st>>>(
-        as<bf16>(h), F, as<bf16>(rf), Fh, as<bf16>(Wn), as<float>(bn), as<float>(g), P,
-        rgb_padding, out_f32(d_h), out_f32(d_r), out_f32(dWn), out_f32(dbn));
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  auto launch =
+      dtype == 0 ? launch_nerf_field_heads_bwd_np<float> : launch_nerf_field_heads_bwd_np<bf16>;
+  return launch(h, F, rf, Fh, Wn, bn, g, P, rgb_padding, d_h, d_r, dWn, dbn, st);
 }

@@ -1,7 +1,8 @@
 // The narrow heads of one point, shared by the kernels that compute them:
 // field_heads and field_heads_bwd (fused_field.cu), heads_composite
 // (fused_render.cu), and for the nerf variant's two heads (the end of this
-// file) nerf_heads_composite and nerf_composite_loss_bwd (fused_nerf.cu).
+// file) nerf_heads_composite, nerf_composite_loss_bwd, nerf_field_heads and
+// nerf_field_heads_bwd (fused_nerf.cu).
 // From the point's rows h (F), r, s2 and bh (Fh each) and the nine narrow
 // weight rows, the pre-activations of sigma (h . w0), rgb x 3
 // (r . w1:4), sun_v (s2 . w4) and beta (bh . w8); and of a ray, from its
@@ -288,13 +289,70 @@ __device__ __forceinline__ int nerf_head_passes(int F, int Fh) {
   return (max(F, Fh) + 32 * V - 1) / (32 * V);
 }
 
+// The lane's chunk k of the rows x (n values a row) of the U points q0,
+// q0 + stride, ... into c, raw (those from `live` on skipped; left as they
+// were where k is past the row's end).
+template <typename T, int U>
+__device__ __forceinline__ void nerf_chunk_loads(const T* __restrict__ x, int n, size_t q0,
+                                                 int stride, int live, int vec, int k,
+                                                 uint4 (&c)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (u >= live) break;
+    if (k < n) c[u] = row_chunk_raw<T>(x + (q0 + (size_t)u * stride) * n, k, n, vec);
+  }
+}
+
+// part[u][0] += the products of the U points' chunks k of h (xh) with the
+// sigma row: its chunk unpacked once for the U points.
+template <typename T, int U>
+__device__ __forceinline__ void nerf_sigma_dots(const HeadRows<T, true>& w, int F, int k,
+                                                int live, const uint4 (&xh)[U],
+                                                float (&part)[U][4]) {
+  constexpr int V = Vec16<T>::N;
+  if (k >= F) return;
+  float ws[V], x[V];
+  chunk_values<T>(weight_chunk(w, w.ws, k, F), ws);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (u >= live) break;
+    chunk_values<T>(xh[u], x);
+#pragma unroll
+    for (int i = 0; i < V; ++i) part[u][0] = fmaf(x[i], ws[i], part[u][0]);
+  }
+}
+
+// part[u][1:4] += the products of the U points' chunks k of r (xr) with the
+// three rgb rows, unpacked once for the U points.
+template <typename T, int U>
+__device__ __forceinline__ void nerf_rgb_dots(const HeadRows<T, true>& w, int Fh, int k,
+                                              int live, const uint4 (&xr)[U],
+                                              float (&part)[U][4]) {
+  constexpr int V = Vec16<T>::N;
+  if (k >= Fh) return;
+  float wc[3][V], x[V];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) chunk_values<T>(weight_chunk(w, w.wh + c * w.ld, k, Fh), wc[c]);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (u >= live) break;
+    chunk_values<T>(xr[u], x);
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int i = 0; i < V; ++i) part[u][1 + c] = fmaf(x[i], wc[c][i], part[u][1 + c]);
+  }
+}
+
 // The pre-activations of sigma (h . w0) and rgb x 3 (r . w1:4) of the U
 // points q0, q0 + stride, ... (those from `live` on skipped), summed over
 // the warp: lane L holds pre[u] = point u's pre-activation L / 8 (warp_sum4).
 // A lane takes one 16-byte chunk of h and one of r a pass, the U points'
 // loads all issued before any product and kept raw until then, against the
 // weight rows read as 16-byte chunks and unpacked once for the U points;
-// passes: nerf_head_passes<T>(F, Fh).
+// passes: nerf_head_passes<T>(F, Fh). A kernel that keeps the chunks for
+// products of its own loads them with nerf_chunk_loads and calls the two
+// dot products above itself.
 template <typename T, int U>
 __device__ __forceinline__ void nerf_point_heads(const T* __restrict__ h, int F,
                                                  const T* __restrict__ rf, int Fh, size_t q0,
@@ -309,37 +367,14 @@ __device__ __forceinline__ void nerf_point_heads(const T* __restrict__ h, int F,
     const int k = (pass * 32 + lane) * V;
     uint4 xh[U], xr[U];  // raw until the products
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
+    for (int u = 0; u < U; ++u) {  // a point's two loads side by side
       if (u >= live) break;
       const size_t q = q0 + (size_t)u * stride;
       if (k < F) xh[u] = row_chunk_raw<T>(h + q * F, k, F, vec);
       if (k < Fh) xr[u] = row_chunk_raw<T>(rf + q * Fh, k, Fh, vec);
     }
-    if (k < F) {
-      float ws[V], x[V];
-      chunk_values<T>(weight_chunk(w, w.ws, k, F), ws);
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (u >= live) break;
-        chunk_values<T>(xh[u], x);
-#pragma unroll
-        for (int i = 0; i < V; ++i) part[u][0] = fmaf(x[i], ws[i], part[u][0]);
-      }
-    }
-    if (k < Fh) {
-      float wc[3][V], x[V];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) chunk_values<T>(weight_chunk(w, w.wh + c * w.ld, k, Fh), wc[c]);
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (u >= live) break;
-        chunk_values<T>(xr[u], x);
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-#pragma unroll
-          for (int i = 0; i < V; ++i) part[u][1 + c] = fmaf(x[i], wc[c][i], part[u][1 + c]);
-      }
-    }
+    nerf_sigma_dots<T, U>(w, F, k, live, xh, part);
+    nerf_rgb_dots<T, U>(w, Fh, k, live, xr, part);
   }
 #pragma unroll
   for (int u = 0; u < U; ++u) pre[u] = warp_sum4(part[u], lane);

@@ -36,7 +36,9 @@ exactly at the kink, nerf_heads_composite and nerf_composite_loss_bwd (block
 scans) with noise, weights, a saturated ray and a faint last sample, past one
 and two chunks of 256 samples, with more rays than the persistent grid and
 (nerf_heads_composite) at a 65,536-ray serving chunk, nerf_field_heads and
-its backward, fused_nerf_train_loss_grads, fused_nerf_render_rays and
+its backward (streaming; up to 131,072 points, F 40 to 512, fewer points
+than a warp's share, and two backward launches within the order of their
+atomics), fused_nerf_train_loss_grads, fused_nerf_render_rays and
 fused_nerf_apply as wholes against autograd, and nerf train steps and renders
 through the system; for the Hopper mainloops of siren_dense,
 siren_dense_dgrad and siren_dense_wgrad, `mainloop="wgmma"` against the plain
@@ -1371,8 +1373,18 @@ def test_nerf_composite_adjoint_at_a_faint_last_sample(dev):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n_points,feat", [(37 * 16, 64), (1037, 256), (130, 40)])
+@pytest.mark.parametrize("n_points,feat", [
+    (37 * 16, 64), (1037, 256), (130, 40),
+    # the fine pass of a hierarchical batch and the coarse one (8 x 256),
+    # the widest width, fewer points than one warp's share
+    (131072, 256), (65536, 256), (1037, 512), (5, 256)])
 def test_nerf_field_heads_and_backward(dev, dtype, n_points, feat):
+    """Against the plain versions: the outputs to 1e-4 of their largest
+    entry, the backward as _hold_cotangents holds it; at 65,536 points and
+    more, in bf16, d_r (three products of rounded cotangents) also by one
+    step of a term, as the per-ray adjoint is held past 256 samples: over
+    more points more entries have a term on the other side of a rounding
+    boundary."""
     g, (h, r, wn, bn, _, _) = _nerf_narrow(dev, dtype, False, 12, n_points, 1,
                                            feat)
     before = dict(FM.LAUNCHES)
@@ -1384,7 +1396,22 @@ def test_nerf_field_heads_and_backward(dev, dtype, n_points, feat):
     got = FN.nerf_field_heads_bwd(h, r, wn, bn, cot)
     assert _grown(before) == {"nerf_field_heads": 1, "nerf_field_heads_bwd": 1}
     _hold_cotangents(got, FN.nerf_field_heads_bwd_reference(h, r, wn, bn, cot),
-                     dtype)
+                     dtype, summed=("d_r",) if n_points >= 65536 else ())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_nerf_field_heads_bwd_twice(dev, dtype):
+    """Two launches on the same inputs: d_h and d_r (no atomics) equal to
+    the bit; dWn and dbn, the blocks' sums added by fp32 atomics in an order
+    that changes from run to run, within 1e-5 of each tensor's largest
+    entry."""
+    g, (h, r, wn, bn, _, _) = _nerf_narrow(dev, dtype, False, 16, 131072, 1, 256)
+    cot = torch.randn(131072, 8, generator=g).to(dev)
+    a = FN.nerf_field_heads_bwd(h, r, wn, bn, cot)
+    b = FN.nerf_field_heads_bwd(h, r, wn, bn, cot)
+    assert torch.equal(a["d_h"], b["d_h"]) and torch.equal(a["d_r"], b["d_r"])
+    for k in ("dwn", "dbn"):
+        assert float((a[k] - b[k]).abs().max()) <= 1e-5 * float(a[k].abs().max()), k
 
 
 def test_nerf_field_heads_bwd_at_a_faint_sigma(dev):

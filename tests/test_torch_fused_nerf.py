@@ -23,6 +23,9 @@ themselves are checked on the card by tests/test_torch_cuda.py and
 chip_smoke.py.
 """
 
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -622,6 +625,133 @@ def test_field_heads_is_the_field_modules_heads():
                                   packed["bn"], g)
     assert res["d_h"].shape == (35, F) and res["d_r"].shape == (35, F // 2)
     assert float(res["dwn"][1:, F // 2:].abs().max()) == 0
+
+
+def _manual_field_heads_bwd(h, r, wn, bn, g, *, blocks, warps=8, u=2,
+                            pad=0.001):
+    """The arithmetic of csrc/fused_nerf.cu nerf_field_heads_bwd_stream,
+    written out: the four pre-activation cotangents of each point, each
+    rounded to the compute type before both of its products (d_h, d_r and
+    dWn); dbn from the unrounded ones; dWn and dbn summed in the kernel's
+    order: warp i of block b takes the u points from (b warps + i) u, then
+    the u from every blocks * warps * u points after, and sums over its
+    points in that order; then the block adds its warps' sums in order, and
+    the blocks' atomics add up (here in block order)."""
+    dt = wn.dtype
+
+    def rnd(x):
+        return x.to(dt).float()
+
+    n, feat = h.shape
+    fh, w = r.shape[1], wn.float()
+    hf, rf = h.float(), r.float()
+    sigma = F_t.softplus(hf @ w[0] + bn[0])
+    cs = torch.sigmoid(rf @ w[1:4, :fh].T + bn[1:4])
+    # the kernel's order of the heads: sigma, rgb x 3
+    gp = torch.cat([(g[:, 3] * -torch.expm1(-sigma))[:, None],
+                    g[:, 0:3] * (1 + 2 * pad) * cs * (1 - cs)], 1)
+    gb = rnd(gp)
+    dwn, dbn = torch.zeros(4, feat), torch.zeros(4)
+    for b in range(blocks):
+        block_w, block_b = torch.zeros(4, feat), torch.zeros(4)
+        for i in range(warps):
+            acc, acc_b = torch.zeros(4, feat), torch.zeros(4)
+            for q0 in range(((b * warps + i) * u), n, blocks * warps * u):
+                for q in range(q0, min(q0 + u, n)):
+                    acc[0] += gb[q, 0] * hf[q]
+                    acc[1:4, :fh] += gb[q, 1:4, None] * rf[q]
+                    acc_b += gp[q]
+            block_w, block_b = block_w + acc, block_b + acc_b
+        dwn, dbn = dwn + block_w, dbn + block_b
+    return {"d_h": gb[:, 0:1] * w[0][None, :], "d_r": gb[:, 1:4] @ w[1:4, :fh],
+            "dwn": dwn, "dbn": dbn}, sigma
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("feat,fh", [(256, 128), (512, 256), (40, 20)])
+def test_field_heads_bwd_order_matches_autograd(dtype, feat, fh):
+    """The per-point backward's arithmetic in its persistent grid's order
+    (3 blocks of 8 warps, 2 points a warp at a time, 203 points: four
+    rounds of the grid and a last warp with one point) against autograd
+    through nerf_field_heads_bwd_reference: 1e-5 of each tensor's largest
+    entry (float32 sums in another order). In bf16 a cotangent entry may
+    also differ by one bf16 step of itself, and d_r (three products of
+    rounded cotangents) by one step of a term, 2^-8 of its largest entry,
+    where a cotangent lands on the other side of a rounding boundary. Point
+    7 has a sigma below 1e-8, whose softplus' -expm1(-sigma) keeps and
+    1 - exp(-sigma) loses."""
+    gen = torch.Generator().manual_seed(15)
+    n = 203
+
+    def mk(*shape):
+        return (torch.rand(*shape, generator=gen) * 2 - 1).to(dtype)
+
+    h, r = mk(n, feat), torch.relu(mk(n, fh))
+    wn = mk(4, feat) * 0.8
+    wn[1:, fh:] = 0
+    bn = torch.randn(4, generator=gen) * 0.3
+    h[7] = (-(20.0 + bn[0]) * wn[0].float() / (wn[0].float() ** 2).sum()).to(dtype)
+    g = torch.randn(n, 8, generator=gen)
+    ref = FN.nerf_field_heads_bwd_reference(h, r, wn, bn, g)
+    got, sigma = _manual_field_heads_bwd(h, r, wn, bn, g, blocks=3)
+    assert 0 < float(sigma[7]) < 1e-8
+    assert float(1.0 - torch.exp(-sigma[7])) == 0.0
+    assert float(ref["d_h"][7].abs().max()) > 0  # the faint point keeps its gradient
+    assert set(got) == set(ref)
+    for k, v in ref.items():
+        assert got[k].shape == v.shape and torch.isfinite(got[k]).all(), k
+        scale = v.abs().max().clamp_min(1e-20)
+        lim = 1e-5 * scale
+        if dtype == torch.bfloat16 and k.startswith("d_"):
+            lim = lim + 2.0 ** -7 * v.abs() + (2.0 ** -8 * scale if k == "d_r" else 0)
+        assert bool(((got[k] - v).abs() <= lim).all()), (
+            k, float((got[k] - v).abs().max() / scale))
+
+
+def _c_nfb_smem_bytes():
+    """csrc/fused_nerf.cu nfb_smem_bytes as a Python function, read from the
+    source with the helpers and constants it names (csrc/heads.cuh)."""
+    csrc = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "satnerf_tpu_torch", "csrc")
+
+    def read(name):
+        with open(os.path.join(csrc, name)) as f:
+            return f.read()
+
+    nerf, heads = read("fused_nerf.cu"), read("heads.cuh")
+
+    def body(src, signature):
+        expr = re.search(re.escape(signature) + r"\s*\{\s*return (.*?);\s*\}", src, re.S)
+        return " ".join(expr.group(1).split()).replace("/", "//")
+
+    env = {"NFB_WARPS": int(re.search(r"constexpr int NFB_THREADS = (\d+);",
+                                      nerf).group(1)) // 32}
+    assert "constexpr int NFB_WARPS = NFB_THREADS / 32;" in nerf
+    pad8 = body(heads, "constexpr int heads_pad8(int n)")
+    rows = body(heads, "constexpr int nerf_rows_smem_bytes(int F, int Fh, int elem_bytes)")
+    row = body(nerf, "constexpr int nfb_row_floats(int F, int Fh)")
+    smem = body(nerf, "constexpr int nfb_smem_bytes(int F, int Fh, int elem_bytes)")
+    env["heads_pad8"] = lambda n_: eval(pad8, {"n": n_})
+    env["nerf_rows_smem_bytes"] = lambda f, fh, e: eval(rows, dict(env, F=f, Fh=fh,
+                                                                   elem_bytes=e))
+    env["nfb_row_floats"] = lambda f, fh: eval(row, dict(env, F=f, Fh=fh))
+    return lambda feat, fh, elem: eval(smem, dict(env, F=feat, Fh=fh, elem_bytes=elem))
+
+
+@pytest.mark.parametrize("feat,fh,elem", [(512, 256, 4), (512, 256, 2),
+                                          (256, 128, 2), (40, 20, 4)])
+def test_field_heads_bwd_shared_memory_is_the_c_formula(feat, fh, elem):
+    """nerf_field_heads_bwd's shared memory (the four rows, then a row of
+    dWn's and dbn's sums a warp) grows with the width: by the C formula read
+    from the source, the widest width the kernel admits (F 512, Fh 256, in
+    fp32) fits the 227 KB a block may hold, and the narrower widths take
+    less."""
+    nbytes = _c_nfb_smem_bytes()
+    warps = 8
+    pad = (feat + 7) // 8 * 8 + 3 * ((fh + 7) // 8 * 8)
+    assert nbytes(feat, fh, elem) == pad * elem + 16 + 4 * warps * (pad + 8)
+    assert nbytes(feat, fh, elem) <= nbytes(512, 256, 4) <= FN.SMEM_OPTIN_BYTES
 
 
 def test_backward_masks_on_the_stored_activation():

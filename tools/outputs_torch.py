@@ -29,8 +29,11 @@ to a tolerance: nerf_heads_composite's (R, 8) products and (R, S) weights
 at 65,536 x 64 (the serving chunk), 1,024 x 128 and 256 x 640 with sigma
 noise, and every output of nerf_composite_loss_bwd (the loss, d_h, d_r, dWn,
 dbn) at 96 x 64 and 96 x 256 (bf16), 1,024 x 64 (the training batch) and
-256 x 640, with noise. It imports the package of the directory it runs
-from, so the same file saves from two checkouts.
+256 x 640, with noise; and the two per-point kernels' outputs, nerf_field_heads'
+(P, 8) and nerf_field_heads_bwd's d_h, d_r, dWn and dbn, at 131,072 and
+65,536 points of the 8 x 256 field and at the widest width (16,384 points,
+F = 512), in bf16 and fp32, to a tolerance. It imports the package of the directory it
+runs from, so the same file saves from two checkouts.
 
 `compare` prints how many outputs are equal to the bit, and for the others
 the largest difference and whether it is within the output's tolerance
@@ -38,7 +41,8 @@ the largest difference and whether it is within the output's tolerance
 tolerance exceeds it.
 
 `time` times sc_loss_bwd, field_heads, heads_composite, field_heads_bwd,
-nerf_heads_composite and nerf_composite_loss_bwd alone at those shapes in
+nerf_heads_composite, nerf_composite_loss_bwd, nerf_field_heads and
+nerf_field_heads_bwd alone at those shapes in
 bf16 (CUDA events over 20 launches after a warm-up, the wrapper's zero fills
 included; then the kernels' own device time by torch.profiler, and each
 kernel's share where a wrapper launches more than one), with the card's
@@ -51,8 +55,8 @@ keep their contract, so the same call drives both.
 
 `variants` builds this tree's csrc/fused_nerf.cu once a spec with the
 constants of its design choices set otherwise (in a copy of csrc/) and
-times the two per-ray nerf kernels through each build and the package's in
-turns, with ptxas' registers and spills of each.
+times the two per-ray and the two per-point nerf kernels through each build
+and the package's in turns, with ptxas' registers and spills of each.
 
 `faint` prints sc_loss_bwd's dbn[4] on one ray of the most samples its
 shared memory holds, from the kernel and from the plain version on the card
@@ -79,6 +83,10 @@ FEAT, FH = 512, 256
 NERF_HEADS_SHAPES = ((65536, 64, False), (1024, 128, False), (256, 640, True))
 NERF_LOSS_SHAPES = ((1024, 64), (256, 640))
 NERF_FEAT, NERF_FH = 256, 128
+# (points, F) of the nerf variant's per-point kernels (Fh = F / 2): the fine
+# and the coarse pass of a hierarchical batch at the field's width, and the
+# widest width they take
+NERF_POINT_SHAPES = ((131072, 256), (65536, 256), (16384, 512))
 
 # Outputs held to a tolerance, by the start of their name (the longest
 # that fits), and why:
@@ -100,6 +108,12 @@ NERF_FEAT, NERF_FH = 256, 128
 #   channel) by one step of one term: 2^-8 of the tensor's largest entry.
 # nerf_heads_composite: as heads_composite (the walk it replaced summed the
 #   heads, T and the integrals in order): 1e-4 of max(1, |entry|).
+# nerf_field_heads: the heads' dot products sum their terms in another
+#   order: 1e-4 of max(1, |entry|), as heads_composite.
+# nerf_field_heads_bwd: as field_heads_bwd (the recomputed heads sum in
+#   another order; dWn and dbn by fp32 atomics in an order that changes from
+#   run to run; in bf16 a cotangent entry one step of itself, d_r one step
+#   of a term).
 # nerf_composite_loss_bwd: the heads, T (a block scan in double against a
 #   walk in fp32), the suffix sum of the adjoint (a block scan) and the rgb
 #   integrals sum in another order, and the loss, dWn and dbn are sums over
@@ -110,7 +124,8 @@ NERF_FEAT, NERF_FH = 256, 128
 #   over every sample of such rounded products, to 5e-4 of their largest
 #   entry, as tests/test_torch_cuda.py holds them past 256 samples.
 TOLERANCES = {"sc_loss_bwd": 1e-4, "heads_composite": 1e-4, "field_heads_bwd": 1e-4,
-              "nerf_heads_composite": 1e-4, "nerf_composite_loss_bwd": 1e-4}
+              "nerf_heads_composite": 1e-4, "nerf_composite_loss_bwd": 1e-4,
+              "nerf_field_heads": 1e-4, "nerf_field_heads_bwd": 1e-4}
 
 
 def _tensors(g, dev):
@@ -172,6 +187,17 @@ def _nerf_args(t, g, n_rays, n_s, dtype):
     z = torch.sort(torch.rand(n_rays, n_s, generator=g, device=g.device), 1).values
     return ((h, r, wn, t(4, dtype=torch.float32), z), t(n_rays, n_s, dtype=torch.float32),
             t(n_rays, 3, dtype=torch.float32).abs())
+
+
+def _nerf_point_args(t, n_p, feat, dtype):
+    """h, r, wn, bn of the nerf per-point kernels at F = feat, Fh = feat / 2,
+    and a (P, 8) cotangent."""
+    import torch
+
+    wn = t(4, feat, s=0.1, dtype=dtype)
+    wn[0] = t(feat, s=3.0 / feat ** 0.5, dtype=dtype)  # sigma of order 1
+    return ((t(n_p, feat, dtype=dtype), t(n_p, feat // 2, dtype=dtype).relu(), wn,
+             t(4, dtype=torch.float32)), t(n_p, 8, dtype=torch.float32))
 
 
 def save(path: str) -> None:
@@ -272,6 +298,13 @@ def save(path: str) -> None:
             for k, v in FN.nerf_composite_loss_bwd(*args, nz, gt).items():
                 out[f"nerf_composite_loss_bwd {dname} R={n_r} S={n_s} {k}"] = v.cpu()
             del args, nz, gt
+        for n_p, feat in NERF_POINT_SHAPES:
+            args, cot = _nerf_point_args(td, n_p, feat, dtype)
+            out[f"nerf_field_heads {dname} P={n_p} F={feat}"] = FN.nerf_field_heads(
+                *args).cpu()
+            for k, v in FN.nerf_field_heads_bwd(*args, cot).items():
+                out[f"nerf_field_heads_bwd {dname} P={n_p} F={feat} {k}"] = v.cpu()
+            del args, cot
     torch.cuda.synchronize()
     torch.save(out, path)
     print(f"saved {len(out)} outputs to {path}")
@@ -286,14 +319,16 @@ def _within(name: str, a, b, tol: float) -> bool:
     """b (the reference tree's) against a, as TOLERANCES says."""
     a, b = a.float(), b.float()
     diff = (a - b).abs()
-    if name.startswith(("heads_composite", "nerf_heads_composite")):
+    if name.startswith(("heads_composite", "nerf_heads_composite")) or (
+            name.startswith("nerf_field_heads ")):
         return bool((diff <= tol * b.abs().clamp_min(1.0)).all())
     lim = tol * b.abs().max()
     what, bf16 = name.split()[-1], "bfloat16" in name
     bf16_cot = bf16 and what.startswith("d_")
     if bf16_cot and name.startswith("sc_loss_bwd"):
         lim = lim + 2.0 ** -7 * b.abs()
-    if bf16_cot and name.startswith(("field_heads_bwd", "nerf_composite_loss_bwd")):
+    if bf16_cot and name.startswith(("field_heads_bwd", "nerf_composite_loss_bwd",
+                                     "nerf_field_heads_bwd")):
         lim = lim + 2.0 ** -7 * b.abs()
         if what in ("d_r", "d_skyh"):
             lim = lim + 2.0 ** -8 * b.abs().max()
@@ -337,7 +372,8 @@ def _smi(query: str) -> str:
 # binds from them
 PARENT_SOURCES = ("fused_render.cu", "fused_field.cu", "fused_nerf.cu")
 PARENT_ENTRIES = ("satnerf_heads_composite", "satnerf_field_heads", "satnerf_field_heads_bwd",
-                  "satnerf_nerf_heads_composite", "satnerf_nerf_composite_loss_bwd")
+                  "satnerf_nerf_heads_composite", "satnerf_nerf_composite_loss_bwd",
+                  "satnerf_nerf_field_heads", "satnerf_nerf_field_heads_bwd")
 
 
 def _build_libraries(jobs: dict) -> dict:
@@ -519,6 +555,17 @@ def time_kernels(parent_dir=None) -> None:
         if parent is not None:
             paired(what, fn, "nerf_composite_loss_bwd")
         del args, nz, gt
+    for n_p, feat in NERF_POINT_SHAPES:
+        args, cot = _nerf_point_args(td, n_p, feat, torch.bfloat16)
+        for what, fn, name in (
+                (f"nerf_field_heads bf16 P={n_p} F={feat}",
+                 lambda: FN.nerf_field_heads(*args), "nerf_field_heads"),
+                (f"nerf_field_heads_bwd bf16 P={n_p} F={feat}",
+                 lambda: FN.nerf_field_heads_bwd(*args, cot), "nerf_field_heads_bwd")):
+            report(what, fn, name)
+            if parent is not None:
+                paired(what, fn, name)
+        del args, cot
     print(f"clocks (sm, mem), power, temperature at the end: "
           f"{_smi('clocks.sm,clocks.mem,power.draw,temperature.gpu')}", flush=True)
 
@@ -552,11 +599,13 @@ def variants(specs) -> None:
     """`variants NAME=CONST:VALUE[,CONST:VALUE] ...`: this tree's
     csrc/fused_nerf.cu built once a spec with constants of its design
     choices set otherwise (NH_IN_FLIGHT, NCL_IN_FLIGHT, NCL_MIN_BLOCKS,
-    NCL_PERSISTENT, NCL_ROWS_IN_FLIGHT, NCL_COL_GROUPS, or any other
-    `constexpr` of the file) and once as it is, ptxas' registers and spills of the two
-    per-ray nerf kernels of each, and those two kernels at their shapes in
-    bf16 through each spec's library and the package's, in turns (package,
-    spec, spec, package): events over 20 launches and device time by
+    NCL_PERSISTENT, NCL_ROWS_IN_FLIGHT, NCL_COL_GROUPS, NFH_IN_FLIGHT,
+    NFH_MIN_BLOCKS, NFH_WARP_POINTS, NFB_IN_FLIGHT, NFB_MIN_BLOCKS,
+    NFB_KEEP_ROWS, or any other `constexpr` of the file) and once as it is,
+    ptxas' registers and spills of the two per-ray and the two per-point
+    nerf kernels of each, and those four kernels at their shapes in bf16
+    through each spec's library and the package's, in turns (package, spec,
+    spec, package): events over 20 launches and device time by
     torch.profiler."""
     sys.path.insert(0, os.getcwd())
     import torch
@@ -574,7 +623,8 @@ def variants(specs) -> None:
     built = _build_libraries(jobs)
     for tag, (_, report) in built.items():
         for kernel, (regs, spills) in report.items():
-            if "nerf_heads_scan" in kernel or "nerf_composite_loss_bwd" in kernel:
+            if any(k in kernel for k in ("nerf_heads_scan", "nerf_composite_loss_bwd",
+                                         "nerf_field_heads")):
                 print(f"{tag} {given.get(tag, '')}: {kernel}: {regs} registers, "
                       f"spill stores / loads {spills} bytes", flush=True)
     own = B.load_library
@@ -594,6 +644,12 @@ def variants(specs) -> None:
         cases.append((f"nerf_composite_loss_bwd R={n_r} S={n_s} noise=on",
                       "nerf_composite_loss_bwd",
                       lambda a=args, n=nz, g=gt: FN.nerf_composite_loss_bwd(*a, n, g)))
+    for n_p, feat in NERF_POINT_SHAPES:
+        args, cot = _nerf_point_args(td, n_p, feat, torch.bfloat16)
+        cases.append((f"nerf_field_heads P={n_p} F={feat}", "nerf_field_heads",
+                      lambda a=args: FN.nerf_field_heads(*a)))
+        cases.append((f"nerf_field_heads_bwd P={n_p} F={feat}", "nerf_field_heads_bwd",
+                      lambda a=args, c=cot: FN.nerf_field_heads_bwd(*a, c)))
     for what, name, fn in cases:
         for tag, (cdll, _) in built.items():
             if tag == "default":
