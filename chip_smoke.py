@@ -142,7 +142,20 @@ plain version):
      --n_samples 320 and 512 runs (K7's block over two chunks; the loss
      finite and falling)
 
-No earlier phase was cut when phases 2d, 2e, 6 and 7 came: the whole run
+  8  fields wider than the heads' kernels hold, a JAX checkpoint, and the
+     capability tool: one cli.train step of sat-nerf and of nerf at 8 x 1024
+     on phase 3's AOI must resolve --fused auto to "off" at construction
+     with the width named and launch no kernel (the plain path's device-ms
+     and event-ms a step are read beside it), and an explicit --fused rays
+     there must raise ValueError at construction; the JAX package's
+     checkpoint under tests/data/ (sat-nerf 4 x 32) loads and renders its
+     stored ray batch through siren_dense and heads_composite, held against
+     the JAX render stored beside it (fp32 1e-4, bf16 2e-2); then the
+     transient experiment's smoke preset through
+     tools/run_capability_experiments_torch.py (its phases in this process)
+     must give finite metrics and a finite beta ratio
+
+No earlier phase was cut when phases 2d, 2e, 6, 7 and 8 came: the whole run
 stays well inside half its time limit.
 
 The line before the last is {"kernels": [...]}, the last
@@ -3319,10 +3332,159 @@ def phase7(results: dict, card: str):
             f"{ {k: launches[k] for k in NERF_KERNELS} }")
 
 
+WIDE_FEAT = 1024  # wider than the heads' kernels hold: --fused auto is "off"
+FIXTURE = os.path.join(REPO, "tests", "data", "jax_satnerf_4x32")
+FIXTURE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _device_ms(fn, reps: int = 3) -> float:
+    """The device time of fn's kernels a call, by torch.profiler (kernels,
+    copies and fills on the card; user annotations left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if getattr(e, "device_time_total", 0) > 0
+             and str(getattr(e, "device_type", "")).endswith("CUDA")
+             and not getattr(e, "is_user_annotation", False))
+    return us / 1e3 / reps
+
+
+def phase8(results: dict, card: str):
+    """Q5, M5 and M2 on the card: fields wider than the kernels hold, a
+    checkpoint the JAX package wrote, the capability tool's smoke run."""
+    import importlib.util
+
+    import torch
+
+    from satnerf_tpu_torch.cli import train as cli_train
+    from satnerf_tpu_torch.config import Config
+    from satnerf_tpu_torch.data import load_dataset
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+    from satnerf_tpu_torch.train.checkpoints import load_checkpoint
+    from satnerf_tpu_torch.train.system import NeRFSystem
+
+    def fail(msg):
+        raise SystemExit(f"phase 8 failed: {msg}")
+
+    # ---- Q5: one cli.train step of each variant at 8 x 1024 resolves to the
+    # plain path at construction, says why, and launches no kernel; an
+    # explicit --fused rays at that width is refused at construction
+    aoi = os.path.join(WORK, "aoi")  # phase 3's
+    if not os.path.isdir(os.path.join(aoi, "data")):  # run alone (--only 8)
+        from satnerf_tpu_torch.data.synthetic import make_synthetic_aoi
+
+        make_synthetic_aoi(aoi, size=128)
+    logs, ckpts = os.path.join(WORK, "logs"), os.path.join(WORK, "ckpts")
+    for model in ("sat-nerf", "nerf"):
+        FM.reset_launches()
+        t0 = time.perf_counter()
+        out = cli_train.main([
+            "--root_dir", os.path.join(aoi, "data"),
+            "--gt_dir", os.path.join(aoi, "gt"), "--model", model,
+            "--exp_name", f"wide_{model}", "--fc_units", str(WIDE_FEAT),
+            "--fc_layers", str(LAYERS), "--n_samples", str(SAMPLES),
+            "--batch_size", str(BATCH), "--max_train_steps", "1",
+            "--log_every_n_steps", "1", "--num_sanity_val_steps", "0",
+            "--chunk", str(CHUNK), "--logs_dir", logs, "--ckpts_dir", ckpts])
+        step_s = time.perf_counter() - t0
+        system, state, cfg = out["system"], out["state"], out["cfg"]
+        launched = {k: v for k, v in _counts().items() if v}
+        rows = _train_rows(logs, cfg.exp_name)
+        log(f"phase 8: {model} {LAYERS} x {WIDE_FEAT} --fused auto resolved to "
+            f"{system.fused_mode!r} ({system.fused_reason}); one step and the "
+            f"validation in {step_s:.1f} s, loss {rows[-1]['train/loss']:.4f}")
+        if (system.fused_mode != "off" or system.fused_reason is None
+                or str(WIDE_FEAT) not in system.fused_reason):
+            fail(f"{model} at F {WIDE_FEAT}: resolved to {system.fused_mode} "
+                 f"({system.fused_reason}), not off with the width named")
+        if launched or not np.isfinite(rows[-1]["train/loss"]):
+            fail(f"{model} at F {WIDE_FEAT}: kernels launched {launched} or "
+                 f"loss not finite")
+        try:
+            NeRFSystem(Config(model=model, fc_units=WIDE_FEAT,
+                              fc_layers=LAYERS, fused="rays"), device="cuda")
+            fail(f"{model}: --fused rays at F {WIDE_FEAT} was not refused")
+        except ValueError as e:
+            log(f"phase 8: --fused rays refused at construction: {e}")
+        # the plain path's step at this width: device time and event time
+        ds = load_dataset(cfg, split="train")[0]
+        data = {"rays": torch.from_numpy(np.ascontiguousarray(
+                    ds.all_rays, np.float32)).cuda(),
+                "rgbs": torch.from_numpy(np.ascontiguousarray(
+                    ds.all_rgbs, np.float32)).cuda(),
+                "ts": torch.from_numpy(np.asarray(
+                    getattr(ds, "all_ids", np.zeros(len(ds))),
+                    np.int64)).cuda()}
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        step = lambda: system.train_step(state, data, gen)  # noqa: E731
+        dev_ms, ev_ms = _device_ms(step), _cuda_ms(step, reps=5)
+        results.setdefault("wide", {})[model] = (dev_ms, ev_ms)
+        log(f"phase 8: {model} {LAYERS} x {WIDE_FEAT} plain-path step, batch "
+            f"{BATCH} x {SAMPLES} samples, bf16: {dev_ms:.2f} device-ms, "
+            f"{ev_ms:.2f} event-ms a step on {card}")
+
+    # ---- M5: the JAX package's checkpoint, rendered through the kernels in
+    # fp32 and bf16, against the JAX render stored beside it
+    stored = np.load(FIXTURE + "_render.npz")
+    for precision, tol in FIXTURE_TOL.items():
+        system = NeRFSystem(Config(model="sat-nerf", fc_layers=4, fc_units=32,
+                                   n_samples=32, chunk=1024,
+                                   precision=precision), device="cuda")
+        params = system.init_params()
+        if load_checkpoint(FIXTURE + ".ckpt", params) != int(stored["step"]):
+            fail("the JAX checkpoint's step did not come back")
+        FM.reset_launches()
+        res = system.render_image(params, stored["rays"], stored["ts"])
+        counts = _counts()
+        w = res["weights_coarse"][..., None]
+        got = {"rgb": res["rgb_coarse"], "depth": res["depth_coarse"],
+               **{k: (w * res[f"{k}_coarse"]).sum(1)
+                  for k in ("sun", "albedo", "beta")}}
+        errs = {k: float(np.abs(got[k] - stored[k]).max()) for k in got}
+        log(f"phase 8: JAX checkpoint rendered in {precision} through "
+            f"siren_dense ({counts['siren_dense']}) and heads_composite "
+            f"({counts['heads_composite']}): max abs err {errs} (tol {tol})")
+        if (system.fused_mode != "rays" or not counts["heads_composite"]
+                or not counts["siren_dense"]):
+            fail(f"the JAX checkpoint's {precision} render missed the kernels")
+        if not all(np.isfinite(v) and v <= tol for v in errs.values()):
+            fail(f"the JAX checkpoint renders otherwise in {precision}: {errs}")
+
+    # ---- M2: the transient experiment's smoke preset through the
+    # capability tool, its phases in this process
+    spec = importlib.util.spec_from_file_location(
+        "capability_tool",
+        os.path.join(REPO, "tools", "run_capability_experiments_torch.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    t0 = time.perf_counter()
+    report = tool.main([os.path.join(WORK, "capability"), "--preset", "smoke",
+                        "--experiments", "transient", "--in_process"])
+    t = report["experiments"]["transient"]
+    vals = [t[run]["val"][k] for run in ("snerf", "satnerf")
+            for k in ("psnr", "ssim", "mae")]
+    beta = t["satnerf"].get("beta", {})
+    log(f"phase 8: capability smoke (transient) in "
+        f"{time.perf_counter() - t0:.1f} s: val {vals}, beta {beta}, "
+        f"steps/s {[t[r]['steps_per_sec'] for r in ('snerf', 'satnerf')]}")
+    if not (all(np.isfinite(vals)) and beta.get("beta_in_mask", 0) > 0
+            and beta.get("beta_off_mask", 0) > 0
+            and np.isfinite(beta.get("ratio", np.nan))):
+        fail(f"the capability smoke run is not finite: {vals}, {beta}")
+
+
 def _loaded_foreign() -> list:
     return sorted(m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                         "satnerf_tpu"))
+                                         "satnerf_tpu", "msgpack",
+                                         "matplotlib"))
 
 
 def main():
@@ -3347,7 +3509,8 @@ def main():
              ("4", lambda: phase4(results, card)),
              ("5", lambda: phase5(results, card)),
              ("6", lambda: phase6(results, card)),
-             ("7", lambda: phase7(results, card)))
+             ("7", lambda: phase7(results, card)),
+             ("8", lambda: phase8(results, card)))
     t_start = time.perf_counter()
     for key, run in steps:
         if only and key not in only:

@@ -8,13 +8,13 @@ images go the lidar-style ground truth rasters the DSM evaluation reads.
 
 Counterpart of the JAX package's recipe (tests/fixtures.py
 `build_synthetic_dataset` + tools/make_synthetic_aoi.py): the same seed gives
-the same cameras, images, key points and rasters. The painted transients
-and the RPC mis-registration of that recipe wait for the slices that train
-on them.
+the same cameras, images, sun maps, painted transients and their masks, RPC
+mis-registrations, key points and rasters.
 
   python -m satnerf_tpu_torch.data.synthetic OUT_DIR [--size 32] [--n_train 3]
-      [--n_test 2] [--terrain box|smooth] [--shading] [--keypoints N]
-      [--seed 0]
+      [--n_test 2] [--terrain box|smooth] [--shading] [--sun_el LO HI]
+      [--sun_az LO HI] [--transient_frac F] [--transient_size PX]
+      [--n_transients N] [--rpc_noise PX] [--keypoints N] [--seed 0]
 
 writes OUT_DIR/data (json + tif + train.txt/test.txt) and OUT_DIR/gt
 (SYN_000_DSM.tif/.txt, SYN_000_CLS.tif).
@@ -23,6 +23,7 @@ writes OUT_DIR/data (json + tif + train.txt/test.txt) and OUT_DIR/gt
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 
@@ -171,7 +172,10 @@ def build_synthetic_dataset(root: str, n_train: int = 3, n_test: int = 2,
                             checker: int = 4, alt_bounds: str = "rpc",
                             relief: float = 1.0, shading: bool = False,
                             sun_el_range: tuple = (35.0, 70.0),
-                            sun_az_range: tuple = (90.0, 270.0)) -> str:
+                            sun_az_range: tuple = (90.0, 270.0),
+                            transient_frac: float = 0.0,
+                            n_transients: int = 2, transient_size: int = 0,
+                            rpc_noise_px: float = 0.0) -> str:
     """Write a reference-format dataset: per-image json + tif, train.txt and
     test.txt.
 
@@ -188,6 +192,16 @@ def build_synthetic_dataset(root: str, n_train: int = 3, n_test: int = 2,
     with sun_term + (1 - sun_term) * AMBIENT_SKY; each image's analytic sun
     map is saved as {name}_SUN.npy. Without it the sun is fixed at 60/180 and
     the pixels are pure albedo.
+
+    transient_frac > 0 paints n_transients bright boxes (side
+    transient_size px, w // 6 and at least 3 by default) into that fraction
+    of the train images after the first, the masks saved as
+    {name}_TRANSIENT.npy; test images stay clean. rpc_noise_px > 0 shifts
+    each image's written RPC by a uniform +-rpc_noise_px pixels of row and
+    column offset while the image is rendered with the true camera; the
+    shifts come from a generator of their own, so the same seed with
+    rpc_noise_px 0 writes the same images (a "BA" sibling). Key points stay
+    in the true frame.
     """
     hf = scaled_height_field(terrain, relief)
     grid = np.linspace(-HALF_EXTENT_DEG, HALF_EXTENT_DEG, 241)
@@ -200,6 +214,7 @@ def build_synthetic_dataset(root: str, n_train: int = 3, n_test: int = 2,
         min_alt, max_alt = ALT_MIN, ALT_MAX
     os.makedirs(root, exist_ok=True)
     rng = np.random.RandomState(seed)
+    noise_rng = np.random.RandomState(seed + 7919)  # the RPC shifts alone
     names = []
 
     if with_keypoints:
@@ -232,10 +247,27 @@ def build_synthetic_dataset(root: str, n_train: int = 3, n_test: int = 2,
                             for a in AMBIENT_SKY], 0)
         else:
             rgb = np.stack([img, img, img], 0)
+        if (transient_frac > 0 and 1 <= i < n_train
+                and rng.uniform() < transient_frac):
+            side = transient_size or max(3, w // 6)
+            tmask = np.zeros((h, w), bool)
+            for _ in range(n_transients):
+                x0 = rng.randint(0, w - side + 1)
+                y0 = rng.randint(0, h - side + 1)
+                color = rng.uniform(0.75, 1.0, 3)
+                rgb[:, y0:y0 + side, x0:x0 + side] = color[:, None, None]
+                tmask[y0:y0 + side, x0:x0 + side] = True
+            np.save(os.path.join(root, name + "_TRANSIENT.npy"), tmask)
         rgb8 = (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
         write_geotiff(
             os.path.join(root, name + ".tif"), rgb8,
             Profile(w, h, 3, "uint8", 32617, Affine(0.5, 0, 0, 0, -0.5, 0)))
+        rpc_out = rpc
+        if rpc_noise_px > 0:
+            d_col, d_row = noise_rng.uniform(-rpc_noise_px, rpc_noise_px, 2)
+            rpc_out = dataclasses.replace(
+                rpc, col_offset=rpc.col_offset + float(d_col),
+                row_offset=rpc.row_offset + float(d_row))
         meta = {
             "img": name + ".tif",
             "height": h,
@@ -249,7 +281,7 @@ def build_synthetic_dataset(root: str, n_train: int = 3, n_test: int = 2,
                                          [lon_r[0], lat_r[0]]]]},
             "min_alt": min_alt,
             "max_alt": max_alt,
-            "rpc": rpc.to_dict(),
+            "rpc": rpc_out.to_dict(),
         }
         if with_keypoints:
             kp_cols, kp_rows = rpc.projection(tie_lons, tie_lats, tie_alts)
@@ -331,6 +363,22 @@ def main(argv=None):
     ap.add_argument("--relief", type=float, default=1.0)
     ap.add_argument("--shading", action="store_true",
                     help="sun-lit images with a sun direction per image")
+    ap.add_argument("--sun_el", type=float, nargs=2, default=(35.0, 70.0),
+                    metavar=("LO", "HI"),
+                    help="per-image sun elevation range (deg) with --shading")
+    ap.add_argument("--sun_az", type=float, nargs=2, default=(90.0, 270.0),
+                    metavar=("LO", "HI"),
+                    help="per-image sun azimuth range (deg) with --shading")
+    ap.add_argument("--transient_frac", type=float, default=0.0,
+                    help="fraction of the train images after the first that "
+                         "get painted boxes ({img}_TRANSIENT.npy masks)")
+    ap.add_argument("--transient_size", type=int, default=0,
+                    help="painted box side in px (default size // 6)")
+    ap.add_argument("--n_transients", type=int, default=2,
+                    help="painted boxes a perturbed train image")
+    ap.add_argument("--rpc_noise", type=float, default=0.0, metavar="PX",
+                    help="shift each image's written RPC by up to PX pixels "
+                         "(the same seed with 0 writes the same images)")
     ap.add_argument("--keypoints", type=int, default=0, metavar="N",
                     help="N tie points (pts3d.npy and per-image key points) "
                          "for --ds_lambda training")
@@ -341,6 +389,9 @@ def main(argv=None):
         n_train=a.n_train, n_test=a.n_test, seed=a.seed,
         view_spread=a.view_spread, checker=a.checker,
         alt_bounds=a.alt_bounds, shading=a.shading,
+        sun_el_range=tuple(a.sun_el), sun_az_range=tuple(a.sun_az),
+        transient_frac=a.transient_frac, transient_size=a.transient_size,
+        n_transients=a.n_transients, rpc_noise_px=a.rpc_noise,
         with_keypoints=a.keypoints > 0, n_kp=a.keypoints or 40)
     print(f"synthetic AOI ready: {data_dir} + {gt_dir}")
 

@@ -1131,6 +1131,9 @@ def _check_narrow(name, h, r, s2, bh, skyh, wn, bn, z, noise):
 # body's threads, warps and block sums, the warp body's warps and values a
 # sample
 SMEM_OPTIN_BYTES = 232448
+# the widest trunk (F, and 2 Fh) the heads' adjoints (composite_loss_bwd,
+# composite_bwd, field_heads_bwd) and field_heads hold
+HEADS_MAX_FEATURES = 512
 _CLB2_THREADS, _CLB2_WARPS, _CLB2_SUMS = 256, 8, 9
 _CLB_WARPS, _CLB_SAMPLE_VALS = 4, 10
 
@@ -1190,8 +1193,8 @@ def _adjoint_buffers(name, n_rays, p, feat, fh, use_beta, dev) -> dict:
     instantiations of the compositor's, and field_heads_bwd): the cotangents
     of h, r, s2, bh, skyh, and dwn / dbn zero-filled for the kernel's
     atomics."""
-    if feat > 512:
-        raise ValueError(f"{name} holds at most 512 features")
+    if feat > HEADS_MAX_FEATURES:
+        raise ValueError(f"{name} holds at most {HEADS_MAX_FEATURES} features")
 
     def f32(*shape, make=torch.empty):
         return make(shape, dtype=torch.float32, device=dev)
@@ -1912,8 +1915,8 @@ def _check_field_heads(name, h, r, s2, bh, skyh, wn, bn, samples: int):
         raise ValueError(f"{name}: {p} points are not rays of {samples} "
                          f"samples (or exceed the kernel's int32 indexing)")
     n_rays = p // samples
-    if feat > 512 or 2 * fh > 512:
-        raise ValueError(f"{name} holds at most 512 features")
+    if feat > HEADS_MAX_FEATURES or 2 * fh > HEADS_MAX_FEATURES:
+        raise ValueError(f"{name} holds at most {HEADS_MAX_FEATURES} features")
     if (wn.shape != (9, feat) or skyh.shape != (n_rays, fh)
             or bn.shape != (9,) or bn.dtype != torch.float32):
         raise ValueError(f"{name}: inconsistent shapes")

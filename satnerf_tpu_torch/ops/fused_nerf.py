@@ -369,13 +369,21 @@ def _narrow_adjoint(fn, h, r, wn, bn) -> tuple:
     return dict(zip(("d_h", "d_r", "dwn", "dbn"), grads)), aux
 
 
+# the widest trunk (F) and rgb hidden layer (Fh) the nerf heads' kernels
+# (per ray and per point, forward and adjoint) hold
+NERF_HEADS_MAX_FEATURES = 512
+NERF_HEADS_MAX_HIDDEN = 256
+
+
 def _check_narrow(name, h, r, wn, bn, n_points: int):
     """Shapes and dtypes the per-ray and per-point kernels share; (F, Fh)."""
     dtype = h.dtype
     p, feat = h.shape
     fh = r.shape[1]
-    if feat > 512 or fh > 256 or fh > feat:
-        raise ValueError(f"{name} holds at most 512 features")
+    if (feat > NERF_HEADS_MAX_FEATURES or fh > NERF_HEADS_MAX_HIDDEN
+            or fh > feat):
+        raise ValueError(f"{name} holds at most {NERF_HEADS_MAX_FEATURES} "
+                         f"features and {NERF_HEADS_MAX_HIDDEN} hidden")
     if (p != n_points or r.shape[0] != p or wn.shape != (4, feat)
             or bn.shape != (4,) or bn.dtype != torch.float32):
         raise ValueError(f"{name}: inconsistent shapes")

@@ -9,18 +9,24 @@ keys, so its state_dict() is the payload. A training checkpoint adds, under
 the PL names, "optimizer_states" ([Adam's state_dict]) and "global_step";
 one without them still loads for serving.
 
-The JAX package writes msgpack checkpoints under the same names. Reading
-them needs a msgpack decoder the port does not have yet (ROADMAP M5):
-`load_checkpoint` tells the two formats apart by their first bytes, as
-satnerf_tpu/eval/loader.py does, and refuses a msgpack file by name.
+The JAX package writes msgpack checkpoints under the same names:
+{params, opt_state, step}, the parameter pytree {coarse[, fine][, t]}, and
+`opt_state` the state dict of optax.adam(schedule), {"0": {count, mu, nu},
+"1": {count}}. `load_checkpoint` tells the two formats apart by their first
+bytes, as satnerf_tpu/eval/loader.py does, and reads a msgpack file through
+train/msgpack_ckpt.py (no flax, no msgpack package), the weights through
+`params_from_jax` and the Adam moments and count through `adam_from_jax`.
 """
 
 from __future__ import annotations
 
 import os
+import re
 
 import numpy as np
 import torch
+
+from satnerf_tpu_torch.train.msgpack_ckpt import read_msgpack
 
 
 def checkpoint_path(ckpts_dir: str, exp_name: str, epoch: int) -> str:
@@ -102,6 +108,44 @@ def save_checkpoint(path: str, params: torch.nn.Module,
     torch.save(payload, path)
 
 
+def _float_numpy(tree):
+    """The decoded pytree with every array as float32 numpy (bfloat16
+    arrays come out of the decoder as torch tensors)."""
+    if isinstance(tree, dict):
+        return {k: _float_numpy(v) for k, v in tree.items()}
+    if torch.is_tensor(tree):
+        return tree.float().numpy()
+    return np.asarray(tree, np.float32)
+
+
+def _jax_layout(params_np: dict) -> tuple:
+    """(variant, layers) of a JAX parameter pytree, read from its names: the
+    trunk's fc_i, and the heads only s-nerf (sun_v_*) and sat-nerf (beta_*)
+    have."""
+    coarse = params_np["coarse"]
+    layers = sum(1 for k in coarse if re.fullmatch(r"fc_\d+", k))
+    variant = ("sat-nerf" if "beta_0" in coarse
+               else "s-nerf" if "sun_v_0" in coarse else "nerf")
+    return variant, layers
+
+
+def _load_jax_checkpoint(path: str, params: torch.nn.Module,
+                        optimizer: torch.optim.Optimizer | None = None) -> int:
+    """Load a msgpack checkpoint of the JAX package into `params` (strict
+    key match) and, given an Adam over params.parameters(), its optax Adam
+    moments and count into `optimizer`. Returns the JAX step."""
+    raw = read_msgpack(path)
+    params_np = _float_numpy(raw["params"])
+    variant, layers = _jax_layout(params_np)
+    params.load_state_dict(params_from_jax(params_np, variant, layers))
+    if optimizer is not None and raw.get("opt_state"):
+        adam = raw["opt_state"]["0"]
+        adam_from_jax(optimizer, params, _float_numpy(adam["mu"]),
+                      _float_numpy(adam["nu"]), int(adam["count"]), variant,
+                      layers)
+    return int(raw.get("step", 0))
+
+
 def load_checkpoint(path: str, params: torch.nn.Module,
                     optimizer: torch.optim.Optimizer | None = None) -> int:
     """Load a PL-style checkpoint into `params` (strict key match) and, when
@@ -109,12 +153,12 @@ def load_checkpoint(path: str, params: torch.nn.Module,
     checkpoint's global step (0 for one written without it).
 
     A torch checkpoint is a zip archive and starts with b"PK"; anything else
-    is taken for a msgpack checkpoint of the JAX package and refused."""
+    is taken for a msgpack checkpoint of the JAX package
+    (_load_jax_checkpoint)."""
     with open(path, "rb") as f:
         magic = f.read(2)
     if magic != b"PK":
-        raise ValueError(f"{path}: msgpack checkpoint of the JAX package: not "
-                         f"readable here (ROADMAP M5)")
+        return _load_jax_checkpoint(path, params, optimizer)
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     params.load_state_dict(ckpt.get("state_dict", ckpt))
     if optimizer is not None and ckpt.get("optimizer_states"):

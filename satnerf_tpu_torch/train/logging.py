@@ -31,6 +31,13 @@ class RunLogger:
         self._jsonl.write(json.dumps(rec) + "\n")
         self._jsonl.flush()
 
+    def record(self, step: int, fields: dict) -> None:
+        """A metrics.jsonl row of JSON values that are not scalars to plot
+        (the run's resolved settings)."""
+        self._jsonl.write(json.dumps({"step": step, "time": time.time(),
+                                      **fields}) + "\n")
+        self._jsonl.flush()
+
     def images(self, step: int, tag: str, stack) -> None:
         """stack: (N, 3, H, W) float array in [0, 1]."""
         if self.tb is not None:

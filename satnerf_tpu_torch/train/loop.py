@@ -148,6 +148,9 @@ def fit(cfg: Config) -> dict:
     val_ds = load_dataset(cfg, split="val")[0]
     system = NeRFSystem(cfg, device=device, dataset_len=len(train_ds))
     logger = RunLogger(cfg.logs_dir, cfg.exp_name)
+    # cfg.fused stays what was asked; the log keeps what it resolved to
+    logger.record(0, {"fused": cfg.fused, "fused_mode": system.fused_mode,
+                      "fused_reason": system.fused_reason})
     # opts.json is half the checkpoint contract (opt.py:85-87): guarantee it
     # whether the run came through the CLI or through fit() directly
     if not os.path.exists(os.path.join(cfg.logs_dir, cfg.exp_name, "opts.json")):

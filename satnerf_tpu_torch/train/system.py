@@ -6,7 +6,9 @@ module — nerf_coarse, [nerf_fine,] embedding_t — so its state_dict() is the
 PL checkpoint payload (train/checkpoints.py).
 
 `fused_mode` picks the path, resolved from `--fused` as the JAX system
-resolves it: "rays" (`--fused rays`, and `auto` on the card) runs the
+resolves it (`resolve_fused_mode`, which also sends `auto` to "off" where
+the kernels cannot hold the width or the samples a ray, and refuses an
+explicit mode there): "rays" (`--fused rays`, and `auto` on the card) runs the
 per-ray kernels below; "points" (`--fused on`) and "off" (`--fused off`, and
 `auto` on the CPU) run the plain renderer (render/render.py) under autograd,
 over the point-mode field kernel K6 or over the field modules. The nerf
@@ -68,6 +70,8 @@ from torch import nn
 
 from satnerf_tpu_torch.config import Config
 from satnerf_tpu_torch.models.nerf import TransientEmbedding, build_model
+from satnerf_tpu_torch.ops import fused_mlp as FM
+from satnerf_tpu_torch.ops import fused_nerf as FN
 from satnerf_tpu_torch.ops.fused_nerf import (fused_nerf_apply,
                                               fused_nerf_render_rays,
                                               fused_nerf_train_loss_grads)
@@ -115,6 +119,87 @@ def epoch_draw_positions(step: int, spe: int, batch: int, n: int,
     return pos % n
 
 
+def resolve_compute_dtype(cfg: Config, device) -> torch.dtype:
+    """The matmul operands' dtype: `--precision`, where "auto" is bf16 (fp32
+    sums) on the card and fp32 on the CPU."""
+    use_bf16 = cfg.precision == "bfloat16" or (
+        cfg.precision == "auto" and torch.device(device).type == "cuda")
+    return torch.bfloat16 if use_bf16 else torch.float32
+
+
+def _kernel_limit(cfg: Config, mode: str, dtype: torch.dtype) -> Optional[str]:
+    """Why the kernels of `mode` cannot run `cfg` on the card, or None: the
+    width limits of the heads' kernels, then the samples a ray the per-ray
+    kernels' shared memory holds at the longest ray they are given (the
+    coarse samples plus n_importance in the fine pass)."""
+    feat, fh = cfg.fc_units, cfg.fc_units // 2
+    if cfg.model == "nerf":
+        if (feat > FN.NERF_HEADS_MAX_FEATURES
+                or fh > FN.NERF_HEADS_MAX_HIDDEN):
+            return (f"fc_units {feat} is wider than the "
+                    f"{FN.NERF_HEADS_MAX_FEATURES} features the nerf heads' "
+                    f"kernels hold (ops/fused_nerf.py NERF_HEADS_MAX_FEATURES)")
+        if cfg.n_importance == 0 and cfg.ds_lambda == 0:  # the K7 step
+            limit = FN.nerf_composite_max_samples(feat, fh, dtype)
+            if cfg.n_samples > limit:
+                return (f"n_samples {cfg.n_samples} is more than the {limit} "
+                        f"samples a ray nerf_composite_loss_bwd holds at "
+                        f"fc_units {feat} in {dtype} "
+                        f"(nerf_composite_max_samples)")
+        return None
+    widest = min(FM.HEADS_MAX_FEATURES, FM.NARROW_MAX_N)
+    if feat > widest:
+        return (f"fc_units {feat} is wider than the {widest} features the "
+                f"heads' kernels hold (ops/fused_mlp.py HEADS_MAX_FEATURES)")
+    if mode != "rays":
+        return None
+    n_s = cfg.n_samples + cfg.n_importance
+    limits = [("composite_loss_bwd", FM.composite_max_samples(feat, fh),
+               "composite_max_samples")]
+    if cfg.sc_lambda > 0:
+        limits.append(("sc_loss_bwd", FM.sc_max_samples(feat, fh),
+                       "sc_max_samples"))
+    for kernel, limit, fn in limits:
+        if n_s > limit:
+            return (f"{n_s} samples a ray (n_samples {cfg.n_samples} + "
+                    f"n_importance {cfg.n_importance}) are more than the "
+                    f"{limit} {kernel} holds at fc_units {feat} ({fn})")
+    return None
+
+
+def resolve_fused_mode(cfg: Config, device) -> tuple:
+    """(fused_mode, reason) for `--fused` on `device`, as the JAX system
+    resolves it, and within what the kernels hold. "rays": the per-ray
+    kernels; "points": the plain renderer over the point-mode field kernel;
+    "off": the plain renderer over the field modules, on whatever device was
+    asked for. The nerf variant's kernels all run in "points" mode; "auto" is
+    a fused mode on the card and "off" on the CPU.
+
+    On the card a configuration the kernels cannot hold (_kernel_limit) is
+    decided here, before anything is launched: "auto" resolves to "off" and
+    `reason` says which width or sample count and which limit ruled the
+    kernels out (None otherwise); an explicit "rays" or "on" raises
+    ValueError. Constructs nothing on the device."""
+    device = torch.device(device)
+    if cfg.fused == "off":
+        return "off", None
+    if cfg.fused == "on":
+        mode = "points"
+    elif cfg.fused == "rays" or device.type == "cuda":
+        mode = "points" if cfg.model == "nerf" else "rays"
+    else:
+        return "off", None
+    if device.type != "cuda":  # the kernels' plain versions hold any size
+        return mode, None
+    reason = _kernel_limit(cfg, mode, resolve_compute_dtype(cfg, device))
+    if reason is None:
+        return mode, None
+    if cfg.fused == "auto":
+        return "off", reason
+    raise ValueError(f"--fused {cfg.fused}: {reason}; use --fused off (the "
+                     f"plain renderer over the field modules) or auto")
+
+
 @dataclass
 class TrainState:
     params: nn.ModuleDict
@@ -146,23 +231,15 @@ class NeRFSystem:
         num_epochs = max(cfg.max_train_steps // self.spe, 1)
         self.lr_schedule = get_schedule(cfg.lr_scheduler, cfg.lr, num_epochs,
                                         self.spe)
-        # "auto": bf16 matmul operands (f32 sums) on the card, f32 on the CPU
-        use_bf16 = cfg.precision == "bfloat16" or (
-            cfg.precision == "auto" and self.device.type == "cuda")
-        self.compute_dtype = torch.bfloat16 if use_bf16 else torch.float32
-        # "rays": the per-ray kernels; "points": the plain renderer over the
-        # point-mode field kernel; "off": the plain renderer over the field
-        # modules, on whatever device was asked for. The nerf variant's
-        # kernels all run in "points" mode.
+        self.compute_dtype = resolve_compute_dtype(cfg, self.device)
         self.is_nerf = cfg.model == "nerf"
-        if cfg.fused == "off":
-            self.fused_mode = "off"
-        elif cfg.fused == "on":
-            self.fused_mode = "points"
-        elif cfg.fused == "rays" or self.device.type == "cuda":
-            self.fused_mode = "points" if self.is_nerf else "rays"
-        else:
-            self.fused_mode = "off"
+        # decided here, before anything is launched: a configuration the
+        # kernels cannot hold runs "off" under auto (said on one line) and
+        # raises under an explicit --fused rays / on
+        self.fused_mode, self.fused_reason = resolve_fused_mode(cfg,
+                                                                self.device)
+        if self.fused_reason is not None:
+            print(f"--fused auto resolves to off: {self.fused_reason}")
         self.eval_render_cfg = RenderConfig(
             variant=cfg.model, n_samples=cfg.n_samples,
             n_importance=cfg.n_importance, perturb=0.0, solar_correction=False)

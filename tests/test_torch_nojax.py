@@ -2,8 +2,11 @@
 module of the port, take two CPU train steps and a render, then three steps
 of the full recipe (solar correction and depth supervision, with grad_accum
 and with shuffle) and the classic NeRF variant's three kinds of step, then
-look at sys.modules. No jax, jaxlib, flax or optax, and no module of the JAX package
-satnerf_tpu, may have been loaded."""
+read a checkpoint the JAX package wrote, build a synthetic AOI with
+transients and RPC noise, run the solar study and load the capability tool,
+and look at sys.modules. No jax, jaxlib, flax or optax, no module of the
+JAX package satnerf_tpu, and neither msgpack nor matplotlib (the machine
+with the card has neither) may have been loaded."""
 
 import os
 import subprocess
@@ -13,6 +16,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
 import importlib
+import os
 import pkgutil
 import sys
 import numpy as np
@@ -30,6 +34,9 @@ assert "satnerf_tpu_torch.data.synthetic" in names
 assert "satnerf_tpu_torch.data.satellite_depth" in names
 assert "satnerf_tpu_torch.data.blender" in names
 assert "satnerf_tpu_torch.ops.fused_nerf" in names
+assert "satnerf_tpu_torch.train.msgpack_ckpt" in names
+assert "satnerf_tpu_torch.cli.study_solar_interpolation" in names
+assert "satnerf_tpu_torch.utils.colormap" in names
 
 from satnerf_tpu_torch.config import Config
 from satnerf_tpu_torch.train.system import NeRFSystem
@@ -91,9 +98,48 @@ for extra in (dict(), dict(n_importance=4), dict(ds_lambda=1000.0)):
     assert np.isfinite(out[f"depth_{typ}"]).all(), extra
 print("NERF OK")
 
+# a checkpoint the JAX package wrote, through the port's msgpack reader;
+# the synthetic AOI with its newer options; the solar study on a port
+# checkpoint (its depth montage through the port's viridis table); the
+# capability tool's module
+import importlib.util
+import tempfile
+from satnerf_tpu_torch.cli.study_solar_interpolation import sun_interp
+from satnerf_tpu_torch.data.synthetic import make_synthetic_aoi
+from satnerf_tpu_torch.train.checkpoints import (load_checkpoint,
+                                                 save_checkpoint)
+cfg = Config(model="sat-nerf", fc_layers=4, fc_units=32, n_samples=8,
+             device="cpu", fused="rays")
+system = NeRFSystem(cfg)
+state = system.init_state()
+assert load_checkpoint("tests/data/jax_satnerf_4x32.ckpt", state.params,
+                       state.optimizer) == 2
+out = system.render_image(state.params, rays[:7], np.zeros(7, np.int32))
+assert np.isfinite(out["rgb_coarse"]).all()
+tmp = tempfile.mkdtemp()
+data_dir, gt_dir = make_synthetic_aoi(tmp + "/aoi", size=8, n_train=2,
+                                      n_test=1, shading=True,
+                                      transient_frac=1.0, rpc_noise_px=1.0)
+cfg = Config(exp_name="study", root_dir=data_dir, gt_dir=gt_dir,
+             logs_dir=tmp + "/logs", ckpts_dir=tmp + "/ckpts", model="s-nerf",
+             fc_layers=4, fc_units=16, n_samples=8, device="cpu")
+cfg.dump()
+system = NeRFSystem(cfg)
+save_checkpoint(tmp + "/ckpts/study/epoch=1.ckpt", system.init_params())
+sun_interp("study", tmp + "/logs", tmp + "/out", 1, n_interp=2, device="cpu")
+assert os.path.exists(tmp + "/out/study/summary/depth_v1.png")
+spec = importlib.util.spec_from_file_location(
+    "capability_tool", "tools/run_capability_experiments_torch.py")
+tool = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(tool)
+assert set(tool.experiment_table(tool.PRESETS["smoke"])) == {
+    "shadow", "solar", "transient", "ba"}
+print("M5 M2 OK")
+
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                       "satnerf_tpu"))
+                                       "satnerf_tpu", "msgpack",
+                                       "matplotlib"))
 print("LOADED", loaded)
 assert not loaded, loaded
 """
@@ -108,3 +154,4 @@ def test_port_imports_no_jax():
     assert "LOADED []" in proc.stdout
     assert "FULL RECIPE OK" in proc.stdout
     assert "NERF OK" in proc.stdout
+    assert "M5 M2 OK" in proc.stdout

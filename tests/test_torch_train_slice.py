@@ -193,9 +193,11 @@ def test_rays_per_sec_counts_validation_as_the_jax_loop_does(trained,
 @pytest.fixture(scope="module")
 def jax_checkpoint_run(trained):
     """A run directory whose epoch=1.ckpt the JAX package wrote (msgpack,
-    satnerf_tpu.train.checkpoints.save_checkpoint), beside the port's
-    opts.json of the trained run, at the same toy size."""
+    satnerf_tpu.train.checkpoints.save_checkpoint, after two Adam steps),
+    beside the port's opts.json of the trained run, at the same toy size.
+    Returns (run, checkpoint, JAX system, JAX state)."""
     from satnerf_tpu.train.checkpoints import save_checkpoint
+    from tests.test_torch_msgpack_ckpt import jax_trained
 
     cfg = trained["cfg"]
     run = "jax_written"
@@ -205,47 +207,74 @@ def jax_checkpoint_run(trained):
     opts["exp_name"] = run
     with open(os.path.join(cfg.logs_dir, run, "opts.json"), "w") as f:
         json.dump(opts, f)
-    jcfg = JaxConfig(model="sat-nerf", fc_layers=4, fc_units=32, n_samples=8,
-                     chunk=512, fused="off", precision="float32")
-    state = JaxSystem(jcfg, dataset_len=jcfg.batch_size).init_state(
-        jax.random.PRNGKey(0))
+    jsys, state, _ = jax_trained("sat-nerf", 0, fc_layers=4, fc_units=32,
+                                 n_samples=8, chunk=512)
     ckpt = os.path.join(cfg.ckpts_dir, run, "epoch=1.ckpt")
     save_checkpoint(ckpt, state)
     with open(ckpt, "rb") as f:
         assert f.read(2) != b"PK"  # not a torch zip archive
-    return run, ckpt
-
-
-MSGPACK = "msgpack checkpoint of the JAX package: not readable here \\(ROADMAP M5\\)"
+    return run, ckpt, jsys, state
 
 
 @pytest.mark.parametrize("reader", ["load_checkpoint", "load_nerf",
                                     "create_dsm", "eval", "resume"])
 def test_jax_checkpoint_is_refused_by_name(trained, jax_checkpoint_run,
-                                           reader):
-    """A msgpack checkpoint of the JAX package is refused with a message that
-    names it, by every reader of checkpoints: the loader under cli.eval and
-    cli.create_dsm, both entry points, and --ckpt_path of cli.train."""
+                                           reader, capsys):
+    """Named for when the port refused them: a msgpack checkpoint of the JAX
+    package now loads through every reader of checkpoints (load_checkpoint,
+    the loader under cli.eval and cli.create_dsm, both entry points, and
+    --ckpt_path of cli.train), and what they serve from it is what the JAX
+    package serves from it (float32 on the CPU, 1e-5); a resumed run goes on
+    from the JAX step and Adam state."""
+    import create_dsm
+    import eval as jax_eval
     from satnerf_tpu_torch.cli.create_dsm import create_pretty_dsm
     from satnerf_tpu_torch.cli.eval import eval_aoi
     from satnerf_tpu_torch.train.checkpoints import load_checkpoint
 
     cfg, root = trained["cfg"], trained["root"]
-    run, ckpt = jax_checkpoint_run
-    with pytest.raises(ValueError, match=MSGPACK):
-        if reader == "load_checkpoint":
-            load_checkpoint(ckpt, trained["state"].params)
-        elif reader == "load_nerf":
-            load_nerf(run, cfg.logs_dir, cfg.ckpts_dir, 1, device="cpu")
-        elif reader == "create_dsm":
-            create_pretty_dsm(run, cfg.logs_dir, str(root / "out_jax"), 1,
-                              device="cpu")
-        elif reader == "eval":
-            eval_aoi(run, cfg.logs_dir, str(root / "eval_jax"), 1,
-                     device="cpu")
-        else:
-            cli_train.main(_argv(root, trained["data_dir"], trained["gt_dir"],
-                                 4, "from_jax", ["--ckpt_path", ckpt]))
+    run, ckpt, jsys, jstate = jax_checkpoint_run
+    rays = SatelliteScene(cfg.root_dir, None, split="val").load_image(1)["rays"]
+    ts = np.full(rays.shape[0], 2, np.int32)
+    ref = jsys.render_image(jstate.params, rays, ts)
+
+    def same_render(system, params):
+        out = system.render_image(params, rays, ts)
+        for k in ("rgb_coarse", "depth_coarse"):
+            np.testing.assert_allclose(out[k], ref[k], atol=1e-5, err_msg=k)
+
+    if reader == "load_checkpoint":
+        system = trained["system"]
+        params = system.init_params()
+        optimizer = torch.optim.Adam(params.parameters())
+        assert load_checkpoint(ckpt, params, optimizer) == 2
+        assert {float(s["step"]) for s in optimizer.state.values()} == {2.0}
+        same_render(system, params)
+    elif reader == "load_nerf":
+        same_render(*load_nerf(run, cfg.logs_dir, cfg.ckpts_dir, 1,
+                               device="cpu"))
+    elif reader == "create_dsm":
+        mae = create_pretty_dsm(run, cfg.logs_dir, str(root / "out_jax"), 1,
+                                device="cpu")
+        mae_jax = create_dsm.create_pretty_dsm(run, cfg.logs_dir,
+                                               str(root / "out_jax_j"), 1)
+        assert np.isfinite(mae) and abs(mae - mae_jax) <= 1e-5
+    elif reader == "eval":
+        got = eval_aoi(run, cfg.logs_dir, str(root / "eval_jax"), 1,
+                       device="cpu")
+        want = jax_eval.eval_aoi(run, cfg.logs_dir, str(root / "eval_jax_j"),
+                                 1)
+        for k in ("psnr", "ssim", "mae"):
+            assert np.isfinite(got[k])
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
+    else:
+        capsys.readouterr()
+        out = cli_train.main(_argv(root, trained["data_dir"], trained["gt_dir"],
+                                   4, "from_jax", ["--ckpt_path", ckpt]))
+        assert f"resumed from {ckpt} at step 2" in capsys.readouterr().out
+        assert out["state"].step == 4
+        steps = {float(s["step"]) for s in out["state"].optimizer.state.values()}
+        assert steps == {4.0}
 
 
 FULL = ["--sc_lambda", "0.1", "--ds_lambda", "1000", "--ds_drop", "0.5"]
