@@ -154,8 +154,15 @@ plain version):
      transient experiment's smoke preset through
      tools/run_capability_experiments_torch.py (its phases in this process)
      must give finite metrics and a finite beta ratio
+  9  the CPU geometry anchor's configuration on the card
+     (tests/test_torch_geometry_anchor_cpu.py): cli.train on a 128 px
+     10-view smooth-terrain AOI, sat-nerf 8 x 64, 32 samples, batch 512 x
+     800 steps, lr 1e-3, seed 0, through the kernels (K1 every step, K2 for
+     the final validation); the final val/mae must be under 4.0 m and
+     val/psnr over 12.5, as on the CPU; the step's device-ms and the
+     phase's seconds are printed
 
-No earlier phase was cut when phases 2d, 2e, 6, 7 and 8 came: the whole run
+No earlier phase was cut when phases 2d, 2e, 6, 7, 8 and 9 came: the whole run
 stays well inside half its time limit.
 
 The line before the last is {"kernels": [...]}, the last
@@ -3480,6 +3487,72 @@ def phase8(results: dict, card: str):
         fail(f"the capability smoke run is not finite: {vals}, {beta}")
 
 
+# the CPU geometry anchor (tests/test_geometry_anchor_cpu.py:55-82, and the
+# port's tests/test_torch_geometry_anchor_cpu.py), with its two gates
+ANCHOR_AOI = ["--n_train", "10", "--n_test", "1", "--size", "128",
+              "--view_spread", "0.25", "--terrain", "smooth", "--checker", "8",
+              "--alt_bounds", "terrain"]
+ANCHOR_TRAIN = ["--model", "sat-nerf", "--fc_units", "64", "--fc_layers", "8",
+                "--n_samples", "32", "--chunk", "16384", "--lr", "1e-3",
+                "--batch_size", "512", "--max_train_steps", "800",
+                "--log_every_n_steps", "400", "--save_every_n_epochs", "999",
+                "--val_every_n_epochs", "999", "--seed", "0"]
+ANCHOR_MAE_M, ANCHOR_PSNR = 4.0, 12.5
+
+
+def phase9(results: dict, card: str):
+    """M3 on the card: the CPU geometry anchor's run through the kernels,
+    held to the same gates."""
+    import torch
+
+    from satnerf_tpu_torch.cli import train as cli_train
+    from satnerf_tpu_torch.data import load_dataset, synthetic
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK, "anchor")
+    shutil.rmtree(root, ignore_errors=True)
+    synthetic.main([os.path.join(root, "aoi")] + ANCHOR_AOI)
+    aoi = os.path.join(root, "aoi")
+    FM.reset_launches()
+    out = cli_train.main([
+        "--root_dir", os.path.join(aoi, "data"),
+        "--gt_dir", os.path.join(aoi, "gt"),
+        "--cache_dir", os.path.join(aoi, "cache"),
+        "--logs_dir", os.path.join(root, "logs"),
+        "--ckpts_dir", os.path.join(root, "ckpts"),
+        "--exp_name", "anchor"] + ANCHOR_TRAIN)
+    counts = _counts()
+    system, state, cfg, m = out["system"], out["state"], out["cfg"], \
+        out["metrics"]
+    # the step's device time, on the run's own dataset and state
+    ds = load_dataset(cfg, split="train")[0]
+    data = {"rays": torch.from_numpy(np.ascontiguousarray(
+                ds.all_rays, np.float32)).cuda(),
+            "rgbs": torch.from_numpy(np.ascontiguousarray(
+                ds.all_rgbs, np.float32)).cuda(),
+            "ts": torch.from_numpy(np.asarray(ds.all_ids, np.int64)).cuda()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dev_ms = _device_ms(lambda: system.train_step(state, data, gen))
+    secs = time.perf_counter() - t_phase
+    results["anchor"] = {"metrics": m, "device_ms": dev_ms, "seconds": secs}
+    log(f"phase 9: geometry anchor (sat-nerf 8 x 64, 32 samples, batch 512 "
+        f"x 800 steps, --fused {system.fused_mode}): val/mae "
+        f"{m.get('val/mae', float('nan')):.3f} m (gate < {ANCHOR_MAE_M}), "
+        f"val/psnr {m.get('val/psnr', float('nan')):.2f} (gate > "
+        f"{ANCHOR_PSNR}); {dev_ms:.3f} device-ms a step; launches "
+        f"composite_loss_bwd {counts['composite_loss_bwd']}, heads_composite "
+        f"{counts['heads_composite']}; phase {secs:.1f} s on {card}")
+    if system.fused_mode != "rays" or counts["composite_loss_bwd"] != 800 \
+            or not counts["heads_composite"]:
+        raise SystemExit(f"phase 9 failed: the anchor run missed the kernels "
+                         f"({system.fused_mode}, {counts})")
+    if not (m.get("val/mae", np.inf) < ANCHOR_MAE_M
+            and m.get("val/psnr", -np.inf) > ANCHOR_PSNR):
+        raise SystemExit(f"phase 9 failed: geometry anchor {m} (gates: mae < "
+                         f"{ANCHOR_MAE_M} m, psnr > {ANCHOR_PSNR})")
+
+
 def _loaded_foreign() -> list:
     return sorted(m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
@@ -3510,7 +3583,8 @@ def main():
              ("5", lambda: phase5(results, card)),
              ("6", lambda: phase6(results, card)),
              ("7", lambda: phase7(results, card)),
-             ("8", lambda: phase8(results, card)))
+             ("8", lambda: phase8(results, card)),
+             ("9", lambda: phase9(results, card)))
     t_start = time.perf_counter()
     for key, run in steps:
         if only and key not in only:

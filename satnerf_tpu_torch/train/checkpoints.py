@@ -33,6 +33,25 @@ def checkpoint_path(ckpts_dir: str, exp_name: str, epoch: int) -> str:
     return os.path.join(ckpts_dir, exp_name, f"epoch={epoch}.ckpt")
 
 
+def jax_init_name(model: str, layers: int, units: int, seed: int) -> str:
+    """File name of the JAX package's initial checkpoint of a configuration:
+    what its `fit` starts from, `NeRFSystem(cfg).init_state(PRNGKey(seed))`
+    written by its `save_checkpoint` at step 0."""
+    return f"jax_init_{model}_{layers}x{units}_seed{seed}.ckpt"
+
+
+def jax_init_path(init_dir: str, model: str, layers: int, units: int,
+                  seed: int) -> str:
+    """The JAX initial checkpoint for (model, layers x units, seed) in
+    `init_dir`; FileNotFoundError naming the file when it is not there."""
+    path = os.path.join(init_dir, jax_init_name(model, layers, units, seed))
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"no JAX initial checkpoint for {model} {layers} x {units} seed "
+            f"{seed}: looked for {path}")
+    return path
+
+
 def _name_map(variant: str, layers: int):
     """(JAX Dense name, reference torch module path), as
     satnerf_tpu/train/checkpoints.py:116-130."""

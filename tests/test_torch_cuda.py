@@ -1653,6 +1653,62 @@ def test_siren_dense_wgmma(dev, k, n, extra, n_extra, act, save, n_rays,
         assert float((got[1] - wmma[1]).abs().max()) <= 1e-5 + 1e-4
 
 
+@pytest.mark.parametrize("extra,n_extra,save", [
+    ("xyz", 3, False), ("sun", 3, False), ("t", 4, False), (None, 0, True)])
+def test_siren_dense_k64_takes_wmma(dev, extra, n_extra, save):
+    """At K = 64 with an E operand or a saved slope the wgmma kernel hung
+    from 262,144 points on (a 64-wide field's 16,384-ray chunk of 32
+    samples, its 8,192-ray training batch): the rule sends K = 64 to wmma
+    and refuses wgmma by hand. Held at that shape against the plain version;
+    at K = 128 the rule keeps wgmma."""
+    args, kw = _dense_operands(dev, 64, 64, extra, n_extra, 16384, 32)
+    kw.update(save=save)
+    assert FM.dense_mainloop("siren_dense", torch.bfloat16, 64, 64) == "wmma"
+    assert FM.dense_mainloop("siren_dense", torch.bfloat16, 128, 64) == "wgmma"
+    with pytest.raises(ValueError):
+        FM.siren_dense(*args, mainloop="wgmma", **kw)
+    before = _count("siren_dense", "wmma")
+    got = FM.siren_dense(*args, **kw)
+    assert _count("siren_dense", "wmma") == before + 1
+    ref = FM.siren_dense_reference(*args, **kw)
+    if save:
+        assert float((got[1] - ref[1]).abs().max()) <= 1e-5 + 1e-4
+        got, ref = got[0], ref[0]
+    _close(got, ref, True)
+
+
+# (rays, samples): where siren_dense on wgmma hung at K = 64 (262,144 points,
+# a 64-wide field's 8,192-ray training batch of 32 samples), and 1,048,576
+K64_HANG_POINTS = [(8192, 32), (16384, 64)]
+
+
+@pytest.mark.parametrize("extra,n_extra,save", [
+    (extra, n_extra, save)
+    for extra, n_extra in (("xyz", 3), ("sun", 3), ("t", 4), (None, 0))
+    for save in (False, True) if extra or save])
+@pytest.mark.parametrize("k,n", [(128, 64), (256, 64), (128, 256), (256, 256)])
+@pytest.mark.parametrize("n_rays,samples", K64_HANG_POINTS)
+def test_siren_dense_wgmma_past_the_k64_edge(dev, k, n, extra, n_extra, save,
+                                             n_rays, samples):
+    """The rule keeps wgmma from K = 128 on, while why K = 64 hung with an E
+    operand or a saved slope is not known (ROADMAP Q6, D10). Held at the
+    rule's edge by hand, with each E operand and a saved slope, at the
+    point count where K = 64 hung and at four times it, against the plain
+    version."""
+    args, kw = _dense_operands(dev, k, n, extra, n_extra, n_rays, samples)
+    kw.update(act="sin", save=save)
+    assert FM.dense_mainloop("siren_dense", torch.bfloat16, k, n) == "wgmma"
+    before = _count("siren_dense", "wgmma")
+    got = FM.siren_dense(*args, mainloop="wgmma", **kw)
+    torch.cuda.synchronize()
+    assert _count("siren_dense", "wgmma") == before + 1
+    ref = FM.siren_dense_reference(*args, **kw)
+    if save:
+        assert float((got[1] - ref[1]).abs().max()) <= 1e-5 + 1e-4
+        got, ref = got[0], ref[0]
+    _close(got, ref, True)
+
+
 # (N, K, slope, accumulate): every siren_dense_dgrad launch of the main path
 MAIN_DGRAD = [(256, 512, True, False),    # rgb_0
               (256, 512, True, True),     # sun_v_0, beta_0 onto d_feats
@@ -1698,8 +1754,9 @@ def test_wgmma_sine_is_sinf_bit_for_bit(dev, save):
     the wmma epilogue calls the library. With products of small integers,
     which sum exactly in any order, both mainloops see the same
     pre-activations, so Y and the slope agree bit for bit, over arguments
-    of up to 2e5 (groups of columns on both sides of that limit)."""
-    n_rays, samples, k, n = 64, 16, 64, 512
+    of up to 2e5 (groups of columns on both sides of that limit). K is 128:
+    the rule sends K = 64 to wmma since Q6 (ROADMAP §3)."""
+    n_rays, samples, k, n = 64, 16, 128, 512
     rays16, z = _rays16(n_rays, samples, dev)
     g = torch.Generator().manual_seed(11)
     p = n_rays * samples

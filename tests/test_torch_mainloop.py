@@ -182,6 +182,19 @@ def test_a_mainloop_that_cannot_run_is_refused(kernel, dtype, k, n, ins, outs,
                           outputs_aligned=outs, mainloop=mainloop)
 
 
+@pytest.mark.parametrize("k,n,want", [
+    (64, 64, "wmma"), (64, 128, "wmma"), (128, 64, "wgmma"), (512, 512, "wgmma")])
+def test_siren_dense_at_k64_leaves_wgmma(k, n, want):
+    """siren_dense's wgmma kernel hung at K = 64 (one depth block a tile)
+    with an E operand or a saved slope from 262,144 points on (a 64-wide
+    field): the rule, as csrc/fused_render.cu's, sends K = 64 to wmma and
+    refuses wgmma there by hand."""
+    assert FM.dense_mainloop("siren_dense", BF16, k, n) == want
+    if want == "wmma":
+        with pytest.raises(ValueError):
+            FM.dense_mainloop("siren_dense", BF16, k, n, mainloop="wgmma")
+
+
 @pytest.mark.parametrize("kernel,dtype,k,n,e_rows,ins,outs,want", NERF_RULE)
 def test_nerf_rule(kernel, dtype, k, n, e_rows, ins, outs, want):
     got = FM.dense_mainloop(kernel, dtype, k, n, e_rows=e_rows,

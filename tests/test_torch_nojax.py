@@ -4,7 +4,9 @@ of the full recipe (solar correction and depth supervision, with grad_accum
 and with shuffle) and the classic NeRF variant's three kinds of step, then
 read a checkpoint the JAX package wrote, build a synthetic AOI with
 transients and RPC noise, run the solar study and load the capability tool,
-and look at sys.modules. No jax, jaxlib, flax or optax, no module of the
+run the DSM oracle of cli.dsm_diagnostics, load the convergence tool and a
+JAX initial checkpoint, import every other entry point, and look at
+sys.modules. No jax, jaxlib, flax or optax, no module of the
 JAX package satnerf_tpu, and neither msgpack nor matplotlib (the machine
 with the card has neither) may have been loaded."""
 
@@ -37,6 +39,9 @@ assert "satnerf_tpu_torch.ops.fused_nerf" in names
 assert "satnerf_tpu_torch.train.msgpack_ckpt" in names
 assert "satnerf_tpu_torch.cli.study_solar_interpolation" in names
 assert "satnerf_tpu_torch.utils.colormap" in names
+for name in ("study_depth_supervision", "dsm_diagnostics", "eval_s2p",
+             "create_satellite_dataset"):
+    assert f"satnerf_tpu_torch.cli.{name}" in names, name
 
 from satnerf_tpu_torch.config import Config
 from satnerf_tpu_torch.train.system import NeRFSystem
@@ -136,6 +141,28 @@ assert set(tool.experiment_table(tool.PRESETS["smoke"])) == {
     "shadow", "solar", "transient", "ba"}
 print("M5 M2 OK")
 
+# the remaining entry points on the AOI above (no model), the convergence
+# tool's module, and the JAX initial checkpoints under tests/data
+import contextlib
+import io
+from satnerf_tpu_torch.cli import dsm_diagnostics
+from satnerf_tpu_torch.train.checkpoints import jax_init_path
+with contextlib.redirect_stdout(io.StringIO()):
+    mae = dsm_diagnostics.main(["oracle", "--root_dir", data_dir, "--gt_dir",
+                                gt_dir, "--samples", "32", "--out_dir",
+                                tmp + "/oracle"])
+assert np.isfinite(mae)
+spec = importlib.util.spec_from_file_location(
+    "convergence_tool", "tools/convergence_torch.py")
+tool = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(tool)
+assert tool.run_config("full")["fc_units"] == 64
+state = NeRFSystem(Config(model="sat-nerf", fc_units=64, precision="float32",
+                          device="cpu")).init_state()
+assert load_checkpoint(jax_init_path("tests/data", "sat-nerf", 8, 64, 2),
+                       state.params, state.optimizer) == 0
+print("M6 M4 OK")
+
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                        "satnerf_tpu", "msgpack",
@@ -155,3 +182,4 @@ def test_port_imports_no_jax():
     assert "FULL RECIPE OK" in proc.stdout
     assert "NERF OK" in proc.stdout
     assert "M5 M2 OK" in proc.stdout
+    assert "M6 M4 OK" in proc.stdout

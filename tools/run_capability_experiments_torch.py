@@ -32,10 +32,18 @@ each run's metrics the report keeps its training's wall seconds and steps a
 second, and under "device" the card's name and power limit. Runs already
 done in WORKDIR are not run again.
 
+`--init_dir DIR` starts every run from the JAX package's initial weights
+for its variant, width and seed (train/checkpoints.jax_init_name, through
+`ckpt_path`) in place of the port's own draw; the report names the files
+under "provenance". A run with no such file stops the tool before anything
+trains. tests/data holds them for the full preset at seeds 0 and 1
+(tests/test_torch_jax_init.py writes them).
+
   python tools/run_capability_experiments_torch.py WORKDIR \\
       [--preset full|smoke] [--device cuda|cpu] \\
       [--experiments shadow solar transient ba] [--out CAPABILITY_torch.json]
-      [--seed 0] [--fused auto|rays|on|off] [--in_process]
+      [--seed 0] [--fused auto|rays|on|off] [--init_dir tests/data]
+      [--in_process]
 
 The full preset runs on the card (the default device); `--preset smoke
 --experiments transient --device cpu` drives the transient chain on the CPU
@@ -351,6 +359,40 @@ def _child(args, spec, phase):
 PHASES = {"train": _phase_train, "eval": _phase_eval, "sweep": _phase_sweep}
 
 
+def run_specs(p: dict, experiments, seed: int, init_dir=None) -> list:
+    """(experiment, run, spec) for every run of `experiments` in order, the
+    spec as the train / eval / sweep phases take it. With `init_dir` each
+    run's ckpt_path is the JAX initial checkpoint of its variant, width and
+    seed (FileNotFoundError for the first run without one)."""
+    from satnerf_tpu_torch.train.checkpoints import jax_init_path
+
+    table = experiment_table(p)
+    out = []
+    for exp_name in experiments:
+        for run_name, aoi_key, overrides in table[exp_name]["runs"]:
+            preset_keys = {k: p[k] for k in ("fc_units", "fc_layers",
+                                             "n_samples", "batch_size",
+                                             "max_train_steps", "lr")}
+            overrides = dict(preset_keys, **overrides)  # run overrides win
+            overrides["seed"] = seed
+            if init_dir is not None:
+                overrides["ckpt_path"] = os.path.abspath(jax_init_path(
+                    init_dir, overrides["model"], overrides["fc_layers"],
+                    overrides["fc_units"], seed))
+            out.append((exp_name, run_name, {
+                "name": f"{exp_name}_{run_name}", "aoi": aoi_key,
+                "overrides": overrides,
+                "train_maps": exp_name in ("shadow", "transient")}))
+    return out
+
+
+def _sha256(path: str) -> str:
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
 def compute_gates(experiments: dict) -> dict:
     """The report's gate values from its experiments, as the JAX tool
     computes them."""
@@ -430,6 +472,11 @@ def main(argv=None):
                     help="the runs' --fused (auto: the kernels on the card; "
                          "off: plain PyTorch, to tell a kernel's fault from "
                          "the training's)")
+    ap.add_argument("--init_dir", default=None,
+                    help="start each run from the JAX package's initial "
+                         "checkpoint of its variant, width and seed in this "
+                         "directory (tests/data); a run without one stops "
+                         "the tool")
     ap.add_argument("--in_process", action="store_true",
                     help="run the phases in this process, not in children")
     ap.add_argument("--_phase", default=None,
@@ -444,6 +491,8 @@ def main(argv=None):
 
     p = PRESETS[args.preset]
     table = experiment_table(p)
+    # every fixture is found (or the tool stops) before anything trains
+    specs = run_specs(p, args.experiments, args.seed, args.init_dir)
     report = {"preset": args.preset, "config": p, "experiments": {}}
     t_all = time.time()
     for exp_name in args.experiments:
@@ -453,15 +502,8 @@ def main(argv=None):
             if not os.path.isdir(os.path.join(aoi, "data")):
                 synthetic.main([aoi, "--seed", str(args.seed)] + flags)
         results = {}
-        for run_name, aoi_key, overrides in exp["runs"]:
-            name = f"{exp_name}_{run_name}"
-            preset_keys = {k: p[k] for k in ("fc_units", "fc_layers",
-                                             "n_samples", "batch_size",
-                                             "max_train_steps", "lr")}
-            overrides = dict(preset_keys, **overrides)  # run overrides win
-            overrides["seed"] = args.seed
-            spec = {"name": name, "aoi": aoi_key, "overrides": overrides,
-                    "train_maps": exp_name in ("shadow", "transient")}
+        for _, run_name, spec in (s for s in specs if s[0] == exp_name):
+            name = spec["name"]
             mpath = os.path.join(args.workdir, "metrics", f"{name}.json")
             if not os.path.exists(mpath):
                 ckpt_dir = os.path.join(args.workdir, "ckpts", name)
@@ -486,6 +528,13 @@ def main(argv=None):
                      + " ".join(args.experiments),
         "seconds": time.time() - t_all,
     }
+    if args.init_dir is not None:
+        report["provenance"]["generator"] += f" --init_dir {args.init_dir}"
+        report["provenance"]["init_checkpoints"] = {
+            spec["name"]: {
+                "file": os.path.relpath(spec["overrides"]["ckpt_path"], REPO),
+                "sha256": _sha256(spec["overrides"]["ckpt_path"])}
+            for _, _, spec in specs}
 
     path = os.path.join(args.workdir, "capability_report.json")
     with open(path, "w") as f:
