@@ -162,8 +162,23 @@ plain version):
      val/psnr over 12.5, as on the CPU; the step's device-ms and the
      phase's seconds are printed
 
-No earlier phase was cut when phases 2d, 2e, 6, 7, 8 and 9 came: the whole run
-stays well inside half its time limit.
+  10 training across devices (M7) at the main path's width: cli.train at
+     sat-nerf 8 x 512, 64 samples, batch 1,024, bf16, --fused rays, 5 steps
+     and rank 0's validation (K2), four times: without a process group, as
+     a world of one through SATNERF_COORDINATOR (NCCL; the all-reduce must
+     leave every gradient and metric as it was, to the bit, at every step),
+     and twice more without a group. Runs on the card differ by the
+     kernels' fp32 atomics; the world of one may differ from the first run
+     without a group by no more than twice the most the three runs without
+     one differ among themselves. With two cards or more, two ranks (NCCL)
+     whose parameters must be bit-equal
+  11 the parity tool (M8): tools/parity_report_torch.py on the committed
+     JAX checkpoint (sat-nerf 4 x 32) over a 16 px synthetic AOI, on the card
+     (through K2) and on the CPU: finite PSNR, SSIM and MAE, the card's
+     within 2e-2 of the CPU's
+
+No earlier phase was cut when phases 2d, 2e, 6, 7, 8, 9, 10 and 11 came: the
+whole run stays well inside half its time limit.
 
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Scratch files go to build/chip_smoke/.
@@ -2402,7 +2417,7 @@ def phase3(results: dict, card: str):
         json.dump(opts, f)
     cfg = load_run_config(logs, run_id)
     system = NeRFSystem(cfg, device="cuda")
-    params = system.init_params(torch.Generator().manual_seed(0))
+    params = system.init_params(0)
     save_checkpoint(checkpoint_path(ckpts, run_id, 1), params)
 
     out_dir = os.path.join(WORK, "out")
@@ -2500,7 +2515,6 @@ def phase4(results: dict, card: str):
     """The trainer through its entry point, then resume, then serve."""
     import torch
 
-    from satnerf_tpu_torch.cli import train as cli_train
     from satnerf_tpu_torch.cli.create_dsm import create_pretty_dsm
     from satnerf_tpu_torch.data.synthetic import make_synthetic_aoi
     from satnerf_tpu_torch.ops import fused_mlp as FM
@@ -2525,7 +2539,7 @@ def phase4(results: dict, card: str):
 
     FM.reset_launches()
     t0 = time.perf_counter()
-    first = cli_train.main(argv(TRAIN_STEPS, "smoke_train"))
+    first = _train_one(argv(TRAIN_STEPS, "smoke_train"))
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = _counts()
@@ -2610,7 +2624,7 @@ def phase4(results: dict, card: str):
     if saved["global_step"] != TRAIN_STEPS or not saved["optimizer_states"]:
         raise SystemExit(f"phase 4 failed: {ckpt} holds step "
                          f"{saved.get('global_step')} / no optimizer state")
-    second = cli_train.main(argv(RESUME_STEPS, "smoke_resume",
+    second = _train_one(argv(RESUME_STEPS, "smoke_resume",
                                  ["--ckpt_path", ckpt]))
     rows2 = _train_rows(logs, second["cfg"].exp_name)
     # "at the trained level": within a quarter of the way from the loss the
@@ -2647,7 +2661,6 @@ def phase5(results: dict, card: str):
     and depth supervision, then grad_accum and shuffle."""
     import torch
 
-    from satnerf_tpu_torch.cli import train as cli_train
     from satnerf_tpu_torch.data.synthetic import make_synthetic_aoi
     from satnerf_tpu_torch.ops import fused_mlp as FM
 
@@ -2673,7 +2686,7 @@ def phase5(results: dict, card: str):
     def run(steps, name, extra=()):
         FM.reset_launches()
         t0 = time.perf_counter()
-        out = cli_train.main(argv(steps, name, extra))
+        out = _train_one(argv(steps, name, extra))
         torch.cuda.synchronize()
         return out, _counts(), time.perf_counter() - t0
 
@@ -2800,7 +2813,6 @@ def phase6(results: dict, card: str):
     --fused on (K6) and --fused off."""
     import torch
 
-    from satnerf_tpu_torch.cli import train as cli_train
     from satnerf_tpu_torch.cli.create_dsm import create_pretty_dsm
     from satnerf_tpu_torch.ops import fused_mlp as FM
 
@@ -2823,7 +2835,7 @@ def phase6(results: dict, card: str):
     def run(steps, name, n_imp, extra=()):
         FM.reset_launches()
         t0 = time.perf_counter()
-        out = cli_train.main(argv(steps, name, n_imp, extra))
+        out = _train_one(argv(steps, name, n_imp, extra))
         torch.cuda.synchronize()
         return out, _counts(), time.perf_counter() - t0
 
@@ -3080,7 +3092,6 @@ def phase7(results: dict, card: str):
     the depth-supervised trainer."""
     import torch
 
-    from satnerf_tpu_torch.cli import train as cli_train
     from satnerf_tpu_torch.cli.create_dsm import create_pretty_dsm
     from satnerf_tpu_torch.data.synthetic import make_synthetic_aoi
     from satnerf_tpu_torch.ops import fused_mlp as FM
@@ -3109,7 +3120,7 @@ def phase7(results: dict, card: str):
     def run(root, steps, name, extra=()):
         FM.reset_launches()
         t0 = time.perf_counter()
-        out = cli_train.main(argv(root, steps, name, extra))
+        out = _train_one(argv(root, steps, name, extra))
         torch.cuda.synchronize()
         return out, _counts(), time.perf_counter() - t0
 
@@ -3370,7 +3381,6 @@ def phase8(results: dict, card: str):
 
     import torch
 
-    from satnerf_tpu_torch.cli import train as cli_train
     from satnerf_tpu_torch.config import Config
     from satnerf_tpu_torch.data import load_dataset
     from satnerf_tpu_torch.ops import fused_mlp as FM
@@ -3392,7 +3402,7 @@ def phase8(results: dict, card: str):
     for model in ("sat-nerf", "nerf"):
         FM.reset_launches()
         t0 = time.perf_counter()
-        out = cli_train.main([
+        out = _train_one([
             "--root_dir", os.path.join(aoi, "data"),
             "--gt_dir", os.path.join(aoi, "gt"), "--model", model,
             "--exp_name", f"wide_{model}", "--fc_units", str(WIDE_FEAT),
@@ -3505,7 +3515,6 @@ def phase9(results: dict, card: str):
     held to the same gates."""
     import torch
 
-    from satnerf_tpu_torch.cli import train as cli_train
     from satnerf_tpu_torch.data import load_dataset, synthetic
     from satnerf_tpu_torch.ops import fused_mlp as FM
 
@@ -3515,7 +3524,7 @@ def phase9(results: dict, card: str):
     synthetic.main([os.path.join(root, "aoi")] + ANCHOR_AOI)
     aoi = os.path.join(root, "aoi")
     FM.reset_launches()
-    out = cli_train.main([
+    out = _train_one([
         "--root_dir", os.path.join(aoi, "data"),
         "--gt_dir", os.path.join(aoi, "gt"),
         "--cache_dir", os.path.join(aoi, "cache"),
@@ -3523,6 +3532,8 @@ def phase9(results: dict, card: str):
         "--ckpts_dir", os.path.join(root, "ckpts"),
         "--exp_name", "anchor"] + ANCHOR_TRAIN)
     counts = _counts()
+    loops = {k[1]: v for k, v in FM.MAINLOOP_LAUNCHES.items()
+             if k[0] == "siren_dense"}
     system, state, cfg, m = out["system"], out["state"], out["cfg"], \
         out["metrics"]
     # the step's device time, on the run's own dataset and state
@@ -3535,22 +3546,232 @@ def phase9(results: dict, card: str):
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev_ms = _device_ms(lambda: system.train_step(state, data, gen))
     secs = time.perf_counter() - t_phase
-    results["anchor"] = {"metrics": m, "device_ms": dev_ms, "seconds": secs}
+    results["anchor"] = {"metrics": m, "device_ms": dev_ms, "seconds": secs,
+                         "siren_dense_mainloops": loops}
     log(f"phase 9: geometry anchor (sat-nerf 8 x 64, 32 samples, batch 512 "
         f"x 800 steps, --fused {system.fused_mode}): val/mae "
         f"{m.get('val/mae', float('nan')):.3f} m (gate < {ANCHOR_MAE_M}), "
         f"val/psnr {m.get('val/psnr', float('nan')):.2f} (gate > "
         f"{ANCHOR_PSNR}); {dev_ms:.3f} device-ms a step; launches "
         f"composite_loss_bwd {counts['composite_loss_bwd']}, heads_composite "
-        f"{counts['heads_composite']}; phase {secs:.1f} s on {card}")
+        f"{counts['heads_composite']}; siren_dense by mainloop {loops} (K = 64, "
+        f"N = 64 on wgmma: the trunk and feats, 8 a forward; N = 32 on wmma); "
+        f"phase {secs:.1f} s on {card}")
     if system.fused_mode != "rays" or counts["composite_loss_bwd"] != 800 \
             or not counts["heads_composite"]:
         raise SystemExit(f"phase 9 failed: the anchor run missed the kernels "
                          f"({system.fused_mode}, {counts})")
+    # the field's K = 64 layers on wgmma (Q6 repaired): 8 a training step
+    if loops.get("wgmma", 0) < 8 * 800:
+        raise SystemExit(f"phase 9 failed: siren_dense at K = 64 did not run "
+                         f"on wgmma: {loops}")
     if not (m.get("val/mae", np.inf) < ANCHOR_MAE_M
             and m.get("val/psnr", -np.inf) > ANCHOR_PSNR):
         raise SystemExit(f"phase 9 failed: geometry anchor {m} (gates: mae < "
                          f"{ANCHOR_MAE_M} m, psnr > {ANCHOR_PSNR})")
+
+
+# phase 10: the main path's training across devices (M7), at full width
+DIST_STEPS = 5
+
+
+def _dist_argv(aoi: str, root: str, name: str) -> list:
+    return ["--root_dir", os.path.join(aoi, "data"),
+            "--gt_dir", os.path.join(aoi, "gt"), "--model", "sat-nerf",
+            "--exp_name", name, "--fc_layers", str(LAYERS),
+            "--fc_units", str(FEAT), "--n_samples", str(SAMPLES),
+            "--batch_size", str(BATCH), "--chunk", str(CHUNK),
+            "--fused", "rays", "--precision", "bfloat16",
+            "--max_train_steps", str(DIST_STEPS), "--log_every_n_steps", "1",
+            "--num_sanity_val_steps", "0", "--noise_std", "1.0",
+            "--logs_dir", os.path.join(root, "logs"),
+            "--ckpts_dir", os.path.join(root, "ckpts")]
+
+
+def _dist_rank(out_dir: str, argv: list) -> None:
+    """A rank of phase 10's group (started by parallel.spawn): cli.train,
+    then its parameters into out_dir."""
+    import torch
+
+    from satnerf_tpu_torch.parallel import distributed as D
+
+    out = _train_one(argv)
+    r = int(os.environ["SATNERF_PROC_ID"])
+    torch.save({k: v.cpu() for k, v in out["state"].params.state_dict().items()},
+               os.path.join(out_dir, f"rank{r}.pt"))
+    assert not D.is_distributed()
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def phase10(results: dict, card: str):
+    """M7 on the card: cli.train at sat-nerf 8 x 512, 64 samples, batch
+    1,024, bf16, --fused rays through the distributed step on NCCL: a world
+    of one via SATNERF_COORDINATOR beside the same run without a group, and
+    two ranks where the machine has two cards."""
+    import socket
+
+    import torch
+
+    from satnerf_tpu_torch.data.synthetic import make_synthetic_aoi
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+    from satnerf_tpu_torch.parallel import distributed as D
+
+    def fail(msg):
+        raise SystemExit(f"phase 10 failed: {msg}")
+
+    def port():
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            return sock.getsockname()[1]
+
+    aoi = os.path.join(WORK, "aoi")  # phase 3's
+    if not os.path.isdir(os.path.join(aoi, "data")):
+        make_synthetic_aoi(aoi, size=128)
+    root = os.path.join(WORK, "dist")
+    shutil.rmtree(root, ignore_errors=True)
+
+    # the collective of a world of one leaves every gradient and metric as
+    # it was, to the bit: held at every step
+    reduce_mean, changed, reduced = D.all_reduce_mean, [], []
+
+    def checked_reduce(tensors):
+        tensors = list(tensors)
+        before = [t.clone() for t in tensors]
+        reduce_mean(tensors)
+        reduced.append(len(tensors))
+        if D.world() == 1:
+            changed.extend(i for i, (a, b) in enumerate(zip(before, tensors))
+                           if not torch.equal(a, b))
+
+    runs = {}
+    for name in ("plain", "group", "plain_2", "plain_3"):
+        env = ({"SATNERF_COORDINATOR": f"localhost:{port()}",
+                "SATNERF_NUM_PROCS": "1", "SATNERF_PROC_ID": "0"}
+               if name == "group" else {})
+        os.environ.update(env)
+        D.all_reduce_mean = checked_reduce
+        FM.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            out = _train_one(_dist_argv(aoi, root, name))
+        finally:
+            D.all_reduce_mean = reduce_mean
+            for k in env:
+                os.environ.pop(k)
+        torch.cuda.synchronize()
+        counts = _counts()
+        system = out["system"]
+        runs[name] = {k: v.detach().clone() for k, v in
+                      out["state"].params.state_dict().items()}
+        log(f"phase 10: {name}: world {system.world} on {system.device}, "
+            f"{DIST_STEPS} steps and rank 0's validation in "
+            f"{time.perf_counter() - t0:.1f} s; all-reduces {len(reduced)}; "
+            f"launches composite_loss_bwd {counts['composite_loss_bwd']}, "
+            f"heads_composite {counts['heads_composite']}, siren_dense "
+            f"{counts['siren_dense']}; val {out['metrics']}")
+        if system.fused_mode != "rays" or \
+                system.compute_dtype != torch.bfloat16 or \
+                counts["composite_loss_bwd"] != DIST_STEPS or \
+                not counts["heads_composite"]:
+            fail(f"{name} missed the kernels: {system.fused_mode}, {counts}")
+        if len(reduced) != (2 * DIST_STEPS if name == "group" else 0):
+            fail(f"{name}: {len(reduced)} all-reduces in {DIST_STEPS} steps")
+        if changed:
+            fail(f"the world of one's all-reduce changed tensors {changed}")
+        reduced.clear()
+        if not all(np.isfinite(v) for v in out["metrics"].values()):
+            fail(f"{name}: validation not finite: {out['metrics']}")
+    # runs on the card differ by the kernels' fp32 atomics alone (their sums
+    # land in another order each run): the group's run may differ from the
+    # first run without a group by no more than twice the most the three
+    # runs without a group differ among themselves, and by nothing where
+    # those agree to the bit
+    plain = ("plain", "plain_2", "plain_3")
+    spread = max(_max_diff(runs[a], runs[b])
+                 for i, a in enumerate(plain) for b in plain[i + 1:])
+    diff = _max_diff(runs["group"], runs["plain"])
+    results["dist"] = {"world_of_one_vs_plain": diff,
+                       "plain_vs_plain": spread}
+    log(f"phase 10: parameters after {DIST_STEPS} steps: world of one vs the "
+        f"run without a group max |diff| {diff:.3e}; three runs without a "
+        f"group at most {spread:.3e} apart")
+    if (diff > 0 and spread == 0) or diff > 2 * spread:
+        fail(f"the world of one's parameters differ by {diff:.3e}, runs "
+             f"without a group by at most {spread:.3e}")
+
+    if torch.cuda.device_count() >= 2:
+        out_dir = os.path.join(root, "ranks")
+        os.makedirs(out_dir)
+        t0 = time.perf_counter()
+        D.spawn(_dist_rank, (out_dir, _dist_argv(aoi, root, "two")), 2)
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                            weights_only=True) for r in range(2)]
+        diff = _max_diff(ranks[0], ranks[1])
+        log(f"phase 10: world 2 (NCCL, {torch.cuda.device_count()} cards): "
+            f"{DIST_STEPS} steps in {time.perf_counter() - t0:.1f} s; ranks' "
+            f"parameters max |diff| {diff}")
+        if diff != 0:
+            fail(f"the two ranks' parameters differ by {diff}")
+    else:
+        log("phase 10: one card: world 2 not run")
+
+
+def phase11(results: dict, card: str):
+    """M8 on the card: tools/parity_report_torch.py on the committed JAX
+    checkpoint, on the card and on the CPU."""
+    import importlib.util
+
+    from satnerf_tpu_torch.data import synthetic
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+
+    spec = importlib.util.spec_from_file_location(
+        "parity_report_torch",
+        os.path.join(REPO, "tools", "parity_report_torch.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    root = os.path.join(WORK, "parity")
+    shutil.rmtree(root, ignore_errors=True)
+    aoi = os.path.join(root, "aoi")
+    synthetic.main([aoi, "--size", "16", "--n_train", "3", "--n_test", "2"])
+    ckpt = os.path.join(root, "in", "epoch=3.ckpt")
+    os.makedirs(os.path.dirname(ckpt))
+    shutil.copyfile(FIXTURE + ".ckpt", ckpt)
+    got = {}
+    for device in ("cuda", "cpu"):
+        FM.reset_launches()
+        report = tool.main([
+            "--ckpt", ckpt, "--root_dir", os.path.join(aoi, "data"),
+            "--gt_dir", os.path.join(aoi, "gt"),
+            "--output_dir", os.path.join(root, device), "--device", device,
+            "--model", "sat-nerf", "--fc_layers", "4", "--fc_units", "32",
+            "--n_samples", "32", "--chunk", "1024"])
+        got[device] = report["ours"]
+        counts = _counts()
+        log(f"phase 11: parity tool on {device}: {report['ours']}; "
+            f"heads_composite {counts['heads_composite']}, siren_dense "
+            f"{counts['siren_dense']}")
+        if device == "cuda" and not (counts["heads_composite"]
+                                     and counts["siren_dense"]):
+            raise SystemExit(f"phase 11 failed: the card's eval missed the "
+                             f"kernels: {counts}")
+    diffs = {k: abs(got["cuda"][k] - got["cpu"][k]) for k in got["cuda"]}
+    results["parity"] = {"cuda": got["cuda"], "cpu": got["cpu"]}
+    log(f"phase 11: card vs CPU |diff| {diffs} (within 2e-2) on {card}")
+    if not all(np.isfinite(v) for d in got.values() for v in d.values()) \
+            or max(diffs.values()) > 2e-2:
+        raise SystemExit(f"phase 11 failed: card {got['cuda']}, CPU "
+                         f"{got['cpu']}")
+
+
+def _train_one(argv: list) -> dict:
+    """cli.train on one card (--n_devices 1: its default of 0 trains on every
+    visible card), or as the rank SATNERF_COORDINATOR names."""
+    from satnerf_tpu_torch.cli import train as cli_train
+
+    return cli_train.main(list(argv) + ["--n_devices", "1"])
 
 
 def _loaded_foreign() -> list:
@@ -3584,7 +3805,9 @@ def main():
              ("6", lambda: phase6(results, card)),
              ("7", lambda: phase7(results, card)),
              ("8", lambda: phase8(results, card)),
-             ("9", lambda: phase9(results, card)))
+             ("9", lambda: phase9(results, card)),
+             ("10", lambda: phase10(results, card)),
+             ("11", lambda: phase11(results, card)))
     t_start = time.perf_counter()
     for key, run in steps:
         if only and key not in only:

@@ -9,6 +9,12 @@
 Trains on the card (the CUDA kernels of ops/fused_mlp.py) unless
 `--device cpu` is given. `--ckpt_path ckpts/<run>/epoch=N.ckpt` resumes
 weights, Adam state and step count.
+
+Across devices (train/loop.py, parallel/distributed.py): `--n_devices N`
+trains N processes on this host, one a card (0, the default: every visible
+card; on the CPU, N gloo processes); or launch one process a device with
+SATNERF_COORDINATOR=host:port, SATNERF_NUM_PROCS and SATNERF_PROC_ID set
+in each. Rank 0 writes the run (opts.json, logs, checkpoints).
 """
 
 from __future__ import annotations

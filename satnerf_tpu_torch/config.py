@@ -68,7 +68,7 @@ class Config:
     # --- additions of this framework (absent in the reference) ---
     seed: int = 0
     device: str = "cuda"  # cuda | cpu — where the entry points run
-    n_devices: int = 0  # 0 or 1: one device (fit refuses more until ROADMAP M7)
+    n_devices: int = 0  # processes, one a device (0: every visible card)
     precision: str = "auto"  # auto | float32 | bfloat16 (matmul inputs).
     # "auto" = bfloat16 on the card, float32 on the CPU (where tests pin
     # numerics against f32 oracles). Params/accumulation are f32 either way.
@@ -184,8 +184,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def get_opts(argv=None) -> Config:
+    """The command line's Config, its run name stamped with the time (fit
+    writes its opts.json, on rank 0)."""
     args = build_parser().parse_args(argv)
     cfg = Config(**vars(args))
     cfg.stamp_exp_name()
-    cfg.dump()
     return cfg

@@ -868,7 +868,8 @@ nerf_dense_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constan
       mbar_init(&sm.empty[s], NDW_WG);
     }
     mbar_init(&sm.w_full, 1);
-    for (int w = 0; w < NC; ++w) mbar_init(&sm.turn[w], 1);
+    // every thread of the warpgroup before arrives (see the mainloop)
+    for (int w = 0; w < NC; ++w) mbar_init(&sm.turn[w], NDW_WG);
     mbar_fence_init();
   }
   __syncthreads();
@@ -939,8 +940,12 @@ nerf_dense_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constan
   // The mainloops run in the block's tile order, one warpgroup after the
   // other: tile o's starts once every stage of tile o - 1 has come (the
   // parity of a stage's full barrier only tells its fill from the one two
-  // rounds of the ring before). acc is never written but by wgmma: the first
-  // product of a tile ignores acc's old value (scale-d 0).
+  // rounds of the ring before). Every thread arrives on the next
+  // warpgroup's turn barrier, so that its next phase cannot complete before
+  // the slowest warp of that warpgroup has seen this one (siren_dense_wgmma
+  // in fused_render.cu says why: its hang at K = 64). acc is never written
+  // but by wgmma: the first product of a tile ignores acc's old value
+  // (scale-d 0).
   float acc[64];
   for (int o = wg, mine = 0; o < n_tiles; o += NC, ++mine) {
     const int row0 = (first_row + o * row_step) * NDW_BM;
@@ -975,8 +980,8 @@ nerf_dense_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constan
       const int pos = o * k_blocks + kb;  // the producer's order
       const int stage = pos % stages;
       mbar_wait(&sm.full[stage], (pos / stages) & 1);
-      if (kb == k_blocks - 1 && ltid == 0)
-        mbar_arrive(&sm.turn[(wg + 1) % NC]);  // every stage of this tile has come
+      if (kb == k_blocks - 1)  // every stage of this tile has come, for this thread
+        mbar_arrive(&sm.turn[(wg + 1) % NC]);
       const uint8_t* a = x_smem + stage * NDW_TILE;
       const uint8_t* b = w_smem + kb * W_CHUNK;
       wgmma_fence();

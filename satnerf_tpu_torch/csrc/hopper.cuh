@@ -138,7 +138,8 @@ __device__ __forceinline__ uint64_t global_ns() {
 
 // Wait until the phase of `bar` with this parity has completed. A wait that
 // lasts 10 s means the ring is broken: it traps, and the launch fails with
-// an error where it would otherwise hang the card.
+// an error (719, cudaErrorLaunchFailure) where it would otherwise hang the
+// card.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t a = smem_addr(bar);
   uint64_t since = 0;

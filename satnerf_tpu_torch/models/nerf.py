@@ -10,7 +10,9 @@ Initialization reproduces the torch distributions the JAX package mirrors
 (satnerf_tpu/models/nerf.py:38-61), drawn from an explicit generator:
 Linear kernels and biases U(+-1/sqrt(fan_in)); SIREN kernels
 U(+-sqrt(6/fan_in)); the first SIREN kernel (trunk layer 0 and sun_v_0)
-U(+-1/fan_in).
+U(+-1/fan_in). That draw is for a field built alone; a training run's
+weights come from train/system.NeRFSystem.init_params, which draws the JAX
+package's own bits at the run's seed (utils/jax_prng.py).
 
 `dtype` is the matmul operand type: inputs and weights are rounded to it and
 the products are summed in float32 with a float32 bias, as the fused kernels
@@ -19,9 +21,9 @@ do. Parameters stay float32.
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -38,17 +40,26 @@ class Sine(nn.Module):
         return torch.sin(self.w0 * x)
 
 
+def init_bound(kind: str, fan_in: int) -> np.float32:
+    """The float32 half-width of a kernel's uniform draw by its init `kind`,
+    computed as satnerf_tpu/models/nerf.py:38-61 computes it; every bias
+    takes kind "torch"."""
+    if kind == "siren":
+        return np.sqrt(np.float32(6.0 / fan_in))
+    if kind == "siren_first":
+        return np.float32(1.0 / fan_in)
+    return np.float32(1.0) / np.sqrt(np.float32(fan_in))
+
+
 def _init_linear(lin: nn.Linear, kind: str, generator: Optional[torch.Generator]):
-    fan_in = lin.in_features
-    bound = {
-        "torch": 1.0 / math.sqrt(fan_in),
-        "siren": math.sqrt(6.0 / fan_in),
-        "siren_first": 1.0 / fan_in,
-    }[kind]
+    """Draw lin's kernel and bias from `generator` by its init `kind`, which
+    stays on the layer as `lin.init_kind` (the JAX draw of
+    train/system.jax_init_params reads it)."""
+    lin.init_kind = kind
+    bound = float(init_bound(kind, lin.in_features))
+    b = float(init_bound("torch", lin.in_features))
     with torch.no_grad():
         lin.weight.uniform_(-bound, bound, generator=generator)
-        # torch draws the bias bound from the layer fan_in in all cases
-        b = 1.0 / math.sqrt(fan_in)
         lin.bias.uniform_(-b, b, generator=generator)
 
 

@@ -197,9 +197,7 @@ def dense_mainloop(kernel: str, dtype: torch.dtype, k: int, n: int, *,
              siren_dense and nerf_dense keep a 128-column slice of W in
              shared memory: K <= 512; the nerf kernels' encoding is one wgmma
              tile of its own: e_rows 0, 32 or 64 (K = 0, layer 0: the
-             encoding alone); siren_dense needs K >= 128 (at K = 64 with
-             an E operand or a saved slope its wgmma kernel hung from
-             262,144 points on, a fault not yet understood)
+             encoding alone)
       wmma   bf16, N (siren_dense, nerf_dense and the wgrads: and K) a
              multiple of 8, inputs aligned; nerf_dense's e_rows a multiple
              of 32
@@ -223,8 +221,7 @@ def dense_mainloop(kernel: str, dtype: torch.dtype, k: int, n: int, *,
         takes = tuple(name for name, ok in (
             ("wgmma", bf16 and k % 64 == 0 and n % 64 == 0 and inputs_aligned
              and outputs_aligned and enc_ok
-             and (not forward or k <= DENSE_WGMMA_MAX_K)
-             and (kernel != "siren_dense" or k > 64)),
+             and (not forward or k <= DENSE_WGMMA_MAX_K)),
             ("wmma", bf16 and mma_shape and inputs_aligned)) if ok)
         rule = takes[0] if takes else "simt"
     if mainloop is None:

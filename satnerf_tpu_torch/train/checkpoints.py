@@ -52,7 +52,7 @@ def jax_init_path(init_dir: str, model: str, layers: int, units: int,
     return path
 
 
-def _name_map(variant: str, layers: int):
+def jax_dense_names(variant: str, layers: int):
     """(JAX Dense name, reference torch module path), as
     satnerf_tpu/train/checkpoints.py:116-130."""
     names = [(f"fc_{i}", f"fc_net.{2 * i}") for i in range(layers)]
@@ -77,7 +77,7 @@ def params_from_jax(params_np: dict, variant: str, layers: int = 8) -> dict:
     for ours, prefix in (("coarse", "nerf_coarse"), ("fine", "nerf_fine")):
         if ours not in params_np:
             continue
-        for jax_name, torch_name in _name_map(variant, layers):
+        for jax_name, torch_name in jax_dense_names(variant, layers):
             d = params_np[ours][jax_name]["Dense_0"]
             # torch.tensor copies, so the result owns writable memory
             sd[f"{prefix}.{torch_name}.weight"] = torch.tensor(

@@ -16,7 +16,14 @@ main.py:233-261). Behavior parity:
 
 The hot loop stays on the device: the dataset lives there and batches are
 drawn there (train/system.py); scalars are fetched at the log boundary only.
-One device, one process.
+
+Across devices (parallel/distributed.py): with SATNERF_COORDINATOR set the
+process joins its group and trains as its rank; without it, `--n_devices N`
+(0: every visible card) starts N ranks on this host, this process rank 0.
+Every rank loads the checkpoint it resumes from and keeps its shard of the
+rays (parallel/mesh.py); logging, opts.json, validation, checkpoints and
+product dumps are rank 0's, and every rank meets the others at a barrier at
+the end (satnerf_tpu/train/loop.py:142-287).
 """
 
 from __future__ import annotations
@@ -35,11 +42,13 @@ from satnerf_tpu_torch.eval.val_ts import (find_best_embedding_for_val_image,
                                            predefined_val_ts)
 from satnerf_tpu_torch.ops.ssim import psnr as psnr_np
 from satnerf_tpu_torch.ops.ssim import ssim as ssim_np
+from satnerf_tpu_torch.parallel import distributed as D
+from satnerf_tpu_torch.parallel.mesh import shard_rays
 from satnerf_tpu_torch.train.checkpoints import (checkpoint_path,
                                                  load_checkpoint,
                                                  save_checkpoint)
 from satnerf_tpu_torch.train.logging import RunLogger, visualize_depth
-from satnerf_tpu_torch.train.system import NeRFSystem
+from satnerf_tpu_torch.train.system import NeRFSystem, rank_seed
 
 
 def validate(system: NeRFSystem, params, val_dataset, cfg: Config,
@@ -132,59 +141,91 @@ def _save(path: str, state) -> str:
 
 def fit(cfg: Config) -> dict:
     """Run the full training job. Returns {"state", "system", "metrics",
-    "cfg"}."""
-    t0 = time.time()
-    device = torch.device(cfg.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    "cfg"}: rank 0's, whose metrics are the run's (other ranks return
+    empty metrics)."""
+    device_type = torch.device(cfg.device).type
+    if device_type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("cfg.device is 'cuda' but no CUDA device is visible "
                            "(pass --device cpu to train on the CPU)")
-    if cfg.n_devices > 1:
-        raise ValueError(f"--n_devices {cfg.n_devices}: this port trains on one "
-                         f"device; training across devices is ROADMAP item M7")
+    if not os.environ.get("SATNERF_COORDINATOR"):
+        n = D.device_count(cfg.n_devices, device_type)
+        if n > 1:
+            return D.spawn(fit, (cfg,), n)
+    in_group = D.is_distributed()
+    n_procs = D.maybe_init_distributed(device_type)
+    try:
+        return _fit(cfg, n_procs)
+    finally:
+        if not in_group:  # leave the group this call joined
+            D.destroy()
+
+
+def _fit(cfg: Config, n_procs: int) -> dict:
+    t0 = time.time()
+    main = D.is_main()
+    device = (D.local_device(torch.device(cfg.device).type)
+              if D.is_distributed() else torch.device(cfg.device))
+    if main and D.is_distributed():
+        print(f"{n_procs} process(es), one a device: rank 0 on {device}")
 
     train_sets = load_dataset(cfg, split="train")
     train_ds = train_sets[0]
     depth_ds = train_sets[1] if len(train_sets) > 1 else None
-    val_ds = load_dataset(cfg, split="val")[0]
+    val_ds = load_dataset(cfg, split="val")[0] if main else None
     system = NeRFSystem(cfg, device=device, dataset_len=len(train_ds))
-    logger = RunLogger(cfg.logs_dir, cfg.exp_name)
-    # cfg.fused stays what was asked; the log keeps what it resolved to
-    logger.record(0, {"fused": cfg.fused, "fused_mode": system.fused_mode,
-                      "fused_reason": system.fused_reason})
-    # opts.json is half the checkpoint contract (opt.py:85-87): guarantee it
-    # whether the run came through the CLI or through fit() directly
-    if not os.path.exists(os.path.join(cfg.logs_dir, cfg.exp_name, "opts.json")):
-        cfg.dump()
+    # all run IO (logs, opts.json, checkpoints, product dumps, validation)
+    # is rank 0's; the other ranks only feed the step's all-reduce
+    logger = RunLogger(cfg.logs_dir, cfg.exp_name) if main else None
+    if main:
+        # cfg.fused stays what was asked; the log keeps what it resolved to
+        logger.record(0, {"fused": cfg.fused, "fused_mode": system.fused_mode,
+                          "fused_reason": system.fused_reason})
+        # opts.json is half the checkpoint contract (opt.py:85-87): guarantee
+        # it whether the run came through the CLI or through fit() directly
+        if not os.path.exists(os.path.join(cfg.logs_dir, cfg.exp_name,
+                                           "opts.json")):
+            cfg.dump()
 
-    state = system.init_state(torch.Generator().manual_seed(cfg.seed))
-    if cfg.ckpt_path:
+    state = system.init_state(cfg.seed)
+    if cfg.ckpt_path:  # every rank
         state.step = load_checkpoint(cfg.ckpt_path, state.params,
                                      state.optimizer)
-        print(f"resumed from {cfg.ckpt_path} at step {state.step}")
+        if main:
+            print(f"resumed from {cfg.ckpt_path} at step {state.step}")
 
-    # the dataset lives on the device; batches are drawn there
+    # the rank's shard of the dataset lives on its device; batches are
+    # drawn there
     ids = getattr(train_ds, "all_ids", None)
     if ids is None:
         ids = np.zeros(len(train_ds), np.int64)
-    def on_device(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+    shard = dict(world=system.world, rank=system.rank)
 
-    data = {"rays": on_device(train_ds.all_rays, np.float32),
-            "rgbs": on_device(train_ds.all_rgbs, np.float32),
-            "ts": on_device(ids, np.int64)}
+    def on_device(*arrays):
+        _, blocks = shard_rays(*arrays, **shard)
+        return [torch.from_numpy(b).to(device) for b in blocks]
+
+    rays, rgbs, ts = on_device(np.asarray(train_ds.all_rays, np.float32),
+                               np.asarray(train_ds.all_rgbs, np.float32),
+                               np.asarray(ids, np.int64))
+    data = {"rays": rays, "rgbs": rgbs, "ts": ts}
     if depth_ds is not None:
-        data.update(d_rays=on_device(depth_ds.all_rays, np.float32),
-                    d_depths=on_device(depth_ds.all_depths, np.float32),
-                    d_ts=on_device(depth_ds.all_ids, np.int64))
-    generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+        d_rays, d_depths, d_ts = on_device(
+            np.asarray(depth_ds.all_rays, np.float32),
+            np.asarray(depth_ds.all_depths, np.float32),
+            np.asarray(depth_ds.all_ids, np.int64))
+        data.update(d_rays=d_rays, d_depths=d_depths, d_ts=d_ts)
+    generator = torch.Generator(device=device).manual_seed(
+        rank_seed(cfg.seed + 1, system.rank))
     # --sampling shuffle: the color rays are read along a per-epoch
-    # permutation; the depth rays keep the draw with replacement
+    # permutation of the rank's shard; the depth rays keep the draw with
+    # replacement
     shuffle = cfg.sampling == "shuffle"
+    n_local = data["rays"].shape[0]
     if shuffle:
-        data["perm"] = system.epoch_perm(len(train_ds), state.step // system.spe)
+        data["perm"] = system.epoch_perm(n_local, state.step // system.spe)
 
     # sanity validation (main.py:257)
-    if cfg.num_sanity_val_steps > 0:
+    if main and cfg.num_sanity_val_steps > 0:
         validate(system, state.params, val_ds, cfg, logger, step=0, epoch=0,
                  max_images=cfg.num_sanity_val_steps)
 
@@ -197,7 +238,7 @@ def fit(cfg: Config) -> dict:
 
     for step_i in range(start_step, cfg.max_train_steps):
         # device trace of a steady-state window of ten steps
-        if cfg.profile_dir and step_i == start_step + 20:
+        if main and cfg.profile_dir and step_i == start_step + 20:
             from torch.profiler import ProfilerActivity, profile
 
             profiler = profile(activities=[ProfilerActivity.CPU,
@@ -217,51 +258,57 @@ def fit(cfg: Config) -> dict:
         rays_done += cfg.batch_size * cfg.grad_accum
 
         if (step_i + 1) % cfg.log_every_n_steps == 0:
-            # the only place the loop fetches device scalars
+            # the only place the loop fetches device scalars. In a group the
+            # metrics are the ranks' mean, so every rank reads the same loss
+            # and a non-finite one stops every rank at this step
             m = {k: float(v) for k, v in m.items()}
             if not np.isfinite(m["loss"]):
-                # the state is already poisoned; an emergency dump keeps it
-                # for diagnosis. Not named epoch={n}: it stays invisible to
-                # the eval entry points' epoch lookup
-                p = _save(os.path.join(cfg.ckpts_dir, cfg.exp_name,
-                                       "nan-crash.ckpt"), state)
+                # the state is already poisoned; rank 0's emergency dump
+                # keeps it for diagnosis. Not named epoch={n}: it stays
+                # invisible to the eval entry points' epoch lookup
+                p = os.path.join(cfg.ckpts_dir, cfg.exp_name, "nan-crash.ckpt")
+                if main:
+                    _save(p, state)
                 raise FloatingPointError(
                     f"non-finite loss {m['loss']} at step {step_i + 1} "
                     f"(lr {m['lr']:.3g}); poisoned state dumped to {p} — "
                     f"resume from the last epoch={{n}}.ckpt")
-            now = time.time()
-            rps = rays_done / max(now - last_log, 1e-9)
-            last_log, rays_done = now, 0
-            logger.scalars(step_i + 1, {
-                "lr": m["lr"], "train/loss": m["loss"],
-                "train/psnr": m["psnr"], "train/rays_per_sec": rps,
-                **({"train/loss_depth": m["loss_depth"]}
-                   if "loss_depth" in m else {})})
-            print(f"step {step_i + 1}/{cfg.max_train_steps} "
-                  f"loss {m['loss']:.5f} psnr {m['psnr']:.2f} "
-                  f"rays/s {rps:,.0f}")
+            if main:
+                now = time.time()
+                rps = rays_done / max(now - last_log, 1e-9)
+                last_log, rays_done = now, 0
+                logger.scalars(step_i + 1, {
+                    "lr": m["lr"], "train/loss": m["loss"],
+                    "train/psnr": m["psnr"], "train/rays_per_sec": rps,
+                    **({"train/loss_depth": m["loss_depth"]}
+                       if "loss_depth" in m else {})})
+                print(f"step {step_i + 1}/{cfg.max_train_steps} "
+                      f"loss {m['loss']:.5f} psnr {m['psnr']:.2f} "
+                      f"rays/s {rps:,.0f}")
 
         # epoch boundary: validate + checkpoint
         if (step_i + 1) % spe == 0:
             epoch = (step_i + 1) // spe
             if shuffle:
-                data["perm"] = system.epoch_perm(len(train_ds), epoch)
-            if epoch % cfg.val_every_n_epochs == 0:
+                data["perm"] = system.epoch_perm(n_local, epoch)
+            if main and epoch % cfg.val_every_n_epochs == 0:
                 final_metrics = validate(
                     system, state.params, val_ds, cfg, logger, step_i + 1,
                     epoch, save_images=epoch % cfg.save_every_n_epochs == 0)
-            if epoch % cfg.save_every_n_epochs == 0:
+            if main and epoch % cfg.save_every_n_epochs == 0:
                 p = checkpoint_path(cfg.ckpts_dir, cfg.exp_name, epoch)
                 print(f"saved {_save(p, state)}")
 
     # final checkpoint + validation
     if profiler is not None:
         profiler.stop()
-    epoch = cfg.max_train_steps // spe
-    _save(checkpoint_path(cfg.ckpts_dir, cfg.exp_name, epoch), state)
-    final_metrics = validate(system, state.params, val_ds, cfg, logger,
-                             cfg.max_train_steps, epoch, save_images=True)
-    logger.close()
-    print(f"done in {time.time() - t0:.1f}s — {final_metrics}")
+    if main:
+        epoch = cfg.max_train_steps // spe
+        _save(checkpoint_path(cfg.ckpts_dir, cfg.exp_name, epoch), state)
+        final_metrics = validate(system, state.params, val_ds, cfg, logger,
+                                 cfg.max_train_steps, epoch, save_images=True)
+        logger.close()
+        print(f"done in {time.time() - t0:.1f}s — {final_metrics}")
+    D.barrier()  # where the JAX loop calls sync_global_devices
     return {"state": state, "system": system, "metrics": final_metrics,
             "cfg": cfg}

@@ -54,8 +54,11 @@ sc_lambda > 0), the variant's loss, the depth pass, one backward.
 On CUDA the kernels are the hand-written chains; on the CPU, their plain
 versions.
 
-Not carried over from the JAX system: the f16 eval-wire compression, the
-threaded fetch pool, shard_map and the mesh (one device here).
+Across devices (parallel/): one process a device, each rank drawing its
+batch_size / world rays from its shard of the data, the gradients and
+metrics averaged by all-reduce before Adam, where the JAX system runs one
+shard_map over a mesh. Not carried over from the JAX system: the f16
+eval-wire compression and the threaded fetch pool.
 """
 
 from __future__ import annotations
@@ -69,7 +72,8 @@ import torch
 from torch import nn
 
 from satnerf_tpu_torch.config import Config
-from satnerf_tpu_torch.models.nerf import TransientEmbedding, build_model
+from satnerf_tpu_torch.models.nerf import (TransientEmbedding, build_model,
+                                          init_bound)
 from satnerf_tpu_torch.ops import fused_mlp as FM
 from satnerf_tpu_torch.ops import fused_nerf as FN
 from satnerf_tpu_torch.ops.fused_nerf import (fused_nerf_apply,
@@ -81,12 +85,16 @@ from satnerf_tpu_torch.ops.fused_mlp import (fused_field_apply,
                                              fused_sc_loss_grads,
                                              fused_train_loss_grads,
                                              fused_train_render_rays)
+from satnerf_tpu_torch.parallel import distributed as D
 from satnerf_tpu_torch.render.render import (RenderConfig, render_rays,
                                              resample_zvals)
 from satnerf_tpu_torch.render.sampling import stratified_zvals
+from satnerf_tpu_torch.train.checkpoints import (jax_dense_names,
+                                                 params_from_jax)
 from satnerf_tpu_torch.train.losses import (BETA_MIN, depth_loss, nerf_loss,
                                             satnerf_loss, snerf_loss)
 from satnerf_tpu_torch.train.schedules import get_schedule
+from satnerf_tpu_torch.utils import jax_prng
 
 # The most points one serving pass is given: a chunk of 65,536 rays x 64
 # samples. A pass of more samples a ray (the fine pass) is split along the
@@ -207,14 +215,67 @@ class TrainState:
     step: int = 0  # optimizer steps taken; 0-based index of the next one
 
 
+def jax_init_params(cfg: Config, params: nn.ModuleDict, seed: int) -> dict:
+    """The JAX package's initial parameter pytree {coarse[, fine][, t]} as
+    numpy arrays, `NeRFSystem(cfg).init_params(PRNGKey(seed))` to the bit
+    (satnerf_tpu/train/system.py:216-232), drawn by utils/jax_prng.py. The
+    shapes are read from `params`, the port's modules of that
+    configuration, with each layer's init kind (models/nerf.py): coarse
+    from key 0 of split(PRNGKey(seed), 4), fine from key 1, the transient
+    embedding from key 2, each Dense kernel and bias from flax's key of its
+    module path."""
+    keys = jax_prng.split(jax_prng.prng_key(seed), 4)
+
+    def field(module, key):
+        tree = {}
+        for name, torch_name in jax_dense_names(cfg.model, cfg.fc_layers):
+            lin = module.get_submodule(torch_name)
+            fan_in, fan_out = lin.in_features, lin.out_features
+            bound = init_bound(lin.init_kind, fan_in)
+            b_bound = init_bound("torch", fan_in)
+            tree[name] = {"Dense_0": {
+                "kernel": jax_prng.uniform(
+                    jax_prng.flax_param_key(key, (name, "Dense_0"), 1),
+                    (fan_in, fan_out), -bound, bound),
+                "bias": jax_prng.uniform(
+                    jax_prng.flax_param_key(key, (name, "Dense_0"), 2),
+                    (fan_out,), -b_bound, b_bound)}}
+        return tree
+
+    tree = {"coarse": field(params["nerf_coarse"], keys[0])}
+    if "nerf_fine" in params:
+        tree["fine"] = field(params["nerf_fine"], keys[1])
+    if "embedding_t" in params:
+        emb = params["embedding_t"]
+        tree["t"] = {"embedding": jax_prng.normal(
+            jax_prng.flax_param_key(keys[2], (), 1),
+            (emb.num_embeddings, emb.embedding_dim))}
+    return tree
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank `rank`'s draws from the run's `seed`: `seed` itself
+    on rank 0, so a world of one draws what a run of one process draws."""
+    return seed + (rank << 40)
+
+
 class NeRFSystem:
     def __init__(self, cfg: Config, device=None, dataset_len: int = 0):
         """device None resolves to cfg.device (the card unless the
         configuration asks for the CPU). dataset_len is the number of
-        training rays; it sets the steps per epoch."""
+        training rays (all ranks'); it sets the steps per epoch.
+
+        In a process group (parallel/distributed.py) the system is rank
+        `rank` of `world`: a step draws batch_size / world rays from the
+        rank's shard of the data, and the gradients and metrics are averaged
+        across the ranks before Adam."""
         self.cfg = cfg
         self.device = torch.device(
             device if device is not None else getattr(cfg, "device", "cuda"))
+        self.rank, self.world = D.rank(), D.world()
+        if cfg.batch_size % self.world:
+            raise ValueError(f"batch_size {cfg.batch_size} must divide across "
+                             f"{self.world} devices")
         self.use_ts = cfg.model == "sat-nerf"
         self.depth = cfg.ds_lambda > 0
         self.ds_drop_step = int(round(cfg.ds_drop * cfg.max_train_steps))
@@ -251,30 +312,35 @@ class NeRFSystem:
         self.ds_render_cfg = dataclasses.replace(self.render_cfg,
                                                  solar_correction=False)
 
-    def init_params(self, generator: Optional[torch.Generator] = None
-                    ) -> nn.ModuleDict:
-        """Fresh parameters on the system's device, drawn from `generator`."""
+    def init_params(self, seed: int = 0) -> nn.ModuleDict:
+        """Fresh parameters on the system's device: the JAX package's
+        `init_params(PRNGKey(seed))` to the bit (`jax_init_params`)."""
         cfg = self.cfg
 
         def field():
             return build_model(cfg.model, cfg.fc_layers, cfg.fc_units,
                                t_dim=cfg.t_embbeding_tau,
-                               dtype=self.compute_dtype, generator=generator)
+                               dtype=self.compute_dtype)
 
-        mods = {"nerf_coarse": field()}
-        if cfg.n_importance > 0:
-            mods["nerf_fine"] = field()
-        if self.use_ts:
-            mods["embedding_t"] = TransientEmbedding(
-                cfg.t_embbeding_vocab, cfg.t_embbeding_tau, generator=generator)
-        return nn.ModuleDict(mods).to(self.device).eval()
+        # built on the meta device: no storage and no draw until the JAX
+        # draw is loaded into them
+        with torch.device("meta"):
+            mods = {"nerf_coarse": field()}
+            if cfg.n_importance > 0:
+                mods["nerf_fine"] = field()
+            if self.use_ts:
+                mods["embedding_t"] = TransientEmbedding(
+                    cfg.t_embbeding_vocab, cfg.t_embbeding_tau)
+        params = nn.ModuleDict(mods).to_empty(device=self.device)
+        params.load_state_dict(params_from_jax(
+            jax_init_params(cfg, params, seed), cfg.model, cfg.fc_layers))
+        return params.eval()
 
-    def init_state(self, generator: Optional[torch.Generator] = None
-                   ) -> TrainState:
-        """Fresh parameters with Adam as optax.adam sets it up (betas
-        0.9 / 0.999, eps 1e-8 outside the root); the learning rate is set
-        from the schedule by every train_step."""
-        params = self.init_params(generator)
+    def init_state(self, seed: int = 0) -> TrainState:
+        """Fresh parameters (`init_params(seed)`) with Adam as optax.adam
+        sets it up (betas 0.9 / 0.999, eps 1e-8 outside the root); the
+        learning rate is set from the schedule by every train_step."""
+        params = self.init_params(seed)
         optimizer = torch.optim.Adam(params.parameters(), lr=self.cfg.lr,
                                      betas=(0.9, 0.999), eps=1e-8)
         return TrainState(params, optimizer, 0)
@@ -439,11 +505,12 @@ class NeRFSystem:
         return float((step + 1) // self.spe >= self.cfg.first_beta_epoch)
 
     def epoch_perm(self, n: int, epoch: int) -> torch.Tensor:
-        """The permutation of the n training rays that `--sampling shuffle`
-        walks during `epoch`, on the system's device: torch.randperm from a
-        generator seeded with cfg.seed + 2 folded with the epoch, so a
-        resumed run walks the same permutation."""
-        g = torch.Generator().manual_seed((self.cfg.seed + 2) * 1_000_003 + epoch)
+        """The permutation of the rank's n training rays that `--sampling
+        shuffle` walks during `epoch`, on the system's device: torch.randperm
+        from a generator seeded with cfg.seed + 2 folded with the epoch and
+        the rank, so a resumed run walks the same permutation."""
+        g = torch.Generator().manual_seed(rank_seed(
+            (self.cfg.seed + 2) * 1_000_003 + epoch, self.rank))
         return torch.randperm(n, generator=g).to(self.device)
 
     def _draw_noise(self, noise, noise_std, shape, generator):
@@ -710,7 +777,8 @@ class NeRFSystem:
                    d_z_vals=None, d_noise=None, u=None, fine_noise=None,
                    sc_noise_fine=None, d_u=None, d_fine_noise=None) -> dict:
         """One optimizer step on batches drawn from the device-resident
-        `data` = {"rays" (N, 11), "rgbs" (N, 3), "ts" (N,)} plus, with
+        `data` (the rank's shard in a process group: batch_size / world rays
+        a micro-batch) = {"rays" (N, 11), "rgbs" (N, 3), "ts" (N,)} plus, with
         ds_lambda > 0, {"d_rays" (M, 11), "d_depths" (M, 2), "d_ts" (M,)}
         and, with `--sampling shuffle`, {"perm" (N,)}, the epoch's
         permutation (epoch_perm), which the caller refreshes at every epoch
@@ -727,9 +795,12 @@ class NeRFSystem:
         metrics and gradients of N micro-batches are averaged into one Adam
         step at one learning rate, and state.step grows by one. Updates
         `state` in place and returns the metrics (tensors on the device,
-        plus the float "lr")."""
+        plus the float "lr"). In a process group the averaged gradients and
+        metrics are averaged across the ranks, one all-reduce each, before
+        Adam: a step adds no draw of its own."""
         cfg = self.cfg
         accum = cfg.grad_accum
+        batch = cfg.batch_size // self.world
         injected = dict(idx=idx, z_vals=z_vals, noise=noise, sc_noise=sc_noise,
                         d_idx=d_idx, d_z_vals=d_z_vals, d_noise=d_noise, u=u,
                         fine_noise=fine_noise, sc_noise_fine=sc_noise_fine,
@@ -746,15 +817,15 @@ class NeRFSystem:
             idx = inj.pop("idx")
             if idx is None and cfg.sampling == "shuffle":
                 idx = data["perm"][epoch_draw_positions(
-                    state.step, self.spe, cfg.batch_size, n, self.device)]
+                    state.step, self.spe, batch, n, self.device)]
             elif idx is None:
-                idx = torch.randint(0, n, (cfg.batch_size,),
+                idx = torch.randint(0, n, (batch,),
                                     generator=generator, device=self.device)
             depth, d_idx = None, inj.pop("d_idx")
             if self.depth:
                 if d_idx is None:
                     d_idx = torch.randint(
-                        0, data["d_rays"].shape[0], (cfg.batch_size,),
+                        0, data["d_rays"].shape[0], (batch,),
                         generator=generator, device=self.device)
                 depth = (data["d_rays"][d_idx], data["d_depths"][d_idx],
                          data["d_ts"][d_idx])
@@ -773,6 +844,13 @@ class NeRFSystem:
             metrics = {k: v / accum for k, v in metrics.items()}
             for g in grads.values():
                 g /= accum
+        if D.is_distributed():  # pmean, satnerf_tpu/train/system.py:742-743
+            D.all_reduce_mean(grads.values())
+            keys = sorted(metrics)
+            flat = torch.stack([metrics[k].detach().float().reshape(())
+                                for k in keys])
+            D.all_reduce_mean([flat])
+            metrics = dict(zip(keys, flat.unbind()))
         for name, p in state.params.named_parameters():
             p.grad = grads[name]
         lr = self.lr_schedule(state.step)  # read before the increment

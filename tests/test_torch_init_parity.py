@@ -5,13 +5,13 @@ satnerf_tpu/models/nerf.py:35-61 and 150-215 draw each Dense layer's kernel
 from U(+-bound) with bound 1/sqrt(fan_in) (torch.nn.Linear's default), or
 for the SIREN layers sqrt(6/fan_in), 1/fan_in for the first trunk layer and
 sun_v_0; every bias from U(+-1/sqrt(fan_in)); the transient embedding from
-N(0, 1). satnerf_tpu_torch/models/nerf.py:41-52 and 140-182 draw from a
-torch.Generator instead. The draws cannot agree bit for bit, so each
-tensor's values are pooled over many seeds on both sides and held to the
-same law: the shape, the bound (no value past it, and the largest near it),
-the mean and the standard deviation. The JAX tensors come through the
-weight bridge (train/checkpoints.params_from_jax), so each law is checked
-under the port's name.
+N(0, 1). The port's `init_params(seed)` draws the same bits
+(utils/jax_prng.py; tests/test_torch_jax_prng.py holds them to the bit);
+here each tensor's values are pooled over many seeds on both sides and held
+to the law as well: the shape, the bound (no value past it, and the largest
+near it), the mean and the standard deviation. The JAX tensors come through
+the weight bridge (train/checkpoints.params_from_jax), so each law is
+checked under the port's name.
 """
 
 import math
@@ -90,7 +90,7 @@ def jax_draws(variant: str) -> dict:
 def port_draws(variant: str) -> dict:
     system = NeRFSystem(Config(model=variant, **KW), device="cpu",
                         dataset_len=64)
-    per_seed = [system.init_params(torch.Generator().manual_seed(s))
+    per_seed = [system.init_params(s)
                 .state_dict() for s in range(SEEDS)]
     return {k: np.stack([sd[k].numpy() for sd in per_seed])
             for k in per_seed[0]}

@@ -104,7 +104,7 @@ def test_port_starts_from_the_fixture(spec):
                  precision="float32", fused="off")
     system = NeRFSystem(cfg, device="cpu", dataset_len=cfg.batch_size)
     # the port's own draw first, so that the load has something to replace
-    state = system.init_state(torch.Generator().manual_seed(seed))
+    state = system.init_state(seed)
     step = load_checkpoint(jax_init_path(FIXTURE_DIR, *spec), state.params,
                            state.optimizer)
     assert step == 0

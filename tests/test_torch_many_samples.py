@@ -91,7 +91,7 @@ def test_fine_pass_of_320_samples_matches_jax(eight_devices, fused):
                        device="cpu", dataset_len=N_DATA)
     assert sys_t.fused_mode == fused
     named = params_from_jax(jax.device_get(params), variant, LAYERS)
-    state = sys_t.init_state(torch.Generator().manual_seed(0))
+    state = sys_t.init_state(0)
     state.params.load_state_dict(named)
     batch = [torch.from_numpy(a[idx]) for a in data]
     loss_t, m_t, grads = sys_t.loss_and_grads(

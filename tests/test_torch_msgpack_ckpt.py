@@ -195,7 +195,7 @@ def test_resume_takes_the_jax_step(jax_ckpts, variant, n_imp):
     sys_j, state_j, step_fn, path = jax_ckpts(variant, n_imp)
     sys_t = NeRFSystem(Config(model=variant, fused="off", n_importance=n_imp,
                               **KW), device="cpu", dataset_len=N_DATA)
-    state = sys_t.init_state(torch.Generator().manual_seed(0))
+    state = sys_t.init_state(0)
     state.step = load_checkpoint(path, state.params, state.optimizer)
     assert state.step == JAX_STEPS
 

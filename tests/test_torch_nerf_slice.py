@@ -155,7 +155,7 @@ def test_loss_and_grads_match_jax(eight_devices, mode, jax_fused):
         tuple(jnp.asarray(a[d_idx]) for a in depth))
     want = _named(jax.device_get(g_j))
 
-    state = sys_t.init_state(torch.Generator().manual_seed(0))
+    state = sys_t.init_state(0)
     state.params.load_state_dict(
         params_from_jax(jax.device_get(params), "nerf", LAYERS))
     draws = _port_draws(key, data[0][idx], depth[0][d_idx], 0.9 ** step,
@@ -210,7 +210,7 @@ def test_trajectory_matches_jax_step(eight_devices, mode):
     for _ in range(2):
         params, opt_state, _, _, _ = jax_step(params, opt_state, step)
         step += 1
-    state = sys_t.init_state(torch.Generator().manual_seed(0))
+    state = sys_t.init_state(0)
     state.params.load_state_dict(
         params_from_jax(jax.device_get(params), "nerf", LAYERS))
     adam = opt_state[0]
@@ -264,7 +264,7 @@ def test_sc_lambda_changes_nothing_for_nerf():
     for sc in (0.0, 0.1):
         system = NeRFSystem(Config(fused="on", sc_lambda=sc, **KW),
                             device="cpu", dataset_len=N_DATA)
-        params = system.init_params(torch.Generator().manual_seed(0))
+        params = system.init_params(0)
         out.append(system.loss_and_grads(
             params, rays, rgbs, None, 0,
             generator=torch.Generator().manual_seed(3)))
@@ -282,7 +282,7 @@ def test_rays_without_a_sun_direction_train_and_render():
                  dict(fused="on", n_importance=N_IMP)):
         system = NeRFSystem(Config(**{**KW, **opts}), device="cpu",
                             dataset_len=N_DATA)
-        state = system.init_state(torch.Generator().manual_seed(0))
+        state = system.init_state(0)
         t_data = {"rays": torch.from_numpy(rays8),
                   "rgbs": torch.from_numpy(data[1]),
                   "ts": torch.zeros(N_DATA, dtype=torch.long)}
@@ -413,7 +413,7 @@ def test_jax_package_reads_the_trained_checkpoint(trained):
                         "weights_coarse"}
     for k in ("rgb_coarse", "depth_coarse"):
         np.testing.assert_allclose(got[k], ref[k], atol=1e-4, err_msg=k)
-    fresh = system.init_params(torch.Generator().manual_seed(0))
+    fresh = system.init_params(0)
     assert not torch.equal(fresh["nerf_coarse"].fc_net[0].weight,
                            params["nerf_coarse"].fc_net[0].weight)
 

@@ -5,7 +5,9 @@ and with shuffle) and the classic NeRF variant's three kinds of step, then
 read a checkpoint the JAX package wrote, build a synthetic AOI with
 transients and RPC noise, run the solar study and load the capability tool,
 run the DSM oracle of cli.dsm_diagnostics, load the convergence tool and a
-JAX initial checkpoint, import every other entry point, and look at
+JAX initial checkpoint (equal to the port's own draw of its seed), shard
+rays as a rank of two does, load the parity tool, import
+every other entry point, and look at
 sys.modules. No jax, jaxlib, flax or optax, no module of the
 JAX package satnerf_tpu, and neither msgpack nor matplotlib (the machine
 with the card has neither) may have been loaded."""
@@ -42,6 +44,8 @@ assert "satnerf_tpu_torch.utils.colormap" in names
 for name in ("study_depth_supervision", "dsm_diagnostics", "eval_s2p",
              "create_satellite_dataset"):
     assert f"satnerf_tpu_torch.cli.{name}" in names, name
+for name in ("parallel.distributed", "parallel.mesh", "utils.jax_prng"):
+    assert f"satnerf_tpu_torch.{name}" in names, name
 
 from satnerf_tpu_torch.config import Config
 from satnerf_tpu_torch.train.system import NeRFSystem
@@ -56,7 +60,7 @@ for model in ("sat-nerf", "s-nerf"):
     cfg = Config(model=model, fc_layers=8, fc_units=16, n_samples=8, chunk=5,
                  batch_size=16, device="cpu")
     system = NeRFSystem(cfg, dataset_len=64)
-    state = system.init_state(torch.Generator().manual_seed(0))
+    state = system.init_state(0)
     gen = torch.Generator().manual_seed(1)
     for _ in range(2):
         m = system.train_step(state, data, gen)
@@ -74,7 +78,7 @@ for extra in (dict(grad_accum=2), dict(sampling="shuffle")):
                  batch_size=16, device="cpu", sc_lambda=0.1, ds_lambda=1000.0,
                  noise_std=1.0, max_train_steps=8, **extra)
     system = NeRFSystem(cfg, dataset_len=64)
-    state = system.init_state(torch.Generator().manual_seed(0))
+    state = system.init_state(0)
     full = {**data, **depth, "perm": system.epoch_perm(64, 0)}
     gen = torch.Generator().manual_seed(1)
     for _ in range(3):
@@ -91,7 +95,7 @@ for extra in (dict(), dict(n_importance=4), dict(ds_lambda=1000.0)):
                  **extra)
     system = NeRFSystem(cfg, dataset_len=64)
     assert system.fused_mode == "points"
-    state = system.init_state(torch.Generator().manual_seed(0))
+    state = system.init_state(0)
     nerf_data = {**data, **depth, "rays": data["rays"][:, :8].contiguous(),
                  "d_rays": depth["d_rays"][:, :8].contiguous()}
     gen = torch.Generator().manual_seed(1)
@@ -163,6 +167,21 @@ assert load_checkpoint(jax_init_path("tests/data", "sat-nerf", 8, 64, 2),
                        state.params, state.optimizer) == 0
 print("M6 M4 OK")
 
+# R4: the port's own seed-2 draw is the JAX package's, as the fixture holds
+# it; M7's shards; M8's tool loads
+own = NeRFSystem(Config(model="sat-nerf", fc_units=64, precision="float32",
+                        device="cpu")).init_params(2)
+for k, v in own.state_dict().items():
+    assert torch.equal(v, state.params.state_dict()[k]), k
+from satnerf_tpu_torch.parallel.distributed import world
+from satnerf_tpu_torch.parallel.mesh import shard_rays
+assert world() == 1
+assert shard_rays(np.arange(5), world=2, rank=1)[1][0].tolist() == [3, 4, 0]
+spec = importlib.util.spec_from_file_location(
+    "parity_tool", "tools/parity_report_torch.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print("R4 M7 M8 OK")
+
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                        "satnerf_tpu", "msgpack",
@@ -183,3 +202,4 @@ def test_port_imports_no_jax():
     assert "NERF OK" in proc.stdout
     assert "M5 M2 OK" in proc.stdout
     assert "M6 M4 OK" in proc.stdout
+    assert "R4 M7 M8 OK" in proc.stdout

@@ -134,7 +134,7 @@ def port_results():
                                        noise_std=noise_std, **KW),
                                 device="cpu", dataset_len=N_DATA)
             assert system.fused_mode == mode
-            params = system.init_params(torch.Generator().manual_seed(0))
+            params = system.init_params(0)
             params.load_state_dict(params_from_jax(params_np, variant, LAYERS))
             loss, metrics, grads = system.loss_and_grads(
                 params, torch.from_numpy(data[0][idx]),
@@ -233,7 +233,7 @@ def test_hierarchical_trajectory_matches_jax_step(eight_devices, fused):
         step += 1
 
     # the port takes over the weights and the Adam state, the fine model's too
-    state = sys_t.init_state(torch.Generator().manual_seed(0))
+    state = sys_t.init_state(0)
     state.params.load_state_dict(
         params_from_jax(jax.device_get(params), variant, LAYERS))
     adam = opt_state[0]
@@ -286,7 +286,7 @@ def test_uninjected_step_consumes_the_generator_in_the_documented_order():
     data, depth = _data(1)
     cfg = Config(model="sat-nerf", fused="rays", noise_std=1.0, **KW)
     system = NeRFSystem(cfg, device="cpu", dataset_len=N_DATA)
-    params = system.init_params(torch.Generator().manual_seed(0))
+    params = system.init_params(0)
     idx = np.arange(B)
     args = (params, torch.from_numpy(data[0][idx]),
             torch.from_numpy(data[1][idx]),
@@ -338,7 +338,7 @@ def test_depth_pass_marches_no_sun_rays(monkeypatch, fused, want):
     data, depth = _data(2)
     system = NeRFSystem(Config(model="sat-nerf", fused=fused, **KW),
                         device="cpu", dataset_len=N_DATA)
-    params = system.init_params(torch.Generator().manual_seed(0))
+    params = system.init_params(0)
     idx = np.arange(B)
     system.loss_and_grads(
         params, torch.from_numpy(data[0][idx]), torch.from_numpy(data[1][idx]),

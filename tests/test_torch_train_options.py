@@ -91,7 +91,7 @@ def test_grad_accum_2_is_the_mean_of_two_micro_batches(eight_devices, variant):
     # the port's micro-batches one by one
     single = NeRFSystem(Config(model=variant, fused="rays", **KW), device="cpu",
                         dataset_len=N_DATA)
-    state1 = single.init_state(torch.Generator().manual_seed(0))
+    state1 = single.init_state(0)
     state1.params.load_state_dict(start)
     parts = []
     for idx, _, z in micro:
@@ -103,7 +103,7 @@ def test_grad_accum_2_is_the_mean_of_two_micro_batches(eight_devices, variant):
     np.testing.assert_allclose(float(parts[0][0]), float(l0), atol=2e-5)
     np.testing.assert_allclose(float(parts[1][0]), float(l1), atol=2e-5)
 
-    state = sys_t.init_state(torch.Generator().manual_seed(0))
+    state = sys_t.init_state(0)
     state.params.load_state_dict(start)
     m = sys_t.train_step(state, t_data,
                          idx=[torch.from_numpy(i) for i, _, _ in micro],
@@ -130,7 +130,7 @@ def test_grad_accum_draws_from_the_generator_and_checks_its_options():
                         device="cpu", dataset_len=N_DATA)
     runs = []
     for _ in range(2):
-        state = system.init_state(torch.Generator().manual_seed(0))
+        state = system.init_state(0)
         m = system.train_step(state, data, torch.Generator().manual_seed(1))
         runs.append(float(m["loss"]))
     assert runs[0] == runs[1] and np.isfinite(runs[0]) and state.step == 1
@@ -170,8 +170,8 @@ def test_shuffle_step_reads_the_permutation():
 
     # a shuffled step equals the step with the permutation's slice injected
     z = torch.sort(torch.rand(B, 8, generator=torch.Generator().manual_seed(5)))[0]
-    a = system.init_state(torch.Generator().manual_seed(0))
-    b = system.init_state(torch.Generator().manual_seed(0))
+    a = system.init_state(0)
+    b = system.init_state(0)
     a.step = b.step = 2
     system.train_step(a, {**data, "perm": perm0}, z_vals=z)
     system.train_step(b, data, idx=perm0[2 * B:3 * B], z_vals=z)

@@ -128,7 +128,7 @@ def test_jax_package_reads_the_trained_checkpoint(trained):
     for k in ("rgb_coarse", "depth_coarse"):
         np.testing.assert_allclose(out[k], ref[k], atol=1e-4, err_msg=k)
     # the trained weights differ from a fresh model's
-    fresh = system.init_params(torch.Generator().manual_seed(0))
+    fresh = system.init_params(0)
     assert not torch.equal(fresh["nerf_coarse"].fc_net[0].weight,
                            params["nerf_coarse"].fc_net[0].weight)
 
@@ -148,15 +148,22 @@ def test_unported_training_options_raise(trained):
 
 
 def test_more_than_one_device_is_refused(trained):
-    """--n_devices > 1 is refused by name until multi-GPU training lands
-    (ROADMAP M7); 1 trains as 0 does."""
+    """--n_devices 2 on the CPU trains two gloo ranks (ROADMAP M7): this
+    process is rank 0, whose run is returned and written; 1 trains as 0
+    does, in one process."""
     root = trained["root"]
-    with pytest.raises(ValueError, match="M7"):
-        cli_train.main(_argv(root, trained["data_dir"], trained["gt_dir"], 4,
-                             "two", ["--n_devices", "2"]))
+    out = cli_train.main(_argv(root, trained["data_dir"], trained["gt_dir"], 2,
+                               "two", ["--n_devices", "2"]))
+    assert out["state"].step == 2 and out["system"].world == 2
+    assert all(np.isfinite(v) for v in out["metrics"].values())
+    cfg = out["cfg"]
+    assert os.path.isfile(os.path.join(cfg.logs_dir, cfg.exp_name,
+                                       "opts.json"))
+    assert os.listdir(os.path.join(cfg.ckpts_dir, cfg.exp_name)) == \
+        ["epoch=0.ckpt"]
     out = cli_train.main(_argv(root, trained["data_dir"], trained["gt_dir"], 1,
                                "one", ["--n_devices", "1"]))
-    assert out["state"].step == 1
+    assert out["state"].step == 1 and out["system"].world == 1
 
 
 def test_rays_per_sec_counts_validation_as_the_jax_loop_does(trained,

@@ -109,7 +109,7 @@ def test_trajectory_matches_jax_step(eight_devices, variant):
         step += 1
 
     # the port takes over the weights and the Adam state
-    state = sys_t.init_state(torch.Generator().manual_seed(0))
+    state = sys_t.init_state(0)
     state.params.load_state_dict(
         params_from_jax(jax.device_get(params), variant, LAYERS))
     adam = opt_state[0]
@@ -209,7 +209,7 @@ def test_full_recipe_trajectory_matches_jax_step(eight_devices, variant):
         (params, opt_state, _, _), _ = jax_step(params, opt_state, step)
         step += 1
 
-    state = sys_t.init_state(torch.Generator().manual_seed(0))
+    state = sys_t.init_state(0)
     state.params.load_state_dict(
         params_from_jax(jax.device_get(params), variant, LAYERS))
     adam = opt_state[0]
@@ -262,14 +262,14 @@ def test_adam_state_round_trips_through_a_checkpoint(tmp_path):
               "ts": torch.from_numpy(data[2]).long()}
     system = NeRFSystem(Config(model="sat-nerf", **KW), device="cpu",
                         dataset_len=N_DATA)
-    a = system.init_state(torch.Generator().manual_seed(3))
+    a = system.init_state(3)
     gen = torch.Generator().manual_seed(4)
     for _ in range(3):
         system.train_step(a, t_data, gen)
     path = str(tmp_path / "epoch=1.ckpt")
     save_checkpoint(path, a.params, a.optimizer, a.step)
 
-    b = system.init_state(torch.Generator().manual_seed(99))
+    b = system.init_state(99)
     b.step = load_checkpoint(path, b.params, b.optimizer)
     assert b.step == 3
     idx = torch.arange(B)
@@ -281,7 +281,7 @@ def test_adam_state_round_trips_through_a_checkpoint(tmp_path):
 
     # a serving checkpoint (no optimizer state) still loads, at step 0
     save_checkpoint(path, a.params)
-    c = system.init_state(torch.Generator().manual_seed(7))
+    c = system.init_state(7)
     assert load_checkpoint(path, c.params, c.optimizer) == 0
     assert torch.equal(c.params["embedding_t"].weight,
                        a.params["embedding_t"].weight)
@@ -296,7 +296,7 @@ def test_train_step_draws_and_options():
     system = NeRFSystem(cfg, device="cpu", dataset_len=N_DATA)
     runs = []
     for _ in range(2):  # the same seeds give the same step
-        state = system.init_state(torch.Generator().manual_seed(0))
+        state = system.init_state(0)
         m = system.train_step(state, t_data, torch.Generator().manual_seed(1))
         runs.append((float(m["loss"]), state.params["nerf_coarse"].fc_net[0]
                      .weight.detach().clone()))
@@ -309,7 +309,7 @@ def test_train_step_draws_and_options():
     # plain version here, and it has no refusal left
     s = NeRFSystem(Config(**{**KW, "model": "nerf", "fused": "on"}),
                    device="cpu", dataset_len=N_DATA)
-    state = s.init_state(torch.Generator().manual_seed(0))
+    state = s.init_state(0)
     m = s.train_step(state, t_data, torch.Generator().manual_seed(1))
     assert state.step == 1 and np.isfinite(float(m["loss"]))
     assert set(m) == {"loss", "psnr", "loss_total", "lr"}

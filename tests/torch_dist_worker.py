@@ -1,0 +1,83 @@
+"""A rank of tests/test_torch_distributed.py's 2-process gloo group.
+
+`run(out_dir, n_rows, steps)` joins the group from the SATNERF_* variables
+(parallel/distributed.py), checks that a batch the world does not divide is
+refused, then takes `steps` train steps of sat-nerf 4 x 32 (16 samples,
+batch 64: 32 rays a rank) on its shard of a seeded ray set with injected
+ray indices and depths, and saves its parameters and the draws it was given.
+"""
+
+import os
+
+import numpy as np
+import torch
+
+from satnerf_tpu_torch.config import Config
+from satnerf_tpu_torch.parallel import distributed as D
+from satnerf_tpu_torch.parallel.mesh import shard_rays
+from satnerf_tpu_torch.train.system import NeRFSystem
+
+KW = dict(model="sat-nerf", fc_layers=4, fc_units=32, n_samples=16,
+          batch_size=64, precision="float32", fused="off", noise_std=0.0,
+          first_beta_epoch=1, lr=1e-3, max_train_steps=30, device="cpu")
+
+
+def dataset(n_rows: int):
+    """Seeded rays (n, 11), colours (n, 3), image ids (n,)."""
+    rng = np.random.RandomState(0)
+    rays = rng.rand(n_rows, 11).astype(np.float32)
+    rays[:, 3:6] /= np.linalg.norm(rays[:, 3:6], axis=1, keepdims=True)
+    rays[:, 8:11] /= np.linalg.norm(rays[:, 8:11], axis=1, keepdims=True)
+    rays[:, 6], rays[:, 7] = 0.0, 1.0
+    rgbs = rng.rand(n_rows, 3).astype(np.float32)
+    ts = rng.randint(0, 5, n_rows).astype(np.int64)
+    return rays, rgbs, ts
+
+
+def draws(rank: int, step: int, n_local: int, batch: int, samples: int):
+    """Rank `rank`'s injected draws at `step`: local ray indices and sorted
+    depths in [0, 1)."""
+    rng = np.random.RandomState(1000 * rank + step)
+    idx = rng.randint(0, n_local, batch)
+    z = np.sort(rng.rand(batch, samples).astype(np.float32), axis=1)
+    return torch.from_numpy(idx), torch.from_numpy(z)
+
+
+def run(out_dir: str, n_rows: int, steps: int) -> None:
+    torch.set_num_threads(1)
+    world = D.maybe_init_distributed("cpu")
+    rank = D.rank()
+    try:
+        NeRFSystem(Config(**{**KW, "batch_size": 63}), device="cpu")
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    system = NeRFSystem(Config(**KW), device="cpu", dataset_len=n_rows)
+    _, (rays, rgbs, ts) = shard_rays(*dataset(n_rows), world=world,
+                                     rank=rank)
+    data = {"rays": torch.from_numpy(rays), "rgbs": torch.from_numpy(rgbs),
+            "ts": torch.from_numpy(ts)}
+    state = system.init_state(0)
+    losses = []
+    for step in range(steps):
+        idx, z = draws(rank, step, rays.shape[0], 64 // world, 16)
+        m = system.train_step(state, data, idx=idx, z_vals=z)
+        losses.append(float(m["loss"]))
+    torch.save({"params": state.params.state_dict(), "losses": losses,
+                "refused": refused, "world": world},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    D.destroy()
+
+
+def fail(who: int, before_join: bool) -> None:
+    """A rank of a group in which rank `who` raises, before it joins or
+    while the others wait in an all-reduce; rank 0 leaves the group it
+    raised in as it is, as a rank that fails mid-run does."""
+    me = int(os.environ["SATNERF_PROC_ID"])
+    if me == who and before_join:
+        raise RuntimeError(f"rank {me} fails before it joins")
+    D.maybe_init_distributed("cpu")
+    if me == who:
+        raise RuntimeError(f"rank {me} fails")
+    while True:  # waits on the rank that failed
+        D.all_reduce_mean([torch.ones(4)])

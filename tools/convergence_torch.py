@@ -15,10 +15,12 @@ sets each of the port's figures beside the file's `ours` (the JAX package)
 and `torch_reference` of the same seed.
 
 Two arms, each at every seed:
-  torch  the port's own initial weights (torch.Generator at the seed);
-  jax    the JAX package's initial weights of that seed, the checkpoint its
-         `fit` starts from (tests/data/jax_init_sat-nerf_8x64_seed{N}.ckpt,
-         through `--ckpt_path`), so that only the ray draws differ.
+  torch  the port's own initial weights at the seed (`init_state(seed)`,
+         the JAX package's draw computed by utils/jax_prng.py);
+  jax    the JAX package's initial weights of that seed as the checkpoint
+         its `fit` starts from (tests/data/jax_init_sat-nerf_8x64_seed{N}.ckpt,
+         through `--ckpt_path`): the same weights by another road, so the
+         two arms differ by the card's run-to-run variation alone.
 
 Each per-seed difference from `ours` is held against CONVERGED_BAND
 (tests/test_convergence_parity.py's cap for a port-against-JAX figure).

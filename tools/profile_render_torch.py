@@ -172,7 +172,7 @@ def profile_train(system, rays, ts, batch: int, card: str) -> None:
                     d_depths=torch.from_numpy(
                         rng.rand(4096, 2).astype(np.float32)).to(dev),
                     d_ts=data["ts"][:4096].clone())
-    state = system.init_state(torch.Generator().manual_seed(0))
+    state = system.init_state(0)
     gen = torch.Generator(device=dev).manual_seed(1)
     for _ in range(20):
         system.train_step(state, data, gen)
@@ -783,7 +783,7 @@ def main():
                  sc_lambda=args.sc_lambda, ds_lambda=args.ds_lambda, ds_drop=1.0,
                  n_importance=args.n_importance, fused=args.fused)
     system = NeRFSystem(cfg, dataset_len=args.rays)
-    params = system.init_params(torch.Generator().manual_seed(0))
+    params = system.init_params(0)
     rng = np.random.RandomState(0)
     n = args.rays
     rays = rng.rand(n, 11).astype(np.float32)

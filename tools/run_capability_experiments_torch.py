@@ -32,9 +32,10 @@ each run's metrics the report keeps its training's wall seconds and steps a
 second, and under "device" the card's name and power limit. Runs already
 done in WORKDIR are not run again.
 
-`--init_dir DIR` starts every run from the JAX package's initial weights
-for its variant, width and seed (train/checkpoints.jax_init_name, through
-`ckpt_path`) in place of the port's own draw; the report names the files
+`--init_dir DIR` starts every run from the JAX package's initial
+checkpoint for its variant, width and seed (train/checkpoints.jax_init_name,
+through `ckpt_path`): the weights of the port's own draw, which is the JAX
+package's (utils/jax_prng.py), read from a file; the report names the files
 under "provenance". A run with no such file stops the tool before anything
 trains. tests/data holds them for the full preset at seeds 0 and 1
 (tests/test_torch_jax_init.py writes them).
