@@ -42,8 +42,11 @@ plain version):
   2b the training kernels (K1) against their plain versions, at 8 x 512,
      64 samples, 1024 and 1000 + 37 rays: sat-nerf with the beta gate at 1
      and at 0 (with sigma noise and the weights output), s-nerf; fp32 and
-     bf16; loss parts, every gradient by name, t_grad, weights, and every
-     launch of the chain alone; every launch of composite_loss_bwd (a block
+     bf16; each with the depths jittered from a torch.Generator and from
+     the main path's draw (jax.random's uniform, ops/jax_draws.py); loss
+     parts, every gradient by name, t_grad, weights, and every launch of
+     the chain alone (the sky head's cotangent d_skyh in bf16 within a
+     step of one of its three terms, TrainCheck._hold_cotangents); every launch of composite_loss_bwd (a block
      a ray) also against the same launch on the warp-a-ray body it replaced
      (so in 2c for composite_bwd), and both bodies timed in phase 2; then
      every launch of the chain again past 256 samples a ray, at 1024 x 320
@@ -106,7 +109,7 @@ plain version):
      of 320 samples, past one chunk of the block body; the loss finite and
      falling); then a short --fused on --n_importance 8 run (K6 under the
      trainer and the server) and a short --fused off run that must launch no
-     kernel
+     field kernel
 
   2e the classic NeRF variant's kernels: fused_nerf_train_loss_grads (K7),
      fused_nerf_render_rays (K8) and fused_nerf_apply (K9) against their
@@ -176,9 +179,24 @@ plain version):
      JAX checkpoint (sat-nerf 4 x 32) over a 16 px synthetic AOI, on the card
      (through K2) and on the CPU: finite PSNR, SSIM and MAE, the card's
      within 2e-2 of the CPU's
+  12 the training draws (R5): the draw kernel csrc/jax_draws.cu, jax.random's
+     bits, uniform, randint and normal, against its plain version
+     (utils/jax_prng.py, numpy) to the bit, each at the main path's shapes
+     (1,024 x 64, the batch's indices 1,024), at 65,536 x 64 and at an odd
+     1,000,003; each timed beside its bound (threefry's instructions at the
+     SM's issue rate, or the bytes written; the phase fails where the
+     profiler reads no launch of the kernel or a device time under the
+     bound), the plain version's host time and
+     torch's own draw of the same shape (another function: library_ms is
+     null); a permutation of two sort rounds; then two main-path steps
+     (sat-nerf 8 x 512, 64 samples, batch 1,024, bf16), whose indices and
+     jitter must equal the plain draws of their keys to the bit and whose
+     depths within 1e-6. Phases 4 and 5 check the draw kernel's launches
+     (2 a step; 4 with depth supervision), and phase 6's --fused off run,
+     which launches no field kernel, still draws on the card.
 
-No earlier phase was cut when phases 2d, 2e, 6, 7, 8, 9, 10 and 11 came: the
-whole run stays well inside half its time limit.
+No earlier phase was cut when phases 2d, 2e, 6, 7, 8, 9, 10, 11 and 12 came:
+the whole run stays well inside half its time limit.
 
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Scratch files go to build/chip_smoke/.
@@ -187,6 +205,7 @@ The line before the last is {"kernels": [...]}, the last
 from __future__ import annotations
 
 import glob
+import itertools
 import json
 import os
 import shutil
@@ -259,6 +278,42 @@ KERNELS.update({
     "nerf_field_heads": (_NERF_SRC, "nerf_points"),
     "nerf_field_heads_bwd": (_NERF_SRC, "nerf_points_bwd"),
 })
+# the draw kernel (phase 12): jax.random's draws of the JAX training step,
+# which no Pallas kernel made; "replaces" names the JAX step's largest draw
+DRAW_KERNEL = "jax_draws"
+DRAW_SOURCE = "satnerf_tpu_torch/csrc/jax_draws.cu"
+DRAW_REPLACES = "satnerf_tpu/render/sampling.py:31"
+DRAW_REPLACES_ALSO = ["satnerf_tpu/train/system.py:674",
+                      "satnerf_tpu/train/system.py:682",
+                      "satnerf_tpu/render/render.py:82",
+                      "satnerf_tpu/render/sampling.py:96",
+                      "satnerf_tpu/train/system.py:795"]
+# The draw kernel's bound is its instructions at the SM's issue rate. No
+# published table gives Hopper an int32 rate; what holds for every pipe is
+# the issue: four schedulers an SM, each one warp instruction a clock, 128
+# thread-instructions a clock, integer or float, ALU or FMA pipe (an IMAD
+# may carry an integer add). The float32 peak counts the same 128 lanes at
+# two operations an FMA: 67e12 / 2 instructions a second at the H100 SXM's
+# 1.98 GHz boost.
+PEAK_FP32_FLOPS = 67e12
+PEAK_ISSUE = PEAK_FP32_FLOPS / 2
+# instructions a threefry word, at the fewest: twenty rounds of an add, a
+# rotate (one funnel shift) and an xor (60); the counter's low word into x1
+# (1); the five key injections into x1, which the next rotate needs alone
+# (5; those into x0 ride in the next round's three-input add, but for the
+# last, 1); the final xor (1). Loop, address and store instructions are not
+# counted.
+THREEFRY_OPS = 60 + 1 + 5 + 1 + 1
+# a draw's instructions past its words, at the fewest, counted from
+# csrc/jax_draws.cu: the uniform's shift-or (one LEA.HI), subtract, FMA and
+# max (4); randint's three remainders at one each and its multiply-add (4);
+# the normal, the uniform's 4 and 32 float instructions on the log1p branch
+# its draws take most (erf_inv's square, log1p's 12 Horner FMAs past the
+# constant first step, its square, cube, quotient, product and sum of three,
+# erf_inv's shift, 8 Horner FMAs, the products by x and sqrt(2), the test
+# for |x| = 1)
+DRAW_EXTRA = {"bits": 0, "uniform": 4, "randint": 4, "normal": 36}
+DRAW_WORDS = {"bits": 1, "uniform": 1, "randint": 2, "normal": 1}
 LAYERS, FEAT, SAMPLES, TAU = 8, 512, 64, 4
 NERF_FEAT, NERF_FREQ = 256, (10, 4)  # run 1/7: --model nerf --fc_units 256
 BATCH = 1024  # rays a training step draws (--batch_size default)
@@ -401,7 +456,12 @@ def _cuda_ms(fn, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _inputs(n_rays: int, seed: int, device, samples: int = SAMPLES):
+def _inputs(n_rays: int, seed: int, device, samples: int = SAMPLES,
+            jitter: str = "torch"):
+    """Rays (o, d, sun, t) and depths z of a kernel check, from a seeded
+    torch.Generator; the depths' jitter from it too, or with jitter="jax"
+    the main path's draw, jax.random's uniform of the key of `seed`
+    (ops/jax_draws.py, on the card)."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -414,7 +474,18 @@ def _inputs(n_rays: int, seed: int, device, samples: int = SAMPLES):
     near, far = torch.zeros(n_rays, 1), torch.ones(n_rays, 1)
     from satnerf_tpu_torch.render.sampling import stratified_zvals
 
-    z = stratified_zvals(g, near, far, samples, perturb=1.0)
+    if jitter == "jax":
+        from satnerf_tpu_torch.utils import jax_prng
+
+        z = stratified_zvals(jax_prng.prng_key(seed), near.to(device),
+                             far.to(device), samples)
+        return [x.to(device) for x in (o, d, sun, t)] + [z]
+    # the bins of stratified_zvals, jittered from this generator
+    z = stratified_zvals(None, near, far, samples, perturb=0.0)
+    mid = 0.5 * (z[:, :-1] + z[:, 1:])
+    lower = torch.cat([z[:, :1], mid], -1)
+    upper = torch.cat([mid, z[:, -1:]], -1)
+    z = lower + (upper - lower) * torch.rand(z.shape, generator=g)
     return [x.to(device) for x in (o, d, sun, t, z)]
 
 
@@ -519,11 +590,27 @@ COMPOSITE_KERNELS = ("composite_loss_bwd", "composite_bwd")
 
 def _counts() -> dict:
     """FM.LAUNCHES, with the K = 0 kernel of siren_dense counted apart
-    ("siren_dense_k0": its launches on the "k0" mainloop)."""
+    ("siren_dense_k0": its launches on the "k0" mainloop), and the draw
+    kernel's (JD.LAUNCHES: the draws run on the card on every path)."""
     from satnerf_tpu_torch.ops import fused_mlp as FM
+    from satnerf_tpu_torch.ops import jax_draws as JD
 
-    return {**FM.LAUNCHES,
+    return {**FM.LAUNCHES, **JD.LAUNCHES,
             "siren_dense_k0": FM.MAINLOOP_LAUNCHES.get(("siren_dense", "k0"), 0)}
+
+
+def _reset_launches() -> None:
+    """Every count _counts reads to 0."""
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+    from satnerf_tpu_torch.ops import jax_draws as JD
+
+    FM.reset_launches()
+    JD.reset_launches()
+
+
+def _field_launches(launches: dict) -> dict:
+    """The launches of the field's kernels: all but the draws'."""
+    return {k: v for k, v in launches.items() if k != DRAW_KERNEL}
 
 
 def _took(name: str):
@@ -631,14 +718,27 @@ class TrainCheck:
                        elementwise=k.startswith("d_"),
                        terms=3 if k in ("d_r", "d_skyh") else 1)
 
+    # d_skyh against the plain version: both round the sky head's three
+    # cotangents g_c = d_sky_c * s_c (1 - s_c) to bf16 before their products
+    # with the weight rows (the kernel's gb_sky; the plain version's
+    # rounded_matmul), but each forms g_c from its own fp32 sums over the
+    # ray's samples. Where g_c lies at a bf16 boundary the two round it to
+    # neighbours, so a term g_c * w_ck moves by one bf16 step of itself, and
+    # the entry, a sum of three such terms that may cancel, by one step of a
+    # term, which the entry's own step need not cover: terms=3, as the warp
+    # body check (VS_WARP) allows for the same sums.
+    def _hold_cotangents(self, kernel, out, ref):
+        for k in ref:
+            self._hold(kernel, k, out[k], ref[k], K1_STAGE_TOL,
+                       elementwise=k.startswith("d_"),
+                       terms=3 if k == "d_skyh" else 1)
+
     def composite(self, *args, **kw):
         from satnerf_tpu_torch.ops import fused_mlp as FM
 
         out = FM.composite_loss_bwd(*args, **kw)
-        ref = FM.composite_loss_bwd_reference(*args, **kw)
-        for k in ref:
-            self._hold("composite_loss_bwd", k, out[k], ref[k],
-                       K1_STAGE_TOL, elementwise=k.startswith("d_"))
+        self._hold_cotangents("composite_loss_bwd", out,
+                              FM.composite_loss_bwd_reference(*args, **kw))
         self._vs_warp("composite_loss_bwd", out, FM.composite_loss_bwd, args, kw)
         return out
 
@@ -646,10 +746,8 @@ class TrainCheck:
         from satnerf_tpu_torch.ops import fused_mlp as FM
 
         out = FM.composite_bwd(*args, **kw)
-        ref = FM.composite_bwd_reference(*args, **kw)
-        for k in ref:
-            self._hold("composite_bwd", k, out[k], ref[k], K1_STAGE_TOL,
-                       elementwise=k.startswith("d_"))
+        self._hold_cotangents("composite_bwd", out,
+                              FM.composite_bwd_reference(*args, **kw))
         self._vs_warp("composite_bwd", out, FM.composite_bwd, args, kw)
         return out
 
@@ -1431,15 +1529,17 @@ def phase2b(results: dict):
     dev = torch.device("cuda:0")
     failures = []
     before = dict(FM.LAUNCHES)
-    # (variant, gate, rays, noise, weights)
+    # (variant, gate, rays, noise, weights), each with the depths' jitter
+    # from a torch.Generator and from the main path's draw
     cases = [("sat-nerf", 1.0, K1_RAYS[0], False, False),
              ("sat-nerf", 0.0, K1_RAYS[1], True, True),
              ("s-nerf", 0.0, K1_RAYS[1], False, False)]
-    for variant, wmix, n_rays, with_noise, with_weights in cases:
+    for (variant, wmix, n_rays, with_noise, with_weights), jitter in \
+            itertools.product(cases, ("torch", "jax")):
         use_beta = variant == "sat-nerf"
         field = build_model(variant, LAYERS, FEAT, t_dim=TAU,
                             generator=torch.Generator().manual_seed(1)).to(dev)
-        o, d, sun, t, z = _inputs(n_rays, 5, dev)
+        o, d, sun, t, z = _inputs(n_rays, 5, dev, jitter=jitter)
         g = torch.Generator().manual_seed(6)
         gt = torch.rand(n_rays, 3, generator=g).to(dev)
         noise = (torch.randn(n_rays, SAMPLES, generator=g).to(dev)
@@ -1453,7 +1553,7 @@ def phase2b(results: dict):
             out = FM.fused_train_loss_grads(*args, **kw)
             ref = FM.fused_train_loss_grads_reference(*args, **kw)
             torch.cuda.synchronize()
-            tag = f"K1 {variant} gate {wmix:g} R={n_rays} {dname}"
+            tag = f"K1 {variant} gate {wmix:g} R={n_rays} {dname} {jitter} jitter"
             part_err = {k: abs(out[0][k].item() - ref[0][k].item())
                         / max(abs(ref[0][k].item()), 1e-6) for k in ref[0]}
             grad_err = {k: _rel_err(out[1][k], ref[1][k]) for k in ref[1]}
@@ -2421,7 +2521,7 @@ def phase3(results: dict, card: str):
     save_checkpoint(checkpoint_path(ckpts, run_id, 1), params)
 
     out_dir = os.path.join(WORK, "out")
-    FM.reset_launches()
+    _reset_launches()
     t0 = time.perf_counter()
     mae = create_pretty_dsm(run_id, logs, out_dir, 1, device="cuda")
     dsm_s = time.perf_counter() - t0
@@ -2537,7 +2637,7 @@ def phase4(results: dict, card: str):
                 "--log_every_n_steps", str(LOG_EVERY), "--logs_dir", logs,
                 "--ckpts_dir", ckpts, *extra]
 
-    FM.reset_launches()
+    _reset_launches()
     t0 = time.perf_counter()
     first = _train_one(argv(TRAIN_STEPS, "smoke_train"))
     torch.cuda.synchronize()
@@ -2565,6 +2665,12 @@ def phase4(results: dict, card: str):
     if not all(launches[k] > 0 for k in TRAIN_KERNELS + ("heads_composite",
                                                          "siren_dense_k0")):
         raise SystemExit(f"phase 4 failed: a kernel was not launched: {launches}")
+    # the draws: the batch's indices (randint) and its depths' jitter
+    # (uniform) a step; validation draws nothing
+    if launches[DRAW_KERNEL] != 2 * TRAIN_STEPS:
+        raise SystemExit(f"phase 4 failed: {DRAW_KERNEL} launched "
+                         f"{launches[DRAW_KERNEL]} times in {TRAIN_STEPS} "
+                         f"steps, expected 2 a step")
     results["launches"] = launches
     # every bf16 launch with K > 0 of the three kernels with a wgmma mainloop
     # went through it (the rest of siren_dense's: K = 0, layer 0 and sky_0,
@@ -2662,7 +2768,6 @@ def phase5(results: dict, card: str):
     import torch
 
     from satnerf_tpu_torch.data.synthetic import make_synthetic_aoi
-    from satnerf_tpu_torch.ops import fused_mlp as FM
 
     aoi = os.path.join(WORK, "aoi_kp")
     t0 = time.perf_counter()
@@ -2684,7 +2789,7 @@ def phase5(results: dict, card: str):
                 "1000", "--ds_drop", str(FULL_DROP), *extra]
 
     def run(steps, name, extra=()):
-        FM.reset_launches()
+        _reset_launches()
         t0 = time.perf_counter()
         out = _train_one(argv(steps, name, extra))
         torch.cuda.synchronize()
@@ -2728,6 +2833,11 @@ def phase5(results: dict, card: str):
                          f"an epoch boundary and then the drop")
     active = drop - 1  # steps 0 .. drop - 2: step + 1 < ds_drop_step
     check_counts("full recipe", launches, FULL_STEPS, active)
+    # the draws: the color and the depth batch's indices and jitters a step
+    if launches[DRAW_KERNEL] != 4 * FULL_STEPS:
+        raise SystemExit(f"phase 5 failed: {DRAW_KERNEL} launched "
+                         f"{launches[DRAW_KERNEL]} times in {FULL_STEPS} "
+                         f"steps, expected 4 a step")
     results["launches_full"] = launches
     by_body = _on_block("phase 5", launches)
     results["body_launches"]["composite_bwd"] = by_body["composite_bwd"]
@@ -2833,7 +2943,7 @@ def phase6(results: dict, card: str):
                 "1000", "--ds_drop", str(HIER_DROP), *extra]
 
     def run(steps, name, n_imp, extra=()):
-        FM.reset_launches()
+        _reset_launches()
         t0 = time.perf_counter()
         out = _train_one(argv(steps, name, n_imp, extra))
         torch.cuda.synchronize()
@@ -2966,7 +3076,7 @@ def phase6(results: dict, card: str):
     system.render_image(params, rays[:CHUNK], ts[:CHUNK])  # warm up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    FM.reset_launches()
+    _reset_launches()
     t0 = time.perf_counter()
     res = system.render_image(params, rays, ts)
     dt = time.perf_counter() - t0
@@ -3068,11 +3178,15 @@ def phase6(results: dict, card: str):
         f"{1e3 * BATCH / rows[-1]['train/rays_per_sec']:.1f} ms a step, val/mae "
         f"{out['metrics']['val/mae']:.3f}, launches {launches}")
 
-    # ---- --fused off on the card: the caller's choice, no kernel at all
+    # ---- --fused off on the card: the caller's choice, no field kernel (the
+    # draws stay on the card)
     out, launches, off_s = run(steps, "smoke_fused_off", ON_IMPORTANCE,
                                ["--fused", "off"])
-    if out["system"].fused_mode != "off" or any(launches.values()):
-        fail(f"--fused off launched kernels: {launches}")
+    if (out["system"].fused_mode != "off"
+            or any(_field_launches(launches).values())
+            or not launches[DRAW_KERNEL]):
+        fail(f"--fused off launched field kernels, or drew off the card: "
+             f"{launches}")
     rows = _train_rows(logs, out["cfg"].exp_name)
     if not (rows and np.isfinite(rows[-1]["train/loss"])
             and all(np.isfinite(v) for v in out["metrics"].values())):
@@ -3118,7 +3232,7 @@ def phase7(results: dict, card: str):
                 str(LOG_EVERY), "--logs_dir", logs, "--ckpts_dir", ckpts, *extra]
 
     def run(root, steps, name, extra=()):
-        FM.reset_launches()
+        _reset_launches()
         t0 = time.perf_counter()
         out = _train_one(argv(root, steps, name, extra))
         torch.cuda.synchronize()
@@ -3231,7 +3345,7 @@ def phase7(results: dict, card: str):
     system.render_image(params, rays[:CHUNK], None)  # warm up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    FM.reset_launches()
+    _reset_launches()
     t0 = time.perf_counter()
     res = system.render_image(params, rays, None)
     dt = time.perf_counter() - t0
@@ -3355,9 +3469,10 @@ FIXTURE = os.path.join(REPO, "tests", "data", "jax_satnerf_4x32")
 FIXTURE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
-def _device_ms(fn, reps: int = 3) -> float:
+def _device_ms(fn, reps: int = 3, name: str = "") -> float:
     """The device time of fn's kernels a call, by torch.profiler (kernels,
-    copies and fills on the card; user annotations left out)."""
+    copies and fills on the card; user annotations left out); with `name`,
+    of the kernels whose name holds it alone."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3370,8 +3485,20 @@ def _device_ms(fn, reps: int = 3) -> float:
     us = sum(e.device_time_total for e in prof.key_averages()
              if getattr(e, "device_time_total", 0) > 0
              and str(getattr(e, "device_type", "")).endswith("CUDA")
-             and not getattr(e, "is_user_annotation", False))
+             and not getattr(e, "is_user_annotation", False)
+             and name in e.key)
     return us / 1e3 / reps
+
+
+def _kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 3) -> float:
+    """_device_ms of the kernels named `name`; a profile that recorded none
+    of them (the tracer drops a launch now and then) is taken again, up to
+    `tries` times. 0.0 when every try recorded none."""
+    for _ in range(tries):
+        ms = _device_ms(fn, reps=reps, name=name)
+        if ms > 0:
+            return ms
+    return 0.0
 
 
 def phase8(results: dict, card: str):
@@ -3383,9 +3510,9 @@ def phase8(results: dict, card: str):
 
     from satnerf_tpu_torch.config import Config
     from satnerf_tpu_torch.data import load_dataset
-    from satnerf_tpu_torch.ops import fused_mlp as FM
     from satnerf_tpu_torch.train.checkpoints import load_checkpoint
     from satnerf_tpu_torch.train.system import NeRFSystem
+    from satnerf_tpu_torch.utils import jax_prng
 
     def fail(msg):
         raise SystemExit(f"phase 8 failed: {msg}")
@@ -3400,7 +3527,7 @@ def phase8(results: dict, card: str):
         make_synthetic_aoi(aoi, size=128)
     logs, ckpts = os.path.join(WORK, "logs"), os.path.join(WORK, "ckpts")
     for model in ("sat-nerf", "nerf"):
-        FM.reset_launches()
+        _reset_launches()
         t0 = time.perf_counter()
         out = _train_one([
             "--root_dir", os.path.join(aoi, "data"),
@@ -3412,7 +3539,7 @@ def phase8(results: dict, card: str):
             "--chunk", str(CHUNK), "--logs_dir", logs, "--ckpts_dir", ckpts])
         step_s = time.perf_counter() - t0
         system, state, cfg = out["system"], out["state"], out["cfg"]
-        launched = {k: v for k, v in _counts().items() if v}
+        launched = {k: v for k, v in _field_launches(_counts()).items() if v}
         rows = _train_rows(logs, cfg.exp_name)
         log(f"phase 8: {model} {LAYERS} x {WIDE_FEAT} --fused auto resolved to "
             f"{system.fused_mode!r} ({system.fused_reason}); one step and the "
@@ -3439,8 +3566,8 @@ def phase8(results: dict, card: str):
                 "ts": torch.from_numpy(np.asarray(
                     getattr(ds, "all_ids", np.zeros(len(ds))),
                     np.int64)).cuda()}
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        step = lambda: system.train_step(state, data, gen)  # noqa: E731
+        key = jax_prng.prng_key(cfg.seed + 1)  # the run's key, as fit's
+        step = lambda: system.train_step(state, data, key)  # noqa: E731
         dev_ms, ev_ms = _device_ms(step), _cuda_ms(step, reps=5)
         results.setdefault("wide", {})[model] = (dev_ms, ev_ms)
         log(f"phase 8: {model} {LAYERS} x {WIDE_FEAT} plain-path step, batch "
@@ -3457,7 +3584,7 @@ def phase8(results: dict, card: str):
         params = system.init_params()
         if load_checkpoint(FIXTURE + ".ckpt", params) != int(stored["step"]):
             fail("the JAX checkpoint's step did not come back")
-        FM.reset_launches()
+        _reset_launches()
         res = system.render_image(params, stored["rays"], stored["ts"])
         counts = _counts()
         w = res["weights_coarse"][..., None]
@@ -3517,13 +3644,14 @@ def phase9(results: dict, card: str):
 
     from satnerf_tpu_torch.data import load_dataset, synthetic
     from satnerf_tpu_torch.ops import fused_mlp as FM
+    from satnerf_tpu_torch.utils import jax_prng
 
     t_phase = time.perf_counter()
     root = os.path.join(WORK, "anchor")
     shutil.rmtree(root, ignore_errors=True)
     synthetic.main([os.path.join(root, "aoi")] + ANCHOR_AOI)
     aoi = os.path.join(root, "aoi")
-    FM.reset_launches()
+    _reset_launches()
     out = _train_one([
         "--root_dir", os.path.join(aoi, "data"),
         "--gt_dir", os.path.join(aoi, "gt"),
@@ -3543,8 +3671,8 @@ def phase9(results: dict, card: str):
             "rgbs": torch.from_numpy(np.ascontiguousarray(
                 ds.all_rgbs, np.float32)).cuda(),
             "ts": torch.from_numpy(np.asarray(ds.all_ids, np.int64)).cuda()}
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    dev_ms = _device_ms(lambda: system.train_step(state, data, gen))
+    key = jax_prng.prng_key(cfg.seed + 1)  # the run's key, as fit's
+    dev_ms = _device_ms(lambda: system.train_step(state, data, key))
     secs = time.perf_counter() - t_phase
     results["anchor"] = {"metrics": m, "device_ms": dev_ms, "seconds": secs,
                          "siren_dense_mainloops": loops}
@@ -3616,7 +3744,6 @@ def phase10(results: dict, card: str):
     import torch
 
     from satnerf_tpu_torch.data.synthetic import make_synthetic_aoi
-    from satnerf_tpu_torch.ops import fused_mlp as FM
     from satnerf_tpu_torch.parallel import distributed as D
 
     def fail(msg):
@@ -3653,7 +3780,7 @@ def phase10(results: dict, card: str):
                if name == "group" else {})
         os.environ.update(env)
         D.all_reduce_mean = checked_reduce
-        FM.reset_launches()
+        _reset_launches()
         t0 = time.perf_counter()
         try:
             out = _train_one(_dist_argv(aoi, root, name))
@@ -3725,7 +3852,6 @@ def phase11(results: dict, card: str):
     import importlib.util
 
     from satnerf_tpu_torch.data import synthetic
-    from satnerf_tpu_torch.ops import fused_mlp as FM
 
     spec = importlib.util.spec_from_file_location(
         "parity_report_torch",
@@ -3741,7 +3867,7 @@ def phase11(results: dict, card: str):
     shutil.copyfile(FIXTURE + ".ckpt", ckpt)
     got = {}
     for device in ("cuda", "cpu"):
-        FM.reset_launches()
+        _reset_launches()
         report = tool.main([
             "--ckpt", ckpt, "--root_dir", os.path.join(aoi, "data"),
             "--gt_dir", os.path.join(aoi, "gt"),
@@ -3764,6 +3890,167 @@ def phase11(results: dict, card: str):
             or max(diffs.values()) > 2e-2:
         raise SystemExit(f"phase 11 failed: card {got['cuda']}, CPU "
                          f"{got['cpu']}")
+
+
+def phase12(results: dict, card: str):
+    """The draw kernel against its plain version (utils/jax_prng.py in
+    numpy) to the bit, each mode at the main path's shapes, at 65,536 x 64
+    and at an odd count; its times; then two main-path steps on the card,
+    whose draws (the batch's indices, its depths' jitter and the depths)
+    must equal the plain draws from the same keys."""
+    import torch
+
+    from satnerf_tpu_torch.config import Config
+    from satnerf_tpu_torch.ops import jax_draws as JD
+    from satnerf_tpu_torch.render.sampling import stratified_zvals
+    from satnerf_tpu_torch.train import system as system_mod
+    from satnerf_tpu_torch.train.system import NeRFSystem
+    from satnerf_tpu_torch.utils import jax_prng as P
+
+    def fail(msg):
+        raise SystemExit(f"phase 12 failed: {msg}")
+
+    dev = torch.device("cuda")
+    key = P.prng_key(12)
+    n_data = 40_961  # randint's span: not a power of two
+    modes = {
+        "bits": (lambda shape, d: JD.bits(key, shape, d), np.int32),
+        "uniform": (lambda shape, d: JD.uniform(key, shape, d), np.float32),
+        "randint": (lambda shape, d: JD.randint(key, shape, 0, n_data, d),
+                    np.int64),
+        "normal": (lambda shape, d: JD.normal(key, shape, d), np.float32)}
+    # the main path's: the batch's indices, its depths' jitter (and, with
+    # sigma noise, a normal of the same shape); 65,536 x 64; an odd count
+    shapes = {"bits": [(BATCH, SAMPLES)], "uniform": [(BATCH, SAMPLES)],
+              "randint": [(BATCH,)], "normal": [(BATCH, SAMPLES)]}
+    for mode in modes:
+        shapes[mode] += [(CHUNK, SAMPLES), (1_000_003,)]
+    timing, ulps = {}, {}
+    for mode, (draw, dtype) in modes.items():
+        for shape in shapes[mode]:
+            got = draw(shape, dev).cpu().numpy()
+            t0 = time.perf_counter()
+            want = draw(shape, "cpu").numpy()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            if got.shape != want.shape or got.dtype != want.dtype:
+                fail(f"{mode} {shape}: {got.dtype} {got.shape} against "
+                     f"{want.dtype} {want.shape}")
+            a, b = (x.view(np.int32) if x.dtype == np.float32 else x
+                    for x in (got, want))
+            diff = int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+            ulps[(mode, shape)] = diff
+            if diff:
+                fail(f"{mode} at {shape}: {int((a != b).sum())} of {a.size} "
+                     f"draws differ from the plain version's, by up to "
+                     f"{diff} {'ulp' if dtype == np.float32 else ''}")
+            ms = _cuda_ms(lambda: draw(shape, dev), reps=20)
+            n = int(np.prod(shape))
+            nbytes = n * np.dtype(dtype).itemsize
+            ops = n * (DRAW_WORDS[mode] * THREEFRY_OPS + DRAW_EXTRA[mode])
+            t_bytes = nbytes / PEAK_BYTES
+            t_ops = ops / PEAK_ISSUE
+            torch_call = {"bits": lambda: torch.randint(
+                              0, 2 ** 31, shape, device=dev,
+                              dtype=torch.int32),
+                          "uniform": lambda: torch.rand(shape, device=dev),
+                          "randint": lambda: torch.randint(0, n_data, shape,
+                                                           device=dev),
+                          "normal": lambda: torch.randn(shape, device=dev)}
+            device_ms = _kernel_device_ms(lambda: draw(shape, dev),
+                                          "jax_draws_kernel")
+            timing[(mode, shape)] = {
+                "ms": ms, "device_ms": device_ms,
+                "plain_ms": plain_ms,
+                "bound_ms": 1e3 * max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "torch_rand_ms": _cuda_ms(torch_call[mode], reps=20)}
+            log(f"phase 12: {mode} {shape}: bit for bit; {ms:.4f} ms (device "
+                f"{timing[(mode, shape)]['device_ms']:.4f}), plain "
+                f"(numpy, host) {plain_ms:.1f} ms, bound "
+                f"{timing[(mode, shape)]['bound_ms']:.4f} ms "
+                f"({timing[(mode, shape)]['bound_by']}), torch's own draw of "
+                f"the shape {timing[(mode, shape)]['torch_rand_ms']:.4f} ms")
+            if not device_ms > 0:
+                fail(f"{mode} at {shape}: the profiler recorded no "
+                     f"jax_draws_kernel in three tries")
+            if device_ms < timing[(mode, shape)]["bound_ms"]:
+                fail(f"{mode} at {shape}: {device_ms:.4f} device-ms, under "
+                     f"its bound {timing[(mode, shape)]['bound_ms']:.4f}: "
+                     f"the bound counts work the kernel does not do")
+    perm = JD.permutation(key, 70_001, dev).cpu().numpy()
+    if not np.array_equal(perm, JD.permutation(key, 70_001).numpy()):
+        fail("the permutation of 70,001 (two sort rounds) differs from the "
+             "plain version's")
+
+    # ---- two main-path steps: every draw against the plain draw of its key
+    cfg = Config(model="sat-nerf", fc_layers=LAYERS, fc_units=FEAT,
+                 n_samples=SAMPLES, batch_size=BATCH, max_train_steps=10)
+    system = NeRFSystem(cfg, dataset_len=4096)
+    rng = np.random.RandomState(12)
+    rays = rng.rand(4096, 11).astype(np.float32)
+    rays[:, 3:6] /= np.linalg.norm(rays[:, 3:6], axis=1, keepdims=True)
+    rays[:, 6], rays[:, 7] = 0.0, 1.0 + rng.rand(4096)
+    data = {"rays": torch.from_numpy(rays).to(dev),
+            "rgbs": torch.from_numpy(rng.rand(4096, 3).astype(np.float32)
+                                     ).to(dev),
+            "ts": torch.from_numpy(rng.randint(0, 5, 4096)).to(dev)}
+    seen = []
+
+    def spy(name, fn):
+        def inner(*a, **kw):
+            out = fn(*a, **kw)
+            seen.append((name, a, kw, out))
+            return out
+        return inner
+
+    real = {n: getattr(JD, n) for n in ("randint", "uniform")}
+    real_z = system_mod.stratified_zvals
+    try:
+        for n, fn in real.items():
+            setattr(JD, n, spy(n, fn))
+        system_mod.stratified_zvals = spy("z", real_z)
+        state = system.init_state(0)
+        for _ in range(2):
+            system.train_step(state, data, P.prng_key(7))
+        torch.cuda.synchronize()
+    finally:
+        for n, fn in real.items():
+            setattr(JD, n, fn)
+        system_mod.stratified_zvals = real_z
+    checked, z_err = {}, 0.0
+    for name, a, kw, out in seen:
+        if name == "randint":  # (key, shape, minval, maxval, device)
+            want = real["randint"](*a[:4], "cpu")
+        elif name == "uniform":  # (key, shape, device)
+            want = real["uniform"](a[0], a[1], "cpu")
+        else:  # (key, near, far, n_samples, perturb, use_disp)
+            want = stratified_zvals(a[0], a[1].cpu(), a[2].cpu(), *a[3:])
+        got = out.cpu()
+        if name == "z":  # the bins' linspace and arithmetic: 1e-6 relative
+            z_err = max(z_err, float((got - want).abs().max()))
+            same = torch.allclose(got, want, rtol=1e-6, atol=0)
+        else:  # the draws themselves: to the bit
+            same = torch.equal(got, want)
+        if not same:
+            fail(f"a main-path step's {name} differs from the plain draw of "
+                 f"its key")
+        checked[name] = checked.get(name, 0) + 1
+    if checked != {"randint": 2, "uniform": 2, "z": 2}:
+        fail(f"two main-path steps drew {checked}, expected one batch's "
+             f"indices, jitter and depths a step")
+    main = timing[("uniform", (BATCH, SAMPLES))]
+    results.setdefault("times", {})[DRAW_KERNEL] = {
+        "ms": main["ms"], "device_ms": main["device_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "by_mode": {f"{m} {'x'.join(map(str, sh))}": t
+                    for (m, sh), t in timing.items()}}
+    results.setdefault("err", {})[(DRAW_KERNEL, "float32")] = max(
+        ulps.values())
+    log(f"phase 12: two main-path steps' draws {checked}: indices and jitter "
+        f"equal the plain draws of their keys to the bit, the depths within "
+        f"{z_err:.2e} on {card}")
 
 
 def _train_one(argv: list) -> dict:
@@ -3807,7 +4094,8 @@ def main():
              ("8", lambda: phase8(results, card)),
              ("9", lambda: phase9(results, card)),
              ("10", lambda: phase10(results, card)),
-             ("11", lambda: phase11(results, card)))
+             ("11", lambda: phase11(results, card)),
+             ("12", lambda: phase12(results, card)))
     t_start = time.perf_counter()
     for key, run in steps:
         if only and key not in only:
@@ -3866,6 +4154,13 @@ def main():
                if kname == "narrow_grads" else {}),
             **t,
         })
+    t = results["times"][DRAW_KERNEL]
+    kernels.append({
+        "name": DRAW_KERNEL, "route": "cuda", "source": DRAW_SOURCE,
+        "replaces": DRAW_REPLACES, "replaces_also": DRAW_REPLACES_ALSO,
+        "launches": results["launches"][DRAW_KERNEL],
+        "launches_full_recipe": results["launches_full"][DRAW_KERNEL],
+        "max_abs_err": results["err"][(DRAW_KERNEL, "float32")], **t})
     log(f"build {secs:.1f} s, phases {time.perf_counter() - t_start:.1f} s; "
         f"card {card}")
     print(card, flush=True)

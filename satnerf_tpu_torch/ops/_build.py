@@ -29,7 +29,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U, _L = ctypes.c_uint, ctypes.c_longlong
 SIGNATURES = {
+    # mode, ka0, ka1, kb0, kb1, n, lo, scale, span, mult, minval, out, stream
+    "satnerf_jax_draws": [_I, _U, _U, _L, _F, _F, _U, _U, _I, _P, _P],
     # dtype, X, K, W, bias, rays, z, S, extra_mode, extra_off, n_extra, C,
     # w0, act, Y, save, P, N, mainloop, stream
     "satnerf_siren_dense": [_I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P,

@@ -18,6 +18,7 @@ import torch
 from satnerf_tpu_torch.render.composite import composite
 from satnerf_tpu_torch.render.sampling import (merge_sorted_zvals, sample_pdf,
                                                stratified_zvals)
+from satnerf_tpu_torch.utils import jax_prng
 
 
 @dataclass(frozen=True)
@@ -68,8 +69,7 @@ def run_field(model, rays_o, march_d, rays_d, sun_d, t_embed, z_vals,
     return composite(out, z_vals, noise=noise, shadow=shadow)
 
 
-def render_rays(models: dict, rays, t_embed, cfg: RenderConfig,
-                generator: Optional[torch.Generator] = None,
+def render_rays(models: dict, rays, t_embed, cfg: RenderConfig, key=None,
                 dtype: Optional[torch.dtype] = None, noise=None,
                 sc_noise=None, *, z_vals=None, u=None, fine_noise=None,
                 sc_noise_fine=None) -> dict:
@@ -81,8 +81,10 @@ def render_rays(models: dict, rays, t_embed, cfg: RenderConfig,
     training-time sigma noise of the primary pass and of the
     solar-correction pass, or None; fine_noise, sc_noise_fine
     (N, S + n_importance) the same for the fine model. z_vals (N, S) and u
-    (N, n_importance) replace the draws from `generator` (the stratified
-    depths; the uniforms of the resampling, drawn only when cfg.perturb > 0).
+    (N, n_importance) replace the draws from `key` (the stratified depths;
+    the uniforms of the resampling, drawn only when cfg.perturb > 0): a raw
+    uint32[2] key split six ways as satnerf_tpu/render/render.py:99 splits
+    it, the depths from the first part and the uniforms from the third.
     Returns the reference-shaped dict with keys suffixed _coarse / _fine;
     with cfg.solar_correction the shadow variants also march each field
     along the sun rays (reference rendering.py:90-108) and return
@@ -91,9 +93,12 @@ def render_rays(models: dict, rays, t_embed, cfg: RenderConfig,
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     near, far = rays[:, 6:7], rays[:, 7:8]
     sun_d = rays[:, 8:11] if (cfg.shadow and rays.shape[1] >= 11) else None
+    k_z = k_pdf = None
+    if key is not None:  # the first and third of split(key, 6)
+        k_z, k_pdf = jax_prng.split_at(key, 0), jax_prng.split_at(key, 2)
     if z_vals is None:
-        z_vals = stratified_zvals(generator, near, far, cfg.n_samples,
-                                  cfg.perturb, cfg.use_disp)
+        z_vals = stratified_zvals(k_z, near, far, cfg.n_samples, cfg.perturb,
+                                  cfg.use_disp)
     view_d = rays_d if cfg.variant == "nerf" else None
 
     def run(model, z, noise, sc_noise):
@@ -111,19 +116,19 @@ def render_rays(models: dict, rays, t_embed, cfg: RenderConfig,
     result = run(models["coarse"], z_vals, noise, sc_noise)
     out = {f"{k}_coarse": v for k, v in result.items()}
     if cfg.n_importance > 0:
-        z_all = resample_zvals(generator, z_vals, result["weights"],
+        z_all = resample_zvals(k_pdf, z_vals, result["weights"],
                                cfg.n_importance, det=(cfg.perturb == 0), u=u)
         fine = run(models["fine"], z_all, fine_noise, sc_noise_fine)
         out.update({f"{k}_fine": v for k, v in fine.items()})
     return out
 
 
-def resample_zvals(generator, z_vals, weights, n_importance: int, det: bool,
+def resample_zvals(key, z_vals, weights, n_importance: int, det: bool,
                    u=None):
     """The fine pass's depths (rendering.py:118-131): n_importance samples
     of the PDF the coarse weights define over the depth midpoints, detached,
     merged with the coarse depths into one sorted (N, S + n_importance)."""
     z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
-    z_fine = sample_pdf(generator, z_mid, weights[:, 1:-1].detach(),
+    z_fine = sample_pdf(key, z_mid, weights[:, 1:-1].detach(),
                         n_importance, det=det, u=u)
     return merge_sorted_zvals(z_vals, z_fine.detach())

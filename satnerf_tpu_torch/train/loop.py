@@ -12,6 +12,9 @@ main.py:233-261). Behavior parity:
     depth supervision
   * `--sampling shuffle`: the epoch's permutation is drawn at every epoch
     boundary and, from the step count, on resume
+  * every draw is the JAX loop's: the step's keys come from PRNGKey(seed +
+    1) as satnerf_tpu/train/loop.py:194 makes it (train/system.py), the
+    permutation's from PRNGKey(seed + 2)
   * DSM MAE against lidar GT during validation when gt_dir is set
 
 The hot loop stays on the device: the dataset lives there and batches are
@@ -48,7 +51,8 @@ from satnerf_tpu_torch.train.checkpoints import (checkpoint_path,
                                                  load_checkpoint,
                                                  save_checkpoint)
 from satnerf_tpu_torch.train.logging import RunLogger, visualize_depth
-from satnerf_tpu_torch.train.system import NeRFSystem, rank_seed
+from satnerf_tpu_torch.train.system import NeRFSystem
+from satnerf_tpu_torch.utils import jax_prng
 
 
 def validate(system: NeRFSystem, params, val_dataset, cfg: Config,
@@ -214,8 +218,7 @@ def _fit(cfg: Config, n_procs: int) -> dict:
             np.asarray(depth_ds.all_depths, np.float32),
             np.asarray(depth_ds.all_ids, np.int64))
         data.update(d_rays=d_rays, d_depths=d_depths, d_ts=d_ts)
-    generator = torch.Generator(device=device).manual_seed(
-        rank_seed(cfg.seed + 1, system.rank))
+    key = jax_prng.prng_key(cfg.seed + 1)  # the step folds in rank and step
     # --sampling shuffle: the color rays are read along a per-epoch
     # permutation of the rank's shard; the depth rays keep the draw with
     # replacement
@@ -254,7 +257,7 @@ def _fit(cfg: Config, n_procs: int) -> dict:
             profiler = None
             print(f"wrote torch profiler trace to {trace}")
 
-        m = system.train_step(state, data, generator)
+        m = system.train_step(state, data, key)
         rays_done += cfg.batch_size * cfg.grad_accum
 
         if (step_i + 1) % cfg.log_every_n_steps == 0:

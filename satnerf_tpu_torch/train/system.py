@@ -29,9 +29,20 @@ Training is `train_step`: draw a batch from the device-resident dataset
 (with replacement, or along the epoch's permutation with `--sampling
 shuffle`), `loss_and_grads`, Adam, the learning rate read from the schedule
 at the step counter before its increment; with `grad_accum` N, N
-micro-batches averaged into the one Adam step. In rays mode
-`loss_and_grads` runs up to three passes whose gradients add (counterpart of
-`_fused_loss_and_grads`, satnerf_tpu/train/system.py:472-635):
+micro-batches averaged into the one Adam step.
+
+Every random number of a step is the JAX package's, bit for bit: the step
+takes the run's key (PRNGKey(seed + 1), a raw uint32[2] of
+utils/jax_prng.py) and derives its keys as the JAX step does
+(jax_prng.step_keys: fold_in the rank, then the step, then split),
+and the draws are jax.random's bits, uniform, randint and normal, made by
+ops/jax_draws.py (csrc/jax_draws.cu on the card). So a run of the port sees
+the rays, depths and noise a run of the JAX package sees at every step, on
+every rank, and a resumed run draws what an uninterrupted one does.
+
+In rays mode `loss_and_grads` runs up to three passes whose gradients add
+(counterpart of `_fused_loss_and_grads`,
+satnerf_tpu/train/system.py:472-635):
 
   primary  stratified depths with jitter, optional sigma noise, the beta
            warm-up gate, ops/fused_mlp.fused_train_loss_grads, the embedding
@@ -76,6 +87,7 @@ from satnerf_tpu_torch.models.nerf import (TransientEmbedding, build_model,
                                           init_bound)
 from satnerf_tpu_torch.ops import fused_mlp as FM
 from satnerf_tpu_torch.ops import fused_nerf as FN
+from satnerf_tpu_torch.ops import jax_draws as JD
 from satnerf_tpu_torch.ops.fused_nerf import (fused_nerf_apply,
                                               fused_nerf_render_rays,
                                               fused_nerf_train_loss_grads)
@@ -251,12 +263,6 @@ def jax_init_params(cfg: Config, params: nn.ModuleDict, seed: int) -> dict:
             jax_prng.flax_param_key(keys[2], (), 1),
             (emb.num_embeddings, emb.embedding_dim))}
     return tree
-
-
-def rank_seed(seed: int, rank: int) -> int:
-    """The seed of rank `rank`'s draws from the run's `seed`: `seed` itself
-    on rank 0, so a world of one draws what a run of one process draws."""
-    return seed + (rank << 40)
 
 
 class NeRFSystem:
@@ -506,56 +512,74 @@ class NeRFSystem:
 
     def epoch_perm(self, n: int, epoch: int) -> torch.Tensor:
         """The permutation of the rank's n training rays that `--sampling
-        shuffle` walks during `epoch`, on the system's device: torch.randperm
-        from a generator seeded with cfg.seed + 2 folded with the epoch and
-        the rank, so a resumed run walks the same permutation."""
-        g = torch.Generator().manual_seed(rank_seed(
-            (self.cfg.seed + 2) * 1_000_003 + epoch, self.rank))
-        return torch.randperm(n, generator=g).to(self.device)
+        shuffle` walks during `epoch`, on the system's device: the JAX
+        package's, jax.random.permutation(fold_in(fold_in(PRNGKey(seed + 2),
+        epoch), rank), n) (satnerf_tpu/train/loop.py:202-204,
+        system.py:794-795), so a resumed run walks the same permutation."""
+        key = jax_prng.fold_in(jax_prng.fold_in(
+            jax_prng.prng_key(self.cfg.seed + 2), epoch), self.rank)
+        return JD.permutation(key, n, self.device)
 
-    def _draw_noise(self, noise, noise_std, shape, generator):
-        """`noise` if injected, else noise_std * N(0, 1); None without noise."""
+    @staticmethod
+    def _key(key, what: str):
+        if key is None:
+            raise ValueError(f"{what} is neither injected nor drawn: pass a "
+                             f"key (a raw uint32[2], utils/jax_prng.py)")
+        return key
+
+    def _draw_noise(self, noise, noise_std, shape, sub, i: int, what: str):
+        """`noise` if injected, else noise_std * jax.random.normal(sub(i),
+        shape); None without noise."""
         if noise_std is None:
             return None
         if noise is not None:
             return noise
-        return noise_std * torch.randn(shape, generator=generator,
-                                       dtype=torch.float32, device=self.device)
+        return noise_std * JD.normal(self._key(sub(i), what), shape,
+                                     self.device)
 
-    def _draws(self, rays, generator, noise_std, sc: bool, z_vals=None,
+    def _draws(self, rays, key, noise_std, sc: bool, z_vals=None,
                noise=None, u=None, fine_noise=None, sc_noise=None,
                sc_noise_fine=None) -> dict:
         """The random numbers of one training render of `rays`, each as
-        injected or else drawn from `generator`, in this order: z_vals (B, S);
-        noise (B, S); with n_importance > 0, u (B, n_importance) and
-        fine_noise (B, S + n_importance); with `sc`, sc_noise (B, S) and,
-        with n_importance > 0, sc_noise_fine (B, S + n_importance). A noise
-        is drawn only with noise_std > 0 and is None otherwise."""
+        injected or else drawn from `key` as the JAX render draws them
+        (satnerf_tpu/render/render.py:99, system.py:486-490): key split six
+        ways, (k_z, k_noise, k_pdf, k_fine_noise, k_sc1, k_sc2), and z_vals
+        (B, S) jittered by uniform(k_z); noise (B, S) normal(k_noise); with
+        n_importance > 0, u (B, n_importance) uniform(k_pdf) and fine_noise
+        (B, S + n_importance) normal(k_fine_noise); with `sc`, sc_noise
+        (B, S) normal(k_sc1) and, with n_importance > 0, sc_noise_fine
+        (B, S + n_importance) normal(k_sc2). A noise is drawn only with
+        noise_std > 0 and is None otherwise."""
         rcfg, n_imp = self.render_cfg, self.cfg.n_importance
+
+        def sub(i):  # split(key, 6)[i], made only for a draw that needs it
+            return None if key is None else jax_prng.split_at(key, i)
+
         if z_vals is None:
-            z_vals = stratified_zvals(generator, rays[:, 6:7], rays[:, 7:8],
+            z_vals = stratified_zvals(self._key(sub(0), "z_vals"),
+                                      rays[:, 6:7], rays[:, 7:8],
                                       rcfg.n_samples, rcfg.perturb,
                                       rcfg.use_disp)
         n, n_s = z_vals.shape
         d = dict(z_vals=z_vals, u=None, fine_noise=None, sc_noise=None,
                  sc_noise_fine=None)
-        d["noise"] = self._draw_noise(noise, noise_std, (n, n_s), generator)
+        d["noise"] = self._draw_noise(noise, noise_std, (n, n_s), sub, 1,
+                                      "noise")
         if n_imp > 0:
-            d["u"] = u if u is not None else torch.rand(
-                (n, n_imp), generator=generator, dtype=torch.float32,
-                device=self.device)
-            d["fine_noise"] = self._draw_noise(fine_noise, noise_std,
-                                               (n, n_s + n_imp), generator)
+            d["u"] = u if u is not None else JD.uniform(
+                self._key(sub(2), "u"), (n, n_imp), self.device)
+            d["fine_noise"] = self._draw_noise(
+                fine_noise, noise_std, (n, n_s + n_imp), sub, 3, "fine_noise")
         if sc:
             d["sc_noise"] = self._draw_noise(sc_noise, noise_std, (n, n_s),
-                                             generator)
+                                             sub, 4, "sc_noise")
             if n_imp > 0:
                 d["sc_noise_fine"] = self._draw_noise(
-                    sc_noise_fine, noise_std, (n, n_s + n_imp), generator)
+                    sc_noise_fine, noise_std, (n, n_s + n_imp), sub, 5,
+                    "sc_noise_fine")
         return d
 
-    def loss_and_grads(self, params, rays, rgbs, ts, step: int,
-                       generator: Optional[torch.Generator] = None,
+    def loss_and_grads(self, params, rays, rgbs, ts, step: int, key=None,
                        z_vals=None, noise=None, *, sc_noise=None, depth=None,
                        d_z_vals=None, d_noise=None, u=None, fine_noise=None,
                        sc_noise_fine=None, d_u=None, d_fine_noise=None):
@@ -566,26 +590,34 @@ class NeRFSystem:
         rays (B, 11), rgbs (B, 3), ts (B,) image ids, on the system's
         device; step the 0-based global step; depth = (d_rays (B, 11),
         d_targets (B, 2) [depth, weight], d_ts (B,)), the depth batch, when
-        ds_lambda > 0. The keyword tensors replace the draws from
-        `generator`; an uninjected call consumes it in one order, whatever
-        the mode: for the color batch z_vals (B, S), noise (B, S), u
-        (B, n_importance), fine_noise (B, S + n_importance), sc_noise (B, S),
-        sc_noise_fine (B, S + n_importance); then for the depth batch
-        d_z_vals, d_noise, d_u, d_fine_noise. Each noise is drawn only with
-        noise_std > 0, u and the fine noises only with n_importance > 0, the
-        two sc noises only with sc_lambda > 0 and the last four only with a
-        depth batch. Returns (loss, metrics, grads) with grads keyed like
-        params.named_parameters(); metrics["loss"] is the loss with the SC
+        ds_lambda > 0. The keyword tensors replace the draws from `key`
+        (the micro-batch's k_loss, a raw uint32[2]), which is split as the
+        JAX loss splits it (satnerf_tpu/train/system.py:380, :486-490):
+        k_render, k_depth = split(key), the color batch's z_vals (B, S),
+        noise (B, S), u (B, n_importance), fine_noise (B, S + n_importance),
+        sc_noise (B, S) and sc_noise_fine (B, S + n_importance) from
+        k_render (`_draws`), the depth batch's d_z_vals, d_noise, d_u and
+        d_fine_noise from k_depth, whatever the mode. Each noise is drawn
+        only with noise_std > 0, u and the fine noises only with
+        n_importance > 0, the two sc noises only with sc_lambda > 0 and the
+        last four only with a depth batch; a draw that is needed, not
+        injected and has no key raises ValueError. Returns (loss, metrics,
+        grads) with grads keyed like params.named_parameters();
+        metrics["loss"] is the loss with the SC
         terms and before the depth term, as the JAX step logs it, and
         metrics["psnr"] is of the fine model's MSE when there is one.
         """
         noise_std = self._noise_std(step)
-        draws = self._draws(rays, generator, noise_std,
-                            self.render_cfg.solar_correction, z_vals, noise, u,
+        # k_render, k_depth = split(key)
+        k_render = None if key is None else jax_prng.split_at(key, 0)
+        # the sun-ray pass of the shadow variants (none for nerf)
+        sc = self.render_cfg.solar_correction and self.render_cfg.shadow
+        draws = self._draws(rays, k_render, noise_std, sc, z_vals, noise, u,
                             fine_noise, sc_noise, sc_noise_fine)
         d_draws = None
         if self.depth and depth is not None:
-            d_draws = self._draws(depth[0], generator, noise_std, False,
+            k_depth = None if key is None else jax_prng.split_at(key, 1)
+            d_draws = self._draws(depth[0], k_depth, noise_std, False,
                                   d_z_vals, d_noise, d_u, d_fine_noise)
         else:
             depth = None
@@ -771,8 +803,7 @@ class NeRFSystem:
         metrics["loss_total"] = total.detach()
         return metrics["loss_total"], metrics, grads
 
-    def train_step(self, state: TrainState, data: dict,
-                   generator: Optional[torch.Generator] = None, idx=None,
+    def train_step(self, state: TrainState, data: dict, key=None, idx=None,
                    z_vals=None, noise=None, *, sc_noise=None, d_idx=None,
                    d_z_vals=None, d_noise=None, u=None, fine_noise=None,
                    sc_noise_fine=None, d_u=None, d_fine_noise=None) -> dict:
@@ -786,12 +817,16 @@ class NeRFSystem:
         the permutation at epoch_draw_positions; the depth batch always with
         replacement.
 
-        `idx` and `d_idx` (batch_size,) and loss_and_grads' `z_vals`, `noise`,
-        `u`, `fine_noise`, `sc_noise`, `sc_noise_fine`, `d_z_vals`, `d_noise`,
-        `d_u`, `d_fine_noise` replace the draws from `generator`; with
-        grad_accum N each is a sequence of N, one a micro-batch. An
-        uninjected micro-batch consumes the generator in the order idx,
-        d_idx, then loss_and_grads' order. With grad_accum N the losses,
+        `key` is the run's key, PRNGKey(seed + 1) as a raw uint32[2]
+        (utils/jax_prng.py), from which the step derives its own as the JAX
+        step does (jax_prng.step_keys): fold_in the rank, then state.step;
+        a micro-batch's (k_idx, k_didx, k_loss). idx is randint(k_idx,
+        (batch,), 0, N), d_idx randint(k_didx, (batch,), 0, M), and k_loss
+        is loss_and_grads' key. `idx` and `d_idx` (batch_size,) and
+        loss_and_grads' `z_vals`, `noise`, `u`, `fine_noise`, `sc_noise`,
+        `sc_noise_fine`, `d_z_vals`, `d_noise`, `d_u`, `d_fine_noise` replace
+        those draws; with grad_accum N each is a sequence of N, one a
+        micro-batch. With grad_accum N the losses,
         metrics and gradients of N micro-batches are averaged into one Adam
         step at one learning rate, and state.step grows by one. Updates
         `state` in place and returns the metrics (tensors on the device,
@@ -811,28 +846,31 @@ class NeRFSystem:
             injected = {k: [None] * accum if v is None else list(v)
                         for k, v in injected.items()}
         n = data["rays"].shape[0]
+        keys = [(None, None, None)] * accum
+        if key is not None:
+            keys = jax_prng.step_keys(key, self.rank, state.step, accum)
         metrics = grads = None
         for m in range(accum):
             inj = {k: v[m] for k, v in injected.items()}
+            k_idx, k_didx, k_loss = keys[m]
             idx = inj.pop("idx")
             if idx is None and cfg.sampling == "shuffle":
                 idx = data["perm"][epoch_draw_positions(
                     state.step, self.spe, batch, n, self.device)]
             elif idx is None:
-                idx = torch.randint(0, n, (batch,),
-                                    generator=generator, device=self.device)
+                idx = JD.randint(self._key(k_idx, "idx"), (batch,), 0, n,
+                                 self.device)
             depth, d_idx = None, inj.pop("d_idx")
             if self.depth:
                 if d_idx is None:
-                    d_idx = torch.randint(
-                        0, data["d_rays"].shape[0], (batch,),
-                        generator=generator, device=self.device)
+                    d_idx = JD.randint(self._key(k_didx, "d_idx"), (batch,), 0,
+                                       data["d_rays"].shape[0], self.device)
                 depth = (data["d_rays"][d_idx], data["d_depths"][d_idx],
                          data["d_ts"][d_idx])
             ts = data["ts"][idx] if self.use_ts else None
             _, m_i, g_i = self.loss_and_grads(
                 state.params, data["rays"][idx], data["rgbs"][idx], ts,
-                state.step, generator, depth=depth, **inj)
+                state.step, k_loss, depth=depth, **inj)
             if grads is None:
                 metrics, grads = m_i, g_i
             else:

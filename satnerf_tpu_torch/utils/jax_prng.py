@@ -16,8 +16,16 @@ default) and flax 0.12 with `flax_fix_rng_separator` off (its default):
 - `uniform`: the mantissa trick of jax/_src/random.py `_uniform`;
 - `normal`: `sqrt(2) * erf_inv(u)` with u uniform in (-1, 1), through XLA's
   float32 `erf_inv` (Giles' polynomial, written out below);
+- `randint`: random.py `_randint` for int32, two 32-bit draws a value from
+  the two keys of a split, folded into the span in uint32 arithmetic
+  (`randint_span` gives the span and its multiplier);
+- `permutation`: random.py `_shuffle` of `arange(n)`, ceil(3 ln n / ln
+  (2^32 - 1)) rounds, each a split, 32 random bits a position and a stable
+  sort by them;
 - `flax_param_key`: flax's per-parameter key, `_fold_in_static` of the
-  module path and the scope's call counter (flax/core/scope.py:87-140).
+  module path and the scope's call counter (flax/core/scope.py:87-140);
+- `step_keys`: the keys of one training step, the JAX package's key tree
+  (satnerf_tpu/train/system.py:665-730).
 
 Every operation is float32 or uint32 as in XLA, `erf_inv`'s log1p and log
 are XLA's CPU polynomials (not numpy's, which differ in the last bits), and
@@ -28,6 +36,7 @@ the draws equal JAX's on the CPU to the bit.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 from typing import Sequence, Union
 
@@ -55,6 +64,21 @@ def threefry_2x32(k1, k2, x1: np.ndarray, x2: np.ndarray):
             x[0] = x[0] + ks[(i + 1) % 3]
             x[1] = x[1] + ks[(i + 2) % 3] + _U32(i + 1)
     return x[0], x[1]
+
+
+def _threefry_scalar(k1: int, k2: int, x1: int, x2: int) -> tuple:
+    """threefry_2x32 of one counter pair in Python integers: the same bits,
+    at a fraction of numpy's cost for the few keys a step derives."""
+    m = 0xFFFFFFFF
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    a, b = (x1 + ks[0]) & m, (x2 + ks[1]) & m
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            a = (a + b) & m
+            b = a ^ (((b << r) | (b >> (32 - r))) & m)
+        a = (a + ks[(i + 1) % 3]) & m
+        b = (b + ks[(i + 2) % 3] + i + 1) & m
+    return a, b
 
 
 def prng_key(seed: int) -> np.ndarray:
@@ -88,17 +112,24 @@ def _counters(shape: Sequence[int]):
 
 
 def split(key: np.ndarray, num: int = 2) -> np.ndarray:
-    """jax.random.split(key, num): (num, 2) uint32."""
-    hi, lo = _counters((num,))
-    b1, b2 = threefry_2x32(key[0], key[1], hi, lo)
-    return np.stack([b1, b2], axis=1)
+    """jax.random.split(key, num): (num, 2) uint32, the key of counter i in
+    row i."""
+    k1, k2 = int(key[0]), int(key[1])
+    return np.array([_threefry_scalar(k1, k2, 0, i) for i in range(num)],
+                    _U32).reshape(num, 2)
+
+
+def split_at(key: np.ndarray, i: int) -> np.ndarray:
+    """split(key, num)[i] for any num > i: the key of counter i, made alone
+    (a draw that needs one of a split's keys pays for that one)."""
+    return np.array(_threefry_scalar(int(key[0]), int(key[1]), 0, int(i)),
+                    _U32)
 
 
 def fold_in(key: np.ndarray, data: int) -> np.ndarray:
     """jax.random.fold_in(key, data) for a uint32 `data`."""
-    b1, b2 = threefry_2x32(key[0], key[1], np.zeros(1, _U32),
-                           np.array([int(data) & 0xFFFFFFFF], _U32))
-    return np.array([b1[0], b2[0]], _U32)
+    return np.array(_threefry_scalar(int(key[0]), int(key[1]), 0,
+                                     int(data) & 0xFFFFFFFF), _U32)
 
 
 def random_bits(key: np.ndarray, shape: Sequence[int]) -> np.ndarray:
@@ -111,10 +142,99 @@ def random_bits(key: np.ndarray, shape: Sequence[int]) -> np.ndarray:
 def uniform(key: np.ndarray, shape: Sequence[int], minval=0.0,
             maxval=1.0) -> np.ndarray:
     """jax.random.uniform(key, shape, float32, minval, maxval)."""
-    lo, hi = np.float32(minval), np.float32(maxval)
+    lo, scale = uniform_scale(minval, maxval)
     bits = (random_bits(key, shape) >> _U32(32 - 23)) | _U32(0x3F800000)
     floats = bits.view(np.float32) - np.float32(1.0)
-    return np.maximum(lo, fma32(floats, hi - lo, lo))
+    return np.maximum(lo, fma32(floats, scale, lo))
+
+
+def uniform_scale(minval=0.0, maxval=1.0) -> tuple:
+    """(lo, hi - lo) in float32: the shift and scale `uniform` applies to
+    its [0, 1) floats, fused into one rounding."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return lo, np.float32(hi - lo)
+
+
+def randint_span(minval: int, maxval: int) -> tuple:
+    """(span, multiplier) of `randint` over [minval, maxval) as uint32, as
+    random.py `_randint` forms them for int32: span 1 where maxval <=
+    minval, multiplier = (2^16 mod span)^2 mod span, the square taken in
+    uint32 (it wraps to 0 where 2^16 mod span is 2^16)."""
+    span = 1 if maxval <= minval else (int(maxval) - int(minval)) & 0xFFFFFFFF
+    mult = (1 << 16) % span
+    return span, ((mult * mult) & 0xFFFFFFFF) % span
+
+
+def randint_fold(higher: np.ndarray, lower: np.ndarray, minval: int,
+                 span: int, mult: int) -> np.ndarray:
+    """randint's value from its two words of random bits: ((higher mod
+    span) * mult + lower mod span) mod span in uint32 (the sum wraps as
+    uint32 does), plus minval."""
+    with np.errstate(over="ignore"):
+        off = ((higher % _U32(span)) * _U32(mult) + lower % _U32(span)) \
+            % _U32(span)
+    return (np.int64(minval) + off.astype(np.int64)).astype(np.int32)
+
+
+def randint(key: np.ndarray, shape: Sequence[int], minval: int,
+            maxval: int) -> np.ndarray:
+    """jax.random.randint(key, shape, minval, maxval) with int32 values
+    (JAX's `int` with 64-bit types off)."""
+    k = split(key)
+    span, mult = randint_span(minval, maxval)
+    return randint_fold(random_bits(k[0], shape), random_bits(k[1], shape),
+                        minval, span, mult)
+
+
+def permutation_rounds(n: int) -> int:
+    """The sort rounds random.py `_shuffle` takes for n elements."""
+    return int(np.ceil(3 * np.log(max(1, n)) / np.log(0xFFFFFFFF)))
+
+
+def permutation(key: np.ndarray, n: int) -> np.ndarray:
+    """jax.random.permutation(key, n): arange(n) as int32, sorted by 32
+    fresh random bits a position in each round, stably."""
+    x = np.arange(n, dtype=np.int32)
+    for _ in range(permutation_rounds(n)):
+        key, sub = split(key)
+        x = x[np.argsort(random_bits(sub, (n,)), kind="stable")]
+    return x
+
+
+STEP_BLOCK = 1024  # steps whose keys step_keys derives in one pass
+
+
+def step_keys(key: np.ndarray, rank: int, step: int, accum: int = 1) -> list:
+    """The keys of one training step of the JAX package
+    (satnerf_tpu/train/system.py:665-730): k = fold_in(fold_in(key, rank),
+    step) and, a micro-batch, (k_idx, k_didx, k_loss) = split(k, 3); with
+    `accum` > 1 each micro-batch's triple is split from its key of
+    split(k, accum). A list of `accum` triples. The keys of STEP_BLOCK
+    steps are derived at once, as arrays (_step_key_block), so a step pays
+    for an index, not for its hashes."""
+    block = _step_key_block(int(key[0]), int(key[1]), int(rank),
+                            int(step) // STEP_BLOCK, int(accum))
+    keys = block[int(step) % STEP_BLOCK].copy()
+    return [tuple(k) for k in keys]
+
+
+@functools.lru_cache(maxsize=8)
+def _step_key_block(k1: int, k2: int, rank: int, block: int,
+                    accum: int) -> np.ndarray:
+    """step_keys of the steps block * STEP_BLOCK onwards, STEP_BLOCK of
+    them: (STEP_BLOCK, accum, 3, 2) uint32. fold_in and split are the hash
+    of the counter (0, data) and (0, i), so each level is one threefry_2x32
+    over arrays."""
+    r1, r2 = _threefry_scalar(k1, k2, 0, rank & 0xFFFFFFFF)
+    steps = np.arange(block * STEP_BLOCK, (block + 1) * STEP_BLOCK,
+                      dtype=np.uint64).astype(_U32)[:, None]
+    s1, s2 = threefry_2x32(r1, r2, np.zeros_like(steps), steps)
+    if accum > 1:  # (STEP_BLOCK, accum): split(k, accum)
+        m = np.arange(accum, dtype=_U32)
+        s1, s2 = threefry_2x32(s1, s2, np.zeros_like(m), m)
+    i = np.arange(3, dtype=_U32)
+    t1, t2 = threefry_2x32(s1[..., None], s2[..., None], np.zeros_like(i), i)
+    return np.stack([t1, t2], axis=-1)
 
 
 # XLA's CPU float32 log (Cephes' logf): x = m * 2^e with m in [sqrt(1/2),

@@ -68,7 +68,10 @@ of samples a ray their shared memory holds (288, 320, 1,452; the block body
 alone at 4,129), nerf_composite_loss_bwd (a block a ray) at up to 5,172,
 the most its shared memory holds at any width, and one sample
 more refused on either with the limit named; and siren_dense's K = 0 kernel
-(layer 0, sky_0) equal to the bit to the first one it replaced.
+(layer 0, sky_0) equal to the bit to the first one it replaced; and the
+training draws' kernel (csrc/jax_draws.cu: bits, uniform, randint, normal
+and the permutation's rounds) equal to the bit to utils/jax_prng.py at
+ragged counts, a span of 1, a 2-D shape and two sort rounds.
 """
 
 import numpy as np
@@ -78,6 +81,7 @@ import torch
 from satnerf_tpu_torch.models.nerf import build_model
 from satnerf_tpu_torch.ops import fused_mlp as FM
 from satnerf_tpu_torch.ops import fused_nerf as FN
+from satnerf_tpu_torch.utils import jax_prng
 
 pytestmark = pytest.mark.cuda
 
@@ -750,7 +754,7 @@ def test_train_step_on_the_card_goes_through_the_kernels(dev):
     rays[:, 6], rays[:, 7] = 0.0, 1.0
     data = {"rays": rays.to(dev), "rgbs": torch.rand(1024, 3, generator=g).to(dev),
             "ts": torch.randint(0, 5, (1024,), generator=g).to(dev)}
-    gen = torch.Generator(device=dev).manual_seed(2)
+    gen = jax_prng.prng_key(2)
     before = dict(FM.LAUNCHES)
     w0 = state.params["nerf_coarse"].fc_net[0].weight.detach().clone()
     losses = [float(system.train_step(state, data, gen)["loss"])
@@ -788,7 +792,7 @@ def test_full_recipe_step_on_the_card(dev, options):
             "d_ts": torch.randint(0, 5, (200,), generator=g).to(dev)}
     if cfg.sampling == "shuffle":
         data["perm"] = system.epoch_perm(1024, 0)
-    gen = torch.Generator(device=dev).manual_seed(2)
+    gen = jax_prng.prng_key(2)
     before = dict(FM.LAUNCHES)
     emb0 = state.params["embedding_t"].weight.detach().clone()
     ms = [system.train_step(state, data, gen) for _ in range(steps)]
@@ -1097,7 +1101,7 @@ def test_hierarchical_step_and_render_on_the_card(dev, fused, n_imp):
                 d_depths=torch.rand(64, 2, generator=g).to(dev),
                 d_ts=data["ts"][:64].clone())
     state = system.init_state(0)
-    gen = torch.Generator(device=dev).manual_seed(1)
+    gen = jax_prng.prng_key(1)
     steps = 8
     before = dict(FM.LAUNCHES)
     for _ in range(steps):
@@ -1565,7 +1569,7 @@ def test_nerf_step_and_render_on_the_card(dev, options, kernels):
                     d_depths=torch.rand(64, 2, generator=g).to(dev),
                     d_ts=data["ts"][:64].clone())
     state = system.init_state(0)
-    gen = torch.Generator(device=dev).manual_seed(1)
+    gen = jax_prng.prng_key(1)
     steps = 6
     before = dict(FM.LAUNCHES)
     losses = [float(system.train_step(state, data, gen)["loss"])
@@ -2423,3 +2427,28 @@ def test_folded_dw_equals_the_unfolded_to_the_bit(dev, k, n, extra, n_extra):
     wide = FM.siren_dense_wgrad(*args, split=80 * 64, **kw)
     assert FM.LAUNCHES["narrow_grads"] == narrow + 1
     _hold_wgrad(wide, FM.siren_dense_wgrad_reference(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 7, 2**31 + 3])
+@pytest.mark.parametrize("shape", [(1,), (1037,), (1024, 64), (70001,)])
+def test_jax_draws_bit_for_bit(dev, seed, shape):
+    from satnerf_tpu_torch.ops import jax_draws as JD
+
+    key = jax_prng.prng_key(seed)
+    before = JD.LAUNCHES["jax_draws"]
+    for draw in (lambda d: JD.bits(key, shape, d),
+                 lambda d: JD.uniform(key, shape, d, -2.5, 7.0),
+                 lambda d: JD.randint(key, shape, 0, 40961, d),
+                 lambda d: JD.randint(key, shape, 5, 6, d),
+                 lambda d: JD.normal(key, shape, d)):
+        got, want = draw(dev).cpu(), draw("cpu")
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got.view(torch.int32) if got.is_floating_point()
+                           else got,
+                           want.view(torch.int32) if want.is_floating_point()
+                           else want)
+    assert JD.LAUNCHES["jax_draws"] == before + 5
+    n = 1626 if shape == (1,) else int(np.prod(shape))  # 1626: two rounds
+    assert torch.equal(JD.permutation(key, n, dev).cpu(),
+                       JD.permutation(key, n))

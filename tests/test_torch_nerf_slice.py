@@ -38,6 +38,7 @@ from satnerf_tpu_torch.data.synthetic import make_synthetic_aoi
 from satnerf_tpu_torch.eval.loader import load_nerf
 from satnerf_tpu_torch.train.checkpoints import adam_from_jax, params_from_jax
 from satnerf_tpu_torch.train.system import NeRFSystem
+from satnerf_tpu_torch.utils import jax_prng
 from tests.test_blender import build_blender_fixture
 from tests.test_torch_render_hier import jax_render_draws
 
@@ -267,7 +268,7 @@ def test_sc_lambda_changes_nothing_for_nerf():
         params = system.init_params(0)
         out.append(system.loss_and_grads(
             params, rays, rgbs, None, 0,
-            generator=torch.Generator().manual_seed(3)))
+            jax_prng.prng_key(3)))
     assert float(out[0][0]) == float(out[1][0])
     for k, v in out[0][2].items():
         assert torch.equal(v, out[1][2][k]), k
@@ -286,7 +287,7 @@ def test_rays_without_a_sun_direction_train_and_render():
         t_data = {"rays": torch.from_numpy(rays8),
                   "rgbs": torch.from_numpy(data[1]),
                   "ts": torch.zeros(N_DATA, dtype=torch.long)}
-        m = system.train_step(state, t_data, torch.Generator().manual_seed(1))
+        m = system.train_step(state, t_data, jax_prng.prng_key(1))
         assert np.isfinite(float(m["loss"]))
         res = system.render_image(state.params, rays8, None)
         typ = "fine" if "n_importance" in opts else "coarse"

@@ -44,11 +44,13 @@ assert "satnerf_tpu_torch.utils.colormap" in names
 for name in ("study_depth_supervision", "dsm_diagnostics", "eval_s2p",
              "create_satellite_dataset"):
     assert f"satnerf_tpu_torch.cli.{name}" in names, name
-for name in ("parallel.distributed", "parallel.mesh", "utils.jax_prng"):
+for name in ("parallel.distributed", "parallel.mesh", "utils.jax_prng",
+             "ops.jax_draws"):
     assert f"satnerf_tpu_torch.{name}" in names, name
 
 from satnerf_tpu_torch.config import Config
 from satnerf_tpu_torch.train.system import NeRFSystem
+from satnerf_tpu_torch.utils import jax_prng
 
 rng = np.random.RandomState(0)
 rays = rng.rand(64, 11).astype(np.float32)
@@ -61,7 +63,7 @@ for model in ("sat-nerf", "s-nerf"):
                  batch_size=16, device="cpu")
     system = NeRFSystem(cfg, dataset_len=64)
     state = system.init_state(0)
-    gen = torch.Generator().manual_seed(1)
+    gen = jax_prng.prng_key(1)
     for _ in range(2):
         m = system.train_step(state, data, gen)
     assert state.step == 2 and np.isfinite(float(m["loss"])), model
@@ -80,7 +82,7 @@ for extra in (dict(grad_accum=2), dict(sampling="shuffle")):
     system = NeRFSystem(cfg, dataset_len=64)
     state = system.init_state(0)
     full = {**data, **depth, "perm": system.epoch_perm(64, 0)}
-    gen = torch.Generator().manual_seed(1)
+    gen = jax_prng.prng_key(1)
     for _ in range(3):
         m = system.train_step(state, full, gen)
     assert state.step == 3 and np.isfinite(float(m["loss_total"])), extra
@@ -98,7 +100,7 @@ for extra in (dict(), dict(n_importance=4), dict(ds_lambda=1000.0)):
     state = system.init_state(0)
     nerf_data = {**data, **depth, "rays": data["rays"][:, :8].contiguous(),
                  "d_rays": depth["d_rays"][:, :8].contiguous()}
-    gen = torch.Generator().manual_seed(1)
+    gen = jax_prng.prng_key(1)
     for _ in range(2):
         m = system.train_step(state, nerf_data, gen)
     assert state.step == 2 and np.isfinite(float(m["loss_total"])), extra

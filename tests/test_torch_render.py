@@ -41,11 +41,15 @@ def test_stratified_perturbed_stays_in_its_bins():
     near, far = _near_far(1)
     base = stratified_zvals(None, torch.from_numpy(near),
                             torch.from_numpy(far), S, perturb=0.0)
-    z = stratified_zvals(torch.Generator().manual_seed(3),
-                         torch.from_numpy(near), torch.from_numpy(far), S)
-    again = stratified_zvals(torch.Generator().manual_seed(3),
-                             torch.from_numpy(near), torch.from_numpy(far), S)
+    key = jax.random.PRNGKey(3)
+    z = stratified_zvals(np.asarray(key), torch.from_numpy(near),
+                         torch.from_numpy(far), S)
+    again = stratified_zvals(np.asarray(key), torch.from_numpy(near),
+                             torch.from_numpy(far), S)
     assert torch.equal(z, again)
+    # the jitter is the JAX function's at the same key
+    ref = jax_zvals(key, jnp.asarray(near), jnp.asarray(far), S)
+    np.testing.assert_allclose(z.numpy(), np.asarray(ref), rtol=1e-6)
     mid = 0.5 * (base[:, :-1] + base[:, 1:])
     lower = torch.cat([base[:, :1], mid], -1)
     upper = torch.cat([mid, base[:, -1:]], -1)

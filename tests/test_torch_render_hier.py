@@ -153,14 +153,11 @@ def test_hierarchical_eval_render_matches_jax(variant):
         None if t_e is None else jnp.asarray(t_e), jax.random.PRNGKey(1),
         JaxRenderConfig(variant=variant, n_samples=S, n_importance=N_IMP,
                         perturb=0.0))
-    gen = torch.Generator().manual_seed(0)
-    state = gen.get_state()
-    with torch.inference_mode():
+    with torch.inference_mode():  # no key: a draw would have none to use
         got = render_rays(fields, torch.from_numpy(rays), _t(t_e),
                           RenderConfig(variant=variant, n_samples=S,
                                        n_importance=N_IMP, perturb=0.0),
-                          generator=gen, dtype=torch.float32)
-    assert torch.equal(gen.get_state(), state)
+                          key=None, dtype=torch.float32)
     assert set(got) == set(ref)
     for k in ref:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]),
@@ -175,7 +172,7 @@ def test_resampled_depths_carry_no_gradient():
     cfg = RenderConfig(variant="s-nerf", n_samples=S, n_importance=N_IMP,
                        perturb=1.0)
     out = render_rays(fields, torch.from_numpy(rays), None, cfg,
-                      generator=torch.Generator().manual_seed(1),
+                      key=np.asarray(jax.random.PRNGKey(1)),
                       dtype=torch.float32)
     grads = torch.autograd.grad(out["rgb_fine"].sum(),
                                 list(fields["coarse"].parameters()),

@@ -13,6 +13,7 @@ injected u are kept 1e-4 away from every cdf entry (a u that ties a cdf entry
 to the last bit could fall into either neighbouring bin).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -117,17 +118,21 @@ def test_sample_pdf_det(n_rays, m, n_imp, peaked):
 
 
 def test_sample_pdf_draws_from_the_generator_only_when_asked():
+    """The key is read only when the uniforms are neither given nor the
+    linspace; then they are jax.random.uniform(key, (N, n_importance)), as
+    in the JAX function at the same key."""
     bins, weights = _bins_weights(8, 6, seed=9)
     b, w = torch.from_numpy(bins), torch.from_numpy(weights)
-    g = torch.Generator().manual_seed(0)
-    state = g.get_state()
-    ST.sample_pdf(g, b, w, 4, det=True)
-    ST.sample_pdf(g, b, w, 4, u=torch.rand(8, 4))
-    assert torch.equal(g.get_state(), state)
-    a = ST.sample_pdf(g, b, w, 4)
-    assert not torch.equal(g.get_state(), state)
-    c = ST.sample_pdf(torch.Generator().manual_seed(0), b, w, 4)
-    assert torch.equal(a, c)
+    ST.sample_pdf(None, b, w, 4, det=True)
+    ST.sample_pdf(None, b, w, 4, u=torch.rand(8, 4))
+    key = jax.random.PRNGKey(0)
+    a = ST.sample_pdf(np.asarray(key), b, w, 4)
+    u = torch.from_numpy(np.asarray(jax.random.uniform(key, (8, 4))))
+    assert torch.equal(a, ST.sample_pdf(None, b, w, 4, u=u))
+    assert torch.equal(a, ST.sample_pdf(np.asarray(key), b, w, 4))
+    ref = np.asarray(SJ.sample_pdf(key, jnp.asarray(bins),
+                                   jnp.asarray(weights), 4))
+    np.testing.assert_allclose(a.numpy(), ref, atol=TOL, rtol=0)
 
 
 @pytest.mark.parametrize("sa,sb", [(8, 4), (64, 8), (5, 9)])

@@ -22,6 +22,7 @@ from satnerf_tpu_torch.train.checkpoints import (checkpoint_path,
                                                  params_from_jax,
                                                  save_checkpoint)
 from satnerf_tpu_torch.train.system import NeRFSystem
+from satnerf_tpu_torch.utils import jax_prng
 
 torch.set_num_threads(1)
 
@@ -159,7 +160,7 @@ def test_unported_paths_raise(run):
     state = nerf.init_state(0)
     data = {"rays": torch.from_numpy(rays), "rgbs": torch.rand(4, 3),
             "ts": torch.zeros(4, dtype=torch.long)}
-    m = nerf.train_step(state, data, torch.Generator().manual_seed(1))
+    m = nerf.train_step(state, data, jax_prng.prng_key(1))
     assert state.step == 1 and np.isfinite(float(m["loss"]))
     for fused, n_w in (("rays", 1), ("off", 16 + 8)):
         cfg = Config(**{**run["cfg"].__dict__, "n_importance": 8,

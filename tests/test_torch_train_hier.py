@@ -280,9 +280,10 @@ def test_hierarchical_trajectory_matches_jax_step(eight_devices, fused):
 
 
 def test_uninjected_step_consumes_the_generator_in_the_documented_order():
-    """z_vals, noise, u, fine_noise, sc_noise, sc_noise_fine, then the depth
-    batch's four: a step that is given the first draws and draws the rest
-    equals a step that is given them all, made in that order."""
+    """The key tree of the JAX loss: k_render, k_depth = split(key), each
+    split six ways (z, noise, pdf, fine noise, sc1, sc2) as the JAX render
+    splits it; a step that draws from the key equals a step that is given
+    those draws, made from jax.random at the same keys."""
     data, depth = _data(1)
     cfg = Config(model="sat-nerf", fused="rays", noise_std=1.0, **KW)
     system = NeRFSystem(cfg, device="cpu", dataset_len=N_DATA)
@@ -294,24 +295,29 @@ def test_uninjected_step_consumes_the_generator_in_the_documented_order():
     dep = tuple(torch.from_numpy(a[idx]) for a in depth)
     dep = (dep[0], dep[1], dep[2].long())
     loss_a, _, g_a = system.loss_and_grads(
-        *args, generator=torch.Generator().manual_seed(5), depth=dep)
+        *args, np.asarray(jax.random.PRNGKey(5)), depth=dep)
 
-    gen = torch.Generator().manual_seed(5)
     from satnerf_tpu_torch.render.sampling import stratified_zvals
 
-    def zvals(r):
-        return stratified_zvals(gen, r[:, 6:7], r[:, 7:8], S, 1.0, False)
+    k_render, k_depth = jax.random.split(jax.random.PRNGKey(5))
+    kz, kn, kp, kf, ks1, ks2 = jax.random.split(k_render, 6)
+    dz, dn, dp, df, _, _ = jax.random.split(k_depth, 6)
 
-    def normal(n):
-        return torch.randn((B, n), generator=gen)
+    def zvals(k, r):  # jitter uniform(k), the port's arithmetic
+        return stratified_zvals(np.asarray(k), r[:, 6:7], r[:, 7:8], S, 1.0,
+                                False)
 
-    kw = dict(z_vals=zvals(args[1]), noise=normal(S),
-              u=torch.rand((B, N_IMP), generator=gen),
-              fine_noise=normal(S + N_IMP), sc_noise=normal(S),
-              sc_noise_fine=normal(S + N_IMP))
-    kw.update(d_z_vals=zvals(dep[0]), d_noise=normal(S),
-              d_u=torch.rand((B, N_IMP), generator=gen),
-              d_fine_noise=normal(S + N_IMP))
+    def normal(k, n):  # noise_std 1.0 at step 0
+        return torch.from_numpy(np.asarray(jax.random.normal(k, (B, n))))
+
+    def uniform(k):
+        return torch.from_numpy(np.asarray(jax.random.uniform(k, (B, N_IMP))))
+
+    kw = dict(z_vals=zvals(kz, args[1]), noise=normal(kn, S), u=uniform(kp),
+              fine_noise=normal(kf, S + N_IMP), sc_noise=normal(ks1, S),
+              sc_noise_fine=normal(ks2, S + N_IMP))
+    kw.update(d_z_vals=zvals(dz, dep[0]), d_noise=normal(dn, S),
+              d_u=uniform(dp), d_fine_noise=normal(df, S + N_IMP))
     loss_b, _, g_b = system.loss_and_grads(*args, depth=dep, **kw)
     assert float(loss_a) == float(loss_b)
     for k in g_a:
@@ -342,8 +348,8 @@ def test_depth_pass_marches_no_sun_rays(monkeypatch, fused, want):
     idx = np.arange(B)
     system.loss_and_grads(
         params, torch.from_numpy(data[0][idx]), torch.from_numpy(data[1][idx]),
-        torch.from_numpy(data[2][idx]).long(), 0,
-        generator=torch.Generator().manual_seed(1),
+        torch.from_numpy(data[2][idx]).long(), 0, np.asarray(
+            jax.random.PRNGKey(1)),
         depth=(torch.from_numpy(depth[0][idx]), torch.from_numpy(depth[1][idx]),
                torch.from_numpy(depth[2][idx]).long()))
     assert seen == want

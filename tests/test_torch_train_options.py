@@ -27,6 +27,7 @@ from satnerf_tpu.train.system import epoch_draw_positions as jax_positions
 from satnerf_tpu_torch.config import Config
 from satnerf_tpu_torch.train.checkpoints import params_from_jax
 from satnerf_tpu_torch.train.system import NeRFSystem, epoch_draw_positions
+from satnerf_tpu_torch.utils import jax_prng
 
 torch.set_num_threads(1)
 
@@ -131,7 +132,7 @@ def test_grad_accum_draws_from_the_generator_and_checks_its_options():
     runs = []
     for _ in range(2):
         state = system.init_state(0)
-        m = system.train_step(state, data, torch.Generator().manual_seed(1))
+        m = system.train_step(state, data, jax_prng.prng_key(1))
         runs.append(float(m["loss"]))
     assert runs[0] == runs[1] and np.isfinite(runs[0]) and state.step == 1
     with pytest.raises(ValueError, match="grad_accum"):

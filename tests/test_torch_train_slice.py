@@ -4,6 +4,7 @@ does with the run: resume it, serve its checkpoint with the port, and read
 the checkpoint with the JAX package. Then the same with the full recipe
 (`--sc_lambda 0.1 --ds_lambda 1000`) on an AOI with key points."""
 
+import copy
 import glob
 import json
 import os
@@ -17,9 +18,13 @@ from satnerf_tpu.config import Config as JaxConfig
 from satnerf_tpu.train.checkpoints import import_torch_checkpoint
 from satnerf_tpu.train.system import NeRFSystem as JaxSystem
 from satnerf_tpu_torch.cli import train as cli_train
+from satnerf_tpu_torch.data import load_dataset
 from satnerf_tpu_torch.data.satellite import SatelliteScene
 from satnerf_tpu_torch.data.synthetic import make_synthetic_aoi
 from satnerf_tpu_torch.eval.loader import load_nerf
+from satnerf_tpu_torch.train.checkpoints import load_checkpoint
+from satnerf_tpu_torch.train.losses import depth_loss
+from satnerf_tpu_torch.utils import jax_prng
 
 torch.set_num_threads(1)
 
@@ -307,8 +312,38 @@ def test_full_recipe_trains_logs_the_depth_loss_and_checkpoints(trained_full):
     assert [r["step"] for r in rows] == list(range(4, STEPS + 1, 4))
     assert all(np.isfinite(r["train/loss"]) and np.isfinite(r["train/loss_depth"])
                for r in rows)
-    # depth supervision pulls the depth loss down while it is on
-    assert rows[2]["train/loss_depth"] < rows[0]["train/loss_depth"]
+    # depth supervision pulls the depth loss down while it is on: the depth
+    # loss over every key point, rendered without jitter, at step 4 and at
+    # step 12 (epoch 1, where the term drops out). The steps draw from the
+    # run's key, so the run's first twelve replay here step for step: the
+    # replay's step 12 is the run's epoch=1.ckpt
+    train_ds, depth_ds = load_dataset(cfg, split="train")
+    data = {k: torch.from_numpy(np.asarray(v, t)) for k, v, t in (
+        ("rays", train_ds.all_rays, np.float32),
+        ("rgbs", train_ds.all_rgbs, np.float32),
+        ("ts", train_ds.all_ids, np.int64),
+        ("d_rays", depth_ds.all_rays, np.float32),
+        ("d_depths", depth_ds.all_depths, np.float32),
+        ("d_ts", depth_ds.all_ids, np.int64))}
+    state, key = system.init_state(cfg.seed), jax_prng.prng_key(cfg.seed + 1)
+    for _ in range(4):
+        system.train_step(state, data, key)
+    at_4 = copy.deepcopy(state.params)
+    for _ in range(8):
+        system.train_step(state, data, key)
+    at_drop = system.init_params(cfg.seed)
+    load_checkpoint(os.path.join(cfg.ckpts_dir, cfg.exp_name, "epoch=1.ckpt"),
+                    at_drop)
+    for name, p in at_drop.state_dict().items():
+        assert torch.equal(state.params.state_dict()[name], p), name
+
+    def key_point_loss(params):
+        res = system.render_image(params, depth_ds.all_rays, depth_ds.all_ids)
+        return float(depth_loss(
+            {"depth_coarse": torch.from_numpy(res["depth_coarse"])},
+            data["d_depths"][:, 0], data["d_depths"][:, 1], cfg.ds_lambda)[0])
+
+    assert key_point_loss(at_drop) < key_point_loss(at_4)
     run_ckpts = os.path.join(cfg.ckpts_dir, cfg.exp_name)
     assert sorted(os.listdir(run_ckpts)) == ["epoch=1.ckpt", "epoch=2.ckpt"]
     with open(os.path.join(cfg.logs_dir, cfg.exp_name, "opts.json")) as f:

@@ -36,6 +36,7 @@ from satnerf_tpu.train.system import NeRFSystem as JaxSystem
 from satnerf_tpu_torch.config import Config
 from satnerf_tpu_torch.train.checkpoints import adam_from_jax, params_from_jax
 from satnerf_tpu_torch.train.system import NeRFSystem, TrainState
+from satnerf_tpu_torch.utils import jax_prng
 
 torch.set_num_threads(1)
 
@@ -263,9 +264,8 @@ def test_adam_state_round_trips_through_a_checkpoint(tmp_path):
     system = NeRFSystem(Config(model="sat-nerf", **KW), device="cpu",
                         dataset_len=N_DATA)
     a = system.init_state(3)
-    gen = torch.Generator().manual_seed(4)
     for _ in range(3):
-        system.train_step(a, t_data, gen)
+        system.train_step(a, t_data, jax_prng.prng_key(4))
     path = str(tmp_path / "epoch=1.ckpt")
     save_checkpoint(path, a.params, a.optimizer, a.step)
 
@@ -297,7 +297,7 @@ def test_train_step_draws_and_options():
     runs = []
     for _ in range(2):  # the same seeds give the same step
         state = system.init_state(0)
-        m = system.train_step(state, t_data, torch.Generator().manual_seed(1))
+        m = system.train_step(state, t_data, jax_prng.prng_key(1))
         runs.append((float(m["loss"]), state.params["nerf_coarse"].fc_net[0]
                      .weight.detach().clone()))
     assert runs[0][0] == runs[1][0] and torch.equal(runs[0][1], runs[1][1])
@@ -310,7 +310,7 @@ def test_train_step_draws_and_options():
     s = NeRFSystem(Config(**{**KW, "model": "nerf", "fused": "on"}),
                    device="cpu", dataset_len=N_DATA)
     state = s.init_state(0)
-    m = s.train_step(state, t_data, torch.Generator().manual_seed(1))
+    m = s.train_step(state, t_data, jax_prng.prng_key(1))
     assert state.step == 1 and np.isfinite(float(m["loss"]))
     assert set(m) == {"loss", "psnr", "loss_total", "lr"}
     assert not hasattr(s, "_check_supported")

@@ -8,7 +8,11 @@ bench.py) with a seeded sat-nerf 8 x 512 field at 64 samples, bf16, chunk
 
 Training (--train): the same field, a device-resident dataset of N random
 rays, batch 1024: 20 warm-up steps, three timed runs of 50 steps (steps/s,
-rays/s), then 10 profiled steps. --sc_lambda and --ds_lambda turn on the
+rays/s); on the main path (no depth pass, fine model or sigma noise) five
+runs of 50 steps drawing their batch and depths in turns with five given
+them (what the draws cost a step), and the host time inside the step's
+draw calls beside torch's own draws of the same shapes; then 10 profiled
+steps. --sc_lambda and --ds_lambda turn on the
 solar-correction pass and the depth-supervision pass (a depth set of 4,096
 of the rays with random targets; the depth term stays active throughout),
 the full recipe's step. --n_importance N adds the fine model (N resampled
@@ -21,7 +25,8 @@ plain renderer over its per-point field kernel with --n_importance or
 --ds_lambda.
 
 Prints the card, the wall time, the summed device kernel time, the idle
-share, the peak device memory, and the kernels by device time (user
+share, the peak device memory, the draw kernel's device time and launches
+(csrc/jax_draws.cu, the training draws), and the kernels by device time (user
 annotations such as the optimizer's step are left out: their device time is
 a span on the timeline, gaps included).
 
@@ -108,6 +113,8 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from satnerf_tpu_torch.utils import jax_prng  # noqa: E402
+
 
 def _on_device(e) -> bool:
     """A kernel, copy or fill on the card: not a user annotation such as
@@ -129,6 +136,10 @@ def report(prof, wall_ms: float, card: str, what: str) -> None:
           f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.3f} on {card}")
     for ms, count, key in rows[:22]:
         print(f"{ms:10.2f} ms {count:5d}x  {key[:110]}")
+    draws = [r for r in rows if "jax_draws" in r[2]]
+    if draws:  # the training draws' kernel (csrc/jax_draws.cu), every mode
+        print(f"{what}: jax_draws {sum(r[0] for r in draws):.4f} ms over "
+              f"{sum(r[1] for r in draws)} launches on {card}")
 
 
 def time_resampling(system, n_rays: int, det: bool, card: str) -> None:
@@ -141,7 +152,8 @@ def time_resampling(system, n_rays: int, det: bool, card: str) -> None:
     z = torch.sort(torch.rand((n_rays, cfg.n_samples), generator=gen,
                               device=dev), 1)[0]
     w = torch.rand((n_rays, cfg.n_samples), generator=gen, device=dev) ** 3
-    run = lambda: resample_zvals(gen, z, w, cfg.n_importance, det=det)  # noqa: E731
+    key = jax_prng.prng_key(2)
+    run = lambda: resample_zvals(key, z, w, cfg.n_importance, det=det)  # noqa: E731
     for _ in range(3):
         run()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -160,6 +172,77 @@ def peak_memory(what: str, card: str) -> None:
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on {card}")
 
 
+def time_draws(system, state, data, key, batch: int, card: str,
+               runs: int = 5, steps: int = 50) -> None:
+    """The main-path step drawing its batch and depths from the key, and
+    the same step given them (made once, injected), in turns: the
+    difference is what the draws cost a step, host and device."""
+    from satnerf_tpu_torch.render.sampling import stratified_zvals
+
+    dev = system.device
+    idx = torch.randint(0, data["rays"].shape[0], (batch,), device=dev)
+    rays = data["rays"][idx]
+    z = stratified_zvals(None, rays[:, 6:7], rays[:, 7:8],
+                         system.cfg.n_samples, perturb=0.0)
+
+    def ms_a_step(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / steps
+
+    drawn, given = [], []
+    for _ in range(runs):
+        drawn.append(ms_a_step(lambda: system.train_step(state, data, key)))
+        given.append(ms_a_step(lambda: system.train_step(
+            state, data, None, idx=idx, z_vals=z)))
+    print(f"the step drawing its batch and depths "
+          f"{' '.join(f'{t:.3f}' for t in drawn)} ms, given them "
+          f"{' '.join(f'{t:.3f}' for t in given)} ms ({runs} runs of {steps} "
+          f"steps in turns): the draws {np.median(drawn) - np.median(given):.3f} "
+          f"ms a step by the medians on {card}")
+
+    # the host's share: the time spent inside the step's draw calls (its
+    # keys, jax_prng.step_keys and split_at; its launches, JD.randint and
+    # JD.uniform), against torch's own draws of the same shapes
+    from satnerf_tpu_torch.ops import jax_draws as JD
+
+    inside = [0.0]
+
+    def timed(fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                inside[0] += time.perf_counter() - t0
+        return call
+
+    patched = [(jax_prng, "step_keys"), (jax_prng, "split_at"),
+               (JD, "randint"), (JD, "uniform")]
+    saved = [getattr(m, n) for m, n in patched]
+    try:
+        for m, n in patched:
+            setattr(m, n, timed(getattr(m, n)))
+        ms_a_step(lambda: system.train_step(state, data, key))
+    finally:
+        for (m, n), fn in zip(patched, saved):
+            setattr(m, n, fn)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        torch.randint(0, data["rays"].shape[0], (batch,), generator=gen,
+                      device=dev)
+        torch.rand(z.shape, generator=gen, device=dev)
+    torch_ms = 1e3 * (time.perf_counter() - t0) / steps
+    print(f"the step's draw calls on the host {1e3 * inside[0] / steps:.4f} "
+          f"ms a step (keys and two launches), torch.randint and torch.rand "
+          f"of the same shapes {torch_ms:.4f} ms on {card}")
+
+
 def profile_train(system, rays, ts, batch: int, card: str) -> None:
     rng = np.random.RandomState(1)
     dev = system.device
@@ -173,18 +256,20 @@ def profile_train(system, rays, ts, batch: int, card: str) -> None:
                         rng.rand(4096, 2).astype(np.float32)).to(dev),
                     d_ts=data["ts"][:4096].clone())
     state = system.init_state(0)
-    gen = torch.Generator(device=dev).manual_seed(1)
+    key = jax_prng.prng_key(1)  # the run's key: JAX's draws (ops/jax_draws.py)
     for _ in range(20):
-        system.train_step(state, data, gen)
+        system.train_step(state, data, key)
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(50):
-            system.train_step(state, data, gen)
+            system.train_step(state, data, key)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / 50
         print(f"{1 / dt:.2f} steps/s, {batch / dt:.1f} rays/s, "
               f"{1e3 * dt:.2f} ms a step (batch {batch}) on {card}")
+    if not (system.depth or system.cfg.n_importance or system.cfg.noise_std):
+        time_draws(system, state, data, key, batch, card)
     peak_memory("train_step", card)
     if system.cfg.n_importance > 0:
         time_resampling(system, batch, False, card)
@@ -193,7 +278,7 @@ def profile_train(system, rays, ts, batch: int, card: str) -> None:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
-            system.train_step(state, data, gen)
+            system.train_step(state, data, key)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     report(prof, wall_ms, card, f"{steps} train steps")
