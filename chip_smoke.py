@@ -167,14 +167,15 @@ plain version):
 
   10 training across devices (M7) at the main path's width: cli.train at
      sat-nerf 8 x 512, 64 samples, batch 1,024, bf16, --fused rays, 5 steps
-     and rank 0's validation (K2), four times: without a process group, as
-     a world of one through SATNERF_COORDINATOR (NCCL; the all-reduce must
-     leave every gradient and metric as it was, to the bit, at every step),
-     and twice more without a group. Runs on the card differ by the
-     kernels' fp32 atomics; the world of one may differ from the first run
-     without a group by no more than twice the most the three runs without
-     one differ among themselves. With two cards or more, two ranks (NCCL)
-     whose parameters must be bit-equal
+     and validation (K2), without a process group and as a world of one
+     through SATNERF_COORDINATOR (NCCL; the all-reduce must leave every
+     gradient and metric as it was, to the bit, at every step); these two
+     differ by the kernels' fp32 atomics alone, which is printed. Then the
+     same on the path without atomics (--fused off, plain PyTorch on the
+     card, its deterministic algorithms): twice without a group, which must
+     agree to the bit, and as a world of one, whose parameters must be
+     theirs to the bit. With two cards or more, two ranks (NCCL) whose
+     parameters must be bit-equal
   11 the parity tool (M8): tools/parity_report_torch.py on the committed
      JAX checkpoint (sat-nerf 4 x 32) over a 16 px synthetic AOI, on the card
      (through K2) and on the CPU: finite PSNR, SSIM and MAE, the card's
@@ -194,9 +195,29 @@ plain version):
      depths within 1e-6. Phases 4 and 5 check the draw kernel's launches
      (2 a step; 4 with depth supervision), and phase 6's --fused off run,
      which launches no field kernel, still draws on the card.
+  13 serving across the host's cards (M9), on phase 3's AOI and 8 x 512
+     checkpoint, 64 samples, bf16, chunk 65,536: (a) render_image of its
+     262,144-ray view for sat-nerf, --n_importance 64 and nerf 8 x 256 as a
+     world of one (NCCL, through SATNERF_COORDINATOR) equal to the same call
+     without a group, to the bit, every serving kernel launched (the kernels
+     line's launches_render_group), and cli.eval's scores as a world of one
+     those without a group; (b) where the host has w >= 2 cards (at most
+     4), the three views across w ranks (parallel.spawn), each rank's
+     products equal and rank 0's those of one card (bit for bit; else
+     within one bf16 step, reported), every serving kernel launched on
+     every rank, rays/s on 1 and w cards, device-ms a card, the NCCL
+     kernels' and the gathers' ms; create_pretty_dsm with opts.json's
+     n_devices w stays in its one process for its 16,384-ray view
+     (eval/loader.py render_ranks), and on w ranks that each join the group
+     gives one card's DSM and MAE (the ranks' start timed); a view 1.5 times
+     the smallest for which render_ranks starts w ranks, rendered on one
+     card and on w ranks started for it, each timed whole, products equal.
+     With one card (b) prints that it did not run. Phase 10's two ranks
+     also validate: both render their half of every chunk, and the logged
+     val/psnr is one card's validation of the saved checkpoint
 
-No earlier phase was cut when phases 2d, 2e, 6, 7, 8, 9, 10, 11 and 12 came:
-the whole run stays well inside half its time limit.
+No earlier phase was cut when phases 2d, 2e, 6, 7, 8, 9, 10, 11, 12 and 13
+came: the whole run stays well inside half its time limit.
 
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Scratch files go to build/chip_smoke/.
@@ -3718,14 +3739,24 @@ def _dist_argv(aoi: str, root: str, name: str) -> list:
 
 def _dist_rank(out_dir: str, argv: list) -> None:
     """A rank of phase 10's group (started by parallel.spawn): cli.train,
-    then its parameters into out_dir."""
+    then its parameters and the rows it rendered in validation into
+    out_dir."""
     import torch
 
     from satnerf_tpu_torch.parallel import distributed as D
+    from satnerf_tpu_torch.train.system import NeRFSystem
 
-    out = _train_one(argv)
+    rows, chunk = [], NeRFSystem.render_chunk
+    NeRFSystem.render_chunk = lambda self, p, r, t: (
+        rows.append(r.shape[0]), chunk(self, p, r, t))[1]
+    try:
+        out = _train_one(argv)
+    finally:
+        NeRFSystem.render_chunk = chunk
     r = int(os.environ["SATNERF_PROC_ID"])
-    torch.save({k: v.cpu() for k, v in out["state"].params.state_dict().items()},
+    torch.save({"params": {k: v.cpu() for k, v in
+                           out["state"].params.state_dict().items()},
+                "rows": rows, "metrics": out["metrics"]},
                os.path.join(out_dir, f"rank{r}.pt"))
     assert not D.is_distributed()
 
@@ -3773,18 +3804,27 @@ def phase10(results: dict, card: str):
             changed.extend(i for i, (a, b) in enumerate(zip(before, tensors))
                            if not torch.equal(a, b))
 
+    # the kernels' runs (--fused rays) and runs on the path without fp32
+    # atomics (--fused off: plain PyTorch on the card, its deterministic
+    # algorithms), each without a group and as a world of one
     runs = {}
-    for name in ("plain", "group", "plain_2", "plain_3"):
+    for name in ("plain", "group", "plain_off", "plain_off_2", "group_off"):
+        off = "_off" in name
         env = ({"SATNERF_COORDINATOR": f"localhost:{port()}",
                 "SATNERF_NUM_PROCS": "1", "SATNERF_PROC_ID": "0"}
-               if name == "group" else {})
+               if name.startswith("group") else {})
+        argv = _dist_argv(aoi, root, name)
+        if off:
+            argv[argv.index("--fused") + 1] = "off"
         os.environ.update(env)
         D.all_reduce_mean = checked_reduce
+        torch.use_deterministic_algorithms(off, warn_only=True)
         _reset_launches()
         t0 = time.perf_counter()
         try:
-            out = _train_one(_dist_argv(aoi, root, name))
+            out = _train_one(argv)
         finally:
+            torch.use_deterministic_algorithms(False)
             D.all_reduce_mean = reduce_mean
             for k in env:
                 os.environ.pop(k)
@@ -3794,40 +3834,43 @@ def phase10(results: dict, card: str):
         runs[name] = {k: v.detach().clone() for k, v in
                       out["state"].params.state_dict().items()}
         log(f"phase 10: {name}: world {system.world} on {system.device}, "
-            f"{DIST_STEPS} steps and rank 0's validation in "
-            f"{time.perf_counter() - t0:.1f} s; all-reduces {len(reduced)}; "
-            f"launches composite_loss_bwd {counts['composite_loss_bwd']}, "
-            f"heads_composite {counts['heads_composite']}, siren_dense "
+            f"--fused {system.fused_mode}, {DIST_STEPS} steps and "
+            f"validation in {time.perf_counter() - t0:.1f} s; all-reduces "
+            f"{len(reduced)}; launches composite_loss_bwd "
+            f"{counts['composite_loss_bwd']}, heads_composite "
+            f"{counts['heads_composite']}, siren_dense "
             f"{counts['siren_dense']}; val {out['metrics']}")
-        if system.fused_mode != "rays" or \
-                system.compute_dtype != torch.bfloat16 or \
-                counts["composite_loss_bwd"] != DIST_STEPS or \
-                not counts["heads_composite"]:
-            fail(f"{name} missed the kernels: {system.fused_mode}, {counts}")
-        if len(reduced) != (2 * DIST_STEPS if name == "group" else 0):
+        if system.compute_dtype != torch.bfloat16 or (
+                system.fused_mode != "off" if off else
+                system.fused_mode != "rays"
+                or counts["composite_loss_bwd"] != DIST_STEPS
+                or not counts["heads_composite"]):
+            fail(f"{name} missed its path: {system.fused_mode}, {counts}")
+        if len(reduced) != (2 * DIST_STEPS if name.startswith("group") else 0):
             fail(f"{name}: {len(reduced)} all-reduces in {DIST_STEPS} steps")
         if changed:
             fail(f"the world of one's all-reduce changed tensors {changed}")
         reduced.clear()
         if not all(np.isfinite(v) for v in out["metrics"].values()):
             fail(f"{name}: validation not finite: {out['metrics']}")
-    # runs on the card differ by the kernels' fp32 atomics alone (their sums
-    # land in another order each run): the group's run may differ from the
-    # first run without a group by no more than twice the most the three
-    # runs without a group differ among themselves, and by nothing where
-    # those agree to the bit
-    plain = ("plain", "plain_2", "plain_3")
-    spread = max(_max_diff(runs[a], runs[b])
-                 for i, a in enumerate(plain) for b in plain[i + 1:])
-    diff = _max_diff(runs["group"], runs["plain"])
+    # the kernels' runs differ by their fp32 atomics alone (their sums land
+    # in another order each run; the all-reduce above left every tensor as
+    # it was): reported. Without atomics a run repeats itself to the bit,
+    # and the world of one is the run without a group, to the bit
+    atomics = _max_diff(runs["group"], runs["plain"])
+    repeat = _max_diff(runs["plain_off_2"], runs["plain_off"])
+    diff = _max_diff(runs["group_off"], runs["plain_off"])
     results["dist"] = {"world_of_one_vs_plain": diff,
-                       "plain_vs_plain": spread}
-    log(f"phase 10: parameters after {DIST_STEPS} steps: world of one vs the "
-        f"run without a group max |diff| {diff:.3e}; three runs without a "
-        f"group at most {spread:.3e} apart")
-    if (diff > 0 and spread == 0) or diff > 2 * spread:
-        fail(f"the world of one's parameters differ by {diff:.3e}, runs "
-             f"without a group by at most {spread:.3e}")
+                       "kernels_world_of_one_vs_plain": atomics}
+    log(f"phase 10: parameters after {DIST_STEPS} steps: without atomics "
+        f"the world of one vs the run without a group max |diff| {diff}, "
+        f"two runs without a group {repeat}; through the kernels (fp32 "
+        f"atomics) {atomics:.3e}")
+    if repeat != 0:
+        fail(f"two runs without atomics differ by {repeat}")
+    if diff != 0:
+        fail(f"the world of one's parameters differ by {diff} from the run "
+             f"without a group")
 
     if torch.cuda.device_count() >= 2:
         out_dir = os.path.join(root, "ranks")
@@ -3836,14 +3879,47 @@ def phase10(results: dict, card: str):
         D.spawn(_dist_rank, (out_dir, _dist_argv(aoi, root, "two")), 2)
         ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
                             weights_only=True) for r in range(2)]
-        diff = _max_diff(ranks[0], ranks[1])
+        diff = _max_diff(ranks[0]["params"], ranks[1]["params"])
+        rows = [rk["rows"] for rk in ranks]
         log(f"phase 10: world 2 (NCCL, {torch.cuda.device_count()} cards): "
             f"{DIST_STEPS} steps in {time.perf_counter() - t0:.1f} s; ranks' "
-            f"parameters max |diff| {diff}")
+            f"parameters max |diff| {diff}; validation rendered "
+            f"{sum(rows[0])} and {sum(rows[1])} rows in {len(rows[0])} and "
+            f"{len(rows[1])} chunks on ranks 0 and 1")
         if diff != 0:
             fail(f"the two ranks' parameters differ by {diff}")
+        if not rows[1] or rows[0] != rows[1]:
+            fail(f"validation did not split over both ranks: {rows}")
+        _hold_validation(ranks[0]["metrics"], root, fail)
     else:
         log("phase 10: one card: world 2 not run")
+
+
+def _hold_validation(logged: dict, root: str, fail) -> None:
+    """The two-rank run's logged validation against one card's validation
+    of the checkpoint it saved: val/psnr equal."""
+    from satnerf_tpu_torch.data import load_dataset
+    from satnerf_tpu_torch.eval.loader import load_nerf, load_run_config
+    from satnerf_tpu_torch.train.logging import RunLogger
+    from satnerf_tpu_torch.train.loop import validate
+
+    logs = os.path.join(root, "logs")
+    run_id = next(d for d in os.listdir(logs) if d.endswith("_two"))
+    ckpt = glob.glob(os.path.join(root, "ckpts", run_id, "epoch=*.ckpt"))[0]
+    epoch = int(ckpt.rsplit("=", 1)[1].split(".")[0])
+    cfg = load_run_config(logs, run_id)
+    cfg.logs_dir = os.path.join(root, "one_card")
+    system, params = load_nerf(run_id, logs, os.path.join(root, "ckpts"),
+                               epoch, device="cuda")
+    logger = RunLogger(cfg.logs_dir, run_id)
+    one = validate(system, params, load_dataset(cfg, split="val")[0], cfg,
+                   logger, DIST_STEPS, epoch)
+    logger.close()
+    log(f"phase 10: world 2 logged {logged}; one card's validation of its "
+        f"checkpoint {one}")
+    if logged.get("val/psnr") != one.get("val/psnr"):
+        fail(f"the two ranks' val/psnr {logged.get('val/psnr')} is not one "
+             f"card's {one.get('val/psnr')}")
 
 
 def phase11(results: dict, card: str):
@@ -4053,6 +4129,459 @@ def phase12(results: dict, card: str):
         f"{z_err:.2e} on {card}")
 
 
+# phase 13: serving across the host's cards (M9), on phase 3's run
+GROUP_CASES = {  # name -> overrides of phase 3's opts.json
+    "sat-nerf": {},
+    "hier": {"n_importance": N_IMPORTANCE},
+    "nerf": {"model": "nerf", "fc_units": NERF_FEAT},
+}
+GROUP_KERNELS = {"sat-nerf": ("siren_dense", "siren_dense_k0", "heads_composite"),
+                 "hier": ("siren_dense", "siren_dense_k0", "heads_composite"),
+                 "nerf": ("nerf_dense", "nerf_heads_composite")}
+GROUP_RUN = "smoke"
+
+
+def _serving_run() -> tuple:
+    """Phase 3's AOI, run directory and seeded 8 x 512 checkpoint (made
+    again as phase 3 makes them when phase 3 did not run): (logs, ckpts)."""
+    from satnerf_tpu_torch.data.synthetic import make_synthetic_aoi
+    from satnerf_tpu_torch.eval.loader import load_run_config
+    from satnerf_tpu_torch.train.checkpoints import (checkpoint_path,
+                                                     save_checkpoint)
+    from satnerf_tpu_torch.train.system import NeRFSystem
+
+    logs, ckpts = os.path.join(WORK, "logs"), os.path.join(WORK, "ckpts")
+    if os.path.exists(checkpoint_path(ckpts, GROUP_RUN, 1)):
+        return logs, ckpts
+    aoi = os.path.join(WORK, "aoi")
+    if not os.path.isdir(os.path.join(aoi, "data")):
+        make_synthetic_aoi(aoi, size=128)
+    os.makedirs(os.path.join(logs, GROUP_RUN), exist_ok=True)
+    opts = {"model": "sat-nerf", "fc_layers": LAYERS, "fc_units": FEAT,
+            "n_samples": SAMPLES, "chunk": CHUNK, "exp_name": GROUP_RUN,
+            "root_dir": os.path.join(aoi, "data"),
+            "gt_dir": os.path.join(aoi, "gt"), "logs_dir": logs,
+            "ckpts_dir": ckpts}
+    with open(os.path.join(logs, GROUP_RUN, "opts.json"), "w") as f:
+        json.dump(opts, f)
+    system = NeRFSystem(load_run_config(logs, GROUP_RUN), device="cuda")
+    save_checkpoint(checkpoint_path(ckpts, GROUP_RUN, 1), system.init_params(0))
+    return logs, ckpts
+
+
+def _run_on(n_devices: int) -> str:
+    """A copy of phase 3's run directory whose opts.json asks for
+    n_devices cards (its checkpoints stay phase 3's): the logs dir."""
+    logs, _ = _serving_run()
+    dst = os.path.join(WORK, f"group_logs{n_devices}")
+    os.makedirs(os.path.join(dst, GROUP_RUN), exist_ok=True)
+    with open(os.path.join(logs, GROUP_RUN, "opts.json")) as f:
+        opts = json.load(f)
+    with open(os.path.join(dst, GROUP_RUN, "opts.json"), "w") as f:
+        json.dump({**opts, "n_devices": n_devices}, f)
+    return dst
+
+
+def _group_system(case: str):
+    """(system, params, rays, ts) of a phase 13 case on this rank's card:
+    phase 3's checkpoint for sat-nerf, the seed-0 draw of the others, and
+    phase 3's 262,144-ray view."""
+    from satnerf_tpu_torch.eval.loader import load_nerf, load_run_config
+    from satnerf_tpu_torch.train.system import NeRFSystem
+
+    logs, ckpts = _serving_run()
+    if case == "sat-nerf":
+        system, params = load_nerf(GROUP_RUN, logs, ckpts, 1, device="cuda")
+    else:
+        import dataclasses
+
+        cfg = dataclasses.replace(load_run_config(logs, GROUP_RUN),
+                                  **GROUP_CASES[case])
+        from satnerf_tpu_torch.parallel import distributed as D
+
+        system = NeRFSystem(cfg, device=D.rank_device("cuda"))
+        params = system.init_params(0)
+    rng = np.random.RandomState(0)  # phase 3's view
+    n = 1 << 18
+    rays = rng.rand(n, 11).astype(np.float32)
+    rays[:, 3:6] /= np.linalg.norm(rays[:, 3:6], axis=1, keepdims=True)
+    rays[:, 6], rays[:, 7] = 0.0, 1.0
+    ts = rng.randint(0, 30, n).astype(np.int32)
+    return system, params, rays, (None if system.is_nerf else ts)
+
+
+def _render_ms(system, params, rays, ts) -> tuple:
+    """(products, host seconds, device-ms of the render's kernels, of its
+    NCCL kernels) of one render_image, warmed up on a chunk; the device
+    times from a second render under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    system.render_image(params, rays[:CHUNK], None if ts is None else ts[:CHUNK])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = system.render_image(params, rays, ts)
+    dt = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        system.render_image(params, rays, ts)
+        torch.cuda.synchronize()
+    ms = {"compute": 0.0, "nccl": 0.0}
+    for e in prof.key_averages():
+        if getattr(e, "device_time_total", 0) > 0 \
+                and str(getattr(e, "device_type", "")).endswith("CUDA") \
+                and not getattr(e, "is_user_annotation", False):
+            ms["nccl" if "nccl" in e.key.lower() else "compute"] += \
+                e.device_time_total / 1e3
+    return res, dt, ms["compute"], ms["nccl"]
+
+
+def _digest(res: dict) -> dict:
+    import hashlib
+
+    return {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+            for k, v in res.items()}
+
+
+def _group_rank(out_dir: str):
+    """A rank of phase 13(b)'s group (started by parallel.spawn): each case's
+    view through the collective render_image; its launches, times, the
+    gathers' ms and its products' digests into out_dir. Rank 0 returns its
+    products."""
+    import torch
+
+    from satnerf_tpu_torch.parallel import distributed as D
+
+    D.maybe_init_distributed("cuda")
+    r, got, products = D.rank(), {}, {}
+    gather = D.all_gather_rows
+    for case in GROUP_CASES:
+        system, params, rays, ts = _group_system(case)
+        D.barrier()
+        torch.cuda.synchronize()
+        _reset_launches()
+        res, dt, dev_ms, nccl_ms = _render_ms(system, params, rays, ts)
+        counts = {k: v for k, v in _counts().items() if v}
+        gather_ms = []
+
+        def timed(p):
+            # the gather alone: every rank's block is ready first
+            torch.cuda.synchronize()
+            D.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = gather(p)
+            torch.cuda.synchronize()
+            gather_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        D.all_gather_rows = timed
+        try:
+            system.render_image(params, rays, ts)
+        finally:
+            D.all_gather_rows = gather
+        got[case] = {"s": dt, "device_ms": dev_ms, "nccl_ms": nccl_ms,
+                     "gather_ms": sum(gather_ms), "gathers": len(gather_ms),
+                     "launches": counts, "digest": _digest(res),
+                     "render_world": D.render_world(),
+                     "device": str(system.device)}
+        if r == 0:
+            products[case] = res
+    with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
+        json.dump(got, f)
+    D.barrier()
+    D.destroy()
+    return products
+
+
+def _row_count_stages(system, params, rays, ts, n_small: int) -> dict:
+    """Where the hierarchical dispatch's products depend on how many rows a
+    card renders: rows [0, n_small) of one chunk rendered within the whole
+    chunk against rendered alone, stage by stage (the coarse kernels'
+    weights, the resampled depths from the same weights, the fine kernels
+    on the same depths). The number of entries that differ a stage."""
+    import torch
+
+    from satnerf_tpu_torch.ops.fused_mlp import fused_render_rays
+    from satnerf_tpu_torch.render.render import resample_zvals
+    from satnerf_tpu_torch.render.sampling import stratified_zvals
+    from satnerf_tpu_torch.train.system import MAX_RENDER_POINTS
+
+    rcfg, kw = system.eval_render_cfg, system._field_kw()
+    with torch.inference_mode():
+        r = torch.from_numpy(rays[:CHUNK]).to(system.device)
+        t_e = system._embed_ts(params, torch.from_numpy(ts[:CHUNK]).to(
+            system.device), CHUNK)
+        sun = system._sun_dir(r)
+        z = stratified_zvals(None, r[:, 6:7], r[:, 7:8], rcfg.n_samples,
+                             rcfg.perturb, rcfg.use_disp)
+
+        def render(field, zz, n, weights):
+            return fused_render_rays(params[field], r[:n, 0:3], r[:n, 3:6],
+                                     sun[:n], t_e[:n], zz[:n],
+                                     return_weights=weights, **kw)
+
+        def differ(a, b):
+            return int((a != b).sum())
+
+        big = render("nerf_coarse", z, CHUNK, True)
+        small = render("nerf_coarse", z, n_small, True)
+        z_big = resample_zvals(None, z, big["weights"], rcfg.n_importance,
+                               det=True)
+        z_small = resample_zvals(None, z[:n_small], big["weights"][:n_small],
+                                 rcfg.n_importance, det=True)
+        # the fine pass as _fused_product_render runs it: in pieces of
+        # MAX_RENDER_POINTS points
+        piece = MAX_RENDER_POINTS // z_big.shape[1]
+        fine_big = render("nerf_fine", z_big, min(piece, CHUNK), False)
+        fine_small = render("nerf_fine", z_big, n_small, False)
+        return {"coarse weights": differ(big["weights"][:n_small],
+                                         small["weights"]),
+                "resampled depths": differ(z_big[:n_small], z_small),
+                "fine kernels": sum(differ(fine_big[k][:n_small],
+                                           fine_small[k])
+                                    for k in fine_small)}
+
+
+def _bf16_step_err(got: dict, want: dict) -> dict:
+    """Each product's largest difference over the card tests' one-bf16-step
+    rule (2^-7 of the entry plus 1e-4): at most 1 where it holds."""
+    return {k: float((np.abs(got[k] - want[k])
+                      / (2.0 ** -7 * np.abs(want[k]) + 1e-4)).max())
+            for k in want}
+
+
+def phase13(results: dict, card: str):
+    """M9 on the card: the collective render_image and the eval entry points
+    as a world of one (NCCL) against no group; with two cards or more, the
+    same views across every card against one card."""
+    import torch
+
+    from satnerf_tpu_torch.cli.create_dsm import create_pretty_dsm
+    from satnerf_tpu_torch.cli.eval import eval_aoi
+    from satnerf_tpu_torch.parallel import distributed as D
+
+    def fail(msg):
+        raise SystemExit(f"phase 13 failed: {msg}")
+
+    def port():
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            return sock.getsockname()[1]
+
+    def world_of_one(fn, *args, **kw):
+        env = {"SATNERF_COORDINATOR": f"localhost:{port()}",
+               "SATNERF_NUM_PROCS": "1", "SATNERF_PROC_ID": "0"}
+        os.environ.update(env)
+        try:
+            return D.run_in_group(lambda: fn(*args, **kw), (), 1, "cuda")
+        finally:
+            for k in env:
+                os.environ.pop(k)
+
+    logs, ckpts = _serving_run()
+    # (a) one card: each view without a group, then as a world of one
+    one, launches = {}, {}
+    _reset_launches()
+    for case in GROUP_CASES:
+        system, params, rays, ts = _group_system(case)
+        res, dt, dev_ms, _ = _render_ms(system, params, rays, ts)
+        one[case] = {"res": res, "s": dt, "device_ms": dev_ms}
+    _reset_launches()
+    for case in GROUP_CASES:
+        system, params, rays, ts = _group_system(case)
+        before = _counts()
+        res = world_of_one(system.render_image, params, rays, ts)
+        after = _counts()
+        launched = {k: after[k] - before.get(k, 0) for k in GROUP_KERNELS[case]}
+        differ = [k for k in res if not np.array_equal(res[k], one[case]["res"][k])]
+        log(f"phase 13(a): {case}: {rays.shape[0]} rays as a world of one "
+            f"(NCCL) vs no group: {len(res) - len(differ)} of {len(res)} "
+            f"products bit-equal; launches {launched}; no group "
+            f"{rays.shape[0] / one[case]['s']:.1f} rays/s, "
+            f"{one[case]['device_ms']:.2f} device-ms on {card}")
+        if differ or set(res) != set(one[case]["res"]):
+            fail(f"{case}: the world of one differs from no group in {differ}")
+        if not all(launched.values()):
+            fail(f"{case}: a serving kernel was not launched: {launched}")
+    results["launches_group"] = _counts()
+    system, params, rays, ts = _group_system("hier")
+    stages = _row_count_stages(system, params, rays, ts, CHUNK // 4)
+    log(f"phase 13(a): hier: rows [0, {CHUNK // 4}) of a chunk within "
+        f"{CHUNK} rows against alone, entries that differ: {stages}")
+    logs1 = _run_on(1)
+    kw = dict(checkpoints_dir=ckpts, device="cuda")
+    plain = eval_aoi(GROUP_RUN, logs1, os.path.join(WORK, "group_eval0"), 1, **kw)
+    grouped = world_of_one(eval_aoi, GROUP_RUN, logs1,
+                           os.path.join(WORK, "group_eval1"), 1, **kw)
+    log(f"phase 13(a): cli.eval without a group {plain}, as a world of one "
+        f"{grouped}")
+    if plain != grouped or not all(np.isfinite(v) for v in plain.values()):
+        fail(f"cli.eval as a world of one wrote {grouped}, without a group "
+             f"{plain}")
+
+    w = min(torch.cuda.device_count(), 4)
+    if w < 2:
+        log("phase 13(b): one card: the views across cards not run")
+        return
+    # (b) the same views across w cards, each rank's block of every chunk
+    out_dir = os.path.join(WORK, "group_ranks")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    products = D.spawn(_group_rank, (out_dir,), w)
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(w):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    rates = {}
+    for case in GROUP_CASES:
+        want, got = one[case]["res"], products[case]
+        differ = [k for k in want if not np.array_equal(want[k], got[k])]
+        steps = _bf16_step_err(got, want) if differ else {}
+        digests = {json.dumps(g[case]["digest"], sort_keys=True) for g in ranks}
+        n = got["rgb_coarse"].shape[0]
+        per = [g[case] for g in ranks]
+        rates[case] = {"rays_per_s_1": n / one[case]["s"],
+                       "rays_per_s_w": n / max(p["s"] for p in per),
+                       "device_ms_1": one[case]["device_ms"],
+                       "device_ms_w": [p["device_ms"] for p in per],
+                       "nccl_ms_w": [p["nccl_ms"] for p in per],
+                       "gather_ms_w": [p["gather_ms"] for p in per]}
+        log(f"phase 13(b): {case} across {w} cards: products "
+            f"{'bit-equal to one card' if not differ else f'differ from one card in {differ}, within {max(steps.values()):.2f} bf16 steps'}; "
+            f"ranks' products {'equal' if len(digests) == 1 else 'DIFFER'}; "
+            f"rays/s 1 card {rates[case]['rays_per_s_1']:.1f}, {w} cards "
+            f"{rates[case]['rays_per_s_w']:.1f}; device-ms 1 card "
+            f"{one[case]['device_ms']:.2f}, a card of {w} "
+            + ", ".join(f"{p['device_ms']:.2f}" for p in per)
+            + " (NCCL " + ", ".join(f"{p['nccl_ms']:.2f}" for p in per)
+            + "); gathers " + ", ".join(f"{p['gather_ms']:.2f}" for p in per)
+            + f" ms in {per[0]['gathers']} chunks; launches "
+            + "; ".join(f"{p['device']} {p['launches']}" for p in per)
+            + f" on {card}")
+        if differ and max(steps.values()) > 1:
+            fail(f"{case}: {w} cards differ from one card past a bf16 step: "
+                 f"{steps}")
+        if len(digests) != 1:
+            fail(f"{case}: the ranks hold different products")
+        for p in per:
+            missing = [k for k in GROUP_KERNELS[case] if not p["launches"].get(k)]
+            if missing or p["render_world"] != w:
+                fail(f"{case}: {p['device']} launched no {missing} "
+                     f"(render world {p['render_world']})")
+    results["group"] = rates
+
+    # create_pretty_dsm where opts.json asks for w cards: its 16,384-ray view
+    # stays on one card (eval/loader.py render_ranks), in this process
+    from satnerf_tpu_torch.eval.loader import load_run_config, render_ranks
+
+    dsm, mae, secs, spawned = {}, {}, {}, []
+    spawn = D.spawn
+    D.spawn = lambda *a: (spawned.append(a[-1]), spawn(*a))[1]
+    try:
+        for n_dev in (1, w):
+            out = os.path.join(WORK, f"group_dsm{n_dev}")
+            shutil.rmtree(out, ignore_errors=True)
+            t0 = time.perf_counter()
+            mae[n_dev] = create_pretty_dsm(GROUP_RUN, _run_on(n_dev), out, 1,
+                                           **kw)
+            secs[n_dev] = time.perf_counter() - t0
+            dsm[n_dev] = _dsm_of(out)
+    finally:
+        D.spawn = spawn
+    log(f"phase 13(b): create_pretty_dsm with opts.json's n_devices 1 and "
+        f"{w}: {secs[1]:.2f} and {secs[w]:.2f} s, ranks started "
+        f"{spawned or 'none'}")
+    if spawned:
+        fail(f"create_pretty_dsm started ranks {spawned} for one small view")
+    # the same view across the w cards, each rank joining the group
+    out = os.path.join(WORK, "group_dsm_ranks")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    mae["ranks"] = D.spawn(_dsm_rank, (_run_on(1), out), w)
+    start_s = time.perf_counter() - t0
+    dsm["ranks"] = _dsm_of(out)
+    log(f"phase 13(b): create_pretty_dsm on {w} ranks (started, each loading "
+        f"the run, rendering, leaving): MAE {mae['ranks']} in {start_s:.1f} "
+        f"s; on one card {mae[1]} in {secs[1]:.2f} s")
+    for n_dev in (w, "ranks"):
+        if mae[1] != mae[n_dev] or not np.array_equal(dsm[1], dsm[n_dev],
+                                                      equal_nan=True):
+            fail(f"create_pretty_dsm {n_dev}: MAE {mae[n_dev]}, on one card "
+                 f"{mae[1]}")
+    log(f"phase 13(b): the {w} ranks' spawn and renders took {spawn_s:.1f} s")
+
+    # a view large enough that render_ranks starts w ranks (1.5 times the
+    # smallest), on one card and on the w ranks, each wall time whole
+    cfg = load_run_config(_run_on(w), GROUP_RUN)
+    views = next(k for k in range(1, 1 << 12)
+                 if render_ranks(cfg, k << 18, "cuda") == w)
+    views = -(-3 * views // 2)
+    system, params, rays, ts = _group_system("sat-nerf")
+    rays, ts = np.tile(rays, (views, 1)), np.tile(ts, views)
+    system.render_image(params, rays[:CHUNK], ts[:CHUNK])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = system.render_image(params, rays, ts)
+    one_s = time.perf_counter() - t0
+    want = _digest(res)
+    del res, rays, ts
+    t0 = time.perf_counter()
+    got, began, ended = D.spawn(_large_rank, (views,), w)
+    ranks_s, start_l = ended - t0, began - t0
+    n = views << 18
+    results["group"]["large"] = {"rays": n, "one_card_s": one_s,
+                                 "ranks_s": ranks_s, "ranks": w,
+                                 "small_view_s": secs, "start_s": start_s}
+    log(f"phase 13(b): sat-nerf, {n} rays (render_ranks: {w} ranks): one "
+        f"card {one_s:.1f} s ({n / one_s:.1f} rays/s); {w} ranks started "
+        f"for it {ranks_s:.1f} s ({n / ranks_s:.1f} rays/s): {start_l:.1f} s "
+        f"to join, load the run and lay out the view, "
+        f"{ranks_s - start_l:.1f} s rendering; products "
+        f"{'bit-equal' if got == want else 'DIFFER'} on {card}")
+    if got != want:
+        fail(f"the {n}-ray view on {w} ranks differs from one card")
+
+
+def _dsm_of(out: str):
+    from satnerf_tpu_torch.eval import read_geotiff
+
+    path = glob.glob(os.path.join(out, GROUP_RUN, "*_dsm_epoch1.tif"))[0]
+    return read_geotiff(path).data[0]
+
+
+def _dsm_rank(logs: str, out: str):
+    """A rank of phase 13(b)'s group (started by parallel.spawn):
+    create_pretty_dsm as the rank SATNERF_COORDINATOR names. Rank 0's MAE."""
+    from satnerf_tpu_torch.cli.create_dsm import create_pretty_dsm
+
+    _, ckpts = _serving_run()
+    return create_pretty_dsm(GROUP_RUN, logs, out, 1, checkpoints_dir=ckpts,
+                             device="cuda")
+
+
+def _large_rank(views: int):
+    """A rank of phase 13(b)'s group: phase 3's view tiled `views` times
+    through the collective render_image. Rank 0's products' digests and
+    its clock (rank 0 is the caller's process) where the render began and
+    ended."""
+    from satnerf_tpu_torch.parallel import distributed as D
+
+    D.maybe_init_distributed("cuda")
+    system, params, rays, ts = _group_system("sat-nerf")
+    rays, ts = np.tile(rays, (views, 1)), np.tile(ts, views)
+    began = time.perf_counter()
+    res = system.render_image(params, rays, ts)
+    ended = time.perf_counter()
+    out = (_digest(res), began, ended) if D.is_main() else None
+    D.barrier()
+    D.destroy()
+    return out
+
+
 def _train_one(argv: list) -> dict:
     """cli.train on one card (--n_devices 1: its default of 0 trains on every
     visible card), or as the rank SATNERF_COORDINATOR names."""
@@ -4095,7 +4624,8 @@ def main():
              ("9", lambda: phase9(results, card)),
              ("10", lambda: phase10(results, card)),
              ("11", lambda: phase11(results, card)),
-             ("12", lambda: phase12(results, card)))
+             ("12", lambda: phase12(results, card)),
+             ("13", lambda: phase13(results, card)))
     t_start = time.perf_counter()
     for key, run in steps:
         if only and key not in only:
@@ -4134,6 +4664,7 @@ def main():
             "launches_fused_on": results["launches_fused_on"][kname],
             "launches_nerf": results["launches_nerf"][kname],
             "launches_nerf_hier": results["launches_nerf_hier"][kname],
+            "launches_render_group": results["launches_group"].get(kname, 0),
             "max_abs_err": max(results["err"][(kname, "float32")],
                                results["err"][(kname, "bfloat16")]),
             **({"launches_by_mainloop": results["mainloop_launches"][kname],

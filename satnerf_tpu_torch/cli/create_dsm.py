@@ -3,7 +3,10 @@
 Render the most-nadir view under the most-nadir sun direction, rasterize the
 depth into a UTM DSM, register it against the lidar GT and report the
 altitude MAE (the reference's create_satnerf_dsm.py). The weights come from
-the port's PL-style checkpoint through satnerf_tpu_torch.eval.loader.
+the port's PL-style checkpoint through satnerf_tpu_torch.eval.loader; the
+view renders on the cards `render_ranks` gives there (opts.json's n_devices,
+one where the view is too small to repay starting ranks), and rank 0 alone
+writes and prints.
 
 Usage:
   python -m satnerf_tpu_torch.cli.create_dsm --run_id RUN --logs_dir logs \
@@ -26,6 +29,22 @@ def create_pretty_dsm(run_id: str, logs_dir: str, output_dir: str,
                       epoch_number: int, checkpoints_dir: str | None = None,
                       root_dir: str | None = None, img_dir: str | None = None,
                       gt_dir: str | None = None, device: str = "cuda"):
+    """Rank 0's altitude MAE (None without a gt_dir, and on the other
+    ranks)."""
+    from satnerf_tpu_torch.eval.loader import run_on_devices
+    from satnerf_tpu_torch.utils.sort import \
+        sort_by_increasing_view_incidence_angle
+
+    return run_on_devices(_create_pretty_dsm,
+                          (run_id, logs_dir, output_dir, epoch_number,
+                           checkpoints_dir, root_dir, img_dir, gt_dir, device),
+                          logs_dir, run_id, device, root_dir,
+                          lambda root: sort_by_increasing_view_incidence_angle(
+                              root)[:1])
+
+
+def _create_pretty_dsm(run_id, logs_dir, output_dir, epoch_number,
+                       checkpoints_dir, root_dir, img_dir, gt_dir, device):
     from satnerf_tpu_torch.data.rays import sun_direction
     from satnerf_tpu_torch.data.satellite import SatelliteScene
     from satnerf_tpu_torch.utils.sort import (
@@ -37,6 +56,7 @@ def create_pretty_dsm(run_id: str, logs_dir: str, output_dir: str,
                                         save_nerf_output_to_images,
                                         write_geotiff)
     from satnerf_tpu_torch.eval.loader import load_run
+    from satnerf_tpu_torch.parallel import distributed as D
 
     cfg, system, params = load_run(run_id, logs_dir, epoch_number,
                                    checkpoints_dir, root_dir, img_dir, gt_dir,
@@ -55,7 +75,8 @@ def create_pretty_dsm(run_id: str, logs_dir: str, output_dir: str,
     dataset.records = [dataset._record(reference_image, 0)]
     sample = dataset.load_image(0)
     src_id = sample["src_id"]
-    print(f"using image {src_id}...")
+    if D.is_main():
+        print(f"using image {src_id}...")
 
     ts = None
     if cfg.model == "sat-nerf":
@@ -74,6 +95,8 @@ def create_pretty_dsm(run_id: str, logs_dir: str, output_dir: str,
     sample["rays"] = rays
 
     results = system.render_image(params, rays, ts)
+    if not D.is_main():
+        return None
 
     out_dir = os.path.join(output_dir, run_id, "tmp")
     os.makedirs(out_dir, exist_ok=True)

@@ -2,7 +2,10 @@
 
 Render every test image of a trained run, dump the GeoTIFF product set and
 report mean PSNR / SSIM / DSM MAE (the reference's eval_satnerf.py). The
-weights come from the port's PL-style checkpoint.
+weights come from the port's PL-style checkpoint. The views render on the
+cards eval/loader.py's `render_ranks` gives (opts.json's n_devices, one
+where the views are too few to repay starting ranks); rank 0 alone writes
+and prints.
 
 Usage:
   python -m satnerf_tpu_torch.cli.eval eval_aoi --run_id RUN --logs_dir logs \
@@ -24,6 +27,23 @@ def eval_aoi(run_id: str, logs_dir: str, output_dir: str, epoch_number: int,
              split: str = "val", checkpoints_dir: str | None = None,
              root_dir: str | None = None, img_dir: str | None = None,
              gt_dir: str | None = None, device: str = "cuda"):
+    """Rank 0's scores {"psnr", "ssim", "mae"} (None on the other ranks)."""
+    from satnerf_tpu_torch.eval.loader import run_on_devices
+
+    def views(root):  # the split's images: val renders test.txt's
+        name = "train.txt" if split == "train" else "test.txt"
+        with open(os.path.join(root, name)) as f:
+            return [os.path.join(root, s) for s in f.read().split("\n")
+                    if s.strip()]
+
+    return run_on_devices(_eval_aoi, (run_id, logs_dir, output_dir,
+                                      epoch_number, split, checkpoints_dir,
+                                      root_dir, img_dir, gt_dir, device),
+                          logs_dir, run_id, device, root_dir, views)
+
+
+def _eval_aoi(run_id, logs_dir, output_dir, epoch_number, split,
+              checkpoints_dir, root_dir, img_dir, gt_dir, device):
     from satnerf_tpu_torch.data.satellite import SatelliteScene
     from satnerf_tpu_torch.ops.ssim import psnr as psnr_np
     from satnerf_tpu_torch.ops.ssim import ssim as ssim_np
@@ -32,7 +52,9 @@ def eval_aoi(run_id: str, logs_dir: str, output_dir: str, epoch_number: int,
                                         predefined_val_ts,
                                         save_nerf_output_to_images)
     from satnerf_tpu_torch.eval.loader import load_run
+    from satnerf_tpu_torch.parallel import distributed as D
 
+    main = D.is_main()
     cfg, system, params = load_run(run_id, logs_dir, epoch_number,
                                    checkpoints_dir, root_dir, img_dir, gt_dir,
                                    device)
@@ -58,12 +80,15 @@ def eval_aoi(run_id: str, logs_dir: str, output_dir: str, epoch_number: int,
                     t = find_best_embedding_for_val_image(
                         system, params, rays, rgbs,
                         train_indices=range(n_search))
-                    print(f"  (searched embedding for {src_id}: t={t})")
+                    if main:
+                        print(f"  (searched embedding for {src_id}: t={t})")
                 ts = np.full(rays.shape[0], t, dtype=np.int32)
             else:
                 ts = sample["ts"]
 
         results = system.render_image(params, rays, ts)
+        if not main:
+            continue
 
         out_dir = os.path.join(output_dir, run_id, split)
         os.makedirs(out_dir, exist_ok=True)
@@ -98,6 +123,8 @@ def eval_aoi(run_id: str, logs_dir: str, output_dir: str, epoch_number: int,
                 shutil.copyfile(in_tmp, out_tmp)
                 os.remove(in_tmp)
 
+    if not main:
+        return None
     print(f"\nMean PSNR: {np.mean(psnr):.3f}")
     print(f"Mean SSIM: {np.mean(ssim):.3f}")
     print(f"Mean MAE: {np.nanmean(mae):.3f}\n")

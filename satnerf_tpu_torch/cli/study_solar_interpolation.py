@@ -10,7 +10,10 @@ sun / albedo / rgb / depth.
       [--gt_dir ...] [--device cuda]
 
 The checkpoint may be the port's or the JAX package's (train/checkpoints.py
-reads both). The depth montage is coloured with the port's own viridis table
+reads both). The views render on the cards eval/loader.py's `render_ranks`
+gives (opts.json's n_devices, one where the views are too few to repay
+starting ranks); rank 0 alone writes and prints. The
+depth montage is coloured with the port's own viridis table
 (utils/colormap.py): the machine with the card has no matplotlib.
 """
 
@@ -83,15 +86,31 @@ def hstack_depth_tifs(img_paths, crop=True, vmin=None, vmax=None):
 def sun_interp(run_id, logs_dir, output_dir, epoch_number,
                checkpoints_dir=None, root_dir=None, img_dir=None, gt_dir=None,
                n_interp: int = 10, device: str = "cuda"):
+    from satnerf_tpu_torch.eval.loader import run_on_devices
+    from satnerf_tpu_torch.utils.sort import \
+        sort_by_increasing_view_incidence_angle
+
+    run_on_devices(_sun_interp, (run_id, logs_dir, output_dir, epoch_number,
+                                 checkpoints_dir, root_dir, img_dir, gt_dir,
+                                 n_interp, device),
+                   logs_dir, run_id, device, root_dir,
+                   lambda root: sort_by_increasing_view_incidence_angle(
+                       root)[:1] * n_interp)
+
+
+def _sun_interp(run_id, logs_dir, output_dir, epoch_number, checkpoints_dir,
+                root_dir, img_dir, gt_dir, n_interp, device):
     from satnerf_tpu_torch.data.rays import (solar_incidence_angle_deg,
                                              sun_direction)
     from satnerf_tpu_torch.data.satellite import SatelliteScene
     from satnerf_tpu_torch.eval import (predefined_val_ts,
                                         save_nerf_output_to_images)
     from satnerf_tpu_torch.eval.loader import load_run
+    from satnerf_tpu_torch.parallel import distributed as D
     from satnerf_tpu_torch.utils.sort import \
         sort_by_increasing_view_incidence_angle
 
+    main = D.is_main()
     cfg, system, params = load_run(run_id, logs_dir, epoch_number,
                                    checkpoints_dir, root_dir, img_dir, gt_dir,
                                    device)
@@ -127,7 +146,8 @@ def sun_interp(run_id, logs_dir, output_dir, epoch_number,
         ts = np.full(sample0["rays"].shape[0], t, dtype=np.int32)
 
     out_dir = os.path.join(output_dir, run_id)
-    os.makedirs(out_dir, exist_ok=True)
+    if main:
+        os.makedirs(out_dir, exist_ok=True)
 
     for i, alpha in enumerate(np.linspace(0, 1, n_interp)):
         sun_d = alpha * upper_sun_dir + (1 - alpha) * lower_sun_dir
@@ -139,6 +159,8 @@ def sun_interp(run_id, logs_dir, output_dir, epoch_number,
         rays[:, 8:11] = sun_d.astype(np.float32)
         sample["rays"] = rays
         results = system.render_image(params, rays, ts)
+        if not main:
+            continue
         save_nerf_output_to_images(dataset, sample, results, out_dir,
                                    epoch_number)
         for p in glob.glob(os.path.join(out_dir,
@@ -148,6 +170,8 @@ def sun_interp(run_id, logs_dir, output_dir, epoch_number,
         print(f"solar incidence angle {angle:.2f} completed "
               f"({i + 1} of {n_interp})")
 
+    if not main:
+        return
     # summary sheets (study_solar_interpolation.py:219-246)
     summary_dir = os.path.join(out_dir, "summary")
     os.makedirs(summary_dir, exist_ok=True)

@@ -39,7 +39,11 @@ def find_best_embedding_for_val_image(system, params, rays, gt_rgbs,
     subset of `max_rays` rays per candidate: the argmax over candidates is
     preserved (PSNR over a uniform spatial subsample ranks embeddings the
     same way) at ~1/100 the cost per full-resolution image. Set
-    max_rays=0 to force the reference's full-image behavior."""
+    max_rays=0 to force the reference's full-image behavior.
+
+    Collective like `render_image`: every rank of the render group calls it
+    with the same arguments, and each picks the same t from the whole
+    products it holds."""
     from satnerf_tpu_torch.ops.ssim import psnr
 
     if train_indices is None:

@@ -7,7 +7,14 @@ torch.distributed group: NCCL on the card, gloo on the CPU. Every process
 holds the whole model and trains on its own block of rays (mesh.py); the
 step's gradients and metrics are averaged by one all-reduce each
 (`all_reduce_mean`), as `pmean` averages them in the JAX step. Only rank 0
-writes: logs, opts.json, checkpoints, product dumps, validation.
+writes: logs, opts.json, checkpoints, product dumps, scores.
+
+Rendering (validation and the eval entry points) runs on the render group:
+the ranks on rank 0's host, built once at the join, the counterpart of the
+JAX system's `eval_mesh` (this process's local devices). Each of its ranks
+renders its block of every chunk's rows and `all_gather_rows` hands every
+rank the whole products (train/system.py `render_image`); ranks on other
+hosts render nothing.
 
 The environment contract is the JAX package's, set a process by the
 launcher:
@@ -42,13 +49,17 @@ import torch
 import torch.distributed as dist
 
 ENV = ("SATNERF_COORDINATOR", "SATNERF_NUM_PROCS", "SATNERF_PROC_ID")
-# Rank 0 validates and writes checkpoints while the others wait at the next
-# all-reduce, so a collective may wait as long as a validation pass takes:
-# the group's timeout is far past any of those.
+# The render group validates while ranks on other hosts wait at the next
+# all-reduce, and rank 0 scores and writes checkpoints while the others wait,
+# so a collective may wait as long as a validation pass takes: the group's
+# timeout is far past any of those.
 TIMEOUT = datetime.timedelta(hours=3)
 # every process must have joined within this (jax.distributed.initialize's
 # initialization_timeout)
 JOIN_TIMEOUT = datetime.timedelta(seconds=300)
+# the ranks on rank 0's host and their group (None: the default group),
+# set at the join; () outside a group
+_RENDER = {"ranks": (), "group": None}
 
 
 def is_distributed() -> bool:
@@ -91,7 +102,65 @@ def maybe_init_distributed(device_type: str = "cuda") -> int:
             # NCCL makes its communicator at the first collective, through
             # the store: make it while every rank is here
             dist.barrier(device_ids=[torch.cuda.current_device()])
+        _join_render_group(store, size, r)
     return world()
+
+
+def _join_render_group(store, size: int, r: int) -> None:
+    """Every rank: publish this host's name, read the others', and make the
+    render group of the ranks on rank 0's host (collective: new_group is
+    called by every rank alike)."""
+    store.set(f"render_host/{r}", socket.gethostname())
+    hosts = [store.get(f"render_host/{i}").decode() for i in range(size)]
+    ranks = tuple(i for i, h in enumerate(hosts) if h == hosts[0])
+    group = None if len(ranks) == size else dist.new_group(list(ranks))
+    _RENDER.update(ranks=ranks, group=group)
+
+
+def render_world() -> int:
+    """The ranks that render: those on rank 0's host (1 outside a group)."""
+    return len(_RENDER["ranks"]) if is_distributed() else 1
+
+
+def render_rank() -> int:
+    """This process's place in the render group (0 outside a group)."""
+    return _RENDER["ranks"].index(rank()) if is_distributed() else 0
+
+
+def renders() -> bool:
+    """True on a process that renders: every rank on rank 0's host, and the
+    process of a run without a group."""
+    return not is_distributed() or rank() in _RENDER["ranks"]
+
+
+def all_gather_rows(products: dict) -> dict:
+    """Each render rank's equal block of rows of every product tensor ->
+    the whole products on every rank of the render group, the blocks in
+    rank order. One all-gather a dtype over one flat buffer (gloo has no
+    all_gather_into_tensor: a list there). A no-op outside a group."""
+    w = render_world()
+    if w == 1:
+        return products
+    group = _RENDER["group"]
+    nccl = dist.get_backend(group) == "nccl"
+    out = {}
+    for dtype in dict.fromkeys(v.dtype for v in products.values()):
+        keys = [k for k, v in products.items() if v.dtype == dtype]
+        flat = torch.cat([products[k].reshape(-1) for k in keys])
+        if nccl:
+            whole = flat.new_empty((w, flat.numel()))
+            dist.all_gather_into_tensor(whole, flat, group=group)
+        else:
+            parts = [torch.empty_like(flat) for _ in range(w)]
+            dist.all_gather(parts, flat, group=group)
+            whole = torch.stack(parts)
+        offset = 0
+        for k in keys:
+            v = products[k]
+            out[k] = whole[:, offset:offset + v.numel()].reshape(
+                w * v.shape[0], *v.shape[1:])
+            offset += v.numel()
+    return {k: out[k] for k in products}
 
 
 def local_device(device_type: str) -> torch.device:
@@ -99,6 +168,33 @@ def local_device(device_type: str) -> torch.device:
     if device_type == "cuda":
         return torch.device("cuda", rank() % torch.cuda.device_count())
     return torch.device(device_type)
+
+
+def rank_device(device) -> torch.device:
+    """The device this process runs on: its card in a group, else `device`."""
+    device = torch.device(device)
+    return local_device(device.type) if is_distributed() else device
+
+
+def run_in_group(fn, args, n_devices: int, device_type: str):
+    """fn(*args) on every rank of a group: with SATNERF_COORDINATOR set this
+    process joins it as its rank; without it, n_devices (device_count's
+    rule) > 1 starts the ranks on this host (`spawn`), else fn runs alone.
+    The ranks meet at a barrier after fn; a group this call joined it also
+    leaves. Returns this process's result (rank 0's under `spawn`)."""
+    if not os.environ.get("SATNERF_COORDINATOR"):
+        n = device_count(n_devices, device_type)
+        if n > 1:
+            return spawn(run_in_group, (fn, args, n_devices, device_type), n)
+    joined = is_distributed()
+    maybe_init_distributed(device_type)
+    try:
+        out = fn(*args)
+        barrier()  # where the JAX package calls sync_global_devices
+        return out
+    finally:
+        if not joined:
+            destroy()
 
 
 def all_reduce_mean(tensors) -> None:
@@ -127,6 +223,7 @@ def destroy() -> None:
     its own."""
     if is_distributed():
         dist.destroy_process_group()
+    _RENDER.update(ranks=(), group=None)
 
 
 def device_count(n_devices: int, device_type: str) -> int:

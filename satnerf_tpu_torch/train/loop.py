@@ -24,9 +24,12 @@ Across devices (parallel/distributed.py): with SATNERF_COORDINATOR set the
 process joins its group and trains as its rank; without it, `--n_devices N`
 (0: every visible card) starts N ranks on this host, this process rank 0.
 Every rank loads the checkpoint it resumes from and keeps its shard of the
-rays (parallel/mesh.py); logging, opts.json, validation, checkpoints and
-product dumps are rank 0's, and every rank meets the others at a barrier at
-the end (satnerf_tpu/train/loop.py:142-287).
+rays (parallel/mesh.py). Validation renders on every rank of the render
+group (the ranks on rank 0's host, as the JAX loop validates over its
+process's local mesh): each renders its block of every chunk and holds the
+whole products (train/system.py `render_image`). Logging, scores, opts.json,
+checkpoints and product dumps are rank 0's, and every rank meets the others
+at a barrier at the end (D.run_in_group; satnerf_tpu/train/loop.py:142-287).
 """
 
 from __future__ import annotations
@@ -58,7 +61,11 @@ from satnerf_tpu_torch.utils import jax_prng
 def validate(system: NeRFSystem, params, val_dataset, cfg: Config,
              logger: RunLogger, step: int, epoch: int,
              max_images: int | None = None, save_images: bool = False):
-    """Render val images, log PSNR/SSIM (+ DSM MAE for sat data)."""
+    """Render val images, log PSNR/SSIM (+ DSM MAE for sat data).
+    Collective over the render group: every rank of it renders every image;
+    rank 0 alone scores, logs and writes, and returns the metrics (the
+    others return {})."""
+    main = D.is_main()
     n_images = len(val_dataset)
     if max_images is not None:
         n_images = min(n_images, max_images)
@@ -91,6 +98,8 @@ def validate(system: NeRFSystem, params, val_dataset, cfg: Config,
             ts = np.full(rays.shape[0], t, dtype=np.int32)
 
         results = system.render_image(params, rays, ts)
+        if not main:
+            continue
         typ = "fine" if "rgb_fine" in results else "coarse"
         pred = results[f"rgb_{typ}"]
 
@@ -151,34 +160,26 @@ def fit(cfg: Config) -> dict:
     if device_type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("cfg.device is 'cuda' but no CUDA device is visible "
                            "(pass --device cpu to train on the CPU)")
-    if not os.environ.get("SATNERF_COORDINATOR"):
-        n = D.device_count(cfg.n_devices, device_type)
-        if n > 1:
-            return D.spawn(fit, (cfg,), n)
-    in_group = D.is_distributed()
-    n_procs = D.maybe_init_distributed(device_type)
-    try:
-        return _fit(cfg, n_procs)
-    finally:
-        if not in_group:  # leave the group this call joined
-            D.destroy()
+    return D.run_in_group(_fit, (cfg,), cfg.n_devices, device_type)
 
 
-def _fit(cfg: Config, n_procs: int) -> dict:
+def _fit(cfg: Config) -> dict:
     t0 = time.time()
     main = D.is_main()
-    device = (D.local_device(torch.device(cfg.device).type)
-              if D.is_distributed() else torch.device(cfg.device))
+    device = D.rank_device(cfg.device)
     if main and D.is_distributed():
-        print(f"{n_procs} process(es), one a device: rank 0 on {device}")
+        print(f"{D.world()} process(es), one a device: rank 0 on {device}")
 
     train_sets = load_dataset(cfg, split="train")
     train_ds = train_sets[0]
     depth_ds = train_sets[1] if len(train_sets) > 1 else None
-    val_ds = load_dataset(cfg, split="val")[0] if main else None
+    # the render group validates; ranks on other hosts skip it
+    renders = D.renders()
+    val_ds = load_dataset(cfg, split="val")[0] if renders else None
     system = NeRFSystem(cfg, device=device, dataset_len=len(train_ds))
-    # all run IO (logs, opts.json, checkpoints, product dumps, validation)
-    # is rank 0's; the other ranks only feed the step's all-reduce
+    # all run IO (logs, scores, opts.json, checkpoints, product dumps) is
+    # rank 0's; the other ranks feed the step's all-reduce and render their
+    # blocks of validation's chunks
     logger = RunLogger(cfg.logs_dir, cfg.exp_name) if main else None
     if main:
         # cfg.fused stays what was asked; the log keeps what it resolved to
@@ -228,7 +229,7 @@ def _fit(cfg: Config, n_procs: int) -> dict:
         data["perm"] = system.epoch_perm(n_local, state.step // system.spe)
 
     # sanity validation (main.py:257)
-    if main and cfg.num_sanity_val_steps > 0:
+    if renders and cfg.num_sanity_val_steps > 0:
         validate(system, state.params, val_ds, cfg, logger, step=0, epoch=0,
                  max_images=cfg.num_sanity_val_steps)
 
@@ -294,7 +295,7 @@ def _fit(cfg: Config, n_procs: int) -> dict:
             epoch = (step_i + 1) // spe
             if shuffle:
                 data["perm"] = system.epoch_perm(n_local, epoch)
-            if main and epoch % cfg.val_every_n_epochs == 0:
+            if renders and epoch % cfg.val_every_n_epochs == 0:
                 final_metrics = validate(
                     system, state.params, val_ds, cfg, logger, step_i + 1,
                     epoch, save_images=epoch % cfg.save_every_n_epochs == 0)
@@ -305,13 +306,14 @@ def _fit(cfg: Config, n_procs: int) -> dict:
     # final checkpoint + validation
     if profiler is not None:
         profiler.stop()
+    epoch = cfg.max_train_steps // spe
     if main:
-        epoch = cfg.max_train_steps // spe
         _save(checkpoint_path(cfg.ckpts_dir, cfg.exp_name, epoch), state)
+    if renders:
         final_metrics = validate(system, state.params, val_ds, cfg, logger,
                                  cfg.max_train_steps, epoch, save_images=True)
+    if main:
         logger.close()
         print(f"done in {time.time() - t0:.1f}s — {final_metrics}")
-    D.barrier()  # where the JAX loop calls sync_global_devices
     return {"state": state, "system": system, "metrics": final_metrics,
             "cfg": cfg}

@@ -68,7 +68,9 @@ versions.
 Across devices (parallel/): one process a device, each rank drawing its
 batch_size / world rays from its shard of the data, the gradients and
 metrics averaged by all-reduce before Adam, where the JAX system runs one
-shard_map over a mesh. Not carried over from the JAX system: the f16
+shard_map over a mesh; `render_image` splits each chunk's rows over the
+ranks on rank 0's host and gathers the products, where the JAX system's
+shard_map runs over its eval mesh. Not carried over from the JAX system: the f16
 eval-wire compression and the threaded fetch pool.
 """
 
@@ -98,6 +100,7 @@ from satnerf_tpu_torch.ops.fused_mlp import (fused_field_apply,
                                              fused_train_loss_grads,
                                              fused_train_render_rays)
 from satnerf_tpu_torch.parallel import distributed as D
+from satnerf_tpu_torch.parallel.mesh import shard_rows
 from satnerf_tpu_torch.render.render import (RenderConfig, render_rays,
                                              resample_zvals)
 from satnerf_tpu_torch.render.sampling import stratified_zvals
@@ -480,18 +483,38 @@ class NeRFSystem:
 
     def render_image(self, params, rays: np.ndarray, ts) -> dict:
         """Render H*W rays in chunks of cfg.chunk and return numpy products
-        (the reference's batched_inference, eval_satnerf.py:46-66)."""
-        chunk = self.cfg.chunk
+        (the reference's batched_inference, eval_satnerf.py:46-66).
+
+        Across the w ranks of the render group (parallel/distributed.py:
+        the ranks on rank 0's host) it is collective, as the JAX system's
+        shard_map over its eval mesh: every rank of the group calls it with
+        the same rays and ts in the same order. A chunk is cfg.chunk rounded
+        up to a multiple of w, the last one padded with zero rays (ts 0),
+        rank r renders its block of each chunk's rows (parallel/mesh.py
+        `shard_rows`), the blocks are gathered and the padding dropped, and
+        every rank returns the whole products. With w = 1 each chunk is
+        rendered whole on this device."""
+        w = D.render_world()
+        chunk = -(-self.cfg.chunk // w) * w
         outs = []
         with torch.inference_mode():
             for i in range(0, rays.shape[0], chunk):
-                r = torch.from_numpy(np.ascontiguousarray(
-                    rays[i:i + chunk], dtype=np.float32)).to(self.device)
-                t = None
-                if ts is not None:
-                    t = torch.from_numpy(np.asarray(ts[i:i + chunk],
-                                                    np.int64)).to(self.device)
+                r = np.asarray(rays[i:i + chunk], dtype=np.float32)
+                t = None if ts is None else np.asarray(ts[i:i + chunk],
+                                                       np.int64)
+                n = r.shape[0]
+                if w > 1:
+                    lo, hi, _ = shard_rows(chunk, w, D.render_rank())
+                    r = np.pad(r, ((0, chunk - n), (0, 0)))[lo:hi]
+                    if t is not None:
+                        t = np.pad(t, (0, chunk - n))[lo:hi]
+                r = torch.from_numpy(np.ascontiguousarray(r)).to(self.device)
+                if t is not None:
+                    t = torch.from_numpy(np.ascontiguousarray(t)).to(
+                        self.device)
                 res = self.render_chunk(params, r, t)
+                if w > 1:
+                    res = {k: v[:n] for k, v in D.all_gather_rows(res).items()}
                 outs.append({k: v.float().cpu().numpy() for k, v in res.items()})
         return {k: np.concatenate([o[k] for o in outs], 0) for k in outs[0]}
 

@@ -6,8 +6,8 @@ read a checkpoint the JAX package wrote, build a synthetic AOI with
 transients and RPC noise, run the solar study and load the capability tool,
 run the DSM oracle of cli.dsm_diagnostics, load the convergence tool and a
 JAX initial checkpoint (equal to the port's own draw of its seed), shard
-rays as a rank of two does, load the parity tool, import
-every other entry point, and look at
+rays as a rank of two does, load the parity tool, render as a world of one
+through the render group, import every other entry point, and look at
 sys.modules. No jax, jaxlib, flax or optax, no module of the
 JAX package satnerf_tpu, and neither msgpack nor matplotlib (the machine
 with the card has neither) may have been loaded."""
@@ -184,6 +184,27 @@ spec = importlib.util.spec_from_file_location(
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print("R4 M7 M8 OK")
 
+# M9: the collective render as a world of one (gloo) is the render without
+# a group
+import socket
+from satnerf_tpu_torch.parallel import distributed as D
+with socket.socket() as sock:
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+system = NeRFSystem(Config(model="sat-nerf", fc_layers=4, fc_units=16,
+                           n_samples=8, chunk=5, device="cpu", fused="rays"))
+params = system.init_params(0)
+ts7 = np.zeros(7, np.int32)
+plain = system.render_image(params, rays[:7], ts7)
+os.environ.update(SATNERF_COORDINATOR=f"localhost:{port}",
+                  SATNERF_NUM_PROCS="1", SATNERF_PROC_ID="0")
+one = D.run_in_group(system.render_image, (params, rays[:7], ts7), 1, "cpu")
+for k in D.ENV:
+    os.environ.pop(k)
+assert D.render_world() == 1 and not D.is_distributed()
+assert all(np.array_equal(plain[k], one[k]) for k in plain)
+print("M9 OK")
+
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                        "satnerf_tpu", "msgpack",
@@ -205,3 +226,4 @@ def test_port_imports_no_jax():
     assert "M5 M2 OK" in proc.stdout
     assert "M6 M4 OK" in proc.stdout
     assert "R4 M7 M8 OK" in proc.stdout
+    assert "M9 OK" in proc.stdout

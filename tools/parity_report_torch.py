@@ -4,9 +4,12 @@ tools/parity_report.py).
 
 One command that takes a prepared DFC2019-style dataset and a checkpoint,
 renders the val split through the port's eval (`cli/eval.py` `eval_aoi`, on
-the card unless `--device cpu`) and writes a side-by-side parity report
-(PSNR / SSIM / DSM MAE): the reference's eval protocol
-(eval_satnerf.py:213-313) as a single unit.
+the card unless `--device cpu`, on the cards eval/loader.py's
+`render_ranks` gives)
+and writes a side-by-side parity report (PSNR / SSIM / DSM MAE): the
+reference's eval protocol (eval_satnerf.py:213-313) as a single unit. With
+SATNERF_COORDINATOR set every process runs the tool as its rank, and rank 0
+alone writes.
 
 Usage:
   python tools/parity_report_torch.py --ckpt /path/epoch=27.ckpt \\
@@ -62,6 +65,27 @@ def build_config(args):
     return Config(**base)
 
 
+def _evaluate(cfg, args, epoch: int):
+    """Rank 0 writes a run directory the eval surface reads
+    ({logs}/parity/opts.json + {ckpts}/parity/epoch={N}.ckpt) before any
+    rank reads it; then eval_aoi's scores (None on the other ranks)."""
+    from satnerf_tpu_torch.cli.eval import eval_aoi
+    from satnerf_tpu_torch.parallel import distributed as D
+    from satnerf_tpu_torch.train.checkpoints import checkpoint_path
+
+    if D.is_main():
+        cfg.dump()
+        dst = checkpoint_path(cfg.ckpts_dir, RUN_ID, epoch)
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        shutil.copyfile(args.ckpt, dst)
+    D.barrier()
+    return eval_aoi(run_id=RUN_ID, logs_dir=cfg.logs_dir,
+                    output_dir=args.output_dir, epoch_number=epoch,
+                    split="val", checkpoints_dir=cfg.ckpts_dir,
+                    root_dir=cfg.root_dir, img_dir=cfg.img_dir,
+                    gt_dir=cfg.gt_dir, device=args.device)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ckpt", required=True,
@@ -85,24 +109,19 @@ def main(argv=None):
         ap.add_argument(f"--expected_{k}", type=float, default=None)
     args = ap.parse_args(argv)
 
-    from satnerf_tpu_torch.cli.eval import eval_aoi
-    from satnerf_tpu_torch.train.checkpoints import checkpoint_path
+    import torch
+
+    from satnerf_tpu_torch.parallel import distributed as D
 
     cfg = build_config(args)
-    # a run directory the eval surface reads:
-    # {logs}/parity/opts.json + {ckpts}/parity/epoch={N}.ckpt
     m = re.search(r"epoch=(\d+)", os.path.basename(args.ckpt))
     epoch = int(m.group(1)) if m else 0
-    cfg.dump()
-    dst = checkpoint_path(cfg.ckpts_dir, RUN_ID, epoch)
-    os.makedirs(os.path.dirname(dst), exist_ok=True)
-    shutil.copyfile(args.ckpt, dst)
-
-    ours = eval_aoi(run_id=RUN_ID, logs_dir=cfg.logs_dir,
-                    output_dir=args.output_dir, epoch_number=epoch,
-                    split="val", checkpoints_dir=cfg.ckpts_dir,
-                    root_dir=cfg.root_dir, img_dir=cfg.img_dir,
-                    gt_dir=cfg.gt_dir, device=args.device)
+    # as a rank of SATNERF_COORDINATOR's group, or alone; eval_aoi then
+    # renders on the ranks the run's n_devices and views call for
+    ours = D.run_in_group(_evaluate, (cfg, args, epoch), 1,
+                          torch.device(args.device).type)
+    if ours is None:  # a rank other than 0
+        return None
 
     expected = {"psnr": args.expected_psnr, "ssim": args.expected_ssim,
                 "mae": args.expected_mae}
