@@ -215,9 +215,24 @@ plain version):
      With one card (b) prints that it did not run. Phase 10's two ranks
      also validate: both render their half of every chunk, and the logged
      val/psnr is one card's validation of the saved checkpoint
+  14 the bench (python -m satnerf_tpu_torch.cli.bench, the root bench.py's
+     counterpart): its ten rows through tools/bench_matrix_torch.py at
+     BENCH_STEPS 5, each a process of its own on this card (the nine of
+     tools/bench_matrix.py at bench.py's sizes, 8 x 512 for every model, and
+     train_default_b1024). Every row's line must hold value > 0, 0 < mfu <
+     1, device_ms > 0, 0 <= idle < 1, vs_baseline null, flops_per_ray the
+     port's utils/flops.py for the row's configuration, and launches of the
+     kernels its path runs (K1's on the train rows, K3's sc_loss_bwd on
+     train_sc, K7's on train_nerf, K2's on serve_rays, serve_nimp and
+     image_surface, K6's field_heads on serve_points, K8's on serve_nerf,
+     and the draw kernel on every train row); each row's figures are
+     printed. Then tools/profile_render_torch.py --train and its default
+     262,144-ray render run in this phase, and the rows train_default_b1024
+     and image_surface must read their device-ms within 10 % of them (the
+     two read one sum, utils/device_time.py)
 
-No earlier phase was cut when phases 2d, 2e, 6, 7, 8, 9, 10, 11, 12 and 13
-came: the whole run stays well inside half its time limit.
+No earlier phase was cut when phases 2d, 2e, 6, 7, 8, 9, 10, 11, 12, 13 and
+14 came: the whole run stays inside half its time limit.
 
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Scratch files go to build/chip_smoke/.
@@ -610,23 +625,19 @@ COMPOSITE_KERNELS = ("composite_loss_bwd", "composite_bwd")
 
 
 def _counts() -> dict:
-    """FM.LAUNCHES, with the K = 0 kernel of siren_dense counted apart
-    ("siren_dense_k0": its launches on the "k0" mainloop), and the draw
-    kernel's (JD.LAUNCHES: the draws run on the card on every path)."""
-    from satnerf_tpu_torch.ops import fused_mlp as FM
-    from satnerf_tpu_torch.ops import jax_draws as JD
+    """Every kernel's launches (satnerf_tpu_torch.ops.launch_counts), the K = 0
+    kernel of siren_dense apart as "siren_dense_k0" and the draw kernel's
+    among them (the draws run on the card on every path)."""
+    from satnerf_tpu_torch.ops import launch_counts
 
-    return {**FM.LAUNCHES, **JD.LAUNCHES,
-            "siren_dense_k0": FM.MAINLOOP_LAUNCHES.get(("siren_dense", "k0"), 0)}
+    return launch_counts()
 
 
 def _reset_launches() -> None:
     """Every count _counts reads to 0."""
-    from satnerf_tpu_torch.ops import fused_mlp as FM
-    from satnerf_tpu_torch.ops import jax_draws as JD
+    from satnerf_tpu_torch.ops import reset_launch_counts
 
-    FM.reset_launches()
-    JD.reset_launches()
+    reset_launch_counts()
 
 
 def _field_launches(launches: dict) -> dict:
@@ -3497,18 +3508,15 @@ def _device_ms(fn, reps: int = 3, name: str = "") -> float:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from satnerf_tpu_torch.utils import device_time as DT
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages()
-             if getattr(e, "device_time_total", 0) > 0
-             and str(getattr(e, "device_type", "")).endswith("CUDA")
-             and not getattr(e, "is_user_annotation", False)
-             and name in e.key)
-    return us / 1e3 / reps
+    return DT.device_ms(prof, name) / reps
 
 
 def _kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 3) -> float:
@@ -4546,6 +4554,128 @@ def phase13(results: dict, card: str):
         fail(f"the {n}-ray view on {w} ranks differs from one card")
 
 
+# phase 14: the kernels each bench row's path must launch (the ports of the
+# TPU kernels that row's JAX path runs, PERF.md section 6); the draw kernel
+# runs on every train row
+_K1 = TRAIN_KERNELS + ("siren_dense_k0",)
+_K2 = ("siren_dense", "siren_dense_k0", "heads_composite")
+BENCH_ROW_KERNELS = {
+    "train_default": _K1 + (DRAW_KERNEL,),
+    "train_default_b1024": _K1 + (DRAW_KERNEL,),
+    "train_sc": _K1 + ("sc_loss_bwd", DRAW_KERNEL),
+    "train_nimp": _K1 + (DRAW_KERNEL,),
+    "train_nerf": NERF_TRAIN_KERNELS + (DRAW_KERNEL,),
+    "serve_rays": _K2, "serve_nimp": _K2, "image_surface": _K2,
+    "serve_points": ("siren_dense", "field_heads"),
+    "serve_nerf": ("nerf_dense", "nerf_heads_composite"),
+}
+# the bench's device-ms against tools/profile_render_torch.py's in the same
+# phase: (bench row, the tool's arguments, the label of its profiled calls)
+BENCH_VS_PROFILE = (("train_default_b1024", ["--train"], "10 train steps"),
+                    ("image_surface", [], "render_image"))
+BENCH_VS_PROFILE_TOL = 0.10
+
+
+def _profile_device_ms(argv: list, what: str) -> float:
+    """tools/profile_render_torch.py's device-ms a call of `what`."""
+    import re
+
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools", "profile_render_torch.py"),
+         *argv], cwd=REPO, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise SystemExit(f"phase 14 failed: profile_render_torch.py {argv} "
+                         f"exited {proc.returncode}: {proc.stderr[-2000:]}")
+    m = re.search(rf"^{re.escape(what)}: ([0-9.]+) device-ms a call over",
+                  proc.stdout, re.M)
+    if m is None:
+        raise SystemExit(f"phase 14 failed: no device-ms line for {what!r} in "
+                         f"{proc.stdout[-2000:]}")
+    return float(m.group(1))
+
+
+def phase14(results: dict, card: str):
+    """The bench's ten rows on the card, each line held, two device-ms
+    readings against the profile tool's."""
+    import gc
+    import importlib.util
+
+    import torch
+
+    from satnerf_tpu_torch.utils.flops import flops_per_ray
+
+    def fail(msg):
+        raise SystemExit(f"phase 14 failed: {msg}")
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the rows run in processes of their own
+    spec = importlib.util.spec_from_file_location(
+        "bench_matrix_torch", os.path.join(REPO, "tools", "bench_matrix_torch.py"))
+    matrix = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(matrix)
+    out = os.path.join(WORK, "BENCH_MATRIX_torch.json")
+    os.makedirs(WORK, exist_ok=True)
+    env = {**os.environ, "BENCH_STEPS": "5", "BENCH_DEVICE": "cuda"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools", "bench_matrix_torch.py"),
+         "--out", out, "--timeout", "300"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=1200)
+    log(f"phase 14: the matrix's ten rows in {time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0:
+        fail(f"tools/bench_matrix_torch.py exited {proc.returncode}: "
+             f"{proc.stdout[-3000:]}")
+    with open(out) as f:
+        rows = json.load(f)["rows"]
+    if set(rows) != set(matrix.ROWS):
+        fail(f"rows {sorted(rows)}, not {sorted(matrix.ROWS)}")
+    totals = {}
+    for name, row in rows.items():
+        ov = matrix.ROWS[name]
+        mode = ov.get("BENCH_MODE", "train")
+        fpr = flops_per_ray(
+            ov.get("BENCH_MODEL", "sat-nerf"), LAYERS, FEAT, SAMPLES,
+            mode="train" if mode == "train" else "render",
+            sc=mode == "train" and float(ov.get("BENCH_SC", 0)) > 0,
+            n_importance=int(ov.get("BENCH_NIMP", 0))) / 1e6
+        problems = [what for what, ok in (
+            ("value > 0", row["value"] > 0),
+            ("0 < mfu < 1", 0 < row["mfu"] < 1),
+            ("device_ms > 0", (row["device_ms"] or 0) > 0),
+            ("0 <= idle < 1", row["idle"] is not None and 0 <= row["idle"] < 1),
+            ("vs_baseline null", row["vs_baseline"] is None),
+            (f"flops_per_ray {fpr}", row["flops_per_ray"] == fpr),
+            (f"metric {mode}_rays_per_sec_per_chip",
+             row["metric"] == f"{mode}_rays_per_sec_per_chip"),
+            (f"card {card}", row["card"] == card)) if not ok]
+        missing = [k for k in BENCH_ROW_KERNELS[name]
+                   if not row["launches"].get(k)]
+        log(f"phase 14: {name}: {row['value']:.1f} rays/s, event_ms "
+            f"{[round(x, 4) for x in row['event_ms']]}, device_ms "
+            f"{row['device_ms']:.4f} (profiled run {row['profiled_ms']:.4f} "
+            f"ms a call), idle {row['idle']:.4f}, mfu "
+            f"{row['mfu']:.4f}, peak {row['peak_gib']:.2f} GiB, batch "
+            f"{row['batch']}, steps {row['steps']}, fused {row['fused']}, "
+            f"{row['flops_per_ray']:.2f} MFLOP a ray, launches "
+            f"{row['launches']}, {row['wall_s']:.1f} s, on {row['card']}")
+        if problems or missing:
+            fail(f"{name}: {problems} do not hold, no launch of {missing}")
+        for k, v in row["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+    results["launches_bench"] = totals
+    for name, argv, what in BENCH_VS_PROFILE:
+        t0 = time.perf_counter()
+        ref = _profile_device_ms(argv, what)
+        got = rows[name]["device_ms"]
+        rel = abs(got - ref) / ref
+        log(f"phase 14: {name} {got:.4f} device-ms a call, "
+            f"profile_render_torch.py {' '.join(argv) or '(render)'} {ref:.4f}: "
+            f"{100 * rel:.2f} % apart ({time.perf_counter() - t0:.1f} s) on {card}")
+        if rel > BENCH_VS_PROFILE_TOL:
+            fail(f"{name}'s device-ms {got} is {100 * rel:.1f} % from the "
+                 f"profile tool's {ref} (at most {100 * BENCH_VS_PROFILE_TOL} %)")
+
+
 def _dsm_of(out: str):
     from satnerf_tpu_torch.eval import read_geotiff
 
@@ -4625,7 +4755,8 @@ def main():
              ("10", lambda: phase10(results, card)),
              ("11", lambda: phase11(results, card)),
              ("12", lambda: phase12(results, card)),
-             ("13", lambda: phase13(results, card)))
+             ("13", lambda: phase13(results, card)),
+             ("14", lambda: phase14(results, card)))
     t_start = time.perf_counter()
     for key, run in steps:
         if only and key not in only:
@@ -4665,6 +4796,7 @@ def main():
             "launches_nerf": results["launches_nerf"][kname],
             "launches_nerf_hier": results["launches_nerf_hier"][kname],
             "launches_render_group": results["launches_group"].get(kname, 0),
+            "launches_bench": results["launches_bench"].get(kname, 0),
             "max_abs_err": max(results["err"][(kname, "float32")],
                                results["err"][(kname, "bfloat16")]),
             **({"launches_by_mainloop": results["mainloop_launches"][kname],
@@ -4691,6 +4823,7 @@ def main():
         "replaces": DRAW_REPLACES, "replaces_also": DRAW_REPLACES_ALSO,
         "launches": results["launches"][DRAW_KERNEL],
         "launches_full_recipe": results["launches_full"][DRAW_KERNEL],
+        "launches_bench": results["launches_bench"].get(DRAW_KERNEL, 0),
         "max_abs_err": results["err"][(DRAW_KERNEL, "float32")], **t})
     log(f"build {secs:.1f} s, phases {time.perf_counter() - t_start:.1f} s; "
         f"card {card}")

@@ -100,8 +100,7 @@ def render_ranks(cfg: Config, rays: int, device_type: str) -> int:
     cost, RANKS_COST_S."""
     if device_type != "cuda":
         return 1
-    visible = torch.cuda.device_count()
-    w = min(cfg.n_devices or visible, visible)
+    w = D.device_count(cfg.n_devices, device_type)
     if w < 2:
         return 1
     samples = cfg.n_samples + (cfg.n_samples + cfg.n_importance

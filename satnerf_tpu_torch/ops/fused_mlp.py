@@ -2006,10 +2006,11 @@ class _FieldApply(torch.autograd.Function):
     outputs on the card. When a graph is recorded the forward keeps the
     chain's activations and fp32 slopes on the node, as `_TrainRender` does
     (about 1.4 GB for each 65,536 points of an 8 x 512 field), and the
-    backward frees them; under no_grad or inference_mode it saves nothing.
-    cfg["input_grads"] (K6) also returns the cotangents of rays_o (the
-    points) and sun_dir; the ray mode (K5) gives them none, and z never gets
-    one, as in the JAX kernels."""
+    backward frees them; under no_grad or inference_mode (cfg["record"]
+    False: the caller's grad mode, which the forward itself never sees) it
+    runs the serving chain and saves nothing. cfg["input_grads"] (K6) also
+    returns the cotangents of rays_o (the points) and sun_dir; the ray mode
+    (K5) gives them none, and z never gets one, as in the JAX kernels."""
 
     @staticmethod
     def forward(ctx, field, cfg: dict, rays_o, rays_d, sun_dir, z, t_embed,
@@ -2018,7 +2019,7 @@ class _FieldApply(torch.autograd.Function):
         rays16 = pack_rays(rays_o, rays_d, sun_dir, t_embed, cfg["tau"])
         packed = pack_params(field, skip=skip, use_beta=use_beta,
                              dtype=cfg["dtype"])
-        if not any(ctx.needs_input_grad):
+        if not (cfg.get("record", True) and any(ctx.needs_input_grad)):
             return _field_staged(packed, rays16, z, skip=skip,
                                  use_beta=use_beta,
                                  rgb_padding=cfg["rgb_padding"])
@@ -2108,7 +2109,7 @@ def fused_field_apply_rays(params, rays_o, rays_d, sun_dir, t_embed, z_vals, *,
     _check_card_call("fused_field_apply_rays", params, z_vals, sun_dir,
                      t_embed, layers, feat, skip, use_beta, tau, rgb_padding)
     cfg = dict(skip=skip, use_beta=use_beta, rgb_padding=rgb_padding, tau=tau,
-               dtype=dtype, input_grads=False)
+               dtype=dtype, input_grads=False, record=torch.is_grad_enabled())
     out = _FieldApply.apply(
         params, cfg, rays_o.detach(), rays_d.detach(), sun_dir.detach(),
         z_vals.detach().float().contiguous(), t_embed if use_beta else None,
@@ -2154,7 +2155,7 @@ def fused_field_apply(params, xyz, sun_dir, t_embed=None, *, layers: int = 8,
     pts = xyz.reshape(-1, 3)
     n = pts.shape[0]
     cfg = dict(skip=skip, use_beta=use_beta, rgb_padding=rgb_padding, tau=tau,
-               dtype=dtype, input_grads=True)
+               dtype=dtype, input_grads=True, record=torch.is_grad_enabled())
     out = _FieldApply.apply(
         params, cfg, pts, torch.zeros_like(pts), sun_dir.reshape(n, 3),
         torch.zeros((n, 1), dtype=torch.float32, device=xyz.device),

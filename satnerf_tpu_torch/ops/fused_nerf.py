@@ -943,7 +943,9 @@ class _NerfApply(torch.autograd.Function):
     outputs on the card. When a graph is recorded the forward keeps the
     chain's activations on the node (the compute dtype's 2 or 4 bytes for each
     of 8 F + F + F/2 values a point: no fp32 slope is saved) and the backward
-    frees them; under no_grad or inference_mode it saves nothing."""
+    frees them; under no_grad or inference_mode (cfg["record"] False: the
+    caller's grad mode, which the forward itself never sees) it saves
+    nothing."""
 
     @staticmethod
     def forward(ctx, field, cfg: dict, xyz, view_dir, *weights):
@@ -952,7 +954,7 @@ class _NerfApply(torch.autograd.Function):
         z = torch.zeros((xyz.shape[0], 1), dtype=torch.float32,
                         device=xyz.device)
         packed = pack_params(field, skip=skip, dtype=cfg["dtype"])
-        keep = any(ctx.needs_input_grad)
+        keep = cfg.get("record", True) and any(ctx.needs_input_grad)
         a = _chain_forward(packed, rays8, z, skip=skip, n_freq=n_freq,
                            keep=keep)
         out = nerf_field_heads(a["hs"][-1], a["r"], packed["wn"], packed["bn"],
@@ -1018,7 +1020,8 @@ def fused_nerf_apply(params, xyz, view_dir, *, layers: int = 8,
     dirs = (torch.zeros_like(pts) if view_dir is None
             else view_dir.detach().reshape(-1, 3))
     cfg = dict(skip=skip, n_freq=(n_freq_xyz, n_freq_dir),
-               rgb_padding=rgb_padding, dtype=dtype)
+               rgb_padding=rgb_padding, dtype=dtype,
+               record=torch.is_grad_enabled())
     out = _NerfApply.apply(params, cfg, pts, dirs, *params.parameters())
     return {"rgb": out[:, 0:3].reshape(*lead, 3),
             "sigma": out[:, 3].reshape(*lead)}

@@ -33,7 +33,9 @@ A rank that fails ends the run rather than leaving the others waiting out
 TIMEOUT: every process must join within JOIN_TIMEOUT; a non-finite loss
 stops every rank at the same step (train/loop.py); under `spawn`, a child
 that fails makes rank 0's collectives fail, and a rank 0 that fails ends
-the children.
+the children, first waiting (at most START_TIMEOUT) for any child still
+starting to have begun its part, so that one that fails as it begins is
+counted among the failed whatever its start took.
 """
 
 from __future__ import annotations
@@ -57,6 +59,9 @@ TIMEOUT = datetime.timedelta(hours=3)
 # every process must have joined within this (jax.distributed.initialize's
 # initialization_timeout)
 JOIN_TIMEOUT = datetime.timedelta(seconds=300)
+# a `spawn` child imports torch and the port before it runs its part: at a
+# failure of rank 0, the longest it is waited for to have begun
+START_TIMEOUT = 60.0
 # the ranks on rank 0's host and their group (None: the default group),
 # set at the join; () outside a group
 _RENDER = {"ranks": (), "group": None}
@@ -227,16 +232,14 @@ def destroy() -> None:
 
 
 def device_count(n_devices: int, device_type: str) -> int:
-    """The processes `--n_devices` asks for: 0 means every visible card (one
-    on the CPU); more cards than are visible is refused."""
+    """The processes `--n_devices` asks for: on the card the first
+    n_devices visible cards, all of them for 0 or for more than are visible
+    (the JAX package's `make_mesh(n_devices)`, `jax.devices()[:n]`); on the
+    CPU n_devices gloo ranks (one for 0)."""
     if device_type != "cuda":
         return max(n_devices, 1)
     visible = torch.cuda.device_count()
-    n = visible if n_devices == 0 else n_devices
-    if n > visible:
-        raise ValueError(f"--n_devices {n_devices}: only {visible} CUDA "
-                         f"device(s) visible")
-    return n
+    return min(n_devices, visible) if n_devices > 0 else visible
 
 
 def _free_port() -> int:
@@ -245,9 +248,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _child(fn, args, env: dict) -> None:
+def _child(fn, args, env: dict, started, failed) -> None:
+    started.set()
     os.environ.update(env)
-    fn(*args)
+    try:
+        fn(*args)
+    except BaseException:
+        failed.set()
+        raise
 
 
 def _abort() -> None:
@@ -259,14 +267,23 @@ def _abort() -> None:
         abort()
 
 
-def _stop(children, grace: float) -> list:
-    """Wait up to `grace` seconds in all for the children to end, then end
-    the rest. Returns the ranks of those that had ended with an error."""
+def _stop(children, grace: float, start_timeout: float = 0.0) -> list:
+    """children: (process, started, failed) of ranks 1.. Wait up to
+    `start_timeout` seconds in all for each child to have begun its part
+    (or ended), then up to `grace` seconds in all for them to end, then end
+    the rest. Returns the ranks of those that had failed: ended with an
+    error, or raised in their part (`_child`), however long the start took."""
+    deadline = time.monotonic() + start_timeout
+    for c, started, _ in children:
+        while (c.exitcode is None and not started.is_set()
+               and time.monotonic() < deadline):
+            started.wait(0.1)
     deadline = time.monotonic() + grace
-    for c in children:
+    for c, _, _ in children:
         c.join(max(deadline - time.monotonic(), 0))
-    ended = [r for r, c in enumerate(children, 1) if c.exitcode not in (None, 0)]
-    for c in children:
+    ended = [r for r, (c, _, failed) in enumerate(children, 1)
+             if failed.is_set() or c.exitcode not in (None, 0)]
+    for c, _, _ in children:
         if c.is_alive():
             c.terminate()
             c.join(5)
@@ -287,16 +304,20 @@ def spawn(fn, args, n: int):
     base = {"SATNERF_COORDINATOR": f"localhost:{_free_port()}",
             "SATNERF_NUM_PROCS": str(n)}
     ctx = multiprocessing.get_context("spawn")
-    children = [ctx.Process(target=_child,
-                            args=(fn, args, {**base, "SATNERF_PROC_ID": str(r)}))
-                for r in range(1, n)]
-    for c in children:
+    children = []
+    for r in range(1, n):
+        started, failed = ctx.Event(), ctx.Event()
+        env = {**base, "SATNERF_PROC_ID": str(r)}
+        children.append((ctx.Process(target=_child, args=(fn, args, env,
+                                                          started, failed)),
+                         started, failed))
+    for c, _, _ in children:
         c.start()
     done = threading.Event()
 
     def watch():
         while not done.wait(0.5):
-            if any(c.exitcode not in (None, 0) for c in children):
+            if any(c.exitcode not in (None, 0) for c, _, _ in children):
                 _abort()
                 return
 
@@ -307,7 +328,7 @@ def spawn(fn, args, n: int):
     try:
         out = fn(*args)
     except BaseException as e:
-        ended = _stop(children, grace=1)
+        ended = _stop(children, grace=1, start_timeout=START_TIMEOUT)
         if ended:
             e.add_note(f"rank(s) {ended} of {n} failed too")
         raise
@@ -322,7 +343,8 @@ def spawn(fn, args, n: int):
     # every rank has passed the run's last barrier: the children only leave
     # the group
     _stop(children, grace=60)
-    failed = [r for r, c in enumerate(children, 1) if c.exitcode != 0]
+    failed = [r for r, (c, _, f) in enumerate(children, 1)
+              if f.is_set() or c.exitcode != 0]
     if failed:
         raise RuntimeError(f"rank(s) {failed} of {n} failed")
     return out

@@ -79,9 +79,11 @@ def params_from_jax(params_np: dict, variant: str, layers: int = 8) -> dict:
             continue
         for jax_name, torch_name in jax_dense_names(variant, layers):
             d = params_np[ours][jax_name]["Dense_0"]
-            # torch.tensor copies, so the result owns writable memory
-            sd[f"{prefix}.{torch_name}.weight"] = torch.tensor(
-                np.asarray(d["kernel"], np.float32).T)
+            # np.array copies into C order in one pass (torch.tensor of the
+            # transposed view copies element by element), so the result
+            # owns writable memory
+            sd[f"{prefix}.{torch_name}.weight"] = torch.from_numpy(np.array(
+                np.asarray(d["kernel"], np.float32).T, order="C"))
             sd[f"{prefix}.{torch_name}.bias"] = torch.tensor(
                 np.asarray(d["bias"], np.float32))
     if "t" in params_np:

@@ -326,24 +326,27 @@ class NeRFSystem:
         `init_params(PRNGKey(seed))` to the bit (`jax_init_params`)."""
         cfg = self.cfg
 
+        # built on the CPU from a generator of their own (the global one
+        # draws nothing), overwritten by the JAX draw, then moved to the
+        # device. The meta device would spare those draws (tens of ms) but
+        # costs seconds of torch's lazy imports at a process's first call.
+        gen = torch.Generator().manual_seed(seed)
+
         def field():
             return build_model(cfg.model, cfg.fc_layers, cfg.fc_units,
                                t_dim=cfg.t_embbeding_tau,
-                               dtype=self.compute_dtype)
+                               dtype=self.compute_dtype, generator=gen)
 
-        # built on the meta device: no storage and no draw until the JAX
-        # draw is loaded into them
-        with torch.device("meta"):
-            mods = {"nerf_coarse": field()}
-            if cfg.n_importance > 0:
-                mods["nerf_fine"] = field()
-            if self.use_ts:
-                mods["embedding_t"] = TransientEmbedding(
-                    cfg.t_embbeding_vocab, cfg.t_embbeding_tau)
-        params = nn.ModuleDict(mods).to_empty(device=self.device)
+        mods = {"nerf_coarse": field()}
+        if cfg.n_importance > 0:
+            mods["nerf_fine"] = field()
+        if self.use_ts:
+            mods["embedding_t"] = TransientEmbedding(
+                cfg.t_embbeding_vocab, cfg.t_embbeding_tau, generator=gen)
+        params = nn.ModuleDict(mods)
         params.load_state_dict(params_from_jax(
             jax_init_params(cfg, params, seed), cfg.model, cfg.fc_layers))
-        return params.eval()
+        return params.to(self.device).eval()
 
     def init_state(self, seed: int = 0) -> TrainState:
         """Fresh parameters (`init_params(seed)`) with Adam as optax.adam

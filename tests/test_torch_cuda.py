@@ -40,7 +40,8 @@ its backward (streaming; up to 131,072 points, F 40 to 512, fewer points
 than a warp's share, and two backward launches within the order of their
 atomics), fused_nerf_train_loss_grads, fused_nerf_render_rays and
 fused_nerf_apply as wholes against autograd, and nerf train steps and renders
-through the system; for the Hopper mainloops of siren_dense,
+through the system; fused_field_apply and fused_nerf_apply under
+inference_mode and no_grad keeping no layer's activations; for the Hopper mainloops of siren_dense,
 siren_dense_dgrad and siren_dense_wgrad, `mainloop="wgmma"` against the plain
 version and against `mainloop="wmma"` on the same inputs at every (K, N) of
 the main path, every E operand (the wgrad's with its input gradient), with
@@ -1512,6 +1513,47 @@ def test_fused_nerf_apply_fp32(dev, with_dir):
         quiet = FN.fused_nerf_apply(field, xyz, vd, **kw)
     assert quiet["rgb"].grad_fn is None
 
+
+
+@pytest.mark.parametrize("which", ["k6", "k9"])
+@pytest.mark.parametrize("mode", ["inference_mode", "no_grad"])
+def test_point_fields_keep_no_activations_without_a_graph(dev, which, mode):
+    """fused_field_apply (K6) and fused_nerf_apply (K9) with no graph to
+    record (the serving renderer under inference_mode) run the chain that
+    keeps no layer's activations or slopes: the call's peak memory stays
+    under eight fp32 layers of its points, where the recording chain keeps
+    all of them (30 such layers for K6, the slopes among them: the bench's
+    131,072-ray serve_points row ran out of an 80 GB card that way). The
+    outputs are the recording call's within 1e-6."""
+    p, feat = 1 << 18, 96
+    g = torch.Generator().manual_seed(5)
+    xyz = (torch.rand(p, 3, generator=g) - 0.5).to(dev)
+    kw = dict(layers=8, feat=feat, dtype=torch.float32)
+    if which == "k6":
+        field = build_model("sat-nerf", 8, feat,
+                            generator=torch.Generator().manual_seed(3)).to(dev)
+        sun = torch.nn.functional.normalize(torch.randn(p, 3, generator=g),
+                                            dim=-1).to(dev)
+        t = torch.randn(p, 4, generator=g).to(dev)
+        call = lambda: FM.fused_field_apply(field, xyz, sun, t, **kw)  # noqa: E731
+    else:
+        field = build_model("nerf", 8, feat,
+                            generator=torch.Generator().manual_seed(3)).to(dev)
+        vd = torch.nn.functional.normalize(torch.randn(p, 3, generator=g),
+                                           dim=-1).to(dev)
+        call = lambda: FN.fused_nerf_apply(field, xyz, vd, **kw)  # noqa: E731
+    recorded = {k: v.detach() for k, v in call().items()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with getattr(torch, mode)():
+        quiet = call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    assert peak < 8 * p * feat * 4, peak / (p * feat * 4)
+    for k, v in recorded.items():
+        assert quiet[k].grad_fn is None
+        assert float((quiet[k] - v).abs().max()) <= 1e-6, k
 
 def test_nerf_kernels_refuse_bad_inputs(dev):
     rays8, z = _rays8(8, 4, dev)

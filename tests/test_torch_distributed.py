@@ -15,7 +15,10 @@ batch 64, float32.
 - Each rank's rows are what satnerf_tpu.parallel.mesh.shard_rays puts on
   each device of a 2-device CPU mesh, padding included.
 - A rank that fails, before it joins or mid-run, ends `spawn` within
-  seconds, its children ended.
+  seconds, its children ended; a child that fails as it begins is named
+  however long its start took.
+- `--n_devices` on the card takes as many cards as `make_mesh(n_devices)`
+  takes devices: the first n, all of them for 0 or past the count.
 """
 
 import os
@@ -239,3 +242,14 @@ def test_a_rank_that_fails_ends_the_run(who, before_join, monkeypatch):
         assert "rank(s) [1] of 2 failed too" in getattr(err.value,
                                                        "__notes__", [])
     assert not multiprocessing.active_children()
+
+
+@pytest.mark.parametrize("n", ["0", "1", "count", "count+3"])
+def test_n_devices_is_cut_to_the_visible_cards_as_make_mesh_cuts(n,
+                                                                monkeypatch):
+    """D.device_count(n, "cuda") against the JAX mesh of n devices, with as
+    many cards visible as JAX has devices here."""
+    count = jax.device_count()
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    n = {"0": 0, "1": 1, "count": count, "count+3": count + 3}[n]
+    assert D.device_count(n, "cuda") == len(make_mesh(n).devices)

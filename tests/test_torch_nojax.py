@@ -7,8 +7,8 @@ transients and RPC noise, run the solar study and load the capability tool,
 run the DSM oracle of cli.dsm_diagnostics, load the convergence tool and a
 JAX initial checkpoint (equal to the port's own draw of its seed), shard
 rays as a rank of two does, load the parity tool, render as a world of one
-through the render group, import every other entry point, and look at
-sys.modules. No jax, jaxlib, flax or optax, no module of the
+through the render group, run the bench and list the bench matrix's rows,
+import every other entry point, and look at sys.modules. No jax, jaxlib, flax or optax, no module of the
 JAX package satnerf_tpu, and neither msgpack nor matplotlib (the machine
 with the card has neither) may have been loaded."""
 
@@ -205,6 +205,30 @@ assert D.render_world() == 1 and not D.is_distributed()
 assert all(np.array_equal(plain[k], one[k]) for k in plain)
 print("M9 OK")
 
+# the bench at this script's size (its size constants set), as
+# `python -m satnerf_tpu_torch.cli.bench` runs it, and the matrix's --list
+import contextlib
+import io
+import json
+import runpy
+from satnerf_tpu_torch.cli import bench as B
+(B.FEAT, B.SAMPLES, B.N_RAYS, B.TRAIN_BATCH, B.SERVE_BATCH, B.STEPS,
+ B.CHUNK) = 32, 16, 64, 64, 64, 2, 64
+os.environ["BENCH_DEVICE"] = "cpu"
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    line = B.main()
+assert json.loads(buf.getvalue()) == line and line["vs_baseline"] is None
+buf = io.StringIO()
+sys.argv = ["tools/bench_matrix_torch.py", "--list"]
+with contextlib.redirect_stdout(buf):
+    try:
+        runpy.run_path("tools/bench_matrix_torch.py", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+assert "train_default_b1024" in buf.getvalue()
+print("BENCH OK")
+
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                        "satnerf_tpu", "msgpack",
@@ -227,3 +251,4 @@ def test_port_imports_no_jax():
     assert "M6 M4 OK" in proc.stdout
     assert "R4 M7 M8 OK" in proc.stdout
     assert "M9 OK" in proc.stdout
+    assert "BENCH OK" in proc.stdout

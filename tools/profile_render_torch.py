@@ -113,27 +113,19 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from satnerf_tpu_torch.utils import device_time as DT  # noqa: E402
 from satnerf_tpu_torch.utils import jax_prng  # noqa: E402
 
 
-def _on_device(e) -> bool:
-    """A kernel, copy or fill on the card: not a user annotation such as
-    Optimizer.step#Adam.step, whose device time is its region's span on the
-    timeline (gaps included), not work."""
-    return (getattr(e, "device_time_total", 0) > 0
-            and str(getattr(e, "device_type", "")).endswith("CUDA")
-            and not getattr(e, "is_user_annotation", False))
-
-
-def report(prof, wall_ms: float, card: str, what: str) -> None:
-    rows = []
-    for e in prof.key_averages():
-        if _on_device(e):
-            rows.append((e.device_time_total / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
+def report(prof, wall_ms: float, card: str, what: str, calls: int = 1) -> None:
+    """The profile's kernels by device time (utils/device_time.py: the sum
+    the bench reads too), their sum a call over `calls` calls, and the idle
+    share of the profiled wall time."""
+    rows = DT.kernel_rows(prof)
+    busy = DT.device_ms(prof)
     print(f"{what}: profiled wall {wall_ms:.1f} ms, device kernel time "
           f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.3f} on {card}")
+    print(f"{what}: {busy / calls:.4f} device-ms a call over {calls} on {card}")
     for ms, count, key in rows[:22]:
         print(f"{ms:10.2f} ms {count:5d}x  {key[:110]}")
     draws = [r for r in rows if "jax_draws" in r[2]]
@@ -281,7 +273,7 @@ def profile_train(system, rays, ts, batch: int, card: str) -> None:
             system.train_step(state, data, key)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    report(prof, wall_ms, card, f"{steps} train steps")
+    report(prof, wall_ms, card, f"{steps} train steps", calls=steps)
 
 
 ABLATE = {0: "the kernel as built", 1: "no products (the epilogue alone)",
@@ -312,8 +304,7 @@ def _device_ms(fn, reps: int = 5) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages() if _on_device(e))
-    return us / 1e3 / reps
+    return DT.device_ms(prof) / reps
 
 
 def ablate(card: str) -> None:
@@ -654,11 +645,10 @@ def by_mainloop(prof, kernel: str, card: str) -> None:
     from satnerf_tpu_torch.ops import fused_mlp as FM
 
     ms = {}
-    for e in prof.key_averages():
-        if _on_device(e) and kernel in e.key:
-            loop = next((m for m in ("wgmma", "wmma", "simt")
-                         if f"{kernel}_{m}" in e.key), "other")
-            ms[loop] = ms.get(loop, 0.0) + e.device_time_total / 1e3
+    for t, _, key in DT.kernel_rows(prof, kernel):
+        loop = next((m for m in ("wgmma", "wmma", "simt")
+                     if f"{kernel}_{m}" in key), "other")
+        ms[loop] = ms.get(loop, 0.0) + t
     launches = {m: n for (k, m), n in FM.MAINLOOP_LAUNCHES.items() if k == kernel}
     print(f"{kernel} device time by mainloop {ms} ms, launches {launches} on {card}")
 
