@@ -38,7 +38,12 @@ plain version):
      k0_v1 to the bit, every siren_dense_wgrad launch in 2b-2d against the
      same launch with the column walk (db, dC, dE within 1e-4), and the
      chains' joined narrow_grads launch in 2b-2d, as the main path runs it,
-     each job against its plain version and the same job launched alone
+     each job against its plain version and the same job launched alone;
+     then the six fp32 dense kernels (FP32_KERNELS: the simt mainloop,
+     exact fp32 FMAs) alone at their main-path fp32 shapes (65,536 points;
+     SIREN 512 x 512, nerf 256 x 256 and its skip layer): time, device
+     time, plain time, the library's fp32 product with TF32 off, and their
+     FLOPs over PEAK_FP32_FLOPS
   2b the training kernels (K1) against their plain versions, at 8 x 512,
      64 samples, 1024 and 1000 + 37 rays: sat-nerf with the beta gate at 1
      and at 0 (with sigma noise and the weights output), s-nerf; fp32 and
@@ -51,7 +56,11 @@ plain version):
      (so in 2c for composite_bwd), and both bodies timed in phase 2; then
      every launch of the chain again past 256 samples a ray, at 1024 x 320
      (phase 6's long run) and 256 x 640 (shared memory opted into past
-     48 KB on both bodies), fp32 and bf16 (so in 2c for K4's chain)
+     48 KB on both bodies), fp32 and bf16 (so in 2c for K4's chain); then
+     a --precision float32 train step and a 262,144-ray render of sat-nerf
+     8 x 512 and of nerf 8 x 256, each counted from 0: every dense launch
+     with K > 0 must take simt (the kernels line's fp32 launches by
+     mainloop), with their device-ms
   2c the solar-correction pass (K3) and the differentiable training render
      (K4) against their plain versions, at 8 x 512, 64 samples, 1024 and
      1000 + 37 rays, sat-nerf and s-nerf, fp32 and bf16, sigma noise on and
@@ -1396,6 +1405,174 @@ def _time_kernels(packed: dict, dev) -> dict:
     return out
 
 
+# The fp32 dense kernels: with --precision float32 every dense launch with
+# K > 0 takes the SIMT mainloop (exact fp32 FMAs, no TF32). Each is timed at
+# its main-path fp32 shape, a training batch of BATCH rays x SAMPLES (65,536
+# points): SIREN's 512 x 512 trunk layer, nerf's 256 x 256 trunk layer and
+# its skip layer with the 64-row encoding of xyz; beside the library's fp32
+# product (TF32 off) and a bound of its FLOPs at PEAK_FP32_FLOPS (the bytes
+# take less: they are bound by operations).
+FP32_KERNELS = ("siren_dense", "siren_dense_dgrad", "siren_dense_wgrad",
+                "nerf_dense", "nerf_dense_dgrad", "nerf_dense_wgrad")
+
+
+def _fp32_bound(nbytes: int, flops: float) -> tuple:
+    """(bound_ms, bound_by) with operations at the fp32 FMA peak."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _time_fp32_kernels(dev) -> dict:
+    """Each fp32 dense kernel alone at its main-path fp32 shape (FP32_KERNELS):
+    name -> {ms (CUDA events of the wrapper), device_ms (its kernels, fills
+    included, by torch.profiler), plain_ms, library_ms (torch.addmm or
+    torch.matmul of the same product in fp32, TF32 off), bound_ms, bound_by,
+    mainloop (the rule's), simt_body ("sgemm": the pipelined SIMT GEMM of
+    csrc/simt_gemm.cuh; "first": the kernel's first SIMT body)}; the nerf
+    kernels' skip layer under skip_*."""
+    import torch
+    from satnerf_tpu_torch.models.nerf import build_model
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+    from satnerf_tpu_torch.ops import fused_nerf as FN
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("the fp32 library yardstick needs TF32 off")
+    f32 = torch.float32
+    g = torch.Generator(device=dev).manual_seed(8)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device=dev) * 2 - 1
+
+    def entry(name, fn, plain, library, nbytes, flops):
+        took = _took(name)
+        fn(None)
+        bound_ms, by = _fp32_bound(nbytes, flops)
+        return {"mainloop": took(), "ms": _cuda_ms(lambda: fn(None)),
+                "device_ms": _device_ms(lambda: fn(None)),
+                "plain_ms": _cuda_ms(plain), "library_ms": _cuda_ms(library),
+                "bound_ms": bound_ms, "bound_by": by,
+                "simt_body": "sgemm" if name in FM.SGEMM_KERNELS else "first"}
+
+    out = {}
+    o, d, sun, t, z = _inputs(BATCH, 3, dev, SAMPLES)
+    rays16 = FM.pack_rays(o, d, sun, t, TAU)
+    p = BATCH * SAMPLES
+    h, w, bias = rand(p, FEAT), rand(FEAT, FEAT) * 0.05, rand(FEAT)
+    out["siren_dense"] = entry(
+        "siren_dense",
+        lambda m: FM.siren_dense(h, w, bias, rays16, SAMPLES, save=True, mainloop=m),
+        lambda: FM.siren_dense_reference(h, w, bias, rays16, SAMPLES, save=True),
+        lambda: torch.addmm(bias, h, w),
+        _nbytes(h, w, bias, rays16) + 2 * p * FEAT * 4, 2.0 * p * FEAT * FEAT)
+    dy, slope = rand(p, FEAT), rand(p, FEAT)
+    gb = dy * slope
+    out["siren_dense_dgrad"] = entry(
+        "siren_dense_dgrad",
+        lambda m: FM.siren_dense_dgrad(dy, slope, w, mainloop=m),
+        lambda: FM.siren_dense_dgrad_reference(dy, slope, w),
+        lambda: gb @ w.t(),
+        _nbytes(dy, slope, w) + p * FEAT * 4, 2.0 * p * FEAT * FEAT)
+    out["siren_dense_wgrad"] = entry(
+        "siren_dense_wgrad",
+        lambda m: FM.siren_dense_wgrad(h, dy, slope, rays16, SAMPLES, mainloop=m),
+        lambda: FM.siren_dense_wgrad_reference(h, dy, slope, rays16, SAMPLES),
+        lambda: h.t() @ gb,
+        _nbytes(h, dy, slope) + (FEAT * FEAT + FEAT) * 4, 2.0 * p * FEAT * FEAT)
+    del h, dy, slope, gb
+
+    nf = NERF_FEAT
+    field = build_model("nerf", LAYERS, nf,
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+    packed = FN.pack_params(field, skip=4, dtype=f32)
+    w, bias, c = packed["B"][3], packed["bt"][4], packed["C"]
+    n_xyz, e_rows = NERF_FREQ[0], packed["C"].shape[0]
+    rays8 = FN.pack_rays(o, d)
+    h = rand(p, nf).abs()
+    enc = FN._encoding(rays8, SAMPLES, z, "xyz", n_xyz, e_rows, f32)
+    xe, wc = torch.cat([h, enc], 1), torch.cat([w, c], 0)
+    ekw = dict(enc="xyz", enc_weight=c, z=z, n_freq=n_xyz)
+    for pre, kw, lib, k_in in (
+            ("", {}, lambda: torch.addmm(bias, h, w), nf),
+            ("skip_", ekw, lambda: torch.addmm(bias, xe, wc), nf + 6 * n_xyz)):
+        e = entry("nerf_dense",
+                  lambda m: FN.nerf_dense(h, w, bias, rays8, SAMPLES, mainloop=m, **kw),
+                  lambda: FN.nerf_dense_reference(h, w, bias, rays8, SAMPLES, **kw),
+                  lib, _nbytes(h, w, bias, rays8, z if kw else None,
+                               c if kw else None) + p * nf * 4,
+                  2.0 * p * nf * k_in)
+        out.setdefault("nerf_dense", {}).update({pre + k: v for k, v in e.items()})
+    dy, y = rand(p, nf), rand(p, nf).clamp_min(0)
+    gb = dy * (y > 0)
+    out["nerf_dense_dgrad"] = entry(
+        "nerf_dense_dgrad",
+        lambda m: FN.nerf_dense_dgrad(dy, y, w, mainloop=m),
+        lambda: FN.nerf_dense_dgrad_reference(dy, y, w),
+        lambda: gb @ w.t(),
+        _nbytes(dy, y, w) + p * nf * 4, 2.0 * p * nf * nf)
+    wkw = dict(enc="xyz", z=z, n_freq=n_xyz, enc_rows=e_rows)
+    for pre, kw, lib, k_in in (("", {}, lambda: h.t() @ gb, nf),
+                               ("skip_", wkw, lambda: xe.t() @ gb, nf + 6 * n_xyz)):
+        e = entry("nerf_dense_wgrad",
+                  lambda m: FN.nerf_dense_wgrad(h, dy, y, rays8, SAMPLES, mainloop=m, **kw),
+                  lambda: FN.nerf_dense_wgrad_reference(h, dy, y, rays8, SAMPLES, **kw),
+                  lib, _nbytes(h, dy, y, rays8, z if kw else None)
+                  + (nf * nf + nf + (e_rows * nf if kw else 0)) * 4,
+                  2.0 * p * nf * k_in)
+        out.setdefault("nerf_dense_wgrad", {}).update(
+            {pre + k: v for k, v in e.items()})
+    return out
+
+
+def _fp32_runs(dev) -> dict:
+    """The launches of the fp32 dense kernels by mainloop on the main path in
+    fp32: one --precision float32 train_step (--fused auto: sat-nerf 8 x 512
+    on the per-ray chains, nerf 8 x 256 on the point chains; 64 samples,
+    batch BATCH) and one render_image of 262,144 rays (chunk CHUNK), each
+    counted from 0, then its device time by torch.profiler (a call after a
+    warm-up call). model -> {"step": {"launches": {kernel: {mainloop: n}},
+    "device_ms": t}, "render": ...}."""
+    import numpy as np
+    import torch
+    from satnerf_tpu_torch.config import Config
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+    from satnerf_tpu_torch.train.system import NeRFSystem
+    from satnerf_tpu_torch.utils import jax_prng
+
+    n = 4 * CHUNK
+    rng = np.random.RandomState(0)
+    rays = rng.rand(n, 11).astype(np.float32)
+    rays[:, 3:6] /= np.linalg.norm(rays[:, 3:6], axis=1, keepdims=True)
+    rays[:, 8:11] /= np.linalg.norm(rays[:, 8:11], axis=1, keepdims=True)
+    rays[:, 6], rays[:, 7] = 0.0, 1.0
+    ts = rng.randint(0, 30, n).astype(np.int32)
+    data = {"rays": torch.from_numpy(rays).to(dev),
+            "rgbs": torch.from_numpy(rng.rand(n, 3).astype(np.float32)).to(dev),
+            "ts": torch.from_numpy(ts.astype(np.int64)).to(dev)}
+    key = jax_prng.prng_key(1)
+    out = {}
+    for model, units in (("sat-nerf", FEAT), ("nerf", NERF_FEAT)):
+        cfg = Config(model=model, fc_layers=LAYERS, fc_units=units,
+                     n_samples=SAMPLES, chunk=CHUNK, batch_size=BATCH,
+                     first_beta_epoch=0, precision="float32", device=dev.type)
+        system = NeRFSystem(cfg, dataset_len=n)
+        state, params = system.init_state(0), system.init_params(0)
+        runs = {"step": lambda: system.train_step(state, data, key),
+                "render": lambda: system.render_image(params, rays, ts)}
+        out[model] = {}
+        for what, fn in runs.items():
+            FM.reset_launches()
+            fn()
+            torch.cuda.synchronize()
+            by = {}
+            for (kname, loop), v in FM.MAINLOOP_LAUNCHES.items():
+                if kname in FP32_KERNELS:
+                    by.setdefault(kname, {})[loop] = v
+            out[model][what] = {"launches": by,
+                                "device_ms": _device_ms(fn, reps=1)}
+        del system, state, params
+    return out
+
+
 def phase2(results: dict):
     import torch
 
@@ -1543,6 +1720,18 @@ def phase2(results: dict):
                 f"[{old}], plain {e[pre + 'plain_ms']:.3f} ms, bound "
                 f"{e[pre + 'bound_ms']:.3f} ms ({e[pre + 'bound_by']})")
     results["times"] = times
+    results["times_fp32"] = fp32 = _time_fp32_kernels(dev)
+    for name, e in fp32.items():
+        for pre in ("", "skip_"):
+            if pre + "ms" not in e:
+                continue
+            log(f"phase 2: {name} fp32 at its main-path shape"
+                f"{' (skip layer)' if pre else ''}, on {e[pre + 'mainloop']} "
+                f"({e[pre + 'simt_body']} body): kernel {e[pre + 'ms']:.3f} ms "
+                f"(device {e[pre + 'device_ms']:.3f}), plain {e[pre + 'plain_ms']:.3f} "
+                f"ms, library fp32 "
+                f"{e[pre + 'library_ms']:.3f} ms, bound {e[pre + 'bound_ms']:.3f} ms "
+                f"({e[pre + 'bound_by']})")
     grown = {k: FM.LAUNCHES[k] - launches_before[k]
              for k in ("siren_dense", "heads_composite")}
     if not all(v > 0 for v in grown.values()):
@@ -1657,6 +1846,17 @@ def phase2b(results: dict):
     grown = {k: FM.LAUNCHES[k] - before[k] for k in TRAIN_KERNELS}
     if not all(v > 0 for v in grown.values()):
         failures.append(f"launch counters did not grow: {grown}")
+    # the fp32 main path: a step and a 262,144-ray render of each model,
+    # their dense launches by mainloop; with K > 0 every one on simt
+    results["fp32_runs"] = runs = _fp32_runs(dev)
+    for model, by_run in runs.items():
+        for what, r in by_run.items():
+            log(f"phase 2b: {model} fp32 {what}: {r['device_ms']:.2f} device-ms, "
+                f"dense launches by mainloop {r['launches']}")
+            off = {k: {m: v for m, v in loops.items() if m not in ("simt", "k0")}
+                   for k, loops in r["launches"].items()}
+            if any(off.values()):
+                failures.append(f"{model} fp32 {what}: dense launches off simt: {off}")
     if failures:
         raise SystemExit("phase 2b failed:\n  " + "\n  ".join(failures))
 
@@ -3519,15 +3719,34 @@ def _device_ms(fn, reps: int = 3, name: str = "") -> float:
     return DT.device_ms(prof, name) / reps
 
 
-def _kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 3) -> float:
-    """_device_ms of the kernels named `name`; a profile that recorded none
-    of them (the tracer drops a launch now and then) is taken again, up to
-    `tries` times. 0.0 when every try recorded none."""
+def _kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 3) -> tuple:
+    """(device ms a launch, launches recorded) of the kernel named `name`,
+    where each call of fn launches it once: the mean over the launches the
+    profiler recorded. The tracer drops launches now and then, so a sum
+    over the calls can read short (20 calls once summed to a quarter of
+    one launch's time a call); a profile that recorded fewer than `reps`
+    is taken again, up to `tries` times, and the fullest one kept. (0.0, 0)
+    when every try recorded none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from satnerf_tpu_torch.utils import device_time as DT
+
+    fn()
+    torch.cuda.synchronize()
+    best_n, best_ms = 0, 0.0
     for _ in range(tries):
-        ms = _device_ms(fn, reps=reps, name=name)
-        if ms > 0:
-            return ms
-    return 0.0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = DT.kernel_rows(prof, name)
+        n = sum(r[1] for r in rows)
+        if n > best_n:
+            best_n, best_ms = n, sum(r[0] for r in rows)
+        if n >= reps:
+            break
+    return (best_ms / best_n if best_n else 0.0), best_n
 
 
 def phase8(results: dict, card: str):
@@ -4040,16 +4259,17 @@ def phase12(results: dict, card: str):
                           "randint": lambda: torch.randint(0, n_data, shape,
                                                            device=dev),
                           "normal": lambda: torch.randn(shape, device=dev)}
-            device_ms = _kernel_device_ms(lambda: draw(shape, dev),
-                                          "jax_draws_kernel")
+            device_ms, recorded = _kernel_device_ms(
+                lambda: draw(shape, dev), "jax_draws_kernel")
             timing[(mode, shape)] = {
-                "ms": ms, "device_ms": device_ms,
+                "ms": ms, "device_ms": device_ms, "recorded": recorded,
                 "plain_ms": plain_ms,
                 "bound_ms": 1e3 * max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "torch_rand_ms": _cuda_ms(torch_call[mode], reps=20)}
             log(f"phase 12: {mode} {shape}: bit for bit; {ms:.4f} ms (device "
-                f"{timing[(mode, shape)]['device_ms']:.4f}), plain "
+                f"{timing[(mode, shape)]['device_ms']:.4f} a launch, "
+                f"{recorded} of 20 recorded), plain "
                 f"(numpy, host) {plain_ms:.1f} ms, bound "
                 f"{timing[(mode, shape)]['bound_ms']:.4f} ms "
                 f"({timing[(mode, shape)]['bound_by']}), torch's own draw of "
@@ -4816,6 +5036,15 @@ def main():
                 for dn in ("float32", "bfloat16"))}
                if kname == "narrow_grads" else {}),
             **t,
+            # in fp32: the kernel at its main-path fp32 shape, and its
+            # launches by mainloop in a --precision float32 step and a
+            # 262,144-ray render of its model (phase 2b)
+            **({"fp32": {
+                **results["times_fp32"][kname],
+                **{f"launches_{what}": r["launches"].get(kname, {}) for what, r in
+                   results["fp32_runs"]["nerf" if kname.startswith("nerf")
+                                        else "sat-nerf"].items()}}}
+               if kname in FP32_KERNELS else {}),
         })
     t = results["times"][DRAW_KERNEL]
     kernels.append({

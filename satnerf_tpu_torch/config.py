@@ -162,7 +162,12 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["cuda", "cpu"])
     p.add_argument("--n_devices", type=int, default=d.n_devices)
     p.add_argument("--precision", type=str, default=d.precision,
-                   choices=["auto", "float32", "bfloat16"])
+                   choices=["auto", "float32", "bfloat16"],
+                   help="the matmul operands' type (sums and parameters stay "
+                        "float32): auto is bfloat16 on the card and float32 "
+                        "on the CPU; float32 runs exact float32 FMAs on the "
+                        "dense kernels' SIMT mainloop, no TF32, and is slower "
+                        "than bfloat16 on the card")
     p.add_argument("--fused", type=str, default=d.fused,
                    choices=["auto", "on", "rays", "off"],
                    help="rays: the per-ray CUDA kernel chains (auto on the "

@@ -60,7 +60,9 @@
 // of Y (the dgrad: four 40 KB stages; the wgrad: dW, dC against the
 // encoding computed into shared memory, and db in its epilogue, one launch);
 // wmma, warp-level tensor-core fragments with dC by a second launch and db
-// by nerf_bias_grad; simt (fp32, other shapes).
+// by nerf_bias_grad; simt (fp32, other shapes): the dgrad's register-tiled
+// nerf_dgrad_simt, the wgrad's nerf_wgrad_sgemm (the pipelined SIMT GEMM of
+// simt_gemm.cuh), with dC by a second launch and db by nerf_bias_grad.
 //
 // Operands are fp32 or bf16 (dtype 0 / 1), sums fp32. Rounding follows the
 // TPU kernels: the encoding, every activation and every cotangent are rounded
@@ -95,6 +97,7 @@
 #include "common.cuh"
 #include "dense_bwd_wgmma.cuh"
 #include "heads.cuh"
+#include "simt_gemm.cuh"
 
 namespace {
 
@@ -514,13 +517,13 @@ nerf_dgrad_wmma(const float* __restrict__ dY, const bf16* __restrict__ Ymask,
 // dW[k, n] += sum_p X[p, k] * round(G[p, n]), the _dot_t_lhs products of
 // fused_nerf.py:220-253. The wgmma mainloop (wgrad_wgmma<G_RELU, ...> of
 // dense_bwd_wgmma.cuh) forms dW, dC and db in one launch. The two below are
-// the wmma and simt mainloops. The sum runs over all P points for K*N
+// the simt and wmma mainloops. The sum runs over all P points for K*N
 // outputs, so the points are split across blockIdx.z (`split` a block, a
 // multiple of TC_BK) and the partial tiles meet in dW by fp32 atomicAdd. The
 // ENC instantiations take the left operand from the positional encoding,
 // computed again from rays8 and z: that is dC (dA at layer 0, dC at the skip layer,
 // dWrgb0d at rgb_0). Its output has one row tile only (64 or 32 rows), so it
-// takes a finer split to fill the card, and sinf / cosf set its time.
+// takes a finer split to fill the card (wmma), and the sines set its time.
 // nerf_bias_grad sums the unrounded G over a chunk of points, one thread a
 // column.
 
@@ -529,53 +532,137 @@ constexpr int ENC_WGRAD_SPLIT = 512;
 constexpr int BIAS_THREADS = 128;
 constexpr int BIAS_CHUNK = 64;
 
+// The simt mainloop of nerf_dense_wgrad (the rule's for fp32, and bf16 of
+// shapes no tensor-core mainloop takes): simt_gemm.cuh's pipelined SIMT GEMM
+// over the block's range of points, dW^T's 128 x 128 tile (k x n) summed in
+// order, then added into dW by fp32 atomics (4-column vector atomics where
+// N is a multiple of 4). The launcher sizes the ranges so that one wave of
+// blocks fills the card. The left operand is X (cp.async in fp32) or, ENC,
+// the encoding computed on its way into shared memory; the right is G,
+// formed there.
+
+// G = round(dY * [Y > 0]) (Y nullptr: round(dY)) as an operand, 4 values a
+// chunk: 16 bytes of dY and the 4 values of Y beside them.
+template <typename T> struct SgMaskedG {
+  using Elem = float;
+  static constexpr int NSRC = 2;
+  const float* __restrict__ dy;
+  const T* __restrict__ y;
+  int ld;
+  __device__ __forceinline__ uint4 raw(int row, int col, bool vec, int left, int s) const {
+    const size_t at = (size_t)row * ld + col;
+    if (s == 0) return row_chunk_raw<float>(dy + at, 0, left, vec);
+    uint4 r = make_uint4(0u, 0u, 0u, 0u);
+    if (y != nullptr)
+      *reinterpret_cast<typename Raw4<T>::type*>(&r) = row4_raw<T>(y + at, 0, left, vec);
+    return r;
+  }
+  template <int V>
+  __device__ __forceinline__ void values(const uint4 (&r)[2], float (&x)[V]) const {
+    const float* d = reinterpret_cast<const float*>(&r[0]);
+    const T* m = reinterpret_cast<const T*>(&r[1]);
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      x[e] = round_to<T>((y == nullptr || to_f32<T>(m[e]) > 0.f) ? d[e] : 0.f);
+  }
+};
+
+// The encoding as an operand: row q (a point), column j, enc_value<T>'s
+// value; a chunk's 4 sines and cosines as libdevice's sincosf written out
+// (common.cuh sincosf_fast, side by side, no branch), the library's sinf
+// and cosf where an argument passes TRIG_FAST_LIMIT.
+template <typename T> struct SgEncoding {
+  using Elem = float;
+  static constexpr int NSRC = 1;
+  const float* __restrict__ rays;
+  const float* __restrict__ z;
+  int S, enc_mode, n_freq;
+  __device__ __forceinline__ uint4 raw(int row, int col, bool, int left, int) const {
+    float arg[4], v[4];
+    bool fast = true;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = col + e, c = j % 3;
+      arg[e] = 0.f;
+      if (e < left && j < 6 * n_freq) {
+        const float* ray = rays + (size_t)(row / S) * NERF_RAY_COLS;
+        // o + d*z as enc_value forms it; 2^k x is exact
+        const float x = enc_mode == ENC_XYZ
+                            ? __fadd_rn(ray[c], __fmul_rn(ray[3 + c], z[row]))
+                            : ray[3 + c];
+        arg[e] = x * (float)(1 << (j / 6));
+      }
+      fast = fast && !(fabsf(arg[e]) >= TRIG_FAST_LIMIT);
+    }
+    if (__builtin_expect(fast, 1)) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float sn, cs;
+        sincosf_fast(arg[e], sn, cs);
+        v[e] = (col + e) % 6 < 3 ? sn : cs;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = (col + e) % 6 < 3 ? sinf(arg[e]) : cosf(arg[e]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = e < left && col + e < 6 * n_freq ? round_to<T>(v[e]) : 0.f;
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                      __float_as_uint(v[3]));
+  }
+  template <int V>
+  __device__ __forceinline__ void values(const uint4 (&r)[1], float (&x)[V]) const {
+    const float* v = reinterpret_cast<const float*>(&r[0]);
+#pragma unroll
+    for (int e = 0; e < V; ++e) x[e] = v[e];
+  }
+};
+
 template <typename T, bool ENC>
-__global__ void __launch_bounds__(DENSE_THREADS)
-nerf_wgrad_simt(const T* __restrict__ X, const float* __restrict__ dY,
-                const T* __restrict__ Ymask, const float* __restrict__ rays,
-                const float* __restrict__ z, int S, int enc_mode, int n_freq,
-                float* __restrict__ dW, int P, int N, int K, int split) {
-  __shared__ float As[SIMT_BK][BM];  // X^T tile: As[p][k]
-  __shared__ float Bs[SIMT_BK][BN];  // G tile: Bs[p][n]
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.x * BM;  // k
-  const int col0 = blockIdx.y * BN;  // n
+__global__ void __launch_bounds__(SG_THREADS, SG_MIN_BLOCKS)
+nerf_wgrad_sgemm(const T* __restrict__ X, const float* __restrict__ dY,
+                 const T* __restrict__ Ymask, const float* __restrict__ rays,
+                 const float* __restrict__ z, int S, int enc_mode, int n_freq,
+                 float* __restrict__ dW, int P, int N, int K, int split, bool vec_x,
+                 bool vec_g, bool vec_out) {
+  extern __shared__ __align__(16) float sg_smem[];
+  const int row0 = blockIdx.x * SG_BM;  // k
+  const int col0 = blockIdx.y * SG_BN;  // n
   const int p_begin = blockIdx.z * split;
   const int p_end = min(P, p_begin + split);
-  float acc[TM][TN];
+  const int k_tiles = (p_end - p_begin + SG_BK - 1) / SG_BK;
+  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int p0 = p_begin; p0 < p_end; p0 += SIMT_BK) {
-    const int pp = tid / 32, cb = (tid % 32) * 4;
-    const int q = p0 + pp;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gk = row0 + cb + i, gn = col0 + cb + i;
-      float x = 0.f;
-      if (q < p_end && gk < K) {
-        if constexpr (ENC) x = enc_value<T>(rays, z, S, enc_mode, n_freq, q, gk);
-        else x = to_f32<T>(X[(size_t)q * K + gk]);
-      }
-      As[pp][cb + i] = x;
-      const float g = (q < p_end && gn < N) ? masked<T>(dY, Ymask, (size_t)q * N + gn) : 0.f;
-      Bs[pp][cb + i] = round_to<T>(g);
-    }
-    __syncthreads();
-    simt_products(acc, As, Bs, tx, ty);
-    __syncthreads();
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+  SgOperand<SgMaskedG<T>, false> g{{dY, Ymask, N}, col0, N, p_begin, p_end, vec_g};
+  if constexpr (ENC) {
+    SgOperand<SgEncoding<T>, false> e{{rays, z, S, enc_mode, n_freq}, row0, K, p_begin, p_end,
+                                      false};
+    sgemm_mainloop(acc, k_tiles, e, g, sg_smem);
+  } else {
+    SgOperand<SgSrc<T>, false, std::is_same<T, float>::value> x{{X, K}, row0, K, p_begin,
+                                                                 p_end, vec_x};
+    sgemm_mainloop(acc, k_tiles, x, g, sg_smem);
   }
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int k = row0 + ty + 16 * i;
+  for (int r = 0; r < 8; ++r) {
+    const int k = row0 + sg_row(r);
     if (k >= K) continue;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = col0 + tx + 16 * j;
-      if (n < N) atomicAdd(dW + (size_t)k * N + n, acc[i][j]);
+    for (int h = 0; h < 2; ++h) {
+      const int n = col0 + sg_col(4 * h);
+      if (n >= N) continue;
+      float* out = dW + (size_t)k * N + n;
+      if (vec_out) {
+        atomicAdd(reinterpret_cast<float4*>(out),
+                  make_float4(acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2],
+                              acc[r][4 * h + 3]));
+      } else {
+        for (int c = 0; c < 4 && n + c < N; ++c) atomicAdd(out + c, acc[r][4 * h + c]);
+      }
     }
   }
 }
@@ -1919,6 +2006,34 @@ bool narrow_shapes_ok(int F, int Fh) {
 template <typename T> const T* as(const void* p) { return static_cast<const T*>(p); }
 float* out_f32(void* p) { return static_cast<float*>(p); }
 
+// nerf_wgrad_sgemm of out (K x N) += lhs^T . G, on one wave of blocks: the
+// points split into as many ranges as the resident blocks leave room for
+// beside the output's tiles, each a multiple of SG_BK.
+template <typename T, bool ENC>
+int launch_wgrad_sgemm(const void* X, const float* dy, const void* Ymask, const void* rays,
+                       const void* z, int S, int enc_mode, int n_freq, float* out, int P, int N,
+                       int K, cudaStream_t st) {
+  static const int resident =
+      hopper::resident_blocks(nerf_wgrad_sgemm<T, ENC>, SG_THREADS, SG_SMEM_BYTES);
+  if (resident == 0) return (int)cudaErrorInvalidConfiguration;
+  const int row_tiles = (K + SG_BM - 1) / SG_BM, col_tiles = (N + SG_BN - 1) / SG_BN;
+  const int ranges = std::max(1, resident / (row_tiles * col_tiles));
+  int split = ((P + ranges - 1) / ranges + SG_BK - 1) / SG_BK * SG_BK;
+  split = std::max(split, ((P + 65534) / 65535 + SG_BK - 1) / SG_BK * SG_BK);  // z extent
+  const dim3 grid(row_tiles, col_tiles, (P + split - 1) / split);
+  const bool vec_x = !ENC && K % (16 / (int)sizeof(T)) == 0 && hopper::aligned16(X);
+  const bool vec_g =
+      N % 4 == 0 && hopper::aligned16(dy) && (Ymask == nullptr || hopper::aligned16(Ymask));
+  const bool vec_out = N % 4 == 0 && hopper::aligned16(out);
+  nerf_wgrad_sgemm<T, ENC><<<grid, SG_THREADS, SG_SMEM_BYTES, st>>>(
+      as<T>(X), dy, as<T>(Ymask), as<float>(rays), as<float>(z), S, enc_mode, n_freq, out, P, N,
+      K, split, vec_x, vec_g, vec_out);
+  return (int)cudaGetLastError();
+}
+
+// The GEMMs of a nerf_dense_wgrad launch on wmma (bf16) or simt
+// (nerf_wgrad_sgemm): dW = X^T . G where K > 0, dC = enc^T . G, the
+// encoding's rows in place of K, where there is an encoding; then db.
 template <typename T>
 int launch_nerf_wgrad(const void* X, int K, const void* dY, const void* Ymask, const void* rays,
                       const void* z, int S, int enc_mode, int n_freq, int e_rows, void* dW,
@@ -1926,30 +2041,28 @@ int launch_nerf_wgrad(const void* X, int K, const void* dY, const void* Ymask, c
   const float* dy = as<float>(dY);
   if ((P + ENC_WGRAD_SPLIT - 1) / ENC_WGRAD_SPLIT > 65535)  // the grid's z extent
     return (int)cudaErrorInvalidValue;
-  if (K > 0) {  // dW = X^T . G
+  if (K > 0 && !tensor_cores) {
+    const int err = launch_wgrad_sgemm<T, false>(X, dy, Ymask, nullptr, nullptr, S, ENC_NONE, 0,
+                                                 out_f32(dW), P, N, K, st);
+    if (err != 0) return err;
+  } else if (K > 0) {
     const dim3 grid((K + BM - 1) / BM, (N + BN - 1) / BN, (P + WGRAD_SPLIT - 1) / WGRAD_SPLIT);
-    if (tensor_cores)  // only ever set for bf16
-      nerf_wgrad_wmma<false><<<grid, DENSE_THREADS, 0, st>>>(
-          as<bf16>(X), dy, as<bf16>(Ymask), nullptr, nullptr, S, ENC_NONE, 0, out_f32(dW), P, N,
-          K, WGRAD_SPLIT);
-    else
-      nerf_wgrad_simt<T, false><<<grid, DENSE_THREADS, 0, st>>>(
-          as<T>(X), dy, as<T>(Ymask), nullptr, nullptr, S, ENC_NONE, 0, out_f32(dW), P, N, K,
-          WGRAD_SPLIT);
+    nerf_wgrad_wmma<false><<<grid, DENSE_THREADS, 0, st>>>(
+        as<bf16>(X), dy, as<bf16>(Ymask), nullptr, nullptr, S, ENC_NONE, 0, out_f32(dW), P, N, K,
+        WGRAD_SPLIT);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  if (enc_mode != ENC_NONE) {  // dC = enc^T . G, the encoding's rows in place of K
+  if (enc_mode != ENC_NONE && !tensor_cores) {
+    const int err = launch_wgrad_sgemm<T, true>(nullptr, dy, Ymask, rays, z, S, enc_mode, n_freq,
+                                                out_f32(dC), P, N, e_rows, st);
+    if (err != 0) return err;
+  } else if (enc_mode != ENC_NONE) {
     const dim3 grid((e_rows + BM - 1) / BM, (N + BN - 1) / BN,
                     (P + ENC_WGRAD_SPLIT - 1) / ENC_WGRAD_SPLIT);
-    if (tensor_cores)
-      nerf_wgrad_wmma<true><<<grid, DENSE_THREADS, 0, st>>>(
-          nullptr, dy, as<bf16>(Ymask), as<float>(rays), as<float>(z), S, enc_mode, n_freq,
-          out_f32(dC), P, N, e_rows, ENC_WGRAD_SPLIT);
-    else
-      nerf_wgrad_simt<T, true><<<grid, DENSE_THREADS, 0, st>>>(
-          nullptr, dy, as<T>(Ymask), as<float>(rays), as<float>(z), S, enc_mode, n_freq,
-          out_f32(dC), P, N, e_rows, ENC_WGRAD_SPLIT);
+    nerf_wgrad_wmma<true><<<grid, DENSE_THREADS, 0, st>>>(
+        nullptr, dy, as<bf16>(Ymask), as<float>(rays), as<float>(z), S, enc_mode, n_freq,
+        out_f32(dC), P, N, e_rows, ENC_WGRAD_SPLIT);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -2188,7 +2301,7 @@ extern "C" int satnerf_nerf_dense_dgrad(int dtype, const void* dY, const void* Y
 //          alone); with an encoding, e_rows 32 or 64; X, dY and Ymask 16-byte
 //          aligned
 //   wmma   bf16, K and N multiples of 8; the same pointers aligned
-//   simt   any other shape (and fp32 always)
+//   simt   any other shape (and fp32 always): nerf_wgrad_sgemm
 // MAINLOOP_WMMA / MAINLOOP_WGMMA ask for one; a launch it cannot take is
 // refused with cudaErrorInvalidValue, never sent to another mainloop.
 // split: points a block of the wgmma mainloop, a positive multiple of WGR_P
@@ -2218,14 +2331,12 @@ extern "C" int satnerf_nerf_dense_wgrad(int dtype, const void* X, int K, const v
     return (int)cudaErrorInvalidValue;
   if (P == 0 || N == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_nerf_wgrad<float>(X, K, dY, Ymask, rays, z, S, enc_mode, n_freq, e_rows, dW,
-                                    db, dC, P, N, false, st);
   if (mainloop == MAINLOOP_WGMMA)
     return launch_nerf_wgrad_wgmma(X, K, dY, Ymask, rays, z, S, enc_mode, n_freq, e_rows, dW, db,
                                    dC, P, N, split, st);
-  return launch_nerf_wgrad<bf16>(X, K, dY, Ymask, rays, z, S, enc_mode, n_freq, e_rows, dW, db,
-                                 dC, P, N, mainloop == MAINLOOP_WMMA, st);
+  auto launch = dtype == 0 ? launch_nerf_wgrad<float> : launch_nerf_wgrad<bf16>;
+  return launch(X, K, dY, Ymask, rays, z, S, enc_mode, n_freq, e_rows, dW, db, dC, P, N,
+                mainloop == MAINLOOP_WMMA, st);
 }
 
 extern "C" int satnerf_nerf_heads_composite(int dtype, const void* h, int F, const void* rf,

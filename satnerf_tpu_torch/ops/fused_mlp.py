@@ -145,6 +145,9 @@ MAINLOOPS = ("wmma", "wgmma")  # the tensor-core mainloops `mainloop=` may ask f
 K0_MAINLOOPS = ("k0", "k0_v1")
 MAINLOOP_KERNELS = ("siren_dense", "siren_dense_dgrad", "siren_dense_wgrad",
                     "nerf_dense", "nerf_dense_dgrad", "nerf_dense_wgrad")
+# The kernels whose simt mainloop (the rule's in fp32) is the pipelined SIMT
+# GEMM of csrc/simt_gemm.cuh; the other four keep their first SIMT body
+SGEMM_KERNELS = ("siren_dense", "nerf_dense_wgrad")
 # csrc/common.cuh MAINLOOP_*; 0: the rule
 _MAINLOOP_CODE = {"wmma": 1, "wgmma": 2, "k0": 0, "k0_v1": 3}
 DENSE_WGMMA_MAX_K = 512  # csrc/fused_render.cu FWD_MAX_K, fused_nerf.cu NDW_MAX_K
@@ -192,7 +195,8 @@ def dense_mainloop(kernel: str, dtype: torch.dtype, k: int, n: int, *,
       k0     siren_dense and siren_dense_wgrad with K = 0 (no GEMM);
              siren_dense also takes "k0_v1" there, its first elementwise
              kernel, by hand
-      simt   fp32, and bf16 of shapes no tensor-core mainloop takes
+      simt   fp32, and bf16 of shapes no tensor-core mainloop takes; for
+             SGEMM_KERNELS the pipelined SIMT GEMM (csrc/simt_gemm.cuh)
       wgmma  bf16, K and N multiples of 64, inputs and outputs aligned;
              siren_dense and nerf_dense keep a 128-column slice of W in
              shared memory: K <= 512; the nerf kernels' encoding is one wgmma

@@ -72,7 +72,12 @@ more refused on either with the limit named; and siren_dense's K = 0 kernel
 (layer 0, sky_0) equal to the bit to the first one it replaced; and the
 training draws' kernel (csrc/jax_draws.cu: bits, uniform, randint, normal
 and the permutation's rounds) equal to the bit to utils/jax_prng.py at
-ragged counts, a span of 1, a 2-D shape and two sort rounds.
+ragged counts, a span of 1, a 2-D shape and two sort rounds; and the
+pipelined SIMT GEMM (csrc/simt_gemm.cuh) of siren_dense and nerf_dense_wgrad,
+the simt mainloop of every fp32 launch, against the plain version at 10,
+1,037 and 65,573 points, K 16 / 100 / 512 and N 100 / 256 / 512, the skip
+layer with its E operand or encoding, N not a multiple of 4, inputs one
+element off 16 bytes, and bf16 at width 100.
 """
 
 import numpy as np
@@ -1827,11 +1832,11 @@ def test_wgmma_sine_is_sinf_bit_for_bit(dev, save):
         assert torch.equal(a, r)
 
 
-def _odd(t):
-    """The same values in a contiguous view 2 elements into its storage:
+def _odd(t, by=2):
+    """The same values in a contiguous view `by` elements into its storage:
     its pointer is not a multiple of 16 bytes."""
-    store = torch.empty(t.numel() + 2, dtype=t.dtype, device=t.device)
-    view = store[2:].view(t.shape)
+    store = torch.empty(t.numel() + by, dtype=t.dtype, device=t.device)
+    view = store[by:].view(t.shape)
     view.copy_(t)
     assert view.is_contiguous() and view.data_ptr() % 16 != 0
     return view
@@ -2494,3 +2499,122 @@ def test_jax_draws_bit_for_bit(dev, seed, shape):
     n = 1626 if shape == (1,) else int(np.prod(shape))  # 1626: two rounds
     assert torch.equal(JD.permutation(key, n, dev).cpu(),
                        JD.permutation(key, n))
+
+
+# ---- the pipelined SIMT mainloop (csrc/simt_gemm.cuh) of siren_dense and
+# nerf_dense_wgrad: the rule's for every fp32 launch and for bf16 of widths
+# no tensor-core mainloop takes. (rays, samples): 65,573 and 1,037 points;
+# the wgrad also at 10 points, fewer than one range of its split.
+SIMT_POINTS = [(2851, 23), (61, 17)]
+SIMT_WIDTHS = [(k, n) for k in (16, 100, 512) for n in (100, 256, 512)]
+
+
+def _simt_dense_operands(dev, dtype, k, n, extra, n_extra, n_rays, samples,
+                         offset):
+    rays16, z = _rays16(n_rays, samples, dev, seed=11)
+    g = torch.Generator().manual_seed(11)
+    p = n_rays * samples
+    x = (torch.rand(p, k, generator=g) * 2 - 1).to(dev, dtype)
+    w = (torch.randn(k, n, generator=g) / k ** 0.5).to(dev, dtype)
+    b = torch.randn(n, generator=g).to(dev)
+    c = ((torch.randn(n_extra, n, generator=g) * 0.3).to(dev, dtype)
+         if extra else None)
+    if offset:  # one element into their storage
+        x, w = _odd(x, 1), _odd(w, 1)
+    return (x, w, b, rays16, samples), dict(extra=extra, extra_weight=c, z=z,
+                                            save=True)
+
+
+def _hold_simt_dense(dev, dtype, k, n, extra, n_extra, n_rays, samples, offset):
+    args, kw = _simt_dense_operands(dev, dtype, k, n, extra, n_extra, n_rays,
+                                    samples, offset)
+    assert FM.dense_mainloop("siren_dense", dtype, k, n,
+                             inputs_aligned=not offset) == "simt"
+    before = _count("siren_dense", "simt")
+    y, slope = FM.siren_dense(*args, **kw)
+    assert _count("siren_dense", "simt") == before + 1
+    ref_y, ref_slope = FM.siren_dense_reference(*args, **kw)
+    assert y.dtype == dtype and y.shape == ref_y.shape
+    _close(y, ref_y, dtype == torch.bfloat16)
+    _close(slope, ref_slope, False)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n_rays,samples", SIMT_POINTS)
+@pytest.mark.parametrize("k,n,extra,n_extra", [
+    (k, n, None, 0) for k, n in SIMT_WIDTHS]
+    + [(512, 512, "xyz", 3),   # the skip layer with its E operand
+       (100, 99, "t", 4)])     # N not a multiple of 4: scalar stores
+def test_siren_dense_simt(dev, k, n, extra, n_extra, n_rays, samples, offset):
+    """fp32 on the simt mainloop against the plain version (Y and the saved
+    slope); inputs 16-byte aligned and one element off."""
+    _hold_simt_dense(dev, torch.float32, k, n, extra, n_extra, n_rays,
+                     samples, offset)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n_rays,samples", SIMT_POINTS)
+@pytest.mark.parametrize("extra,n_extra", [(None, 0), ("xyz", 3)])
+def test_siren_dense_simt_bf16(dev, extra, n_extra, n_rays, samples, offset):
+    """bf16 at width 100, which no tensor-core mainloop takes."""
+    _hold_simt_dense(dev, torch.bfloat16, 100, 100, extra, n_extra, n_rays,
+                     samples, offset)
+
+
+def _hold_simt_wgrad(dev, dtype, k, n, enc, n_freq, masked, n_rays, samples,
+                     offset):
+    rays8, z = _rays8(n_rays, samples, dev, seed=12)
+    g = torch.Generator().manual_seed(12)
+    p = n_rays * samples
+    x = (torch.rand(p, k, generator=g) * 2 - 1).to(dev, dtype) if k else None
+    dy = torch.randn(p, n, generator=g).to(dev)
+    y = (torch.relu(torch.randn(p, n, generator=g)).to(dev, dtype)
+         if masked else None)
+    if offset:  # one element into their storage
+        x, dy, y = (None if t is None else _odd(t, 1) for t in (x, dy, y))
+    args = (x, dy, y, rays8, samples)
+    kw = dict(enc=enc, z=z, n_freq=n_freq,
+              enc_rows=FN._enc_rows(n_freq) if enc else 0, dtype=dtype)
+    assert FM.dense_mainloop("nerf_dense_wgrad", dtype, k, n,
+                             e_rows=kw["enc_rows"],
+                             inputs_aligned=not offset) == "simt"
+    before = dict(FM.LAUNCHES)
+    got = FN.nerf_dense_wgrad(*args, **kw)
+    assert _grown(before) == {"nerf_dense_wgrad": 1, "nerf_bias_grad": 1}
+    assert _count("nerf_dense_wgrad", "simt") >= 1
+    ref = FN.nerf_dense_wgrad_reference(*args, **kw)
+    for name, a, b in zip(("dW", "db", "dC"), got, ref):
+        assert (a is None) == (b is None), name
+        if b is not None:
+            assert a.shape == b.shape and a.dtype == torch.float32, name
+            assert _rel(a, b) <= 1e-4, (name, _rel(a, b))
+    if enc:  # the padded rows of the encoding's gradient stay 0
+        assert float(got[2][6 * n_freq:].abs().max()) == 0
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n_rays,samples", SIMT_POINTS + [(1, 10)])
+@pytest.mark.parametrize("k,n,enc,n_freq,masked", [
+    (k, n, None, 0, True) for k, n in SIMT_WIDTHS]
+    + [(256, 256, "xyz", 10, True),   # the skip layer: dW, dC (64 rows)
+       (0, 256, "xyz", 10, True),     # layer 0: the encoding alone
+       (256, 128, "dir", 4, True),    # rgb_0: an encoding of 32 rows
+       (256, 256, None, 0, False),    # feats: linear, no mask
+       (100, 99, None, 0, True)])     # N not a multiple of 4: scalar atomics
+def test_nerf_dense_wgrad_simt(dev, k, n, enc, n_freq, masked, n_rays, samples,
+                               offset):
+    """fp32 on the simt mainloop (dW, dC against the encoding, and
+    nerf_bias_grad's db) against the plain version, within 1e-4 of each
+    tensor's largest entry: the same products summed over ranges of points,
+    which meet by fp32 atomics."""
+    _hold_simt_wgrad(dev, torch.float32, k, n, enc, n_freq, masked, n_rays,
+                     samples, offset)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n_rays,samples", SIMT_POINTS)
+@pytest.mark.parametrize("enc,n_freq", [(None, 0), ("xyz", 10)])
+def test_nerf_dense_wgrad_simt_bf16(dev, enc, n_freq, n_rays, samples, offset):
+    """bf16 at width 100, which no tensor-core mainloop takes."""
+    _hold_simt_wgrad(dev, torch.bfloat16, 100, 100, enc, n_freq, True, n_rays,
+                     samples, offset)

@@ -16,6 +16,11 @@ for it. On the CPU the wrappers run their plain versions whatever mainloop
 is asked for, and refuse a name they do not know. The card's side of the
 same rule is held in tests/test_torch_cuda.py.
 
+fp32 on every shape takes simt, whatever its widths and pointers: for
+siren_dense and nerf_dense_wgrad the pipelined SIMT GEMM of
+csrc/simt_gemm.cuh (FM.SGEMM_KERNELS), which replaced their first SIMT body;
+`mainloop=` asks for neither.
+
 The nerf variant at 8 x 256 (skip 4, n_freq (10, 4): encoding weights of 64
 and 32 rows) gives its 10 forward, 9 dgrad and 10 wgrad launches a step bf16
 shapes that all take wgmma (layer 0's encoding-only forward and wgrad, K = 0,
@@ -241,6 +246,60 @@ def test_unknown_names_are_refused():
         FM.dense_mainloop("siren_dense", BF16, 512, 512, mainloop="tma")
     with pytest.raises(ValueError, match="has one mainloop"):
         FM.dense_mainloop("composite_loss_bwd", BF16, 512, 512)
+
+
+# The simt mainloop of siren_dense and nerf_dense_wgrad is the pipelined SIMT
+# GEMM of csrc/simt_gemm.cuh; the other four keep their one SIMT body. fp32
+# on every shape takes simt, whatever its widths and pointers; bf16 takes it
+# where no tensor-core mainloop does (the RULE tables above).
+@pytest.mark.parametrize("kernel", FM.MAINLOOP_KERNELS)
+@pytest.mark.parametrize("k,n", [(k, n) for k in (16, 100, 512)
+                                 for n in (100, 256, 512)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_fp32_takes_simt_on_every_shape(kernel, k, n, aligned):
+    e_rows = 64 if kernel in ("nerf_dense", "nerf_dense_wgrad") else 0
+    assert FM.dense_mainloop(kernel, F32, k, n, e_rows=e_rows,
+                             inputs_aligned=aligned,
+                             outputs_aligned=aligned) == "simt"
+
+
+# (kernel, dtype, K, N, e_rows, the rule's mainloop) of the two kernels on
+# the pipelined GEMM: the first SIMT body they ran is gone, and asking for it
+# ("simt_v1") is refused like any name the rule does not know
+SGEMM_ROUTES = [
+    ("siren_dense", F32, 512, 512, 0, "simt"),
+    ("siren_dense", F32, 16, 100, 0, "simt"),
+    ("siren_dense", BF16, 100, 100, 0, "simt"),
+    ("siren_dense", BF16, 512, 512, 0, "wgmma"),
+    ("nerf_dense_wgrad", F32, 256, 256, 64, "simt"),
+    ("nerf_dense_wgrad", F32, 0, 256, 64, "simt"),
+    ("nerf_dense_wgrad", BF16, 100, 100, 32, "simt"),
+    ("nerf_dense_wgrad", BF16, 256, 256, 0, "wgmma"),
+]
+
+
+@pytest.mark.parametrize("kernel,dtype,k,n,e_rows,rule", SGEMM_ROUTES)
+def test_the_first_simt_body_is_gone(kernel, dtype, k, n, e_rows, rule):
+    assert kernel in FM.SGEMM_KERNELS
+    assert FM.dense_mainloop(kernel, dtype, k, n, e_rows=e_rows) == rule
+    with pytest.raises(ValueError, match="mainloop must be None or one of"):
+        FM.dense_mainloop(kernel, dtype, k, n, e_rows=e_rows, mainloop="simt_v1")
+
+
+@pytest.mark.parametrize("kernel,dtype,k,n", [
+    ("siren_dense", F32, 0, 512),           # K = 0: the elementwise kernel
+    ("siren_dense_dgrad", F32, 512, 512),   # their first SIMT body
+    ("siren_dense_wgrad", F32, 512, 512),
+    ("siren_dense_wgrad", F32, 0, 512),
+    ("nerf_dense", F32, 256, 256),
+    ("nerf_dense_dgrad", F32, 256, 256)])
+def test_simt_cannot_be_asked_for(kernel, dtype, k, n):
+    """simt is the rule's answer only: neither "simt" nor "simt_v1" is a
+    name `mainloop=` takes."""
+    assert FM.dense_mainloop(kernel, dtype, k, n) in ("simt", "k0")
+    for name in ("simt", "simt_v1"):
+        with pytest.raises(ValueError):
+            FM.dense_mainloop(kernel, dtype, k, n, mainloop=name)
 
 
 def _dense_inputs(k, n, seed=0):

@@ -6,15 +6,19 @@ the tree it runs from.
   python3 tools/outputs_torch.py save OUT.pt      (from a tree's root)
   python3 tools/outputs_torch.py compare CHANGE.pt PARENT.pt
   python3 tools/outputs_torch.py time [PARENT_DIR] (from a tree's root)
+  python3 tools/outputs_torch.py fp32 [PARENT_DIR] (from a tree's root)
   python3 tools/outputs_torch.py faint
   python3 tools/outputs_torch.py variants NAME=CONST:VALUE[,CONST:VALUE] ...
+  python3 tools/outputs_torch.py simt NAME=CONST:VALUE[,CONST:VALUE] ...
 
 `save` runs, on seeded inputs: composite_loss_bwd and composite_bwd on both
 bodies at 64 and 256 samples a ray (the per-sample cotangents and the
 weights: no atomics), siren_dense at K = 0 (layer 0 with its slope, sky_0), the skip layer's wgrad dW and db
 with every point in one block's range (the fp32 atomics across ranges add
-in another order each run), and a dgrad's dX; these must come out equal to
-the bit. Then sc_loss_bwd (sums, d_s2, dWn row 4, dbn[4]) at 1,024 x 64,
+in another order each run), a dgrad's dX, the skip layer's siren_dense at
+65,536 points in bf16 (wgmma) and fp32 (simt), and the nerf skip layer's
+bf16 wgrad (dW, db, dC) with every point in one block's range; these must
+come out equal to the bit. Then sc_loss_bwd (sums, d_s2, dWn row 4, dbn[4]) at 1,024 x 64,
 1,024 x 128 and 256 x 640 samples, bf16 and fp32, with and without sigma
 noise, and field_heads' (P, 16) output at 1,024 x 128 and at 131,072
 points that are their own rays (S = 1), bf16 and fp32: field_heads to the
@@ -53,10 +57,21 @@ times all but sc_loss_bwd through the same wrappers on either library, in
 one process and in turns (parent, change, change, parent): the C entries
 keep their contract, so the same call drives both.
 
+`time` ends with the fp32 whole runs that `fp32` runs alone: the sat-nerf
+8 x 512 --precision float32 K1 step (1,024 rays x 64) and render_image of a
+262,144-ray view, by events and in device-ms, on the kernels (--fused rays;
+given PARENT_DIR, through the parent's build of every source and this
+tree's, in turns) and on --fused off (plain PyTorch on the card) beside them.
+
 `variants` builds this tree's csrc/fused_nerf.cu once a spec with the
 constants of its design choices set otherwise (in a copy of csrc/) and
 times the two per-ray and the two per-point nerf kernels through each build
 and the package's in turns, with ptxas' registers and spills of each.
+
+`simt` builds fused_render.cu and fused_nerf.cu once a spec with the
+constants of csrc/simt_gemm.cuh set otherwise and times the two kernels on
+that mainloop (siren_dense, nerf_dense_wgrad) in fp32 through each build
+and the package's in turns, with ptxas' registers and spills.
 
 `faint` prints sc_loss_bwd's dbn[4] on one ray of the most samples its
 shared memory holds, from the kernel and from the plain version on the card
@@ -251,6 +266,23 @@ def save(path: str) -> None:
                              extra_weight=t(3, 512, s=0.3), z=z[:64], split=4096)
     out["skip layer dW"], out["skip layer db"] = w[0].cpu(), w[1].cpu()
     out["dgrad dX"] = FM.siren_dense_dgrad(dy, sl, t(512, 512, s=0.05)).cpu()
+    # the skip layer's siren_dense at a training batch: bf16 on wgmma (the
+    # main path), fp32 on simt, whose pipelined GEMM sums in the first SIMT
+    # body's order; and the nerf skip layer's bf16 wgrad on wgmma with every
+    # point in one block's range
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        y, slope = FM.siren_dense(t(65536, 512, dtype=dtype), t(512, 512, s=0.05, dtype=dtype),
+                                  b0, rays16, 64, extra="xyz",
+                                  extra_weight=t(3, 512, s=0.5, dtype=dtype), z=z, save=True)
+        out[f"siren_dense {dname} skip layer Y"] = y.cpu()
+        out[f"siren_dense {dname} skip layer slope"] = slope.cpu()
+    rays8 = t(1024, 8, s=0.5, dtype=torch.float32)
+    w = FN.nerf_dense_wgrad(t(65536, 256), t(65536, 256, dtype=torch.float32),
+                            t(65536, 256).relu(), rays8, 64, enc="xyz", z=z, n_freq=10,
+                            enc_rows=64, split=65536)
+    for k, v in zip(("dW", "db", "dC"), w):
+        out[f"nerf_dense_wgrad bfloat16 skip layer {k}"] = v.cpu()
 
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
@@ -368,19 +400,18 @@ def _smi(query: str) -> str:
                           capture_output=True, text=True, check=True).stdout.strip()
 
 
-# the parent tree's sources `time PARENT_DIR` builds, and the C entries it
-# binds from them
-PARENT_SOURCES = ("fused_render.cu", "fused_field.cu", "fused_nerf.cu")
-PARENT_ENTRIES = ("satnerf_heads_composite", "satnerf_field_heads", "satnerf_field_heads_bwd",
-                  "satnerf_nerf_heads_composite", "satnerf_nerf_composite_loss_bwd",
-                  "satnerf_nerf_field_heads", "satnerf_nerf_field_heads_bwd")
+# the parent tree's sources `time PARENT_DIR` builds (every one: the fp32
+# runs launch kernels of each), and the C entries it binds from them (every
+# entry of the package's, by its signature)
+PARENT_SOURCES = ("fused_aux.cu", "fused_field.cu", "fused_nerf.cu", "fused_render.cu",
+                  "fused_train.cu", "jax_draws.cu")
 
 
 def _build_libraries(jobs: dict) -> dict:
     """Each job, tag -> (a csrc/ directory, the sources to build of it),
     built as the package builds its sources (all nvcc started together), into
-    one library a job under this tree's build directory, PARENT_ENTRIES bound
-    by the same signatures (those the library holds). Returns tag -> (CDLL,
+    one library a job under this tree's build directory, every C entry of the
+    package bound by its signature (those the library holds). Returns tag -> (CDLL,
     ptxas' report of the registers and spills of each kernel)."""
     import ctypes
     import re
@@ -410,7 +441,7 @@ def _build_libraries(jobs: dict) -> dict:
         objs = [o for (t, o) in procs if t == tag]
         subprocess.run([B._nvcc(), *B.NVCC_FLAGS, "-shared", "-o", lib, *objs], check=True)
         cdll = ctypes.CDLL(lib)
-        for name in PARENT_ENTRIES:
+        for name in B.SIGNATURES:
             if hasattr(cdll, name):
                 fn = getattr(cdll, name)
                 fn.argtypes, fn.restype = B.SIGNATURES[name], ctypes.c_int
@@ -465,11 +496,98 @@ def _device_ms(fn, name, reps=20):
     return sum(each.values()), each
 
 
+def _whole_ms(fn, reps):
+    """(ms by events, device-ms of every kernel, copy and fill) a call of fn
+    over reps calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from satnerf_tpu_torch.utils import device_time as DT
+
+    ev = _event_ms(fn, reps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return ev, DT.device_ms(prof) / reps
+
+
+def _in_turns(parent, fn, measure):
+    """measure(fn) through the parent's library and this tree's, in turns
+    (parent, change, change, parent): who -> [readings]."""
+    from satnerf_tpu_torch.ops import _build as B
+
+    own_library = B.load_library
+    got = {"parent": [], "change": []}
+    for who in ("parent", "change", "change", "parent"):
+        B.load_library = (lambda: parent) if who == "parent" else own_library
+        try:
+            got[who].append(measure(fn))
+        finally:
+            B.load_library = own_library
+    return got
+
+
+# the fp32 whole runs: sat-nerf 8 x 512, 64 samples, --precision float32; a
+# train step of 1,024 rays (K1) and a render of a 512 x 512 view
+FP32_RAYS, FP32_STEPS, FP32_RENDERS = 262144, 10, 2
+
+
+def time_fp32(parent=None, card=None) -> None:
+    """The --precision float32 K1 step and render_image of FP32_RAYS rays, in
+    device-ms and by events, on the kernels (--fused rays; with a parent's
+    library, through both in turns) and on --fused off (plain PyTorch on the
+    card, no kernel) beside them."""
+    import numpy as np
+    import torch
+
+    from satnerf_tpu_torch.config import Config
+    from satnerf_tpu_torch.train.system import NeRFSystem
+    from satnerf_tpu_torch.utils import jax_prng
+
+    card = card or _smi("name,power.limit")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    n = FP32_RAYS
+    rng = np.random.RandomState(0)
+    rays = rng.rand(n, 11).astype(np.float32)
+    rays[:, 3:6] /= np.linalg.norm(rays[:, 3:6], axis=1, keepdims=True)
+    rays[:, 8:11] /= np.linalg.norm(rays[:, 8:11], axis=1, keepdims=True)
+    rays[:, 6], rays[:, 7] = 0.0, 1.0
+    ts = rng.randint(0, 30, n).astype(np.int32)
+    data = {"rays": torch.from_numpy(rays).to(dev),
+            "rgbs": torch.from_numpy(rng.rand(n, 3).astype(np.float32)).to(dev),
+            "ts": torch.from_numpy(ts.astype(np.int64)).to(dev)}
+    key = jax_prng.prng_key(1)
+    for fused in ("rays", "off"):
+        cfg = Config(model="sat-nerf", fc_layers=8, fc_units=FEAT, n_samples=64,
+                     chunk=65536, batch_size=1024, first_beta_epoch=0,
+                     precision="float32", fused=fused)
+        system = NeRFSystem(cfg, dataset_len=n)
+        state, params = system.init_state(0), system.init_params(0)
+        runs = ((f"K1 step fp32 --fused {fused} (1,024 rays x 64)",
+                 lambda: system.train_step(state, data, key), FP32_STEPS),
+                (f"render_image fp32 --fused {fused} ({n:,} rays)",
+                 lambda: system.render_image(params, rays, ts), FP32_RENDERS))
+        for what, fn, reps in runs:
+            if parent is not None and fused == "rays":
+                got = _in_turns(parent, fn, lambda f: _whole_ms(f, reps))
+                print(f"{what}, in turns: " + "; ".join(
+                    f"{who} " + ", ".join(f"{e:.3f} by events / {d:.3f} device"
+                                          for e, d in v)
+                    for who, v in got.items()) + f" ms on {card}", flush=True)
+            else:
+                e, d = _whole_ms(fn, reps)
+                print(f"{what}: {e:.3f} ms by events, {d:.3f} device-ms on {card}",
+                      flush=True)
+        del system, state, params
+
+
 def time_kernels(parent_dir=None) -> None:
     sys.path.insert(0, os.getcwd())
     import torch
 
-    from satnerf_tpu_torch.ops import _build as B
     from satnerf_tpu_torch.ops import fused_mlp as FM
     from satnerf_tpu_torch.ops import fused_nerf as FN
 
@@ -477,7 +595,6 @@ def time_kernels(parent_dir=None) -> None:
         raise SystemExit("outputs_torch.py time runs on a GPU")
     card = _smi("name,power.limit")
     parent = None if parent_dir is None else _parent_library(parent_dir)
-    own_library = B.load_library
     print(f"clocks (sm, mem), power, temperature at the start: "
           f"{_smi('clocks.sm,clocks.mem,power.draw,temperature.gpu')}", flush=True)
     dev = torch.device("cuda")
@@ -497,13 +614,7 @@ def time_kernels(parent_dir=None) -> None:
                "sc_loss_bwd")
     def paired(what, fn, name):
         """fn through the parent's library and this tree's, in turns."""
-        got = {"parent": [], "change": []}
-        for who in ("parent", "change", "change", "parent"):
-            B.load_library = (lambda: parent) if who == "parent" else own_library
-            try:
-                got[who].append((_event_ms(fn), _device_ms(fn, name)[0]))
-            finally:
-                B.load_library = own_library
+        got = _in_turns(parent, fn, lambda f: (_event_ms(f), _device_ms(f, name)[0]))
         print(f"{what}, in turns: " + "; ".join(
             f"{who} " + ", ".join(f"{e:.4f} by events / {d:.4f} device" for e, d in v)
             for who, v in got.items()) + f" ms on {card}", flush=True)
@@ -566,14 +677,15 @@ def time_kernels(parent_dir=None) -> None:
             if parent is not None:
                 paired(what, fn, name)
         del args, cot
+    time_fp32(parent, card)
     print(f"clocks (sm, mem), power, temperature at the end: "
           f"{_smi('clocks.sm,clocks.mem,power.draw,temperature.gpu')}", flush=True)
 
 
-def _variant_csrc(tag: str, consts: str) -> str:
-    """A copy of this tree's csrc/ with fused_nerf.cu's constants set as
-    `consts` says (NAME:VALUE[,NAME:VALUE]: `constexpr <type> NAME = ...;`,
-    which must be there once each); returns the copy's directory."""
+def _variant_csrc(tag: str, consts: str, source: str = "fused_nerf.cu") -> str:
+    """A copy of this tree's csrc/ with `source`'s constants set as `consts`
+    says (NAME:VALUE[,NAME:VALUE]: `constexpr <type> NAME = ...;`, which
+    must be there once each); returns the copy's directory."""
     import re
     import shutil
 
@@ -582,14 +694,14 @@ def _variant_csrc(tag: str, consts: str) -> str:
     dst = os.path.join(B.BUILD_DIR, tag, "csrc")
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(B.CSRC_DIR, dst)
-    path = os.path.join(dst, "fused_nerf.cu")
+    path = os.path.join(dst, source)
     with open(path) as f:
         text = f.read()
     for item in consts.split(","):
         name, value = item.split(":")
         text, n = re.subn(rf"(constexpr \w+ {name} = )[^;]+;", rf"\g<1>{value};", text)
         if n != 1:
-            raise SystemExit(f"fused_nerf.cu holds {n} definitions of {name}")
+            raise SystemExit(f"{source} holds {n} definitions of {name}")
     with open(path, "w") as f:
         f.write(text)
     return dst
@@ -666,6 +778,79 @@ def variants(specs) -> None:
                 for who, v in got.items()) + f" ms on {card}", flush=True)
 
 
+def simt_variants(specs) -> None:
+    """`simt NAME=CONST:VALUE[,CONST:VALUE] ...`: this tree's fused_render.cu
+    and fused_nerf.cu built once a spec with the constants of
+    csrc/simt_gemm.cuh (SG_BK, SG_STAGES, SG_MIN_BLOCKS, SG_WARP_M) set
+    otherwise, ptxas' registers and spills of each sgemm kernel, and the two
+    kernels on that mainloop in fp32 through each spec's library and the
+    package's, in turns (package, spec, spec, package): siren_dense at a
+    512 x 512 layer of 65,536 points with the sine and its slope and with
+    no activation and no slope (the mainloop with the lightest epilogue),
+    nerf_dense_wgrad at its 256 x 256 trunk layer and its skip layer (dC
+    against the 64-row encoding); events over 20 launches and the device
+    time of the sgemm kernels by torch.profiler."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    from satnerf_tpu_torch.ops import _build as B
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+    from satnerf_tpu_torch.ops import fused_nerf as FN
+
+    if not torch.cuda.is_available():
+        raise SystemExit("outputs_torch.py simt runs on a GPU")
+    card = _smi("name,power.limit")
+    given = dict(spec.split("=", 1) for spec in specs)
+    sources = ("fused_render.cu", "fused_nerf.cu")
+    jobs = {"default": (B.CSRC_DIR, sources)}
+    jobs.update({tag: (_variant_csrc(tag, consts, "simt_gemm.cuh"), sources)
+                 for tag, consts in given.items()})
+    built = _build_libraries(jobs)
+    for tag, (_, report) in built.items():
+        for kernel, (regs, spills) in report.items():
+            if "sgemm" in kernel:
+                print(f"{tag} {given.get(tag, '')}: {kernel}: {regs} registers, "
+                      f"spill stores / loads {spills} bytes", flush=True)
+    own = B.load_library
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device=dev) * 2 - 1
+
+    n_rays, n_s = 1024, 64
+    p = n_rays * n_s
+    rays16 = torch.cat([rand(n_rays, 13), torch.zeros(n_rays, 3, device=dev)], 1)
+    h, w, b = rand(p, 512), rand(512, 512) * 0.05, rand(512)
+    rays8 = torch.cat([rand(n_rays, 6), torch.zeros(n_rays, 2, device=dev)], 1)
+    z = torch.sort(torch.rand(n_rays, n_s, generator=g, device=dev), 1).values
+    x, dy, y = rand(p, 256), rand(p, 256), rand(p, 256).clamp_min(0)
+    cases = (
+        ("siren_dense fp32 512 x 512, sine and slope",
+         lambda: FM.siren_dense(h, w, b, rays16, n_s, save=True)),
+        ("siren_dense fp32 512 x 512, no activation, no slope",
+         lambda: FM.siren_dense(h, w, b, rays16, n_s, act="none")),
+        ("nerf_dense_wgrad fp32 256 x 256 trunk layer",
+         lambda: FN.nerf_dense_wgrad(x, dy, y, rays8, n_s)),
+        ("nerf_dense_wgrad fp32 256 x 256 skip layer",
+         lambda: FN.nerf_dense_wgrad(x, dy, y, rays8, n_s, enc="xyz", z=z,
+                                     n_freq=10, enc_rows=64)))
+    for what, fn in cases:
+        for tag, (cdll, _) in built.items():
+            if tag == "default":
+                continue
+            got = {"package": [], tag: []}
+            for who in ("package", tag, tag, "package"):
+                B.load_library = own if who == "package" else (lambda c=cdll: c)
+                try:
+                    got[who].append((_event_ms(fn), _device_ms(fn, "sgemm")[0]))
+                finally:
+                    B.load_library = own
+            print(f"{what}, in turns: " + "; ".join(
+                f"{who} " + ", ".join(f"{e:.4f} by events / {d:.4f} device" for e, d in v)
+                for who, v in got.items()) + f" ms on {card}", flush=True)
+
+
 def faint() -> None:
     """sc_loss_bwd's dbn[4] on one ray of the most samples a block holds,
     with depths over [0, 1] (each factor 1 - alpha within 1e-4 of 1) and over
@@ -709,9 +894,14 @@ if __name__ == "__main__":
         compare(sys.argv[2], sys.argv[3])
     elif len(sys.argv) in (2, 3) and sys.argv[1] == "time":
         time_kernels(*sys.argv[2:])
+    elif len(sys.argv) in (2, 3) and sys.argv[1] == "fp32":
+        sys.path.insert(0, os.getcwd())
+        time_fp32(_parent_library(sys.argv[2]) if len(sys.argv) == 3 else None)
     elif len(sys.argv) == 2 and sys.argv[1] == "faint":
         faint()
     elif len(sys.argv) >= 3 and sys.argv[1] == "variants":
         variants(sys.argv[2:])
+    elif len(sys.argv) >= 3 and sys.argv[1] == "simt":
+        simt_variants(sys.argv[2:])
     else:
         raise SystemExit(__doc__)
