@@ -60,9 +60,9 @@
 // of Y (the dgrad: four 40 KB stages; the wgrad: dW, dC against the
 // encoding computed into shared memory, and db in its epilogue, one launch);
 // wmma, warp-level tensor-core fragments with dC by a second launch and db
-// by nerf_bias_grad; simt (fp32, other shapes): the dgrad's register-tiled
-// nerf_dgrad_simt, the wgrad's nerf_wgrad_sgemm (the pipelined SIMT GEMM of
-// simt_gemm.cuh), with dC by a second launch and db by nerf_bias_grad.
+// by nerf_bias_grad; simt (fp32, other shapes): the pipelined SIMT GEMM of
+// simt_gemm.cuh, the dgrad's dgrad_sgemm and the wgrad's nerf_wgrad_sgemm,
+// with dC by a second launch and db by nerf_bias_grad.
 //
 // Operands are fp32 or bf16 (dtype 0 / 1), sums fp32. Rounding follows the
 // TPU kernels: the encoding, every activation and every cotangent are rounded
@@ -368,55 +368,13 @@ nerf_dense_wmma(const bf16* __restrict__ X, int K, const bf16* __restrict__ W,
 // fused_nerf.py _point_bwd_from_saves :195. W is the forward's (K, N) weight.
 // Where two branches meet (d_h: the sigma head's share and the feats layer's)
 // the launch accumulates onto what is there. The wgmma mainloop is
-// dgrad_wgmma<G_RELU> (dense_bwd_wgmma.cuh); the two below have a
-// one-dimensional grid, the column tile running fastest, so the blocks that
-// share a row tile of dY find it in L2.
-
-template <typename T>
-__global__ void __launch_bounds__(DENSE_THREADS)
-nerf_dgrad_simt(const float* __restrict__ dY, const T* __restrict__ Ymask,
-                const T* __restrict__ W, float* __restrict__ dX, int accumulate, int P, int N,
-                int K) {
-  __shared__ float As[SIMT_BK][BM];  // G tile, n-major
-  __shared__ float Bs[SIMT_BK][BN];  // W^T tile: Bs[n][k]
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int col_tiles = (K + BN - 1) / BN;
-  const int row0 = (blockIdx.x / col_tiles) * BM;  // points
-  const int col0 = (blockIdx.x % col_tiles) * BN;  // k
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int n0 = 0; n0 < N; n0 += SIMT_BK) {
-    const int m = tid / 2, nb = (tid % 2) * 4;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gn = n0 + nb + i;
-      const int q = row0 + m, gk = col0 + m;
-      const float g = (q < P && gn < N) ? masked<T>(dY, Ymask, (size_t)q * N + gn) : 0.f;
-      As[nb + i][m] = round_to<T>(g);
-      Bs[nb + i][m] = (gk < K && gn < N) ? to_f32<T>(W[(size_t)gk * N + gn]) : 0.f;
-    }
-    __syncthreads();
-    simt_products(acc, As, Bs, tx, ty);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int q = row0 + ty + 16 * i;
-    if (q >= P) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int k = col0 + tx + 16 * j;
-      if (k >= K) continue;
-      float* out = dX + (size_t)q * K + k;
-      *out = accumulate ? *out + acc[i][j] : acc[i][j];
-    }
-  }
-}
+// dgrad_wgmma<G_RELU> (dense_bwd_wgmma.cuh); the simt mainloop is
+// dgrad_sgemm<SgMaskedG<T>, T> (simt_gemm.cuh, shared with siren_dense_dgrad:
+// G formed from 16-byte loads of dY and Y as the tile of G is transposed in
+// registers on its way into shared memory), in fp32 bound by its operations
+// (0.128 ms at 65,536 points and 256 x 256). Both it and the wmma mainloop
+// below have a one-dimensional grid, the column tile running fastest, so the
+// blocks that share a row tile of dY find it in L2.
 
 __global__ void __launch_bounds__(DENSE_THREADS)
 nerf_dgrad_wmma(const float* __restrict__ dY, const bf16* __restrict__ Ymask,
@@ -2258,7 +2216,7 @@ extern "C" int satnerf_nerf_dense(int dtype, const void* X, int K, const void* W
 // MAINLOOP_RULE); ops/fused_mlp.py dense_mainloop is the same rule in Python:
 //   wgmma  bf16, N and K multiples of 64; dY, Ymask, W and dX 16-byte aligned
 //   wmma   bf16, N a multiple of 8; dY, Ymask and W 16-byte aligned
-//   simt   any other shape (and fp32 always)
+//   simt   any other shape (and fp32 always): dgrad_sgemm<SgMaskedG<T>, T>
 // MAINLOOP_WMMA / MAINLOOP_WGMMA ask for one; a launch it cannot take is
 // refused with cudaErrorInvalidValue, never sent to another mainloop.
 extern "C" int satnerf_nerf_dense_dgrad(int dtype, const void* dY, const void* Ymask,
@@ -2276,23 +2234,21 @@ extern "C" int satnerf_nerf_dense_dgrad(int dtype, const void* dY, const void* Y
   if (P == 0 || N == 0 || K == 0) return (int)cudaSuccess;
   const long long tiles = (long long)((P + BM - 1) / BM) * ((K + BN - 1) / BN);
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)tiles);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* dy = as<float>(dY);
   float* dx = static_cast<float*>(dX);
-  if (dtype == 0) {
-    nerf_dgrad_simt<float><<<grid, DENSE_THREADS, 0, st>>>(dy, as<float>(Ymask), as<float>(W),
-                                                           dx, accumulate, P, N, K);
-  } else if (mainloop == MAINLOOP_WGMMA) {
+  if (mainloop == MAINLOOP_WGMMA)
     return launch_dgrad_wgmma<G_RELU>(st, dy, Ymask, as<bf16>(W), dx, accumulate, P, N, K);
-  } else if (mainloop == MAINLOOP_WMMA) {
-    nerf_dgrad_wmma<<<grid, DENSE_THREADS, 0, st>>>(dy, as<bf16>(Ymask), as<bf16>(W), dx,
-                                                    accumulate, P, N, K);
-  } else {
-    nerf_dgrad_simt<bf16><<<grid, DENSE_THREADS, 0, st>>>(dy, as<bf16>(Ymask), as<bf16>(W), dx,
-                                                          accumulate, P, N, K);
+  if (mainloop == MAINLOOP_WMMA) {
+    nerf_dgrad_wmma<<<(unsigned)tiles, DENSE_THREADS, 0, st>>>(dy, as<bf16>(Ymask), as<bf16>(W),
+                                                               dx, accumulate, P, N, K);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  const bool g_vec = N % 4 == 0 && aligned16(dy, Ymask);
+  return dtype == 0 ? launch_dgrad_sgemm(st, SgMaskedG<float>{dy, as<float>(Ymask), N}, g_vec,
+                                         as<float>(W), dx, accumulate, P, N, K)
+                    : launch_dgrad_sgemm(st, SgMaskedG<bf16>{dy, as<bf16>(Ymask), N}, g_vec,
+                                         as<bf16>(W), dx, accumulate, P, N, K);
 }
 
 // The mainloop rule of a launch of nerf_dense_wgrad (mainloop =

@@ -39,6 +39,7 @@
 #include "common.cuh"
 #include "dense_bwd_wgmma.cuh"
 #include "hopper.cuh"
+#include "simt_gemm.cuh"
 
 namespace {
 
@@ -74,8 +75,8 @@ constexpr int W_LD = BN + 8;     // padded row of a [32][128] bf16 tile
 // branches meet (d_feats, d_h) the second launch accumulates onto the first's
 // output, without atomics: the result is the same from run to run.
 //
-// What bounds it: G comes as two fp32 tensors, 8 bytes of operand a value,
-// and dX leaves in fp32: at 512 x 512 and 65,536 points 0.120 ms of bytes
+// What bounds it in bf16: G comes as two fp32 tensors, 8 bytes of operand a
+// value, and dX leaves in fp32: at 512 x 512 and 65,536 points 0.120 ms of bytes
 // against 0.035 ms of products, so it is bound by device memory. Three
 // mainloops, one rule (satnerf_siren_dense_dgrad below; ops/fused_mlp.py
 // dense_mainloop mirrors it):
@@ -96,73 +97,40 @@ constexpr int W_LD = BN + 8;     // padded row of a [32][128] bf16 tile
 //  * wmma (bf16, N a multiple of 8, dY, slope and W 16-byte aligned; or
 //    asked for): WMMA fragments with the G tile formed from its two fp32
 //    operands on the way into shared memory, 128 x 128 x 32 tiles.
-//  * simt (fp32, and bf16 of other shapes): a register-tiled SIMT GEMM.
+//  * simt (fp32, and bf16 of other shapes): dgrad_sgemm<SgSlopeG<T>, T>,
+//    the pipelined SIMT GEMM of simt_gemm.cuh, shared with the nerf
+//    variant's dgrad: 128 x 128 tiles of dX, a ring of four 16-deep stages of
+//    G and W^T, both transposed in registers on their way in, G = dY * slope
+//    formed and rounded once an element there (SgSlopeG below), one exact
+//    fp32 fmaf chain an output over n in order. In fp32 it is bound by its
+//    operations: 0.513 ms at 65,536 points and 512 x 512 (67 TFLOP/s).
 // The grids of the last two are one-dimensional with the column tile running
 // fastest: the blocks that share a row tile of G run next to each other and
 // find it in L2.
 
-template <typename T>
-__global__ void __launch_bounds__(DENSE_THREADS)
-dgrad_simt(const float* __restrict__ dY, const float* __restrict__ slope,
-           const T* __restrict__ W, float* __restrict__ dX, int accumulate, int P, int N,
-           int K) {
-  __shared__ float As[SIMT_BK][BM];  // G tile, n-major
-  __shared__ float Bs[SIMT_BK][BN];  // W^T tile: Bs[n][k]
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int col_tiles = (K + BN - 1) / BN;
-  const int row0 = (blockIdx.x / col_tiles) * BM;  // points
-  const int col0 = (blockIdx.x % col_tiles) * BN;  // k
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int n0 = 0; n0 < N; n0 += SIMT_BK) {
-    const int m = tid / 2, nb = (tid % 2) * 4;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gn = n0 + nb + i;
-      const int q = row0 + m;
-      float g = 0.f;
-      if (q < P && gn < N) {
-        const size_t idx = (size_t)q * N + gn;
-        g = dY[idx];
-        if (slope != nullptr) g *= slope[idx];
-      }
-      As[nb + i][m] = round_to<T>(g);
-      const int gk = col0 + m;
-      Bs[nb + i][m] = (gk < K && gn < N) ? to_f32<T>(W[(size_t)gk * N + gn]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < SIMT_BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+// G = round(dY * slope) (slope nullptr: round(dY)) as an operand of the
+// simt mainloop, 4 values a chunk: 16 bytes of dY and the 16 of the slope
+// beside them.
+template <typename T> struct SgSlopeG {
+  using Elem = float;
+  static constexpr int NSRC = 2;
+  const float* __restrict__ dy;
+  const float* __restrict__ slope;
+  int ld;
+  __device__ __forceinline__ uint4 raw(int row, int col, bool vec, int left, int s) const {
+    const size_t at = (size_t)row * ld + col;
+    if (s == 0) return row_chunk_raw<float>(dy + at, 0, left, vec);
+    return slope != nullptr ? row_chunk_raw<float>(slope + at, 0, left, vec)
+                            : make_uint4(0u, 0u, 0u, 0u);
   }
+  template <int V>
+  __device__ __forceinline__ void values(const uint4 (&r)[2], float (&x)[V]) const {
+    const float* d = reinterpret_cast<const float*>(&r[0]);
+    const float* c = reinterpret_cast<const float*>(&r[1]);
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int q = row0 + ty + 16 * i;
-    if (q >= P) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int k = col0 + tx + 16 * j;
-      if (k >= K) continue;
-      float* out = dX + (size_t)q * K + k;
-      *out = accumulate ? *out + acc[i][j] : acc[i][j];
-    }
+    for (int e = 0; e < V; ++e) x[e] = round_to<T>(slope != nullptr ? d[e] * c[e] : d[e]);
   }
-}
+};
 
 __global__ void __launch_bounds__(DENSE_THREADS)
 dgrad_wmma(const float* __restrict__ dY, const float* __restrict__ slope,
@@ -1540,7 +1508,7 @@ composite_loss_bwd_block(const T* __restrict__ h, int F, const T* __restrict__ r
 // ops/fused_mlp.py dense_mainloop is the same rule in Python:
 //   wgmma  N and K multiples of 64; dY, slope, W and dX 16-byte aligned
 //   wmma   N a multiple of 8; dY, slope and W 16-byte aligned
-//   simt   any other shape (and fp32 always)
+//   simt   any other shape (and fp32 always): dgrad_sgemm<SgSlopeG<T>, T>
 // MAINLOOP_WMMA / MAINLOOP_WGMMA ask for one; a launch it cannot take is
 // refused with cudaErrorInvalidValue, never sent to another mainloop.
 extern "C" int satnerf_siren_dense_dgrad(int dtype, const void* dY, const void* slope,
@@ -1559,25 +1527,25 @@ extern "C" int satnerf_siren_dense_dgrad(int dtype, const void* dY, const void* 
   if (P == 0 || N == 0 || K == 0) return (int)cudaSuccess;
   const long long tiles = (long long)((P + BM - 1) / BM) * ((K + BN - 1) / BN);
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)tiles);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* dy = static_cast<const float*>(dY);
   const float* sl = static_cast<const float*>(slope);
   float* dx = static_cast<float*>(dX);
-  if (dtype == 0) {
-    dgrad_simt<float><<<grid, DENSE_THREADS, 0, st>>>(dy, sl, static_cast<const float*>(W), dx,
-                                                      accumulate, P, N, K);
-  } else if (mainloop == MAINLOOP_WGMMA) {
-    return launch_dgrad_wgmma<G_SLOPE>(st, dy, sl, static_cast<const __nv_bfloat16*>(W), dx,
-                                       accumulate, P, N, K);
-  } else if (mainloop == MAINLOOP_WMMA) {
-    dgrad_wmma<<<grid, DENSE_THREADS, 0, st>>>(dy, sl, static_cast<const __nv_bfloat16*>(W),
-                                               dx, accumulate, P, N, K);
-  } else {
-    dgrad_simt<__nv_bfloat16><<<grid, DENSE_THREADS, 0, st>>>(
-        dy, sl, static_cast<const __nv_bfloat16*>(W), dx, accumulate, P, N, K);
+  using bf16 = __nv_bfloat16;
+  if (mainloop == MAINLOOP_WGMMA)
+    return launch_dgrad_wgmma<G_SLOPE>(st, dy, sl, static_cast<const bf16*>(W), dx, accumulate,
+                                       P, N, K);
+  if (mainloop == MAINLOOP_WMMA) {
+    dgrad_wmma<<<(unsigned)tiles, DENSE_THREADS, 0, st>>>(dy, sl, static_cast<const bf16*>(W),
+                                                          dx, accumulate, P, N, K);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  const bool g_vec =
+      N % 4 == 0 && hopper::aligned16(dy) && (sl == nullptr || hopper::aligned16(sl));
+  return dtype == 0 ? launch_dgrad_sgemm(st, SgSlopeG<float>{dy, sl, N}, g_vec,
+                                         static_cast<const float*>(W), dx, accumulate, P, N, K)
+                    : launch_dgrad_sgemm(st, SgSlopeG<bf16>{dy, sl, N}, g_vec,
+                                         static_cast<const bf16*>(W), dx, accumulate, P, N, K);
 }
 
 // The mainloop rule of a launch with K > 0 (mainloop = MAINLOOP_RULE);

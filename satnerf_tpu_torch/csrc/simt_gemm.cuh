@@ -1,7 +1,8 @@
 // The fp32 SIMT mainloop of the dense kernels (exact fp32 FFMA, no TF32),
-// shared by siren_dense_sgemm (fused_render.cu) and nerf_wgrad_sgemm
-// (fused_nerf.cu): a 128 x 128 block tile of C = A . B, summed over the
-// reduction in order, one fmaf chain an output.
+// shared by siren_dense_sgemm (fused_render.cu), nerf_wgrad_sgemm
+// (fused_nerf.cu) and dgrad_sgemm (below: siren_dense_dgrad of
+// fused_train.cu, nerf_dense_dgrad of fused_nerf.cu): a 128 x 128 block tile
+// of C = A . B, summed over the reduction in order, one fmaf chain an output.
 //
 // What bounds it: its operations. At 65,536 points and a 512 x 512 layer a
 // launch does 34.4 GFLOP, 0.513 ms at the H100's 67 TFLOP/s of fp32 FMAs,
@@ -34,6 +35,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -250,6 +252,92 @@ __device__ __forceinline__ void sgemm_mainloop(float (&acc)[8][8], int k_tiles, 
   }
   cp_async_wait<0>();
   __syncthreads();
+}
+
+// ------------------------------------------------------------------ the dgrads
+//
+// dX[p, k] (+)= sum_n round(G[p, n]) * W[k, n]: the simt mainloop of
+// siren_dense_dgrad (G = dY * slope, fused_train.cu SgSlopeG) and of
+// nerf_dense_dgrad (G = dY * [Y > 0], fused_nerf.cu SgMaskedG), the rule's
+// for fp32 and for bf16 of shapes no tensor-core mainloop takes. They serve
+// the fp32 backward chains of the TPU kernels fused_train_loss_grads,
+// fused_sc_loss_grads, fused_train_render_rays, fused_field_apply(_rays)
+// (satnerf_tpu/ops/pallas/fused_mlp.py) and fused_nerf_train_loss_grads,
+// fused_nerf_apply (fused_nerf.py): their _dot_t_rhs products.
+//
+// What bounds it: its operations, 2 P K N FLOPs (0.513 ms at the H100's 67
+// TFLOP/s for 65,536 points at 512 x 512, 0.128 ms at 256 x 256) against
+// 0.16 ms (0.06) of bytes. A is G, whose rows (points) are contiguous along
+// the reduction n: it is transposed in registers on its way in, G formed and
+// rounded once an element there, from 16-byte loads of dY and of the slope
+// or mask. B is W^T: W (K, N) holds the reduction contiguously too, so it
+// takes the same way (a transposed copy of W sent by cp.async, one launch
+// more, was 1-2 % slower on the H100). 128 registers, no spills, at two
+// blocks an SM. Each output is one fmaf chain over n in order from 0, on
+// the same rounded G and W as the first SIMT body: dX is that body's to the
+// bit. The grid is one-dimensional with the column tile fastest: the blocks
+// that read a row tile of G run side by side and find it in L2.
+template <class GSrc, typename T>
+__global__ void __launch_bounds__(SG_THREADS, SG_MIN_BLOCKS)
+dgrad_sgemm(GSrc g, const T* __restrict__ W, float* __restrict__ dX, int accumulate, int P,
+            int N, int K, bool vec_g, bool vec_w, bool vec_x) {
+  extern __shared__ __align__(16) float sg_smem[];
+  const int col_tiles = (K + SG_BN - 1) / SG_BN;
+  const int row0 = (blockIdx.x / col_tiles) * SG_BM;  // points
+  const int col0 = (blockIdx.x % col_tiles) * SG_BN;  // k
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+  SgOperand<GSrc, true> a{g, row0, P, 0, N, vec_g};
+  SgOperand<SgSrc<T>, true> b{{W, N}, col0, K, 0, N, vec_w};
+  sgemm_mainloop(acc, (N + SG_BK - 1) / SG_BK, a, b, sg_smem);
+  // dX, added onto what is there where accumulate; vec_x: 4-column vector
+  // loads and stores (K a multiple of 4, dX aligned)
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int q = row0 + sg_row(r);
+    if (q >= P) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = col0 + sg_col(4 * h);
+      if (k >= K) continue;
+      float* o = dX + (size_t)q * K + k;
+      if (vec_x) {
+        float4 v = make_float4(acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2],
+                               acc[r][4 * h + 3]);
+        if (accumulate) {
+          const float4 was = *reinterpret_cast<const float4*>(o);
+          v = make_float4(was.x + v.x, was.y + v.y, was.z + v.z, was.w + v.w);
+        }
+        *reinterpret_cast<float4*>(o) = v;
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (k + c < K) o[c] = accumulate ? o[c] + acc[r][4 * h + c] : acc[r][4 * h + c];
+      }
+    }
+  }
+}
+
+// dgrad_sgemm of dX (P x K) (+)= round(G) . W^T on its grid, its dynamic
+// shared memory allowed first; g_vec: G's source may go 16 bytes at a time
+// (N a multiple of 4, its pointers aligned).
+template <class GSrc, typename T>
+int launch_dgrad_sgemm(cudaStream_t st, GSrc g, bool g_vec, const T* W, float* dX,
+                       int accumulate, int P, int N, int K) {
+  static int allowed = 0;
+  const int err = hopper::allow_smem(dgrad_sgemm<GSrc, T>, SG_SMEM_BYTES, &allowed);
+  if (err != 0) return err;
+  const long long tiles = (long long)((P + SG_BM - 1) / SG_BM) * ((K + SG_BN - 1) / SG_BN);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  constexpr int v = 16 / (int)sizeof(T);
+  const bool vec_w = N % v == 0 && hopper::aligned16(W);
+  const bool vec_x = K % 4 == 0 && hopper::aligned16(dX);
+  dgrad_sgemm<GSrc, T><<<(unsigned)tiles, SG_THREADS, SG_SMEM_BYTES, st>>>(
+      g, W, dX, accumulate, P, N, K, g_vec, vec_w, vec_x);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -146,8 +146,10 @@ K0_MAINLOOPS = ("k0", "k0_v1")
 MAINLOOP_KERNELS = ("siren_dense", "siren_dense_dgrad", "siren_dense_wgrad",
                     "nerf_dense", "nerf_dense_dgrad", "nerf_dense_wgrad")
 # The kernels whose simt mainloop (the rule's in fp32) is the pipelined SIMT
-# GEMM of csrc/simt_gemm.cuh; the other four keep their first SIMT body
-SGEMM_KERNELS = ("siren_dense", "nerf_dense_wgrad")
+# GEMM of csrc/simt_gemm.cuh; siren_dense_wgrad and nerf_dense keep their
+# first SIMT body (wgrad_simt, nerf_dense_simt)
+SGEMM_KERNELS = ("siren_dense", "siren_dense_dgrad", "nerf_dense_dgrad",
+                 "nerf_dense_wgrad")
 # csrc/common.cuh MAINLOOP_*; 0: the rule
 _MAINLOOP_CODE = {"wmma": 1, "wgmma": 2, "k0": 0, "k0_v1": 3}
 DENSE_WGMMA_MAX_K = 512  # csrc/fused_render.cu FWD_MAX_K, fused_nerf.cu NDW_MAX_K

@@ -77,7 +77,10 @@ pipelined SIMT GEMM (csrc/simt_gemm.cuh) of siren_dense and nerf_dense_wgrad,
 the simt mainloop of every fp32 launch, against the plain version at 10,
 1,037 and 65,573 points, K 16 / 100 / 512 and N 100 / 256 / 512, the skip
 layer with its E operand or encoding, N not a multiple of 4, inputs one
-element off 16 bytes, and bf16 at width 100.
+element off 16 bytes, and bf16 at width 100; and of siren_dense_dgrad and
+nerf_dense_dgrad at 1,037 points, K 3 / 100 / 512, N 1 / 3 / 100 / 256 /
+512, with the slope or mask and without, onto out= and not, every operand 4
+bytes off 16, in fp32 and in bf16 where no tensor-core mainloop takes it.
 """
 
 import numpy as np
@@ -2618,3 +2621,65 @@ def test_nerf_dense_wgrad_simt_bf16(dev, enc, n_freq, n_rays, samples, offset):
     """bf16 at width 100, which no tensor-core mainloop takes."""
     _hold_simt_wgrad(dev, torch.bfloat16, 100, 100, enc, n_freq, True, n_rays,
                      samples, offset)
+
+
+# ---- the two dgrads on the pipelined SIMT mainloop (csrc/simt_gemm.cuh
+# dgrad_sgemm): fp32 on every shape, bf16 where no tensor-core mainloop takes
+# the launch (N not a multiple of 8, or operands off 16 bytes). 1,037 points
+# (not a multiple of the 128-row tile), K 3 / 100 / 512 (dX's columns), N 1 /
+# 3 / 100 / 256 / 512 (the reduction), the slope or relu mask and none, onto
+# `out=` and not, every operand 4 bytes off 16.
+SIMT_DGRAD_POINTS = 1037
+SIMT_DGRAD_CASES = [
+    (dtype, k, n, offset) for dtype in DTYPES for k in (3, 100, 512)
+    for n in (1, 3, 100, 256, 512) for offset in (0, 1)
+    if dtype == torch.float32 or n % 8 or offset]
+
+
+def _hold_simt_dgrad(dev, name, dtype, k, n, gated, accumulate, offset):
+    g = torch.Generator().manual_seed(13)
+    p = SIMT_DGRAD_POINTS
+    dy = torch.randn(p, n, generator=g).to(dev)
+    if name == "siren_dense_dgrad":
+        gate = (torch.randn(p, n, generator=g) * 30).to(dev) if gated else None
+        kernel, plain = FM.siren_dense_dgrad, FM.siren_dense_dgrad_reference
+    else:
+        gate = (torch.relu(torch.randn(p, n, generator=g)).to(dev, dtype)
+                if gated else None)
+        kernel, plain = FN.nerf_dense_dgrad, FN.nerf_dense_dgrad_reference
+    w = (torch.randn(k, n, generator=g) / n ** 0.5).to(dev, dtype)
+    base = torch.randn(p, k, generator=g).to(dev) if accumulate else None
+    ref = plain(dy, gate, w, out=None if base is None else base.clone())
+    if offset:  # 4 bytes into their storage
+        dy, gate, w, base = (None if t is None else _odd(t, 4 // t.element_size())
+                             for t in (dy, gate, w, base))
+    assert FM.dense_mainloop(name, dtype, k, n, inputs_aligned=not offset,
+                             outputs_aligned=not offset) == "simt"
+    before = _count(name, "simt")
+    got = kernel(dy, gate, w, out=base)
+    assert _count(name, "simt") == before + 1
+    assert got.shape == (p, k) and got.dtype == torch.float32
+    assert _rel(got, ref) <= 1e-4, _rel(got, ref)
+    if accumulate:
+        assert got.data_ptr() == base.data_ptr()
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("dtype,k,n,offset", SIMT_DGRAD_CASES)
+def test_siren_dense_dgrad_simt(dev, dtype, k, n, offset, gated, accumulate):
+    """dX = round(dY * slope) . W^T (slope None: round(dY) . W^T) against the
+    plain version, within 1e-4 of its largest entry: the same products
+    summed in another order."""
+    _hold_simt_dgrad(dev, "siren_dense_dgrad", dtype, k, n, gated, accumulate,
+                     offset)
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("dtype,k,n,offset", SIMT_DGRAD_CASES)
+def test_nerf_dense_dgrad_simt(dev, dtype, k, n, offset, gated, accumulate):
+    """dX = round(dY * [Y > 0]) . W^T (Y None: round(dY) . W^T) against the
+    plain version, within 1e-4 of its largest entry."""
+    _hold_simt_dgrad(dev, "nerf_dense_dgrad", dtype, k, n, gated, accumulate,
+                     offset)

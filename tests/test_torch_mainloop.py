@@ -17,7 +17,7 @@ is asked for, and refuse a name they do not know. The card's side of the
 same rule is held in tests/test_torch_cuda.py.
 
 fp32 on every shape takes simt, whatever its widths and pointers: for
-siren_dense and nerf_dense_wgrad the pipelined SIMT GEMM of
+siren_dense, the two dgrads and nerf_dense_wgrad the pipelined SIMT GEMM of
 csrc/simt_gemm.cuh (FM.SGEMM_KERNELS), which replaced their first SIMT body;
 `mainloop=` asks for neither.
 
@@ -248,8 +248,9 @@ def test_unknown_names_are_refused():
         FM.dense_mainloop("composite_loss_bwd", BF16, 512, 512)
 
 
-# The simt mainloop of siren_dense and nerf_dense_wgrad is the pipelined SIMT
-# GEMM of csrc/simt_gemm.cuh; the other four keep their one SIMT body. fp32
+# The simt mainloop of siren_dense, siren_dense_dgrad, nerf_dense_dgrad and
+# nerf_dense_wgrad is the pipelined SIMT GEMM of csrc/simt_gemm.cuh;
+# siren_dense_wgrad and nerf_dense keep their one SIMT body. fp32
 # on every shape takes simt, whatever its widths and pointers; bf16 takes it
 # where no tensor-core mainloop does (the RULE tables above).
 @pytest.mark.parametrize("kernel", FM.MAINLOOP_KERNELS)
@@ -263,9 +264,10 @@ def test_fp32_takes_simt_on_every_shape(kernel, k, n, aligned):
                              outputs_aligned=aligned) == "simt"
 
 
-# (kernel, dtype, K, N, e_rows, the rule's mainloop) of the two kernels on
+# (kernel, dtype, K, N, e_rows, the rule's mainloop) of the four kernels on
 # the pipelined GEMM: the first SIMT body they ran is gone, and asking for it
-# ("simt_v1") is refused like any name the rule does not know
+# ("simt_v1") is refused like any name the rule does not know. The dgrads'
+# bf16 at N = 100 (not a multiple of 8) is no tensor-core mainloop's
 SGEMM_ROUTES = [
     ("siren_dense", F32, 512, 512, 0, "simt"),
     ("siren_dense", F32, 16, 100, 0, "simt"),
@@ -275,6 +277,14 @@ SGEMM_ROUTES = [
     ("nerf_dense_wgrad", F32, 0, 256, 64, "simt"),
     ("nerf_dense_wgrad", BF16, 100, 100, 32, "simt"),
     ("nerf_dense_wgrad", BF16, 256, 256, 0, "wgmma"),
+    ("siren_dense_dgrad", F32, 512, 512, 0, "simt"),
+    ("siren_dense_dgrad", F32, 3, 1, 0, "simt"),
+    ("siren_dense_dgrad", BF16, 512, 100, 0, "simt"),
+    ("siren_dense_dgrad", BF16, 512, 512, 0, "wgmma"),
+    ("nerf_dense_dgrad", F32, 256, 256, 0, "simt"),
+    ("nerf_dense_dgrad", F32, 100, 3, 0, "simt"),
+    ("nerf_dense_dgrad", BF16, 256, 100, 0, "simt"),
+    ("nerf_dense_dgrad", BF16, 256, 256, 0, "wgmma"),
 ]
 
 
@@ -288,11 +298,11 @@ def test_the_first_simt_body_is_gone(kernel, dtype, k, n, e_rows, rule):
 
 @pytest.mark.parametrize("kernel,dtype,k,n", [
     ("siren_dense", F32, 0, 512),           # K = 0: the elementwise kernel
-    ("siren_dense_dgrad", F32, 512, 512),   # their first SIMT body
-    ("siren_dense_wgrad", F32, 512, 512),
+    ("siren_dense_dgrad", F32, 512, 512),   # the pipelined SIMT GEMM
+    ("siren_dense_wgrad", F32, 512, 512),   # its first SIMT body
     ("siren_dense_wgrad", F32, 0, 512),
-    ("nerf_dense", F32, 256, 256),
-    ("nerf_dense_dgrad", F32, 256, 256)])
+    ("nerf_dense", F32, 256, 256),          # its first SIMT body
+    ("nerf_dense_dgrad", F32, 256, 256)])   # the pipelined SIMT GEMM
 def test_simt_cannot_be_asked_for(kernel, dtype, k, n):
     """simt is the rule's answer only: neither "simt" nor "simt_v1" is a
     name `mainloop=` takes."""

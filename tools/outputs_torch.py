@@ -16,9 +16,11 @@ bodies at 64 and 256 samples a ray (the per-sample cotangents and the
 weights: no atomics), siren_dense at K = 0 (layer 0 with its slope, sky_0), the skip layer's wgrad dW and db
 with every point in one block's range (the fp32 atomics across ranges add
 in another order each run), a dgrad's dX, the skip layer's siren_dense at
-65,536 points in bf16 (wgmma) and fp32 (simt), and the nerf skip layer's
-bf16 wgrad (dW, db, dC) with every point in one block's range; these must
-come out equal to the bit. Then sc_loss_bwd (sums, d_s2, dWn row 4, dbn[4]) at 1,024 x 64,
+65,536 points in bf16 (wgmma) and fp32 (simt), the nerf skip layer's
+bf16 wgrad (dW, db, dC) with every point in one block's range, and the dX
+of siren_dense_dgrad and nerf_dense_dgrad on simt (DGRAD_SHAPES: their
+fp32 main-path shapes and bf16 at N = 100; with the slope or mask, without
+it, and onto a given out=); these must come out equal to the bit. Then sc_loss_bwd (sums, d_s2, dWn row 4, dbn[4]) at 1,024 x 64,
 1,024 x 128 and 256 x 640 samples, bf16 and fp32, with and without sigma
 noise, and field_heads' (P, 16) output at 1,024 x 128 and at 131,072
 points that are their own rays (S = 1), bf16 and fp32: field_heads to the
@@ -57,21 +59,24 @@ times all but sc_loss_bwd through the same wrappers on either library, in
 one process and in turns (parent, change, change, parent): the C entries
 keep their contract, so the same call drives both.
 
-`time` ends with the fp32 whole runs that `fp32` runs alone: the sat-nerf
-8 x 512 --precision float32 K1 step (1,024 rays x 64) and render_image of a
-262,144-ray view, by events and in device-ms, on the kernels (--fused rays;
-given PARENT_DIR, through the parent's build of every source and this
-tree's, in turns) and on --fused off (plain PyTorch on the card) beside them.
+`time` ends with the fp32 runs that `fp32` runs alone: the two dgrads at
+their fp32 main-path shapes (DGRAD_SHAPES), then the sat-nerf 8 x 512 and
+nerf 8 x 256 --precision float32 train steps (1,024 rays x 64) and
+render_image of a 262,144-ray view, by events and in device-ms, on the
+kernels (--fused rays; given PARENT_DIR, through the parent's build of every
+source and this tree's, in turns) and on --fused off (plain PyTorch on the
+card) beside them.
 
 `variants` builds this tree's csrc/fused_nerf.cu once a spec with the
 constants of its design choices set otherwise (in a copy of csrc/) and
 times the two per-ray and the two per-point nerf kernels through each build
 and the package's in turns, with ptxas' registers and spills of each.
 
-`simt` builds fused_render.cu and fused_nerf.cu once a spec with the
-constants of csrc/simt_gemm.cuh set otherwise and times the two kernels on
-that mainloop (siren_dense, nerf_dense_wgrad) in fp32 through each build
-and the package's in turns, with ptxas' registers and spills.
+`simt` builds fused_render.cu, fused_train.cu and fused_nerf.cu once a spec
+with the constants of csrc/simt_gemm.cuh set otherwise and times the four
+kernels on that mainloop (siren_dense, siren_dense_dgrad, nerf_dense_dgrad,
+nerf_dense_wgrad) in fp32 through each build and the package's in turns,
+with ptxas' registers and spills.
 
 `faint` prints sc_loss_bwd's dbn[4] on one ray of the most samples its
 shared memory holds, from the kernel and from the plain version on the card
@@ -80,6 +85,7 @@ fp32 evaluations of the same formula drift apart where every factor
 1 - alpha lies within 1e-4 of 1.
 """
 
+import itertools
 import os
 import subprocess
 import sys
@@ -102,6 +108,11 @@ NERF_FEAT, NERF_FH = 256, 128
 # and the coarse pass of a hierarchical batch at the field's width, and the
 # widest width they take
 NERF_POINT_SHAPES = ((131072, 256), (65536, 256), (16384, 512))
+# the dgrads' shapes, dtype -> (points, ((K, N) of siren_dense_dgrad, of
+# nerf_dense_dgrad)): their fp32 main-path launches (a 1,024 x 64 batch on
+# the 8 x 512 and 8 x 256 trunks), and bf16 at N = 100, which only simt takes
+DGRAD_SHAPES = {"float32": (65536, ((512, 512), (256, 256))),
+                "bfloat16": (1037, ((512, 100), (256, 100)))}
 
 # Outputs held to a tolerance, by the start of their name (the longest
 # that fits), and why:
@@ -283,6 +294,25 @@ def save(path: str) -> None:
                             enc_rows=64, split=65536)
     for k, v in zip(("dW", "db", "dC"), w):
         out[f"nerf_dense_wgrad bfloat16 skip layer {k}"] = v.cpu()
+    # the two dgrads on simt, whose pipelined GEMM sums each output in the
+    # first SIMT body's order: at their fp32 main-path shapes and at a bf16
+    # width no tensor-core mainloop takes (N = 100), with the slope or mask,
+    # without it, and onto a given out=
+    g7 = torch.Generator(device=dev).manual_seed(7)
+    t7 = _tensors(g7, dev)
+    for dname, (p, wide) in DGRAD_SHAPES.items():
+        dtype = getattr(torch, dname)
+        for name, kernel, (k, n) in (("siren_dense_dgrad", FM.siren_dense_dgrad, wide[0]),
+                                     ("nerf_dense_dgrad", FN.nerf_dense_dgrad, wide[1])):
+            dy = t7(p, n, dtype=torch.float32)
+            gate = (t7(p, n, s=30, dtype=torch.float32) if name == "siren_dense_dgrad"
+                    else t7(p, n, dtype=dtype).relu())
+            w, base = t7(k, n, s=0.05, dtype=dtype), t7(p, k, dtype=torch.float32)
+            tag = f"{name} {dname} simt P={p} K={k} N={n}"
+            out[f"{tag} dX"] = kernel(dy, gate, w).cpu()
+            out[f"{tag} no gate dX"] = kernel(dy, None, w).cpu()
+            out[f"{tag} onto out= dX"] = kernel(dy, gate, w, out=base).cpu()
+            del dy, gate, w, base
 
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
@@ -528,16 +558,50 @@ def _in_turns(parent, fn, measure):
     return got
 
 
-# the fp32 whole runs: sat-nerf 8 x 512, 64 samples, --precision float32; a
-# train step of 1,024 rays (K1) and a render of a 512 x 512 view
+# the fp32 whole runs: sat-nerf 8 x 512 and nerf 8 x 256, 64 samples,
+# --precision float32; a train step of 1,024 rays (K1 for sat-nerf) and a
+# render of a 512 x 512 view
 FP32_RAYS, FP32_STEPS, FP32_RENDERS = 262144, 10, 2
 
 
+def _fp32_dgrads(parent, card) -> None:
+    """siren_dense_dgrad and nerf_dense_dgrad at their fp32 main-path shapes
+    (DGRAD_SHAPES) with the slope or mask: events over 20 launches and the
+    device time of the dgrad kernels; with a parent's library, through both
+    in turns."""
+    import torch
+
+    from satnerf_tpu_torch.ops import fused_mlp as FM
+    from satnerf_tpu_torch.ops import fused_nerf as FN
+
+    dev = torch.device("cuda")
+    t = _tensors(torch.Generator(device=dev).manual_seed(9), dev)
+    p, ((ks, ns), (kn, nn)) = DGRAD_SHAPES["float32"]
+    f32 = torch.float32
+    dy, slope, w = t(p, ns, dtype=f32), t(p, ns, s=30, dtype=f32), t(ks, ns, s=0.05, dtype=f32)
+    dyn, y, wn = t(p, nn, dtype=f32), t(p, nn, dtype=f32).relu(), t(kn, nn, s=0.05, dtype=f32)
+    for what, fn in ((f"siren_dense_dgrad fp32 {p:,} x {ks} x {ns}",
+                      lambda: FM.siren_dense_dgrad(dy, slope, w)),
+                     (f"nerf_dense_dgrad fp32 {p:,} x {kn} x {nn}",
+                      lambda: FN.nerf_dense_dgrad(dyn, y, wn))):
+        measure = lambda f: (_event_ms(f), _device_ms(f, "dgrad")[0])  # noqa: E731
+        if parent is None:
+            e, d = measure(fn)
+            print(f"{what}: {e:.4f} ms by events, {d:.4f} device on {card}", flush=True)
+            continue
+        got = _in_turns(parent, fn, measure)
+        print(f"{what}, in turns: " + "; ".join(
+            f"{who} " + ", ".join(f"{e:.4f} by events / {d:.4f} device" for e, d in v)
+            for who, v in got.items()) + f" ms on {card}", flush=True)
+
+
 def time_fp32(parent=None, card=None) -> None:
-    """The --precision float32 K1 step and render_image of FP32_RAYS rays, in
-    device-ms and by events, on the kernels (--fused rays; with a parent's
-    library, through both in turns) and on --fused off (plain PyTorch on the
-    card, no kernel) beside them."""
+    """The two dgrads at their fp32 main-path shapes (_fp32_dgrads), then the
+    --precision float32 train step of sat-nerf 8 x 512 (K1) and of nerf 8 x
+    256 and their render_image of FP32_RAYS rays, in device-ms and by events,
+    on the kernels (--fused rays; with a parent's library, through both in
+    turns) and on --fused off (plain PyTorch on the card, no kernel) beside
+    them."""
     import numpy as np
     import torch
 
@@ -548,6 +612,7 @@ def time_fp32(parent=None, card=None) -> None:
     card = card or _smi("name,power.limit")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    _fp32_dgrads(parent, card)
     dev = torch.device("cuda")
     n = FP32_RAYS
     rng = np.random.RandomState(0)
@@ -560,15 +625,17 @@ def time_fp32(parent=None, card=None) -> None:
             "rgbs": torch.from_numpy(rng.rand(n, 3).astype(np.float32)).to(dev),
             "ts": torch.from_numpy(ts.astype(np.int64)).to(dev)}
     key = jax_prng.prng_key(1)
-    for fused in ("rays", "off"):
-        cfg = Config(model="sat-nerf", fc_layers=8, fc_units=FEAT, n_samples=64,
+    for (model, units), fused in itertools.product(
+            (("sat-nerf", FEAT), ("nerf", NERF_FEAT)), ("rays", "off")):
+        cfg = Config(model=model, fc_layers=8, fc_units=units, n_samples=64,
                      chunk=65536, batch_size=1024, first_beta_epoch=0,
                      precision="float32", fused=fused)
         system = NeRFSystem(cfg, dataset_len=n)
         state, params = system.init_state(0), system.init_params(0)
-        runs = ((f"K1 step fp32 --fused {fused} (1,024 rays x 64)",
+        step = "K1 step" if model == "sat-nerf" else "nerf step"
+        runs = ((f"{step} fp32 --fused {fused} (1,024 rays x 64)",
                  lambda: system.train_step(state, data, key), FP32_STEPS),
-                (f"render_image fp32 --fused {fused} ({n:,} rays)",
+                (f"{model} render_image fp32 --fused {fused} ({n:,} rays)",
                  lambda: system.render_image(params, rays, ts), FP32_RENDERS))
         for what, fn, reps in runs:
             if parent is not None and fused == "rays":
@@ -779,17 +846,18 @@ def variants(specs) -> None:
 
 
 def simt_variants(specs) -> None:
-    """`simt NAME=CONST:VALUE[,CONST:VALUE] ...`: this tree's fused_render.cu
-    and fused_nerf.cu built once a spec with the constants of
+    """`simt NAME=CONST:VALUE[,CONST:VALUE] ...`: this tree's fused_render.cu,
+    fused_train.cu and fused_nerf.cu built once a spec with the constants of
     csrc/simt_gemm.cuh (SG_BK, SG_STAGES, SG_MIN_BLOCKS, SG_WARP_M) set
-    otherwise, ptxas' registers and spills of each sgemm kernel, and the two
-    kernels on that mainloop in fp32 through each spec's library and the
-    package's, in turns (package, spec, spec, package): siren_dense at a
-    512 x 512 layer of 65,536 points with the sine and its slope and with
-    no activation and no slope (the mainloop with the lightest epilogue),
-    nerf_dense_wgrad at its 256 x 256 trunk layer and its skip layer (dC
-    against the 64-row encoding); events over 20 launches and the device
-    time of the sgemm kernels by torch.profiler."""
+    otherwise, ptxas' registers and spills of each sgemm kernel, and the
+    four kernels on that mainloop in fp32 through each spec's library and
+    the package's, in turns (package, spec, spec, package): siren_dense_dgrad at a 512 x 512 layer of 65,536 points with
+    the slope, nerf_dense_dgrad at 256 x 256 masked, siren_dense at 512 x
+    512 with the sine and its slope and with no activation and no slope (the
+    mainloop with the lightest epilogue), nerf_dense_wgrad at its 256 x 256
+    trunk layer and its skip layer (dC against the 64-row encoding); events
+    over 20 launches and the device time of the kernels whose name holds
+    "sgemm" by torch.profiler."""
     sys.path.insert(0, os.getcwd())
     import torch
 
@@ -801,7 +869,7 @@ def simt_variants(specs) -> None:
         raise SystemExit("outputs_torch.py simt runs on a GPU")
     card = _smi("name,power.limit")
     given = dict(spec.split("=", 1) for spec in specs)
-    sources = ("fused_render.cu", "fused_nerf.cu")
+    sources = ("fused_render.cu", "fused_train.cu", "fused_nerf.cu")
     jobs = {"default": (B.CSRC_DIR, sources)}
     jobs.update({tag: (_variant_csrc(tag, consts, "simt_gemm.cuh"), sources)
                  for tag, consts in given.items()})
@@ -825,7 +893,12 @@ def simt_variants(specs) -> None:
     rays8 = torch.cat([rand(n_rays, 6), torch.zeros(n_rays, 2, device=dev)], 1)
     z = torch.sort(torch.rand(n_rays, n_s, generator=g, device=dev), 1).values
     x, dy, y = rand(p, 256), rand(p, 256), rand(p, 256).clamp_min(0)
+    dy5, slope5, w2 = rand(p, 512), rand(p, 512) * 30, w[:256, :256].contiguous()
     cases = (
+        ("siren_dense_dgrad fp32 512 x 512 with the slope",
+         lambda: FM.siren_dense_dgrad(dy5, slope5, w)),
+        ("nerf_dense_dgrad fp32 256 x 256 masked",
+         lambda: FN.nerf_dense_dgrad(dy, y, w2)),
         ("siren_dense fp32 512 x 512, sine and slope",
          lambda: FM.siren_dense(h, w, b, rays16, n_s, save=True)),
         ("siren_dense fp32 512 x 512, no activation, no slope",
